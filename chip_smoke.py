@@ -1,0 +1,275 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py            # every phase, on cuda:0
+
+Builds the port's CUDA kernels from the sources in this checkout, holds
+each against its plain PyTorch version on the card, and drives the
+port's main path — the ``rram_accuracy`` scenario (§IV-H, Eq. 4) at its
+registry budget — through ``repro_torch.experiments.runner.run_scenario``
+on the card. Phases:
+
+  1. the card's name and power limit (nvidia-smi);
+  2. the kernel build time (one nvcc per source, started together);
+  3. ``imc_fused`` kernel vs ``imc_fused_plain`` at the main-path shapes
+     and the four shape families of tests/test_kernels.py, rtol 1e-5 /
+     atol 1e-4, with CUDA-event timings and the bound;
+  4. the accuracy model, backend 'cuda' vs 'ref', on 120 sampled RRAM
+     genomes, rtol 1e-4;
+  5. ``rram_accuracy`` end to end on the card; the kernel's launch count
+     must rise on that run;
+  6. the run's best genome re-scored on the CPU (backend 'jnp'), rtol 1e-4;
+  7. ``rram_smoke`` (EDAP only, no kernel) end to end on the card.
+
+Every phase raises on failure and the script then exits non-zero. The
+line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the rest of the repository beside it, it exits 1 and prints
+no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+# main-path shape of the accuracy model (Calib defaults, RRAM rows table)
+B, K, N, SUB = 32, 256, 32, 64
+ROWS = (64.0, 128.0, 256.0, 512.0)
+# tests/test_kernels.py shape families: (P, B, K, N, sub, row values)
+FAMILIES = [
+    (3, 4, 256, 8, 64, (64.0, 128.0, 256.0)),
+    (2, 2, 96, 4, 32, (32.0, 64.0, 96.0)),      # odd tiling
+    (2, 3, 200, 5, 64, (64.0, 128.0)),          # ragged K
+    (1, 2, 48, 4, 16, (48.0,)),                 # single group
+]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def fused_inputs(torch, gen, P, b, k, n, rows, dev):
+    x_q = torch.randint(0, 256, (b, k), generator=gen, dtype=torch.int32,
+                        device=dev)
+    w = torch.rand((k, n), generator=gen, device=dev) * 2.0 - 1.0
+    ep = torch.randn((P, k, n), generator=gen, device=dev)
+    en = torch.randn((P, k, n), generator=gen, device=dev)
+    ri = torch.randint(0, len(rows), (P,), generator=gen, dtype=torch.int32,
+                       device=dev)
+    rt = torch.tensor(rows, dtype=torch.float32, device=dev)
+    return x_q, w, ep, en, ri, rt
+
+
+def time_ms(torch, fn, reps: int, windows: int = 5) -> float:
+    """Median over ``windows`` of the mean time of ``reps`` calls,
+    by CUDA events after a warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def fused_bound_ms(P, b, k, n, sub, n_rows) -> dict:
+    """Least time for the fused kernel's work on an H100 SXM: the 8
+    bit-plane GEMMs (2 FLOP per MAC) plus the noise arithmetic (28 FLOP
+    per weight element) in float32, against each input read once and
+    the output written once."""
+    kp = k + (-k) % sub
+    flops = 2 * 8 * b * kp * n * P + 28 * P * k * n
+    nbytes = 4 * (b * k + k * n + 2 * P * k * n + P + n_rows + P * b * n)
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def phase_kernel(torch, fused, dev) -> dict:
+    """Phase 3: kernel vs plain at the main-path and test shapes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    shapes = [(P, B, K, N, SUB, ROWS) for P in (24, 96, 120, 480)]
+    shapes += FAMILIES
+    main = None
+    for P, b, k, n, sub, rows in shapes:
+        args = fused_inputs(torch, gen, P, b, k, n, rows, dev)
+        got = fused.imc_fused_gemm(*args, sub=sub)
+        want = fused.imc_fused_plain(*args, sub=sub)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        line = (f"imc_fused P={P} B={b} K={k} N={n} sub={sub}: max_abs_err "
+                f"{err:.3g}")
+        if (b, k, n) == (B, K, N):
+            ms = time_ms(torch, lambda: fused.imc_fused_gemm(*args, sub=sub),
+                         reps=50)
+            plain_ms = time_ms(
+                torch, lambda: fused.imc_fused_plain(*args, sub=sub), reps=3,
+                windows=3)
+            bound = fused_bound_ms(P, b, k, n, sub, len(rows))
+            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+                     f"{bound['flops'] / 1e9:.3f} GFLOP, "
+                     f"{bound['bytes'] / 1e6:.2f} MB)")
+            if P == 120:
+                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        **bound}
+        log(line)
+    return main
+
+
+def phase_accuracy(torch, dev) -> None:
+    """Phase 4: accuracy model 'cuda' vs 'ref' on 120 RRAM genomes."""
+    from repro_torch import random as jr
+    from repro_torch.core import get_space, get_workload_set, pack
+    from repro_torch.core.nonideal import make_accuracy_model
+    from repro_torch.core.sampling import uniform_genomes
+    space = get_space("rram")
+    wa = pack(get_workload_set(("resnet18", "vgg16", "alexnet",
+                                "mobilenetv3")))
+    cards = torch.as_tensor(space.cardinalities, dtype=torch.float32,
+                            device=dev)
+    g = uniform_genomes(jr.PRNGKey(7, dev)[None], cards, 120)[0]
+    acc_k = make_accuracy_model(space, wa, backend="cuda", device=dev)(g)
+    acc_r = make_accuracy_model(space, wa, backend="ref", device=dev)(g)
+    torch.cuda.synchronize()
+    if acc_k.shape != (120, 4) or not torch.isfinite(acc_k).all():
+        raise RuntimeError(f"accuracy model: bad output {acc_k.shape}")
+    torch.testing.assert_close(acc_k, acc_r, rtol=1e-4, atol=0.0)
+    log(f"accuracy model cuda vs ref on 120 genomes: max_abs_err "
+        f"{float((acc_k - acc_r).abs().max()):.3g}, mean accuracy "
+        f"{float(acc_k.mean()):.4f}")
+
+
+def phase_scenario(torch, name, dev, out_dir) -> dict:
+    """Phases 5 and 7: one registry scenario end to end on the card."""
+    from repro_torch.experiments import get_scenario
+    from repro_torch.experiments.runner import run_scenario
+    sc = get_scenario(name)
+    t0 = time.perf_counter()
+    res = run_scenario(sc, out_dir=out_dir, force=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (math.isfinite(res["best_score"]) and res["best_score"] < 1e29):
+        raise RuntimeError(f"{name}: best score {res['best_score']}")
+    log(f"{name} on {res['device']['name']}: wall {wall:.2f} s, backend "
+        f"{res['backend']}, best {res['objective']} {res['best_score']:.6g}, "
+        f"budget {res['budget']}")
+    log(f"{name} best design: {json.dumps(res['generalized']['design'])}")
+    return res
+
+
+def phase_rescore_cpu(res) -> None:
+    """Phase 6: the card's best genome re-scored by the port on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.experiments import get_scenario
+    from repro_torch.experiments.runner import (build_scenario_scorer,
+                                                setup_scenario)
+    sc = get_scenario(res["scenario"])
+    st = setup_scenario(sc)
+    sc_cpu = dataclasses.replace(sc, backend="jnp")
+    scorer = build_scenario_scorer(sc_cpu, st, device="cpu")
+    d = res["generalized"]["design"]
+    genome = [int(np.flatnonzero(st.space.values[i] == np.float32(d[n]))[0])
+              for i, n in enumerate(st.space.names)]
+    cpu = float(scorer.score(torch.tensor([genome]))[0])
+    card = res["generalized"]["objective_score"]
+    if not math.isclose(cpu, card, rel_tol=1e-4):
+        raise RuntimeError(f"CPU re-score {cpu} != card score {card}")
+    log(f"best genome re-scored on the CPU (jnp): {cpu:.6g} vs card "
+        f"{card:.6g} (rel {abs(cpu - card) / abs(card):.2e})")
+
+
+def main(argv=None) -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
+        argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    src = os.path.join(HERE, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build, imc_fused as fused
+
+    dev = resolve_device("cuda:0")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    log(card_line())                                                 # 1
+    built = build.build_timed()                                      # 2
+    log(f"kernel build: {built['seconds']:.2f} s")
+    for name, text in built["logs"].items():
+        for ln in text.splitlines():
+            if "registers" in ln or "spill" in ln or "error" in ln.lower():
+                log(f"  {name}: {ln.strip()}")
+    main_k = phase_kernel(torch, fused, dev)                         # 3
+    phase_accuracy(torch, dev)                                       # 4
+    with tempfile.TemporaryDirectory() as out_dir:
+        fused.imc_fused_gemm.launches = 0                            # 5
+        res = phase_scenario(torch, "rram_accuracy", dev, out_dir)
+        launches = fused.imc_fused_gemm.launches
+        if launches <= 0 or res["backend"] != "cuda":
+            raise RuntimeError(
+                f"rram_accuracy did not run the kernel: launches "
+                f"{launches}, backend {res['backend']}")
+        log(f"rram_accuracy: imc_fused launches {launches}")
+        phase_rescore_cpu(res)                                       # 6
+        fused.imc_fused_gemm.launches = 0                            # 7
+        phase_scenario(torch, "rram_smoke", dev, out_dir)
+        log(f"rram_smoke: imc_fused launches "
+            f"{fused.imc_fused_gemm.launches} (EDAP only)")
+    entry = {"name": "imc_fused", "route": "cuda",
+             "source": "src/repro_torch/csrc/imc_fused.cu",
+             "replaces": "src/repro/kernels/imc_fused.py:83",
+             "launches": launches,
+             "max_abs_err": main_k["max_abs_err"], "ms": main_k["ms"],
+             "plain_ms": main_k["plain_ms"],
+             "bound_ms": main_k["bound_ms"],
+             "bound_by": main_k["bound_by"], "library_ms": None}
+    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

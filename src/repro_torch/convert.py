@@ -1,0 +1,74 @@
+"""Carries the reference's state across into the port.
+
+This system has no weights. Its "parameters" are the PRNG keys, the
+search-space value tables, the hardware constants, the packed workload
+arrays, the calibration GEMM operands and genome populations. Each
+``from_reference_*`` function takes them as the JAX side produces them
+(numpy arrays, or objects exposing the same fields as numpy arrays) and
+returns the port's tensors and dataclasses on a given device, so a test
+can feed both packages exactly the same state. Nothing here imports the
+reference package: objects are read by their field names.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .core.cost_model import HWConstants
+from .core.search_space import SearchSpace
+from .core.workloads import WorkloadArrays
+
+
+def from_reference_key(key, device="cpu") -> torch.Tensor:
+    """A raw threefry key (or a batch of keys) of uint32 values, shape
+    (..., 2) -> the port's int64 key tensor."""
+    arr = np.asarray(key)
+    if arr.shape[-1] != 2 or arr.dtype != np.uint32:
+        raise TypeError("expected raw uint32 threefry key data of shape "
+                        f"(..., 2), got {arr.dtype} {arr.shape}")
+    return torch.as_tensor(arr.astype(np.int64), device=device)
+
+
+def from_reference_space(space) -> SearchSpace:
+    """A reference ``SearchSpace`` (hardware-only) -> the port's."""
+    if getattr(space, "n_arch", 0):
+        raise NotImplementedError("joint spaces are not ported yet")
+    return SearchSpace(
+        names=tuple(space.names),
+        values=tuple(np.asarray(v, np.float32) for v in space.values),
+        mem_type=str(space.mem_type),
+        tech_is_variable=bool(space.tech_is_variable))
+
+
+def from_reference_constants(constants) -> HWConstants:
+    """A reference ``HWConstants`` dataclass -> the port's."""
+    return HWConstants(**dataclasses.asdict(constants))
+
+
+def from_reference_workload_arrays(wa) -> WorkloadArrays:
+    """A reference ``WorkloadArrays`` (numpy fields) -> the port's."""
+    return WorkloadArrays(
+        names=tuple(wa.names),
+        layers=np.asarray(wa.layers, np.float32),
+        mask=np.asarray(wa.mask, np.float32),
+        stored_weights=np.asarray(wa.stored_weights, np.float32),
+        flat_layers=np.asarray(wa.flat_layers, np.float32),
+        seg_ids=np.asarray(wa.seg_ids, np.int32))
+
+
+def from_reference_calibration(x, w, device="cpu"
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Calibration GEMM operands (activations (B, K), weights (K, N))
+    -> float32 tensors."""
+    # np.array copies: arrays the reference hands out are read-only
+    return (torch.as_tensor(np.array(x, np.float32), device=device),
+            torch.as_tensor(np.array(w, np.float32), device=device))
+
+
+def from_reference_genomes(genomes, device="cpu") -> torch.Tensor:
+    """An integer genome population (..., n) -> int64 tensor."""
+    return torch.as_tensor(np.asarray(genomes).astype(np.int64),
+                           device=device)

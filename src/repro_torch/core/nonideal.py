@@ -1,0 +1,213 @@
+"""RRAM non-idealities and the batched accuracy model (paper §IV-H,
+Eq. 4); counterpart of ``repro/core/nonideal.py``.
+
+Conductance variability g = g_t + sigma(g_t) * eps, eps ~ N(0, 1), with
+sigma the ``SIGMA_POLY`` quartic; IR drop as a row-depth-dependent
+attenuation; bit-serial 8-bit activations with per-crossbar ADC
+quantization (``kernels/adc.py``); 1% additive output noise. Accuracy
+is a logistic map of the output SNR of calibration GEMMs pushed through
+the noisy crossbar, calibrated so the clean 8-bit baselines of §IV-H
+degrade by a few percent.
+
+``make_accuracy_model`` returns a function ``(P, n) genomes -> (P, W)``
+accuracies. Every design draws its noise from ``fold_in(k_noise,
+flat_index(design))`` under ``CALIB_SEED`` with the bit-exact threefry
+port (``repro_torch/random.py``), so a design's score is a pure function
+of the design, on every backend and device, as in the reference.
+
+Backends (the crossbar-GEMM route):
+  'jnp'  — the reference's einsum path, in ``torch.einsum``;
+  'ref'  — the fused dataflow through ``imc_fused_plain``;
+  'cuda' — the fused Hopper kernel (``imc_fused_gemm`` on CUDA tensors);
+  'auto' — 'cuda' on a CUDA device, 'jnp' on the CPU.
+``accuracy_proxy_host`` and ``noisy_crossbar_gemm`` (the host oracle
+over ``imc_matmul``) are not ported yet (ROADMAP Queue 2 item 2).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import random as jr
+from ..device import resolve_device
+from ..kernels.adc import adc_full_scale, adc_quantize
+from ..kernels.imc_fused import (imc_fused_gemm, imc_fused_plain,
+                                 noisy_weights)
+from .search_space import SearchSpace
+from .workloads import WorkloadArrays
+
+OUTPUT_NOISE_FRAC = 0.01  # 1% output-referred noise [58]
+
+BACKENDS = ("auto", "cuda", "ref", "jnp")
+
+# Calibration data / noise base seed: part of the *model*, not of the
+# search — every search path scores a given design identically.
+CALIB_SEED = 20260415
+
+# Clean 8-bit baseline accuracies (paper §IV-H).
+BASELINE_ACC = {
+    "resnet18": 0.9488, "vgg16": 0.9789, "alexnet": 0.9350,
+    "mobilenetv3": 0.7003,
+}
+_DEFAULT_BASE_ACC = 0.90
+
+# Logistic SNR(dB) -> retained-accuracy map (full retention above
+# ~35 dB, collapse below ~10 dB).
+_SNR_MID_DB = 18.0
+_SNR_SCALE_DB = 4.0
+_ACC_FLOOR = 0.35
+
+
+def resolve_backend(backend: str, device: torch.device) -> str:
+    """'auto' -> 'cuda' on a CUDA device, 'jnp' on the CPU."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+    if backend == "auto":
+        return "cuda" if device.type == "cuda" else "jnp"
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError("backend 'cuda' runs the Hopper kernel and needs "
+                         "device='cuda'")
+    return backend
+
+
+def quantize_activations(x: torch.Tensor) -> torch.Tensor:
+    """8-bit DAC: [0, 1] activations -> int32 codes in [0, 255]."""
+    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.int32)
+
+
+def calibration_data(key: torch.Tensor, n_calib: int, calib_k: int,
+                     calib_n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared calibration GEMM operands: activations in [0, 1] and
+    weights ~ 0.3 * N(0, 1) (clipped by the conductance mapping)."""
+    ks = jr.split(key)
+    x = jr.uniform(ks[0], (n_calib, calib_k))
+    w = jr.normal(ks[1], (calib_k, calib_n)) * 0.3
+    return x, w
+
+
+def flat_index_strides(space: SearchSpace) -> np.ndarray:
+    """(n,) mixed-radix strides of the space: a genome's flat index is
+    ``genome @ strides`` (space sizes stay below 2^31)."""
+    cards = space.cardinalities.astype(np.int64)
+    return np.concatenate(
+        [np.cumprod(cards[::-1])[::-1][1:], [1]]).astype(np.int64)
+
+
+def _workload_accuracy_params(workloads: WorkloadArrays
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """(base_acc (W,), depth_penalty (W,)) of a packed workload set."""
+    names = workloads.names
+    n_layers = np.bincount(workloads.seg_ids,
+                           minlength=len(names)).astype(np.float32)
+    base = np.asarray([BASELINE_ACC.get(n, _DEFAULT_BASE_ACC)
+                       for n in names], np.float32)
+    # deeper models accumulate more noise
+    pen = np.clip(1.0 - 0.002 * n_layers, 0.8, 1.0).astype(np.float32)
+    return base, pen
+
+
+def _snr_to_accuracy(snr_db: torch.Tensor, base: torch.Tensor,
+                     depth_pen: torch.Tensor) -> torch.Tensor:
+    keep = torch.sigmoid((snr_db - _SNR_MID_DB) / _SNR_SCALE_DB)
+    return base * (_ACC_FLOOR + (1.0 - _ACC_FLOOR) * keep) * depth_pen
+
+
+def make_accuracy_model(space: SearchSpace,
+                        workloads: WorkloadArrays, *,
+                        key: Optional[torch.Tensor] = None,
+                        n_calib: int = 32, calib_k: int = 256,
+                        calib_n: int = 32, adc_bits: int = 8,
+                        backend: str = "auto", device="cuda"
+                        ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Batched accuracy model on ``device``: (P, n) genomes -> (P, W).
+
+    Genome-dependent parameters (xbar_rows, bits_cell) resolve by
+    value-table gather; the reduction axis is split into static
+    sub-tiles of ``gcd(rows values)`` rows and each design groups them
+    into crossbars of its own row count before the ADC."""
+    dev = resolve_device(device)
+    backend = resolve_backend(backend, dev)
+    key = jr.PRNGKey(CALIB_SEED, dev) if key is None else key.to(dev)
+    ks = jr.split(key)
+    k_calib, k_noise = ks[0], ks[1]
+    x, w = calibration_data(k_calib, n_calib, calib_k, calib_n)
+    x_q = quantize_activations(x)
+    # a true division by 255 on every device: CUDA PyTorch would turn a
+    # division by the Python scalar into a reciprocal multiply
+    c255 = torch.tensor(255.0, device=dev)
+    y_ref = x_q.float() @ w / c255  # clean quantized GEMM
+
+    table = torch.as_tensor(space.value_table(), device=dev)
+    rows_i = space.index("xbar_rows")
+    bits_i = (space.index("bits_cell")
+              if "bits_cell" in space.names else None)
+    row_values = space.values[rows_i].astype(np.int64)
+    sub = int(np.gcd.reduce(row_values))  # static sub-tile row count
+    pad = (-calib_k) % sub
+    n_sub = (calib_k + pad) // sub
+    # static bit-plane decomposition of the shared activations (jnp path)
+    xp = torch.nn.functional.pad(x_q, (0, pad))
+    planes = torch.stack([((xp >> b) & 1).float() for b in range(8)])
+    planes = planes.reshape(8, n_calib, n_sub, sub)
+    sub_rows = torch.arange(n_sub, dtype=torch.float32, device=dev) * sub
+    group_idx = torch.arange(n_sub, dtype=torch.float32, device=dev)
+    pow2 = (1 << torch.arange(8, device=dev)).float()  # exact 2^b
+    base_np, pen_np = _workload_accuracy_params(workloads)
+    base_acc = torch.as_tensor(base_np, device=dev)
+    depth_pen = torch.as_tensor(pen_np, device=dev)
+    strides = torch.as_tensor(flat_index_strides(space), device=dev)
+    row_table_f = torch.as_tensor(row_values.astype(np.float32), device=dev)
+    x_q_c = x_q.contiguous()
+    w_c = w.contiguous()
+
+    def draws(flat):
+        # the design's fold_in key -> eps fields on the untiled (K, N)
+        # weight shape and the output-noise key
+        k = jr.split(jr.fold_in(k_noise, flat), 3)
+        return (jr.normal(k[:, 0], w.shape), jr.normal(k[:, 1], w.shape),
+                k[:, 2])
+
+    def einsum_path(genomes, eps_pos, eps_neg):
+        rows = table[rows_i, genomes[:, rows_i]]                 # (P,)
+        w_eff = noisy_weights(w, eps_pos, eps_neg, rows)
+        wt = torch.nn.functional.pad(w_eff, (0, 0, 0, pad))
+        wt = wt.reshape(w_eff.shape[0], n_sub, sub, -1)
+        partial = torch.einsum("qbsk,pskn->pqbsn", planes, wt)
+        grp = torch.floor(sub_rows[None, :] / rows[:, None])   # (P, n_sub)
+        onehot = (grp[:, :, None] == group_idx[None, None, :]).float()
+        tiles = torch.einsum("pqbsn,psg->pqbgn", partial, onehot)
+        fs = adc_full_scale(rows)[:, None, None, None, None]
+        q = adc_quantize(tiles, fs, adc_bits)
+        return torch.sum(q * pow2[None, :, None, None, None], dim=(1, 3))
+
+    def accuracy(genomes: torch.Tensor) -> torch.Tensor:
+        genomes = genomes.to(dev).long()
+        flat = (genomes * strides).sum(dim=1)
+        eps_pos, eps_neg, k_out = draws(flat)
+        if backend == "jnp":
+            raw = einsum_path(genomes, eps_pos, eps_neg)
+        else:
+            rows_idx = genomes[:, rows_i].to(torch.int32).contiguous()
+            fused = imc_fused_gemm if backend == "cuda" else imc_fused_plain
+            raw = fused(x_q_c, w_c, eps_pos.contiguous(),
+                        eps_neg.contiguous(), rows_idx, row_table_f,
+                        sub=sub, adc_bits=adc_bits)
+        y = raw / c255                                         # (P, B, N)
+        std = torch.std(y, dim=(1, 2), correction=0, keepdim=True)
+        y = y + OUTPUT_NOISE_FRAC * std * jr.normal(k_out, y.shape[1:])
+        err = torch.mean((y - y_ref[None]) ** 2, dim=(1, 2))
+        sig = torch.mean(y_ref ** 2)
+        snr_db = 10.0 * torch.log10(sig / torch.clamp(err, min=1e-12))
+        if bits_i is not None:
+            bits = table[bits_i, genomes[:, bits_i]]
+            cpw = torch.clamp(torch.floor(
+                torch.full_like(bits, 8.0) / bits), min=1.0)
+            snr_db = snr_db + 10.0 * torch.log10(cpw)  # multi-cell averaging
+        return _snr_to_accuracy(snr_db[:, None], base_acc[None, :],
+                                depth_pen[None, :])
+
+    accuracy.backend = backend
+    return accuracy

@@ -1,0 +1,116 @@
+"""Scorer construction: one entry point for every search path;
+counterpart of ``repro/core/scoring.py`` (fixed workloads).
+
+``build_scorer(space, ScorerSpec(objective, workloads=wa), calib=...,
+backend=..., device=...)`` returns a ``Scorer``: the functions the
+search engines call on genome tensors of the scorer's device —
+``score``/``feasible`` over the whole workload set, ``score_w``/
+``feasible_w`` restricted to one workload column per design (the
+specific-baseline fan-out), ``metrics`` (CostMetrics) and, for
+accuracy-aware objectives, ``accuracy`` — plus the resolved
+``backend`` and ``device``. The reference's population sharding over a
+device mesh and its joint workload builder have no counterpart yet
+(ROADMAP Queue 1 items 10 and 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from ..device import resolve_device
+from . import nonideal
+from .cost_model import CostTables, HWConstants, evaluate_population
+from .objectives import INFEASIBLE_PENALTY, Objective, per_workload_scores
+from .search_space import SearchSpace
+from .workloads import WorkloadArrays
+
+
+@dataclasses.dataclass(frozen=True)
+class Calib:
+    """Calibration fidelity of the non-ideality accuracy model (§IV-H):
+    rows and reduction depth of the calibration GEMMs."""
+    n_calib: int = 32
+    calib_k: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ScorerSpec:
+    """What to score: the objective and the packed workloads."""
+    objective: Objective
+    workloads: WorkloadArrays
+    constants: HWConstants = HWConstants()
+
+
+@dataclasses.dataclass(frozen=True)
+class Scorer:
+    """Every scoring surface of one (space, spec, calib, backend,
+    device) configuration. Genomes are (P, n) integer tensors; ``w`` in
+    ``score_w``/``feasible_w`` is an int or a (P,) tensor of workload
+    columns, one per design."""
+    score: Callable                 # (P, n) -> (P,)
+    feasible: Callable              # (P, n) -> (P,) bool
+    score_w: Callable               # ((P, n), w) -> (P,)
+    feasible_w: Callable            # ((P, n), w) -> (P,) bool
+    metrics: Callable               # (P, n) -> CostMetrics
+    backend: str                    # resolved accuracy-model route
+    device: torch.device
+    accuracy: Optional[Callable] = None   # (P, n) -> (P, W)
+
+
+def needs_accuracy(objective: Objective) -> bool:
+    """Whether the objective consumes the accuracy model."""
+    return objective.kind == "edap_acc"
+
+
+def _column(x: torch.Tensor, w) -> torch.Tensor:
+    """Column ``w`` of a (P, W) tensor, ``w`` an int or one per row."""
+    if isinstance(w, int):
+        return x[:, w]
+    idx = torch.as_tensor(w, device=x.device).long().reshape(-1, 1)
+    return torch.gather(x, 1, idx.expand(x.shape[0], 1))[:, 0]
+
+
+def build_scorer(space: SearchSpace, spec: ScorerSpec, *,
+                 calib: Calib = Calib(), backend: str = "auto",
+                 device="cuda") -> Scorer:
+    """THE scorer constructor of the port (see module docstring)."""
+    dev = resolve_device(device)
+    objective = spec.objective
+    backend = nonideal.resolve_backend(backend, dev)
+    tables = CostTables.of(space, spec.workloads, dev)
+
+    acc_fn = None
+    if needs_accuracy(objective):
+        acc_fn = nonideal.make_accuracy_model(
+            space, spec.workloads, n_calib=calib.n_calib,
+            calib_k=calib.calib_k, backend=backend, device=dev)
+
+    def metrics(genomes):
+        return evaluate_population(space, spec.workloads, genomes.to(dev),
+                                   spec.constants, tables)
+
+    def score(genomes):
+        m = metrics(genomes)
+        if acc_fn is None:
+            return objective(m)
+        return objective(m, accuracy=acc_fn(genomes))
+
+    def feasible(genomes):
+        return metrics(genomes).feasible
+
+    def feasible_w(genomes, w):
+        return _column(metrics(genomes).feasible_w, w)
+
+    def score_w(genomes, w):
+        m = metrics(genomes)
+        acc = acc_fn(genomes) if acc_fn is not None else None
+        s = _column(per_workload_scores(m, objective.kind, accuracy=acc), w)
+        bad = (~_column(m.feasible_w, w)) | (m.area >
+                                              objective.area_constraint)
+        return torch.where(bad, torch.full_like(s, INFEASIBLE_PENALTY), s)
+
+    return Scorer(score=score, feasible=feasible, score_w=score_w,
+                  feasible_w=feasible_w, metrics=metrics, accuracy=acc_fn,
+                  backend=backend, device=dev)

@@ -1,0 +1,110 @@
+"""Builds the port's CUDA kernels with ``nvcc`` and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C launch function (no PyTorch
+headers, so ``nvcc`` takes seconds, not minutes). It is compiled at
+first use for ``sm_90a`` into ``build/kernels/`` at the root of the
+checkout (listed in ``.gitignore``), under a file name that carries a
+hash of the source and the flags, so an edited source rebuilds. The
+library is written to a temporary name and renamed into place, so
+concurrent processes never load a half-written file.
+
+Nothing here runs at import time: the CPU tests import every module,
+and this machine may have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the C signature of every kernel's launch function; a pointer or the
+# stream is c_void_p, an int c_int (ctypes would cut a pointer otherwise)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "imc_fused": {
+        # x_q, w, eps_pos, eps_neg, rows_idx, row_table, out,
+        # P, B, K, N, sub, adc_bits, n_table, stream
+        "imc_fused_launch": (_P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return nvcc
+
+
+def _library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    out = _library_path(name)
+    if out.exists():
+        return out, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
+    """Compile every named kernel that is not built yet, one ``nvcc``
+    per source, all started together. Returns each build's compiler
+    log (``-Xptxas -v`` register and shared-memory report); raises
+    ``RuntimeError`` with the log when a build fails."""
+    started = [(n, *_start(n)) for n in names]
+    logs: Dict[str, str] = {}
+    for name, out, tmp, proc in started:
+        if proc is None:
+            logs[name] = "(cached)"
+            continue
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        logs[name] = log
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of kernel ``name``, building it if needed, with
+    ``argtypes``/``restype`` declared for its launch functions."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_library_path(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib
+
+
+def build_timed(names: Optional[List[str]] = None) -> Dict[str, object]:
+    """``build`` with its wall time, for the chip smoke report."""
+    t0 = time.perf_counter()
+    logs = build(tuple(SIGNATURES) if names is None else names)
+    return {"seconds": time.perf_counter() - t0, "logs": logs}

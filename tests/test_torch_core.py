@@ -1,0 +1,368 @@
+"""Module parity of the port's core (repro_torch/core) with the JAX
+reference on shared inputs: search spaces and packed workloads exactly,
+CostMetrics on every deduped registry configuration, objectives, the
+accuracy model on every accuracy-scored configuration, and the GA
+operators, sampler and scheduled search given the same keys.
+
+Where the port is not bitwise, the divergence is an ULP-level one that
+ROADMAP Queue 3 records: XLA contracts multiply-adds into FMAs and sums
+its float32 dot in an order the port cannot reproduce (the port sums
+the workload segments in float64 and rounds once)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import genetic as jgen
+from repro.core import sampling as jsamp
+from repro.core import HWConstants as JHWConstants
+from repro.core import (Objective as JObjective, get_space as jget_space,
+                        get_workload_set as jget_workload_set,
+                        make_evaluator as jmake_evaluator, pack as jpack)
+from repro.core.nonideal import calibration_data as jcalibration_data
+from repro.core.nonideal import make_accuracy_model as jmake_accuracy_model
+from repro.core.objectives import per_workload_scores as jper_workload
+from repro.experiments import REGISTRY
+from repro_torch import convert
+from repro_torch import random as jr
+from repro_torch.core import cost_model, genetic, sampling
+from repro_torch.core.nonideal import (CALIB_SEED, calibration_data,
+                                       make_accuracy_model,
+                                       quantize_activations)
+from repro_torch.core.objectives import (Objective, make_objective,
+                                         per_workload_scores)
+from repro_torch.core.search_space import get_space
+from repro_torch.core.workloads import get_workload_set, pack
+
+torch.set_num_threads(1)
+
+
+def _ported(sc) -> bool:
+    return (sc.workload_source == "paper" and not sc.reduced_space
+            and sc.algorithm != "alg_compare")
+
+
+def _cost_configs():
+    seen, out = set(), []
+    for name, sc in REGISTRY.items():
+        key = (sc.mem, sc.tech_variable, sc.workloads)
+        if _ported(sc) and key not in seen:
+            seen.add(key)
+            out.append(name)
+    return out
+
+
+def _acc_configs():
+    seen, out = set(), []
+    for name, sc in REGISTRY.items():
+        key = (sc.mem, sc.tech_variable, sc.workloads, sc.n_calib,
+               sc.calib_k)
+        if (_ported(sc) and sc.objective.startswith("edap_acc")
+                and key not in seen):
+            seen.add(key)
+            out.append(name)
+    assert out, "the registry lost its accuracy-scored scenarios?"
+    return out
+
+
+def _genomes(space, n, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, space.cardinalities,
+                        size=(n, space.n_params)).astype(np.int32)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+def _tkey(seed_or_key) -> torch.Tensor:
+    key = (jax.random.PRNGKey(seed_or_key) if isinstance(seed_or_key, int)
+           else seed_or_key)
+    return convert.from_reference_key(np.asarray(key))
+
+
+# ---------------------------------------------------------------------------
+# search space, workloads, cost model, objectives
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mem", ["rram", "sram"])
+@pytest.mark.parametrize("tech", [False, True])
+def test_search_space_tables_equal(mem, tech):
+    ref, port = jget_space(mem, tech), get_space(mem, tech)
+    assert port.names == ref.names and port.size == ref.size
+    assert np.array_equal(port.value_table(), ref.value_table())
+    assert np.array_equal(port.cardinalities, ref.cardinalities)
+    assert port.index("xbar_rows") == ref.index("xbar_rows")
+    g = _genomes(ref, 1, 0)[0]
+    assert port.decode(g) == ref.decode(g)
+    conv = convert.from_reference_space(ref)
+    assert np.array_equal(conv.value_table(), port.value_table())
+
+
+def test_pack_equal_on_every_registry_workload_set():
+    sets = {sc.workloads for sc in REGISTRY.values()
+            if sc.workload_source == "paper"}
+    for names in sorted(sets):
+        ref, port = jpack(jget_workload_set(names)), pack(
+            get_workload_set(names))
+        conv = convert.from_reference_workload_arrays(ref)
+        for wa in (port, conv):
+            assert wa.names == ref.names
+            for field in ("layers", "mask", "stored_weights", "flat_layers",
+                          "seg_ids"):
+                assert np.array_equal(getattr(wa, field),
+                                      getattr(ref, field)), (names, field)
+
+
+@pytest.mark.parametrize("name", _cost_configs())
+def test_cost_metrics_match_on_registry_config(name):
+    """CostMetrics of 512 random designs. Capacity flags bitwise
+    everywhere, area/cost bitwise at the fixed 32 nm node; energy and
+    latency (and area/cost with the node in the genome) within rtol
+    1e-6 — see ROADMAP Queue 3."""
+    sc = REGISTRY[name]
+    jspace, jwa = (jget_space(sc.mem, sc.tech_variable),
+                   jpack(jget_workload_set(sc.workloads)))
+    g = _genomes(jspace, 512, seed=len(name))
+    ref = jmake_evaluator(jspace, jwa)(jnp.asarray(g))
+    port = cost_model.evaluate_population(
+        convert.from_reference_space(jspace),
+        convert.from_reference_workload_arrays(jwa),
+        convert.from_reference_genomes(g),
+        convert.from_reference_constants(JHWConstants()))
+    for field in ("feasible", "feasible_w"):
+        assert np.array_equal(getattr(port, field).numpy(),
+                              np.asarray(getattr(ref, field))), field
+    exact = ("area", "cost") if not sc.tech_variable else ()
+    for field in ("energy", "latency", "area", "cost"):
+        got, want = getattr(port, field).numpy(), np.asarray(getattr(ref,
+                                                                    field))
+        if field in exact:
+            assert np.array_equal(got, want), field
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=field)
+
+
+@pytest.mark.parametrize("spec", ["edap:max", "edap:mean", "edap:all",
+                                  "edp:mean", "energy:max", "delay:mean",
+                                  "area", "cost", "edap_cost:mean"])
+def test_objectives_match(spec):
+    space, names = jget_space("rram", True), ("resnet18", "alexnet", "vgg16")
+    jwa = jpack(jget_workload_set(names))
+    g = _genomes(space, 256, seed=3)
+    jm = jmake_evaluator(space, jwa)(jnp.asarray(g))
+    kind, _, agg = spec.partition(":")
+    want = np.asarray(JObjective(kind, agg or "max")(jm))
+    m = cost_model.evaluate_population(
+        get_space("rram", True), pack(get_workload_set(names)), _t(g).long())
+    got = make_objective(spec)(m).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert np.array_equal(got >= 1e30, want >= 1e30)
+    np.testing.assert_allclose(per_workload_scores(m, kind).numpy(),
+                               np.asarray(jper_workload(jm, kind)),
+                               rtol=1e-5)
+
+
+def test_unported_objectives_name_their_roadmap_item():
+    for spec in ("edap:mean+cost", "acc_loss:mean"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_objective(spec)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_objective("edap:mean", min_accuracy=0.6)
+
+
+# ---------------------------------------------------------------------------
+# accuracy model
+# ---------------------------------------------------------------------------
+
+def test_calibration_data_matches():
+    k = jax.random.split(jax.random.PRNGKey(CALIB_SEED))[0]
+    jx, jw = jcalibration_data(k, 32, 256, 32)
+    x, w = calibration_data(_tkey(k), 32, 256, 32)
+    assert np.array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_allclose(w.numpy(), np.asarray(jw), rtol=4 * 2 ** -23,
+                               atol=1e-30)
+    cx, cw = convert.from_reference_calibration(jx, jw)
+    assert torch.equal(cx, x)
+    np.testing.assert_allclose(cw.numpy(), w.numpy(), rtol=4 * 2 ** -23,
+                               atol=1e-30)
+    xq = quantize_activations(x)
+    assert xq.dtype == torch.int32
+    assert int(xq.min()) >= 0 and int(xq.max()) <= 255
+
+
+@pytest.mark.parametrize("name", _acc_configs())
+@pytest.mark.parametrize("calib", [(32, 256), (8, 128)])
+def test_accuracy_model_matches_reference(name, calib):
+    """Port 'jnp'/'ref' vs JAX 'jnp'/'ref' at rtol 1e-4 (the bound of
+    tests/test_nonideal.py), on the registry's calibration and on a
+    reduced one."""
+    sc = REGISTRY[name]
+    n_calib, calib_k = calib
+    jspace, jwa = (jget_space(sc.mem, sc.tech_variable),
+                   jpack(jget_workload_set(sc.workloads)))
+    g = _genomes(jspace, 6, seed=1)
+    space = convert.from_reference_space(jspace)
+    wa = convert.from_reference_workload_arrays(jwa)
+    kw = dict(n_calib=n_calib, calib_k=calib_k)
+    want = np.asarray(jmake_accuracy_model(jspace, jwa, backend="jnp",
+                                           **kw)(jnp.asarray(g)))
+    for backend in ("jnp", "ref"):
+        got = make_accuracy_model(space, wa, backend=backend, device="cpu",
+                                  **kw)(convert.from_reference_genomes(g))
+        assert got.shape == (6, len(sc.workloads))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   err_msg=backend)
+    jref = np.asarray(jmake_accuracy_model(jspace, jwa, backend="ref",
+                                           **kw)(jnp.asarray(g)))
+    np.testing.assert_allclose(jref, want, rtol=1e-4)
+
+
+def test_accuracy_model_device_and_backend_rules():
+    space, wa = get_space("rram"), pack(get_workload_set(("resnet18",)))
+    with pytest.raises(ValueError):
+        make_accuracy_model(space, wa, backend="cuda", device="cpu")
+    with pytest.raises(ValueError):
+        make_accuracy_model(space, wa, backend="pallas", device="cpu")
+    acc = make_accuracy_model(space, wa, backend="auto", device="cpu")
+    assert acc.backend == "jnp"
+
+
+# ---------------------------------------------------------------------------
+# GA operators, sampling, scheduled search
+# ---------------------------------------------------------------------------
+
+def _edap_scorers(mem="rram", names=("resnet18", "alexnet")):
+    jspace, jwa = jget_space(mem), jpack(jget_workload_set(names))
+    jev = jmake_evaluator(jspace, jwa)
+    jobj = JObjective("edap", "mean")
+    space, wa = get_space(mem), pack(get_workload_set(names))
+    ev = cost_model.make_evaluator(space, wa, device="cpu")
+    obj = Objective("edap", "mean")
+    return (jspace, lambda g: jobj(jev(g)), lambda g: jev(g).feasible,
+            space, lambda g: obj(ev(g)), lambda g: ev(g).feasible)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("row", range(4))
+def test_sbx_and_mutation_same_children(seed, row):
+    """The real-coded operators give the same decoded genomes from the
+    same keys (their pow and FMA roundings differ by ULPs)."""
+    space = jget_space("rram")
+    cards = space.cardinalities.astype(np.float32)
+    pc, eta_c, pm, eta_m = jgen.phase_schedule(jgen.FOUR_PHASES, 1)[row]
+    rng = np.random.default_rng(seed)
+    x1 = rng.random((11, space.n_params)).astype(np.float32)
+    x2 = rng.random((11, space.n_params)).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    j1, j2 = jgen._sbx(key, jnp.asarray(x1), jnp.asarray(x2),
+                       jnp.float32(pc), jnp.float32(eta_c))
+    t1, t2 = genetic._sbx(_tkey(key)[None], _t(x1)[None], _t(x2)[None],
+                          torch.tensor(pc), torch.tensor(eta_c))
+    np.testing.assert_allclose(t1[0].numpy(), np.asarray(j1), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(t2[0].numpy(), np.asarray(j2), rtol=1e-5,
+                               atol=1e-6)
+    jm = jgen._poly_mutate(key, j1, jnp.float32(pm), jnp.float32(eta_m),
+                           jnp.asarray(cards))
+    tm = genetic._poly_mutate(_tkey(key)[None], t1, torch.tensor(pm),
+                              torch.tensor(eta_m), _t(cards))
+    np.testing.assert_array_equal(
+        genetic._to_index(tm, _t(cards))[0].numpy(),
+        np.asarray(jgen._to_index(jm, jnp.asarray(cards))))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_generation_step_same_population(seed):
+    space = jget_space("rram")
+    cards = space.cardinalities.astype(np.float32)
+    pop = _genomes(space, 24, seed)
+    scores = np.random.default_rng(seed).random(24).astype(np.float32)
+    scores[::5] = 1e30  # ties, as infeasible designs produce
+    key = jax.random.PRNGKey(seed)
+    for row in jgen.phase_schedule(jgen.FOUR_PHASES, 1):
+        want = jgen._generation_step(key, jnp.asarray(pop),
+                                     jnp.asarray(scores), jnp.asarray(cards),
+                                     *map(jnp.float32, row))
+        got = genetic._generation_step(
+            _tkey(key)[None], _t(pop).long()[None], _t(scores)[None],
+            _t(cards), *map(torch.tensor, row))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+
+
+def test_uniform_genomes_and_hamming_select_equal():
+    space = jget_space("rram")
+    cards = space.cardinalities.astype(np.float32)
+    for seed in range(3):
+        key = jax.random.PRNGKey(seed)
+        jg = jsamp.uniform_genomes(key, jnp.asarray(cards), 60)
+        tg = sampling.uniform_genomes(_tkey(key)[None], _t(cards), 60)
+        assert np.array_equal(tg[0].numpy(), np.asarray(jg))
+        for n_valid in (None, 17):
+            want = jsamp.hamming_select(
+                jg, 20, None if n_valid is None else jnp.int32(n_valid))
+            got = sampling.hamming_select(
+                tg, 20, None if n_valid is None else torch.tensor([n_valid]))
+            assert np.array_equal(got[0].numpy(), np.asarray(want))
+
+
+def test_sample_initial_device_equal_with_capacity_mask():
+    jspace, jscore, jfeas, space, score, feas = _edap_scorers()
+    cards = jspace.cardinalities.astype(np.float32)
+    keys = [jax.random.PRNGKey(s) for s in (0, 3)]
+    lanes = genetic.lanes_of(feas)
+    got = sampling.sample_initial_device(
+        torch.stack([_tkey(k) for k in keys]), _t(cards), 40, 16,
+        feasible_fn=lanes)
+    for i, k in enumerate(keys):
+        want = jsamp.sample_initial_device(k, jnp.asarray(cards), 40, 16,
+                                           feasible_fn=jfeas)
+        assert np.array_equal(got[i].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("mem", ["rram", "sram"])
+def test_batched_search_same_genomes(mem):
+    """The whole scheduled search (sampling + 4-phase GA), two seeds as
+    one lane batch: identical best genomes and final populations, scores
+    and histories to float tolerance."""
+    jspace, jscore, jfeas, space, score, feas = _edap_scorers(mem)
+    kw = dict(p_h=40, p_e=16, p_ga=8, generations_per_phase=2)
+    jkeys = jnp.stack([jax.random.PRNGKey(s) for s in (0, 1)])
+    want = jgen.batched_joint_search(
+        jkeys, jspace, jscore, feasible_fn=jfeas if mem == "rram" else None,
+        **kw)
+    got = genetic.batched_joint_search(
+        _tkey(jkeys), space, score, feasible_fn=feas if mem == "rram"
+        else None, **kw)
+    np.testing.assert_array_equal(got.best_genomes, want.best_genomes)
+    np.testing.assert_array_equal(got.populations, want.populations)
+    np.testing.assert_allclose(got.best_scores, want.best_scores, rtol=1e-5)
+    np.testing.assert_allclose(got.histories, want.histories, rtol=1e-5)
+
+
+def test_ga_scan_active_mask_freezes_padded_rows():
+    _, _, _, space, score, _ = _edap_scorers("sram")
+    cards = genetic.cards_of(space, "cpu")
+    sched = torch.as_tensor(genetic.phase_schedule(genetic.FOUR_PHASES, 1))
+    keys = torch.stack([jr.PRNGKey(s) for s in (4, 5)])
+    init = sampling.uniform_genomes(keys, cards, 8)
+    lane = genetic.lanes_of(score)
+    base = genetic.ga_scan(keys, init, cards, sched, lane)
+    padded = torch.cat([sched, sched[:2]])
+    active = torch.tensor([True] * 4 + [False] * 2)
+    out = genetic.ga_scan(keys, init, cards, padded, lane, active=active)
+    assert torch.equal(out[0], base[0]) and torch.equal(out[3], base[3])
+    assert torch.equal(out[2][:, -1], base[2][:, -1])
+
+
+def test_plain_ga_search_same_best_genome():
+    """The non-modified GA baseline (random init, one phase)."""
+    jspace, jscore, _, space, score, _ = _edap_scorers("sram")
+    key = jax.random.PRNGKey(9)
+    want = jgen.plain_ga_search(key, jspace, jscore, p_ga=8,
+                                total_generations=3)
+    got = genetic.plain_ga_search(_tkey(key), space, score, p_ga=8,
+                                  total_generations=3)
+    np.testing.assert_array_equal(got.best_genome, want.best_genome)
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-5)

@@ -1,0 +1,170 @@
+"""The port's first slice end to end on the CPU: ``rram_smoke`` (EDAP)
+and ``rram_accuracy`` (§IV-H, edap_acc, the fused-kernel dataflow
+through its plain version) at the smoke budget, run by both packages
+with backend 'ref'; their result.json and specific_*.json must agree
+modulo timing fields — identical genomes, floats at rtol 1e-5 (EDAP)
+and 1e-4 (accuracy-scored). Plus the port's own rules: no JAX and no
+``repro`` import anywhere in it, entry points default to the GPU and
+never fall back to the CPU, unported scenarios name their ROADMAP
+item."""
+import ast
+import dataclasses
+import json
+import math
+import os
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.experiments import get_scenario as jget_scenario
+from repro.experiments import run_scenario as jrun_scenario
+from repro_torch.device import resolve_device
+from repro_torch.experiments import get_scenario, run_scenario
+from repro_torch.experiments import __main__ as cli
+from repro_torch.experiments.report import write_summary
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+# fields that differ between runs of the same computation, plus the
+# port's device block (the reference has none)
+TIMING_FIELDS = {"wall_time_s", "search_wall_time_s", "sampling_time_s",
+                 "cached", "device"}
+
+
+def _compare(a, b, rtol, path="result"):
+    if isinstance(a, dict):
+        assert isinstance(b, dict), path
+        ka, kb = set(a) - TIMING_FIELDS, set(b) - TIMING_FIELDS
+        assert ka == kb, f"{path}: keys {sorted(ka ^ kb)}"
+        for k in sorted(ka):
+            _compare(a[k], b[k], rtol, f"{path}.{k}")
+    elif isinstance(a, list):
+        assert isinstance(b, list) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _compare(x, y, rtol, f"{path}[{i}]")
+    elif isinstance(a, float) and not isinstance(b, bool):
+        if "design" in path.split(".")[-2:] or path.endswith("design"):
+            assert a == b, path
+        elif math.isfinite(a):
+            assert math.isclose(a, b, rel_tol=rtol, abs_tol=0.0), \
+                f"{path}: {a} vs {b}"
+        else:
+            assert a == b or (math.isnan(a) and math.isnan(b)), path
+    else:
+        assert a == b, f"{path}: {a!r} vs {b!r}"
+
+
+def _designs_equal(a, b):
+    assert a["generalized"]["design"] == b["generalized"]["design"]
+    for w in a.get("specific", {}):
+        assert a["specific"][w]["design"] == b["specific"][w]["design"], w
+
+
+@pytest.mark.parametrize("name,rtol", [("rram_smoke", 1e-5),
+                                       ("rram_accuracy", 1e-4)])
+def test_slice_matches_reference(tmp_path, name, rtol):
+    ref_sc = jget_scenario(name)
+    ref_sc = dataclasses.replace(ref_sc, budget=ref_sc.smoke_budget,
+                                 backend="ref")
+    sc = get_scenario(name)
+    sc = dataclasses.replace(sc, budget=sc.smoke_budget, backend="ref")
+    jrun_scenario(ref_sc, out_dir=str(tmp_path / "jax"))
+    res = run_scenario(sc, out_dir=str(tmp_path / "torch"), device="cpu")
+    assert res["device"] == {"type": "cpu", "name": "cpu", "count": 1}
+    assert res["backend"] == "ref"
+    files = sorted(os.listdir(tmp_path / "jax" / name))
+    assert files == sorted(os.listdir(tmp_path / "torch" / name))
+    for fn in files:
+        if not fn.endswith(".json"):
+            continue
+        a = json.loads((tmp_path / "jax" / name / fn).read_text())
+        b = json.loads((tmp_path / "torch" / name / fn).read_text())
+        if fn == "result.json":
+            _designs_equal(a, b)
+        _compare(a, b, rtol, fn)
+    # served from the cache on a re-run with the same key
+    again = run_scenario(sc, out_dir=str(tmp_path / "torch"), device="cpu")
+    assert again["cached"] is True
+    assert "rram_accuracy" not in name or all(
+        "accuracy" in m for m in res["generalized"]["per_workload"].values())
+
+
+@pytest.mark.parametrize("name", ["rram_small_set_plain",
+                                  "sram_small_set_random"])
+def test_other_algorithms_run(tmp_path, name):
+    """The plain-GA and random-search paths (generalized search and
+    specific baselines) at the smoke budget."""
+    sc = get_scenario(name)
+    sc = dataclasses.replace(sc, budget=sc.smoke_budget)
+    res = run_scenario(sc, out_dir=str(tmp_path), device="cpu")
+    assert math.isfinite(res["best_score"]) and res["best_score"] < 1e29
+    assert set(res["specific"]) == set(sc.workloads)
+    assert len(res["history"]) >= 1 and res["backend"] == "jnp"
+    text = write_summary(str(tmp_path))
+    assert name in text
+
+
+@pytest.mark.parametrize("name", ["table3_reduced_rram", "alg_compare_rram",
+                                  "rram_tech_cost", "rram_tech_cost_mo",
+                                  "joint_rram_resnet_family",
+                                  "sram_lm_archs"])
+def test_unported_scenarios_name_roadmap_item(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        run_scenario(get_scenario(name), write=False, device="cpu")
+
+
+def test_cli_run_and_report(tmp_path, capsys):
+    out = str(tmp_path)
+    assert cli.main(["run", "--scenario", "sram_smoke", "--device", "cpu",
+                     "--smoke", "--out", out]) == 0
+    assert (tmp_path / "sram_smoke" / "result.json").exists()
+    assert cli.main(["report", "--out", out]) == 0
+    assert "sram_smoke" in (tmp_path / "summary.md").read_text()
+    assert cli.main(["run", "--scenario", "rram_tech_cost_mo", "--device",
+                     "cpu", "--out", out]) == 2
+    assert "ROADMAP" in capsys.readouterr().err
+    assert cli.main(["list"]) == 0
+
+
+def test_default_device_is_cuda_and_never_falls_back(tmp_path):
+    """Entry points default to device='cuda'; without a CUDA device they
+    raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_scenario(get_scenario("rram_smoke"), out_dir=str(tmp_path))
+    assert cli.main(["run", "--scenario", "rram_smoke", "--out",
+                     str(tmp_path)]) == 2
+    assert not (tmp_path / "rram_smoke").exists()
+
+
+def _port_sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert len(files) > 10
+    return [*files, ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """AST scan of every module of the port and of chip_smoke.py: no
+    ``jax``/``jaxlib`` and no ``repro``/``repro.*`` import
+    (``repro_torch`` is allowed)."""
+    banned = ("jax", "jaxlib", "repro")
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:  # relative: stays inside the package
+                    continue
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                assert top not in banned, f"{path}: imports {mod}"
