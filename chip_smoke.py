@@ -5,9 +5,13 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, and drives the
-port's main path — the ``rram_accuracy`` scenario (§IV-H, Eq. 4) at its
-registry budget — through ``repro_torch.experiments.runner.run_scenario``
-on the card. Phases:
+port's two paths on the card: the ``rram_accuracy`` scenario (§IV-H,
+Eq. 4) at its registry budget through
+``repro_torch.experiments.runner.run_scenario`` (the ``imc_fused``
+kernel), and the LM co-design example
+``repro_torch.examples.codesign_lm_archs`` — ``sram_lm_archs`` at its
+registry budget, then the full-width qwen3-4b QKV projection through
+the winning crossbar geometry (the ``imc_matmul`` kernel). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together);
@@ -19,7 +23,18 @@ on the card. Phases:
   5. ``rram_accuracy`` end to end on the card; the kernel's launch count
      must rise on that run;
   6. the run's best genome re-scored on the CPU (backend 'jnp'), rtol 1e-4;
-  7. ``rram_smoke`` (EDAP only, no kernel) end to end on the card.
+  7. ``rram_smoke`` (EDAP only, no kernel) end to end on the card;
+  8. ``imc_matmul`` kernel vs ``imc_matmul_plain``, bitwise, at the
+     tests/test_kernels.py shapes and ADC widths, the host oracle's shape
+     and the full-width projection at every registry row count, with
+     CUDA-event timings and the bound;
+  9. ``accuracy_proxy_host(use_kernel=True)`` (one ``imc_matmul`` launch
+     per genome) vs the ``imc_fused`` accuracy model on 24 RRAM genomes,
+     atol 5e-3;
+ 10. the LM co-design example end to end on the card; ``imc_matmul``'s
+     launch count must rise on that run, the projection must equal the
+     plain version's, and the best genome is re-scored on the CPU,
+     rtol 1e-5.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -149,6 +164,151 @@ def phase_kernel(torch, fused, dev) -> dict:
     return main
 
 
+# phase 8 shapes (M, K, N, R, adc_bits): tests/test_kernels.py's five
+# shapes and four ADC widths; the host oracle's calibration GEMM; the
+# full-width qwen3-4b QKV projection (d_model 2560, 3 * 32 * 128 columns)
+# and one whole seq=256 prefill of it, at every registry row count
+REGISTRY_ROWS = (64, 128, 256, 512)
+MATMUL_TESTS = [(8, 128, 16, 128, 8), (16, 256, 32, 128, 8),
+                (32, 512, 64, 256, 8), (8, 384, 8, 128, 8),
+                (8, 512, 8, 512, 8)]
+MATMUL_TESTS += [(8, 256, 16, 128, b) for b in (4, 6, 8, 12)]
+ORACLE = (32, 256, 32)
+PROJ = (16, 2560, 12288)
+PREFILL = (256, 2560, 12288)
+
+
+def matmul_bound_ms(m, k, n) -> dict:
+    """Least time for the bit-serial GEMM on an H100 SXM: 8 bit-plane
+    GEMMs at 2 FLOP per term in float32, against each operand read once
+    and the output written once. ``k`` is the unpadded depth: the zero
+    rows that pad K to whole crossbars add nothing."""
+    flops = 2 * 8 * m * k * n
+    nbytes = 4 * (m * k + k * n + m * n)
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def phase_matmul(torch, mm, dev) -> dict:
+    """Phase 8: imc_matmul kernel vs plain, bitwise; times by shape."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    shapes = list(MATMUL_TESTS)
+    shapes += [(*ORACLE, r, 8) for r in REGISTRY_ROWS]
+    shapes += [(*PROJ, r, 8) for r in REGISTRY_ROWS]
+    shapes += [(*PREFILL, r, 8) for r in REGISTRY_ROWS]
+    worst, timed = 0.0, {}
+    for m, k, n, r, bits in shapes:
+        x_q = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.int32,
+                            device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.25
+        # K zero-padded to whole crossbars, as kernels/ops.imc_gemm does
+        x_q = torch.nn.functional.pad(x_q, (0, (-k) % r))
+        w = torch.nn.functional.pad(w, (0, 0, 0, (-k) % r))
+        got = mm.imc_matmul(x_q, w, xbar_rows=r, adc_bits=bits)
+        want = mm.imc_matmul_plain(x_q, w, xbar_rows=r, adc_bits=bits)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err != 0.0 or not torch.equal(got, want):
+            raise RuntimeError(f"imc_matmul M={m} K={k} N={n} R={r} "
+                               f"adc_bits={bits}: kernel != plain (max abs "
+                               f"err {err})")
+        worst = max(worst, err)
+        line = (f"imc_matmul M={m} K={k} N={n} R={r} adc_bits={bits}: "
+                f"bitwise equal")
+        if (m, k, n) in (ORACLE, PROJ, PREFILL):
+            ms = time_ms(torch, lambda: mm.imc_matmul(
+                x_q, w, xbar_rows=r, adc_bits=bits),
+                reps=200 if (m, k, n) == ORACLE else 20)
+            plain_ms = time_ms(torch, lambda: mm.imc_matmul_plain(
+                x_q, w, xbar_rows=r, adc_bits=bits), reps=1,
+                windows=1 if (m, k, n) == PREFILL else 3)
+            bound = matmul_bound_ms(m, k, n)
+            timed[(m, k, n, r)] = {"ms": ms, "plain_ms": plain_ms, **bound}
+            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+                     f"{bound['flops'] / 1e9:.3f} GFLOP, "
+                     f"{bound['bytes'] / 1e6:.2f} MB)")
+        log(line)
+    return {"max_abs_err": worst, "timed": timed}
+
+
+def phase_host_oracle(torch, mm, dev) -> None:
+    """Phase 9: the host oracle through imc_matmul vs the imc_fused
+    accuracy model on the same 24 RRAM genomes."""
+    from repro_torch import random as jr
+    from repro_torch.core import get_space, get_workload_set, pack
+    from repro_torch.core.nonideal import (accuracy_proxy_host,
+                                           make_accuracy_model)
+    from repro_torch.core.sampling import uniform_genomes
+    space = get_space("rram")
+    wa = pack(get_workload_set(("resnet18", "vgg16", "alexnet",
+                                "mobilenetv3")))
+    cards = torch.as_tensor(space.cardinalities, dtype=torch.float32,
+                            device=dev)
+    g = uniform_genomes(jr.PRNGKey(11, dev)[None], cards, 24)[0]
+    before = mm.imc_matmul.launches
+    t0 = time.perf_counter()
+    host = accuracy_proxy_host(space, g.cpu().numpy(), wa, use_kernel=True,
+                               device=dev)
+    wall = time.perf_counter() - t0
+    launches = mm.imc_matmul.launches - before
+    model = make_accuracy_model(space, wa, backend="cuda", device=dev)(g)
+    model = model.cpu().numpy()
+    err = float(abs(host - model).max())
+    if launches != 24 or host.shape != (24, 4) or not math.isfinite(err) \
+            or err > 5e-3:
+        raise RuntimeError(f"host oracle: {launches} imc_matmul launches, "
+                           f"shape {host.shape}, max abs err {err} vs the "
+                           "imc_fused model")
+    log(f"accuracy_proxy_host(use_kernel=True) on 24 genomes: {launches} "
+        f"imc_matmul launches, {wall:.3f} s, max abs err {err:.3g} vs the "
+        f"imc_fused model")
+
+
+def phase_lm_example(torch, mm, dev) -> dict:
+    """Phase 10: the LM co-design example at its registry budget."""
+    from repro_torch.examples import codesign_lm_archs as example
+    mm.imc_matmul.launches = 0
+    t0 = time.perf_counter()
+    out = example.run(full=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mm.imc_matmul.launches
+    res, proj = out["result"], out["projection"]
+    if launches <= 0:
+        raise RuntimeError("the LM example did not launch imc_matmul")
+    if not (math.isfinite(res["best_score"]) and res["best_score"] < 1e29):
+        raise RuntimeError(f"sram_lm_archs: best score {res['best_score']}")
+    if sorted(res.get("specific", {})) != sorted(res["workloads"]) or \
+            len(res["workloads"]) != 5:
+        raise RuntimeError("sram_lm_archs: specific baselines missing")
+    y, r = proj["y"], proj["xbar_rows"]
+    pad = (-proj["x"].shape[1]) % r
+    want = mm.imc_matmul_plain(
+        torch.nn.functional.pad(proj["x"], (0, pad)),
+        torch.nn.functional.pad(proj["w"], (0, 0, 0, pad)), xbar_rows=r)
+    if proj["shape"] != PROJ or tuple(y.shape) != (PROJ[0], PROJ[2]) or \
+            not torch.isfinite(y).all() or not torch.equal(y, want) or \
+            not proj["rel_err"] < 0.5:  # correlated with the exact product
+        raise RuntimeError(f"projection: shape {proj['shape']}, rel err "
+                           f"{proj['rel_err']}, equal to plain "
+                           f"{torch.equal(y, want)}")
+    log(f"sram_lm_archs on {res['device']['name']}: wall "
+        f"{out['scenario_wall_s']:.2f} s (example {wall:.2f} s), best "
+        f"{res['objective']} {res['best_score']:.6g}, budget {res['budget']}")
+    log(f"sram_lm_archs best design: "
+        f"{json.dumps(res['generalized']['design'])}")
+    log(f"qwen3-4b QKV projection {proj['shape']} on Xbar_rows="
+        f"{proj['xbar_rows']}: rel err {proj['rel_err']:.4f} vs the exact "
+        f"product, equal to imc_matmul_plain; imc_matmul launches "
+        f"{launches}")
+    return {"res": res, "launches": launches, "rows": proj["xbar_rows"]}
+
+
 def phase_accuracy(torch, dev) -> None:
     """Phase 4: accuracy model 'cuda' vs 'ref' on 120 RRAM genomes."""
     from repro_torch import random as jr
@@ -190,7 +350,7 @@ def phase_scenario(torch, name, dev, out_dir) -> dict:
     return res
 
 
-def phase_rescore_cpu(res) -> None:
+def phase_rescore_cpu(res, rtol: float = 1e-4) -> None:
     """Phase 6: the card's best genome re-scored by the port on the CPU."""
     import dataclasses
 
@@ -208,7 +368,7 @@ def phase_rescore_cpu(res) -> None:
               for i, n in enumerate(st.space.names)]
     cpu = float(scorer.score(torch.tensor([genome]))[0])
     card = res["generalized"]["objective_score"]
-    if not math.isclose(cpu, card, rel_tol=1e-4):
+    if not math.isclose(cpu, card, rel_tol=rtol):
         raise RuntimeError(f"CPU re-score {cpu} != card score {card}")
     log(f"best genome re-scored on the CPU (jnp): {cpu:.6g} vs card "
         f"{card:.6g} (rel {abs(cpu - card) / abs(card):.2e})")
@@ -229,6 +389,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, src)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build, imc_fused as fused
+    from repro_torch.kernels import imc_matmul as mm
 
     dev = resolve_device("cuda:0")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -256,15 +417,29 @@ def main(argv=None) -> int:
         phase_scenario(torch, "rram_smoke", dev, out_dir)
         log(f"rram_smoke: imc_fused launches "
             f"{fused.imc_fused_gemm.launches} (EDAP only)")
-    entry = {"name": "imc_fused", "route": "cuda",
-             "source": "src/repro_torch/csrc/imc_fused.cu",
-             "replaces": "src/repro/kernels/imc_fused.py:83",
-             "launches": launches,
-             "max_abs_err": main_k["max_abs_err"], "ms": main_k["ms"],
-             "plain_ms": main_k["plain_ms"],
-             "bound_ms": main_k["bound_ms"],
-             "bound_by": main_k["bound_by"], "library_ms": None}
-    log(json.dumps({"kernels": [entry]}))
+    main_m = phase_matmul(torch, mm, dev)                            # 8
+    phase_host_oracle(torch, mm, dev)                                # 9
+    lm = phase_lm_example(torch, mm, dev)                            # 10
+    phase_rescore_cpu(lm["res"], rtol=1e-5)
+    fused_entry = {"name": "imc_fused", "route": "cuda",
+                   "source": "src/repro_torch/csrc/imc_fused.cu",
+                   "replaces": "src/repro/kernels/imc_fused.py:83",
+                   "launches": launches,
+                   "max_abs_err": main_k["max_abs_err"], "ms": main_k["ms"],
+                   "plain_ms": main_k["plain_ms"],
+                   "bound_ms": main_k["bound_ms"],
+                   "bound_by": main_k["bound_by"], "library_ms": None}
+    # the projection's shape at the row count the example ran
+    proj = main_m["timed"][(*PROJ, lm["rows"])]
+    matmul_entry = {"name": "imc_matmul", "route": "cuda",
+                    "source": "src/repro_torch/csrc/imc_matmul.cu",
+                    "replaces": "src/repro/kernels/imc_matmul.py:29",
+                    "launches": lm["launches"],
+                    "max_abs_err": main_m["max_abs_err"], "ms": proj["ms"],
+                    "plain_ms": proj["plain_ms"],
+                    "bound_ms": proj["bound_ms"],
+                    "bound_by": proj["bound_by"], "library_ms": None}
+    log(json.dumps({"kernels": [fused_entry, matmul_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,16 @@
 """Carries the reference's state across into the port.
 
 This system has no weights. Its "parameters" are the PRNG keys, the
-search-space value tables, the hardware constants, the packed workload
-arrays, the calibration GEMM operands and genome populations. Each
-``from_reference_*`` function takes them as the JAX side produces them
-(numpy arrays, or objects exposing the same fields as numpy arrays) and
-returns the port's tensors and dataclasses on a given device, so a test
-can feed both packages exactly the same state. Nothing here imports the
-reference package: objects are read by their field names.
+search-space value tables, the hardware constants, the workloads and
+packed workload arrays, the LM architecture configs, the calibration
+GEMM operands and genome populations. Each ``from_reference_*``
+function takes them as the JAX side produces them (numpy arrays, or
+objects exposing the same fields as numpy arrays) and returns the
+port's tensors and dataclasses, so a test can feed both packages
+exactly the same state. Tensors land on ``device``, which defaults to
+``"cuda"`` like every entry point of the port (``device.resolve_device``).
+Nothing here imports the reference package: objects are read by their
+field names.
 """
 from __future__ import annotations
 
@@ -19,17 +22,20 @@ import torch
 
 from .core.cost_model import HWConstants
 from .core.search_space import SearchSpace
-from .core.workloads import WorkloadArrays
+from .core.workloads import Workload, WorkloadArrays
+from .device import resolve_device
+from .models import ArchConfig
 
 
-def from_reference_key(key, device="cpu") -> torch.Tensor:
+def from_reference_key(key, device="cuda") -> torch.Tensor:
     """A raw threefry key (or a batch of keys) of uint32 values, shape
     (..., 2) -> the port's int64 key tensor."""
     arr = np.asarray(key)
     if arr.shape[-1] != 2 or arr.dtype != np.uint32:
         raise TypeError("expected raw uint32 threefry key data of shape "
                         f"(..., 2), got {arr.dtype} {arr.shape}")
-    return torch.as_tensor(arr.astype(np.int64), device=device)
+    return torch.as_tensor(arr.astype(np.int64),
+                           device=resolve_device(device))
 
 
 def from_reference_space(space) -> SearchSpace:
@@ -59,16 +65,30 @@ def from_reference_workload_arrays(wa) -> WorkloadArrays:
         seg_ids=np.asarray(wa.seg_ids, np.int32))
 
 
-def from_reference_calibration(x, w, device="cpu"
+def from_reference_workload(wl) -> Workload:
+    """A reference ``Workload`` -> the port's (float64 layers)."""
+    return Workload(name=str(wl.name),
+                    layers=np.array(wl.layers, np.float64),
+                    stored_weights=float(wl.stored_weights))
+
+
+def from_reference_arch_config(cfg) -> ArchConfig:
+    """A reference ``ArchConfig`` -> the port's, read field by field."""
+    return ArchConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(ArchConfig)})
+
+
+def from_reference_calibration(x, w, device="cuda"
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Calibration GEMM operands (activations (B, K), weights (K, N))
     -> float32 tensors."""
+    dev = resolve_device(device)
     # np.array copies: arrays the reference hands out are read-only
-    return (torch.as_tensor(np.array(x, np.float32), device=device),
-            torch.as_tensor(np.array(w, np.float32), device=device))
+    return (torch.as_tensor(np.array(x, np.float32), device=dev),
+            torch.as_tensor(np.array(w, np.float32), device=dev))
 
 
-def from_reference_genomes(genomes, device="cpu") -> torch.Tensor:
+def from_reference_genomes(genomes, device="cuda") -> torch.Tensor:
     """An integer genome population (..., n) -> int64 tensor."""
     return torch.as_tensor(np.asarray(genomes).astype(np.int64),
-                           device=device)
+                           device=resolve_device(device))

@@ -2,7 +2,8 @@
 model, scorer, Hamming sampling and the four-phase GA."""
 from .search_space import SearchSpace, get_space, rram_space, sram_space
 from .workloads import (PAPER_4, PAPER_9, Workload, WorkloadArrays,
-                        get_workload, get_workload_set, pack)
+                        from_arch_config, get_workload, get_workload_set,
+                        pack)
 from .cost_model import (CostMetrics, HWConstants, evaluate_population,
                          make_evaluator)
 from .objectives import (INFEASIBLE_PENALTY, Objective, aggregate_scores,

@@ -20,12 +20,17 @@ Backends (the crossbar-GEMM route):
   'ref'  — the fused dataflow through ``imc_fused_plain``;
   'cuda' — the fused Hopper kernel (``imc_fused_gemm`` on CUDA tensors);
   'auto' — 'cuda' on a CUDA device, 'jnp' on the CPU.
-``accuracy_proxy_host`` and ``noisy_crossbar_gemm`` (the host oracle
-over ``imc_matmul``) are not ported yet (ROADMAP Queue 2 item 2).
+
+``accuracy_proxy_host`` keeps the reference's host-side oracle: one
+Python iteration per genome, static crossbar tiling through
+``noisy_crossbar_gemm``, whose bit-serial GEMM is the ``imc_matmul``
+Hopper kernel (``use_kernel=True``, via ``kernels/ops.imc_gemm``) or its
+plain version. It draws the same per-design noise as the batched model,
+so the two agree to float tolerance.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,8 +40,10 @@ from ..device import resolve_device
 from ..kernels.adc import adc_full_scale, adc_quantize
 from ..kernels.imc_fused import (imc_fused_gemm, imc_fused_plain,
                                  noisy_weights)
+from ..kernels.imc_matmul import imc_matmul_plain
+from ..kernels.ops import imc_gemm
 from .search_space import SearchSpace
-from .workloads import WorkloadArrays
+from .workloads import Workload, WorkloadArrays
 
 OUTPUT_NOISE_FRAC = 0.01  # 1% output-referred noise [58]
 
@@ -78,6 +85,48 @@ def quantize_activations(x: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.int32)
 
 
+def _noised_weights(k_pos: torch.Tensor, k_neg: torch.Tensor,
+                    w: torch.Tensor, xbar_rows: int) -> torch.Tensor:
+    """Differential-pair conductance mapping + variability + IR drop at
+    a static row count: w (K, N) -> w_eff (K, N). The eps fields are
+    drawn on the untiled (K, N) weight shape, as the batched model
+    draws them, so both paths see the same noise from the same key."""
+    rows = torch.tensor([float(xbar_rows)], device=w.device)
+    eps_pos = jr.normal(k_pos, w.shape)[None]
+    eps_neg = jr.normal(k_neg, w.shape)[None]
+    return noisy_weights(w, eps_pos, eps_neg, rows)[0]
+
+
+def noisy_crossbar_gemm(key: torch.Tensor, x: torch.Tensor,
+                        w: torch.Tensor, xbar_rows: int, adc_bits: int = 8,
+                        use_kernel: bool = False) -> torch.Tensor:
+    """Reference noisy IMC GEMM at a static ``xbar_rows``: weights in
+    [-1, 1] mapped to differential conductance pairs with variability
+    and IR drop, 8-bit bit-serial activations, per-crossbar ADC
+    (``kernels/adc.py``), 1% output noise. x (B, K) float in [0, 1] and
+    w (K, N) on the key's device -> (B, N) at the analog activation
+    scale.
+
+    ``use_kernel=True`` runs the bit-serial GEMM through
+    ``kernels/ops.imc_gemm`` (the Hopper kernel on CUDA tensors);
+    otherwise through ``imc_matmul_plain`` on the padded operands."""
+    x_q = quantize_activations(x)
+    ks = jr.split(key, 3)
+    w_eff = _noised_weights(ks[0], ks[1], w, xbar_rows)
+    if use_kernel:
+        y_q = imc_gemm(x_q, w_eff, xbar_rows=xbar_rows, adc_bits=adc_bits)
+    else:
+        pad = (-x_q.shape[1]) % xbar_rows
+        y_q = imc_matmul_plain(
+            torch.nn.functional.pad(x_q, (0, pad)),
+            torch.nn.functional.pad(w_eff, (0, 0, 0, pad)),
+            xbar_rows=xbar_rows, adc_bits=adc_bits)
+    # a true division, as the reference's eager ``y_q / 255.0`` is
+    y = y_q / torch.tensor(255.0, device=y_q.device)
+    std = torch.std(y, correction=0)  # jnp.std: the population std
+    return y + OUTPUT_NOISE_FRAC * std * jr.normal(ks[2], y.shape)
+
+
 def calibration_data(key: torch.Tensor, n_calib: int, calib_k: int,
                      calib_n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared calibration GEMM operands: activations in [0, 1] and
@@ -96,12 +145,18 @@ def flat_index_strides(space: SearchSpace) -> np.ndarray:
         [np.cumprod(cards[::-1])[::-1][1:], [1]]).astype(np.int64)
 
 
-def _workload_accuracy_params(workloads: WorkloadArrays
-                              ) -> Tuple[np.ndarray, np.ndarray]:
-    """(base_acc (W,), depth_penalty (W,)) of a packed workload set."""
-    names = workloads.names
-    n_layers = np.bincount(workloads.seg_ids,
-                           minlength=len(names)).astype(np.float32)
+def _workload_accuracy_params(
+        workloads: Union[WorkloadArrays, Sequence[Workload]],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(base_acc (W,), depth_penalty (W,)) of a packed workload set or
+    a plain Workload sequence."""
+    if isinstance(workloads, WorkloadArrays):
+        names = workloads.names
+        n_layers = np.bincount(workloads.seg_ids,
+                               minlength=len(names)).astype(np.float32)
+    else:
+        names = [w.name for w in workloads]
+        n_layers = np.asarray([w.n_layers for w in workloads], np.float32)
     base = np.asarray([BASELINE_ACC.get(n, _DEFAULT_BASE_ACC)
                        for n in names], np.float32)
     # deeper models accumulate more noise
@@ -211,3 +266,53 @@ def make_accuracy_model(space: SearchSpace,
 
     accuracy.backend = backend
     return accuracy
+
+
+def accuracy_proxy_host(space: SearchSpace, genomes: np.ndarray,
+                        workloads: Union[WorkloadArrays,
+                                         Sequence[Workload]],
+                        *, key: Optional[torch.Tensor] = None,
+                        n_calib: int = 32, calib_k: int = 256,
+                        calib_n: int = 32, adc_bits: int = 8,
+                        use_kernel: bool = False, device="cuda"
+                        ) -> np.ndarray:
+    """Host-side per-genome oracle of ``make_accuracy_model``: (P, n)
+    genomes -> (P, W) float32 accuracies.
+
+    One Python iteration per genome, static crossbar tiling through
+    ``noisy_crossbar_gemm`` on ``device`` (the ``imc_matmul`` kernel
+    with ``use_kernel=True``). Same calibration data, per-design noise
+    keys and ADC as the batched model. The SNR is host float64
+    arithmetic, cast to float32 before the accuracy map, as in the
+    reference."""
+    dev = resolve_device(device)
+    key = jr.PRNGKey(CALIB_SEED, dev) if key is None else key.to(dev)
+    ks = jr.split(key)
+    x, w = calibration_data(ks[0], n_calib, calib_k, calib_n)
+    x_q = quantize_activations(x)
+    y_ref = x_q.float() @ w / torch.tensor(255.0, device=dev)
+
+    genomes = np.asarray(genomes)
+    table = space.value_table()
+    rows_i = space.index("xbar_rows")
+    bits_i = (space.index("bits_cell")
+              if "bits_cell" in space.names else None)
+    base, pen = map(torch.as_tensor, _workload_accuracy_params(workloads))
+    flat = genomes.astype(np.int64) @ flat_index_strides(space)
+
+    accs = np.zeros((genomes.shape[0], base.shape[0]), np.float32)
+    for pi in range(genomes.shape[0]):
+        rows = int(table[rows_i, genomes[pi, rows_i]])
+        bits = (float(table[bits_i, genomes[pi, bits_i]])
+                if bits_i is not None else 1.0)
+        cpw = max(1.0, float(np.floor(8.0 / bits)))
+        k = jr.fold_in(ks[1], int(flat[pi]))
+        y = noisy_crossbar_gemm(k, x, w, xbar_rows=rows,
+                                adc_bits=adc_bits, use_kernel=use_kernel)
+        err = float(torch.mean((y - y_ref) ** 2))
+        sig = float(torch.mean(y_ref ** 2))
+        snr_db = 10.0 * np.log10(sig / max(err, 1e-12))
+        snr_db += 10.0 * np.log10(cpw)
+        accs[pi] = _snr_to_accuracy(torch.tensor(np.float32(snr_db)), base,
+                                    pen).numpy()
+    return accs

@@ -8,9 +8,9 @@ A workload is a sequence of GEMM layers. Each layer is (M, K, N):
   N — output dim
 MACs = M*K*N, weights = K*N. Depthwise convs are encoded (M=HW, K=kh*kw,
 N=C). The packed arrays stay host numpy; the cost model moves them to
-its device. ``from_arch_config`` (the LM-architecture set) and the
-joint co-search families and builder are not ported yet (ROADMAP
-Queue 1 item 7).
+its device. ``from_arch_config`` exports the assigned LM architectures
+(``configs/``). The joint co-search families and builder are not
+ported yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -185,6 +185,55 @@ def mobilebert() -> Workload:
 def gpt2_medium(seq: int = 1024) -> Workload:
     L = _transformer_layers(seq, 1024, 4096, 24, 50257)
     return _wl("gpt2_medium", L)
+
+
+# ---------------------------------------------------------------------------
+# Assigned LM architectures as IMC workloads
+# ---------------------------------------------------------------------------
+
+def from_arch_config(cfg, seq: int = 512) -> Workload:
+    """Export one of the 10 assigned architecture configs as an IMC
+    workload (per-layer GEMMs at sequence length ``seq``, batch 1).
+
+    Recurrent blocks (RG-LRU, xLSTM) export their projection GEMMs; the
+    diagonal state recurrence itself is an elementwise vector op with
+    negligible crossbar cost. MoE blocks export top-k active expert
+    GEMMs and report full expert storage via ``stored_weights``.
+    """
+    L: List[Tuple[float, float, float]] = []
+    stored_extra = 0.0
+    s, d = float(seq), float(cfg.d_model)
+    dht = float(cfg.n_heads * cfg.head_dim)
+    dkv = float(cfg.n_kv_heads * cfg.head_dim)
+    for kind in cfg.layout():
+        if kind in ("attn", "local_attn", "cross_attn"):
+            L.append((s, d, dht + 2 * dkv))   # fused QKV
+            L.append((s, dht, d))
+        elif kind == "rglru":
+            w = float(cfg.rnn_width or cfg.d_model)
+            L.append((s, d, 2 * w))           # x/gate in-proj
+            L.append((s, w, d))               # out proj
+        elif kind in ("mlstm", "slstm"):
+            w = 2.0 * d                        # proj_factor 2 up/down
+            L.append((s, d, 2 * w))
+            L.append((s, w, d))
+        else:
+            raise ValueError(kind)
+        if cfg.n_experts > 1 and kind not in ("rglru", "mlstm", "slstm"):
+            ff = float(cfg.d_ff)
+            k = float(cfg.top_k)
+            L.append((s, d, k * 2 * ff))      # active experts (gated up)
+            L.append((s, k * ff, d))
+            stored_extra += (cfg.n_experts - cfg.top_k) * (3 * d * ff)
+        elif cfg.d_ff:
+            ff = float(cfg.d_ff)
+            mult = 2.0 if cfg.gated_mlp else 1.0
+            L.append((s, d, mult * ff))
+            L.append((s, ff, d))
+    L.append((s, d, float(cfg.vocab_size)))   # unembed
+    active = float(np.sum(np.asarray(L)[:, 1] * np.asarray(L)[:, 2]))
+    return Workload(name=cfg.name, layers=np.asarray(L, dtype=np.float64),
+                    stored_weights=active + stored_extra)
 
 
 # ---------------------------------------------------------------------------

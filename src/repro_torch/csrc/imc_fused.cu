@@ -35,6 +35,8 @@
 
 #include <cstddef>
 
+#include "adc.cuh"
+
 namespace {
 
 constexpr int TB = 8;             // batch rows per block
@@ -90,9 +92,8 @@ imc_fused_kernel(const int* __restrict__ x_q, const float* __restrict__ w,
   const float rows = row_table[ri];
   // ir_drop_factor: 1 - (beta * activity) * (rows / 512)
   const float ir = __fsub_rn(1.0f, __fmul_rn(0.02f, __fdiv_rn(rows, 512.0f)));
-  const float levels = (float)(1 << (adc_bits - 1));
-  const float delta = __fdiv_rn(__fdiv_rn(rows, 4.0f), levels);
-  const float lo = -levels, hi = levels - 1.0f;
+  // ADC at full scale rows / 4 (adc.cuh)
+  const Adc adc = adc_make(__fdiv_rn(rows, 4.0f), adc_bits);
   const float subf = (float)sub;
 
   const size_t kn = (size_t)K * N;
@@ -143,10 +144,7 @@ imc_fused_kernel(const int* __restrict__ x_q, const float* __restrict__ w,
     if (group_end) {
 #pragma unroll
       for (int q = 0; q < BITS; ++q) {
-        // ADC (kernels/adc.py): round half to even, true division by delta
-        const float code = fminf(fmaxf(rintf(__fdiv_rn(grp[q], delta)), lo),
-                                 hi);
-        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(code, delta),
+        acc = __fadd_rn(acc, __fmul_rn(adc_quantize(grp[q], adc),
                                        (float)(1 << q)));
         grp[q] = 0.0f;
       }

@@ -14,15 +14,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Tuple
 
+from ..configs import get_config
 from ..core.search_space import SearchSpace, get_space
-from ..core.workloads import PAPER_4, PAPER_9, Workload, get_workload_set
+from ..core.workloads import (PAPER_4, PAPER_9, Workload, from_arch_config,
+                              get_workload_set)
 
 # Largest paper workload: the single-workload (specialized) design point
 # the cross-workload comparisons normalize against (paper Fig. 3).
 LARGEST_WORKLOAD = "vgg16"
 
-# The assigned LM architectures exported as IMC workloads (examples/
-# codesign_lm_archs.py scenario, beyond-paper).
+# The assigned LM architectures exported as IMC workloads (the
+# beyond-paper scenario of examples/codesign_lm_archs.py; the port's
+# counterpart is repro_torch/examples/codesign_lm_archs.py).
 LM_ARCHS = ("qwen3_4b", "qwen2_5_3b", "xlstm_350m", "hubert_xlarge",
             "phi4_mini_3_8b")
 
@@ -120,6 +123,9 @@ class Scenario:
 
     def resolve_workloads(self) -> List[Workload]:
         check_ported(self)
+        if self.workload_source == "archs":
+            return [from_arch_config(get_config(a), seq=self.seq)
+                    for a in self.workloads]
         return get_workload_set(self.workloads)
 
 
@@ -140,9 +146,6 @@ def check_ported(scenario: Scenario) -> None:
     elif scenario.workload_source == "family" or scenario.min_accuracy > 0:
         missing = ("joint workload-architecture co-search",
                    "Queue 1 item 7")
-    elif scenario.workload_source == "archs":
-        missing = ("the LM-architecture workloads (from_arch_config, "
-                   "configs/)", "Queue 1 item 7")
     if missing is not None:
         raise NotImplementedError(
             f"scenario {scenario.name!r} needs {missing[0]}, which is not "

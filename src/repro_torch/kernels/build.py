@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function (no PyTorch
 headers, so ``nvcc`` takes seconds, not minutes). It is compiled at
 first use for ``sm_90a`` into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), under a file name that carries a
-hash of the source and the flags, so an edited source rebuilds. The
+hash of the source, of the ``csrc/*.cuh`` headers it includes (the
+shared ADC, ``adc.cuh``) and of the flags, so an edited source or
+header rebuilds. The
 library is written to a temporary name and renamed into place, so
 concurrent processes never load a half-written file.
 
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the C signature of every kernel's launch function; a pointer or the
 # stream is c_void_p, an int c_int (ctypes would cut a pointer otherwise)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "imc_fused": {
         # x_q, w, eps_pos, eps_neg, rows_idx, row_table, out,
@@ -37,7 +40,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "imc_fused_launch": (_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P),
     },
+    "imc_matmul": {
+        # x_q, w, out, M, K, N, R, adc_bits, full_scale, stream
+        "imc_matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    },
 }
+
+# a source's own headers: `#include "<name>.cuh"` lines, resolved in csrc/
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -52,8 +62,14 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """``build/kernels/lib<name>_<hash>.so``, the hash taken over the
+    source, every ``csrc/*.cuh`` it includes and the flags, so an edit
+    to any of them rebuilds."""
+    src = (CSRC / f"{name}.cu").read_text()
+    digest = hashlib.sha256(src.encode())
+    for header in sorted(set(_INCLUDE.findall(src))):
+        digest.update(header.encode() + (CSRC / header).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -1,34 +1,44 @@
-"""Module parity of the port's core (repro_torch/core) with the JAX
-reference on shared inputs: search spaces and packed workloads exactly,
+"""Module parity of the port's core (repro_torch/core), configs and
+models with the JAX reference on shared inputs: search spaces, packed
+workloads, the ten LM ArchConfigs and their exported workloads exactly,
 CostMetrics on every deduped registry configuration, objectives, the
-accuracy model on every accuracy-scored configuration, and the GA
-operators, sampler and scheduled search given the same keys.
+accuracy model on every accuracy-scored configuration, the noisy
+crossbar GEMM and the host accuracy oracle, and the GA operators,
+sampler and scheduled search given the same keys.
 
 Where the port is not bitwise, the divergence is an ULP-level one that
 ROADMAP Queue 3 records: XLA contracts multiply-adds into FMAs and sums
 its float32 dot in an order the port cannot reproduce (the port sums
 the workload segments in float64 and rounds once)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.core import genetic as jgen
 from repro.core import sampling as jsamp
 from repro.core import HWConstants as JHWConstants
 from repro.core import (Objective as JObjective, get_space as jget_space,
                         get_workload_set as jget_workload_set,
                         make_evaluator as jmake_evaluator, pack as jpack)
+from repro.core.nonideal import accuracy_proxy_host as jaccuracy_proxy_host
 from repro.core.nonideal import calibration_data as jcalibration_data
 from repro.core.nonideal import make_accuracy_model as jmake_accuracy_model
+from repro.core.nonideal import noisy_crossbar_gemm as jnoisy_crossbar_gemm
 from repro.core.objectives import per_workload_scores as jper_workload
+from repro.core.workloads import from_arch_config as jfrom_arch_config
 from repro.experiments import REGISTRY
-from repro_torch import convert
+from repro_torch import configs, convert
 from repro_torch import random as jr
-from repro_torch.core import cost_model, genetic, sampling
-from repro_torch.core.nonideal import (CALIB_SEED, calibration_data,
+from repro_torch.core import cost_model, from_arch_config, genetic, sampling
+from repro_torch.core.nonideal import (CALIB_SEED, accuracy_proxy_host,
+                                       calibration_data,
                                        make_accuracy_model,
+                                       noisy_crossbar_gemm,
                                        quantize_activations)
 from repro_torch.core.objectives import (Objective, make_objective,
                                          per_workload_scores)
@@ -39,7 +49,7 @@ torch.set_num_threads(1)
 
 
 def _ported(sc) -> bool:
-    return (sc.workload_source == "paper" and not sc.reduced_space
+    return (sc.workload_source in ("paper", "archs") and not sc.reduced_space
             and sc.algorithm != "alg_compare")
 
 
@@ -79,7 +89,7 @@ def _t(a) -> torch.Tensor:
 def _tkey(seed_or_key) -> torch.Tensor:
     key = (jax.random.PRNGKey(seed_or_key) if isinstance(seed_or_key, int)
            else seed_or_key)
-    return convert.from_reference_key(np.asarray(key))
+    return convert.from_reference_key(np.asarray(key), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -123,13 +133,13 @@ def test_cost_metrics_match_on_registry_config(name):
     1e-6 — see ROADMAP Queue 3."""
     sc = REGISTRY[name]
     jspace, jwa = (jget_space(sc.mem, sc.tech_variable),
-                   jpack(jget_workload_set(sc.workloads)))
+                   jpack(sc.resolve_workloads()))
     g = _genomes(jspace, 512, seed=len(name))
     ref = jmake_evaluator(jspace, jwa)(jnp.asarray(g))
     port = cost_model.evaluate_population(
         convert.from_reference_space(jspace),
         convert.from_reference_workload_arrays(jwa),
-        convert.from_reference_genomes(g),
+        convert.from_reference_genomes(g, device="cpu"),
         convert.from_reference_constants(JHWConstants()))
     for field in ("feasible", "feasible_w"):
         assert np.array_equal(getattr(port, field).numpy(),
@@ -183,7 +193,7 @@ def test_calibration_data_matches():
     assert np.array_equal(x.numpy(), np.asarray(jx))
     np.testing.assert_allclose(w.numpy(), np.asarray(jw), rtol=4 * 2 ** -23,
                                atol=1e-30)
-    cx, cw = convert.from_reference_calibration(jx, jw)
+    cx, cw = convert.from_reference_calibration(jx, jw, device="cpu")
     assert torch.equal(cx, x)
     np.testing.assert_allclose(cw.numpy(), w.numpy(), rtol=4 * 2 ** -23,
                                atol=1e-30)
@@ -208,9 +218,10 @@ def test_accuracy_model_matches_reference(name, calib):
     kw = dict(n_calib=n_calib, calib_k=calib_k)
     want = np.asarray(jmake_accuracy_model(jspace, jwa, backend="jnp",
                                            **kw)(jnp.asarray(g)))
+    tg = convert.from_reference_genomes(g, device="cpu")
     for backend in ("jnp", "ref"):
         got = make_accuracy_model(space, wa, backend=backend, device="cpu",
-                                  **kw)(convert.from_reference_genomes(g))
+                                  **kw)(tg)
         assert got.shape == (6, len(sc.workloads))
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                    err_msg=backend)
@@ -227,6 +238,115 @@ def test_accuracy_model_device_and_backend_rules():
         make_accuracy_model(space, wa, backend="pallas", device="cpu")
     acc = make_accuracy_model(space, wa, backend="auto", device="cpu")
     assert acc.backend == "jnp"
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("rows", [64, 128, 512])
+def test_noisy_crossbar_gemm_matches_reference(use_kernel, rows):
+    """The static-tiling noisy GEMM from the same key on both sides (the
+    same threefry noise draws), through imc_matmul (ops.imc_gemm) or its
+    plain version; JAX runs the Pallas kernel in interpret mode."""
+    key = jax.random.PRNGKey(rows + use_kernel)
+    rng = np.random.default_rng(rows)
+    x = rng.random((8, 200)).astype(np.float32)  # ragged K: padded
+    w = (rng.standard_normal((200, 16)) * 0.3).astype(np.float32)
+    want = np.asarray(jnoisy_crossbar_gemm(key, jnp.asarray(x),
+                                           jnp.asarray(w), xbar_rows=rows,
+                                           use_kernel=use_kernel))
+    got = noisy_crossbar_gemm(_tkey(key), _t(x), _t(w), xbar_rows=rows,
+                              use_kernel=use_kernel)
+    assert got.shape == (8, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_accuracy_proxy_host_matches_reference(use_kernel):
+    """The host oracle on a few RRAM genomes against the reference's,
+    rtol 1e-4, and against the port's batched model at the atol 5e-3 of
+    tests/test_nonideal.py (a Workload list and its pack agree)."""
+    names = ("resnet18", "vgg16", "alexnet", "mobilenetv3")
+    jspace = jget_space("rram")
+    g = _genomes(jspace, 4, seed=7)
+    kw = dict(n_calib=8, calib_k=128)
+    want = jaccuracy_proxy_host(jspace, g, jget_workload_set(names),
+                                use_kernel=use_kernel, **kw)
+    space = get_space("rram")
+    got = accuracy_proxy_host(space, g, get_workload_set(names),
+                              use_kernel=use_kernel, device="cpu", **kw)
+    assert got.shape == (4, 4) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    wa = pack(get_workload_set(names))
+    packed = accuracy_proxy_host(space, g, wa, use_kernel=use_kernel,
+                                 device="cpu", **kw)
+    np.testing.assert_array_equal(packed, got)
+    model = make_accuracy_model(space, wa, device="cpu", **kw)(
+        convert.from_reference_genomes(g, device="cpu"))
+    np.testing.assert_allclose(model.numpy(), got, atol=5e-3)
+
+
+def test_convert_defaults_to_the_gpu():
+    """Like every entry point, the converters put tensors on 'cuda' by
+    default and raise without a CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    key = np.asarray(jax.random.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_reference_key(key)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_reference_genomes(np.zeros((2, 3), np.int32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_reference_calibration(np.zeros((2, 3)),
+                                           np.zeros((3, 2)))
+
+
+# ---------------------------------------------------------------------------
+# LM architecture configs and their IMC workloads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_arch_config_matches_reference(arch, reduced):
+    """Every field and derived quantity of the ten assigned ArchConfigs,
+    full and reduced."""
+    ref = jconfigs.get_config(arch, reduced)
+    cfg = configs.get_config(arch, reduced)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert convert.from_reference_arch_config(ref) == cfg
+    assert cfg.param_count() == ref.param_count()
+    assert cfg.active_param_count() == ref.active_param_count()
+    assert cfg.layout() == ref.layout()
+    assert cfg.schedule() == ref.schedule()
+    assert (cfg.rnn_w, cfg.is_decoder, cfg.sub_quadratic) == (
+        ref.rnn_w, ref.is_decoder, ref.sub_quadratic)
+    assert cfg.torch_dtype == (torch.bfloat16 if ref.dtype == "bfloat16"
+                               else torch.float32)
+
+
+def test_arch_registry_and_shapes_match_reference():
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert ({k: dataclasses.asdict(v) for k, v in configs.SHAPES.items()}
+            == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()})
+    for cfg, ref in zip(configs.all_configs(), jconfigs.all_configs()):
+        for shape in configs.SHAPES.values():
+            jshape = jconfigs.SHAPES[shape.name]
+            assert (configs.cell_runnable(cfg, shape)
+                    == jconfigs.cell_runnable(ref, jshape))
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+@pytest.mark.parametrize("seq", [128, 256])
+def test_from_arch_config_matches_reference(arch, seq):
+    """The exported per-layer GEMMs (float64) and stored weights, bit
+    for bit, from the port's own config and from a converted one."""
+    ref = jfrom_arch_config(jconfigs.get_config(arch), seq=seq)
+    for wl in (from_arch_config(configs.get_config(arch), seq=seq),
+               from_arch_config(convert.from_reference_arch_config(
+                   jconfigs.get_config(arch)), seq=seq),
+               convert.from_reference_workload(ref)):
+        assert wl.name == ref.name
+        assert wl.layers.dtype == np.float64
+        assert np.array_equal(wl.layers, ref.layers)
+        assert wl.stored_weights == ref.stored_weights
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written Hopper
-kernel against its plain version, the wrapper's input checks, the
-accuracy model's 'cuda' backend and one scenario on the card. They
+kernels against their plain versions, the wrappers' input checks, the
+accuracy model's 'cuda' backend, the host accuracy oracle through the
+bit-serial GEMM kernel, and one scenario on the card. They
 carry the ``gpu`` marker and skip without a CUDA device. This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is not installed:
@@ -16,10 +17,12 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.core import get_space, get_workload_set, pack
-from repro_torch.core.nonideal import make_accuracy_model
+from repro_torch.core.nonideal import accuracy_proxy_host, make_accuracy_model
 from repro_torch.core.sampling import uniform_genomes
 from repro_torch.experiments import get_scenario, run_scenario
 from repro_torch.kernels.imc_fused import imc_fused_gemm, imc_fused_plain
+from repro_torch.kernels.imc_matmul import imc_matmul, imc_matmul_plain
+from repro_torch.kernels.ops import imc_gemm
 
 pytestmark = pytest.mark.gpu
 
@@ -109,3 +112,82 @@ def test_rram_accuracy_smoke_on_card(cuda, tmp_path):
                        write=False, device="cpu")
     assert cpu["generalized"]["design"] == res["generalized"]["design"]
     assert math.isclose(cpu["best_score"], res["best_score"], rel_tol=1e-4)
+
+
+MATMUL_SHAPES = [  # (M, K, N, R, adc_bits)
+    (8, 128, 16, 128, 8), (16, 256, 32, 128, 8), (32, 512, 64, 256, 8),
+    (8, 384, 8, 128, 8), (8, 512, 8, 512, 8),      # tests/test_kernels.py
+    (8, 256, 16, 128, 4), (8, 256, 16, 128, 12),   # ADC widths
+    (32, 512, 32, 512, 8),                         # host oracle, K padded
+    (5, 320, 70, 64, 8),                           # ragged M and N tiles
+    (16, 2560, 12288, 256, 8),                     # qwen3-4b QKV projection
+]
+
+
+def _matmul_inputs(seed, M, K, N, dev):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 256, (M, K)).astype(np.int32))
+            .to(dev),
+            torch.from_numpy((rng.standard_normal((K, N)) * 0.25)
+                             .astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("M,K,N,R,adc_bits", MATMUL_SHAPES)
+def test_imc_matmul_kernel_matches_plain_bitwise(cuda, M, K, N, R, adc_bits):
+    """Both add the R terms of a bit-plane sum in k order and shift-
+    accumulate bits within a tile, then tiles: bit for bit equal, on the
+    card and against the CPU plain version."""
+    x_q, w = _matmul_inputs(M + K + N, M, K, N, cuda)
+    before = imc_matmul.launches
+    got = imc_matmul(x_q, w, xbar_rows=R, adc_bits=adc_bits)
+    assert imc_matmul.launches == before + 1
+    want = imc_matmul_plain(x_q, w, xbar_rows=R, adc_bits=adc_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if M * N <= 4096:
+        cpu = imc_matmul_plain(x_q.cpu(), w.cpu(), xbar_rows=R,
+                               adc_bits=adc_bits)
+        assert torch.equal(got.cpu(), cpu)
+
+
+def test_imc_matmul_wrapper_rejects_bad_inputs(cuda):
+    x_q, w = _matmul_inputs(0, 4, 128, 8, cuda)
+    with pytest.raises(TypeError):
+        imc_matmul(x_q.long(), w, xbar_rows=64)
+    with pytest.raises(TypeError):
+        imc_matmul(x_q, w.double(), xbar_rows=64)
+    with pytest.raises(ValueError):
+        imc_matmul(x_q, w[:64], xbar_rows=64)       # K does not chain
+    with pytest.raises(ValueError):
+        imc_matmul(x_q, w, xbar_rows=96)            # K % R != 0
+    with pytest.raises(ValueError):
+        imc_matmul(x_q, w.t().contiguous().t(), xbar_rows=64)
+    with pytest.raises(ValueError):
+        imc_matmul(x_q, w.cpu(), xbar_rows=64)
+    with pytest.raises(ValueError):
+        imc_matmul(x_q[None], w, xbar_rows=64)
+    # ops.imc_gemm pads a ragged K and launches once
+    before = imc_matmul.launches
+    y = imc_gemm(x_q[:, :100].contiguous(), w[:100].contiguous(),
+                 xbar_rows=64)
+    assert imc_matmul.launches == before + 1 and y.shape == (4, 8)
+
+
+def test_accuracy_proxy_host_kernel_matches_model(cuda):
+    """The host oracle through the imc_matmul kernel (one launch per
+    genome) against the batched imc_fused model, at the atol 5e-3 of
+    tests/test_nonideal.py, and against its own plain route."""
+    space = get_space("rram")
+    wa = pack(get_workload_set(("resnet18", "vgg16", "alexnet",
+                                "mobilenetv3")))
+    cards = torch.as_tensor(space.cardinalities, dtype=torch.float32)
+    g = uniform_genomes(jr.PRNGKey(5)[None], cards, 8)[0]
+    before = imc_matmul.launches
+    host = accuracy_proxy_host(space, g.numpy(), wa, use_kernel=True,
+                               device=cuda)
+    assert imc_matmul.launches == before + 8
+    plain = accuracy_proxy_host(space, g.numpy(), wa, device=cuda)
+    np.testing.assert_array_equal(host, plain)
+    model = make_accuracy_model(space, wa, backend="cuda", device=cuda)(
+        g.to(cuda)).cpu().numpy()
+    np.testing.assert_allclose(host, model, atol=5e-3)

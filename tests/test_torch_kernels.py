@@ -1,9 +1,12 @@
-"""The port's kernel module (repro_torch/kernels): the ADC model bit
-for bit, the fused crossbar kernel's plain version against the JAX
-Pallas kernel (interpret mode) and its oracle at the tests/test_kernels.py
-shape families and tolerance, and the wrapper's CPU rule. The CUDA
-kernel itself runs only on a card: tests/test_torch_gpu.py holds it
-against the plain version there."""
+"""The port's kernel modules (repro_torch/kernels): the ADC model bit
+for bit; the fused crossbar kernel's and the bit-serial crossbar GEMM's
+plain versions against the JAX Pallas kernels (interpret mode) and their
+oracles at the tests/test_kernels.py shapes and tolerances; the
+wrappers' CPU rule, ``ops.imc_gemm``'s padding, and the build's
+library naming. The CUDA kernels themselves run only on a card:
+tests/test_torch_gpu.py holds them against the plain versions there."""
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,11 +16,16 @@ from repro.kernels.adc import adc_quantize as jax_adc_quantize
 from repro.kernels.imc_fused import imc_fused_gemm as jax_imc_fused_gemm
 from repro.kernels.imc_fused import ir_drop_factor as jax_ir_drop_factor
 from repro.kernels.imc_fused import sigma_of_g as jax_sigma_of_g
-from repro.kernels.ref import imc_fused_ref
+from repro.kernels.imc_matmul import imc_matmul as jax_imc_matmul
+from repro.kernels.ops import imc_gemm as jax_imc_gemm
+from repro.kernels.ref import imc_fused_ref, imc_matmul_ref
 from repro_torch.kernels import build
+from repro_torch.kernels import imc_matmul as matmul_mod
 from repro_torch.kernels.adc import adc_full_scale, adc_quantize
 from repro_torch.kernels.imc_fused import (imc_fused_gemm, imc_fused_plain,
                                            ir_drop_factor, sigma_of_g)
+from repro_torch.kernels.imc_matmul import imc_matmul, imc_matmul_plain
+from repro_torch.kernels.ops import imc_gemm
 
 torch.set_num_threads(1)
 
@@ -114,10 +122,129 @@ def test_wrapper_on_cpu_runs_plain_version():
 
 def test_build_paths_stay_in_checkout():
     """Kernels build into build/kernels of the checkout under a name
-    keyed by the source hash; nothing is compiled at import time."""
-    path = build._library_path("imc_fused")
-    assert path.parent == build.BUILD_DIR
+    keyed by the source hash; nothing is compiled at import time. Both
+    kernels share the ADC device code of csrc/adc.cuh."""
+    assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul"}
+    for name in build.SIGNATURES:
+        path = build._library_path(name)
+        assert path.parent == build.BUILD_DIR
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert build._INCLUDE.findall(src) == ["adc.cuh"]
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
-    assert (build.CSRC / "imc_fused.cu").exists()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in build.NVCC_FLAGS
+
+
+def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
+    """An edit to the shared header renames (so rebuilds) both kernels'
+    libraries; an edit to one source renames only its own."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("imc_fused", "imc_matmul")
+    before = {n: build._library_path(n) for n in names}
+    assert before == {n: build._library_path(n) for n in names}
+    with open(csrc / "adc.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: build._library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    with open(csrc / "imc_matmul.cu", "a") as f:
+        f.write("// edited\n")
+    again = {n: build._library_path(n) for n in names}
+    assert again["imc_fused"] == after["imc_fused"]
+    assert again["imc_matmul"] != after["imc_matmul"]
+
+
+# ---------------------------------------------------------------------------
+# imc_matmul: the bit-serial crossbar GEMM
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's shapes (M, K, N, R) and ADC widths
+MATMUL_SHAPES = [(8, 128, 16, 128), (16, 256, 32, 128), (32, 512, 64, 256),
+                 (8, 384, 8, 128), (8, 512, 8, 512)]
+
+
+def _matmul_inputs(seed, M, K, N, scale=0.3):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (M, K)).astype(np.int32),
+            (rng.standard_normal((K, N)) * scale).astype(np.float32))
+
+
+def _check_against_reference(x, w, R, adc_bits=8):
+    """imc_matmul_plain vs the Pallas kernel in interpret mode (through
+    the JAX ops.imc_gemm) and vs imc_matmul_ref, at the bound of
+    tests/test_kernels.py (rtol 1e-6, atol 1e-4)."""
+    got = imc_matmul_plain(torch.from_numpy(x), torch.from_numpy(w),
+                           xbar_rows=R, adc_bits=adc_bits).numpy()
+    kern = np.asarray(jax_imc_gemm(jnp.asarray(x), jnp.asarray(w),
+                                   xbar_rows=R, adc_bits=adc_bits))
+    ref = np.asarray(imc_matmul_ref(jnp.asarray(x), jnp.asarray(w),
+                                    xbar_rows=R, adc_bits=adc_bits))
+    assert got.shape == kern.shape == (x.shape[0], w.shape[1])
+    np.testing.assert_allclose(got, kern, rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-4)
+    return got, kern
+
+
+@pytest.mark.parametrize("M,K,N,R", MATMUL_SHAPES)
+def test_imc_matmul_plain_matches_pallas_kernel(M, K, N, R):
+    _check_against_reference(*_matmul_inputs(M + K + N, M, K, N), R)
+
+
+@pytest.mark.parametrize("adc_bits", [4, 6, 8, 12])
+def test_imc_matmul_plain_adc_bits(adc_bits):
+    _check_against_reference(*_matmul_inputs(adc_bits, 8, 256, 16), 128,
+                             adc_bits=adc_bits)
+
+
+@pytest.mark.parametrize("R", [64, 128, 256, 512])
+def test_imc_matmul_plain_at_oracle_shape(R):
+    """The host oracle's calibration GEMM (32 x 256 codes, 256 x 32
+    weights at the accuracy model's 0.3 scale), K padded to R where R
+    exceeds it, against the direct Pallas call in interpret mode."""
+    x, w = _matmul_inputs(R, 32, 256, 32)
+    pad = (-256) % R
+    xp, wp = np.pad(x, ((0, 0), (0, pad))), np.pad(w, ((0, pad), (0, 0)))
+    got, _ = _check_against_reference(xp, wp, R)
+    direct = np.asarray(jax_imc_matmul(jnp.asarray(xp), jnp.asarray(wp),
+                                       xbar_rows=R, block_m=32, block_n=32,
+                                       interpret=True))
+    np.testing.assert_allclose(got, direct, rtol=1e-6, atol=1e-4)
+
+
+def test_imc_gemm_pads_k_and_masks_ragged_m_n():
+    """ops.imc_gemm takes any (M, K): K is zero-padded to whole
+    crossbars and equals the plain version on explicitly padded
+    operands; ragged M and N need no padding. Against the JAX ops."""
+    x, w = _matmul_inputs(5, 5, 200, 7)
+    got = imc_gemm(torch.from_numpy(x), torch.from_numpy(w),
+                   xbar_rows=64).numpy()
+    padded = imc_matmul_plain(
+        torch.from_numpy(np.pad(x, ((0, 0), (0, 56)))),
+        torch.from_numpy(np.pad(w, ((0, 56), (0, 0)))), xbar_rows=64)
+    assert np.array_equal(got, padded.numpy())
+    want = np.asarray(jax_imc_gemm(jnp.asarray(x), jnp.asarray(w),
+                                   xbar_rows=64))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+    with pytest.raises(ValueError, match="multiple"):
+        imc_matmul_plain(torch.from_numpy(x), torch.from_numpy(w),
+                         xbar_rows=64)
+
+
+def test_imc_matmul_wrapper_on_cpu_runs_plain_version():
+    x, w = map(torch.from_numpy, _matmul_inputs(1, 4, 128, 8))
+    before = imc_matmul.launches
+    out = imc_matmul(x, w, xbar_rows=64, adc_bits=6)
+    assert imc_matmul.launches == before  # no kernel launched
+    assert torch.equal(out, imc_matmul_plain(x, w, xbar_rows=64,
+                                             adc_bits=6))
+
+
+def test_imc_matmul_plain_column_chunks_keep_the_arithmetic(monkeypatch):
+    """Wide products run in column chunks; the columns are independent,
+    so the result is bit for bit the unchunked one."""
+    x, w = map(torch.from_numpy, _matmul_inputs(2, 6, 256, 40))
+    whole = imc_matmul_plain(x, w, xbar_rows=64, w_scale=0.7)
+    monkeypatch.setattr(matmul_mod, "_PLAIN_MAX_ELEMENTS", 8 * 6 * 4 * 3)
+    assert torch.equal(imc_matmul_plain(x, w, xbar_rows=64, w_scale=0.7),
+                       whole)

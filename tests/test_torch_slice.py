@@ -1,12 +1,14 @@
-"""The port's first slice end to end on the CPU: ``rram_smoke`` (EDAP)
-and ``rram_accuracy`` (§IV-H, edap_acc, the fused-kernel dataflow
-through its plain version) at the smoke budget, run by both packages
-with backend 'ref'; their result.json and specific_*.json must agree
-modulo timing fields — identical genomes, floats at rtol 1e-5 (EDAP)
-and 1e-4 (accuracy-scored). Plus the port's own rules: no JAX and no
-``repro`` import anywhere in it, entry points default to the GPU and
-never fall back to the CPU, unported scenarios name their ROADMAP
-item."""
+"""The port's slices end to end on the CPU: ``rram_smoke`` (EDAP),
+``rram_accuracy`` (§IV-H, edap_acc, the fused-kernel dataflow through
+its plain version) and ``sram_lm_archs`` (the assigned LM architectures
+as workloads) at the smoke budget, run by both packages with backend
+'ref'; their result.json and specific_*.json must agree modulo timing
+fields — identical genomes, floats at rtol 1e-5 (EDAP) and 1e-4
+(accuracy-scored). The LM co-design example's scenario and its qwen3
+projection through both packages' ``imc_gemm``. Plus the port's own
+rules: no JAX and no ``repro`` import anywhere in it, entry points
+default to the GPU and never fall back to the CPU, unported scenarios
+name their ROADMAP item."""
 import ast
 import dataclasses
 import json
@@ -14,15 +16,22 @@ import math
 import os
 from pathlib import Path
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jget_config
+from repro.experiments import SMOKE_BUDGET as JSMOKE_BUDGET
 from repro.experiments import get_scenario as jget_scenario
 from repro.experiments import run_scenario as jrun_scenario
+from repro.kernels.ops import imc_gemm as jimc_gemm
 from repro_torch.device import resolve_device
+from repro_torch.examples import codesign_lm_archs as example
 from repro_torch.experiments import get_scenario, run_scenario
 from repro_torch.experiments import __main__ as cli
 from repro_torch.experiments.report import write_summary
+from repro_torch.kernels.ops import imc_gemm
 
 torch.set_num_threads(1)
 
@@ -63,7 +72,8 @@ def _designs_equal(a, b):
 
 
 @pytest.mark.parametrize("name,rtol", [("rram_smoke", 1e-5),
-                                       ("rram_accuracy", 1e-4)])
+                                       ("rram_accuracy", 1e-4),
+                                       ("sram_lm_archs", 1e-5)])
 def test_slice_matches_reference(tmp_path, name, rtol):
     ref_sc = jget_scenario(name)
     ref_sc = dataclasses.replace(ref_sc, budget=ref_sc.smoke_budget,
@@ -108,11 +118,66 @@ def test_other_algorithms_run(tmp_path, name):
 
 @pytest.mark.parametrize("name", ["table3_reduced_rram", "alg_compare_rram",
                                   "rram_tech_cost", "rram_tech_cost_mo",
-                                  "joint_rram_resnet_family",
-                                  "sram_lm_archs"])
+                                  "joint_rram_resnet_family"])
 def test_unported_scenarios_name_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         run_scenario(get_scenario(name), write=False, device="cpu")
+
+
+def test_lm_example_matches_reference():
+    """The example's default run on the CPU: ``sram_lm_archs`` at the
+    smoke budget without specific baselines picks the reference's
+    design, and its qwen3 projection (reduced config) through the port's
+    ``imc_gemm`` matches the JAX ``imc_gemm`` (Pallas, interpret mode) on
+    the same operands at the tests/test_kernels.py bound."""
+    out = example.run(device="cpu")
+    res, proj = out["result"], out["projection"]
+    jsc = dataclasses.replace(jget_scenario("sram_lm_archs"),
+                              budget=JSMOKE_BUDGET, specific_baselines=False)
+    ref = jrun_scenario(jsc, write=False)
+    assert res["generalized"]["design"] == ref["generalized"]["design"]
+    assert "specific" not in res and "specific" not in ref
+    assert math.isclose(res["best_score"], ref["best_score"], rel_tol=1e-5)
+    cfg = jget_config("qwen3_4b", reduced=True)
+    n = 3 * cfg.n_heads * cfg.head_dim
+    assert proj["shape"] == (16, cfg.d_model, n)
+    rows = int(ref["generalized"]["design"]["xbar_rows"])
+    assert proj["xbar_rows"] == rows
+    x, w = proj["x"].numpy(), proj["w"].numpy()
+    want = np.asarray(jimc_gemm(jnp.asarray(x), jnp.asarray(w),
+                                xbar_rows=rows))
+    np.testing.assert_allclose(proj["y"].numpy(), want, rtol=1e-6,
+                               atol=1e-4)
+    exact = x.astype(np.float32) @ w
+    rel = np.linalg.norm(want - exact) / np.linalg.norm(exact)
+    assert math.isclose(proj["rel_err"], rel, rel_tol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [64, 128, 256, 512])
+def test_lm_projection_matches_reference(rows):
+    """The reduced qwen3 QKV projection through both packages' imc_gemm
+    at every registry row count (K=32 padded to one crossbar), on the
+    same numpy operands."""
+    cfg = jget_config("qwen3_4b", reduced=True)
+    rng = np.random.default_rng(rows)
+    x = rng.integers(0, 256, (16, cfg.d_model)).astype(np.int32)
+    w = (rng.standard_normal((cfg.d_model, 3 * cfg.n_heads * cfg.head_dim))
+         * 0.25).astype(np.float32)
+    got = imc_gemm(torch.from_numpy(x), torch.from_numpy(w),
+                   xbar_rows=rows).numpy()
+    want = np.asarray(jimc_gemm(jnp.asarray(x), jnp.asarray(w),
+                                xbar_rows=rows))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+
+
+def test_lm_example_cli(capsys):
+    assert example.main(["--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "generalized LM-serving IMC design" in text
+    assert "qwen3_4b" in text and "rel err" in text
+    if not torch.cuda.is_available():
+        assert example.main([]) == 2  # the GPU by default, no fallback
+        assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_cli_run_and_report(tmp_path, capsys):
@@ -145,7 +210,12 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    assert len(files) > 10
+    rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files}
+    # the second slice's modules are among those scanned
+    assert {"configs/__init__.py", "configs/qwen3_4b.py",
+            "models/config.py", "examples/codesign_lm_archs.py",
+            "kernels/imc_matmul.py", "kernels/ops.py"} <= rel
+    assert len(files) > 30
     return [*files, ROOT / "chip_smoke.py"]
 
 
