@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, and drives the
-port's two paths on the card: the ``rram_accuracy`` scenario (§IV-H,
+port's three paths on the card: the ``rram_accuracy`` scenario (§IV-H,
 Eq. 4) at its registry budget through
 ``repro_torch.experiments.runner.run_scenario`` (the ``imc_fused``
 kernel), and the LM co-design example
 ``repro_torch.examples.codesign_lm_archs`` — ``sram_lm_archs`` at its
 registry budget, then the full-width qwen3-4b QKV projection through
-the winning crossbar geometry (the ``imc_matmul`` kernel). Phases:
+the winning crossbar geometry (the ``imc_matmul`` kernel); and the LM
+serving engine ``repro_torch.serve.ServeEngine`` on qwen3-4b at full
+width (the ``flash_attention`` kernel in every prefill). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together);
@@ -34,7 +36,30 @@ the winning crossbar geometry (the ``imc_matmul`` kernel). Phases:
  10. the LM co-design example end to end on the card; ``imc_matmul``'s
      launch count must rise on that run, the projection must equal the
      plain version's, and the best genome is re-scored on the CPU,
-     rtol 1e-5.
+     rtol 1e-5;
+ 11. ``flash_attention`` kernel vs ``flash_attention_plain`` at the
+     tests/test_kernels.py shapes plus the non-causal ragged (1, 40, 40,
+     2, 16) case (atol 2e-5 float32, 2e-2 bfloat16; in bfloat16 also
+     every element within two bf16 steps of the plain value plus 1e-4),
+     and at the serving shapes (B=1, 32 heads expanded from 8 KV heads,
+     hd 128, bf16, causal, S = T in {512, 2048, 4096}, and S=4096 with a
+     1024 window), with CUDA-event timings beside the plain version,
+     PyTorch's ``scaled_dot_product_attention`` and the bound; then the
+     bf16 limit's power: one 32-key tile dropped from the late rows at
+     S=4096 (a dense masked softmax) must fail it;
+ 12. qwen3-4b at full width (36 layers, bf16, seeded random weights)
+     served by ``ServeEngine(n_slots=4, max_len=4352)``: 8 requests with
+     prompt lengths drawn in 256..4096 by ``numpy.random.default_rng(0)``,
+     16 new tokens each; every request must finish with 16 in-vocabulary
+     tokens and the flash kernel must launch 36 x 8 = 288 times; wall,
+     prefill and decode tokens/s, peak memory; then the kernel vs the
+     plain version at each of the 8 ragged prompt lengths (the shapes
+     the prefills gave it, limits as in phase 11), timed alone there for
+     its share of the prefill time;
+ 13. qwen3-4b's widths cut to 2 layers, float32, the same seeded weights
+     on the CPU and the card: one 512-token prefill's last-token logits
+     through the kernel (card) and the plain version (CPU) must agree to
+     1e-3 x max|logits|.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -58,6 +83,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # main-path shape of the accuracy model (Calib defaults, RRAM rows table)
@@ -374,6 +400,301 @@ def phase_rescore_cpu(res, rtol: float = 1e-4) -> None:
         f"{card:.6g} (rel {abs(cpu - card) / abs(card):.2e})")
 
 
+# phase 11: tests/test_kernels.py's flash shapes (B, S, T, H, hd, causal,
+# window, dtype) and the non-causal ragged case the reference pads wrongly
+FLASH_TESTS = [(2, 32, 32, 2, 16, True, 0, "float32"),
+               (1, 64, 64, 4, 32, True, 0, "float32"),
+               (2, 48, 48, 2, 16, False, 0, "float32"),
+               (1, 64, 64, 2, 16, True, 16, "float32"),
+               (1, 40, 40, 2, 16, True, 0, "float32"),
+               (2, 32, 32, 2, 16, True, 0, "bfloat16"),
+               (1, 40, 40, 2, 16, False, 0, "float32")]
+# the serving shapes: qwen3-4b heads (32 query, 8 KV, hd 128), bf16, causal;
+# (S, window)
+FLASH_SERVE = [(512, 0), (2048, 0), (4096, 0), (4096, 1024)]
+QWEN_H, QWEN_KV, QWEN_HD = 32, 8, 128
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bfloat16, element-wise: kernel and plain version round float32 results
+# that differ by float32 rounding, so they differ by at most one bf16 step
+# (<= 2^-7 |want|); the limit allows two, plus a floor near zero
+BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-4
+# the planted fault of phase 11: keys DROP dropped from the last ROWS_LATE
+# query rows at S = T = 4096
+DROP, ROWS_LATE = (2048, 2080), 512
+
+
+def visible_pairs(S, T, causal, window, q_offset=0) -> int:
+    """(query, key) pairs the mask lets through: the work this input
+    needs (S * (S + 1) / 2 for a causal square, about S * T / 2)."""
+    import numpy as np
+    pos = np.arange(S, dtype=np.int64) + q_offset
+    hi = np.minimum(T - 1, pos) if causal else np.full(S, T - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(S)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
+    """Least time for the attention on an H100 SXM: 4 FLOP per visible
+    (query, key) pair and head dim (two products) at the bf16 dense
+    tensor-core peak, against q, k, v read once and o written once
+    (k and v at all H heads, as the kernel takes them)."""
+    flops = 4 * visible_pairs(S, T, causal, window) * H * hd
+    nbytes = itemsize * H * hd * (2 * S + 2 * T)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def serving_qkv(torch, gen, S, dev):
+    """q (1, S, 32, 128) and k, v expanded from 8 KV heads, bf16."""
+    from repro_torch.models.attention import _expand_kv
+    q = torch.randn((1, S, QWEN_H, QWEN_HD), generator=gen, device=dev)
+    k, v = (torch.randn((1, S, QWEN_KV, QWEN_HD), generator=gen, device=dev)
+            for _ in range(2))
+    return [x.to(torch.bfloat16) for x in
+            (q, _expand_kv(k, QWEN_H), _expand_kv(v, QWEN_H))]
+
+
+def flash_plain(fa, q, k, v, causal, window):
+    """The plain version on (B, S, H, hd) tensors."""
+    return fa.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window).transpose(1, 2)
+
+
+def bf16_over(torch, got, want) -> int:
+    """Elements of ``got`` outside the bfloat16 limit around ``want``."""
+    want = want.float()
+    return int(((got.float() - want).abs() >
+                BF16_ATOL + BF16_RTOL * want.abs()).sum())
+
+
+def flash_check(torch, fa, name, q, k, v, causal, window, dt):
+    """``flash_mha`` (the kernel) vs the plain version on the same
+    (B, S, H, hd) inputs: the max abs error within FLASH_ATOL and, in
+    bfloat16, no element outside the element-wise limit. Returns the
+    max abs error, the kernel's output and the plain version's."""
+    from repro_torch.kernels.ops import flash_mha
+    got = flash_mha(q, k, v, causal=causal, window=window)
+    want = flash_plain(fa, q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    over = bf16_over(torch, got, want) if dt == "bfloat16" else 0
+    if not (got.shape == q.shape and got.dtype == q.dtype and
+            math.isfinite(err) and err <= FLASH_ATOL[dt] and over == 0):
+        raise RuntimeError(f"flash_attention {name}: max abs err {err} "
+                           f"(atol {FLASH_ATOL[dt]}), {over} elements over "
+                           f"the bf16 limit, shape {tuple(got.shape)}, "
+                           f"dtype {got.dtype}")
+    return err, got, want
+
+
+def causal_rows_dense(torch, q, k, v, r0, drop=None):
+    """Rows r0.. of causal attention of (1, S, H, hd) tensors as one
+    masked softmax in float32, keys drop[0] <= j < drop[1] left out;
+    (1, S - r0, H, hd) in q's type."""
+    S, hd = q.shape[1], q.shape[-1]
+    qf = q[0, r0:].transpose(0, 1).float() / math.sqrt(hd)
+    kf, vf = (x[0].transpose(0, 1).float() for x in (k, v))
+    pos = torch.arange(r0, S, device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    vis = j <= pos
+    if drop is not None:
+        vis = vis & ((j < drop[0]) | (j >= drop[1]))
+    s = (qf @ kf.transpose(1, 2)).masked_fill(~vis, float("-inf"))
+    return (torch.softmax(s, -1) @ vf).transpose(0, 1)[None].to(q.dtype)
+
+
+def planted_fault(torch, q, k, v, want) -> dict:
+    """The bf16 limit's power at S = T = 4096: a kernel that dropped one
+    32-key tile (DROP) from the last ROWS_LATE rows, modelled by a dense
+    masked softmax, must put elements outside the limit around the plain
+    version ``want``; the same dense softmax without the drop must not."""
+    r0 = q.shape[1] - ROWS_LATE
+    late = want[:, r0:].float()
+    sound = causal_rows_dense(torch, q, k, v, r0)
+    fault = causal_rows_dense(torch, q, k, v, r0, drop=DROP)
+    out = {"sound_err": float((sound.float() - late).abs().max()),
+           "sound_over": bf16_over(torch, sound, late),
+           "fault_err": float((fault.float() - late).abs().max()),
+           "fault_over": bf16_over(torch, fault, late),
+           "elements": late.numel()}
+    if out["sound_over"] or not out["fault_over"]:
+        raise RuntimeError(f"bf16 limit: dense sound vs plain "
+                           f"{out['sound_over']} over, dropped tile "
+                           f"{out['fault_over']} over: {out}")
+    return out
+
+
+def phase_flash(torch, fa, dev) -> dict:
+    """Phase 11: flash kernel vs plain; serving shapes timed."""
+    from repro_torch.kernels.ops import flash_mha
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    worst, timed_at = 0.0, {}
+    for B, S, T, H, hd, causal, win, dt in FLASH_TESTS:
+        tdt = getattr(torch, dt)
+        q, k, v = (torch.randn((B, L, H, hd), generator=gen, device=dev
+                               ).to(tdt) for L in (S, T, T))
+        name = f"B={B} S={S} T={T} H={H} hd={hd} causal={causal} win={win} {dt}"
+        err = flash_check(torch, fa, name, q, k, v, causal, win, dt)[0]
+        worst = max(worst, err)
+        log(f"flash_attention {name}: max_abs_err {err:.3g}")
+    for S, win in FLASH_SERVE:
+        q, k, v = serving_qkv(torch, gen, S, dev)
+        name = (f"B=1 S=T={S} H={QWEN_H} (KV {QWEN_KV}) hd={QWEN_HD} causal "
+                f"win={win} bfloat16")
+        err, _, want = flash_check(torch, fa, name, q, k, v, True, win,
+                                   "bfloat16")
+        worst = max(worst, err)
+        line = f"flash_attention {name}: max_abs_err {err:.3g}"
+        ms = time_ms(torch, lambda: flash_mha(q, k, v, causal=True,
+                                              window=win), reps=5)
+        plain_ms = time_ms(torch, lambda: flash_plain(fa, q, k, v, True, win),
+                           reps=1, windows=3)
+        lib_ms = None
+        if win == 0:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=20)
+        bound = flash_bound_ms(S, S, QWEN_H, QWEN_HD, True, win, 2)
+        timed_at[(S, win)] = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, **bound}
+        line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                 f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                 f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}:"
+                 f" {bound['flops'] / 1e9:.3f} GFLOP, "
+                 f"{bound['bytes'] / 1e6:.2f} MB); kernel at "
+                 f"{bound['flops'] / ms / 1e9:.2f} TFLOP/s")
+        log(line)
+        if (S, win) == (4096, 0):
+            pf = planted_fault(torch, q, k, v, want)
+            flat = ("pass" if pf["fault_err"] <= FLASH_ATOL["bfloat16"]
+                    else "fail")
+            log(f"bf16 limit (2 bf16 steps of |plain| + {BF16_ATOL:g}) at "
+                f"S=T=4096, rows {S - ROWS_LATE}..{S - 1}: dense softmax vs "
+                f"plain max_abs_err {pf['sound_err']:.3g}, "
+                f"{pf['sound_over']} of {pf['elements']} over; keys "
+                f"{DROP[0]}..{DROP[1] - 1} dropped: max_abs_err "
+                f"{pf['fault_err']:.3g}, {pf['fault_over']} over (atol "
+                f"{FLASH_ATOL['bfloat16']:g} alone would {flat} it)")
+    return {"max_abs_err": worst, "timed": timed_at}
+
+
+SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 4352
+
+
+def phase_serve(torch, fa, dev) -> dict:
+    """Phase 12: qwen3-4b at full width through ServeEngine."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import flash_mha
+    from repro_torch.models import init_params
+    from repro_torch.serve import LMRequest, ServeEngine
+    cfg = get_config("qwen3_4b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"qwen3_4b init on the card: {n_params / 1e9:.3f} B parameters, "
+        f"{cfg.dtype}, {time.perf_counter() - t0:.2f} s")
+    eng = ServeEngine(model, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      device=dev)
+    # warm-up: cuBLAS handles and the kernel library load, outside the run
+    eng.submit(LMRequest(rid=-1, prompt=np.arange(256) % cfg.vocab_size,
+                         max_new_tokens=2))
+    eng.run()
+    eng.done.clear()
+    eng.stats = dict.fromkeys(eng.stats, 0)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 4097, SERVE_REQUESTS)
+    for i, n in enumerate(lens):
+        eng.submit(LMRequest(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                             max_new_tokens=SERVE_NEW))
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    outs = [done[i].output for i in sorted(done)]
+    bad = [t for o in outs for t in o if not 0 <= t < cfg.vocab_size]
+    if sorted(done) != list(range(SERVE_REQUESTS)) or \
+            any(len(o) != SERVE_NEW for o in outs) or bad or \
+            launches != cfg.n_layers * SERVE_REQUESTS:
+        raise RuntimeError(f"serve: done {sorted(done)}, lengths "
+                           f"{[len(o) for o in outs]}, bad tokens {bad[:5]},"
+                           f" flash launches {launches} (want "
+                           f"{cfg.n_layers * SERVE_REQUESTS})")
+    st = eng.stats
+    log(f"serve qwen3_4b: prompt lengths {[int(n) for n in lens]}")
+    log(f"serve qwen3_4b: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens "
+        f"in {wall:.3f} s wall; prefill {st['prefill_tokens']} tokens in "
+        f"{st['prefill_s']:.3f} s ({st['prefill_tokens'] / st['prefill_s']:.1f}"
+        f" tok/s); decode {st['decode_tokens']} tokens in "
+        f"{st['decode_s']:.3f} s over {st['decode_steps']} steps "
+        f"({st['decode_tokens'] / st['decode_s']:.1f} tok/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; flash launches {launches}")
+    log(f"serve qwen3_4b: first tokens {[o[:4] for o in outs]}")
+    # the kernel at each prompt length the prefills gave it: checked
+    # against the plain version, then timed alone, once per layer
+    kgen = torch.Generator(device=dev)
+    kgen.manual_seed(3)
+    kernel_s, errs = 0.0, []
+    for n in lens:
+        q, k, v = serving_qkv(torch, kgen, int(n), dev)
+        errs.append(flash_check(
+            torch, fa, f"B=1 S=T={n} H={QWEN_H} hd={QWEN_HD} causal bfloat16",
+            q, k, v, True, 0, "bfloat16")[0])
+        kernel_s += cfg.n_layers * time_ms(
+            torch, lambda: flash_mha(q, k, v), reps=2, windows=3) / 1e3
+    log(f"serve qwen3_4b: flash kernel vs plain at these prompt lengths: "
+        f"max_abs_err {[f'{e:.3g}' for e in errs]}, none over the bf16 "
+        f"limit")
+    log(f"serve qwen3_4b: flash kernel time at these prompts {kernel_s:.3f} s"
+        f" = {100 * kernel_s / st['prefill_s']:.1f}% of the prefill time, "
+        f"{100 * kernel_s / wall:.1f}% of the wall")
+    return {"launches": launches, "wall": wall, "max_abs_err": max(errs)}
+
+
+def phase_logits(torch, fa, dev) -> None:
+    """Phase 13: kernel route (card) vs plain route (CPU), 2 layers at
+    qwen3-4b widths, float32."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    cfg = dataclasses.replace(get_config("qwen3_4b"), n_layers=2,
+                              dtype="float32")
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 512)))
+    with torch.inference_mode():
+        cpu, _ = prefill(model, cfg, {"tokens": tokens}, cache_len=512)
+        before = fa.flash_attention.launches
+        card, _ = prefill(model.to(dev), cfg, {"tokens": tokens.to(dev)},
+                          cache_len=512)
+        launches = fa.flash_attention.launches - before
+    err = float((card.cpu() - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    if launches != cfg.n_layers or not math.isfinite(err) or \
+            err > 1e-3 * scale:
+        raise RuntimeError(f"logits: card vs CPU max abs err {err} vs "
+                           f"max|logits| {scale}, flash launches {launches}")
+    log(f"qwen3_4b widths, 2 layers, float32, 512-token prefill: card "
+        f"(flash kernel, {launches} launches) vs CPU (plain) last-token "
+        f"logits max abs err {err:.3g}, max|logits| {scale:.4g} "
+        f"(rel {err / scale:.3g}, limit 1e-3)")
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -389,6 +710,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, src)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build, imc_fused as fused
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import imc_matmul as mm
 
     dev = resolve_device("cuda:0")
@@ -421,6 +743,9 @@ def main(argv=None) -> int:
     phase_host_oracle(torch, mm, dev)                                # 9
     lm = phase_lm_example(torch, mm, dev)                            # 10
     phase_rescore_cpu(lm["res"], rtol=1e-5)
+    main_f = phase_flash(torch, fa, dev)                             # 11
+    served = phase_serve(torch, fa, dev)                             # 12
+    phase_logits(torch, fa, dev)                                     # 13
     fused_entry = {"name": "imc_fused", "route": "cuda",
                    "source": "src/repro_torch/csrc/imc_fused.cu",
                    "replaces": "src/repro/kernels/imc_fused.py:83",
@@ -439,7 +764,19 @@ def main(argv=None) -> int:
                     "plain_ms": proj["plain_ms"],
                     "bound_ms": proj["bound_ms"],
                     "bound_by": proj["bound_by"], "library_ms": None}
-    log(json.dumps({"kernels": [fused_entry, matmul_entry]}))
+    flash = main_f["timed"][(4096, 0)]
+    flash_entry = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:25",
+                   "launches": served["launches"],
+                   "max_abs_err": max(main_f["max_abs_err"],
+                                      served["max_abs_err"]),
+                   "ms": flash["ms"],
+                   "plain_ms": flash["plain_ms"],
+                   "bound_ms": flash["bound_ms"],
+                   "bound_by": flash["bound_by"],
+                   "library_ms": flash["library_ms"]}
+    log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

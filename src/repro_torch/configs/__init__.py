@@ -5,8 +5,10 @@ variants) and the input-shape set; the port's own copy of
 Every full config matches the assignment table exactly; ``reduced=True``
 returns a same-family miniature for CPU smoke tests. In the port the
 configs feed ``core.workloads.from_arch_config`` (the ``sram_lm_archs``
-scenario) and the example's qwen3-4b projection; the LM stack itself is
-not ported yet.
+scenario), the example's qwen3-4b projection and the LM stack
+(``models/``, ``serve/``), which serves the dense archs (qwen3-4b,
+qwen2.5-3b, glm4-9b, phi4-mini); the others raise NotImplementedError
+naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Carries the reference's state across into the port.
 
-This system has no weights. Its "parameters" are the PRNG keys, the
-search-space value tables, the hardware constants, the workloads and
-packed workload arrays, the LM architecture configs, the calibration
-GEMM operands and genome populations. Each ``from_reference_*``
+The co-design system has no weights. Its "parameters" are the PRNG
+keys, the search-space value tables, the hardware constants, the
+workloads and packed workload arrays, the LM architecture configs, the
+calibration GEMM operands and genome populations. The LM stack it
+serves has weights: ``from_reference_lm_params`` carries them. Each ``from_reference_*``
 function takes them as the JAX side produces them (numpy arrays, or
 objects exposing the same fields as numpy arrays) and returns the
 port's tensors and dataclasses, so a test can feed both packages
@@ -15,7 +16,7 @@ field names.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +26,7 @@ from .core.search_space import SearchSpace
 from .core.workloads import Workload, WorkloadArrays
 from .device import resolve_device
 from .models import ArchConfig
+from .models.transformer import LM, init_params
 
 
 def from_reference_key(key, device="cuda") -> torch.Tensor:
@@ -92,3 +94,38 @@ def from_reference_genomes(genomes, device="cuda") -> torch.Tensor:
     """An integer genome population (..., n) -> int64 tensor."""
     return torch.as_tensor(np.asarray(genomes).astype(np.int64),
                            device=resolve_device(device))
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _flatten(leaf, f"{prefix}{name}.", out)
+        else:
+            out[prefix + name] = leaf
+
+
+def from_reference_lm_params(params, cfg: ArchConfig, device="cuda") -> LM:
+    """The reference's ``init_params`` tree, as numpy arrays (``embed``,
+    ``final_ln``, ``unembed``, ``period/pos{i}`` with a leading depth
+    axis, ``rem``), -> the port's ``LM`` with the same values in the
+    config's type. Layer ``n * len(pattern) + i`` of the port is entry
+    ``n`` of ``period/pos{i}``; the ``rem`` blocks follow. The module is
+    built by a throwaway seeded init on the CPU, then overwritten, so
+    every reference leaf must have a port counterpart and vice versa."""
+    pattern, n_full, rem = cfg.schedule()
+    leaves = {k: params[k] for k in ("embed", "final_ln", "unembed")}
+    for layer in range(len(cfg.layout())):
+        n, i = divmod(layer, len(pattern))
+        block: Dict[str, np.ndarray] = {}
+        if n < n_full:
+            _flatten(params["period"][f"pos{i}"], "", block)
+            block = {k: v[n] for k, v in block.items()}
+        else:
+            _flatten(params["rem"][layer - n_full * len(pattern)], "", block)
+        leaves.update({f"blocks.{layer}.{k}": v for k, v in block.items()})
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    # float32 first: numpy has no bfloat16, and bf16 -> f32 -> bf16 is exact
+    model.load_state_dict(
+        {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in
+         leaves.items()}, strict=True)
+    return model.to(resolve_device(device))

@@ -3,8 +3,10 @@ versions. A wrapper launches its CUDA kernel on CUDA tensors and runs
 the plain version on CPU tensors; kernels build at first use
 (``build.py``)."""
 from .adc import WEIGHT_BITS, adc_full_scale, adc_quantize
+from .flash_attention import flash_attention_plain
 from .imc_fused import imc_fused_gemm, imc_fused_plain
-# the wrapper ``imc_matmul`` stays in its module: re-exporting it here
-# would shadow the submodule ``kernels.imc_matmul`` of the same name
+# the wrappers ``imc_matmul`` and ``flash_attention`` stay in their
+# modules: re-exporting them here would shadow the submodules of the
+# same names
 from .imc_matmul import imc_matmul_plain
-from .ops import imc_gemm
+from .ops import flash_mha, imc_gemm

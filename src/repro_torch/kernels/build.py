@@ -31,8 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the C signature of every kernel's launch function; a pointer or the
-# stream is c_void_p, an int c_int (ctypes would cut a pointer otherwise)
+# stream is c_void_p, an int c_int, a stride c_longlong (ctypes would cut a
+# pointer or a 64-bit stride otherwise)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "imc_fused": {
         # x_q, w, eps_pos, eps_neg, rows_idx, row_table, out,
@@ -43,6 +45,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "imc_matmul": {
         # x_q, w, out, M, K, N, R, adc_bits, full_scale, stream
         "imc_matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    },
+    "flash_attention": {
+        # q, k, v, o, B, H, S, T, hd, (batch, head, seq) strides of q, k,
+        # v and o, causal, window, q_offset, scale, is_bf16, stream
+        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   *(_L,) * 12, _I, _I, _I, _F, _I, _P),
     },
 }
 

@@ -1,0 +1,151 @@
+"""Blockwise (flash) attention; counterpart of
+``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
+``_flash_kernel``) and of its oracle ``repro/kernels/ref.py::
+attention_ref``.
+
+q (B, H, S, hd), k and v (B, H, T, hd): views that may be transposes
+of (B, S, H, hd) tensors (``ops.flash_mha`` passes them, so nothing is
+copied; the reference's (BH, S, hd) fold is ``x.unsqueeze(1)``). For
+each query row i the softmax runs over the keys j with
+``j < T`` (the true length: nothing here is padded), ``i + q_offset >=
+j`` when causal and ``(i + q_offset) - j < window`` when ``window > 0``.
+Accumulation is float32 with a running max, denominator and accumulator;
+the output has the input's type. A query row that sees no key at all is
+undefined (no caller makes one).
+
+``flash_attention`` is the wrapper: on CUDA tensors it launches the
+hand-written Hopper kernel ``csrc/flash_attention.cu`` (or raises), on
+CPU tensors it runs the plain PyTorch version ``flash_attention_plain``.
+Its ``launches`` attribute counts kernel launches.
+
+Both scale q by ``1/sqrt(hd)`` before the dot product, as the Pallas
+kernel does (``models/attention.py:blockwise_attention`` and
+``attention_ref`` scale the score instead; the difference is a few ULP).
+Both use the Pallas kernel's finite ``NEG_INF``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+NEG_INF = -1.0e30
+MAX_HEAD_DIM = 256
+# the plain version's query and key chunks, as blockwise_attention's
+_CHUNK = 512
+
+
+def _visible(q_pos: torch.Tensor, k_pos: torch.Tensor, T: int, causal: bool,
+             window: int) -> torch.Tensor:
+    """(n_q, n_k) mask of the keys each query position sees."""
+    mask = (k_pos < T)[None, :]
+    if causal:
+        mask = mask & (q_pos[:, None] >= k_pos[None, :])
+    if window > 0:
+        mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version: a chunked online softmax, as
+    ``models/attention.py:blockwise_attention`` computes it, so memory
+    stays O(S x chunk). Key chunks that no query of a chunk sees (wholly
+    above its causal diagonal or below its window) are skipped, as the
+    kernel skips them."""
+    *lead, S, hd = q.shape
+    T = k.shape[-2]
+    scale = 1.0 / float(hd) ** 0.5
+    qf = q.reshape(-1, S, hd).float() * scale
+    kf = k.reshape(-1, T, hd).float()
+    vf = v.reshape(-1, T, hd).float()
+    BH, dev = qf.shape[0], q.device
+    out = torch.empty((BH, S, hd), dtype=q.dtype, device=dev)
+    for i0 in range(0, S, _CHUNK):
+        i1 = min(S, i0 + _CHUNK)
+        q_pos = torch.arange(i0, i1, device=dev) + q_offset
+        lo, hi = i0 + q_offset, i1 - 1 + q_offset
+        m = torch.full((BH, i1 - i0), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((BH, i1 - i0), dtype=torch.float32, device=dev)
+        acc = torch.zeros((BH, i1 - i0, hd), dtype=torch.float32, device=dev)
+        for j0 in range(0, T, _CHUNK):
+            j1 = min(T, j0 + _CHUNK)
+            if (causal and j0 > hi) or (window > 0 and lo - (j1 - 1)
+                                        >= window):
+                continue
+            k_pos = torch.arange(j0, j1, device=dev)
+            s = qf[:, i0:i1] @ kf[:, j0:j1].transpose(1, 2)
+            s = torch.where(_visible(q_pos, k_pos, T, causal, window)[None],
+                            s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ vf[:, j0:j1]
+            m = m_new
+        out[:, i0:i1] = (acc / torch.clamp(l, min=1e-30)[..., None]
+                         ).to(q.dtype)
+    return out.reshape(*lead, S, hd)
+
+
+def _check(q, k, v):
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{dev}")
+        if t.dtype != q.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            raise TypeError(f"flash_attention: {name} is {t.dtype}; q, k "
+                            "and v must all be float32 or all bfloat16")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} has shape "
+                             f"{tuple(t.shape)}; expected (B, H, L, hd)")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name}'s head dim is not "
+                             "contiguous")
+    lead, hd = q.shape[:-2], q.shape[-1]
+    if k.shape[:-2] != lead or v.shape != k.shape or k.shape[-1] != hd:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Blockwise attention (shapes as in the module docstring). CUDA
+    tensors launch ``csrc/flash_attention.cu``; CPU tensors take the
+    plain version."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, H, S, hd = q.shape
+    T = k.shape[-2]
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: {B * H} batch x heads exceed "
+                         "the grid's 65535")
+    out = torch.empty_like(q)  # keeps q's layout (a transposed view too)
+    lib = build.load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S,
+        T, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3],
+        int(bool(causal)), int(window), int(q_offset),
+        1.0 / float(hd) ** 0.5, int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

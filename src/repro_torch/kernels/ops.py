@@ -1,15 +1,16 @@
-"""Padded entry points around the crossbar kernels; counterpart of
-``repro/kernels/ops.py`` (``imc_gemm``; ``flash_mha`` comes with the LM
-stack).
+"""Entry points around the kernels; counterpart of
+``repro/kernels/ops.py`` (``imc_gemm``, ``flash_mha``).
 
-The JAX wrapper also pads M to 8/128 and N to 128 rows of TPU block
-alignment and cuts them off again; the Hopper kernel masks its ragged M
-and N edges itself, so only K is padded here.
+The JAX wrappers pad to TPU block multiples and cut the padding off
+again: ``imc_gemm`` M to 8/128 and N to 128, ``flash_mha`` S and T to
+the attention blocks. The Hopper kernels mask their ragged edges
+themselves, so only ``imc_gemm``'s K (whole crossbars) is padded here.
 """
 from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention
 from .imc_matmul import imc_matmul
 
 
@@ -25,3 +26,23 @@ def imc_gemm(x_q: torch.Tensor, w: torch.Tensor, xbar_rows: int = 256,
         w = torch.nn.functional.pad(w, (0, 0, 0, pad))
     return imc_matmul(x_q.contiguous(), w.contiguous(), xbar_rows=xbar_rows,
                       adc_bits=adc_bits, w_scale=w_scale)
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int = 0, block_q: int = 128,
+              block_k: int = 128, q_offset: int = 0) -> torch.Tensor:
+    """(B, S, H, hd) x (B, T, H, hd)^2 -> (B, S, H, hd). GQA should be
+    expanded by the caller (``models/attention.py:_expand_kv``).
+
+    The reference folds to (B*H, S, hd) with a transpose; here the kernel
+    reads the (B, H, S, hd) transposed views through their strides and
+    writes its output in the same layout, so the result is a contiguous
+    (B, S, H, hd) tensor and nothing is copied. Keys are masked at their
+    true length T (the reference masks at its padded T when not causal;
+    ROADMAP Queue 3). ``block_q``/``block_k`` are accepted and unused;
+    ``q_offset`` shifts the query positions (prefill continuation)."""
+    del block_q, block_k
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=window,
+                          q_offset=q_offset)
+    return out.transpose(1, 2)

@@ -1,0 +1,86 @@
+"""Attention; counterpart of ``repro/models/attention.py``.
+
+``blockwise_attention`` is the training, prefill and encoder path. It
+expands GQA and calls ``kernels/ops.flash_mha``: on CUDA tensors that is
+the hand-written flash-attention kernel (``csrc/flash_attention.cu``),
+on CPU tensors its plain version, a chunked online softmax with
+O(S x chunk) memory as the reference's ``blockwise_attention`` computes.
+``decode_attention`` is the single-query step against the KV cache, in
+plain torch (the reference has no Pallas kernel there).
+
+Not ported yet: the int8 KV cache (``kv_quant``, ROADMAP Queue 1 item
+13a) and ``cross_attention`` (llama-3.2-vision, item 13d).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels.ops import flash_mha
+
+NEG_INF = -1.0e30
+
+
+def _expand_kv(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, T, KV, hd) -> (B, T, H, hd), each KV head repeated for its
+    group of H // KV query heads (``jnp.repeat``: heads 0..G-1 read KV
+    head 0, and so on)."""
+    kv = x.shape[2]
+    if kv == n_heads:
+        return x
+    return torch.repeat_interleave(x, n_heads // kv, dim=2)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, T, KV, hd). Returns (B, S, H, hd).
+
+    window > 0 restricts key j to q_pos - window < j <= q_pos; q_offset
+    shifts query positions (prefill continuation). The reference's scan
+    chunks (``chunk_q``/``chunk_k``) have no counterpart: the kernel's
+    tiles and the plain version's chunks are their own.
+    """
+    H = q.shape[2]
+    return flash_mha(q, _expand_kv(k, H), _expand_kv(v, H), causal=causal,
+                     window=window, q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_positions: torch.Tensor,
+                     q_position: torch.Tensor, window: int = 0,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-step decode. q: (B, 1, H, hd); caches: (B, T, KV, hd);
+    kv_positions: (B, T) (negative = empty slot); q_position: (B,).
+
+    GQA-native as in the reference: q is reshaped to (B, 1, KV, G, hd)
+    and contracted against the unexpanded cache; scores in float32,
+    softmax, the weights rounded to the cache's type, then the product
+    with V in float32, cast to q's type.
+    """
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "the int8 KV cache (kv_quant) is not ported yet: ROADMAP "
+            "Queue 1 item 13a")
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    qf = q.reshape(B, 1, KV, H // KV, hd).float()
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, k_cache.float())
+    s = s / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                    device=q.device))
+    valid = (kv_positions >= 0) & (kv_positions <= q_position[:, None])
+    if window > 0:
+        valid = valid & ((q_position[:, None] - kv_positions) < window)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def cross_attention(q, k, v):
+    raise NotImplementedError(
+        "cross attention (llama-3.2-vision) is not ported yet: ROADMAP "
+        "Queue 1 item 13d")

@@ -1,0 +1,287 @@
+"""The dense decoder LM; counterpart of ``repro/models/transformer.py``
+for the block kinds ``attn`` and ``local_attn`` (qwen3-4b, qwen2.5-3b,
+glm4-9b, phi4-mini: dense GQA with optional QKV bias and q/k norm).
+
+Parameters are an ``LM`` module: ``embed``, ``final_ln``, ``unembed``
+and ``blocks``, an ``nn.ModuleList`` with one ``Block`` per layer in
+layer order. The reference stacks each pattern position's blocks over
+depth (``period/pos{i}``) for its ``lax.scan``; here depth is a Python
+loop, so the layers are a plain list and ``convert.
+from_reference_lm_params`` unstacks them. No remat: this port serves,
+and training (a backward path) is ROADMAP Queue 1 item 13g.
+
+The KV cache is a list with one dict per layer (``k``, ``v``: (B, cap,
+KV, hd) in the model's type; ``pos``: (B, cap) int64, -1 = empty).
+Prefill and decode write it in place (the reference returns a new
+pytree; in place saves a copy of the whole cache per step) and return
+the same list. The slot rules are the reference's: position p lives in
+slot ``p % cap`` for windowed layers (a ring buffer) and in slot
+``min(p, cap - 1)`` for full ones.
+
+Three modes share one block implementation:
+  train   — full sequence, no cache (blockwise attention)
+  prefill — full sequence, fills the cache
+  decode  — one token, reads and updates the cache
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .attention import blockwise_attention, decode_attention
+from .config import ArchConfig
+from .layers import (MLP, apply_rope, cross_entropy, dense_init, mlp,
+                     rms_norm, zeros_param)
+
+MOE_AUX_WEIGHT = 0.01
+ATTN_KINDS = ("attn", "local_attn")
+# block kinds and features still to port, with their ROADMAP items
+_UNPORTED = {
+    "rglru": "ROADMAP Queue 1 item 13b (rglru, recurrentgemma)",
+    "mlstm": "ROADMAP Queue 1 item 13c (mlstm/slstm, xlstm)",
+    "slstm": "ROADMAP Queue 1 item 13c (mlstm/slstm, xlstm)",
+    "cross_attn": "ROADMAP Queue 1 item 13d (cross_attn, llama-3.2-vision)",
+}
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+def _check_ported(cfg: ArchConfig, kind: str) -> None:
+    if kind in _UNPORTED:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
+                                  f"{_UNPORTED[kind]}")
+    if kind not in ATTN_KINDS:
+        raise ValueError(kind)
+    if cfg.n_experts > 1:
+        raise NotImplementedError("MoE FFNs are not ported yet: ROADMAP "
+                                  "Queue 1 item 13f")
+    if cfg.kv_quant:
+        raise NotImplementedError("the int8 KV cache (kv_quant) is not "
+                                  "ported yet: ROADMAP Queue 1 item 13a")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"the {cfg.frontend} frontend is not ported yet: ROADMAP Queue "
+            "1 item " + ("13e (the encoder, hubert)" if cfg.frontend ==
+                         "audio" else "13d (llama-3.2-vision)"))
+
+
+# ---------------------------------------------------------------------------
+# Block init
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One ``attn``/``local_attn`` block: pre-norm attention (``ln``,
+    ``wq``, ``wk``, ``wv``, ``wo``; ``bq``/``bk``/``bv`` with QKV bias;
+    ``q_norm``/``k_norm`` with q/k norm) and a pre-norm dense FFN
+    (``ln2``, ``ffn``). Norm gains and biases start at zero, as in the
+    reference."""
+
+    def __init__(self, gen: torch.Generator, cfg: ArchConfig, kind: str):
+        super().__init__()
+        _check_ported(cfg, kind)
+        d, dt, dev = cfg.d_model, cfg.torch_dtype, gen.device
+        dht = cfg.n_heads * cfg.head_dim
+        dkv = cfg.n_kv_heads * cfg.head_dim
+        self.ln = zeros_param((d,), dt, dev)
+        self.wq = dense_init(gen, d, dht, dt)
+        self.wk = dense_init(gen, d, dkv, dt)
+        self.wv = dense_init(gen, d, dkv, dt)
+        self.wo = dense_init(gen, dht, d, dt)
+        if cfg.qkv_bias:
+            self.bq = zeros_param((dht,), dt, dev)
+            self.bk = zeros_param((dkv,), dt, dev)
+            self.bv = zeros_param((dkv,), dt, dev)
+        if cfg.qk_norm:
+            self.q_norm = zeros_param((cfg.head_dim,), dt, dev)
+            self.k_norm = zeros_param((cfg.head_dim,), dt, dev)
+        self.ln2 = zeros_param((d,), dt, dev)
+        self.ffn = MLP(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
+
+
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Block:
+    return Block(gen, cfg, kind)
+
+
+def init_cache_block(cfg: ArchConfig, kind: str, B: int, cache_len: int,
+                     device="cpu") -> Dict[str, torch.Tensor]:
+    """Empty cache of one block (windowed layers keep only the window)."""
+    _check_ported(cfg, kind)
+    if kind == "attn" and cfg.window:
+        cache_len = min(cache_len, cfg.window)
+    if kind == "local_attn":
+        cache_len = min(cache_len, cfg.local_window)
+    shape = (B, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "pos": torch.full((B, cache_len), -1, dtype=torch.long,
+                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(x.shape[0], x.shape[1], n, hd)
+
+
+def _attn_qkv(p: Block, cfg: ArchConfig, x: torch.Tensor,
+              kv_input: torch.Tensor):
+    q = x @ p.wq
+    k = kv_input @ p.wk
+    v = kv_input @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = _split_heads(q, cfg.n_heads, cfg.head_dim)
+    k = _split_heads(k, cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(v, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return q, k, v
+
+
+def _ffn_apply(p: MLP, cfg: ArchConfig, x: torch.Tensor):
+    return mlp(p, x), 0.0
+
+
+def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
+                mode: str, cache: Optional[Dict[str, torch.Tensor]] = None,
+                positions: Optional[torch.Tensor] = None):
+    """x: (B, S, d). Returns (x, cache, aux_loss); ``cache`` is updated in
+    place in the prefill and decode modes."""
+    _check_ported(cfg, kind)
+    B, S, _ = x.shape
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    window = cfg.local_window if kind == "local_attn" else cfg.window
+    q, k, v = _attn_qkv(p, cfg, h, h)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if mode == "decode":
+        cap = cache["k"].shape[1]
+        pos = positions[:, 0]
+        if window > 0:          # ring buffer for windowed layers
+            slot = pos % cap
+        else:                   # full cache sized to max position
+            slot = torch.clamp(pos, max=cap - 1)
+        bidx = torch.arange(B, device=x.device)
+        cache["k"][bidx, slot] = k[:, 0]
+        cache["v"][bidx, slot] = v[:, 0]
+        cache["pos"][bidx, slot] = pos
+        o = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
+                             window=window)
+    else:
+        o = blockwise_attention(q, k, v, causal=cfg.causal, window=window)
+        if mode == "prefill":
+            cap = cache["k"].shape[1]
+            take = min(cap, S)
+            # ring-buffer invariant: position p lives in slot p % cap, so
+            # decode's writes land consistently
+            slots = positions[:, S - take:] % cap            # (B, take)
+            bidx = torch.arange(B, device=x.device)[:, None]
+            cache["k"][bidx, slots] = k[:, S - take:]
+            cache["v"][bidx, slots] = v[:, S - take:]
+            cache["pos"][bidx, slots] = positions[:, S - take:]
+    x = x + o.reshape(B, S, -1) @ p.wo
+    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    y, aux = _ffn_apply(p.ffn, cfg, h2)
+    return x + y, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Whole-model init / apply
+# ---------------------------------------------------------------------------
+
+class LM(nn.Module):
+    """The whole model's parameters (see the module docstring)."""
+
+    def __init__(self, gen: torch.Generator, cfg: ArchConfig):
+        super().__init__()
+        kinds = cfg.layout()
+        for kind in dict.fromkeys(kinds):
+            _check_ported(cfg, kind)
+        d, v, dt = cfg.d_model, cfg.vocab_size, cfg.torch_dtype
+        self.embed = nn.Parameter(
+            (torch.randn((v, d), generator=gen, device=gen.device,
+                         dtype=torch.float32) / d ** 0.5).to(dt),
+            requires_grad=False)
+        self.final_ln = zeros_param((d,), dt, gen.device)
+        self.unembed = dense_init(gen, d, v, dt)
+        self.blocks = nn.ModuleList(init_block(gen, cfg, kind)
+                                    for kind in kinds)
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> LM:
+    """Seeded parameters on ``gen``'s device, drawn in float32 and cast to
+    the config's type. The reference draws from split JAX keys, so the
+    two packages' inits differ; ``convert.from_reference_lm_params``
+    carries the reference's across."""
+    return LM(gen, cfg)
+
+
+def init_cache(cfg: ArchConfig, B: int, cache_len: int,
+               device="cpu") -> Cache:
+    return [init_cache_block(cfg, kind, B, cache_len, device)
+            for kind in cfg.layout()]
+
+
+def _embed_inputs(params: LM, cfg: ArchConfig, batch) -> torch.Tensor:
+    return params.embed[batch["tokens"]].to(cfg.torch_dtype)
+
+
+def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
+           cache: Optional[Cache], positions: Optional[torch.Tensor]):
+    x = _embed_inputs(params, cfg, batch)
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    use_cache = mode in ("prefill", "decode")
+    aux = 0.0  # the dense FFN has no auxiliary loss (MoE is not ported)
+    for i, (kind, blk) in enumerate(zip(cfg.layout(), params.blocks)):
+        x, _, a = apply_block(cfg, kind, blk, x, mode=mode,
+                              cache=cache[i] if use_cache else None,
+                              positions=positions)
+        aux = aux + a
+    x = rms_norm(x, params.final_ln, cfg.norm_eps)
+    return x, (cache if use_cache else None), aux
+
+
+def forward(params: LM, cfg: ArchConfig, batch, *, mode: str = "train",
+            cache: Optional[Cache] = None,
+            positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+    """Returns (logits, cache, aux_loss); ``batch["tokens"]`` is (B, S)."""
+    x, cache, aux = _trunk(params, cfg, batch, mode, cache, positions)
+    return x @ params.unembed, cache, aux
+
+
+def loss_fn(params: LM, cfg: ArchConfig, batch):
+    """Forward only (no backward path yet): mean next-token CE."""
+    logits, _, aux = forward(params, cfg, batch, mode="train")
+    if cfg.loss == "frame_ce":
+        loss = cross_entropy(logits, batch["labels"])
+    else:
+        loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return loss + MOE_AUX_WEIGHT * aux, {"ce": loss, "aux": aux}
+
+
+def prefill(params: LM, cfg: ArchConfig, batch, cache_len: int):
+    """Full-sequence prefill: returns (last_logits (B, V), cache). Only
+    the last position is unembedded (the reference unembeds every
+    position and keeps the last; each row is its own product)."""
+    tokens = batch["tokens"]
+    cache = init_cache(cfg, tokens.shape[0], cache_len, tokens.device)
+    x, cache, _ = _trunk(params, cfg, batch, "prefill", cache, None)
+    return x[:, -1] @ params.unembed, cache
+
+
+def decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor,
+                cache: Cache, position: torch.Tensor):
+    """token: (B, 1) int; position: (B,) int current absolute position.
+    Returns (logits (B, V), cache)."""
+    x, cache, _ = _trunk(params, cfg, {"tokens": token}, "decode", cache,
+                         position[:, None])
+    return x[:, 0] @ params.unembed, cache

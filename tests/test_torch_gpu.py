@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written Hopper
 kernels against their plain versions, the wrappers' input checks, the
 accuracy model's 'cuda' backend, the host accuracy oracle through the
-bit-serial GEMM kernel, and one scenario on the card. They
+bit-serial GEMM kernel, one scenario on the card, and the LM serving
+engine on the card (through the flash attention kernel) against the
+CPU. They
 carry the ``gpu`` marker and skip without a CUDA device. This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is not installed:
@@ -21,8 +23,13 @@ from repro_torch.core.nonideal import accuracy_proxy_host, make_accuracy_model
 from repro_torch.core.sampling import uniform_genomes
 from repro_torch.experiments import get_scenario, run_scenario
 from repro_torch.kernels.imc_fused import imc_fused_gemm, imc_fused_plain
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.imc_matmul import imc_matmul, imc_matmul_plain
-from repro_torch.kernels.ops import imc_gemm
+from repro_torch.kernels.ops import flash_mha, imc_gemm
+from repro_torch.models import init_params
+from repro_torch.serve import LMRequest, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -191,3 +198,97 @@ def test_accuracy_proxy_host_kernel_matches_model(cuda):
     model = make_accuracy_model(space, wa, backend="cuda", device=cuda)(
         g.to(cuda)).cpu().numpy()
     np.testing.assert_allclose(host, model, atol=5e-3)
+
+
+FLASH_SHAPES = [  # (B, S, T, H, hd, causal, window, q_offset, dtype)
+    (2, 32, 32, 2, 16, True, 0, 0, torch.float32),   # tests/test_kernels.py
+    (1, 64, 64, 4, 32, True, 0, 0, torch.float32),
+    (2, 48, 48, 2, 16, False, 0, 0, torch.float32),
+    (1, 64, 64, 2, 16, True, 16, 0, torch.float32),
+    (1, 40, 40, 2, 16, True, 0, 0, torch.float32),
+    (2, 32, 32, 2, 16, True, 0, 0, torch.bfloat16),
+    (1, 40, 40, 2, 16, False, 0, 0, torch.float32),  # ragged, not causal
+    (1, 300, 300, 4, 128, True, 0, 0, torch.bfloat16),  # serving head dim
+    (1, 257, 257, 2, 128, True, 100, 0, torch.float32),  # window
+    (2, 37, 120, 3, 64, True, 0, 83, torch.float32),     # q_offset
+    (1, 70, 70, 2, 256, True, 0, 0, torch.float32),      # widest head
+    (1, 33, 33, 2, 8, True, 0, 0, torch.float32),        # narrow head
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset,dt",
+                         FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, B, S, T, H, hd, causal, window,
+                                    q_offset, dt):
+    """``ops.flash_mha`` on the card (the kernel reads the transposed
+    (B, H, S, hd) views through their strides) vs the plain version on
+    the same inputs: atol 2e-5 in float32; in bfloat16 atol 2e-2 and
+    every element within two bf16 steps of the plain value plus 1e-4."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S + T + hd)
+    q, k, v = (torch.randn((B, L, H, hd), generator=gen, device=cuda
+                           ).to(dt) for L in (S, T, T))
+    before = flash_attention.launches
+    got = flash_mha(q, k, v, causal=causal, window=window,
+                    q_offset=q_offset)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window, q_offset=q_offset
+                                 ).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (B, S, H, hd)
+    assert got.is_contiguous()
+    atol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.0,
+                               atol=atol)
+    if dt == torch.bfloat16:  # and each element within two bf16 steps
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -6, atol=1e-4)
+    # contiguous (B, H, S, hd) tensors: the same result as the views
+    dense = flash_attention(*(x.transpose(1, 2).contiguous()
+                              for x in (q, k, v)),
+                            causal=causal, window=window, q_offset=q_offset)
+    torch.testing.assert_close(dense.transpose(1, 2), got, rtol=0.0,
+                               atol=0.0)
+
+
+def test_flash_wrapper_rejects_bad_inputs(cuda):
+    q = torch.randn((1, 2, 16, 8), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.double(), q)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        flash_attention(q, q[..., :4], q)               # head dims differ
+    with pytest.raises(ValueError):
+        flash_attention(q, q.transpose(2, 3), q.transpose(2, 3))
+    with pytest.raises(ValueError):
+        flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):
+        flash_attention(q[0], q[0], q[0])               # not 4-D
+    big = torch.zeros((1, 1, 4, 260), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(big, big, big)                  # head dim > 256
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """The reduced qwen3-4b served on the card (the flash kernel in every
+    prefill) and on the CPU (its plain version), the same weights and
+    requests: the same greedy tokens, one kernel launch per layer per
+    request."""
+    cfg = get_config("qwen3_4b", reduced=True)
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 17, 70)]
+    outs = []
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(model.to(dev), cfg, n_slots=2, max_len=96,
+                          device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(LMRequest(rid=i, prompt=p, max_new_tokens=6))
+        before = flash_attention.launches
+        done = eng.run()
+        outs.append({i: r.output for i, r in done.items()})
+    assert flash_attention.launches - before == cfg.n_layers * len(prompts)
+    assert outs[0] == outs[1]

@@ -1,7 +1,8 @@
 """The port's kernel modules (repro_torch/kernels): the ADC model bit
-for bit; the fused crossbar kernel's and the bit-serial crossbar GEMM's
-plain versions against the JAX Pallas kernels (interpret mode) and their
-oracles at the tests/test_kernels.py shapes and tolerances; the
+for bit; the fused crossbar kernel's, the bit-serial crossbar GEMM's and
+the flash attention kernel's plain versions against the JAX Pallas
+kernels (interpret mode) and their oracles at the tests/test_kernels.py
+shapes and tolerances; the
 wrappers' CPU rule, ``ops.imc_gemm``'s padding, and the build's
 library naming. The CUDA kernels themselves run only on a card:
 tests/test_torch_gpu.py holds them against the plain versions there."""
@@ -17,15 +18,17 @@ from repro.kernels.imc_fused import imc_fused_gemm as jax_imc_fused_gemm
 from repro.kernels.imc_fused import ir_drop_factor as jax_ir_drop_factor
 from repro.kernels.imc_fused import sigma_of_g as jax_sigma_of_g
 from repro.kernels.imc_matmul import imc_matmul as jax_imc_matmul
+from repro.kernels.ops import flash_mha as jax_flash_mha
 from repro.kernels.ops import imc_gemm as jax_imc_gemm
-from repro.kernels.ref import imc_fused_ref, imc_matmul_ref
+from repro.kernels.ref import attention_ref, imc_fused_ref, imc_matmul_ref
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import imc_matmul as matmul_mod
 from repro_torch.kernels.adc import adc_full_scale, adc_quantize
 from repro_torch.kernels.imc_fused import (imc_fused_gemm, imc_fused_plain,
                                            ir_drop_factor, sigma_of_g)
 from repro_torch.kernels.imc_matmul import imc_matmul, imc_matmul_plain
-from repro_torch.kernels.ops import imc_gemm
+from repro_torch.kernels.ops import flash_mha, imc_gemm
 
 torch.set_num_threads(1)
 
@@ -122,14 +125,17 @@ def test_wrapper_on_cpu_runs_plain_version():
 
 def test_build_paths_stay_in_checkout():
     """Kernels build into build/kernels of the checkout under a name
-    keyed by the source hash; nothing is compiled at import time. Both
-    kernels share the ADC device code of csrc/adc.cuh."""
-    assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul"}
+    keyed by the source hash; nothing is compiled at import time. The
+    two crossbar kernels share the ADC device code of csrc/adc.cuh; the
+    flash attention kernel includes no header of the repo."""
+    assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
+                                     "flash_attention"}
     for name in build.SIGNATURES:
         path = build._library_path(name)
         assert path.parent == build.BUILD_DIR
         src = (build.CSRC / f"{name}.cu").read_text()
-        assert build._INCLUDE.findall(src) == ["adc.cuh"]
+        assert build._INCLUDE.findall(src) == (
+            [] if name == "flash_attention" else ["adc.cuh"])
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in build.NVCC_FLAGS
@@ -248,3 +254,102 @@ def test_imc_matmul_plain_column_chunks_keep_the_arithmetic(monkeypatch):
     monkeypatch.setattr(matmul_mod, "_PLAIN_MAX_ELEMENTS", 8 * 6 * 4 * 3)
     assert torch.equal(imc_matmul_plain(x, w, xbar_rows=64, w_scale=0.7),
                        whole)
+
+
+# tests/test_kernels.py's flash shapes: (B, S, T, H, hd, causal, window, dtype)
+FLASH_SHAPES = [
+    (2, 32, 32, 2, 16, True, 0, np.float32),
+    (1, 64, 64, 4, 32, True, 0, np.float32),
+    (2, 48, 48, 2, 16, False, 0, np.float32),
+    (1, 64, 64, 2, 16, True, 16, np.float32),
+    (1, 40, 40, 2, 16, True, 0, np.float32),    # non-multiple of block
+    (2, 32, 32, 2, 16, True, 0, "bfloat16"),
+]
+
+
+def _flash_inputs(seed, B, S, T, H, hd):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((B, S, H, hd), (B, T, H, hd), (B, T, H, hd))]
+
+
+def _fold(x):
+    B, L, H, hd = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(B * H, L, hd)
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,causal,win,dt", FLASH_SHAPES)
+def test_flash_plain_matches_pallas_kernel(B, S, T, H, hd, causal, win, dt):
+    """``ops.flash_mha`` (the plain version on CPU tensors) vs the JAX
+    ``flash_mha`` (Pallas, interpret mode) with its 16-row blocks, at
+    tests/test_kernels.py's bounds: atol 2e-5 in float32, 2e-2 in
+    bfloat16 (both round the same float32 result to bfloat16)."""
+    q, k, v = _flash_inputs(S + H, B, S, T, H, hd)
+    jdt = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+    want = jax_flash_mha(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                         causal=causal, window=win, block_q=16, block_k=16)
+    got = flash_mha(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                    causal=causal, window=win, block_q=16, block_k=16)
+    assert got.dtype == tdt and got.shape == (B, S, H, hd)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=2e-2 if dt == "bfloat16" else 2e-5)
+    ref = attention_ref(*(jnp.asarray(_fold(a), jdt) for a in (q, k, v)),
+                        causal=causal, window=win)
+    np.testing.assert_allclose(
+        _fold(got.float().numpy()), np.asarray(ref, np.float32),
+        atol=2e-2 if dt == "bfloat16" else 2e-5)
+
+
+def test_flash_plain_masks_true_key_length():
+    """Non-causal with T not a multiple of the block: the reference's
+    ``flash_mha`` pads T to 16 and lets the zero keys into the softmax
+    (off by 0.096 from ``attention_ref`` here, ROADMAP Queue 3); the port masks
+    at the true T and matches ``attention_ref``."""
+    B, S, T, H, hd = 1, 40, 40, 2, 16
+    q, k, v = _flash_inputs(7, B, S, T, H, hd)
+    got = flash_mha(*(torch.from_numpy(a) for a in (q, k, v)),
+                    causal=False, block_q=16, block_k=16)
+    ref = np.asarray(attention_ref(*(jnp.asarray(_fold(a))
+                                     for a in (q, k, v)), causal=False))
+    np.testing.assert_allclose(_fold(got.numpy()), ref, atol=2e-5)
+    padded = np.asarray(jax_flash_mha(*(jnp.asarray(a) for a in (q, k, v)),
+                                      causal=False, block_q=16, block_k=16))
+    assert np.abs(_fold(padded) - ref).max() > 1e-2  # the reference's fault
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, 0, 0), (True, 300, 0), (False, 0, 0), (True, 0, 700)])
+def test_flash_plain_chunking_matches_reference_oracle(causal, window,
+                                                       q_offset):
+    """Across several 512-row chunks (skipped chunks above the diagonal
+    and below the window), the reference's (BH, S, hd) fold as a
+    (BH, 1, S, hd) view, and a query offset, against
+    ``attention_ref`` on the same positions (its keys extended by
+    ``q_offset`` unseen rows: the oracle has no offset)."""
+    BH, S, hd = 2, 1100, 8
+    T = S + q_offset
+    rng = np.random.default_rng(window + q_offset)
+    q, k, v = (rng.standard_normal((BH, L, hd)).astype(np.float32)
+               for L in (S, T, T))
+    got = flash_mod.flash_attention(
+        *(torch.from_numpy(a).unsqueeze(1) for a in (q, k, v)),
+        causal=causal, window=window, q_offset=q_offset)[:, 0]
+    # the oracle's query i sits at position i: prepend q_offset dummies
+    qx = np.concatenate([np.zeros((BH, q_offset, hd), np.float32), q], 1)
+    ref = np.asarray(attention_ref(jnp.asarray(qx), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal,
+                                   window=window))[:, q_offset:]
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
+
+
+def test_flash_wrapper_on_cpu_runs_plain_version():
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(0, 1, 8, 8, 2, 8))
+    before = flash_mod.flash_attention.launches
+    got = flash_mha(q, k, v)
+    assert flash_mod.flash_attention.launches == before  # no kernel launched
+    want = flash_mod.flash_attention_plain(q.transpose(1, 2),
+                                           k.transpose(1, 2),
+                                           v.transpose(1, 2))
+    assert torch.equal(got, want.transpose(1, 2))

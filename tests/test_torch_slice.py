@@ -26,12 +26,16 @@ from repro.experiments import SMOKE_BUDGET as JSMOKE_BUDGET
 from repro.experiments import get_scenario as jget_scenario
 from repro.experiments import run_scenario as jrun_scenario
 from repro.kernels.ops import imc_gemm as jimc_gemm
+from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.examples import codesign_lm_archs as example
 from repro_torch.experiments import get_scenario, run_scenario
 from repro_torch.experiments import __main__ as cli
 from repro_torch.experiments.report import write_summary
 from repro_torch.kernels.ops import imc_gemm
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import init_params
+from repro_torch.serve import ServeEngine
 
 torch.set_num_threads(1)
 
@@ -206,15 +210,32 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
     assert cli.main(["run", "--scenario", "rram_smoke", "--out",
                      str(tmp_path)]) == 2
     assert not (tmp_path / "rram_smoke").exists()
+    cfg = get_config("qwen3_4b", reduced=True)
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, cfg)
+    assert serve_cli.main(["--reduced"]) == 2
+
+
+def test_serve_launcher_on_cpu(capsys):
+    """``python -m repro_torch.launch.serve --reduced --device cpu``: the
+    reference launcher's flags and output, on the port."""
+    assert serve_cli.main(["--reduced", "--device", "cpu", "--requests",
+                           "3", "--max-new", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "served 3 requests, 12 tokens" in out and "on cpu" in out
 
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files}
-    # the second slice's modules are among those scanned
+    # the second and third slices' modules are among those scanned
     assert {"configs/__init__.py", "configs/qwen3_4b.py",
             "models/config.py", "examples/codesign_lm_archs.py",
-            "kernels/imc_matmul.py", "kernels/ops.py"} <= rel
+            "kernels/imc_matmul.py", "kernels/ops.py",
+            "kernels/flash_attention.py", "models/layers.py",
+            "models/attention.py", "models/transformer.py",
+            "serve/engine.py", "launch/serve.py"} <= rel
     assert len(files) > 30
     return [*files, ROOT / "chip_smoke.py"]
 
