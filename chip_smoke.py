@@ -39,9 +39,12 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
      rtol 1e-5;
  11. ``flash_attention`` kernel vs ``flash_attention_plain`` at the
      tests/test_kernels.py shapes plus the non-causal ragged (1, 40, 40,
-     2, 16) case (atol 2e-5 float32, 2e-2 bfloat16; in bfloat16 also
-     every element within two bf16 steps of the plain value plus 1e-4),
-     and at the serving shapes (B=1, 32 heads expanded from 8 KV heads,
+     2, 16) case and bfloat16 edge shapes of the tensor-core route
+     (head dims 8-256, S and T off the tiles, a window, a query offset,
+     B and H above 1) (atol 2e-5 float32, 2e-2 bfloat16; in bfloat16
+     also every element within two bf16 steps of the plain value plus
+     1e-4); the float32 CUDA-core route timed once at S = T = 2048; and
+     at the serving shapes (B=1, 32 heads expanded from 8 KV heads,
      hd 128, bf16, causal, S = T in {512, 2048, 4096}, and S=4096 with a
      1024 window), with CUDA-event timings beside the plain version,
      PyTorch's ``scaled_dot_product_attention`` and the bound; then the
@@ -401,14 +404,27 @@ def phase_rescore_cpu(res, rtol: float = 1e-4) -> None:
 
 
 # phase 11: tests/test_kernels.py's flash shapes (B, S, T, H, hd, causal,
-# window, dtype) and the non-causal ragged case the reference pads wrongly
-FLASH_TESTS = [(2, 32, 32, 2, 16, True, 0, "float32"),
-               (1, 64, 64, 4, 32, True, 0, "float32"),
-               (2, 48, 48, 2, 16, False, 0, "float32"),
-               (1, 64, 64, 2, 16, True, 16, "float32"),
-               (1, 40, 40, 2, 16, True, 0, "float32"),
-               (2, 32, 32, 2, 16, True, 0, "bfloat16"),
-               (1, 40, 40, 2, 16, False, 0, "float32")]
+# window, q_offset, dtype), the non-causal ragged case the reference pads
+# wrongly, and bfloat16 shapes for the tensor-core route: head dims 8
+# through 256 (zero-padded to 64, 128 or 256), S and T off the 128-row and
+# 64/128-key tiles, a window, a query offset with S != T, B and H above 1
+FLASH_TESTS = [(2, 32, 32, 2, 16, True, 0, 0, "float32"),
+               (1, 64, 64, 4, 32, True, 0, 0, "float32"),
+               (2, 48, 48, 2, 16, False, 0, 0, "float32"),
+               (1, 64, 64, 2, 16, True, 16, 0, "float32"),
+               (1, 40, 40, 2, 16, True, 0, 0, "float32"),
+               (2, 32, 32, 2, 16, True, 0, 0, "bfloat16"),
+               (1, 40, 40, 2, 16, False, 0, 0, "float32"),
+               (1, 1, 1, 2, 128, True, 0, 0, "bfloat16"),
+               (1, 129, 129, 2, 64, True, 0, 0, "bfloat16"),
+               (1, 300, 300, 4, 128, True, 0, 0, "bfloat16"),
+               (1, 1000, 1000, 2, 128, True, 0, 0, "bfloat16"),
+               (1, 1000, 1000, 2, 128, True, 100, 0, "bfloat16"),
+               (2, 37, 120, 3, 64, True, 0, 83, "bfloat16"),
+               (1, 129, 300, 2, 128, False, 0, 0, "bfloat16"),
+               (2, 129, 129, 3, 128, True, 0, 0, "bfloat16"),
+               (1, 300, 300, 2, 256, True, 0, 0, "bfloat16"),
+               (1, 33, 33, 2, 8, True, 0, 0, "bfloat16")]
 # the serving shapes: qwen3-4b heads (32 query, 8 KV, hd 128), bf16, causal;
 # (S, window)
 FLASH_SERVE = [(512, 0), (2048, 0), (4096, 0), (4096, 1024)]
@@ -421,6 +437,8 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-4
 # the planted fault of phase 11: keys DROP dropped from the last ROWS_LATE
 # query rows at S = T = 4096
 DROP, ROWS_LATE = (2048, 2080), 512
+# the float32 route (CUDA cores), timed once for the record: S = T
+FLASH_F32 = 2048
 
 
 def visible_pairs(S, T, causal, window, q_offset=0) -> int:
@@ -436,11 +454,13 @@ def visible_pairs(S, T, causal, window, q_offset=0) -> int:
 def flash_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
     """Least time for the attention on an H100 SXM: 4 FLOP per visible
     (query, key) pair and head dim (two products) at the bf16 dense
-    tensor-core peak, against q, k, v read once and o written once
-    (k and v at all H heads, as the kernel takes them)."""
+    tensor-core peak (the float32 CUDA-core peak for float32 inputs),
+    against q, k, v read once and o written once (k and v at all H heads,
+    as the kernel takes them)."""
     flops = 4 * visible_pairs(S, T, causal, window) * H * hd
     nbytes = itemsize * H * hd * (2 * S + 2 * T)
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -457,11 +477,11 @@ def serving_qkv(torch, gen, S, dev):
             (q, _expand_kv(k, QWEN_H), _expand_kv(v, QWEN_H))]
 
 
-def flash_plain(fa, q, k, v, causal, window):
+def flash_plain(fa, q, k, v, causal, window, q_offset=0):
     """The plain version on (B, S, H, hd) tensors."""
     return fa.flash_attention_plain(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window).transpose(1, 2)
+        causal=causal, window=window, q_offset=q_offset).transpose(1, 2)
 
 
 def bf16_over(torch, got, want) -> int:
@@ -471,14 +491,14 @@ def bf16_over(torch, got, want) -> int:
                 BF16_ATOL + BF16_RTOL * want.abs()).sum())
 
 
-def flash_check(torch, fa, name, q, k, v, causal, window, dt):
+def flash_check(torch, fa, name, q, k, v, causal, window, dt, q_offset=0):
     """``flash_mha`` (the kernel) vs the plain version on the same
     (B, S, H, hd) inputs: the max abs error within FLASH_ATOL and, in
     bfloat16, no element outside the element-wise limit. Returns the
     max abs error, the kernel's output and the plain version's."""
     from repro_torch.kernels.ops import flash_mha
-    got = flash_mha(q, k, v, causal=causal, window=window)
-    want = flash_plain(fa, q, k, v, causal, window)
+    got = flash_mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    want = flash_plain(fa, q, k, v, causal, window, q_offset)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     over = bf16_over(torch, got, want) if dt == "bfloat16" else 0
@@ -535,14 +555,28 @@ def phase_flash(torch, fa, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     worst, timed_at = 0.0, {}
-    for B, S, T, H, hd, causal, win, dt in FLASH_TESTS:
+    for B, S, T, H, hd, causal, win, q_off, dt in FLASH_TESTS:
         tdt = getattr(torch, dt)
         q, k, v = (torch.randn((B, L, H, hd), generator=gen, device=dev
                                ).to(tdt) for L in (S, T, T))
-        name = f"B={B} S={S} T={T} H={H} hd={hd} causal={causal} win={win} {dt}"
-        err = flash_check(torch, fa, name, q, k, v, causal, win, dt)[0]
+        name = (f"B={B} S={S} T={T} H={H} hd={hd} causal={causal} win={win}"
+                f" q_offset={q_off} {dt}")
+        err = flash_check(torch, fa, name, q, k, v, causal, win, dt,
+                          q_off)[0]
         worst = max(worst, err)
         log(f"flash_attention {name}: max_abs_err {err:.3g}")
+    # the float32 route at one serving-like shape, for the record
+    q, k, v = (torch.randn((1, FLASH_F32, QWEN_H, QWEN_HD), generator=gen,
+                           device=dev) for _ in range(3))
+    name = f"B=1 S=T={FLASH_F32} H={QWEN_H} hd={QWEN_HD} causal float32"
+    err = flash_check(torch, fa, name, q, k, v, True, 0, "float32")[0]
+    worst = max(worst, err)
+    ms = time_ms(torch, lambda: flash_mha(q, k, v), reps=5)
+    bound = flash_bound_ms(FLASH_F32, FLASH_F32, QWEN_H, QWEN_HD, True, 0, 4)
+    log(f"flash_attention {name} (CUDA-core route): max_abs_err {err:.3g}, "
+        f"kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}, float32 peak); kernel at "
+        f"{bound['flops'] / ms / 1e9:.2f} TFLOP/s")
     for S, win in FLASH_SERVE:
         q, k, v = serving_qkv(torch, gen, S, dev)
         name = (f"B=1 S=T={S} H={QWEN_H} (KV {QWEN_KV}) hd={QWEN_HD} causal "
@@ -721,7 +755,8 @@ def main(argv=None) -> int:
     log(f"kernel build: {built['seconds']:.2f} s")
     for name, text in built["logs"].items():
         for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln or "error" in ln.lower():
+            if any(w in ln.lower() for w in ("registers", "spill", "error",
+                                             "warning", "entry function")):
                 log(f"  {name}: {ln.strip()}")
     main_k = phase_kernel(torch, fused, dev)                         # 3
     phase_accuracy(torch, dev)                                       # 4

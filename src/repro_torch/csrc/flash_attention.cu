@@ -8,37 +8,43 @@
 // i + q_offset >= j when causal; (i + q_offset) - j < window when window > 0.
 // Accumulation is float32 with a running max m, denominator l and
 // accumulator acc over key tiles; the result is acc / max(l, 1e-30), cast to
-// the input type with round-to-nearest-even. q is scaled before the dot
-// product, as the Pallas kernel does.
+// the input type with round-to-nearest-even.
+//
+// Two routes, chosen by the input type in `flash_attention_launch`:
+//   * bfloat16 goes to the tensor-core kernel of flash_attention_wgmma.cuh
+//     (TMA, mbarrier ring, warp-specialized warpgroups, wgmma);
+//   * float32 stays on the CUDA-core kernel below, which is held to atol
+//     2e-5 against the plain version, a bound no bf16 tensor-core product
+//     can meet.
 //
 // Masked scores are the finite NEG_INF = -1e30 of the Pallas kernel, not
 // -inf: a row whose first tiles are wholly masked (a window) accumulates
 // junk there that the next corr = exp(m_prev - m_new) = 0 wipes out, where
 // -inf would give NaN (-inf - -inf).
 //
-// Design. The TPU grid (BH, S/bq, T/bk) walked its key axis in order and
-// carried m, l, acc in VMEM scratch across grid steps; here that axis is a
-// loop inside the block. One block per (batch x head, 64 query rows), 8
-// warps, 8 query rows per warp. Per key tile of 32 keys the block stages
-// K transposed (padded, so lanes read distinct banks) and V in shared
-// memory; q (scaled, zero-padded to the template head dim) stays in shared
-// memory for the whole loop. For the scores each lane owns one key and dots
-// it with the warp's 8 rows (q read as float4 broadcasts); the row max and
-// sum are warp shuffles; for P.V each lane owns HD/32 output dims of each
-// row and takes p_j by shuffle. m, l and acc live in registers. Tiles wholly
-// above the block's causal diagonal, and wholly below its window, are not
-// visited (the Pallas kernel skips the former). Blocks are issued longest
-// rows first. No tensor cores, no atomics: float32 CUDA-core FMAs, so the
-// f32 path keeps float32 accuracy (wgmma in bf16 is later work).
+// The float32 kernel. The TPU grid (BH, S/bq, T/bk) walked its key axis in
+// order and carried m, l, acc in VMEM scratch across grid steps; here that
+// axis is a loop inside the block. One block per (batch x head, 64 query
+// rows), 8 warps, 8 query rows per warp. Per key tile of 32 keys the block
+// stages K transposed (padded, so lanes read distinct banks) and V in shared
+// memory; q (scaled before the dot product, as the Pallas kernel does,
+// zero-padded to the template head dim) stays in shared memory for the
+// whole loop. For the scores each lane owns one key and dots it with the
+// warp's 8 rows (q read as float4 broadcasts); the row max and sum are warp
+// shuffles; for P.V each lane owns HD/32 output dims of each row and takes
+// p_j by shuffle. m, l and acc live in registers. Tiles wholly above the
+// block's causal diagonal, and wholly below its window, are not visited
+// (the Pallas kernel skips the former). Blocks are issued longest rows
+// first. Float32 CUDA-core FMAs, no tensor cores, no atomics.
 //
-// Bound on an H100 SXM (data-sheet peaks, 700 W). At the qwen3-4b prefill
-// S = T = 4096, H = 32, hd = 128, bf16, causal: 4 * S * T / 2 * H * hd =
-// 137 GFLOP (0.139 ms at the 989 TFLOP/s bf16 tensor-core peak) against
-// 134 MB of q, k, v, o (0.040 ms at 3.35 TB/s): the operations bound it.
-// This kernel runs on the 67 TFLOP/s float32 pipe and its shared-memory
-// and shuffle traffic, so it sits far above that bound.
-#include <cuda_bf16.h>
+// Bound on an H100 SXM (data-sheet peaks, 700 W). At S = T = 2048, H = 32,
+// hd = 128, causal, float32: 4 * S * (S + 1) / 2 * H * hd = 34 GFLOP
+// (0.51 ms on the 67 TFLOP/s float32 pipe; a float32 input has no faster
+// tensor-core route at this accuracy) against 134 MB of q, k, v, o
+// (0.040 ms at 3.35 TB/s): the operations bound it.
 #include <cuda_runtime.h>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -51,13 +57,7 @@ constexpr float NEG_INF = -1.0e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -238,10 +238,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream); returns
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
-// q (B, H, S, hd), k and v (B, H, T, hd), o (B, H, S, hd), each given by
-// its element strides (dim contiguous), float32 (is_bf16 = 0) or bfloat16.
-// The wrapper checks devices, types, shapes and strides and allocates o.
+// cudaGetLastError() so the Python wrapper can raise on a refused launch,
+// or wgmma_fa::ENCODE_ERROR (+ the CUresult) when a TMA tensor map is
+// refused. q (B, H, S, hd), k and v (B, H, T, hd), o (B, H, S, hd), each
+// given by its element strides (dim contiguous), float32 (is_bf16 = 0) or
+// bfloat16. The wrapper checks devices, types, shapes and strides (for
+// bfloat16, the 16-byte alignment TMA needs) and allocates o.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int S, int Tk, int hd, long long qsb, long long qsh, long long qss,
@@ -250,12 +252,15 @@ extern "C" int flash_attention_launch(
     long long oss, int causal, int window, int q_offset, float scale,
     int is_bf16, void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16) {
+    const long long qst[3] = {qsb, qsh, qss}, kst[3] = {ksb, ksh, kss},
+                    vst[3] = {vsb, vsh, vss}, ost[3] = {osb, osh, oss};
+    return wgmma_fa::dispatch(q, k, v, o, B, H, S, Tk, hd, qst, kst, vst, ost,
+                              causal, window, q_offset, scale, st);
+  }
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, S, Tk, hd, qs, ks, vs,
-                                   os, causal, window, q_offset, scale, st);
   return dispatch<float>(q, k, v, o, B, H, S, Tk, hd, qs, ks, vs, os, causal,
                          window, q_offset, scale, st);
 }

@@ -16,14 +16,22 @@ undefined (no caller makes one).
 ``flash_attention`` is the wrapper: on CUDA tensors it launches the
 hand-written Hopper kernel ``csrc/flash_attention.cu`` (or raises), on
 CPU tensors it runs the plain PyTorch version ``flash_attention_plain``.
-Its ``launches`` attribute counts kernel launches.
+Its ``launches`` attribute counts kernel launches. The kernel has two
+routes, by type: bfloat16 runs on the tensor cores
+(``csrc/flash_attention_wgmma.cuh``: TMA loads, wgmma, P split into two
+bf16 terms for P.V), float32 on the CUDA cores. TMA needs 16-byte
+aligned bases and strides, so a bfloat16 view without them raises.
 
-Both scale q by ``1/sqrt(hd)`` before the dot product, as the Pallas
-kernel does (``models/attention.py:blockwise_attention`` and
-``attention_ref`` scale the score instead; the difference is a few ULP).
-Both use the Pallas kernel's finite ``NEG_INF``.
+The plain version and the float32 kernel scale q by ``1/sqrt(hd)``
+before the dot product, as the Pallas kernel does. The bfloat16 kernel
+scales the float32 score after the product instead (q * scale rounded
+to bf16 would lose bits), as ``models/attention.py:blockwise_attention``
+and ``attention_ref`` do; the differences are a few float32 ULP. All
+use the Pallas kernel's finite ``NEG_INF``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -31,6 +39,10 @@ from . import build
 
 NEG_INF = -1.0e30
 MAX_HEAD_DIM = 256
+# csrc/flash_attention_wgmma.cuh's ENCODE_ERROR: the launch returns it plus
+# the CUresult when a TMA tensor map is refused, minus 1 when libcuda's
+# cuTensorMapEncodeTiled entry point is missing
+_ENCODE_ERROR = 20000
 # the plain version's query and key chunks, as blockwise_attention's
 _CHUNK = 512
 
@@ -115,12 +127,27 @@ def _check(q, k, v):
                          f"[1, {MAX_HEAD_DIM}]")
 
 
+def tma_alignment_error(t: torch.Tensor) -> Optional[str]:
+    """What of a (B, H, L, hd) view the bfloat16 kernel's TMA loads
+    cannot take, or None: the base address and the batch, head and
+    sequence strides of dims longer than 1 must be multiples of 16
+    bytes. The (B, H, S, hd) view of a contiguous (B, S, H, hd) bf16
+    tensor meets this when hd is a multiple of 8."""
+    if t.data_ptr() % 16:
+        return "base address"
+    for dim, name in enumerate(("batch", "head", "sequence")):
+        if t.shape[dim] > 1 and t.stride(dim) * t.element_size() % 16:
+            return f"{name} stride"
+    return None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """Blockwise attention (shapes as in the module docstring). CUDA
-    tensors launch ``csrc/flash_attention.cu``; CPU tensors take the
-    plain version."""
+    tensors launch ``csrc/flash_attention.cu`` (bfloat16 on the tensor
+    cores, float32 on the CUDA cores); CPU tensors take the plain
+    version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -132,6 +159,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B * H > 65535:
         raise ValueError(f"flash_attention: {B * H} batch x heads exceed "
                          "the grid's 65535")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            bad = tma_alignment_error(t)
+            if bad is not None:
+                raise ValueError(f"flash_attention: {name}'s {bad} is not a "
+                                 "multiple of 16 bytes, which the bfloat16 "
+                                 "kernel's TMA loads need")
     out = torch.empty_like(q)  # keeps q's layout (a transposed view too)
     lib = build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -141,6 +175,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         *out.stride()[:3],
         int(bool(causal)), int(window), int(q_offset),
         1.0 / float(hd) ** 0.5, int(q.dtype == torch.bfloat16), stream)
+    if err >= _ENCODE_ERROR - 1:
+        raise RuntimeError("flash_attention: cuTensorMapEncodeTiled "
+                           + ("not found" if err == _ENCODE_ERROR - 1 else
+                              f"failed with CUresult {err - _ENCODE_ERROR}"))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

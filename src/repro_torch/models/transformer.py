@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..device import DeviceLike, resolve_device
 from .attention import blockwise_attention, decode_attention
 from .config import ArchConfig
 from .layers import (MLP, apply_rope, cross_entropy, dense_init, mlp,
@@ -105,9 +106,11 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Block:
 
 
 def init_cache_block(cfg: ArchConfig, kind: str, B: int, cache_len: int,
-                     device="cpu") -> Dict[str, torch.Tensor]:
-    """Empty cache of one block (windowed layers keep only the window)."""
+                     device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """Empty cache of one block (windowed layers keep only the window),
+    on the card unless ``device`` says otherwise; raises without one."""
     _check_ported(cfg, kind)
+    device = resolve_device(device)
     if kind == "attn" and cfg.window:
         cache_len = min(cache_len, cfg.window)
     if kind == "local_attn":
@@ -223,7 +226,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> LM:
 
 
 def init_cache(cfg: ArchConfig, B: int, cache_len: int,
-               device="cpu") -> Cache:
+               device: DeviceLike = "cuda") -> Cache:
+    """Empty cache of every block, on the card unless ``device`` says
+    otherwise; raises without one."""
+    device = resolve_device(device)
     return [init_cache_block(cfg, kind, B, cache_len, device)
             for kind in cfg.layout()]
 

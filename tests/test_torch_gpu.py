@@ -213,6 +213,17 @@ FLASH_SHAPES = [  # (B, S, T, H, hd, causal, window, q_offset, dtype)
     (2, 37, 120, 3, 64, True, 0, 83, torch.float32),     # q_offset
     (1, 70, 70, 2, 256, True, 0, 0, torch.float32),      # widest head
     (1, 33, 33, 2, 8, True, 0, 0, torch.float32),        # narrow head
+    # bfloat16 on the tensor-core route: head dims 8..256 zero-padded to
+    # 64, 128 or 256; S and T off the 128-row and 64/128-key tiles
+    (1, 1, 1, 2, 128, True, 0, 0, torch.bfloat16),       # one row
+    (1, 129, 129, 2, 64, True, 0, 0, torch.bfloat16),
+    (1, 1000, 1000, 2, 128, True, 0, 0, torch.bfloat16),
+    (1, 1000, 1000, 2, 128, True, 100, 0, torch.bfloat16),  # window
+    (2, 37, 120, 3, 64, True, 0, 83, torch.bfloat16),    # q_offset, S != T
+    (1, 129, 300, 2, 128, False, 0, 0, torch.bfloat16),  # ragged T
+    (2, 129, 129, 3, 128, True, 0, 0, torch.bfloat16),   # B = 2, H = 3
+    (1, 300, 300, 2, 256, True, 0, 0, torch.bfloat16),   # widest head
+    (1, 33, 33, 2, 8, True, 0, 0, torch.bfloat16),       # narrow head
 ]
 
 
@@ -270,6 +281,43 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
     big = torch.zeros((1, 1, 4, 260), device=cuda)
     with pytest.raises(ValueError):
         flash_attention(big, big, big)                  # head dim > 256
+
+
+def test_flash_bf16_rejects_views_tma_cannot_take(cuda):
+    """The bfloat16 route loads through TMA, which needs 16-byte-aligned
+    bases and strides: a view without them raises (no fallback) before
+    any launch; float32 takes the same view on the CUDA cores."""
+    q = torch.randn((1, 2, 16, 4), device=cuda)  # 8-byte rows in bf16
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="sequence stride"):
+        flash_attention(*(q.to(torch.bfloat16),) * 3)
+    buf = torch.zeros(1 + 2 * 16 * 8, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(1, 2, 16, 8)  # base 2 bytes off
+    with pytest.raises(ValueError, match="base address"):
+        flash_attention(shifted, shifted, shifted)
+    assert flash_attention.launches == before
+    flash_attention(q, q, q)
+    assert flash_attention.launches == before + 1
+
+
+def test_flash_bf16_odd_head_dim_slice(cuda):
+    """An odd head dim read from slices of wider tensors: TMA loads the 7
+    columns through the 8-wide rows' strides and zero-fills the rest of
+    the padded head dim; the output (contiguous, odd row stride) is
+    stored one element at a time. Same limits as the shapes above."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    q, k, v = (torch.randn((1, 200, 2, 8), generator=gen, device=cuda
+                           ).to(torch.bfloat16)[..., :7] for _ in range(3))
+    got = flash_mha(q, k, v)
+    want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2)).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 200, 2, 7)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.0,
+                               atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -6,
+                               atol=1e-4)
 
 
 def test_engine_on_card_matches_cpu(cuda):

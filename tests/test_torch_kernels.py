@@ -127,7 +127,8 @@ def test_build_paths_stay_in_checkout():
     """Kernels build into build/kernels of the checkout under a name
     keyed by the source hash; nothing is compiled at import time. The
     two crossbar kernels share the ADC device code of csrc/adc.cuh; the
-    flash attention kernel includes no header of the repo."""
+    flash attention kernel includes its bfloat16 tensor-core route,
+    csrc/flash_attention_wgmma.cuh."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
                                      "flash_attention"}
     for name in build.SIGNATURES:
@@ -135,7 +136,8 @@ def test_build_paths_stay_in_checkout():
         assert path.parent == build.BUILD_DIR
         src = (build.CSRC / f"{name}.cu").read_text()
         assert build._INCLUDE.findall(src) == (
-            [] if name == "flash_attention" else ["adc.cuh"])
+            ["flash_attention_wgmma.cuh"] if name == "flash_attention"
+            else ["adc.cuh"])
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in build.NVCC_FLAGS
@@ -143,7 +145,8 @@ def test_build_paths_stay_in_checkout():
 
 def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
     """An edit to the shared header renames (so rebuilds) both kernels'
-    libraries; an edit to one source renames only its own."""
+    libraries; an edit to one source renames only its own; an edit to
+    the flash kernel's tensor-core header renames only its library."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -159,6 +162,11 @@ def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
     again = {n: build._library_path(n) for n in names}
     assert again["imc_fused"] == after["imc_fused"]
     assert again["imc_matmul"] != after["imc_matmul"]
+    flash = build._library_path("flash_attention")
+    with open(csrc / "flash_attention_wgmma.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build._library_path("flash_attention") != flash
+    assert {n: build._library_path(n) for n in names} == again
 
 
 # ---------------------------------------------------------------------------
@@ -353,3 +361,80 @@ def test_flash_wrapper_on_cpu_runs_plain_version():
                                            k.transpose(1, 2),
                                            v.transpose(1, 2))
     assert torch.equal(got, want.transpose(1, 2))
+
+
+def _emulate_bf16_kernel_pv(q, k, v, split, block_k=128):
+    """The bfloat16 kernel's P.V arithmetic on (BH, S, hd) bf16 inputs,
+    causal, from the plain version's float32 scores: an online softmax
+    over key tiles of ``block_k`` whose p feeds the product either rounded
+    once to bf16 or split as bf16(p) + bf16(p - bf16(p)); the denominator
+    sums the unrounded p. The products of bf16 terms and the f32 sums are
+    what the tensor cores compute, up to f32 summation order."""
+    BH, S, hd = q.shape
+    s = (q.float() * (1.0 / hd ** 0.5)) @ k.float().transpose(1, 2)
+    pos = torch.arange(S)
+    s = torch.where(pos[:, None] >= pos[None, :], s,
+                    flash_mod.NEG_INF)
+    vf = v.float()
+    m = torch.full((BH, S, 1), flash_mod.NEG_INF)
+    l = torch.zeros((BH, S, 1))
+    acc = torch.zeros((BH, S, hd))
+    for j0 in range(0, S, block_k):
+        st = s[:, :, j0:j0 + block_k]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        corr = torch.exp(m - m_new)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vf[:, j0:j0 + block_k]
+        if split:
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + lo @ vf[:, j0:j0 + block_k]
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+def test_bf16_kernel_needs_p_split_in_two():
+    """Why the bfloat16 kernel runs P.V twice: with P rounded once to
+    bf16 (the usual tensor-core shortcut) thousands of outputs fall
+    outside the bf16 limit the card's checks hold the kernel to (each
+    element within two bf16 steps of the plain version plus 1e-4; the
+    float32 P of the Pallas kernel and the plain version differ by one
+    step at most); with P as bf16(p) + bf16(p - bf16(p)) none does."""
+    rng = np.random.default_rng(14)
+    BH, S, hd = 4, 300, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal((BH, S, hd)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    want = flash_mod.flash_attention_plain(q, k, v, causal=True).float()
+    limit = 1e-4 + 2.0 ** -6 * want.abs()
+    once = _emulate_bf16_kernel_pv(q, k, v, split=False).float()
+    split = _emulate_bf16_kernel_pv(q, k, v, split=True).float()
+    over_once = int(((once - want).abs() > limit).sum())
+    over_split = int(((split - want).abs() > limit).sum())
+    assert over_once > 0.01 * want.numel()  # the shortcut breaks the limit
+    assert (once - want).abs().max() <= 2e-2  # which atol 2e-2 alone misses
+    assert over_split == 0
+    assert (split - want).abs().max() <= 2.0 ** -7
+
+
+def test_tma_alignment_error_names_what_the_bf16_route_cannot_take():
+    """The bfloat16 kernel's TMA loads need a 16-byte-aligned base and
+    16-byte batch, head and sequence strides (dims of length 1 aside):
+    the serving layout, the (B, H, S, hd) view of a contiguous
+    (B, S, H, hd) tensor, passes; the wrapper raises on the rest."""
+    err = flash_mod.tma_alignment_error
+
+    def view(B, S, H, hd):
+        return torch.zeros((B, S, H, hd), dtype=torch.bfloat16
+                           ).transpose(1, 2)
+
+    assert err(view(2, 300, 32, 128)) is None
+    assert err(view(1, 1, 1, 4)) is None        # no stride is used
+    assert err(view(1, 16, 2, 4)) == "head stride"
+    assert err(view(1, 16, 1, 4)) == "sequence stride"
+    assert err(torch.zeros((1, 2, 16, 4), dtype=torch.bfloat16)
+               ) == "sequence stride"
+    buf = torch.zeros(1 + 2 * 16 * 8, dtype=torch.bfloat16)
+    assert err(buf[1:].view(1, 2, 16, 8)) == "base address"
+    assert err(torch.zeros((3, 2, 16, 8), dtype=torch.bfloat16)) is None

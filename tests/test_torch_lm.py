@@ -372,3 +372,26 @@ def test_unported_archs_name_roadmap_item(arch, item):
 def test_kv_quant_names_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 13a"):
         _tiny_model(kv_quant=True)
+
+
+def test_init_cache_defaults_to_the_card():
+    """``init_cache`` and ``init_cache_block`` build the KV cache on the
+    card unless told otherwise: without a CUDA device a bare call raises,
+    and ``device="cpu"`` gives the empty cache on the CPU."""
+    from repro_torch.models.transformer import init_cache, init_cache_block
+    cfg = get_config("qwen3_4b", reduced=True)
+    if torch.cuda.is_available():
+        assert init_cache(cfg, 1, 8)[0]["k"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache_block(cfg, "attn", 1, 8)
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    assert len(cache) == cfg.n_layers
+    shape = (1, 8, cfg.n_kv_heads, cfg.head_dim)
+    for blk in cache:
+        assert blk["k"].shape == blk["v"].shape == shape
+        assert blk["k"].device.type == "cpu"
+        assert blk["k"].dtype == cfg.torch_dtype
+        assert not blk["k"].any() and (blk["pos"] == -1).all()
