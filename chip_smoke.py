@@ -8,7 +8,8 @@ each against its plain PyTorch version on the card, and drives the
 port's three paths on the card: the ``rram_accuracy`` scenario (§IV-H,
 Eq. 4) at its registry budget through
 ``repro_torch.experiments.runner.run_scenario`` (the ``imc_fused``
-kernel), and the LM co-design example
+kernel, keyed: it draws each design's noise itself), and the LM
+co-design example
 ``repro_torch.examples.codesign_lm_archs`` — ``sram_lm_archs`` at its
 registry budget, then the full-width qwen3-4b QKV projection through
 the winning crossbar geometry (the ``imc_matmul`` kernel); and the LM
@@ -17,13 +18,26 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together);
-  3. ``imc_fused`` kernel vs ``imc_fused_plain`` at the main-path shapes
-     and the four shape families of tests/test_kernels.py, rtol 1e-5 /
-     atol 1e-4, with CUDA-event timings and the bound;
+  3. the device normal draw (``csrc/threefry.cuh``) on all 2^23
+     uniforms it can make vs ``random.normal_of_bits``, bitwise; then
+     ``imc_fused`` at the main-path shapes (P = 24, 96, 120, 480), the
+     four shape families of tests/test_kernels.py and one with several
+     cluster rounds, row groups and column tiles, bitwise: the
+     keyed kernel's raw and z_out vs ``imc_fused_keyed_plain``, the
+     eps-taking kernel vs ``imc_fused_plain``, the old route (host
+     draws + eps kernel) vs the keyed kernel; at the main shapes the
+     keyed kernel and the old route timed in turns (old, keyed, keyed,
+     old) by CUDA events around back-to-back calls (the host side of
+     each call included), each kernel's device time per launch from a
+     CUDA graph of 20 launches, beside the plain version and the bound;
   4. the accuracy model, backend 'cuda' vs 'ref', on 120 sampled RRAM
-     genomes, rtol 1e-4;
-  5. ``rram_accuracy`` end to end on the card; the kernel's launch count
-     must rise on that run;
+     genomes, bitwise;
+  5. ``rram_accuracy`` end to end on the card through backend 'cuda':
+     the keyed kernel's launch count must rise on that run, the
+     eps-taking kernel's must not, and no ``random.normal`` call may
+     come from the accuracy model; then again through backend 'ref'
+     (whose host draws the same probe must see): the same best design
+     and a bitwise-equal best score;
   6. the run's best genome re-scored on the CPU (backend 'jnp'), rtol 1e-4;
   7. ``rram_smoke`` (EDAP only, no kernel) end to end on the card;
   8. ``imc_matmul`` kernel vs ``imc_matmul_plain``, bitwise, at the
@@ -88,6 +102,28 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# instruction rates of the H100 SXM's pipes at its 1.98 GHz boost clock,
+# 132 SMs: per SM and clock 64 INT32 lanes, 128 FP32 lanes (the 67 TFLOP/s
+# counts an FMA as 2), 64 FP64 lanes (the data sheet's 34 TFLOP/s FP64,
+# FMA as 2); conversions to or from 64-bit types 16 per SM and clock (CUDA
+# C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0)
+SM_CLOCKS = 132 * 1.98e9
+RATE_INT32 = 64 * SM_CLOCKS
+RATE_FP32 = 128 * SM_CLOCKS
+RATE_FP64 = 64 * SM_CLOCKS
+RATE_CVT64 = 16 * SM_CLOCKS
+# per normal draw (csrc/threefry.cuh): threefry2x32 is 2 key adds, 20
+# rounds of add / rotate / xor and 5 key injections of 2 adds, then the
+# xor of its two words (73 INT32 operations), and the uniform's shift and
+# or (2); erf_inv's 8 Horner steps are a float64 multiply and add each
+# (16 FP64) with 17 conversions (p and w to float64, each sum back); the
+# uniform (4) and erf_inv outside log1pf (6) are 10 float32 operations
+# (log1pf's own are not counted); noisy_weight is 40 float32 operations
+# per weight element
+INT_PER_HASH, INT_PER_UNIFORM = 73, 2
+FP64_PER_NORMAL, CVT_PER_NORMAL = 16, 17
+FP32_PER_NORMAL, FP32_PER_WEIGHT = 10, 40
 
 # main-path shape of the accuracy model (Calib defaults, RRAM rows table)
 B, K, N, SUB = 32, 256, 32, 64
@@ -98,6 +134,9 @@ FAMILIES = [
     (2, 2, 96, 4, 32, (32.0, 64.0, 96.0)),      # odd tiling
     (2, 3, 200, 5, 64, (64.0, 128.0)),          # ragged K
     (1, 2, 48, 4, 16, (48.0,)),                 # single group
+    # beyond them: 19 sub-tiles (3 rounds of a cluster of 8), 3 groups of
+    # 32 batch rows, 2 column tiles
+    (3, 70, 300, 40, 16, (16.0, 48.0, 96.0)),
 ]
 
 
@@ -144,25 +183,111 @@ def time_ms(torch, fn, reps: int, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-def fused_bound_ms(P, b, k, n, sub, n_rows) -> dict:
-    """Least time for the fused kernel's work on an H100 SXM: the 8
-    bit-plane GEMMs (2 FLOP per MAC) plus the noise arithmetic (28 FLOP
-    per weight element) in float32, against each input read once and
-    the output written once."""
-    kp = k + (-k) % sub
-    flops = 2 * 8 * b * kp * n * P + 28 * P * k * n
-    nbytes = 4 * (b * k + k * n + 2 * P * k * n + P + n_rows + P * b * n)
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
+def graph_ms(torch, fn, launches: int = 20, reps: int = 10) -> float:
+    """Device time of one ``fn()`` call: ``launches`` calls captured in a
+    CUDA graph, replayed ``reps`` times between CUDA events, so no host
+    work (the wrapper's checks, allocations and ctypes call) sits
+    between two launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * launches)
+
+
+def keyed_bound_ms(x_q, P, n, n_rows) -> dict:
+    """Least time for the keyed kernel's work on an H100 SXM: per design
+    the fold_in and split hashes (4) and the 2 * K * N + B * N normal
+    draws, the noise arithmetic per weight element, the adds of the SET
+    bits of these codes only (their count read from ``x_q``), each pipe
+    at its instruction rate; against x_q, w, the key, flat, rows and
+    table read once and raw and z_out written once. The slowest pipe or
+    the bytes bound it; ``pipe`` says which."""
+    b, k = x_q.shape
+    normals = P * (2 * k * n + b * n)
+    hashes = P * 4 + normals
+    set_bits = int(sum(int(((x_q >> q) & 1).sum()) for q in range(8)))
+    pipes = {
+        "INT32": (hashes * INT_PER_HASH + normals * INT_PER_UNIFORM)
+        / RATE_INT32,
+        "FP64": normals * FP64_PER_NORMAL / RATE_FP64,
+        "CVT64": normals * CVT_PER_NORMAL / RATE_CVT64,
+        "FP32": (normals * FP32_PER_NORMAL + P * k * n * FP32_PER_WEIGHT
+                 + P * n * set_bits) / RATE_FP32,
+    }
+    nbytes = 4 * (b * k + k * n + P + n_rows + 2 * P * b * n) + 8 * (2 + P)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    pipe = max(pipes, key=pipes.get)
+    t_ops = pipes[pipe]
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+            "pipe": pipe if t_ops >= t_bytes else "HBM",
+            "pipes_ms": {kk: v * 1e3 for kk, v in pipes.items()},
+            "bytes_ms": t_bytes * 1e3, "normals": normals,
+            "set_bits": set_bits, "bytes": nbytes}
+
+
+def keyed_inputs(torch, jr, gen, P, b, k, n, rows, dev):
+    """x_q, w, k_noise, flat (below 2^31), rows_idx, row_table."""
+    x_q = torch.randint(0, 256, (b, k), generator=gen, dtype=torch.int32,
+                        device=dev)
+    w = torch.rand((k, n), generator=gen, device=dev) * 2.0 - 1.0
+    seed, *flat = torch.randint(0, 2 ** 31, (P + 1,), generator=gen,
+                                device=dev).tolist()
+    ri = torch.randint(0, len(rows), (P,), generator=gen, dtype=torch.int32,
+                       device=dev)
+    rt = torch.tensor(rows, dtype=torch.float32, device=dev)
+    return (x_q, w, jr.PRNGKey(seed, dev),
+            torch.tensor(flat, dtype=torch.int64, device=dev), ri, rt)
+
+
+def old_route(jr, fused, x_q, w, key, flat, ri, rt, sub):
+    """The accuracy call's work before the keyed kernel: the host draws
+    (int64 threefry ops), then the eps-taking kernel."""
+    kk = jr.split(jr.fold_in(key, flat), 3)
+    ep, en = jr.normal(kk[:, 0], w.shape), jr.normal(kk[:, 1], w.shape)
+    z = jr.normal(kk[:, 2], (x_q.shape[0], w.shape[1]))
+    return fused.imc_fused_gemm(x_q, w, ep, en, ri, rt, sub=sub), z
+
+
+def check_normal_of_bits(torch, jr, fused, dev) -> None:
+    """The device draw's transform on all 2^23 uniforms it can make,
+    bit for bit against random.py's on the card."""
+    bits = torch.arange(1 << 23, dtype=torch.int64, device=dev) << 9
+    got = fused.normal_of_bits(bits)
+    want = jr.normal_of_bits(bits)
+    torch.cuda.synchronize()
+    ulp = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    n_off = int((ulp != 0).sum())
+    if n_off or not torch.isfinite(got).all():
+        raise RuntimeError(f"normal_of_bits: {n_off} of {bits.numel()} "
+                           f"uniforms differ, max {int(ulp.max())} ULP")
+    log(f"threefry.cuh normal on all {bits.numel()} uniforms: bitwise equal "
+        f"to random.normal_of_bits on the card")
 
 
 def phase_kernel(torch, fused, dev) -> dict:
-    """Phase 3: kernel vs plain at the main-path and test shapes."""
+    """Phase 3: both imc_fused routes vs their plain versions, bit for
+    bit, at the main-path and test shapes; the keyed kernel timed in
+    turns with the old route, beside its plain version and bound."""
+    from repro_torch import random as jr
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    check_normal_of_bits(torch, jr, fused, dev)
     shapes = [(P, B, K, N, SUB, ROWS) for P in (24, 96, 120, 480)]
     shapes += FAMILIES
     main = None
@@ -170,25 +295,60 @@ def phase_kernel(torch, fused, dev) -> dict:
         args = fused_inputs(torch, gen, P, b, k, n, rows, dev)
         got = fused.imc_fused_gemm(*args, sub=sub)
         want = fused.imc_fused_plain(*args, sub=sub)
+        kargs = keyed_inputs(torch, jr, gen, P, b, k, n, rows, dev)
+        raw, z = fused.imc_fused_gemm_keyed(*kargs, sub=sub)
+        want_raw, want_z = fused.imc_fused_keyed_plain(*kargs, sub=sub)
+        old_raw, old_z = old_route(jr, fused, *kargs, sub)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-        line = (f"imc_fused P={P} B={b} K={k} N={n} sub={sub}: max_abs_err "
-                f"{err:.3g}")
+        err = max(float((got - want).abs().max()),
+                  float((raw - want_raw).abs().max()))
+        if not (torch.equal(got, want) and torch.equal(raw, want_raw)
+                and torch.equal(z, want_z) and torch.equal(old_raw, raw)
+                and torch.equal(old_z, z)):
+            raise RuntimeError(
+                f"imc_fused P={P} B={b} K={k} N={n} sub={sub}: not bitwise "
+                f"equal (eps route {torch.equal(got, want)}, keyed raw "
+                f"{torch.equal(raw, want_raw)}, z_out "
+                f"{torch.equal(z, want_z)}, old route "
+                f"{torch.equal(old_raw, raw)}), max abs err {err:.3g}")
+        line = (f"imc_fused P={P} B={b} K={k} N={n} sub={sub}: keyed raw and "
+                f"z_out, eps route and old route bitwise equal")
         if (b, k, n) == (B, K, N):
-            ms = time_ms(torch, lambda: fused.imc_fused_gemm(*args, sub=sub),
-                         reps=50)
-            plain_ms = time_ms(
-                torch, lambda: fused.imc_fused_plain(*args, sub=sub), reps=3,
-                windows=3)
-            bound = fused_bound_ms(P, b, k, n, sub, len(rows))
-            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-                     f"{bound['flops'] / 1e9:.3f} GFLOP, "
-                     f"{bound['bytes'] / 1e6:.2f} MB)")
+            # device time per launch (CUDA graph), then the time per call
+            # with the host side included, keyed and old route in turns
+            ms = graph_ms(torch, lambda: fused.imc_fused_gemm_keyed(
+                *kargs, sub=sub))
+            eps_ms = graph_ms(torch, lambda: fused.imc_fused_gemm(
+                *args, sub=sub))
+            turns = []
+            for fn in ("old", "keyed", "keyed", "old"):
+                call = ((lambda: old_route(jr, fused, *kargs, sub))
+                        if fn == "old" else
+                        (lambda: fused.imc_fused_gemm_keyed(*kargs,
+                                                            sub=sub)))
+                turns.append(time_ms(torch, call,
+                                     reps=10 if fn == "old" else 50))
+            call_ms, old_ms = min(turns[1:3]), min(turns[0], turns[3])
+            plain_ms = time_ms(torch, lambda: fused.imc_fused_keyed_plain(
+                *kargs, sub=sub), reps=3, windows=3)
+            bound = keyed_bound_ms(kargs[0], P, n, len(rows))
+            line += (f"; device time per launch: keyed kernel {ms:.4f} ms, "
+                     f"eps kernel {eps_ms:.4f} ms; per call (host side "
+                     f"included), in turns: keyed {turns[1]:.4f}/"
+                     f"{turns[2]:.4f} ms, old route (host draws + eps kernel)"
+                     f" {turns[0]:.4f}/{turns[3]:.4f} ms; keyed plain "
+                     f"{plain_ms:.4f} ms; bound "
+                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+                     f"{bound['pipe']}; pipes ms "
+                     + ", ".join(f"{kk} {v:.4f}" for kk, v in
+                                 bound["pipes_ms"].items())
+                     + f", HBM {bound['bytes_ms']:.4f}; {bound['normals']} "
+                     f"normals, {bound['set_bits']} set bits of x_q, "
+                     f"{bound['bytes'] / 1e6:.3f} MB)")
             if P == 120:
                 main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        **bound}
+                        "call_ms": call_ms, "old_ms": old_ms,
+                        "eps_ms": eps_ms, **bound}
         log(line)
     return main
 
@@ -355,10 +515,38 @@ def phase_accuracy(torch, dev) -> None:
     torch.cuda.synchronize()
     if acc_k.shape != (120, 4) or not torch.isfinite(acc_k).all():
         raise RuntimeError(f"accuracy model: bad output {acc_k.shape}")
-    torch.testing.assert_close(acc_k, acc_r, rtol=1e-4, atol=0.0)
-    log(f"accuracy model cuda vs ref on 120 genomes: max_abs_err "
-        f"{float((acc_k - acc_r).abs().max()):.3g}, mean accuracy "
-        f"{float(acc_k.mean()):.4f}")
+    if not torch.equal(acc_k, acc_r):
+        raise RuntimeError(f"accuracy model cuda != ref: max abs err "
+                           f"{float((acc_k - acc_r).abs().max())}")
+    log(f"accuracy model cuda vs ref on 120 genomes: bitwise equal, mean "
+        f"accuracy {float(acc_k.mean()):.4f}")
+
+
+class HostDraws:
+    """Counts ``repro_torch.random.normal`` calls made inside the
+    accuracy model's calls (a frame of ``accuracy`` in core/nonideal.py
+    on the stack): the host's noise draws."""
+
+    def __init__(self):
+        from repro_torch import random as jr
+        self.jr, self.real, self.calls = jr, jr.normal, 0
+
+    def __enter__(self):
+        def normal(key, shape):
+            f = sys._getframe(1)
+            while f is not None:
+                code = f.f_code
+                if code.co_name == "accuracy" and code.co_filename.endswith(
+                        os.path.join("core", "nonideal.py")):
+                    self.calls += 1
+                    break
+                f = f.f_back
+            return self.real(key, shape)
+        self.jr.normal = normal
+        return self
+
+    def __exit__(self, *exc):
+        self.jr.normal = self.real
 
 
 def phase_scenario(torch, name, dev, out_dir) -> dict:
@@ -377,6 +565,34 @@ def phase_scenario(torch, name, dev, out_dir) -> dict:
         f"budget {res['budget']}")
     log(f"{name} best design: {json.dumps(res['generalized']['design'])}")
     return res
+
+
+def phase_scenario_ref(torch, dev, res) -> dict:
+    """Phase 5, second half: ``rram_accuracy`` again on the card through
+    backend 'ref' (host draws + the plain fused dataflow); the same best
+    genome and a bitwise-equal best score as the 'cuda' run ``res``."""
+    import dataclasses
+    from repro_torch.experiments import get_scenario
+    from repro_torch.experiments.runner import run_scenario
+    sc = dataclasses.replace(get_scenario("rram_accuracy"), backend="ref")
+    with HostDraws() as draws:
+        t0 = time.perf_counter()
+        ref = run_scenario(sc, write=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    same = (ref["generalized"]["design"] == res["generalized"]["design"]
+            and ref["best_score"] == res["best_score"])
+    if not same or ref["backend"] != "ref" or draws.calls <= 0:
+        raise RuntimeError(
+            f"rram_accuracy ref vs cuda: best {ref['best_score']!r} vs "
+            f"{res['best_score']!r}, designs equal "
+            f"{ref['generalized']['design'] == res['generalized']['design']},"
+            f" host draws seen {draws.calls}")
+    log(f"rram_accuracy backend ref on the card: wall {wall:.2f} s, "
+        f"{draws.calls} host normal draws in the accuracy model; same best "
+        f"design, best {ref['objective']} {ref['best_score']!r} == cuda "
+        f"{res['best_score']!r}")
+    return ref
 
 
 def phase_rescore_cpu(res, rtol: float = 1e-4) -> None:
@@ -761,19 +977,26 @@ def main(argv=None) -> int:
     main_k = phase_kernel(torch, fused, dev)                         # 3
     phase_accuracy(torch, dev)                                       # 4
     with tempfile.TemporaryDirectory() as out_dir:
-        fused.imc_fused_gemm.launches = 0                            # 5
-        res = phase_scenario(torch, "rram_accuracy", dev, out_dir)
-        launches = fused.imc_fused_gemm.launches
-        if launches <= 0 or res["backend"] != "cuda":
+        with HostDraws() as draws:                                   # 5
+            fused.imc_fused_gemm_keyed.launches = 0
+            fused.imc_fused_gemm.launches = 0
+            res = phase_scenario(torch, "rram_accuracy", dev, out_dir)
+            launches = fused.imc_fused_gemm_keyed.launches
+            eps_launches = fused.imc_fused_gemm.launches
+        if launches <= 0 or eps_launches or draws.calls or \
+                res["backend"] != "cuda":
             raise RuntimeError(
-                f"rram_accuracy did not run the kernel: launches "
-                f"{launches}, backend {res['backend']}")
-        log(f"rram_accuracy: imc_fused launches {launches}")
+                f"rram_accuracy did not run the keyed kernel alone: keyed "
+                f"launches {launches}, eps kernel launches {eps_launches}, "
+                f"host normal draws {draws.calls}, backend {res['backend']}")
+        log(f"rram_accuracy: imc_fused keyed launches {launches}, host noise "
+            f"draws in the accuracy model 0")
+        phase_scenario_ref(torch, dev, res)
         phase_rescore_cpu(res)                                       # 6
-        fused.imc_fused_gemm.launches = 0                            # 7
+        fused.imc_fused_gemm_keyed.launches = 0                      # 7
         phase_scenario(torch, "rram_smoke", dev, out_dir)
         log(f"rram_smoke: imc_fused launches "
-            f"{fused.imc_fused_gemm.launches} (EDAP only)")
+            f"{fused.imc_fused_gemm_keyed.launches} (EDAP only)")
     main_m = phase_matmul(torch, mm, dev)                            # 8
     phase_host_oracle(torch, mm, dev)                                # 9
     lm = phase_lm_example(torch, mm, dev)                            # 10
@@ -781,6 +1004,11 @@ def main(argv=None) -> int:
     main_f = phase_flash(torch, fa, dev)                             # 11
     served = phase_serve(torch, fa, dev)                             # 12
     phase_logits(torch, fa, dev)                                     # 13
+    log(f"imc_fused keyed kernel at P=120: {main_k['ms']:.4f} ms a launch "
+        f"on the device, {main_k['call_ms']:.4f} ms a call against the old "
+        f"route's {main_k['old_ms']:.4f} ms; eps kernel "
+        f"{main_k['eps_ms']:.4f} ms a launch; bound {main_k['bound_ms']:.4f}"
+        f" ms ({main_k['pipe']})")
     fused_entry = {"name": "imc_fused", "route": "cuda",
                    "source": "src/repro_torch/csrc/imc_fused.cu",
                    "replaces": "src/repro/kernels/imc_fused.py:83",

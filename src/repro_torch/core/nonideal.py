@@ -16,9 +16,13 @@ port (``repro_torch/random.py``), so a design's score is a pure function
 of the design, on every backend and device, as in the reference.
 
 Backends (the crossbar-GEMM route):
-  'jnp'  — the reference's einsum path, in ``torch.einsum``;
-  'ref'  — the fused dataflow through ``imc_fused_plain``;
-  'cuda' — the fused Hopper kernel (``imc_fused_gemm`` on CUDA tensors);
+  'jnp'  — the reference's einsum path, in ``torch.einsum``, noise
+           drawn on the host;
+  'ref'  — the fused dataflow through ``imc_fused_keyed_plain`` (the
+           host draws, then ``imc_fused_plain``): the plain route the
+           kernel is held to;
+  'cuda' — the fused Hopper kernel (``imc_fused_gemm_keyed`` on CUDA
+           tensors), which draws the noise itself: no host draw;
   'auto' — 'cuda' on a CUDA device, 'jnp' on the CPU.
 
 ``accuracy_proxy_host`` keeps the reference's host-side oracle: one
@@ -38,8 +42,8 @@ import torch
 from .. import random as jr
 from ..device import resolve_device
 from ..kernels.adc import adc_full_scale, adc_quantize
-from ..kernels.imc_fused import (imc_fused_gemm, imc_fused_plain,
-                                 noisy_weights)
+from ..kernels.imc_fused import (imc_fused_gemm_keyed,
+                                 imc_fused_keyed_plain, noisy_weights)
 from ..kernels.imc_matmul import imc_matmul_plain
 from ..kernels.ops import imc_gemm
 from .search_space import SearchSpace
@@ -217,15 +221,14 @@ def make_accuracy_model(space: SearchSpace,
     row_table_f = torch.as_tensor(row_values.astype(np.float32), device=dev)
     x_q_c = x_q.contiguous()
     w_c = w.contiguous()
+    k_noise = k_noise.contiguous()
 
-    def draws(flat):
+    def einsum_path(genomes, flat):
         # the design's fold_in key -> eps fields on the untiled (K, N)
-        # weight shape and the output-noise key
+        # weight shape and the output noise
         k = jr.split(jr.fold_in(k_noise, flat), 3)
-        return (jr.normal(k[:, 0], w.shape), jr.normal(k[:, 1], w.shape),
-                k[:, 2])
-
-    def einsum_path(genomes, eps_pos, eps_neg):
+        eps_pos = jr.normal(k[:, 0], w.shape)
+        eps_neg = jr.normal(k[:, 1], w.shape)
         rows = table[rows_i, genomes[:, rows_i]]                 # (P,)
         w_eff = noisy_weights(w, eps_pos, eps_neg, rows)
         wt = torch.nn.functional.pad(w_eff, (0, 0, 0, pad))
@@ -236,23 +239,23 @@ def make_accuracy_model(space: SearchSpace,
         tiles = torch.einsum("pqbsn,psg->pqbgn", partial, onehot)
         fs = adc_full_scale(rows)[:, None, None, None, None]
         q = adc_quantize(tiles, fs, adc_bits)
-        return torch.sum(q * pow2[None, :, None, None, None], dim=(1, 3))
+        raw = torch.sum(q * pow2[None, :, None, None, None], dim=(1, 3))
+        return raw, jr.normal(k[:, 2], raw.shape[1:])
 
     def accuracy(genomes: torch.Tensor) -> torch.Tensor:
         genomes = genomes.to(dev).long()
         flat = (genomes * strides).sum(dim=1)
-        eps_pos, eps_neg, k_out = draws(flat)
         if backend == "jnp":
-            raw = einsum_path(genomes, eps_pos, eps_neg)
+            raw, z_out = einsum_path(genomes, flat)
         else:
             rows_idx = genomes[:, rows_i].to(torch.int32).contiguous()
-            fused = imc_fused_gemm if backend == "cuda" else imc_fused_plain
-            raw = fused(x_q_c, w_c, eps_pos.contiguous(),
-                        eps_neg.contiguous(), rows_idx, row_table_f,
-                        sub=sub, adc_bits=adc_bits)
+            fused = (imc_fused_gemm_keyed if backend == "cuda"
+                     else imc_fused_keyed_plain)
+            raw, z_out = fused(x_q_c, w_c, k_noise, flat, rows_idx,
+                               row_table_f, sub=sub, adc_bits=adc_bits)
         y = raw / c255                                         # (P, B, N)
         std = torch.std(y, dim=(1, 2), correction=0, keepdim=True)
-        y = y + OUTPUT_NOISE_FRAC * std * jr.normal(k_out, y.shape[1:])
+        y = y + OUTPUT_NOISE_FRAC * std * z_out
         err = torch.mean((y - y_ref[None]) ** 2, dim=(1, 2))
         sig = torch.mean(y_ref ** 2)
         snr_db = 10.0 * torch.log10(sig / torch.clamp(err, min=1e-12))

@@ -5,8 +5,8 @@ headers, so ``nvcc`` takes seconds, not minutes). It is compiled at
 first use for ``sm_90a`` into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), under a file name that carries a
 hash of the source, of the ``csrc/*.cuh`` headers it includes (the
-shared ADC, ``adc.cuh``) and of the flags, so an edited source or
-header rebuilds. The
+shared ADC, ``adc.cuh``; the threefry draw, ``threefry.cuh``) and of the
+flags, so an edited source or header rebuilds. The
 library is written to a temporary name and renamed into place, so
 concurrent processes never load a half-written file.
 
@@ -41,6 +41,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # P, B, K, N, sub, adc_bits, n_table, stream
         "imc_fused_launch": (_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P),
+        # x_q, w, key, flat, rows_idx, row_table, out, z_out,
+        # P, B, K, N, sub, adc_bits, n_table, stream
+        "imc_fused_keyed_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _P),
+        # bits, out, n, stream
+        "normal_of_bits_launch": (_P, _P, _I, _P),
     },
     "imc_matmul": {
         # x_q, w, out, M, K, N, R, adc_bits, full_scale, stream

@@ -9,27 +9,38 @@ differential weight pairs, accumulate per-sub-tile bit-plane partial
 sums and ADC-quantize each physical crossbar's column sums
 (``kernels/adc.py`` conventions).
 
-``imc_fused_gemm`` is the wrapper: on CUDA tensors it launches the
-hand-written Hopper kernel ``csrc/imc_fused.cu`` (or raises), on CPU
-tensors it runs the plain PyTorch version ``imc_fused_plain``. Its
-``launches`` attribute counts kernel launches.
+Two wrappers of the hand-written Hopper kernel ``csrc/imc_fused.cu``;
+on CUDA tensors each launches it (or raises), on CPU tensors each runs
+its plain PyTorch version, and each counts its launches in its
+``launches`` attribute:
+
+- ``imc_fused_gemm_keyed`` (the accuracy model's route) draws each
+  design's noise inside the kernel from ``split(fold_in(k_noise,
+  flat), 3)`` with the threefry of ``csrc/threefry.cuh``, bit for bit
+  as ``repro_torch/random.py`` draws it, and returns the output-noise
+  field too; plain version ``imc_fused_keyed_plain``;
+- ``imc_fused_gemm`` takes the standard-normal fields
+  ``eps_pos``/``eps_neg``, as the Pallas kernel does; plain version
+  ``imc_fused_plain``.
 
 Summation order. Every term of a bit-plane sum is 0 or ``w_eff``
 exactly, so the only rounding is in the additions. The plain version
-and the kernel both add the ``k`` terms of a sub-tile in order, then
-the sub-tile sums of a crossbar in order, so they agree bit for bit;
-an ADC code that sits on a rounding boundary would otherwise flip with
-the order. Against the JAX einsum order they agree to the
+adds the ``k`` terms of a sub-tile in order, then the sub-tile sums of
+a crossbar in order; the kernel adds only the set bits' terms, in the
+same order, which gives the same bits (a skipped term is a zero added
+to an accumulator that is never -0.0). So they agree bit for bit; an
+ADC code that sits on a rounding boundary would otherwise flip with the
+order. Against the JAX einsum order they agree to the
 ``tests/test_kernels.py`` tolerance.
-
-Noise draws happen outside (``repro_torch/random.py``): callers pass
-the per-design standard-normal fields ``eps_pos``/``eps_neg``.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from .. import random as jr
 from . import build
 from .adc import WEIGHT_BITS, adc_full_scale, adc_quantize
 
@@ -76,11 +87,25 @@ def imc_fused_plain(x_q: torch.Tensor, w: torch.Tensor,
     eps_pos/eps_neg (P, K, N); rows_idx (P,) indices into row_table
     (V,) float32 row counts. Returns (P, B, N) float32 at the analog
     code scale. K is zero-padded to a multiple of ``sub``."""
-    P, K, N = eps_pos.shape
-    B = x_q.shape[0]
     idx = rows_idx.long().clamp(0, row_table.shape[0] - 1)
     rows = row_table.float()[idx]                              # (P,)
     w_eff = noisy_weights(w.float(), eps_pos, eps_neg, rows)
+    tiles = crossbar_sums(x_q, w_eff, rows, sub=sub)
+    fs = adc_full_scale(rows)[:, None, None, None, None]
+    q = adc_quantize(tiles, fs, adc_bits)
+    pow2 = (1 << torch.arange(WEIGHT_BITS, device=q.device)).float()
+    return torch.sum(q * pow2[None, :, None, None, None], dim=(1, 3))
+
+
+def crossbar_sums(x_q: torch.Tensor, w_eff: torch.Tensor,
+                  rows: torch.Tensor, *, sub: int) -> torch.Tensor:
+    """The bit-plane crossbar column sums before the ADC: x_q (B, K),
+    w_eff (P, K, N), rows (P,) -> (P, 8, B, G, N) with G = the sub-tile
+    count; slot g of design p holds its crossbar g's sum (zero past its
+    last crossbar). ``k`` terms added in order within a sub-tile, then
+    the sub-tile sums of a crossbar in order."""
+    P, K, N = w_eff.shape
+    B = x_q.shape[0]
     pad = (-K) % sub
     n_sub = (K + pad) // sub
     xp = torch.nn.functional.pad(x_q.long(), (0, pad))
@@ -102,10 +127,26 @@ def imc_fused_plain(x_q: torch.Tensor, w: torch.Tensor,
         onehot = (grp[:, s, None] == sub_idx[None, :]).float()  # (P, G)
         tiles += partial[:, :, :, s, None, :] * onehot[:, None, None, :,
                                                          None]
-    fs = adc_full_scale(rows)[:, None, None, None, None]
-    q = adc_quantize(tiles, fs, adc_bits)
-    pow2 = (1 << torch.arange(WEIGHT_BITS, device=q.device)).float()
-    return torch.sum(q * pow2[None, :, None, None, None], dim=(1, 3))
+    return tiles
+
+
+def imc_fused_keyed_plain(x_q: torch.Tensor, w: torch.Tensor,
+                          k_noise: torch.Tensor, flat: torch.Tensor,
+                          rows_idx: torch.Tensor, row_table: torch.Tensor,
+                          *, sub: int, adc_bits: int = 8
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the keyed kernel: each design's noise drawn by
+    ``random.py`` from ``split(fold_in(k_noise, flat[p]), 3)`` (eps_pos
+    and eps_neg on the untiled (K, N) weight shape, the output noise on
+    (B, N)), then ``imc_fused_plain``. k_noise (2,) and flat (P,) int64.
+    Returns (raw (P, B, N), z_out (P, B, N))."""
+    k = jr.split(jr.fold_in(k_noise, flat), 3)
+    eps_pos = jr.normal(k[:, 0], w.shape)
+    eps_neg = jr.normal(k[:, 1], w.shape)
+    z_out = jr.normal(k[:, 2], (x_q.shape[0], w.shape[1]))
+    raw = imc_fused_plain(x_q, w, eps_pos, eps_neg, rows_idx, row_table,
+                          sub=sub, adc_bits=adc_bits)
+    return raw, z_out
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -118,6 +159,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _check_params(fn: str, sub: int, adc_bits: int,
+                  row_table: torch.Tensor) -> None:
+    if not (1 <= adc_bits <= 16 and sub >= 1 and row_table.shape[0] >= 1):
+        raise ValueError(f"{fn}: bad sub={sub}, adc_bits={adc_bits} or "
+                         "empty row_table")
 
 
 def imc_fused_gemm(x_q: torch.Tensor, w: torch.Tensor,
@@ -147,9 +195,7 @@ def imc_fused_gemm(x_q: torch.Tensor, w: torch.Tensor,
                          f"{tuple(x_q.shape)}, w {tuple(w.shape)}, eps "
                          f"{tuple(eps_pos.shape)}/{tuple(eps_neg.shape)}, "
                          f"rows_idx {tuple(rows_idx.shape)}")
-    if not (1 <= adc_bits <= 16 and sub >= 1 and row_table.shape[0] >= 1):
-        raise ValueError(f"imc_fused_gemm: bad sub={sub}, "
-                         f"adc_bits={adc_bits} or empty row_table")
+    _check_params("imc_fused_gemm", sub, adc_bits, row_table)
     out = torch.empty((P, B, N), dtype=torch.float32, device=dev)
     lib = build.load("imc_fused")
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -166,3 +212,85 @@ def imc_fused_gemm(x_q: torch.Tensor, w: torch.Tensor,
 
 
 imc_fused_gemm.launches = 0
+
+
+def imc_fused_gemm_keyed(x_q: torch.Tensor, w: torch.Tensor,
+                         k_noise: torch.Tensor, flat: torch.Tensor,
+                         rows_idx: torch.Tensor, row_table: torch.Tensor, *,
+                         sub: int, adc_bits: int = 8
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused population crossbar evaluation with the noise drawn in the
+    kernel (shapes as in ``imc_fused_keyed_plain``): k_noise (2,) int64
+    key, flat (P,) int64 design indices (their low 32 bits are folded
+    in, as ``random.fold_in`` does). Returns (raw, z_out), both
+    (P, B, N). CUDA tensors launch ``csrc/imc_fused.cu``; CPU tensors
+    take the plain version."""
+    if x_q.device.type == "cpu":
+        return imc_fused_keyed_plain(x_q, w, k_noise, flat, rows_idx,
+                                     row_table, sub=sub, adc_bits=adc_bits)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"imc_fused_gemm_keyed: unsupported device "
+                         f"{x_q.device}")
+    dev = x_q.device
+    _check("x_q", x_q, torch.int32, 2, dev)
+    _check("w", w, torch.float32, 2, dev)
+    _check("k_noise", k_noise, torch.int64, 1, dev)
+    _check("flat", flat, torch.int64, 1, dev)
+    _check("rows_idx", rows_idx, torch.int32, 1, dev)
+    _check("row_table", row_table, torch.float32, 1, dev)
+    B, K = x_q.shape
+    N, P = w.shape[1], flat.shape[0]
+    if (k_noise.shape[0] != 2 or w.shape[0] != K
+            or rows_idx.shape[0] != P):
+        raise ValueError("imc_fused_gemm_keyed: inconsistent shapes x_q "
+                         f"{tuple(x_q.shape)}, w {tuple(w.shape)}, k_noise "
+                         f"{tuple(k_noise.shape)}, flat {tuple(flat.shape)}, "
+                         f"rows_idx {tuple(rows_idx.shape)}")
+    if K * N >= 2 ** 32 or B * N >= 2 ** 31:
+        raise ValueError("imc_fused_gemm_keyed: the draw's counters index "
+                         "(K, N) and (B, N) in 32 bits")
+    _check_params("imc_fused_gemm_keyed", sub, adc_bits, row_table)
+    out = torch.empty((P, B, N), dtype=torch.float32, device=dev)
+    z_out = torch.empty((P, B, N), dtype=torch.float32, device=dev)
+    lib = build.load("imc_fused")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.imc_fused_keyed_launch(
+        x_q.data_ptr(), w.data_ptr(), k_noise.data_ptr(), flat.data_ptr(),
+        rows_idx.data_ptr(), row_table.data_ptr(), out.data_ptr(),
+        z_out.data_ptr(), P, B, K, N, sub, adc_bits, row_table.shape[0],
+        stream)
+    if err != 0:
+        raise RuntimeError(f"imc_fused keyed kernel launch failed: CUDA "
+                           f"error {err}")
+    imc_fused_gemm_keyed.launches += 1
+    return out, z_out
+
+
+imc_fused_gemm_keyed.launches = 0
+
+
+def normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``random.normal``'s transform of 32-bit words (int64 tensor of
+    values in ``[0, 2^32)``): on CUDA tensors through the device code of
+    ``csrc/threefry.cuh`` that the keyed kernel draws with, on CPU
+    tensors through ``random.normal_of_bits``. A check of the kernel's
+    draw on any set of words (every uniform the draw can make is 2^23
+    words), not a step of the accuracy model."""
+    if bits.device.type == "cpu":
+        return jr.normal_of_bits(bits)
+    _check("bits", bits, torch.int64, bits.dim(), bits.device)
+    if bits.numel() >= 2 ** 31:
+        raise ValueError("normal_of_bits: more than 2^31 words")
+    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
+    lib = build.load("imc_fused")
+    err = lib.normal_of_bits_launch(
+        bits.data_ptr(), out.data_ptr(), bits.numel(),
+        torch.cuda.current_stream(bits.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"normal_of_bits kernel launch failed: CUDA "
+                           f"error {err}")
+    normal_of_bits.launches += 1
+    return out
+
+
+normal_of_bits.launches = 0

@@ -123,7 +123,11 @@ def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
     the mantissa of a float in ``[1, 2)``, minus one, scaled. The bounds
     are rounded to float32 and their difference taken in float32, as
     JAX does (Python floats, so no host-to-device copy)."""
-    bits = random_bits(key, shape)
+    return _uniform_of_bits(random_bits(key, shape), minval, maxval)
+
+
+def _uniform_of_bits(bits: torch.Tensor, minval: float,
+                     maxval: float) -> torch.Tensor:
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
@@ -164,10 +168,17 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
+def normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``normal``'s transform of its 32-bit words (int64 tensor of values
+    in ``[0, 2^32)``): a uniform in ``[nextafter(-1, 0), 1)``, then
+    ``sqrt(2) * erf_inv``. The CUDA kernels' device copy of it is
+    ``csrc/threefry.cuh``."""
+    return _SQRT2 * erf_inv(_uniform_of_bits(bits, _NORMAL_LO, 1.0))
+
+
 def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """Standard-normal float32 draws (``jax.random.normal``)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return _SQRT2 * erf_inv(u)
+    return normal_of_bits(random_bits(key, shape))
 
 
 def bernoulli(key: torch.Tensor, p, shape: Shape) -> torch.Tensor:

@@ -22,7 +22,10 @@ from repro_torch.core import get_space, get_workload_set, pack
 from repro_torch.core.nonideal import accuracy_proxy_host, make_accuracy_model
 from repro_torch.core.sampling import uniform_genomes
 from repro_torch.experiments import get_scenario, run_scenario
-from repro_torch.kernels.imc_fused import imc_fused_gemm, imc_fused_plain
+from repro_torch.kernels.imc_fused import (imc_fused_gemm,
+                                           imc_fused_gemm_keyed,
+                                           imc_fused_keyed_plain,
+                                           imc_fused_plain, normal_of_bits)
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -40,6 +43,7 @@ SHAPES = [
     (1, 2, 48, 4, 16, (48.0,)),                  # single group
     (120, 32, 256, 32, 64, (64.0, 128.0, 256.0, 512.0)),  # main path
     (5, 40, 100, 70, 32, (32.0, 96.0)),          # ragged B and N tiles
+    (3, 70, 300, 40, 16, (16.0, 48.0, 96.0)),    # 3 rounds, 3 row groups
 ]
 
 
@@ -63,9 +67,9 @@ def _inputs(seed, P, B, K, N, rows, dev):
 
 @pytest.mark.parametrize("P,B,K,N,sub,rows", SHAPES)
 def test_kernel_matches_plain(cuda, P, B, K, N, sub, rows):
-    """The kernel sums in the plain version's order: the bound of
-    tests/test_kernels.py holds, and in practice they agree bit for
-    bit."""
+    """The kernel sums the plain version's terms in its order, skipping
+    only zeros: the bound of tests/test_kernels.py holds, and they agree
+    bit for bit."""
     args = _inputs(P + K, P, B, K, N, rows, cuda)
     before = imc_fused_gemm.launches
     got = imc_fused_gemm(*args, sub=sub)
@@ -73,8 +77,80 @@ def test_kernel_matches_plain(cuda, P, B, K, N, sub, rows):
     want = imc_fused_plain(*args, sub=sub)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, want)
     cpu = imc_fused_plain(*[a.cpu() for a in args], sub=sub)
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-4)
+
+
+# the keyed kernel: the accuracy model's main shape at three population
+# sizes, the families and the ragged B/N shape of SHAPES, and 19 sub-tiles
+# (3 rounds of a cluster of 8) over 3 groups of 32 batch rows
+KEYED_SHAPES = [(P, 32, 256, 32, 64, (64.0, 128.0, 256.0, 512.0))
+                for P in (24, 120, 480)] + SHAPES[:4] + SHAPES[5:]
+
+
+def _keyed_inputs(seed, P, B, K, N, rows, dev):
+    rng = np.random.default_rng(seed)
+    x_q, w, _, _, ri, rt = _inputs(seed, P, B, K, N, rows, dev)
+    flat = torch.from_numpy(rng.integers(0, 2 ** 31, (P,))).to(dev)
+    return x_q, w, jr.PRNGKey(int(rng.integers(0, 2 ** 31)), dev), flat, \
+        ri, rt
+
+
+@pytest.mark.parametrize("P,B,K,N,sub,rows", KEYED_SHAPES)
+def test_keyed_kernel_equals_plain(cuda, P, B, K, N, sub, rows):
+    """The keyed kernel draws the noise with random.py's threefry and
+    normal bit for bit and sums as the plain version does: raw and
+    z_out torch.equal to imc_fused_keyed_plain on the card (one launch),
+    and raw within the test_kernels.py bound of the CPU plain route."""
+    args = _keyed_inputs(P + K + B, P, B, K, N, rows, cuda)
+    before = imc_fused_gemm_keyed.launches
+    raw, z = imc_fused_gemm_keyed(*args, sub=sub)
+    assert imc_fused_gemm_keyed.launches == before + 1
+    want_raw, want_z = imc_fused_keyed_plain(*args, sub=sub)
+    torch.cuda.synchronize()
+    assert raw.shape == z.shape == (P, B, N)
+    assert torch.equal(z, want_z)
+    assert torch.equal(raw, want_raw)
+    cpu_raw, _ = imc_fused_keyed_plain(*[a.cpu() for a in args], sub=sub)
+    torch.testing.assert_close(raw.cpu(), cpu_raw, rtol=1e-5, atol=1e-4)
+
+
+def test_keyed_wrapper_rejects_bad_inputs(cuda):
+    x_q, w, key, flat, ri, rt = _keyed_inputs(0, 3, 4, 64, 8, (64.0,), cuda)
+    with pytest.raises(TypeError):
+        imc_fused_gemm_keyed(x_q, w, key.int(), flat, ri, rt, sub=64)
+    with pytest.raises(ValueError):
+        imc_fused_gemm_keyed(x_q, w, key.repeat(2), flat, ri, rt, sub=64)
+    with pytest.raises(ValueError):
+        imc_fused_gemm_keyed(x_q, w, key[None], flat, ri, rt, sub=64)
+    with pytest.raises(ValueError):
+        imc_fused_gemm_keyed(x_q, w, key, flat[:2], ri, rt, sub=64)
+    with pytest.raises(TypeError):
+        imc_fused_gemm_keyed(x_q, w, key, flat.int(), ri, rt, sub=64)
+    with pytest.raises(ValueError):
+        imc_fused_gemm_keyed(x_q, w, key.cpu(), flat, ri, rt, sub=64)
+    with pytest.raises(ValueError):
+        imc_fused_gemm_keyed(x_q, w, key, flat.cpu(), ri, rt, sub=64)
+    with pytest.raises(ValueError):
+        imc_fused_gemm_keyed(x_q, w.cpu(), key, flat, ri, rt, sub=64)
+    with pytest.raises(ValueError):
+        imc_fused_gemm_keyed(x_q, w[:32], key, flat, ri, rt, sub=64)
+    before = imc_fused_gemm_keyed.launches
+    imc_fused_gemm_keyed(x_q, w, key, flat, ri, rt, sub=64)
+    assert imc_fused_gemm_keyed.launches == before + 1
+
+
+def test_normal_of_bits_equals_plain_on_every_uniform(cuda):
+    """The device draw's transform (threefry.cuh) against random.py's on
+    the card on all 2^23 uniforms it can make: bit for bit, log1pf and
+    torch.log1p included."""
+    bits = torch.arange(1 << 23, dtype=torch.int64, device=cuda) << 9
+    got = normal_of_bits(bits)
+    want = normal_of_bits(bits.cpu()).to(cuda)
+    assert torch.equal(got, jr.normal_of_bits(bits))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=4 * 2 ** -23, atol=1e-30)
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -95,24 +171,24 @@ def test_accuracy_model_cuda_matches_ref_and_cpu(cuda):
                                 "mobilenetv3")))
     cards = torch.as_tensor(space.cardinalities, dtype=torch.float32)
     g = uniform_genomes(jr.PRNGKey(3)[None], cards, 40)[0]
-    before = imc_fused_gemm.launches
+    before = imc_fused_gemm_keyed.launches
     acc = make_accuracy_model(space, wa, backend="auto", device=cuda)
     assert acc.backend == "cuda"
     got = acc(g.to(cuda))
-    assert imc_fused_gemm.launches == before + 1
+    assert imc_fused_gemm_keyed.launches == before + 1
     ref = make_accuracy_model(space, wa, backend="ref", device=cuda)(
         g.to(cuda))
     cpu = make_accuracy_model(space, wa, backend="jnp", device="cpu")(g)
-    torch.testing.assert_close(got, ref, rtol=1e-4, atol=0.0)
+    assert torch.equal(got, ref)
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=0.0)
 
 
 def test_rram_accuracy_smoke_on_card(cuda, tmp_path):
     sc = get_scenario("rram_accuracy")
     sc = dataclasses.replace(sc, budget=sc.smoke_budget)
-    before = imc_fused_gemm.launches
+    before = imc_fused_gemm_keyed.launches
     res = run_scenario(sc, out_dir=str(tmp_path), device=cuda)
-    assert imc_fused_gemm.launches > before
+    assert imc_fused_gemm_keyed.launches > before
     assert res["backend"] == "cuda" and res["device"]["type"] == "cuda"
     assert math.isfinite(res["best_score"]) and res["best_score"] < 1e29
     cpu = run_scenario(dataclasses.replace(sc, backend="ref"),

@@ -8,6 +8,7 @@ library naming. The CUDA kernels themselves run only on a card:
 tests/test_torch_gpu.py holds them against the plain versions there."""
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +26,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import imc_matmul as matmul_mod
 from repro_torch.kernels.adc import adc_full_scale, adc_quantize
-from repro_torch.kernels.imc_fused import (imc_fused_gemm, imc_fused_plain,
+from repro_torch import random as jr
+from repro_torch.kernels.imc_fused import (crossbar_sums, imc_fused_gemm,
+                                           imc_fused_gemm_keyed,
+                                           imc_fused_keyed_plain,
+                                           imc_fused_plain, noisy_weights,
                                            ir_drop_factor, sigma_of_g)
 from repro_torch.kernels.imc_matmul import imc_matmul, imc_matmul_plain
 from repro_torch.kernels.ops import flash_mha, imc_gemm
@@ -123,11 +128,156 @@ def test_wrapper_on_cpu_runs_plain_version():
     assert torch.equal(out, imc_fused_plain(*args, sub=64))
 
 
+# the keyed route: the four families and the accuracy model's main shape
+KEYED_SHAPES = FAMILIES + [(24, 32, 256, 32, 64, (64.0, 128.0, 256.0, 512.0))]
+
+
+def _keyed_inputs(seed, P, B, K, N, rows):
+    """Seeded x_q, w, rows_idx, row_table, a key seed and P flat design
+    indices below 2^31."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (B, K)).astype(np.int32),
+            rng.uniform(-1.0, 1.0, (K, N)).astype(np.float32),
+            rng.integers(0, len(rows), (P,)).astype(np.int32),
+            np.asarray(rows, np.float32), int(rng.integers(0, 2 ** 31)),
+            rng.integers(0, 2 ** 31, (P,)).astype(np.int64))
+
+
+def _keyed_torch(x_q, w, ri, rt, seed, flat):
+    return (torch.from_numpy(x_q), torch.from_numpy(w), jr.PRNGKey(seed),
+            torch.from_numpy(flat), torch.from_numpy(ri), torch.from_numpy(rt))
+
+
+def _jax_keyed_draws(seed, flat, K, N, B):
+    """eps_pos, eps_neg (P, K, N) and z (P, B, N) as jax.random draws
+    them from split(fold_in(key, flat[p]), 3)."""
+    def one(d):
+        k = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), d),
+                             3)
+        return (jax.random.normal(k[0], (K, N)),
+                jax.random.normal(k[1], (K, N)),
+                jax.random.normal(k[2], (B, N)))
+    return [np.asarray(a) for a in
+            jax.vmap(one)(jnp.asarray(flat.astype(np.int32)))]
+
+
+@pytest.mark.parametrize("P,B,K,N,sub,rows", KEYED_SHAPES)
+def test_keyed_plain_matches_pallas_kernel(P, B, K, N, sub, rows):
+    """imc_fused_keyed_plain vs the reference: the eps fields drawn with
+    jax.random.fold_in/split/normal and run through the Pallas kernel in
+    interpret mode, at the tests/test_kernels.py bound (rtol 1e-5, atol
+    1e-4); z_out vs jax.random.normal within 4 ULP."""
+    x_q, w, ri, rt, seed, flat = _keyed_inputs(P * K + B, P, B, K, N, rows)
+    ep, en, z = _jax_keyed_draws(seed, flat, K, N, B)
+    want = np.asarray(jax_imc_fused_gemm(
+        *map(jnp.asarray, (x_q, w, ep, en, ri, rt)), sub=sub,
+        interpret=True))
+    raw, z_out = imc_fused_keyed_plain(
+        *_keyed_torch(x_q, w, ri, rt, seed, flat), sub=sub)
+    assert raw.shape == z_out.shape == (P, B, N)
+    np.testing.assert_allclose(raw.numpy(), want, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(z_out.numpy(), z, rtol=4 * 2 ** -23,
+                               atol=1e-30)
+
+
+def _kernel_order_model(x_q, w, eps_pos, eps_neg, rows_idx, row_table, *,
+                        sub, adc_bits=8):
+    """The summation order of csrc/imc_fused.cu, in float32 tensor adds
+    over (P, N) lanes: the sub-tiles split over a cluster of C CTAs (the
+    largest power of two up to min(sub-tiles, 8)) in rounds; each CTA's
+    sub-tile partial sums per row and bit plane add only the terms whose
+    bit is set, in ascending k; the round's partial sums then go into
+    the crossbar-group sums in sub-tile order, the ADC at each group
+    end. Returns (out (P, B, N), the crossbar sums before the ADC as
+    ``crossbar_sums`` lays them out, adds made)."""
+    P, K, N = eps_pos.shape
+    B = x_q.shape[0]
+    n_sub = -(-K // sub)
+    C = 1
+    while C * 2 <= min(n_sub, 8):
+        C *= 2
+    rows = row_table[rows_idx.long().clamp(0, row_table.shape[0] - 1)]
+    w_eff = torch.nn.functional.pad(
+        noisy_weights(w, eps_pos, eps_neg, rows), (0, 0, 0, n_sub * sub - K))
+    fs = adc_full_scale(rows)[:, None]
+    r_np = rows.numpy()
+    x = torch.nn.functional.pad(x_q.long(), (0, n_sub * sub - K)).tolist()
+    grp = [[torch.zeros(P, N)] * 8 for _ in range(B)]
+    acc = [torch.zeros(P, N) for _ in range(B)]
+    sums = torch.zeros((P, 8, B, n_sub, N))
+    adds = 0
+    for r0 in range(0, n_sub, C):
+        # each CTA of the round: its sub-tile's partial sums, set bits only
+        part = {}
+        for s in range(r0, min(r0 + C, n_sub)):
+            for b in range(B):
+                for q in range(8):
+                    acc_q = torch.zeros(P, N)
+                    for kr in range(sub):
+                        if (x[b][s * sub + kr] >> q) & 1:
+                            acc_q = acc_q + w_eff[:, s * sub + kr]
+                            adds += 1
+                    part[s, b, q] = acc_q
+        # the round's partial sums in sub-tile order, per output
+        for s in range(r0, min(r0 + C, n_sub)):
+            g = np.floor(np.float32(s * sub) / r_np)
+            end = torch.from_numpy(
+                (s == n_sub - 1)
+                | (np.floor(np.float32((s + 1) * sub) / r_np) != g))
+            for b in range(B):
+                for q in range(8):
+                    grp[b][q] = grp[b][q] + part[s, b, q]
+                    sums[end, q, b, g[end.numpy()]] = grp[b][q][end]
+                    code = adc_quantize(grp[b][q], fs, adc_bits)
+                    acc[b] = torch.where(end[:, None],
+                                         acc[b] + code * float(1 << q),
+                                         acc[b])
+                    grp[b][q] = torch.where(end[:, None], torch.zeros(()),
+                                            grp[b][q])
+    return torch.stack(acc, dim=1), sums, adds
+
+
+@pytest.mark.parametrize("P,B,K,N,sub,rows", KEYED_SHAPES)
+def test_kernel_summation_order_is_bitwise_plain(P, B, K, N, sub, rows):
+    """The kernel's order (set bits only) gives imc_fused_plain's bits,
+    in the crossbar sums before the ADC as well as after it: every
+    skipped term is a zero added to an accumulator that is never -0.0.
+    (The ADC alone would hide most order changes; the sums do not.)
+    The inputs are the keyed route's own draws."""
+    x_q, w, ri, rt, seed, flat = _keyed_inputs(P * K + B, P, B, K, N, rows)
+    x_q, w, key, flat, ri, rt = _keyed_torch(x_q, w, ri, rt, seed, flat)
+    k = jr.split(jr.fold_in(key, flat), 3)
+    ep, en = jr.normal(k[:, 0], (K, N)), jr.normal(k[:, 1], (K, N))
+    got, sums, adds = _kernel_order_model(x_q, w, ep, en, ri, rt, sub=sub)
+    rows_p = rt[ri.long()]
+    assert torch.equal(sums, crossbar_sums(
+        x_q, noisy_weights(w, ep, en, rows_p), rows_p, sub=sub))
+    want = imc_fused_plain(x_q, w, ep, en, ri, rt, sub=sub)
+    assert torch.equal(got, want)
+    assert torch.equal(want, imc_fused_keyed_plain(x_q, w, key, flat, ri, rt,
+                                                   sub=sub)[0])
+    # only the set bits are added: about half of the plain version's terms
+    set_bits = sum(int(((x_q >> q) & 1).sum()) for q in range(8))
+    assert adds == set_bits
+    assert adds < 0.6 * 8 * B * K
+
+
+def test_keyed_wrapper_on_cpu_runs_plain_version():
+    x_q, w, ri, rt, seed, flat = _keyed_inputs(5, 3, 4, 96, 6, (32.0, 64.0))
+    args = _keyed_torch(x_q, w, ri, rt, seed, flat)
+    before = imc_fused_gemm_keyed.launches
+    raw, z = imc_fused_gemm_keyed(*args, sub=32)
+    assert imc_fused_gemm_keyed.launches == before  # no kernel launched
+    want_raw, want_z = imc_fused_keyed_plain(*args, sub=32)
+    assert torch.equal(raw, want_raw) and torch.equal(z, want_z)
+
+
 def test_build_paths_stay_in_checkout():
     """Kernels build into build/kernels of the checkout under a name
     keyed by the source hash; nothing is compiled at import time. The
-    two crossbar kernels share the ADC device code of csrc/adc.cuh; the
-    flash attention kernel includes its bfloat16 tensor-core route,
+    two crossbar kernels share the ADC device code of csrc/adc.cuh, and
+    the fused one draws its noise with csrc/threefry.cuh; the flash
+    attention kernel includes its bfloat16 tensor-core route,
     csrc/flash_attention_wgmma.cuh."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
                                      "flash_attention"}
@@ -135,9 +285,10 @@ def test_build_paths_stay_in_checkout():
         path = build._library_path(name)
         assert path.parent == build.BUILD_DIR
         src = (build.CSRC / f"{name}.cu").read_text()
-        assert build._INCLUDE.findall(src) == (
-            ["flash_attention_wgmma.cuh"] if name == "flash_attention"
-            else ["adc.cuh"])
+        assert build._INCLUDE.findall(src) == {
+            "flash_attention": ["flash_attention_wgmma.cuh"],
+            "imc_fused": ["adc.cuh", "threefry.cuh"],
+            "imc_matmul": ["adc.cuh"]}[name]
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in build.NVCC_FLAGS
@@ -146,7 +297,8 @@ def test_build_paths_stay_in_checkout():
 def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
     """An edit to the shared header renames (so rebuilds) both kernels'
     libraries; an edit to one source renames only its own; an edit to
-    the flash kernel's tensor-core header renames only its library."""
+    the threefry header renames only imc_fused's library, one to the
+    flash kernel's tensor-core header only the flash library."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -162,6 +314,12 @@ def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
     again = {n: build._library_path(n) for n in names}
     assert again["imc_fused"] == after["imc_fused"]
     assert again["imc_matmul"] != after["imc_matmul"]
+    with open(csrc / "threefry.cuh", "a") as f:
+        f.write("// edited\n")
+    keyed = {n: build._library_path(n) for n in names}
+    assert keyed["imc_fused"] != again["imc_fused"]
+    assert keyed["imc_matmul"] == again["imc_matmul"]
+    again = keyed
     flash = build._library_path("flash_attention")
     with open(csrc / "flash_attention_wgmma.cuh", "a") as f:
         f.write("// edited\n")

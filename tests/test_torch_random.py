@@ -2,7 +2,8 @@
 jax.random: keys, splits, fold_in, raw bits, uniforms, bernoulli and
 randint bit for bit; normal to a few ULP (XLA's CPU log1p inside
 erf_inv rounds differently from torch.log1p on a small fraction of
-inputs)."""
+inputs), on every uniform it can make and in the fused kernel's keyed
+output-noise draw."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch import random as jr
+from repro_torch.kernels.imc_fused import imc_fused_keyed_plain
 
 torch.set_num_threads(1)
 
@@ -111,6 +113,40 @@ def test_normal_within_4_ulp():
         want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
         got = _np(jr.normal(jr.PRNGKey(seed), shape))
         np.testing.assert_allclose(got, want, rtol=4 * 2 ** -23, atol=1e-30)
+
+
+def test_normal_of_bits_within_4_ulp_on_every_uniform():
+    """``normal``'s transform on each of the 2^23 uniforms it can make
+    (the 23 high bits of a word; the device copy in csrc/threefry.cuh is
+    held to it on the card) against sqrt(2) * jax.lax.erf_inv of the
+    same uniforms, which are bitwise JAX's (test above)."""
+    bits = torch.arange(1 << 23, dtype=torch.int64) << 9
+    got = _np(jr.normal_of_bits(bits))
+    u = _np(jr._uniform_of_bits(bits, jr._NORMAL_LO, 1.0))
+    want = np.float32(np.sqrt(2.0)) * np.asarray(
+        jax.lax.erf_inv(jnp.asarray(u)))
+    ulp = np.abs(want.view(np.int32).astype(np.int64)
+                 - got.view(np.int32).astype(np.int64))
+    assert np.isfinite(got).all() and ulp.max() <= 4
+    assert np.mean(ulp == 0) >= 0.98
+
+
+@pytest.mark.parametrize("P,B,N", [(3, 4, 8), (24, 32, 32)])
+def test_keyed_output_noise_within_4_ulp(P, B, N):
+    """The keyed route's output-noise field z_out (P, B, N) against
+    jax.random.normal(split(fold_in(key, flat[p]), 3)[2], (B, N))."""
+    rng = np.random.default_rng(P)
+    flat = rng.integers(0, 2 ** 31, (P,)).astype(np.int64)
+    x_q = torch.from_numpy(rng.integers(0, 256, (B, 64)).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(-1, 1, (64, N)).astype(np.float32))
+    _, z = imc_fused_keyed_plain(
+        x_q, w, jr.PRNGKey(9), torch.from_numpy(flat),
+        torch.zeros(P, dtype=torch.int32), torch.tensor([64.0]), sub=64)
+    want = jax.vmap(lambda d: jax.random.normal(jax.random.split(
+        jax.random.fold_in(jax.random.PRNGKey(9), d), 3)[2], (B, N)))(
+        jnp.asarray(flat.astype(np.int32)))
+    np.testing.assert_allclose(_np(z), np.asarray(want), rtol=4 * 2 ** -23,
+                               atol=1e-30)
 
 
 def test_erf_inv_edges():
