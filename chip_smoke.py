@@ -17,7 +17,8 @@ serving engine ``repro_torch.serve.ServeEngine`` on qwen3-4b at full
 width (the ``flash_attention`` kernel in every prefill). Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. the kernel build time (one nvcc per source, started together);
+  2. the kernel build time (one nvcc per source, started together), with
+     each kernel's registers and spills as ptxas prints them;
   3. the device normal draw (``csrc/threefry.cuh``) on all 2^23
      uniforms it can make vs ``random.normal_of_bits``, bitwise; then
      ``imc_fused`` at the main-path shapes (P = 24, 96, 120, 480), the
@@ -41,9 +42,20 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
   6. the run's best genome re-scored on the CPU (backend 'jnp'), rtol 1e-4;
   7. ``rram_smoke`` (EDAP only, no kernel) end to end on the card;
   8. ``imc_matmul`` kernel vs ``imc_matmul_plain``, bitwise, at the
-     tests/test_kernels.py shapes and ADC widths, the host oracle's shape
-     and the full-width projection at every registry row count, with
-     CUDA-event timings and the bound;
+     tests/test_kernels.py shapes and ADC widths, the host oracle's shape,
+     the full-width projection and a whole seq=256 prefill of it at every
+     registry row count, and at ``w_scale=0.7`` (an ADC step that is not
+     a power of two) with 40, 20, 11, 10 and 5 crossbar tiles, 8- and
+     12-bit ADCs, M and N off the kernel's tiles; at each ``w_scale=0.7``
+     shape the per-tile plain outputs summed in tile order must equal the
+     plain version and the kernel, and at the projection and (4, 2560,
+     64) summed in reverse order they must not (the check's power to see
+     a kernel that combines tiles out of order); at the oracle,
+     projection and prefill shapes the cluster size and columns a thread
+     the launch picks, the device
+     time per launch from a CUDA graph and the time per call by CUDA
+     events, beside the plain version and the bound (the adds of the set
+     bits of these codes, and the dense 8 M K N beside it);
   9. ``accuracy_proxy_host(use_kernel=True)`` (one ``imc_matmul`` launch
      per genome) vs the ``imc_fused`` accuracy model on 24 RRAM genomes,
      atol 5e-3;
@@ -87,6 +99,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -353,74 +366,137 @@ def phase_kernel(torch, fused, dev) -> dict:
     return main
 
 
-# phase 8 shapes (M, K, N, R, adc_bits): tests/test_kernels.py's five
-# shapes and four ADC widths; the host oracle's calibration GEMM; the
+# phase 8 shapes (M, K, N, R, adc_bits, w_scale): tests/test_kernels.py's
+# five shapes and four ADC widths; the host oracle's calibration GEMM; the
 # full-width qwen3-4b QKV projection (d_model 2560, 3 * 32 * 128 columns)
 # and one whole seq=256 prefill of it, at every registry row count
 REGISTRY_ROWS = (64, 128, 256, 512)
-MATMUL_TESTS = [(8, 128, 16, 128, 8), (16, 256, 32, 128, 8),
-                (32, 512, 64, 256, 8), (8, 384, 8, 128, 8),
-                (8, 512, 8, 512, 8)]
-MATMUL_TESTS += [(8, 256, 16, 128, b) for b in (4, 6, 8, 12)]
+MATMUL_TESTS = [(8, 128, 16, 128, 8, 1.0), (16, 256, 32, 128, 8, 1.0),
+                (32, 512, 64, 256, 8, 1.0), (8, 384, 8, 128, 8, 1.0),
+                (8, 512, 8, 512, 8, 1.0)]
+MATMUL_TESTS += [(8, 256, 16, 128, b, 1.0) for b in (4, 6, 8, 12)]
 ORACLE = (32, 256, 32)
 PROJ = (16, 2560, 12288)
 PREFILL = (256, 2560, 12288)
+# w_scale=0.7: the ADC step is not a power of two and the tile values
+# round when added, so only the plain version's tile order gives its bits.
+# 40 and 5 tiles at the projection and at (4, 2560, 64) with 8- and
+# 12-bit ADCs (where reversing the order must show), 11 tiles in rounds
+# of 6 and 5, M and N off the 16 x 128 tiles and off whole float4s, and
+# M=256 with 20 tiles
+MATMUL_ORDER = [(*PROJ, r, b, 0.7) for r in (64, 512) for b in (8, 12)]
+MATMUL_ORDER += [(4, 2560, 64, 64, 8, 0.7), (4, 2560, 64, 64, 12, 0.7),
+                 (4, 2560, 64, 512, 12, 0.7), (20, 704, 70, 64, 8, 0.7),
+                 (21, 2560, 12290, 256, 12, 0.7),
+                 (256, 2560, 12288, 128, 12, 0.7)]
+ORDER_MUST_SHOW = {PROJ, (4, 2560, 64)}
 
 
-def matmul_bound_ms(m, k, n) -> dict:
-    """Least time for the bit-serial GEMM on an H100 SXM: 8 bit-plane
-    GEMMs at 2 FLOP per term in float32, against each operand read once
-    and the output written once. ``k`` is the unpadded depth: the zero
-    rows that pad K to whole crossbars add nothing."""
-    flops = 2 * 8 * m * k * n
+def matmul_bound_ms(x_q, k, n) -> dict:
+    """Least time for the bit-serial GEMM on an H100 SXM: the adds of the
+    set bits of these codes (each a float32 add at half the 67 TFLOP/s
+    FMA rate; an unset bit adds an exact zero, so it is not work), against
+    each operand read once and the output written once. ``k`` is the
+    unpadded depth: the zero rows that pad K to whole crossbars add
+    nothing. ``dense_ms`` is the same bound for all 8 M K N adds."""
+    m = x_q.shape[0]
+    set_bits = int(sum(int(((x_q >> q) & 1).sum()) for q in range(8)))
+    adds = set_bits * n
     nbytes = 4 * (m * k + k * n + m * n)
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = 2 * adds / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+            "adds": adds, "dense_ms": 2 * 8 * m * k * n / PEAK_FP32_FLOPS
+            * 1e3, "bytes": nbytes}
+
+
+def tile_order_check(torch, mm, x_q, w, r, bits, ws, want, got) -> int:
+    """The per-tile plain outputs summed in tile order must equal the
+    plain version and the kernel; returns how many outputs differ from
+    the plain version when they are summed in reverse order."""
+    tiles = [mm.imc_matmul_plain(x_q[:, t:t + r], w[t:t + r], xbar_rows=r,
+                                 adc_bits=bits, w_scale=ws)
+             for t in range(0, x_q.shape[1], r)]
+    fwd, rev = torch.zeros_like(want), torch.zeros_like(want)
+    for a, b in zip(tiles, tiles[::-1]):
+        fwd += a
+        rev += b
+    if not (torch.equal(fwd, want) and torch.equal(got, fwd)):
+        raise RuntimeError(f"imc_matmul R={r} adc_bits={bits} w_scale={ws}: "
+                           "the tiles summed in order differ from the "
+                           "plain version or the kernel")
+    return int((rev != want).sum())
 
 
 def phase_matmul(torch, mm, dev) -> dict:
-    """Phase 8: imc_matmul kernel vs plain, bitwise; times by shape."""
+    """Phase 8: imc_matmul kernel vs plain, bitwise (any w_scale); the
+    tile-order power check; times by shape."""
+    from repro_torch.kernels import build
+    lib = build.load("imc_matmul")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     shapes = list(MATMUL_TESTS)
-    shapes += [(*ORACLE, r, 8) for r in REGISTRY_ROWS]
-    shapes += [(*PROJ, r, 8) for r in REGISTRY_ROWS]
-    shapes += [(*PREFILL, r, 8) for r in REGISTRY_ROWS]
+    shapes += [(*ORACLE, r, 8, 1.0) for r in REGISTRY_ROWS]
+    shapes += [(*PROJ, r, 8, 1.0) for r in REGISTRY_ROWS]
+    shapes += [(*PREFILL, r, 8, 1.0) for r in REGISTRY_ROWS]
+    shapes += MATMUL_ORDER
     worst, timed = 0.0, {}
-    for m, k, n, r, bits in shapes:
+    for m, k, n, r, bits, ws in shapes:
         x_q = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.int32,
                             device=dev)
         w = torch.randn((k, n), generator=gen, device=dev) * 0.25
         # K zero-padded to whole crossbars, as kernels/ops.imc_gemm does
         x_q = torch.nn.functional.pad(x_q, (0, (-k) % r))
         w = torch.nn.functional.pad(w, (0, 0, 0, (-k) % r))
-        got = mm.imc_matmul(x_q, w, xbar_rows=r, adc_bits=bits)
-        want = mm.imc_matmul_plain(x_q, w, xbar_rows=r, adc_bits=bits)
+        before = mm.imc_matmul.launches
+        got = mm.imc_matmul(x_q, w, xbar_rows=r, adc_bits=bits, w_scale=ws)
+        want = mm.imc_matmul_plain(x_q, w, xbar_rows=r, adc_bits=bits,
+                                   w_scale=ws)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        if err != 0.0 or not torch.equal(got, want):
+        if err != 0.0 or not torch.equal(got, want) or \
+                mm.imc_matmul.launches != before + 1:
             raise RuntimeError(f"imc_matmul M={m} K={k} N={n} R={r} "
-                               f"adc_bits={bits}: kernel != plain (max abs "
-                               f"err {err})")
+                               f"adc_bits={bits} w_scale={ws}: kernel != "
+                               f"plain (max abs err {err})")
         worst = max(worst, err)
-        line = (f"imc_matmul M={m} K={k} N={n} R={r} adc_bits={bits}: "
-                f"bitwise equal")
-        if (m, k, n) in (ORACLE, PROJ, PREFILL):
-            ms = time_ms(torch, lambda: mm.imc_matmul(
-                x_q, w, xbar_rows=r, adc_bits=bits),
-                reps=200 if (m, k, n) == ORACLE else 20)
+        line = (f"imc_matmul M={m} K={k} N={n} R={r} adc_bits={bits} "
+                f"w_scale={ws}: bitwise equal")
+        if ws != 1.0:
+            off = tile_order_check(torch, mm, x_q, w, r, bits, ws, want, got)
+            if (m, k, n) in ORDER_MUST_SHOW and off == 0:
+                raise RuntimeError(f"imc_matmul M={m} K={k} N={n} R={r}: "
+                                   "the reversed tile order gives the plain "
+                                   "version's bits; the check has no power")
+            line += (f"; tiles summed in order equal it, in reverse order "
+                     f"{off} of {m * n} outputs differ")
+        if (m, k, n) in (ORACLE, PROJ, PREFILL) and ws == 1.0:
+            def call():
+                return mm.imc_matmul(x_q, w, xbar_rows=r, adc_bits=bits)
+            big = (m, k, n) == PREFILL
+            dev_ms = graph_ms(torch, call, launches=5 if big else 20,
+                              reps=3 if big else 10)
+            ms = time_ms(torch, call, reps=200 if (m, k, n) == ORACLE else
+                         5 if big else 20)
             plain_ms = time_ms(torch, lambda: mm.imc_matmul_plain(
                 x_q, w, xbar_rows=r, adc_bits=bits), reps=1,
-                windows=1 if (m, k, n) == PREFILL else 3)
-            bound = matmul_bound_ms(m, k, n)
-            timed[(m, k, n, r)] = {"ms": ms, "plain_ms": plain_ms, **bound}
-            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                windows=1 if big else 3)
+            bound = matmul_bound_ms(x_q, k, n)
+            timed[(m, k, n, r)] = {"ms": dev_ms, "call_ms": ms,
+                                   "plain_ms": plain_ms, **bound}
+            cluster, cols = ctypes.c_int(), ctypes.c_int()
+            lib.imc_matmul_plan(m, x_q.shape[1], n, r,
+                                ctypes.addressof(cluster),
+                                ctypes.addressof(cols))
+            line += (f", clusters of {cluster.value} CTAs, {cols.value} "
+                     f"columns a thread, kernel {dev_ms:.4f} ms a "
+                     f"launch (CUDA graph), "
+                     f"{ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
                      f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-                     f"{bound['flops'] / 1e9:.3f} GFLOP, "
-                     f"{bound['bytes'] / 1e6:.2f} MB)")
+                     f"{bound['adds'] / 1e9:.3f} G adds of set bits, "
+                     f"{bound['bytes'] / 1e6:.2f} MB; all 8 M K N adds "
+                     f"{bound['dense_ms']:.4f} ms)")
         log(line)
     return {"max_abs_err": worst, "timed": timed}
 
@@ -1009,6 +1085,12 @@ def main(argv=None) -> int:
         f"route's {main_k['old_ms']:.4f} ms; eps kernel "
         f"{main_k['eps_ms']:.4f} ms a launch; bound {main_k['bound_ms']:.4f}"
         f" ms ({main_k['pipe']})")
+    # the projection's shape at the row count the example ran
+    proj = main_m["timed"][(*PROJ, lm["rows"])]
+    log(f"imc_matmul at the projection, R={lm['rows']} (the LM example's "
+        f"rows): {proj['ms']:.4f} ms a launch on the device, "
+        f"{proj['call_ms']:.4f} ms a call; bound {proj['bound_ms']:.4f} ms "
+        f"(set bits), {proj['dense_ms']:.4f} ms (all 8 M K N adds)")
     fused_entry = {"name": "imc_fused", "route": "cuda",
                    "source": "src/repro_torch/csrc/imc_fused.cu",
                    "replaces": "src/repro/kernels/imc_fused.py:83",
@@ -1017,8 +1099,6 @@ def main(argv=None) -> int:
                    "plain_ms": main_k["plain_ms"],
                    "bound_ms": main_k["bound_ms"],
                    "bound_by": main_k["bound_by"], "library_ms": None}
-    # the projection's shape at the row count the example ran
-    proj = main_m["timed"][(*PROJ, lm["rows"])]
     matmul_entry = {"name": "imc_matmul", "route": "cuda",
                     "source": "src/repro_torch/csrc/imc_matmul.cu",
                     "replaces": "src/repro/kernels/imc_matmul.py:29",

@@ -41,9 +41,10 @@
 // operations.
 //
 // The bit-plane sums skip unset bits. Each term of a partial sum is
-// added by a predicated add.rn.f32 whose predicate is the term's bit, in
-// ascending k; every term of the plain version's sums is 0 * w or 1 * w,
-// and adding a zero to an accumulator that starts at +0.0 changes no bit
+// added by a predicated add.rn.f32 whose predicate is the term's bit
+// (predicated_add.cuh, shared with imc_matmul.cu), in ascending k; every
+// term of the plain version's sums is 0 * w or 1 * w, and adding a zero
+// to an accumulator that starts at +0.0 changes no bit
 // (it can never become -0.0 under round-to-nearest), so the skipped terms
 // leave the plain version's sums unchanged and the kernel agrees with
 // `imc_fused_plain` / `imc_fused_keyed_plain` (repro_torch/kernels/
@@ -75,6 +76,7 @@
 #include <cstdint>
 
 #include "adc.cuh"
+#include "predicated_add.cuh"
 #include "threefry.cuh"
 
 namespace cg = cooperative_groups;
@@ -151,16 +153,6 @@ __device__ __forceinline__ float weff_at(const FusedArgs& a, int p, int k,
     en = a.eps_neg[po];
   }
   return noisy_weight(a.w[o], ep, en, ir);
-}
-
-// adds w to p where the predicate bit is set (add.rn: never contracted)
-__device__ __forceinline__ void add_if(float4& p, const float4& w,
-                                       unsigned bit) {
-  asm("{\n\t.reg .pred b;\n\tsetp.ne.u32 b, %4, 0;\n\t"
-      "@b add.rn.f32 %0, %0, %5;\n\t@b add.rn.f32 %1, %1, %6;\n\t"
-      "@b add.rn.f32 %2, %2, %7;\n\t@b add.rn.f32 %3, %3, %8;\n\t}"
-      : "+f"(p.x), "+f"(p.y), "+f"(p.z), "+f"(p.w)
-      : "r"(bit), "f"(w.x), "f"(w.y), "f"(w.z), "f"(w.w));
 }
 
 template <bool KEYED>

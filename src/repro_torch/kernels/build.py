@@ -5,7 +5,8 @@ headers, so ``nvcc`` takes seconds, not minutes). It is compiled at
 first use for ``sm_90a`` into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), under a file name that carries a
 hash of the source, of the ``csrc/*.cuh`` headers it includes (the
-shared ADC, ``adc.cuh``; the threefry draw, ``threefry.cuh``) and of the
+shared ADC, ``adc.cuh``; the predicated bit-plane adds,
+``predicated_add.cuh``; the threefry draw, ``threefry.cuh``) and of the
 flags, so an edited source or header rebuilds. The
 library is written to a temporary name and renamed into place, so
 concurrent processes never load a half-written file.
@@ -51,6 +52,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "imc_matmul": {
         # x_q, w, out, M, K, N, R, adc_bits, full_scale, stream
         "imc_matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        # M, K, N, R, &cluster, &columns: what the launch picks (a report)
+        "imc_matmul_plan": (_I, _I, _I, _I, _P, _P),
     },
     "flash_attention": {
         # q, k, v, o, B, H, S, T, hd, (batch, head, seq) strides of q, k,

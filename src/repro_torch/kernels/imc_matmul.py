@@ -13,15 +13,23 @@ hand-written Hopper kernel ``csrc/imc_matmul.cu`` (or raises), on CPU
 tensors it runs the plain PyTorch version ``imc_matmul_plain``. Its
 ``launches`` attribute counts kernel launches.
 
-Summation order. Every term of a bit-plane sum is 0 or ``w`` exactly,
-so the only rounding before the ADC is the order of the R additions:
-the plain version and the kernel both add them in k order, and the
-shift-accumulate runs bits 0..7 within a tile, then tiles in order (the
-Pallas kernel's order), so the two agree bit for bit. The JAX oracle and
+Summation order. ``imc_matmul_plain`` defines it: the R terms of each
+bit-plane sum in k order, then within each crossbar tile the ADC'd
+planes added for bits 0..7, then the tiles added in order 0..T-1, each
+step a separately rounded float32 operation. The kernel computes whole
+tiles in the CTAs of a thread-block cluster and combines them in that
+tile order across the cluster's ranks and rounds; its bit-plane sums
+add only the terms whose bit is set, in ascending k (a skipped term is
+an exact zero, and the sums start at +0.0, so for finite weights no bit
+moves). It relies on no step being exact, so it equals the plain
+version bit for bit for any ``w_scale`` and ADC width; at
+``w_scale != 1`` the ADC step is not a power of two and the tile values
+round when added, so combining the tiles in another order would change
+bits (``tests/test_torch_kernels.py`` shows both). The JAX oracle and
 the Pallas interpret run add the R terms in XLA's dot order instead; a
-pre-ADC sum within a few ULP of a .5 code boundary could round the other
-way there. ``tests/test_torch_kernels.py`` holds the plain version to
-them at the ``tests/test_kernels.py`` bound.
+pre-ADC sum within a few ULP of a .5 code boundary could round the
+other way there. ``tests/test_torch_kernels.py`` holds the plain
+version to them at the ``tests/test_kernels.py`` bound.
 """
 from __future__ import annotations
 

@@ -233,6 +233,57 @@ def test_imc_matmul_kernel_matches_plain_bitwise(cuda, M, K, N, R, adc_bits):
         assert torch.equal(got.cpu(), cpu)
 
 
+MATMUL_ORDER_SHAPES = [  # (M, K, N, R, adc_bits, w_scale)
+    # w_scale=0.7: the ADC step is not a power of two, so a change in the
+    # order the tiles are combined would change bits; 40 and 5 tiles, the
+    # wide variant (the projection) and the narrow one
+    (16, 2560, 12288, 64, 8, 0.7), (16, 2560, 12288, 64, 12, 0.7),
+    (16, 2560, 12288, 512, 8, 0.7), (16, 2560, 12288, 512, 12, 0.7),
+    (4, 2560, 64, 64, 8, 0.7), (4, 2560, 64, 64, 12, 0.7),
+    (4, 2560, 64, 512, 12, 0.7),
+    # M and N off the 16-row, 128- and 32-column tiles and off whole
+    # float4s (the 4-byte copy route); 11 tiles in rounds of 6 and 5
+    (20, 704, 70, 64, 8, 0.7), (21, 2560, 12290, 256, 12, 0.7),
+    (37, 1280, 1001, 128, 12, 0.7),
+    # R not a multiple of the 32-row chunks, and below one chunk
+    (8, 300, 40, 100, 8, 0.7), (3, 40, 5, 8, 6, 0.7),
+    # M=256 (a whole seq=256 prefill's rows)
+    (256, 2560, 2048, 128, 8, 0.7), (256, 2560, 12288, 512, 8, 1.0),
+]
+
+
+@pytest.mark.parametrize("M,K,N,R,adc_bits,w_scale", MATMUL_ORDER_SHAPES)
+def test_imc_matmul_kernel_bitwise_at_any_w_scale(cuda, M, K, N, R, adc_bits,
+                                                  w_scale):
+    """The kernel spreads the crossbar tiles over a cluster and combines
+    them in tile order: bit for bit the plain version's result where the
+    ADC step is not a power of two, one launch a call."""
+    x_q, w = _matmul_inputs(M * N + K, M, K, N, cuda)
+    before = imc_matmul.launches
+    got = imc_matmul(x_q, w, xbar_rows=R, adc_bits=adc_bits, w_scale=w_scale)
+    assert imc_matmul.launches == before + 1
+    want = imc_matmul_plain(x_q, w, xbar_rows=R, adc_bits=adc_bits,
+                            w_scale=w_scale)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and torch.equal(got, want)
+    if M * N <= 4096:
+        cpu = imc_matmul_plain(x_q.cpu(), w.cpu(), xbar_rows=R,
+                               adc_bits=adc_bits, w_scale=w_scale)
+        assert torch.equal(got.cpu(), cpu)
+
+
+def test_imc_matmul_misaligned_weights(cuda):
+    """Contiguous weights that do not start on a 16-byte boundary take
+    the 4-byte copy route and give the same bits."""
+    x_q, w = _matmul_inputs(3, 16, 256, 64, cuda)
+    wm = torch.empty(w.numel() + 1, device=cuda)[1:].view_as(w)
+    wm.copy_(w)
+    assert wm.is_contiguous() and wm.data_ptr() % 16
+    got = imc_matmul(x_q, wm, xbar_rows=64, w_scale=0.7)
+    assert torch.equal(got, imc_matmul_plain(x_q, w, xbar_rows=64,
+                                             w_scale=0.7))
+
+
 def test_imc_matmul_wrapper_rejects_bad_inputs(cuda):
     x_q, w = _matmul_inputs(0, 4, 128, 8, cuda)
     with pytest.raises(TypeError):

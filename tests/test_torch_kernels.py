@@ -275,8 +275,9 @@ def test_keyed_wrapper_on_cpu_runs_plain_version():
 def test_build_paths_stay_in_checkout():
     """Kernels build into build/kernels of the checkout under a name
     keyed by the source hash; nothing is compiled at import time. The
-    two crossbar kernels share the ADC device code of csrc/adc.cuh, and
-    the fused one draws its noise with csrc/threefry.cuh; the flash
+    two crossbar kernels share the ADC device code of csrc/adc.cuh and
+    the predicated bit-plane adds of csrc/predicated_add.cuh, and the
+    fused one draws its noise with csrc/threefry.cuh; the flash
     attention kernel includes its bfloat16 tensor-core route,
     csrc/flash_attention_wgmma.cuh."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
@@ -287,18 +288,19 @@ def test_build_paths_stay_in_checkout():
         src = (build.CSRC / f"{name}.cu").read_text()
         assert build._INCLUDE.findall(src) == {
             "flash_attention": ["flash_attention_wgmma.cuh"],
-            "imc_fused": ["adc.cuh", "threefry.cuh"],
-            "imc_matmul": ["adc.cuh"]}[name]
+            "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
+            "imc_matmul": ["adc.cuh", "predicated_add.cuh"]}[name]
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in build.NVCC_FLAGS
 
 
 def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
-    """An edit to the shared header renames (so rebuilds) both kernels'
-    libraries; an edit to one source renames only its own; an edit to
-    the threefry header renames only imc_fused's library, one to the
-    flash kernel's tensor-core header only the flash library."""
+    """An edit to a shared header (the ADC, the predicated adds)
+    renames (so rebuilds) both crossbar kernels' libraries; an edit to
+    one source renames only its own; an edit to the threefry header
+    renames only imc_fused's library, one to the flash kernel's
+    tensor-core header only the flash library."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -309,6 +311,13 @@ def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     after = {n: build._library_path(n) for n in names}
     assert all(after[n] != before[n] for n in names)
+    flash = build._library_path("flash_attention")
+    with open(csrc / "predicated_add.cuh", "a") as f:
+        f.write("// edited\n")
+    added = {n: build._library_path(n) for n in names}
+    assert all(added[n] != after[n] for n in names)
+    assert build._library_path("flash_attention") == flash
+    after = added
     with open(csrc / "imc_matmul.cu", "a") as f:
         f.write("// edited\n")
     again = {n: build._library_path(n) for n in names}
@@ -420,6 +429,104 @@ def test_imc_matmul_plain_column_chunks_keep_the_arithmetic(monkeypatch):
     monkeypatch.setattr(matmul_mod, "_PLAIN_MAX_ELEMENTS", 8 * 6 * 4 * 3)
     assert torch.equal(imc_matmul_plain(x, w, xbar_rows=64, w_scale=0.7),
                        whole)
+
+
+def _tile_outputs(x, w, R, adc_bits, w_scale):
+    """imc_matmul_plain of each R-row crossbar tile alone, (T, M, N)."""
+    return torch.stack([
+        imc_matmul_plain(x[:, t:t + R], w[t:t + R], xbar_rows=R,
+                         adc_bits=adc_bits, w_scale=w_scale)
+        for t in range(0, x.shape[1], R)])
+
+
+@pytest.mark.parametrize("adc_bits", [8, 12])
+def test_imc_matmul_tile_order_changes_bits(adc_bits):
+    """The tests have the power to see a kernel that combines crossbar
+    tiles out of order: at w_scale=0.7 the ADC step is not a power of two
+    and the tile values round when added, so the per-tile outputs summed
+    in tile order give the plain version's bits and summed in reverse
+    order do not."""
+    x, w = map(torch.from_numpy, _matmul_inputs(adc_bits, 4, 2560, 64))
+    want = imc_matmul_plain(x, w, xbar_rows=64, adc_bits=adc_bits,
+                            w_scale=0.7)
+    tiles = _tile_outputs(x, w, 64, adc_bits, 0.7)
+    assert tiles.shape[0] == 40
+    fwd, rev = torch.zeros_like(want), torch.zeros_like(want)
+    for t in range(40):
+        fwd += tiles[t]
+        rev += tiles[39 - t]
+    assert torch.equal(fwd, want)
+    assert int((rev != want).sum()) >= 1
+
+
+def _matmul_kernel_order_model(x_q, w, R, adc_bits, w_scale):
+    """The summation order of csrc/imc_matmul.cu in float32 tensor ops
+    over the columns of one slab: the T crossbar tiles over a cluster of
+    C = ceil(T / ceil(T / 8)) CTAs in rounds (CTA rank s computes tile
+    j * C + s in round j); each tile's bit-plane sums for every row add
+    w[k] to all of a thread's columns only where the term's bit is set,
+    in ascending k (a predicated add per set bit, the bit test shared by
+    the columns); the ADC, the bits 0..7 in order; then the round's tile
+    values into the outputs in rank order. Returns (out (M, N), the
+    bit-plane sums before the ADC (8, M, T, N), predicated adds made)."""
+    M, K = x_q.shape
+    T = K // R
+    rounds = -(-T // 8)
+    C = -(-T // rounds)
+    fs = adc_full_scale(float(R), w_scale)
+    sums = torch.zeros((8, M, T, w.shape[1]))
+    out = torch.zeros((M, w.shape[1]))
+    adds = 0
+    for j in range(rounds):
+        tiles = []
+        for s in range(min(C, T - j * C)):
+            t = j * C + s
+            part = torch.zeros((8, M, w.shape[1]))
+            for k in range(t * R, (t + 1) * R):
+                bit = torch.stack([(x_q[:, k] >> q) & 1 for q in range(8)])
+                part = torch.where(bit[..., None] == 1, part + w[k], part)
+                adds += int(bit.sum())
+            sums[:, :, t] = part
+            tile = torch.zeros_like(out)
+            for q in range(8):
+                tile = tile + adc_quantize(part[q], fs, adc_bits) * float(
+                    1 << q)
+            tiles.append(tile)
+        for tile in tiles:  # after cluster.sync(), in rank order
+            out = out + tile
+    return out, sums, adds
+
+
+@pytest.mark.parametrize("M,K,N,R,adc_bits", [
+    (4, 2560, 64, 64, 8),     # 40 tiles: 5 rounds of 8 CTAs
+    (4, 2560, 64, 64, 12),
+    (5, 704, 70, 64, 12),     # 11 tiles: rounds of 6 and 5 CTAs
+    (20, 640, 40, 128, 8),    # 5 tiles: one round of 5
+    (3, 300, 9, 100, 8),      # R not a multiple of the 32-row chunks
+])
+def test_imc_matmul_kernel_order_is_bitwise_plain(monkeypatch, M, K, N, R,
+                                                  adc_bits):
+    """The kernel's order (set bits only, tiles combined in order across
+    cluster ranks and rounds) gives imc_matmul_plain's bits at
+    w_scale=0.7, in the bit-plane sums before the ADC as well as after
+    it, and makes one predicated add per set bit. The plain version's
+    sums are read at its ADC call."""
+    x, w = map(torch.from_numpy, _matmul_inputs(M * K + N, M, K, N))
+    seen = []
+
+    def adc_spy(part, fs, bits):
+        seen.append(part.clone())
+        return adc_quantize(part, fs, bits)
+    monkeypatch.setattr(matmul_mod, "adc_quantize", adc_spy)
+    want = imc_matmul_plain(x, w, xbar_rows=R, adc_bits=adc_bits,
+                            w_scale=0.7)
+    monkeypatch.undo()
+    got, sums, adds = _matmul_kernel_order_model(x, w, R, adc_bits, 0.7)
+    assert torch.equal(sums, torch.cat(seen, dim=3))
+    assert torch.equal(got, want)
+    set_bits = sum(int(((x >> q) & 1).sum()) for q in range(8))
+    assert adds == set_bits
+    assert adds < 0.6 * 8 * M * K
 
 
 # tests/test_kernels.py's flash shapes: (B, S, T, H, hd, causal, window, dtype)
