@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, and drives the
-port's three paths on the card: the ``rram_accuracy`` scenario (§IV-H,
-Eq. 4) at its registry budget through
+port's paths on the card: the ``rram_accuracy`` scenario (§IV-H,
+Eq. 4) and the joint and NSGA-II scenarios at their registry budget
+through
 ``repro_torch.experiments.runner.run_scenario`` (the ``imc_fused``
 kernel, keyed: it draws each design's noise itself), and the LM
 co-design example
@@ -88,7 +89,26 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
  13. qwen3-4b's widths cut to 2 layers, float32, the same seeded weights
      on the CPU and the card: one 512-token prefill's last-token logits
      through the kernel (card) and the plain version (CPU) must agree to
-     1e-3 x max|logits|.
+     1e-3 x max|logits|;
+ 14. ``joint_rram_resnet_family`` (joint hardware x ResNet-architecture
+     co-search under a 60% accuracy floor) at its registry budget
+     through backend 'cuda' (the keyed kernel's launch count must rise,
+     no host noise draw) and then 'ref': the same best design, the same
+     ``joint`` block (chosen architecture) and a bitwise-equal best
+     score; the best genome, arch columns included, re-scored on the CPU
+     (rtol 1e-4);
+ 15. the keyed kernel at joint-space flat indices: P=120 designs drawn in
+     the RRAM x resnet_family space (2,150,400 x 48 designs), every index
+     above 2^24, on the accuracy model's calibration operands, bitwise
+     against ``imc_fused_keyed_plain``; its device time a launch from a
+     CUDA graph beside phase 3's;
+ 16. ``rram_tech_cost_mo`` (EDAP x cost) and ``joint_rram_mo`` (EDAP x
+     accuracy loss) through the NSGA-II engine at their registry budget:
+     the searched front's size and hypervolume, and every front design
+     re-scored on the CPU (EDAP and cost rtol 1e-5, accuracy loss 1e-4);
+ 17. ``rram_tech_cost`` (single objective, node in the genome): its
+     post-hoc front, hypervolume and generalization gap table, and the
+     best genome re-scored on the CPU (rtol 1e-5).
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -672,7 +692,9 @@ def phase_scenario_ref(torch, dev, res) -> dict:
 
 
 def phase_rescore_cpu(res, rtol: float = 1e-4) -> None:
-    """Phase 6: the card's best genome re-scored by the port on the CPU."""
+    """Phases 6, 10 and 14: the card's best genome re-scored by the port
+    on the CPU; the genome is decoded over every column of the
+    scenario's space, the architecture columns of a joint space too."""
     import dataclasses
 
     import numpy as np
@@ -693,6 +715,207 @@ def phase_rescore_cpu(res, rtol: float = 1e-4) -> None:
         raise RuntimeError(f"CPU re-score {cpu} != card score {card}")
     log(f"best genome re-scored on the CPU (jnp): {cpu:.6g} vs card "
         f"{card:.6g} (rel {abs(cpu - card) / abs(card):.2e})")
+
+
+def _genome_of(space, design) -> list:
+    """Value indices of a decoded design over every column of the space
+    (hardware and architecture)."""
+    import numpy as np
+    return [int(np.flatnonzero(space.values[i] == np.float32(design[n]))[0])
+            for i, n in enumerate(space.names)]
+
+
+def phase_joint(torch, fused, dev, out_dir) -> dict:
+    """Phase 14: ``joint_rram_resnet_family`` on the card through backend
+    'cuda' (no host draw; the keyed kernel's launches counted) and then
+    'ref': the same best design and chosen architecture, a bitwise-equal
+    best score; then the best genome re-scored on the CPU."""
+    import dataclasses
+    from repro_torch.experiments import get_scenario
+    from repro_torch.experiments.runner import run_scenario
+    name = "joint_rram_resnet_family"
+    with HostDraws() as draws:
+        fused.imc_fused_gemm_keyed.launches = 0
+        fused.imc_fused_gemm.launches = 0
+        res = phase_scenario(torch, name, dev, out_dir)
+        launches = fused.imc_fused_gemm_keyed.launches
+        eps_launches = fused.imc_fused_gemm.launches
+    if launches <= 0 or eps_launches or draws.calls or \
+            res["backend"] != "cuda":
+        raise RuntimeError(
+            f"{name} did not run the keyed kernel alone: keyed launches "
+            f"{launches}, eps kernel launches {eps_launches}, host normal "
+            f"draws {draws.calls}, backend {res['backend']}")
+    log(f"{name}: imc_fused keyed launches {launches}, host noise draws in "
+        f"the accuracy model 0; chosen models "
+        f"{res['joint']['chosen_models']}, arch "
+        f"{json.dumps(res['joint']['arch_params'])}")
+    sc = dataclasses.replace(get_scenario(name), backend="ref")
+    with HostDraws() as draws:
+        t0 = time.perf_counter()
+        ref = run_scenario(sc, write=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    same = (ref["generalized"]["design"] == res["generalized"]["design"]
+            and ref["joint"] == res["joint"]
+            and ref["best_score"] == res["best_score"])
+    if not same or ref["backend"] != "ref" or draws.calls <= 0:
+        raise RuntimeError(
+            f"{name} ref vs cuda: best {ref['best_score']!r} vs "
+            f"{res['best_score']!r}, designs equal "
+            f"{ref['generalized']['design'] == res['generalized']['design']},"
+            f" joint blocks equal {ref['joint'] == res['joint']}, host "
+            f"draws seen {draws.calls}")
+    log(f"{name} backend ref on the card: wall {wall:.2f} s, {draws.calls} "
+        f"host normal draws in the accuracy model; same best design and "
+        f"chosen models, best {ref['best_score']!r} == cuda "
+        f"{res['best_score']!r}")
+    phase_rescore_cpu(res)
+    return {"res": res, "launches": launches}
+
+
+def phase_keyed_joint(torch, fused, dev) -> dict:
+    """Phase 15: the keyed kernel at the joint RRAM x resnet_family
+    space's flat indices (P=120 designs drawn in that space, bits_cell
+    index at least 1 so every index is above 2^24), bitwise against
+    ``imc_fused_keyed_plain`` on the accuracy model's calibration
+    operands; its device time a launch from a CUDA graph."""
+    import numpy as np
+    from repro_torch import random as jr
+    from repro_torch.core import get_family, get_space, joint_space
+    from repro_torch.core.nonideal import (CALIB_SEED, calibration_data,
+                                           flat_index_strides,
+                                           quantize_activations)
+    from repro_torch.core.sampling import uniform_genomes
+    space = joint_space(get_space("rram"), [get_family("resnet_family")])
+    cards = torch.as_tensor(space.cardinalities, dtype=torch.float32,
+                            device=dev)
+    g = uniform_genomes(jr.PRNGKey(15, dev)[None], cards, 120)[0]
+    bi = space.index("bits_cell")
+    g[:, bi] = torch.clamp(g[:, bi], min=1)
+    strides = torch.as_tensor(flat_index_strides(space), device=dev)
+    flat = (g * strides).sum(dim=1).contiguous()
+    ks = jr.split(jr.PRNGKey(CALIB_SEED, dev))
+    x, w = calibration_data(ks[0], B, K, N)
+    x_q = quantize_activations(x).contiguous()
+    rows_i = space.index("xbar_rows")
+    rows_idx = g[:, rows_i].to(torch.int32).contiguous()
+    row_table = torch.as_tensor(space.values[rows_i], device=dev)
+    args = (x_q, w.contiguous(), ks[1].contiguous(), flat, rows_idx,
+            row_table)
+    raw, z = fused.imc_fused_gemm_keyed(*args, sub=SUB)
+    want_raw, want_z = fused.imc_fused_keyed_plain(*args, sub=SUB)
+    torch.cuda.synchronize()
+    lo, hi = int(flat.min()), int(flat.max())
+    # the flat indices a float32 step would change
+    lossy = int((flat.float().long() != flat).sum())
+    err = float((raw - want_raw).abs().max())
+    if lo <= 2 ** 24 or hi >= 2 ** 31 or space.size != 2150400 * 48 or \
+            not (torch.equal(raw, want_raw) and torch.equal(z, want_z)):
+        raise RuntimeError(
+            f"keyed kernel at joint indices {lo}..{hi}: raw equal "
+            f"{torch.equal(raw, want_raw)}, z_out equal "
+            f"{torch.equal(z, want_z)}, max abs err {err:.3g}")
+    ms = graph_ms(torch, lambda: fused.imc_fused_gemm_keyed(*args, sub=SUB))
+    log(f"imc_fused keyed kernel at P=120 joint RRAM x resnet_family "
+        f"designs (space size {space.size}), flat indices {lo}..{hi} "
+        f"({lossy} of 120 not exact in float32): raw and z_out bitwise "
+        f"equal to imc_fused_keyed_plain; {ms:.4f} ms a launch on the "
+        f"device (CUDA graph); {len(np.unique(flat.cpu().numpy()))} "
+        f"distinct designs")
+    return {"ms": ms, "max_abs_err": err}
+
+
+def _front_rescore(res, label_rtol) -> None:
+    """Every front design of a multi-objective run re-scored on the CPU
+    (backend 'jnp'); each score column within its rtol."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.experiments import get_scenario
+    from repro_torch.experiments.runner import (build_scenario_scorer,
+                                                setup_scenario)
+    sc = dataclasses.replace(get_scenario(res["scenario"]), backend="jnp")
+    st = setup_scenario(sc)
+    scorer = build_scenario_scorer(sc, st, device="cpu")
+    front = res["pareto"]["front"]
+    axes = res["pareto"]["axes"]
+    g = torch.tensor([_genome_of(st.space, p["design"]) for p in front])
+    cpu = scorer.score_vec(g).numpy()
+    card = np.asarray([[p[a] for a in axes] for p in front])
+    worst = {}
+    for j, a in enumerate(axes):
+        rel = np.abs(cpu[:, j] - card[:, j]) / np.abs(card[:, j])
+        worst[a] = float(rel.max())
+        if not (np.isfinite(cpu[:, j]).all() and worst[a] <= label_rtol[a]):
+            raise RuntimeError(f"{res['scenario']}: front {a} re-scored on "
+                               f"the CPU off by rel {worst[a]:.3g} (limit "
+                               f"{label_rtol[a]:g})")
+    log(f"{res['scenario']}: all {len(front)} front designs re-scored on the "
+        f"CPU (jnp): max rel err "
+        + ", ".join(f"{a} {v:.2e} (limit {label_rtol[a]:g})"
+                    for a, v in worst.items()))
+
+
+def phase_mo(torch, fused, dev, out_dir) -> dict:
+    """Phase 16: ``rram_tech_cost_mo`` and ``joint_rram_mo`` (NSGA-II)
+    on the card; front size and hypervolume; every front design re-scored
+    on the CPU."""
+    out = {}
+    for name, rtol in (("rram_tech_cost_mo", {"edap": 1e-5, "cost": 1e-5}),
+                       ("joint_rram_mo", {"edap": 1e-5, "acc_loss": 1e-4})):
+        fused.imc_fused_gemm_keyed.launches = 0
+        res = phase_scenario(torch, name, dev, out_dir)
+        pb = res["pareto"]
+        if not pb["searched"] or not pb["front"] or \
+                not math.isfinite(pb["hypervolume"]):
+            raise RuntimeError(f"{name}: pareto block {pb['searched']}, "
+                               f"front {len(pb['front'])}, hypervolume "
+                               f"{pb['hypervolume']}")
+        launches = fused.imc_fused_gemm_keyed.launches
+        if ("acc_loss" in pb["axes"]) != (launches > 0):
+            raise RuntimeError(f"{name}: keyed kernel launches {launches}")
+        log(f"{name}: searched front of {len(pb['front'])} designs "
+            f"({pb['axes'][0]} x {pb['axes'][1]}) out of "
+            f"{pb['n_candidates']} feasible candidates, hypervolume "
+            f"{pb['hypervolume']:.6g} at {pb['ref_point']}; per-seed front "
+            f"sizes {pb['front_sizes_per_seed']}; imc_fused keyed launches "
+            f"{launches}")
+        if "joint" in res:
+            log(f"{name}: front architectures "
+                f"{sorted({p['design']['resnet_family.depth'] for p in pb['front']})}"
+                f" (depths), chosen at the best-EDAP end "
+                f"{res['joint']['chosen_models']}")
+        _front_rescore(res, rtol)
+        out[name] = res
+    return out
+
+
+def phase_tech_cost(torch, fused, dev, out_dir) -> dict:
+    """Phase 17: ``rram_tech_cost`` (single-objective EDAP x cost, the
+    node in the genome) on the card: its post-hoc front, hypervolume and
+    the generalization gap table."""
+    fused.imc_fused_gemm_keyed.launches = 0
+    res = phase_scenario(torch, "rram_tech_cost", dev, out_dir)
+    launches = fused.imc_fused_gemm_keyed.launches
+    pb = res["pareto"]
+    if pb["searched"] or not pb["front"] or launches or \
+            sorted(res["gap"]["per_workload_pct"]) != sorted(res["workloads"]):
+        raise RuntimeError(f"rram_tech_cost: pareto block searched "
+                           f"{pb['searched']}, front {len(pb['front'])}, gap "
+                           f"{res.get('gap')}, keyed launches {launches}")
+    log(f"rram_tech_cost: post-hoc front of {len(pb['front'])} designs out "
+        f"of {pb['n_candidates']} feasible candidates, hypervolume "
+        f"{pb['hypervolume']:.6g}, nodes "
+        f"{sorted({p['tech_nm'] for p in pb['front']})} nm; imc_fused keyed "
+        f"launches {launches} (EDAP x cost only)")
+    log("rram_tech_cost gap (%): "
+        + ", ".join(f"{w} {v:.3f}" for w, v in
+                    sorted(res["gap"]["per_workload_pct"].items()))
+        + f"; mean {res['gap']['mean_pct']:.3f}")
+    phase_rescore_cpu(res, rtol=1e-5)
+    return res
 
 
 # phase 11: tests/test_kernels.py's flash shapes (B, S, T, H, hd, causal,
@@ -1080,6 +1303,15 @@ def main(argv=None) -> int:
     main_f = phase_flash(torch, fa, dev)                             # 11
     served = phase_serve(torch, fa, dev)                             # 12
     phase_logits(torch, fa, dev)                                     # 13
+    with tempfile.TemporaryDirectory() as out_dir:
+        joint = phase_joint(torch, fused, dev, out_dir)              # 14
+        keyed_joint = phase_keyed_joint(torch, fused, dev)           # 15
+        phase_mo(torch, fused, dev, out_dir)                         # 16
+        phase_tech_cost(torch, fused, dev, out_dir)                  # 17
+    log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
+        f" ms at phase 3's P=120 flat indices below 2^31, "
+        f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
+        f"2^24; {joint['launches']} launches in joint_rram_resnet_family")
     log(f"imc_fused keyed kernel at P=120: {main_k['ms']:.4f} ms a launch "
         f"on the device, {main_k['call_ms']:.4f} ms a call against the old "
         f"route's {main_k['old_ms']:.4f} ms; eps kernel "
@@ -1095,7 +1327,9 @@ def main(argv=None) -> int:
                    "source": "src/repro_torch/csrc/imc_fused.cu",
                    "replaces": "src/repro/kernels/imc_fused.py:83",
                    "launches": launches,
-                   "max_abs_err": main_k["max_abs_err"], "ms": main_k["ms"],
+                   "max_abs_err": max(main_k["max_abs_err"],
+                                      keyed_joint["max_abs_err"]),
+                   "ms": main_k["ms"],
                    "plain_ms": main_k["plain_ms"],
                    "bound_ms": main_k["bound_ms"],
                    "bound_by": main_k["bound_by"], "library_ms": None}

@@ -41,14 +41,14 @@ def from_reference_key(key, device="cuda") -> torch.Tensor:
 
 
 def from_reference_space(space) -> SearchSpace:
-    """A reference ``SearchSpace`` (hardware-only) -> the port's."""
-    if getattr(space, "n_arch", 0):
-        raise NotImplementedError("joint spaces are not ported yet")
+    """A reference ``SearchSpace`` (hardware-only or joint) -> the
+    port's."""
     return SearchSpace(
         names=tuple(space.names),
         values=tuple(np.asarray(v, np.float32) for v in space.values),
         mem_type=str(space.mem_type),
-        tech_is_variable=bool(space.tech_is_variable))
+        tech_is_variable=bool(space.tech_is_variable),
+        n_arch=int(space.n_arch))
 
 
 def from_reference_constants(constants) -> HWConstants:
@@ -68,10 +68,14 @@ def from_reference_workload_arrays(wa) -> WorkloadArrays:
 
 
 def from_reference_workload(wl) -> Workload:
-    """A reference ``Workload`` -> the port's (float64 layers)."""
+    """A reference ``Workload`` -> the port's (float64 layers and
+    per-layer weight bits, None where the reference has none)."""
+    wb = wl.weight_bits
     return Workload(name=str(wl.name),
                     layers=np.array(wl.layers, np.float64),
-                    stored_weights=float(wl.stored_weights))
+                    stored_weights=float(wl.stored_weights),
+                    weight_bits=None if wb is None
+                    else np.array(wb, np.float64))
 
 
 def from_reference_arch_config(cfg) -> ArchConfig:

@@ -1,13 +1,19 @@
 """Core of the port: search space, cost model, objectives, accuracy
-model, scorer, Hamming sampling and the four-phase GA."""
-from .search_space import SearchSpace, get_space, rram_space, sram_space
-from .workloads import (PAPER_4, PAPER_9, Workload, WorkloadArrays,
-                        from_arch_config, get_workload, get_workload_set,
-                        pack)
+model, scorer, Hamming sampling, the four-phase GA, NSGA-II and the
+Pareto-front tools, with the joint workload-architecture co-search."""
+from .search_space import (SearchSpace, get_space, joint_space, rram_space,
+                           sram_space)
+from .workloads import (FAMILY_NAMES, PAPER_4, PAPER_9, ArchParam, Workload,
+                        WorkloadArrays, WorkloadBuilder, WorkloadFamily,
+                        from_arch_config, get_family, get_workload,
+                        get_workload_set, make_workload_builder, pack,
+                        resnet_family, vit_family)
 from .cost_model import (CostMetrics, HWConstants, evaluate_population,
-                         make_evaluator)
-from .objectives import (INFEASIBLE_PENALTY, Objective, aggregate_scores,
-                         make_objective, per_workload_scores)
+                         evaluate_population_joint, make_evaluator,
+                         make_joint_evaluator)
+from .objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
+                         aggregate_scores, is_multi_spec, make_objective,
+                         per_workload_scores)
 from .nonideal import BACKENDS, BASELINE_ACC, CALIB_SEED, make_accuracy_model
 from .scoring import Calib, Scorer, ScorerSpec, build_scorer
 from .sampling import hamming_select, sample_initial_device, uniform_genomes
@@ -15,3 +21,8 @@ from .genetic import (FOUR_PHASES, PLAIN_PHASE, MultiSearchResult, Phase,
                       SearchResult, batched_joint_search, ga_scan,
                       phase_schedule, plain_ga_search, random_search,
                       search_kernel)
+from .pareto import (edap_cost_front, front_coverage, hypervolume_2d,
+                     pareto_front)
+from .nsga import (MOSearchResult, MultiMOSearchResult, batched_nsga_search,
+                   crowding_distance, nondominated_rank, nsga_search,
+                   run_nsga_loop)

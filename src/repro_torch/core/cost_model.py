@@ -1,5 +1,5 @@
 """Vectorized analytical IMC cost model (the CIMLoop role, §III-A);
-counterpart of ``repro/core/cost_model.py`` (its fixed-workload path).
+counterpart of ``repro/core/cost_model.py``.
 
 Given a population of hardware genomes and a packed workload set, this
 computes energy (J) and latency (s) per (design × workload) and chip
@@ -21,8 +21,13 @@ arithmetic the reference's: a division of a tensor by a Python constant
 is a multiplication by the float32 reciprocal (``_div_const``), which is
 what XLA compiles ``x / const`` into; a Python constant divided by a
 tensor is a true division (``_rdiv``), never PyTorch's ``reciprocal() *
-c``. The joint co-search path (``evaluate_population_joint``) is not
-ported yet (ROADMAP Queue 1 item 7).
+c``.
+
+The joint co-search path (``evaluate_population_joint``) builds each
+genome's layers from its arch slice (``workloads.WorkloadBuilder``):
+padded (P, W * Lmax) layer axes whose pads are zeroed before every
+segment sum, and per-layer weight precision in the cells-per-weight
+mapping.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import torch
 from ..device import resolve_device
 from .search_space import (TECH_32NM_INDEX, TECH_COST_ALPHA, TECH_NODES_NM,
                            TECH_VMAX, TECH_VMIN, V_NOM, SearchSpace)
-from .workloads import WorkloadArrays
+from .workloads import WorkloadArrays, WorkloadBuilder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,28 +108,63 @@ class CostTables:
     """Everything the cost model reads, moved to a device once (a copy
     from host memory synchronizes the stream): the space's value table,
     the technology tables (Table 7), the flat layer columns (1, Ltot),
-    the one-hot segment matrix (Ltot, W) and the stored weights (1, W)."""
+    the one-hot segment matrix (Ltot, W) and the stored weights (1, W).
+    On the joint path (``joint``) the layer columns, stored weights,
+    ``mask`` and ``wbits`` are per genome and filled in by
+    ``with_layers``; the one-hot matrix is that of the padded
+    (W * Lmax) layer axis."""
     values: torch.Tensor
     tech: Dict[str, torch.Tensor]
-    M: torch.Tensor
-    K: torch.Tensor
-    N: torch.Tensor
+    M: Optional[torch.Tensor]
+    K: Optional[torch.Tensor]
+    N: Optional[torch.Tensor]
     seg_onehot: torch.Tensor
-    stored_weights: torch.Tensor
+    stored_weights: Optional[torch.Tensor]
+    mask: Optional[torch.Tensor] = None
+    wbits: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def _common(space: SearchSpace, device):
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=device)
+        tech = {"nm": dev(TECH_NODES_NM), "vmin": dev(TECH_VMIN),
+                "vmax": dev(TECH_VMAX), "alpha": dev(TECH_COST_ALPHA)}
+        return dev(space.value_table()), tech
 
     @staticmethod
     def of(space: SearchSpace, wl: WorkloadArrays, device) -> "CostTables":
-        def dev(a, dtype=torch.float32):
-            return torch.as_tensor(a, dtype=dtype, device=device)
-        flat = dev(wl.flat_layers)
-        seg = dev(wl.seg_ids, torch.int64)
+        values, tech = CostTables._common(space, device)
+        flat = torch.as_tensor(wl.flat_layers, device=device)
+        seg = torch.as_tensor(wl.seg_ids, dtype=torch.int64, device=device)
         onehot = torch.nn.functional.one_hot(seg, wl.n_workloads).float()
-        tech = {"nm": dev(TECH_NODES_NM), "vmin": dev(TECH_VMIN),
-                "vmax": dev(TECH_VMAX), "alpha": dev(TECH_COST_ALPHA)}
-        return CostTables(values=dev(space.value_table()), tech=tech,
+        stored = torch.as_tensor(wl.stored_weights, device=device)
+        return CostTables(values=values, tech=tech,
                           M=flat[None, :, 0], K=flat[None, :, 1],
                           N=flat[None, :, 2], seg_onehot=onehot,
-                          stored_weights=dev(wl.stored_weights)[None, :])
+                          stored_weights=stored[None, :])
+
+    @staticmethod
+    def joint(space: SearchSpace, builder: WorkloadBuilder,
+              device) -> "CostTables":
+        values, tech = CostTables._common(space, device)
+        W, Lm = builder.n_workloads, builder.lmax
+        seg = torch.arange(W, device=device).repeat_interleave(Lm)
+        onehot = torch.nn.functional.one_hot(seg, W).float()
+        return CostTables(values=values, tech=tech, M=None, K=None, N=None,
+                          seg_onehot=onehot, stored_weights=None)
+
+    def with_layers(self, builder: WorkloadBuilder,
+                    genomes: torch.Tensor) -> "CostTables":
+        """The joint tables with the layer tensors of ``genomes``
+        (P, n) filled in: (P, W * Lmax) columns, mask and wbits."""
+        wt = builder(genomes)
+        P = genomes.shape[0]
+        W, Lm = builder.n_workloads, builder.lmax
+        layers = wt.layers.reshape(P, W * Lm, 3)
+        return dataclasses.replace(
+            self, M=layers[:, :, 0], K=layers[:, :, 1], N=layers[:, :, 2],
+            stored_weights=wt.stored, mask=wt.mask.reshape(P, W * Lm),
+            wbits=wt.wbits.reshape(P, W * Lm))
 
 
 def _resolve(space: SearchSpace, table: torch.Tensor,
@@ -145,11 +185,15 @@ def _resolve(space: SearchSpace, table: torch.Tensor,
 
 def _cost_core(space: SearchSpace, c: HWConstants, p: Dict[str, torch.Tensor],
                wt: CostTables) -> CostMetrics:
-    """The reference's shared cost math on the flat layer axis (its
-    fixed path: ``mask``/``wbits`` None, cells per weight per genome)."""
+    """The reference's shared cost math over a (B, Lt) layer axis
+    reduced to (P, W): the fixed path (B=1 flat layers, ``mask`` and
+    ``wbits`` None, cells per weight per genome) or the joint path (B=P
+    padded layers, pads zeroed by ``mask`` before every segment sum,
+    cells per weight per layer from ``wbits``)."""
     is_rram = space.mem_type == "rram"
     M, K, N = wt.M, wt.K, wt.N
     seg_onehot, stored_weights = wt.seg_onehot, wt.stored_weights
+    mask, wbits = wt.mask, wt.wbits
 
     rows, cols = p["xbar_rows"], p["xbar_cols"]
     n_xb = p["c_per_tile"] * p["t_per_router"] * p["g_per_chip"]
@@ -177,12 +221,17 @@ def _cost_core(space: SearchSpace, c: HWConstants, p: Dict[str, torch.Tensor],
     # --- per-layer crossbar mapping -----------------------------------------
     r_ = rows[:, None]
     c_ = cols[:, None]
-    cpw_ = cpw[:, None]
+    if wbits is None:
+        cpw_ = cpw[:, None]
+    else:
+        cpw_ = torch.ceil(wbits / bits_cell[:, None])   # per-layer cells
 
     def sum_l(x):                                               # (P, W)
         # float64 segment sum, rounded once: XLA's float32 dot order
         # cannot be reproduced, and this keeps the port within ~1e-6 of
         # it on every registry configuration (ROADMAP Queue 3)
+        if mask is not None:
+            x = x * mask
         return (x.double() @ seg_onehot.double()).float()
 
     n_xb_row = torch.ceil(K / r_)
@@ -284,6 +333,22 @@ def evaluate_population(space: SearchSpace, wl: WorkloadArrays,
     return _cost_core(space, constants, p, tables)
 
 
+def evaluate_population_joint(space: SearchSpace, builder: WorkloadBuilder,
+                              genomes: torch.Tensor,
+                              constants: HWConstants = HWConstants(),
+                              tables: Optional[CostTables] = None
+                              ) -> CostMetrics:
+    """Joint co-search cost path: (P, n_hw + n_arch) genomes ->
+    CostMetrics, the workload layers built from each genome's arch
+    slice by ``builder``. With zero families this is the flat path's
+    math up to summation order (pads are masked, not absent)."""
+    if tables is None:
+        tables = CostTables.joint(space, builder, genomes.device)
+    p = _resolve(space, tables.values, genomes)
+    return _cost_core(space, constants, p,
+                      tables.with_layers(builder, genomes))
+
+
 def make_evaluator(space: SearchSpace, wl: WorkloadArrays,
                    constants: HWConstants = HWConstants(),
                    device="cuda"):
@@ -293,5 +358,20 @@ def make_evaluator(space: SearchSpace, wl: WorkloadArrays,
 
     def evaluator(genomes: torch.Tensor) -> CostMetrics:
         return evaluate_population(space, wl, genomes, constants, tables)
+
+    return evaluator
+
+
+def make_joint_evaluator(space: SearchSpace, builder: WorkloadBuilder,
+                         constants: HWConstants = HWConstants(),
+                         device="cuda"):
+    """Joint evaluator with the tables moved to ``device`` once: genomes
+    (P, n_hw + n_arch) -> CostMetrics."""
+    dev = resolve_device(device)
+    tables = CostTables.joint(space, builder, dev)
+
+    def evaluator(genomes: torch.Tensor) -> CostMetrics:
+        return evaluate_population_joint(space, builder, genomes, constants,
+                                         tables)
 
     return evaluator

@@ -47,7 +47,7 @@ from ..kernels.imc_fused import (imc_fused_gemm_keyed,
 from ..kernels.imc_matmul import imc_matmul_plain
 from ..kernels.ops import imc_gemm
 from .search_space import SearchSpace
-from .workloads import Workload, WorkloadArrays
+from .workloads import Workload, WorkloadArrays, WorkloadBuilder
 
 OUTPUT_NOISE_FRAC = 0.01  # 1% output-referred noise [58]
 
@@ -175,10 +175,11 @@ def _snr_to_accuracy(snr_db: torch.Tensor, base: torch.Tensor,
 
 
 def make_accuracy_model(space: SearchSpace,
-                        workloads: WorkloadArrays, *,
+                        workloads: Optional[WorkloadArrays] = None, *,
                         key: Optional[torch.Tensor] = None,
                         n_calib: int = 32, calib_k: int = 256,
                         calib_n: int = 32, adc_bits: int = 8,
+                        builder: Optional[WorkloadBuilder] = None,
                         backend: str = "auto", device="cuda"
                         ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Batched accuracy model on ``device``: (P, n) genomes -> (P, W).
@@ -186,7 +187,15 @@ def make_accuracy_model(space: SearchSpace,
     Genome-dependent parameters (xbar_rows, bits_cell) resolve by
     value-table gather; the reduction axis is split into static
     sub-tiles of ``gcd(rows values)`` rows and each design groups them
-    into crossbars of its own row count before the ADC."""
+    into crossbars of its own row count before the ADC.
+
+    Joint co-search: pass a ``WorkloadBuilder`` as ``builder`` instead
+    of fixed ``workloads`` (exactly one of the two). Each genome's clean
+    base accuracy and depth penalty then come from its own arch slice;
+    the noise key folds in the flat index of the whole joint genome
+    (int64 end to end: it passes 2^24 in the joint spaces)."""
+    if (workloads is None) == (builder is None):
+        raise ValueError("pass exactly one of workloads / builder")
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
     key = jr.PRNGKey(CALIB_SEED, dev) if key is None else key.to(dev)
@@ -214,9 +223,10 @@ def make_accuracy_model(space: SearchSpace,
     sub_rows = torch.arange(n_sub, dtype=torch.float32, device=dev) * sub
     group_idx = torch.arange(n_sub, dtype=torch.float32, device=dev)
     pow2 = (1 << torch.arange(8, device=dev)).float()  # exact 2^b
-    base_np, pen_np = _workload_accuracy_params(workloads)
-    base_acc = torch.as_tensor(base_np, device=dev)
-    depth_pen = torch.as_tensor(pen_np, device=dev)
+    if builder is None:
+        base_np, pen_np = _workload_accuracy_params(workloads)
+        base_acc = torch.as_tensor(base_np, device=dev)[None, :]
+        depth_pen = torch.as_tensor(pen_np, device=dev)[None, :]
     strides = torch.as_tensor(flat_index_strides(space), device=dev)
     row_table_f = torch.as_tensor(row_values.astype(np.float32), device=dev)
     x_q_c = x_q.contiguous()
@@ -264,8 +274,14 @@ def make_accuracy_model(space: SearchSpace,
             cpw = torch.clamp(torch.floor(
                 torch.full_like(bits, 8.0) / bits), min=1.0)
             snr_db = snr_db + 10.0 * torch.log10(cpw)  # multi-cell averaging
-        return _snr_to_accuracy(snr_db[:, None], base_acc[None, :],
-                                depth_pen[None, :])
+        if builder is None:
+            return _snr_to_accuracy(snr_db[:, None], base_acc, depth_pen)
+        wt = builder(genomes)
+        # 1 - 0.002 * n_layers as XLA compiles it: one fused multiply-add
+        pen = torch.clamp(jr._fma(torch.full_like(wt.n_layers, -0.002),
+                                  wt.n_layers, torch.ones_like(wt.n_layers)),
+                          0.8, 1.0)                                # (P, W)
+        return _snr_to_accuracy(snr_db[:, None], wt.base_acc, pen)
 
     accuracy.backend = backend
     return accuracy

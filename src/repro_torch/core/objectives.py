@@ -7,15 +7,17 @@ in as ``INFEASIBLE_PENALTY``. Aggregations over the workload axis:
 ``max`` (Eq. 3), ``mean`` and ``all`` (product, in log space). Units:
 energy mJ, latency ms, area mm².
 
-Ported kinds: ``edap``, ``edp``, ``energy``, ``delay``, ``area``,
-``cost``, ``edap_cost`` and ``edap_acc`` (§IV-H, Eq. 4). Multi-objective
-specs (``"edap:mean+cost"``), ``acc_loss`` and the ``min_accuracy``
-constraint are not ported yet (ROADMAP Queue 1 items 7 and 8).
+Kinds: ``edap``, ``edp``, ``energy``, ``delay``, ``area``, ``cost``,
+``edap_cost``, ``edap_acc`` (§IV-H, Eq. 4) and ``acc_loss`` (the
+accuracy-loss axis of joint fronts). ``min_accuracy > 0`` penalizes a
+design whose accuracy on any workload falls below the bar. A
+'+'-joined spec (``"edap:mean+cost"``) parses into a ``MultiObjective``
+whose (P, D) score matrix the NSGA-II engine (``core/nsga.py``) sorts.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -26,7 +28,7 @@ AREA_CONSTRAINT_MM2 = 800.0
 INFEASIBLE_PENALTY = 1.0e30
 
 OBJECTIVE_KINDS = ("edap", "edp", "energy", "delay", "area", "cost",
-                   "edap_cost", "edap_acc")
+                   "edap_cost", "edap_acc", "acc_loss")
 AGGREGATIONS = ("max", "mean", "all")
 
 
@@ -43,18 +45,20 @@ def aggregate_scores(x: torch.Tensor, scheme: str) -> torch.Tensor:
     raise ValueError(scheme)
 
 
-def _penalize(m: CostMetrics, s: torch.Tensor, area_constraint: float
-              ) -> torch.Tensor:
-    bad = (~m.feasible) | (m.area > area_constraint)
-    return torch.where(bad, torch.full_like(s, INFEASIBLE_PENALTY), s)
+def _need_accuracy(accuracy: Optional[torch.Tensor], what: str) -> None:
+    if accuracy is None:
+        raise ValueError(f"{what} needs the accuracy model")
 
 
 @dataclasses.dataclass(frozen=True)
 class Objective:
-    """kind: one of OBJECTIVE_KINDS; aggregation: max | mean | all."""
+    """kind: one of OBJECTIVE_KINDS; aggregation: max | mean | all.
+    ``min_accuracy > 0`` is a hard per-workload accuracy floor (0.0:
+    off)."""
     kind: str = "edap"
     aggregation: str = "max"
     area_constraint: float = AREA_CONSTRAINT_MM2
+    min_accuracy: float = 0.0
 
     def __call__(self, m: CostMetrics,
                  accuracy: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -78,41 +82,86 @@ class Objective:
             s = e_mj * l_ms * m.cost
         elif self.kind == "edap_acc":
             # §IV-H: EDAP / prod(Acc_w); accuracy (P, W) in (0, 1]
-            if accuracy is None:
-                raise ValueError("edap_acc needs the accuracy model")
+            _need_accuracy(accuracy, "edap_acc")
             acc_prod = torch.exp(torch.sum(torch.log(
                 torch.clamp(accuracy, min=1e-6)), dim=1))
             s = e_mj * l_ms * a / acc_prod
+        elif self.kind == "acc_loss":
+            # accuracy-loss axis for joint fronts: 1 - agg(Acc_w)
+            _need_accuracy(accuracy, "acc_loss")
+            s = 1.0 - aggregate_scores(accuracy, self.aggregation)
         else:
             raise ValueError(self.kind)
-        return _penalize(m, s, self.area_constraint)
+        bad = (~m.feasible) | (m.area > self.area_constraint)
+        if self.min_accuracy > 0.0:
+            _need_accuracy(accuracy, "the min_accuracy constraint")
+            bad = bad | torch.any(accuracy < self.min_accuracy, dim=1)
+        return torch.where(bad, torch.full_like(s, INFEASIBLE_PENALTY), s)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiObjective:
+    """A tuple of Objectives evaluated into a (P, D) score matrix. Each
+    column keeps its component's own feasibility/area penalty, so an
+    infeasible design never dominates a feasible one."""
+    components: Tuple[Objective, ...]
+
+    def __post_init__(self):
+        if len(self.components) < 2:
+            raise ValueError("MultiObjective needs >= 2 components")
+
+    @property
+    def kinds(self) -> Tuple[str, ...]:
+        return tuple(o.kind for o in self.components)
+
+    @property
+    def n_objectives(self) -> int:
+        return len(self.components)
+
+    def __call__(self, m: CostMetrics,
+                 accuracy: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return torch.stack([o(m, accuracy=accuracy)
+                            for o in self.components], dim=-1)
+
+
+AnyObjective = Union[Objective, MultiObjective]
+
+
+def is_multi_spec(spec: str) -> bool:
+    """True for '+'-joined multi-objective specs ('edap:mean+cost')."""
+    return "+" in spec
+
+
+def make_multi_objective(spec: str,
+                         area_constraint: float = AREA_CONSTRAINT_MM2,
+                         min_accuracy: float = 0.0) -> MultiObjective:
+    """Parse a '+'-joined spec into a MultiObjective
+    (``"edap:mean+cost"`` -> columns edap:mean, cost)."""
+    parts = [p.strip() for p in spec.split("+")]
+    if len(parts) < 2 or not all(parts):
+        raise ValueError(f"multi-objective spec {spec!r} needs >= 2 "
+                         "'+'-separated components")
+    return MultiObjective(tuple(make_objective(p, area_constraint,
+                                               min_accuracy)
+                                for p in parts))
 
 
 def make_objective(spec: str,
                    area_constraint: float = AREA_CONSTRAINT_MM2,
-                   min_accuracy: float = 0.0) -> Objective:
-    """Parse ``"kind[:aggregation]"`` (default aggregation ``max``)."""
-    if "+" in spec:
-        raise NotImplementedError(
-            f"multi-objective spec {spec!r}: the NSGA-II engine is not "
-            "ported yet (ROADMAP Queue 1 item 8)")
-    if min_accuracy > 0.0:
-        raise NotImplementedError(
-            "the min_accuracy constraint is not ported yet (ROADMAP "
-            "Queue 1 item 7)")
+                   min_accuracy: float = 0.0) -> AnyObjective:
+    """Parse ``"kind[:aggregation]"`` (default aggregation ``max``), or a
+    '+'-joined multi-objective spec into a ``MultiObjective``."""
+    if is_multi_spec(spec):
+        return make_multi_objective(spec, area_constraint, min_accuracy)
     kind, _, agg = spec.partition(":")
     agg = agg or "max"
-    if kind == "acc_loss":
-        raise NotImplementedError(
-            "the acc_loss objective is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
     if kind not in OBJECTIVE_KINDS:
         raise ValueError(f"unknown objective kind {kind!r}; "
                          f"expected one of {OBJECTIVE_KINDS}")
     if agg not in AGGREGATIONS:
         raise ValueError(f"unknown aggregation {agg!r}; "
                          f"expected one of {AGGREGATIONS}")
-    return Objective(kind, agg, area_constraint)
+    return Objective(kind, agg, area_constraint, min_accuracy)
 
 
 def per_workload_scores(m: CostMetrics, kind: str = "edap",
@@ -139,7 +188,9 @@ def per_workload_scores(m: CostMetrics, kind: str = "edap",
     if kind == "edap_cost":
         return e_mj * l_ms * m.cost[:, None]
     if kind == "edap_acc":
-        if accuracy is None:
-            raise ValueError("edap_acc needs the accuracy model")
+        _need_accuracy(accuracy, "edap_acc")
         return e_mj * l_ms * a / torch.clamp(accuracy, min=1e-6)
+    if kind == "acc_loss":
+        _need_accuracy(accuracy, "acc_loss")
+        return 1.0 - accuracy
     raise ValueError(kind)

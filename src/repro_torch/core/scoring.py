@@ -1,30 +1,34 @@
 """Scorer construction: one entry point for every search path;
-counterpart of ``repro/core/scoring.py`` (fixed workloads).
+counterpart of ``repro/core/scoring.py``.
 
 ``build_scorer(space, ScorerSpec(objective, workloads=wa), calib=...,
 backend=..., device=...)`` returns a ``Scorer``: the functions the
 search engines call on genome tensors of the scorer's device —
 ``score``/``feasible`` over the whole workload set, ``score_w``/
 ``feasible_w`` restricted to one workload column per design (the
-specific-baseline fan-out), ``metrics`` (CostMetrics) and, for
-accuracy-aware objectives, ``accuracy`` — plus the resolved
-``backend`` and ``device``. The reference's population sharding over a
-device mesh and its joint workload builder have no counterpart yet
-(ROADMAP Queue 1 items 10 and 7).
+specific-baseline fan-out), ``metrics`` (CostMetrics), for
+accuracy-aware objectives ``accuracy``, and for a ``MultiObjective``
+``score_vec``, the (P, D) matrix the NSGA-II engine sorts (``score`` is
+then its first column) — plus the resolved ``backend`` and ``device``.
+A ``ScorerSpec`` with a ``builder`` (``workloads.WorkloadBuilder``)
+scores the joint co-search genome. The reference's population sharding
+over a device mesh has no counterpart yet (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
 from ..device import resolve_device
 from . import nonideal
-from .cost_model import CostTables, HWConstants, evaluate_population
-from .objectives import INFEASIBLE_PENALTY, Objective, per_workload_scores
+from .cost_model import (CostTables, HWConstants, evaluate_population,
+                         evaluate_population_joint)
+from .objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
+                         per_workload_scores)
 from .search_space import SearchSpace
-from .workloads import WorkloadArrays
+from .workloads import WorkloadArrays, WorkloadBuilder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +41,11 @@ class Calib:
 
 @dataclasses.dataclass(frozen=True)
 class ScorerSpec:
-    """What to score: the objective and the packed workloads."""
-    objective: Objective
-    workloads: WorkloadArrays
+    """What to score: the objective plus exactly one workload source —
+    packed ``workloads``, or a ``builder`` for the joint co-search."""
+    objective: Union[Objective, MultiObjective]
+    workloads: Optional[WorkloadArrays] = None
+    builder: Optional[WorkloadBuilder] = None
     constants: HWConstants = HWConstants()
 
 
@@ -57,11 +63,16 @@ class Scorer:
     backend: str                    # resolved accuracy-model route
     device: torch.device
     accuracy: Optional[Callable] = None   # (P, n) -> (P, W)
+    score_vec: Optional[Callable] = None  # (P, n) -> (P, D), MO only
 
 
-def needs_accuracy(objective: Objective) -> bool:
-    """Whether the objective consumes the accuracy model."""
-    return objective.kind == "edap_acc"
+def needs_accuracy(objective: Union[Objective, MultiObjective]) -> bool:
+    """Whether the objective consumes the accuracy model: an
+    ``edap_acc`` or ``acc_loss`` component, or an accuracy floor."""
+    components = (objective.components
+                  if isinstance(objective, MultiObjective) else (objective,))
+    return any(o.kind in ("edap_acc", "acc_loss") or o.min_accuracy > 0.0
+               for o in components)
 
 
 def _column(x: torch.Tensor, w) -> torch.Tensor:
@@ -79,23 +90,45 @@ def build_scorer(space: SearchSpace, spec: ScorerSpec, *,
     dev = resolve_device(device)
     objective = spec.objective
     backend = nonideal.resolve_backend(backend, dev)
-    tables = CostTables.of(space, spec.workloads, dev)
+    is_mo = isinstance(objective, MultiObjective)
+    first = objective.components[0] if is_mo else objective
 
     acc_fn = None
     if needs_accuracy(objective):
         acc_fn = nonideal.make_accuracy_model(
-            space, spec.workloads, n_calib=calib.n_calib,
-            calib_k=calib.calib_k, backend=backend, device=dev)
+            space, spec.workloads, builder=spec.builder,
+            n_calib=calib.n_calib, calib_k=calib.calib_k, backend=backend,
+            device=dev)
 
-    def metrics(genomes):
-        return evaluate_population(space, spec.workloads, genomes.to(dev),
-                                   spec.constants, tables)
+    if spec.builder is not None:
+        tables = CostTables.joint(space, spec.builder, dev)
 
-    def score(genomes):
+        def metrics(genomes):
+            return evaluate_population_joint(space, spec.builder,
+                                             genomes.to(dev), spec.constants,
+                                             tables)
+    else:
+        tables = CostTables.of(space, spec.workloads, dev)
+
+        def metrics(genomes):
+            return evaluate_population(space, spec.workloads,
+                                       genomes.to(dev), spec.constants,
+                                       tables)
+
+    def score_full(genomes):
         m = metrics(genomes)
         if acc_fn is None:
             return objective(m)
         return objective(m, accuracy=acc_fn(genomes))
+
+    if is_mo:
+        score_vec = score_full
+
+        def score(genomes):
+            return score_full(genomes)[:, 0]
+    else:
+        score_vec = None
+        score = score_full
 
     def feasible(genomes):
         return metrics(genomes).feasible
@@ -106,11 +139,12 @@ def build_scorer(space: SearchSpace, spec: ScorerSpec, *,
     def score_w(genomes, w):
         m = metrics(genomes)
         acc = acc_fn(genomes) if acc_fn is not None else None
-        s = _column(per_workload_scores(m, objective.kind, accuracy=acc), w)
-        bad = (~_column(m.feasible_w, w)) | (m.area >
-                                              objective.area_constraint)
+        s = _column(per_workload_scores(m, first.kind, accuracy=acc), w)
+        bad = (~_column(m.feasible_w, w)) | (m.area > first.area_constraint)
+        if first.min_accuracy > 0.0:
+            bad = bad | (_column(acc, w) < first.min_accuracy)
         return torch.where(bad, torch.full_like(s, INFEASIBLE_PENALTY), s)
 
     return Scorer(score=score, feasible=feasible, score_w=score_w,
                   feasible_w=feasible_w, metrics=metrics, accuracy=acc_fn,
-                  backend=backend, device=dev)
+                  score_vec=score_vec, backend=backend, device=dev)

@@ -10,8 +10,9 @@ parameter has a discrete value table:
   system:       T_cycle, V_op, (optionally) technology node
 
 The tables are host numpy, identical to the reference's; the cost model
-moves them to the device once per scorer. ``reduced_rram_space`` and
-``joint_space`` are not ported yet (ROADMAP Queue 1 items 9 and 7).
+moves them to the device once per scorer. ``joint_space`` appends the
+workload-architecture columns of the joint co-search. The reduced
+§III-C1 space is not ported yet (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -49,10 +50,34 @@ class SearchSpace:
     values: Tuple[np.ndarray, ...]
     mem_type: str  # "rram" | "sram"
     tech_is_variable: bool
+    # Trailing workload-architecture dimensions (joint co-search): the
+    # genome is [hardware slice | arch slice], arch params named
+    # "<family>.<param>"; 0 for hardware-only spaces.
+    n_arch: int = 0
 
     @property
     def n_params(self) -> int:
         return len(self.names)
+
+    @property
+    def n_hw(self) -> int:
+        return len(self.names) - self.n_arch
+
+    @property
+    def hw_names(self) -> Tuple[str, ...]:
+        return self.names[: self.n_hw]
+
+    @property
+    def arch_names(self) -> Tuple[str, ...]:
+        return self.names[self.n_hw:]
+
+    def hw_slice(self, genomes):
+        """Hardware columns of a (..., n_params) genome array."""
+        return genomes[..., : self.n_hw]
+
+    def arch_slice(self, genomes):
+        """Architecture columns of a (..., n_params) genome array."""
+        return genomes[..., self.n_hw:]
 
     @property
     def cardinalities(self) -> np.ndarray:
@@ -126,6 +151,26 @@ def sram_space(tech_variable: bool = False) -> SearchSpace:
     if tech_variable:
         nv.append(("tech_idx", list(range(len(TECH_NODES_NM)))))
     return _mk(nv, "sram", tech_variable)
+
+
+def joint_space(base: SearchSpace, families: Sequence) -> SearchSpace:
+    """Append each family's architecture params to a hardware space as
+    ``"<family>.<param>"`` columns after the hardware slice. With no
+    families the base space is returned unchanged."""
+    families = list(families)
+    if not families:
+        return base
+    names = list(base.names)
+    values = list(base.values)
+    for fam in families:
+        for p in fam.params:
+            names.append(f"{fam.name}.{p.name}")
+            values.append(np.asarray(p.values, dtype=np.float32))
+    n_arch = base.n_arch + sum(len(f.params) for f in families)
+    return SearchSpace(names=tuple(names), values=tuple(values),
+                       mem_type=base.mem_type,
+                       tech_is_variable=base.tech_is_variable,
+                       n_arch=n_arch)
 
 
 def get_space(mem_type: str, tech_variable: bool = False) -> SearchSpace:

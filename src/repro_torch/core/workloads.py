@@ -9,15 +9,23 @@ A workload is a sequence of GEMM layers. Each layer is (M, K, N):
 MACs = M*K*N, weights = K*N. Depthwise convs are encoded (M=HW, K=kh*kw,
 N=C). The packed arrays stay host numpy; the cost model moves them to
 its device. ``from_arch_config`` exports the assigned LM architectures
-(``configs/``). The joint co-search families and builder are not
-ported yet (ROADMAP Queue 1 item 7).
+(``configs/``).
+
+Joint co-search: a ``WorkloadFamily`` (``resnet_family``,
+``vit_family``) turns architecture knobs into genome columns, and a
+``WorkloadBuilder`` maps each genome's arch slice to padded per-genome
+workload tensors by a mixed-radix index and table gathers on the
+genomes' device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import itertools
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
+import torch
 
 WEIGHT_BITS = 8  # all models quantized to 8-bit weights/activations (§IV)
 
@@ -27,10 +35,19 @@ class Workload:
     name: str
     layers: np.ndarray  # (L, 3) float64 [M, K, N]
     stored_weights: float  # weights the chip must hold (>= active for MoE)
+    # per-layer weight precision (L,) in bits; None = WEIGHT_BITS
+    # everywhere. Only the joint co-search families vary it.
+    weight_bits: Optional[np.ndarray] = None
 
     @property
     def n_layers(self) -> int:
         return int(self.layers.shape[0])
+
+    @property
+    def layer_weight_bits(self) -> np.ndarray:
+        if self.weight_bits is None:
+            return np.full((self.n_layers,), float(WEIGHT_BITS))
+        return np.asarray(self.weight_bits, dtype=np.float64)
 
 
 def _wl(name: str, layers: Sequence[Tuple[float, float, float]],
@@ -305,3 +322,290 @@ def pack(workloads: Sequence[Workload]) -> WorkloadArrays:
                           layers=layers, mask=mask, stored_weights=stored,
                           flat_layers=np.concatenate(flat, axis=0),
                           seg_ids=np.concatenate(segs, axis=0))
+
+
+# ---------------------------------------------------------------------------
+# Workload families: architecture dimensions as searchable genome slices
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ArchParam:
+    """One searchable architecture dimension of a workload family."""
+    name: str
+    values: Tuple[float, ...]
+
+
+@dataclasses.dataclass
+class WorkloadFamily:
+    """A parameterized model family whose architecture knobs become extra
+    genome dimensions in a joint co-search (``joint_space``).
+    ``build(cfg)`` maps a {param: value} dict to a ``Workload`` (with
+    per-layer ``weight_bits``); ``base_accuracy(cfg)`` is the clean
+    accuracy of that architecture."""
+    name: str
+    params: Tuple[ArchParam, ...]
+    build: Callable[[dict], Workload]
+    base_accuracy: Callable[[dict], float]
+
+    def __post_init__(self):
+        self._combos_cache: Optional[List[dict]] = None
+        self._built_cache: Optional[List[Workload]] = None
+
+    @property
+    def cardinalities(self) -> Tuple[int, ...]:
+        return tuple(len(p.values) for p in self.params)
+
+    @property
+    def n_combos(self) -> int:
+        return int(np.prod(self.cardinalities))
+
+    def combos(self) -> List[dict]:
+        """All {param: value} configs in mixed-radix order (the first
+        param is the most significant digit), the builder's index
+        order."""
+        if self._combos_cache is None:
+            self._combos_cache = [
+                dict(zip((p.name for p in self.params), vals))
+                for vals in itertools.product(*(p.values for p in self.params))
+            ]
+        return self._combos_cache
+
+    def built(self) -> List[Workload]:
+        if self._built_cache is None:
+            self._built_cache = [self.build(c) for c in self.combos()]
+        return self._built_cache
+
+    def build_at(self, idx: Sequence[int]) -> Workload:
+        cfg = {p.name: p.values[int(i)] for p, i in zip(self.params, idx)}
+        return self.build(cfg)
+
+    def accuracy_at(self, idx: Sequence[int]) -> float:
+        cfg = {p.name: p.values[int(i)] for p, i in zip(self.params, idx)}
+        return float(self.base_accuracy(cfg))
+
+    @property
+    def n_layers(self) -> int:
+        """Max layer count over the family (padded tensor depth)."""
+        return max(w.n_layers for w in self.built())
+
+
+def _resnet_at(cfg: dict) -> Workload:
+    """Uniform basic-block ResNet: depth d -> (d-2)//8 blocks per stage
+    (d=18 reproduces ``resnet18()`` exactly at width 1.0)."""
+    depth = int(cfg["depth"])
+    wm = float(cfg["width_mult"])
+    nblk = (depth - 2) // 8
+    ch = [max(8, int(round(c * wm))) for c in (64, 128, 256, 512)]
+    L: List[Tuple[float, float, float]] = [_conv(112, 3, 7, ch[0])]
+    cin = ch[0]
+    for cout, hw in zip(ch, (56, 28, 14, 7)):
+        for b in range(nblk):
+            c_in = cin if b == 0 else cout
+            L.append(_conv(hw, c_in, 3, cout))
+            L.append(_conv(hw, cout, 3, cout))
+        if cin != cout:
+            L.append(_conv(hw, cin, 1, cout))  # projection shortcut
+        cin = cout
+    L.append(_fc(ch[3], 1000))
+    arr = np.asarray(L, dtype=np.float64)
+    n = arr.shape[0]
+    wb = np.full((n,), float(cfg.get("wbits_late", WEIGHT_BITS)))
+    wb[: n // 2] = float(cfg.get("wbits_early", WEIGHT_BITS))
+    return Workload(name=f"resnet_d{depth}_w{wm:g}",
+                    layers=arr,
+                    stored_weights=float(np.sum(arr[:, 1] * arr[:, 2])),
+                    weight_bits=wb)
+
+
+def _resnet_base_acc(cfg: dict) -> float:
+    """Clean top-1 anchored at ResNet18/ImageNet = 0.698; depth and
+    width follow the published ResNet scaling trend, low-precision
+    weights cost accuracy (stronger for 4-bit)."""
+    depth = float(cfg["depth"])
+    wm = float(cfg["width_mult"])
+    bits = 0.5 * (float(cfg.get("wbits_early", 8))
+                  + float(cfg.get("wbits_late", 8)))
+    acc = (0.698 + 0.045 * np.log2(depth / 18.0)
+           + 0.030 * np.log2(wm)
+           - 0.040 * (8.0 - bits) / 4.0)
+    return float(np.clip(acc, 0.30, 0.92))
+
+
+def resnet_family() -> WorkloadFamily:
+    return WorkloadFamily(
+        name="resnet_family",
+        params=(ArchParam("depth", (10.0, 18.0, 26.0, 34.0)),
+                ArchParam("width_mult", (0.5, 1.0, 1.5)),
+                ArchParam("wbits_early", (4.0, 8.0)),
+                ArchParam("wbits_late", (4.0, 8.0))),
+        build=_resnet_at,
+        base_accuracy=_resnet_base_acc)
+
+
+def _vit_at(cfg: dict) -> Workload:
+    depth = int(cfg["depth"])
+    heads = int(cfg["heads"])
+    ff_ratio = float(cfg["ff_ratio"])
+    d = 768
+    L = [(196.0, 768.0, 768.0)]  # patch embedding (16*16*3 = 768)
+    L += _transformer_layers(197, d, int(ff_ratio * d), depth, 1000,
+                             d_head_total=heads * 64)
+    arr = np.asarray(L, dtype=np.float64)
+    wb = np.full((arr.shape[0],), float(cfg.get("wbits", WEIGHT_BITS)))
+    return Workload(name=f"vit_d{depth}_h{heads}_f{ff_ratio:g}",
+                    layers=arr,
+                    stored_weights=float(np.sum(arr[:, 1] * arr[:, 2])),
+                    weight_bits=wb)
+
+
+def _vit_base_acc(cfg: dict) -> float:
+    """Clean top-1 anchored at ViT-B/16 (depth 12, heads 12, ff 4x,
+    8-bit) = 0.779."""
+    acc = (0.779 + 0.050 * np.log2(float(cfg["depth"]) / 12.0)
+           + 0.020 * np.log2(float(cfg["heads"]) / 12.0)
+           + 0.020 * np.log2(float(cfg["ff_ratio"]) / 4.0)
+           - 0.040 * (8.0 - float(cfg.get("wbits", 8))) / 4.0)
+    return float(np.clip(acc, 0.30, 0.92))
+
+
+def vit_family() -> WorkloadFamily:
+    return WorkloadFamily(
+        name="vit_family",
+        params=(ArchParam("depth", (6.0, 12.0)),
+                ArchParam("heads", (6.0, 12.0)),
+                ArchParam("ff_ratio", (2.0, 4.0)),
+                ArchParam("wbits", (4.0, 8.0))),
+        build=_vit_at,
+        base_accuracy=_vit_base_acc)
+
+
+_FAMILY_REGISTRY = {
+    "resnet_family": resnet_family,
+    "vit_family": vit_family,
+}
+
+FAMILY_NAMES = tuple(sorted(_FAMILY_REGISTRY))
+
+
+def get_family(name: str) -> WorkloadFamily:
+    try:
+        return _FAMILY_REGISTRY[name]()
+    except KeyError:
+        raise ValueError(
+            f"unknown workload family {name!r}; valid families: "
+            + ", ".join(sorted(_FAMILY_REGISTRY))) from None
+
+
+class WorkloadTensors(NamedTuple):
+    """Per-genome workload descriptors from a ``WorkloadBuilder``.
+    Leading axes are the genomes' batch axes, then the workload slot W.
+    ``layers`` pads with benign 1.0 rows (masked out), ``wbits`` with
+    8.0."""
+    layers: torch.Tensor    # (..., W, Lmax, 3)
+    mask: torch.Tensor      # (..., W, Lmax)
+    wbits: torch.Tensor     # (..., W, Lmax)
+    stored: torch.Tensor    # (..., W)
+    base_acc: torch.Tensor  # (..., W)
+    n_layers: torch.Tensor  # (..., W)
+
+
+def _pack_combo_tables(workloads: Sequence[Workload], lmax: int):
+    C = len(workloads)
+    layers = np.ones((C, lmax, 3), dtype=np.float32)
+    mask = np.zeros((C, lmax), dtype=np.float32)
+    wbits = np.full((C, lmax), float(WEIGHT_BITS), dtype=np.float32)
+    stored = np.zeros((C,), dtype=np.float32)
+    nl = np.zeros((C,), dtype=np.float32)
+    for i, w in enumerate(workloads):
+        layers[i, : w.n_layers] = w.layers
+        mask[i, : w.n_layers] = 1.0
+        wbits[i, : w.n_layers] = w.layer_weight_bits
+        stored[i] = w.stored_weights
+        nl[i] = w.n_layers
+    return layers, mask, wbits, stored, nl
+
+
+@dataclasses.dataclass(frozen=True)
+class _BuilderSlot:
+    cols: Tuple[int, ...]       # genome columns, most-significant first
+    radices: Tuple[int, ...]    # cardinalities matching ``cols``
+    layers: np.ndarray          # (C, Lmax, 3)
+    mask: np.ndarray            # (C, Lmax)
+    wbits: np.ndarray           # (C, Lmax)
+    stored: np.ndarray          # (C,)
+    base_acc: np.ndarray        # (C,)
+    n_layers: np.ndarray        # (C,)
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkloadBuilder:
+    """Genome arch slice -> padded workload tensors.
+
+    Every architecture combo of every family slot is built once on the
+    host and packed into gather tables (one shared Lmax); a call is a
+    mixed-radix index and table gathers on the genomes' device, whose
+    copies of the tables are made once per device."""
+    names: Tuple[str, ...]
+    lmax: int
+    slots: Tuple[_BuilderSlot, ...]
+    _tables: Dict[torch.device, tuple] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    @property
+    def n_workloads(self) -> int:
+        return len(self.names)
+
+    def device_tables(self, device: torch.device) -> tuple:
+        """The slots' gather tables on ``device`` (converted once)."""
+        if device not in self._tables:
+            self._tables[device] = tuple(
+                {f: torch.as_tensor(getattr(s, f), device=device)
+                 for f in WorkloadTensors._fields}
+                for s in self.slots)
+        return self._tables[device]
+
+    def __call__(self, genomes: torch.Tensor) -> WorkloadTensors:
+        g = genomes.long()
+        per = {f: [] for f in WorkloadTensors._fields}
+        for s, tables in zip(self.slots, self.device_tables(g.device)):
+            idx = torch.zeros(g.shape[:-1], dtype=torch.int64,
+                              device=g.device)
+            for c, rad in zip(s.cols, s.radices):
+                idx = idx * rad + g[..., c]
+            for field in WorkloadTensors._fields:
+                per[field].append(tables[field][idx])
+        ax = g.dim() - 1
+        return WorkloadTensors(**{k: torch.stack(v, dim=ax)
+                                  for k, v in per.items()})
+
+
+def make_workload_builder(space, workloads: Sequence[Union[Workload,
+                                                           WorkloadFamily]]
+                          ) -> WorkloadBuilder:
+    """The genome-slice -> workload-tensor map. ``workloads`` may mix
+    fixed ``Workload``s (constant slots) and ``WorkloadFamily``s (their
+    params must be ``"<family>.<param>"`` columns of ``space``, as
+    ``joint_space`` lays them out)."""
+    from .nonideal import BASELINE_ACC, _DEFAULT_BASE_ACC
+    built: List[List[Workload]] = []
+    for w in workloads:
+        built.append(w.built() if isinstance(w, WorkloadFamily) else [w])
+    lmax = max(w.n_layers for combos in built for w in combos)
+    slots = []
+    for w, combos in zip(workloads, built):
+        layers, mask, wbits, stored, nl = _pack_combo_tables(combos, lmax)
+        if isinstance(w, WorkloadFamily):
+            cols = tuple(space.names.index(f"{w.name}.{p.name}")
+                         for p in w.params)
+            radices = w.cardinalities
+            base = np.asarray([w.base_accuracy(c) for c in w.combos()],
+                              dtype=np.float32)
+        else:
+            cols, radices = (), ()
+            base = np.asarray([BASELINE_ACC.get(w.name, _DEFAULT_BASE_ACC)],
+                              dtype=np.float32)
+        slots.append(_BuilderSlot(cols=cols, radices=radices, layers=layers,
+                                  mask=mask, wbits=wbits, stored=stored,
+                                  base_acc=base, n_layers=nl))
+    names = tuple(w.name for w in workloads)
+    return WorkloadBuilder(names=names, lmax=lmax, slots=tuple(slots))

@@ -1,6 +1,6 @@
 """Artifact/report layer: result dicts -> JSON + markdown tables;
-counterpart of ``repro/experiments/report.py`` for single-objective
-GA and random-search results.
+counterpart of ``repro/experiments/report.py`` for the GA, random-search
+and NSGA-II results.
 
   EDAP               — energy(mJ) x delay(ms) x area(mm^2), per workload
   generalization gap — % EDAP excess of the generalized (joint) design
@@ -8,11 +8,14 @@ GA and random-search results.
   baseline reduction — % EDAP reduction of the 4-phase search vs the
                        plain-GA / random-search baselines (Tables 1-2)
 
-``write_artifacts`` emits ``result.json`` + ``report.md`` per scenario;
+``write_artifacts`` emits ``result.json`` + ``report.md`` per scenario,
+with the chosen architecture of a joint co-search and the EDAP × cost
+(or EDAP × accuracy-loss) Pareto front where the result has them;
 ``render_summary`` tabulates every cached result into ``summary.md``
-with the Fig. 4 convergence section. JSON is written with sorted keys.
-The Table 3, Pareto-front and campaign sections wait for their engines
-(ROADMAP Queue 1 items 8-10).
+with the searched-vs-post-hoc front comparison
+(``render_front_comparison``) and the Fig. 4 convergence section. JSON
+is written with sorted keys. The Table 3 and campaign sections wait for
+their engines (ROADMAP Queue 1 items 9 and 10).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from ..core.pareto import front_coverage, hypervolume_2d
 
 
 def compute_gap(result: Dict) -> Dict:
@@ -105,6 +110,26 @@ def render_markdown(result: Dict) -> str:
         "|---|---|",
     ]
     lines += [f"| {k} | {v:g} |" for k, v in g["design"].items()]
+    joint = result.get("joint")
+    if joint:
+        lines += [
+            "",
+            "## Chosen workload architecture",
+            "",
+            "Joint co-search: the genome's trailing "
+            f"{joint['n_arch_dims']} dimensions select the workload "
+            "architecture (families: "
+            f"{', '.join(joint['families'])}); the values below are "
+            "what the search chose *together with* the hardware above.",
+            "",
+            "| arch parameter | value |",
+            "|---|---|",
+        ]
+        lines += [f"| {k} | {v:g} |"
+                  for k, v in joint["arch_params"].items()]
+        lines += [""]
+        lines += [f"- `{fam}` resolves to model **{model}**"
+                  for fam, model in joint["chosen_models"].items()]
     gap = result.get("gap")
     has_acc = any("accuracy" in m for m in g["per_workload"].values())
     lines += ["", "## Per-workload breakdown", ""]
@@ -128,6 +153,9 @@ def render_markdown(result: Dict) -> str:
             row += (f" {_fmt(s_edap)} | "
                     f"{_fmt(gap['per_workload_pct'][w])} |")
         lines.append(row)
+    pareto = result.get("pareto")
+    if pareto:
+        lines += _render_pareto(pareto)
     if gap:
         lines += [
             "",
@@ -154,6 +182,54 @@ def render_markdown(result: Dict) -> str:
         lines.append(
             "- all seeds executed as one lane batch on the device")
     return "\n".join(lines) + "\n"
+
+
+def _render_pareto(pareto: Dict) -> List[str]:
+    """The Pareto-front section of a scenario report (Fig. 9)."""
+    axes = pareto.get("axes", ["edap", "cost"])
+    searched = pareto.get("searched", False)
+    how = ("searched **directly** by the NSGA-II engine (rank-0 designs "
+           "of every seed's final population, pooled and re-filtered)"
+           if searched else
+           "filtered *post hoc* from the designs the scalarized search "
+           "visited (final populations, all seeds)")
+    lines = [
+        "",
+        f"## {axes[0]} × {axes[1]} Pareto front (paper Fig. 9, "
+        f"{'direct search' if searched else 'post hoc'})",
+        "",
+        f"{len(pareto['front'])} non-dominated designs out of "
+        f"{pareto['n_candidates']} feasible candidates, {how}; cost is "
+        "the technology-normalized fabrication cost alpha(tech) × area "
+        "(Table 7).",
+        "",
+        f"| {axes[1]} | {axes[0]} | tech (nm) | design |",
+        "|---|---|---|---|",
+    ]
+    for p in pareto["front"]:
+        summary = ", ".join(
+            f"{k}={v:g}" for k, v in p["design"].items()
+            if k in ("xbar_rows", "xbar_cols", "c_per_tile", "g_per_chip",
+                     "bits_cell")
+            or "." in k)  # joint arch dims ("<family>.<param>")
+        lines.append(f"| {_fmt(p[axes[1]])} | {_fmt(p[axes[0]])} "
+                     f"| {p['tech_nm']:g} | {summary} |")
+    if pareto.get("hypervolume") is not None:
+        ref = pareto.get("ref_point") or []
+        lines += [
+            "",
+            f"Hypervolume {_fmt(pareto['hypervolume'], 4)} at reference "
+            f"point ({', '.join(_fmt(r, 4) for r in ref)}) — 1.05 × the "
+            "candidate cloud's per-axis maximum; the cross-scenario "
+            "summary recomputes searched and post-hoc fronts under one "
+            "shared reference.",
+        ]
+    if searched and pareto.get("front_sizes_per_seed"):
+        lines.append(
+            f"Per-seed rank-0 front sizes: "
+            f"{pareto['front_sizes_per_seed']} (all seeds run as one lane "
+            "batch of the NSGA-II engine).")
+    return lines
 
 
 def write_artifacts(result: Dict, out_dir: str) -> None:
@@ -201,6 +277,61 @@ def baseline_reductions(results: List[Dict]) -> Dict[str, Dict]:
         if row:
             out[name] = row
     return out
+
+
+def _front_points(block: Dict) -> np.ndarray:
+    """(N, D) array of a pareto block's front coordinates."""
+    axes = block.get("axes", ["edap", "cost"])
+    return np.asarray([[p[a] for a in axes] for p in block["front"]],
+                      np.float64).reshape(-1, len(axes))
+
+
+def render_front_comparison(results: List[Dict]) -> str:
+    """Searched (NSGA-II) vs post-hoc Pareto fronts, head to head: each
+    ``<name>_mo`` result with a pareto block beside its single-objective
+    sibling ``<name>`` run at the same budget and seed count, both
+    fronts under ONE reference point (1.05 × the union's per-axis
+    maximum): hypervolume (larger = better) and Zitzler's coverage
+    C(A, B), the fraction of B's points weakly dominated by A."""
+    by_name = {r["scenario"]: r for r in results}
+    rows = []
+    for name in sorted(by_name):
+        if not name.endswith("_mo"):
+            continue
+        r_mo, r_ph = by_name[name], by_name.get(name[:-len("_mo")])
+        if r_ph is None or "pareto" not in r_mo or "pareto" not in r_ph:
+            continue
+        if (r_mo.get("budget") != r_ph.get("budget")
+                or r_mo.get("n_seeds") != r_ph.get("n_seeds")):
+            continue  # fronts of different budgets are not comparable
+        f_mo, f_ph = (_front_points(r_mo["pareto"]),
+                      _front_points(r_ph["pareto"]))
+        if (f_mo.shape[1] != 2 or f_ph.shape[1] != 2
+                or not (f_mo.size and f_ph.size)):
+            continue
+        ref = 1.05 * np.max(np.concatenate([f_mo, f_ph]), axis=0)
+        rows.append(
+            f"| {name} | {f_mo.shape[0]} | {f_ph.shape[0]} "
+            f"| {_fmt(hypervolume_2d(f_mo, ref), 4)} "
+            f"| {_fmt(hypervolume_2d(f_ph, ref), 4)} "
+            f"| {_fmt(100.0 * front_coverage(f_mo, f_ph))} "
+            f"| {_fmt(100.0 * front_coverage(f_ph, f_mo))} |")
+    if not rows:
+        return ""
+    return "\n".join([
+        "",
+        "## Searched vs post-hoc EDAP × cost fronts (Fig. 9)",
+        "",
+        "The `*_mo` scenarios search the front directly (NSGA-II); their "
+        "single-objective siblings reconstruct it post hoc from visited "
+        "designs. Hypervolume (HV) under one shared reference point; "
+        "C(A,B) = % of B's front weakly dominated by A.",
+        "",
+        "| scenario | searched front | post-hoc front | HV searched "
+        "| HV post-hoc | C(searched→post-hoc) % | "
+        "C(post-hoc→searched) % |",
+        "|---|---|---|---|---|---|---|",
+    ] + rows) + "\n"
 
 
 # budget fractions at which the Fig. 4 convergence table samples each
@@ -270,8 +401,8 @@ def render_convergence(results: List[Dict]) -> str:
 
 def render_summary(results: List[Dict]) -> str:
     """Cross-scenario markdown table (the regenerated paper tables),
-    plus the Fig. 4 convergence section when the cached results
-    support it."""
+    plus the searched-vs-post-hoc front comparison and the Fig. 4
+    convergence section when the cached results support them."""
     reductions = baseline_reductions(results)
     lines = [
         "# Experiment summary",
@@ -296,6 +427,7 @@ def render_summary(results: List[Dict]) -> str:
             f"| {_fmt(gap)} | {_fmt(red.get('plain'))} "
             f"| {_fmt(red.get('random'))} |")
     text = "\n".join(lines) + "\n"
+    text += render_front_comparison(results)
     text += render_convergence(results)
     return text
 

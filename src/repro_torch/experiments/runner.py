@@ -1,6 +1,6 @@
 """Scenario runner: registry entry -> search -> metrics -> artifacts;
 counterpart of ``repro/experiments/runner.py`` for the ``fourphase``,
-``plain`` and ``random`` algorithms with single objectives.
+``plain`` and ``random`` algorithms.
 
 A scenario's searches run as lane batches on one device
 (``core/genetic.py``): the S seeds of the generalized search are one
@@ -11,14 +11,23 @@ own workload column (``Scorer.score_w``), which is arithmetically
 identical to packing that workload alone. The random-search baseline
 loops seeds on the host, as in the reference.
 
+Multi-objective scenarios ('+'-joined objective specs) run the NSGA-II
+engine (``core/nsga.py``) with the seeds as lanes; every seed's rank-0
+designs pool into the searched Pareto front (``_searched_front_block``).
+Single-objective ``edap_cost`` scenarios get the post-hoc front of the
+designs their search visited (``_pareto_block``). Joint co-search
+scenarios (``workload_source="family"``) search a genome with trailing
+architecture columns, scored through a ``WorkloadBuilder``, and report
+the architecture chosen (the ``joint`` block).
+
 Results cache per scenario under ``<out_dir>/<scenario>/``:
   result.json          — full metrics (report.py schema), sorted keys
   report.md            — human-readable table
   specific_<wl>.json   — per-workload specific-search sub-results
 with the reference's schema (``RESULT_SCHEMA_VERSION``) and cache-key
 fields, plus a ``device`` block naming where the run happened. The
-campaign engine, the mesh and the multi-objective, Table 3 and joint
-paths are not ported yet (ROADMAP Queue 1 items 7-10).
+campaign engine, the mesh and the Table 3 path are not ported yet
+(ROADMAP Queue 1 items 9 and 10).
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,11 +45,14 @@ from ..core import nonideal
 from ..core.genetic import (FOUR_PHASES, PLAIN_PHASE, MultiSearchResult,
                             batched_joint_search, cards_of, phase_schedule,
                             random_search, search_kernel)
-from ..core.objectives import (INFEASIBLE_PENALTY, Objective, make_objective,
-                               per_workload_scores)
+from ..core.nsga import MultiMOSearchResult, batched_nsga_search
+from ..core.objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
+                               make_objective, per_workload_scores)
+from ..core.pareto import edap_cost_front, hypervolume_2d
 from ..core.scoring import Calib, Scorer, ScorerSpec, build_scorer
-from ..core.search_space import SearchSpace
-from ..core.workloads import WorkloadArrays, pack
+from ..core.search_space import TECH_32NM_INDEX, TECH_NODES_NM, SearchSpace
+from ..core.workloads import (WorkloadArrays, WorkloadBuilder,
+                              WorkloadFamily, make_workload_builder, pack)
 from ..device import resolve_device
 from . import report
 from .scenarios import Scenario, check_ported
@@ -143,6 +155,25 @@ def run_search_batched(scenario: Scenario, space: SearchSpace,
             wall_time_s=sum(r.wall_time_s for r in rs),
             sampling_time_s=0.0)
     raise ValueError(f"unknown algorithm {scenario.algorithm!r}")
+
+
+def run_mo_search_batched(scenario: Scenario, space: SearchSpace,
+                          traced: Scorer, seeds: List[int]
+                          ) -> MultiMOSearchResult:
+    """All seeds of a multi-objective scenario's NSGA-II search as one
+    lane batch, with the 4-phase schedule's crossover/mutation
+    parameters (no other algorithm has a multi-objective counterpart)."""
+    if scenario.algorithm != "fourphase":
+        raise ValueError(
+            f"multi-objective scenarios run the NSGA-II engine with the "
+            f"4-phase schedule; algorithm {scenario.algorithm!r} has no "
+            "multi-objective counterpart")
+    b = scenario.budget
+    feas = traced.feasible if scenario.mem == "rram" else None
+    return batched_nsga_search(
+        _keys(seeds, traced.device), space, traced.score_vec, p_h=b.p_h,
+        p_e=b.p_e, p_ga=b.p_ga, generations_per_phase=b.generations,
+        feasible_fn=feas)
 
 
 def _specific_budget(scenario: Scenario):
@@ -251,15 +282,130 @@ def _design_metrics(space: SearchSpace, traced: Scorer,
     }
 
 
+def _hv_of(points: np.ndarray) -> Tuple[Optional[float], Optional[List]]:
+    """Hypervolume of a 2-D minimize-front with the reference point at
+    1.05 × the per-axis maximum of the candidate cloud."""
+    if points.ndim != 2 or points.shape[1] != 2 or points.shape[0] == 0:
+        return None, None
+    ref = 1.05 * np.max(points, axis=0)
+    return hypervolume_2d(points, ref), [float(r) for r in ref]
+
+
+def _tech_nm_of(space: SearchSpace, genome: np.ndarray) -> float:
+    ti = (int(genome[space.index("tech_idx")])
+          if "tech_idx" in space.names else TECH_32NM_INDEX)
+    return float(TECH_NODES_NM[ti])
+
+
+def _pareto_block(space: SearchSpace, traced: Scorer, res: MultiSearchResult,
+                  objective: Objective) -> Dict:
+    """EDAP × fabrication-cost Pareto front over the designs the search
+    visited (final populations of every seed), Fig. 9's construction
+    *post hoc*. EDAP keeps the objective's aggregation without the cost
+    factor, so the two axes are the paper's."""
+    cand = np.unique(
+        np.asarray(res.populations).reshape(-1, space.n_params), axis=0)
+    m = traced.metrics(torch.as_tensor(cand, device=traced.device))
+    edap = Objective("edap", objective.aggregation,
+                     objective.area_constraint)(m).cpu().numpy()
+    cost = m.cost.cpu().numpy()
+    ok = np.isfinite(edap) & (edap < INFEASIBLE_PENALTY)
+    cand, edap, cost = cand[ok], edap[ok], cost[ok]
+    idx, e_f, c_f = edap_cost_front(edap, cost)
+    front = []
+    for j, e, c in zip(idx, e_f, c_f):
+        front.append({"edap": float(e), "cost": float(c),
+                      "tech_nm": _tech_nm_of(space, cand[j]),
+                      "design": space.decode(cand[j])})
+    hv, ref = _hv_of(np.stack([edap, cost], axis=1)
+                     if edap.shape[0] else np.zeros((0, 2)))
+    return {
+        "searched": False,
+        "axes": ["edap", "cost"],
+        "n_candidates": int(edap.shape[0]),
+        "points": [{"edap": float(e), "cost": float(c)}
+                   for e, c in zip(edap, cost)],
+        "front": front,
+        "hypervolume": hv,
+        "ref_point": ref,
+    }
+
+
+def _axis_labels(objective: MultiObjective) -> List[str]:
+    """Unique short labels per component (kind, suffixed on clashes)."""
+    labels, seen = [], {}
+    for o in objective.components:
+        k = o.kind
+        if k in seen:
+            seen[k] += 1
+            k = f"{k}_{seen[o.kind]}"
+        else:
+            seen[k] = 0
+        labels.append(k)
+    return labels
+
+
+def _searched_front_block(space: SearchSpace, res: MultiMOSearchResult,
+                          objective: MultiObjective
+                          ) -> Tuple[Dict, np.ndarray, np.ndarray]:
+    """The searched front: every seed's rank-0 designs pooled and
+    re-filtered to the global non-dominated subset
+    (``MultiMOSearchResult.union_front``), with the score matrix the
+    search optimized, keyed by the component kinds. Returns (block,
+    genomes, scores) of the feasible front designs."""
+    labels = _axis_labels(objective)
+    genomes, scores = res.union_front()
+    ok = np.all(scores < INFEASIBLE_PENALTY, axis=1)
+    genomes, scores = genomes[ok], scores[ok]
+    # every feasible candidate of the final populations (the cloud
+    # behind the front)
+    d = scores.shape[1] if scores.ndim == 2 else len(labels)
+    all_scores = np.asarray(res.scores).reshape(-1, d)
+    all_scores = all_scores[np.all(all_scores < INFEASIBLE_PENALTY,
+                                   axis=1)]
+    order = np.argsort(scores[:, -1], kind="stable")  # by cost, Fig. 9
+    front = []
+    for j in order:
+        entry = {lab: float(v) for lab, v in zip(labels, scores[j])}
+        entry["tech_nm"] = _tech_nm_of(space, genomes[j])
+        entry["design"] = space.decode(genomes[j])
+        front.append(entry)
+    hv, ref = (_hv_of(all_scores) if d == 2 else (None, None))
+    block = {
+        "searched": True,
+        "axes": labels,
+        "n_candidates": int(all_scores.shape[0]),
+        "points": [{lab: float(v) for lab, v in zip(labels, row)}
+                   for row in all_scores],
+        "front": front,
+        "front_sizes_per_seed": [int(np.sum(res.ranks[s] == 0))
+                                 for s in range(res.n_seeds)],
+        "hypervolume": hv,
+        "ref_point": ref,
+    }
+    return block, genomes, scores
+
+
 @dataclasses.dataclass(frozen=True)
 class ScenarioSetup:
-    """Host-side scenario state: the search space, resolved workloads,
-    their packed arrays and the objective."""
+    """Host-side scenario state: the search space, resolved workloads
+    (with the joint co-search's families and builder, else the packed
+    arrays) and the objective."""
     space: SearchSpace
     workloads: tuple
-    wa: WorkloadArrays
+    families: tuple
+    builder: Optional[WorkloadBuilder]
+    wa: Optional[WorkloadArrays]
     wl_names: tuple
-    objective: Objective
+    objective: Union[Objective, MultiObjective]
+
+    @property
+    def is_joint(self) -> bool:
+        return bool(self.families)
+
+    @property
+    def is_mo(self) -> bool:
+        return isinstance(self.objective, MultiObjective)
 
 
 def setup_scenario(scenario: Scenario) -> ScenarioSetup:
@@ -268,18 +414,33 @@ def setup_scenario(scenario: Scenario) -> ScenarioSetup:
     check_ported(scenario)
     space = scenario.space()
     workloads = scenario.resolve_workloads()
-    wa = pack(workloads)
+    families = [w for w in workloads if isinstance(w, WorkloadFamily)]
+    if families:
+        if scenario.algorithm in ("random", "alg_compare"):
+            raise ValueError(
+                f"scenario {scenario.name!r}: joint co-search scenarios "
+                f"run the GA/NSGA-II engines; algorithm "
+                f"{scenario.algorithm!r} has no joint-genome path")
+        builder = make_workload_builder(space, workloads)
+        wa = None
+        wl_names = builder.names
+    else:
+        builder = None
+        wa = pack(workloads)
+        wl_names = wa.names
     objective = make_objective(scenario.objective,
                                min_accuracy=scenario.min_accuracy)
-    return ScenarioSetup(space=space, workloads=tuple(workloads), wa=wa,
-                         wl_names=tuple(wa.names), objective=objective)
+    return ScenarioSetup(space=space, workloads=tuple(workloads),
+                         families=tuple(families), builder=builder, wa=wa,
+                         wl_names=tuple(wl_names), objective=objective)
 
 
 def build_scenario_scorer(scenario: Scenario, st: ScenarioSetup,
                           device="cuda") -> Scorer:
     """The scenario's Scorer on ``device``."""
     return build_scorer(
-        st.space, ScorerSpec(st.objective, workloads=st.wa),
+        st.space, ScorerSpec(st.objective, workloads=st.wa,
+                             builder=st.builder),
         calib=Calib(scenario.n_calib, scenario.calib_k),
         backend=scenario.backend, device=device)
 
@@ -305,25 +466,38 @@ def run_scenario(scenario: Scenario, out_dir: str = DEFAULT_OUT_DIR,
     t0 = time.perf_counter()
     st = setup_scenario(scenario)
     traced = build_scenario_scorer(scenario, st, dev)
-    res = run_search_batched(scenario, st.space, traced, seeds)
+    if st.is_mo:
+        res = run_mo_search_batched(scenario, st.space, traced, seeds)
+    else:
+        res = run_search_batched(scenario, st.space, traced, seeds)
     return finalize_result(scenario, st, traced, res, seeds,
                            out_dir=out_dir, write=write, t0=t0)
 
 
+def result_best_scores(res, is_mo: bool) -> np.ndarray:
+    """Per-seed scalar best score: the GA's best scores, or for NSGA-II
+    the last row of the ideal-point history (first objective)."""
+    if is_mo:
+        return np.asarray(res.histories[:, -1, 0])
+    return np.asarray(res.best_scores)
+
+
 def finalize_result(scenario: Scenario, st: ScenarioSetup, traced: Scorer,
-                    res: MultiSearchResult, seeds: List[int], *,
+                    res, seeds: List[int], *,
                     out_dir: str = DEFAULT_OUT_DIR, write: bool = True,
                     t0: Optional[float] = None) -> Dict:
-    """Search results -> result dict (+ artifacts), with the
-    workload-specific baselines and the generalization gap."""
+    """Search results (``MultiSearchResult`` or ``MultiMOSearchResult``)
+    -> result dict (+ artifacts), with the workload-specific baselines
+    and the generalization gap, the searched or post-hoc Pareto front
+    and the joint co-search's chosen architecture."""
     if t0 is None:
         t0 = time.perf_counter()
     seed, n_seeds = seeds[0], len(seeds)
     dev = traced.device
     sdir = os.path.join(out_dir, scenario.name)
-    space, objective = st.space, st.objective
+    space, objective, is_mo = st.space, st.objective, st.is_mo
     workloads, wl_names = st.workloads, st.wl_names
-    best_scores = np.asarray(res.best_scores)
+    best_scores = result_best_scores(res, is_mo)
     if float(np.min(best_scores)) >= INFEASIBLE_PENALTY:
         raise RuntimeError(
             f"scenario {scenario.name!r}: every seed converged to an "
@@ -331,7 +505,23 @@ def finalize_result(scenario: Scenario, st: ScenarioSetup, traced: Scorer,
             "(almost) the whole space; raise the sampling oversample "
             "or shrink the workloads")
     j_best = int(np.argmin(best_scores))
-    best = res.seed_result(j_best)
+    if is_mo:
+        pareto_block, genomes, scores = _searched_front_block(
+            space, res, objective)
+        # representative design: the searched-front point minimizing
+        # the first objective
+        if genomes.shape[0] == 0:
+            raise RuntimeError(
+                f"scenario {scenario.name!r}: the searched front holds "
+                "no feasible design")
+        best_genome = genomes[int(np.argmin(scores[:, 0]))]
+        history = res.histories[j_best, :, 0]
+        histories = res.histories[:, :, 0]
+    else:
+        best = res.seed_result(j_best)
+        best_genome = best.best_genome
+        history = np.asarray(best.history)
+        histories = np.asarray(res.histories)
     result: Dict = {
         "scenario": scenario.name,
         "mem": scenario.mem,
@@ -343,17 +533,39 @@ def finalize_result(scenario: Scenario, st: ScenarioSetup, traced: Scorer,
         "device": device_info(dev),
         "workloads": list(wl_names),
         "best_score": float(best_scores[j_best]),
-        "generalized": _design_metrics(space, traced, best.best_genome,
+        "generalized": _design_metrics(space, traced, best_genome,
                                        wl_names),
-        "history": np.asarray(best.history).tolist(),
-        "histories": np.asarray(res.histories).tolist(),
+        "history": np.asarray(history).tolist(),
+        "histories": np.asarray(histories).tolist(),
         "search_wall_time_s": res.wall_time_s,
-        "sampling_time_s": res.sampling_time_s,
+        "sampling_time_s": getattr(res, "sampling_time_s", 0.0),
         "cached": False,
     }
+    if st.is_joint:
+        # the architecture the joint search chose: the best genome's
+        # arch slice decoded, and the model each family builds there
+        g = np.asarray(best_genome)
+        decoded = space.decode(g)
+        chosen = {}
+        for f in st.families:
+            idx = [int(g[space.index(f"{f.name}.{p.name}")])
+                   for p in f.params]
+            chosen[f.name] = f.build_at(idx).name
+        result["joint"] = {
+            "families": [f.name for f in st.families],
+            "arch_params": {n: decoded[n] for n in space.arch_names},
+            "chosen_models": chosen,
+            "n_arch_dims": space.n_arch,
+        }
+    if is_mo:
+        result["pareto"] = pareto_block
+        result["history_mo"] = res.histories[j_best].tolist()
+    elif objective.kind == "edap_cost":
+        # §IV-I: the EDAP × cost trade-off the search explored
+        result["pareto"] = _pareto_block(space, traced, res, objective)
 
     gap_means = None
-    if scenario.specific_baselines and len(workloads) > 1:
+    if scenario.specific_baselines and len(workloads) > 1 and not is_mo:
         if scenario.algorithm == "random":
             spec = run_specific_sequential(scenario, space, objective,
                                            workloads, seeds, dev)

@@ -15,9 +15,10 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 from ..configs import get_config
-from ..core.search_space import SearchSpace, get_space
-from ..core.workloads import (PAPER_4, PAPER_9, Workload, from_arch_config,
-                              get_workload_set)
+from ..core.search_space import SearchSpace, get_space, joint_space
+from ..core.workloads import (FAMILY_NAMES, PAPER_4, PAPER_9,
+                              WorkloadFamily, from_arch_config, get_family,
+                              get_workload, get_workload_set)
 
 # Largest paper workload: the single-workload (specialized) design point
 # the cross-workload comparisons normalize against (paper Fig. 3).
@@ -119,13 +120,23 @@ class Scenario:
 
     def space(self) -> SearchSpace:
         check_ported(self)
-        return get_space(self.mem, self.tech_variable)
+        base = get_space(self.mem, self.tech_variable)
+        if self.workload_source == "family":
+            families = [w for w in self.resolve_workloads()
+                        if isinstance(w, WorkloadFamily)]
+            return joint_space(base, families)
+        return base
 
-    def resolve_workloads(self) -> List[Workload]:
+    def resolve_workloads(self) -> List:
         check_ported(self)
         if self.workload_source == "archs":
             return [from_arch_config(get_config(a), seq=self.seq)
                     for a in self.workloads]
+        if self.workload_source == "family":
+            # family names resolve to WorkloadFamily; fixed workload
+            # names may be mixed in (constant slots of the joint space)
+            return [get_family(n) if n in FAMILY_NAMES else get_workload(n)
+                    for n in self.workloads]
         return get_workload_set(self.workloads)
 
 
@@ -138,14 +149,6 @@ def check_ported(scenario: Scenario) -> None:
                    "Queue 1 item 9")
     elif scenario.reduced_space:
         missing = ("the reduced §III-C1 space", "Queue 1 item 9")
-    elif "+" in scenario.objective:
-        missing = ("the NSGA-II engine (core/nsga.py)", "Queue 1 item 8")
-    elif scenario.objective.startswith("edap_cost"):
-        missing = ("the EDAP × cost Pareto block (core/pareto.py)",
-                   "Queue 1 item 8")
-    elif scenario.workload_source == "family" or scenario.min_accuracy > 0:
-        missing = ("joint workload-architecture co-search",
-                   "Queue 1 item 7")
     if missing is not None:
         raise NotImplementedError(
             f"scenario {scenario.name!r} needs {missing[0]}, which is not "

@@ -174,14 +174,6 @@ def test_objectives_match(spec):
                                rtol=1e-5)
 
 
-def test_unported_objectives_name_their_roadmap_item():
-    for spec in ("edap:mean+cost", "acc_loss:mean"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_objective(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_objective("edap:mean", min_accuracy=0.6)
-
-
 # ---------------------------------------------------------------------------
 # accuracy model
 # ---------------------------------------------------------------------------

@@ -120,9 +120,7 @@ def test_other_algorithms_run(tmp_path, name):
     assert name in text
 
 
-@pytest.mark.parametrize("name", ["table3_reduced_rram", "alg_compare_rram",
-                                  "rram_tech_cost", "rram_tech_cost_mo",
-                                  "joint_rram_resnet_family"])
+@pytest.mark.parametrize("name", ["table3_reduced_rram", "alg_compare_rram"])
 def test_unported_scenarios_name_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         run_scenario(get_scenario(name), write=False, device="cpu")
@@ -191,7 +189,7 @@ def test_cli_run_and_report(tmp_path, capsys):
     assert (tmp_path / "sram_smoke" / "result.json").exists()
     assert cli.main(["report", "--out", out]) == 0
     assert "sram_smoke" in (tmp_path / "summary.md").read_text()
-    assert cli.main(["run", "--scenario", "rram_tech_cost_mo", "--device",
+    assert cli.main(["run", "--scenario", "table3_reduced_rram", "--device",
                      "cpu", "--out", out]) == 2
     assert "ROADMAP" in capsys.readouterr().err
     assert cli.main(["list"]) == 0
@@ -235,7 +233,8 @@ def _port_sources():
             "kernels/imc_matmul.py", "kernels/ops.py",
             "kernels/flash_attention.py", "models/layers.py",
             "models/attention.py", "models/transformer.py",
-            "serve/engine.py", "launch/serve.py"} <= rel
+            "serve/engine.py", "launch/serve.py", "core/nsga.py",
+            "core/pareto.py"} <= rel
     assert len(files) > 30
     return [*files, ROOT / "chip_smoke.py"]
 

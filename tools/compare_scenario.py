@@ -6,8 +6,10 @@ both on the CPU, and compare what they found.
 
 Prints one JSON object: each package's wall time, best objective score
 and generalized design, whether the generalized and every
-workload-specific design agree, and the largest relative difference of
-the best score and of the specific EDAPs. The port's GPU run of the
+workload-specific design agree (and, where the result has them, the
+joint co-search's chosen architecture and every Pareto-front design),
+and the largest relative difference of the best score and of the
+specific EDAPs. The port's GPU run of the
 same scenario is in ``chip_smoke.py``'s output.
 """
 from __future__ import annotations
@@ -52,6 +54,11 @@ def main(argv=None) -> int:
     out["same_specific_designs"] = all(
         a["specific"][w]["design"] == b["specific"][w]["design"]
         for w in a.get("specific", {}))
+    out["same_joint"] = a.get("joint") == b.get("joint")
+    out["same_front_designs"] = (
+        [p["design"] for p in a.get("pareto", {}).get("front", [])]
+        == [p["design"] for p in b.get("pareto", {}).get("front", [])])
+    out["front_size"] = len(b.get("pareto", {}).get("front", []))
     out["best_score_rel_diff"] = abs(a["best_score"] - b["best_score"]) / abs(
         a["best_score"])
     out["specific_edap_max_rel_diff"] = max(
