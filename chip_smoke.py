@@ -9,7 +9,9 @@ port's paths on the card: the ``rram_accuracy`` scenario (§IV-H,
 Eq. 4) and the joint and NSGA-II scenarios at their registry budget
 through
 ``repro_torch.experiments.runner.run_scenario`` (the ``imc_fused``
-kernel, keyed: it draws each design's noise itself), and the LM
+kernel, keyed: it draws each design's noise itself), the Table 3
+algorithm comparison (the GA and five baseline optimizers, no kernel),
+and the LM
 co-design example
 ``repro_torch.examples.codesign_lm_archs`` — ``sram_lm_archs`` at its
 registry budget, then the full-width qwen3-4b QKV projection through
@@ -108,7 +110,23 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
      re-scored on the CPU (EDAP and cost rtol 1e-5, accuracy loss 1e-4);
  17. ``rram_tech_cost`` (single objective, node in the genome): its
      post-hoc front, hypervolume and generalization gap table, and the
-     best genome re-scored on the CPU (rtol 1e-5).
+     best genome re-scored on the CPU (rtol 1e-5);
+ 18. ``table3_reduced_rram`` (paper Table 3, §III-C1) at its registry
+     budget (24 designs, 40 iterations, 5 seeds as lanes): the GA, PSO,
+     ES, SRES, CMA-ES and G3PCX on the reduced 240-design RRAM space;
+     the card's exhaustive ground truth against the CPU's (the same
+     global design, the minimum within rtol 1e-6), every algorithm's
+     per-seed best genome re-scored on the CPU (rtol 1e-5) with the hits
+     recomputed from those scores, no kernel launch (EDAP only); then
+     the same study through the port on the CPU at the same budget and
+     seeds, each algorithm's per-seed best genome equal to the card's
+     (a fork is named by algorithm and seed), its score within rtol
+     1e-5, the same hits, feasible counts and best algorithm; each
+     algorithm's hit rate on the card and the CPU, wall time and
+     evaluations, and the host time of SRES's stochastic ranking;
+ 19. ``alg_compare_rram``, the same study on the full RRAM space under
+     the constrained objective (SRES ranks by the graded penalty
+     channel), with the same checks against the best design found.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -918,6 +936,203 @@ def phase_tech_cost(torch, fused, dev, out_dir) -> dict:
     return res
 
 
+def compare_alg_compare_cpu(torch, sc, st, card_probe, res):
+    """Runs the study of ``sc`` through the port on the CPU (the same
+    runner, budget and seeds as the card's run) and holds the card's
+    per-seed results to it. Returns (CPU result, forks) where forks maps
+    each algorithm to the seed offsets whose best genome differs, all of
+    them listed in ALG_COMPARE_FORKS; an unlisted fork, or a listed one
+    that no longer forks, raises."""
+    import dataclasses
+
+    import numpy as np
+    runner = card_probe.runner
+    seeds = [sc.seed + i for i in range(sc.budget.n_seeds)]
+    with AlgCompareProbe(torch, cuda=False) as probe:
+        cpu_res = runner.run_alg_compare(dataclasses.replace(
+            sc, backend="jnp"), st.space, st.wa, st.objective, seeds,
+            device="cpu")
+    forks, unexpected = {}, []
+    for disp, alg in runner.TABLE3_ALGORITHMS:
+        card, cpu = card_probe.results[alg], probe.results[alg]
+        same = np.all(np.asarray(card.best_genomes)
+                      == np.asarray(cpu.best_genomes), axis=1)
+        forked = [i for i in range(len(seeds)) if not same[i]]
+        if forked:
+            forks[disp] = forked
+        if forked != sorted(ALG_COMPARE_FORKS.get((sc.name, disp), ())):
+            unexpected.append(f"{disp} seeds {[seeds[i] for i in forked]}")
+        cs, ps = np.asarray(card.best_scores), np.asarray(cpu.best_scores)
+        if not np.allclose(cs[same], ps[same], rtol=1e-5, atol=0):
+            raise RuntimeError(f"{sc.name} {disp}: same genomes, card scores"
+                               f" {cs} vs CPU {ps}")
+        a, c = res["algorithms"][disp], cpu_res["algorithms"][disp]
+        if not forked and (a["hits"], a["n_feasible"], a["evaluations"]) \
+                != (c["hits"], c["n_feasible"], c["evaluations"]):
+            raise RuntimeError(
+                f"{sc.name} {disp}: hits/feasible/evaluations "
+                f"{a['hits']}/{a['n_feasible']}/{a['evaluations']} on the "
+                f"card, {c['hits']}/{c['n_feasible']}/{c['evaluations']} on "
+                "the CPU")
+    if unexpected:
+        raise RuntimeError(f"{sc.name}: the card's search took another path "
+                           f"than the CPU's for {'; '.join(unexpected)} "
+                           f"(listed forks: {ALG_COMPARE_FORKS})")
+    if not forks and cpu_res["best_algorithm"] != res["best_algorithm"]:
+        raise RuntimeError(f"{sc.name}: best algorithm "
+                           f"{res['best_algorithm']} on the card, "
+                           f"{cpu_res['best_algorithm']} on the CPU")
+    return cpu_res, forks
+
+
+class AlgCompareProbe:
+    """Records, during one ``alg_compare`` run, each algorithm's last lane
+    batch (its timed dispatch: the runner calls the engines by their
+    module-level names) and the host time of SRES's stochastic ranking
+    (from a synchronize, on the card, to the permutation back)."""
+
+    def __init__(self, torch, cuda=True):
+        from repro_torch.core import baselines
+        from repro_torch.experiments import runner
+        self.torch, self.runner, self.baselines = torch, runner, baselines
+        self.cuda = cuda
+        self.results, self.rank_calls, self.rank_s = {}, 0, 0.0
+
+    def __enter__(self):
+        r, b = self.runner, self.baselines
+        self.real = (r.batched_joint_search, r.batched_baseline_search,
+                     b.stochastic_rank)
+
+        def joint(*args, **kwargs):
+            self.results["ga"] = self.real[0](*args, **kwargs)
+            return self.results["ga"]
+
+        def baseline(keys, space, score, alg, **kwargs):
+            self.results[alg] = self.real[1](keys, space, score, alg,
+                                             **kwargs)
+            return self.results[alg]
+
+        def rank(*args, **kwargs):
+            if self.cuda:
+                self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real[2](*args, **kwargs)
+            self.rank_s += time.perf_counter() - t0
+            self.rank_calls += 1
+            return out
+        r.batched_joint_search, r.batched_baseline_search = joint, baseline
+        b.stochastic_rank = rank
+        return self
+
+    def __exit__(self, *exc):
+        (self.runner.batched_joint_search,
+         self.runner.batched_baseline_search,
+         self.baselines.stochastic_rank) = self.real
+
+
+# per-seed searches of phases 18-19 known to take another path on the
+# card than on the CPU (ROADMAP Queue 3): (scenario, algorithm) -> seed
+# offsets from the scenario's seed. A fork not listed here fails the phase
+ALG_COMPARE_FORKS: dict = {}
+
+
+def phase_alg_compare(torch, counters, name, dev, out_dir) -> dict:
+    """Phases 18 and 19: one Table 3 scenario at its registry budget on
+    the card (six algorithms, 5 seeds each a lane). The reduced space's
+    exhaustive ground truth is held to the CPU's (same global design,
+    minimum within rtol 1e-6); every algorithm's per-seed best genome is
+    re-scored on the CPU (rtol 1e-5) and the hits are recomputed from
+    those scores. The same study then runs through the port on the CPU
+    at the same budget and seeds: each algorithm's per-seed best genome
+    must equal the card's (a fork is named by algorithm and seed) and
+    its score agree within rtol 1e-5, with the same hits, feasible
+    counts and best algorithm. No kernel of the port may launch: the
+    scores are ``edap:mean``, with no accuracy term."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.experiments import get_scenario
+    from repro_torch.experiments import runner
+    sc = get_scenario(name)
+    for c in counters:
+        c.launches = 0
+    with AlgCompareProbe(torch) as probe:
+        t0 = time.perf_counter()
+        res = runner.run_scenario(sc, out_dir=out_dir, force=True,
+                                  device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {c.__name__: c.launches for c in counters}
+    b = sc.budget
+    if (b.p_ga, b.total_generations, b.n_seeds) != (24, 40, 5) or \
+            res["budget"] != dataclasses.asdict(b) or any(launched.values()) \
+            or sorted(probe.results) != sorted(
+                a for _, a in runner.TABLE3_ALGORITHMS):
+        raise RuntimeError(f"{name}: budget {res['budget']}, kernel "
+                           f"launches {launched}, engines run "
+                           f"{sorted(probe.results)}")
+    st = runner.setup_scenario(sc)
+    if sc.reduced_space:
+        cpu_score = runner.make_landscape_scorer(st.space, st.wa,
+                                                 st.objective, device="cpu")
+        gmin, gdesign, n_enum = runner.enumerate_ground_truth(
+            st.space, cpu_score, "cpu")
+        gt = res["ground_truth"]
+        if not (gt["exhaustive"] and gt["n_enumerated"] == n_enum == 240
+                and gt["global_design"] == st.space.decode(gdesign)
+                and math.isclose(gt["global_min"], gmin, rel_tol=1e-6)):
+            raise RuntimeError(f"{name}: ground truth on the card {gt} vs "
+                               f"CPU {gmin} at {st.space.decode(gdesign)}")
+        log(f"{name}: exhaustive ground truth over {n_enum} designs, global "
+            f"min {gt['global_min']!r} on the card, {gmin!r} on the CPU, "
+            f"same design {json.dumps(gt['global_design'])}")
+    else:
+        cpu_sc = dataclasses.replace(sc, backend="jnp")
+        cpu_score = runner.build_scenario_scorer(cpu_sc, st,
+                                                 device="cpu").score
+    cpu_scores, worst = {}, 0.0
+    for disp, alg in runner.TABLE3_ALGORITHMS:
+        r = probe.results[alg]
+        card = np.asarray(r.best_scores)
+        cpu = cpu_score(torch.as_tensor(r.best_genomes)).numpy()
+        rel = float(np.max(np.abs(cpu - card) / np.abs(card)))
+        worst = max(worst, rel)
+        if not (np.isfinite(cpu).all() and rel <= 1e-5 and np.array_equal(
+                card, np.asarray(res["algorithms"][disp]["best_scores"],
+                                 np.float32))):
+            raise RuntimeError(f"{name} {disp}: card scores {card} vs CPU "
+                               f"re-score {cpu} (max rel {rel:.3g})")
+        cpu_scores[disp] = cpu
+    ref = (res["ground_truth"]["global_min"] if sc.reduced_space
+           else min(float(v.min()) for v in cpu_scores.values()))
+    for disp, cpu in cpu_scores.items():
+        a = res["algorithms"][disp]
+        hits = int(np.sum(cpu <= ref * (1 + 1e-4)))
+        if hits != a["hits"]:
+            raise RuntimeError(f"{name} {disp}: {a['hits']} hits on the card,"
+                               f" {hits} from the CPU re-scores")
+    cpu_res, forks = compare_alg_compare_cpu(torch, sc, st, probe, res)
+    log(f"{name} on {res['device']['name']}: wall {wall:.2f} s (run_scenario,"
+        f" every algorithm run twice: untimed, then timed), best "
+        f"{res['objective']} {res['best_score']!r} by {res['best_algorithm']};"
+        f" every per-seed best genome re-scored on the CPU, max rel "
+        f"{worst:.2e}, hits recomputed from them equal; kernel launches "
+        f"{launched}")
+    for disp, _ in runner.TABLE3_ALGORITHMS:
+        a, c = res["algorithms"][disp], cpu_res["algorithms"][disp]
+        log(f"  {disp}: hits {a['hit_rate']} (CPU {c['hit_rate']}), "
+            f"feasible {a['n_feasible']}/5 (CPU {c['n_feasible']}/5), best "
+            f"{a['best_score']:.6g}, mean wall {a['mean_wall_time_s']:.4f} s"
+            f" a seed, {a['evaluations']} evaluations a seed")
+    log(f"{name}: the port on the CPU at the same budget and seeds: best "
+        f"{cpu_res['best_score']!r} by {cpu_res['best_algorithm']}; per-seed "
+        f"forks from the card {forks or 'none'}")
+    log(f"{name}: SRES stochastic ranking {probe.rank_calls} calls "
+        f"(L=5 lanes of N=32), {probe.rank_s:.3f} s on the host in all, "
+        f"{1e3 * probe.rank_s / max(probe.rank_calls, 1):.3f} ms a call")
+    return {"res": res, "wall": wall, "rank_s": probe.rank_s}
+
+
 # phase 11: tests/test_kernels.py's flash shapes (B, S, T, H, hd, causal,
 # window, q_offset, dtype), the non-causal ragged case the reference pads
 # wrongly, and bfloat16 shapes for the tensor-core route: head dims 8
@@ -1308,6 +1523,10 @@ def main(argv=None) -> int:
         keyed_joint = phase_keyed_joint(torch, fused, dev)           # 15
         phase_mo(torch, fused, dev, out_dir)                         # 16
         phase_tech_cost(torch, fused, dev, out_dir)                  # 17
+        counters = (fused.imc_fused_gemm_keyed, fused.imc_fused_gemm,
+                    mm.imc_matmul, fa.flash_attention)
+        for name in ("table3_reduced_rram", "alg_compare_rram"):     # 18, 19
+            phase_alg_compare(torch, counters, name, dev, out_dir)
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "

@@ -1,8 +1,9 @@
 """Core of the port: search space, cost model, objectives, accuracy
-model, scorer, Hamming sampling, the four-phase GA, NSGA-II and the
-Pareto-front tools, with the joint workload-architecture co-search."""
-from .search_space import (SearchSpace, get_space, joint_space, rram_space,
-                           sram_space)
+model, scorer, Hamming sampling, the four-phase GA, NSGA-II, the Table 3
+baseline optimizers and the Pareto-front tools, with the joint
+workload-architecture co-search."""
+from .search_space import (SearchSpace, get_space, joint_space,
+                           reduced_rram_space, rram_space, sram_space)
 from .workloads import (FAMILY_NAMES, PAPER_4, PAPER_9, ArchParam, Workload,
                         WorkloadArrays, WorkloadBuilder, WorkloadFamily,
                         from_arch_config, get_family, get_workload,
@@ -26,3 +27,9 @@ from .pareto import (edap_cost_front, front_coverage, hypervolume_2d,
 from .nsga import (MOSearchResult, MultiMOSearchResult, batched_nsga_search,
                    crowding_distance, nondominated_rank, nsga_search,
                    run_nsga_loop)
+from .baselines import (BASELINE_ALGORITHMS, BaselineResult,
+                        MultiBaselineResult, baseline_kernel,
+                        baseline_scan, baseline_search,
+                        batched_baseline_search, cmaes_search, es_search,
+                        g3pcx_search, pso_search, run_baseline_loop,
+                        stochastic_rank)

@@ -11,8 +11,9 @@ parameter has a discrete value table:
 
 The tables are host numpy, identical to the reference's; the cost model
 moves them to the device once per scorer. ``joint_space`` appends the
-workload-architecture columns of the joint co-search. The reduced
-§III-C1 space is not ported yet (ROADMAP Queue 1 item 9).
+workload-architecture columns of the joint co-search;
+``reduced_rram_space`` is the exhaustively enumerable space of the
+§III-C1 algorithm comparison.
 """
 from __future__ import annotations
 
@@ -151,6 +152,19 @@ def sram_space(tech_variable: bool = False) -> SearchSpace:
     if tech_variable:
         nv.append(("tech_idx", list(range(len(TECH_NODES_NM)))))
     return _mk(nv, "sram", tech_variable)
+
+
+def reduced_rram_space() -> SearchSpace:
+    """The reduced space of §III-C1 (Bits_cell, Xbar_rows, Xbar_cols,
+    C_per_tile), 240 designs, searched by the Table 3 algorithm
+    comparison against its exhaustive enumeration."""
+    nv = [
+        ("bits_cell", [1.0, 2.0, 4.0]),
+        ("xbar_rows", [64.0, 128.0, 256.0, 512.0]),
+        ("xbar_cols", [64.0, 128.0, 256.0, 512.0]),
+        ("c_per_tile", [2.0, 4.0, 8.0, 16.0, 32.0]),
+    ]
+    return _mk(nv, "rram", False)
 
 
 def joint_space(base: SearchSpace, families: Sequence) -> SearchSpace:

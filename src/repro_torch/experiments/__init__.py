@@ -6,7 +6,7 @@ port.
   python -m repro_torch.experiments report
 """
 from .scenarios import (Budget, DEFAULT_BUDGET, REGISTRY, SMOKE_BUDGET,
-                        Scenario, check_ported, get_scenario)
+                        Scenario, get_scenario)
 from .runner import (DEFAULT_OUT_DIR, RESULT_SCHEMA_VERSION,
                      build_scenario_scorer, cache_key_fields,
                      finalize_result, load_cached_result, run_scenario,

@@ -9,8 +9,7 @@
 ``run`` executes a named scenario on ``--device`` (default ``cuda``;
 without a CUDA device it fails rather than falling back to the CPU)
 and writes ``result.json`` + ``report.md`` under ``--out``; ``report``
-aggregates every cached result into ``summary.md``. Scenarios whose
-engine is not ported yet exit with the ROADMAP item that brings them.
+aggregates every cached result into ``summary.md``.
 """
 from __future__ import annotations
 
@@ -49,6 +48,14 @@ def cmd_run(args) -> int:
                               seed=args.seed, n_seeds=args.seeds,
                               device=args.device)
     tag = "cached" if res.get("cached") else f"{res['wall_time_s']:.1f}s"
+    if res.get("algorithm") == "alg_compare":
+        hits = ", ".join(f"{n} {a['hit_rate']}"
+                         for n, a in res["algorithms"].items())
+        print(f"[{tag}] {sc.name} on {res['device']['name']}: best "
+              f"{res['objective']} score {res['best_score']:.4g} by "
+              f"{res['best_algorithm']}; hits: {hits}")
+        print(f"  -> {args.out}/{sc.name}/result.json (+ report.md)")
+        return 0
     gap = res.get("gap", {}).get("mean_pct")
     gap_s = f", mean gap {gap:.1f}%" if gap is not None else ""
     seeds = res.get("seeds")

@@ -1,6 +1,5 @@
 """Artifact/report layer: result dicts -> JSON + markdown tables;
-counterpart of ``repro/experiments/report.py`` for the GA, random-search
-and NSGA-II results.
+counterpart of ``repro/experiments/report.py``.
 
   EDAP               — energy(mJ) x delay(ms) x area(mm^2), per workload
   generalization gap — % EDAP excess of the generalized (joint) design
@@ -12,10 +11,10 @@ and NSGA-II results.
 with the chosen architecture of a joint co-search and the EDAP × cost
 (or EDAP × accuracy-loss) Pareto front where the result has them;
 ``render_summary`` tabulates every cached result into ``summary.md``
-with the searched-vs-post-hoc front comparison
-(``render_front_comparison``) and the Fig. 4 convergence section. JSON
-is written with sorted keys. The Table 3 and campaign sections wait for
-their engines (ROADMAP Queue 1 items 9 and 10).
+with the Table 3 algorithm comparison (``render_table3``), the
+searched-vs-post-hoc front comparison (``render_front_comparison``) and
+the Fig. 4 convergence section. JSON is written with sorted keys. The
+campaign section waits for its engine (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -87,8 +86,120 @@ def _fmt(x: float, nd: int = 3) -> str:
     return f"{x:.{nd}g}"
 
 
+# Canonical Table 3 row order (JSON artifacts sort keys, so display
+# order must be re-imposed on load; unknown names render last).
+TABLE3_ROW_ORDER = ("GA", "PSO", "ES", "SRES", "CMA-ES", "G3PCX")
+
+
+def _table3_rows(algorithms: Dict[str, Dict]) -> List[str]:
+    names = [n for n in TABLE3_ROW_ORDER if n in algorithms]
+    names += sorted(set(algorithms) - set(names))
+    rows = []
+    for n in names:
+        a = algorithms[n]
+        feas = f"{a.get('n_feasible', a['n_seeds'])}/{a['n_seeds']}"
+        rows.append(
+            f"| {n} | {a['hit_rate']} | {feas} "
+            f"| {_fmt(a['mean_best'], 4)} "
+            f"| {_fmt(a['std_best'], 3)} | {_fmt(a['best_score'], 4)} "
+            f"| {_fmt(a['mean_wall_time_s'], 3)} "
+            f"| {a['evaluations']} |")
+    return rows
+
+
+# mean/std are over the feasible seeds only (a 1e30 penalty score is a
+# failure marker, not a statistic); the feasible column shows how many
+# seeds found any feasible design.
+_TABLE3_HEADER = [
+    "| algorithm | global-min hits | feasible | mean best | std | best "
+    "| mean wall (s) | evals/seed |",
+    "|---|---|---|---|---|---|---|---|",
+]
+
+
+def render_table3_markdown(result: Dict) -> str:
+    """One algorithm-comparison scenario -> a Table 3 markdown report."""
+    gt = result["ground_truth"]
+    lines = [
+        f"# Scenario `{result['scenario']}`",
+        "",
+        result.get("description", ""),
+        "",
+        f"- memory: **{result['mem'].upper()}**  ·  study: "
+        f"**algorithm comparison (Table 3 / §III-C1)**  ·  objective "
+        f"landscape: `{result['objective']}`  ·  seeds: "
+        f"{result['seeds']['list']}",
+        f"- paper ref: {result.get('paper_ref') or '—'}  ·  space "
+        f"size: {result['space_size']}  ·  device: "
+        f"{result.get('device', {}).get('name', '—')}  ·  wall time: "
+        f"{_fmt(result.get('wall_time_s'), 3)} s",
+        "",
+    ]
+    if gt["exhaustive"]:
+        lines += [
+            f"Exhaustive ground truth: global minimum "
+            f"**{_fmt(gt['global_min'], 4)}** over "
+            f"{gt['n_enumerated']} enumerated designs; a seed *hits* "
+            f"when its best score is within 0.01% of it.",
+        ]
+    else:
+        lines += [
+            f"The space ({result['space_size']} designs) is too large "
+            "to enumerate; hits are measured against the best design "
+            "any algorithm found "
+            f"(**{_fmt(result['best_score'], 4)}**, by "
+            f"{result['best_algorithm']}).",
+        ]
+    lines += ["", "## Algorithm comparison (Table 3)", ""]
+    lines += _TABLE3_HEADER + _table3_rows(result["algorithms"])
+    lines += [
+        "",
+        f"Best design found by **{result['best_algorithm']}** (score "
+        f"{_fmt(result['best_score'], 4)}). All seeds of each "
+        "algorithm executed as one lane batch on the device.",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def render_table3(results: List[Dict]) -> str:
+    """Cross-scenario Table 3 section for summary.md: one block per
+    cached algorithm-comparison scenario."""
+    blocks = []
+    for r in sorted(results, key=lambda r: r["scenario"]):
+        if r.get("algorithm") != "alg_compare":
+            continue
+        gt = r["ground_truth"]
+        how = (f"exhaustive ground truth over {gt['n_enumerated']} "
+               f"designs, global min {_fmt(gt['global_min'], 4)}"
+               if gt["exhaustive"] else
+               f"hits vs best found ({_fmt(r['best_score'], 4)} by "
+               f"{r['best_algorithm']})")
+        blocks += [
+            "",
+            f"### `{r['scenario']}` — {r.get('paper_ref') or ''}",
+            "",
+            f"{len(r['seeds']['list'])} seeds, {how}.",
+            "",
+        ]
+        blocks += _TABLE3_HEADER + _table3_rows(r["algorithms"])
+    if not blocks:
+        return ""
+    return "\n".join([
+        "",
+        "## Algorithm comparison (Table 3 / §III-C1)",
+        "",
+        "GA vs PSO / (µ+λ)-ES / SRES / CMA-ES / G3PCX — the study "
+        "behind choosing the GA the co-optimization framework builds "
+        "on. Every optimizer runs its seeds as one lane batch "
+        "(core/baselines.py); hit = best score within 0.01% of the "
+        "reference minimum.",
+    ] + blocks) + "\n"
+
+
 def render_markdown(result: Dict) -> str:
     """One scenario -> a self-contained markdown report."""
+    if result.get("algorithm") == "alg_compare":
+        return render_table3_markdown(result)
     g = result["generalized"]
     lines = [
         f"# Scenario `{result['scenario']}`",
@@ -401,8 +512,9 @@ def render_convergence(results: List[Dict]) -> str:
 
 def render_summary(results: List[Dict]) -> str:
     """Cross-scenario markdown table (the regenerated paper tables),
-    plus the searched-vs-post-hoc front comparison and the Fig. 4
-    convergence section when the cached results support them."""
+    plus the Table 3 algorithm comparison, the searched-vs-post-hoc
+    front comparison and the Fig. 4 convergence section when the cached
+    results support them."""
     reductions = baseline_reductions(results)
     lines = [
         "# Experiment summary",
@@ -417,6 +529,8 @@ def render_summary(results: List[Dict]) -> str:
         "|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in results:
+        if r.get("algorithm") == "alg_compare":
+            continue  # rendered in the dedicated Table 3 section
         gap = r.get("gap", {}).get("mean_pct")
         red = reductions.get(r["scenario"], {})
         lines.append(
@@ -427,6 +541,7 @@ def render_summary(results: List[Dict]) -> str:
             f"| {_fmt(gap)} | {_fmt(red.get('plain'))} "
             f"| {_fmt(red.get('random'))} |")
     text = "\n".join(lines) + "\n"
+    text += render_table3(results)
     text += render_front_comparison(results)
     text += render_convergence(results)
     return text

@@ -1,6 +1,5 @@
 """Scenario runner: registry entry -> search -> metrics -> artifacts;
-counterpart of ``repro/experiments/runner.py`` for the ``fourphase``,
-``plain`` and ``random`` algorithms.
+counterpart of ``repro/experiments/runner.py``.
 
 A scenario's searches run as lane batches on one device
 (``core/genetic.py``): the S seeds of the generalized search are one
@@ -18,7 +17,11 @@ Single-objective ``edap_cost`` scenarios get the post-hoc front of the
 designs their search visited (``_pareto_block``). Joint co-search
 scenarios (``workload_source="family"``) search a genome with trailing
 architecture columns, scored through a ``WorkloadBuilder``, and report
-the architecture chosen (the ``joint`` block).
+the architecture chosen (the ``joint`` block). ``alg_compare``
+scenarios run the Table 3 study (``run_alg_compare``): the GA and the
+five baseline optimizers of ``core/baselines.py``, each with its seeds
+as one lane batch, scored against an exhaustive ground truth where the
+space is small enough.
 
 Results cache per scenario under ``<out_dir>/<scenario>/``:
   result.json          — full metrics (report.py schema), sorted keys
@@ -26,12 +29,13 @@ Results cache per scenario under ``<out_dir>/<scenario>/``:
   specific_<wl>.json   — per-workload specific-search sub-results
 with the reference's schema (``RESULT_SCHEMA_VERSION``) and cache-key
 fields, plus a ``device`` block naming where the run happened. The
-campaign engine, the mesh and the Table 3 path are not ported yet
-(ROADMAP Queue 1 items 9 and 10).
+campaign engine and the mesh are not ported yet (ROADMAP Queue 1
+item 10).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -42,12 +46,15 @@ import torch
 
 from .. import random as jr
 from ..core import nonideal
+from ..core.baselines import batched_baseline_search
+from ..core.cost_model import CostTables, HWConstants, evaluate_population
 from ..core.genetic import (FOUR_PHASES, PLAIN_PHASE, MultiSearchResult,
                             batched_joint_search, cards_of, phase_schedule,
                             random_search, search_kernel)
 from ..core.nsga import MultiMOSearchResult, batched_nsga_search
 from ..core.objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
-                               make_objective, per_workload_scores)
+                               aggregate_scores, make_objective,
+                               per_workload_scores)
 from ..core.pareto import edap_cost_front, hypervolume_2d
 from ..core.scoring import Calib, Scorer, ScorerSpec, build_scorer
 from ..core.search_space import TECH_32NM_INDEX, TECH_NODES_NM, SearchSpace
@@ -55,7 +62,7 @@ from ..core.workloads import (WorkloadArrays, WorkloadBuilder,
                               WorkloadFamily, make_workload_builder, pack)
 from ..device import resolve_device
 from . import report
-from .scenarios import Scenario, check_ported
+from .scenarios import Scenario
 
 DEFAULT_OUT_DIR = os.path.join("experiments", "results")
 
@@ -174,6 +181,198 @@ def run_mo_search_batched(scenario: Scenario, space: SearchSpace,
         _keys(seeds, traced.device), space, traced.score_vec, p_h=b.p_h,
         p_e=b.p_e, p_ga=b.p_ga, generations_per_phase=b.generations,
         feasible_fn=feas)
+
+
+# ---------------------------------------------------------------------------
+# Table 3 / §III-C1: the algorithm-comparison study
+# ---------------------------------------------------------------------------
+
+# Canonical Table 3 row order: the paper's GA first, then the baseline
+# optimizers of core/baselines.py (display name -> engine name).
+TABLE3_ALGORITHMS = (("GA", "ga"), ("PSO", "pso"), ("ES", "es"),
+                     ("SRES", "sres"), ("CMA-ES", "cmaes"),
+                     ("G3PCX", "g3pcx"))
+
+# Spaces up to this size get an exhaustive-enumeration ground truth
+# (the reduced §III-C1 space has 240 designs); larger spaces measure
+# hits against the best design any algorithm found.
+EXHAUSTIVE_ENUM_LIMIT = 4096
+
+
+def make_landscape_scorer(space: SearchSpace, wa: WorkloadArrays,
+                          objective: Objective,
+                          constants: HWConstants = HWConstants(),
+                          device="cuda") -> Callable:
+    """Unpenalized scorer on ``device``: the objective's per-workload
+    scores aggregated with its scheme, WITHOUT the feasibility/area
+    wall. The §III-C1 reduced-space study probes optimizer behaviour on
+    the multi-modal utilization landscape, not constraint handling."""
+    dev = resolve_device(device)
+    tables = CostTables.of(space, wa, dev)
+
+    def score(genomes: torch.Tensor) -> torch.Tensor:
+        m = evaluate_population(space, wa, genomes.to(dev), constants,
+                                tables)
+        return aggregate_scores(per_workload_scores(m, objective.kind),
+                                objective.aggregation)
+
+    return score
+
+
+def make_infeasibility_penalty(traced: Scorer,
+                               objective: Objective) -> Callable:
+    """Graded penalty channel for SRES's stochastic ranking: (N, n)
+    genomes to ((N,) scores, (N,) penalties), the penalty the fraction
+    of capacity-infeasible workloads plus the relative area excess,
+    exactly 0 for a feasible design. One cost-model pass serves the
+    penalty and the score (``Scorer.score``'s value, bit for bit),
+    where the reference relies on XLA merging its two passes."""
+    ac = objective.area_constraint
+    inv_ac = float(np.float32(1.0) / np.float32(ac))
+
+    def evaluate(genomes: torch.Tensor):
+        m = traced.metrics(genomes)
+        if traced.accuracy is None:
+            s = objective(m)
+        else:
+            s = objective(m, accuracy=traced.accuracy(genomes))
+        W = m.feasible_w.shape[1]
+        infeas = ((1.0 - m.feasible_w.float()).sum(dim=1)
+                  * float(np.float32(1.0) / np.float32(W)))
+        over = torch.clamp(m.area - ac, min=0.0) * inv_ac
+        return s, infeas + over
+
+    return evaluate
+
+
+def enumerate_ground_truth(space: SearchSpace, score_fn: Callable,
+                           device="cuda") -> Tuple[float, np.ndarray, int]:
+    """Score the whole space in one call on ``device`` (the caller gates
+    on EXHAUSTIVE_ENUM_LIMIT): (global_min, argmin genome, N). Raises
+    when every design scores infeasible or non-finite."""
+    combos = np.asarray(list(itertools.product(
+        *[range(len(v)) for v in space.values])), np.int64)
+    scores = score_fn(torch.as_tensor(combos, device=device)).cpu().numpy()
+    finite = np.isfinite(scores) & (scores < INFEASIBLE_PENALTY)
+    if not finite.any():
+        raise RuntimeError(
+            f"exhaustive enumeration of the {space.mem_type} space "
+            f"({combos.shape[0]} designs): every design scores "
+            "infeasible, so the ground-truth global minimum is "
+            "undefined — check the workload set / area constraint "
+            "before regenerating Table 3")
+    j = int(np.argmin(np.where(finite, scores, np.inf)))
+    return float(scores[j]), combos[j], int(combos.shape[0])
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_alg_compare(scenario: Scenario, space: SearchSpace,
+                    wa: WorkloadArrays, objective: Objective,
+                    seeds: List[int], device="cuda") -> Dict:
+    """The §III-C1 / Table 3 study: GA vs PSO/ES/SRES/CMA-ES/G3PCX on
+    ``device``, every algorithm's seeds as one lane batch. The
+    reduced-space scenario scores the unpenalized landscape against an
+    exhaustive ground truth; the full-space one keeps the real
+    constrained objective and feeds SRES the graded infeasibility
+    penalty channel. Wall times are steady state: each algorithm runs
+    once untimed, then again, timed, between device synchronizations
+    (the reference's protocol, whose first run compiles)."""
+    if isinstance(objective, MultiObjective):
+        raise TypeError("the algorithm-comparison study is single-"
+                        "objective; got a multi-objective spec")
+    dev = resolve_device(device)
+    b = scenario.budget
+    pop, iters = b.p_ga, b.total_generations
+    if scenario.reduced_space:
+        score = make_landscape_scorer(space, wa, objective, device=dev)
+        penalty = None
+    else:
+        traced = build_scorer(space, ScorerSpec(objective, workloads=wa),
+                              calib=Calib(scenario.n_calib,
+                                          scenario.calib_k),
+                              backend=scenario.backend, device=dev)
+        score = traced.score
+        penalty = make_infeasibility_penalty(traced, objective)
+
+    gt: Dict = {"exhaustive": False, "global_min": None,
+                "criterion": "best found across all algorithms"}
+    if space.size <= EXHAUSTIVE_ENUM_LIMIT:
+        gmin, gdesign, n_enum = enumerate_ground_truth(space, score, dev)
+        gt = {"exhaustive": True, "global_min": gmin,
+              "global_design": space.decode(gdesign),
+              "n_enumerated": n_enum,
+              "criterion": "score <= global_min * (1 + 1e-4)"}
+
+    keys = _keys(seeds, dev)
+    raw: Dict[str, Tuple] = {}
+    for name, alg in TABLE3_ALGORITHMS:
+        if alg == "ga":
+            # plain GA, random init (the §III-C1 protocol predates the
+            # 4-phase schedule and Hamming sampling): the kernel draws
+            # exactly p_ga uniform genomes, so the evaluations are the
+            # whole budget
+            def dispatch():
+                return batched_joint_search(
+                    keys, space, score, p_h=pop, p_e=pop, p_ga=pop,
+                    generations_per_phase=iters, phases=(PLAIN_PHASE,),
+                    hamming_sampling=False)
+            evals = pop * (iters + 1)
+        else:
+            def dispatch(alg=alg):
+                return batched_baseline_search(
+                    keys, space, score, alg, pop=pop, iters=iters,
+                    penalty_fn=penalty if alg == "sres" else None)
+            evals = None
+        dispatch()
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = dispatch()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        raw[name] = (np.asarray(r.best_scores), np.asarray(r.best_genomes),
+                     wall, evals if evals is not None else r.evaluations)
+
+    best_found = min(float(np.min(s)) for s, _, _, _ in raw.values())
+    if best_found >= INFEASIBLE_PENALTY:
+        raise RuntimeError(
+            f"scenario {scenario.name!r}: no algorithm found a feasible "
+            "design at this budget — raise the budget or check the "
+            "constraints")
+    ref = gt["global_min"] if gt["exhaustive"] else best_found
+    algorithms: Dict[str, Dict] = {}
+    for name, _ in TABLE3_ALGORITHMS:
+        s, g, wall, evals = raw[name]
+        hits = int(np.sum(s <= ref * (1 + 1e-4)))
+        j = int(np.argmin(s))
+        # mean/std over the seeds that found a feasible design: a 1e30
+        # penalty score is a failure marker, not a statistic
+        feas = s[s < INFEASIBLE_PENALTY]
+        algorithms[name] = {
+            "hits": hits,
+            "n_seeds": len(seeds),
+            "n_feasible": int(feas.shape[0]),
+            "hit_rate": f"{hits}/{len(seeds)}",
+            "best_scores": [float(x) for x in s],
+            "mean_best": float(np.mean(feas)) if feas.size else
+            float("nan"),
+            "std_best": float(np.std(feas)) if feas.size else float("nan"),
+            "best_score": float(s[j]),
+            "best_design": space.decode(g[j]),
+            "mean_wall_time_s": wall / len(seeds),
+            "evaluations": int(evals),
+        }
+    winner = min(algorithms, key=lambda n: algorithms[n]["best_score"])
+    return {
+        "space_size": int(space.size),
+        "ground_truth": gt,
+        "algorithms": algorithms,
+        "best_algorithm": winner,
+        "best_score": algorithms[winner]["best_score"],
+    }
 
 
 def _specific_budget(scenario: Scenario):
@@ -409,9 +608,8 @@ class ScenarioSetup:
 
 
 def setup_scenario(scenario: Scenario) -> ScenarioSetup:
-    """Resolve a scenario's space/workloads/objective (no device work);
-    raises ``NotImplementedError`` for engines not ported yet."""
-    check_ported(scenario)
+    """Resolve a scenario's space/workloads/objective (no device
+    work)."""
     space = scenario.space()
     workloads = scenario.resolve_workloads()
     families = [w for w in workloads if isinstance(w, WorkloadFamily)]
@@ -465,6 +663,30 @@ def run_scenario(scenario: Scenario, out_dir: str = DEFAULT_OUT_DIR,
 
     t0 = time.perf_counter()
     st = setup_scenario(scenario)
+    if scenario.algorithm == "alg_compare":
+        # Table 3 / §III-C1: six algorithms, per-algorithm hit-rate
+        # statistics — its own result schema, the same cache/artifact
+        # plumbing (report.render_markdown branches on the algorithm)
+        result = {
+            "scenario": scenario.name,
+            "mem": scenario.mem,
+            "algorithm": scenario.algorithm,
+            "objective": scenario.objective,
+            "paper_ref": scenario.paper_ref,
+            "description": scenario.description,
+            "workloads": list(st.wl_names),
+            "seeds": {"count": n_seeds, "list": seeds},
+            "cached": False,
+            "device": device_info(dev),
+            **cache_key_fields(scenario, seed, n_seeds, dev),
+        }
+        result.update(run_alg_compare(scenario, st.space, st.wa,
+                                      st.objective, seeds, dev))
+        result["wall_time_s"] = time.perf_counter() - t0
+        if write:
+            report.write_artifacts(result,
+                                   os.path.join(out_dir, scenario.name))
+        return result
     traced = build_scenario_scorer(scenario, st, dev)
     if st.is_mo:
         res = run_mo_search_batched(scenario, st.space, traced, seeds)

@@ -5,9 +5,8 @@ The whole ``REGISTRY`` is copied, so scenario names, budgets and cache
 keys line up with the reference's. Each Scenario names one cell of the
 paper's evaluation grid — {RRAM, SRAM} x {single-workload,
 small-set/4, large-set/9} x {optimized 4-phase GA, plain GA,
-random-search baseline} — plus the beyond-paper scenarios. A scenario
-whose engine is not ported yet raises ``NotImplementedError`` naming
-the ROADMAP item (``check_ported``).
+random-search baseline} — plus the Table 3 algorithm comparison and
+the beyond-paper scenarios.
 """
 from __future__ import annotations
 
@@ -15,7 +14,8 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 from ..configs import get_config
-from ..core.search_space import SearchSpace, get_space, joint_space
+from ..core.search_space import (SearchSpace, get_space, joint_space,
+                                 reduced_rram_space)
 from ..core.workloads import (FAMILY_NAMES, PAPER_4, PAPER_9,
                               WorkloadFamily, from_arch_config, get_family,
                               get_workload, get_workload_set)
@@ -119,8 +119,12 @@ class Scenario:
     description: str = ""
 
     def space(self) -> SearchSpace:
-        check_ported(self)
-        base = get_space(self.mem, self.tech_variable)
+        if self.reduced_space:
+            if self.mem != "rram":
+                raise ValueError("the §III-C1 reduced space is RRAM")
+            base = reduced_rram_space()
+        else:
+            base = get_space(self.mem, self.tech_variable)
         if self.workload_source == "family":
             families = [w for w in self.resolve_workloads()
                         if isinstance(w, WorkloadFamily)]
@@ -128,7 +132,6 @@ class Scenario:
         return base
 
     def resolve_workloads(self) -> List:
-        check_ported(self)
         if self.workload_source == "archs":
             return [from_arch_config(get_config(a), seq=self.seq)
                     for a in self.workloads]
@@ -138,21 +141,6 @@ class Scenario:
             return [get_family(n) if n in FAMILY_NAMES else get_workload(n)
                     for n in self.workloads]
         return get_workload_set(self.workloads)
-
-
-def check_ported(scenario: Scenario) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item when the
-    scenario needs an engine or model the port does not have yet."""
-    missing = None
-    if scenario.algorithm == "alg_compare":
-        missing = ("the Table 3 baseline optimizers (core/baselines.py)",
-                   "Queue 1 item 9")
-    elif scenario.reduced_space:
-        missing = ("the reduced §III-C1 space", "Queue 1 item 9")
-    if missing is not None:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r} needs {missing[0]}, which is not "
-            f"ported yet (ROADMAP {missing[1]})")
 
 
 def _build_registry() -> Dict[str, Scenario]:

@@ -18,7 +18,8 @@ Counterparts in ``jax/_src/prng.py``: ``threefry_seed``,
 ``_threefry2x32_lowering``, ``iota_2x32_shape``,
 ``_threefry_split_foldlike``, ``threefry_fold_in`` and
 ``_threefry_random_bits_partitionable``; in ``jax/_src/random.py``:
-``_uniform``, ``_randint``, ``_normal_real`` and ``_bernoulli``.
+``_uniform``, ``_randint``, ``_normal_real``, ``_bernoulli``,
+``_shuffle`` (``permutation``) and ``choice`` without replacement.
 
 ``normal`` is ``sqrt(2) * erf_inv(u)`` with XLA's single-precision
 ``erf_inv`` polynomial (Giles), whose Horner steps XLA contracts into
@@ -145,10 +146,13 @@ _ERFINV_GE5 = np.array([-0.000200214257, 0.000100950558, 0.00134934322,
                         0.00943887047, 1.00167406, 2.83297682], np.float32)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def _fma(a, b, c) -> torch.Tensor:
     # float32 fused multiply-add: the float64 product of two float32
-    # values is exact, so one rounding of the sum to float32 remains
-    return (a.double() * b.double() + c.double()).float()
+    # values is exact, so one rounding of the sum to float32 remains.
+    # An operand may be a Python float holding a float32 value
+    a, b, c = (x.double() if isinstance(x, torch.Tensor) else x
+               for x in (a, b, c))
+    return (a * b + c).float()
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -214,3 +218,31 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int
            + lower % span) & _M32
     off = off % span
     return (minval + off).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``(..., 2)`` keys -> ``(...,
+    n)`` int32 shuffles of ``arange(n)``. JAX's ``_shuffle``: a fixed
+    number of rounds, ``ceil(3 ln(max(1, n)) / ln(2^32 - 1))`` (one up to
+    n of about 1600), each splitting the key and stably sorting the
+    values by fresh 32-bit words. The words stay unsigned in int64, so
+    the sort sees JAX's uint32 order."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(float(_M32))))
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(
+        *key.shape[:-1], n)
+    for _ in range(rounds):
+        ks = split(key)
+        key = ks[..., 0, :]
+        order = torch.argsort(random_bits(ks[..., 1, :], (n,)), dim=-1,
+                              stable=True)
+        x = torch.gather(x, -1, order)
+    return x.to(torch.int32)
+
+
+def choice(key: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """``jax.random.choice(key, n, (k,), replace=False)``: the first
+    ``k`` entries of ``permutation(key, n)``, ``(..., k)`` int32."""
+    if not 0 <= int(k) <= int(n):
+        raise ValueError(f"cannot draw {k} of {n} without replacement")
+    return permutation(key, n)[..., :int(k)]

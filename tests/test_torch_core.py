@@ -49,14 +49,13 @@ torch.set_num_threads(1)
 
 
 def _ported(sc) -> bool:
-    return (sc.workload_source in ("paper", "archs") and not sc.reduced_space
-            and sc.algorithm != "alg_compare")
+    return sc.workload_source in ("paper", "archs")
 
 
 def _cost_configs():
     seen, out = set(), []
     for name, sc in REGISTRY.items():
-        key = (sc.mem, sc.tech_variable, sc.workloads)
+        key = (sc.mem, sc.tech_variable, sc.reduced_space, sc.workloads)
         if _ported(sc) and key not in seen:
             seen.add(key)
             out.append(name)
@@ -132,8 +131,7 @@ def test_cost_metrics_match_on_registry_config(name):
     latency (and area/cost with the node in the genome) within rtol
     1e-6 — see ROADMAP Queue 3."""
     sc = REGISTRY[name]
-    jspace, jwa = (jget_space(sc.mem, sc.tech_variable),
-                   jpack(sc.resolve_workloads()))
+    jspace, jwa = sc.space(), jpack(sc.resolve_workloads())
     g = _genomes(jspace, 512, seed=len(name))
     ref = jmake_evaluator(jspace, jwa)(jnp.asarray(g))
     port = cost_model.evaluate_population(

@@ -3,7 +3,7 @@ kernels against their plain versions, the wrappers' input checks, the
 accuracy model's 'cuda' backend, the host accuracy oracle through the
 bit-serial GEMM kernel, one scenario on the card, and the LM serving
 engine on the card (through the flash attention kernel) against the
-CPU. They
+CPU, and the Table 3 engine's draws and stochastic ranking. They
 carry the ``gpu`` marker and skip without a CUDA device. This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is not installed:
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.core import get_space, get_workload_set, pack
+from repro_torch.core.baselines import stochastic_rank
 from repro_torch.core.nonideal import accuracy_proxy_host, make_accuracy_model
 from repro_torch.core.sampling import uniform_genomes
 from repro_torch.experiments import get_scenario, run_scenario
@@ -467,3 +468,28 @@ def test_engine_on_card_matches_cpu(cuda):
         outs.append({i: r.output for i, r in done.items()})
     assert flash_attention.launches - before == cfg.n_layers * len(prompts)
     assert outs[0] == outs[1]
+
+
+def test_permutation_and_stochastic_rank_on_card_match_cpu(cuda):
+    """The Table 3 engine's draws and SRES's ranking with CUDA tensors:
+    ``permutation``/``choice`` and ``stochastic_rank`` (coin flips drawn
+    on the card, ranked on the host) equal the CPU's bit for bit."""
+    keys = torch.stack([jr.PRNGKey(s) for s in range(8)])
+    for n in (1, 2, 23, 24, 300, 1700):
+        want = jr.permutation(keys, n)
+        got = jr.permutation(keys.to(cuda), n)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(jr.choice(keys.to(cuda), n, 1).cpu(),
+                           jr.choice(keys, n, 1))
+    rng = np.random.default_rng(0)
+    for n in (2, 32):
+        f = torch.from_numpy(rng.integers(0, 6, (8, n)).astype(np.float32))
+        phi = torch.from_numpy(
+            (rng.integers(0, 3, (8, n)) * 0.5).astype(np.float32))
+        for p_f in (0.0, 0.45, 1.0):
+            want = stochastic_rank(keys, f, phi, p_f)
+            got = stochastic_rank(keys.to(cuda), f.to(cuda), phi.to(cuda),
+                                  p_f)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), want)

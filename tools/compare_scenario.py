@@ -9,8 +9,11 @@ and generalized design, whether the generalized and every
 workload-specific design agree (and, where the result has them, the
 joint co-search's chosen architecture and every Pareto-front design),
 and the largest relative difference of the best score and of the
-specific EDAPs. The port's GPU run of the
-same scenario is in ``chip_smoke.py``'s output.
+specific EDAPs. For a Table 3 scenario (``alg_compare``) it compares,
+per algorithm, the per-seed best scores, the best design, ``hits``,
+``n_feasible`` and ``evaluations``, and the ground truth, the best
+algorithm and the best score. The port's GPU run of the same scenario
+is in ``chip_smoke.py``'s output.
 """
 from __future__ import annotations
 
@@ -18,6 +21,44 @@ import argparse
 import dataclasses
 import json
 import time
+
+
+def _rel(x: float, y: float) -> float:
+    return abs(x - y) / abs(x)
+
+
+def compare_alg(a: dict, b: dict) -> dict:
+    """The Table 3 schema: per algorithm, the per-seed best scores'
+    largest relative difference, and whether the best design, hits,
+    feasible seeds and evaluations agree; the ground truth, the best
+    algorithm and the best score."""
+    algs = {}
+    for name, x in a["algorithms"].items():
+        y = b["algorithms"][name]
+        algs[name] = {
+            "best_scores_max_rel_diff": max(
+                _rel(p, q) for p, q in zip(x["best_scores"],
+                                           y["best_scores"])),
+            "same_best_design": x["best_design"] == y["best_design"],
+            **{f"same_{k}": x[k] == y[k]
+               for k in ("hits", "n_feasible", "evaluations")},
+            "hits": y["hit_rate"]}
+    ga, gb = a["ground_truth"], b["ground_truth"]
+    return {
+        "algorithms": algs,
+        "same_ground_truth_design": ga.get("global_design")
+        == gb.get("global_design"),
+        "ground_truth_rel_diff": (_rel(ga["global_min"], gb["global_min"])
+                                  if ga["exhaustive"] else None),
+        "same_best_algorithm": a["best_algorithm"] == b["best_algorithm"],
+        "best_score_rel_diff": _rel(a["best_score"], b["best_score"]),
+        "all_agree": (all(v["same_best_design"] and v["same_hits"]
+                          and v["same_n_feasible"] and v["same_evaluations"]
+                          and v["best_scores_max_rel_diff"] <= 1e-5
+                          for v in algs.values())
+                      and ga.get("global_design") == gb.get("global_design")
+                      and a["best_algorithm"] == b["best_algorithm"]),
+    }
 
 
 def main(argv=None) -> int:
@@ -47,8 +88,15 @@ def main(argv=None) -> int:
         runs[pkg] = res
         out[pkg] = {"wall_s": time.perf_counter() - t0,
                     "best_score": res["best_score"],
-                    "design": res["generalized"]["design"]}
+                    "design": (res["generalized"]["design"]
+                               if "generalized" in res else
+                               res["algorithms"][res["best_algorithm"]][
+                                   "best_design"])}
     a, b = runs["jax"], runs["torch"]
+    if a["algorithm"] == "alg_compare":
+        out.update(compare_alg(a, b))
+        print(json.dumps(out, indent=1))
+        return 0
     out["same_generalized_design"] = (a["generalized"]["design"]
                                       == b["generalized"]["design"])
     out["same_specific_designs"] = all(

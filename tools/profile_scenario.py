@@ -16,7 +16,10 @@ The accuracy model's share: every function ``make_accuracy_model``
 returns runs inside a ``torch.profiler.record_function("accuracy_model")``
 range; the tool counts the calls, their host time, the kernel-launch
 calls of the CUDA runtime inside them, and the device kernels the
-profiler attributes to them with their device time. ``--src`` profiles
+profiler attributes to them with their device time. SRES's ranking
+(``core/baselines.stochastic_rank``, a host loop after one copy from
+the card) runs inside a ``sres_ranking`` range, counted the same way.
+``--src`` profiles
 the ``repro_torch`` package of another checkout (for example the parent
 commit unpacked beside this one), so two versions can be compared by
 the same tool in one run.
@@ -34,6 +37,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RANGE = "accuracy_model"
+RANK_RANGE = "sres_ranking"
 # the port's hand-written kernels, by a part of their device names
 PORT_KERNELS = ("imc_fused_kernel", "imc_matmul_kernel", "flash_kernel",
                 "flash_wgmma_kernel")
@@ -54,11 +58,22 @@ def trace_accuracy_model(torch, nonideal) -> None:
     nonideal.make_accuracy_model = make_traced
 
 
-def accuracy_share(torch, events) -> dict:
+def trace_ranking(torch, baselines) -> None:
+    """Run SRES's stochastic ranking in the RANK_RANGE range (the ES
+    step calls it by its module-level name)."""
+    rank = baselines.stochastic_rank
+
+    def rank_traced(*args, **kwargs):
+        with torch.profiler.record_function(RANK_RANGE):
+            return rank(*args, **kwargs)
+    baselines.stochastic_rank = rank_traced
+
+
+def accuracy_share(torch, events, name=RANGE) -> dict:
     """Calls, host time, the operations called directly inside (the
     range's child events), runtime launch calls, and the attributed
-    device kernels with their time, inside the RANGE ranges."""
-    ranges = [e for e in events if e.name == RANGE
+    device kernels with their time, inside the ``name`` ranges."""
+    ranges = [e for e in events if e.name == name
               and e.device_type == torch.autograd.DeviceType.CPU]
     launch_calls, kernels, kernel_us = 0, 0, 0.0
     stack = list(ranges)
@@ -91,7 +106,7 @@ def main(argv=None) -> int:
         print("profile_scenario: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch.core import nonideal
+    from repro_torch.core import baselines, nonideal
     from repro_torch.experiments import get_scenario, run_scenario
     from repro_torch.kernels import imc_fused
 
@@ -99,6 +114,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     trace_accuracy_model(torch, nonideal)
+    trace_ranking(torch, baselines)
     sc = get_scenario(args.scenario)
     if args.smoke:
         sc = dataclasses.replace(sc, budget=sc.smoke_budget)
@@ -121,7 +137,7 @@ def main(argv=None) -> int:
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and e.name != RANGE]
+               and e.name not in (RANGE, RANK_RANGE)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur = 0.0, None
     for s, e in spans:
@@ -148,6 +164,7 @@ def main(argv=None) -> int:
     for v in port.values():
         v["mean_ms"] = v["total_ms"] / v["count"]
     acc = accuracy_share(torch, events)
+    rank = accuracy_share(torch, events, RANK_RANGE)
     summary = {
         "card": card, "scenario": args.scenario, "smoke": args.smoke,
         "src": os.path.abspath(args.src),
@@ -165,6 +182,9 @@ def main(argv=None) -> int:
                                   if kernels else None),
             "share_of_device_time": (acc["device_s"] / (busy_us / 1e6)
                                      if busy_us else None)},
+        "sres_ranking": {"calls": rank["calls"], "host_s": rank["host_s"],
+                         "share_of_wall": rank["host_s"] / wall_s,
+                         "kernels": rank["kernels"]},
         "port_kernels": port,
         "top_kernels": [{"name": n[:120], "count": c, "total_ms": t / 1e3}
                         for n, (c, t) in top],
