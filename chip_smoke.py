@@ -11,7 +11,8 @@ through
 ``repro_torch.experiments.runner.run_scenario`` (the ``imc_fused``
 kernel, keyed: it draws each design's noise itself), the Table 3
 algorithm comparison (the GA and five baseline optimizers, no kernel),
-and the LM
+every registry scenario through the campaign engine (``run --all``) and
+a burst of requests through the co-design service, and the LM
 co-design example
 ``repro_torch.examples.codesign_lm_archs`` — ``sram_lm_archs`` at its
 registry budget, then the full-width qwen3-4b QKV projection through
@@ -126,7 +127,24 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
      evaluations, and the host time of SRES's stochastic ranking;
  19. ``alg_compare_rram``, the same study on the full RRAM space under
      the constrained objective (SRES ranks by the graded penalty
-     channel), with the same checks against the best design found.
+     channel), with the same checks against the best design found;
+ 20. ``run --all``: ``campaign.run_campaign`` over all 31 registry
+     scenarios at their registry budgets with a fresh output directory
+     and kernel-build cache; every bucket-kind scenario's result.json
+     equal, timing fields aside, to the sequential ``run_scenario`` of it
+     on the card (phases 5, 7, 10, 14, 16 and 17's runs reused); the
+     buckets, lanes, padding, scenarios/s, cache counters and the keyed
+     kernel's launches; then the bucket-kind scenarios again with
+     ``force=True`` and the same cache: every bucket signature a hit and
+     no kernel library built;
+ 21. the co-design service: 8 ``rram_accuracy`` requests (seeds 0..7)
+     submitted before its worker starts, so one window makes one bucket
+     of 8 main + 32 specific-baseline lanes through the keyed kernel;
+     every response equal to its seed's sequential run on the card; the
+     bucket's wall against the 8 sequential walls, the keyed launches of
+     each, then each side under the profiler for its device launches
+     and idle share; with time left, ``joint_rram_resnet_family`` with
+     seeds 0..3.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -1133,6 +1151,211 @@ def phase_alg_compare(torch, counters, name, dev, out_dir) -> dict:
     return {"res": res, "wall": wall, "rank_s": probe.rank_s}
 
 
+TIMING_FIELDS = ("wall_time_s", "search_wall_time_s", "sampling_time_s",
+                 "cached")
+
+
+def same_result(a: dict, b: dict) -> bool:
+    """Two result dicts equal as result.json text, timing fields and
+    the cache flag left out."""
+    def text(d):
+        return json.dumps({k: v for k, v in d.items()
+                           if k not in TIMING_FIELDS},
+                          sort_keys=True, default=float)
+    return text(a) == text(b)
+
+
+def phase_campaign(torch, counters, dev, seq) -> dict:
+    """Phase 20: ``run --all`` on the card: ``campaign.run_campaign``
+    over every registry scenario at its registry budget with a fresh
+    output directory and kernel-build cache. Each bucket-kind scenario's
+    result.json is held to the sequential ``run_scenario`` of it on the
+    card (``seq`` holds earlier phases' runs of the same scenario, budget
+    and seed; the rest run here), timing fields aside. Then a second
+    campaign over the bucket-kind scenarios, ``force=True``, the same
+    cache: every bucket signature a hit and no kernel library built."""
+    from repro_torch.experiments import REGISTRY, campaign
+    from repro_torch.experiments.runner import run_scenario
+    from repro_torch.kernels import build
+    default_build = build.BUILD_DIR
+    scs = list(REGISTRY.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        out, cache = os.path.join(tmp, "out"), os.path.join(tmp, "cache")
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        results, st = campaign.run_campaign(scs, out_dir=out,
+                                            compile_cache=cache, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {c.__name__: c.launches for c in counters}
+        # every GA / NSGA-II scenario is bucket-kind; random search and
+        # the Table 3 study run through run_scenario inside the campaign
+        bucketed = [sc for sc in scs
+                    if sc.algorithm not in ("random", "alg_compare")]
+        in_buckets = [n for b in st["buckets"] for n in b["scenarios"]]
+        reused, t_seq, bad = 0, 0.0, []
+        for sc in bucketed:
+            with open(os.path.join(out, sc.name, "result.json")) as f:
+                got = json.load(f)
+            if sc.name in seq:
+                want = seq[sc.name]
+                reused += 1
+            else:
+                t1 = time.perf_counter()
+                want = run_scenario(sc, write=False, device=dev)
+                torch.cuda.synchronize()
+                t_seq += time.perf_counter() - t1
+            if not same_result(got, want):
+                bad.append(sc.name)
+        pc = st["persistent_cache"]
+        t1 = time.perf_counter()
+        _, st2 = campaign.run_campaign(bucketed, out_dir=out, force=True,
+                                       compile_cache=cache, device=dev)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t1
+        pc2 = st2["persistent_cache"]
+    build.set_build_dir(default_build)
+    ok_counts = (st["n_scenarios"] == len(scs) == 31
+                 and sorted(in_buckets) == sorted(sc.name for sc in bucketed)
+                 and st["n_fallback"] == len(scs) - len(bucketed)
+                 and all(r is not None for r in results))
+    if bad or not ok_counts or launched["imc_fused_gemm_keyed"] <= 0 or \
+            pc2["signature_hits"] != st2["n_buckets"] or \
+            pc2["signature_misses"] or \
+            pc2["entries_after"] != pc2["entries_before"]:
+        raise RuntimeError(
+            f"run --all: result.json differs from the sequential run for "
+            f"{bad}; counts {ok_counts}; launches {launched}; second "
+            f"campaign signatures {pc2['signature_hits']}h/"
+            f"{pc2['signature_misses']}m of {st2['n_buckets']} buckets, "
+            f"libraries {pc2['entries_before']} -> {pc2['entries_after']}")
+    kc = st["kernel_cache"]
+    log(f"run --all on {torch.cuda.get_device_name(0)}: "
+        f"{st['n_scenarios']} scenarios, {st['n_bucketed']} in "
+        f"{st['n_buckets']} buckets ({st['lanes_total']} lanes, "
+        f"{st['lanes_padded']} padding), {st['n_fallback']} sequential; "
+        f"wall {wall:.2f} s, {st['scenarios_per_sec']:.3f} scenarios/s; "
+        f"bucket cache {kc['hits']}h/{kc['misses']}m; kernel-build cache "
+        f"{pc['signature_hits']}h/{pc['signature_misses']}m signatures, "
+        f"{pc['entries_after'] - pc['entries_before']} libraries built; "
+        f"launches {launched}")
+    dispatch = sum(b["dispatch_s"] for b in st["buckets"])
+    drain = sum(b["drain_s"] for b in st["buckets"])
+    log(f"run --all: buckets dispatch {dispatch:.2f} s, drain {drain:.2f} "
+        f"s; the {len(bucketed)} bucket-kind result.json files equal the "
+        f"sequential runs on the card ({reused} from earlier phases, "
+        f"{len(bucketed) - reused} run here in {t_seq:.2f} s)")
+    log(f"run --all again (force, the {len(bucketed)} bucket-kind "
+        f"scenarios, same cache): wall {wall2:.2f} s, signatures "
+        f"{pc2['signature_hits']}h/{pc2['signature_misses']}m of "
+        f"{st2['n_buckets']} buckets, libraries {pc2['entries_before']} -> "
+        f"{pc2['entries_after']} (none built)")
+    return {"wall": wall, "launches": launched["imc_fused_gemm_keyed"]}
+
+
+def profiled_launches(torch, fn):
+    """(device kernel launches, device busy s, host wall s) of ``fn()``
+    under ``torch.profiler`` (CUDA activity)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    return len(kernels), busy / 1e6, wall
+
+
+def service_burst(torch, name, seeds, dev):
+    """``len(seeds)`` requests of ``name`` at its registry budget inside
+    one micro-batch window of a fresh ``CodesignService`` on ``dev``:
+    (responses, service stats, wall from start to the last answer)."""
+    from repro_torch.api import CodesignService, SearchRequest
+    # submitted before the worker starts: one window holds them all
+    svc = CodesignService(write=False, window_s=0.0, autostart=False,
+                          device=dev)
+    try:
+        rids = [svc.submit(SearchRequest(name, seed=s)) for s in seeds]
+        t0 = time.perf_counter()
+        svc.start()
+        got = [svc.result(rid, timeout=600) for rid in rids]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        svc.close()
+    return got, svc.stats(), wall
+
+
+def phase_service(torch, fused, dev, name="rram_accuracy",
+                  seeds=tuple(range(8)), profile=True) -> dict:
+    """Phase 21: a burst of ``SearchRequest(name, seed=s)`` into one
+    ``CodesignService`` window on the card: one bucket of the seeds'
+    main lanes and their specific-baseline lanes through the keyed
+    ``imc_fused`` kernel. Each response's result is held to the
+    sequential ``run_scenario`` of its seed on the card, timing fields
+    aside. The bucket's wall against the sum of the sequential walls,
+    with the keyed kernel's launches of each; with ``profile``, each
+    side again under the profiler for its device kernel launches and
+    idle share."""
+    import dataclasses
+    from repro_torch.experiments import get_scenario
+    from repro_torch.experiments.runner import run_scenario
+    sc = get_scenario(name)
+    fused.imc_fused_gemm_keyed.launches = 0
+    got, st, wall = service_burst(torch, name, seeds, dev)
+    launches = fused.imc_fused_gemm_keyed.launches
+    seq_walls, seq_launches, bad = [], [], []
+    for s, r in zip(seeds, got):
+        fused.imc_fused_gemm_keyed.launches = 0
+        t0 = time.perf_counter()
+        want = run_scenario(dataclasses.replace(sc, seed=s), write=False,
+                            device=dev)
+        torch.cuda.synchronize()
+        seq_walls.append(time.perf_counter() - t0)
+        seq_launches.append(fused.imc_fused_gemm_keyed.launches)
+        if r.status != "completed" or not same_result(r.result, want):
+            bad.append(s)
+    if bad or st.buckets != 1 or st.batches != 1 or launches <= 0:
+        raise RuntimeError(
+            f"service {name}: responses differ from the sequential runs "
+            f"for seeds {bad}; {st.batches} batches, {st.buckets} buckets, "
+            f"keyed launches {launches}")
+    log(f"service {name} x{len(seeds)} seeds on "
+        f"{torch.cuda.get_device_name(0)}: 1 bucket of {st.lanes_total} "
+        f"lanes ({st.lanes_padded} padding), wall {wall:.3f} s against "
+        f"{sum(seq_walls):.3f} s for the {len(seeds)} sequential runs "
+        f"({min(seq_walls):.3f}-{max(seq_walls):.3f} s each); keyed "
+        f"imc_fused launches {launches} in the bucket, "
+        f"{min(seq_launches)}-{max(seq_launches)} a sequential run; every "
+        f"response equals its seed's sequential run")
+    out = {"wall": wall, "seq_wall": sum(seq_walls), "launches": launches}
+    if profile:
+        n_b, busy_b, wall_b = profiled_launches(
+            torch, lambda: service_burst(torch, name, seeds, dev))
+        n_s, busy_s, wall_s = profiled_launches(
+            torch, lambda: run_scenario(dataclasses.replace(sc, seed=seeds[0]),
+                                        write=False, device=dev))
+        log(f"service {name} profiled: the bucket {n_b} device launches, "
+            f"busy {busy_b:.3f} of {wall_b:.3f} s (idle "
+            f"{100 * (1 - busy_b / wall_b):.1f}%); one sequential run "
+            f"(seed {seeds[0]}) {n_s} launches, busy {busy_s:.3f} of "
+            f"{wall_s:.3f} s (idle {100 * (1 - busy_s / wall_s):.1f}%)")
+        out.update(bucket_launches=n_b, seq_launches=n_s)
+    return out
+
+
 # phase 11: tests/test_kernels.py's flash shapes (B, S, T, H, hd, causal,
 # window, q_offset, dtype), the non-causal ragged case the reference pads
 # wrongly, and bfloat16 shapes for the tensor-core route: head dims 8
@@ -1490,6 +1713,7 @@ def main(argv=None) -> int:
                 log(f"  {name}: {ln.strip()}")
     main_k = phase_kernel(torch, fused, dev)                         # 3
     phase_accuracy(torch, dev)                                       # 4
+    seq = {}   # sequential card runs at the registry budget, for phase 20
     with tempfile.TemporaryDirectory() as out_dir:
         with HostDraws() as draws:                                   # 5
             fused.imc_fused_gemm_keyed.launches = 0
@@ -1507,26 +1731,37 @@ def main(argv=None) -> int:
             f"draws in the accuracy model 0")
         phase_scenario_ref(torch, dev, res)
         phase_rescore_cpu(res)                                       # 6
+        seq["rram_accuracy"] = res
         fused.imc_fused_gemm_keyed.launches = 0                      # 7
-        phase_scenario(torch, "rram_smoke", dev, out_dir)
+        seq["rram_smoke"] = phase_scenario(torch, "rram_smoke", dev,
+                                           out_dir)
         log(f"rram_smoke: imc_fused launches "
             f"{fused.imc_fused_gemm_keyed.launches} (EDAP only)")
     main_m = phase_matmul(torch, mm, dev)                            # 8
     phase_host_oracle(torch, mm, dev)                                # 9
     lm = phase_lm_example(torch, mm, dev)                            # 10
     phase_rescore_cpu(lm["res"], rtol=1e-5)
+    seq["sram_lm_archs"] = lm["res"]
     main_f = phase_flash(torch, fa, dev)                             # 11
     served = phase_serve(torch, fa, dev)                             # 12
     phase_logits(torch, fa, dev)                                     # 13
     with tempfile.TemporaryDirectory() as out_dir:
         joint = phase_joint(torch, fused, dev, out_dir)              # 14
+        seq["joint_rram_resnet_family"] = joint["res"]
         keyed_joint = phase_keyed_joint(torch, fused, dev)           # 15
-        phase_mo(torch, fused, dev, out_dir)                         # 16
-        phase_tech_cost(torch, fused, dev, out_dir)                  # 17
+        seq.update(phase_mo(torch, fused, dev, out_dir))             # 16
+        seq["rram_tech_cost"] = phase_tech_cost(torch, fused, dev,   # 17
+                                                out_dir)
         counters = (fused.imc_fused_gemm_keyed, fused.imc_fused_gemm,
                     mm.imc_matmul, fa.flash_attention)
         for name in ("table3_reduced_rram", "alg_compare_rram"):     # 18, 19
             phase_alg_compare(torch, counters, name, dev, out_dir)
+    t20 = time.perf_counter()
+    camp = phase_campaign(torch, counters, dev, seq)                 # 20
+    svc = phase_service(torch, fused, dev)                           # 21
+    if time.perf_counter() - t20 < 240:
+        phase_service(torch, fused, dev, "joint_rram_resnet_family",
+                      seeds=tuple(range(4)), profile=False)
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -1545,7 +1780,8 @@ def main(argv=None) -> int:
     fused_entry = {"name": "imc_fused", "route": "cuda",
                    "source": "src/repro_torch/csrc/imc_fused.cu",
                    "replaces": "src/repro/kernels/imc_fused.py:83",
-                   "launches": launches,
+                   "launches": launches + camp["launches"]
+                   + svc["launches"],
                    "max_abs_err": max(main_k["max_abs_err"],
                                       keyed_joint["max_abs_err"]),
                    "ms": main_k["ms"],

@@ -1,7 +1,8 @@
 """Core of the port: search space, cost model, objectives, accuracy
 model, scorer, Hamming sampling, the four-phase GA, NSGA-II, the Table 3
 baseline optimizers and the Pareto-front tools, with the joint
-workload-architecture co-search."""
+workload-architecture co-search, and lane batching across devices
+(``distributed``)."""
 from .search_space import (SearchSpace, get_space, joint_space,
                            reduced_rram_space, rram_space, sram_space)
 from .workloads import (FAMILY_NAMES, PAPER_4, PAPER_9, ArchParam, Workload,
@@ -16,12 +17,12 @@ from .objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
                          aggregate_scores, is_multi_spec, make_objective,
                          per_workload_scores)
 from .nonideal import BACKENDS, BASELINE_ACC, CALIB_SEED, make_accuracy_model
-from .scoring import Calib, Scorer, ScorerSpec, build_scorer
+from .scoring import Calib, Scorer, ScorerSpec, build_scorer, sharded_score_fn
 from .sampling import hamming_select, sample_initial_device, uniform_genomes
 from .genetic import (FOUR_PHASES, PLAIN_PHASE, MultiSearchResult, Phase,
                       SearchResult, batched_joint_search, ga_scan,
-                      phase_schedule, plain_ga_search, random_search,
-                      search_kernel)
+                      joint_search, phase_schedule, plain_ga_search,
+                      random_search, search_kernel)
 from .pareto import (edap_cost_front, front_coverage, hypervolume_2d,
                      pareto_front)
 from .nsga import (MOSearchResult, MultiMOSearchResult, batched_nsga_search,

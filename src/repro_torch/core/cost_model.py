@@ -21,7 +21,10 @@ arithmetic the reference's: a division of a tensor by a Python constant
 is a multiplication by the float32 reciprocal (``_div_const``), which is
 what XLA compiles ``x / const`` into; a Python constant divided by a
 tensor is a true division (``_rdiv``), never PyTorch's ``reciprocal() *
-c``.
+c``. Transcendental functions go through ``pointwise``, so a design's
+score does not depend on where it sits in the population: PyTorch's
+CPU kernels run the vector body and the scalar tail of a loop through
+different float32 implementations, which differ in the last bit.
 
 The joint co-search path (``evaluate_population_joint``) builds each
 genome's layers from its arch slice (``workloads.WorkloadBuilder``):
@@ -96,6 +99,16 @@ def _div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a Python constant ``c`` as the reference computes it:
     XLA rewrites it into ``x * float32(1 / float32(c))``."""
     return x * float(np.float32(1.0) / np.float32(c))
+
+
+def pointwise(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """The float32 tensor ``fn(x, *args)`` with the same bits wherever
+    an element sits in ``x``. On the CPU it is evaluated in float64 and
+    rounded once (the float32 vector body and scalar tail differ); on
+    the GPU one device function computes every element, in float32."""
+    if x.device.type == "cuda":
+        return fn(x, *args)
+    return fn(x.double(), *args).float()
 
 
 def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
@@ -210,12 +223,13 @@ def _cost_core(space: SearchSpace, c: HWConstants, p: Dict[str, torch.Tensor],
     v_norm = _div_const(v_op, V_NOM)
     v_scale = v_norm * v_norm
     e_scale = tech_r * v_scale            # digital switching energy
-    e_scale_adc = torch.sqrt(tech_r) * v_scale  # ADCs scale weakly
+    # ADCs scale weakly
+    e_scale_adc = pointwise(torch.sqrt, tech_r) * v_scale
     area_scale = torch.clamp(tech_r * tech_r, min=c.mem_area_scale_floor)
     area_scale_analog = torch.clamp(tech_r, min=c.mem_area_scale_floor)
+    v_gap = torch.clamp(v_op - 0.3, min=0.05)
     min_cycle = (c.base_min_cycle_ns * 1e-9 * tech_r
-                 * _rdiv(1.0 - 0.3, torch.clamp(v_op - 0.3, min=0.05))
-                 ** 1.3)
+                 * pointwise(torch.pow, _rdiv(1.0 - 0.3, v_gap), 1.3))
     t_cycle = torch.maximum(p["t_cycle_ns"] * 1e-9, min_cycle)
 
     # --- per-layer crossbar mapping -----------------------------------------
@@ -261,7 +275,7 @@ def _cost_core(space: SearchSpace, c: HWConstants, p: Dict[str, torch.Tensor],
     act_bytes = M * (K + N)                      # 8-bit activations
 
     e_mac = c.e_mac_rram if is_rram else c.e_mac_sram
-    hops = 1.0 + torch.log2(p["g_per_chip"])[:, None]
+    hops = 1.0 + pointwise(torch.log2, p["g_per_chip"])[:, None]
     e_layer_dig = (bitmacs * e_mac + 2.0 * act_bytes * c.e_buf
                    + act_bytes * c.e_router * hops)
     e_layer_adc = conversions * c.e_adc

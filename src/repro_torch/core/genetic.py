@@ -142,13 +142,35 @@ def _lane_pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device), i]
 
 
+def lane_schedule(schedule: torch.Tensor) -> torch.Tensor:
+    """A (T, 4) schedule shared by every lane, or an (L, T, 4) one per
+    lane; per-lane rows that all agree collapse to one (T, 4), so a batch
+    of equal schedules runs exactly as the shared schedule does (one
+    device-to-host read)."""
+    if schedule.dim() == 3 and torch.equal(
+            schedule, schedule[:1].expand_as(schedule)):
+        return schedule[0]
+    return schedule
+
+
+def row_params(schedule: torch.Tensor, t: int) -> Tuple[torch.Tensor, ...]:
+    """Row ``t`` of a ``lane_schedule``: (pc, eta_c, pm, eta_m) as 0-dim
+    tensors, or as (L, 1, 1) tensors of per-lane values."""
+    if schedule.dim() == 2:
+        p = schedule[t]
+    else:
+        p = schedule[:, t, :, None, None].transpose(0, 1)
+    return p[0], p[1], p[2], p[3]
+
+
 def ga_scan(key: torch.Tensor, init_pop: torch.Tensor, cards: torch.Tensor,
             schedule: torch.Tensor, score_fn: LaneScore,
             active: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, ...]:
     """The multi-phase GA over every lane, one loop step per schedule
     row. Returns (best_genome (L, n), best_score (L,), history (L, T+1),
-    pop_sorted (L, P, n), scores_sorted (L, P)).
+    pop_sorted (L, P, n), scores_sorted (L, P)). ``schedule`` is (T, 4)
+    or (L, T, 4), one schedule a lane.
 
     ``active`` is an optional (T,) or (L, T) bool mask: a row with
     ``active == False`` leaves the lane's population, best and key
@@ -160,8 +182,9 @@ def ga_scan(key: torch.Tensor, init_pop: torch.Tensor, cards: torch.Tensor,
     best_g = init_pop[:, 0]
     best_s = torch.full((L,), float("inf"), dtype=torch.float32, device=dev)
     hist: List[torch.Tensor] = []
-    for t in range(schedule.shape[0]):
-        params = schedule[t]
+    schedule = lane_schedule(schedule)
+    for t in range(schedule.shape[-2]):
+        params = row_params(schedule, t)
         scores = score_fn(pop)
         i = torch.argmin(scores, dim=1)
         s = _lane_pick(scores, i)
@@ -200,8 +223,9 @@ def search_kernel(key: torch.Tensor, cards: torch.Tensor,
                   active: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, ...]:
     """Algorithm 1 for every lane: capacity-masked Hamming sampling,
-    then the scheduled GA. keys (L, 2); ``score_fn``/``feasible_fn``
-    map (L, P, n) genomes to (L, P)."""
+    then the scheduled GA. keys (L, 2), ``schedule`` (T, 4) or
+    (L, T, 4); ``score_fn``/``feasible_fn`` map (L, P, n) genomes to
+    (L, P)."""
     ks = jr.split(key)
     key, k_s = ks[:, 0], ks[:, 1]
     if hamming_sampling:
@@ -290,6 +314,24 @@ def batched_joint_search(keys: torch.Tensor, space: SearchSpace,
         histories=hist.cpu().numpy(), populations=pops.cpu().numpy(),
         scores=scores.cpu().numpy(),
         wall_time_s=time.perf_counter() - t0, sampling_time_s=0.0)
+
+
+def joint_search(key: torch.Tensor, space: SearchSpace,
+                 score_fn: Callable[[torch.Tensor], torch.Tensor],
+                 p_h: int = 1000, p_e: int = 500, p_ga: int = 40,
+                 generations_per_phase: int = 10,
+                 phases: Sequence[Phase] = FOUR_PHASES,
+                 feasible_fn: Optional[Callable] = None,
+                 hamming_sampling: bool = True) -> SearchResult:
+    """Algorithm 1 for one seed (key (2,)): optimized sampling + the
+    four-phase GA, a one-lane batch. ``hamming_sampling=False`` is the
+    'non-modified GA with enhanced sampling' ablation (random init of
+    size p_ga)."""
+    return batched_joint_search(
+        key[None], space, score_fn, p_h=p_h, p_e=p_e, p_ga=p_ga,
+        generations_per_phase=generations_per_phase, phases=phases,
+        feasible_fn=feasible_fn,
+        hamming_sampling=hamming_sampling).seed_result(0)
 
 
 def plain_ga_search(key: torch.Tensor, space: SearchSpace,

@@ -46,6 +46,7 @@ from ..kernels.imc_fused import (imc_fused_gemm_keyed,
                                  imc_fused_keyed_plain, noisy_weights)
 from ..kernels.imc_matmul import imc_matmul_plain
 from ..kernels.ops import imc_gemm
+from .cost_model import pointwise
 from .search_space import SearchSpace
 from .workloads import Workload, WorkloadArrays, WorkloadBuilder
 
@@ -170,7 +171,7 @@ def _workload_accuracy_params(
 
 def _snr_to_accuracy(snr_db: torch.Tensor, base: torch.Tensor,
                      depth_pen: torch.Tensor) -> torch.Tensor:
-    keep = torch.sigmoid((snr_db - _SNR_MID_DB) / _SNR_SCALE_DB)
+    keep = pointwise(torch.sigmoid, (snr_db - _SNR_MID_DB) / _SNR_SCALE_DB)
     return base * (_ACC_FLOOR + (1.0 - _ACC_FLOOR) * keep) * depth_pen
 
 
@@ -268,12 +269,14 @@ def make_accuracy_model(space: SearchSpace,
         y = y + OUTPUT_NOISE_FRAC * std * z_out
         err = torch.mean((y - y_ref[None]) ** 2, dim=(1, 2))
         sig = torch.mean(y_ref ** 2)
-        snr_db = 10.0 * torch.log10(sig / torch.clamp(err, min=1e-12))
+        snr_db = 10.0 * pointwise(torch.log10,
+                                  sig / torch.clamp(err, min=1e-12))
         if bits_i is not None:
             bits = table[bits_i, genomes[:, bits_i]]
             cpw = torch.clamp(torch.floor(
                 torch.full_like(bits, 8.0) / bits), min=1.0)
-            snr_db = snr_db + 10.0 * torch.log10(cpw)  # multi-cell averaging
+            # multi-cell averaging
+            snr_db = snr_db + 10.0 * pointwise(torch.log10, cpw)
         if builder is None:
             return _snr_to_accuracy(snr_db[:, None], base_acc, depth_pen)
         wt = builder(genomes)

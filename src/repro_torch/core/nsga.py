@@ -38,7 +38,8 @@ import torch
 from .. import random as jr
 from . import sampling
 from .genetic import (FOUR_PHASES, Phase, _poly_mutate, _sbx, _to_index,
-                      _to_real, cards_of, lanes_of, phase_schedule)
+                      _to_real, cards_of, lane_schedule, lanes_of,
+                      phase_schedule, row_params)
 from .pareto import pareto_front
 from .search_space import SearchSpace
 
@@ -226,7 +227,7 @@ def nsga_scan(key: torch.Tensor, init_pop: torch.Tensor, cards: torch.Tensor,
     schedule row. Returns (pop (L, P, n), scores (L, P, D), ranks
     (L, P)), sorted by (rank, crowding desc), and the (L, T+1, D)
     best-so-far ideal point (per-objective minimum over everything
-    evaluated).
+    evaluated). ``schedule`` is (T, 4) or (L, T, 4), one a lane.
 
     ``active`` is an optional (T,) or (L, T) bool mask: a row with
     ``active == False`` leaves the lane's carry untouched."""
@@ -235,8 +236,9 @@ def nsga_scan(key: torch.Tensor, init_pop: torch.Tensor, cards: torch.Tensor,
     ideal0 = scores.amin(dim=1)
     pop, ideal = init_pop, ideal0
     hist = []
-    for t in range(schedule.shape[0]):
-        params = schedule[t]
+    schedule = lane_schedule(schedule)
+    for t in range(schedule.shape[-2]):
+        params = row_params(schedule, t)
         ks = jr.split(key)
         pop2, scores2 = _nsga_generation(ks[:, 1], pop, scores, cards,
                                          params[0], params[1], params[2],

@@ -21,7 +21,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from .cost_model import CostMetrics
+from .cost_model import CostMetrics, pointwise
 
 AREA_CONSTRAINT_MM2 = 800.0
 # Penalty score for infeasible / over-area designs.
@@ -40,8 +40,8 @@ def aggregate_scores(x: torch.Tensor, scheme: str) -> torch.Tensor:
         return torch.mean(x, dim=1)
     if scheme == "all":
         # product in log-space for numerical sanity
-        return torch.exp(torch.sum(torch.log(torch.clamp(x, min=1e-30)),
-                                   dim=1))
+        return pointwise(torch.exp, torch.sum(
+            pointwise(torch.log, torch.clamp(x, min=1e-30)), dim=1))
     raise ValueError(scheme)
 
 
@@ -83,8 +83,8 @@ class Objective:
         elif self.kind == "edap_acc":
             # §IV-H: EDAP / prod(Acc_w); accuracy (P, W) in (0, 1]
             _need_accuracy(accuracy, "edap_acc")
-            acc_prod = torch.exp(torch.sum(torch.log(
-                torch.clamp(accuracy, min=1e-6)), dim=1))
+            acc_prod = pointwise(torch.exp, torch.sum(pointwise(
+                torch.log, torch.clamp(accuracy, min=1e-6)), dim=1))
             s = e_mj * l_ms * a / acc_prod
         elif self.kind == "acc_loss":
             # accuracy-loss axis for joint fronts: 1 - agg(Acc_w)

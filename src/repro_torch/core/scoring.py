@@ -11,13 +11,16 @@ accuracy-aware objectives ``accuracy``, and for a ``MultiObjective``
 ``score_vec``, the (P, D) matrix the NSGA-II engine sorts (``score`` is
 then its first column) — plus the resolved ``backend`` and ``device``.
 A ``ScorerSpec`` with a ``builder`` (``workloads.WorkloadBuilder``)
-scores the joint co-search genome. The reference's population sharding
-over a device mesh has no counterpart yet (ROADMAP Queue 1 item 10).
+scores the joint co-search genome. A Scorer's functions compute on its
+own device; ``Scorer.on(device)`` is the same configuration built on
+another device, and ``sharded_score_fn`` splits the population rows of
+one scoring call over several devices (the reference shards them over
+a device mesh).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 
@@ -25,6 +28,7 @@ from ..device import resolve_device
 from . import nonideal
 from .cost_model import (CostTables, HWConstants, evaluate_population,
                          evaluate_population_joint)
+from .distributed import compile_batched_search
 from .objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
                          per_workload_scores)
 from .search_space import SearchSpace
@@ -64,6 +68,20 @@ class Scorer:
     device: torch.device
     accuracy: Optional[Callable] = None   # (P, n) -> (P, W)
     score_vec: Optional[Callable] = None  # (P, n) -> (P, D), MO only
+    rebuild: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    _on: Dict = dataclasses.field(default_factory=dict, compare=False,
+                                  repr=False)
+
+    def on(self, device) -> "Scorer":
+        """This configuration's Scorer on ``device`` (itself on its own
+        device; built once per other device)."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        if dev not in self._on:
+            self._on[dev] = self.rebuild(dev)
+        return self._on[dev]
 
 
 def needs_accuracy(objective: Union[Objective, MultiObjective]) -> bool:
@@ -81,6 +99,24 @@ def _column(x: torch.Tensor, w) -> torch.Tensor:
         return x[:, w]
     idx = torch.as_tensor(w, device=x.device).long().reshape(-1, 1)
     return torch.gather(x, 1, idx.expand(x.shape[0], 1))[:, 0]
+
+
+def sharded_score_fn(score: Union["Scorer", Callable],
+                     devices: Sequence) -> Callable:
+    """A population scorer whose rows split over ``devices``: P rows,
+    P divisible by the device count, go ``P/D`` contiguous rows to each
+    device and come back in row order on the first. ``score`` is a
+    ``Scorer`` (each device scores with ``score.on(device).score``) or
+    a function that computes where its input lies. On one device it is
+    one call of ``score``."""
+    devs = [resolve_device(d) for d in devices]
+    if isinstance(score, Scorer):
+        def one(dev, genomes):
+            return score.on(dev).score(genomes)
+    else:
+        def one(dev, genomes):
+            return score(genomes)
+    return compile_batched_search(one, devs)
 
 
 def build_scorer(space: SearchSpace, spec: ScorerSpec, *,
@@ -145,6 +181,11 @@ def build_scorer(space: SearchSpace, spec: ScorerSpec, *,
             bad = bad | (_column(acc, w) < first.min_accuracy)
         return torch.where(bad, torch.full_like(s, INFEASIBLE_PENALTY), s)
 
+    def rebuild(device):
+        return build_scorer(space, spec, calib=calib, backend=backend,
+                            device=device)
+
     return Scorer(score=score, feasible=feasible, score_w=score_w,
                   feasible_w=feasible_w, metrics=metrics, accuracy=acc_fn,
-                  score_vec=score_vec, backend=backend, device=dev)
+                  score_vec=score_vec, backend=backend, device=dev,
+                  rebuild=rebuild)

@@ -13,8 +13,10 @@ with the chosen architecture of a joint co-search and the EDAP × cost
 ``render_summary`` tabulates every cached result into ``summary.md``
 with the Table 3 algorithm comparison (``render_table3``), the
 searched-vs-post-hoc front comparison (``render_front_comparison``) and
-the Fig. 4 convergence section. JSON is written with sorted keys. The
-campaign section waits for its engine (ROADMAP Queue 1 item 10).
+the Fig. 4 convergence section, and ``write_summary`` appends the
+campaign engine's execution stats (``render_campaign_stats``) when the
+output directory holds a ``campaign_stats.json``. JSON is written with
+sorted keys.
 """
 from __future__ import annotations
 
@@ -547,9 +549,68 @@ def render_summary(results: List[Dict]) -> str:
     return text
 
 
+def load_campaign_stats(out_dir: str) -> Optional[Dict]:
+    """The last campaign run's stats (campaign.run_campaign writes
+    ``<out_dir>/campaign_stats.json``), or None."""
+    path = os.path.join(out_dir, "campaign_stats.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def render_campaign_stats(stats: Dict) -> str:
+    """Markdown section for the campaign engine's execution stats:
+    bucketing, throughput and the cache counters."""
+    kc, pc = stats["kernel_cache"], stats["persistent_cache"]
+    lines = [
+        "", "## Campaign execution", "",
+        f"- {stats['n_bucketed']} scenarios mega-batched into "
+        f"{stats['n_buckets']} shape buckets "
+        f"({stats['lanes_total']} search lanes, "
+        f"{stats['lanes_padded']} padding); "
+        f"{stats['n_cached']} served from the result cache, "
+        f"{stats['n_fallback']} ran sequentially",
+        f"- sustained throughput: "
+        f"{stats['scenarios_per_sec']:.2f} scenarios/s "
+        f"({stats['wall_time_s']:.1f}s wall)",
+        f"- in-process bucket-callable cache: {kc['hits']} hits / "
+        f"{kc['misses']} misses / {kc['evictions']} evictions",
+    ]
+    if pc["enabled"]:
+        lines.append(
+            f"- kernel-build cache ({pc['dir']}): "
+            f"{pc['signature_hits']} bucket-signature hits / "
+            f"{pc['signature_misses']} misses, "
+            f"{pc['entries_after'] - pc['entries_before']} kernel "
+            f"libraries built ({pc['entries_after']} in the cache)")
+    else:
+        lines.append("- kernel-build cache: disabled "
+                     "(pass --compile-cache DIR)")
+    lines += [
+        "",
+        "| bucket | engine | scenarios | lanes | gen tier | "
+        "dispatch (s) | drain (s) |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for b in stats.get("buckets", []):
+        lines.append(
+            f"| {b['signature'][:8]} | {b['engine']} "
+            f"| {', '.join(b['scenarios'])} "
+            f"| {b['lanes']}→{b['lanes_padded_to']} "
+            f"| {b['gen_tier']} | {b['dispatch_s']:.2f} "
+            f"| {b['drain_s']:.2f} |")
+    return "\n".join(lines) + "\n"
+
+
 def write_summary(out_dir: str, path: Optional[str] = None) -> str:
-    """Aggregate cached results into ``summary.md``; returns the text."""
+    """Aggregate cached results into ``summary.md`` (appending the
+    campaign-execution section when campaign stats exist); returns the
+    text."""
     text = render_summary(load_results(out_dir))
+    stats = load_campaign_stats(out_dir)
+    if stats is not None:
+        text += render_campaign_stats(stats)
     path = path or os.path.join(out_dir, "summary.md")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:

@@ -1,9 +1,9 @@
 """Scenario runner: registry entry -> search -> metrics -> artifacts;
 counterpart of ``repro/experiments/runner.py``.
 
-A scenario's searches run as lane batches on one device
-(``core/genetic.py``): the S seeds of the generalized search are one
-batch, and the (S seeds x W workloads) workload-specific baselines —
+A scenario's searches run as lane batches (``core/genetic.py``): the S
+seeds of the generalized search are one batch, and the (S seeds x W
+workloads) workload-specific baselines —
 the normalization behind the paper's gap claims — are another, each
 lane scoring through the full workload-set evaluator restricted to its
 own workload column (``Scorer.score_w``), which is arithmetically
@@ -28,9 +28,16 @@ Results cache per scenario under ``<out_dir>/<scenario>/``:
   report.md            — human-readable table
   specific_<wl>.json   — per-workload specific-search sub-results
 with the reference's schema (``RESULT_SCHEMA_VERSION``) and cache-key
-fields, plus a ``device`` block naming where the run happened. The
-campaign engine and the mesh are not ported yet (ROADMAP Queue 1
-item 10).
+fields, plus a ``device`` block naming where the run happened.
+
+Every lane batch goes through ``core.distributed.compile_batched_search``:
+on a CUDA device with several GPUs present whose count divides the lane
+count, the lanes split over them (``search_devices``, the reference's
+``_search_mesh`` rule), else they run on the one device. The lane
+functions (``lane_search``) are the ones the campaign engine
+(``campaign.py``) runs its buckets with, and ``finalize_result`` is
+shared with it, so a campaign's result.json equals the sequential one's
+modulo timing fields.
 """
 from __future__ import annotations
 
@@ -48,10 +55,12 @@ from .. import random as jr
 from ..core import nonideal
 from ..core.baselines import batched_baseline_search
 from ..core.cost_model import CostTables, HWConstants, evaluate_population
+from ..core.distributed import compile_batched_search, search_devices
 from ..core.genetic import (FOUR_PHASES, PLAIN_PHASE, MultiSearchResult,
-                            batched_joint_search, cards_of, phase_schedule,
-                            random_search, search_kernel)
-from ..core.nsga import MultiMOSearchResult, batched_nsga_search
+                            batched_joint_search, cards_of, lanes_of,
+                            phase_schedule, random_search, search_kernel)
+from ..core.nsga import (MultiMOSearchResult, lanes_of_vec,
+                         nsga_search_kernel)
 from ..core.objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
                                aggregate_scores, make_objective,
                                per_workload_scores)
@@ -129,6 +138,77 @@ def _keys(seeds: List[int], device) -> torch.Tensor:
     return torch.stack([jr.PRNGKey(s, device) for s in seeds])
 
 
+def search_budget(scenario: Scenario):
+    """(schedule (T, 4), p_h, p_e, hamming) of the scenario's GA or
+    NSGA-II search, and of each of its specific-baseline searches (the
+    same algorithm and budget)."""
+    b = scenario.budget
+    if scenario.algorithm == "plain":
+        sched = phase_schedule((PLAIN_PHASE,), b.total_generations)
+        return sched, max(4 * b.p_ga, 200), b.p_ga, False
+    sched = phase_schedule(FOUR_PHASES, b.generations)
+    return sched, b.p_h, b.p_e, True
+
+
+def lane_search(space: SearchSpace, traced: Scorer, *, engine: str,
+                part: str, p_h: int, p_e: int, p_ga: int, hamming: bool,
+                rram: bool) -> Callable:
+    """The lane function of one search flavor, for
+    ``compile_batched_search``: ``(device, keys (L, 2), schedule
+    (L, T, 4), active (L, T) or None)`` for the generalized GA
+    (``engine="ga"``, ``part="main"``, scoring with ``traced.score``)
+    and NSGA-II (``engine="nsga"``, ``traced.score_vec``), and ``(device,
+    keys, ws (L,), schedule, active)`` for the specific baselines
+    (``part="spec"``: lane l scores ``traced.score_w`` on workload
+    column ``ws[l]``). Each device scores with ``traced.on(device)``.
+    The sequential runner and the campaign's buckets run these same
+    functions."""
+    def spec_rows(fn: Callable, ws: torch.Tensor) -> Callable:
+        def lane_fn(g: torch.Tensor) -> torch.Tensor:
+            L, P, n = g.shape
+            return fn(g.reshape(L * P, n),
+                      ws.repeat_interleave(P)).reshape(L, P)
+        return lane_fn
+
+    if engine == "nsga":
+        def one(dev, keys, schedule, active):
+            sc = traced.on(dev)
+            return nsga_search_kernel(
+                keys, cards_of(space, dev), schedule,
+                lanes_of_vec(sc.score_vec),
+                lanes_of(sc.feasible) if rram else None, p_h=p_h, p_e=p_e,
+                p_ga=p_ga, hamming_sampling=hamming, active=active)
+    elif part == "spec":
+        def one(dev, keys, ws, schedule, active):
+            sc = traced.on(dev)
+            return search_kernel(
+                keys, cards_of(space, dev), schedule,
+                spec_rows(sc.score_w, ws),
+                spec_rows(sc.feasible_w, ws) if rram else None, p_h=p_h,
+                p_e=p_e, p_ga=p_ga, hamming_sampling=hamming, active=active)
+    else:
+        def one(dev, keys, schedule, active):
+            sc = traced.on(dev)
+            return search_kernel(
+                keys, cards_of(space, dev), schedule, lanes_of(sc.score),
+                lanes_of(sc.feasible) if rram else None, p_h=p_h, p_e=p_e,
+                p_ga=p_ga, hamming_sampling=hamming, active=active)
+    return one
+
+
+def _run_lanes(one: Callable, dev: torch.device, *lanes):
+    """``lanes`` (lane-major, L first) through ``one`` on the devices
+    ``search_devices`` picks for L lanes."""
+    return compile_batched_search(
+        one, search_devices(lanes[0].shape[0], dev))(*lanes)
+
+
+def _lane_schedule(sched: np.ndarray, n_lanes: int,
+                   dev: torch.device) -> torch.Tensor:
+    s = torch.as_tensor(sched, device=dev)
+    return s.expand(n_lanes, *s.shape)
+
+
 def run_search_batched(scenario: Scenario, space: SearchSpace,
                        traced: Scorer, seeds: List[int]
                        ) -> MultiSearchResult:
@@ -136,20 +216,22 @@ def run_search_batched(scenario: Scenario, space: SearchSpace,
     (GA algorithms); random search loops seeds on the host."""
     b = scenario.budget
     dev = traced.device
-    feas = traced.feasible if scenario.mem == "rram" else None
-    if scenario.algorithm == "fourphase":
-        return batched_joint_search(
-            _keys(seeds, dev), space, traced.score, p_h=b.p_h, p_e=b.p_e,
-            p_ga=b.p_ga, generations_per_phase=b.generations,
-            feasible_fn=feas)
-    if scenario.algorithm == "plain":
-        return batched_joint_search(
-            _keys(seeds, dev), space, traced.score,
-            p_h=max(4 * b.p_ga, 200), p_e=b.p_ga, p_ga=b.p_ga,
-            generations_per_phase=b.total_generations,
-            phases=(PLAIN_PHASE,), hamming_sampling=False,
-            feasible_fn=feas)
+    if scenario.algorithm in ("fourphase", "plain"):
+        t0 = time.perf_counter()
+        sched, p_h, p_e, hamming = search_budget(scenario)
+        one = lane_search(space, traced, engine="ga", part="main", p_h=p_h,
+                          p_e=p_e, p_ga=b.p_ga, hamming=hamming,
+                          rram=scenario.mem == "rram")
+        S = len(seeds)
+        best_g, best_s, hist, pops, scores = _run_lanes(
+            one, dev, _keys(seeds, dev), _lane_schedule(sched, S, dev), None)
+        return MultiSearchResult(
+            best_genomes=best_g.cpu().numpy(),
+            best_scores=best_s.cpu().numpy(), histories=hist.cpu().numpy(),
+            populations=pops.cpu().numpy(), scores=scores.cpu().numpy(),
+            wall_time_s=time.perf_counter() - t0, sampling_time_s=0.0)
     if scenario.algorithm == "random":
+        feas = traced.feasible if scenario.mem == "rram" else None
         rs = [random_search(jr.PRNGKey(s, dev), space, traced.score,
                             n_evals=b.n_evaluations, capacity_filter=feas)
               for s in seeds]
@@ -175,12 +257,19 @@ def run_mo_search_batched(scenario: Scenario, space: SearchSpace,
             f"multi-objective scenarios run the NSGA-II engine with the "
             f"4-phase schedule; algorithm {scenario.algorithm!r} has no "
             "multi-objective counterpart")
-    b = scenario.budget
-    feas = traced.feasible if scenario.mem == "rram" else None
-    return batched_nsga_search(
-        _keys(seeds, traced.device), space, traced.score_vec, p_h=b.p_h,
-        p_e=b.p_e, p_ga=b.p_ga, generations_per_phase=b.generations,
-        feasible_fn=feas)
+    t0 = time.perf_counter()
+    dev = traced.device
+    sched, p_h, p_e, hamming = search_budget(scenario)
+    one = lane_search(space, traced, engine="nsga", part="main", p_h=p_h,
+                      p_e=p_e, p_ga=scenario.budget.p_ga, hamming=hamming,
+                      rram=scenario.mem == "rram")
+    S = len(seeds)
+    pops, scores, ranks, hists = _run_lanes(
+        one, dev, _keys(seeds, dev), _lane_schedule(sched, S, dev), None)
+    return MultiMOSearchResult(
+        populations=pops.cpu().numpy(), scores=scores.cpu().numpy(),
+        ranks=ranks.cpu().numpy(), histories=hists.cpu().numpy(),
+        wall_time_s=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -280,23 +369,35 @@ def run_alg_compare(scenario: Scenario, space: SearchSpace,
     constrained objective and feeds SRES the graded infeasibility
     penalty channel. Wall times are steady state: each algorithm runs
     once untimed, then again, timed, between device synchronizations
-    (the reference's protocol, whose first run compiles)."""
+    (the reference's protocol, whose first run compiles). Each
+    algorithm's lanes go through ``compile_batched_search``, scored on
+    each device by that device's scorer."""
     if isinstance(objective, MultiObjective):
         raise TypeError("the algorithm-comparison study is single-"
                         "objective; got a multi-objective spec")
     dev = resolve_device(device)
     b = scenario.budget
     pop, iters = b.p_ga, b.total_generations
+    per_device: Dict[torch.device, Tuple] = {}
     if scenario.reduced_space:
-        score = make_landscape_scorer(space, wa, objective, device=dev)
-        penalty = None
+        def build_on(d):
+            return make_landscape_scorer(space, wa, objective, device=d), None
     else:
         traced = build_scorer(space, ScorerSpec(objective, workloads=wa),
                               calib=Calib(scenario.n_calib,
                                           scenario.calib_k),
                               backend=scenario.backend, device=dev)
-        score = traced.score
-        penalty = make_infeasibility_penalty(traced, objective)
+
+        def build_on(d):
+            sc = traced.on(d)
+            return sc.score, make_infeasibility_penalty(sc, objective)
+
+    def score_on(d: torch.device) -> Tuple:
+        """(score, SRES penalty channel or None) on device ``d``."""
+        if d not in per_device:
+            per_device[d] = build_on(d)
+        return per_device[d]
+    score = score_on(dev)[0]
 
     gt: Dict = {"exhaustive": False, "global_min": None,
                 "criterion": "best found across all algorithms"}
@@ -315,18 +416,22 @@ def run_alg_compare(scenario: Scenario, space: SearchSpace,
             # 4-phase schedule and Hamming sampling): the kernel draws
             # exactly p_ga uniform genomes, so the evaluations are the
             # whole budget
-            def dispatch():
+            def one(d, k):
                 return batched_joint_search(
-                    keys, space, score, p_h=pop, p_e=pop, p_ga=pop,
+                    k, space, score_on(d)[0], p_h=pop, p_e=pop, p_ga=pop,
                     generations_per_phase=iters, phases=(PLAIN_PHASE,),
                     hamming_sampling=False)
             evals = pop * (iters + 1)
         else:
-            def dispatch(alg=alg):
+            def one(d, k, alg=alg):
+                sc, penalty = score_on(d)
                 return batched_baseline_search(
-                    keys, space, score, alg, pop=pop, iters=iters,
+                    k, space, sc, alg, pop=pop, iters=iters,
                     penalty_fn=penalty if alg == "sres" else None)
             evals = None
+
+        def dispatch(one=one):
+            return _run_lanes(one, dev, keys)
         dispatch()
         _sync(dev)
         t0 = time.perf_counter()
@@ -375,17 +480,6 @@ def run_alg_compare(scenario: Scenario, space: SearchSpace,
     }
 
 
-def _specific_budget(scenario: Scenario):
-    """(schedule, p_h, p_e, hamming) of one specific-baseline search —
-    the same algorithm/budget as the generalized search."""
-    b = scenario.budget
-    if scenario.algorithm == "plain":
-        sched = phase_schedule((PLAIN_PHASE,), b.total_generations)
-        return sched, max(4 * b.p_ga, 200), b.p_ga, False
-    sched = phase_schedule(FOUR_PHASES, b.generations)
-    return sched, b.p_h, b.p_e, True
-
-
 def run_specific_fanout(scenario: Scenario, space: SearchSpace,
                         traced: Scorer, seeds: List[int],
                         n_workloads: int) -> Dict[str, np.ndarray]:
@@ -395,23 +489,15 @@ def run_specific_fanout(scenario: Scenario, space: SearchSpace,
     Lane keys match the reference: seed + 1000 + workload index."""
     S, W = len(seeds), n_workloads
     dev = traced.device
-    sched, p_h, p_e, hamming = _specific_budget(scenario)
+    sched, p_h, p_e, hamming = search_budget(scenario)
+    one = lane_search(space, traced, engine="ga", part="spec", p_h=p_h,
+                      p_e=p_e, p_ga=scenario.budget.p_ga, hamming=hamming,
+                      rram=scenario.mem == "rram")
     keys = _keys([s + 1000 + i for s in seeds for i in range(W)], dev)
     ws = torch.tensor([i for _ in seeds for i in range(W)],
                       dtype=torch.int64, device=dev)
-
-    def lane_rows(fn: Callable) -> Callable:
-        def lane_fn(g: torch.Tensor) -> torch.Tensor:
-            L, P, n = g.shape
-            return fn(g.reshape(L * P, n),
-                      ws.repeat_interleave(P)).reshape(L, P)
-        return lane_fn
-
-    feas = lane_rows(traced.feasible_w) if scenario.mem == "rram" else None
-    best_g, best_s, _, _, _ = search_kernel(
-        keys, cards_of(space, dev), torch.as_tensor(sched, device=dev),
-        lane_rows(traced.score_w), feas, p_h=p_h, p_e=p_e,
-        p_ga=scenario.budget.p_ga, hamming_sampling=hamming)
+    best_g, best_s, _, _, _ = _run_lanes(
+        one, dev, keys, ws, _lane_schedule(sched, S * W, dev), None)
     genomes = best_g.cpu().numpy().reshape(S, W, -1)
     return {"genomes": genomes,
             "best_scores": best_s.cpu().numpy().reshape(S, W),
@@ -432,8 +518,9 @@ def run_specific_sequential(scenario: Scenario, space: SearchSpace,
                             objective: Objective, workloads,
                             seeds: List[int], device
                             ) -> Dict[str, np.ndarray]:
-    """Specific baselines of the random-search algorithm: one search
-    per (seed, workload), each with its own single-workload pack."""
+    """Specific baselines one search per (seed, workload), each with its
+    own single-workload pack: the random-search algorithm's, and any
+    algorithm's with ``specific_fanout=False``."""
     S, W = len(seeds), len(workloads)
     genomes, best_scores, edap = None, np.zeros((S, W)), np.zeros((S, W))
     for i, w in enumerate(workloads):
@@ -442,10 +529,14 @@ def run_specific_sequential(scenario: Scenario, space: SearchSpace,
                            backend=scenario.backend, device=device)
         cap = sub.feasible if scenario.mem == "rram" else None
         for si, s in enumerate(seeds):
-            r = random_search(jr.PRNGKey(s + 1000 + i, sub.device), space,
-                              sub.score,
-                              n_evals=scenario.budget.n_evaluations,
-                              capacity_filter=cap)
+            if scenario.algorithm == "random":
+                r = random_search(jr.PRNGKey(s + 1000 + i, sub.device),
+                                  space, sub.score,
+                                  n_evals=scenario.budget.n_evaluations,
+                                  capacity_filter=cap)
+            else:
+                r = run_search_batched(scenario, space, sub,
+                                       [s + 1000 + i]).seed_result(0)
             if genomes is None:
                 genomes = np.zeros((S, W, r.best_genome.shape[0]),
                                    r.best_genome.dtype)
@@ -646,12 +737,14 @@ def build_scenario_scorer(scenario: Scenario, st: ScenarioSetup,
 def run_scenario(scenario: Scenario, out_dir: str = DEFAULT_OUT_DIR,
                  force: bool = False, seed: Optional[int] = None,
                  write: bool = True, n_seeds: Optional[int] = None,
-                 device="cuda") -> Dict:
+                 specific_fanout: bool = True, device="cuda") -> Dict:
     """Execute one scenario end to end on ``device``; returns the result
     dict. Seeds ``seed, seed+1, ...`` run as one lane batch; top-level
     fields report the best seed, the ``seeds`` block mean±std. A
     completed scenario loads from cache unless ``force``; ``write=False``
-    skips all filesystem I/O."""
+    skips all filesystem I/O. ``specific_fanout=False`` runs the
+    specific baselines one search at a time (``run_specific_sequential``)
+    instead of as one lane batch."""
     dev = resolve_device(device)
     seed = scenario.seed if seed is None else seed
     n_seeds = scenario.budget.n_seeds if n_seeds is None else n_seeds
@@ -693,6 +786,7 @@ def run_scenario(scenario: Scenario, out_dir: str = DEFAULT_OUT_DIR,
     else:
         res = run_search_batched(scenario, st.space, traced, seeds)
     return finalize_result(scenario, st, traced, res, seeds,
+                           specific_fanout=specific_fanout,
                            out_dir=out_dir, write=write, t0=t0)
 
 
@@ -705,13 +799,18 @@ def result_best_scores(res, is_mo: bool) -> np.ndarray:
 
 
 def finalize_result(scenario: Scenario, st: ScenarioSetup, traced: Scorer,
-                    res, seeds: List[int], *,
+                    res, seeds: List[int], *, spec: Optional[Dict] = None,
+                    specific_fanout: bool = True,
                     out_dir: str = DEFAULT_OUT_DIR, write: bool = True,
                     t0: Optional[float] = None) -> Dict:
     """Search results (``MultiSearchResult`` or ``MultiMOSearchResult``)
     -> result dict (+ artifacts), with the workload-specific baselines
     and the generalization gap, the searched or post-hoc Pareto front
-    and the joint co-search's chosen architecture."""
+    and the joint co-search's chosen architecture. Shared by the
+    sequential path and the campaign engine, so both write the same
+    JSON modulo timing fields. ``spec`` injects specific-baseline arrays
+    already searched (``run_specific_fanout``'s schema, the campaign's
+    spec lanes); without it they are searched here."""
     if t0 is None:
         t0 = time.perf_counter()
     seed, n_seeds = seeds[0], len(seeds)
@@ -788,12 +887,13 @@ def finalize_result(scenario: Scenario, st: ScenarioSetup, traced: Scorer,
 
     gap_means = None
     if scenario.specific_baselines and len(workloads) > 1 and not is_mo:
-        if scenario.algorithm == "random":
-            spec = run_specific_sequential(scenario, space, objective,
-                                           workloads, seeds, dev)
-        else:
+        if spec is None and specific_fanout and \
+                scenario.algorithm != "random":
             spec = run_specific_fanout(scenario, space, traced, seeds,
                                        len(workloads))
+        elif spec is None:
+            spec = run_specific_sequential(scenario, space, objective,
+                                           workloads, seeds, dev)
 
         # per-seed generalized EDAPs -> per-seed gap
         m_gen = traced.metrics(torch.as_tensor(res.best_genomes,

@@ -13,7 +13,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Tuple
 
-from ..configs import get_config
 from ..core.search_space import (SearchSpace, get_space, joint_space,
                                  reduced_rram_space)
 from ..core.workloads import (FAMILY_NAMES, PAPER_4, PAPER_9,
@@ -133,6 +132,7 @@ class Scenario:
 
     def resolve_workloads(self) -> List:
         if self.workload_source == "archs":
+            from ..configs import get_config  # the LM stack, on demand
             return [from_arch_config(get_config(a), seq=self.seq)
                     for a in self.workloads]
         if self.workload_source == "family":
@@ -316,6 +316,10 @@ def _build_registry() -> Dict[str, Scenario]:
 
 
 REGISTRY: Dict[str, Scenario] = _build_registry()
+
+
+def scenario_names() -> List[str]:
+    return list(REGISTRY)
 
 
 def get_scenario(name: str) -> Scenario:

@@ -9,7 +9,10 @@ shared ADC, ``adc.cuh``; the predicated bit-plane adds,
 ``predicated_add.cuh``; the threefry draw, ``threefry.cuh``) and of the
 flags, so an edited source or header rebuilds. The
 library is written to a temporary name and renamed into place, so
-concurrent processes never load a half-written file.
+concurrent processes never load a half-written file. ``set_build_dir``
+points the builds elsewhere (the campaign's ``--compile-cache``): a
+second process given the same directory finds every library built and
+runs no ``nvcc``.
 
 Nothing here runs at import time: the CPU tests import every module,
 and this machine may have no ``nvcc``.
@@ -67,6 +70,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def set_build_dir(path) -> Path:
+    """Build (and load) the libraries under ``path`` from now on; a
+    library loaded from another directory is loaded again from there,
+    built first if it is not there yet."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    if path != BUILD_DIR:
+        BUILD_DIR = path
+        _LOADED.clear()
+    return BUILD_DIR
 
 
 def _nvcc() -> str:

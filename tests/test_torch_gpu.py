@@ -3,7 +3,9 @@ kernels against their plain versions, the wrappers' input checks, the
 accuracy model's 'cuda' backend, the host accuracy oracle through the
 bit-serial GEMM kernel, one scenario on the card, and the LM serving
 engine on the card (through the flash attention kernel) against the
-CPU, and the Table 3 engine's draws and stochastic ranking. They
+CPU, the Table 3 engine's draws and stochastic ranking, and the
+co-design service's lane batching on the card (a two-request bucket
+against the solo runs, its default device). They
 carry the ``gpu`` marker and skip without a CUDA device. This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is not installed:
@@ -493,3 +495,44 @@ def test_permutation_and_stochastic_rank_on_card_match_cpu(cuda):
                                   p_f)
             assert got.device.type == "cuda"
             assert torch.equal(got.cpu(), want)
+
+
+def test_two_lane_bucket_matches_solo_runs_on_card(cuda, tmp_path):
+    """``rram_accuracy`` at the smoke budget, seeds 0 and 1 submitted as
+    two requests to the co-design service on the card: one bucket of 2
+    main + 8 specific lanes through the keyed ``imc_fused`` kernel, each
+    result.json equal (modulo timing fields) to the sequential card run
+    of its seed alone."""
+    from repro_torch.api import CodesignService, SearchRequest
+    timing = {"wall_time_s", "search_wall_time_s", "sampling_time_s",
+              "cached"}
+    imc_fused_gemm_keyed.launches = 0
+    svc = CodesignService(write=False, window_s=0.0, autostart=False)
+    try:
+        assert svc.device.type == "cuda"
+        rids = [svc.submit(SearchRequest("rram_accuracy", seed=s,
+                                         smoke=True)) for s in (0, 1)]
+        svc.start()
+        got = [svc.result(rid, timeout=600) for rid in rids]
+    finally:
+        svc.close()
+    st = svc.stats()
+    assert (st.batches, st.buckets, st.lanes_total) == (1, 1, 10)
+    assert imc_fused_gemm_keyed.launches > 0
+    sc = get_scenario("rram_accuracy")
+    for s, r in zip((0, 1), got):
+        want = run_scenario(dataclasses.replace(sc, seed=s,
+                                                budget=sc.smoke_budget),
+                            write=False)
+        assert r.status == "completed"
+        assert {k: v for k, v in r.result.items() if k not in timing} == \
+            {k: v for k, v in want.items() if k not in timing}
+
+
+def test_codesign_service_defaults_to_cuda(cuda):
+    """The service's device defaults to the current CUDA device, and its
+    worker thread runs there."""
+    from repro_torch.api import CodesignService
+    svc = CodesignService(write=False, autostart=False)
+    assert svc.device == torch.device("cuda", torch.cuda.current_device())
+    svc.close()
