@@ -144,7 +144,24 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
      bucket's wall against the 8 sequential walls, the keyed launches of
      each, then each side under the profiler for its device launches
      and idle share; with time left, ``joint_rram_resnet_family`` with
-     seeds 0..3.
+     seeds 0..3;
+ 22. the co-design launchers and the analysis suite, each in a
+     subprocess as a user runs it: ``python -m
+     repro_torch.launch.search --scenario rram_accuracy`` into a fresh
+     ``--out`` (its best score and design equal to phase 5's bit for
+     bit); the ad-hoc flag run ``--mem sram --workloads alexnet
+     --generations 1 --pga 8 --ph 40 --pe 16`` (its best genome
+     re-scored on the CPU, rtol 1e-5); ``python -m
+     repro_torch.launch.codesign_serve --scenario rram_smoke --requests
+     4 --smoke`` (exit 0, the cached replay verified, its stats block);
+     ``python -m repro_torch.analysis --all --device cuda`` (exit 0, the
+     66 kernel ids of analysis/baseline.json, each within the ``cuda``
+     block of analysis/torch_baseline.json, the host-sync sites it found
+     under ``set_sync_debug_mode("warn")`` with their frames); then each
+     audited call again in this process under the profiler: its
+     dispatched ATen ops beside its device kernel launches, the keyed
+     kernel's launches, the five most dispatched ops of
+     ``rram_accuracy::kernel`` and the phase's wall.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -1356,6 +1373,132 @@ def phase_service(torch, fused, dev, name="rram_accuracy",
     return out
 
 
+def run_module(args, timeout: float = 600.0):
+    """``python -m <args>`` from this checkout with its ``src`` on the
+    path: (stdout, wall s); raises unless it exits 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise RuntimeError(f"python -m {' '.join(args)}: exit "
+                           f"{r.returncode}\n{r.stdout[-4000:]}\n"
+                           f"{r.stderr[-4000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def phase_launchers(torch, fused, dev, res) -> dict:
+    """Phase 22: the co-design launchers and the analysis suite on the
+    card, each in a subprocess; then every audited call in this process
+    under the profiler (see the module docstring)."""
+    from repro_torch.analysis import launch_audit as la
+    from repro_torch.experiments import get_scenario, scenario_names
+    from repro_torch.experiments.runner import (build_scenario_scorer,
+                                                setup_scenario)
+    from repro_torch.launch import search
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, wall = run_module(
+            ["repro_torch.launch.search", "--scenario", "rram_accuracy",
+             "--out", os.path.join(tmp, "search")])
+        rep = json.loads(out)
+        if rep["best_score"] != res["best_score"] or \
+                rep["best_design"] != res["generalized"]["design"]:
+            raise RuntimeError(
+                f"launch.search rram_accuracy: best {rep['best_score']!r} "
+                f"vs phase 5's {res['best_score']!r}, designs equal "
+                f"{rep['best_design'] == res['generalized']['design']}")
+        log(f"launch.search --scenario rram_accuracy on the card: "
+            f"{wall:.2f} s (process included), best {rep['best_score']!r} "
+            f"== phase 5's, same design")
+
+        flags = ["--mem", "sram", "--workloads", "alexnet", "--generations",
+                 "1", "--pga", "8", "--ph", "40", "--pe", "16"]
+        out, wall = run_module(["repro_torch.launch.search", *flags])
+        rep = json.loads(out)
+        sc = search.scenario_from_args(search.parser().parse_args(flags))
+        st = setup_scenario(sc)
+        scorer = build_scenario_scorer(sc, st, device="cpu")
+        genome = _genome_of(st.space, rep["best_design"])
+        cpu = float(scorer.score(torch.tensor([genome]))[0])
+        if not math.isclose(cpu, rep["best_score"], rel_tol=1e-5):
+            raise RuntimeError(f"launch.search {' '.join(flags)}: CPU "
+                               f"re-score {cpu} != card {rep['best_score']}")
+        log(f"launch.search {' '.join(flags)} on the card: {wall:.2f} s, "
+            f"best {rep['best_score']:.7g}, CPU re-score {cpu:.7g} (rel "
+            f"{abs(cpu - rep['best_score']) / rep['best_score']:.2e})")
+
+        out, wall = run_module(
+            ["repro_torch.launch.codesign_serve", "--scenario", "rram_smoke",
+             "--requests", "4", "--smoke", "--out", os.path.join(tmp, "svc"),
+             "--compile-cache", os.path.join(tmp, "cache")])
+        if "payloads equal" not in out:
+            raise RuntimeError(f"codesign_serve: no verified replay\n{out}")
+        log(f"launch.codesign_serve --scenario rram_smoke --requests 4 "
+            f"--smoke on the card: exit 0 in {wall:.2f} s")
+        for ln in out.splitlines():
+            log(f"  {ln}")
+
+        report_path = os.path.join(tmp, "analysis.json")
+        out, wall_audit = run_module(
+            ["repro_torch.analysis", "--all", "--device", "cuda",
+             "--report", report_path])
+        with open(report_path) as f:
+            report = json.load(f)
+    audit = report["launch_audit"]
+    kernels = audit["kernels"]
+    with open(os.path.join(HERE, "analysis", "baseline.json")) as f:
+        want_ids = set(json.load(f)["kernels"])
+    base = la.load_baseline(HERE, "cuda")
+    over = [k for k, e in kernels.items() if base is None or k not in base
+            or e["n_ops"] > int(base[k] * la.BLOAT_RATIO + la.BLOAT_SLACK)]
+    if set(kernels) != want_ids or over or audit["device"]["type"] != "cuda":
+        raise RuntimeError(
+            f"analysis --all --device cuda: ids {len(kernels)} (missing "
+            f"{sorted(want_ids - set(kernels))}), outside the cuda "
+            f"block's bound: {over}")
+    j001 = [f for f in report["findings"] + report["suppressed"]
+            if f["rule"] == "J001"]
+    log(f"analysis --all --device cuda: exit 0 in {wall_audit:.2f} s; "
+        f"{len(kernels)} ids within the cuda block's bound; "
+        f"{len(report['suppressed'])} findings suppressed, "
+        f"{len(report['findings'])} warnings; {len(j001)} host-sync sites "
+        f"(J001) on {audit['device']['name']}:")
+    for f in j001:
+        log(f"  {f['path']}:{f['line']} [{f['symbol']}] {f['message']}")
+
+    # each audited call again under the profiler: device launches
+    fused.imc_fused_gemm_keyed.launches = 0
+    t0 = time.perf_counter()
+    rows = []
+    for name in scenario_names():
+        for c in la.scenario_calls(get_scenario(name), dev):
+            kid = f"{name}::{c.label}"
+            n_dev, busy, wall = profiled_launches(torch, c.fn)
+            rows.append((kid, kernels[kid]["n_ops"], n_dev, busy, wall))
+    keyed = fused.imc_fused_gemm_keyed.launches
+    t_prof = time.perf_counter() - t0
+    log(f"audited calls under the profiler ({t_prof:.2f} s): id, "
+        f"dispatched ATen ops, device kernel launches, device busy / wall")
+    for kid, n_ops, n_dev, busy, wall in rows:
+        log(f"  {kid:40s} {n_ops:7d} ops {n_dev:7d} launches  busy "
+            f"{1e3 * busy:8.2f} of {1e3 * wall:8.2f} ms")
+    top = sorted(kernels["rram_accuracy::kernel"]["ops"].items(),
+                 key=lambda kv: -kv[1])[:5]
+    log(f"rram_accuracy::kernel's most dispatched ops: "
+        f"{', '.join(f'{k} {v}' for k, v in top)}")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 22: {len(rows)} ids, {sum(r[1] for r in rows)} dispatched "
+        f"ops, {sum(r[2] for r in rows)} device launches; keyed imc_fused "
+        f"launches {keyed} in the profiled pass; phase wall {wall:.2f} s")
+    if keyed <= 0:
+        raise RuntimeError("phase 22: the audited calls launched no keyed "
+                           "imc_fused kernel")
+    return {"wall": wall, "launches": keyed}
+
+
 # phase 11: tests/test_kernels.py's flash shapes (B, S, T, H, hd, causal,
 # window, q_offset, dtype), the non-causal ragged case the reference pads
 # wrongly, and bfloat16 shapes for the tensor-core route: head dims 8
@@ -1762,6 +1905,7 @@ def main(argv=None) -> int:
     if time.perf_counter() - t20 < 240:
         phase_service(torch, fused, dev, "joint_rram_resnet_family",
                       seeds=tuple(range(4)), profile=False)
+    launchers = phase_launchers(torch, fused, dev, res)              # 22
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -1781,7 +1925,7 @@ def main(argv=None) -> int:
                    "source": "src/repro_torch/csrc/imc_fused.cu",
                    "replaces": "src/repro/kernels/imc_fused.py:83",
                    "launches": launches + camp["launches"]
-                   + svc["launches"],
+                   + svc["launches"] + launchers["launches"],
                    "max_abs_err": max(main_k["max_abs_err"],
                                       keyed_joint["max_abs_err"]),
                    "ms": main_k["ms"],

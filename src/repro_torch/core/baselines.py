@@ -52,6 +52,7 @@ from ..random import _fma
 from .genetic import _lane_pick, _to_index, cards_of, lanes_of
 from .objectives import INFEASIBLE_PENALTY
 from .search_space import SearchSpace
+from .tracing import traced_closure
 
 BASELINE_ALGORITHMS = ("pso", "es", "sres", "cmaes", "g3pcx")
 
@@ -121,6 +122,7 @@ def _lane_penalty(penalty_fn: Optional[Callable]) -> Optional[Callable]:
 
 
 def _real_scorer(score_fn: Callable, cards: torch.Tensor) -> Callable:
+    @traced_closure
     def score(x: torch.Tensor) -> torch.Tensor:
         return score_fn(_to_index(x, cards))
     return score
@@ -212,6 +214,7 @@ def pso_ops(cards: torch.Tensor, score_fn: Callable, n_particles: int,
     score = _real_scorer(score_fn, cards)
     w, c1, c2 = (float(np.float32(c)) for c in (w, c1, c2))
 
+    @traced_closure
     def init(key: torch.Tensor) -> State:
         ks = jr.split(key)
         x = jr.uniform(ks[:, 0], (n_particles, n))
@@ -221,6 +224,7 @@ def pso_ops(cards: torch.Tensor, score_fn: Callable, n_particles: int,
         return dict(x=x, v=v, pb_x=x, pb_s=s, gb_x=_lane_pick(x, g),
                     gb_s=_lane_pick(s, g))
 
+    @traced_closure
     def step(key: torch.Tensor, st: State) -> State:
         ks = jr.split(key)
         shape = st["x"].shape[1:]
@@ -242,6 +246,7 @@ def pso_ops(cards: torch.Tensor, score_fn: Callable, n_particles: int,
                     gb_x=_where(better, _lane_pick(pb_x, g), st["gb_x"]),
                     gb_s=torch.where(better, g_s, st["gb_s"]))
 
+    @traced_closure
     def best(st: State) -> Tuple[torch.Tensor, torch.Tensor]:
         return st["gb_x"], st["gb_s"]
 
@@ -277,6 +282,7 @@ def _stochastic_rank_host(f: np.ndarray, phi: np.ndarray, coin: np.ndarray
     return out
 
 
+@traced_closure
 def stochastic_rank(key: torch.Tensor, f: torch.Tensor, phi: torch.Tensor,
                     p_f: float = 0.45) -> torch.Tensor:
     """Runarsson & Yao stochastic ranking: keys (..., 2), objective ``f``
@@ -316,6 +322,7 @@ def es_ops(cards: torch.Tensor, score_fn: Callable, mu: int, lam: int,
     # tau * normal, with XLA's folding of the constants (tau sqrt 2)
     tau_s2 = float(np.float32(1.0 / np.sqrt(2.0 * n)) * np.float32(_SQRT2))
 
+    @traced_closure
     def evaluate(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(score, penalty) of a real-coded batch, one decode."""
         genomes = _to_index(x, cards)
@@ -324,6 +331,7 @@ def es_ops(cards: torch.Tensor, score_fn: Callable, mu: int, lam: int,
         s = score_fn(genomes)
         return s, (s >= INFEASIBLE_PENALTY).float()
 
+    @traced_closure
     def init(key: torch.Tensor) -> State:
         pop = jr.uniform(key, (mu, n))
         s, phi = evaluate(pop)
@@ -334,6 +342,7 @@ def es_ops(cards: torch.Tensor, score_fn: Callable, mu: int, lam: int,
                     s=s, phi=phi, best_x=_lane_pick(pop, b),
                     best_s=_lane_pick(s, b))
 
+    @traced_closure
     def step(key: torch.Tensor, st: State) -> State:
         ks = jr.split(key, 4)
         parents = jr.randint(ks[:, 0], (lam,), 0, mu).long()
@@ -363,6 +372,7 @@ def es_ops(cards: torch.Tensor, score_fn: Callable, mu: int, lam: int,
                                   st["best_x"]),
                     best_s=torch.where(better, b_s, st["best_s"]))
 
+    @traced_closure
     def best(st: State) -> Tuple[torch.Tensor, torch.Tensor]:
         return st["best_x"], st["best_s"]
 
@@ -395,6 +405,7 @@ def cmaes_ops(cards: torch.Tensor, score_fn: Callable, lam: int,
                            torch.as_tensor(wts_np, device=dev))
         return consts[dev]
 
+    @traced_closure
     def init(key: torch.Tensor) -> State:
         L, dev = key.shape[0], key.device
         mean = torch.full((L, n), 0.5, dtype=torch.float32, device=dev)
@@ -405,6 +416,7 @@ def cmaes_ops(cards: torch.Tensor, score_fn: Callable, lam: int,
                                      device=dev),
                     C=eye.expand(L, n, n).clone(), best_x=mean, best_s=s0)
 
+    @traced_closure
     def step(key: torch.Tensor, st: State) -> State:
         eye, wts = eye_wts(key.device)
         # C stays a convex combination of PSD terms plus jitter, so the
@@ -436,6 +448,7 @@ def cmaes_ops(cards: torch.Tensor, score_fn: Callable, lam: int,
                     best_x=_where(better, _lane_pick(x, b), st["best_x"]),
                     best_s=torch.where(better, b_s, st["best_s"]))
 
+    @traced_closure
     def best(st: State) -> Tuple[torch.Tensor, torch.Tensor]:
         return st["best_x"], st["best_s"]
 
@@ -446,6 +459,7 @@ def cmaes_ops(cards: torch.Tensor, score_fn: Callable, lam: int,
 # G3PCX
 # ---------------------------------------------------------------------------
 
+@traced_closure
 def companion_indices(key: torch.Tensor, pop_size: int, n_companions: int,
                       best: torch.Tensor) -> torch.Tensor:
     """``n_companions`` distinct population indices per key, drawn
@@ -456,6 +470,7 @@ def companion_indices(key: torch.Tensor, pop_size: int, n_companions: int,
     return idx + (idx >= best[..., None]).long()
 
 
+@traced_closure
 def pcx_offspring(key: torch.Tensor, p: torch.Tensor,
                   companions: torch.Tensor, n_offspring: int,
                   sigma_zeta: float = 0.1, sigma_eta: float = 0.1
@@ -508,6 +523,7 @@ def g3pcx_ops(cards: torch.Tensor, score_fn: Callable, pop_size: int,
     n = cards.shape[0]
     score = _real_scorer(score_fn, cards)
 
+    @traced_closure
     def init(key: torch.Tensor) -> State:
         pop = jr.uniform(key, (pop_size, n))
         s = score(pop)
@@ -515,6 +531,7 @@ def g3pcx_ops(cards: torch.Tensor, score_fn: Callable, pop_size: int,
         return dict(pop=pop, s=s, best_x=_lane_pick(pop, b),
                     best_s=_lane_pick(s, b))
 
+    @traced_closure
     def step(key: torch.Tensor, st: State) -> State:
         ks = jr.split(key, 3)
         bi = torch.argmin(st["s"], dim=1)
@@ -540,6 +557,7 @@ def g3pcx_ops(cards: torch.Tensor, score_fn: Callable, pop_size: int,
                                   st["best_x"]),
                     best_s=torch.where(better, b_s, st["best_s"]))
 
+    @traced_closure
     def best(st: State) -> Tuple[torch.Tensor, torch.Tensor]:
         return st["best_x"], st["best_s"]
 
@@ -576,6 +594,7 @@ def make_baseline_ops(algorithm: str, cards: torch.Tensor,
                      f"known: {BASELINE_ALGORITHMS}")
 
 
+@traced_closure
 def baseline_scan(key: torch.Tensor, ops: BaselineOps, iters: int,
                   active: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -605,6 +624,7 @@ def baseline_scan(key: torch.Tensor, ops: BaselineOps, iters: int,
     return bx, bs, torch.stack(hist, dim=1)
 
 
+@traced_closure
 def baseline_kernel(key: torch.Tensor, cards: torch.Tensor,
                     score_fn: Callable, *, algorithm: str, pop: int,
                     iters: int, penalty_fn: Optional[Callable] = None,

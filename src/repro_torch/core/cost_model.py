@@ -44,6 +44,7 @@ from ..device import resolve_device
 from .search_space import (TECH_32NM_INDEX, TECH_COST_ALPHA, TECH_NODES_NM,
                            TECH_VMAX, TECH_VMIN, V_NOM, SearchSpace)
 from .workloads import WorkloadArrays, WorkloadBuilder
+from .tracing import traced_closure
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +181,7 @@ class CostTables:
             wbits=wt.wbits.reshape(P, W * Lm))
 
 
+@traced_closure
 def _resolve(space: SearchSpace, table: torch.Tensor,
              genomes: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Gather parameter values for each genome: dict of (P,) tensors.
@@ -196,6 +198,7 @@ def _resolve(space: SearchSpace, table: torch.Tensor,
     return out
 
 
+@traced_closure
 def _cost_core(space: SearchSpace, c: HWConstants, p: Dict[str, torch.Tensor],
                wt: CostTables) -> CostMetrics:
     """The reference's shared cost math over a (B, Lt) layer axis
@@ -334,6 +337,7 @@ def _cost_core(space: SearchSpace, c: HWConstants, p: Dict[str, torch.Tensor],
                        cost=cost, feasible_w=feasible_w)
 
 
+@traced_closure
 def evaluate_population(space: SearchSpace, wl: WorkloadArrays,
                         genomes: torch.Tensor,
                         constants: HWConstants = HWConstants(),
@@ -347,6 +351,7 @@ def evaluate_population(space: SearchSpace, wl: WorkloadArrays,
     return _cost_core(space, constants, p, tables)
 
 
+@traced_closure
 def evaluate_population_joint(space: SearchSpace, builder: WorkloadBuilder,
                               genomes: torch.Tensor,
                               constants: HWConstants = HWConstants(),

@@ -26,6 +26,7 @@ import torch
 from .. import random as jr
 from . import sampling
 from .search_space import SearchSpace
+from .tracing import traced_closure
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,14 +61,17 @@ def phase_schedule(phases: Sequence[Phase],
     return np.asarray(rows, np.float32)
 
 
+@traced_closure
 def _to_real(pop: torch.Tensor, cards: torch.Tensor) -> torch.Tensor:
     return (pop.float() + 0.5) / cards
 
 
+@traced_closure
 def _to_index(x: torch.Tensor, cards: torch.Tensor) -> torch.Tensor:
     return torch.floor(torch.clamp(x, 0.0, 1.0 - 1e-6) * cards).long()
 
 
+@traced_closure
 def _sbx(key: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
          pc: torch.Tensor, eta: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,6 +94,7 @@ def _sbx(key: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
     return torch.where(m, c1, x1), torch.where(m, c2, x2)
 
 
+@traced_closure
 def _poly_mutate(key: torch.Tensor, x: torch.Tensor, pm: torch.Tensor,
                  eta: torch.Tensor,
                  cards: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -112,6 +117,7 @@ def _poly_mutate(key: torch.Tensor, x: torch.Tensor, pm: torch.Tensor,
                        0.0, 1.0 - 1e-6)
 
 
+@traced_closure
 def _generation_step(key: torch.Tensor, pop: torch.Tensor,
                      scores: torch.Tensor, cards: torch.Tensor,
                      pc: torch.Tensor, eta_c: torch.Tensor,
@@ -163,6 +169,7 @@ def row_params(schedule: torch.Tensor, t: int) -> Tuple[torch.Tensor, ...]:
     return p[0], p[1], p[2], p[3]
 
 
+@traced_closure
 def ga_scan(key: torch.Tensor, init_pop: torch.Tensor, cards: torch.Tensor,
             schedule: torch.Tensor, score_fn: LaneScore,
             active: Optional[torch.Tensor] = None
@@ -215,6 +222,7 @@ def ga_scan(key: torch.Tensor, init_pop: torch.Tensor, cards: torch.Tensor,
     return best_g, best_s, torch.stack(hist, dim=1), pop, scores
 
 
+@traced_closure
 def search_kernel(key: torch.Tensor, cards: torch.Tensor,
                   schedule: torch.Tensor, score_fn: LaneScore,
                   feasible_fn: Optional[Callable] = None, *,
@@ -321,17 +329,45 @@ def joint_search(key: torch.Tensor, space: SearchSpace,
                  p_h: int = 1000, p_e: int = 500, p_ga: int = 40,
                  generations_per_phase: int = 10,
                  phases: Sequence[Phase] = FOUR_PHASES,
-                 feasible_fn: Optional[Callable] = None,
-                 hamming_sampling: bool = True) -> SearchResult:
+                 capacity_filter: Optional[Callable] = None,
+                 hamming_sampling: bool = True,
+                 feasible_fn: Optional[Callable] = None) -> SearchResult:
     """Algorithm 1 for one seed (key (2,)): optimized sampling + the
-    four-phase GA, a one-lane batch. ``hamming_sampling=False`` is the
-    'non-modified GA with enhanced sampling' ablation (random init of
-    size p_ga)."""
-    return batched_joint_search(
-        key[None], space, score_fn, p_h=p_h, p_e=p_e, p_ga=p_ga,
-        generations_per_phase=generations_per_phase, phases=phases,
-        feasible_fn=feasible_fn,
-        hamming_sampling=hamming_sampling).seed_result(0)
+    four-phase GA. Without ``capacity_filter`` it is a one-lane batch
+    (the capacity constraint, if any, as the device-side
+    ``feasible_fn``); with a host-side ``capacity_filter`` ((N, n)
+    genomes -> (N,) bools) sampling keeps the reference's host rejection
+    loop (``sampling.sample_initial``) and the GA runs from its
+    population. ``hamming_sampling=False`` is the 'non-modified GA with
+    enhanced sampling' ablation (random init of size p_ga)."""
+    if capacity_filter is None:
+        return batched_joint_search(
+            key[None], space, score_fn, p_h=p_h, p_e=p_e, p_ga=p_ga,
+            generations_per_phase=generations_per_phase, phases=phases,
+            feasible_fn=feasible_fn,
+            hamming_sampling=hamming_sampling).seed_result(0)
+    t0 = time.perf_counter()
+    dev = key.device
+    cards = cards_of(space, dev)
+    ks = jr.split(key)
+    key, k_s = ks[0], ks[1]
+    if hamming_sampling:
+        c2 = sampling.sample_initial(k_s, cards, p_h, p_e, capacity_filter)
+        order = torch.argsort(score_fn(c2), stable=True)
+        init = c2[order[:p_ga]]
+    else:
+        init = sampling.sample_initial(k_s, cards, p_h, p_ga,
+                                       capacity_filter)
+    t_sample = time.perf_counter() - t0
+    schedule = torch.as_tensor(phase_schedule(phases, generations_per_phase),
+                               device=dev)
+    best_g, best_s, hist, pop, scores = ga_scan(
+        key[None], init[None], cards, schedule, lanes_of(score_fn))
+    return SearchResult(
+        best_genome=best_g[0].cpu().numpy(),
+        best_score=float(best_s[0]), history=hist[0].cpu().numpy(),
+        population=pop[0].cpu().numpy(), scores=scores[0].cpu().numpy(),
+        wall_time_s=time.perf_counter() - t0, sampling_time_s=t_sample)
 
 
 def plain_ga_search(key: torch.Tensor, space: SearchSpace,

@@ -49,6 +49,7 @@ from ..kernels.ops import imc_gemm
 from .cost_model import pointwise
 from .search_space import SearchSpace
 from .workloads import Workload, WorkloadArrays, WorkloadBuilder
+from .tracing import traced_closure
 
 OUTPUT_NOISE_FRAC = 0.01  # 1% output-referred noise [58]
 
@@ -85,11 +86,13 @@ def resolve_backend(backend: str, device: torch.device) -> str:
     return backend
 
 
+@traced_closure
 def quantize_activations(x: torch.Tensor) -> torch.Tensor:
     """8-bit DAC: [0, 1] activations -> int32 codes in [0, 255]."""
     return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.int32)
 
 
+@traced_closure
 def _noised_weights(k_pos: torch.Tensor, k_neg: torch.Tensor,
                     w: torch.Tensor, xbar_rows: int) -> torch.Tensor:
     """Differential-pair conductance mapping + variability + IR drop at
@@ -169,6 +172,7 @@ def _workload_accuracy_params(
     return base, pen
 
 
+@traced_closure
 def _snr_to_accuracy(snr_db: torch.Tensor, base: torch.Tensor,
                      depth_pen: torch.Tensor) -> torch.Tensor:
     keep = pointwise(torch.sigmoid, (snr_db - _SNR_MID_DB) / _SNR_SCALE_DB)
@@ -234,6 +238,7 @@ def make_accuracy_model(space: SearchSpace,
     w_c = w.contiguous()
     k_noise = k_noise.contiguous()
 
+    @traced_closure
     def einsum_path(genomes, flat):
         # the design's fold_in key -> eps fields on the untiled (K, N)
         # weight shape and the output noise
@@ -253,6 +258,7 @@ def make_accuracy_model(space: SearchSpace,
         raw = torch.sum(q * pow2[None, :, None, None, None], dim=(1, 3))
         return raw, jr.normal(k[:, 2], raw.shape[1:])
 
+    @traced_closure
     def accuracy(genomes: torch.Tensor) -> torch.Tensor:
         genomes = genomes.to(dev).long()
         flat = (genomes * strides).sum(dim=1)

@@ -42,6 +42,7 @@ from .genetic import (FOUR_PHASES, Phase, _poly_mutate, _sbx, _to_index,
                       phase_schedule, row_params)
 from .pareto import pareto_front
 from .search_space import SearchSpace
+from .tracing import traced_closure
 
 LaneScoreVec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -50,6 +51,7 @@ LaneScoreVec = Callable[[torch.Tensor], torch.Tensor]
 # fast non-dominated sorting + crowding
 # ---------------------------------------------------------------------------
 
+@traced_closure
 def dominance_matrix(scores: torch.Tensor) -> torch.Tensor:
     """(..., N, D) minimize-all scores -> (..., N, N) bool: [i, j] is
     True iff design i dominates design j (i <= j everywhere, i < j
@@ -65,6 +67,7 @@ DOMINANCE_TILE = 256
 DOMINANCE_TILE_THRESHOLD = 512
 
 
+@traced_closure
 def dominance_matrix_tiled(scores: torch.Tensor,
                            tile: int = DOMINANCE_TILE) -> torch.Tensor:
     """``dominance_matrix`` built in blocks of ``tile`` rows, each block
@@ -82,6 +85,7 @@ def dominance_matrix_tiled(scores: torch.Tensor,
     return torch.cat(rows, dim=-2)
 
 
+@traced_closure
 def nondominated_rank(scores: torch.Tensor,
                       tile: Optional[int] = None) -> torch.Tensor:
     """(..., N, D) scores -> (..., N) int32 non-domination ranks
@@ -120,6 +124,7 @@ def _lexsort2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.gather(o1, -1, o2)
 
 
+@traced_closure
 def crowding_distance(scores: torch.Tensor,
                       ranks: torch.Tensor) -> torch.Tensor:
     """(..., N, D) scores + (..., N) ranks -> (..., N) crowding
@@ -159,12 +164,14 @@ def crowding_distance(scores: torch.Tensor,
     return total
 
 
+@traced_closure
 def crowded_order(ranks: torch.Tensor, crowd: torch.Tensor) -> torch.Tensor:
     """Permutation sorting by (rank asc, crowding desc), NSGA-II's total
     preference order."""
     return _lexsort2(-crowd, ranks)
 
 
+@traced_closure
 def tournament_select(key: torch.Tensor, ranks: torch.Tensor,
                       crowd: torch.Tensor, n_winners: int) -> torch.Tensor:
     """Binary tournament by (rank, crowding): keys (L, 2), ranks and
@@ -182,6 +189,7 @@ def tournament_select(key: torch.Tensor, ranks: torch.Tensor,
 # the NSGA-II generation and the scheduled search
 # ---------------------------------------------------------------------------
 
+@traced_closure
 def _nsga_generation(key: torch.Tensor, pop: torch.Tensor,
                      scores: torch.Tensor, cards: torch.Tensor,
                      pc: torch.Tensor, eta_c: torch.Tensor,
@@ -219,6 +227,7 @@ def _final_order(pop, scores):
             torch.gather(ranks, 1, order))
 
 
+@traced_closure
 def nsga_scan(key: torch.Tensor, init_pop: torch.Tensor, cards: torch.Tensor,
               schedule: torch.Tensor, score_vec: LaneScoreVec,
               active: Optional[torch.Tensor] = None
@@ -258,6 +267,7 @@ def nsga_scan(key: torch.Tensor, init_pop: torch.Tensor, cards: torch.Tensor,
     return pop, scores, ranks, torch.stack([ideal0] + hist, dim=1)
 
 
+@traced_closure
 def nsga_search_kernel(key: torch.Tensor, cards: torch.Tensor,
                        schedule: torch.Tensor, score_vec: LaneScoreVec,
                        feasible_fn: Optional[Callable] = None, *,

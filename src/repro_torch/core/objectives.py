@@ -22,6 +22,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .cost_model import CostMetrics, pointwise
+from .tracing import traced_closure
 
 AREA_CONSTRAINT_MM2 = 800.0
 # Penalty score for infeasible / over-area designs.
@@ -32,6 +33,7 @@ OBJECTIVE_KINDS = ("edap", "edp", "energy", "delay", "area", "cost",
 AGGREGATIONS = ("max", "mean", "all")
 
 
+@traced_closure
 def aggregate_scores(x: torch.Tensor, scheme: str) -> torch.Tensor:
     """Aggregate a (P, W) per-workload matrix over the workload axis."""
     if scheme == "max":
@@ -60,6 +62,7 @@ class Objective:
     area_constraint: float = AREA_CONSTRAINT_MM2
     min_accuracy: float = 0.0
 
+    @traced_closure
     def __call__(self, m: CostMetrics,
                  accuracy: Optional[torch.Tensor] = None) -> torch.Tensor:
         e_mj = aggregate_scores(m.energy * 1e3, self.aggregation)
@@ -118,6 +121,7 @@ class MultiObjective:
     def n_objectives(self) -> int:
         return len(self.components)
 
+    @traced_closure
     def __call__(self, m: CostMetrics,
                  accuracy: Optional[torch.Tensor] = None) -> torch.Tensor:
         return torch.stack([o(m, accuracy=accuracy)
@@ -164,6 +168,7 @@ def make_objective(spec: str,
     return Objective(kind, agg, area_constraint, min_accuracy)
 
 
+@traced_closure
 def per_workload_scores(m: CostMetrics, kind: str = "edap",
                         accuracy: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:

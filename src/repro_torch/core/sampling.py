@@ -7,19 +7,27 @@ counterpart of ``repro/core/sampling.py`` (its device path).
      Hamming distance (max-min greedy, seeded with the first);
   3. the caller scores them and keeps the best P_GA.
 
-Every function works on a leading batch of independent searches
+The device functions work on a leading batch of independent searches
 ("lanes", the reference's ``vmap`` axis): keys are (L, 2), genomes
-(L, P, n). Draws match the reference bit for bit (``random.py``).
+(L, P, n). ``sample_initial`` keeps the reference's host rejection loop
+for one search with a host-side capacity filter. Draws match the
+reference bit for bit (``random.py``).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .. import random as jr
+from .tracing import traced_closure
+
+# Tries of sample_initial's rejection loop (the reference's max_tries).
+SAMPLE_TRIES = 20
 
 
+@traced_closure
 def uniform_genomes(key: torch.Tensor, cards: torch.Tensor, n: int
                     ) -> torch.Tensor:
     """(L, 2) keys, (n_params,) float32 cardinalities -> (L, n,
@@ -34,6 +42,7 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[lanes, idx]
 
 
+@traced_closure
 def hamming_select(candidates: torch.Tensor, n_select: int,
                    n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy max-min Hamming-distance subset selection per lane.
@@ -60,15 +69,19 @@ def hamming_select(candidates: torch.Tensor, n_select: int,
     if n_valid is not None:
         pos = torch.arange(P_H, device=candidates.device)
         taken = taken | (pos[None, :] >= n_valid[:, None])
+    # a device-side True: a Python scalar put through advanced indexing
+    # is a host-to-device copy (a host sync) every iteration
+    true = torch.ones((), dtype=torch.bool, device=candidates.device)
     for i in range(1, n_select):
         masked = torch.where(taken, torch.full_like(d_min, -1), d_min)
         nxt = torch.argmax(masked, dim=1)
         selected[:, i] = nxt
         d_min = torch.minimum(d_min, dist_to(nxt))
-        taken[lanes, nxt] = True
+        taken[lanes, nxt] = true
     return take_rows(candidates, selected)
 
 
+@traced_closure
 def sample_initial_device(key: torch.Tensor, cards: torch.Tensor, p_h: int,
                           p_e: int, feasible_fn: Optional[Callable] = None,
                           oversample: int = 4) -> torch.Tensor:
@@ -86,3 +99,31 @@ def sample_initial_device(key: torch.Tensor, cards: torch.Tensor, p_h: int,
     cands = take_rows(pool, order[:, :p_h])
     n_valid = torch.clamp(ok.sum(dim=1), max=p_h)
     return hamming_select(cands, p_e, n_valid=n_valid)
+
+
+def sample_initial(key: torch.Tensor, cards: torch.Tensor, p_h: int,
+                   p_e: int, capacity_filter: Callable) -> torch.Tensor:
+    """P_H uniform capacity-filtered genomes -> P_E Hamming-diverse
+    genomes for one search: key (2,) -> (P_E, n).
+
+    ``capacity_filter`` maps (N, n) genomes to (N,) numpy bools on the
+    host: the reference's rejection loop draws P_H genomes a try, keeps
+    the feasible ones and stops once P_H are kept or after
+    ``SAMPLE_TRIES`` tries."""
+    pool, total = [], 0
+    for _ in range(SAMPLE_TRIES):
+        ks = jr.split(key)
+        key, k = ks[0], ks[1]
+        g = uniform_genomes(k[None], cards, p_h)[0]
+        keep = torch.as_tensor(np.asarray(capacity_filter(g)),
+                               device=g.device)
+        pool.append(g[keep])
+        total += pool[-1].shape[0]
+        if total >= p_h:
+            break
+    cands = torch.cat(pool)
+    if cands.shape[0] < 2:
+        raise RuntimeError(
+            "capacity filter rejected (almost) all sampled designs — the "
+            "largest workload does not fit anywhere in this space")
+    return hamming_select(cands[None, :p_h], p_e)[0]

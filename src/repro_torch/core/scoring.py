@@ -33,6 +33,7 @@ from .objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
                          per_workload_scores)
 from .search_space import SearchSpace
 from .workloads import WorkloadArrays, WorkloadBuilder
+from .tracing import traced_closure
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +140,7 @@ def build_scorer(space: SearchSpace, spec: ScorerSpec, *,
     if spec.builder is not None:
         tables = CostTables.joint(space, spec.builder, dev)
 
+        @traced_closure
         def metrics(genomes):
             return evaluate_population_joint(space, spec.builder,
                                              genomes.to(dev), spec.constants,
@@ -146,11 +148,13 @@ def build_scorer(space: SearchSpace, spec: ScorerSpec, *,
     else:
         tables = CostTables.of(space, spec.workloads, dev)
 
+        @traced_closure
         def metrics(genomes):
             return evaluate_population(space, spec.workloads,
                                        genomes.to(dev), spec.constants,
                                        tables)
 
+    @traced_closure
     def score_full(genomes):
         m = metrics(genomes)
         if acc_fn is None:
@@ -160,18 +164,22 @@ def build_scorer(space: SearchSpace, spec: ScorerSpec, *,
     if is_mo:
         score_vec = score_full
 
+        @traced_closure
         def score(genomes):
             return score_full(genomes)[:, 0]
     else:
         score_vec = None
         score = score_full
 
+    @traced_closure
     def feasible(genomes):
         return metrics(genomes).feasible
 
+    @traced_closure
     def feasible_w(genomes, w):
         return _column(metrics(genomes).feasible_w, w)
 
+    @traced_closure
     def score_w(genomes, w):
         m = metrics(genomes)
         acc = acc_fn(genomes) if acc_fn is not None else None

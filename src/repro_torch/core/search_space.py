@@ -106,6 +106,11 @@ class SearchSpace:
         return {n: float(self.values[i][int(genome[i])])
                 for i, n in enumerate(self.names)}
 
+    def describe(self, genome) -> str:
+        """A genome as one ``name=value, ...`` line."""
+        d = self.decode(genome)
+        return ", ".join(f"{k}={v:g}" for k, v in d.items())
+
 
 def _mk(names_values: Sequence[Tuple[str, Sequence[float]]], mem_type: str,
         tech_is_variable: bool) -> SearchSpace:

@@ -27,6 +27,8 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
+from .tracing import traced_closure
+
 WEIGHT_BITS = 8  # all models quantized to 8-bit weights/activations (§IV)
 
 
@@ -564,6 +566,7 @@ class WorkloadBuilder:
                 for s in self.slots)
         return self._tables[device]
 
+    @traced_closure
     def __call__(self, genomes: torch.Tensor) -> WorkloadTensors:
         g = genomes.long()
         per = {f: [] for f in WorkloadTensors._fields}

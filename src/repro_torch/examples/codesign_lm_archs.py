@@ -28,9 +28,9 @@ from typing import Dict
 import torch
 
 from .. import random as jr
+from ..api import SMOKE_BUDGET, get_scenario, run_scenario
 from ..configs import get_config
 from ..device import resolve_device
-from ..experiments import SMOKE_BUDGET, get_scenario, run_scenario
 from ..kernels.ops import imc_gemm
 
 

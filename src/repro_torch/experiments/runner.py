@@ -67,6 +67,7 @@ from ..core.objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
 from ..core.pareto import edap_cost_front, hypervolume_2d
 from ..core.scoring import Calib, Scorer, ScorerSpec, build_scorer
 from ..core.search_space import TECH_32NM_INDEX, TECH_NODES_NM, SearchSpace
+from ..core.tracing import traced_closure
 from ..core.workloads import (WorkloadArrays, WorkloadBuilder,
                               WorkloadFamily, make_workload_builder, pack)
 from ..device import resolve_device
@@ -78,6 +79,16 @@ DEFAULT_OUT_DIR = os.path.join("experiments", "results")
 # Result-cache schema version, part of every result.json and of the
 # cache key (the reference's value: the schemas line up).
 RESULT_SCHEMA_VERSION = 3
+
+# Scenario fields that may change without invalidating a cached result:
+# display/provenance strings and the CLI's smoke-budget template (the
+# budget actually run is keyed through ``scenario.budget``). Every other
+# Scenario field must be read by ``cache_key_fields`` below: rule R002
+# (``python -m repro_torch.analysis``) fails when a new field is neither
+# read there nor listed here. The reference's set.
+CACHE_KEY_EXEMPT_FIELDS = frozenset({
+    "name", "paper_ref", "description", "smoke_budget",
+})
 
 
 def cache_key_fields(scenario: Scenario, seed: int, n_seeds: int,
@@ -171,6 +182,7 @@ def lane_search(space: SearchSpace, traced: Scorer, *, engine: str,
         return lane_fn
 
     if engine == "nsga":
+        @traced_closure
         def one(dev, keys, schedule, active):
             sc = traced.on(dev)
             return nsga_search_kernel(
@@ -179,6 +191,7 @@ def lane_search(space: SearchSpace, traced: Scorer, *, engine: str,
                 lanes_of(sc.feasible) if rram else None, p_h=p_h, p_e=p_e,
                 p_ga=p_ga, hamming_sampling=hamming, active=active)
     elif part == "spec":
+        @traced_closure
         def one(dev, keys, ws, schedule, active):
             sc = traced.on(dev)
             return search_kernel(
@@ -187,6 +200,7 @@ def lane_search(space: SearchSpace, traced: Scorer, *, engine: str,
                 spec_rows(sc.feasible_w, ws) if rram else None, p_h=p_h,
                 p_e=p_e, p_ga=p_ga, hamming_sampling=hamming, active=active)
     else:
+        @traced_closure
         def one(dev, keys, schedule, active):
             sc = traced.on(dev)
             return search_kernel(
@@ -299,6 +313,7 @@ def make_landscape_scorer(space: SearchSpace, wa: WorkloadArrays,
     dev = resolve_device(device)
     tables = CostTables.of(space, wa, dev)
 
+    @traced_closure
     def score(genomes: torch.Tensor) -> torch.Tensor:
         m = evaluate_population(space, wa, genomes.to(dev), constants,
                                 tables)
@@ -319,6 +334,7 @@ def make_infeasibility_penalty(traced: Scorer,
     ac = objective.area_constraint
     inv_ac = float(np.float32(1.0) / np.float32(ac))
 
+    @traced_closure
     def evaluate(genomes: torch.Tensor):
         m = traced.metrics(genomes)
         if traced.accuracy is None:

@@ -16,10 +16,10 @@ import time
 import numpy as np
 import torch
 
+from ..api import LMRequest, ServeEngine
 from ..configs import get_config
 from ..device import resolve_device
 from ..models import init_params
-from ..serve import LMRequest, ServeEngine
 
 
 def main(argv=None) -> int:

@@ -536,3 +536,32 @@ def test_codesign_service_defaults_to_cuda(cuda):
     svc = CodesignService(write=False, autostart=False)
     assert svc.device == torch.device("cuda", torch.cuda.current_device())
     svc.close()
+
+
+def test_launch_audit_on_card(cuda):
+    """The launch audit of ``rram_smoke`` and ``rram_accuracy`` on the
+    card: the same ids as on the CPU, every host-sync site it finds
+    (dispatched syncs and ``set_sync_debug_mode`` copies) suppressed for
+    the card in analysis/torch_suppressions.txt, the counts within the
+    ``cuda`` block of analysis/torch_baseline.json, and the keyed
+    ``imc_fused`` kernel launched by ``rram_accuracy``'s calls."""
+    from pathlib import Path
+
+    from repro_torch.analysis import apply_suppressions, load_suppressions
+    from repro_torch.analysis import launch_audit as la
+
+    root = str(Path(__file__).resolve().parents[1])
+    imc_fused_gemm_keyed.launches = 0
+    findings, report = la.run_launch_audit(
+        root, cuda, names=["rram_smoke", "rram_accuracy"])
+    assert imc_fused_gemm_keyed.launches > 0
+    assert sorted(report["kernels"]) == [
+        "rram_accuracy::kernel", "rram_accuracy::scorer",
+        "rram_smoke::kernel", "rram_smoke::scorer"]
+    sups, problems = load_suppressions(root)
+    sups = [s for s in sups if s.applies("J", "cuda")]
+    kept, suppressed, _ = apply_suppressions(findings, sups)
+    assert problems == []
+    errors = [f for f in kept if f.severity == "error"]
+    assert errors == [], "\n".join(f.format() for f in errors)
+    assert any(f.rule == "J001" for f in suppressed)
