@@ -161,7 +161,27 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
      audited call again in this process under the profiler: its
      dispatched ATen ops beside its device kernel launches, the keyed
      kernel's launches, the five most dispatched ops of
-     ``rram_accuracy::kernel`` and the phase's wall.
+     ``rram_accuracy::kernel`` and the phase's wall;
+ 23. the attention gradient kernel (``csrc/flash_attention_bwd.cu``)
+     through ``flash_mha``'s autograd function vs
+     ``flash_attention_bwd_plain`` in float32 on the same inputs, at
+     phase 11's shapes plus float32 window, query-offset and hd 256
+     cases and qwen3-4b's training shape (8 x 128 tokens, 32 heads of
+     128, bf16, causal): float32 within 1e-4 of each gradient's largest
+     entry, bf16 every element within two bf16 steps plus 1e-4; a second
+     launch on the same inputs bitwise equal; then at S = T = 4096, 32
+     heads, bf16, causal the kernel, the plain version and SDPA's
+     backward timed beside the bound;
+ 24. qwen3-4b at full width trains on the card through
+     ``repro_torch.launch.train``'s code path (36 layers, bf16, seeded
+     random weights, batch 8 x seq 128, 4 steps, no checkpoints): every
+     loss and grad norm finite, 36 backward and 72 forward flash
+     launches a step (remat recomputes each block's forward); the median
+     step time over steps 2-4, tokens/s, peak memory, then one step
+     under the profiler (launches, idle share, device time by kernel);
+     then at ``--reduced`` size 4 steps straight against 2 steps, a
+     checkpoint, a fresh state and 2 resumed steps: params, m and v
+     bitwise equal.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -1271,8 +1291,8 @@ def phase_campaign(torch, counters, dev, seq) -> dict:
     return {"wall": wall, "launches": launched["imc_fused_gemm_keyed"]}
 
 
-def profiled_launches(torch, fn):
-    """(device kernel launches, device busy s, host wall s) of ``fn()``
+def profiled_kernels(torch, fn):
+    """(device kernel events, device busy s, host wall s) of ``fn()``
     under ``torch.profiler`` (CUDA activity)."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1292,7 +1312,14 @@ def profiled_launches(torch, fn):
         else:
             cur[1] = max(cur[1], b)
     busy += 0.0 if cur is None else cur[1] - cur[0]
-    return len(kernels), busy / 1e6, wall
+    return kernels, busy / 1e6, wall
+
+
+def profiled_launches(torch, fn):
+    """(device kernel launches, device busy s, host wall s) of ``fn()``
+    under ``torch.profiler`` (CUDA activity)."""
+    kernels, busy, wall = profiled_kernels(torch, fn)
+    return len(kernels), busy, wall
 
 
 def service_burst(torch, name, seeds, dev):
@@ -1825,6 +1852,245 @@ def phase_logits(torch, fa, dev) -> None:
         f"(rel {err / scale:.3g}, limit 1e-3)")
 
 
+# phase 23: the attention gradient kernel; FLASH_TESTS plus float32 cases of
+# a window, a query offset and the widest head, and the training shape of
+# qwen3-4b (batch 8 x 128 tokens, 32 heads of 128, bf16, causal)
+FLASH_BWD_TESTS = FLASH_TESTS + [
+    (1, 257, 257, 2, 128, True, 100, 0, "float32"),
+    (2, 37, 120, 3, 64, True, 0, 83, "float32"),
+    (1, 70, 70, 2, 256, True, 0, 0, "float32"),
+    (8, 128, 128, 32, 128, True, 0, 0, "bfloat16")]
+FLASH_BWD_TIMED = 4096   # S = T of the timed shape (B=1, H=32, hd=128)
+# float32 gradients within this share of each gradient's largest entry
+FLASH_BWD_REL = 1e-4
+
+
+def flash_bwd_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
+    """Least time for the attention gradient on an H100 SXM: 5 products
+    of 2 FLOP per visible (query, key) pair and head dim (dO.v, q.k
+    recomputed, P^T dO, dS^T q, dS k) at the bf16 dense tensor-core peak
+    (float32's CUDA-core peak for float32 inputs), against q, k, v, o and
+    dO read once and dq, dk, dv written once."""
+    pairs = visible_pairs(S, T, causal, window)
+    flops = 10 * pairs * H * hd
+    nbytes = itemsize * H * hd * (4 * S + 4 * T)
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            # what this design computes: 8 products on the CUDA cores
+            "design_ms": 16 * pairs * H * hd / PEAK_FP32_FLOPS * 1e3}
+
+
+def flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev):
+    """(B, S, H, hd) q, (B, T, H, hd) k and v, and dO, in type ``dt``."""
+    tdt = getattr(torch, dt)
+    return [torch.randn((B, L, H, hd), generator=gen, device=dev).to(tdt)
+            for L in (S, T, T, S)]
+
+
+def flash_bwd_check(torch, fa, name, q, k, v, do, causal, win, dt, q_off):
+    """The gradient through ``flash_mha`` (one backward kernel launch) vs
+    ``flash_attention_bwd_plain`` in float32 on the same inputs, and a
+    second launch on the same inputs bitwise equal. Returns the max abs
+    error."""
+    from repro_torch.kernels.ops import flash_mha
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    out = flash_mha(q, k, v, causal=causal, window=win, q_offset=q_off)
+    before = fa.flash_attention_bwd.launches
+    got = torch.autograd.grad(out, (q, k, v), do)
+    views = [x.detach().transpose(1, 2) for x in (q, k, v, out)]
+    want = fa.flash_attention_bwd_plain(
+        *(x.float() for x in views), do.transpose(1, 2).float(),
+        causal=causal, window=win, q_offset=q_off)
+    again = fa.flash_attention_bwd(*views, do.transpose(1, 2),
+                                   causal=causal, window=win, q_offset=q_off)
+    torch.cuda.synchronize()
+    err, bad = 0.0, []
+    for nm, g, w, a in zip("qkv", got, want, again):
+        w = w.transpose(1, 2)
+        e = float((g.float() - w).abs().max())
+        err = max(err, e)
+        lim = FLASH_BWD_REL * float(w.abs().max())
+        over = (bf16_over(torch, g, w) if dt == "bfloat16"
+                else int(((g - w).abs() > lim).sum()))
+        if not (math.isfinite(e) and over == 0 and g.dtype == q.dtype):
+            bad.append(f"d{nm}: max abs err {e}, {over} over the limit")
+        if not torch.equal(a.transpose(1, 2), g):
+            bad.append(f"d{nm}: a second launch differs")
+    if fa.flash_attention_bwd.launches != before + 2:
+        bad.append("the gradient did not launch the kernel once a call")
+    if bad:
+        raise RuntimeError(f"flash_attention_bwd {name}: " + "; ".join(bad))
+    return err
+
+
+def phase_flash_bwd(torch, fa, dev) -> dict:
+    """Phase 23: the attention gradient kernel vs its plain version, its
+    determinism, and its time beside SDPA's backward at S = T = 4096."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ops import flash_mha
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    worst = 0.0
+    for B, S, T, H, hd, causal, win, q_off, dt in FLASH_BWD_TESTS:
+        q, k, v, do = flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev)
+        name = (f"B={B} S={S} T={T} H={H} hd={hd} causal={causal} win={win}"
+                f" q_offset={q_off} {dt}")
+        err = flash_bwd_check(torch, fa, name, q, k, v, do, causal, win, dt,
+                              q_off)
+        worst = max(worst, err)
+        log(f"flash_attention_bwd {name}: max_abs_err {err:.3g}, two "
+            f"launches bitwise equal")
+    S = FLASH_BWD_TIMED
+    q, k, v, do = flash_bwd_inputs(torch, gen, 1, S, S, QWEN_H, QWEN_HD,
+                                   "bfloat16", dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = flash_mha(q, k, v).transpose(1, 2)
+    dot = do.transpose(1, 2)
+    ms = time_ms(torch, lambda: fa.flash_attention_bwd(qt, kt, vt, out, dot),
+                 reps=2, windows=3)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+        qt, kt, vt, out, dot), reps=1, windows=3)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    sdpa = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa, (ql, kl, vl), dot, retain_graph=True), reps=5)
+    bound = flash_bwd_bound_ms(S, S, QWEN_H, QWEN_HD, True, 0, 2)
+    log(f"flash_attention_bwd B=1 S=T={S} H={QWEN_H} hd={QWEN_HD} causal "
+        f"bfloat16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
+        f"backward {lib_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}: {bound['flops'] / 1e9:.1f} GFLOP, "
+        f"{bound['bytes'] / 1e6:.1f} MB; this design's 8 float32 products "
+        f"need >= {bound['design_ms']:.3f} ms); kernel at "
+        f"{bound['flops'] / ms / 1e9:.2f} TFLOP/s of the least work")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **bound}
+
+
+# phase 24's device time split by kernel name (as the profiler demangles
+# it): the attention gradient kernel (csrc/flash_attention_bwd.cu's three
+# kernels), the forward attention kernel (both routes), cuBLAS products
+# (nvjet and the older gemm families), and PyTorch's elementwise, copy and
+# reduction kernels (AdamW, the clip, norms, RoPE, casts)
+TRAIN_KERNEL_GROUPS = [
+    ("attention gradient", ("stats_kernel", "dkdv_kernel", "dq_kernel")),
+    ("attention forward", ("flash_kernel", "wgmma_fa")),
+    ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
+    ("elementwise and reductions", ("elementwise", "reduce", "copy"))]
+TRAIN_ARGS = ["--arch", "qwen3_4b", "--steps", "4", "--batch", "8", "--seq",
+              "128", "--device", "cuda"]
+
+
+def train_run(torch, launch_train, dev, argv, n_steps, ckpt_dir=None):
+    """``launch.train``'s code path: its arguments and set-up, then
+    ``train_loop`` to step ``n_steps`` (resuming from ``ckpt_dir``).
+    Returns (state, step_fn, pipe, per-step metrics)."""
+    from repro_torch.train.loop import train_loop
+    args = launch_train.parse_args(argv)
+    _, state, step_fn, pipe = launch_train.setup(args, dev)
+    hist = []
+    state = train_loop(state, step_fn, pipe, n_steps, ckpt_dir=ckpt_dir,
+                       ckpt_every=2, log_every=1,
+                       on_metrics=lambda s, m: hist.append(m))
+    return state, step_fn, pipe, hist
+
+
+def phase_train(torch, fa, dev) -> dict:
+    """Phase 24: qwen3-4b at full width trains on the card through
+    ``launch.train``'s code path; then the resume check at reduced
+    size."""
+    from repro_torch.launch import train as launch_train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    state, step_fn, pipe, hist = train_run(torch, launch_train, dev,
+                                           TRAIN_ARGS, 4)
+    wall = time.perf_counter() - t0
+    bwd, fwd = fa.flash_attention_bwd.launches, fa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_layers = len(state.params.blocks)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    losses = [m["loss"] for m in hist]
+    gnorms = [m["grad_norm"] for m in hist]
+    times = [m["step_time_s"] for m in hist]
+    if len(hist) != 4 or not all(math.isfinite(x) for x in losses + gnorms) \
+            or bwd != 4 * n_layers or fwd != 8 * n_layers:
+        raise RuntimeError(f"train qwen3_4b: {len(hist)} steps, losses "
+                           f"{losses}, grad norms {gnorms}, backward "
+                           f"launches {bwd}, forward launches {fwd} (want "
+                           f"{4 * n_layers} and {8 * n_layers})")
+    med = statistics.median(times[1:])
+    tokens = 8 * 128
+    log(f"train qwen3_4b full width: {n_params / 1e9:.3f} B parameters, "
+        f"{n_layers} layers, bf16, batch 8 x seq 128, 4 steps in "
+        f"{wall:.2f} s wall (init included)")
+    log(f"train qwen3_4b: losses {[f'{x:.4f}' for x in losses]}, grad norms "
+        f"{[f'{x:.4f}' for x in gnorms]}, step times "
+        f"{[f'{x:.3f}' for x in times]} s")
+    log(f"train qwen3_4b: median step (steps 2-4) {med:.4f} s, "
+        f"{tokens / med:.1f} tokens/s; flash_attention_bwd launches {bwd} "
+        f"({bwd // 4} a step), forward launches {fwd} (remat: 2 a layer); "
+        f"peak memory {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB)")
+    # one more step under the profiler: launches, busy and idle share,
+    # and the device time by kernel
+    batch = pipe.next_batch()
+    kernels, busy, pwall = profiled_kernels(
+        torch, lambda: float(step_fn(state, batch)[1]["loss"]))
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"train qwen3_4b profiled step: {pwall:.4f} s wall, {len(kernels)} "
+        f"device kernel launches, device busy {busy:.4f} s, idle share "
+        f"{1 - busy / pwall:.3f}")
+    for nm, ms in top:
+        log(f"  {ms:9.3f} ms  {nm[:100]}")
+    groups, others = {}, []
+    for nm, ms in by_name.items():
+        g = next((g for g, keys in TRAIN_KERNEL_GROUPS
+                  if any(k in nm for k in keys)), "other")
+        groups[g] = groups.get(g, 0.0) + ms
+        if g == "other":
+            others.append((ms, nm))
+    log("train qwen3_4b profiled step, device ms by kind: " + ", ".join(
+        f"{g} {groups.get(g, 0.0):.3f}"
+        for g in [g for g, _ in TRAIN_KERNEL_GROUPS] + ["other"]))
+    for ms, nm in sorted(others, reverse=True)[:3]:
+        log(f"  other: {ms:9.3f} ms  {nm[:100]}")
+    del state, step_fn, pipe, batch, kernels
+    torch.cuda.empty_cache()
+    # resume, bitwise, at reduced size: 4 steps straight against 2 steps,
+    # a checkpoint, a fresh state and 2 more from it
+    small = ["--arch", "qwen3_4b", "--reduced", "--steps", "4", "--batch",
+             "8", "--seq", "128", "--device", "cuda"]
+    straight = train_run(torch, launch_train, dev, small, 4)[0]
+    with tempfile.TemporaryDirectory() as ck:
+        train_run(torch, launch_train, dev, small, 2, ckpt_dir=ck)
+        resumed = train_run(torch, launch_train, dev, small, 4,
+                            ckpt_dir=ck)[0]
+    diff = [n for (n, a), (_, b) in zip(straight.params.named_parameters(),
+                                        resumed.params.named_parameters())
+            if not torch.equal(a, b)]
+    diff += [f"{t}.{n}" for t in ("m", "v")
+             for n, a in getattr(straight.opt, t).items()
+             if not torch.equal(a, getattr(resumed.opt, t)[n])]
+    if diff or resumed.step != 4:
+        raise RuntimeError(f"train resume: step {resumed.step}, leaves that "
+                           f"differ from the straight run: {diff[:8]}")
+    log(f"train resume (qwen3_4b reduced, 4 straight vs 2 + checkpoint + 2 "
+        f"on a fresh state): params, m and v bitwise equal "
+        f"({len(straight.opt.m)} leaves each)")
+    return {"launches": bwd, "median_step_s": med, "peak": peak,
+            "idle": 1 - busy / pwall}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -1906,6 +2172,8 @@ def main(argv=None) -> int:
         phase_service(torch, fused, dev, "joint_rram_resnet_family",
                       seeds=tuple(range(4)), profile=False)
     launchers = phase_launchers(torch, fused, dev, res)              # 22
+    main_b = phase_flash_bwd(torch, fa, dev)                         # 23
+    trained = phase_train(torch, fa, dev)                            # 24
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -1952,7 +2220,19 @@ def main(argv=None) -> int:
                    "bound_ms": flash["bound_ms"],
                    "bound_by": flash["bound_by"],
                    "library_ms": flash["library_ms"]}
-    log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry]}))
+    bwd_entry = {"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:25 "
+                             "(its gradient: JAX autodiff of "
+                             "src/repro/models/attention.py:29)",
+                 "launches": trained["launches"],
+                 "max_abs_err": main_b["max_abs_err"], "ms": main_b["ms"],
+                 "plain_ms": main_b["plain_ms"],
+                 "bound_ms": main_b["bound_ms"],
+                 "bound_by": main_b["bound_by"],
+                 "library_ms": main_b["library_ms"]}
+    log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
+                                bwd_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -133,3 +133,62 @@ def from_reference_lm_params(params, cfg: ArchConfig, device="cuda") -> LM:
         {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in
          leaves.items()}, strict=True)
     return model.to(resolve_device(device))
+
+
+def from_reference_train_state(state, cfg: ArchConfig, device="cuda"):
+    """The reference's ``TrainState`` (params, AdamW ``m``, ``v`` and
+    ``count``, ``step``), its arrays as numpy, -> the port's
+    ``train.loop.TrainState``: the parameters as a training ``LM`` in
+    the config's type, ``m`` and ``v`` as float32 trees keyed by the
+    LM's parameter names (each through ``from_reference_lm_params`` at
+    float32), the counters as ints."""
+    from .train.loop import TrainState
+    from .train.optimizer import AdamWState
+    dev = resolve_device(device)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def tree(t):
+        return {k: p.detach() for k, p in from_reference_lm_params(
+            t, cfg32, dev).named_parameters()}
+    params = from_reference_lm_params(state.params, cfg, dev).train()
+    opt = AdamWState(m=tree(state.opt.m), v=tree(state.opt.v),
+                     count=int(np.asarray(state.opt.count)))
+    return TrainState(params=params, opt=opt,
+                      step=int(np.asarray(state.step)))
+
+
+def to_reference_lm_tree(tree: Dict[str, torch.Tensor],
+                         cfg: ArchConfig) -> Dict:
+    """The reverse of ``from_reference_lm_params`` for a tree keyed by
+    the LM's parameter names (gradients, AdamW moments): float32 numpy
+    arrays in the reference's layout, each pattern position's layers
+    stacked over depth. For comparing with the reference in tests."""
+    pattern, n_full, rem = cfg.schedule()
+    out: Dict = {k: tree[k].detach().float().cpu().numpy()
+                 for k in ("embed", "final_ln", "unembed")}
+
+    def nest(flat: Dict[str, np.ndarray]) -> Dict:
+        d: Dict = {}
+        for k, v in flat.items():
+            *path, leaf = k.split(".")
+            node = d
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = v
+        return d
+
+    def layer(i: int) -> Dict[str, np.ndarray]:
+        pre = f"blocks.{i}."
+        return {k[len(pre):]: t.detach().float().cpu().numpy()
+                for k, t in tree.items() if k.startswith(pre)}
+
+    period = {}
+    for i in range(len(pattern)):
+        layers = [layer(n * len(pattern) + i) for n in range(n_full)]
+        if layers:
+            period[f"pos{i}"] = nest({k: np.stack([lay[k] for lay in layers])
+                                      for k in layers[0]})
+    out["period"] = period
+    out["rem"] = [nest(layer(n_full * len(pattern) + j))
+                  for j in range(len(rem))]
+    return out

@@ -20,11 +20,13 @@ normal draw folded into the constant or operand it multiplies
 (``_erfinv_draws``), its Cephes ``exp`` (``_xla_exp``), norms and small
 matrix-vector products accumulated in index order by fused
 multiply-adds (``_fma_sum``), and correctly rounded square roots.
-The Cholesky factor and two matrix products of CMA-ES are library calls
-whose summation order is not XLA's, and the normal draw itself is
-within a few ULP of JAX's (ROADMAP Queue 3): those states agree to a
-stated tolerance (tests/test_torch_baselines.py) and the decoded
-genomes stay equal.
+CMA-ES's Cholesky factor and its two matrix products are written out
+in a fixed order (``_cholesky``, ``_fma_matmul``): the reference's are
+LAPACK and BLAS calls whose order is neither this one nor the same on
+every CPU, and a library call here would pick its order by the CPU's
+vector width too. With the normal draw within a few ULP of JAX's
+(ROADMAP Queue 3), those states agree to a stated tolerance
+(tests/test_torch_baselines.py) and the decoded genomes stay equal.
 
 SRES's ``stochastic_rank`` is a bubble sort of n (n - 1) data-dependent
 comparisons. It runs on the host, over every lane, after one
@@ -155,6 +157,39 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     PyTorch's float32 CPU kernel misses the nearest float on a fraction
     of a percent of inputs."""
     return torch.sqrt(x.double()).float()
+
+
+def _cholesky(m: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of (..., n, n) symmetric positive definite
+    float32 matrices in a fixed order: right-looking, column j is the
+    trailing matrix's column over its correctly rounded diagonal square
+    root, then the trailing matrix loses that column's outer product,
+    each entry rounded to float32 once a step (a fused multiply-add, so
+    entry (i, l) takes its terms in index order). A LAPACK ``potrf``
+    picks its summation order by the CPU's vector width, so a library
+    factor depends on the machine; this one does not. Float32 values
+    are carried in float64, where the products are exact. No check that
+    the factor exists (CMA-ES's covariance is PSD plus jitter)."""
+    a = m.double()
+    cols = []
+    for j in range(m.shape[-1]):
+        col = a[..., j]
+        col = (col / _sqrt(col[..., j, None]).double()).float().double()
+        cols.append(col)
+        a = (a - col[..., :, None] * col[..., None, :]).float().double()
+    return torch.tril(torch.stack(cols, dim=-1)).float()
+
+
+def _fma_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of float32 (..., m, k) and (..., k, n) with each entry
+    summed in index order by fused multiply-adds: a fixed order, where a
+    BLAS ``gemm`` picks one by the CPU's vector width."""
+    a, b = a.double(), b.double()
+    acc = a[..., :, 0, None] * b[..., None, 0, :]
+    for i in range(1, a.shape[-1]):
+        acc = (acc.float().double()
+               + a[..., :, i, None] * b[..., None, i, :])
+    return acc.float()
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -420,13 +455,14 @@ def cmaes_ops(cards: torch.Tensor, score_fn: Callable, lam: int,
     def step(key: torch.Tensor, st: State) -> State:
         eye, wts = eye_wts(key.device)
         # C stays a convex combination of PSD terms plus jitter, so the
-        # factor exists; cholesky_ex does not sync to check it. The
-        # input is symmetrized first, as jnp.linalg.cholesky does
+        # factor exists (nothing syncs to check it). The input is
+        # symmetrized first, as jnp.linalg.cholesky does
         M = st["C"] + 1e-6 * eye
-        A, _ = torch.linalg.cholesky_ex((M + M.transpose(-1, -2)) * 0.5)
+        A = _cholesky((M + M.transpose(-1, -2)) * 0.5)
         z = jr.normal(key, (lam, n))
         x = torch.clamp(_fma(st["sigma"][:, None, None],
-                             z @ A.transpose(-1, -2), st["mean"][:, None]),
+                             _fma_matmul(z, A.transpose(-1, -2)),
+                             st["mean"][:, None]),
                         0.0, 1.0 - 1e-6)
         s = score(x)
         order = torch.argsort(s, dim=1, stable=True)
@@ -440,7 +476,7 @@ def cmaes_ops(cards: torch.Tensor, score_fn: Callable, lam: int,
         y = ((sel - old_mean[:, None])
              / torch.clamp(st["sigma"], min=1e-12)[:, None, None])
         C = _fma(st["C"], 0.7,
-                 (y.transpose(-1, -2) * wts * 0.3) @ y)
+                 _fma_matmul(y.transpose(-1, -2) * wts * 0.3, y))
         zn = _norm(_lane_pick(z, b))
         sigma = st["sigma"] * _xla_exp(0.1 * _fma(zn, inv_sqrt_n, -1.0))
         sigma = torch.clamp(sigma, 1e-4, 1.0)

@@ -297,6 +297,72 @@ def cards_of(space: SearchSpace, device) -> torch.Tensor:
                            device=device)
 
 
+def run_ga_loop(key: torch.Tensor, space: SearchSpace,
+                score_fn: Callable[[torch.Tensor], torch.Tensor],
+                init_pop: torch.Tensor, phases: Sequence[Phase],
+                generations_per_phase: int) -> SearchResult:
+    """The reference's host-driven GA loop for one search (key (2,),
+    init_pop (P, n)): a best-score read on the host and a key split
+    every generation. The equivalence oracle of ``ga_scan``."""
+    t0 = time.perf_counter()
+    dev = init_pop.device
+    cards = cards_of(space, dev)
+    pop = init_pop
+    best_g, best_s = None, np.inf
+    hist: List[float] = []
+    for phase in phases:
+        params = [torch.tensor(v, dtype=torch.float32, device=dev)
+                  for v in (phase.pc, phase.eta_c, phase.pm, phase.eta_m)]
+        for _ in range(generations_per_phase):
+            scores = score_fn(pop)
+            i = int(torch.argmin(scores))
+            s = float(scores[i])
+            if s < best_s:
+                best_s, best_g = s, pop[i].cpu().numpy()
+            hist.append(best_s)
+            ks = jr.split(key)
+            key = ks[0]
+            pop = _generation_step(ks[1][None], pop[None], scores[None],
+                                   cards, *params)[0]
+    scores = score_fn(pop).cpu().numpy()
+    order = np.argsort(scores, kind="stable")
+    i = order[0]
+    if scores[i] < best_s:
+        best_s, best_g = float(scores[i]), pop[i].cpu().numpy()
+    hist.append(best_s)
+    return SearchResult(best_genome=best_g, best_score=best_s,
+                        history=np.asarray(hist),
+                        population=pop.cpu().numpy()[order],
+                        scores=scores[order],
+                        wall_time_s=time.perf_counter() - t0,
+                        sampling_time_s=0.0)
+
+
+def run_ga(key: torch.Tensor, space: SearchSpace,
+           score_fn: Callable[[torch.Tensor], torch.Tensor],
+           init_pop: torch.Tensor, phases: Sequence[Phase],
+           generations_per_phase: int,
+           use_scan: bool = True) -> SearchResult:
+    """The (multi-phase) GA for one search from an initial population
+    (P, n): ``ga_scan`` as a one-lane batch, or with ``use_scan=False``
+    the host-driven ``run_ga_loop``."""
+    if not use_scan:
+        return run_ga_loop(key, space, score_fn, init_pop, phases,
+                           generations_per_phase)
+    t0 = time.perf_counter()
+    dev = init_pop.device
+    schedule = torch.as_tensor(phase_schedule(phases, generations_per_phase),
+                               device=dev)
+    best_g, best_s, hist, pop, scores = ga_scan(
+        key[None], init_pop[None], cards_of(space, dev), schedule,
+        lanes_of(score_fn))
+    return SearchResult(
+        best_genome=best_g[0].cpu().numpy(),
+        best_score=float(best_s[0]), history=hist[0].cpu().numpy(),
+        population=pop[0].cpu().numpy(), scores=scores[0].cpu().numpy(),
+        wall_time_s=time.perf_counter() - t0, sampling_time_s=0.0)
+
+
 def batched_joint_search(keys: torch.Tensor, space: SearchSpace,
                          score_fn: Callable[[torch.Tensor], torch.Tensor],
                          p_h: int = 1000, p_e: int = 500, p_ga: int = 40,
@@ -359,27 +425,26 @@ def joint_search(key: torch.Tensor, space: SearchSpace,
         init = sampling.sample_initial(k_s, cards, p_h, p_ga,
                                        capacity_filter)
     t_sample = time.perf_counter() - t0
-    schedule = torch.as_tensor(phase_schedule(phases, generations_per_phase),
-                               device=dev)
-    best_g, best_s, hist, pop, scores = ga_scan(
-        key[None], init[None], cards, schedule, lanes_of(score_fn))
-    return SearchResult(
-        best_genome=best_g[0].cpu().numpy(),
-        best_score=float(best_s[0]), history=hist[0].cpu().numpy(),
-        population=pop[0].cpu().numpy(), scores=scores[0].cpu().numpy(),
-        wall_time_s=time.perf_counter() - t0, sampling_time_s=t_sample)
+    res = run_ga(key, space, score_fn, init, phases, generations_per_phase)
+    return res._replace(sampling_time_s=t_sample,
+                        wall_time_s=res.wall_time_s + t_sample)
 
 
 def plain_ga_search(key: torch.Tensor, space: SearchSpace,
                     score_fn: Callable[[torch.Tensor], torch.Tensor],
                     p_ga: int = 40, total_generations: int = 40,
+                    capacity_filter: Optional[Callable] = None,
                     feasible_fn: Optional[Callable] = None) -> SearchResult:
-    """Traditional non-modified GA [44]: random init, single phase."""
-    return batched_joint_search(
-        key[None], space, score_fn, p_h=max(4 * p_ga, 200), p_e=p_ga,
-        p_ga=p_ga, generations_per_phase=total_generations,
-        phases=(PLAIN_PHASE,), feasible_fn=feasible_fn,
-        hamming_sampling=False).seed_result(0)
+    """Traditional non-modified GA [44]: random init, single phase, for
+    total_generations (= 4 phases * G for an equal budget). With a
+    host-side ``capacity_filter`` the initial pool comes from the
+    reference's host rejection loop (``joint_search``)."""
+    return joint_search(key, space, score_fn, p_h=max(4 * p_ga, 200),
+                        p_e=p_ga, p_ga=p_ga,
+                        generations_per_phase=total_generations,
+                        phases=(PLAIN_PHASE,),
+                        capacity_filter=capacity_filter,
+                        feasible_fn=feasible_fn, hamming_sampling=False)
 
 
 def random_search(key: torch.Tensor, space: SearchSpace,

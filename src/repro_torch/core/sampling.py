@@ -36,6 +36,14 @@ def uniform_genomes(key: torch.Tensor, cards: torch.Tensor, n: int
     return torch.floor(u * cards.float()).long()
 
 
+def random_genomes(key: torch.Tensor, space, n: int) -> torch.Tensor:
+    """Uniform random genomes of one search: key (2,) -> (n, n_params)
+    int64 value indices on the key's device."""
+    cards = torch.as_tensor(space.cardinalities.astype(np.float32),
+                            device=key.device)
+    return uniform_genomes(key[None], cards, n)[0]
+
+
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (L, P, ...) rows picked per lane by idx (L, Q) -> (L, Q, ...)."""
     lanes = torch.arange(x.shape[0], device=x.device)[:, None]
@@ -106,17 +114,16 @@ def sample_initial(key: torch.Tensor, cards: torch.Tensor, p_h: int,
     """P_H uniform capacity-filtered genomes -> P_E Hamming-diverse
     genomes for one search: key (2,) -> (P_E, n).
 
-    ``capacity_filter`` maps (N, n) genomes to (N,) numpy bools on the
-    host: the reference's rejection loop draws P_H genomes a try, keeps
-    the feasible ones and stops once P_H are kept or after
-    ``SAMPLE_TRIES`` tries."""
+    ``capacity_filter`` maps (N, n) genomes to (N,) bools (a tensor or
+    a numpy array), read on the host: the reference's rejection loop
+    draws P_H genomes a try, keeps the feasible ones and stops once P_H
+    are kept or after ``SAMPLE_TRIES`` tries."""
     pool, total = [], 0
     for _ in range(SAMPLE_TRIES):
         ks = jr.split(key)
         key, k = ks[0], ks[1]
         g = uniform_genomes(k[None], cards, p_h)[0]
-        keep = torch.as_tensor(np.asarray(capacity_filter(g)),
-                               device=g.device)
+        keep = torch.as_tensor(capacity_filter(g), device=g.device)
         pool.append(g[keep])
         total += pool[-1].shape[0]
         if total >= p_h:

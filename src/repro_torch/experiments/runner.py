@@ -57,8 +57,9 @@ from ..core.baselines import batched_baseline_search
 from ..core.cost_model import CostTables, HWConstants, evaluate_population
 from ..core.distributed import compile_batched_search, search_devices
 from ..core.genetic import (FOUR_PHASES, PLAIN_PHASE, MultiSearchResult,
-                            batched_joint_search, cards_of, lanes_of,
-                            phase_schedule, random_search, search_kernel)
+                            SearchResult, batched_joint_search, cards_of,
+                            joint_search, lanes_of, phase_schedule,
+                            plain_ga_search, random_search, search_kernel)
 from ..core.nsga import (MultiMOSearchResult, lanes_of_vec,
                          nsga_search_kernel)
 from ..core.objectives import (INFEASIBLE_PENALTY, MultiObjective, Objective,
@@ -221,6 +222,51 @@ def _lane_schedule(sched: np.ndarray, n_lanes: int,
                    dev: torch.device) -> torch.Tensor:
     s = torch.as_tensor(sched, device=dev)
     return s.expand(n_lanes, *s.shape)
+
+
+def make_scorer(*_args, **_kwargs):
+    """Removed, as in the reference: build through ``core.scoring.
+    build_scorer`` and read ``.score`` / ``.evaluator``."""
+    raise ImportError(
+        "runner.make_scorer was removed; use core.scoring.build_scorer"
+        "(space, ScorerSpec(objective, workloads=wa)) and read .score / "
+        ".evaluator (or import build_scorer from repro_torch.api)")
+
+
+def make_traced_scorer(*_args, **_kwargs):
+    """Removed, as in the reference: ``build_scorer`` returns the Scorer
+    directly; the joint genome-slice path is ``ScorerSpec(objective,
+    builder=...)``."""
+    raise ImportError(
+        "runner.make_traced_scorer was removed; use core.scoring."
+        "build_scorer(space, ScorerSpec(objective, workloads=wa, "
+        "builder=builder), calib=Calib(n_calib, calib_k)) (or import "
+        "build_scorer from repro_torch.api)")
+
+
+def run_search(scenario: Scenario, space: SearchSpace,
+               score_fn: Callable, capacity_filter, seed: int,
+               device="cuda") -> SearchResult:
+    """One host-driven search of the scenario's algorithm. With a
+    host-side ``capacity_filter`` ((N, n) genomes -> (N,) bools) the GA
+    algorithms draw their initial pool by the reference's host rejection
+    loop (``sampling.sample_initial``)."""
+    b = scenario.budget
+    key = jr.PRNGKey(seed, resolve_device(device))
+    if scenario.algorithm == "fourphase":
+        return joint_search(key, space, score_fn, p_h=b.p_h, p_e=b.p_e,
+                            p_ga=b.p_ga,
+                            generations_per_phase=b.generations,
+                            capacity_filter=capacity_filter)
+    if scenario.algorithm == "plain":
+        return plain_ga_search(key, space, score_fn, p_ga=b.p_ga,
+                               total_generations=b.total_generations,
+                               capacity_filter=capacity_filter)
+    if scenario.algorithm == "random":
+        return random_search(key, space, score_fn,
+                             n_evals=b.n_evaluations,
+                             capacity_filter=capacity_filter)
+    raise ValueError(f"unknown algorithm {scenario.algorithm!r}")
 
 
 def run_search_batched(scenario: Scenario, space: SearchSpace,
@@ -530,29 +576,35 @@ def specific_edap(traced: Scorer, genomes: np.ndarray) -> np.ndarray:
     return edap_all[:, np.arange(W), np.arange(W)]
 
 
+def _single_workload(scenario: Scenario, wl_name: str) -> Scenario:
+    """The workload-specific counterpart of a multi-workload scenario."""
+    return dataclasses.replace(
+        scenario, name=f"{scenario.name}/specific_{wl_name}",
+        workloads=(wl_name,), specific_baselines=False)
+
+
 def run_specific_sequential(scenario: Scenario, space: SearchSpace,
                             objective: Objective, workloads,
                             seeds: List[int], device
                             ) -> Dict[str, np.ndarray]:
-    """Specific baselines one search per (seed, workload), each with its
-    own single-workload pack: the random-search algorithm's, and any
-    algorithm's with ``specific_fanout=False``."""
+    """Specific baselines one host-driven search per (seed, workload)
+    (``run_search``), each with its own single-workload pack: the
+    random-search algorithm's, and any algorithm's with
+    ``specific_fanout=False``. RRAM searches take the host capacity
+    filter, so their initial pools are the reference's rejection-loop
+    draws (the fan-out masks on the device instead, and its per-seed
+    trajectories differ)."""
     S, W = len(seeds), len(workloads)
     genomes, best_scores, edap = None, np.zeros((S, W)), np.zeros((S, W))
     for i, w in enumerate(workloads):
+        sub_sc = _single_workload(scenario, w.name)
         sub = build_scorer(space, ScorerSpec(objective, workloads=pack([w])),
                            calib=Calib(scenario.n_calib, scenario.calib_k),
                            backend=scenario.backend, device=device)
         cap = sub.feasible if scenario.mem == "rram" else None
         for si, s in enumerate(seeds):
-            if scenario.algorithm == "random":
-                r = random_search(jr.PRNGKey(s + 1000 + i, sub.device),
-                                  space, sub.score,
-                                  n_evals=scenario.budget.n_evaluations,
-                                  capacity_filter=cap)
-            else:
-                r = run_search_batched(scenario, space, sub,
-                                       [s + 1000 + i]).seed_result(0)
+            r = run_search(sub_sc, space, sub.score, cap, seed=s + 1000 + i,
+                           device=sub.device)
             if genomes is None:
                 genomes = np.zeros((S, W, r.best_genome.shape[0]),
                                    r.best_genome.dtype)

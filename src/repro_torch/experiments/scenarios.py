@@ -329,3 +329,12 @@ def get_scenario(name: str) -> Scenario:
         known = ", ".join(REGISTRY)
         raise KeyError(f"unknown scenario {name!r}; known: {known}") \
             from None
+
+
+def paper_table_scenarios() -> Dict[str, List[str]]:
+    """paper_ref -> scenario names, for the README reproduce-tables
+    section and the cross-scenario summary report."""
+    out: Dict[str, List[str]] = {}
+    for s in REGISTRY.values():
+        out.setdefault(s.paper_ref, []).append(s.name)
+    return out

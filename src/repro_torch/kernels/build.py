@@ -64,6 +64,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    *(_L,) * 12, _I, _I, _I, _F, _I, _P),
     },
+    "flash_attention_bwd": {
+        # q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, S, T, hd, the
+        # (batch, head, seq) strides of the eight views (24 long longs),
+        # causal, window, q_offset, scale, is_bf16, stream
+        "flash_attention_bwd_launch": (*(_P,) * 10, _I, _I, _I, _I, _I, _P,
+                                       _I, _I, _I, _F, _I, _P),
+    },
 }
 
 # a source's own headers: `#include "<name>.cuh"` lines, resolved in csrc/

@@ -22,6 +22,12 @@ routes, by type: bfloat16 runs on the tensor cores
 bf16 terms for P.V), float32 on the CUDA cores. TMA needs 16-byte
 aligned bases and strides, so a bfloat16 view without them raises.
 
+``flash_attention_bwd`` is the gradient: on CUDA tensors the
+hand-written ``csrc/flash_attention_bwd.cu`` (the JAX package has no
+Pallas backward; it differentiates the jnp attention), on CPU tensors
+``flash_attention_bwd_plain``. It counts its launches the same way.
+``ops.FlashAttention`` ties the two together for autograd.
+
 The plain version and the float32 kernel scale q by ``1/sqrt(hd)``
 before the dot product, as the Pallas kernel does. The bfloat16 kernel
 scales the float32 score after the product instead (q * scale rounded
@@ -31,6 +37,7 @@ use the Pallas kernel's finite ``NEG_INF``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -100,6 +107,68 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out[:, i0:i1] = (acc / torch.clamp(l, min=1e-30)[..., None]
                          ).to(q.dtype)
     return out.reshape(*lead, S, hd)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, q_offset: int = 0):
+    """Plain PyTorch version of the gradient: (dq, dk, dv) of
+    ``flash_attention`` at (q, k, v) given its output ``o`` and the
+    output's gradient ``do``, by the explicit formula in float32, in
+    query and key chunks as ``flash_attention_plain`` (O(S x chunk)
+    memory): lse by an online max and sum, D = sum(do * o), then per
+    chunk pair P = exp(s - lse), dS = P (do v^T - D), dv += P^T do,
+    dk += dS^T (q scale), dq += dS k scale. Gradients come back in the
+    inputs' type."""
+    *lead, S, hd = q.shape
+    T = k.shape[-2]
+    scale = 1.0 / float(hd) ** 0.5
+    qf = q.reshape(-1, S, hd).float() * scale
+    kf = k.reshape(-1, T, hd).float()
+    vf = v.reshape(-1, T, hd).float()
+    dof = do.reshape(-1, S, hd).float()
+    dd = (dof * o.reshape(-1, S, hd).float()).sum(dim=-1)
+    BH, dev = qf.shape[0], q.device
+    dq = torch.zeros((BH, S, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((BH, T, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((BH, T, hd), dtype=torch.float32, device=dev)
+
+    def chunks(i0, i1):
+        """The key chunks some query of rows [i0, i1) sees, with the
+        scores and the mask of each."""
+        lo, hi = i0 + q_offset, i1 - 1 + q_offset
+        q_pos = torch.arange(i0, i1, device=dev) + q_offset
+        for j0 in range(0, T, _CHUNK):
+            j1 = min(T, j0 + _CHUNK)
+            if (causal and j0 > hi) or (window > 0 and lo - (j1 - 1)
+                                        >= window):
+                continue
+            vis = _visible(q_pos, torch.arange(j0, j1, device=dev), T,
+                           causal, window)[None]
+            s = qf[:, i0:i1] @ kf[:, j0:j1].transpose(1, 2)
+            yield j0, j1, torch.where(vis, s, NEG_INF), vis
+
+    for i0 in range(0, S, _CHUNK):
+        i1 = min(S, i0 + _CHUNK)
+        m = torch.full((BH, i1 - i0), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((BH, i1 - i0), dtype=torch.float32, device=dev)
+        for _, _, s, _ in chunks(i0, i1):
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            l = l * torch.exp(m - m_new) + torch.exp(
+                s - m_new[..., None]).sum(dim=-1)
+            m = m_new
+        lse = m + torch.log(l)
+        for j0, j1, s, vis in chunks(i0, i1):
+            p = torch.where(vis, torch.exp(s - lse[..., None]), 0.0)
+            dp = dof[:, i0:i1] @ vf[:, j0:j1].transpose(1, 2)
+            ds = p * (dp - dd[:, i0:i1, None])
+            dv[:, j0:j1] += p.transpose(1, 2) @ dof[:, i0:i1]
+            dk[:, j0:j1] += ds.transpose(1, 2) @ qf[:, i0:i1]
+            dq[:, i0:i1] += ds @ kf[:, j0:j1]
+    return ((dq * scale).to(q.dtype).reshape(q.shape),
+            dk.to(k.dtype).reshape(k.shape), dv.to(v.dtype).reshape(v.shape))
 
 
 def _check(q, k, v):
@@ -187,3 +256,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """The gradient (dq, dk, dv) of ``flash_attention`` (shapes as in the
+    module docstring; ``o`` its output, ``do`` the output's gradient,
+    both (B, H, S, hd)). CUDA tensors launch ``csrc/flash_attention_bwd.
+    cu`` (three kernels: the row statistics, dk and dv per key tile, dq
+    per query tile; float32 or bfloat16, float32 accumulation, no
+    atomics, so a launch repeats bit for bit); CPU tensors take
+    ``flash_attention_bwd_plain``. The gradients have the inputs' type
+    and layout (a transposed view's strides too)."""
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be q's {tuple(q.shape)}")
+    for name, t in (("o", o), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention_bwd: {name} is {t.dtype} on "
+                            f"{t.device}, q {q.dtype} on {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         window=window, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    if do.stride(-1) != 1 or o.stride(-1) != 1:
+        do, o = do.contiguous(), o.contiguous()
+    B, H, S, hd = q.shape
+    T = k.shape[-2]
+    if B * H > 65535:
+        raise ValueError(f"flash_attention_bwd: {B * H} batch x heads "
+                         "exceed the grid's 65535")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if T == 0:
+        return dq.zero_(), dk, dv
+    lse = torch.empty((B * H * S,), dtype=torch.float32, device=q.device)
+    dd = torch.empty_like(lse)
+    views = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(x for t in views
+                                         for x in t.stride()[:3]))
+    lib = build.load("flash_attention_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd_launch(
+        *(t.data_ptr() for t in views), lse.data_ptr(), dd.data_ptr(),
+        B, H, S, T, hd, ctypes.cast(strides, ctypes.c_void_p),
+        int(bool(causal)), int(window), int(q_offset),
+        1.0 / float(hd) ** 0.5, int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

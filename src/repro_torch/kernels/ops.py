@@ -1,5 +1,7 @@
 """Entry points around the kernels; counterpart of
-``repro/kernels/ops.py`` (``imc_gemm``, ``flash_mha``).
+``repro/kernels/ops.py`` (``imc_gemm``, ``flash_mha``), plus
+``FlashAttention``, the autograd function that gives ``flash_mha`` the
+gradient kernel (the reference differentiates its jnp attention).
 
 The JAX wrappers pad to TPU block multiples and cut the padding off
 again: ``imc_gemm`` M to 8/128 and N to 128, ``flash_mha`` S and T to
@@ -10,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .imc_matmul import imc_matmul
 
 
@@ -28,6 +30,30 @@ def imc_gemm(x_q: torch.Tensor, w: torch.Tensor, xbar_rows: int = 256,
                       adc_bits=adc_bits, w_scale=w_scale)
 
 
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient. The forward is the forward
+    kernel (or its plain version on CPU tensors) unchanged, saving q, k,
+    v and the output; the backward is ``flash_attention_bwd``: the
+    hand-written gradient kernel on CUDA tensors, its plain version on
+    CPU tensors, never a fallback. Inputs are (B, H, L, hd) views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                         window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0, block_q: int = 128,
               block_k: int = 128, q_offset: int = 0) -> torch.Tensor:
@@ -40,9 +66,11 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, hd) tensor and nothing is copied. Keys are masked at their
     true length T (the reference masks at its padded T when not causal;
     ROADMAP Queue 3). ``block_q``/``block_k`` are accepted and unused;
-    ``q_offset`` shifts the query positions (prefill continuation)."""
+    ``q_offset`` shifts the query positions (prefill continuation).
+    Differentiable through ``FlashAttention``: the gradient kernel runs
+    when an input requires a gradient and the caller takes one."""
     del block_q, block_k
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=window,
-                          q_offset=q_offset)
+    out = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), bool(causal), int(window),
+                               int(q_offset))
     return out.transpose(1, 2)

@@ -5,6 +5,9 @@ expands GQA and calls ``kernels/ops.flash_mha``: on CUDA tensors that is
 the hand-written flash-attention kernel (``csrc/flash_attention.cu``),
 on CPU tensors its plain version, a chunked online softmax with
 O(S x chunk) memory as the reference's ``blockwise_attention`` computes.
+It is differentiable: its gradient is the hand-written backward kernel
+(``csrc/flash_attention_bwd.cu``) on CUDA tensors and its plain version
+on CPU tensors, where the reference differentiates its jnp scan.
 ``decode_attention`` is the single-query step against the KV cache, in
 plain torch (the reference has no Pallas kernel there).
 
@@ -25,11 +28,17 @@ NEG_INF = -1.0e30
 def _expand_kv(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B, T, KV, hd) -> (B, T, H, hd), each KV head repeated for its
     group of H // KV query heads (``jnp.repeat``: heads 0..G-1 read KV
-    head 0, and so on)."""
-    kv = x.shape[2]
+    head 0, and so on). Written as a broadcast and a reshape, the values
+    of ``repeat_interleave``: its gradient sums each group into its KV
+    head, as ``jnp.repeat``'s VJP does, by a reduction over the group
+    axis (a fixed order), where ``repeat_interleave``'s index backward
+    may add with atomics on the card."""
+    B, T, kv, hd = x.shape
     if kv == n_heads:
         return x
-    return torch.repeat_interleave(x, n_heads // kv, dim=2)
+    g = n_heads // kv
+    return x[:, :, :, None].expand(B, T, kv, g, hd).reshape(B, T, n_heads,
+                                                            hd)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

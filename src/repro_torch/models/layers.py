@@ -3,9 +3,11 @@ of ``repro/models/layers.py``.
 
 Parameters are ``nn.Parameter``s in the reference's (d_in, d_out)
 layout, applied as ``x @ w`` (not ``nn.Linear``'s transposed weight), so
-a reference array carries across unchanged (``convert.py``). The
-reference's sharding specs (``spec_for``, ``PartitionSpec``) are not
-ported: they belong to ``parallel/`` (ROADMAP Queue 1 item 13h).
+a reference array carries across unchanged (``convert.py``). They are
+made with ``requires_grad=False`` (serving); ``LM.train()`` switches a
+model to training. The reference's sharding specs (``spec_for``,
+``PartitionSpec``) are not ported: they belong to ``parallel/``
+(ROADMAP Queue 1 item 13h).
 """
 from __future__ import annotations
 

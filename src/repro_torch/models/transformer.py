@@ -7,8 +7,13 @@ and ``blocks``, an ``nn.ModuleList`` with one ``Block`` per layer in
 layer order. The reference stacks each pattern position's blocks over
 depth (``period/pos{i}``) for its ``lax.scan``; here depth is a Python
 loop, so the layers are a plain list and ``convert.
-from_reference_lm_params`` unstacks them. No remat: this port serves,
-and training (a backward path) is ROADMAP Queue 1 item 13g.
+from_reference_lm_params`` unstacks them. The model serves and trains:
+parameters take gradients after ``LM.train()`` (``init_params`` returns
+the serving mode, gradients off), and ``forward`` in the train
+mode recomputes each block in the backward pass (``torch.utils.
+checkpoint``, one per block, as the reference's ``jax.checkpoint``).
+Attention's gradient is the hand-written backward kernel
+(``kernels/ops.FlashAttention``).
 
 The KV cache is a list with one dict per layer (``k``, ``v``: (B, cap,
 KV, hd) in the model's type; ``pos``: (B, cap) int64, -1 = empty).
@@ -28,7 +33,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import blockwise_attention, decode_attention
@@ -216,13 +223,21 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(init_block(gen, cfg, kind)
                                     for kind in kinds)
 
+    def train(self, mode: bool = True) -> "LM":
+        """Training mode also makes every parameter take gradients;
+        ``eval()`` (serving) turns them off again."""
+        super().train(mode)
+        self.requires_grad_(mode)
+        return self
+
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> LM:
     """Seeded parameters on ``gen``'s device, drawn in float32 and cast to
-    the config's type. The reference draws from split JAX keys, so the
-    two packages' inits differ; ``convert.from_reference_lm_params``
-    carries the reference's across."""
-    return LM(gen, cfg)
+    the config's type, in serving mode (no gradients; ``.train()`` turns
+    them on). The reference draws from split JAX keys, so the two
+    packages' inits differ; ``convert.from_reference_lm_params`` carries
+    the reference's across."""
+    return LM(gen, cfg).eval()
 
 
 def init_cache(cfg: ArchConfig, B: int, cache_len: int,
@@ -235,11 +250,18 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
 
 
 def _embed_inputs(params: LM, cfg: ArchConfig, batch) -> torch.Tensor:
-    return params.embed[batch["tokens"]].to(cfg.torch_dtype)
+    """The token rows of ``embed`` (the reference's ``embed[tokens]``).
+    ``F.embedding``'s gradient adds each row's occurrences in a fixed
+    order on the CPU and on the card; the index-put behind
+    ``embed[tokens]``'s gradient adds them by atomics on a CPU with
+    several threads, so repeated steps would differ in their last
+    bits."""
+    return F.embedding(batch["tokens"], params.embed).to(cfg.torch_dtype)
 
 
 def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
-           cache: Optional[Cache], positions: Optional[torch.Tensor]):
+           cache: Optional[Cache], positions: Optional[torch.Tensor],
+           remat: bool = False):
     x = _embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
@@ -247,6 +269,15 @@ def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
     use_cache = mode in ("prefill", "decode")
     aux = 0.0  # the dense FFN has no auxiliary loss (MoE is not ported)
     for i, (kind, blk) in enumerate(zip(cfg.layout(), params.blocks)):
+        if remat and mode == "train" and torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad
+                                       for p in blk.parameters())):
+            # keep only the block's input; its activations are recomputed
+            # in the backward pass (the reference's jax.checkpoint). A
+            # dense block's auxiliary loss is 0, so none is carried
+            x = checkpoint(_block_train, cfg, kind, blk, x, positions,
+                           use_reentrant=False)
+            continue
         x, _, a = apply_block(cfg, kind, blk, x, mode=mode,
                               cache=cache[i] if use_cache else None,
                               positions=positions)
@@ -255,18 +286,28 @@ def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
     return x, (cache if use_cache else None), aux
 
 
+def _block_train(cfg: ArchConfig, kind: str, blk: Block, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    return apply_block(cfg, kind, blk, x, mode="train",
+                       positions=positions)[0]
+
+
 def forward(params: LM, cfg: ArchConfig, batch, *, mode: str = "train",
             cache: Optional[Cache] = None,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None, remat: bool = True
             ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
-    """Returns (logits, cache, aux_loss); ``batch["tokens"]`` is (B, S)."""
-    x, cache, aux = _trunk(params, cfg, batch, mode, cache, positions)
+    """Returns (logits, cache, aux_loss); ``batch["tokens"]`` is (B, S).
+    In the train mode with gradients enabled, ``remat`` checkpoints each
+    block (one ``torch.utils.checkpoint`` a block)."""
+    x, cache, aux = _trunk(params, cfg, batch, mode, cache, positions,
+                           remat)
     return x @ params.unembed, cache, aux
 
 
-def loss_fn(params: LM, cfg: ArchConfig, batch):
-    """Forward only (no backward path yet): mean next-token CE."""
-    logits, _, aux = forward(params, cfg, batch, mode="train")
+def loss_fn(params: LM, cfg: ArchConfig, batch, remat: bool = True):
+    """Mean next-token CE (``frame_ce``: per-frame CE) plus the MoE
+    auxiliary term; differentiable. Returns (loss, {"ce", "aux"})."""
+    logits, _, aux = forward(params, cfg, batch, mode="train", remat=remat)
     if cfg.loss == "frame_ce":
         loss = cross_entropy(logits, batch["labels"])
     else:

@@ -476,3 +476,56 @@ def test_plain_ga_search_same_best_genome():
                                   total_generations=3)
     np.testing.assert_array_equal(got.best_genome, want.best_genome)
     np.testing.assert_allclose(got.history, want.history, rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_run_ga_loop_matches_reference(seed):
+    """The host-driven GA loop: the reference's ``run_ga_loop`` and the
+    port's on the same key, initial population and an integer-valued
+    scorer (exact on both sides, with ties) give the same best genome,
+    history and final population bit for bit; the port's one-lane
+    ``run_ga`` (its device route, ``ga_scan``) gives the loop's."""
+    space = jget_space("rram")
+    w = np.arange(1, space.n_params + 1, dtype=np.float32)
+
+    def jscore(g):
+        return jnp.sum((g.astype(jnp.float32) % 3.0) * w, axis=1)
+
+    def tscore(g):
+        return ((g.float() % 3.0) * torch.from_numpy(w)).sum(dim=-1)
+
+    pop = _genomes(space, 12, seed)
+    key = jax.random.PRNGKey(seed)
+    want = jgen.run_ga_loop(key, space, jscore, jnp.asarray(pop),
+                            jgen.FOUR_PHASES, 2)
+    got = genetic.run_ga_loop(_tkey(key), space, tscore, _t(pop).long(),
+                              genetic.FOUR_PHASES, 2)
+    np.testing.assert_array_equal(got.best_genome, want.best_genome)
+    assert got.best_score == want.best_score
+    np.testing.assert_array_equal(got.history, want.history)
+    np.testing.assert_array_equal(got.population, want.population)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    scan = genetic.run_ga(_tkey(key), space, tscore, _t(pop).long(),
+                          genetic.FOUR_PHASES, 2)
+    np.testing.assert_array_equal(scan.best_genome, got.best_genome)
+    np.testing.assert_array_equal(scan.population, got.population)
+    np.testing.assert_array_equal(scan.history, got.history)
+
+
+def test_random_genomes_equal():
+    space = jget_space("sram")
+    key = jax.random.PRNGKey(7)
+    np.testing.assert_array_equal(
+        sampling.random_genomes(_tkey(key), space, 50).numpy(),
+        np.asarray(jsamp.random_genomes(key, space, 50)))
+
+
+@pytest.mark.parametrize("pkg", ["core", "experiments"])
+def test_port_has_every_public_name_of_the_reference(pkg):
+    """Every public name of ``repro.core`` / ``repro.experiments`` (its
+    re-exports and submodules) exists in the port's package."""
+    import importlib
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    names = {n for n in dir(ref) if not n.startswith("_")}
+    assert sorted(n for n in names if not hasattr(port, n)) == []

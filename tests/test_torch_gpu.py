@@ -5,7 +5,9 @@ bit-serial GEMM kernel, one scenario on the card, and the LM serving
 engine on the card (through the flash attention kernel) against the
 CPU, the Table 3 engine's draws and stochastic ranking, and the
 co-design service's lane batching on the card (a two-request bucket
-against the solo runs, its default device). They
+against the solo runs, its default device), the attention gradient
+kernel against its plain version and a train step repeated bit for
+bit. They
 carry the ``gpu`` marker and skip without a CUDA device. This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is not installed:
@@ -31,6 +33,8 @@ from repro_torch.kernels.imc_fused import (imc_fused_gemm,
                                            imc_fused_plain, normal_of_bits)
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.imc_matmul import imc_matmul, imc_matmul_plain
 from repro_torch.kernels.ops import flash_mha, imc_gemm
@@ -392,6 +396,74 @@ def test_flash_kernel_matches_plain(cuda, B, S, T, H, hd, causal, window,
                             causal=causal, window=window, q_offset=q_offset)
     torch.testing.assert_close(dense.transpose(1, 2), got, rtol=0.0,
                                atol=0.0)
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset,dt",
+                         FLASH_SHAPES)
+def test_flash_backward_kernel_matches_plain(cuda, B, S, T, H, hd, causal,
+                                             window, q_offset, dt):
+    """The gradient through ``flash_mha`` on the card (the backward
+    kernel, one launch) vs ``flash_attention_bwd_plain`` in float32 on
+    the same inputs: float32 within 1e-4 of each gradient's largest
+    entry; bfloat16 every element within two bf16 steps of the plain
+    value plus 1e-4. A second launch on the same inputs is bitwise
+    equal (no atomics)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S + T + hd + 1)
+    q, k, v, do = (torch.randn((B, L, H, hd), generator=gen, device=cuda
+                               ).to(dt) for L in (S, T, T, S))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = flash_mha(q, k, v, causal=causal, window=window,
+                    q_offset=q_offset)
+    before = flash_attention_bwd.launches
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert flash_attention_bwd.launches == before + 1
+    views = [x.detach().transpose(1, 2) for x in (q, k, v, out)]
+    want = flash_attention_bwd_plain(
+        *(x.float() for x in views), do.transpose(1, 2).float(),
+        causal=causal, window=window, q_offset=q_offset)
+    again = flash_attention_bwd(*views, do.transpose(1, 2), causal=causal,
+                                window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    for g, w, a, x in zip(got, want, again, (q, k, v)):
+        assert g.dtype == dt and g.shape == x.shape
+        w = w.transpose(1, 2)
+        if dt == torch.float32:
+            torch.testing.assert_close(g, w, rtol=0.0,
+                                       atol=1e-4 * float(w.abs().max()))
+        else:
+            torch.testing.assert_close(g.float(), w, rtol=2.0 ** -6,
+                                       atol=1e-4)
+        assert torch.equal(a.transpose(1, 2), g)
+
+
+def test_train_step_repeats_bitwise_on_card(cuda):
+    """Two runs of three train steps from the same seed on the card: the
+    same losses, parameters and AdamW moments bit for bit."""
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    def run():
+        cfg = get_config("qwen3_4b", reduced=True)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        state = init_train_state(init_params(gen, cfg))
+        step = make_train_step(cfg, warmup=1, total_steps=3)
+        pipe = SyntheticTokenPipeline(cfg, 4, 32)
+        losses = []
+        for _ in range(3):
+            state, m = step(state, pipe.next_batch())
+            losses.append(m["loss"])
+        return state, torch.stack(losses)
+    a, la = run()
+    b, lb = run()
+    assert torch.equal(la, lb) and torch.isfinite(la).all()
+    for (n, x), (_, y) in zip(a.params.named_parameters(),
+                              b.params.named_parameters()):
+        assert torch.equal(x, y), n
+    for n in a.opt.m:
+        assert torch.equal(a.opt.m[n], b.opt.m[n]), n
+        assert torch.equal(a.opt.v[n], b.opt.v[n]), n
 
 
 def test_flash_wrapper_rejects_bad_inputs(cuda):

@@ -279,15 +279,17 @@ def test_build_paths_stay_in_checkout():
     the predicated bit-plane adds of csrc/predicated_add.cuh, and the
     fused one draws its noise with csrc/threefry.cuh; the flash
     attention kernel includes its bfloat16 tensor-core route,
-    csrc/flash_attention_wgmma.cuh."""
+    csrc/flash_attention_wgmma.cuh; its gradient,
+    csrc/flash_attention_bwd.cu, includes no header of its own."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
-                                     "flash_attention"}
+                                     "flash_attention", "flash_attention_bwd"}
     for name in build.SIGNATURES:
         path = build._library_path(name)
         assert path.parent == build.BUILD_DIR
         src = (build.CSRC / f"{name}.cu").read_text()
         assert build._INCLUDE.findall(src) == {
             "flash_attention": ["flash_attention_wgmma.cuh"],
+            "flash_attention_bwd": [],
             "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
             "imc_matmul": ["adc.cuh", "predicated_add.cuh"]}[name]
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -104,3 +104,30 @@ def test_scenario_matches_reference(tmp_path, name, rtol):
     # served from the cache on a re-run with the same key
     again = run_scenario(sc, out_dir=str(tmp_path / "torch"), device="cpu")
     assert again["cached"] is True
+
+
+@pytest.mark.parametrize("name", ["rram_small_set", "rram_small_set_plain"])
+def test_sequential_rram_specific_baselines_match_reference(tmp_path, name):
+    """With ``specific_fanout=False`` the RRAM specific baselines run one
+    host-driven search per (seed, workload), their initial pools drawn
+    by the host capacity filter's rejection loop, as the reference's
+    ``run_specific_sequential`` does: the same designs, EDAP within rtol
+    1e-5 and the gap held through its ratio ``1 + pct/100``."""
+    budget = dict(p_h=40, p_e=12, p_ga=8, generations=2, n_seeds=1)
+    wls = ("alexnet", "resnet18")
+    ref_sc = jget_scenario(name)
+    ref_sc = dataclasses.replace(
+        ref_sc, workloads=wls, backend="ref",
+        budget=dataclasses.replace(ref_sc.budget, **budget))
+    sc = get_scenario(name)
+    sc = dataclasses.replace(sc, workloads=wls, backend="ref",
+                             budget=dataclasses.replace(sc.budget, **budget))
+    a = jrun_scenario(ref_sc, out_dir=str(tmp_path / "jax"), n_seeds=1,
+                      specific_fanout=False)
+    b = run_scenario(sc, out_dir=str(tmp_path / "torch"), n_seeds=1,
+                     specific_fanout=False, device="cpu")
+    assert set(a["specific"]) == set(wls)
+    _designs_equal(a, b)
+    for w in wls:
+        _compare(a["specific"][w], b["specific"][w], 1e-5, f"specific.{w}")
+    _compare(a["gap"], b["gap"], 1e-5, "gap")
