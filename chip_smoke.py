@@ -167,21 +167,29 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
      ``flash_attention_bwd_plain`` in float32 on the same inputs, at
      phase 11's shapes plus float32 window, query-offset and hd 256
      cases and qwen3-4b's training shape (8 x 128 tokens, 32 heads of
-     128, bf16, causal): float32 within 1e-4 of each gradient's largest
+     128, bf16, causal): every launch's route asserted by shape (bf16
+     with hd <= 128 on the tensor cores, ``flash_attention_bwd_wgmma.
+     cuh``, from the forward's saved log-sum-exp; float32 and hd 256 on
+     the CUDA cores); float32 within 1e-4 of each gradient's largest
      entry, bf16 every element within two bf16 steps plus 1e-4; a second
-     launch on the same inputs bitwise equal; then at S = T = 4096, 32
-     heads, bf16, causal the kernel, the plain version and SDPA's
-     backward timed beside the bound;
+     launch on the same inputs bitwise equal; at every bf16 shape the
+     forward's output with the lse store bitwise the one without it and
+     the lse within 5e-5 of the plain version's; then at S = T = 4096,
+     32 heads, bf16, causal the kernel (with the saved lse, as training
+     passes it), the plain version and SDPA's backward timed beside the
+     bound and the design's floor (10 products at the bf16 peak);
  24. qwen3-4b at full width trains on the card through
      ``repro_torch.launch.train``'s code path (36 layers, bf16, seeded
      random weights, batch 8 x seq 128, 4 steps, no checkpoints): every
-     loss and grad norm finite, 36 backward and 72 forward flash
-     launches a step (remat recomputes each block's forward); the median
-     step time over steps 2-4, tokens/s, peak memory, then one step
-     under the profiler (launches, idle share, device time by kernel);
-     then at ``--reduced`` size 4 steps straight against 2 steps, a
-     checkpoint, a fresh state and 2 resumed steps: params, m and v
-     bitwise equal.
+     loss and grad norm finite, 36 backward launches a step, all on the
+     tensor-core route, and 72 forward flash launches (remat recomputes
+     each block's forward); the median step time over steps 2-4,
+     tokens/s, peak memory, then one step under the profiler (launches,
+     idle share, device time by kernel kind); then the same at batch 1
+     x seq 4096 (3 steps; 2048 if 4096 does not fit), with the gradient
+     kernel's device time in its profiled step; then at ``--reduced``
+     size 4 steps straight against 2 steps, a checkpoint, a fresh state
+     and 2 resumed steps: params, m and v bitwise equal.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -1853,16 +1861,24 @@ def phase_logits(torch, fa, dev) -> None:
 
 
 # phase 23: the attention gradient kernel; FLASH_TESTS plus float32 cases of
-# a window, a query offset and the widest head, and the training shape of
-# qwen3-4b (batch 8 x 128 tokens, 32 heads of 128, bf16, causal)
+# a window, a query offset and the widest head, and the two training shapes
+# of qwen3-4b (32 heads of 128, bf16, causal): batch 8 x 128 tokens and
+# phase 24's long sequence, batch 1 x 4096 (64 query tiles a key block,
+# sums over 4096 rows)
 FLASH_BWD_TESTS = FLASH_TESTS + [
     (1, 257, 257, 2, 128, True, 100, 0, "float32"),
     (2, 37, 120, 3, 64, True, 0, 83, "float32"),
     (1, 70, 70, 2, 256, True, 0, 0, "float32"),
-    (8, 128, 128, 32, 128, True, 0, 0, "bfloat16")]
+    (8, 128, 128, 32, 128, True, 0, 0, "bfloat16"),
+    (1, 4096, 4096, 32, 128, True, 0, 0, "bfloat16")]
 FLASH_BWD_TIMED = 4096   # S = T of the timed shape (B=1, H=32, hd=128)
 # float32 gradients within this share of each gradient's largest entry
 FLASH_BWD_REL = 1e-4
+# the bf16 forward's log-sum-exp (base 2, values of a few units to a few
+# tens) against the plain version's: scores summed in another order, ex2
+# and log2 on the card, exp and log in the plain version, float32 rounding
+# of each (a few ULP of 16 is 1e-6)
+LSE_ATOL = 5e-5
 
 
 def flash_bwd_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
@@ -1870,18 +1886,24 @@ def flash_bwd_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
     of 2 FLOP per visible (query, key) pair and head dim (dO.v, q.k
     recomputed, P^T dO, dS^T q, dS k) at the bf16 dense tensor-core peak
     (float32's CUDA-core peak for float32 inputs), against q, k, v, o and
-    dO read once and dq, dk, dv written once."""
+    dO read once and dq, dk, dv written once. ``design_ms`` is the floor
+    of the route the kernel takes: in bfloat16 (hd <= 128) the 10
+    products the tensor-core design issues (S^T, dP^T, P^T dO and dS^T q
+    each split in two for dk and dv; S, dP, dS k split in two for dq) at
+    the bf16 peak, in float32 the 8 float32 products of the CUDA-core
+    design at the float32 peak."""
     pairs = visible_pairs(S, T, causal, window)
     flops = 10 * pairs * H * hd
     nbytes = itemsize * H * hd * (4 * S + 4 * T)
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    design = (20 * pairs * H * hd / PEAK_BF16_FLOPS if itemsize == 2
+              else 16 * pairs * H * hd / PEAK_FP32_FLOPS)
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes,
-            # what this design computes: 8 products on the CUDA cores
-            "design_ms": 16 * pairs * H * hd / PEAK_FP32_FLOPS * 1e3}
+            "flops": flops, "bytes": nbytes, "design_ms": design * 1e3,
+            "design_flops": (20 if itemsize == 2 else 16) * pairs * H * hd}
 
 
 def flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev):
@@ -1891,15 +1913,43 @@ def flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev):
             for L in (S, T, T, S)]
 
 
+def bwd_route_of(dt, hd) -> str:
+    """The gradient kernel's route a shape must take: the tensor cores
+    for bfloat16 with hd <= 128, the CUDA cores otherwise."""
+    return "wgmma" if dt == "bfloat16" and hd <= 128 else "cuda_cores"
+
+
+def lse_check(torch, fa, name, q, k, v, causal, win, q_off) -> float:
+    """The bf16 forward with its log-sum-exp store: the output bit for bit
+    the one without it, the lse within LSE_ATOL of the plain version's
+    (base 2). Returns the lse's max abs error."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kw = dict(causal=causal, window=win, q_offset=q_off)
+    plain = fa.flash_attention(qt, kt, vt, **kw)
+    out, lse = fa.flash_attention(qt, kt, vt, return_lse=True, **kw)
+    _, want = fa.flash_attention_plain(*(x.float() for x in (qt, kt, vt)),
+                                       return_lse=True, **kw)
+    torch.cuda.synchronize()
+    err = float((lse - want).abs().max())
+    if not torch.equal(out, plain) or not err <= LSE_ATOL:
+        raise RuntimeError(f"flash_attention lse {name}: output with the "
+                           f"lse store equal: {torch.equal(out, plain)}; "
+                           f"lse max abs err {err} (limit {LSE_ATOL})")
+    return err
+
+
 def flash_bwd_check(torch, fa, name, q, k, v, do, causal, win, dt, q_off):
-    """The gradient through ``flash_mha`` (one backward kernel launch) vs
-    ``flash_attention_bwd_plain`` in float32 on the same inputs, and a
-    second launch on the same inputs bitwise equal. Returns the max abs
-    error."""
+    """The gradient through ``flash_mha`` (one backward kernel launch, on
+    the route ``bwd_route_of`` names) vs ``flash_attention_bwd_plain`` in
+    float32 on the same inputs, and a second launch on the same inputs
+    (with the log-sum-exp from its own forward launch) bitwise equal.
+    Returns the max abs error."""
     from repro_torch.kernels.ops import flash_mha
     q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
     out = flash_mha(q, k, v, causal=causal, window=win, q_offset=q_off)
     before = fa.flash_attention_bwd.launches
+    route = bwd_route_of(dt, q.shape[-1])
+    routed = fa.flash_attention_bwd.routes[route]
     got = torch.autograd.grad(out, (q, k, v), do)
     views = [x.detach().transpose(1, 2) for x in (q, k, v, out)]
     want = fa.flash_attention_bwd_plain(
@@ -1922,19 +1972,24 @@ def flash_bwd_check(torch, fa, name, q, k, v, do, causal, win, dt, q_off):
             bad.append(f"d{nm}: a second launch differs")
     if fa.flash_attention_bwd.launches != before + 2:
         bad.append("the gradient did not launch the kernel once a call")
+    if fa.flash_attention_bwd.routes[route] != routed + 2:
+        bad.append(f"the launches did not take the {route} route")
     if bad:
         raise RuntimeError(f"flash_attention_bwd {name}: " + "; ".join(bad))
     return err
 
 
 def phase_flash_bwd(torch, fa, dev) -> dict:
-    """Phase 23: the attention gradient kernel vs its plain version, its
-    determinism, and its time beside SDPA's backward at S = T = 4096."""
+    """Phase 23: the attention gradient kernel vs its plain version on
+    both routes (asserted by shape), its determinism, the bf16 forward's
+    log-sum-exp store, and the tensor-core route's time beside SDPA's
+    backward at S = T = 4096 with the saved lse passed, as training
+    passes it."""
     import torch.nn.functional as F
     from repro_torch.kernels.ops import flash_mha
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
-    worst = 0.0
+    worst, lse_worst = 0.0, 0.0
     for B, S, T, H, hd, causal, win, q_off, dt in FLASH_BWD_TESTS:
         q, k, v, do = flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev)
         name = (f"B={B} S={S} T={T} H={H} hd={hd} causal={causal} win={win}"
@@ -1942,46 +1997,72 @@ def phase_flash_bwd(torch, fa, dev) -> dict:
         err = flash_bwd_check(torch, fa, name, q, k, v, do, causal, win, dt,
                               q_off)
         worst = max(worst, err)
-        log(f"flash_attention_bwd {name}: max_abs_err {err:.3g}, two "
-            f"launches bitwise equal")
+        extra = ""
+        if dt == "bfloat16":
+            e = lse_check(torch, fa, name, q, k, v, causal, win, q_off)
+            lse_worst = max(lse_worst, e)
+            extra = f"; forward with lse bitwise, lse max abs err {e:.3g}"
+        log(f"flash_attention_bwd {name}: route {bwd_route_of(dt, hd)}, "
+            f"max_abs_err {err:.3g}, two launches bitwise equal{extra}")
     S = FLASH_BWD_TIMED
     q, k, v, do = flash_bwd_inputs(torch, gen, 1, S, S, QWEN_H, QWEN_HD,
                                    "bfloat16", dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    out = flash_mha(q, k, v).transpose(1, 2)
+    out, lse = fa.flash_attention(qt, kt, vt, return_lse=True)
     dot = do.transpose(1, 2)
-    ms = time_ms(torch, lambda: fa.flash_attention_bwd(qt, kt, vt, out, dot),
-                 reps=2, windows=3)
+    routed = fa.flash_attention_bwd.routes["wgmma"]
+    fwd = fa.flash_attention.launches
+    ms = time_ms(torch, lambda: fa.flash_attention_bwd(
+        qt, kt, vt, out, dot, lse=lse), reps=10, windows=5)
+    if fa.flash_attention_bwd.routes["wgmma"] == routed or \
+            fa.flash_attention.launches != fwd:
+        raise RuntimeError("flash_attention_bwd at S=T=4096: not on the "
+                           "wgmma route, or a forward launch for the lse")
     plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
         qt, kt, vt, out, dot), reps=1, windows=3)
+    # the forward as training launches it (with the lse store) beside the
+    # forward as prefill launches it (without)
+    fwd_ms = time_ms(torch, lambda: fa.flash_attention(qt, kt, vt), reps=20)
+    fwd_lse_ms = time_ms(torch, lambda: fa.flash_attention(
+        qt, kt, vt, return_lse=True), reps=20)
     ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
     sdpa = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         sdpa, (ql, kl, vl), dot, retain_graph=True), reps=5)
     bound = flash_bwd_bound_ms(S, S, QWEN_H, QWEN_HD, True, 0, 2)
     log(f"flash_attention_bwd B=1 S=T={S} H={QWEN_H} hd={QWEN_HD} causal "
-        f"bfloat16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
-        f"backward {lib_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
-        f"({bound['bound_by']}: {bound['flops'] / 1e9:.1f} GFLOP, "
-        f"{bound['bytes'] / 1e6:.1f} MB; this design's 8 float32 products "
-        f"need >= {bound['design_ms']:.3f} ms); kernel at "
-        f"{bound['flops'] / ms / 1e9:.2f} TFLOP/s of the least work")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, **bound}
+        f"bfloat16, wgmma route, saved lse: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+        f"{bound['flops'] / 1e9:.1f} GFLOP, {bound['bytes'] / 1e6:.1f} MB; "
+        f"this design's 10 products need >= {bound['design_ms']:.3f} ms); "
+        f"kernel at {bound['flops'] / ms / 1e9:.2f} TFLOP/s of the least "
+        f"work, {bound['design_flops'] / ms / 1e9:.2f} TFLOP/s issued")
+    log(f"flash_attention B=1 S=T={S} H={QWEN_H} hd={QWEN_HD} causal "
+        f"bfloat16: {fwd_ms:.4f} ms without the lse store, {fwd_lse_ms:.4f}"
+        f" ms with it")
+    return {"max_abs_err": worst, "lse_max_abs_err": lse_worst, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, **bound}
 
 
 # phase 24's device time split by kernel name (as the profiler demangles
 # it): the attention gradient kernel (csrc/flash_attention_bwd.cu's three
-# kernels), the forward attention kernel (both routes), cuBLAS products
+# CUDA-core kernels, or the tensor-core route's rows, dkdv and dq kernels
+# in namespace wgmma_fa_bwd), the forward attention kernel (both routes), cuBLAS products
 # (nvjet and the older gemm families), and PyTorch's elementwise, copy and
 # reduction kernels (AdamW, the clip, norms, RoPE, casts)
 TRAIN_KERNEL_GROUPS = [
-    ("attention gradient", ("stats_kernel", "dkdv_kernel", "dq_kernel")),
+    ("attention gradient", ("stats_kernel", "dkdv_kernel", "dq_kernel",
+                            "wgmma_fa_bwd")),
     ("attention forward", ("flash_kernel", "wgmma_fa")),
     ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
     ("elementwise and reductions", ("elementwise", "reduce", "copy"))]
 TRAIN_ARGS = ["--arch", "qwen3_4b", "--steps", "4", "--batch", "8", "--seq",
               "128", "--device", "cuda"]
+# phase 24's long-sequence run: batch 1, the first of these lengths that
+# fits the card, LONG_STEPS steps (the median of steps 2.. is reported)
+LONG_SEQS = (4096, 2048)
+LONG_STEPS = 3
 
 
 def train_run(torch, launch_train, dev, argv, n_steps, ckpt_dir=None):
@@ -1998,47 +2079,10 @@ def train_run(torch, launch_train, dev, argv, n_steps, ckpt_dir=None):
     return state, step_fn, pipe, hist
 
 
-def phase_train(torch, fa, dev) -> dict:
-    """Phase 24: qwen3-4b at full width trains on the card through
-    ``launch.train``'s code path; then the resume check at reduced
-    size."""
-    from repro_torch.launch import train as launch_train
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd.launches = 0
-    t0 = time.perf_counter()
-    state, step_fn, pipe, hist = train_run(torch, launch_train, dev,
-                                           TRAIN_ARGS, 4)
-    wall = time.perf_counter() - t0
-    bwd, fwd = fa.flash_attention_bwd.launches, fa.flash_attention.launches
-    peak = torch.cuda.max_memory_allocated(dev)
-    n_layers = len(state.params.blocks)
-    n_params = sum(p.numel() for p in state.params.parameters())
-    losses = [m["loss"] for m in hist]
-    gnorms = [m["grad_norm"] for m in hist]
-    times = [m["step_time_s"] for m in hist]
-    if len(hist) != 4 or not all(math.isfinite(x) for x in losses + gnorms) \
-            or bwd != 4 * n_layers or fwd != 8 * n_layers:
-        raise RuntimeError(f"train qwen3_4b: {len(hist)} steps, losses "
-                           f"{losses}, grad norms {gnorms}, backward "
-                           f"launches {bwd}, forward launches {fwd} (want "
-                           f"{4 * n_layers} and {8 * n_layers})")
-    med = statistics.median(times[1:])
-    tokens = 8 * 128
-    log(f"train qwen3_4b full width: {n_params / 1e9:.3f} B parameters, "
-        f"{n_layers} layers, bf16, batch 8 x seq 128, 4 steps in "
-        f"{wall:.2f} s wall (init included)")
-    log(f"train qwen3_4b: losses {[f'{x:.4f}' for x in losses]}, grad norms "
-        f"{[f'{x:.4f}' for x in gnorms]}, step times "
-        f"{[f'{x:.3f}' for x in times]} s")
-    log(f"train qwen3_4b: median step (steps 2-4) {med:.4f} s, "
-        f"{tokens / med:.1f} tokens/s; flash_attention_bwd launches {bwd} "
-        f"({bwd // 4} a step), forward launches {fwd} (remat: 2 a layer); "
-        f"peak memory {peak / 2**30:.2f} GiB "
-        f"({peak / 1e9:.2f} GB)")
-    # one more step under the profiler: launches, busy and idle share,
-    # and the device time by kernel
+def profile_step(torch, step_fn, state, pipe, label) -> dict:
+    """One more train step under the profiler: launches, busy and idle
+    share, the top kernels and the device time by TRAIN_KERNEL_GROUPS
+    kind, logged under ``label``."""
     batch = pipe.next_batch()
     kernels, busy, pwall = profiled_kernels(
         torch, lambda: float(step_fn(state, batch)[1]["loss"]))
@@ -2047,8 +2091,8 @@ def phase_train(torch, fa, dev) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"train qwen3_4b profiled step: {pwall:.4f} s wall, {len(kernels)} "
-        f"device kernel launches, device busy {busy:.4f} s, idle share "
+    log(f"{label} profiled step: {pwall:.4f} s wall, {len(kernels)} device "
+        f"kernel launches, device busy {busy:.4f} s, idle share "
         f"{1 - busy / pwall:.3f}")
     for nm, ms in top:
         log(f"  {ms:9.3f} ms  {nm[:100]}")
@@ -2059,12 +2103,105 @@ def phase_train(torch, fa, dev) -> dict:
         groups[g] = groups.get(g, 0.0) + ms
         if g == "other":
             others.append((ms, nm))
-    log("train qwen3_4b profiled step, device ms by kind: " + ", ".join(
+    log(f"{label} profiled step, device ms by kind: " + ", ".join(
         f"{g} {groups.get(g, 0.0):.3f}"
         for g in [g for g, _ in TRAIN_KERNEL_GROUPS] + ["other"]))
     for ms, nm in sorted(others, reverse=True)[:3]:
         log(f"  other: {ms:9.3f} ms  {nm[:100]}")
-    del state, step_fn, pipe, batch, kernels
+    return {"groups": groups, "idle": 1 - busy / pwall,
+            "launches": len(kernels)}
+
+
+def train_checked(torch, fa, launch_train, dev, argv, n_steps, label):
+    """``train_run`` with the counters reset first, then the checks every
+    full-width run must pass: finite losses and grad norms, 1 gradient
+    launch a layer a step, all on the tensor-core route, 2 forward
+    launches a layer a step (remat). Returns (state, step_fn, pipe,
+    summary)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    t0 = time.perf_counter()
+    state, step_fn, pipe, hist = train_run(torch, launch_train, dev, argv,
+                                           n_steps)
+    wall = time.perf_counter() - t0
+    bwd, fwd = fa.flash_attention_bwd.launches, fa.flash_attention.launches
+    wgmma = fa.flash_attention_bwd.routes["wgmma"]
+    n_layers = len(state.params.blocks)
+    losses = [m["loss"] for m in hist]
+    gnorms = [m["grad_norm"] for m in hist]
+    times = [m["step_time_s"] for m in hist]
+    if len(hist) != n_steps or not all(
+            math.isfinite(x) for x in losses + gnorms) \
+            or bwd != n_steps * n_layers or wgmma != bwd \
+            or fwd != 2 * n_steps * n_layers:
+        raise RuntimeError(f"{label}: {len(hist)} steps, losses {losses}, "
+                           f"grad norms {gnorms}, backward launches {bwd} "
+                           f"({wgmma} on the wgmma route), forward "
+                           f"launches {fwd} (want {n_steps * n_layers}, all "
+                           f"wgmma, and {2 * n_steps * n_layers})")
+    med = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"{label}: losses {[f'{x:.4f}' for x in losses]}, grad norms "
+        f"{[f'{x:.4f}' for x in gnorms]}, step times "
+        f"{[f'{x:.3f}' for x in times]} s, {wall:.2f} s wall (init "
+        f"included)")
+    return state, step_fn, pipe, {
+        "median_step_s": med, "peak": peak, "launches": bwd, "fwd": fwd,
+        "n_layers": n_layers,
+        "n_params": sum(p.numel() for p in state.params.parameters())}
+
+
+def phase_train(torch, fa, dev) -> dict:
+    """Phase 24: qwen3-4b at full width trains on the card through
+    ``launch.train``'s code path, at batch 8 x 128 and at one long
+    sequence (LONG_SEQS: the first that fits); then the resume check at
+    reduced size."""
+    from repro_torch.launch import train as launch_train
+    state, step_fn, pipe, run = train_checked(
+        torch, fa, launch_train, dev, TRAIN_ARGS, 4, "train qwen3_4b")
+    med, peak, bwd, fwd = (run["median_step_s"], run["peak"],
+                           run["launches"], run["fwd"])
+    tokens = 8 * 128
+    log(f"train qwen3_4b full width: {run['n_params'] / 1e9:.3f} B "
+        f"parameters, {run['n_layers']} layers, bf16, batch 8 x seq 128")
+    log(f"train qwen3_4b: median step (steps 2-4) {med:.4f} s, "
+        f"{tokens / med:.1f} tokens/s; flash_attention_bwd launches {bwd} "
+        f"({bwd // 4} a step, all on the wgmma route), forward launches "
+        f"{fwd} (remat: 2 a layer); peak memory {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB)")
+    prof = profile_step(torch, step_fn, state, pipe, "train qwen3_4b")
+    del state, step_fn, pipe
+    long = None
+    for seq in LONG_SEQS:
+        argv = ["--arch", "qwen3_4b", "--steps", str(LONG_STEPS), "--batch",
+                "1", "--seq", str(seq), "--device", "cuda"]
+        label = f"train qwen3_4b batch 1 x {seq}"
+        try:
+            state, step_fn, pipe, long = train_checked(
+                torch, fa, launch_train, dev, argv, LONG_STEPS, label)
+        except torch.cuda.OutOfMemoryError:
+            log(f"{label}: out of memory on this card; the next length")
+            state = step_fn = pipe = None
+            continue
+        lmed = long["median_step_s"]
+        log(f"{label}: median step (steps 2-{LONG_STEPS}) {lmed:.4f} s, "
+            f"{seq / lmed:.1f} tokens/s; flash_attention_bwd launches "
+            f"{long['launches']} ({long['launches'] // LONG_STEPS} a step, "
+            f"all on the wgmma route); peak memory "
+            f"{long['peak'] / 2**30:.2f} GiB ({long['peak'] / 1e9:.2f} GB)")
+        long.update(seq=seq, prof=profile_step(torch, step_fn, state, pipe,
+                                               label))
+        log(f"{label}: the gradient kernel's device time in the profiled "
+            f"step {long['prof']['groups'].get('attention gradient', 0):.3f}"
+            f" ms ({long['launches'] // LONG_STEPS} launches)")
+        del state, step_fn, pipe
+        break
+    if long is None:
+        raise RuntimeError(f"train qwen3_4b: no sequence of {LONG_SEQS} "
+                           "fits at batch 1")
     torch.cuda.empty_cache()
     # resume, bitwise, at reduced size: 4 steps straight against 2 steps,
     # a checkpoint, a fresh state and 2 more from it
@@ -2088,7 +2225,7 @@ def phase_train(torch, fa, dev) -> dict:
         f"on a fresh state): params, m and v bitwise equal "
         f"({len(straight.opt.m)} leaves each)")
     return {"launches": bwd, "median_step_s": med, "peak": peak,
-            "idle": 1 - busy / pwall}
+            "idle": prof["idle"], "long": long}
 
 
 def main(argv=None) -> int:

@@ -243,22 +243,26 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 // refused. q (B, H, S, hd), k and v (B, H, T, hd), o (B, H, S, hd), each
 // given by its element strides (dim contiguous), float32 (is_bf16 = 0) or
 // bfloat16. The wrapper checks devices, types, shapes and strides (for
-// bfloat16, the 16-byte alignment TMA needs) and allocates o.
+// bfloat16, the 16-byte alignment TMA needs) and allocates o. `lse` is
+// null, or (bfloat16 only) float32 of B * H * wgmma_fa::lse_rows(S), which
+// receives each row's log-sum-exp in base 2 for the gradient kernel.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int S, int Tk, int hd, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh,
     long long oss, int causal, int window, int q_offset, float scale,
-    int is_bf16, void* stream) {
+    int is_bf16, void* lse, void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
     const long long qst[3] = {qsb, qsh, qss}, kst[3] = {ksb, ksh, kss},
                     vst[3] = {vsb, vsh, vss}, ost[3] = {osb, osh, oss};
     return wgmma_fa::dispatch(q, k, v, o, B, H, S, Tk, hd, qst, kst, vst, ost,
-                              causal, window, q_offset, scale, st);
+                              causal, window, q_offset, scale,
+                              static_cast<float*>(lse), st);
   }
+  if (lse != nullptr) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   return dispatch<float>(q, k, v, o, B, H, S, Tk, hd, qs, ks, vs, os, causal,

@@ -16,10 +16,14 @@
 //   dk_j = sum_i dS_ij (q_i * scale)
 //   dq_i = scale * sum_j dS_ij k_j
 //
-// Three kernels on the caller's stream, one after another:
+// Two routes, each with its own C entry, chosen by type and head dim in the
+// Python wrapper. bfloat16 with a head dim of at most 128 (the training
+// paths) runs on the tensor cores: flash_attention_bwd_wgmma.cuh (TMA,
+// wgmma, the forward's saved log-sum-exp). Float32, and bfloat16 head dims
+// 129..256, run the CUDA-core kernels of this file, three on the caller's
+// stream, one after another:
 //   1. stats_kernel: per (b, h, 32 query rows), lse_i by an online max and
-//      sum over the visible key tiles, and D_i. The forward kernel (held
-//      bitwise today) stays as it is and saves nothing.
+//      sum over the visible key tiles, and D_i.
 //   2. dkdv_kernel: per (b, h, 32 keys), K and V stay in shared memory
 //      while the block walks the query tiles that can see them; each tile
 //      stages q (scaled), dO, lse and D, recomputes P and dS (32 x 32) into
@@ -38,13 +42,14 @@
 // is 5 products of S x T x hd a head (dO.v, the recomputed q.k, P^T dO,
 // dS^T q, dS k): at S = T = 4096, H = 32, hd = 128, causal, 2.5 x the
 // forward's 137.5 GFLOP = 344 GFLOP, 0.35 ms at 989 TFLOP/s bf16 (the bytes,
-// ~0.3 GB, take 0.1 ms). This design computes 8 such products (q.k three
-// times, dO.v twice) in float32 on the CUDA cores, ~550 GFLOP, so it cannot
-// beat 8.2 ms at 67 TFLOP/s; its shared-memory reads (two a fused
-// multiply-add) bound it well below that. wgmma, TMA and GQA-native reads
-// are later work.
+// ~0.3 GB, take 0.1 ms). The CUDA-core route computes 8 such products (q.k
+// three times, dO.v twice) in float32, ~550 GFLOP, so it cannot beat 8.2 ms
+// at 67 TFLOP/s; its shared-memory reads (two a fused multiply-add) bound it
+// well below that. The tensor-core route's bound is in its header.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_attention_bwd_wgmma.cuh"
 
 namespace {
 
@@ -395,6 +400,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// float32: every head dim <= 256, zero-padded to 32, 64, 128 or 256
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, void* dq, void* dk, void* dv, float* lse,
@@ -414,14 +420,21 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// Launches the three kernels on `stream` (PyTorch's current stream);
-// returns the first cudaGetLastError() that is not 0, so the Python wrapper
-// can raise on a refused launch. q, o, dout and dq are (B, H, S, hd), k, v,
-// dk and dv (B, H, T, hd), each given by its element strides (batch, head,
-// seq; dim contiguous), float32 (is_bf16 = 0) or bfloat16; lse and dd are
-// float32 scratch of B * H * S. The wrapper checks devices, types, shapes
-// and strides and allocates the outputs and the scratch. When T = 0 the
-// wrapper zero-fills dq itself.
+// Two C entries, one a route; the Python wrapper picks the route by type
+// and head dim (kernels/flash_attention.py:bwd_route) and calls its entry,
+// so the route it records is the one launched. Each launches its kernels on
+// `stream` (PyTorch's current stream) and returns the first
+// cudaGetLastError() that is not 0, so the wrapper can raise on a refused
+// launch (or wgmma_fa::ENCODE_ERROR + the CUresult when a TMA tensor map is
+// refused). q, o, dout and dq are (B, H, S, hd), k, v, dk and dv (B, H, T,
+// hd), each given by its element strides in `strides` (8 views x (batch,
+// head, seq); dim contiguous). The wrapper checks devices, types, shapes and
+// strides and allocates the outputs and the scratch. When T = 0 the wrapper
+// zero-fills dq itself.
+//
+// flash_attention_bwd_launch: the CUDA-core kernels above, float32
+// (is_bf16 = 0) or bfloat16, hd <= 256; lse and dd are float32 scratch of
+// B * H * S that the stats kernel fills.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* dd,
@@ -429,7 +442,7 @@ extern "C" int flash_attention_bwd_launch(
     int causal, int window, int q_offset, float scale, int is_bf16,
     void* stream) {
   if (B == 0 || H == 0 || S == 0 || Tk == 0) return 0;
-  const long long* s = strides;  // 8 views x (batch, head, seq)
+  const long long* s = strides;
   const Views vw{{s[0], s[1], s[2]},    {s[3], s[4], s[5]},
                  {s[6], s[7], s[8]},    {s[9], s[10], s[11]},
                  {s[12], s[13], s[14]}, {s[15], s[16], s[17]},
@@ -437,10 +450,30 @@ extern "C" int flash_attention_bwd_launch(
   const cudaStream_t st = (cudaStream_t)stream;
   float* l = static_cast<float*>(lse);
   float* d = static_cast<float*>(dd);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, d, B, H,
-                                   S, Tk, hd, vw, causal, window, q_offset,
-                                   scale, st);
+  if (is_bf16) {
+    if (hd > 256) return (int)cudaErrorInvalidValue;
+    return launch<__nv_bfloat16, 256>(q, k, v, o, dout, dq, dk, dv, l, d, B,
+                                      H, S, Tk, hd, vw, causal, window,
+                                      q_offset, scale, st);
+  }
   return dispatch<float>(q, k, v, o, dout, dq, dk, dv, l, d, B, H, S, Tk, hd,
                          vw, causal, window, q_offset, scale, st);
+}
+
+// flash_attention_bwd_wgmma_launch: the tensor-core kernels of
+// flash_attention_bwd_wgmma.cuh, bfloat16, hd <= 128. lse is the forward's
+// log-sum-exp (base 2, B * H * wgmma_fa::lse_rows(S) floats, an input) and
+// dd float32 scratch of the same size; q, k, v and dout meet TMA's 16-byte
+// rule.
+extern "C" int flash_attention_bwd_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* lse, void* dd,
+    int B, int H, int S, int Tk, int hd, const long long* strides,
+    int causal, int window, int q_offset, float scale, void* stream) {
+  if (B == 0 || H == 0 || S == 0 || Tk == 0) return 0;
+  return wgmma_fa_bwd::dispatch(q, k, v, o, dout, dq, dk, dv,
+                                static_cast<const float*>(lse),
+                                static_cast<float*>(dd), B, H, S, Tk, hd,
+                                strides, causal, window, q_offset, scale,
+                                (cudaStream_t)stream);
 }

@@ -29,6 +29,14 @@
 //     blocks, one box each. The head dim is zero-padded to 64, 128 or 256
 //     by TMA's out-of-bounds fill, and so are rows past S or T.
 //
+// The log-sum-exp. Given a non-null `lse`, the epilogue also stores each
+// row's m + log2(max(l, 1e-30)) (base 2, in the units of the scores times
+// scale * log2 e that the softmax works in) for the gradient kernel of
+// flash_attention_bwd_wgmma.cuh, in rows of lse_rows(S) floats per (batch,
+// head), 0 in the rows from S on. Only the store is added, in a kernel
+// instantiation of its own (LSE = true): O's arithmetic is the same with
+// and without it, and the kernel without the store is the one it was.
+//
 // Numerics. The score is accumulated in f32 from exact bf16 products and
 // multiplied by scale * log2(e) after the product (the Pallas kernel
 // scales q first; q * scale rounded to bf16 would lose bits, so the two
@@ -66,6 +74,12 @@ constexpr unsigned FULL = 0xffffffffu;
 // returned by the launch when cuTensorMapEncodeTiled refuses a tensor map
 // (ENCODE_ERROR + its CUresult) or cannot be found (ENCODE_ERROR - 1)
 constexpr int ENCODE_ERROR = 20000;
+
+// the log-sum-exp rows of one (batch, head): S rounded up to the block's
+// rows, so the gradient kernel reads whole 64- or 128-row tiles of them
+__host__ __device__ __forceinline__ int lse_rows(int S) {
+  return (S + BQ - 1) / BQ * BQ;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -147,6 +161,16 @@ __device__ __forceinline__ float ex2(float x) {
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two f32 accumulator values as the hi and lo bf16 pairs of an A fragment:
+// hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
 // D (64 x 64, f32) = or += A (smem, K-major) . B (smem, K-major)
@@ -316,8 +340,71 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "r"(accumulate));
 }
 
-// HD: the head dim padded to 64, 128 or 256; BK: keys per K/V tile
-template <int HD, int BK>
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query, so the library needs no -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess && p != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (hd, L, H, B) tensor map of a (B, H, L, hd) bf16 view with element
+// strides (sb, sh, ss), boxes of 64 columns x `rows` rows, 128-byte
+// swizzle, zero fill out of bounds. The wrapper has checked that the base
+// and every stride of a dim longer than 1 are 16-byte multiples; a dim of
+// length 1 gets a legal stride, which no box uses.
+inline int make_map(CUtensorMap* map, const void* ptr, int B, int H, int L,
+                    int hd, long long sb, long long sh, long long ss,
+                    int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ENCODE_ERROR - 1;
+  L = L > 0 ? L : 1;
+  const cuuint64_t row_bytes = (static_cast<cuuint64_t>(hd) * 2 + 15) & ~15ull;
+  const cuuint64_t st_l = L > 1 ? ss * 2 : row_bytes;
+  const cuuint64_t st_h = H > 1 ? sh * 2 : st_l * L;
+  const cuuint64_t st_b = B > 1 ? sb * 2 : st_h * H + st_l * L;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {st_l, st_h, st_b};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ENCODE_ERROR + static_cast<int>(res);
+}
+
+// the gradient's library (flash_attention_bwd_wgmma.cuh) includes this
+// header for the helpers above only
+#ifndef WGMMA_FA_HELPERS_ONLY
+
+// HD: the head dim padded to 64, 128 or 256; BK: keys per K/V tile; LSE:
+// store the log-sum-exp rows (an instantiation of its own, so the kernel
+// without the store compiles to the code it had before the store existed)
+template <int HD, int BK, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -325,7 +412,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    __nv_bfloat16* __restrict__ o, int H, int S, int Tk,
                    int hd, long long osb, long long osh, long long oss,
                    int causal, int window, int q_offset, float scale_log2,
-                   int pairs) {
+                   int pairs, float* __restrict__ lse) {
   constexpr int NB = HD / 64;             // 128-byte column blocks
   constexpr int Q_BYTES = BQ * HD * 2;
   constexpr int KV_BYTES = BK * HD * 2;   // one K or V tile
@@ -476,13 +563,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float x0 = sc[8 * kk + 2 * a], x1 = sc[8 * kk + 2 * a + 1];
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-          const float2 hf = __bfloat1622float2(hi);
-          p_hi[kk][a] = bits(hi);
-          p_lo[kk][a] = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-        }
+        for (int a = 0; a < 4; ++a)
+          split2(sc[8 * kk + 2 * a], sc[8 * kk + 2 * a + 1], p_hi[kk][a],
+                 p_lo[kk][a]);
       }
 
       // O += P_hi V + P_lo V: 16 keys per wgmma (16 rows of 128 bytes)
@@ -515,6 +598,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l[r] += __shfl_xor_sync(FULL, l[r], 1);
       l[r] += __shfl_xor_sync(FULL, l[r], 2);
     }
+    if (LSE && t == 0) {
+      const int rows = lse_rows(S);
+      float* lrow = lse + static_cast<long long>(blockIdx.y) * rows;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < S)
+          lrow[row] = m[r] + log2f(fmaxf(l[r], 1e-30f));
+        else if (row < rows)
+          lrow[row] = 0.0f;
+      }
+    }
     __nv_bfloat16* op = o + b * osb + h * osh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -540,107 +635,72 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
-// query, so the library needs no -lcuda
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess && p != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The (hd, L, H, B) tensor map of a (B, H, L, hd) bf16 view with element
-// strides (sb, sh, ss), boxes of 64 columns x `rows` rows, 128-byte
-// swizzle, zero fill out of bounds. The wrapper has checked that the base
-// and every stride of a dim longer than 1 are 16-byte multiples; a dim of
-// length 1 gets a legal stride, which no box uses.
-inline int make_map(CUtensorMap* map, const void* ptr, int B, int H, int L,
-                    int hd, long long sb, long long sh, long long ss,
-                    int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return ENCODE_ERROR - 1;
-  L = L > 0 ? L : 1;
-  const cuuint64_t row_bytes = (static_cast<cuuint64_t>(hd) * 2 + 15) & ~15ull;
-  const cuuint64_t st_l = L > 1 ? ss * 2 : row_bytes;
-  const cuuint64_t st_h = H > 1 ? sh * 2 : st_l * L;
-  const cuuint64_t st_b = B > 1 ? sb * 2 : st_h * H + st_l * L;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {st_l, st_h, st_b};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : ENCODE_ERROR + static_cast<int>(res);
+template <int HD, int BK, bool LSE>
+int launch_as(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int S, int Tk, int hd, const long long* qst,
+           const long long* kst, const long long* vst, const long long* ost,
+           int causal, int window, int q_offset, float scale, float* lse,
+           cudaStream_t stream) {
+  constexpr int smem =
+      1024 + BQ * HD * 2 + 2 * STAGES * BK * HD * 2 + 8 * (1 + 3 * STAGES);
+  // a runtime call first: it makes the device's primary context current on
+  // this thread (autograd's backward thread may not have it yet), which
+  // cuTensorMapEncodeTiled needs
+  cudaError_t cerr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD, BK, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, B, H, S, hd, qst[0], qst[1], qst[2], BQ);
+  if (err == 0) err = make_map(&tk, k, B, H, Tk, hd, kst[0], kst[1], kst[2], BK);
+  if (err == 0) err = make_map(&tv, v, B, H, Tk, hd, vst[0], vst[1], vst[2], BK);
+  if (err != 0) return err;
+  // bf16x2 stores need every output row and batch/head offset even
+  const int pairs = ((ost[0] | ost[1] | ost[2]) & 1) == 0;
+  const float scale_log2 = static_cast<float>(static_cast<double>(scale) *
+                                              1.4426950408889634);
+  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  flash_wgmma_kernel<HD, BK, LSE><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, S, Tk, hd, ost[0],
+      ost[1], ost[2], causal, window, q_offset, scale_log2, pairs, lse);
+  return (int)cudaGetLastError();
 }
 
 template <int HD, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int S, int Tk, int hd, const long long* qst,
            const long long* kst, const long long* vst, const long long* ost,
-           int causal, int window, int q_offset, float scale,
+           int causal, int window, int q_offset, float scale, float* lse,
            cudaStream_t stream) {
-  constexpr int smem =
-      1024 + BQ * HD * 2 + 2 * STAGES * BK * HD * 2 + 8 * (1 + 3 * STAGES);
-  CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, B, H, S, hd, qst[0], qst[1], qst[2], BQ);
-  if (err == 0) err = make_map(&tk, k, B, H, Tk, hd, kst[0], kst[1], kst[2], BK);
-  if (err == 0) err = make_map(&tv, v, B, H, Tk, hd, vst[0], vst[1], vst[2], BK);
-  if (err != 0) return err;
-  cudaError_t cerr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (cerr != cudaSuccess) return (int)cerr;
-  // bf16x2 stores need every output row and batch/head offset even
-  const int pairs = ((ost[0] | ost[1] | ost[2]) & 1) == 0;
-  const float scale_log2 = static_cast<float>(static_cast<double>(scale) *
-                                              1.4426950408889634);
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_wgmma_kernel<HD, BK><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, S, Tk, hd, ost[0],
-      ost[1], ost[2], causal, window, q_offset, scale_log2, pairs);
-  return (int)cudaGetLastError();
+  return lse != nullptr
+             ? launch_as<HD, BK, true>(q, k, v, o, B, H, S, Tk, hd, qst, kst,
+                                       vst, ost, causal, window, q_offset,
+                                       scale, lse, stream)
+             : launch_as<HD, BK, false>(q, k, v, o, B, H, S, Tk, hd, qst,
+                                        kst, vst, ost, causal, window,
+                                        q_offset, scale, lse, stream);
 }
 
-// every bf16 head dim <= 256, zero-padded to 64, 128 or 256
+// every bf16 head dim <= 256, zero-padded to 64, 128 or 256; `lse` null or
+// B * H * lse_rows(S) floats
 inline int dispatch(const void* q, const void* k, const void* v, void* o,
                     int B, int H, int S, int Tk, int hd, const long long* qst,
                     const long long* kst, const long long* vst,
                     const long long* ost, int causal, int window,
-                    int q_offset, float scale, cudaStream_t stream) {
+                    int q_offset, float scale, float* lse,
+                    cudaStream_t stream) {
   if (hd <= 64)
     return launch<64, 128>(q, k, v, o, B, H, S, Tk, hd, qst, kst, vst, ost,
-                           causal, window, q_offset, scale, stream);
+                           causal, window, q_offset, scale, lse, stream);
   if (hd <= 128)
     return launch<128, 128>(q, k, v, o, B, H, S, Tk, hd, qst, kst, vst, ost,
-                            causal, window, q_offset, scale, stream);
+                            causal, window, q_offset, scale, lse, stream);
   if (hd <= 256)
     return launch<256, 64>(q, k, v, o, B, H, S, Tk, hd, qst, kst, vst, ost,
-                           causal, window, q_offset, scale, stream);
+                           causal, window, q_offset, scale, lse, stream);
   return (int)cudaErrorInvalidValue;
 }
+
+#endif  // WGMMA_FA_HELPERS_ONLY
 
 }  // namespace wgmma_fa

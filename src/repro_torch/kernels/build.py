@@ -4,10 +4,12 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function (no PyTorch
 headers, so ``nvcc`` takes seconds, not minutes). It is compiled at
 first use for ``sm_90a`` into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), under a file name that carries a
-hash of the source, of the ``csrc/*.cuh`` headers it includes (the
-shared ADC, ``adc.cuh``; the predicated bit-plane adds,
-``predicated_add.cuh``; the threefry draw, ``threefry.cuh``) and of the
-flags, so an edited source or header rebuilds. The
+hash of the source, of the ``csrc/*.cuh`` headers it includes, directly
+or through another header (the shared ADC, ``adc.cuh``; the predicated
+bit-plane adds, ``predicated_add.cuh``; the threefry draw,
+``threefry.cuh``; the flash kernels' tensor-core routes, the gradient's
+header including the forward's) and of the flags, so an edited source or
+header rebuilds. The
 library is written to a temporary name and renamed into place, so
 concurrent processes never load a half-written file. ``set_build_dir``
 points the builds elsewhere (the campaign's ``--compile-cache``): a
@@ -60,16 +62,20 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         # q, k, v, o, B, H, S, T, hd, (batch, head, seq) strides of q, k,
-        # v and o, causal, window, q_offset, scale, is_bf16, stream
+        # v and o, causal, window, q_offset, scale, is_bf16, lse (null or
+        # the log-sum-exp rows), stream
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   *(_L,) * 12, _I, _I, _I, _F, _I, _P),
+                                   *(_L,) * 12, _I, _I, _I, _F, _I, _P, _P),
     },
     "flash_attention_bwd": {
         # q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, S, T, hd, the
         # (batch, head, seq) strides of the eight views (24 long longs),
-        # causal, window, q_offset, scale, is_bf16, stream
+        # causal, window, q_offset, scale, is_bf16, stream (the CUDA cores)
         "flash_attention_bwd_launch": (*(_P,) * 10, _I, _I, _I, _I, _I, _P,
                                        _I, _I, _I, _F, _I, _P),
+        # the tensor-core route's entry: the same without is_bf16
+        "flash_attention_bwd_wgmma_launch": (*(_P,) * 10, _I, _I, _I, _I, _I,
+                                             _P, _I, _I, _I, _F, _P),
     },
 }
 
@@ -100,13 +106,25 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _headers(src: str) -> List[str]:
+    """Every ``csrc/*.cuh`` that ``src`` includes, directly or through
+    another such header, sorted."""
+    found, todo = set(), list(_INCLUDE.findall(src))
+    while todo:
+        header = todo.pop()
+        if header not in found:
+            found.add(header)
+            todo += _INCLUDE.findall((CSRC / header).read_text())
+    return sorted(found)
+
+
 def _library_path(name: str) -> Path:
     """``build/kernels/lib<name>_<hash>.so``, the hash taken over the
-    source, every ``csrc/*.cuh`` it includes and the flags, so an edit
-    to any of them rebuilds."""
+    source, every ``csrc/*.cuh`` it includes (directly or not) and the
+    flags, so an edit to any of them rebuilds."""
     src = (CSRC / f"{name}.cu").read_text()
     digest = hashlib.sha256(src.encode())
-    for header in sorted(set(_INCLUDE.findall(src))):
+    for header in _headers(src):
         digest.update(header.encode() + (CSRC / header).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"

@@ -25,7 +25,13 @@ aligned bases and strides, so a bfloat16 view without them raises.
 ``flash_attention_bwd`` is the gradient: on CUDA tensors the
 hand-written ``csrc/flash_attention_bwd.cu`` (the JAX package has no
 Pallas backward; it differentiates the jnp attention), on CPU tensors
-``flash_attention_bwd_plain``. It counts its launches the same way.
+``flash_attention_bwd_plain``. It counts its launches the same way, and
+in ``routes`` which route each launch took (``bwd_route`` picks it, and
+the wrapper calls that route's own C entry): bfloat16
+with a head dim of at most 128 on the tensor cores
+(``csrc/flash_attention_bwd_wgmma.cuh``, ``"wgmma"``), which reads the
+log-sum-exp that the bfloat16 forward stores when asked
+(``return_lse``), everything else on the CUDA cores (``"cuda_cores"``).
 ``ops.FlashAttention`` ties the two together for autograd.
 
 The plain version and the float32 kernel scale q by ``1/sqrt(hd)``
@@ -46,6 +52,12 @@ from . import build
 
 NEG_INF = -1.0e30
 MAX_HEAD_DIM = 256
+LOG2E = 1.4426950408889634
+# the bfloat16 kernels' log-sum-exp rows of one (batch, head) are S rounded
+# up to this (csrc/flash_attention_wgmma.cuh's lse_rows, its block's rows)
+LSE_BLOCK = 128
+# the gradient's tensor-core route takes bfloat16 head dims up to this
+WGMMA_BWD_MAX_HEAD_DIM = 128
 # csrc/flash_attention_wgmma.cuh's ENCODE_ERROR: the launch returns it plus
 # the CUresult when a TMA tensor map is refused, minus 1 when libcuda's
 # cuTensorMapEncodeTiled entry point is missing
@@ -65,14 +77,30 @@ def _visible(q_pos: torch.Tensor, k_pos: torch.Tensor, T: int, causal: bool,
     return mask
 
 
+def lse_rows(S: int) -> int:
+    """The rows of one (batch, head) in the bfloat16 kernels' log-sum-
+    exp buffer: S rounded up to ``LSE_BLOCK``."""
+    return -(-S // LSE_BLOCK) * LSE_BLOCK
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The route of ``flash_attention_bwd`` on CUDA tensors, by type and
+    head dim: ``"wgmma"`` (tensor cores) or ``"cuda_cores"``."""
+    return ("wgmma" if dtype == torch.bfloat16
+            and hd <= WGMMA_BWD_MAX_HEAD_DIM else "cuda_cores")
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          q_offset: int = 0) -> torch.Tensor:
+                          q_offset: int = 0, return_lse: bool = False):
     """Plain PyTorch version: a chunked online softmax, as
     ``models/attention.py:blockwise_attention`` computes it, so memory
     stays O(S x chunk). Key chunks that no query of a chunk sees (wholly
     above its causal diagonal or below its window) are skipped, as the
-    kernel skips them."""
+    kernel skips them. With ``return_lse`` it also returns each row's
+    log-sum-exp of the scaled scores in base 2, ``(m + log l) * log2 e``
+    (float32, q's leading dims and S), as the bfloat16 kernel stores
+    it."""
     *lead, S, hd = q.shape
     T = k.shape[-2]
     scale = 1.0 / float(hd) ** 0.5
@@ -81,6 +109,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.reshape(-1, T, hd).float()
     BH, dev = qf.shape[0], q.device
     out = torch.empty((BH, S, hd), dtype=q.dtype, device=dev)
+    lse = torch.empty((BH, S), dtype=torch.float32, device=dev)
     for i0 in range(0, S, _CHUNK):
         i1 = min(S, i0 + _CHUNK)
         q_pos = torch.arange(i0, i1, device=dev) + q_offset
@@ -104,9 +133,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + p @ vf[:, j0:j1]
             m = m_new
-        out[:, i0:i1] = (acc / torch.clamp(l, min=1e-30)[..., None]
-                         ).to(q.dtype)
-    return out.reshape(*lead, S, hd)
+        den = torch.clamp(l, min=1e-30)
+        out[:, i0:i1] = (acc / den[..., None]).to(q.dtype)
+        lse[:, i0:i1] = (m + torch.log(den)) * LOG2E
+    out = out.reshape(*lead, S, hd)
+    return (out, lse.reshape(*lead, S)) if return_lse else out
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -212,15 +243,20 @@ def tma_alignment_error(t: torch.Tensor) -> Optional[str]:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """Blockwise attention (shapes as in the module docstring). CUDA
     tensors launch ``csrc/flash_attention.cu`` (bfloat16 on the tensor
     cores, float32 on the CUDA cores); CPU tensors take the plain
-    version."""
+    version. ``return_lse`` also returns each row's log-sum-exp in base
+    2 (float32, (B, H, S)): on the card only the bfloat16 route stores
+    it, as a view of a (B, H, ``lse_rows(S)``) buffer whose rows past S
+    hold 0, which the gradient's tensor-core route reads; the output is
+    bit for bit the one without it."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
+                                     q_offset=q_offset,
+                                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, S, hd = q.shape
@@ -235,7 +271,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(f"flash_attention: {name}'s {bad} is not a "
                                  "multiple of 16 bytes, which the bfloat16 "
                                  "kernel's TMA loads need")
+    elif return_lse:
+        raise ValueError("flash_attention: return_lse needs bfloat16 on the "
+                         "card (the float32 kernel stores no log-sum-exp)")
     out = torch.empty_like(q)  # keeps q's layout (a transposed view too)
+    lse = (torch.empty((B, H, lse_rows(S)), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     lib = build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
@@ -243,7 +284,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         T, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3],
         int(bool(causal)), int(window), int(q_offset),
-        1.0 / float(hd) ** 0.5, int(q.dtype == torch.bfloat16), stream)
+        1.0 / float(hd) ** 0.5, int(q.dtype == torch.bfloat16),
+        None if lse is None else lse.data_ptr(), stream)
     if err >= _ENCODE_ERROR - 1:
         raise RuntimeError("flash_attention: cuTensorMapEncodeTiled "
                            + ("not found" if err == _ENCODE_ERROR - 1 else
@@ -252,24 +294,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    return out
+    return out if lse is None else (out, lse[..., :S])
 
 
 flash_attention.launches = 0
 
 
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it in rows padded to 16 bytes (a view of the
+    head dim) when TMA cannot read ``t`` itself (``tma_alignment_error``):
+    a gradient autograd hands over may have any layout."""
+    if tma_alignment_error(t) is None:
+        return t
+    hd = t.shape[-1]
+    buf = t.new_zeros((*t.shape[:-1], -(-hd // 8) * 8))
+    buf[..., :hd] = t
+    return buf[..., :hd]
+
+
+def _check_lse(lse: torch.Tensor, B: int, H: int, S: int) -> None:
+    """Raises unless ``lse`` is what ``flash_attention(...,
+    return_lse=True)`` returns for (B, H, S): a float32 (B, H, S) view at
+    the base of a (B, H, ``lse_rows(S)``) buffer, whose whole rows the
+    tensor-core route reads."""
+    rows = lse_rows(S)
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or lse.stride() != (H * rows, rows, 1)
+            or lse.storage_offset() != 0
+            or lse.untyped_storage().nbytes() < 4 * B * H * rows):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} strides {lse.stride()} is not the "
+                         f"forward's ({B}, {H}, {S}) view of ({B}, {H}, "
+                         f"{rows}) float32 rows")
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        q_offset: int = 0):
+                        q_offset: int = 0,
+                        lse: Optional[torch.Tensor] = None):
     """The gradient (dq, dk, dv) of ``flash_attention`` (shapes as in the
     module docstring; ``o`` its output, ``do`` the output's gradient,
     both (B, H, S, hd)). CUDA tensors launch ``csrc/flash_attention_bwd.
-    cu`` (three kernels: the row statistics, dk and dv per key tile, dq
-    per query tile; float32 or bfloat16, float32 accumulation, no
-    atomics, so a launch repeats bit for bit); CPU tensors take
-    ``flash_attention_bwd_plain``. The gradients have the inputs' type
-    and layout (a transposed view's strides too)."""
+    cu`` by the route ``bwd_route`` names, recorded in ``routes``:
+    bfloat16 with hd <= 128 on the tensor cores (D = rowsum(dO o), dk and
+    dv per 128 keys, dq per 128 query rows, from the forward's ``lse``,
+    as ``flash_attention(..., return_lse=True)`` returns it; without it
+    this route runs the forward kernel once more to get it, a launch
+    counted in ``flash_attention.launches``), the rest on the CUDA cores
+    (the row statistics, dk and dv per key tile, dq per query tile; it
+    needs no ``lse``). Float32 accumulation and no atomics on both, so a
+    launch repeats bit for bit. CPU tensors take
+    ``flash_attention_bwd_plain`` (``lse`` unused). The gradients have
+    the inputs' type and layout (a transposed view's strides too)."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
@@ -294,23 +371,45 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if T == 0:
         return dq.zero_(), dk, dv
-    lse = torch.empty((B * H * S,), dtype=torch.float32, device=q.device)
-    dd = torch.empty_like(lse)
+    route = bwd_route(q.dtype, hd)
+    if route == "wgmma":
+        q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+        if lse is None:
+            _, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, return_lse=True)
+        _check_lse(lse, B, H, S)
+        dd = torch.empty((B * H * lse_rows(S),), dtype=torch.float32,
+                         device=q.device)
+    else:
+        lse = torch.empty((B * H * S,), dtype=torch.float32,
+                          device=q.device)
+        dd = torch.empty_like(lse)
     views = (q, k, v, o, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(x for t in views
                                          for x in t.stride()[:3]))
     lib = build.load("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_bwd_launch(
-        *(t.data_ptr() for t in views), lse.data_ptr(), dd.data_ptr(),
-        B, H, S, T, hd, ctypes.cast(strides, ctypes.c_void_p),
-        int(bool(causal)), int(window), int(q_offset),
-        1.0 / float(hd) ** 0.5, int(q.dtype == torch.bfloat16), stream)
+    args = (*(t.data_ptr() for t in views), lse.data_ptr(), dd.data_ptr(),
+            B, H, S, T, hd, ctypes.cast(strides, ctypes.c_void_p),
+            int(bool(causal)), int(window), int(q_offset),
+            1.0 / float(hd) ** 0.5)
+    # one C entry a route: the route counted below is the one launched
+    if route == "wgmma":
+        err = lib.flash_attention_bwd_wgmma_launch(*args, stream)
+    else:
+        err = lib.flash_attention_bwd_launch(
+            *args, int(q.dtype == torch.bfloat16), stream)
+    if err >= _ENCODE_ERROR - 1:
+        raise RuntimeError("flash_attention_bwd: cuTensorMapEncodeTiled "
+                           + ("not found" if err == _ENCODE_ERROR - 1 else
+                              f"failed with CUresult {err - _ENCODE_ERROR}"))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention, flash_attention_bwd
+from .flash_attention import (bwd_route, flash_attention,
+                              flash_attention_bwd)
 from .imc_matmul import imc_matmul
 
 
@@ -32,25 +33,35 @@ def imc_gemm(x_q: torch.Tensor, w: torch.Tensor, xbar_rows: int = 256,
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its gradient. The forward is the forward
-    kernel (or its plain version on CPU tensors) unchanged, saving q, k,
-    v and the output; the backward is ``flash_attention_bwd``: the
+    kernel (or its plain version on CPU tensors), saving q, k, v, the
+    output and, where the gradient's tensor-core route will read it
+    (CUDA bfloat16, hd <= 128, an input needing a gradient), the
+    forward's log-sum-exp; the backward is ``flash_attention_bwd``: the
     hand-written gradient kernel on CUDA tensors, its plain version on
     CPU tensors, never a fallback. Inputs are (B, H, L, hd) views."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out)
+        lse = None
+        if (q.is_cuda and bwd_route(q.dtype, q.shape[-1]) == "wgmma"
+                and any(ctx.needs_input_grad[:3])):
+            out, lse = flash_attention(q, k, v, causal=causal,
+                                       window=window, q_offset=q_offset,
+                                       return_lse=True)
+        else:
+            out = flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset = ctx.mask
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
-                                         window=window, q_offset=q_offset)
+                                         window=window, q_offset=q_offset,
+                                         lse=lse)
         return dq, dk, dv, None, None, None
 
 

@@ -32,10 +32,11 @@ from repro_torch.kernels.imc_fused import (imc_fused_gemm,
                                            imc_fused_keyed_plain,
                                            imc_fused_plain, normal_of_bits)
 from repro_torch.configs import get_config
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (bwd_route, flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 lse_rows)
 from repro_torch.kernels.imc_matmul import imc_matmul, imc_matmul_plain
 from repro_torch.kernels.ops import flash_mha, imc_gemm
 from repro_torch.models import init_params
@@ -399,15 +400,50 @@ def test_flash_kernel_matches_plain(cuda, B, S, T, H, hd, causal, window,
 
 
 @pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset,dt",
+                         [x for x in FLASH_SHAPES if x[-1] == torch.bfloat16])
+def test_flash_forward_lse_is_bitwise_and_matches_plain(
+        cuda, B, S, T, H, hd, causal, window, q_offset, dt):
+    """The bfloat16 forward asked for its log-sum-exp: the output is
+    bit for bit the one without the store, and the lse (base 2, rows of
+    ``lse_rows(S)``, 0 past S) is within 5e-5 of the plain version's
+    ``(m + log l) * log2 e`` in float32 (the scores summed in another
+    order, ex2/log2 on the card against exp/log: float32 rounding of
+    values of a few units)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S + T + hd + 3)
+    q, k, v = (torch.randn((B, H, L, hd), generator=gen, device=cuda
+                           ).to(dt) for L in (S, T, T))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention.launches
+    plain_out = flash_attention(q, k, v, **kw)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert flash_attention.launches == before + 2
+    _, want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                    return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    rows = lse_rows(S)
+    assert lse.stride() == (H * rows, rows, 1)
+    torch.testing.assert_close(lse, want, rtol=0.0, atol=5e-5)
+    pad = torch.as_strided(lse, (B, H, rows - S), (H * rows, rows, 1),
+                           lse.storage_offset() + S)
+    assert torch.equal(pad, torch.zeros_like(pad))
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset,dt",
                          FLASH_SHAPES)
 def test_flash_backward_kernel_matches_plain(cuda, B, S, T, H, hd, causal,
                                              window, q_offset, dt):
     """The gradient through ``flash_mha`` on the card (the backward
-    kernel, one launch) vs ``flash_attention_bwd_plain`` in float32 on
-    the same inputs: float32 within 1e-4 of each gradient's largest
-    entry; bfloat16 every element within two bf16 steps of the plain
-    value plus 1e-4. A second launch on the same inputs is bitwise
-    equal (no atomics)."""
+    kernel, one launch, on the route its type and head dim pick: the
+    tensor cores for bfloat16 with hd <= 128, the CUDA cores otherwise)
+    vs ``flash_attention_bwd_plain`` in float32 on the same inputs:
+    float32 within 1e-4 of each gradient's largest entry; bfloat16 every
+    element within two bf16 steps of the plain value plus 1e-4. A second
+    launch on the same inputs (the tensor-core route getting its
+    log-sum-exp from one more forward launch) is bitwise equal (no
+    atomics)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(S + T + hd + 1)
     q, k, v, do = (torch.randn((B, L, H, hd), generator=gen, device=cuda
@@ -415,9 +451,14 @@ def test_flash_backward_kernel_matches_plain(cuda, B, S, T, H, hd, causal,
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = flash_mha(q, k, v, causal=causal, window=window,
                     q_offset=q_offset)
+    route = "wgmma" if dt == torch.bfloat16 and hd <= 128 else "cuda_cores"
+    assert bwd_route(dt, hd) == route
     before = flash_attention_bwd.launches
+    routed = dict(flash_attention_bwd.routes)
     got = torch.autograd.grad(out, (q, k, v), do)
     assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.routes == {
+        r: n + (r == route) for r, n in routed.items()}
     views = [x.detach().transpose(1, 2) for x in (q, k, v, out)]
     want = flash_attention_bwd_plain(
         *(x.float() for x in views), do.transpose(1, 2).float(),

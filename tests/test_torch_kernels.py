@@ -6,6 +6,7 @@ shapes and tolerances; the
 wrappers' CPU rule, ``ops.imc_gemm``'s padding, and the build's
 library naming. The CUDA kernels themselves run only on a card:
 tests/test_torch_gpu.py holds them against the plain versions there."""
+import re
 import shutil
 
 import jax
@@ -280,7 +281,9 @@ def test_build_paths_stay_in_checkout():
     fused one draws its noise with csrc/threefry.cuh; the flash
     attention kernel includes its bfloat16 tensor-core route,
     csrc/flash_attention_wgmma.cuh; its gradient,
-    csrc/flash_attention_bwd.cu, includes no header of its own."""
+    csrc/flash_attention_bwd.cu, includes its own tensor-core route,
+    csrc/flash_attention_bwd_wgmma.cuh, which includes the forward's
+    header for its PTX helpers."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
                                      "flash_attention", "flash_attention_bwd"}
     for name in build.SIGNATURES:
@@ -289,7 +292,13 @@ def test_build_paths_stay_in_checkout():
         src = (build.CSRC / f"{name}.cu").read_text()
         assert build._INCLUDE.findall(src) == {
             "flash_attention": ["flash_attention_wgmma.cuh"],
-            "flash_attention_bwd": [],
+            "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh"],
+            "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
+            "imc_matmul": ["adc.cuh", "predicated_add.cuh"]}[name]
+        assert build._headers(src) == {
+            "flash_attention": ["flash_attention_wgmma.cuh"],
+            "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh",
+                                    "flash_attention_wgmma.cuh"],
             "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
             "imc_matmul": ["adc.cuh", "predicated_add.cuh"]}[name]
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
@@ -302,7 +311,9 @@ def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
     renames (so rebuilds) both crossbar kernels' libraries; an edit to
     one source renames only its own; an edit to the threefry header
     renames only imc_fused's library, one to the flash kernel's
-    tensor-core header only the flash library."""
+    tensor-core header both flash libraries (the gradient's header
+    includes it), one to the gradient's tensor-core header only the
+    gradient's library."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -332,9 +343,18 @@ def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
     assert keyed["imc_matmul"] == again["imc_matmul"]
     again = keyed
     flash = build._library_path("flash_attention")
+    bwd = build._library_path("flash_attention_bwd")
     with open(csrc / "flash_attention_wgmma.cuh", "a") as f:
         f.write("// edited\n")
     assert build._library_path("flash_attention") != flash
+    assert build._library_path("flash_attention_bwd") != bwd
+    assert {n: build._library_path(n) for n in names} == again
+    flash = build._library_path("flash_attention")
+    bwd = build._library_path("flash_attention_bwd")
+    with open(csrc / "flash_attention_bwd_wgmma.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build._library_path("flash_attention") == flash
+    assert build._library_path("flash_attention_bwd") != bwd
     assert {n: build._library_path(n) for n in names} == again
 
 
@@ -683,6 +703,232 @@ def test_bf16_kernel_needs_p_split_in_two():
     assert (once - want).abs().max() <= 2e-2  # which atol 2e-2 alone misses
     assert over_split == 0
     assert (split - want).abs().max() <= 2.0 ** -7
+
+
+# the gradient's tensor-core route (csrc/flash_attention_bwd_wgmma.cuh):
+# (B, S, T, H, hd, causal, window, q_offset) of a training-like shape, a
+# window across several 64-row tiles, a query offset with S != T
+BWD_EMULATED = [(2, 128, 128, 4, 128, True, 0, 0),
+                (1, 300, 300, 2, 128, True, 100, 0),
+                (2, 37, 120, 3, 64, True, 0, 83)]
+# the products whose A operand (P or dS) the kernel splits into hi + lo
+BWD_SPLIT = ("p_do", "ds_q", "ds_k")
+
+
+def _emulate_bf16_kernel_bwd(q, k, v, o, do, causal, window, q_offset,
+                             split=BWD_SPLIT):
+    """The tensor-core gradient's arithmetic on (BH, L, hd) bf16 inputs,
+    in plain torch: scores from exact bf16 products in float32, times
+    scale * log2 e; the forward's log-sum-exp in base 2 by its online
+    max and sum over 128-key tiles; P = exp2(x - lse) under the mask
+    and dS = P (dP - D) in float32 with D = rowsum(dO o); dV and dK
+    summed over 64-row query tiles, dQ over 64-key tiles, each product's
+    A operand (P^T for dV, dS^T for dK, dS for dQ) rounded once to bf16,
+    or, for the products named in ``split``, as bf16(x) + bf16(x -
+    bf16(x)); gradients rounded to bf16. Up to float32 summation order
+    this is what the kernel computes."""
+    BH, S, hd = q.shape
+    T = k.shape[1]
+    scale = 1.0 / hd ** 0.5
+    c = float(np.float32(scale * flash_mod.LOG2E))
+    vis = flash_mod._visible(torch.arange(S) + q_offset, torch.arange(T),
+                             T, causal, window)[None]
+    x = torch.where(vis, (q.float() @ k.float().transpose(1, 2)) * c,
+                    flash_mod.NEG_INF)
+    m = torch.full((BH, S), flash_mod.NEG_INF)
+    l = torch.zeros((BH, S))
+    for j0 in range(0, T, 128):
+        m_new = torch.maximum(m, x[:, :, j0:j0 + 128].amax(-1))
+        l = l * torch.exp2(m - m_new) + torch.exp2(
+            x[:, :, j0:j0 + 128] - m_new[..., None]).sum(-1)
+        m = m_new
+    lse = m + torch.log2(torch.clamp(l, min=1e-30))
+    dd = (do.float() * o.float()).sum(-1)
+    p = torch.where(vis, torch.exp2(x - lse[..., None]), 0.0)
+    ds = p * (do.float() @ v.float().transpose(1, 2) - dd[..., None])
+
+    def product(a, b, name):
+        hi = a.to(torch.bfloat16).float()
+        out = hi @ b
+        if name in split:
+            out = out + (a - hi).to(torch.bfloat16).float() @ b
+        return out
+
+    dq, dk, dv = (torch.zeros((BH, L, hd)) for L in (S, T, T))
+    for i0 in range(0, S, 64):
+        rows = slice(i0, i0 + 64)
+        dv += product(p[:, rows].transpose(1, 2), do[:, rows].float(),
+                      "p_do")
+        dk += product(ds[:, rows].transpose(1, 2), q[:, rows].float(),
+                      "ds_q")
+    for j0 in range(0, T, 64):
+        keys = slice(j0, j0 + 64)
+        dq += product(ds[:, :, keys], k[:, keys].float(), "ds_k")
+    return tuple(g.to(torch.bfloat16) for g in (dq * scale, dk * scale, dv))
+
+
+def _bwd_emulation_case(B, S, T, H, hd, causal, window, q_offset):
+    """Seeded bf16 inputs folded to (BH, L, hd), the bf16 forward output
+    of the plain version, and the float32 plain gradient on them."""
+    rng = np.random.default_rng(S + T + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B * H, L, hd)).astype(np.float32)).to(torch.bfloat16)
+        for L in (S, T, T, S))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o = flash_mod.flash_attention_plain(
+        *(x.unsqueeze(1) for x in (q, k, v)), **kw)[:, 0]
+    want = flash_mod.flash_attention_bwd_plain(
+        *(x.float().unsqueeze(1) for x in (q, k, v, o, do)), **kw)
+    return (q, k, v, o, do), kw, [w[:, 0] for w in want]
+
+
+def _over_bf16_limit(got, want):
+    """Elements outside the card's bf16 limit, 2^-6 |want| + 1e-4."""
+    return int(((got.float() - want).abs() >
+                1e-4 + 2.0 ** -6 * want.abs()).sum())
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset", BWD_EMULATED)
+def test_bf16_gradient_with_split_products_stays_in_the_limit(
+        B, S, T, H, hd, causal, window, q_offset):
+    """The tensor-core gradient's arithmetic, each of P^T dO, dS^T Q and
+    dS K with its A operand split in two, puts no element of dq, dk or
+    dv outside the bf16 limit the card's checks hold the kernel to
+    (chip_smoke.py ``bf16_over``) around the float32 plain version."""
+    ins, kw, want = _bwd_emulation_case(B, S, T, H, hd, causal, window,
+                                        q_offset)
+    got = _emulate_bf16_kernel_bwd(*ins, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        assert _over_bf16_limit(g, w) == 0
+        assert (g.float() - w).abs().max() <= 2.0 ** -5
+
+
+@pytest.mark.parametrize("name,grad", [("p_do", 2), ("ds_q", 1),
+                                       ("ds_k", 0)])
+@pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset", BWD_EMULATED)
+def test_bf16_gradient_needs_each_product_split(
+        B, S, T, H, hd, causal, window, q_offset, name, grad):
+    """Why the kernel splits all three: with one product's A operand
+    rounded once to bf16 (the others split), the gradient it feeds (dv
+    for P^T dO, dk for dS^T Q, dq for dS K) has hundreds to thousands of
+    elements outside the bf16 limit (1.1-3.3% of them at these shapes),
+    while the other two gradients stay inside: no product may drop its
+    split. With all three split the largest error is ~0.24 of the limit
+    (the bf16 rounding of the gradients)."""
+    ins, kw, want = _bwd_emulation_case(B, S, T, H, hd, causal, window,
+                                        q_offset)
+    got = _emulate_bf16_kernel_bwd(
+        *ins, **kw, split=tuple(n for n in BWD_SPLIT if n != name))
+    over = [_over_bf16_limit(g, w) for g, w in zip(got, want)]
+    assert over[grad] > 0.005 * want[grad].numel()
+    assert [o for i, o in enumerate(over) if i != grad] == [0, 0]
+
+
+def test_flash_plain_lse_matches_logsumexp():
+    """``flash_attention_plain``'s log-sum-exp in base 2 (what the bf16
+    kernel stores for the gradient) against ``jax.nn.logsumexp`` of the
+    masked scaled scores times log2 e, across 512-row chunks, a window
+    and a query offset; the output with and without it is the same."""
+    B, H, S, hd, window, q_offset = 1, 2, 700, 16, 300, 40
+    T = S + q_offset
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.standard_normal((B, H, L, hd)).astype(np.float32)
+               for L in (S, T, T))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = flash_mod.flash_attention_plain(tq, tk, tv, return_lse=True,
+                                               **kw)
+    assert torch.equal(out, flash_mod.flash_attention_plain(tq, tk, tv,
+                                                            **kw))
+    pos = np.arange(S)[:, None] + q_offset
+    j = np.arange(T)[None, :]
+    vis = (pos >= j) & (pos - j < window)
+    s = jnp.einsum("bhsd,bhtd->bhst", q, k) / np.sqrt(hd)
+    want = jax.nn.logsumexp(jnp.where(vis, s, -jnp.inf), axis=-1) * np.log2(
+        np.e)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+def test_flash_wrappers_on_cpu_return_lse_and_take_it():
+    """On CPU tensors ``flash_attention(..., return_lse=True)`` is the
+    plain version's pair and launches nothing; ``flash_attention_bwd``
+    takes an lse and returns the plain gradient (which computes its
+    own), without a launch or a route."""
+    q, k, v, do = (torch.from_numpy(a).transpose(1, 2) for a in
+                   _flash_inputs(3, 1, 40, 40, 2, 16) + _flash_inputs(
+                       4, 1, 40, 40, 2, 16)[:1])
+    launches = flash_mod.flash_attention.launches
+    out, lse = flash_mod.flash_attention(q, k, v, return_lse=True)
+    want_out, want_lse = flash_mod.flash_attention_plain(q, k, v,
+                                                         return_lse=True)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    assert flash_mod.flash_attention.launches == launches
+    bwd = flash_mod.flash_attention_bwd
+    before, routes = bwd.launches, dict(bwd.routes)
+    got = bwd(q, k, v, out, do, lse=lse)
+    want = flash_mod.flash_attention_bwd_plain(q, k, v, out, do)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bwd.launches == before and bwd.routes == routes
+
+
+def test_every_signature_is_a_c_entry_of_its_source():
+    """Each launch function ``build.SIGNATURES`` declares is an ``extern
+    "C"`` entry of its library's source with as many parameters as
+    argtypes: the gradient has one entry a route
+    (``flash_attention_bwd_launch`` for the CUDA cores,
+    ``flash_attention_bwd_wgmma_launch`` for the tensor cores), so the
+    route the wrapper records is the entry it called."""
+    assert set(build.SIGNATURES["flash_attention_bwd"]) == {
+        "flash_attention_bwd_launch", "flash_attention_bwd_wgmma_launch"}
+    for name, fns in build.SIGNATURES.items():
+        src = (build.CSRC / f"{name}.cu").read_text()
+        for fn, argtypes in fns.items():
+            m = re.search(r'extern "C" int ' + fn + r'\(([^)]*)\)', src)
+            assert m is not None, fn
+            assert len(m.group(1).split(",")) == len(argtypes), fn
+
+
+def test_bwd_route_by_type_and_head_dim():
+    """The gradient's route is chosen by type and head dim alone."""
+    route = flash_mod.bwd_route
+    assert route(torch.bfloat16, 128) == "wgmma"
+    assert route(torch.bfloat16, 8) == "wgmma"
+    assert route(torch.bfloat16, 129) == "cuda_cores"
+    assert route(torch.bfloat16, 256) == "cuda_cores"
+    assert route(torch.float32, 64) == "cuda_cores"
+    assert [flash_mod.lse_rows(S) for S in (1, 128, 129, 4096)] == [
+        128, 128, 256, 4096]
+
+
+def test_check_lse_takes_the_forward_view_only():
+    """The tensor-core route reads the lse as whole aligned rows of
+    ``lse_rows(S)``: the forward's (B, H, S) view at the base of such a
+    buffer passes; another layout, an offset view, a wrong shape or type
+    raises before any launch."""
+    B, H, S = 2, 3, 130
+    rows = flash_mod.lse_rows(S)
+    buf = torch.randn((B, H, rows))
+    flash_mod._check_lse(buf[..., :S], B, H, S)
+    for bad in (torch.randn((B, H, S)), buf[:, :, 1:S + 1],
+                buf[..., :S].double(), buf[..., :S - 1]):
+        with pytest.raises(ValueError):
+            flash_mod._check_lse(bad, B, H, S)
+
+
+def test_tma_ready_pads_rows_tma_cannot_read():
+    """A gradient view TMA cannot read (here 14-byte rows of hd 7) is
+    copied into 16-byte rows and handed on as a view of the same
+    values; a view TMA reads goes through untouched."""
+    t = torch.randn((1, 2, 16, 7)).to(torch.bfloat16)
+    assert flash_mod.tma_alignment_error(t) == "sequence stride"
+    got = flash_mod._tma_ready(t)
+    assert flash_mod.tma_alignment_error(got) is None
+    assert got.shape == t.shape and torch.equal(got, t)
+    ok = torch.randn((1, 2, 16, 8)).to(torch.bfloat16)
+    assert flash_mod._tma_ready(ok) is ok
 
 
 def test_tma_alignment_error_names_what_the_bf16_route_cannot_take():

@@ -1,0 +1,182 @@
+"""Time the attention gradient kernel, and a long-sequence train step,
+against another checkout's on one GPU.
+
+    python3 tools/bench_flash_bwd.py [--parent DIR] [--train-seq N]
+                                     [--train-batch 1] [--steps 3]
+
+Each measurement runs in a child process that imports one checkout's
+``repro_torch`` (this one, or the one at DIR, for example a parent
+commit unpacked by ``git archive`` into the gitignored ``build/parent/``,
+whose kernels its own ``kernels/build.py`` builds) and prints one JSON
+line:
+- the gradient (``flash_attention_bwd``, one call: every kernel it
+  launches) at S = T = 4096, 32 heads of 128, bf16, causal, and at
+  qwen3-4b's training shape (batch 8 x 128), timed by CUDA events
+  (``chip_smoke.time_ms``), with the log-sum-exp of the forward passed
+  where the checkout's wrapper takes one (as training passes it); each
+  kernel's device time in one call under the profiler; a hash of the
+  forward's output on those inputs, the same in both checkouts when the
+  forward kernel's output is bit for bit unchanged; and the forward's
+  time a call, without the log-sum-exp store and, where the checkout
+  has it, with it;
+- with ``--train-seq N``: qwen3-4b at full width through
+  ``launch.train``'s code path at batch ``--train-batch`` x N for
+  ``--steps`` steps: the
+  median step time over steps 2.., tokens/s, peak memory, and the
+  gradient kernel's device time in one more step under the profiler
+  (``chip_smoke.profile_step``'s "attention gradient" group).
+The children run in turns, parent, this, this, parent: first the
+kernel ones, then the train ones. Prints the card's name and power
+limit first. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import inspect
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPES = [(1, 4096), (8, 128)]  # (batch, S = T); 32 heads of 128, causal
+
+
+def kernel_times(torch, cs, fa, dev) -> list:
+    """The gradient's time a call and its kernels' device times at each
+    of SHAPES."""
+    takes_lse = "lse" in inspect.signature(fa.flash_attention_bwd).parameters
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    out = []
+    for B, S in SHAPES:
+        q, k, v, do = cs.flash_bwd_inputs(torch, gen, B, S, S, cs.QWEN_H,
+                                          cs.QWEN_HD, "bfloat16", dev)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        if takes_lse:
+            o, lse = fa.flash_attention(qt, kt, vt, return_lse=True)
+            kw = {"lse": lse}
+        else:
+            o, kw = fa.flash_attention(qt, kt, vt), {}
+
+        def call():
+            return fa.flash_attention_bwd(qt, kt, vt, o, dot, **kw)
+        slow = S >= 4096 and not takes_lse
+        ms = cs.time_ms(torch, call, reps=2 if slow else 20,
+                        windows=3 if slow else 5)
+        kernels, _, _ = cs.profiled_kernels(torch, call)
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+        digest = hashlib.sha256(o.contiguous().view(torch.int16).cpu()
+                                .numpy().tobytes()).hexdigest()[:16]
+        fwd = {"fwd_ms": cs.time_ms(torch, lambda: fa.flash_attention(
+            qt, kt, vt), reps=20, windows=5)}
+        if takes_lse:
+            fwd["fwd_lse_ms"] = cs.time_ms(torch, lambda: fa.flash_attention(
+                qt, kt, vt, return_lse=True), reps=20, windows=5)
+        out.append({"batch": B, "S": S, "ms": ms, "forward_sha256": digest,
+                    **fwd,
+                    "kernels_ms": {n[:90]: t for n, t in by_name.items()}})
+    return out
+
+
+def train_long(torch, cs, fa, dev, batch: int, seq: int,
+               steps: int) -> dict:
+    """qwen3-4b at full width, ``batch`` x ``seq``, through launch.train's
+    code path; then one profiled step."""
+    from repro_torch.launch import train as launch_train
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention_bwd.launches = 0
+    argv = ["--arch", "qwen3_4b", "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--device", "cuda"]
+    state, step_fn, pipe, hist = cs.train_run(torch, launch_train, dev, argv,
+                                              steps)
+    times = [m["step_time_s"] for m in hist]
+    med = statistics.median(times[1:])
+    launches = fa.flash_attention_bwd.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    prof = cs.profile_step(torch, step_fn, state, pipe,
+                           f"batch {batch} x {seq}")
+    return {"batch": batch, "seq": seq, "step_times_s": times,
+            "median_step_s": med, "tokens_per_s": batch * seq / med,
+            "losses": [m["loss"] for m in hist], "peak_gib": peak,
+            "bwd_launches": launches, "idle_share": prof["idle"],
+            "grad_kernel_ms": prof["groups"].get("attention gradient", 0.0)}
+
+
+def child(args) -> int:
+    src = os.path.join(os.path.abspath(args.checkout), "src")
+    sys.path.insert(0, src)
+    sys.path.insert(0, ROOT)
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda:0")
+    torch.cuda.init()
+    res = {"checkout": args.checkout}
+    if args.train_seq:
+        res["train"] = train_long(torch, cs, fa, dev, args.train_batch,
+                                  args.train_seq, args.steps)
+    else:
+        res["kernel"] = kernel_times(torch, cs, fa, dev)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def run_child(checkout: str, extra: list) -> dict:
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", "--checkout",
+           checkout, *extra]
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in done.stdout.splitlines() if ln.startswith("{")]
+    if done.returncode != 0 or not lines:
+        raise RuntimeError(f"{checkout}: exit {done.returncode}\n"
+                           f"{done.stderr[-3000:]}")
+    print(lines[-1], flush=True)
+    return json.loads(lines[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="checkout root of the other kernel")
+    ap.add_argument("--train-seq", type=int, default=0)
+    ap.add_argument("--train-batch", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--checkout", default=ROOT, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        return child(args)
+    sys.path.insert(0, ROOT)
+    import torch
+    import chip_smoke as cs
+    if not torch.cuda.is_available():
+        print("bench_flash_bwd: no CUDA device", file=sys.stderr)
+        return 1
+    print(cs.card_line(), flush=True)
+    this = ROOT
+    order = [args.parent, this, this, args.parent] if args.parent \
+        else [this, this]
+    shas = {}
+    for checkout in order:
+        res = run_child(os.path.abspath(checkout), [])
+        shas.setdefault(json.dumps([r["forward_sha256"]
+                                    for r in res["kernel"]]), []).append(
+            checkout)
+    # the same seeded inputs in every child: one hash set means the
+    # forward's output is bit for bit the same in both checkouts
+    print(json.dumps({"forward_outputs_bitwise_equal": len(shas) == 1,
+                      "forward_sha256": shas}), flush=True)
+    if args.train_seq:
+        for checkout in order:
+            run_child(os.path.abspath(checkout),
+                      ["--train-seq", str(args.train_seq), "--train-batch",
+                       str(args.train_batch), "--steps", str(args.steps)])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
