@@ -18,7 +18,10 @@ co-design example
 registry budget, then the full-width qwen3-4b QKV projection through
 the winning crossbar geometry (the ``imc_matmul`` kernel); and the LM
 serving engine ``repro_torch.serve.ServeEngine`` on qwen3-4b at full
-width (the ``flash_attention`` kernel in every prefill). Phases:
+width (the ``flash_attention`` kernel in every prefill, the
+``decode_attention`` kernel in every decode step, on the bf16 and the
+int8 cache) and on recurrentgemma-9b (the ``rglru_scan`` kernel in its
+recurrent layers). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together), with
@@ -84,8 +87,11 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
      served by ``ServeEngine(n_slots=4, max_len=4352)``: 8 requests with
      prompt lengths drawn in 256..4096 by ``numpy.random.default_rng(0)``,
      16 new tokens each; every request must finish with 16 in-vocabulary
-     tokens and the flash kernel must launch 36 x 8 = 288 times; wall,
-     prefill and decode tokens/s, peak memory; then the kernel vs the
+     tokens, the flash kernel must launch 36 x 8 = 288 times and the
+     decode kernel (``csrc/decode_attention.cu``) 36 times a decode step
+     on its bf16 route; wall, prefill and decode tokens/s, peak memory;
+     then the same 8 requests on the int8 cache (``kv_quant=True``, the
+     same weights), the decode kernel on its int8 route; then the kernel vs the
      plain version at each of the 8 ragged prompt lengths (the shapes
      the prefills gave it, limits as in phase 11), timed alone there for
      its share of the prefill time;
@@ -189,7 +195,28 @@ width (the ``flash_attention`` kernel in every prefill). Phases:
      x seq 4096 (3 steps; 2048 if 4096 does not fit), with the gradient
      kernel's device time in its profiled step; then at ``--reduced``
      size 4 steps straight against 2 steps, a checkpoint, a fresh state
-     and 2 resumed steps: params, m and v bitwise equal.
+     and 2 resumed steps: params, m and v bitwise equal;
+ 25. the decode kernel vs ``decode_attention_plain`` at qwen3-4b's
+     serving shape (4 slots of 4352, 8 KV heads of 4 query heads, hd
+     128) on the bf16 and the int8 cache, recurrentgemma-9b's wrapped
+     2048-slot local ring (1 KV head of 16, hd 256) in bf16 and a reduced
+     float32 shape, with ragged, empty and late slots: bf16 every element
+     within two bf16 steps plus 1e-4, float32 within 1e-5 x max|out|,
+     the route asserted, two launches bitwise; device time from a CUDA
+     graph beside the bound (the visible slots' K and V), the plain
+     version and, for bf16, SDPA with ``enable_gqa`` (a yardstick);
+ 26. the RG-LRU scan kernel (``csrc/rglru_scan.cu``) vs
+     ``rglru_scan_plain`` at (1, 4096, 4096) in bf16 and float32 and at
+     (2, 37, 4096) (bf16 two bf16 steps, float32 1e-5 x max|h|), two
+     launches bitwise, timed beside its bound and the plain loop;
+ 27. recurrentgemma-9b at its published width (38 layers: 26 RG-LRU, 12
+     local attention with a 2048 window; bf16, seeded random weights)
+     served as in phase 12 (8 requests of 256..4096 tokens, 16 new each,
+     4 slots): flash 12 x 8, scan 26 x 8 and decode 12 launches a step;
+     wall, prefill and decode tokens/s, peak memory; then a 3-layer
+     [R, R, A] cut at full width in float32: a 512-token prefill and 2
+     decode steps on the card (the three kernels) and on the CPU (their
+     plain versions), logits within 1e-3 x max|logits|.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -1750,15 +1777,87 @@ def phase_flash(torch, fa, dev) -> dict:
 
 
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 4352
+# decode tok/s of phase 12 before the decode kernel, when each step copied
+# the whole cache to float32 (PERF.md)
+DECODE_BEFORE = "41.7-93.8"
+
+
+def serve_requests(cfg, seed=0):
+    """``SERVE_REQUESTS`` prompts of 256..4096 tokens drawn by
+    ``numpy.random.default_rng(seed)``: (lengths, prompts)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(256, 4097, SERVE_REQUESTS)
+    return lens, [rng.integers(0, cfg.vocab_size, n) for n in lens]
+
+
+def serve_run(torch, eng, prompts, counters, dev) -> dict:
+    """A warm-up request (cuBLAS handles, the kernel libraries), then the
+    prompts through ``eng`` with every counter in ``counters`` (objects
+    with a ``launches`` attribute, and ``routes`` where they have one)
+    set to 0 just before and read just after. Returns the outputs, the
+    launches and routes, wall, stats and peak memory."""
+    from repro_torch.serve import LMRequest
+    eng.submit(LMRequest(rid=-1, prompt=prompts[0][:256],
+                         max_new_tokens=2))
+    eng.run()
+    eng.done.clear()
+    eng.stats = dict.fromkeys(eng.stats, 0)
+    for i, p in enumerate(prompts):
+        eng.submit(LMRequest(rid=i, prompt=p, max_new_tokens=SERVE_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "routes"):
+            c.routes = dict.fromkeys(c.routes, 0)
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"outs": [done[i].output for i in sorted(done)],
+            "rids": sorted(done), "wall": wall, "stats": dict(eng.stats),
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": [c.launches for c in counters],
+            "routes": [dict(getattr(c, "routes", {})) for c in counters]}
+
+
+def serve_checked(cfg, run, want_launches, label) -> None:
+    """Every request done with ``SERVE_NEW`` in-vocabulary tokens and the
+    launches ``want_launches`` (a list beside ``run['launches']``)."""
+    outs = run["outs"]
+    bad = [t for o in outs for t in o if not 0 <= t < cfg.vocab_size]
+    if run["rids"] != list(range(SERVE_REQUESTS)) or \
+            any(len(o) != SERVE_NEW for o in outs) or bad or \
+            run["launches"] != want_launches:
+        raise RuntimeError(f"serve {label}: done {run['rids']}, lengths "
+                           f"{[len(o) for o in outs]}, bad tokens {bad[:5]},"
+                           f" launches {run['launches']} (want "
+                           f"{want_launches}), routes {run['routes']}")
+
+
+def serve_line(label, run, extra="") -> str:
+    st = run["stats"]
+    return (f"serve {label}: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens "
+            f"in {run['wall']:.3f} s wall; prefill {st['prefill_tokens']} "
+            f"tokens in {st['prefill_s']:.3f} s "
+            f"({st['prefill_tokens'] / st['prefill_s']:.1f} tok/s); decode "
+            f"{st['decode_tokens']} tokens in {st['decode_s']:.3f} s over "
+            f"{st['decode_steps']} steps "
+            f"({st['decode_tokens'] / st['decode_s']:.1f} tok/s); peak "
+            f"memory {run['peak'] / 2**30:.2f} GiB{extra}")
 
 
 def phase_serve(torch, fa, dev) -> dict:
-    """Phase 12: qwen3-4b at full width through ServeEngine."""
-    import numpy as np
+    """Phase 12: qwen3-4b at full width through ServeEngine, the bf16
+    cache, then the int8 cache (``kv_quant``) on the same weights and
+    requests; the decode kernel on its route 36 times a decode step."""
+    import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels.ops import flash_mha
     from repro_torch.models import init_params
-    from repro_torch.serve import LMRequest, ServeEngine
+    from repro_torch.serve import ServeEngine
     cfg = get_config("qwen3_4b")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1768,46 +1867,39 @@ def phase_serve(torch, fa, dev) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"qwen3_4b init on the card: {n_params / 1e9:.3f} B parameters, "
         f"{cfg.dtype}, {time.perf_counter() - t0:.2f} s")
-    eng = ServeEngine(model, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-                      device=dev)
-    # warm-up: cuBLAS handles and the kernel library load, outside the run
-    eng.submit(LMRequest(rid=-1, prompt=np.arange(256) % cfg.vocab_size,
-                         max_new_tokens=2))
-    eng.run()
-    eng.done.clear()
-    eng.stats = dict.fromkeys(eng.stats, 0)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(256, 4097, SERVE_REQUESTS)
-    for i, n in enumerate(lens):
-        eng.submit(LMRequest(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
-                             max_new_tokens=SERVE_NEW))
-    torch.cuda.reset_peak_memory_stats(dev)
-    fa.flash_attention.launches = 0
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fa.flash_attention.launches
-    peak = torch.cuda.max_memory_allocated(dev)
-    outs = [done[i].output for i in sorted(done)]
-    bad = [t for o in outs for t in o if not 0 <= t < cfg.vocab_size]
-    if sorted(done) != list(range(SERVE_REQUESTS)) or \
-            any(len(o) != SERVE_NEW for o in outs) or bad or \
-            launches != cfg.n_layers * SERVE_REQUESTS:
-        raise RuntimeError(f"serve: done {sorted(done)}, lengths "
-                           f"{[len(o) for o in outs]}, bad tokens {bad[:5]},"
-                           f" flash launches {launches} (want "
-                           f"{cfg.n_layers * SERVE_REQUESTS})")
-    st = eng.stats
-    log(f"serve qwen3_4b: prompt lengths {[int(n) for n in lens]}")
-    log(f"serve qwen3_4b: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens "
-        f"in {wall:.3f} s wall; prefill {st['prefill_tokens']} tokens in "
-        f"{st['prefill_s']:.3f} s ({st['prefill_tokens'] / st['prefill_s']:.1f}"
-        f" tok/s); decode {st['decode_tokens']} tokens in "
-        f"{st['decode_s']:.3f} s over {st['decode_steps']} steps "
-        f"({st['decode_tokens'] / st['decode_s']:.1f} tok/s); peak memory "
-        f"{peak / 2**30:.2f} GiB; flash launches {launches}")
-    log(f"serve qwen3_4b: first tokens {[o[:4] for o in outs]}")
+    lens, prompts = serve_requests(cfg)
+    counters = (fa.flash_attention, dk.decode_attention_kernel)
+    runs = {}
+    for label, c in (("bf16 cache", cfg),
+                     ("int8 cache", dataclasses.replace(cfg, kv_quant=True))):
+        eng = ServeEngine(model, c, n_slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN, device=dev)
+        run = serve_run(torch, eng, prompts, counters, dev)
+        del eng
+        steps = run["stats"]["decode_steps"]
+        route = "int8" if c.kv_quant else "bfloat16"
+        serve_checked(cfg, run, [cfg.n_layers * SERVE_REQUESTS,
+                                 cfg.n_layers * steps], f"qwen3_4b {label}")
+        if run["routes"][1][route] != cfg.n_layers * steps:
+            raise RuntimeError(f"serve qwen3_4b {label}: decode kernel "
+                               f"routes {run['routes'][1]}, want "
+                               f"{cfg.n_layers * steps} on {route}")
+        runs[label] = run
+        if label == "bf16 cache":
+            log(f"serve qwen3_4b: prompt lengths {[int(n) for n in lens]}")
+        log(serve_line(f"qwen3_4b {label}", run,
+                       f"; flash launches {run['launches'][0]}, decode "
+                       f"kernel launches {run['launches'][1]} "
+                       f"({cfg.n_layers} a step, route {route}); decode "
+                       f"tok/s before the decode kernel (a float32 copy "
+                       f"of the cache every step): {DECODE_BEFORE}"))
+        log(f"serve qwen3_4b {label}: first tokens "
+            f"{[o[:4] for o in run['outs']]}")
+    same = sum(a == b for a, b in zip(runs["bf16 cache"]["outs"],
+                                      runs["int8 cache"]["outs"]))
+    log(f"serve qwen3_4b: {same} of {SERVE_REQUESTS} requests give the same "
+        f"16 tokens on the int8 cache as on the bf16 cache (random "
+        f"weights; not a check)")
     # the kernel at each prompt length the prefills gave it: checked
     # against the plain version, then timed alone, once per layer
     kgen = torch.Generator(device=dev)
@@ -1820,13 +1912,16 @@ def phase_serve(torch, fa, dev) -> dict:
             q, k, v, True, 0, "bfloat16")[0])
         kernel_s += cfg.n_layers * time_ms(
             torch, lambda: flash_mha(q, k, v), reps=2, windows=3) / 1e3
+    st = runs["bf16 cache"]["stats"]
     log(f"serve qwen3_4b: flash kernel vs plain at these prompt lengths: "
         f"max_abs_err {[f'{e:.3g}' for e in errs]}, none over the bf16 "
         f"limit")
     log(f"serve qwen3_4b: flash kernel time at these prompts {kernel_s:.3f} s"
         f" = {100 * kernel_s / st['prefill_s']:.1f}% of the prefill time, "
-        f"{100 * kernel_s / wall:.1f}% of the wall")
-    return {"launches": launches, "wall": wall, "max_abs_err": max(errs)}
+        f"{100 * kernel_s / runs['bf16 cache']['wall']:.1f}% of the wall")
+    return {"launches": runs["bf16 cache"]["launches"][0],
+            "decode_launches": sum(r["launches"][1] for r in runs.values()),
+            "wall": runs["bf16 cache"]["wall"], "max_abs_err": max(errs)}
 
 
 def phase_logits(torch, fa, dev) -> None:
@@ -2228,6 +2323,306 @@ def phase_train(torch, fa, dev) -> dict:
             "idle": prof["idle"], "long": long}
 
 
+# phase 25: the decode kernel's shapes (name, B, T, KV, G, hd, cache type,
+# window, rows): qwen3-4b serving (4 slots of 4352, 8 KV heads of 4 query
+# heads, hd 128) on the bf16 and the int8 cache, recurrentgemma-9b's local
+# ring (4 slots of 2048, 1 KV head of 16, hd 256, window 2048) in bf16, and
+# a reduced float32 shape. Rows: "fill" fills a ragged prefix (the rest
+# empty), "ring" a wrapped ring buffer, "late" a prefix whose last slots lie
+# past the query.
+DECODE_TESTS = [
+    ("qwen3-4b bf16", 4, 4352, 8, 4, 128, "bfloat16", 0,
+     ("fill", "fill", "fill", "late")),
+    ("qwen3-4b int8", 4, 4352, 8, 4, 128, "int8", 0,
+     ("fill", "fill", "fill", "late")),
+    ("recurrentgemma-9b ring bf16", 4, 2048, 1, 16, 256, "bfloat16", 2048,
+     ("ring", "ring", "fill", "late")),
+    ("reduced float32", 3, 40, 2, 2, 16, "float32", 6,
+     ("fill", "ring", "late")),
+]
+# float32: within this share of max|out| of the plain version (sums in
+# another order, expf against torch.exp)
+DECODE_F32_REL = 1e-5
+
+
+def decode_inputs(torch, gen, B, T, KV, G, hd, cache, window, rows, dev):
+    """q, the cache (k, v and, int8, their scales through the model's
+    quantiser) and the slot and query positions of ``rows``."""
+    from repro_torch.models.transformer import _kv_quantize
+    qdt = torch.float32 if cache == "float32" else torch.bfloat16
+    q = torch.randn((B, 1, KV * G, hd), generator=gen, device=dev).to(qdt)
+    k, v = (torch.randn((B, T, KV, hd), generator=gen, device=dev)
+            for _ in range(2))
+    ks = vs = None
+    if cache == "int8":
+        (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+    else:
+        k, v = k.to(qdt), v.to(qdt)
+    pos = torch.full((B, T), -1, dtype=torch.long, device=dev)
+    q_pos = torch.zeros((B,), dtype=torch.long, device=dev)
+    lens = torch.randint(T // 4, T + 1, (B,), generator=gen, device=dev)
+    for b, kind in enumerate(rows):
+        n = int(lens[b])
+        if kind == "ring":
+            q_pos[b] = T + n
+            p = torch.arange(q_pos[b] - T + 1, q_pos[b] + 1, device=dev)
+            pos[b, p % T] = p
+        else:
+            pos[b, :n] = torch.arange(n, device=dev)
+            q_pos[b] = n - 1 - (min(3, n - 1) if kind == "late" else 0)
+    return q, k, v, ks, vs, pos, q_pos
+
+
+def decode_bound_ms(q, k, ks, pos, q_pos, window) -> dict:
+    """Least time for the decode step on an H100 SXM: q read and the
+    output written once, every slot's position read, and K and V (with
+    their scales) of the visible slots only (the kernel loads no other:
+    this input's need), against 4 FLOP per visible slot, query head and
+    head dim at the float32 rate."""
+    from repro_torch.kernels.decode_attention import visible_slots
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    vis = int(visible_slots(pos, q_pos, window).sum())
+    nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 8
+              + q_pos.numel() * 8
+              + vis * KV * (2 * hd * k.element_size()
+                            + (8 if ks is not None else 0)))
+    flops = 4 * vis * H * hd
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "visible": vis}
+
+
+def phase_decode(torch, dev) -> dict:
+    """Phase 25: the decode kernel vs ``decode_attention_plain`` at each
+    DECODE_TESTS shape, the route asserted, two launches bitwise equal;
+    device time from a CUDA graph beside the bound, the plain version
+    and, for bf16, SDPA with ``enable_gqa`` (a yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    kern = dk.decode_attention_kernel
+    timed, worst = {}, 0.0
+    for name, B, T, KV, G, hd, cache, win, rows in DECODE_TESTS:
+        q, k, v, ks, vs, pos, q_pos = decode_inputs(
+            torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
+        L = dk.split_len(B, KV, G, T)
+        before = dict(kern.routes)
+        got = kern(q, k, v, pos, q_pos, win, ks, vs)
+        again = kern(q, k, v, pos, q_pos, win, ks, vs)
+        want = dk.decode_attention_plain(q, k, v, pos, q_pos, win, ks, vs)
+        torch.cuda.synchronize()
+        routed = kern.routes[cache] - before[cache]
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        over = (bf16_over(torch, got, want) if q.dtype == torch.bfloat16
+                else int(err > DECODE_F32_REL * scale))
+        bitwise = torch.equal(got, again)
+        if not (got.shape == q.shape and got.dtype == q.dtype and
+                math.isfinite(err) and over == 0 and bitwise and
+                routed == 2):
+            raise RuntimeError(f"decode_attention {name}: max abs err {err}"
+                               f" (max|out| {scale}), {over} over the limit,"
+                               f" bitwise {bitwise}, {routed} launches on "
+                               f"route {cache} (want 2)")
+        worst = max(worst, err)
+        ms = graph_ms(torch, lambda: kern(q, k, v, pos, q_pos, win, ks, vs))
+        call_ms = time_ms(torch, lambda: kern(q, k, v, pos, q_pos, win, ks,
+                                               vs), reps=20)
+        plain_ms = time_ms(torch, lambda: dk.decode_attention_plain(
+            q, k, v, pos, q_pos, win, ks, vs), reps=3, windows=3)
+        lib_ms = None
+        if cache == "bfloat16":
+            mask = dk.visible_slots(pos, q_pos, win)[:, None, None, :]
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
+        bound = decode_bound_ms(q, k, ks, pos, q_pos, win)
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "call_ms": call_ms, **bound}
+        limit = ("2 bf16 steps + 1e-4" if q.dtype == torch.bfloat16 else
+                 f"{DECODE_F32_REL:g} x max|out|")
+        log(f"decode_attention {name} (B={B} T={T} KV={KV} G={G} hd={hd} "
+            f"window={win}, {bound['visible']} of {B * T} slots visible, "
+            f"{-(-T // L)} splits of {L}): route {cache}, max_abs_err "
+            f"{err:.3g} (max|out| "
+            f"{scale:.3g}, limit {limit}), two launches bitwise; kernel "
+            f"{ms:.4f} ms a launch on the device (CUDA graph), {call_ms:.4f}"
+            f" ms a call; plain {plain_ms:.4f} ms; sdpa(enable_gqa) "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+            f"{bound['bytes'] / 1e6:.2f} MB)")
+    return {"max_abs_err": worst, "timed": timed}
+
+
+# phase 26: the scan kernel's shapes (B, S, W, dtype): a 4096-token
+# recurrentgemma-9b prefill (rnn width 4096) in bf16 and float32, and a
+# ragged one
+SCAN_TESTS = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32"),
+              (2, 37, 4096, "bfloat16")]
+# float32 h within this share of max|h| of the plain version (expf,
+# log1pf and the division against torch's; the recurrence damps them)
+SCAN_F32_REL = 1e-5
+# float32 operations an element: the two gate pre-activations (4), the two
+# sigmoids (exp, add, divide: 6), log a, a, 2 log a, its exp, 1 - it, the
+# floor, the root, i x, b (9), a h + b (2)
+SCAN_OPS = 21
+
+
+def scan_inputs(torch, gen, B, S, W, dt, dev):
+    """x as a bf16 model's post-conv activations, and the five lru leaves
+    drawn around the reference's init values."""
+    x = (torch.randn((B, S, W), generator=gen, device=dev) * 2).to(dt)
+    u = [torch.rand((W,), generator=gen, device=dev) for _ in range(5)]
+    p = (u[0] * 28.0 - 3.0, u[1] + 0.5, u[2] - 0.5, u[3] + 0.5, u[4] - 0.5)
+    return x, p
+
+
+def phase_scan(torch, dev) -> dict:
+    """Phase 26: the RG-LRU scan kernel vs ``rglru_scan_plain`` at
+    SCAN_TESTS (bf16: every element within two bf16 steps + 1e-4;
+    float32: 1e-5 x max|h|), two launches bitwise, timed beside its
+    bound and the plain loop."""
+    from repro_torch.kernels import rglru_scan as rs
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    timed, worst = {}, 0.0
+    with torch.no_grad():
+        for B, S, W, dt in SCAN_TESTS:
+            x, p = scan_inputs(torch, gen, B, S, W, getattr(torch, dt), dev)
+            before = rs.rglru_scan.launches
+            got, again = rs.rglru_scan(x, *p), rs.rglru_scan(x, *p)
+            want = rs.rglru_scan_plain(x, *p)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            over = (bf16_over(torch, got, want) if dt == "bfloat16"
+                    else int(err > SCAN_F32_REL * scale))
+            bitwise = torch.equal(got, again)
+            if not (got.shape == x.shape and got.dtype == x.dtype and
+                    math.isfinite(err) and over == 0 and bitwise and
+                    rs.rglru_scan.launches == before + 2):
+                raise RuntimeError(f"rglru_scan ({B}, {S}, {W}) {dt}: max "
+                                   f"abs err {err} (max|h| {scale}), {over} "
+                                   f"over the limit, bitwise {bitwise}")
+            worst = max(worst, err)
+            ms = graph_ms(torch, lambda: rs.rglru_scan(x, *p), launches=5)
+            plain_ms = time_ms(torch, lambda: rs.rglru_scan_plain(x, *p),
+                               reps=1, windows=3)
+            nbytes = 2 * x.numel() * x.element_size() + 5 * W * 4
+            t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+            t_ops = SCAN_OPS * x.numel() / RATE_FP32 * 1e3
+            bound = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+            timed[(B, S, W, dt)] = {"ms": ms, "plain_ms": plain_ms, **bound}
+            log(f"rglru_scan ({B}, {S}, {W}) {dt}: max_abs_err {err:.3g} "
+                f"(max|h| {scale:.3g}), two launches bitwise; kernel "
+                f"{ms:.4f} ms a launch on the device (CUDA graph), plain "
+                f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}: {nbytes / 1e6:.2f} MB, "
+                f"{SCAN_OPS * x.numel() / 1e9:.3f} G float32 ops)")
+    return {"max_abs_err": worst, "timed": timed}
+
+
+def phase_recurrentgemma(torch, fa, dev) -> dict:
+    """Phase 27: recurrentgemma-9b at its published width (38 layers,
+    bf16, seeded random weights) through ServeEngine, phase 12's request
+    shape: 8 prompts of 256..4096 tokens (those above 2048 wrap the local
+    ring), 16 new each, 4 slots; flash 12 x 8, scan 26 x 8 and decode 12
+    a step; then a 3-layer [R, R, A] cut at full width in float32: the
+    card's prefill and decode logits against the CPU's."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("recurrentgemma_9b")
+    n_attn = cfg.layout().count("local_attn")
+    n_rec = cfg.layout().count("rglru")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"recurrentgemma_9b init on the card: {n_params / 1e9:.3f} B "
+        f"parameters, {cfg.dtype} ({n_rec} rglru + {n_attn} local_attn "
+        f"layers, window {cfg.local_window}), "
+        f"{time.perf_counter() - t0:.2f} s")
+    lens, prompts = serve_requests(cfg)
+    eng = ServeEngine(model, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      device=dev)
+    counters = (fa.flash_attention, rs.rglru_scan, dk.decode_attention_kernel)
+    run = serve_run(torch, eng, prompts, counters, dev)
+    del eng, model
+    steps = run["stats"]["decode_steps"]
+    serve_checked(cfg, run, [n_attn * SERVE_REQUESTS, n_rec * SERVE_REQUESTS,
+                             n_attn * steps], "recurrentgemma_9b")
+    if run["routes"][2]["bfloat16"] != n_attn * steps:
+        raise RuntimeError(f"serve recurrentgemma_9b: decode kernel routes "
+                           f"{run['routes'][2]}, want {n_attn * steps} on "
+                           f"bfloat16")
+    log(f"serve recurrentgemma_9b: prompt lengths {[int(n) for n in lens]}")
+    log(serve_line("recurrentgemma_9b", run,
+                   f"; flash launches {run['launches'][0]}, scan launches "
+                   f"{run['launches'][1]}, decode kernel launches "
+                   f"{run['launches'][2]} ({n_attn} a step, route "
+                   f"bfloat16)"))
+    log(f"serve recurrentgemma_9b: first tokens "
+        f"{[o[:4] for o in run['outs']]}")
+    torch.cuda.empty_cache()
+    # the card against the CPU at full width, 3 layers, float32
+    cut = dataclasses.replace(cfg, n_layers=3, dtype="float32")
+    gen.manual_seed(1)
+    card = init_params(gen, cut)
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(27)
+    S, n_dec = 512, 2
+    toks = torch.as_tensor(rng.integers(0, cut.vocab_size, (1, S + n_dec)))
+    errs, scale = [], 0.0
+    before = [c.launches for c in counters]
+    with torch.inference_mode():
+        outs = []
+        for m, d in ((cpu, "cpu"), (card, dev)):
+            t = toks.to(d)
+            last, cache = prefill(m, cut, {"tokens": t[:, :S]},
+                                  cache_len=S + n_dec)
+            logits = [last.float().cpu()]
+            for i in range(n_dec):
+                lg, cache = decode_step(m, cut, t[:, S + i:S + i + 1], cache,
+                                        torch.full((1,), S + i, device=d))
+                logits.append(lg.float().cpu())
+            outs.append(logits)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    for c_lg, g_lg in zip(*outs):
+        errs.append(float((g_lg - c_lg).abs().max()))
+        scale = max(scale, float(c_lg.abs().max()))
+    if launches != [1, 2, n_dec] or not all(math.isfinite(e) for e in errs) \
+            or max(errs) > 1e-3 * scale:
+        raise RuntimeError(f"recurrentgemma_9b 3-layer cut: card vs CPU max "
+                           f"abs errs {errs} vs max|logits| {scale}, "
+                           f"launches {launches} (flash, scan, decode; want "
+                           f"[1, 2, {n_dec}])")
+    log(f"recurrentgemma_9b widths, 3 layers [R, R, A], float32, "
+        f"{S}-token prefill + {n_dec} decode steps: card (flash, scan and "
+        f"decode kernels: {launches} launches) vs CPU (plain versions) "
+        f"logits max abs err {[f'{e:.3g}' for e in errs]}, max|logits| "
+        f"{scale:.4g} (limit 1e-3 x max)")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"flash": run["launches"][0], "scan": run["launches"][1],
+            "decode": run["launches"][2], "wall": run["wall"]}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -2311,6 +2706,9 @@ def main(argv=None) -> int:
     launchers = phase_launchers(torch, fused, dev, res)              # 22
     main_b = phase_flash_bwd(torch, fa, dev)                         # 23
     trained = phase_train(torch, fa, dev)                            # 24
+    main_d = phase_decode(torch, dev)                                # 25
+    main_s = phase_scan(torch, dev)                                  # 26
+    rg = phase_recurrentgemma(torch, fa, dev)                        # 27
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -2368,8 +2766,29 @@ def main(argv=None) -> int:
                  "bound_ms": main_b["bound_ms"],
                  "bound_by": main_b["bound_by"],
                  "library_ms": main_b["library_ms"]}
+    dec = main_d["timed"]["qwen3-4b bf16"]
+    decode_entry = {"name": "decode_attention", "route": "cuda",
+                    "source": "src/repro_torch/csrc/decode_attention.cu",
+                    "replaces": "src/repro/models/attention.py:96 (plain "
+                                "einsum decode; the JAX package has no "
+                                "Pallas kernel there)",
+                    "launches": served["decode_launches"] + rg["decode"],
+                    "max_abs_err": main_d["max_abs_err"], "ms": dec["ms"],
+                    "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+                    "bound_by": dec["bound_by"],
+                    "library_ms": dec["library_ms"]}
+    scan = main_s["timed"][SCAN_TESTS[0]]
+    scan_entry = {"name": "rglru_scan", "route": "cuda",
+                  "source": "src/repro_torch/csrc/rglru_scan.cu",
+                  "replaces": "src/repro/models/recurrent.py:73 "
+                              "(lax.associative_scan; the JAX package has "
+                              "no Pallas kernel there)",
+                  "launches": rg["scan"],
+                  "max_abs_err": main_s["max_abs_err"], "ms": scan["ms"],
+                  "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+                  "bound_by": scan["bound_by"], "library_ms": None}
     log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
-                                bwd_entry]}))
+                                bwd_entry, decode_entry, scan_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -113,9 +113,13 @@ def from_reference_lm_params(params, cfg: ArchConfig, device="cuda") -> LM:
     ``final_ln``, ``unembed``, ``period/pos{i}`` with a leading depth
     axis, ``rem``), -> the port's ``LM`` with the same values in the
     config's type. Layer ``n * len(pattern) + i`` of the port is entry
-    ``n`` of ``period/pos{i}``; the ``rem`` blocks follow. The module is
-    built by a throwaway seeded init on the CPU, then overwritten, so
-    every reference leaf must have a port counterpart and vice versa."""
+    ``n`` of ``period/pos{i}``; the ``rem`` blocks follow. A nested
+    leaf (an ``rglru`` block's ``lru`` dict) takes its dotted name
+    (``lru.a_param``), and each leaf keeps the type of its port
+    parameter (``conv`` and ``lru`` stay float32 in a bfloat16 model).
+    The module is built by a throwaway seeded init on the CPU, then
+    overwritten, so every reference leaf must have a port counterpart
+    and vice versa."""
     pattern, n_full, rem = cfg.schedule()
     leaves = {k: params[k] for k in ("embed", "final_ln", "unembed")}
     for layer in range(len(cfg.layout())):

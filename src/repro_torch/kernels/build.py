@@ -77,6 +77,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_bwd_wgmma_launch": (*(_P,) * 10, _I, _I, _I, _I, _I,
                                              _P, _I, _I, _I, _F, _P),
     },
+    "decode_attention": {
+        # q, k, v, k_scale, v_scale, pos, qpos, out, scores, stats, part,
+        # B, T, KV, G, hd, window, L, sqrt_hd, is_bf16, cache_type, stream
+        "decode_attention_launch": (*(_P,) * 11, *(_I,) * 7, _F, _I, _I,
+                                    _P),
+    },
+    "rglru_scan": {
+        # x, a_param, alpha_i, beta_i, alpha_r, beta_r, h, B, S, W,
+        # is_bf16, stream
+        "rglru_scan_launch": (*(_P,) * 7, _I, _I, _I, _I, _P),
+    },
 }
 
 # a source's own headers: `#include "<name>.cuh"` lines, resolved in csrc/

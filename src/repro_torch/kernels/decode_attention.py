@@ -1,0 +1,236 @@
+"""GQA decode attention against the KV cache; the port's kernel for the
+reference's single-query step ``repro/models/attention.py:96``
+(``decode_attention``, plain einsums: the JAX package has no Pallas
+kernel there).
+
+q (B, 1, H, hd) against the caches k, v (B, T, KV, hd) with slot
+positions ``kv_positions`` (B, T) (negative = empty) and the query's
+position ``q_position`` (B,). H = KV * G: query heads kv*G .. kv*G +
+G - 1 read KV head kv (the reference's reshape of q to (B, 1, KV, G,
+hd)). The caches are float32, bfloat16, or int8 with float32
+scales ``k_scale``/``v_scale`` (B, T, KV) (the ``kv_quant`` cache).
+The reference's rounding points, in order:
+
+1. s = q . k, float32 accumulation (int8 k cast to q's type first,
+   exact for |k| <= 127);
+2. s * k_scale (int8), then s / sqrt(hd) (a float32 division);
+3. slots with pos < 0, pos > q_position or, when window > 0,
+   q_position - pos >= window get the finite ``NEG_INF``;
+4. the float32 softmax over all T slots;
+5. p * v_scale (int8), then p rounded to the value type: the cache's
+   (float32, bfloat16), or q's for the int8 cache;
+6. p . v, float32 accumulation, cast to q's type.
+
+``decode_attention_kernel`` is the wrapper: on CUDA tensors it launches
+the hand-written Hopper kernel ``csrc/decode_attention.cu`` (or raises),
+on CPU tensors it runs the plain PyTorch version
+``decode_attention_plain``. Its ``launches`` attribute counts kernel
+calls, ``routes`` counts them by cache type.
+
+The kernel splits T over blocks (``split_len``). Because p is rounded
+after it is normalised (step 5), a one-pass online softmax would round
+un-normalised weights, so the kernel runs in two passes and a last sum:
+pass 1 stores each split's scores and its row max and sum; pass 2
+combines the splits' statistics in split order into the row's max and
+sum, forms and rounds p, and writes each split's partial p . v; the last
+step adds the partials in split order. No atomics: two launches are
+bitwise equal.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import build
+
+NEG_INF = -1.0e30
+MAX_HEAD_DIM = 256
+# blocks the split aims for: two for each of the H100's 132 SMs
+SPLIT_BLOCKS = 264
+# a split is a multiple of this many slots
+SPLIT_ALIGN = 32
+# the scores of one split (G x its slots) a block keeps in shared memory
+MAX_SPLIT_SCORES = 8192
+# the cache's type -> (the route's code in csrc/decode_attention.cu, its
+# name in ``decode_attention_kernel.routes``)
+_ROUTES = {torch.float32: (0, "float32"), torch.bfloat16: (1, "bfloat16"),
+           torch.int8: (2, "int8")}
+
+
+def split_len(B: int, KV: int, G: int, T: int) -> int:
+    """Slots a block of the kernel takes: T cut into enough splits that
+    B * KV * splits reaches ``SPLIT_BLOCKS``, a multiple of
+    ``SPLIT_ALIGN``, at most ``MAX_SPLIT_SCORES // G`` (and at least
+    ``SPLIT_ALIGN``)."""
+    want = -(-SPLIT_BLOCKS // max(1, B * KV))
+    n = -(-max(1, T) // want)
+    n = -(-n // SPLIT_ALIGN) * SPLIT_ALIGN
+    cap = MAX_SPLIT_SCORES // max(1, G) // SPLIT_ALIGN * SPLIT_ALIGN
+    return max(SPLIT_ALIGN, min(n, cap))
+
+
+def visible_slots(kv_positions: torch.Tensor, q_position: torch.Tensor,
+                  window: int = 0) -> torch.Tensor:
+    """(B, T) mask of the slots the query sees."""
+    valid = (kv_positions >= 0) & (kv_positions <= q_position[:, None])
+    if window > 0:
+        valid = valid & ((q_position[:, None] - kv_positions) < window)
+    return valid
+
+
+def sqrt_hd(hd: int) -> float:
+    """sqrt(hd) rounded to float32, as ``jnp.sqrt(jnp.float32(hd))``
+    (the double root rounds to the correctly rounded float32 one)."""
+    return float(np.float32(math.sqrt(hd)))
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, kv_positions: torch.Tensor,
+                           q_position: torch.Tensor, window: int = 0,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version (shapes and steps as in the module
+    docstring): q reshaped to (B, 1, KV, G, hd) and contracted against
+    the unexpanded cache in float32 (products of bf16 or int8 values are
+    exact in float32), the softmax over all T slots."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    quant = k_scale is not None
+    qf = q.reshape(B, 1, KV, H // KV, hd).float()
+    kc = k_cache.to(q.dtype) if quant else k_cache
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, kc.float())
+    if quant:
+        s = s * k_scale.transpose(1, 2)[:, None, :, None, :]
+    s = s / sqrt_hd(hd)
+    valid = visible_slots(kv_positions, q_position, window)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if quant:
+        p = p * v_scale.transpose(1, 2)[:, None, :, None, :]
+        vt = q.dtype
+    else:
+        vt = v_cache.dtype
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(vt).float(),
+                       v_cache.to(vt).float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _check(q, k_cache, v_cache, kv_positions, q_position, k_scale,
+           v_scale):
+    dev = q.device
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"decode_attention: q has shape {tuple(q.shape)}; "
+                         "expected (B, 1, H, hd)")
+    B, _, H, hd = q.shape
+    if k_cache.dim() != 4 or v_cache.shape != k_cache.shape or \
+            k_cache.shape[0] != B or k_cache.shape[3] != hd:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, k_cache "
+                         f"{tuple(k_cache.shape)}, v_cache "
+                         f"{tuple(v_cache.shape)} do not match")
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"decode_attention: {H} query heads over {KV} KV "
+                         "heads")
+    if kv_positions.shape != (B, T) or q_position.shape != (B,):
+        raise ValueError(f"decode_attention: kv_positions "
+                         f"{tuple(kv_positions.shape)}, q_position "
+                         f"{tuple(q_position.shape)}; expected ({B}, {T}) "
+                         f"and ({B},)")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("decode_attention: give both k_scale and v_scale "
+                         "or neither")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode_attention: q is {q.dtype}")
+    if k_scale is not None:
+        if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+            raise TypeError("decode_attention: scales need the int8 cache, "
+                            f"got {k_cache.dtype}")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.shape != (B, T, KV) or t.dtype != torch.float32:
+                raise ValueError(f"decode_attention: {name} is {t.dtype} "
+                                 f"{tuple(t.shape)}; expected float32 "
+                                 f"({B}, {T}, {KV})")
+    elif k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"decode_attention: caches {k_cache.dtype}, "
+                        f"{v_cache.dtype} for q {q.dtype}; the float cache "
+                        "has q's type, the int8 one needs scales")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("kv_positions", kv_positions),
+                    ("q_position", q_position), ("k_scale", k_scale),
+                    ("v_scale", v_scale)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"decode_attention: {name} on {t.device}, q on "
+                             f"{dev}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {hd} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
+
+
+def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor,
+                            kv_positions: torch.Tensor,
+                            q_position: torch.Tensor, window: int = 0,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Decode attention (shapes as in the module docstring). CUDA tensors
+    launch ``csrc/decode_attention.cu`` on the cache type's route
+    (counted in ``routes``); CPU tensors take the plain version. The
+    caches, positions and scales are read in place (contiguous, int64
+    positions); nothing of the cache is copied or cast."""
+    _check(q, k_cache, v_cache, kv_positions, q_position, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, kv_positions,
+                                      q_position, window, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("kv_positions", kv_positions), ("k_scale", k_scale),
+                    ("v_scale", v_scale)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} is not contiguous")
+    if kv_positions.dtype != torch.int64:
+        raise TypeError(f"decode_attention: kv_positions is "
+                        f"{kv_positions.dtype}; the cache keeps int64")
+    B, _, H, hd = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    if B * KV > 65535:
+        raise ValueError(f"decode_attention: {B * KV} batch x KV heads "
+                         "exceed the grid's 65535")
+    q = q.contiguous()
+    q_pos = q_position.to(torch.int64).contiguous()
+    out = torch.empty_like(q)
+    if B == 0 or T == 0:
+        return out.zero_()
+    L = split_len(B, KV, G, T)
+    splits = -(-T // L)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    scores = torch.empty((B * KV * G * T,), **f32)
+    stats = torch.empty((2 * B * KV * G * splits,), **f32)
+    part = torch.empty((B * KV * splits * G * hd,), **f32)
+    lib = build.load("decode_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
+        kv_positions.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        scores.data_ptr(), stats.data_ptr(), part.data_ptr(),
+        B, T, KV, G, hd, int(window), L,
+        sqrt_hd(hd), int(q.dtype == torch.bfloat16),
+        _ROUTES[k_cache.dtype][0], stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention_kernel.launches += 1
+    decode_attention_kernel.routes[_ROUTES[k_cache.dtype][1]] += 1
+    return out
+
+
+decode_attention_kernel.launches = 0
+decode_attention_kernel.routes = {"float32": 0, "bfloat16": 0, "int8": 0}

@@ -1,10 +1,11 @@
 """The port's LM-model package: the architecture config (it also feeds
-``configs/`` and ``core.workloads.from_arch_config``) and the dense
-decoder stack (``attn``/``local_attn`` blocks) that serves qwen3-4b,
-qwen2.5-3b, glm4-9b and phi4-mini. MoE, the recurrent blocks, cross
-attention and the encoder follow (ROADMAP Queue 1 item 13)."""
+``configs/`` and ``core.workloads.from_arch_config``) and the decoder
+stack (``attn``/``local_attn`` blocks, the int8 KV cache, ``rglru``
+blocks with ``recurrent.py``) that serves qwen3-4b, qwen2.5-3b, glm4-9b,
+phi4-mini and recurrentgemma-9b. MoE, the xLSTM cells, cross attention
+and the encoder follow (ROADMAP Queue 1 item 13)."""
 from .config import ArchConfig
 from .transformer import (apply_block, decode_step, forward, init_cache,
                           init_params, loss_fn, prefill)
 from .attention import blockwise_attention, decode_attention
-from . import layers
+from . import layers, recurrent

@@ -8,11 +8,15 @@ O(S x chunk) memory as the reference's ``blockwise_attention`` computes.
 It is differentiable: its gradient is the hand-written backward kernel
 (``csrc/flash_attention_bwd.cu``) on CUDA tensors and its plain version
 on CPU tensors, where the reference differentiates its jnp scan.
-``decode_attention`` is the single-query step against the KV cache, in
-plain torch (the reference has no Pallas kernel there).
+``decode_attention`` is the single-query step against the KV cache
+(bf16, float32, or the int8 ``kv_quant`` cache with its scales): on CUDA
+tensors the hand-written GQA decode kernel (``kernels/
+decode_attention.py``, ``csrc/decode_attention.cu``), which reads the
+cache in place, on CPU tensors its plain version; the reference runs
+plain einsums there (no Pallas kernel).
 
-Not ported yet: the int8 KV cache (``kv_quant``, ROADMAP Queue 1 item
-13a) and ``cross_attention`` (llama-3.2-vision, item 13d).
+Not ported yet: ``cross_attention`` (llama-3.2-vision, ROADMAP Queue 1
+item 13d).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels.decode_attention import decode_attention_kernel
 from ..kernels.ops import flash_mha
 
 NEG_INF = -1.0e30
@@ -62,31 +67,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-step decode. q: (B, 1, H, hd); caches: (B, T, KV, hd);
-    kv_positions: (B, T) (negative = empty slot); q_position: (B,).
+    kv_positions: (B, T) (negative = empty slot); q_position: (B,);
+    ``k_scale``/``v_scale`` (B, T, KV) float32 with the int8 cache.
 
-    GQA-native as in the reference: q is reshaped to (B, 1, KV, G, hd)
-    and contracted against the unexpanded cache; scores in float32,
-    softmax, the weights rounded to the cache's type, then the product
-    with V in float32, cast to q's type.
-    """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the int8 KV cache (kv_quant) is not ported yet: ROADMAP "
-            "Queue 1 item 13a")
-    B, _, H, hd = q.shape
-    KV = k_cache.shape[2]
-    qf = q.reshape(B, 1, KV, H // KV, hd).float()
-    s = torch.einsum("bqkgd,bskd->bqkgs", qf, k_cache.float())
-    s = s / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
-                                    device=q.device))
-    valid = (kv_positions >= 0) & (kv_positions <= q_position[:, None])
-    if window > 0:
-        valid = valid & ((q_position[:, None] - kv_positions) < window)
-    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    GQA-native as in the reference: q is contracted against the
+    unexpanded cache (query heads kv*G .. kv*G + G - 1 against KV head
+    kv); scores in float32, the int8 scales folded into the scores and
+    the weights, softmax, the weights rounded to the value type, then
+    the product with V in float32, cast to q's type
+    (``kernels/decode_attention.py`` lists the rounding points)."""
+    return decode_attention_kernel(q, k_cache, v_cache, kv_positions,
+                                   q_position, window, k_scale, v_scale)
 
 
 def cross_attention(q, k, v):

@@ -1,6 +1,7 @@
-"""The dense decoder LM; counterpart of ``repro/models/transformer.py``
-for the block kinds ``attn`` and ``local_attn`` (qwen3-4b, qwen2.5-3b,
-glm4-9b, phi4-mini: dense GQA with optional QKV bias and q/k norm).
+"""The decoder LM; counterpart of ``repro/models/transformer.py`` for the
+block kinds ``attn``, ``local_attn`` (qwen3-4b, qwen2.5-3b, glm4-9b,
+phi4-mini: dense GQA with optional QKV bias and q/k norm) and ``rglru``
+(recurrentgemma-9b's RG-LRU blocks beside its local attention).
 
 Parameters are an ``LM`` module: ``embed``, ``final_ln``, ``unembed``
 and ``blocks``, an ``nn.ModuleList`` with one ``Block`` per layer in
@@ -15,13 +16,17 @@ checkpoint``, one per block, as the reference's ``jax.checkpoint``).
 Attention's gradient is the hand-written backward kernel
 (``kernels/ops.FlashAttention``).
 
-The KV cache is a list with one dict per layer (``k``, ``v``: (B, cap,
-KV, hd) in the model's type; ``pos``: (B, cap) int64, -1 = empty).
-Prefill and decode write it in place (the reference returns a new
-pytree; in place saves a copy of the whole cache per step) and return
-the same list. The slot rules are the reference's: position p lives in
-slot ``p % cap`` for windowed layers (a ring buffer) and in slot
-``min(p, cap - 1)`` for full ones.
+The cache is a list with one dict per layer. An attention layer's:
+``k``, ``v`` (B, cap, KV, hd) in the model's type, or int8 with
+``k_scale``, ``v_scale`` (B, cap, KV) float32 when ``cfg.kv_quant``
+(symmetric per slot and KV head, ``_kv_quantize``); ``pos`` (B, cap)
+int64, -1 = empty. An ``rglru`` layer's: ``h`` (B, w) float32 and
+``conv`` (B, conv1d_size - 1, w) in the model's type. Prefill and decode
+write it in place (the reference returns a new pytree; in place saves a
+copy of the whole cache per step) and return the same list. The slot
+rules are the reference's: position p lives in slot ``p % cap`` for
+windowed layers (a ring buffer) and in slot ``min(p, cap - 1)`` for full
+ones.
 
 Three modes share one block implementation:
   train   — full sequence, no cache (blockwise attention)
@@ -32,22 +37,23 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from . import recurrent as rec
 from .attention import blockwise_attention, decode_attention
 from .config import ArchConfig
 from .layers import (MLP, apply_rope, cross_entropy, dense_init, mlp,
                      rms_norm, zeros_param)
 
 MOE_AUX_WEIGHT = 0.01
-ATTN_KINDS = ("attn", "local_attn")
+PORTED_KINDS = ("attn", "local_attn", "rglru")
 # block kinds and features still to port, with their ROADMAP items
 _UNPORTED = {
-    "rglru": "ROADMAP Queue 1 item 13b (rglru, recurrentgemma)",
     "mlstm": "ROADMAP Queue 1 item 13c (mlstm/slstm, xlstm)",
     "slstm": "ROADMAP Queue 1 item 13c (mlstm/slstm, xlstm)",
     "cross_attn": "ROADMAP Queue 1 item 13d (cross_attn, llama-3.2-vision)",
@@ -60,14 +66,11 @@ def _check_ported(cfg: ArchConfig, kind: str) -> None:
     if kind in _UNPORTED:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
                                   f"{_UNPORTED[kind]}")
-    if kind not in ATTN_KINDS:
+    if kind not in PORTED_KINDS:
         raise ValueError(kind)
     if cfg.n_experts > 1:
         raise NotImplementedError("MoE FFNs are not ported yet: ROADMAP "
                                   "Queue 1 item 13f")
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache (kv_quant) is not "
-                                  "ported yet: ROADMAP Queue 1 item 13a")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"the {cfg.frontend} frontend is not ported yet: ROADMAP Queue "
@@ -80,9 +83,13 @@ def _check_ported(cfg: ArchConfig, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One ``attn``/``local_attn`` block: pre-norm attention (``ln``,
+    """One block. ``attn``/``local_attn``: pre-norm attention (``ln``,
     ``wq``, ``wk``, ``wv``, ``wo``; ``bq``/``bk``/``bv`` with QKV bias;
-    ``q_norm``/``k_norm`` with q/k norm) and a pre-norm dense FFN
+    ``q_norm``/``k_norm`` with q/k norm). ``rglru``: pre-norm RG-LRU
+    mixer (``ln``, ``w_in`` (d, 2w) for the branch and its gate, ``conv``
+    (conv1d_size, w) float32 taps, ``lru`` the five float32 (w,) leaves
+    ``a_param`` 0.5, ``alpha_i`` 1, ``beta_i`` 0, ``alpha_r`` 1,
+    ``beta_r`` 0, ``w_out`` (w, d)). Both then a pre-norm dense FFN
     (``ln2``, ``ffn``). Norm gains and biases start at zero, as in the
     reference."""
 
@@ -90,9 +97,33 @@ class Block(nn.Module):
         super().__init__()
         _check_ported(cfg, kind)
         d, dt, dev = cfg.d_model, cfg.torch_dtype, gen.device
+        self.ln = zeros_param((d,), dt, dev)
+        if kind == "rglru":
+            self._init_rglru(gen, cfg)
+        else:
+            self._init_attn(gen, cfg)
+        self.ln2 = zeros_param((d,), dt, dev)
+        self.ffn = MLP(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
+
+    def _init_rglru(self, gen: torch.Generator, cfg: ArchConfig) -> None:
+        d, dt, dev, w = cfg.d_model, cfg.torch_dtype, gen.device, cfg.rnn_w
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.w_in = dense_init(gen, d, 2 * w, dt)
+        self.w_out = dense_init(gen, w, d, dt)
+        self.conv = nn.Parameter(
+            torch.randn((cfg.conv1d_size, w), generator=gen, **f32) * 0.1,
+            requires_grad=False)
+        self.lru = nn.ParameterDict({
+            name: nn.Parameter(torch.full((w,), value, **f32),
+                               requires_grad=False)
+            for name, value in (("a_param", 0.5), ("alpha_i", 1.0),
+                                ("beta_i", 0.0), ("alpha_r", 1.0),
+                                ("beta_r", 0.0))})
+
+    def _init_attn(self, gen: torch.Generator, cfg: ArchConfig) -> None:
+        d, dt, dev = cfg.d_model, cfg.torch_dtype, gen.device
         dht = cfg.n_heads * cfg.head_dim
         dkv = cfg.n_kv_heads * cfg.head_dim
-        self.ln = zeros_param((d,), dt, dev)
         self.wq = dense_init(gen, d, dht, dt)
         self.wk = dense_init(gen, d, dkv, dt)
         self.wv = dense_init(gen, d, dkv, dt)
@@ -104,8 +135,6 @@ class Block(nn.Module):
         if cfg.qk_norm:
             self.q_norm = zeros_param((cfg.head_dim,), dt, dev)
             self.k_norm = zeros_param((cfg.head_dim,), dt, dev)
-        self.ln2 = zeros_param((d,), dt, dev)
-        self.ffn = MLP(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Block:
@@ -114,19 +143,32 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Block:
 
 def init_cache_block(cfg: ArchConfig, kind: str, B: int, cache_len: int,
                      device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """Empty cache of one block (windowed layers keep only the window),
-    on the card unless ``device`` says otherwise; raises without one."""
+    """Empty cache of one block (windowed layers keep only the window; the
+    int8 cache and its scales under ``cfg.kv_quant``; an ``rglru``
+    block's state and conv window), on the card unless ``device`` says
+    otherwise; raises without one."""
     _check_ported(cfg, kind)
     device = resolve_device(device)
+    if kind == "rglru":
+        w = cfg.rnn_w
+        return {"h": torch.zeros((B, w), dtype=torch.float32, device=device),
+                "conv": torch.zeros((B, cfg.conv1d_size - 1, w),
+                                    dtype=cfg.torch_dtype, device=device)}
     if kind == "attn" and cfg.window:
         cache_len = min(cache_len, cfg.window)
     if kind == "local_attn":
         cache_len = min(cache_len, cfg.local_window)
     shape = (B, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "pos": torch.full((B, cache_len), -1, dtype=torch.long,
-                              device=device)}
+    kv_dtype = torch.int8 if cfg.kv_quant else cfg.torch_dtype
+    cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+    if cfg.kv_quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=device)
+    cache["pos"] = torch.full((B, cache_len), -1, dtype=torch.long,
+                              device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +177,40 @@ def init_cache_block(cfg: ArchConfig, kind: str, B: int, cache_len: int,
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[0], x.shape[1], n, hd)
+
+
+# float32(1 / 127): XLA turns the reference's division by the constant 127
+# into a product with its float32 reciprocal under jit, as its engine and
+# model functions run
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., KV, hd) -> (int8 values, per-(..., KV) float32 scale):
+    symmetric per slot and KV head, scale = max|x| / 127 (at least
+    1e-10), values round(x / scale) (half to even, as ``jnp.round``)
+    clipped to [-127, 127]. Bit for bit the reference's jitted
+    ``_kv_quantize``."""
+    xf = x.float()
+    scale = torch.clamp(torch.amax(torch.abs(xf), dim=-1) * _INV_127,
+                        min=1e-10)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _write_kv(cfg: ArchConfig, cache: Dict[str, torch.Tensor], bidx,
+              slots, k: torch.Tensor, v: torch.Tensor,
+              pos: torch.Tensor) -> None:
+    """Write k, v and their positions into the cache's slots in place,
+    quantised first under ``cfg.kv_quant``."""
+    if cfg.kv_quant:
+        k, k_scale = _kv_quantize(k)
+        v, v_scale = _kv_quantize(v)
+        cache["k_scale"][bidx, slots] = k_scale
+        cache["v_scale"][bidx, slots] = v_scale
+    cache["k"][bidx, slots] = k
+    cache["v"][bidx, slots] = v
+    cache["pos"][bidx, slots] = pos
 
 
 def _attn_qkv(p: Block, cfg: ArchConfig, x: torch.Tensor,
@@ -163,8 +239,20 @@ def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
     """x: (B, S, d). Returns (x, cache, aux_loss); ``cache`` is updated in
     place in the prefill and decode modes."""
     _check_ported(cfg, kind)
-    B, S, _ = x.shape
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if kind == "rglru":
+        x = x + _rglru_mix(cfg, p, h, mode, cache)
+    else:
+        x = x + _attn_mix(cfg, kind, p, h, mode, cache, positions)
+    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    y, aux = _ffn_apply(p.ffn, cfg, h2)
+    return x + y, cache, aux
+
+
+def _attn_mix(cfg: ArchConfig, kind: str, p: Block, h: torch.Tensor,
+              mode: str, cache, positions) -> torch.Tensor:
+    """The attention branch's output projection, (B, S, d)."""
+    B, S, _ = h.shape
     window = cfg.local_window if kind == "local_attn" else cfg.window
     q, k, v = _attn_qkv(p, cfg, h, h)
     if cfg.rope:
@@ -177,13 +265,13 @@ def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
             slot = pos % cap
         else:                   # full cache sized to max position
             slot = torch.clamp(pos, max=cap - 1)
-        bidx = torch.arange(B, device=x.device)
-        cache["k"][bidx, slot] = k[:, 0]
-        cache["v"][bidx, slot] = v[:, 0]
-        cache["pos"][bidx, slot] = pos
+        _write_kv(cfg, cache, torch.arange(B, device=h.device), slot,
+                  k[:, 0], v[:, 0], pos)
         o = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
-                             window=window)
+                             window=window, k_scale=cache.get("k_scale"),
+                             v_scale=cache.get("v_scale"))
     else:
+        # prefill attends over the unquantised k and v, as the reference
         o = blockwise_attention(q, k, v, causal=cfg.causal, window=window)
         if mode == "prefill":
             cap = cache["k"].shape[1]
@@ -191,14 +279,39 @@ def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
             # ring-buffer invariant: position p lives in slot p % cap, so
             # decode's writes land consistently
             slots = positions[:, S - take:] % cap            # (B, take)
-            bidx = torch.arange(B, device=x.device)[:, None]
-            cache["k"][bidx, slots] = k[:, S - take:]
-            cache["v"][bidx, slots] = v[:, S - take:]
-            cache["pos"][bidx, slots] = positions[:, S - take:]
-    x = x + o.reshape(B, S, -1) @ p.wo
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    y, aux = _ffn_apply(p.ffn, cfg, h2)
-    return x + y, cache, aux
+            _write_kv(cfg, cache, torch.arange(B, device=h.device)[:, None],
+                      slots, k[:, S - take:], v[:, S - take:],
+                      positions[:, S - take:])
+    return o.reshape(B, S, -1) @ p.wo
+
+
+def _rglru_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
+               cache) -> torch.Tensor:
+    """The RG-LRU branch's output projection, (B, S, d): the conv and
+    the recurrence on one half of ``w_in``'s output, gated by GELU of the
+    other. Prefill stores the last h rounded to the model's type, then
+    float32, and the last W - 1 inputs of the conv (the zero state stays
+    when S < W - 1), as the reference; decode stores the unrounded
+    float32 h."""
+    w = cfg.rnn_w
+    xin = h @ p.w_in
+    xr, gate = xin[..., :w], xin[..., w:]
+    if mode == "decode":
+        xr1, conv_state = rec.causal_conv1d_step(xr[:, 0], cache["conv"],
+                                                 p.conv)
+        h_new, h_f32 = rec.rglru_step(xr1, cache["h"], p.lru)
+        o = h_new[:, None] * F.gelu(gate, approximate="tanh")
+        cache["h"].copy_(h_f32)
+        cache["conv"].copy_(conv_state)
+    else:
+        hseq = rec.rglru_sequence(rec.causal_conv1d(xr, p.conv), p.lru)
+        o = hseq * F.gelu(gate, approximate="tanh")
+        if mode == "prefill":
+            W, S = cfg.conv1d_size, h.shape[1]
+            cache["h"].copy_(hseq[:, -1].float())
+            if S >= W - 1:
+                cache["conv"].copy_(xr[:, S - (W - 1):].to(cfg.torch_dtype))
+    return o @ p.w_out
 
 
 # ---------------------------------------------------------------------------

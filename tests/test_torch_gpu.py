@@ -6,8 +6,10 @@ engine on the card (through the flash attention kernel) against the
 CPU, the Table 3 engine's draws and stochastic ranking, and the
 co-design service's lane batching on the card (a two-request bucket
 against the solo runs, its default device), the attention gradient
-kernel against its plain version and a train step repeated bit for
-bit. They
+kernel against its plain version, a train step repeated bit for bit,
+the decode attention and RG-LRU scan kernels against their plain
+versions, and the decode path (reduced recurrentgemma-9b, reduced
+qwen3-4b on the int8 cache) on the card against the CPU. They
 carry the ``gpu`` marker and skip without a CUDA device. This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is not installed:
@@ -678,3 +680,174 @@ def test_launch_audit_on_card(cuda):
     errors = [f for f in kept if f.severity == "error"]
     assert errors == [], "\n".join(f.format() for f in errors)
     assert any(f.rule == "J001" for f in suppressed)
+
+
+# the decode kernel: (B, T, KV, G, hd, cache, window): qwen3-4b's serving
+# shape on both caches, recurrentgemma-9b's ring, the reduced configs'
+# float32 head dims 8 and 16, and int8 under a float32 q
+DECODE_GPU_SHAPES = [
+    (4, 4352, 8, 4, 128, "bfloat16", 0),
+    (4, 4352, 8, 4, 128, "int8", 0),
+    (4, 2048, 1, 16, 256, "bfloat16", 2048),
+    (3, 40, 2, 2, 16, "float32", 6),
+    (2, 33, 2, 1, 8, "float32", 0),
+    (3, 70, 2, 4, 64, "int8", 0),
+    (2, 300, 1, 16, 256, "float32", 0),
+]
+
+
+def _decode_case(seed, B, T, KV, G, hd, cache, window, dev):
+    """q, the cache (int8 through the model's quantiser, float32 q for
+    the int8 case of head dim 64) and positions: a ragged prefix, a
+    wrapped ring, a prefix with slots past the query."""
+    from repro_torch.models.transformer import _kv_quantize
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    qdt = torch.float32 if cache == "float32" or hd == 64 else \
+        torch.bfloat16
+    q = torch.randn((B, 1, KV * G, hd), generator=gen, device=dev).to(qdt)
+    k, v = (torch.randn((B, T, KV, hd), generator=gen, device=dev)
+            for _ in range(2))
+    ks = vs = None
+    if cache == "int8":
+        (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+    else:
+        k, v = k.to(qdt), v.to(qdt)
+    pos = torch.full((B, T), -1, dtype=torch.long, device=dev)
+    q_pos = torch.zeros((B,), dtype=torch.long, device=dev)
+    for b in range(B):
+        n = max(1, (b + 1) * T // (B + 1))
+        if b == 1:
+            q_pos[b] = T + n
+            p = torch.arange(q_pos[b] - T + 1, q_pos[b] + 1, device=dev)
+            pos[b, p % T] = p
+        else:
+            pos[b, :n] = torch.arange(n, device=dev)
+            q_pos[b] = max(0, n - 1 - (2 if b == B - 1 else 0))
+    return q, k, v, ks, vs, pos, q_pos
+
+
+@pytest.mark.parametrize("B,T,KV,G,hd,cache,window", DECODE_GPU_SHAPES)
+def test_decode_kernel_matches_plain(cuda, B, T, KV, G, hd, cache, window):
+    """The decode kernel against ``decode_attention_plain`` on the same
+    card tensors: float32 within 1e-5 x max|out|, bf16 every element
+    within two bf16 steps plus 1e-4; one launch on the cache type's
+    route; a second launch bitwise equal."""
+    from repro_torch.kernels.decode_attention import (decode_attention_kernel,
+                                                      decode_attention_plain)
+    args = _decode_case(B + T + hd, B, T, KV, G, hd, cache, window, cuda)
+    q, k, v, ks, vs, pos, q_pos = args
+    kern = decode_attention_kernel
+    before, routes = kern.launches, dict(kern.routes)
+    got = kern(q, k, v, pos, q_pos, window, ks, vs)
+    assert kern.launches == before + 1
+    assert kern.routes[cache] == routes[cache] + 1
+    again = kern(q, k, v, pos, q_pos, window, ks, vs)
+    want = decode_attention_plain(q, k, v, pos, q_pos, window, ks, vs)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert torch.equal(got, again)
+    if q.dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -6, atol=1e-4)
+
+
+def test_decode_wrapper_rejects_bad_inputs_on_card(cuda):
+    """Nothing of the cache is copied on the card: a non-contiguous cache
+    or int32 positions raise before any launch."""
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    q, k, v, _, _, pos, q_pos = _decode_case(0, 2, 33, 2, 1, 8, "float32",
+                                             0, cuda)
+    before = decode_attention_kernel.launches
+    wide = torch.zeros((2, 33, 2, 16), device=cuda)[..., :8]
+    with pytest.raises(ValueError, match="not contiguous"):
+        decode_attention_kernel(q, wide, v, pos, q_pos)
+    with pytest.raises(TypeError, match="int64"):
+        decode_attention_kernel(q, k, v, pos.int(), q_pos)
+    with pytest.raises(ValueError, match="on cpu"):
+        decode_attention_kernel(q, k.cpu(), v, pos, q_pos)
+    assert decode_attention_kernel.launches == before
+
+
+@pytest.mark.parametrize("B,S,W,dt", [(1, 4096, 4096, "bfloat16"),
+                                      (2, 37, 4096, "float32"),
+                                      (3, 5, 40, "bfloat16"),
+                                      (1, 1, 7, "float32")])
+def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, dt):
+    """The scan kernel against ``rglru_scan_plain`` on the same card
+    tensors (float32 within 1e-5 x max|h|, bf16 within two bf16 steps),
+    one launch, a second one bitwise equal."""
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S + W)
+    x = (torch.randn((B, S, W), generator=gen, device=cuda) * 2).to(
+        getattr(torch, dt))
+    u = [torch.rand((W,), generator=gen, device=cuda) for _ in range(5)]
+    p = (u[0] * 28 - 3, u[1] + 0.5, u[2] - 0.5, u[3] + 0.5, u[4] - 0.5)
+    before = rglru_scan.launches
+    got = rglru_scan(x, *p)
+    assert rglru_scan.launches == before + 1
+    again = rglru_scan(x, *p)
+    want = rglru_scan_plain(x, *p)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert torch.equal(got, again)
+    if dt == "float32":
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -6, atol=1e-4)
+
+
+def test_rglru_scan_kernel_refuses_a_gradient(cuda):
+    """No backward kernel yet: a call that needs a gradient raises naming
+    ROADMAP item 13j before any launch; under no_grad it runs."""
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    x = torch.randn((1, 4, 8), device=cuda, requires_grad=True)
+    p = [torch.ones(8, device=cuda) for _ in range(5)]
+    before = rglru_scan.launches
+    with pytest.raises(NotImplementedError, match="item 13j"):
+        rglru_scan(x, *p)
+    assert rglru_scan.launches == before
+    with torch.no_grad():
+        rglru_scan(x, *p)
+    assert rglru_scan.launches == before + 1
+
+
+@pytest.mark.parametrize("arch,kv_quant", [("recurrentgemma_9b", False),
+                                           ("qwen3_4b", True)])
+def test_decode_path_on_card_matches_cpu(cuda, arch, kv_quant):
+    """Reduced recurrentgemma-9b (scan and decode kernels beside the
+    flash kernel) and reduced qwen3-4b on the int8 cache served on the
+    card and on the CPU, the same weights and requests (prompts longer
+    than the local window among them): the same greedy tokens; the
+    kernels launched once a layer of their kind per prefill and decode
+    step."""
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              kv_quant=kv_quant)
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 17, 70)]
+    outs = []
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(model.to(dev), cfg, n_slots=2, max_len=96,
+                          device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(LMRequest(rid=i, prompt=p, max_new_tokens=6))
+        counts = [c.launches for c in (flash_attention, rglru_scan,
+                                       decode_attention_kernel)]
+        done = eng.run()
+        outs.append({i: r.output for i, r in done.items()})
+    n_attn = sum(k != "rglru" for k in cfg.layout())
+    n_rec = cfg.n_layers - n_attn
+    steps = eng.stats["decode_steps"]
+    assert [c.launches - b for c, b in zip(
+        (flash_attention, rglru_scan, decode_attention_kernel), counts)] == \
+        [n_attn * len(prompts), n_rec * len(prompts), n_attn * steps]
+    assert outs[0] == outs[1]

@@ -360,18 +360,13 @@ def test_encoder_arch_rejected():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("recurrentgemma_9b", "13b"), ("xlstm_350m", "13c"),
+    ("xlstm_350m", "13c"),
     ("llama32_vision_11b", "13d"), ("hubert_xlarge", "13e"),
     ("mixtral_8x22b", "13f"), ("phi3_5_moe", "13f")])
 def test_unported_archs_name_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}"):
         init_params(torch.Generator(), get_config(arch, reduced=True))
-
-
-def test_kv_quant_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 13a"):
-        _tiny_model(kv_quant=True)
 
 
 def test_init_cache_defaults_to_the_card():

@@ -1,0 +1,438 @@
+"""The port's RG-LRU stack (``repro_torch.models.recurrent``, the
+``rglru`` block, recurrentgemma end to end) against the JAX package on
+the CPU, on the same numpy inputs and weights: the causal conv1d and
+its step, the RG-LRU sequence and step (float32 within 1e-5 of max|h|:
+the reference's associative scan adds in another order than the port's
+loop), reduced recurrentgemma-9b's forward, prefill and decode logits
+(atol 5e-4) and the serving engine's greedy tokens (equal), the two
+prefill-state rules, the weights' round trip through ``convert``, and
+the names of the parts still to port. Here the scan takes its plain
+version (CPU tensors); tests/test_torch_gpu.py holds the kernel to it on
+a card."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import LMRequest as JLMRequest
+from repro.api import ServeEngine as JServeEngine
+from repro.configs import get_config as jget_config
+from repro.models import ArchConfig as JArchConfig
+from repro.models import decode_step as jdecode_step
+from repro.models import forward as jforward
+from repro.models import init_params as jinit_params
+from repro.models import loss_fn as jloss_fn
+from repro.models import prefill as jprefill
+from repro.models import recurrent as jrec
+from repro_torch.configs import get_config
+from repro_torch.convert import (from_reference_arch_config,
+                                 from_reference_lm_params,
+                                 to_reference_lm_tree)
+from repro_torch.examples import serve_lm
+from repro_torch.kernels import rglru_scan as rs
+from repro_torch.models import (decode_step, forward, init_params, loss_fn,
+                                prefill)
+from repro_torch.models import recurrent as rec
+from repro_torch.models.transformer import init_cache
+from repro_torch.serve import LMRequest, ServeEngine
+
+torch.set_num_threads(1)
+
+_jforward = jax.jit(jforward, static_argnums=(1,),
+                    static_argnames=("mode", "remat"))
+_jloss = jax.jit(jloss_fn, static_argnums=(1,), static_argnames=("remat",))
+_jprefill = jax.jit(jprefill, static_argnums=(1, 3))
+_jdecode = jax.jit(jdecode_step, static_argnums=(1,))
+LRU_NAMES = ("a_param", "alpha_i", "beta_i", "alpha_r", "beta_r")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _within_max(got, want, rel=1e-5):
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(_np(got) - want).max())
+    assert err <= rel * float(np.abs(want).max()), err
+
+
+def _lru(seed, w):
+    """The five lru leaves, drawn around the reference's init values."""
+    rng = np.random.default_rng(seed)
+    p = {"a_param": rng.uniform(-3.0, 25.0, w),
+         "alpha_i": rng.uniform(0.5, 1.5, w),
+         "beta_i": rng.uniform(-0.5, 0.5, w),
+         "alpha_r": rng.uniform(0.5, 1.5, w),
+         "beta_r": rng.uniform(-0.5, 0.5, w)}
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+# ---------------------------------------------------------------------------
+# the functions of recurrent.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,C,W", [(2, 9, 16, 4), (1, 2, 8, 4),
+                                     (3, 20, 5, 1)])
+def test_causal_conv1d_matches_reference(B, S, C, W):
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((B, S, C)).astype(np.float32)
+    w = rng.standard_normal((W, C)).astype(np.float32)
+    want = jrec.causal_conv1d(jnp.asarray(x), jnp.asarray(w))
+    _within_max(rec.causal_conv1d(_t(x), _t(w)), want, 1e-6)
+
+
+def test_causal_conv1d_step_matches_reference():
+    """Three steps from a state; each output and the next state."""
+    rng = np.random.default_rng(7)
+    B, C, W = 3, 12, 4
+    w = rng.standard_normal((W, C)).astype(np.float32)
+    state = rng.standard_normal((B, W - 1, C)).astype(np.float32)
+    jstate, tstate = jnp.asarray(state), _t(state)
+    for _ in range(3):
+        x = rng.standard_normal((B, C)).astype(np.float32)
+        jy, jstate = jrec.causal_conv1d_step(jnp.asarray(x), jstate,
+                                             jnp.asarray(w))
+        y, tstate = rec.causal_conv1d_step(_t(x), tstate, _t(w))
+        _within_max(y, jy)
+        np.testing.assert_array_equal(tstate.numpy(), np.asarray(jstate))
+
+
+def test_conv_step_continues_the_sequence_conv():
+    """The step form fed the sequence's inputs gives the sequence form's
+    outputs (the port against itself, as the reference defines both)."""
+    rng = np.random.default_rng(8)
+    x = _t(rng.standard_normal((2, 7, 6)).astype(np.float32))
+    w = _t(rng.standard_normal((4, 6)).astype(np.float32))
+    seq = rec.causal_conv1d(x, w)
+    state = torch.zeros((2, 3, 6))
+    for t in range(7):
+        y, state = rec.causal_conv1d_step(x[:, t], state, w)
+        torch.testing.assert_close(y, seq[:, t], rtol=1e-6, atol=1e-6)
+
+
+def test_softplus_has_no_threshold():
+    """``jax.nn.softplus`` is logaddexp(x, 0) everywhere; F.softplus
+    switches to x above 20."""
+    x = np.linspace(-40.0, 40.0, 1601).astype(np.float32)
+    want = np.asarray(jax.nn.softplus(jnp.asarray(x)))
+    got = rs.softplus(_t(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-7, atol=0)
+
+
+@pytest.mark.parametrize("B,S,w", [(2, 37, 16), (1, 300, 8), (3, 1, 5)])
+def test_rglru_sequence_matches_reference(B, S, w):
+    rng = np.random.default_rng(B * S)
+    x = (rng.standard_normal((B, S, w)) * 2).astype(np.float32)
+    p = _lru(S, w)
+    want = jrec.rglru_sequence(jnp.asarray(x),
+                               {k: jnp.asarray(v) for k, v in p.items()})
+    got = rec.rglru_sequence(_t(x), {k: _t(v) for k, v in p.items()})
+    assert got.shape == x.shape and got.dtype == torch.float32
+    _within_max(got, want)
+
+
+def test_rglru_step_matches_reference():
+    """Four steps from a float32 state: the rounded and the float32 h."""
+    rng = np.random.default_rng(9)
+    B, w = 2, 24
+    p = _lru(9, w)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: _t(v) for k, v in p.items()}
+    h = rng.standard_normal((B, w)).astype(np.float32)
+    jh, th = jnp.asarray(h), _t(h)
+    for _ in range(4):
+        x = rng.standard_normal((B, w)).astype(np.float32)
+        jo, jh = jrec.rglru_step(jnp.asarray(x), jh, jp)
+        o, th = rec.rglru_step(_t(x), th, tp)
+        _within_max(o, jo)
+        _within_max(th, jh)
+
+
+def test_scan_plain_equals_steps_and_rounds_to_x():
+    """The plain scan is the step function repeated from h = 0, and h
+    comes back in x's type (bfloat16 here) from a float32 carry."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((2, 6, 8)).astype(
+        np.float32)).bfloat16()
+    p = {k: _t(v) for k, v in _lru(10, 8).items()}
+    seq = rs.rglru_scan_plain(x, *(p[k] for k in LRU_NAMES))
+    assert seq.dtype == torch.bfloat16
+    h = torch.zeros((2, 8))
+    for t in range(6):
+        o, h = rec.rglru_step(x[:, t], h, p)
+        assert torch.equal(o, seq[:, t])
+
+
+def test_rglru_scan_rejects_bad_parameters():
+    x = torch.zeros((1, 3, 4))
+    p = [torch.zeros(4) for _ in LRU_NAMES]
+    with pytest.raises(ValueError, match="expected float32"):
+        rs.rglru_scan(x, *p[:4], torch.zeros(5))
+    with pytest.raises(ValueError, match="expected float32"):
+        rs.rglru_scan(x, *p[:4], torch.zeros(4, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma end to end
+# ---------------------------------------------------------------------------
+
+def _reference_weights(jcfg, seed=0):
+    """The reference's init, its zero leaves (norm gains, beta_i, beta_r)
+    replaced by small draws so that every parameter matters; numpy."""
+    params, _ = jinit_params(jax.random.PRNGKey(seed), jcfg)
+    rng = np.random.default_rng(seed)
+
+    def fill(a):
+        a = np.array(a)
+        if not a.any():
+            a = (rng.standard_normal(a.shape) * 0.2).astype(a.dtype)
+        return a
+    return jax.tree.map(fill, params)
+
+
+def _pair(jcfg):
+    np_params = _reference_weights(jcfg)
+    cfg = from_reference_arch_config(jcfg)
+    model = from_reference_lm_params(np_params, cfg, device="cpu")
+    return jax.tree.map(jnp.asarray, np_params), model, cfg
+
+
+def _hybrid(**kw):
+    """A tiny [R, R, A] hybrid with a window shorter than the prompts."""
+    base = dict(name="tiny_hybrid", family="hybrid", n_layers=4,
+                d_model=32, n_heads=4, n_kv_heads=1, head_dim=8, d_ff=64,
+                vocab_size=101, rnn_width=24, local_window=8,
+                dtype="float32", pattern=("rglru", "rglru", "local_attn"))
+    base.update(kw)
+    return JArchConfig(**base)
+
+
+RG_CASES = ["recurrentgemma_9b", "hybrid"]
+
+
+def _jcfg(name):
+    return _hybrid() if name == "hybrid" else jget_config(name, reduced=True)
+
+
+@pytest.mark.parametrize("name", RG_CASES)
+def test_recurrentgemma_matches_reference(name):
+    """forward (train), the loss, prefill and three decode steps: logits
+    within atol 5e-4 on the same weights and tokens (the reduced config's
+    8 layers are 2 x [R, R, A] + [R, R]; 20 prompt tokens wrap a 16- or
+    8-slot local ring); every cache leaf of the first R and A layers."""
+    jcfg = _jcfg(name)
+    jp, model, cfg = _pair(jcfg)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    want, _, _ = _jforward(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                           remat=False)
+    got, _, _ = forward(model, cfg, {"tokens": _t(toks).long()})
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=5e-4)
+    jl, _ = _jloss(jp, jcfg, {"tokens": jnp.asarray(toks),
+                              "labels": jnp.asarray(toks)}, remat=False)
+    tl, _ = loss_fn(model, cfg, {"tokens": _t(toks).long(),
+                                 "labels": _t(toks).long()})
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), rtol=1e-5)
+    cache_len = 24
+    jlast, jcache = _jprefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                              cache_len)
+    last, cache = prefill(model, cfg, {"tokens": _t(toks).long()},
+                          cache_len)
+    np.testing.assert_allclose(_np(last), np.asarray(jlast), atol=5e-4)
+    pos = np.array([20, 20], np.int32)
+    tok = np.argmax(np.asarray(jlast), -1).astype(np.int32)[:, None]
+    for _ in range(3):
+        jlog, jcache = _jdecode(jp, jcfg, jnp.asarray(tok), jcache,
+                                jnp.asarray(pos))
+        log, cache = decode_step(model, cfg, _t(tok).long(), cache,
+                                 _t(pos).long())
+        np.testing.assert_allclose(_np(log), np.asarray(jlog), atol=5e-4)
+        tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)[:, None]
+        pos = pos + 1
+    r0, a0 = jcache["period"]["pos0"], jcache["period"]["pos2"]
+    _within_max(cache[0]["h"], r0["h"][0], 1e-4)
+    np.testing.assert_allclose(_np(cache[0]["conv"]), np.asarray(
+        r0["conv"][0]), atol=1e-5)
+    np.testing.assert_allclose(_np(cache[2]["k"]), np.asarray(a0["k"][0]),
+                               atol=1e-4)
+    np.testing.assert_array_equal(cache[2]["pos"].numpy(),
+                                  np.asarray(a0["pos"][0]))
+
+
+@pytest.mark.parametrize("name", RG_CASES)
+def test_recurrentgemma_engine_matches_reference(name):
+    """The port's ServeEngine and the JAX one on the hybrid cache (RG-LRU
+    state and conv window beside the local KV ring), the same weights
+    and requests: more requests than slots, ragged prompts, one longer
+    than the window, one retired at max_len - 1; the same greedy
+    tokens."""
+    jcfg = _jcfg(name)
+    jp, model, cfg = _pair(jcfg)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 19, 2, 26)]
+    jeng = JServeEngine(jp, jcfg, n_slots=2, max_len=32)
+    eng = ServeEngine(model, cfg, n_slots=2, max_len=32, device="cpu")
+    assert set(eng.cache[0]) == {"h", "conv"}
+    for i, p in enumerate(prompts):
+        jeng.submit(JLMRequest(rid=i, prompt=p, max_new_tokens=5))
+        eng.submit(LMRequest(rid=i, prompt=p, max_new_tokens=5))
+    want, got = jeng.run(), eng.run()
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    for i in want:
+        assert got[i].output == want[i].output, i
+    assert len(got[3].output) == 32 - 1 - 26
+
+
+def test_prefill_h_is_rounded_to_the_model_type_decode_h_is_not():
+    """Prefill's state is the last h after its rounding to the model's
+    type (bfloat16 here), then float32; decode's is the float32 carry,
+    which bfloat16 cannot hold. Prefill's state equals the last row of
+    the block's own sequence output."""
+    cfg = from_reference_arch_config(_hybrid(dtype="bfloat16", n_layers=3))
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 9)))
+    _, cache = prefill(model, cfg, {"tokens": toks}, cache_len=16)
+    h = cache[0]["h"]
+    assert h.dtype == torch.float32
+    assert torch.equal(h, h.bfloat16().float())
+    blk = model.blocks[0]
+    from repro_torch.models.layers import rms_norm
+    x = torch.nn.functional.embedding(toks, model.embed)
+    xr = (rms_norm(x, blk.ln, cfg.norm_eps) @ blk.w_in)[..., :cfg.rnn_w]
+    hseq = rec.rglru_sequence(rec.causal_conv1d(xr, blk.conv), blk.lru)
+    assert torch.equal(h, hseq[:, -1].float())
+    _, cache = decode_step(model, cfg, toks[:, :1], cache,
+                           torch.full((2,), 9))
+    h = cache[0]["h"]
+    assert not torch.equal(h, h.bfloat16().float())
+
+
+@pytest.mark.parametrize("S", [2, 3, 7])
+def test_prefill_conv_state(S):
+    """With S < W - 1 prompt tokens prefill keeps the zero conv state,
+    as the reference; from W - 1 on it holds the last W - 1 inputs.
+    Both against the reference's cache."""
+    jcfg = _hybrid(n_layers=3)
+    jp, model, cfg = _pair(jcfg)
+    toks = np.random.default_rng(S).integers(0, cfg.vocab_size, (2, S)
+                                             ).astype(np.int32)
+    _, jcache = _jprefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, 16)
+    _, cache = prefill(model, cfg, {"tokens": _t(toks).long()}, 16)
+    conv = cache[0]["conv"]
+    assert conv.shape == (2, cfg.conv1d_size - 1, cfg.rnn_w)
+    if S < cfg.conv1d_size - 1:
+        assert not conv.any()
+    np.testing.assert_allclose(_np(conv), np.asarray(
+        jcache["period"]["pos0"]["conv"][0]), atol=1e-5)
+
+
+def test_rglru_cache_layout():
+    cfg = get_config("recurrentgemma_9b", reduced=True)
+    cache = init_cache(cfg, 3, 40, device="cpu")
+    kinds = cfg.layout()
+    for blk, kind in zip(cache, kinds):
+        if kind == "rglru":
+            assert blk["h"].shape == (3, cfg.rnn_w)
+            assert blk["h"].dtype == torch.float32
+            assert blk["conv"].shape == (3, cfg.conv1d_size - 1, cfg.rnn_w)
+            assert not blk["h"].any() and not blk["conv"].any()
+        else:
+            assert blk["k"].shape[1] == min(40, cfg.local_window)
+
+
+def test_convert_round_trip_keeps_rglru_leaves():
+    """The reference's tree (12 x [R, R, A] + [R, R] in the full config's
+    schedule; 2 x [R, R, A] + [R, R] reduced) into the port and back,
+    bit for bit, in a bfloat16 model: the nested ``lru`` dict and the
+    conv taps stay float32, the projections are bfloat16."""
+    jcfg = dataclasses.replace(jget_config("recurrentgemma_9b",
+                                           reduced=True), dtype="bfloat16")
+    params = _reference_weights(jcfg)
+    cfg = from_reference_arch_config(jcfg)
+    model = from_reference_lm_params(params, cfg, device="cpu")
+    blk = model.blocks[0]
+    assert blk.conv.dtype == torch.float32
+    assert all(blk.lru[k].dtype == torch.float32 for k in LRU_NAMES)
+    assert blk.w_in.dtype == torch.bfloat16
+    tree = to_reference_lm_tree(dict(model.named_parameters()), cfg)
+    flat_want = jax.tree_util.tree_leaves_with_path(params)
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(tree))
+    assert len(flat_got) == len(flat_want)
+    for path, want in flat_want:
+        np.testing.assert_array_equal(flat_got[path],
+                                      np.asarray(want, np.float32))
+    assert set(tree["period"]["pos0"]["lru"]) == set(LRU_NAMES)
+    assert tree["period"]["pos0"]["lru"]["a_param"].shape == (
+        2, cfg.rnn_w)
+    assert len(tree["rem"]) == 2
+
+
+def test_recurrentgemma_full_schedule():
+    """The published config: 38 layers, 26 RG-LRU and 12 local attention,
+    12 periods of [R, R, A] and a remainder [R, R]."""
+    cfg = get_config("recurrentgemma_9b")
+    pattern, n_full, rem = cfg.schedule()
+    assert (n_full, rem) == (12, ("rglru", "rglru"))
+    assert cfg.layout().count("rglru") == 26
+    assert cfg.layout().count("local_attn") == 12
+
+
+def test_serve_lm_example_on_cpu(capsys):
+    """The port of examples/serve_lm.py: 10 requests of 12 tokens each
+    through the reduced hybrid model; exit 2 without a GPU by default."""
+    assert serve_lm.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("10 requests, 120 tokens")
+    if not torch.cuda.is_available():
+        assert serve_lm.main([]) == 2
+
+
+# ---------------------------------------------------------------------------
+# what is not ported yet
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fn", ["mlstm_init_state", "mlstm_sequence",
+                                "mlstm_step", "slstm_init_state",
+                                "slstm_sequence", "slstm_step"])
+def test_xlstm_cells_name_roadmap_item(fn):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 13c"):
+        getattr(rec, fn)(None)
+
+
+def test_scan_gradient_off_the_cpu_names_roadmap_item():
+    """The scan kernel has no backward: a call off the CPU that would
+    need a gradient raises naming item 13j before any launch (meta
+    tensors stand in for CUDA ones here); without a gradient the same
+    call only refuses the device."""
+    x = torch.empty((1, 4, 8), device="meta", requires_grad=True)
+    p = [torch.empty(8, device="meta") for _ in LRU_NAMES]
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 13j"):
+        rs.rglru_scan(x, *p)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="unsupported device"):
+            rs.rglru_scan(x, *p)
+
+
+def test_plain_scan_trains_on_the_cpu():
+    """On the CPU the plain scan is differentiable: the reduced hybrid's
+    loss gradient reaches the lru leaves and the conv taps."""
+    cfg = from_reference_arch_config(_hybrid(n_layers=3))
+    model = init_params(torch.Generator().manual_seed(0), cfg).train()
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 10)))
+    loss, _ = loss_fn(model, cfg, {"tokens": toks, "labels": toks})
+    loss.backward()
+    blk = model.blocks[0]
+    assert blk.conv.grad is not None and blk.conv.grad.abs().sum() > 0
+    assert all(blk.lru[k].grad is not None for k in LRU_NAMES)

@@ -1,6 +1,7 @@
 """Profile the port's LM serving path on the GPU.
 
     python3 tools/profile_serve.py [--arch qwen3_4b] [--requests 8]
+        [--kv-quant]
 
 Builds the architecture at full width from a seeded init on the card and
 serves the request set of ``chip_smoke.py`` phase 12 (prompt lengths
@@ -12,12 +13,17 @@ ranges. Prints the card's name and power limit, then one JSON object:
 the engine's counters and tokens/s of both runs, and for the prefill and
 decode ranges of the profiled run their host time, device busy time
 (union of the kernels' intervals inside the ranges), idle share, kernel
-launches and the kernels with the most device time. Needs a CUDA device.
+launches and the kernels with the most device time, and the launches of
+the port's flash, decode attention and RG-LRU scan kernels in the
+profiled run. ``--kv-quant`` serves on the int8 KV cache
+(``dataclasses.replace(cfg, kv_quant=True)``, as the reference sets it);
+``--arch recurrentgemma_9b`` serves the hybrid. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -54,6 +60,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-len", type=int, default=4352)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=10)
+    ap.add_argument("--kv-quant", action="store_true")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -63,7 +70,9 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
     from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
     from repro_torch.models import init_params
     from repro_torch.serve import LMRequest, ServeEngine
 
@@ -71,10 +80,15 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     cfg = get_config(args.arch)
+    if args.kv_quant:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     eng = ServeEngine(init_params(gen, cfg), cfg, n_slots=args.slots,
                       max_len=args.max_len, device="cuda")
+
+    counters = (fa.flash_attention, dk.decode_attention_kernel,
+                rs.rglru_scan)
 
     def serve():
         eng.done.clear()
@@ -84,7 +98,8 @@ def main(argv=None) -> int:
             eng.submit(LMRequest(rid=i,
                                  prompt=rng.integers(0, cfg.vocab_size, n),
                                  max_new_tokens=args.max_new))
-        fa.flash_attention.launches = 0
+        for kernel in counters:
+            kernel.launches = 0
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -136,9 +151,13 @@ def main(argv=None) -> int:
             "top_kernels": [{"name": n[:100], "count": c,
                              "total_ms": t / 1e3} for n, (c, t) in top]}
     summary = {"card": card, "arch": cfg.name, "dtype": cfg.dtype,
+               "kv_quant": cfg.kv_quant,
                "requests": args.requests, "max_new": args.max_new,
                "unprofiled": plain_run, "profiled": profiled_run,
                "flash_launches": fa.flash_attention.launches,
+               "decode_attention_launches":
+                   dk.decode_attention_kernel.launches,
+               "rglru_scan_launches": rs.rglru_scan.launches,
                "device_busy_s": _union_us(
                    (k.time_range.start, k.time_range.end) for k in kernels)
                / 1e6, "kernel_launches": len(kernels), "phases": phases}
