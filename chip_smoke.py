@@ -199,16 +199,21 @@ recurrent layers). Phases:
  25. the decode kernel vs ``decode_attention_plain`` at qwen3-4b's
      serving shape (4 slots of 4352, 8 KV heads of 4 query heads, hd
      128) on the bf16 and the int8 cache, recurrentgemma-9b's wrapped
-     2048-slot local ring (1 KV head of 16, hd 256) in bf16 and a reduced
-     float32 shape, with ragged, empty and late slots: bf16 every element
-     within two bf16 steps plus 1e-4, float32 within 1e-5 x max|out|,
-     the route asserted, two launches bitwise; device time from a CUDA
+     2048-slot local ring (1 KV head of 16, hd 256) in bf16, a reduced
+     float32 shape and an int8 one (hd 64) with a row that sees no slot,
+     with ragged, empty and late slots: bf16 every element within two
+     bf16 steps plus 1e-4, float32 within 1e-5 x max|out|, the route
+     asserted, two launches bitwise, a CUDA graph of one call replayed
+     twice bitwise equal to the eager launch (its arrival counters
+     return to zero), 2 device kernels a call; device time from a CUDA
      graph beside the bound (the visible slots' K and V), the plain
-     version and, for bf16, SDPA with ``enable_gqa`` (a yardstick);
+     version and, for bf16, SDPA with ``enable_gqa`` (a yardstick) timed
+     in a CUDA graph as the kernel is and by events around calls;
  26. the RG-LRU scan kernel (``csrc/rglru_scan.cu``) vs
-     ``rglru_scan_plain`` at (1, 4096, 4096) in bf16 and float32 and at
-     (2, 37, 4096) (bf16 two bf16 steps, float32 1e-5 x max|h|), two
-     launches bitwise, timed beside its bound and the plain loop;
+     ``rglru_scan_plain`` at (1, 4096, 4096) in bf16 and float32, at
+     (2, 37, 4096) and at the tile's edges (bf16 two bf16 steps, float32
+     1e-5 x max|h|), two launches bitwise, graph replays bitwise, 1
+     device kernel a call, timed beside its bound and the plain loop;
  27. recurrentgemma-9b at its published width (38 layers: 26 RG-LRU, 12
      local attention with a 2048 window; bf16, seeded random weights)
      served as in phase 12 (8 requests of 256..4096 tokens, 16 new each,
@@ -2327,9 +2332,11 @@ def phase_train(torch, fa, dev) -> dict:
 # window, rows): qwen3-4b serving (4 slots of 4352, 8 KV heads of 4 query
 # heads, hd 128) on the bf16 and the int8 cache, recurrentgemma-9b's local
 # ring (4 slots of 2048, 1 KV head of 16, hd 256, window 2048) in bf16, and
-# a reduced float32 shape. Rows: "fill" fills a ragged prefix (the rest
-# empty), "ring" a wrapped ring buffer, "late" a prefix whose last slots lie
-# past the query.
+# a reduced float32 shape, and the int8 route at head dim 64 with a row
+# whose every slot lies past its query. Rows: "fill" fills a ragged prefix
+# (the rest empty), "ring" a wrapped ring buffer, "late" a prefix whose last
+# slots lie past the query, "dead" every slot past the query (the softmax
+# over all NEG_INF: p = 1 / T on every slot).
 DECODE_TESTS = [
     ("qwen3-4b bf16", 4, 4352, 8, 4, 128, "bfloat16", 0,
      ("fill", "fill", "fill", "late")),
@@ -2339,6 +2346,8 @@ DECODE_TESTS = [
      ("ring", "ring", "fill", "late")),
     ("reduced float32", 3, 40, 2, 2, 16, "float32", 6,
      ("fill", "ring", "late")),
+    ("int8, hd 64, a row that sees no slot", 3, 70, 2, 4, 64, "int8", 0,
+     ("fill", "dead", "late")),
 ]
 # float32: within this share of max|out| of the plain version (sums in
 # another order, expf against torch.exp)
@@ -2363,6 +2372,9 @@ def decode_inputs(torch, gen, B, T, KV, G, hd, cache, window, rows, dev):
     lens = torch.randint(T // 4, T + 1, (B,), generator=gen, device=dev)
     for b, kind in enumerate(rows):
         n = int(lens[b])
+        if kind == "dead":
+            pos[b] = torch.arange(T, device=dev) + 1
+            continue
         if kind == "ring":
             q_pos[b] = T + n
             p = torch.arange(q_pos[b] - T + 1, q_pos[b] + 1, device=dev)
@@ -2395,11 +2407,81 @@ def decode_bound_ms(q, k, ks, pos, q_pos, window) -> dict:
             "bytes": nbytes, "visible": vis}
 
 
+def graph_replay_equal(torch, fn, want) -> bool:
+    """One ``fn()`` call captured in a CUDA graph and replayed twice: both
+    replays' outputs bitwise ``want`` (an eager launch's), so whatever
+    the call leaves in its workspace (counters, flags) lets it run
+    again."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    same = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(out, want))
+    del graph
+    return all(same)
+
+
+def _cudart():
+    """The CUDA runtime library PyTorch runs on (its soname), or the
+    toolkit's, through ctypes."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for name in ("libcudart.so.12", "libcudart.so",
+                 os.path.join(cuda_home, "lib64", "libcudart.so")):
+        try:
+            return ctypes.CDLL(name)
+        except OSError:
+            continue
+    raise RuntimeError("libcudart not found")
+
+
+def kernels_a_call(torch, fn) -> tuple:
+    """(kernel nodes, all nodes) of a CUDA graph that captured one
+    ``fn()`` call: the device kernels the call launches, counted from
+    the graph (cudaGraphGetNodes, cudaGraphNodeGetType) and not by the
+    profiler, which can drop the device events of a short window."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    rt = _cudart()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = rt.cudaGraphGetNodes(raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * max(1, n.value))()
+    err = err or rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kinds = []
+    for i in range(n.value):
+        kind = ctypes.c_int(-1)
+        err = err or rt.cudaGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                             ctypes.byref(kind))
+        kinds.append(kind.value)
+    del graph
+    if err:
+        raise RuntimeError(f"cudaGraphGetNodes/NodeGetType: CUDA error {err}")
+    # cudaGraphNodeTypeKernel is 0
+    return sum(k == 0 for k in kinds), len(kinds)
+
+
 def phase_decode(torch, dev) -> dict:
     """Phase 25: the decode kernel vs ``decode_attention_plain`` at each
-    DECODE_TESTS shape, the route asserted, two launches bitwise equal;
-    device time from a CUDA graph beside the bound, the plain version
-    and, for bf16, SDPA with ``enable_gqa`` (a yardstick only)."""
+    DECODE_TESTS shape, the route asserted, two launches bitwise equal, a
+    CUDA graph's replays bitwise the eager launch, two device kernels a
+    call (scores_kernel, values_kernel); device time from a CUDA graph
+    beside the bound, the plain version and, for bf16, SDPA with
+    ``enable_gqa`` (a yardstick only), timed both in a CUDA graph as the
+    kernel is and by events around calls."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
     gen = torch.Generator(device=dev)
@@ -2410,9 +2492,12 @@ def phase_decode(torch, dev) -> dict:
         q, k, v, ks, vs, pos, q_pos = decode_inputs(
             torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
         L = dk.split_len(B, KV, G, T)
+
+        def call():
+            return kern(q, k, v, pos, q_pos, win, ks, vs)
         before = dict(kern.routes)
-        got = kern(q, k, v, pos, q_pos, win, ks, vs)
-        again = kern(q, k, v, pos, q_pos, win, ks, vs)
+        got = call()
+        again = call()
         want = dk.decode_attention_plain(q, k, v, pos, q_pos, win, ks, vs)
         torch.cuda.synchronize()
         routed = kern.routes[cache] - before[cache]
@@ -2421,39 +2506,62 @@ def phase_decode(torch, dev) -> dict:
         over = (bf16_over(torch, got, want) if q.dtype == torch.bfloat16
                 else int(err > DECODE_F32_REL * scale))
         bitwise = torch.equal(got, again)
+        replay = graph_replay_equal(torch, call, got)
+        n_kernels, n_nodes = kernels_a_call(torch, call)
         if not (got.shape == q.shape and got.dtype == q.dtype and
                 math.isfinite(err) and over == 0 and bitwise and
-                routed == 2):
+                routed == 2 and replay and n_kernels == n_nodes == 2):
             raise RuntimeError(f"decode_attention {name}: max abs err {err}"
                                f" (max|out| {scale}), {over} over the limit,"
                                f" bitwise {bitwise}, {routed} launches on "
-                               f"route {cache} (want 2)")
+                               f"route {cache} (want 2), graph replays "
+                               f"equal {replay}, {n_kernels} kernels of "
+                               f"{n_nodes} graph nodes a call (want 2 of "
+                               f"2)")
         worst = max(worst, err)
-        ms = graph_ms(torch, lambda: kern(q, k, v, pos, q_pos, win, ks, vs))
-        call_ms = time_ms(torch, lambda: kern(q, k, v, pos, q_pos, win, ks,
-                                               vs), reps=20)
+        ms = graph_ms(torch, call)
+        call_ms = time_ms(torch, call, reps=20)
         plain_ms = time_ms(torch, lambda: dk.decode_attention_plain(
             q, k, v, pos, q_pos, win, ks, vs), reps=3, windows=3)
-        lib_ms = None
+        lib_ms = lib_graph_ms = None
         if cache == "bfloat16":
             mask = dk.visible_slots(pos, q_pos, win)[:, None, None, :]
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
                 v.transpose(1, 2)
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            lib_ms = time_ms(torch, sdpa, reps=20)
+            try:
+                lib_graph_ms = graph_ms(torch, sdpa)
+            except Exception as exc:  # the yardstick only: say why
+                torch.cuda.synchronize()
+                log(f"decode_attention {name}: sdpa(enable_gqa) would not "
+                    f"run in a CUDA graph ({type(exc).__name__}: {exc}); "
+                    f"its event time stands")
         bound = decode_bound_ms(q, k, ks, pos, q_pos, win)
-        timed[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        timed[name] = {"ms": ms, "plain_ms": plain_ms,
+                       "library_ms": (lib_graph_ms if lib_graph_ms
+                                      is not None else lib_ms),
+                       "library_call_ms": lib_ms,
+                       "library_graph_ms": lib_graph_ms,
                        "call_ms": call_ms, **bound}
         limit = ("2 bf16 steps + 1e-4" if q.dtype == torch.bfloat16 else
                  f"{DECODE_F32_REL:g} x max|out|")
+        sdpa_txt = "n/a" if lib_ms is None else (
+            f"{lib_ms:.4f} ms a call, "
+            + ("graph n/a" if lib_graph_ms is None else
+               f"{lib_graph_ms:.4f} ms a launch (CUDA graph)"))
         log(f"decode_attention {name} (B={B} T={T} KV={KV} G={G} hd={hd} "
             f"window={win}, {bound['visible']} of {B * T} slots visible, "
-            f"{-(-T // L)} splits of {L}): route {cache}, max_abs_err "
-            f"{err:.3g} (max|out| "
-            f"{scale:.3g}, limit {limit}), two launches bitwise; kernel "
+            f"{dk.n_splits(T, L)} splits of {L}): route {cache}, max_abs_err"
+            f" {err:.3g} (max|out| "
+            f"{scale:.3g}, limit {limit}), two launches bitwise, graph "
+            f"replays bitwise, {n_kernels} device kernels a call; kernel "
             f"{ms:.4f} ms a launch on the device (CUDA graph), {call_ms:.4f}"
             f" ms a call; plain {plain_ms:.4f} ms; sdpa(enable_gqa) "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
+            f"{sdpa_txt}; bound "
             f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
             f"{bound['bytes'] / 1e6:.2f} MB)")
     return {"max_abs_err": worst, "timed": timed}
@@ -2461,11 +2569,16 @@ def phase_decode(torch, dev) -> dict:
 
 # phase 26: the scan kernel's shapes (B, S, W, dtype): a 4096-token
 # recurrentgemma-9b prefill (rnn width 4096) in bf16 and float32, and a
-# ragged one
+# ragged one; then the tile's edges (32 channels x 256 steps): S off the
+# tile with B > 1 and W off the channel tile, S one step past a tile, and
+# S and W below one tile
 SCAN_TESTS = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32"),
-              (2, 37, 4096, "bfloat16")]
-# float32 h within this share of max|h| of the plain version (expf,
-# log1pf and the division against torch's; the recurrence damps them)
+              (2, 37, 4096, "bfloat16"), (3, 300, 1000, "float32"),
+              (2, 257, 4100, "bfloat16"), (1, 1, 7, "float32")]
+# float32 h within this share of max|h| of the plain version (the carry
+# into each 32-step sub-chunk goes through the product of its a_t, where the
+# plain loop applies them one at a time; expf, log1pf and the division
+# against torch's; the recurrence damps both)
 SCAN_F32_REL = 1e-5
 # float32 operations an element: the two gate pre-activations (4), the two
 # sigmoids (exp, add, divide: 6), log a, a, 2 log a, its exp, 1 - it, the
@@ -2485,8 +2598,9 @@ def scan_inputs(torch, gen, B, S, W, dt, dev):
 def phase_scan(torch, dev) -> dict:
     """Phase 26: the RG-LRU scan kernel vs ``rglru_scan_plain`` at
     SCAN_TESTS (bf16: every element within two bf16 steps + 1e-4;
-    float32: 1e-5 x max|h|), two launches bitwise, timed beside its
-    bound and the plain loop."""
+    float32: 1e-5 x max|h|), two launches bitwise, a CUDA graph's
+    replays bitwise the eager launch, one device kernel a call; timed
+    beside its bound and the plain loop."""
     from repro_torch.kernels import rglru_scan as rs
     gen = torch.Generator(device=dev)
     gen.manual_seed(26)
@@ -2494,8 +2608,11 @@ def phase_scan(torch, dev) -> dict:
     with torch.no_grad():
         for B, S, W, dt in SCAN_TESTS:
             x, p = scan_inputs(torch, gen, B, S, W, getattr(torch, dt), dev)
+            def call():
+                return rs.rglru_scan(x, *p)
             before = rs.rglru_scan.launches
-            got, again = rs.rglru_scan(x, *p), rs.rglru_scan(x, *p)
+            got, again = call(), call()
+            launched = rs.rglru_scan.launches - before
             want = rs.rglru_scan_plain(x, *p)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
@@ -2503,14 +2620,19 @@ def phase_scan(torch, dev) -> dict:
             over = (bf16_over(torch, got, want) if dt == "bfloat16"
                     else int(err > SCAN_F32_REL * scale))
             bitwise = torch.equal(got, again)
+            replay = graph_replay_equal(torch, call, got)
+            n_kernels, n_nodes = kernels_a_call(torch, call)
             if not (got.shape == x.shape and got.dtype == x.dtype and
                     math.isfinite(err) and over == 0 and bitwise and
-                    rs.rglru_scan.launches == before + 2):
+                    launched == 2 and replay and n_kernels == n_nodes == 1):
                 raise RuntimeError(f"rglru_scan ({B}, {S}, {W}) {dt}: max "
                                    f"abs err {err} (max|h| {scale}), {over} "
-                                   f"over the limit, bitwise {bitwise}")
+                                   f"over the limit, bitwise {bitwise}, "
+                                   f"graph replays equal {replay}, "
+                                   f"{n_kernels} kernels of {n_nodes} graph "
+                                   f"nodes a call (want 1 of 1)")
             worst = max(worst, err)
-            ms = graph_ms(torch, lambda: rs.rglru_scan(x, *p), launches=5)
+            ms = graph_ms(torch, call, launches=5)
             plain_ms = time_ms(torch, lambda: rs.rglru_scan_plain(x, *p),
                                reps=1, windows=3)
             nbytes = 2 * x.numel() * x.element_size() + 5 * W * 4
@@ -2520,8 +2642,12 @@ def phase_scan(torch, dev) -> dict:
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations"}
             timed[(B, S, W, dt)] = {"ms": ms, "plain_ms": plain_ms, **bound}
+            limit = ("2 bf16 steps + 1e-4" if dt == "bfloat16" else
+                     f"{SCAN_F32_REL:g} x max|h|")
             log(f"rglru_scan ({B}, {S}, {W}) {dt}: max_abs_err {err:.3g} "
-                f"(max|h| {scale:.3g}), two launches bitwise; kernel "
+                f"(max|h| {scale:.3g}, limit {limit}), two launches "
+                f"bitwise, graph replays bitwise, "
+                f"{n_kernels} device kernel a call; kernel "
                 f"{ms:.4f} ms a launch on the device (CUDA graph), plain "
                 f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
                 f"({bound['bound_by']}: {nbytes / 1e6:.2f} MB, "

@@ -79,14 +79,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "decode_attention": {
         # q, k, v, k_scale, v_scale, pos, qpos, out, scores, stats, part,
-        # B, T, KV, G, hd, window, L, sqrt_hd, is_bf16, cache_type, stream
-        "decode_attention_launch": (*(_P,) * 11, *(_I,) * 7, _F, _I, _I,
+        # vidx, arrivals, B, T, KV, G, hd, window, splits, L, sqrt_hd,
+        # is_bf16, cache_type, stream
+        "decode_attention_launch": (*(_P,) * 13, *(_I,) * 8, _F, _I, _I,
                                     _P),
     },
     "rglru_scan": {
-        # x, a_param, alpha_i, beta_i, alpha_r, beta_r, h, B, S, W,
-        # is_bf16, stream
-        "rglru_scan_launch": (*(_P,) * 7, _I, _I, _I, _I, _P),
+        # x, a_param, alpha_i, beta_i, alpha_r, beta_r, h, work, carry, B,
+        # S, W, is_bf16, stream
+        "rglru_scan_launch": (*(_P,) * 9, _I, _I, _I, _I, _P),
     },
 }
 
@@ -94,6 +95,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# zeroed int32 scratch a kernel leaves zero after every launch (counters,
+# flags), kept by (kernel, device)
+_WORKSPACES: Dict[tuple, "torch.Tensor"] = {}
 
 
 def set_build_dir(path) -> Path:
@@ -185,6 +189,23 @@ def load(name: str) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def workspace(name: str, device, n: int):
+    """At least ``n`` zeroed int32 entries on ``device`` for kernel
+    ``name``, kept for its later launches there (a larger set replaces a
+    smaller one). The kernel returns every entry it used to zero before
+    it ends, so launches reuse the buffer, and a CUDA graph that
+    captured one replays it; launches that share it run in stream order
+    (PyTorch's current stream)."""
+    import torch
+    key = (name, torch.device(device))
+    have = _WORKSPACES.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros((max(n, 4096),), dtype=torch.int32,
+                           device=device)
+        _WORKSPACES[key] = have
+    return have
 
 
 def build_timed(names: Optional[List[str]] = None) -> Dict[str, object]:

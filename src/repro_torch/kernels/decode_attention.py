@@ -27,14 +27,17 @@ on CPU tensors it runs the plain PyTorch version
 ``decode_attention_plain``. Its ``launches`` attribute counts kernel
 calls, ``routes`` counts them by cache type.
 
-The kernel splits T over blocks (``split_len``). Because p is rounded
-after it is normalised (step 5), a one-pass online softmax would round
-un-normalised weights, so the kernel runs in two passes and a last sum:
-pass 1 stores each split's scores and its row max and sum; pass 2
-combines the splits' statistics in split order into the row's max and
-sum, forms and rounds p, and writes each split's partial p . v; the last
-step adds the partials in split order. No atomics: two launches are
-bitwise equal.
+The kernel cuts T into 32-slot chunks dealt round robin to splits
+(``split_len``) and serves 4 query heads of a KV head a block. Because p
+is rounded after it is normalised (step 5), a one-pass online softmax
+would round un-normalised weights, so the kernel runs two launches: pass
+1 compacts each split's visible slots and stores their scores and the
+split's row max and sum; pass 2 combines the splits' statistics in split
+order into the row's max and sum, forms and rounds p, and writes each
+split's partial p . v, and the last block of a row to finish adds the
+partials in split order (an arrival counter picks the block, never the
+order). No atomics in any sum: two launches are bitwise equal, and the
+counters are zero after every launch, so a CUDA graph can replay it.
 """
 from __future__ import annotations
 
@@ -48,12 +51,15 @@ from . import build
 
 NEG_INF = -1.0e30
 MAX_HEAD_DIM = 256
-# blocks the split aims for: two for each of the H100's 132 SMs
+# blocks the splits aim for: one wave of two blocks on each of the H100's
+# 132 SMs
 SPLIT_BLOCKS = 264
-# a split is a multiple of this many slots
-SPLIT_ALIGN = 32
-# the scores of one split (G x its slots) a block keeps in shared memory
-MAX_SPLIT_SCORES = 8192
+# slots of a chunk; the splits take chunks round robin
+CHUNK = 32
+# the most slots a split takes (its scores sit in shared memory)
+MAX_SPLIT_LEN = 2048
+# query heads a block serves (csrc/decode_attention.cu GH)
+HEADS_PER_BLOCK = 4
 # the cache's type -> (the route's code in csrc/decode_attention.cu, its
 # name in ``decode_attention_kernel.routes``)
 _ROUTES = {torch.float32: (0, "float32"), torch.bfloat16: (1, "bfloat16"),
@@ -61,15 +67,21 @@ _ROUTES = {torch.float32: (0, "float32"), torch.bfloat16: (1, "bfloat16"),
 
 
 def split_len(B: int, KV: int, G: int, T: int) -> int:
-    """Slots a block of the kernel takes: T cut into enough splits that
-    B * KV * splits reaches ``SPLIT_BLOCKS``, a multiple of
-    ``SPLIT_ALIGN``, at most ``MAX_SPLIT_SCORES // G`` (and at least
-    ``SPLIT_ALIGN``)."""
-    want = -(-SPLIT_BLOCKS // max(1, B * KV))
-    n = -(-max(1, T) // want)
-    n = -(-n // SPLIT_ALIGN) * SPLIT_ALIGN
-    cap = MAX_SPLIT_SCORES // max(1, G) // SPLIT_ALIGN * SPLIT_ALIGN
-    return max(SPLIT_ALIGN, min(n, cap))
+    """Candidate slots a block of the kernel takes: T cut into ``CHUNK``-
+    slot chunks, dealt round robin to enough splits that the B x KV x
+    ceil(G / 4) x splits blocks come near ``SPLIT_BLOCKS`` without passing
+    it (one wave), each split taking a whole number of chunks, at most
+    ``MAX_SPLIT_LEN`` slots."""
+    units = B * KV * -(-G // HEADS_PER_BLOCK)
+    chunks = -(-max(1, T) // CHUNK)
+    want = max(1, min(chunks, SPLIT_BLOCKS // max(1, units)))
+    per = min(-(-chunks // want), MAX_SPLIT_LEN // CHUNK)
+    return per * CHUNK
+
+
+def n_splits(T: int, L: int) -> int:
+    """Splits of ``L`` candidate slots that cover T."""
+    return -(-(-(-max(1, T) // CHUNK)) // (L // CHUNK))
 
 
 def visible_slots(kv_positions: torch.Tensor, q_position: torch.Tensor,
@@ -199,20 +211,25 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
-    if B * KV > 65535:
-        raise ValueError(f"decode_attention: {B * KV} batch x KV heads "
-                         "exceed the grid's 65535")
+    units = B * KV * -(-G // HEADS_PER_BLOCK)
+    if units > 65535:
+        raise ValueError(f"decode_attention: {units} batch x KV head x "
+                         "head group blocks exceed the grid's 65535")
     q = q.contiguous()
     q_pos = q_position.to(torch.int64).contiguous()
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out.zero_()
     L = split_len(B, KV, G, T)
-    splits = -(-T // L)
+    splits = n_splits(T, L)
     f32 = dict(dtype=torch.float32, device=q.device)
-    scores = torch.empty((B * KV * G * T,), **f32)
-    stats = torch.empty((2 * B * KV * G * splits,), **f32)
-    part = torch.empty((B * KV * splits * G * hd,), **f32)
+    gh = HEADS_PER_BLOCK
+    scores = torch.empty((units * splits * gh * L,), **f32)
+    stats = torch.empty((2 * units * gh * splits,), **f32)
+    part = torch.empty((units * splits * gh * hd,), **f32)
+    vidx = torch.empty((B * splits * (L + 1),), dtype=torch.int32,
+                       device=q.device)
+    arrivals = build.workspace("decode_attention", q.device, units)
     lib = build.load("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_launch(
@@ -221,7 +238,8 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
         None if v_scale is None else v_scale.data_ptr(),
         kv_positions.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         scores.data_ptr(), stats.data_ptr(), part.data_ptr(),
-        B, T, KV, G, hd, int(window), L,
+        vidx.data_ptr(), arrivals.data_ptr(), B, T, KV, G, hd, int(window),
+        splits, L,
         sqrt_hd(hd), int(q.dtype == torch.bfloat16),
         _ROUTES[k_cache.dtype][0], stream)
     if err != 0:

@@ -18,9 +18,16 @@ naming ROADMAP Queue 1 item 13j; on the CPU the plain version is
 differentiable by autograd.
 
 The reference's associative scan combines the steps in a tree; the
-kernel and the plain version take them in order. Both round as the
-plain tensor operations do (no fused multiply-adds); they differ by
-the last bits of the transcendental functions.
+plain version takes them in order. The kernel is a chunked scan: tiles
+of ``SCAN_CHANNELS`` channels x ``SCAN_STEPS`` steps, each cut into
+sub-chunks of ``SCAN_SUB`` steps; a sub-chunk's h is the plain
+recurrence from its carry, and the carry is the previous sub-chunk's
+aggregate, h_in' = (a_1 ... a_n) h_in + (its h from 0), taken in order
+across tiles (tests/test_torch_recurrent.py emulates that arithmetic
+in plain PyTorch). All of them round as the plain tensor operations do
+(no fused multiply-adds); the kernel and the plain loop differ by the
+carries' products and the last bits of the transcendental functions,
+within 1e-5 of max|h| in float32.
 """
 from __future__ import annotations
 
@@ -29,6 +36,10 @@ import torch
 from . import build
 
 RGLRU_C = 8.0
+# the kernel's tile (csrc/rglru_scan.cu CW, TS, TS / SUBS)
+SCAN_CHANNELS = 32
+SCAN_STEPS = 256
+SCAN_SUB = 32
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -99,16 +110,22 @@ def rglru_scan(x: torch.Tensor, a_param: torch.Tensor,
             "kernel)")
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {x.device}")
-    if B > 65535:
-        raise ValueError(f"rglru_scan: batch {B} exceeds the grid's 65535")
+    tiles = B * -(-W // SCAN_CHANNELS) * -(-S // SCAN_STEPS)
+    if tiles >= 2 ** 31:
+        raise ValueError(f"rglru_scan: {tiles} tiles exceed the grid's "
+                         "2^31 - 1")
     x = x.contiguous()
     params = tuple(t.contiguous() for t in params)
     h = torch.empty_like(x)
+    work = build.workspace("rglru_scan", x.device, 2 + tiles)
+    carry = torch.empty((max(1, tiles) * SCAN_CHANNELS,),
+                        dtype=torch.float32, device=x.device)
     lib = build.load("rglru_scan")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.rglru_scan_launch(
-        x.data_ptr(), *(t.data_ptr() for t in params), h.data_ptr(), B, S,
-        W, int(x.dtype == torch.bfloat16), stream)
+        x.data_ptr(), *(t.data_ptr() for t in params), h.data_ptr(),
+        work.data_ptr(), carry.data_ptr(), B, S, W,
+        int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")

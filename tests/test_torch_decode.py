@@ -198,12 +198,28 @@ def test_decode_attention_matches_reference(cache, qdt, KV, G, hd, window):
         assert _bf16_over(_np(got), want) == 0
 
 
+def _split_slots(T, L, split):
+    """The slots split ``split`` takes, in the kernel's order: chunks
+    split, split + splits, ... of ``CHUNK`` slots, cut at T
+    (csrc/decode_attention.cu ``slot_of``)."""
+    i = np.arange(L)
+    t = (split + (i // dk.CHUNK) * dk.n_splits(T, L)) * dk.CHUNK + \
+        i % dk.CHUNK
+    return t[t < T]
+
+
 def _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks=None, vs=None):
-    """The decode kernel's arithmetic in plain torch: T cut by
-    ``split_len``; pass 1 a split's scores, max m_s and sum l_s; pass 2
-    the row's m = max m_s and l = sum l_s exp(m_s - m) in split order,
-    p = exp(s - m) / l (times v_scale), rounded to the value type, each
-    split's partial p . v; the partials added in split order."""
+    """The decode kernel's arithmetic in plain torch: T cut into 32-slot
+    chunks dealt round robin to ``n_splits`` splits (``_split_slots``);
+    pass 1 a split's scores, max m_s and sum l_s (over its visible
+    slots; a split that sees none has m_s = NEG_INF and l_s its slot
+    count, every exp(NEG_INF - NEG_INF) being 1); pass 2 the row's m =
+    max m_s and l = sum l_s exp(m_s - m) in split order, p = exp(s - m)
+    / l (times v_scale), rounded to the value type, each split's partial
+    p . v, and the partials added in split order. A split's invisible
+    slots carry NEG_INF scores, so they add exact zeros here where the
+    kernel skips them (or, in a row that sees no slot, p = 1 / T on
+    every slot, as the kernel lists them all)."""
     B, _, H, hd = q.shape
     T, KV = kc.shape[1], kc.shape[2]
     G = H // KV
@@ -216,10 +232,11 @@ def _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks=None, vs=None):
     s = s / dk.sqrt_hd(hd)
     vis = dk.visible_slots(pos, q_pos, window)
     s = torch.where(vis[:, None, None, :], s, dk.NEG_INF)
-    bounds = [(a, min(T, a + L)) for a in range(0, T, L)]
-    ms = [s[..., a:e].amax(-1) for a, e in bounds]
-    ls = [torch.exp(s[..., a:e] - m[..., None]).sum(-1)
-          for (a, e), m in zip(bounds, ms)]
+    parts = [torch.from_numpy(_split_slots(T, L, i))
+             for i in range(dk.n_splits(T, L))]
+    ms = [s[..., i].amax(-1) for i in parts]
+    ls = [torch.exp(s[..., i] - m[..., None]).sum(-1)
+          for i, m in zip(parts, ms)]
     m = ms[0]
     for m_s in ms[1:]:
         m = torch.maximum(m, m_s)
@@ -231,9 +248,9 @@ def _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks=None, vs=None):
         p = p * vs.permute(0, 2, 1)[:, :, None, :]
     p = p.to(q.dtype if quant else vc.dtype).float()
     out = torch.zeros((B, KV, G, hd))
-    for a, e in bounds:
-        out = out + torch.einsum("bkgt,btkd->bkgd", p[..., a:e],
-                                 vc[:, a:e].float())
+    for i in parts:
+        out = out + torch.einsum("bkgt,btkd->bkgd", p[..., i],
+                                 vc[:, i].float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -243,15 +260,17 @@ def _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks=None, vs=None):
     ("recurrentgemma-9b ring, bf16", 4, 2048, 1, 16, 256, "bfloat16",
      2048, 1.0),
     ("reduced float32", 2, 40, 2, 2, 16, "float32", 0, 0.7),
+    ("int8, rows that see no slot", 3, 70, 2, 4, 64, "int8", 0, 0.0),
 ])
 def test_split_kernel_emulation_within_the_card_limit(name, B, T, KV, G, hd,
                                                       cache, window, filled):
     """The split passes round p after normalising it as the plain version
     does; their sums differ only in order. At the shapes the card runs
     (a half-filled qwen3-4b cache; recurrentgemma's wrapped 2048-slot
-    ring), the emulation is within the limit phase 25 holds the kernel
-    to: every bf16 element within two bf16 steps of the plain version
-    (plus 1e-4), float32 within 1e-5 x max|out|."""
+    ring; ``filled`` 0: every slot past its row's query, the softmax over
+    all NEG_INF), the emulation is within the limit phase 25 holds the
+    kernel to: every bf16 element within two bf16 steps of the plain
+    version (plus 1e-4), float32 within 1e-5 x max|out|."""
     q_dtype = torch.float32 if cache == "float32" else torch.bfloat16
     q, (kc, vc, ks, vs) = _decode_inputs(T + G, B, T, KV, G, hd, cache,
                                          q_dtype)
@@ -260,7 +279,10 @@ def test_split_kernel_emulation_within_the_card_limit(name, B, T, KV, G, hd,
     q_pos = np.zeros(B, np.int64)
     for b in range(B):
         n = max(1, int(T * filled * rng.uniform(0.5, 1.0)))
-        if window:          # a ring that has wrapped past its length
+        if not filled:      # every slot past the query
+            q_pos[b] = 0
+            pos[b] += 1
+        elif window:        # a ring that has wrapped past its length
             q_pos[b] = T + int(rng.integers(0, T))
             for p in range(q_pos[b] - T + 1, q_pos[b] + 1):
                 pos[b, p % T] = p
@@ -270,7 +292,7 @@ def test_split_kernel_emulation_within_the_card_limit(name, B, T, KV, G, hd,
     pos, q_pos = _t(pos), _t(q_pos)
     want = dk.decode_attention_plain(q, kc, vc, pos, q_pos, window, ks, vs)
     got = _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks, vs)
-    assert dk.split_len(B, KV, G, T) < T       # really split
+    assert dk.n_splits(T, dk.split_len(B, KV, G, T)) > 1   # really split
     if q_dtype == torch.float32:
         err = float((got - want).abs().max())
         assert err <= F32_REL * float(want.abs().max()), (name, err)
@@ -279,12 +301,24 @@ def test_split_kernel_emulation_within_the_card_limit(name, B, T, KV, G, hd,
 
 
 def test_split_len_fills_the_card():
-    """Enough splits for two blocks an SM, whole multiples of 32 slots,
-    and the score buffer's cap at large G."""
-    assert dk.split_len(4, 8, 4, 4352) == 512          # 9 splits, 288 blocks
-    assert dk.split_len(4, 1, 16, 2048) == 32          # 64 splits, 256 blocks
-    assert dk.split_len(1, 1, 64, 100000) == 128       # 8192 // 64
+    """Splits of whole 32-slot chunks, as many as bring the B x KV x
+    ceil(G / 4) x splits blocks near one wave of two blocks an SM (264)
+    without passing it, at most 2048 slots; the chunks dealt round robin
+    cover every slot once."""
+    assert dk.split_len(4, 8, 4, 4352) == 544    # 8 splits: 256 blocks
+    assert dk.n_splits(4352, 544) == 8
+    assert dk.split_len(4, 1, 16, 2048) == 128   # 16 splits x 4 groups x 4
+    assert dk.n_splits(2048, 128) == 16
+    assert dk.split_len(1, 1, 64, 100000) == 2048    # the cap
+    assert dk.n_splits(100000, 2048) == 49
     assert dk.split_len(2, 2, 1, 12) == 32
+    assert dk.n_splits(12, 32) == 1
+    for T, L in ((4352, 544), (2048, 128), (1000, 96), (12, 32)):
+        slots = np.concatenate([_split_slots(T, L, i)
+                                for i in range(dk.n_splits(T, L))])
+        assert np.array_equal(np.sort(slots), np.arange(T))
+    assert _split_slots(4352, 544, 1)[:33].tolist() == \
+        list(range(32, 64)) + [8 * 32 + 32]
 
 
 def test_decode_wrapper_rejects_bad_inputs():

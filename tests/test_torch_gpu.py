@@ -775,11 +775,17 @@ def test_decode_wrapper_rejects_bad_inputs_on_card(cuda):
 @pytest.mark.parametrize("B,S,W,dt", [(1, 4096, 4096, "bfloat16"),
                                       (2, 37, 4096, "float32"),
                                       (3, 5, 40, "bfloat16"),
-                                      (1, 1, 7, "float32")])
+                                      (1, 1, 7, "float32"),
+                                      (3, 300, 1000, "float32"),
+                                      (2, 257, 4100, "bfloat16"),
+                                      (1, 512, 64, "float32")])
 def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, dt):
     """The scan kernel against ``rglru_scan_plain`` on the same card
     tensors (float32 within 1e-5 x max|h|, bf16 within two bf16 steps),
-    one launch, a second one bitwise equal."""
+    one launch, a second one bitwise equal; the tile's edges (32
+    channels x 256 steps): S off the tile with B > 1 and W off the
+    channel tile, S one step past a tile, S two whole tiles, and S and W
+    below one tile."""
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
     gen = torch.Generator(device=cuda)
     gen.manual_seed(S + W)
@@ -801,6 +807,104 @@ def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, dt):
     else:
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=2.0 ** -6, atol=1e-4)
+
+
+def test_decode_kernel_row_that_sees_no_slot(cuda):
+    """A row whose every slot lies past its query: the softmax over all
+    NEG_INF gives p = 1 / T on every slot, as the plain version; the
+    other row as usual."""
+    from repro_torch.kernels.decode_attention import (decode_attention_kernel,
+                                                      decode_attention_plain)
+    q, k, v, ks, vs, pos, q_pos = _decode_case(5, 2, 70, 2, 4, 64, "int8",
+                                               0, cuda)
+    pos[0] = torch.arange(70, device=cuda) + 1
+    q_pos[0] = 0
+    got = decode_attention_kernel(q, k, v, pos, q_pos, 0, ks, vs)
+    want = decode_attention_plain(q, k, v, pos, q_pos, 0, ks, vs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+
+
+def _graph_replays(fn):
+    """One ``fn()`` call captured in a CUDA graph and replayed twice."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    return replays
+
+
+def _graph_kernel_nodes(fn):
+    """(kernel nodes, all nodes) of a CUDA graph of one ``fn()`` call,
+    read through the CUDA runtime (the profiler can drop the device
+    events of a short window)."""
+    import ctypes
+    rt = None
+    for name in ("libcudart.so.12", "libcudart.so"):
+        try:
+            rt = ctypes.CDLL(name)
+            break
+        except OSError:
+            continue
+    assert rt is not None, "libcudart not found"
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * max(1, n.value))()
+    assert rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for i in range(n.value):
+        kind = ctypes.c_int(-1)
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                       ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return sum(k == 0 for k in kinds), len(kinds)   # 0: a kernel node
+
+
+@pytest.mark.parametrize("kernel", ["decode", "scan"])
+def test_kernels_replay_in_a_cuda_graph(cuda, kernel):
+    """The decode kernel's arrival counters and the scan's tile counter
+    and flags are zero after every launch: a CUDA graph of one call
+    replays bitwise the eager launch, twice; a call launches 2 device
+    kernels (decode) or 1 (scan)."""
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    if kernel == "decode":
+        args = _decode_case(3, 4, 4352, 8, 4, 128, "bfloat16", 0, cuda)
+        q, k, v, ks, vs, pos, q_pos = args
+
+        def fn():
+            return decode_attention_kernel(q, k, v, pos, q_pos, 0, ks, vs)
+        launches = 2     # scores_kernel, values_kernel
+    else:
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(4)
+        x = torch.randn((1, 1000, 4096), generator=gen,
+                        device=cuda).bfloat16()
+        p = [torch.rand((4096,), generator=gen, device=cuda) + 0.5
+             for _ in range(5)]
+
+        def fn():
+            return rglru_scan(x, *p)
+        launches = 1     # rglru_scan_kernel
+    with torch.no_grad():
+        want = fn()
+        for got in _graph_replays(fn):
+            assert torch.equal(got, want)
+        assert _graph_kernel_nodes(fn) == (launches, launches)
 
 
 def test_rglru_scan_kernel_refuses_a_gradient(cuda):

@@ -6,9 +6,11 @@ the reference's associative scan adds in another order than the port's
 loop), reduced recurrentgemma-9b's forward, prefill and decode logits
 (atol 5e-4) and the serving engine's greedy tokens (equal), the two
 prefill-state rules, the weights' round trip through ``convert``, and
-the names of the parts still to port. Here the scan takes its plain
-version (CPU tensors); tests/test_torch_gpu.py holds the kernel to it on
-a card."""
+the names of the parts still to port, and a plain-torch emulation of
+the scan kernel's chunked arithmetic (``csrc/rglru_scan.cu``) held to
+the plain loop and to the reference's associative scan within the limit
+the card holds the kernel to. Here the scan takes its plain version (CPU
+tensors); tests/test_torch_gpu.py holds the kernel to it on a card."""
 import dataclasses
 
 import jax
@@ -168,6 +170,86 @@ def test_scan_plain_equals_steps_and_rounds_to_x():
     for t in range(6):
         o, h = rec.rglru_step(x[:, t], h, p)
         assert torch.equal(o, seq[:, t])
+
+
+def _emulate_chunked_scan(x, a_param, alpha_i, beta_i, alpha_r, beta_r,
+                          sub=rs.SCAN_SUB):
+    """The scan kernel's arithmetic (csrc/rglru_scan.cu) in plain torch,
+    rounded as the kernel rounds (separate products and sums): the
+    coefficients; each sub-chunk of ``sub`` steps scanned from 0 into its
+    aggregate (A = its a_t multiplied in step order, L = its h from 0);
+    the carries h_in' = A h_in + L in sub-chunk order from 0 (the
+    kernel's tiles of SCAN_STEPS steps hand the last one to the next tile,
+    so the chain runs over sub-chunks whatever the tile); then each
+    sub-chunk's recurrence re-run from its carry. A ragged last sub-chunk
+    is padded with identity steps (a = 1, b = 0), exact as the kernel's
+    shorter loop."""
+    a_t, b_t = rs.rglru_coeffs(x, a_param, alpha_i, beta_i, alpha_r,
+                               beta_r)
+    B, S, W = a_t.shape
+    n = -(-S // sub)
+    if n * sub > S:
+        pad = n * sub - S
+        a_t = torch.cat([a_t, a_t.new_ones((B, pad, W))], dim=1)
+        b_t = torch.cat([b_t, b_t.new_zeros((B, pad, W))], dim=1)
+    a_t, b_t = a_t.reshape(B, n, sub, W), b_t.reshape(B, n, sub, W)
+    A = torch.ones_like(a_t[:, :, 0])
+    L = torch.zeros_like(a_t[:, :, 0])
+    for j in range(sub):
+        L = a_t[:, :, j] * L + b_t[:, :, j]
+        A = a_t[:, :, j] * A
+    h_in = torch.empty_like(A)
+    hc = torch.zeros_like(A[:, 0])
+    for k in range(n):
+        h_in[:, k] = hc
+        hc = A[:, k] * hc + L[:, k]
+    h, out = h_in, []
+    for j in range(sub):
+        h = a_t[:, :, j] * h + b_t[:, :, j]
+        out.append(h)
+    return torch.stack(out, dim=2).reshape(B, n * sub, W)[:, :S].to(x.dtype)
+
+
+def _bf16_within(got, want):
+    """Every element within two bf16 steps of |want| plus 1e-4 (the limit
+    chip_smoke.py phase 26 holds the kernel to)."""
+    got, want = _np(got), np.asarray(want, np.float32)
+    over = np.abs(got - want) > 1e-4 + 2.0 ** -6 * np.abs(want)
+    assert not over.any(), (int(over.sum()), float(np.abs(got - want).max()))
+
+
+@pytest.mark.parametrize("B,S,W,dt", [(1, 4096, 4096, "float32"),
+                                      (1, 4096, 4096, "bfloat16"),
+                                      (3, 300, 1000, "float32"),
+                                      (2, 37, 40, "bfloat16")])
+def test_chunked_scan_emulation_within_the_card_limit(B, S, W, dt):
+    """The chunked scan's carries go through the product of each
+    sub-chunk's a_t where the plain loop applies them one at a time: at
+    recurrentgemma-9b's 4096-token prefill (rnn width 4096) and at ragged
+    shapes (S off the sub-chunk and the tile, B > 1, W off the channel
+    tile) the emulation is within the limit the card holds the kernel to
+    against ``rglru_scan_plain`` (float32 1e-5 x max|h|, bf16 two bf16
+    steps + 1e-4), and within the same limit of the reference's
+    ``rglru_sequence`` (JAX's associative scan)."""
+    rng = np.random.default_rng(S + W)
+    xf = (rng.standard_normal((B, S, W)) * 2).astype(np.float32)
+    p = _lru(W, W)
+    x = _t(xf).to(getattr(torch, dt))
+    tp = [_t(p[k]) for k in LRU_NAMES]
+    got = _emulate_chunked_scan(x, *tp)
+    plain = rs.rglru_scan_plain(x, *tp)
+    jx = jnp.asarray(x.float().numpy()).astype(getattr(jnp, dt))
+    ref = jrec.rglru_sequence(jx, {k: jnp.asarray(v) for k, v in p.items()})
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert got.shape == x.shape and got.dtype == x.dtype
+    if dt == "float32":
+        _within_max(got, _np(plain))
+        _within_max(got, ref)
+        # the carries really took another way than the plain loop
+        assert not torch.equal(got, plain)
+    else:
+        _bf16_within(got, _np(plain))
+        _bf16_within(got, ref)
 
 
 def test_rglru_scan_rejects_bad_parameters():

@@ -21,11 +21,19 @@ Bounds, each with its reason:
   corrections and its reduction order for the norm are its own: m, v
   and the norm within rtol 1e-6, the parameters within 1e-6 of the
   leaf's largest entry;
-- three train steps: losses and grad norms rtol 1e-5; every parameter
-  within 2e-3 lr per step taken: AdamW's step m / sqrt(v) is
-  scale-free, so an element whose gradient is near zero takes a step of
-  up to lr whatever the gradient's last bits, and those bits differ
-  between the frameworks' summation orders;
+- three train steps: losses and grad norms rtol 1e-5; at every step
+  each gradient leaf after the clip within 1e-4 of its largest |g| (as
+  above: this is the check that pins the step); every parameter within
+  2e-3 lr per step taken where AdamW's step has been well-conditioned,
+  that is where the reference's |m-hat| was 0 or at least 100 eps at
+  every step so far. AdamW's step m-hat / (sqrt(v-hat) + eps) is
+  scale-free, so where 0 < |g| ~ eps it is lr g / (|g| + eps), and a
+  last-bit difference of g (the frameworks sum in other orders) moves
+  it by a share of lr, not of g. There the parameter is held to the
+  step's own bound, 2 lr per step taken (at b1 0.9 and b2 0.95,
+  |m-hat / (sqrt(v-hat) + eps)| stays at or under about 1 over three
+  steps), and such elements are at most 0.1% of the model's at each
+  step;
 - the token pipeline, checkpoints and resume: bit for bit.
 The kernel itself is held to its plain version on the card
 (tests/test_torch_gpu.py, chip_smoke.py phase 23).
@@ -296,11 +304,35 @@ def _jax_state(jcfg, np_params):
     return jloop.init_train_state(jax.tree.map(jnp.asarray, np_params))
 
 
+def _reference_clipped_grads(jcfg, **kw):
+    """A jitted function of (state, batch) that returns the clipped
+    gradients the reference's ``make_train_step`` hands to AdamW: the
+    step traced with the update replaced by one that returns them as
+    the new parameters (the patch lives only while the step is traced)."""
+    step = jloop.make_train_step(jcfg, **kw)
+    real = jloop.adamw_update
+
+    def grads_of(state, batch):
+        jloop.adamw_update = lambda grads, opt, params, lr: (grads, opt)
+        try:
+            return step(state, batch)[0].params
+        finally:
+            jloop.adamw_update = real
+    return jax.jit(grads_of)
+
+
+# AdamW's eps (the reference's default), and the share of the model's
+# elements whose step may be ill-conditioned at one train step
+ADAM_EPS = 1e-8
+ILL_SHARE = 1e-3
+
+
 @pytest.mark.parametrize("accum", [1, 2])
-def test_train_steps_match_reference(accum):
+def test_train_steps_match_reference(accum, monkeypatch):
     """Three steps of ``make_train_step`` from the same weights on the
-    same batches: losses, grad norms and every parameter after each step
-    (clip 1.0, so the clip is live)."""
+    same batches (clip 1.0, so the clip is live): losses, grad norms,
+    every gradient leaf after the clip, and every parameter after each
+    step, the parameters held as the docstring's bounds list says."""
     jcfg = jget_config("qwen3_4b", reduced=True)
     np_params = _reference_weights(jcfg)
     cfg = convert.from_reference_arch_config(jcfg)
@@ -309,27 +341,63 @@ def test_train_steps_match_reference(accum):
         jax.tree.map(np.asarray, jstate), cfg, device="cpu")
     kw = dict(peak_lr=1e-2, warmup=2, total_steps=10, accum=accum)
     jstep = jax.jit(jloop.make_train_step(jcfg, **kw))
+    jgrads_of = _reference_clipped_grads(jcfg, **kw)
     tstep = loop.make_train_step(cfg, **kw)
+    seen = {}
+    real_update = loop.adamw_update
+
+    def spy(grads, *args, **kwargs):
+        seen["grads"] = {n: g.clone() for n, g in grads.items()}
+        return real_update(grads, *args, **kwargs)
+
     pipe = SyntheticTokenPipeline(cfg, 4, 16, seed=3)
+    ill = None   # elements whose AdamW step has been ill-conditioned
+    n_elems = sum(int(np.size(x)) for x in jax.tree.leaves(jstate.params))
+    monkeypatch.setattr(loop, "adamw_update", spy)
     for t in range(3):
         batch = pipe.next_batch()
-        jstate, jm = jstep(jstate, {k: jnp.asarray(x) for k, x in
-                                    batch.items()})
+        jbatch = {k: jnp.asarray(x) for k, x in batch.items()}
+        jgrads = jgrads_of(jstate, jbatch)
+        jstate, jm = jstep(jstate, jbatch)
         state, tm = tstep(state, batch)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=1e-5)
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=1e-5)
         np.testing.assert_allclose(tm["lr"], float(jm["lr"]), rtol=1e-6)
+        tgrads = dict(jax.tree_util.tree_flatten_with_path(
+            convert.to_reference_lm_tree(seen.pop("grads"), cfg))[0])
+        for path, want in jax.tree_util.tree_flatten_with_path(
+                jgrads)[0]:
+            want = np.asarray(want)
+            np.testing.assert_allclose(
+                tgrads[path], want, rtol=0,
+                atol=1e-4 * float(np.abs(want).max()),
+                err_msg=f"step {t} grad {jax.tree_util.keystr(path)}")
+        # the reference's bias-corrected first moment after this step
+        bc1 = 1.0 - 0.9 ** (t + 1)
+        m_hat = {p: np.abs(np.asarray(m)) / bc1 for p, m in
+                 jax.tree_util.tree_flatten_with_path(jstate.opt.m)[0]}
+        now_ill = {p: (m > 0) & (m < 100 * ADAM_EPS)
+                   for p, m in m_hat.items()}
+        ill = now_ill if ill is None else {
+            p: ill[p] | now_ill[p] for p in ill}
         got = convert.to_reference_lm_tree(
             dict(state.params.named_parameters()), cfg)
         flat_t = dict(jax.tree_util.tree_flatten_with_path(got)[0])
         for path, want in jax.tree_util.tree_flatten_with_path(
                 jstate.params)[0]:
-            np.testing.assert_allclose(
-                flat_t[path], np.asarray(want), rtol=0,
-                atol=2e-3 * kw["peak_lr"] * (t + 1),
-                err_msg=jax.tree_util.keystr(path))
+            diff = np.abs(np.asarray(flat_t[path], np.float32)
+                          - np.asarray(want, np.float32))
+            bound = np.where(ill[path], 2 * kw["peak_lr"],
+                             2e-3 * kw["peak_lr"]) * (t + 1)
+            worst = int(np.argmax(diff - bound))
+            assert (diff <= bound).all(), (
+                f"step {t} {jax.tree_util.keystr(path)}: element "
+                f"{worst} off by {diff.flat[worst]:.3g}, bound "
+                f"{bound.flat[worst]:.3g}")
+        n_ill = sum(int(m.sum()) for m in now_ill.values())
+        assert n_ill <= ILL_SHARE * n_elems, (t, n_ill, n_elems)
     assert state.step == int(jstate.step) == 3
     assert state.opt.count == int(jstate.opt.count) == 3
 
