@@ -20,8 +20,9 @@ the winning crossbar geometry (the ``imc_matmul`` kernel); and the LM
 serving engine ``repro_torch.serve.ServeEngine`` on qwen3-4b at full
 width (the ``flash_attention`` kernel in every prefill, the
 ``decode_attention`` kernel in every decode step, on the bf16 and the
-int8 cache) and on recurrentgemma-9b (the ``rglru_scan`` kernel in its
-recurrent layers). Phases:
+int8 cache), on recurrentgemma-9b (the ``rglru_scan`` kernel in its
+recurrent layers) and on xlstm-350m (the ``mlstm_scan`` and
+``slstm_scan`` kernels in its prefills and decode steps). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together), with
@@ -221,7 +222,31 @@ recurrent layers). Phases:
      wall, prefill and decode tokens/s, peak memory; then a 3-layer
      [R, R, A] cut at full width in float32: a 512-token prefill and 2
      decode steps on the card (the three kernels) and on the CPU (their
-     plain versions), logits within 1e-3 x max|logits|.
+     plain versions), logits within 1e-3 x max|logits|;
+ 28. the mLSTM scan kernel (``csrc/mlstm_scan.cu``) vs
+     ``mlstm_scan_plain`` at (B, S, H, hd) = (1, 4096, 4, 512),
+     (4, 1, 4, 512) and (2, 37, 4, 16), and the sLSTM scan kernel
+     (``csrc/slstm_scan.cu``) vs ``slstm_scan_plain`` at (B, S, w) =
+     (1, 4096, 1024) and (4, 1, 1024) with bf16 gates and (4, 1, 1024)
+     and (2, 37, 32) in float32, each from a random state: h and every
+     state tensor within 1e-5 of their largest entry, the route asserted
+     (head width; gates' type), two launches bitwise (h and state), a
+     CUDA graph of one call replayed twice from the state restored before
+     each replay bitwise the eager launch, 1 device kernel a call, the
+     scan over S - 1 steps and then 1 bitwise the scan over S; device
+     time from a CUDA graph beside the bound and the plain loop, and the
+     sLSTM's chain floor (one warp of chains alone at S = 4096);
+ 29. xlstm-350m at its published width (24 layers [slstm, mlstm] x 12,
+     d 1024, mLSTM heads of 512, bf16, seeded random weights) served as
+     in phase 12: 12 launches of each scan kernel a prefill and a decode
+     step, every mLSTM launch on its hd-512 route and every sLSTM launch
+     on bf16; wall, prefill and decode tokens/s, peak memory; the first
+     sLSTM and mLSTM layers' scans on the model's own inputs split at the
+     last prompt token bitwise the whole, and prefill(N) + a decode step
+     bitwise prefill(N + 1) in every state tensor of every layer; then a
+     2-layer [slstm, mlstm] cut at full width in float32: a 512-token
+     prefill and 2 decode steps on the card and on the CPU, logits within
+     1e-3 x max|logits|.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -2749,6 +2774,415 @@ def phase_recurrentgemma(torch, fa, dev) -> dict:
             "decode": run["launches"][2], "wall": run["wall"]}
 
 
+# phase 28: the xLSTM scans' shapes. mLSTM (B, S, H, hd): a 4096-token
+# xlstm-350m prefill (4 heads of 512), its decode step at 4 slots, and a
+# ragged reduced one (heads of 16); sLSTM (B, S, w, gates' type): the
+# prefill (width 1024) with bf16 gates, the decode step at 4 slots in bf16
+# and float32, and a ragged reduced float32 one
+MLSTM_TESTS = [(1, 4096, 4, 512), (4, 1, 4, 512), (2, 37, 4, 16)]
+SLSTM_TESTS = [(1, 4096, 1024, "bfloat16"), (4, 1, 1024, "bfloat16"),
+               (4, 1, 1024, "float32"), (2, 37, 32, "float32")]
+# h and the state within this share of their largest entry of the plain
+# version's (the state rounds as the plain loop; the mLSTM's dot products
+# are summed in another order; the transcendentals' last bits may differ)
+XLSTM_REL = 1e-5
+# float32 operations a step and (b, head) of the mLSTM: 6 an element of C
+# (v_i k_j, i_g x it, f_g C, their sum; C' q's product and sum) and 6 a row
+# (n's update f_g n + i_g k and n' . q: 5; h's division: 1), the gates'
+# few scalars left out; of the sLSTM, a step and channel: 4 products and 4
+# sums into pre (8), the sigmoid (negate, exp, add, divide: 4), tanh (1),
+# -softplus(-pre_f) (negate, abs, negate, exp, log1p, max, add, negate:
+# 8), log f + m, the max, 2 differences and 2 exps (6), c (2 products, a
+# sum: 3), n (a product, a sum, the floor: 3), c / n and o x it (2)
+MLSTM_OPS_C, MLSTM_OPS_ROW = 6, 6
+SLSTM_OPS = 35
+
+
+def xlstm_state(torch, gen, shapes, dev, positive=()):
+    """Random state tensors of ``shapes`` (a dict name -> shape): normal,
+    |normal| + 0.5 for the names in ``positive``."""
+    out = {}
+    for name, shape in shapes.items():
+        t = torch.randn(shape, generator=gen, device=dev)
+        out[name] = t.abs() + 0.5 if name in positive else t
+    return out
+
+
+def scan_check(torch, name, call, plain, state, route_of, route):
+    """One scan kernel against its plain version on the same inputs and a
+    copy each of ``state``: h and every state tensor within XLSTM_REL of
+    their largest entry, ``route`` counted twice for two launches that are
+    bitwise equal (h and state), a CUDA graph of one call replayed twice
+    from the state restored before each replay bitwise the eager launch,
+    one device kernel a call. Returns the max abs error."""
+    def fresh():
+        return {k: t.clone() for k, t in state.items()}
+    before = route_of()
+    s1, s2, sp = fresh(), fresh(), fresh()
+    got, again = call(s1), call(s2)
+    want = plain(sp)
+    torch.cuda.synchronize()
+    routed = route_of() - before
+    errs = [float((got - want).abs().max())]
+    over = int(errs[0] > XLSTM_REL * float(want.abs().max()))
+    for k in state:
+        errs.append(float((s1[k] - sp[k]).abs().max()))
+        over += int(errs[-1] > XLSTM_REL * float(sp[k].abs().max()))
+    bitwise = torch.equal(got, again) and all(
+        torch.equal(s1[k], s2[k]) for k in state)
+    # the graph works on static state tensors, restored before each replay
+    static = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(fresh())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = call(static)
+    replay = True
+    for _ in range(2):
+        for k in state:
+            static[k].copy_(state[k])
+        graph.replay()
+        torch.cuda.synchronize()
+        replay &= torch.equal(out, got) and all(
+            torch.equal(static[k], s1[k]) for k in state)
+    del graph
+    scratch = fresh()
+    n_kernels, n_nodes = kernels_a_call(torch, lambda: call(scratch))
+    if not (all(math.isfinite(e) for e in errs) and over == 0 and bitwise
+            and routed == 2 and replay and n_kernels == n_nodes == 1):
+        raise RuntimeError(f"{name}: max abs errs (h, {', '.join(state)}) "
+                           f"{errs}, {over} over {XLSTM_REL:g} x max, "
+                           f"bitwise {bitwise}, {routed} launches on route "
+                           f"{route} (want 2), graph replays equal {replay},"
+                           f" {n_kernels} kernels of {n_nodes} graph nodes a"
+                           f" call (want 1 of 1)")
+    return max(errs)
+
+
+def split_check(torch, name, call, state, S, cut):
+    """The scan over S steps against the scan over the first ``cut``
+    steps followed by the rest from the state it left (a prefill, then
+    decode steps): the state and the later h bitwise. ``call(state, t0,
+    t1)`` runs steps t0..t1 - 1."""
+    one = {k: t.clone() for k, t in state.items()}
+    two = {k: t.clone() for k, t in state.items()}
+    h_all = call(one, 0, S)
+    call(two, 0, cut)
+    h_rest = call(two, cut, S)
+    torch.cuda.synchronize()
+    if not (torch.equal(h_all[:, cut:], h_rest) and all(
+            torch.equal(one[k], two[k]) for k in state)):
+        raise RuntimeError(f"{name}: the scan over {S} steps and over "
+                           f"{cut} + {S - cut} steps differ")
+
+
+def phase_xlstm_kernels(torch, dev) -> dict:
+    """Phase 28: the mLSTM and sLSTM scan kernels vs ``mlstm_scan_plain``
+    and ``slstm_scan_plain`` at MLSTM_TESTS and SLSTM_TESTS from a random
+    state (``scan_check``: XLSTM_REL, route, two launches bitwise, graph
+    replays from a restored state bitwise, one device kernel a call); a
+    scan split in two bitwise the whole one; device time a launch from a
+    CUDA graph beside the bound and the plain loop; the sLSTM's chain
+    floor, one warp's chains alone (B = 1, w = 32) at the same S."""
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.kernels import slstm_scan as ss
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    out = {"mlstm": {}, "slstm": {}, "max_abs_err": {}}
+    worst = 0.0
+    with torch.no_grad():
+        for B, S, H, hd in MLSTM_TESTS:
+            q, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+                       for _ in range(3))
+            k = k * (1.0 / math.sqrt(hd))
+            i_pre, f_pre = (torch.randn((B, S, H), generator=gen,
+                                        device=dev) * 2 for _ in range(2))
+            state = xlstm_state(torch, gen, {"C": (B, H, hd, hd),
+                                             "n": (B, H, hd), "m": (B, H)},
+                                dev)
+            state["C"] *= 0.3
+            args = (q, k, v, i_pre, f_pre)
+
+            def call(st, a=args):
+                return ms.mlstm_scan(*a, st["C"], st["n"], st["m"])
+
+            def plain(st, a=args):
+                return ms.mlstm_scan_plain(*a, st["C"], st["n"], st["m"])
+            route = f"hd{hd}"
+            label = f"mlstm_scan ({B}, {S}, {H}, {hd})"
+            err = scan_check(torch, label, call, plain, state,
+                             lambda: ms.mlstm_scan.routes[route], route)
+            if S > 1:
+                split_check(torch, label, lambda st, t0, t1: ms.mlstm_scan(
+                    *(a[:, t0:t1] for a in args), st["C"], st["n"],
+                    st["m"]), state, S, S - 1)
+            worst = max(worst, err)
+            long = S > 256
+            ms_ = graph_ms(torch, lambda: call(state),
+                           launches=5 if long else 20,
+                           reps=5 if long else 10)
+            plain_ms = time_ms(torch, lambda: plain(
+                {k_: t.clone() for k_, t in state.items()}),
+                reps=1 if long else 5, windows=3)
+            flops = B * S * H * (MLSTM_OPS_C * hd * hd + MLSTM_OPS_ROW * hd)
+            nbytes = 4 * (4 * B * S * H * hd + 2 * B * S * H
+                          + 2 * B * H * (hd * hd + hd + 1))
+            t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+            t_ops = flops / PEAK_FP32_FLOPS * 1e3
+            bound = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+            out["mlstm"][(B, S, H, hd)] = {"ms": ms_, "plain_ms": plain_ms,
+                                           **bound}
+            log(f"{label}: route {route}, max_abs_err {err:.3g} (h and "
+                f"state, limit {XLSTM_REL:g} x max), two launches bitwise, "
+                f"graph replays from the restored state bitwise, 1 device "
+                f"kernel a call" + (f", {S - 1} + 1 steps bitwise {S}"
+                                    if S > 1 else "")
+                + f"; kernel {ms_:.4f} ms a launch on the device (CUDA "
+                f"graph), plain {plain_ms:.4f} ms, bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        out["max_abs_err"]["mlstm"] = worst
+        worst = 0.0
+        for B, S, w, dt in SLSTM_TESTS:
+            gates = (torch.randn((B, S, w, 4), generator=gen, device=dev)
+                     * 2).to(getattr(torch, dt))
+            r = torch.randn((w, 4), generator=gen, device=dev) * 0.5
+            state = xlstm_state(torch, gen, {k: (B, w) for k in "cnmh"},
+                                dev, positive=("n",))
+
+            def call(st, g=gates, r=r):
+                return ss.slstm_scan(g, r, st["c"], st["n"], st["m"],
+                                     st["h"])
+
+            def plain(st, g=gates, r=r):
+                return ss.slstm_scan_plain(g, r, st["c"], st["n"], st["m"],
+                                           st["h"])
+            label = f"slstm_scan ({B}, {S}, {w}) {dt}"
+            err = scan_check(torch, label, call, plain, state,
+                             lambda: ss.slstm_scan.routes[dt], dt)
+            if S > 1:
+                split_check(torch, label, lambda st, t0, t1: ss.slstm_scan(
+                    gates[:, t0:t1], r, st["c"], st["n"], st["m"], st["h"]),
+                    state, S, S - 1)
+            worst = max(worst, err)
+            long = S > 256
+            ms_ = graph_ms(torch, lambda: call(state),
+                           launches=5 if long else 20,
+                           reps=5 if long else 10)
+            plain_ms = time_ms(torch, lambda: plain(
+                {k_: t.clone() for k_, t in state.items()}),
+                reps=1 if long else 5, windows=3)
+            nbytes = (gates.numel() * gates.element_size() + 4 * B * S * w
+                      + 16 * w + 2 * 4 * 4 * B * w)
+            t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+            t_ops = SLSTM_OPS * B * S * w / RATE_FP32 * 1e3
+            entry = {"ms": ms_, "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+            chain = ""
+            if long:
+                # the chain's floor: one warp of chains alone, same S
+                g1 = gates[:1, :, :32].contiguous()
+                r1 = r[:32].contiguous()
+                st1 = {k: t[:1, :32].contiguous() for k, t in state.items()}
+                entry["chain_ms"] = graph_ms(
+                    torch, lambda: ss.slstm_scan(g1, r1, st1["c"], st1["n"],
+                                                 st1["m"], st1["h"]),
+                    launches=5, reps=5)
+                chain = (f"; one warp's chains alone (1, {S}, 32): "
+                         f"{entry['chain_ms']:.4f} ms, "
+                         f"{entry['chain_ms'] * 1e6 / S:.1f} ns a step")
+            out["slstm"][(B, S, w, dt)] = entry
+            log(f"{label}: route {dt}, max_abs_err {err:.3g} (h and state, "
+                f"limit {XLSTM_REL:g} x max), two launches bitwise, graph "
+                f"replays from the restored state bitwise, 1 device kernel "
+                f"a call" + (f", {S - 1} + 1 steps bitwise {S}"
+                             if S > 1 else "")
+                + f"; kernel {ms_:.4f} ms a launch on the device (CUDA "
+                f"graph), plain {plain_ms:.4f} ms, bound "
+                f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: "
+                f"{nbytes / 1e6:.2f} MB, "
+                f"{SLSTM_OPS * B * S * w / 1e9:.3f} G float32 ops){chain}")
+        out["max_abs_err"]["slstm"] = worst
+    return out
+
+
+class ScanInputs:
+    """Records the inputs of the first ``mlstm_scan`` and ``slstm_scan``
+    call the model makes (through ``models.recurrent``), for replaying
+    them: ``calls`` maps the kind to the inputs."""
+
+    def __init__(self):
+        from repro_torch.models import recurrent as rec
+        self.rec, self.calls = rec, {}
+
+    def __enter__(self):
+        self.saved = (self.rec.mlstm_scan, self.rec.slstm_scan)
+        m_fn, s_fn = self.saved
+
+        def m_rec(q, k, v, i, f, *state):
+            self.calls.setdefault("mlstm", [t.clone() for t in
+                                            (q, k, v, i, f)])
+            return m_fn(q, k, v, i, f, *state)
+
+        def s_rec(g, r, *state):
+            self.calls.setdefault("slstm", [g.clone(), r.clone()])
+            return s_fn(g, r, *state)
+        self.rec.mlstm_scan, self.rec.slstm_scan = m_rec, s_rec
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.mlstm_scan, self.rec.slstm_scan = self.saved
+
+
+def phase_xlstm(torch, dev) -> dict:
+    """Phase 29: xlstm-350m at its published width (24 layers [slstm,
+    mlstm] x 12, d 1024, mLSTM heads of 512, bf16, seeded random weights)
+    through ServeEngine, phase 12's request shape: 12 mLSTM and 12 sLSTM
+    launches a prefill and a decode step; the scans split at the last
+    prompt token on the model's own inputs bitwise the whole (a prefill
+    and the decode step after it); then a 2-layer float32 cut at full
+    width: the card's prefill and decode logits against the CPU's."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("xlstm_350m")
+    n_m, n_s = cfg.layout().count("mlstm"), cfg.layout().count("slstm")
+    hd = 2 * cfg.d_model // cfg.n_heads
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"xlstm_350m init on the card: {n_params / 1e9:.3f} B parameters, "
+        f"{cfg.dtype} ({n_s} slstm + {n_m} mlstm layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} mLSTM heads of {hd}), "
+        f"{time.perf_counter() - t0:.2f} s")
+    lens, prompts = serve_requests(cfg)
+    eng = ServeEngine(model, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      device=dev)
+    counters = (ms.mlstm_scan, ss.slstm_scan)
+    run = serve_run(torch, eng, prompts, counters, dev)
+    del eng
+    steps = run["stats"]["decode_steps"]
+    serve_checked(cfg, run, [n_m * (SERVE_REQUESTS + steps),
+                             n_s * (SERVE_REQUESTS + steps)], "xlstm_350m")
+    if run["routes"][0][f"hd{hd}"] != run["launches"][0] or \
+            run["routes"][1]["bfloat16"] != run["launches"][1]:
+        raise RuntimeError(f"serve xlstm_350m: routes {run['routes']}, want "
+                           f"every mLSTM launch on hd{hd}, every sLSTM "
+                           f"launch on bfloat16")
+    log(f"serve xlstm_350m: prompt lengths {[int(n) for n in lens]}")
+    log(serve_line("xlstm_350m", run,
+                   f"; mlstm_scan launches {run['launches'][0]} and "
+                   f"slstm_scan launches {run['launches'][1]} ({n_m} and "
+                   f"{n_s} a prefill and a decode step: "
+                   f"{SERVE_REQUESTS} prefills, {steps} decode steps)"))
+    log(f"serve xlstm_350m: first tokens {[o[:4] for o in run['outs']]}")
+    # a prefill and the decode step after it: the model's scan inputs of a
+    # prompt one token longer, split at its last token
+    N = int(lens[0])
+    toks = torch.as_tensor(np.append(prompts[0], prompts[1][0])[None],
+                           device=dev)
+    with torch.inference_mode():
+        with ScanInputs() as rec:
+            prefill(model, cfg, {"tokens": toks}, cache_len=N + 1)
+        for kind, args in sorted(rec.calls.items()):
+            if kind == "mlstm":
+                B, S, H, hd_ = args[0].shape
+                state = dict(zip("Cnm", ms.init_state(B, H, hd_, dev)))
+                split_check(torch, "xlstm_350m mlstm layer",
+                            lambda st, a, b: ms.mlstm_scan(
+                                *(x[:, a:b] for x in args), st["C"],
+                                st["n"], st["m"]), state, S, N)
+            else:
+                g, r = args
+                state = dict(zip("cnmh", ss.init_state(g.shape[0],
+                                                       g.shape[2], dev)))
+                split_check(torch, "xlstm_350m slstm layer",
+                            lambda st, a, b: ss.slstm_scan(
+                                g[:, a:b], r, st["c"], st["n"], st["m"],
+                                st["h"]), state, g.shape[1], N)
+        # the whole model: prefill(N) + 1 decode step against prefill(N + 1)
+        _, short = prefill(model, cfg, {"tokens": toks[:, :N]},
+                           cache_len=N + 1)
+        _, short = decode_step(model, cfg, toks[:, N:], short,
+                               torch.full((1,), N, device=dev))
+        _, full = prefill(model, cfg, {"tokens": toks}, cache_len=N + 1)
+        same = sum(torch.equal(a[k], b[k]) for a, b in zip(short, full)
+                   for k in a)
+        total = sum(len(a) for a in short)
+        diff = max(float((a[k] - b[k]).abs().max()) for a, b in
+                   zip(short, full) for k in a)
+    if same != total:
+        raise RuntimeError(f"xlstm_350m: prefill({N}) + decode step vs "
+                           f"prefill({N + 1}): {same} of {total} state "
+                           f"tensors bitwise, max abs diff {diff}")
+    log(f"xlstm_350m: prefill of {N + 1} tokens: the first sLSTM and mLSTM "
+        f"layers' scans on their own inputs, {N} steps + 1, bitwise the "
+        f"{N + 1}-step scan; the whole model's prefill({N}) + decode step "
+        f"vs prefill({N + 1}): all {total} state tensors of the "
+        f"{cfg.n_layers} layers bitwise")
+    del model, short, full
+    torch.cuda.empty_cache()
+    # the card against the CPU at full width, 2 layers, float32
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    gen.manual_seed(1)
+    card = init_params(gen, cut)
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(29)
+    S, n_dec = 512, 2
+    toks = torch.as_tensor(rng.integers(0, cut.vocab_size, (1, S + n_dec)))
+    errs, scale = [], 0.0
+    before = [c.launches for c in counters]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        outs = []
+        for m, d in ((cpu, "cpu"), (card, dev)):
+            t = toks.to(d)
+            last, cache = prefill(m, cut, {"tokens": t[:, :S]},
+                                  cache_len=S + n_dec)
+            logits = [last.float().cpu()]
+            for i in range(n_dec):
+                lg, cache = decode_step(m, cut, t[:, S + i:S + i + 1], cache,
+                                        torch.full((1,), S + i, device=d))
+                logits.append(lg.float().cpu())
+            outs.append(logits)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    for c_lg, g_lg in zip(*outs):
+        errs.append(float((g_lg - c_lg).abs().max()))
+        scale = max(scale, float(c_lg.abs().max()))
+    if launches != [1 + n_dec, 1 + n_dec] or \
+            not all(math.isfinite(e) for e in errs) or \
+            max(errs) > 1e-3 * scale:
+        raise RuntimeError(f"xlstm_350m 2-layer cut: card vs CPU max abs "
+                           f"errs {errs} vs max|logits| {scale}, launches "
+                           f"{launches} (mlstm, slstm; want "
+                           f"[{1 + n_dec}, {1 + n_dec}])")
+    log(f"xlstm_350m widths, 2 layers [slstm, mlstm], float32, {S}-token "
+        f"prefill + {n_dec} decode steps: card (scan kernels: {launches} "
+        f"launches) vs CPU (plain versions) logits max abs err "
+        f"{[f'{e:.3g}' for e in errs]}, max|logits| {scale:.4g} (limit "
+        f"1e-3 x max), {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"mlstm": run["launches"][0], "slstm": run["launches"][1],
+            "wall": run["wall"]}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -2835,6 +3269,8 @@ def main(argv=None) -> int:
     main_d = phase_decode(torch, dev)                                # 25
     main_s = phase_scan(torch, dev)                                  # 26
     rg = phase_recurrentgemma(torch, fa, dev)                        # 27
+    main_x = phase_xlstm_kernels(torch, dev)                         # 28
+    xl = phase_xlstm(torch, dev)                                     # 29
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -2913,8 +3349,31 @@ def main(argv=None) -> int:
                   "max_abs_err": main_s["max_abs_err"], "ms": scan["ms"],
                   "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
                   "bound_by": scan["bound_by"], "library_ms": None}
+    mlstm = main_x["mlstm"][MLSTM_TESTS[0]]
+    mlstm_entry = {"name": "mlstm_scan", "route": "cuda",
+                   "source": "src/repro_torch/csrc/mlstm_scan.cu",
+                   "replaces": "src/repro/models/recurrent.py:124 "
+                               "(lax.scan of _mlstm_cell; the JAX package "
+                               "has no Pallas kernel there)",
+                   "launches": xl["mlstm"],
+                   "max_abs_err": main_x["max_abs_err"]["mlstm"],
+                   "ms": mlstm["ms"], "plain_ms": mlstm["plain_ms"],
+                   "bound_ms": mlstm["bound_ms"],
+                   "bound_by": mlstm["bound_by"], "library_ms": None}
+    slstm = main_x["slstm"][SLSTM_TESTS[0]]
+    slstm_entry = {"name": "slstm_scan", "route": "cuda",
+                   "source": "src/repro_torch/csrc/slstm_scan.cu",
+                   "replaces": "src/repro/models/recurrent.py:169 "
+                               "(lax.scan of _slstm_cell; the JAX package "
+                               "has no Pallas kernel there)",
+                   "launches": xl["slstm"],
+                   "max_abs_err": main_x["max_abs_err"]["slstm"],
+                   "ms": slstm["ms"], "plain_ms": slstm["plain_ms"],
+                   "bound_ms": slstm["bound_ms"],
+                   "bound_by": slstm["bound_by"], "library_ms": None}
     log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
-                                bwd_entry, decode_entry, scan_entry]}))
+                                bwd_entry, decode_entry, scan_entry,
+                                mlstm_entry, slstm_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,9 @@ returns a same-family miniature for CPU smoke tests. In the port the
 configs feed ``core.workloads.from_arch_config`` (the ``sram_lm_archs``
 scenario), the example's qwen3-4b projection and the LM stack
 (``models/``, ``serve/``), which serves the dense archs (qwen3-4b,
-qwen2.5-3b, glm4-9b, phi4-mini) and the RG-LRU hybrid recurrentgemma-9b;
-the others raise NotImplementedError naming their ROADMAP item.
+qwen2.5-3b, glm4-9b, phi4-mini), the RG-LRU hybrid recurrentgemma-9b and
+xlstm-350m (alternating sLSTM and mLSTM blocks); the others raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 

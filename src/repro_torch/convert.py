@@ -116,7 +116,9 @@ def from_reference_lm_params(params, cfg: ArchConfig, device="cuda") -> LM:
     ``n`` of ``period/pos{i}``; the ``rem`` blocks follow. A nested
     leaf (an ``rglru`` block's ``lru`` dict) takes its dotted name
     (``lru.a_param``), and each leaf keeps the type of its port
-    parameter (``conv`` and ``lru`` stay float32 in a bfloat16 model).
+    parameter (``conv``, ``lru`` and an ``slstm`` block's ``r`` stay
+    float32 in a bfloat16 model; the ``mlstm`` and ``slstm`` blocks have
+    no ``ln2`` or ``ffn``, as the reference's).
     The module is built by a throwaway seeded init on the CPU, then
     overwritten, so every reference leaf must have a port counterpart
     and vice versa."""

@@ -89,6 +89,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # S, W, is_bf16, stream
         "rglru_scan_launch": (*(_P,) * 9, _I, _I, _I, _I, _P),
     },
+    "mlstm_scan": {
+        # q, k, v, i_pre, f_pre, C, n, m, h, arrivals, B, S, H, hd, stream
+        "mlstm_scan_launch": (*(_P,) * 10, _I, _I, _I, _I, _P),
+    },
+    "slstm_scan": {
+        # gates, r, c, n, m, h, hs, B, S, w, is_bf16, stream
+        "slstm_scan_launch": (*(_P,) * 7, _I, _I, _I, _I, _P),
+    },
 }
 
 # a source's own headers: `#include "<name>.cuh"` lines, resolved in csrc/

@@ -1,7 +1,10 @@
 """The decoder LM; counterpart of ``repro/models/transformer.py`` for the
 block kinds ``attn``, ``local_attn`` (qwen3-4b, qwen2.5-3b, glm4-9b,
-phi4-mini: dense GQA with optional QKV bias and q/k norm) and ``rglru``
-(recurrentgemma-9b's RG-LRU blocks beside its local attention).
+phi4-mini: dense GQA with optional QKV bias and q/k norm), ``rglru``
+(recurrentgemma-9b's RG-LRU blocks beside its local attention) and
+``mlstm``, ``slstm`` (xlstm-350m's alternating xLSTM blocks, which have
+no FFN; their recurrences are the scan kernels ``kernels/mlstm_scan.py``
+and ``kernels/slstm_scan.py``).
 
 Parameters are an ``LM`` module: ``embed``, ``final_ln``, ``unembed``
 and ``blocks``, an ``nn.ModuleList`` with one ``Block`` per layer in
@@ -21,7 +24,10 @@ The cache is a list with one dict per layer. An attention layer's:
 ``k_scale``, ``v_scale`` (B, cap, KV) float32 when ``cfg.kv_quant``
 (symmetric per slot and KV head, ``_kv_quantize``); ``pos`` (B, cap)
 int64, -1 = empty. An ``rglru`` layer's: ``h`` (B, w) float32 and
-``conv`` (B, conv1d_size - 1, w) in the model's type. Prefill and decode
+``conv`` (B, conv1d_size - 1, w) in the model's type. An ``mlstm``
+layer's: ``C`` (B, H, hd, hd), ``n`` (B, H, hd), ``m`` (B, H) float32
+with hd = 2 d / H; an ``slstm`` layer's: ``c``, ``n``, ``m``, ``h``
+(B, d) float32 (m starts at -1e30 in both). Prefill and decode
 write it in place (the reference returns a new pytree; in place saves a
 copy of the whole cache per step) and return the same list. The slot
 rules are the reference's: position p lives in slot ``p % cap`` for
@@ -29,7 +35,8 @@ windowed layers (a ring buffer) and in slot ``min(p, cap - 1)`` for full
 ones.
 
 Three modes share one block implementation:
-  train   — full sequence, no cache (blockwise attention)
+  train   — full sequence, no cache (blockwise attention; the xLSTM
+            scans from the zero state)
   prefill — full sequence, fills the cache
   decode  — one token, reads and updates the cache
 """
@@ -44,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..kernels.mlstm_scan import M_INIT
 from . import recurrent as rec
 from .attention import blockwise_attention, decode_attention
 from .config import ArchConfig
@@ -51,11 +59,11 @@ from .layers import (MLP, apply_rope, cross_entropy, dense_init, mlp,
                      rms_norm, zeros_param)
 
 MOE_AUX_WEIGHT = 0.01
-PORTED_KINDS = ("attn", "local_attn", "rglru")
+PORTED_KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
+# block kinds without the pre-norm dense FFN (xLSTM's blocks)
+_NO_FFN = ("mlstm", "slstm")
 # block kinds and features still to port, with their ROADMAP items
 _UNPORTED = {
-    "mlstm": "ROADMAP Queue 1 item 13c (mlstm/slstm, xlstm)",
-    "slstm": "ROADMAP Queue 1 item 13c (mlstm/slstm, xlstm)",
     "cross_attn": "ROADMAP Queue 1 item 13d (cross_attn, llama-3.2-vision)",
 }
 
@@ -90,7 +98,13 @@ class Block(nn.Module):
     (conv1d_size, w) float32 taps, ``lru`` the five float32 (w,) leaves
     ``a_param`` 0.5, ``alpha_i`` 1, ``beta_i`` 0, ``alpha_r`` 1,
     ``beta_r`` 0, ``w_out`` (w, d)). Both then a pre-norm dense FFN
-    (``ln2``, ``ffn``). Norm gains and biases start at zero, as in the
+    (``ln2``, ``ffn``). ``mlstm``: pre-norm mLSTM mixer of width w = 2d
+    and H heads of w / H (``ln``, ``w_up`` (d, 2w) for the branch and its
+    gate, ``wq``/``wk``/``wv`` (w, w), ``w_if`` (w, 2H) for the input and
+    forget gates, ``w_down`` (w, d)); ``slstm``: pre-norm sLSTM mixer of
+    width d (``ln``, ``w_gates`` (d, 4d), ``r`` (d, 4) float32 recurrent
+    weights drawn as 0.1 x normal, ``w_out`` (d, d)); the xLSTM blocks
+    have no FFN. Norm gains and biases start at zero, as in the
     reference."""
 
     def __init__(self, gen: torch.Generator, cfg: ArchConfig, kind: str):
@@ -100,10 +114,33 @@ class Block(nn.Module):
         self.ln = zeros_param((d,), dt, dev)
         if kind == "rglru":
             self._init_rglru(gen, cfg)
+        elif kind == "mlstm":
+            self._init_mlstm(gen, cfg)
+        elif kind == "slstm":
+            self._init_slstm(gen, cfg)
         else:
             self._init_attn(gen, cfg)
-        self.ln2 = zeros_param((d,), dt, dev)
-        self.ffn = MLP(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
+        if kind not in _NO_FFN:
+            self.ln2 = zeros_param((d,), dt, dev)
+            self.ffn = MLP(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
+
+    def _init_mlstm(self, gen: torch.Generator, cfg: ArchConfig) -> None:
+        d, dt, H = cfg.d_model, cfg.torch_dtype, cfg.n_heads
+        w = 2 * d
+        self.w_up = dense_init(gen, d, 2 * w, dt)
+        self.wq = dense_init(gen, w, w, dt)
+        self.wk = dense_init(gen, w, w, dt)
+        self.wv = dense_init(gen, w, w, dt)
+        self.w_if = dense_init(gen, w, 2 * H, dt)
+        self.w_down = dense_init(gen, w, d, dt)
+
+    def _init_slstm(self, gen: torch.Generator, cfg: ArchConfig) -> None:
+        d, dt = cfg.d_model, cfg.torch_dtype
+        self.w_gates = dense_init(gen, d, 4 * d, dt)
+        self.r = nn.Parameter(
+            torch.randn((d, 4), generator=gen, device=gen.device,
+                        dtype=torch.float32) * 0.1, requires_grad=False)
+        self.w_out = dense_init(gen, d, d, dt)
 
     def _init_rglru(self, gen: torch.Generator, cfg: ArchConfig) -> None:
         d, dt, dev, w = cfg.d_model, cfg.torch_dtype, gen.device, cfg.rnn_w
@@ -145,10 +182,17 @@ def init_cache_block(cfg: ArchConfig, kind: str, B: int, cache_len: int,
                      device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
     """Empty cache of one block (windowed layers keep only the window; the
     int8 cache and its scales under ``cfg.kv_quant``; an ``rglru``
-    block's state and conv window), on the card unless ``device`` says
-    otherwise; raises without one."""
+    block's state and conv window; an ``mlstm`` or ``slstm`` block's zero
+    state, m at -1e30), on the card unless ``device`` says otherwise;
+    raises without one."""
     _check_ported(cfg, kind)
     device = resolve_device(device)
+    if kind == "mlstm":
+        H = cfg.n_heads
+        return rec.mlstm_init_state(B, H, _mlstm_width(cfg) // H,
+                                    device)._asdict()
+    if kind == "slstm":
+        return rec.slstm_init_state(B, cfg.d_model, device)._asdict()
     if kind == "rglru":
         w = cfg.rnn_w
         return {"h": torch.zeros((B, w), dtype=torch.float32, device=device),
@@ -240,6 +284,9 @@ def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
     place in the prefill and decode modes."""
     _check_ported(cfg, kind)
     h = rms_norm(x, p.ln, cfg.norm_eps)
+    if kind in _NO_FFN:
+        mix = _mlstm_mix if kind == "mlstm" else _slstm_mix
+        return x + mix(cfg, p, h, mode, cache), cache, 0.0
     if kind == "rglru":
         x = x + _rglru_mix(cfg, p, h, mode, cache)
     else:
@@ -312,6 +359,82 @@ def _rglru_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
             if S >= W - 1:
                 cache["conv"].copy_(xr[:, S - (W - 1):].to(cfg.torch_dtype))
     return o @ p.w_out
+
+
+def _mlstm_width(cfg: ArchConfig) -> int:
+    """The mLSTM block's width w = 2 d; its heads are w / H wide (512 at
+    xlstm-350m's full width, not ``cfg.head_dim``)."""
+    return 2 * cfg.d_model
+
+
+def _inv_sqrt(hd: int) -> float:
+    """float32(1 / sqrt(float32(hd))), as a float."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _fresh_state(cache: Dict[str, torch.Tensor]) -> None:
+    """Put a cache's xLSTM state back to the zero state (m at -1e30) in
+    place: prefill starts from it whatever the cache held, as the
+    reference's."""
+    for name, t in cache.items():
+        if name == "m":
+            t.fill_(M_INIT)
+        else:
+            t.zero_()
+
+
+def _mlstm_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
+               cache) -> torch.Tensor:
+    """The mLSTM branch's output projection, (B, S, d): q, k, v and the
+    gate pre-activations from one half of ``w_up``'s output, the scan
+    from the zero state (train, prefill: the cache's state, left holding
+    the final state) or from the cache (decode: one step), gated by SiLU
+    of the other half. The reference's rounding points: q, k, v and the
+    gates are products in the model's type cast to float32; k is then
+    multiplied by float32(1 / sqrt(float32(w / H))), as XLA compiles the
+    reference's division by that constant under jit; SiLU is x
+    sigmoid(x) on the gate in the model's type; the output is cast back
+    before ``w_down``."""
+    B, S, _ = h.shape
+    w, H = _mlstm_width(cfg), cfg.n_heads
+    hd = w // H
+    up = h @ p.w_up
+    xb, gate = up[..., :w], up[..., w:]
+    q = _split_heads(xb @ p.wq, H, hd).float()
+    k = _split_heads(xb @ p.wk, H, hd).float() * _inv_sqrt(hd)
+    v = _split_heads(xb @ p.wv, H, hd).float()
+    ifg = (xb @ p.w_if).float()
+    i_pre, f_pre = ifg[..., :H], ifg[..., H:]
+    if mode == "train":
+        state = None
+    else:
+        state = rec.MLSTMState(cache["C"], cache["n"], cache["m"])
+        if mode == "prefill":
+            _fresh_state(cache)
+    o = rec.mlstm_sequence(q, k, v, i_pre, f_pre, state)
+    o = o.reshape(B, S, w) * (gate * torch.sigmoid(gate)).float()
+    return o.to(cfg.torch_dtype) @ p.w_down
+
+
+def _slstm_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
+               cache) -> torch.Tensor:
+    """The sLSTM branch's output projection, (B, S, d): the gate
+    pre-activations ``h @ w_gates`` in the model's type (gate j of
+    channel c in column 4c + j), the scan from the zero state (train,
+    prefill: the cache's state, left holding the final state) or from the
+    cache (decode), its float32 h cast to the model's type before
+    ``w_out``."""
+    B, S, d = h.shape
+    gates = (h @ p.w_gates).reshape(B, S, d, 4)
+    if mode == "train":
+        state = None
+    else:
+        state = rec.SLSTMState(cache["c"], cache["n"], cache["m"],
+                               cache["h"])
+        if mode == "prefill":
+            _fresh_state(cache)
+    o = rec.slstm_sequence(gates, p.r, state)
+    return o.to(cfg.torch_dtype) @ p.w_out
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@
 Fixed-slot design (vLLM-style, without paging): ``n_slots`` concurrent
 sequences share one decode step; finished sequences free their slot and
 queued requests are prefilled into it. Prefill is per request (batch 1;
-its cache is copied into the slot); decode is one step for all slots
-every iteration. Decoding is greedy (the first maximum, as
+its cache is copied into the slot, every tensor of every layer's dict
+along its batch axis: KV caches and their positions and scales, the
+RG-LRU's h and conv window, the mLSTM's C, n, m and the sLSTM's c, n,
+m, h); decode is one step for all slots every iteration. Decoding is greedy (the first maximum, as
 ``jnp.argmax``; the reference's ``greedy`` and ``seed`` arguments select
 nothing else there, and are left out here).
 
@@ -101,7 +103,8 @@ class ServeEngine:
 
     def _write_slot(self, slot: int, pcache) -> None:
         """Copy a batch-1 prefill cache into slot ``slot`` of the shared
-        cache, layer by layer."""
+        cache, layer by layer: row 0 of each tensor into row ``slot``
+        (a recurrent layer's whole state, as its KV cache)."""
         for dst, src in zip(self.cache, pcache):
             for name, t in dst.items():
                 t[slot] = src[name][0]

@@ -9,7 +9,9 @@ against the solo runs, its default device), the attention gradient
 kernel against its plain version, a train step repeated bit for bit,
 the decode attention and RG-LRU scan kernels against their plain
 versions, and the decode path (reduced recurrentgemma-9b, reduced
-qwen3-4b on the int8 cache) on the card against the CPU. They
+qwen3-4b on the int8 cache) on the card against the CPU, the mLSTM and
+sLSTM scan kernels against their plain versions and reduced xlstm-350m
+on the card against the CPU. They
 carry the ``gpu`` marker and skip without a CUDA device. This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is not installed:
@@ -954,4 +956,180 @@ def test_decode_path_on_card_matches_cpu(cuda, arch, kv_quant):
     assert [c.launches - b for c, b in zip(
         (flash_attention, rglru_scan, decode_attention_kernel), counts)] == \
         [n_attn * len(prompts), n_rec * len(prompts), n_attn * steps]
+    assert outs[0] == outs[1]
+
+
+def _mlstm_case(seed, B, S, H, hd, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+               for _ in range(3))
+    k = k / math.sqrt(hd)
+    i_pre, f_pre = (torch.randn((B, S, H), generator=gen, device=dev) * 2
+                    for _ in range(2))
+    state = (torch.randn((B, H, hd, hd), generator=gen, device=dev) * 0.3,
+             torch.randn((B, H, hd), generator=gen, device=dev),
+             torch.randn((B, H), generator=gen, device=dev))
+    return (q, k, v, i_pre, f_pre), state
+
+
+def _slstm_case(seed, B, S, w, dt, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    gates = (torch.randn((B, S, w, 4), generator=gen, device=dev) * 2).to(
+        getattr(torch, dt))
+    r = torch.randn((w, 4), generator=gen, device=dev) * 0.5
+    c, m, h = (torch.randn((B, w), generator=gen, device=dev)
+               for _ in range(3))
+    n = torch.randn((B, w), generator=gen, device=dev).abs() + 0.5
+    return (gates, r), (c, n, m, h)
+
+
+def _within(got, want, rel=1e-5):
+    return float((got - want).abs().max()) <= rel * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 37, 4, 16), (1, 300, 4, 512),
+                                      (4, 1, 4, 512), (1, 50, 2, 32),
+                                      (3, 20, 4, 64), (1, 40, 2, 128),
+                                      (2, 9, 4, 256)])
+def test_mlstm_scan_kernel_matches_plain(cuda, B, S, H, hd):
+    """The mLSTM scan kernel against ``mlstm_scan_plain`` from the same
+    random state: h and the final C, n, m within 1e-5 of their largest
+    entry, one launch on the route of its head width, a second launch
+    bitwise equal (h and state); every instantiated width, xlstm-350m's
+    512 (prefill and 4-slot decode) and the reduced 16."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan, mlstm_scan_plain
+    args, state = _mlstm_case(S + hd, B, S, H, hd, cuda)
+    one, two, ref = ([t.clone() for t in state] for _ in range(3))
+    before, routed = mlstm_scan.launches, mlstm_scan.routes[f"hd{hd}"]
+    got = mlstm_scan(*args, *one)
+    assert mlstm_scan.launches == before + 1
+    assert mlstm_scan.routes[f"hd{hd}"] == routed + 1
+    again = mlstm_scan(*args, *two)
+    want = mlstm_scan_plain(*args, *ref)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, hd) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert _within(got, want)
+    assert all(_within(a, b) for a, b in zip(one, ref))
+
+
+@pytest.mark.parametrize("B,S,w,dt", [(2, 37, 32, "float32"),
+                                      (1, 4096, 1024, "bfloat16"),
+                                      (4, 1, 1024, "bfloat16"),
+                                      (3, 100, 1000, "float32"),
+                                      (1, 5, 7, "bfloat16")])
+def test_slstm_scan_kernel_matches_plain(cuda, B, S, w, dt):
+    """The sLSTM scan kernel against ``slstm_scan_plain`` from the same
+    random state: hs and the final c, n, m, h within 1e-5 of their
+    largest entry, one launch on the route of the gates' type, a second
+    launch bitwise equal; the reduced width, xlstm-350m's 1024 (prefill
+    and 4-slot decode) and widths off the warp's 32 channels."""
+    from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain
+    args, state = _slstm_case(S + w, B, S, w, dt, cuda)
+    one, two, ref = ([t.clone() for t in state] for _ in range(3))
+    before, routed = slstm_scan.launches, slstm_scan.routes[dt]
+    got = slstm_scan(*args, *one)
+    assert slstm_scan.launches == before + 1
+    assert slstm_scan.routes[dt] == routed + 1
+    again = slstm_scan(*args, *two)
+    want = slstm_scan_plain(*args, *ref)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, w) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert _within(got, want)
+    assert all(_within(a, b) for a, b in zip(one, ref))
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_scans_split_and_replay_bitwise(cuda, kind):
+    """A scan over S steps equals, bit for bit, the scan over S - 1 steps
+    followed by one step from the state it left (a prefill and its decode
+    step); a CUDA graph of one call, its state restored before each of
+    two replays, replays the eager launch bitwise; one device kernel a
+    call."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan
+    from repro_torch.kernels.slstm_scan import slstm_scan
+    if kind == "mlstm":
+        args, state = _mlstm_case(7, 1, 65, 4, 512, cuda)
+
+        def run(st, t0, t1):
+            return mlstm_scan(*(a[:, t0:t1] for a in args), *st)
+    else:
+        args, state = _slstm_case(7, 2, 65, 1024, "bfloat16", cuda)
+
+        def run(st, t0, t1):
+            return slstm_scan(args[0][:, t0:t1], args[1], *st)
+    with torch.no_grad():
+        one, two = ([t.clone() for t in state] for _ in range(2))
+        whole = run(one, 0, 65)
+        run(two, 0, 64)
+        last = run(two, 64, 65)
+        assert torch.equal(whole[:, 64:], last)
+        assert all(torch.equal(a, b) for a, b in zip(one, two))
+        static = [t.clone() for t in state]
+        graph = torch.cuda.CUDAGraph()
+        run([t.clone() for t in state], 0, 65)
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            out = run(static, 0, 65)
+        for _ in range(2):
+            for t, s in zip(static, state):
+                t.copy_(s)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, whole)
+            assert all(torch.equal(a, b) for a, b in zip(static, one))
+        scratch = [t.clone() for t in state]
+        assert _graph_kernel_nodes(lambda: run(scratch, 0, 65)) == (1, 1)
+
+
+def test_xlstm_scan_kernels_refuse_a_gradient(cuda):
+    """No backward kernels yet: a call that needs a gradient raises naming
+    ROADMAP item 13k before any launch; under no_grad it runs."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan
+    from repro_torch.kernels.slstm_scan import slstm_scan
+    args, state = _mlstm_case(1, 1, 4, 2, 16, cuda)
+    sargs, sstate = _slstm_case(1, 1, 4, 8, "float32", cuda)
+    q = args[0].requires_grad_()
+    gates = sargs[0].requires_grad_()
+    before = (mlstm_scan.launches, slstm_scan.launches)
+    with pytest.raises(NotImplementedError, match="item 13k"):
+        mlstm_scan(q, *args[1:], *state)
+    with pytest.raises(NotImplementedError, match="item 13k"):
+        slstm_scan(gates, sargs[1], *sstate)
+    assert (mlstm_scan.launches, slstm_scan.launches) == before
+    with torch.no_grad():
+        mlstm_scan(q, *args[1:], *state)
+        slstm_scan(gates, sargs[1], *sstate)
+    assert (mlstm_scan.launches, slstm_scan.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_xlstm_on_card_matches_cpu(cuda):
+    """Reduced xlstm-350m (float32) served on the card and on the CPU, the
+    same weights and requests: the same greedy tokens; each scan kernel
+    launched once a layer of its kind per prefill and decode step."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan
+    from repro_torch.kernels.slstm_scan import slstm_scan
+    cfg = get_config("xlstm_350m", reduced=True)
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 17, 70)]
+    outs = []
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(model.to(dev), cfg, n_slots=2, max_len=96,
+                          device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(LMRequest(rid=i, prompt=p, max_new_tokens=6))
+        counts = [mlstm_scan.launches, slstm_scan.launches]
+        done = eng.run()
+        outs.append({i: r.output for i, r in done.items()})
+    steps = eng.stats["decode_steps"]
+    per_kind = cfg.n_layers // 2 * (len(prompts) + steps)
+    assert [mlstm_scan.launches - counts[0],
+            slstm_scan.launches - counts[1]] == [per_kind, per_kind]
     assert outs[0] == outs[1]

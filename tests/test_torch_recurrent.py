@@ -482,15 +482,6 @@ def test_serve_lm_example_on_cpu(capsys):
 # what is not ported yet
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("fn", ["mlstm_init_state", "mlstm_sequence",
-                                "mlstm_step", "slstm_init_state",
-                                "slstm_sequence", "slstm_step"])
-def test_xlstm_cells_name_roadmap_item(fn):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 13c"):
-        getattr(rec, fn)(None)
-
-
 def test_scan_gradient_off_the_cpu_names_roadmap_item():
     """The scan kernel has no backward: a call off the CPU that would
     need a gradient raises naming item 13j before any launch (meta

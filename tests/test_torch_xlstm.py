@@ -1,0 +1,594 @@
+"""The port's xLSTM stack (``kernels/mlstm_scan.py``, ``kernels/slstm_scan.py``,
+the ``mlstm`` and ``slstm`` functions of ``repro_torch.models.recurrent``,
+their blocks, xlstm-350m end to end) against the JAX package on the CPU,
+on the same numpy inputs and weights: the two scans' plain versions
+against the reference's cells (h and the final state within 1e-5 of
+their largest entry: the port's loop and XLA's scan round the same
+operations, the dot products summed in another order), the blocks in the
+train, prefill and decode modes, reduced xlstm-350m's forward, prefill
+and decode logits (atol 5e-4) and the serving engine's greedy tokens
+(equal), the weights' round trip through ``convert``, a prefill followed
+by a decode step against a prefill one token longer (bitwise), and a
+plain-torch emulation of the mLSTM kernel's summation order
+(``csrc/mlstm_scan.cu``) at xlstm-350m's head width held to the plain
+loop within the limit the card holds the kernel to. Here the scans take
+their plain versions (CPU tensors); tests/test_torch_gpu.py and
+chip_smoke.py hold the kernels to them on a card."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import LMRequest as JLMRequest
+from repro.api import ServeEngine as JServeEngine
+from repro.configs import get_config as jget_config
+from repro.models import decode_step as jdecode_step
+from repro.models import forward as jforward
+from repro.models import init_params as jinit_params
+from repro.models import loss_fn as jloss_fn
+from repro.models import prefill as jprefill
+from repro.models import recurrent as jrec
+from repro.models import transformer as jtf
+from repro_torch.configs import get_config
+from repro_torch.convert import (from_reference_arch_config,
+                                 from_reference_lm_params,
+                                 to_reference_lm_tree)
+from repro_torch.kernels import mlstm_scan as ms
+from repro_torch.kernels import slstm_scan as ss
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import (decode_step, forward, init_params, loss_fn,
+                                prefill)
+from repro_torch.models import recurrent as rec
+from repro_torch.models import transformer as tf
+from repro_torch.models.transformer import init_cache, init_cache_block
+from repro_torch.serve import LMRequest, ServeEngine
+
+torch.set_num_threads(1)
+
+_jforward = jax.jit(jforward, static_argnums=(1,),
+                    static_argnames=("mode", "remat"))
+_jloss = jax.jit(jloss_fn, static_argnums=(1,), static_argnames=("remat",))
+_jprefill = jax.jit(jprefill, static_argnums=(1, 3))
+_jdecode = jax.jit(jdecode_step, static_argnums=(1,))
+# h and the final state of a scan: within this share of their largest
+# entry of the reference's (float32; the dot products C q and n . q are
+# summed in another order, the transcendentals' last bits differ)
+SCAN_REL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _within_max(got, want, rel=SCAN_REL):
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(_np(got) - want).max())
+    assert err <= rel * float(np.abs(want).max()), err
+
+
+def _mlstm_inputs(seed, B, S, H, hd):
+    """q, v normal; k normal / sqrt(hd), as the block scales it; the gate
+    pre-activations spread over [-4, 4] so that m follows both gates."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    k = (k / np.sqrt(np.float32(hd))).astype(np.float32)
+    i_pre, f_pre = ((rng.standard_normal((B, S, H)) * 2).astype(np.float32)
+                    for _ in range(2))
+    return q, k, v, i_pre, f_pre
+
+
+def _reference_mlstm_state(q, k, v, i_pre, f_pre):
+    """The reference's prefill replay: ``mlstm_step`` scanned from
+    ``mlstm_init_state`` (src/repro/models/transformer.py:331-343)."""
+    B, S, H, hd = q.shape
+    st = jrec.mlstm_init_state(B, H, hd)
+
+    def body(s, t):
+        s, _ = jrec.mlstm_step(s, q[:, t], k[:, t], v[:, t], i_pre[:, t],
+                               f_pre[:, t])
+        return s, ()
+    st, _ = jax.lax.scan(body, st, jnp.arange(S))
+    return st
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 37, 4, 16), (1, 60, 2, 32),
+                                      (3, 1, 4, 8)])
+def test_mlstm_scan_plain_matches_reference(B, S, H, hd):
+    """h and the final state (C, n, m) of ``mlstm_scan_plain`` from the
+    zero state against the reference's ``mlstm_sequence`` and its
+    replayed state, each within 1e-5 of its largest entry."""
+    args = _mlstm_inputs(S * hd, B, S, H, hd)
+    jargs = [jnp.asarray(a) for a in args]
+    want = jrec.mlstm_sequence(*jargs)
+    jst = _reference_mlstm_state(*jargs)
+    C, n, m = ms.init_state(B, H, hd, "cpu")
+    got = ms.mlstm_scan(*(_t(a) for a in args), C, n, m)
+    assert got.shape == (B, S, H, hd) and got.dtype == torch.float32
+    _within_max(got, want)
+    _within_max(C, jst.C)
+    _within_max(n, jst.n)
+    _within_max(m, jst.m)
+
+
+@pytest.mark.parametrize("B,S,w,dt", [(2, 37, 16, "float32"),
+                                      (1, 200, 8, "float32"),
+                                      (3, 1, 5, "float32"),
+                                      (2, 29, 12, "bfloat16")])
+def test_slstm_scan_plain_matches_reference(B, S, w, dt):
+    """h and the final state (c, n, m, h) of ``slstm_scan_plain`` from the
+    zero state against the reference's ``slstm_sequence`` and its
+    replayed state, each within 1e-5 of its largest entry; bfloat16
+    gates (the model's type) are read as the reference reads them."""
+    rng = np.random.default_rng(S * w)
+    gates = (rng.standard_normal((B, S, w, 4)) * 2).astype(np.float32)
+    r = (rng.standard_normal((w, 4)) * 0.5).astype(np.float32)
+    tg = _t(gates).to(getattr(torch, dt))
+    jg = jnp.asarray(tg.float().numpy()).astype(getattr(jnp, dt))
+    want = jrec.slstm_sequence(jg, jnp.asarray(r))
+
+    def body(s, t):
+        s, _ = jrec.slstm_step(s, jg[:, t], jnp.asarray(r))
+        return s, ()
+    jst, _ = jax.lax.scan(body, jrec.slstm_init_state(B, w), jnp.arange(S))
+    state = ss.init_state(B, w, "cpu")
+    got = ss.slstm_scan(tg, _t(r), *state)
+    assert got.shape == (B, S, w) and got.dtype == torch.float32
+    _within_max(got, want)
+    for mine, ref in zip(state, jst):
+        _within_max(mine, ref)
+
+
+def test_recurrent_functions_match_reference():
+    """``mlstm_step``/``slstm_step`` from a state the sequence forms left
+    (the reference's names and shapes; the port's update the state in
+    place): three steps, h and the state within 1e-5 of their largest
+    entry of the reference's."""
+    B, S, H, hd = 2, 9, 4, 16
+    args = _mlstm_inputs(3, B, S + 3, H, hd)
+    jargs = [jnp.asarray(a) for a in args]
+    jst = _reference_mlstm_state(*(a[:, :S] for a in jargs))
+    st = rec.mlstm_init_state(B, H, hd, device="cpu")
+    rec.mlstm_sequence(*(_t(a[:, :S]) for a in args), state=st)
+    rng = np.random.default_rng(4)
+    w = 24
+    gates = (rng.standard_normal((B, S + 3, w, 4)) * 2).astype(np.float32)
+    r = (rng.standard_normal((w, 4)) * 0.5).astype(np.float32)
+    sst = rec.slstm_init_state(B, w, device="cpu")
+    rec.slstm_sequence(_t(gates[:, :S]), _t(r), sst)
+
+    def body(s, t):
+        s, _ = jrec.slstm_step(s, jnp.asarray(gates)[:, t], jnp.asarray(r))
+        return s, ()
+    jsst, _ = jax.lax.scan(body, jrec.slstm_init_state(B, w), jnp.arange(S))
+    for t in range(S, S + 3):
+        jst, jh = jrec.mlstm_step(jst, *(a[:, t] for a in jargs))
+        st, h = rec.mlstm_step(st, *(_t(a[:, t]) for a in args))
+        assert h.shape == (B, H, hd)
+        _within_max(h, jh)
+        jsst, jsh = jrec.slstm_step(jsst, jnp.asarray(gates[:, t]),
+                                    jnp.asarray(r))
+        sst, sh = rec.slstm_step(sst, _t(gates[:, t]), _t(r))
+        assert sh.shape == (B, w)
+        _within_max(sh, jsh)
+    for mine, ref in zip(st + sst, tuple(jst) + tuple(jsst)):
+        _within_max(mine, ref)
+
+
+def test_sequence_then_step_equals_longer_sequence_bitwise():
+    """The scans' state after N tokens and one S = 1 call equals their
+    state after N + 1 tokens, bit for bit, and so does the step's h: a
+    prefill and the decode step after it share one arithmetic (the
+    kernels' too: tests/test_torch_gpu.py, chip_smoke.py phase 28)."""
+    B, S, H, hd = 2, 13, 4, 16
+    args = [_t(a) for a in _mlstm_inputs(5, B, S + 1, H, hd)]
+    one, two = ms.init_state(B, H, hd, "cpu"), ms.init_state(B, H, hd, "cpu")
+    h_all = ms.mlstm_scan(*args, *one)
+    ms.mlstm_scan(*(a[:, :S] for a in args), *two)
+    h_last = ms.mlstm_scan(*(a[:, S:] for a in args), *two)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert torch.equal(h_all[:, S:], h_last)
+    rng = np.random.default_rng(6)
+    gates = _t((rng.standard_normal((B, S + 1, 24, 4)) * 2).astype(
+        np.float32)).bfloat16()
+    r = _t((rng.standard_normal((24, 4)) * 0.5).astype(np.float32))
+    one, two = ss.init_state(B, 24, "cpu"), ss.init_state(B, 24, "cpu")
+    hs_all = ss.slstm_scan(gates, r, *one)
+    ss.slstm_scan(gates[:, :S], r, *two)
+    hs_last = ss.slstm_scan(gates[:, S:], r, *two)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert torch.equal(hs_all[:, S:], hs_last)
+
+
+# ---------------------------------------------------------------------------
+# the mLSTM kernel's summation order
+# ---------------------------------------------------------------------------
+
+def _emulate_mlstm_kernel(q, k, v, i_pre, f_pre, C, n, m):
+    """The mLSTM kernel's arithmetic (csrc/mlstm_scan.cu) in plain torch:
+    the gates and the state update as the plain loop rounds them (the
+    kernel's __fmul_rn/__fadd_rn), the two dot products in the kernel's
+    order (``kernel_order_dot``: a lane's columns in order, then the
+    lanes pairwise). Returns h; the state is updated in place."""
+    out = []
+    for t in range(q.shape[1]):
+        i_g, f_g, m_new = ms.gates(i_pre[:, t], f_pre[:, t], m)
+        m.copy_(m_new)
+        C.copy_(f_g[..., None, None] * C + i_g[..., None, None] * (
+            v[:, t, :, :, None] * k[:, t, :, None, :]))
+        n.copy_(f_g[..., None] * n + i_g[..., None] * k[:, t])
+        num = ms.kernel_order_dot(C, q[:, t, :, None, :])
+        den = torch.clamp(torch.abs(ms.kernel_order_dot(n, q[:, t])),
+                          min=1.0)
+        out.append(num / den[..., None])
+    return torch.stack(out, dim=1)
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(1, 24, 4, 512), (2, 37, 4, 16)])
+def test_mlstm_kernel_order_within_the_card_limit(B, S, H, hd):
+    """At xlstm-350m's head width (512: 16 columns a lane) and at the
+    reduced one (16: half the lanes hold no column) the kernel's
+    summation order gives the plain loop's state bit for bit (the state
+    update has no sum across columns) and h within the limit the card
+    holds the kernel to (1e-5 x max|h|), and not the same bits (the
+    check sees the order)."""
+    args = [_t(a) for a in _mlstm_inputs(hd + S, B, S, H, hd)]
+    plain_state = ms.init_state(B, H, hd, "cpu")
+    emu_state = ms.init_state(B, H, hd, "cpu")
+    want = ms.mlstm_scan_plain(*args, *plain_state)
+    got = _emulate_mlstm_kernel(*args, *emu_state)
+    assert all(torch.equal(a, b) for a, b in zip(plain_state, emu_state))
+    _within_max(got, _np(want))
+    if hd == 512:
+        assert not torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 48, 512])
+def test_kernel_order_dot_is_the_sum(hd):
+    """``kernel_order_dot`` sums every product once (float64 check)."""
+    rng = np.random.default_rng(hd)
+    a, b = (_t(rng.standard_normal((3, hd)).astype(np.float32))
+            for _ in range(2))
+    want = (a.double() * b.double()).sum(-1)
+    got = ms.kernel_order_dot(a, b).double()
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        (a.double() * b.double()).abs().sum(-1).max())
+
+
+# ---------------------------------------------------------------------------
+# the blocks
+# ---------------------------------------------------------------------------
+
+def _reference_weights(jcfg, seed=0):
+    """The reference's init, its zero leaves (norm gains) replaced by
+    small draws so that every parameter matters; numpy."""
+    params, _ = jinit_params(jax.random.PRNGKey(seed), jcfg)
+    rng = np.random.default_rng(seed)
+
+    def fill(a):
+        a = np.array(a)
+        if not a.any():
+            a = (rng.standard_normal(a.shape) * 0.2).astype(a.dtype)
+        return a
+    return jax.tree.map(fill, params)
+
+
+def _pair(jcfg):
+    np_params = _reference_weights(jcfg)
+    cfg = from_reference_arch_config(jcfg)
+    model = from_reference_lm_params(np_params, cfg, device="cpu")
+    return jax.tree.map(jnp.asarray, np_params), model, cfg
+
+
+def _jcfg(**kw):
+    """Reduced xlstm-350m (d 32, 4 heads: mLSTM heads of 16), or with
+    ``kw`` replaced."""
+    return dataclasses.replace(jget_config("xlstm_350m", reduced=True), **kw)
+
+
+@pytest.mark.parametrize("kind,d", [("slstm", 32), ("mlstm", 32),
+                                    ("mlstm", 48)])
+def test_blocks_match_reference_in_every_mode(kind, d):
+    """One block (the reference's layer 0 or 1) on the same input: train,
+    then prefill into the cache, then two decode steps from it; the
+    outputs (atol 2e-5) and every cache leaf (1e-5 of its largest entry)
+    against the reference's jitted ``apply_block``. d 48 gives mLSTM
+    heads of 24, whose sqrt is no power of two: the reference's k scale
+    under jit is a product with a rounded reciprocal."""
+    jcfg = _jcfg(d_model=d)
+    jp, model, cfg = _pair(jcfg)
+    layer = 0 if kind == "slstm" else 1
+    jblk = jax.tree.map(lambda a: a[0], jp["period"][f"pos{layer}"])
+    blk = model.blocks[layer]
+    rng = np.random.default_rng(d)
+    B, S = 2, 11
+    x = rng.standard_normal((B, S + 2, d)).astype(np.float32)
+    japply = jax.jit(jtf.apply_block, static_argnums=(0, 1),
+                     static_argnames=("mode",))
+    want, _, _ = japply(jcfg, kind, jblk, jnp.asarray(x[:, :S]), mode="train")
+    got, _, aux = tf.apply_block(cfg, kind, blk, _t(x[:, :S]), mode="train")
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
+    assert aux == 0.0
+    jcache = jtf.init_cache_block(jcfg, kind, B, 32)
+    cache = init_cache_block(cfg, kind, B, 32, device="cpu")
+    want, jcache, _ = japply(jcfg, kind, jblk, jnp.asarray(x[:, :S]),
+                             mode="prefill", cache=jcache)
+    got, cache, _ = tf.apply_block(cfg, kind, blk, _t(x[:, :S]),
+                                   mode="prefill", cache=cache)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
+    for t in (S, S + 1):
+        want, jcache, _ = japply(jcfg, kind, jblk, jnp.asarray(x[:, t:t + 1]),
+                                 mode="decode", cache=jcache)
+        got, cache, _ = tf.apply_block(cfg, kind, blk, _t(x[:, t:t + 1]),
+                                       mode="decode", cache=cache)
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
+    assert set(cache) == set(jcache)
+    for name in cache:
+        _within_max(cache[name], jcache[name])
+
+
+def test_k_scale_is_the_jitted_reference_product():
+    """The reference divides k by sqrt(float32(hd)); XLA compiles that
+    under jit into a product with the constant's float32 reciprocal, as
+    the reference's model functions run. The port multiplies by the same
+    constant: bit for bit at hd 24, 512 (reciprocals that round) and 16."""
+    x = (np.random.default_rng(0).standard_normal(4096) * 3).astype(
+        np.float32)
+    for hd in (16, 24, 512):
+        want = jax.jit(lambda a: a.astype(jnp.float32) / jnp.sqrt(
+            jnp.float32(hd)))(jnp.asarray(x))
+        got = _t(x) * tf._inv_sqrt(hd)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(x / np.sqrt(np.float32(512)),
+                              x * np.float32(tf._inv_sqrt(512)))
+
+
+# ---------------------------------------------------------------------------
+# xlstm-350m end to end
+# ---------------------------------------------------------------------------
+
+def test_xlstm_matches_reference():
+    """Reduced xlstm-350m (4 layers [slstm, mlstm] x 2, d 32): forward
+    (train) and loss, prefill and three decode steps, logits within atol
+    5e-4 on the same weights and tokens; every cache leaf of the first
+    sLSTM and mLSTM layers within 1e-5 of its largest entry."""
+    jcfg = jget_config("xlstm_350m", reduced=True)
+    jp, model, cfg = _pair(jcfg)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    want, _, _ = _jforward(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                           remat=False)
+    got, _, _ = forward(model, cfg, {"tokens": _t(toks).long()})
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=5e-4)
+    jl, _ = _jloss(jp, jcfg, {"tokens": jnp.asarray(toks),
+                              "labels": jnp.asarray(toks)}, remat=False)
+    tl, _ = loss_fn(model, cfg, {"tokens": _t(toks).long(),
+                                 "labels": _t(toks).long()})
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), rtol=1e-5)
+    jlast, jcache = _jprefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, 24)
+    last, cache = prefill(model, cfg, {"tokens": _t(toks).long()}, 24)
+    np.testing.assert_allclose(_np(last), np.asarray(jlast), atol=5e-4)
+    pos = np.array([20, 20], np.int32)
+    tok = np.argmax(np.asarray(jlast), -1).astype(np.int32)[:, None]
+    for _ in range(3):
+        jlog, jcache = _jdecode(jp, jcfg, jnp.asarray(tok), jcache,
+                                jnp.asarray(pos))
+        log, cache = decode_step(model, cfg, _t(tok).long(), cache,
+                                 _t(pos).long())
+        np.testing.assert_allclose(_np(log), np.asarray(jlog), atol=5e-4)
+        tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)[:, None]
+        pos = pos + 1
+    for i in range(2):
+        ref = jcache["period"][f"pos{i}"]
+        assert set(cache[i]) == set(ref)
+        for name in cache[i]:
+            _within_max(cache[i][name], ref[name][0])
+
+
+def test_xlstm_engine_matches_reference():
+    """The port's ServeEngine and the JAX one on the xLSTM cache (the
+    mLSTM's C, n, m and the sLSTM's c, n, m, h copied into a slot), the
+    same weights and requests: more requests than slots, ragged prompts,
+    one retired at max_len - 1; the same greedy tokens."""
+    jcfg = jget_config("xlstm_350m", reduced=True)
+    jp, model, cfg = _pair(jcfg)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 19, 2, 26)]
+    jeng = JServeEngine(jp, jcfg, n_slots=2, max_len=32)
+    eng = ServeEngine(model, cfg, n_slots=2, max_len=32, device="cpu")
+    assert set(eng.cache[0]) == {"c", "n", "m", "h"}
+    assert set(eng.cache[1]) == {"C", "n", "m"}
+    for i, p in enumerate(prompts):
+        jeng.submit(JLMRequest(rid=i, prompt=p, max_new_tokens=5))
+        eng.submit(LMRequest(rid=i, prompt=p, max_new_tokens=5))
+    want, got = jeng.run(), eng.run()
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    for i in want:
+        assert got[i].output == want[i].output, i
+    assert len(got[3].output) == 32 - 1 - 26
+
+
+@pytest.mark.parametrize("N", [1, 12])
+def test_prefill_then_decode_equals_longer_prefill(N):
+    """prefill(N) and one decode step leave the state of prefill(N + 1)
+    bit for bit, in every layer, and the decode step's logits are the
+    longer prefill's last ones within atol 1e-5 (the projections of one
+    token and of N + 1 tokens may round apart; the scans add nothing of
+    their own)."""
+    cfg = get_config("xlstm_350m", reduced=True)
+    model = init_params(torch.Generator().manual_seed(1), cfg)
+    toks = torch.from_numpy(np.random.default_rng(N).integers(
+        0, cfg.vocab_size, (2, N + 1)))
+    _, short = prefill(model, cfg, {"tokens": toks[:, :N]}, 16)
+    logits, short = decode_step(model, cfg, toks[:, N:], short,
+                                torch.full((2,), N))
+    want, full = prefill(model, cfg, {"tokens": toks}, 16)
+    for a, b in zip(short, full):
+        assert set(a) == set(b)
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+    torch.testing.assert_close(logits, want, rtol=0, atol=1e-5)
+
+
+def test_prefill_starts_from_the_zero_state():
+    """Prefill into a cache that holds another state gives the state and
+    logits of a prefill into an empty one, as the reference (which never
+    reads the cache it is given in prefill)."""
+    cfg = get_config("xlstm_350m", reduced=True)
+    model = init_params(torch.Generator().manual_seed(2), cfg)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 7)))
+    want, fresh = prefill(model, cfg, {"tokens": toks}, 16)
+    used = [{k: t.clone() for k, t in c.items()} for c in fresh]
+    from repro_torch.models.transformer import _trunk
+    x, used, _ = _trunk(model, cfg, {"tokens": toks.flip(1)}, "prefill",
+                        used, None)
+    x, used, _ = _trunk(model, cfg, {"tokens": toks}, "prefill", used, None)
+    torch.testing.assert_close(x[:, -1] @ model.unembed, want, rtol=0,
+                               atol=0)
+    for a, b in zip(used, fresh):
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+
+
+def test_xlstm_cache_layout():
+    """The reduced and the full configs' caches: the mLSTM's heads are
+    2 d / H wide (16 reduced, 512 at full width, not ``head_dim``'s 8 and
+    256), the state float32, m at -1e30."""
+    cfg = get_config("xlstm_350m", reduced=True)
+    cache = init_cache(cfg, 3, 40, device="cpu")
+    assert cfg.layout() == ("slstm", "mlstm") * 2
+    for blk, kind in zip(cache, cfg.layout()):
+        assert all(t.dtype == torch.float32 for t in blk.values())
+        if kind == "mlstm":
+            assert blk["C"].shape == (3, 4, 16, 16)
+            assert blk["n"].shape == (3, 4, 16)
+            assert blk["m"].shape == (3, 4)
+        else:
+            assert {k: tuple(t.shape) for k, t in blk.items()} == {
+                k: (3, 32) for k in ("c", "n", "m", "h")}
+        assert (blk["m"] == -1e30).all()
+        assert not any(t.any() for k, t in blk.items() if k != "m")
+    full = get_config("xlstm_350m")
+    assert (full.n_layers, full.d_model, full.n_heads, full.head_dim) == (
+        24, 1024, 4, 256)
+    assert full.layout().count("mlstm") == full.layout().count("slstm") == 12
+    blk = init_cache_block(full, "mlstm", 1, 8, device="cpu")
+    assert blk["C"].shape == (1, 4, 512, 512)
+
+
+def test_convert_round_trip_keeps_xlstm_leaves():
+    """The reference's tree (2 x [slstm, mlstm] reduced) into the port and
+    back, bit for bit, in a bfloat16 model: the sLSTM's ``r`` stays
+    float32, the projections are bfloat16, and the xLSTM blocks carry no
+    ``ln2``/``ffn`` (the strict load would refuse a tree without them)."""
+    jcfg = _jcfg(dtype="bfloat16")
+    params = _reference_weights(jcfg)
+    cfg = from_reference_arch_config(jcfg)
+    model = from_reference_lm_params(params, cfg, device="cpu")
+    s_blk, m_blk = model.blocks[0], model.blocks[1]
+    assert s_blk.r.dtype == torch.float32
+    assert s_blk.w_gates.dtype == m_blk.w_up.dtype == torch.bfloat16
+    assert {n for n, _ in s_blk.named_parameters()} == {
+        "ln", "w_gates", "r", "w_out"}
+    assert {n for n, _ in m_blk.named_parameters()} == {
+        "ln", "w_up", "wq", "wk", "wv", "w_if", "w_down"}
+    assert m_blk.w_if.shape == (2 * cfg.d_model, 2 * cfg.n_heads)
+    tree = to_reference_lm_tree(dict(model.named_parameters()), cfg)
+    flat_want = jax.tree_util.tree_leaves_with_path(params)
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(tree))
+    assert len(flat_got) == len(flat_want)
+    for path, want in flat_want:
+        np.testing.assert_array_equal(flat_got[path],
+                                      np.asarray(want, np.float32))
+    assert tree["period"]["pos0"]["r"].shape == (2, cfg.d_model, 4)
+
+
+def test_plain_scans_train_on_the_cpu():
+    """On the CPU the plain scans are differentiable: reduced xlstm's loss
+    gradient (each block recomputed in the backward pass) reaches every
+    parameter of both blocks, finite and not all zero."""
+    cfg = get_config("xlstm_350m", reduced=True)
+    model = init_params(torch.Generator().manual_seed(0), cfg).train()
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 10)))
+    loss, _ = loss_fn(model, cfg, {"tokens": toks, "labels": toks})
+    loss.backward()
+    for blk in model.blocks[:2]:
+        for name, p in blk.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+            assert p.grad.abs().sum() > 0, name
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' guards, the launcher
+# ---------------------------------------------------------------------------
+
+def test_scan_gradient_off_the_cpu_names_roadmap_item():
+    """The scan kernels have no backward: a call off the CPU that would
+    need a gradient raises naming item 13k before any launch (meta
+    tensors stand in for CUDA ones here); without a gradient the same
+    call only refuses the device."""
+    meta = dict(device="meta")
+    q = torch.empty((1, 3, 2, 16), requires_grad=True, **meta)
+    g = torch.empty((1, 3, 2, 16), **meta)
+    gp = torch.empty((1, 3, 2), **meta)
+    state = (torch.empty((1, 2, 16, 16), **meta),
+             torch.empty((1, 2, 16), **meta), torch.empty((1, 2), **meta))
+    gates = torch.empty((1, 3, 8, 4), requires_grad=True, **meta)
+    r = torch.empty((8, 4), **meta)
+    sstate = [torch.empty((1, 8), **meta) for _ in range(4)]
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 13k"):
+        ms.mlstm_scan(q, g, g, gp, gp, *state)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 13k"):
+        ss.slstm_scan(gates, r, *sstate)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="unsupported device"):
+            ms.mlstm_scan(q, g, g, gp, gp, *state)
+        with pytest.raises(ValueError, match="unsupported device"):
+            ss.slstm_scan(gates, r, *sstate)
+
+
+def test_scan_wrappers_reject_bad_inputs():
+    q = torch.zeros((1, 3, 2, 16))
+    gp = torch.zeros((1, 3, 2))
+    C, n, m = ms.init_state(1, 2, 16, "cpu")
+    with pytest.raises(ValueError, match="expected float32"):
+        ms.mlstm_scan(q, q, q, gp, gp, C[..., :8], n, m)
+    with pytest.raises(ValueError, match="expected float32"):
+        ms.mlstm_scan(q, q.double(), q, gp, gp, C, n, m)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        ms.mlstm_scan(q, q, q, gp, gp, C.transpose(2, 3), n, m)
+    gates = torch.zeros((1, 3, 8, 4))
+    state = list(ss.init_state(1, 8, "cpu"))
+    with pytest.raises(ValueError, match="expected float32"):
+        ss.slstm_scan(gates, torch.zeros((8, 4)).bfloat16(), *state)
+    with pytest.raises(ValueError, match="expected \\(B, S, w, 4\\)"):
+        ss.slstm_scan(gates[..., :3], torch.zeros((8, 4)), *state)
+    with pytest.raises(TypeError, match="gates are"):
+        ss.slstm_scan(gates.half(), torch.zeros((8, 4)), *state)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        ss.slstm_scan(gates[:, :, :4], torch.zeros((4, 4)),
+                      *(torch.zeros((1, 8))[:, ::2] for _ in range(4)))
+
+
+def test_serve_launcher_runs_xlstm_on_cpu(capsys):
+    """``launch.serve --arch xlstm_350m --reduced --device cpu`` serves
+    its 8 requests; without ``--device cpu`` it exits 2 where there is no
+    GPU."""
+    assert launch_serve.main(["--arch", "xlstm_350m", "--reduced",
+                              "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("served 8 requests, 128 tokens")
+    if not torch.cuda.is_available():
+        assert launch_serve.main(["--arch", "xlstm_350m", "--reduced"]) == 2

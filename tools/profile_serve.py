@@ -14,10 +14,11 @@ the engine's counters and tokens/s of both runs, and for the prefill and
 decode ranges of the profiled run their host time, device busy time
 (union of the kernels' intervals inside the ranges), idle share, kernel
 launches and the kernels with the most device time, and the launches of
-the port's flash, decode attention and RG-LRU scan kernels in the
-profiled run. ``--kv-quant`` serves on the int8 KV cache
+the port's flash, decode attention, RG-LRU, mLSTM and sLSTM scan kernels
+in the profiled run. ``--kv-quant`` serves on the int8 KV cache
 (``dataclasses.replace(cfg, kv_quant=True)``, as the reference sets it);
-``--arch recurrentgemma_9b`` serves the hybrid. Needs a CUDA device.
+``--arch recurrentgemma_9b`` serves the hybrid, ``--arch xlstm_350m``
+the xLSTM stack. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -72,7 +73,9 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ms
     from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import slstm_scan as ss
     from repro_torch.models import init_params
     from repro_torch.serve import LMRequest, ServeEngine
 
@@ -88,7 +91,7 @@ def main(argv=None) -> int:
                       max_len=args.max_len, device="cuda")
 
     counters = (fa.flash_attention, dk.decode_attention_kernel,
-                rs.rglru_scan)
+                rs.rglru_scan, ms.mlstm_scan, ss.slstm_scan)
 
     def serve():
         eng.done.clear()
@@ -158,6 +161,8 @@ def main(argv=None) -> int:
                "decode_attention_launches":
                    dk.decode_attention_kernel.launches,
                "rglru_scan_launches": rs.rglru_scan.launches,
+               "mlstm_scan_launches": ms.mlstm_scan.launches,
+               "slstm_scan_launches": ss.slstm_scan.launches,
                "device_busy_s": _union_us(
                    (k.time_range.start, k.time_range.end) for k in kernels)
                / 1e6, "kernel_launches": len(kernels), "phases": phases}
