@@ -225,17 +225,25 @@ recurrent layers) and on xlstm-350m (the ``mlstm_scan`` and
      plain versions), logits within 1e-3 x max|logits|;
  28. the mLSTM scan kernel (``csrc/mlstm_scan.cu``) vs
      ``mlstm_scan_plain`` at (B, S, H, hd) = (1, 4096, 4, 512),
-     (4, 1, 4, 512) and (2, 37, 4, 16), and the sLSTM scan kernel
+     (4, 1, 4, 512), (2, 37, 4, 16), (1, 5, 4, 512) (under one staged
+     chunk of 8 steps) and (2, 45, 2, 128) (a gate batch of 32 and a
+     ragged chunk), and at (1, 67, 4, 512) with gates made so that i_pre
+     wins the stabiliser's max on some steps, log_f + m on others, and
+     ties it exactly on the rest; and the sLSTM scan kernel
      (``csrc/slstm_scan.cu``) vs ``slstm_scan_plain`` at (B, S, w) =
-     (1, 4096, 1024) and (4, 1, 1024) with bf16 gates and (4, 1, 1024)
-     and (2, 37, 32) in float32, each from a random state: h and every
+     (1, 4096, 1024) and (4, 1, 1024) with bf16 gates, (4, 1, 1024)
+     and (2, 37, 32) in float32, and widths off the warp with S off the
+     staged chunk of 32 steps, (1, 300, 1000) bf16 and (3, 70, 7)
+     float32, each from a random state: h and every
      state tensor within 1e-5 of their largest entry, the route asserted
      (head width; gates' type), two launches bitwise (h and state), a
      CUDA graph of one call replayed twice from the state restored before
      each replay bitwise the eager launch, 1 device kernel a call, the
      scan over S - 1 steps and then 1 bitwise the scan over S; device
-     time from a CUDA graph beside the bound and the plain loop, and the
-     sLSTM's chain floor (one warp of chains alone at S = 4096);
+     time from a CUDA graph beside the bound (the mLSTM's operations at
+     the FP32 lanes' rate: no product is fused with a sum) and the plain
+     loop, and the sLSTM's chain floor (one warp of chains alone at the
+     same S);
  29. xlstm-350m at its published width (24 layers [slstm, mlstm] x 12,
      d 1024, mLSTM heads of 512, bf16, seeded random weights) served as
      in phase 12: 12 launches of each scan kernel a prefill and a decode
@@ -2775,27 +2783,62 @@ def phase_recurrentgemma(torch, fa, dev) -> dict:
 
 
 # phase 28: the xLSTM scans' shapes. mLSTM (B, S, H, hd): a 4096-token
-# xlstm-350m prefill (4 heads of 512), its decode step at 4 slots, and a
-# ragged reduced one (heads of 16); sLSTM (B, S, w, gates' type): the
-# prefill (width 1024) with bf16 gates, the decode step at 4 slots in bf16
-# and float32, and a ragged reduced float32 one
-MLSTM_TESTS = [(1, 4096, 4, 512), (4, 1, 4, 512), (2, 37, 4, 16)]
+# xlstm-350m prefill (4 heads of 512), its decode step at 4 slots, a ragged
+# reduced one (heads of 16), S under one staged chunk of 8 steps at full
+# width, and S = 45 (a gate batch of 32 and a ragged chunk) at heads of
+# 128; MLSTM_TIES, at full width, runs gates made so that i_pre wins the
+# max on some steps, log_f + m on others, and ties it exactly on the rest
+# (``mlstm_tie_gates``). sLSTM (B, S, w, gates' type): the prefill (width
+# 1024) with bf16 gates, the decode step at 4 slots in bf16 and float32, a
+# ragged reduced float32 one, and widths off the warp's 32 channels with S
+# off the staged chunk of 32 steps
+MLSTM_TESTS = [(1, 4096, 4, 512), (4, 1, 4, 512), (2, 37, 4, 16),
+               (1, 5, 4, 512), (2, 45, 2, 128)]
+MLSTM_TIES = (1, 67, 4, 512)
 SLSTM_TESTS = [(1, 4096, 1024, "bfloat16"), (4, 1, 1024, "bfloat16"),
-               (4, 1, 1024, "float32"), (2, 37, 32, "float32")]
+               (4, 1, 1024, "float32"), (2, 37, 32, "float32"),
+               (1, 300, 1000, "bfloat16"), (3, 70, 7, "float32")]
 # h and the state within this share of their largest entry of the plain
 # version's (the state rounds as the plain loop; the mLSTM's dot products
 # are summed in another order; the transcendentals' last bits may differ)
 XLSTM_REL = 1e-5
-# float32 operations a step and (b, head) of the mLSTM: 6 an element of C
-# (v_i k_j, i_g x it, f_g C, their sum; C' q's product and sum) and 6 a row
-# (n's update f_g n + i_g k and n' . q: 5; h's division: 1), the gates'
-# few scalars left out; of the sLSTM, a step and channel: 4 products and 4
-# sums into pre (8), the sigmoid (negate, exp, add, divide: 4), tanh (1),
-# -softplus(-pre_f) (negate, abs, negate, exp, log1p, max, add, negate:
-# 8), log f + m, the max, 2 differences and 2 exps (6), c (2 products, a
-# sum: 3), n (a product, a sum, the floor: 3), c / n and o x it (2)
-MLSTM_OPS_C, MLSTM_OPS_ROW = 6, 6
-SLSTM_OPS = 35
+# float32 operations a step and (b, head) of the mLSTM: 5 an element of C
+# where one gate is exactly 1 (m' is one of log_f + m and i_pre, so for
+# finite inputs every step: v_i k_j, the other gate x it or x C, their sum;
+# C' q's product and sum) and 5 a row (n's update: 2, n' . q: 2, h's
+# division: 1), the gates' few scalars left out. None is fused with
+# another, so they run at the FP32 lanes' rate (RATE_FP32, an operation a
+# lane and clock), not the data sheet's 67 TFLOP/s, which counts an FMA as
+# 2. Of the sLSTM, a step and channel: 4 products and 4 sums into pre (8),
+# the sigmoid (negate, exp, add, divide: 4), tanh (1), -softplus(-pre_f)
+# (negate, abs, negate, exp, log1p, max, add, negate: 8), log f + m, its
+# difference with pre_i, the max and one exp (4), c (2 products, a sum:
+# 3), n (a product, a sum, the floor: 3), c / n and o x it (2)
+MLSTM_OPS_C, MLSTM_OPS_ROW = 5, 5
+SLSTM_OPS = 33
+
+
+def mlstm_tie_gates(torch, gen, S, m0):
+    """Gate pre-activations i_pre, f_pre (B, S, H) for the stabiliser m0
+    (B, H), every entry at least 1: at t % 3 == 0 i_pre = m + 1 + u wins
+    the max (u uniform in [0, 1)) and f_pre is normal; at t % 3 == 1 and 2
+    f_pre = 30, whose log_f = -softplus(-30) ~ -9.4e-14 leaves log_f + m
+    = m bit for bit (whatever the last bits of exp and log1p), against
+    i_pre = m - 1 - u (log_f + m wins) and i_pre = m (an exact tie). So
+    the stabiliser is known exactly at every step."""
+    shape = (m0.shape[0], S, m0.shape[1])
+    u = torch.rand(shape, generator=gen, device=m0.device)
+    f_pre = torch.randn(shape, generator=gen, device=m0.device) * 2
+    i_pre = torch.empty(shape, device=m0.device)
+    m = m0.clone()
+    for t in range(S):
+        if t % 3 == 0:
+            i_pre[:, t] = m + 1 + u[:, t]
+            m = i_pre[:, t].clone()
+        else:
+            f_pre[:, t] = 30.0
+            i_pre[:, t] = m - 1 - u[:, t] if t % 3 == 1 else m
+    return i_pre, f_pre
 
 
 def xlstm_state(torch, gen, shapes, dev, positive=()):
@@ -2894,7 +2937,8 @@ def phase_xlstm_kernels(torch, dev) -> dict:
     out = {"mlstm": {}, "slstm": {}, "max_abs_err": {}}
     worst = 0.0
     with torch.no_grad():
-        for B, S, H, hd in MLSTM_TESTS:
+        for B, S, H, hd, ties in [*((*s, False) for s in MLSTM_TESTS),
+                                  (*MLSTM_TIES, True)]:
             q, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
                        for _ in range(3))
             k = k * (1.0 / math.sqrt(hd))
@@ -2904,6 +2948,9 @@ def phase_xlstm_kernels(torch, dev) -> dict:
                                              "n": (B, H, hd), "m": (B, H)},
                                 dev)
             state["C"] *= 0.3
+            if ties:
+                state["m"] = state["m"].abs() + 1
+                i_pre, f_pre = mlstm_tie_gates(torch, gen, S, state["m"])
             args = (q, k, v, i_pre, f_pre)
 
             def call(st, a=args):
@@ -2912,7 +2959,8 @@ def phase_xlstm_kernels(torch, dev) -> dict:
             def plain(st, a=args):
                 return ms.mlstm_scan_plain(*a, st["C"], st["n"], st["m"])
             route = f"hd{hd}"
-            label = f"mlstm_scan ({B}, {S}, {H}, {hd})"
+            label = f"mlstm_scan ({B}, {S}, {H}, {hd})" + (
+                " ties" if ties else "")
             err = scan_check(torch, label, call, plain, state,
                              lambda: ms.mlstm_scan.routes[route], route)
             if S > 1:
@@ -2927,16 +2975,20 @@ def phase_xlstm_kernels(torch, dev) -> dict:
             plain_ms = time_ms(torch, lambda: plain(
                 {k_: t.clone() for k_, t in state.items()}),
                 reps=1 if long else 5, windows=3)
+            if not all(bool(torch.isfinite(t).all()) for t in
+                       (i_pre, f_pre, state["m"])):
+                raise RuntimeError(f"{label}: non-finite gates (the bound "
+                                   "counts one exact gate a step)")
             flops = B * S * H * (MLSTM_OPS_C * hd * hd + MLSTM_OPS_ROW * hd)
             nbytes = 4 * (4 * B * S * H * hd + 2 * B * S * H
                           + 2 * B * H * (hd * hd + hd + 1))
             t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-            t_ops = flops / PEAK_FP32_FLOPS * 1e3
+            t_ops = flops / RATE_FP32 * 1e3
             bound = {"bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations"}
-            out["mlstm"][(B, S, H, hd)] = {"ms": ms_, "plain_ms": plain_ms,
-                                           **bound}
+            out["mlstm"][(B, S, H, hd) + (("ties",) if ties else ())] = {
+                "ms": ms_, "plain_ms": plain_ms, **bound}
             log(f"{label}: route {route}, max_abs_err {err:.3g} (h and "
                 f"state, limit {XLSTM_REL:g} x max), two launches bitwise, "
                 f"graph replays from the restored state bitwise, 1 device "
@@ -2945,7 +2997,8 @@ def phase_xlstm_kernels(torch, dev) -> dict:
                 + f"; kernel {ms_:.4f} ms a launch on the device (CUDA "
                 f"graph), plain {plain_ms:.4f} ms, bound "
                 f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+                f"{flops / 1e9:.3f} G float32 ops at the lane rate, "
+                f"{nbytes / 1e6:.2f} MB)")
         out["max_abs_err"]["mlstm"] = worst
         worst = 0.0
         for B, S, w, dt in SLSTM_TESTS:

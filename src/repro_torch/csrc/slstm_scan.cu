@@ -18,43 +18,76 @@
 // tensor operations round them; the transcendentals are CUDA's tanhf, expf
 // and log1pf, and the divisions IEEE (no fast math).
 //
+// The exact-one gate: m' is one of log_f + m and pre_i, so with
+// d = (log_f + m) - pre_i one gate is exactly 1 and the other exp(-|d|)
+// (pre_i - (log_f + m) = -d exactly): i_g = 1 where d <= 0, f_g = 1 where
+// d >= 0. One exp a step, bit for bit the two of the cell.
+//
 // Design: the channels are independent chains, so a thread takes one
-// (b, channel) and walks its S steps with the state and r in registers. A
-// warp's 32 threads are 32 neighbouring channels: a step's gates are one
-// contiguous 256-byte (bfloat16) or 512-byte (float32) load for the warp,
-// and its h one 128-byte store. Each thread keeps the gates of the next
-// AHEAD steps in flight in a ring of registers (a step's 4 gates are one
-// 8- or 16-byte load).
+// (b, channel) and walks its S steps with the state and r in registers; a
+// warp (a block) takes 32 neighbouring channels. Each thread copies its
+// channel's gates, CHUNK steps at a time, into its own slots of a
+// two-stage shared-memory ring with asynchronous copies (cp.async, 8 or 16
+// bytes a step, a chunk ahead: no register holds a gate in flight from
+// device memory), reads a step's raw gates from there one step ahead and
+// converts them where the step uses them, so no step waits for a load.
+// A step's h is one 128-byte store for the warp.
 //
 // Bound on an H100 SXM (data-sheet peaks, 700 W): bytes, and far above
 // that the dependency chain. At (B, S, w) = (1, 4096, 1024) with bfloat16
 // gates, the gates read once and hs written once are 50.3 MB, 0.015 ms at
 // 3.35 TB/s; the ~34 float32 operations of a channel's step are 0.14 G,
 // 0.004 ms. But each step needs the previous step's h: S steps of the
-// chain h -> pre -> exp/log1p -> m' -> exp -> c', n' -> division -> h
-// (chip_smoke.py, phase 28, states the chain's floor beside the bound).
+// chain h -> pre -> exp/log1p -> log_f + m -> exp -> c', n' -> division ->
+// h (chip_smoke.py, phase 28, states the chain's floor beside the bound).
 // Only B x w = 1024 chains exist at B = 1: 32 warps for 528 schedulers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int THREADS = 32;  // a warp a block: the chains spread over SMs
-constexpr int AHEAD = 8;     // steps of gates in flight a thread
+constexpr int CHUNK = 32;    // steps of gates a stage of the ring
+constexpr int STAGES = 2;
 
 struct Gates {
   float z, i, f, o;
 };
 
-__device__ __forceinline__ Gates load_gates(const float* p) {
-  const float4 g = __ldg(reinterpret_cast<const float4*>(p));
-  return {g.x, g.y, g.z, g.w};
+// a channel's 4 gates of one step as they lie in memory
+template <typename T>
+struct Raw;
+template <>
+struct Raw<float> {
+  using type = float4;
+  __device__ static Gates get(const float4& g) { return {g.x, g.y, g.z, g.w}; }
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  using type = uint2;
+  __device__ static Gates get(const uint2& raw) {
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+    return {__low2float(a), __high2float(a), __low2float(b),
+            __high2float(b)};
+  }
+};
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(BYTES)
+               : "memory");
 }
-__device__ __forceinline__ Gates load_gates(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  return {__low2float(a), __high2float(a), __low2float(b), __high2float(b)};
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest has landed
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float softplus(float x) {
@@ -72,8 +105,11 @@ slstm_scan_kernel(const T* __restrict__ gates, const float* __restrict__ r,
                   float* __restrict__ c, float* __restrict__ n,
                   float* __restrict__ m, float* __restrict__ h,
                   float* __restrict__ hs, int B, int S, int W) {
+  using R = typename Raw<T>::type;
+  __shared__ R ring[STAGES][CHUNK][THREADS];
   const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= (long long)B * W) return;
+  if (idx >= (long long)B * W) return;  // no thread waits for another
+  const int lane = threadIdx.x;
   const int b = (int)(idx / W), ch = (int)(idx % W);
   const float rz = r[4 * ch], ri = r[4 * ch + 1], rf = r[4 * ch + 2],
               ro = r[4 * ch + 3];
@@ -82,17 +118,29 @@ slstm_scan_kernel(const T* __restrict__ gates, const float* __restrict__ r,
   float* out = hs + (size_t)b * S * W + ch;
   const size_t step = (size_t)W * 4;
 
-  Gates ring[AHEAD];
-#pragma unroll
-  for (int u = 0; u < AHEAD; ++u)
-    if (u < S) ring[u] = load_gates(g + u * step);
-  for (int t0 = 0; t0 < S; t0 += AHEAD) {
-#pragma unroll
-    for (int u = 0; u < AHEAD; ++u) {
-      const int t = t0 + u;
-      if (t >= S) break;
-      const Gates x = ring[u];
-      if (t + AHEAD < S) ring[u] = load_gates(g + (t + AHEAD) * step);
+  // this thread's gates of chunk `k` into stage k % STAGES (an empty group
+  // past the end, so that the wait below always leaves the newest pending)
+  auto issue = [&](int k) {
+    const int t0 = k * CHUNK;
+    const int steps = S - t0 < CHUNK ? S - t0 : CHUNK;
+#pragma unroll 4
+    for (int u = 0; u < steps; ++u)
+      cp_async<sizeof(R)>(&ring[k % STAGES][u][lane],
+                          g + (size_t)(t0 + u) * step);
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+  for (int k = 0; k * CHUNK < S; ++k) {
+    cp_async_wait_all_but_one();
+    const int t0 = k * CHUNK;
+    const int steps = S - t0 < CHUNK ? S - t0 : CHUNK;
+    const R* slots = &ring[k % STAGES][0][lane];
+    R nx = slots[0];  // step u + 1's gates are read while step u computes
+#pragma unroll 4
+    for (int u = 0; u < steps; ++u) {
+      const Gates x = Raw<T>::get(nx);
+      if (u + 1 < steps) nx = slots[(u + 1) * THREADS];
       const float pz = __fadd_rn(x.z, __fmul_rn(hh, rz));
       const float pi = __fadd_rn(x.i, __fmul_rn(hh, ri));
       const float pf = __fadd_rn(x.f, __fmul_rn(hh, rf));
@@ -101,14 +149,17 @@ slstm_scan_kernel(const T* __restrict__ gates, const float* __restrict__ r,
       const float o = sigmoid(po);
       const float log_f = -softplus(-pf);
       const float lfm = __fadd_rn(log_f, mm);
+      const float d = __fsub_rn(lfm, pi);
       mm = fmaxf(lfm, pi);
-      const float i_g = expf(__fsub_rn(pi, mm));
-      const float f_g = expf(__fsub_rn(lfm, mm));
+      const float e = expf(-fabsf(d));
+      const float i_g = d > 0.f ? e : 1.f;
+      const float f_g = d > 0.f ? 1.f : e;
       cc = __fadd_rn(__fmul_rn(f_g, cc), __fmul_rn(i_g, z));
       nn = fmaxf(__fadd_rn(__fmul_rn(f_g, nn), i_g), 1e-6f);
       hh = __fmul_rn(o, __fdiv_rn(cc, nn));
-      out[(size_t)t * W] = hh;
+      out[(size_t)(t0 + u) * W] = hh;
     }
+    issue(k + STAGES);  // into the stage just read
   }
   c[idx] = cc;
   n[idx] = nn;

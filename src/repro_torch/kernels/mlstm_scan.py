@@ -30,13 +30,19 @@ would need a gradient raises, naming ROADMAP Queue 1 item 13k; on the
 CPU the plain loop is differentiable by autograd.
 
 The kernel rounds as the plain loop's tensor operations do (no fused
-multiply-adds), so the state C, n, m it carries is the plain loop's;
-only the two dot products C' q and n' . q are summed in another order
-(each lane adds its columns j = lane, lane + 32, ... in order, then the
-warp's 32 partial sums are added pairwise at distances 16, 8, 4, 2, 1;
-``kernel_order_dot`` is that sum in plain PyTorch). The kernel and the
-plain loop differ by those sums and the last bits of the transcendental
-functions, within 1e-5 of max|h|.
+multiply-adds), so the state C, n, m it carries is the plain loop's.
+Two rearrangements keep those bits: m' is one of log_f + m and i_pre, so
+one gate is exactly 1 and the other exp(-|d|) with d = (log_f + m) -
+i_pre (one exp; the kernel picks i_g = 1 where d <= 0, f_g = 1
+otherwise), and a product with 1.0 is exact, so a step updates
+C' = f_g C + v k^T or C + i_g (v k^T): 5 rounded operations an element
+with C' q where the formula has 6. Only the two dot products C' q and
+n' . q are summed in another order (each lane adds its columns j =
+lane, lane + 32, ... in order, then the 32 lanes' partial sums are
+added pairwise at distances 16, 8, 4, 2, 1; ``kernel_order_dot`` is
+that sum in plain PyTorch). The kernel and the plain loop differ by
+those sums and the last bits of the transcendental functions, within
+1e-5 of max|h|.
 """
 from __future__ import annotations
 
@@ -101,9 +107,11 @@ def kernel_order_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_j a_j b_j over the last axis (hd) in the kernel's order:
     lane l adds its products at j = l, l + 32, ... one at a time from 0,
     then the 32 lanes' sums are added pairwise at distances 16, 8, 4, 2,
-    1 (``__shfl_xor_sync``; a + b == b + a, so every lane ends with the
-    same bits). Products and sums are rounded to float32 one at a time,
-    as the kernel's ``__fmul_rn``/``__fadd_rn``."""
+    1 (the kernel adds a chunk's partial sums in that tree after the
+    chunk, partly by ``__shfl_xor_sync``; a + b == b + a, so the tree's
+    pairs give the same bits however they are laid out). Products and
+    sums are rounded to float32 one at a time, as the kernel's
+    ``__fmul_rn``/``__fadd_rn``."""
     hd = a.shape[-1]
     cols = -(-hd // 32)    # columns a lane; a lane past hd adds 0
     prod = a * b
@@ -165,7 +173,9 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernel's {HEAD_DIMS}")
     if S == 0:
         return torch.empty_like(q)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel copies q, k and v rows by TMA: 16-byte aligned bases
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     i_pre, f_pre = i_pre.contiguous(), f_pre.contiguous()
     h = torch.empty_like(q)
     arrivals = build.workspace("mlstm_scan", q.device, B * H)

@@ -8,8 +8,9 @@ its cache is copied into the slot, every tensor of every layer's dict
 along its batch axis: KV caches and their positions and scales, the
 RG-LRU's h and conv window, the mLSTM's C, n, m and the sLSTM's c, n,
 m, h); decode is one step for all slots every iteration. Decoding is greedy (the first maximum, as
-``jnp.argmax``; the reference's ``greedy`` and ``seed`` arguments select
-nothing else there, and are left out here).
+``jnp.argmax``); ``greedy`` and ``seed`` are taken and kept as the
+reference takes them (its ``greedy`` selects nothing else and its key
+from ``seed`` is never used), so a call that passes them runs in both.
 
 ``stats`` counts what the engine did, for the serving report: prefill
 and decode wall seconds (host clock; each phase ends in a device-to-host
@@ -45,7 +46,8 @@ class LMRequest:
 
 class ServeEngine:
     def __init__(self, params: LM, cfg: ArchConfig, n_slots: int = 4,
-                 max_len: int = 256, device: DeviceLike = "cuda"):
+                 max_len: int = 256, greedy: bool = True, seed: int = 0,
+                 device: DeviceLike = "cuda"):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.name} is encoder-only and cannot be "
                              "served")
@@ -56,6 +58,9 @@ class ServeEngine:
                              f"{self.device}")
         self.params, self.cfg = params, cfg
         self.n_slots, self.max_len = n_slots, max_len
+        # the reference's sampling arguments, kept as it keeps them: decode
+        # is argmax there too, and its key is never split
+        self.greedy, self.seed = greedy, seed
         self.cache = init_cache(cfg, n_slots, max_len, self.device)
         self.positions = np.zeros((n_slots,), np.int64)
         self.active = np.zeros((n_slots,), bool)

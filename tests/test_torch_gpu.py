@@ -989,18 +989,46 @@ def _within(got, want, rel=1e-5):
     return float((got - want).abs().max()) <= rel * float(want.abs().max())
 
 
-@pytest.mark.parametrize("B,S,H,hd", [(2, 37, 4, 16), (1, 300, 4, 512),
-                                      (4, 1, 4, 512), (1, 50, 2, 32),
-                                      (3, 20, 4, 64), (1, 40, 2, 128),
-                                      (2, 9, 4, 256)])
-def test_mlstm_scan_kernel_matches_plain(cuda, B, S, H, hd):
+def _tie_gates(seed, B, S, H, m, dev):
+    """i_pre, f_pre (B, S, H) for the stabiliser m (B, H), every entry at
+    least 1: i_pre wins the max at t % 3 == 0, log_f + m at t % 3 == 1
+    and ties it exactly at t % 3 == 2 (f_pre = 30 there: log_f ~ -9.4e-14
+    leaves log_f + m = m bit for bit, so m is known at every step)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    u = torch.rand((B, S, H), generator=gen, device=dev)
+    f_pre = torch.randn((B, S, H), generator=gen, device=dev) * 2
+    i_pre = torch.empty((B, S, H), device=dev)
+    for t in range(S):
+        if t % 3 == 0:
+            i_pre[:, t] = m + 1 + u[:, t]
+            m = i_pre[:, t].clone()
+        else:
+            f_pre[:, t] = 30.0
+            i_pre[:, t] = m - 1 - u[:, t] if t % 3 == 1 else m
+    return i_pre, f_pre
+
+
+@pytest.mark.parametrize("B,S,H,hd,ties", [
+    (2, 37, 4, 16, False), (1, 300, 4, 512, False), (4, 1, 4, 512, False),
+    (1, 50, 2, 32, False), (3, 20, 4, 64, False), (1, 40, 2, 128, False),
+    (2, 9, 4, 256, False), (1, 5, 4, 512, False), (2, 45, 2, 128, False),
+    (1, 67, 4, 512, True), (2, 13, 2, 16, True)])
+def test_mlstm_scan_kernel_matches_plain(cuda, B, S, H, hd, ties):
     """The mLSTM scan kernel against ``mlstm_scan_plain`` from the same
     random state: h and the final C, n, m within 1e-5 of their largest
     entry, one launch on the route of its head width, a second launch
     bitwise equal (h and state); every instantiated width, xlstm-350m's
-    512 (prefill and 4-slot decode) and the reduced 16."""
+    512 (prefill and 4-slot decode) and the reduced 16; S under one
+    staged chunk of 8 steps and off it and off the gate batch of 32; and
+    gates where i_pre wins the max on some steps, log_f + m on others,
+    and ties it exactly on the rest."""
     from repro_torch.kernels.mlstm_scan import mlstm_scan, mlstm_scan_plain
     args, state = _mlstm_case(S + hd, B, S, H, hd, cuda)
+    if ties:
+        m = state[2].abs() + 1
+        state = (state[0], state[1], m)
+        args = args[:3] + _tie_gates(S, B, S, H, m, cuda)
     one, two, ref = ([t.clone() for t in state] for _ in range(3))
     before, routed = mlstm_scan.launches, mlstm_scan.routes[f"hd{hd}"]
     got = mlstm_scan(*args, *one)
@@ -1020,13 +1048,16 @@ def test_mlstm_scan_kernel_matches_plain(cuda, B, S, H, hd):
                                       (1, 4096, 1024, "bfloat16"),
                                       (4, 1, 1024, "bfloat16"),
                                       (3, 100, 1000, "float32"),
-                                      (1, 5, 7, "bfloat16")])
+                                      (1, 5, 7, "bfloat16"),
+                                      (1, 300, 1000, "bfloat16"),
+                                      (3, 70, 7, "float32")])
 def test_slstm_scan_kernel_matches_plain(cuda, B, S, w, dt):
     """The sLSTM scan kernel against ``slstm_scan_plain`` from the same
     random state: hs and the final c, n, m, h within 1e-5 of their
     largest entry, one launch on the route of the gates' type, a second
     launch bitwise equal; the reduced width, xlstm-350m's 1024 (prefill
-    and 4-slot decode) and widths off the warp's 32 channels."""
+    and 4-slot decode) and widths off the warp's 32 channels, with S
+    under and off the staged chunk of 32 steps."""
     from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain
     args, state = _slstm_case(S + w, B, S, w, dt, cuda)
     one, two, ref = ([t.clone() for t in state] for _ in range(3))

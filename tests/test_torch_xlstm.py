@@ -38,6 +38,7 @@ from repro_torch.convert import (from_reference_arch_config,
                                  to_reference_lm_tree)
 from repro_torch.kernels import mlstm_scan as ms
 from repro_torch.kernels import slstm_scan as ss
+from repro_torch.kernels.rglru_scan import softplus
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import (decode_step, forward, init_params, loss_fn,
                                 prefill)
@@ -211,19 +212,39 @@ def test_sequence_then_step_equals_longer_sequence_bitwise():
 # the mLSTM kernel's summation order
 # ---------------------------------------------------------------------------
 
+def _one_exp_gates(i_pre, f_pre, m):
+    """The kernels' exact-one form of the gates (csrc/mlstm_scan.cu's
+    producer, csrc/slstm_scan.cu's step): d = (log_f + m) - i_pre, one
+    exp, i_g = 1 where d <= 0 and f_g = 1 where d > 0, the other gate
+    exp(-|d|). Returns (i_g, f_g, m')."""
+    lfm = -softplus(-f_pre) + m
+    d = lfm - i_pre
+    e = torch.exp(-torch.abs(d))
+    wins = d > 0
+    one = torch.ones_like(e)
+    return (torch.where(wins, e, one), torch.where(wins, one, e),
+            torch.maximum(lfm, i_pre))
+
+
 def _emulate_mlstm_kernel(q, k, v, i_pre, f_pre, C, n, m):
     """The mLSTM kernel's arithmetic (csrc/mlstm_scan.cu) in plain torch:
-    the gates and the state update as the plain loop rounds them (the
-    kernel's __fmul_rn/__fadd_rn), the two dot products in the kernel's
-    order (``kernel_order_dot``: a lane's columns in order, then the
-    lanes pairwise). Returns h; the state is updated in place."""
+    the gates in the exact-one form (``_one_exp_gates``), the state update
+    in the kernel's 5-operation forms (C' = f_g C + v k^T where i_g is 1,
+    C + i_g (v k^T) where f_g is 1: the kernel's warp-uniform branch, a
+    ``where`` over (b, head) here), each product and sum rounded on its
+    own, and the two dot products in the kernel's order
+    (``kernel_order_dot``: a lane's columns in order, then the lanes
+    pairwise). Returns h; the state is updated in place."""
     out = []
     for t in range(q.shape[1]):
-        i_g, f_g, m_new = ms.gates(i_pre[:, t], f_pre[:, t], m)
+        i_g, f_g, m_new = _one_exp_gates(i_pre[:, t], f_pre[:, t], m)
         m.copy_(m_new)
-        C.copy_(f_g[..., None, None] * C + i_g[..., None, None] * (
-            v[:, t, :, :, None] * k[:, t, :, None, :]))
-        n.copy_(f_g[..., None] * n + i_g[..., None] * k[:, t])
+        vk = v[:, t, :, :, None] * k[:, t, :, None, :]
+        i_one = (i_g == 1)[..., None, None]
+        C.copy_(torch.where(i_one, f_g[..., None, None] * C + vk,
+                            C + i_g[..., None, None] * vk))
+        n.copy_(torch.where(i_one[..., 0], f_g[..., None] * n + k[:, t],
+                            n + i_g[..., None] * k[:, t]))
         num = ms.kernel_order_dot(C, q[:, t, :, None, :])
         den = torch.clamp(torch.abs(ms.kernel_order_dot(n, q[:, t])),
                           min=1.0)
@@ -231,11 +252,66 @@ def _emulate_mlstm_kernel(q, k, v, i_pre, f_pre, C, n, m):
     return torch.stack(out, dim=1)
 
 
+def _gate_cases():
+    """(i_pre, f_pre, m) float32: random, exact ties (i_pre = log_f + m
+    bit for bit, so d = 0), the zero state's m = -1e30, and large |pre|
+    (both signs, to +-1e4, where exp underflows to 0 or a gate saturates)."""
+    rng = np.random.default_rng(11)
+    n = 512
+    f_pre = _t((rng.standard_normal(n) * 3).astype(np.float32))
+    m = _t((rng.standard_normal(n) * 2).astype(np.float32))
+    i_pre = _t((rng.standard_normal(n) * 3).astype(np.float32))
+    tie = -softplus(-f_pre) + m
+    big = _t(rng.choice(np.array([-1e4, -300, -80, 80, 300, 1e4],
+                                 np.float32), n))
+    return [(i_pre, f_pre, m),
+            (tie.clone(), f_pre, m),
+            (i_pre, f_pre, torch.full_like(m, ms.M_INIT)),
+            (big, f_pre, m), (i_pre, big, m), (big, big.flip(0), m),
+            (big, f_pre, torch.full_like(m, ms.M_INIT))]
+
+
+def test_one_exp_gates_are_the_cells_gates_bitwise():
+    """The kernels' exact-one form of the gates (one exp and a select)
+    against ``mlstm_scan.gates`` and the sLSTM cell's gates as
+    ``slstm_scan_plain`` computes them (two exps), bit for bit, at random
+    inputs, exact ties, m = -1e30 and large |pre|; at a tie both gates
+    are exactly 1, and in every case one of them is."""
+    for i_pre, f_pre, m in _gate_cases():
+        got = _one_exp_gates(i_pre, f_pre, m)
+        want = ms.gates(i_pre, f_pre, m)
+        lfm = -softplus(-f_pre) + m
+        m_new = torch.maximum(lfm, i_pre)
+        cell = (torch.exp(i_pre - m_new), torch.exp(lfm - m_new), m_new)
+        for a, b, c in zip(got, want, cell):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        assert bool(((got[0] == 1) | (got[1] == 1)).all())
+    i_pre, f_pre, m = _gate_cases()[1]
+    i_g, f_g, _ = _one_exp_gates(i_pre, f_pre, m)
+    assert bool((i_g == 1).all() and (f_g == 1).all())
+
+
+def test_product_with_one_is_exact():
+    """x * 1.0f is x bit for bit for every float32 class (normals of
+    every exponent, subnormals, +-0, +-inf): the kernels' 5-operation
+    update skips the product with the gate that is exactly 1."""
+    rng = np.random.default_rng(12)
+    bits = rng.integers(0, 2 ** 32, 1 << 16, dtype=np.uint64)
+    x = _t(bits.astype(np.uint32).view(np.float32))
+    x = x[~torch.isnan(x)]
+    x = torch.cat([x, _t(np.array([0.0, -0.0, np.inf, -np.inf, 1e-45,
+                                   -1e-45, 3.4e38], np.float32))])
+    assert torch.equal((x * 1.0).view(torch.int32), x.view(torch.int32))
+    assert torch.equal((1.0 * x).view(torch.int32), x.view(torch.int32))
+
+
 @pytest.mark.parametrize("B,S,H,hd", [(1, 24, 4, 512), (2, 37, 4, 16)])
 def test_mlstm_kernel_order_within_the_card_limit(B, S, H, hd):
     """At xlstm-350m's head width (512: 16 columns a lane) and at the
     reduced one (16: half the lanes hold no column) the kernel's
-    summation order gives the plain loop's state bit for bit (the state
+    arithmetic (the exact-one gates, the 5-operation update, the
+    summation order) gives the plain loop's state bit for bit (the state
     update has no sum across columns) and h within the limit the card
     holds the kernel to (1e-5 x max|h|), and not the same bits (the
     check sees the order)."""
@@ -414,6 +490,34 @@ def test_xlstm_engine_matches_reference():
     for i in want:
         assert got[i].output == want[i].output, i
     assert len(got[3].output) == 32 - 1 - 26
+
+
+def test_engine_takes_the_reference_sampling_arguments():
+    """``greedy`` and ``seed`` as the reference's ServeEngine takes them,
+    by keyword and in its positional order: an engine built with
+    ``greedy=True, seed=3`` gives the default engine's tokens and the
+    reference engine's built alike, and keeps the two arguments."""
+    jcfg = jget_config("xlstm_350m", reduced=True)
+    jp, model, cfg = _pair(jcfg)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (4, 11, 7)]
+    engines = [ServeEngine(model, cfg, n_slots=2, max_len=24,
+                           device="cpu"),
+               ServeEngine(model, cfg, n_slots=2, max_len=24, greedy=True,
+                           seed=3, device="cpu"),
+               ServeEngine(model, cfg, 2, 24, True, 3, device="cpu")]
+    jeng = JServeEngine(jp, jcfg, n_slots=2, max_len=24, greedy=True,
+                        seed=3)
+    assert (engines[1].greedy, engines[1].seed) == (True, 3)
+    assert (engines[2].greedy, engines[2].seed) == (True, 3)
+    for i, p in enumerate(prompts):
+        jeng.submit(JLMRequest(rid=i, prompt=p, max_new_tokens=4))
+        for eng in engines:
+            eng.submit(LMRequest(rid=i, prompt=p, max_new_tokens=4))
+    want = {i: r.output for i, r in jeng.run().items()}
+    for eng in engines:
+        assert {i: r.output for i, r in eng.run().items()} == want
 
 
 @pytest.mark.parametrize("N", [1, 12])
