@@ -2802,19 +2802,20 @@ SLSTM_TESTS = [(1, 4096, 1024, "bfloat16"), (4, 1, 1024, "bfloat16"),
 # version's (the state rounds as the plain loop; the mLSTM's dot products
 # are summed in another order; the transcendentals' last bits may differ)
 XLSTM_REL = 1e-5
-# float32 operations a step and (b, head) of the mLSTM: 5 an element of C
-# where one gate is exactly 1 (m' is one of log_f + m and i_pre, so for
-# finite inputs every step: v_i k_j, the other gate x it or x C, their sum;
-# C' q's product and sum) and 5 a row (n's update: 2, n' . q: 2, h's
-# division: 1), the gates' few scalars left out. None is fused with
-# another, so they run at the FP32 lanes' rate (RATE_FP32, an operation a
-# lane and clock), not the data sheet's 67 TFLOP/s, which counts an FMA as
-# 2. Of the sLSTM, a step and channel: 4 products and 4 sums into pre (8),
+# float32 instructions a step and (b, head) that the mLSTM needs: 4 an
+# element of C and 4 a row, the gates' few scalars left out. The state must
+# round as the plain loop's, so C's and n's updates are unfused: where one
+# gate is exactly 1 (m' is one of log_f + m and i_pre, so for finite inputs
+# every step) C's is 3 (v_i k_j, the other gate x it or x C, their sum: a
+# product with 1.0 is exact) and n's 2. h is held only within XLSTM_REL,
+# so C' q and n' . q take 1 FMA an element each; h's division 1 a row. They
+# run at the FP32 lanes' rate (RATE_FP32, an instruction a lane and clock),
+# not the data sheet's 67 TFLOP/s, which counts an FMA as 2. Of the sLSTM, a step and channel: 4 products and 4 sums into pre (8),
 # the sigmoid (negate, exp, add, divide: 4), tanh (1), -softplus(-pre_f)
 # (negate, abs, negate, exp, log1p, max, add, negate: 8), log f + m, its
 # difference with pre_i, the max and one exp (4), c (2 products, a sum:
 # 3), n (a product, a sum, the floor: 3), c / n and o x it (2)
-MLSTM_OPS_C, MLSTM_OPS_ROW = 5, 5
+MLSTM_OPS_C, MLSTM_OPS_ROW = 4, 4
 SLSTM_OPS = 33
 
 
@@ -2997,7 +2998,7 @@ def phase_xlstm_kernels(torch, dev) -> dict:
                 + f"; kernel {ms_:.4f} ms a launch on the device (CUDA "
                 f"graph), plain {plain_ms:.4f} ms, bound "
                 f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-                f"{flops / 1e9:.3f} G float32 ops at the lane rate, "
+                f"{flops / 1e9:.3f} G float32 instructions at the lane rate, "
                 f"{nbytes / 1e6:.2f} MB)")
         out["max_abs_err"]["mlstm"] = worst
         worst = 0.0

@@ -22,10 +22,8 @@
 // The exact-one gate. m' is one of log_f + m and i, so one of i - m' and
 // (log_f + m) - m' is exactly 0 and its gate exactly 1: with
 // d = (log_f + m) - i, the other gate is exp(-|d|) (i - (log_f + m) = -d
-// exactly), i_g = 1 where d <= 0 and f_g = 1 where d >= 0. A product with
-// 1.0f is exact, so a step whose i_g is 1 updates C' = f_g C + v k^T and
-// one whose f_g is 1 C' = C + i_g (v k^T): 5 rounded operations an element
-// with C' q, not 6, and bit for bit the state of the 6.
+// exactly), i_g = 1 where d <= 0 and f_g = 1 where d >= 0. One exp a step,
+// and the gates bit for bit the two exps'.
 //
 // Design. Row i of C depends only on v_i, on the whole of k and q and on
 // the per-(b, head) scalars m, i_g, f_g. So a C warp owns RW = 4 rows of C
@@ -42,11 +40,11 @@
 //   (its softplus and its one exp); only the m chain (an add and a max a
 //   step) runs step by step, on values broadcast by shuffles. It writes
 //   each step's (i_g, f_g) into the stage before it arrives on "full".
-// - A C warp's step: one warp-uniform branch on i_g == 1 picks the
-//   5-operation form; each form reads the step's q and k columns and v rows
-//   from the stage where it uses them. Every C warp keeps all of n (the same
-//   columns as its C) and updates it beside C, with n' . q: 64 of a lane's
-//   ~450 instructions a step, but no C warp waits for another.
+// - A C warp's step: C' = f_g C + i_g (v k^T), 6 rounded operations an
+//   element with C' q, reading the step's q and k columns and v rows from
+//   the stage where it uses them. Every C warp keeps all of n (the same
+//   columns as its C) and updates it beside C, with n' . q: at HD 512, 80 of
+//   a lane's 464 operations a step, but no C warp waits for another.
 // - The sums C' q and n' . q, CHUNK steps at once: a step leaves each
 //   lane's partial sums of its columns (in column order) in shared memory;
 //   after the chunk lane j adds the 32 partials of row j % RW at step j / RW
@@ -57,18 +55,23 @@
 // (b, head) to finish (an arrival counter a (b, head), returned to zero)
 // writes n and m: every other block has read them by then.
 //
-// Bound on an H100 SXM (data-sheet peaks, 700 W): operations. At (B, S, H,
-// HD) = (1, 4096, 4, 512) the C update and C' q are 5 float32 operations an
-// element of C a step (one gate is exactly 1), 21.5 G with n's; as no
-// product is fused with a sum they run on the FP32 lanes at one operation a
-// lane and clock (128 x 132 at 1.98 GHz: 33.4 T/s), 0.64 ms; q, k, v and h
-// are 134 MB, C read and written 8.4 MB, 0.043 ms at 3.35 TB/s. What the
-// step waits on instead (tools/bench_xlstm_scan.py): with one C warp a
+// Bound on an H100 SXM (data-sheet peaks, 700 W): operations. The state
+// must round as the plain loop's, so C's update is 3 unfused operations an
+// element (v_i k_j, the gate that is not exactly 1 times it or C, the sum:
+// a product with 1.0f is exact); h is held only within 1e-5 of max|h|, so
+// C' q needs 1 FMA an element. At (B, S, H, HD) = (1, 4096, 4, 512) that
+// is 4 instructions an element of C a step, 17.2 G with n's, on the FP32
+// lanes at one a lane and clock (128 x 132 at 1.98 GHz: 33.4 T/s),
+// 0.51 ms; q, k, v and h are 134 MB, C read and written 8.4 MB, 0.043 ms at
+// 3.35 TB/s. The kernel issues the formula's 6 an element: skipping the
+// product with the gate that is exactly 1 needs a second copy of the step
+// behind a branch, and measured under 1% faster.
+// What the step waits on (tools/bench_xlstm_scan.py): with one C warp a
 // scheduler the update issues at ~0.6 of an instruction a clock, and the
-// branch between the two forms, the producer's work on one scheduler and
-// the chunk's sums add ~15% to it.
+// producer's work on one scheduler and the chunk's sums add ~15% to it.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -80,6 +83,7 @@ constexpr int CHUNK = 8;          // steps a stage of the ring, a batch of sums
 constexpr int STAGES = 2;         // stages of the ring
 constexpr int GSTEPS = 32;        // steps whose gates the producer takes at once
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;  // devices whose launch limit is kept
 // a chunk's row sums are one a lane
 static_assert(CHUNK * RW == 32 && GSTEPS % CHUNK == 0, "sums");
 
@@ -216,36 +220,17 @@ __device__ __forceinline__ void c_warp(float* __restrict__ C,
       float dn = 0.f, acc[RW];
 #pragma unroll
       for (int r = 0; r < RW; ++r) acc[r] = 0.f;
-      // one gate is exactly 1 (the producer's select), the other g; each
-      // form reads the step's q, k and v itself, so that the compiler
-      // spreads the reads among the form's arithmetic
-      if (i_g == 1.f) {  // C' = f_g C + v k^T
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          const float kc = on ? kt[32 * c] : 0.f;
-          const float qc = on ? qt[32 * c] : 0.f;
-          n_reg[c] = __fadd_rn(__fmul_rn(f_g, n_reg[c]), kc);
-          dn = __fadd_rn(dn, __fmul_rn(n_reg[c], qc));
+      for (int c = 0; c < CPL; ++c) {
+        const float kc = on ? kt[32 * c] : 0.f;
+        const float qc = on ? qt[32 * c] : 0.f;
+        n_reg[c] = __fadd_rn(__fmul_rn(f_g, n_reg[c]), __fmul_rn(i_g, kc));
+        dn = __fadd_rn(dn, __fmul_rn(n_reg[c], qc));
 #pragma unroll
-          for (int r = 0; r < RW; ++r) {
-            c_reg[r][c] = __fadd_rn(__fmul_rn(f_g, c_reg[r][c]),
-                                    __fmul_rn(vt[r], kc));
-            acc[r] = __fadd_rn(acc[r], __fmul_rn(c_reg[r][c], qc));
-          }
-        }
-      } else {  // f_g is 1: C' = C + i_g (v k^T)
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          const float kc = on ? kt[32 * c] : 0.f;
-          const float qc = on ? qt[32 * c] : 0.f;
-          n_reg[c] = __fadd_rn(n_reg[c], __fmul_rn(i_g, kc));
-          dn = __fadd_rn(dn, __fmul_rn(n_reg[c], qc));
-#pragma unroll
-          for (int r = 0; r < RW; ++r) {
-            c_reg[r][c] = __fadd_rn(
-                c_reg[r][c], __fmul_rn(i_g, __fmul_rn(vt[r], kc)));
-            acc[r] = __fadd_rn(acc[r], __fmul_rn(c_reg[r][c], qc));
-          }
+        for (int r = 0; r < RW; ++r) {
+          c_reg[r][c] = __fadd_rn(__fmul_rn(f_g, c_reg[r][c]),
+                                  __fmul_rn(i_g, __fmul_rn(vt[r], kc)));
+          acc[r] = __fadd_rn(acc[r], __fmul_rn(c_reg[r][c], qc));
         }
       }
 #pragma unroll
@@ -421,11 +406,21 @@ int launch(const float* q, const float* k, const float* v, const float* ig,
            int* arrivals, int B, int S, int H, cudaStream_t stream) {
   const long long blocks = (long long)B * H * (HD / ROWS);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = Layout<HD>::bytes(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlstm_scan_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // the largest layout (two full stages) is allowed once a device, so a
+  // decode step's launch makes no extra driver call and never lowers the
+  // limit below what a prefill's launch needs
+  static std::atomic<bool> allowed[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || !allowed[dev].load()) {
+    err = cudaFuncSetAttribute(
+        mlstm_scan_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Layout<HD>::bytes(STAGES * CHUNK));
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) allowed[dev].store(true);
+  }
+  const size_t smem = Layout<HD>::bytes(S);
   mlstm_scan_kernel<HD><<<(unsigned)blocks, (WARPS + 1) * 32, smem,
                           stream>>>(q, k, v, ig, fg, C, n, m, h, arrivals, S,
                                     H);

@@ -31,12 +31,10 @@ CPU the plain loop is differentiable by autograd.
 
 The kernel rounds as the plain loop's tensor operations do (no fused
 multiply-adds), so the state C, n, m it carries is the plain loop's.
-Two rearrangements keep those bits: m' is one of log_f + m and i_pre, so
-one gate is exactly 1 and the other exp(-|d|) with d = (log_f + m) -
-i_pre (one exp; the kernel picks i_g = 1 where d <= 0, f_g = 1
-otherwise), and a product with 1.0 is exact, so a step updates
-C' = f_g C + v k^T or C + i_g (v k^T): 5 rounded operations an element
-with C' q where the formula has 6. Only the two dot products C' q and
+Its gates take one exp where the formula has two and keep those bits:
+m' is one of log_f + m and i_pre, so one gate is exactly 1 and the other
+exp(-|d|) with d = (log_f + m) - i_pre (the kernel picks i_g = 1 where
+d <= 0, f_g = 1 otherwise). Only the two dot products C' q and
 n' . q are summed in another order (each lane adds its columns j =
 lane, lane + 32, ... in order, then the 32 lanes' partial sums are
 added pairwise at distances 16, 8, 4, 2, 1; ``kernel_order_dot`` is

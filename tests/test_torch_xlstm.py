@@ -229,22 +229,17 @@ def _one_exp_gates(i_pre, f_pre, m):
 def _emulate_mlstm_kernel(q, k, v, i_pre, f_pre, C, n, m):
     """The mLSTM kernel's arithmetic (csrc/mlstm_scan.cu) in plain torch:
     the gates in the exact-one form (``_one_exp_gates``), the state update
-    in the kernel's 5-operation forms (C' = f_g C + v k^T where i_g is 1,
-    C + i_g (v k^T) where f_g is 1: the kernel's warp-uniform branch, a
-    ``where`` over (b, head) here), each product and sum rounded on its
-    own, and the two dot products in the kernel's order
+    C' = f_g C + i_g (v k^T), n' = f_g n + i_g k with each product and sum
+    rounded on its own, and the two dot products in the kernel's order
     (``kernel_order_dot``: a lane's columns in order, then the lanes
     pairwise). Returns h; the state is updated in place."""
     out = []
     for t in range(q.shape[1]):
         i_g, f_g, m_new = _one_exp_gates(i_pre[:, t], f_pre[:, t], m)
         m.copy_(m_new)
-        vk = v[:, t, :, :, None] * k[:, t, :, None, :]
-        i_one = (i_g == 1)[..., None, None]
-        C.copy_(torch.where(i_one, f_g[..., None, None] * C + vk,
-                            C + i_g[..., None, None] * vk))
-        n.copy_(torch.where(i_one[..., 0], f_g[..., None] * n + k[:, t],
-                            n + i_g[..., None] * k[:, t]))
+        C.copy_(f_g[..., None, None] * C + i_g[..., None, None] * (
+            v[:, t, :, :, None] * k[:, t, :, None, :]))
+        n.copy_(f_g[..., None] * n + i_g[..., None] * k[:, t])
         num = ms.kernel_order_dot(C, q[:, t, :, None, :])
         den = torch.clamp(torch.abs(ms.kernel_order_dot(n, q[:, t])),
                           min=1.0)
@@ -292,32 +287,46 @@ def test_one_exp_gates_are_the_cells_gates_bitwise():
     assert bool((i_g == 1).all() and (f_g == 1).all())
 
 
-def test_product_with_one_is_exact():
-    """x * 1.0f is x bit for bit for every float32 class (normals of
-    every exponent, subnormals, +-0, +-inf): the kernels' 5-operation
-    update skips the product with the gate that is exactly 1."""
-    rng = np.random.default_rng(12)
-    bits = rng.integers(0, 2 ** 32, 1 << 16, dtype=np.uint64)
-    x = _t(bits.astype(np.uint32).view(np.float32))
-    x = x[~torch.isnan(x)]
-    x = torch.cat([x, _t(np.array([0.0, -0.0, np.inf, -np.inf, 1e-45,
-                                   -1e-45, 3.4e38], np.float32))])
-    assert torch.equal((x * 1.0).view(torch.int32), x.view(torch.int32))
-    assert torch.equal((1.0 * x).view(torch.int32), x.view(torch.int32))
+def _tie_gates(seed, B, S, H, m):
+    """i_pre, f_pre (B, S, H) float32 for the stabiliser m (B, H), every
+    entry at least 1: i_pre wins the max at t % 3 == 0, log_f + m at
+    t % 3 == 1 and ties it exactly at t % 3 == 2 (f_pre = 30 there: log_f
+    ~ -9.4e-14 leaves log_f + m = m bit for bit, so m is known at every
+    step)."""
+    rng = np.random.default_rng(seed)
+    u = _t(rng.random((B, S, H)).astype(np.float32))
+    f_pre = _t((rng.standard_normal((B, S, H)) * 2).astype(np.float32))
+    i_pre = torch.empty((B, S, H))
+    for t in range(S):
+        if t % 3 == 0:
+            i_pre[:, t] = m + 1 + u[:, t]
+            m = i_pre[:, t].clone()
+        else:
+            f_pre[:, t] = 30.0
+            i_pre[:, t] = m - 1 - u[:, t] if t % 3 == 1 else m
+    return i_pre, f_pre
 
 
-@pytest.mark.parametrize("B,S,H,hd", [(1, 24, 4, 512), (2, 37, 4, 16)])
-def test_mlstm_kernel_order_within_the_card_limit(B, S, H, hd):
+@pytest.mark.parametrize("B,S,H,hd,ties", [(1, 24, 4, 512, False),
+                                           (2, 37, 4, 16, False),
+                                           (2, 30, 4, 16, True)])
+def test_mlstm_kernel_order_within_the_card_limit(B, S, H, hd, ties):
     """At xlstm-350m's head width (512: 16 columns a lane) and at the
     reduced one (16: half the lanes hold no column) the kernel's
-    arithmetic (the exact-one gates, the 5-operation update, the
-    summation order) gives the plain loop's state bit for bit (the state
-    update has no sum across columns) and h within the limit the card
-    holds the kernel to (1e-5 x max|h|), and not the same bits (the
-    check sees the order)."""
+    arithmetic (the exact-one gates, the summation order) gives the plain
+    loop's state bit for bit (the state update has no sum across
+    columns) and h within the limit the card holds the kernel to
+    (1e-5 x max|h|), and not the same bits (the check sees the order);
+    also where i_pre wins the stabiliser's max on some steps, log_f + m
+    on others and ties it exactly on the rest."""
     args = [_t(a) for a in _mlstm_inputs(hd + S, B, S, H, hd)]
     plain_state = ms.init_state(B, H, hd, "cpu")
     emu_state = ms.init_state(B, H, hd, "cpu")
+    if ties:
+        m = _t(np.random.default_rng(S).random((B, H)).astype(np.float32))
+        for st in (plain_state, emu_state):
+            st[2].copy_(m + 1)
+        args[3:] = _tie_gates(S, B, S, H, m + 1)
     want = ms.mlstm_scan_plain(*args, *plain_state)
     got = _emulate_mlstm_kernel(*args, *emu_state)
     assert all(torch.equal(a, b) for a, b in zip(plain_state, emu_state))

@@ -21,23 +21,18 @@ Prints the card's name and power limit, then:
   prefill shape, each an edited copy that leaves out one part of a step
   (its results are wrong: it times what is left):
   the mLSTM's ``no_gates`` (the producer warp computes no gates: every
-  step takes the i_g = 1 form with f_g = 1), ``no_sums`` (no sums after
-  a chunk: no n' . q, no trees, division or h), ``no_loads`` (the ring filled
-  once, never waited for again), ``update_only`` (all three: the C and
-  n update and its partial sums alone), ``one_form`` (every step in the
-  f_g = 1 form: no branch between the two forms), ``no_n`` (no n or
-  n' . q in the C warps) and ``six_ops`` (never the exact-one form: 6
-  operations an element, no branch); the sLSTM's ``no_loads``
-  (no gate copies, constant gates), ``no_z_o`` (z = o = 0.5: no tanh or
-  sigmoid, the most a split of them onto other threads could save),
-  ``no_softplus`` (log_f = min(-pre_f, 0)), ``no_div`` (the fast
-  approximate division for the IEEE c' / n'), ``no_store`` (h stored
-  at the last step only) and ``chain_only`` (no loads, no z, o, no store: the chain of
-  the f gate, the exp, c', n' and the division), and ``split``, the chain
-  split over two warps (z and o on the second, joined to the first by
-  named barriers each step: the same bits, a real variant and not a
-  diagnostic). The state is restored before every timed window (an
-  edited kernel leaves other values).
+  step has i_g = f_g = 1), ``no_sums`` (no sums after a chunk: no
+  n' . q, no trees, division or h), ``no_loads`` (the ring filled once,
+  never waited for again), ``update_only`` (all three: the C and n
+  update and its partial sums alone) and ``no_n`` (no n or n' . q in the
+  C warps); the sLSTM's ``no_loads`` (no gate copies, constant gates),
+  ``no_z_o`` (z = o = 0.5: no tanh or sigmoid, the most a split of them
+  onto other threads could save), ``no_softplus`` (log_f =
+  min(-pre_f, 0)), ``no_div`` (the fast approximate division for the
+  IEEE c' / n'), ``no_store`` (h stored at the last step only) and
+  ``chain_only`` (no loads, no z, o, no store: the chain of the f gate,
+  the exp, c', n' and the division). The state is restored before every
+  timed window (an edited kernel leaves other values).
 
 The diagnostic builds are edited copies of the sources under the
 gitignored ``build/bench_xlstm_scan/``. Needs a CUDA device and nvcc.
@@ -72,118 +67,6 @@ _S_ZO = [("const float z = tanhf(pz);", "const float z = 0.5f;"),
          ("const float o = sigmoid(po);", "const float o = 0.5f;")]
 _S_STORE = [("out[(size_t)(t0 + u) * W] = hh;",
              "if (t0 + u == S - 1) out[(size_t)(t0 + u) * W] = hh;")]
-# the sLSTM's chain split over two warps of a block (32 channels each):
-# warp 0 runs the f gate, the exp, c', n' and h, warp 1 z = tanh and
-# o = sigmoid, the two joined through shared memory by named barriers
-# each step (bar.arrive / bar.sync); the same arithmetic, bit for bit
-_SPLIT_KERNEL = r"""template <typename T>
-__global__ void __launch_bounds__(2 * THREADS)
-slstm_scan_kernel(const T* __restrict__ gates, const float* __restrict__ r,
-                  float* __restrict__ c, float* __restrict__ n,
-                  float* __restrict__ m, float* __restrict__ h,
-                  float* __restrict__ hs, int B, int S, int W) {
-  using R = typename Raw<T>::type;
-  __shared__ R ring[2][STAGES][CHUNK][THREADS];
-  __shared__ float hbuf[2][THREADS], zbuf[2][THREADS], obuf[2][THREADS];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const long long idx = (long long)blockIdx.x * THREADS + lane;
-  const bool live = idx < (long long)B * W;
-  const int b = live ? (int)(idx / W) : 0, ch = live ? (int)(idx % W) : 0;
-  const float rz = r[4 * ch], ri = r[4 * ch + 1], rf = r[4 * ch + 2],
-              ro = r[4 * ch + 3];
-  float cc = live ? c[idx] : 0.f, nn = live ? n[idx] : 1.f,
-        mm = live ? m[idx] : 0.f, hh = live ? h[idx] : 0.f;
-  const T* g = gates + ((size_t)b * S * W + ch) * 4;
-  float* out = hs + (size_t)b * S * W + ch;
-  const size_t step = (size_t)W * 4;
-  auto issue = [&](int k) {
-    const int t0 = k * CHUNK;
-    const int steps = S - t0 < CHUNK ? S - t0 : CHUNK;
-    if (live)
-#pragma unroll 4
-      for (int u = 0; u < steps; ++u)
-        cp_async<sizeof(R)>(&ring[warp][k % STAGES][u][lane],
-                            g + (size_t)(t0 + u) * step);
-    cp_async_commit();
-  };
-  if (!live)  // benign gates for a lane past the last channel
-    for (int s = 0; s < STAGES; ++s)
-      for (int u = 0; u < CHUNK; ++u) ring[warp][s][u][lane] = R{};
-  issue(0);
-  issue(1);
-  int t = 0;
-  for (int k = 0; k * CHUNK < S; ++k) {
-    cp_async_wait_all_but_one();
-    const int t0 = k * CHUNK;
-    const int steps = S - t0 < CHUNK ? S - t0 : CHUNK;
-    const R* slots = &ring[warp][k % STAGES][0][lane];
-    R nx = slots[0];
-    if (warp == 1) {
-#pragma unroll 4
-      for (int u = 0; u < steps; ++u, ++t) {
-        const Gates x = Raw<T>::get(nx);
-        if (u + 1 < steps) nx = slots[(u + 1) * THREADS];
-        asm volatile("bar.sync 1, 64;\n" ::: "memory");
-        const float hp = hbuf[t & 1][lane];
-        const float pz = __fadd_rn(x.z, __fmul_rn(hp, rz));
-        const float po = __fadd_rn(x.o, __fmul_rn(hp, ro));
-        zbuf[t & 1][lane] = tanhf(pz);
-        obuf[t & 1][lane] = sigmoid(po);
-        asm volatile("bar.arrive 2, 64;\n" ::: "memory");
-      }
-    } else {
-#pragma unroll 4
-      for (int u = 0; u < steps; ++u, ++t) {
-        const Gates x = Raw<T>::get(nx);
-        if (u + 1 < steps) nx = slots[(u + 1) * THREADS];
-        hbuf[t & 1][lane] = hh;
-        asm volatile("bar.arrive 1, 64;\n" ::: "memory");
-        const float pi = __fadd_rn(x.i, __fmul_rn(hh, ri));
-        const float pf = __fadd_rn(x.f, __fmul_rn(hh, rf));
-        const float log_f = -softplus(-pf);
-        const float lfm = __fadd_rn(log_f, mm);
-        const float d = __fsub_rn(lfm, pi);
-        mm = fmaxf(lfm, pi);
-        const float e = expf(-fabsf(d));
-        const float i_g = d > 0.f ? e : 1.f;
-        const float f_g = d > 0.f ? 1.f : e;
-        asm volatile("bar.sync 2, 64;\n" ::: "memory");
-        const float z = zbuf[t & 1][lane], o = obuf[t & 1][lane];
-        cc = __fadd_rn(__fmul_rn(f_g, cc), __fmul_rn(i_g, z));
-        nn = fmaxf(__fadd_rn(__fmul_rn(f_g, nn), i_g), 1e-6f);
-        hh = __fmul_rn(o, __fdiv_rn(cc, nn));
-        if (live) out[(size_t)(t0 + u) * W] = hh;
-      }
-    }
-    issue(k + STAGES);
-  }
-  if (live && warp == 0) {
-    c[idx] = cc;
-    n[idx] = nn;
-    m[idx] = mm;
-    h[idx] = hh;
-  }
-}
-
-"""
-
-
-def _split(src: str) -> str:
-    """The sLSTM source with its kernel replaced by the two-warp split
-    (and 16-step stages, so that both warps' rings fit 48 KB)."""
-    a = src.index("template <typename T>\n__global__ void __launch_bounds__"
-                  "(THREADS)")
-    b = src.index("template <typename T>\nint launch(")
-    out = src[:a] + _SPLIT_KERNEL + src[b:]
-    for old, new in (("slstm_scan_kernel<T><<<(unsigned)blocks, THREADS, 0,",
-                      "slstm_scan_kernel<T><<<(unsigned)blocks, 2 * THREADS,"
-                      " 0,"),
-                     ("constexpr int CHUNK = 32;", "constexpr int CHUNK = 16;")):
-        if old not in out:
-            raise RuntimeError(f"split: {old!r} not in the source")
-        out = out.replace(old, new)
-    return out
-
 
 VARIANTS = {
     "mlstm_scan": {
@@ -191,18 +74,9 @@ VARIANTS = {
         "no_sums": _M_SUMS,
         "no_loads": _M_LOADS,
         "update_only": _M_GATES + _M_SUMS + _M_LOADS,
-        "one_form": [("if (i_g == 1.f) {", "if (false) {")],
-        "no_n": [("n_reg[c] = __fadd_rn(__fmul_rn(f_g, n_reg[c]), kc);", ""),
-                 ("n_reg[c] = __fadd_rn(n_reg[c], __fmul_rn(i_g, kc));", ""),
+        "no_n": [("n_reg[c] = __fadd_rn(__fmul_rn(f_g, n_reg[c]), "
+                  "__fmul_rn(i_g, kc));", ""),
                  ("dn = __fadd_rn(dn, __fmul_rn(n_reg[c], qc));", "")],
-        "six_ops": [
-            ("if (i_g == 1.f) {", "if (false) {"),
-            ("n_reg[c] = __fadd_rn(n_reg[c], __fmul_rn(i_g, kc));",
-             "n_reg[c] = __fadd_rn(__fmul_rn(f_g, n_reg[c]), "
-             "__fmul_rn(i_g, kc));"),
-            ("c_reg[r][c], __fmul_rn(i_g, __fmul_rn(vt[r], kc)));",
-             "__fmul_rn(f_g, c_reg[r][c]), "
-             "__fmul_rn(i_g, __fmul_rn(vt[r], kc)));")],
     },
     "slstm_scan": {
         "no_loads": _S_LOADS,
@@ -213,7 +87,6 @@ VARIANTS = {
                     "hh = __fmul_rn(o, __fdividef(cc, nn));")],
         "no_store": _S_STORE,
         "chain_only": _S_LOADS + _S_ZO + _S_STORE,
-        "split": [(_split, None)],
     },
 }
 MLSTM_SHAPE = (1, 4096, 4, 512)
@@ -231,9 +104,6 @@ def build_variants(build) -> dict:
         for name, edits in variants.items():
             text = src
             for old, new in edits:
-                if callable(old):
-                    text = old(text)
-                    continue
                 if old not in text:
                     raise RuntimeError(f"{kernel} {name}: {old!r} not in "
                                        "the source")
