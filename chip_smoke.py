@@ -22,7 +22,11 @@ width (the ``flash_attention`` kernel in every prefill, the
 ``decode_attention`` kernel in every decode step, on the bf16 and the
 int8 cache), on recurrentgemma-9b (the ``rglru_scan`` kernel in its
 recurrent layers) and on xlstm-350m (the ``mlstm_scan`` and
-``slstm_scan`` kernels in its prefills and decode steps). Phases:
+``slstm_scan`` kernels in its prefills and decode steps); llama-3.2-vision
+served at full width (the flash kernel not causal in its cross-attention
+layers, the decode kernel's cross route in their decode steps) and
+hubert-xlarge's encoder run and trained at full width (the flash
+kernels, bidirectional, at head dim 80). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together), with
@@ -254,7 +258,48 @@ recurrent layers) and on xlstm-350m (the ``mlstm_scan`` and
      bitwise prefill(N + 1) in every state tensor of every layer; then a
      2-layer [slstm, mlstm] cut at full width in float32: a 512-token
      prefill and 2 decode steps on the card and on the CPU, logits within
-     1e-3 x max|logits|.
+     1e-3 x max|logits|;
+ 30. the decode kernel's cross route (``cross_decode_attention_kernel``:
+     every slot visible, the scores times float32(1 / sqrt(hd)), p kept
+     in float32) vs ``cross_decode_attention_plain`` at llama-3.2-vision's
+     cross cache (4 slots of 1600 image keys, 8 KV heads of 4 query heads,
+     hd 128, bf16) and a reduced float32 shape: float32 within 1e-5 x
+     max|out|, bf16 every element between the bf16 roundings of the plain
+     float32 value minus and plus that; two launches bitwise, a CUDA
+     graph's replays bitwise, 2 device kernels a call; device time from a
+     CUDA graph beside the bound (every slot's K and V), the plain version
+     and SDPA (``enable_gqa``, no mask) in a CUDA graph; then the flash
+     kernel not causal at the cross prefill's shape (1, 2048 queries, 1600
+     keys, 32 heads of 128, bf16), at hubert's (1, 1024, 1024, 16 heads of
+     80, bf16) and at hd 80 in float32: forward and gradient vs their plain
+     versions within phases 11 and 23's limits, the bf16 forward's lse
+     store bitwise; the bf16 shapes timed beside their bounds and SDPA's
+     forward and backward;
+ 31. llama-3.2-vision at its published width (40 layers, 8 cross
+     attention over 1600 image tokens of 4096, 9.79 B parameters; bf16,
+     seeded random weights, every gate drawn in [0.25, 1) from the seed,
+     since zero gates leave the image layers out) served through
+     ``prefill`` (tokens and ``image_embeds``) and greedy ``decode_step``s:
+     4 prompts of 1024 tokens, each with its image, then 16 decode steps,
+     and 1 prompt of 4096 tokens, then 16 steps; 40 flash launches a
+     prefill, 32 decode kernel and 8 cross route launches a step; prefill
+     and decode tokens/s, peak memory; a prefill of the 4 x 1024 batch
+     and 4 decode steps under the profiler (idle share, launches, device
+     time by kernel kind); then a 5-layer (one pattern period)
+     float32 cut at full width: a 64-token prefill with its image and 2
+     decode steps on the card and on the CPU, logits within 1e-3 x
+     max|logits|;
+ 32. hubert-xlarge at its published width (48 layers, d 1280, 16 heads of
+     80, bidirectional, 0.95 B parameters; bf16, seeded random weights): a
+     forward at 4 x 1024 bf16 frames (48 flash launches), then 3 train
+     steps (48 gradient launches a step, all on the tensor-core route, 96
+     forward), median step time, frames/s, peak memory, and a fourth
+     step under the profiler (as phase 24's); then a 2-layer
+     float32 cut on the card and on the CPU: logits (1e-3 x max), the
+     frame CE loss (rtol 1e-4) and every gradient leaf (1e-3 of its
+     largest entry); then one train step of a bf16 2-layer cut on the
+     token pipeline's float32 frames (the promoted float32 trunk: the
+     flash kernels' float32 routes), its loss against the CPU's.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -2217,28 +2262,36 @@ def profile_step(torch, step_fn, state, pipe, label) -> dict:
     share, the top kernels and the device time by TRAIN_KERNEL_GROUPS
     kind, logged under ``label``."""
     batch = pipe.next_batch()
-    kernels, busy, pwall = profiled_kernels(
-        torch, lambda: float(step_fn(state, batch)[1]["loss"]))
+    return profile_by_kind(torch, lambda: float(step_fn(state, batch)[1][
+        "loss"]), TRAIN_KERNEL_GROUPS, f"{label} profiled step")
+
+
+def profile_by_kind(torch, fn, kinds, label) -> dict:
+    """``fn()`` under the profiler: launches, busy and idle share, the top
+    kernels and the device time by kind (``kinds``: (name, substrings of
+    the kernel names) pairs, the first match wins), logged under
+    ``label``."""
+    kernels, busy, pwall = profiled_kernels(torch, fn)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"{label} profiled step: {pwall:.4f} s wall, {len(kernels)} device "
-        f"kernel launches, device busy {busy:.4f} s, idle share "
+    log(f"{label}: {pwall:.4f} s wall, {len(kernels)} device kernel "
+        f"launches, device busy {busy:.4f} s, idle share "
         f"{1 - busy / pwall:.3f}")
     for nm, ms in top:
         log(f"  {ms:9.3f} ms  {nm[:100]}")
     groups, others = {}, []
     for nm, ms in by_name.items():
-        g = next((g for g, keys in TRAIN_KERNEL_GROUPS
-                  if any(k in nm for k in keys)), "other")
+        g = next((g for g, keys in kinds if any(k in nm for k in keys)),
+                 "other")
         groups[g] = groups.get(g, 0.0) + ms
         if g == "other":
             others.append((ms, nm))
-    log(f"{label} profiled step, device ms by kind: " + ", ".join(
+    log(f"{label}, device ms by kind: " + ", ".join(
         f"{g} {groups.get(g, 0.0):.3f}"
-        for g in [g for g, _ in TRAIN_KERNEL_GROUPS] + ["other"]))
+        for g in [g for g, _ in kinds] + ["other"]))
     for ms, nm in sorted(others, reverse=True)[:3]:
         log(f"  other: {ms:9.3f} ms  {nm[:100]}")
     return {"groups": groups, "idle": 1 - busy / pwall,
@@ -3237,6 +3290,572 @@ def phase_xlstm(torch, dev) -> dict:
             "wall": run["wall"]}
 
 
+# phase 30: llama-3.2-vision's cross decode (B, T, KV, G, hd): 4 slots of
+# 1600 image keys, 8 KV heads of 4 query heads, hd 128, in bf16, and a
+# reduced float32 shape off the chunks (T 37, 2 KV heads of 3, hd 16)
+CROSS_DECODE_TESTS = [("llama-3.2-vision cross bf16", 4, 1600, 8, 4, 128,
+                       "bfloat16"),
+                      ("reduced cross float32", 3, 37, 2, 3, 16, "float32")]
+# the cross route against its plain version: float32 within this share of
+# max|out|; bfloat16 every element the bf16 rounding of a value within it
+# of the plain version's float32 output
+CROSS_REL = 1e-5
+# phase 30's flash shapes (B, S, T, H, hd, causal, window, q_offset,
+# dtype): llama-3.2-vision's cross prefill (2048 prompt queries against
+# 1600 image keys, 32 heads expanded from 8), hubert-xlarge's encoder (16
+# heads of 80, bidirectional) in bf16, and hd 80 on the float32 route that
+# a bf16 hubert fed float32 frames takes
+FLASH_NEW = [(1, 2048, 1600, 32, 128, False, 0, 0, "bfloat16"),
+             (1, 1024, 1024, 16, 80, False, 0, 0, "bfloat16"),
+             (2, 300, 300, 4, 80, False, 0, 0, "float32")]
+
+
+def cross_decode_bound_ms(q, k) -> dict:
+    """Least time for the cross decode step on an H100 SXM: q read and the
+    output written once, every slot's K and V read once (every slot is
+    visible), against 4 FLOP per slot, query head and head dim at the
+    float32 rate."""
+    B, _, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    nbytes = 2 * q.numel() * q.element_size() + 2 * B * T * KV * hd * \
+        k.element_size()
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 4 * B * T * H * hd / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes}
+
+
+def cross_decode_check(torch, dk, name, q, k, v) -> dict:
+    """The cross route (``cross_decode_attention_kernel``) vs its plain
+    version on the same inputs, within CROSS_REL of max|out| (bfloat16:
+    each element between the bf16 roundings of the plain float32 value
+    minus and plus that), one launch a call, two launches bitwise, a CUDA
+    graph's replays bitwise the eager launch, 2 device kernels a call."""
+    kern = dk.cross_decode_attention_kernel
+
+    def call():
+        return kern(q, k, v)
+    before = kern.launches
+    got = call()
+    again = call()
+    want = dk.cross_decode_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    launched = kern.launches - before
+    scale = float(want.abs().max())
+    tol = CROSS_REL * scale
+    err = float((got.float() - want).abs().max())
+    if q.dtype == torch.float32:
+        over = int(((got - want).abs() > tol).sum())
+    else:
+        lo, hi = (want - tol).to(q.dtype), (want + tol).to(q.dtype)
+        over = int(((got < lo) | (got > hi)).sum())
+    bitwise = torch.equal(got, again)
+    replay = graph_replay_equal(torch, call, got)
+    n_kernels, n_nodes = kernels_a_call(torch, call)
+    if not (got.shape == q.shape and got.dtype == q.dtype and
+            math.isfinite(err) and over == 0 and bitwise and replay and
+            launched == 2 and n_kernels == n_nodes == 2):
+        raise RuntimeError(f"cross decode {name}: max abs err {err} (max|out|"
+                           f" {scale}), {over} over the limit, bitwise "
+                           f"{bitwise}, graph replays equal {replay}, "
+                           f"{launched} launches for 2 calls, {n_kernels} "
+                           f"kernels of {n_nodes} graph nodes a call (want 2"
+                           f" of 2)")
+    return {"err": err, "scale": scale, "call": call}
+
+
+def set_gates(torch, model, gen) -> int:
+    """Every ``cross_attn`` block's gates drawn in [0.25, 1) from ``gen``
+    (they start at 0, and tanh(0) = 0 would leave the image layers out);
+    returns the number of gated blocks."""
+    n = 0
+    with torch.no_grad():
+        for blk in model.blocks:
+            if hasattr(blk, "gate_attn"):
+                for g in (blk.gate_attn, blk.gate_mlp):
+                    g.copy_(torch.rand((), generator=gen, device=g.device)
+                            * 0.75 + 0.25)
+                n += 1
+    return n
+
+
+def phase_cross_kernels(torch, fa, dev) -> dict:
+    """Phase 30: the decode kernel's cross route vs its plain version at
+    llama-3.2-vision's cross cache and a reduced float32 shape (limits in
+    ``cross_decode_check``), timed from a CUDA graph beside its bound,
+    the plain version and SDPA (``enable_gqa``, no mask; a yardstick) in
+    a CUDA graph; the flash kernel not causal at the cross prefill's S !=
+    T and at hd 80 (hubert), forward (plus the lse store at bf16) and
+    gradient vs their plain versions (phases 11 and 23's limits), the bf16
+    shapes timed beside their bounds and SDPA's forward and backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels.ops import flash_mha
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    out = {"decode": {}, "max_abs_err": 0.0, "flash_err": 0.0,
+           "bwd_err": 0.0}
+    for name, B, T, KV, G, hd, dt in CROSS_DECODE_TESTS:
+        tdt = getattr(torch, dt)
+        q = torch.randn((B, 1, KV * G, hd), generator=gen, device=dev).to(tdt)
+        k, v = (torch.randn((B, T, KV, hd), generator=gen, device=dev
+                            ).to(tdt) for _ in range(2))
+        chk = cross_decode_check(torch, dk, name, q, k, v)
+        out["max_abs_err"] = max(out["max_abs_err"], chk["err"])
+        L = dk.split_len(B, KV, G, T)
+        ms = graph_ms(torch, chk["call"])
+        call_ms = time_ms(torch, chk["call"], reps=20)
+        plain_ms = time_ms(torch, lambda: dk.cross_decode_attention_plain(
+            q, k, v), reps=3, windows=3)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+        lib_call_ms = time_ms(torch, sdpa, reps=20)
+        try:
+            lib_ms = graph_ms(torch, sdpa)
+        except Exception as exc:  # the yardstick only: say why
+            torch.cuda.synchronize()
+            log(f"cross decode {name}: sdpa(enable_gqa) would not run in a "
+                f"CUDA graph ({type(exc).__name__}: {exc}); its event time "
+                f"stands")
+            lib_ms = lib_call_ms
+        bound = cross_decode_bound_ms(q, k)
+        out["decode"][name] = {"ms": ms, "call_ms": call_ms,
+                               "plain_ms": plain_ms, "library_ms": lib_ms,
+                               **bound}
+        log(f"cross decode {name} (B={B} T={T} KV={KV} G={G} hd={hd}, "
+            f"{dk.n_splits(T, L)} splits of {L}): max_abs_err "
+            f"{chk['err']:.3g} (max|out| {chk['scale']:.3g}, limit "
+            f"{CROSS_REL:g} x max|out|"
+            + (", bf16 rounding of a value within it" if dt == "bfloat16"
+               else "") + "), two launches bitwise, graph replays bitwise, "
+            f"2 device kernels a call; kernel {ms:.4f} ms a launch on the "
+            f"device (CUDA graph), {call_ms:.4f} ms a call; plain "
+            f"{plain_ms:.4f} ms; sdpa(enable_gqa) {lib_call_ms:.4f} ms a "
+            f"call, {lib_ms:.4f} ms a launch (CUDA graph); bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+            f"{bound['bytes'] / 1e6:.2f} MB)")
+    for B, S, T, H, hd, causal, win, q_off, dt in FLASH_NEW:
+        q, k, v, do = flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev)
+        name = (f"B={B} S={S} T={T} H={H} hd={hd} causal={causal} {dt}")
+        err = flash_check(torch, fa, name, q, k, v, causal, win, dt)[0]
+        berr = flash_bwd_check(torch, fa, name, q, k, v, do, causal, win,
+                               dt, q_off)
+        out["flash_err"] = max(out["flash_err"], err)
+        out["bwd_err"] = max(out["bwd_err"], berr)
+        line = (f"flash_attention {name}: forward max_abs_err {err:.3g}, "
+                f"gradient (route {bwd_route_of(dt, hd)}) max_abs_err "
+                f"{berr:.3g}, two gradient launches bitwise")
+        if dt == "bfloat16":
+            e = lse_check(torch, fa, name, q, k, v, causal, win, q_off)
+            line += f"; forward with lse bitwise, lse max abs err {e:.3g}"
+            qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+            o, lse = fa.flash_attention(qt, kt, vt, causal=causal,
+                                        return_lse=True)
+            ms = time_ms(torch, lambda: flash_mha(q, k, v, causal=causal),
+                         reps=10)
+            bms = time_ms(torch, lambda: fa.flash_attention_bwd(
+                qt, kt, vt, o, dot, causal=causal, lse=lse), reps=10)
+            plain_ms = time_ms(torch, lambda: flash_plain(
+                fa, q, k, v, causal, win), reps=1, windows=3)
+            bplain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                qt, kt, vt, o, dot, causal=causal), reps=1, windows=3)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), reps=10)
+            ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            sd = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            blib_ms = time_ms(torch, lambda: torch.autograd.grad(
+                sd, (ql, kl, vl), dot, retain_graph=True), reps=5)
+            fb = flash_bound_ms(S, T, H, hd, causal, win, 2)
+            bb = flash_bwd_bound_ms(S, T, H, hd, causal, win, 2)
+            line += (f"; forward {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
+                     f"{lib_ms:.4f} ms, bound {fb['bound_ms']:.4f} ms "
+                     f"({fb['bound_by']}); gradient with the saved lse "
+                     f"{bms:.4f} ms, plain {bplain_ms:.3f} ms, sdpa backward"
+                     f" {blib_ms:.4f} ms, bound {bb['bound_ms']:.4f} ms "
+                     f"({bb['bound_by']})")
+        log(line)
+    return out
+
+
+def vision_serve(torch, model, cfg, toks, img, n_new, counters, dev) -> dict:
+    """A warm-up (a 16-token prefill and a decode step: cuBLAS handles,
+    the kernel libraries), then the served run with every counter set to
+    0 just before and read just after: ``prefill`` of ``toks`` with
+    ``img``, then ``n_new`` greedy ``decode_step``s. Returns the new
+    tokens, launches, times and peak memory."""
+    from repro_torch.models import decode_step, prefill
+    B, S = toks.shape
+    with torch.inference_mode():
+        last, cache = prefill(model, cfg, {"tokens": toks[:, :16],
+                                           "image_embeds": img}, 17)
+        decode_step(model, cfg, last.argmax(-1)[:, None], cache,
+                    torch.full((B,), 16, device=dev))
+        del last, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        last, cache = prefill(model, cfg, {"tokens": toks,
+                                           "image_embeds": img}, S + n_new)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_launches = [c.launches for c in counters]
+        new = [last.argmax(-1)]
+        finite = bool(torch.isfinite(last).all())
+        for i in range(n_new):
+            last, cache = decode_step(model, cfg, new[-1][:, None], cache,
+                                      torch.full((B,), S + i, device=dev))
+            new.append(last.argmax(-1))
+        finite = finite and bool(torch.isfinite(last).all())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = [c.launches for c in counters]
+    return {"tokens": torch.stack(new, 1).cpu().tolist(),
+            "prefill_s": t1 - t0, "decode_s": t2 - t1, "finite": finite,
+            "prefill_launches": prefill_launches,
+            "decode_launches": [a - b for a, b in zip(launches,
+                                                      prefill_launches)],
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def vision_profiled(torch, model, cfg, toks, img, dev) -> None:
+    """A prefill of ``toks`` with ``img`` and then 4 greedy decode steps,
+    each under the profiler: idle share, launches, device time by
+    SERVE_KERNEL_GROUPS kind."""
+    from repro_torch.models import decode_step, prefill
+    B, S = toks.shape
+    box = {}
+
+    def pre():
+        box["last"], box["cache"] = prefill(
+            model, cfg, {"tokens": toks, "image_embeds": img}, S + 4)
+
+    def dec():
+        for i in range(4):
+            box["last"], box["cache"] = decode_step(
+                model, cfg, box["last"].argmax(-1)[:, None], box["cache"],
+                torch.full((B,), S + i, device=dev))
+    with torch.inference_mode():
+        profile_by_kind(torch, pre, SERVE_KERNEL_GROUPS,
+                        f"llama32_vision_11b {B} x {S} profiled prefill")
+        profile_by_kind(torch, dec, SERVE_KERNEL_GROUPS,
+                        f"llama32_vision_11b {B} x {S} profiled 4 decode "
+                        "steps")
+    del box
+
+
+# phase 31's served shapes (label, batch, prompt length) and decode steps
+VISION_RUNS = [("4 x 1024", 4, 1024), ("1 x 4096", 1, 4096)]
+VISION_NEW = 16
+# serving's device time by kernel kind: phase 24's kinds with the decode
+# kernel (its two passes) beside the flash forward
+SERVE_KERNEL_GROUPS = [("decode attention", ("scores_kernel",
+                                             "values_kernel"))] + \
+    TRAIN_KERNEL_GROUPS[1:]
+
+
+def phase_vision(torch, fa, dev) -> dict:
+    """Phase 31: llama-3.2-vision at its published width (40 layers, 8 of
+    them cross attention over 1600 image tokens; bf16, seeded random
+    weights, the gates drawn non-zero) served through ``prefill`` (tokens
+    and ``image_embeds``) and greedy ``decode_step``s, the functions the
+    reference's dry run lowers for its prefill and decode cells (its
+    ServeEngine passes no image): 40 flash launches a prefill, 32 decode
+    and 8 cross decode launches a step; then a 5-layer (one pattern
+    period) float32 cut at full width: a 64-token prefill and 2 decode
+    steps on the card (the kernels) and on the CPU (their plain
+    versions), logits within 1e-3 x max|logits|."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config("llama32_vision_11b")
+    kinds = cfg.layout()
+    n_cross = kinds.count("cross_attn")
+    n_self = len(kinds) - n_cross
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(gen, cfg)
+    gated = set_gates(torch, model, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"llama32_vision_11b init on the card: {n_params / 1e9:.3f} B "
+        f"parameters, {cfg.dtype} ({n_self} attn + {n_cross} cross_attn "
+        f"layers, {cfg.n_img_tokens} image tokens of {cfg.d_vision}; "
+        f"{gated} blocks' gates drawn in [0.25, 1)), "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = (fa.flash_attention, dk.decode_attention_kernel,
+                dk.cross_decode_attention_kernel)
+    want_pre = [n_self + n_cross, 0, 0]
+    want_dec = [0, n_self * VISION_NEW, n_cross * VISION_NEW]
+    runs = {}
+    for label, B, S in VISION_RUNS:
+        rng = np.random.default_rng(31 + S)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               device=dev)
+        img = torch.randn((B, cfg.n_img_tokens, cfg.d_vision), generator=gen,
+                          device=dev).to(cfg.torch_dtype)
+        run = vision_serve(torch, model, cfg, toks, img, VISION_NEW,
+                           counters, dev)
+        bad = [t for row in run["tokens"] for t in row
+               if not 0 <= t < cfg.vocab_size]
+        if not run["finite"] or bad or \
+                run["prefill_launches"] != want_pre or \
+                run["decode_launches"] != want_dec:
+            raise RuntimeError(f"serve llama32_vision_11b {label}: finite "
+                               f"logits {run['finite']}, bad tokens "
+                               f"{bad[:5]}, launches (flash, decode, cross "
+                               f"decode) prefill {run['prefill_launches']} "
+                               f"(want {want_pre}), decode "
+                               f"{run['decode_launches']} (want {want_dec})")
+        runs[label] = run
+        log(f"serve llama32_vision_11b {label} (+ {cfg.n_img_tokens} image "
+            f"tokens each): prefill {B * S} tokens in {run['prefill_s']:.3f}"
+            f" s ({B * S / run['prefill_s']:.1f} tok/s, flash launches "
+            f"{run['prefill_launches'][0]}); {VISION_NEW} greedy decode "
+            f"steps of {B} in {run['decode_s']:.3f} s "
+            f"({B * VISION_NEW / run['decode_s']:.1f} tok/s; decode kernel "
+            f"launches {run['decode_launches'][1]}, cross route "
+            f"{run['decode_launches'][2]}: {n_self} and {n_cross} a step); "
+            f"peak memory {run['peak'] / 2**30:.2f} GiB; first tokens "
+            f"{[row[:4] for row in run['tokens']]}")
+        if label == VISION_RUNS[0][0]:
+            vision_profiled(torch, model, cfg, toks, img, dev)
+        del toks, img
+    del model
+    torch.cuda.empty_cache()
+    # the card against the CPU at full width, one pattern period, float32
+    cut = dataclasses.replace(cfg, n_layers=len(cfg.pattern),
+                              dtype="float32")
+    gen.manual_seed(1)
+    card = init_params(gen, cut)
+    set_gates(torch, card, gen)
+    img = torch.randn((1, cut.n_img_tokens, cut.d_vision), generator=gen,
+                      device=dev)
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(31)
+    S, n_dec = 64, 2
+    toks = torch.as_tensor(rng.integers(0, cut.vocab_size, (1, S + n_dec)))
+    t0 = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    outs = []
+    with torch.inference_mode():
+        for m, d in ((cpu, "cpu"), (card, dev)):
+            t = toks.to(d)
+            last, cache = prefill(m, cut, {"tokens": t[:, :S],
+                                           "image_embeds": img.to(d)},
+                                  cache_len=S + n_dec)
+            logits = [last.float().cpu()]
+            for i in range(n_dec):
+                lg, cache = decode_step(m, cut, t[:, S + i:S + i + 1], cache,
+                                        torch.full((1,), S + i, device=d))
+                logits.append(lg.float().cpu())
+            outs.append(logits)
+    launches = [c.launches for c in counters]
+    errs = [float((g - c).abs().max()) for c, g in zip(*outs)]
+    scale = max(float(c.abs().max()) for c in outs[0])
+    want = [len(cut.pattern), (len(cut.pattern) - 1) * n_dec, n_dec]
+    if launches != want or not all(math.isfinite(e) for e in errs) or \
+            max(errs) > 1e-3 * scale:
+        raise RuntimeError(f"llama32_vision_11b 5-layer cut: card vs CPU max "
+                           f"abs errs {errs} vs max|logits| {scale}, "
+                           f"launches {launches} (flash, decode, cross "
+                           f"decode; want {want})")
+    log(f"llama32_vision_11b widths, {cut.n_layers} layers "
+        f"{list(cut.pattern)}, float32, gates drawn in [0.25, 1), {S}-token "
+        f"prefill with {cut.n_img_tokens} image tokens + {n_dec} decode "
+        f"steps: card (launches {launches}: flash, decode, cross decode) "
+        f"vs CPU (plain versions) logits max abs err "
+        f"{[f'{e:.3g}' for e in errs]}, max|logits| {scale:.4g} (limit "
+        f"1e-3 x max), {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"flash": sum(r["prefill_launches"][0] for r in runs.values()),
+            "decode": sum(r["decode_launches"][1] for r in runs.values()),
+            "cross": sum(r["decode_launches"][2] for r in runs.values())}
+
+
+# phase 32's full-width batch (frames) and train steps
+HUBERT_B, HUBERT_S, HUBERT_STEPS = 4, 1024, 3
+
+
+def grads_of(torch, model, cfg, batch):
+    """The loss and every parameter's gradient (a zero tensor where the
+    loss reads no parameter, as ``make_train_step`` takes them)."""
+    from repro_torch.models import loss_fn
+    named = list(model.named_parameters())
+    loss, _ = loss_fn(model, cfg, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
+
+
+def phase_hubert(torch, fa, dev) -> dict:
+    """Phase 32: hubert-xlarge at its published width (48 layers, d 1280,
+    16 heads of 80, bidirectional; bf16, seeded random weights): a
+    forward at (4, 1024) bf16 frames (the dry run's input type: the bf16
+    hd-80 routes, 48 flash launches), then 3 train steps (48 gradient
+    launches a step, all on the tensor-core route, 96 forward: remat);
+    then a 2-layer float32 cut on the card against the CPU: logits, the
+    frame CE loss and one step's gradients (each leaf within 1e-3 of its
+    largest entry); then one train step of a bf16 2-layer cut on the data
+    pipeline's float32 frames, so the promoted float32 trunk runs (the
+    flash kernels' float32 routes), its loss against the CPU's."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models import forward, init_params, loss_fn
+    from repro_torch.train.loop import init_train_state, make_train_step
+    cfg = get_config("hubert_xlarge")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"hubert_xlarge init on the card: {n_params / 1e9:.3f} B parameters,"
+        f" {cfg.dtype} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, causal={cfg.causal}), "
+        f"{time.perf_counter() - t0:.2f} s")
+    B, S, n = HUBERT_B, HUBERT_S, cfg.n_layers
+    frames = torch.randn((B, S, cfg.frontend_dim), generator=gen,
+                         device=dev).to(cfg.torch_dtype)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    batch = {"frames": frames, "labels": labels}
+    with torch.inference_mode():
+        forward(model, cfg, {"frames": frames})
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        logits = forward(model, cfg, {"frames": frames})[0]
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    fwd_launches = fa.flash_attention.launches
+    if fwd_launches != n or logits.shape != (B, S, cfg.vocab_size) or \
+            logits.dtype != cfg.torch_dtype or \
+            not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"hubert_xlarge forward: flash launches "
+                           f"{fwd_launches} (want {n}), logits "
+                           f"{tuple(logits.shape)} {logits.dtype}")
+    del logits
+    log(f"hubert_xlarge forward, {B} x {S} bf16 frames: {fwd_s:.4f} s "
+        f"({B * S / fwd_s:.1f} frames/s), flash launches {fwd_launches}")
+    state = init_train_state(model)
+    step_fn = make_train_step(cfg, total_steps=HUBERT_STEPS, warmup=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    times, losses = [], []
+    for _ in range(HUBERT_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    bwd, fwd = fa.flash_attention_bwd.launches, fa.flash_attention.launches
+    wgmma = fa.flash_attention_bwd.routes["wgmma"]
+    if not all(math.isfinite(x) for x in losses) or \
+            bwd != HUBERT_STEPS * n or wgmma != bwd or \
+            fwd != 2 * HUBERT_STEPS * n:
+        raise RuntimeError(f"hubert_xlarge train: losses {losses}, backward "
+                           f"launches {bwd} ({wgmma} wgmma), forward "
+                           f"{fwd} (want {HUBERT_STEPS * n}, all wgmma, and "
+                           f"{2 * HUBERT_STEPS * n})")
+    med = statistics.median(times[1:])
+    profile_by_kind(torch, lambda: float(step_fn(state, batch)[1]["loss"]),
+                    TRAIN_KERNEL_GROUPS, "train hubert_xlarge profiled step")
+    log(f"train hubert_xlarge full width, batch {B} x {S} bf16 frames: "
+        f"losses {[f'{x:.4f}' for x in losses]}, step times "
+        f"{[f'{x:.3f}' for x in times]} s, median (steps 2-{HUBERT_STEPS}) "
+        f"{med:.4f} s, {B * S / med:.1f} frames/s; flash_attention_bwd "
+        f"launches {bwd} ({bwd // HUBERT_STEPS} a step, all wgmma), forward"
+        f" {fwd} (remat: 2 a layer); peak memory {peak / 2**30:.2f} GiB")
+    del state, step_fn, model, batch, frames
+    torch.cuda.empty_cache()
+    # the card against the CPU at full width, 2 layers, float32
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    gen.manual_seed(1)
+    card = init_params(gen, cut).train()
+    cpu = copy.deepcopy(card).to("cpu")
+    fr = torch.randn((2, 256, cut.frontend_dim), generator=gen, device=dev)
+    lab = torch.randint(0, cut.vocab_size, (2, 256), generator=gen,
+                        device=dev)
+    res = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        b = {"frames": fr.to(d), "labels": lab.to(d)}
+        with torch.no_grad():
+            lg = forward(m, cut, b)[0].float().cpu()
+        loss, g = grads_of(torch, m, cut, b)
+        res.append((lg, float(loss), {k: x.float().cpu()
+                                      for k, x in g.items()}))
+    (c_lg, c_loss, c_g), (g_lg, g_loss, g_g) = res
+    lerr = float((g_lg - c_lg).abs().max())
+    lscale = float(c_lg.abs().max())
+    bad = [k for k in c_g if float((g_g[k] - c_g[k]).abs().max())
+           > 1e-3 * float(c_g[k].abs().max())]
+    if lerr > 1e-3 * lscale or abs(g_loss - c_loss) > 1e-4 * abs(c_loss) \
+            or bad or not math.isfinite(g_loss):
+        raise RuntimeError(f"hubert_xlarge 2-layer cut: logits err {lerr} vs"
+                           f" max {lscale}, loss {g_loss} vs CPU {c_loss}, "
+                           f"gradient leaves over 1e-3 x max|g|: {bad}")
+    gerr = max(float((g_g[k] - c_g[k]).abs().max())
+               / max(float(c_g[k].abs().max()), 1e-30) for k in c_g)
+    log(f"hubert_xlarge widths, 2 layers, float32, 2 x 256 frames: card vs "
+        f"CPU logits max abs err {lerr:.3g} (max|logits| {lscale:.4g}, limit"
+        f" 1e-3 x max), loss {g_loss:.6f} vs {c_loss:.6f}, gradients: "
+        f"{len(c_g)} leaves, worst max abs err / max|g| {gerr:.3g} (limit "
+        f"1e-3)")
+    del card, cpu
+    # the promoted float32 trunk: a bf16 cut fed the pipeline's frames
+    cut16 = dataclasses.replace(cfg, n_layers=2)
+    gen.manual_seed(2)
+    card = init_params(gen, cut16)
+    cpu = copy.deepcopy(card).to("cpu")
+    pb = SyntheticTokenPipeline(cut16, 2, 256, seed=0).next_batch()
+    with torch.no_grad():
+        c_loss = float(loss_fn(cpu, cut16, {k: torch.as_tensor(x) for k, x
+                                            in pb.items()})[0])
+    state = init_train_state(card)
+    step_fn = make_train_step(cut16, total_steps=1, warmup=1)
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    state, m = step_fn(state, pb)
+    g_loss = float(m["loss"])
+    routes = dict(fa.flash_attention_bwd.routes)
+    if pb["frames"].dtype.name != "float32" or \
+            routes != {"wgmma": 0, "cuda_cores": 2} or \
+            fa.flash_attention.launches != 4 or \
+            abs(g_loss - c_loss) > 1e-4 * abs(c_loss):
+        raise RuntimeError(f"hubert_xlarge bf16 cut on float32 frames: loss "
+                           f"{g_loss} vs CPU {c_loss}, gradient routes "
+                           f"{routes}, forward launches "
+                           f"{fa.flash_attention.launches} (want 2 on the "
+                           f"CUDA cores and 4)")
+    log(f"hubert_xlarge widths, 2 layers, bf16 weights, the pipeline's "
+        f"float32 frames (2 x 256): one train step on the promoted float32 "
+        f"trunk, loss {g_loss:.6f} vs the CPU's {c_loss:.6f}, gradient "
+        f"routes {routes}, forward launches {fa.flash_attention.launches}")
+    del card, cpu, state, step_fn
+    torch.cuda.empty_cache()
+    return {"launches": bwd, "fwd_launches": fwd + fwd_launches}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -3325,6 +3944,9 @@ def main(argv=None) -> int:
     rg = phase_recurrentgemma(torch, fa, dev)                        # 27
     main_x = phase_xlstm_kernels(torch, dev)                         # 28
     xl = phase_xlstm(torch, dev)                                     # 29
+    main_c = phase_cross_kernels(torch, fa, dev)                     # 30
+    vis = phase_vision(torch, fa, dev)                               # 31
+    hub = phase_hubert(torch, fa, dev)                               # 32
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -3363,9 +3985,11 @@ def main(argv=None) -> int:
     flash_entry = {"name": "flash_attention", "route": "cuda",
                    "source": "src/repro_torch/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:25",
-                   "launches": served["launches"],
+                   "launches": served["launches"] + vis["flash"]
+                   + hub["fwd_launches"],
                    "max_abs_err": max(main_f["max_abs_err"],
-                                      served["max_abs_err"]),
+                                      served["max_abs_err"],
+                                      main_c["flash_err"]),
                    "ms": flash["ms"],
                    "plain_ms": flash["plain_ms"],
                    "bound_ms": flash["bound_ms"],
@@ -3376,8 +4000,10 @@ def main(argv=None) -> int:
                  "replaces": "src/repro/kernels/flash_attention.py:25 "
                              "(its gradient: JAX autodiff of "
                              "src/repro/models/attention.py:29)",
-                 "launches": trained["launches"],
-                 "max_abs_err": main_b["max_abs_err"], "ms": main_b["ms"],
+                 "launches": trained["launches"] + hub["launches"],
+                 "max_abs_err": max(main_b["max_abs_err"],
+                                    main_c["bwd_err"]),
+                 "ms": main_b["ms"],
                  "plain_ms": main_b["plain_ms"],
                  "bound_ms": main_b["bound_ms"],
                  "bound_by": main_b["bound_by"],
@@ -3388,7 +4014,8 @@ def main(argv=None) -> int:
                     "replaces": "src/repro/models/attention.py:96 (plain "
                                 "einsum decode; the JAX package has no "
                                 "Pallas kernel there)",
-                    "launches": served["decode_launches"] + rg["decode"],
+                    "launches": served["decode_launches"] + rg["decode"]
+                    + vis["decode"],
                     "max_abs_err": main_d["max_abs_err"], "ms": dec["ms"],
                     "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
                     "bound_by": dec["bound_by"],
@@ -3425,9 +4052,22 @@ def main(argv=None) -> int:
                    "ms": slstm["ms"], "plain_ms": slstm["plain_ms"],
                    "bound_ms": slstm["bound_ms"],
                    "bound_by": slstm["bound_by"], "library_ms": None}
+    cross = main_c["decode"][CROSS_DECODE_TESTS[0][0]]
+    cross_entry = {"name": "decode_attention_cross", "route": "cuda",
+                   "source": "src/repro_torch/csrc/decode_attention.cu",
+                   "replaces": "src/repro/models/attention.py:140 "
+                               "(cross_attention's einsums at one decode "
+                               "query; the JAX package has no Pallas "
+                               "kernel there)",
+                   "launches": vis["cross"],
+                   "max_abs_err": main_c["max_abs_err"], "ms": cross["ms"],
+                   "plain_ms": cross["plain_ms"],
+                   "bound_ms": cross["bound_ms"],
+                   "bound_by": cross["bound_by"],
+                   "library_ms": cross["library_ms"]}
     log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
-                                bwd_entry, decode_entry, scan_entry,
-                                mlstm_entry, slstm_entry]}))
+                                bwd_entry, decode_entry, cross_entry,
+                                scan_entry, mlstm_entry, slstm_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

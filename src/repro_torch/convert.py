@@ -108,22 +108,30 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
             out[prefix + name] = leaf
 
 
+# the LM's leaves outside its blocks (the frontends' where the config has
+# one)
+_TOP_LEVEL = ("embed", "frontend", "vis_proj", "final_ln", "unembed")
+
+
 def from_reference_lm_params(params, cfg: ArchConfig, device="cuda") -> LM:
     """The reference's ``init_params`` tree, as numpy arrays (``embed``,
-    ``final_ln``, ``unembed``, ``period/pos{i}`` with a leading depth
-    axis, ``rem``), -> the port's ``LM`` with the same values in the
-    config's type. Layer ``n * len(pattern) + i`` of the port is entry
-    ``n`` of ``period/pos{i}``; the ``rem`` blocks follow. A nested
+    ``final_ln``, ``unembed``, ``frontend`` or ``vis_proj`` with a
+    frontend, ``period/pos{i}`` with a leading depth axis, ``rem``), ->
+    the port's ``LM`` with the same values in the config's type. Layer
+    ``n * len(pattern) + i`` of the port is entry ``n`` of
+    ``period/pos{i}``; the ``rem`` blocks follow. A nested
     leaf (an ``rglru`` block's ``lru`` dict) takes its dotted name
     (``lru.a_param``), and each leaf keeps the type of its port
     parameter (``conv``, ``lru`` and an ``slstm`` block's ``r`` stay
-    float32 in a bfloat16 model; the ``mlstm`` and ``slstm`` blocks have
-    no ``ln2`` or ``ffn``, as the reference's).
+    float32 in a bfloat16 model, and a ``cross_attn`` block's stacked
+    ``gate_attn``/``gate_mlp`` unstack to 0-dim float32 parameters; the
+    ``mlstm`` and ``slstm`` blocks have no ``ln2`` or ``ffn``, as the
+    reference's).
     The module is built by a throwaway seeded init on the CPU, then
     overwritten, so every reference leaf must have a port counterpart
     and vice versa."""
     pattern, n_full, rem = cfg.schedule()
-    leaves = {k: params[k] for k in ("embed", "final_ln", "unembed")}
+    leaves = {k: params[k] for k in _TOP_LEVEL if k in params}
     for layer in range(len(cfg.layout())):
         n, i = divmod(layer, len(pattern))
         block: Dict[str, np.ndarray] = {}
@@ -171,7 +179,7 @@ def to_reference_lm_tree(tree: Dict[str, torch.Tensor],
     stacked over depth. For comparing with the reference in tests."""
     pattern, n_full, rem = cfg.schedule()
     out: Dict = {k: tree[k].detach().float().cpu().numpy()
-                 for k in ("embed", "final_ln", "unembed")}
+                 for k in _TOP_LEVEL if k in tree}
 
     def nest(flat: Dict[str, np.ndarray]) -> Dict:
         d: Dict = {}

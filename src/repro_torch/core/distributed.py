@@ -68,6 +68,17 @@ def kernel_cache_clear() -> None:
         _CACHE_STATS[k] = 0
 
 
+def make_sharded_scorer(*_args, **_kwargs):
+    """Removed in the reference (it was a deprecation wrapper) and kept
+    there as this stub: build the scorer, then split its population
+    rows with ``core.scoring.sharded_score_fn``."""
+    raise ImportError(
+        "distributed.make_sharded_scorer was removed; use "
+        "core.scoring.build_scorer(space, ScorerSpec(objective, "
+        "workloads=wl)) with scoring.sharded_score_fn (or import both "
+        "from repro_torch.api)")
+
+
 def lane_devices(device="cuda") -> List[torch.device]:
     """The devices a lane batch may spread over: every CUDA device
     present when ``device`` is a CUDA device, else ``device`` alone."""

@@ -43,7 +43,8 @@ from .. import random as jr
 from ..device import resolve_device
 from ..kernels.adc import adc_full_scale, adc_quantize
 from ..kernels.imc_fused import (imc_fused_gemm_keyed,
-                                 imc_fused_keyed_plain, noisy_weights)
+                                 imc_fused_keyed_plain, noisy_weights,
+                                 sigma_of_g)
 from ..kernels.imc_matmul import imc_matmul_plain
 from ..kernels.ops import imc_gemm
 from .cost_model import pointwise
@@ -90,6 +91,15 @@ def resolve_backend(backend: str, device: torch.device) -> str:
 def quantize_activations(x: torch.Tensor) -> torch.Tensor:
     """8-bit DAC: [0, 1] activations -> int32 codes in [0, 255]."""
     return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.int32)
+
+
+def apply_conductance_noise(key: torch.Tensor,
+                            g_norm: torch.Tensor) -> torch.Tensor:
+    """Conductance variability: ``g_norm`` plus ``sigma_of_g(g_norm)``
+    times standard normals drawn from ``key`` on its shape, clipped to
+    [0, 1]."""
+    eps = jr.normal(key, g_norm.shape)
+    return torch.clamp(g_norm + sigma_of_g(g_norm) * eps, 0.0, 1.0)
 
 
 @traced_closure
@@ -151,6 +161,16 @@ def flat_index_strides(space: SearchSpace) -> np.ndarray:
     cards = space.cardinalities.astype(np.int64)
     return np.concatenate(
         [np.cumprod(cards[::-1])[::-1][1:], [1]]).astype(np.int64)
+
+
+def genome_flat_index(space: SearchSpace,
+                      genomes: torch.Tensor) -> torch.Tensor:
+    """(P, n) index genomes -> (P,) int64 flat (mixed-radix) index, the
+    per-design noise key's ``fold_in`` data (the reference's int32
+    values: space sizes stay below 2^31)."""
+    strides = torch.as_tensor(flat_index_strides(space),
+                              device=genomes.device)
+    return (genomes.long() * strides).sum(-1)
 
 
 def _workload_accuracy_params(

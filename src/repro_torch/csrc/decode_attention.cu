@@ -13,6 +13,12 @@
 //   p = exp(s - m) / l over all T slots (float32),
 //   p * v_scale (int8), p rounded to the value type (the cache's, or q's
 //   for the int8 cache), o = p . v (float32 sums), cast to q's type.
+// The cross route is the reference's cross attention at one query
+// (src/repro/models/attention.py:140): every slot visible (no positions),
+// s * float32(1 / sqrt(hd)) (XLA compiles the reference's division by that
+// constant into this product under jit, as its model functions run), and
+// p kept in float32 for p . v (the bf16 cache's instantiation with a
+// float32 p, <bf16, bf16, float>).
 //
 // Design. p is rounded after it is normalised, so a one-pass online
 // softmax (rescaling un-normalised weights) would not give the reference's
@@ -140,7 +146,7 @@ __device__ __forceinline__ void load_dims(const CT* row, int d0, int hd,
   }
 }
 
-// p rounded to the type of the second product's operands
+// p rounded to the type of the second product's operands (float: kept)
 __device__ __forceinline__ float round_to(float x, float*) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -255,7 +261,7 @@ scores_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
               const long long* __restrict__ pos,
               const long long* __restrict__ qpos, int* __restrict__ vidx,
               float* __restrict__ scores, float* __restrict__ stats,
-              Shape sh, float sqrt_hd, int full) {
+              Shape sh, float scale, int cross, int full) {
   using Lo = Layout<CT, HD>;
   constexpr int DPL = Lo::DPL, R = Lo::R, NS = Lo::NS, U = Lo::U,
                 W = Lo::W;
@@ -270,8 +276,10 @@ scores_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = lane % R, d0 = r * DPL;
   int n_in;
-  const int nv = compact(sh, split, pos + (size_t)b * sh.T, qpos[b], false,
-                         idx, warp_n, &n_in);
+  // no positions (the cross route): every slot inside T is visible
+  const bool every = pos == nullptr;
+  const int nv = compact(sh, split, every ? nullptr : pos + (size_t)b * sh.T,
+                         every ? 0 : qpos[b], every, idx, warp_n, &n_in);
   if (kv == 0 && g0 == 0) {
     int* list = vidx + ((size_t)b * sh.splits + split) * sh.L;
     for (int j = threadIdx.x; j < nv; j += THREADS) list[j] = idx[j];
@@ -332,7 +340,7 @@ scores_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
           if (g0 + gi >= sh.G) continue;
           float s = acc[c];
           if (QUANT) s = __fmul_rn(s, ksc[u]);
-          s = __fdiv_rn(s, sqrt_hd);
+          s = cross ? __fmul_rn(s, scale) : __fdiv_rn(s, scale);
           ss[gi * sh.L + jc] = s;
           sc[gi * sh.L + jc] = s;
         }
@@ -409,8 +417,8 @@ values_kernel(const CT* __restrict__ v, const float* __restrict__ v_scale,
   int nv;
   if (dead) {
     int n_in;
-    nv = compact(sh, split, pos + (size_t)b * sh.T, qpos[b], true, idx,
-                 warp_n, &n_in);
+    nv = compact(sh, split, pos == nullptr ? nullptr : pos + (size_t)b * sh.T,
+                 pos == nullptr ? 0 : qpos[b], true, idx, warp_n, &n_in);
   } else {
     nv = vidx[(size_t)sh.B * sh.splits * sh.L + (size_t)b * sh.splits +
               split];
@@ -529,7 +537,8 @@ template <typename QT, typename CT, typename RT, int HD>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, const long long* pos, const long long* qpos,
            void* out, float* scores, float* stats, float* part, int* vidx,
-           unsigned* arrivals, Shape sh, float sqrt_hd, cudaStream_t stream) {
+           unsigned* arrivals, Shape sh, float scale, int cross,
+           cudaStream_t stream) {
   const int full = sh.hd == HD && (uintptr_t)k % 16 == 0 &&
                    (uintptr_t)v % 16 == 0;
   const size_t smem1 = sizeof(int) * sh.L + sizeof(float) * GH * sh.L;
@@ -545,7 +554,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   const dim3 grid(sh.splits, sh.B * sh.KV * sh.NHG);
   scores_kernel<QT, CT, HD><<<grid, THREADS, smem1, stream>>>(
       static_cast<const QT*>(q), static_cast<const CT*>(k), ks, pos, qpos,
-      vidx, scores, stats, sh, sqrt_hd, full);
+      vidx, scores, stats, sh, scale, cross, full);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   values_kernel<QT, CT, RT, HD><<<grid, THREADS, smem2, stream>>>(
@@ -558,24 +567,24 @@ template <typename QT, typename CT, typename RT>
 int by_head_dim(const void* q, const void* k, const void* v, const float* ks,
                 const float* vs, const long long* pos, const long long* qpos,
                 void* out, float* scores, float* stats, float* part,
-                int* vidx, unsigned* arrivals, Shape sh, float sqrt_hd,
-                cudaStream_t st) {
+                int* vidx, unsigned* arrivals, Shape sh, float scale,
+                int cross, cudaStream_t st) {
   if (sh.hd <= 32)
     return launch<QT, CT, RT, 32>(q, k, v, ks, vs, pos, qpos, out, scores,
-                                  stats, part, vidx, arrivals, sh, sqrt_hd,
-                                  st);
+                                  stats, part, vidx, arrivals, sh, scale,
+                                  cross, st);
   if (sh.hd <= 64)
     return launch<QT, CT, RT, 64>(q, k, v, ks, vs, pos, qpos, out, scores,
-                                  stats, part, vidx, arrivals, sh, sqrt_hd,
-                                  st);
+                                  stats, part, vidx, arrivals, sh, scale,
+                                  cross, st);
   if (sh.hd <= 128)
     return launch<QT, CT, RT, 128>(q, k, v, ks, vs, pos, qpos, out, scores,
-                                   stats, part, vidx, arrivals, sh, sqrt_hd,
-                                   st);
+                                   stats, part, vidx, arrivals, sh, scale,
+                                   cross, st);
   if (sh.hd <= 256)
     return launch<QT, CT, RT, 256>(q, k, v, ks, vs, pos, qpos, out, scores,
-                                   stats, part, vidx, arrivals, sh, sqrt_hd,
-                                   st);
+                                   stats, part, vidx, arrivals, sh, scale,
+                                   cross, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -586,7 +595,11 @@ int by_head_dim(const void* q, const void* k, const void* v, const float* ks,
 // Python wrapper can raise. q (B, 1, H, hd) and out contiguous in q's type
 // (float32, is_bf16 = 0, or bfloat16); k, v (B, T, KV, hd) contiguous in
 // the route's type (cache_type 0 float32 = q's, 1 bfloat16 = q's, 2 int8
-// with k_scale, v_scale (B, T, KV) float32); pos (B, T) and qpos (B) int64.
+// with k_scale, v_scale (B, T, KV) float32); pos (B, T) and qpos (B) int64,
+// and the scores divided by `scale` (sqrt(hd) in float32). With cross = 1
+// (float32 and bfloat16 caches only) pos and qpos are null, every slot is
+// visible, the scores are multiplied by `scale` (float32(1 / sqrt(hd)))
+// and p is not rounded.
 // splits splits of L candidate slots (kernels/decode_attention.py
 // `split_len`); NHG = ceil(G / 4) head groups. Scratch from the wrapper,
 // U = B * KV * NHG blocks a split: scores U*splits*4*L, stats
@@ -598,7 +611,7 @@ extern "C" int decode_attention_launch(
     const void* v_scale, const void* pos, const void* qpos, void* out,
     void* scores, void* stats, void* part, void* vidx, void* arrivals, int B,
     int T, int KV, int G, int hd, int window, int splits, int L,
-    float sqrt_hd, int is_bf16, int cache_type, void* stream) {
+    float scale, int is_bf16, int cache_type, int cross, void* stream) {
   if (B == 0 || T == 0 || KV == 0 || G == 0) return 0;
   if (L <= 0 || L % CHUNK || splits <= 0 ||
       (long long)splits * (L / CHUNK) * CHUNK < T)
@@ -616,17 +629,28 @@ extern "C" int decode_attention_launch(
   unsigned* ar = static_cast<unsigned*>(arrivals);
   if (cache_type == 2 && (ks == nullptr || vs == nullptr))
     return (int)cudaErrorInvalidValue;
+  if ((ps == nullptr) != (qp == nullptr) || (ps == nullptr) != (cross != 0) ||
+      (cross && cache_type == 2))
+    return (int)cudaErrorInvalidValue;
   if (!is_bf16 && cache_type == 0)
     return by_head_dim<float, float, float>(q, k, v, ks, vs, ps, qp, out, sc,
-                                            sa, pa, vi, ar, sh, sqrt_hd, st);
+                                            sa, pa, vi, ar, sh, scale, cross,
+                                            st);
+  if (is_bf16 && cache_type == 1 && cross)
+    return by_head_dim<__nv_bfloat16, __nv_bfloat16, float>(
+        q, k, v, ks, vs, ps, qp, out, sc, sa, pa, vi, ar, sh, scale, cross,
+        st);
   if (is_bf16 && cache_type == 1)
     return by_head_dim<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
-        q, k, v, ks, vs, ps, qp, out, sc, sa, pa, vi, ar, sh, sqrt_hd, st);
+        q, k, v, ks, vs, ps, qp, out, sc, sa, pa, vi, ar, sh, scale, cross,
+        st);
   if (!is_bf16 && cache_type == 2)
     return by_head_dim<float, int8_t, float>(q, k, v, ks, vs, ps, qp, out, sc,
-                                             sa, pa, vi, ar, sh, sqrt_hd, st);
+                                             sa, pa, vi, ar, sh, scale, cross,
+                                             st);
   if (is_bf16 && cache_type == 2)
     return by_head_dim<__nv_bfloat16, int8_t, __nv_bfloat16>(
-        q, k, v, ks, vs, ps, qp, out, sc, sa, pa, vi, ar, sh, sqrt_hd, st);
+        q, k, v, ks, vs, ps, qp, out, sc, sa, pa, vi, ar, sh, scale, cross,
+        st);
   return (int)cudaErrorInvalidValue;
 }

@@ -79,10 +79,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "decode_attention": {
         # q, k, v, k_scale, v_scale, pos, qpos, out, scores, stats, part,
-        # vidx, arrivals, B, T, KV, G, hd, window, splits, L, sqrt_hd,
-        # is_bf16, cache_type, stream
+        # vidx, arrivals, B, T, KV, G, hd, window, splits, L, scale,
+        # is_bf16, cache_type, cross, stream
         "decode_attention_launch": (*(_P,) * 13, *(_I,) * 8, _F, _I, _I,
-                                    _P),
+                                    _I, _P),
     },
     "rglru_scan": {
         # x, a_param, alpha_i, beta_i, alpha_r, beta_r, h, work, carry, B,

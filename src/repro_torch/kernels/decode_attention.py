@@ -27,6 +27,16 @@ on CPU tensors it runs the plain PyTorch version
 ``decode_attention_plain``. Its ``launches`` attribute counts kernel
 calls, ``routes`` counts them by cache type.
 
+``cross_decode_attention_kernel`` is the same kernel's cross route, the
+reference's ``cross_attention`` (``repro/models/attention.py:140``) at
+one query against the image keys of the cross cache (float32 or
+bfloat16): no positions, every slot visible; s * float32(1 / sqrt(hd)),
+the product XLA compiles the reference's division into under jit (its
+model functions run under jit or inside ``lax.scan``, which compiles its
+body); p kept in float32 for p . v (the bf16 cache's instantiation with
+a float32 p). Its plain version is ``cross_decode_attention_plain``, and
+it counts its own ``launches``.
+
 The kernel cuts T into 32-slot chunks dealt round robin to splits
 (``split_len``) and serves 4 query heads of a KV head a block. Because p
 is rounded after it is normalised (step 5), a one-pass online softmax
@@ -99,6 +109,12 @@ def sqrt_hd(hd: int) -> float:
     return float(np.float32(math.sqrt(hd)))
 
 
+def inv_sqrt_hd(hd: int) -> float:
+    """float32(1 / sqrt(float32(hd))), the constant XLA multiplies by where
+    the reference divides by ``jnp.sqrt(jnp.float32(hd))`` under jit."""
+    return float(np.float32(1.0) / np.float32(math.sqrt(hd)))
+
+
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, kv_positions: torch.Tensor,
                            q_position: torch.Tensor, window: int = 0,
@@ -128,6 +144,21 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
         vt = v_cache.dtype
     out = torch.einsum("bqkgs,bskd->bqkgd", p.to(vt).float(),
                        v_cache.to(vt).float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def cross_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the cross route (module docstring): the
+    scores in float32 against the unexpanded k, times float32(1 /
+    sqrt(hd)), the softmax over every slot, p . v in float32 with p
+    unrounded, cast to q's type."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    qf = q.reshape(B, 1, KV, H // KV, hd).float()
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, k.float()) * inv_sqrt_hd(hd)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p, v.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -208,6 +239,26 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     if kv_positions.dtype != torch.int64:
         raise TypeError(f"decode_attention: kv_positions is "
                         f"{kv_positions.dtype}; the cache keeps int64")
+    out, launched = _launch(q, k_cache, v_cache, k_scale, v_scale,
+                            kv_positions,
+                            q_position.to(torch.int64).contiguous(), window,
+                            sqrt_hd(q.shape[-1]), _ROUTES[k_cache.dtype][0],
+                            False)
+    if launched:
+        decode_attention_kernel.launches += 1
+        decode_attention_kernel.routes[_ROUTES[k_cache.dtype][1]] += 1
+    return out
+
+
+decode_attention_kernel.launches = 0
+decode_attention_kernel.routes = {"float32": 0, "bfloat16": 0, "int8": 0}
+
+
+def _launch(q, k_cache, v_cache, k_scale, v_scale, pos, q_pos, window: int,
+            scale: float, cache_type: int, cross: bool) -> torch.Tensor:
+    """Both launches of ``csrc/decode_attention.cu`` on checked CUDA
+    tensors, with the scratch they need; returns (the output, whether
+    the kernel ran: an empty batch or cache gives zeros without it)."""
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -216,10 +267,9 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention: {units} batch x KV head x "
                          "head group blocks exceed the grid's 65535")
     q = q.contiguous()
-    q_pos = q_position.to(torch.int64).contiguous()
     out = torch.empty_like(q)
     if B == 0 or T == 0:
-        return out.zero_()
+        return out.zero_(), False
     L = split_len(B, KV, G, T)
     splits = n_splits(T, L)
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -236,19 +286,58 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
-        kv_positions.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        None if pos is None else pos.data_ptr(),
+        None if q_pos is None else q_pos.data_ptr(), out.data_ptr(),
         scores.data_ptr(), stats.data_ptr(), part.data_ptr(),
         vidx.data_ptr(), arrivals.data_ptr(), B, T, KV, G, hd, int(window),
-        splits, L,
-        sqrt_hd(hd), int(q.dtype == torch.bfloat16),
-        _ROUTES[k_cache.dtype][0], stream)
+        splits, L, scale, int(q.dtype == torch.bfloat16), cache_type,
+        int(cross), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    decode_attention_kernel.launches += 1
-    decode_attention_kernel.routes[_ROUTES[k_cache.dtype][1]] += 1
+    return out, True
+
+
+def cross_decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor) -> torch.Tensor:
+    """The cross route (module docstring): q (B, 1, H, hd) against the
+    cross cache's k, v (B, T, KV, hd), all float32 or all bfloat16.
+    CUDA tensors launch ``csrc/decode_attention.cu`` with no positions and
+    ``cross`` set (counted in this function's ``launches``); CPU tensors
+    take ``cross_decode_attention_plain``. The cache is read in place."""
+    if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or \
+            v.shape != k.shape or k.shape[0] != q.shape[0] or \
+            k.shape[3] != q.shape[3]:
+        raise ValueError(f"cross_decode_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
+                         "(B, 1, H, hd) and (B, T, KV, hd)")
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"cross_decode_attention: {H} query heads over "
+                         f"{KV} KV heads")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"cross_decode_attention: q {q.dtype}, k {k.dtype},"
+                        f" v {v.dtype}; all float32 or all bfloat16")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"cross_decode_attention: k on {k.device}, v on "
+                         f"{v.device}, q on {q.device}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"cross_decode_attention: head dim {hd} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
+    if q.device.type == "cpu":
+        return cross_decode_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"cross_decode_attention: unsupported device "
+                         f"{q.device}")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("cross_decode_attention: k and v must be "
+                         "contiguous")
+    out, launched = _launch(q, k, v, None, None, None, None, 0,
+                            inv_sqrt_hd(hd), _ROUTES[k.dtype][0], True)
+    cross_decode_attention_kernel.launches += int(launched)
     return out
 
 
-decode_attention_kernel.launches = 0
-decode_attention_kernel.routes = {"float32": 0, "bfloat16": 0, "int8": 0}
+cross_decode_attention_kernel.launches = 0

@@ -13,10 +13,10 @@ on CPU tensors, where the reference differentiates its jnp scan.
 tensors the hand-written GQA decode kernel (``kernels/
 decode_attention.py``, ``csrc/decode_attention.cu``), which reads the
 cache in place, on CPU tensors its plain version; the reference runs
-plain einsums there (no Pallas kernel).
-
-Not ported yet: ``cross_attention`` (llama-3.2-vision, ROADMAP Queue 1
-item 13d).
+plain einsums there (no Pallas kernel). ``cross_attention``
+(llama-3.2-vision's image layers) runs the same two kernels: the flash
+kernel, not causal, for a whole sequence, and the decode kernel's cross
+route for one decode step.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ from typing import Optional
 
 import torch
 
-from ..kernels.decode_attention import decode_attention_kernel
+from ..kernels.decode_attention import (cross_decode_attention_kernel,
+                                        decode_attention_kernel)
 from ..kernels.ops import flash_mha
 
 NEG_INF = -1.0e30
@@ -80,7 +81,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                    q_position, window, k_scale, v_scale)
 
 
-def cross_attention(q, k, v):
-    raise NotImplementedError(
-        "cross attention (llama-3.2-vision) is not ported yet: ROADMAP "
-        "Queue 1 item 13d")
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    decode: bool = False) -> torch.Tensor:
+    """Full (non-causal) cross attention; k, v come from the modality
+    frontend. q: (B, S, H, hd); k, v: (B, T_src, KV, hd). Returns (B, S,
+    H, hd) in q's type.
+
+    The reference forms float32 scores against the expanded k, divides
+    them by sqrt(float32(hd)) (a product with float32(1 / sqrt(hd))
+    under jit), takes a float32 softmax and keeps p in float32 for p . v.
+    A sequence (train, prefill) goes through ``flash_mha(causal=False)``
+    with GQA expanded, keys masked at the true T_src: on CUDA tensors the
+    flash kernel (bfloat16: the scores scaled after the product, and P
+    split into two bf16 terms for P . V, so near float32 p), on CPU
+    tensors its plain version (q scaled before the product). With
+    ``decode`` (one query, the cross cache) it is the decode kernel's
+    cross route, ``kernels/decode_attention.
+    cross_decode_attention_kernel``: the reference's form (the product
+    scale, p in float32), GQA-native."""
+    if decode:
+        return cross_decode_attention_kernel(q, k, v)
+    H = q.shape[2]
+    return flash_mha(q, _expand_kv(k, H), _expand_kv(v, H), causal=False)

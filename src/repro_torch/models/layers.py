@@ -3,11 +3,12 @@ of ``repro/models/layers.py``.
 
 Parameters are ``nn.Parameter``s in the reference's (d_in, d_out)
 layout, applied as ``x @ w`` (not ``nn.Linear``'s transposed weight), so
-a reference array carries across unchanged (``convert.py``). They are
-made with ``requires_grad=False`` (serving); ``LM.train()`` switches a
-model to training. The reference's sharding specs (``spec_for``,
-``PartitionSpec``) are not ported: they belong to ``parallel/``
-(ROADMAP Queue 1 item 13h).
+a reference array carries across unchanged (``convert.py``); products
+go through ``matmul``, which gives operands of mixed types the
+reference's result type. They are made with ``requires_grad=False``
+(serving); ``LM.train()`` switches a model to training. The reference's
+sharding specs (``spec_for``, ``PartitionSpec``) are not ported: they
+belong to ``parallel/`` (ROADMAP Queue 1 item 13h).
 """
 from __future__ import annotations
 
@@ -34,6 +35,17 @@ def zeros_param(shape, dtype: torch.dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the type ``jnp.matmul`` gives: both operands promoted
+    to their common type first (``jnp.result_type``; float32 frames @ a
+    bfloat16 weight is a float32 product), where ``torch.matmul`` refuses
+    mixed types. Operands of one type are multiplied as they are."""
+    if a.dtype != b.dtype:
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
+    return a @ b
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in float32 with the ``(1 + scale)`` gain, cast back."""
@@ -41,6 +53,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in float32 (biased variance) with gain ``scale`` and
+    ``bias``, cast back to x's type."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -85,14 +109,21 @@ class MLP(nn.Module):
         self.down = dense_init(gen, ff, d, dtype)
 
 
+def init_mlp(gen: torch.Generator, d: int, ff: int, gated: bool,
+             dtype: torch.dtype) -> MLP:
+    """The reference's ``init_mlp`` (its sharding specs aside): an
+    ``MLP``."""
+    return MLP(gen, d, ff, gated, dtype)
+
+
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU when ``p.gate`` is set, else GELU (tanh approximation, the
     default of ``jax.nn.gelu``)."""
     if p.gate is not None:
-        h = F.silu(x @ p.gate) * (x @ p.up)
+        h = F.silu(matmul(x, p.gate)) * matmul(x, p.up)
     else:
-        h = F.gelu(x @ p.up, approximate="tanh")
-    return h @ p.down
+        h = F.gelu(matmul(x, p.up), approximate="tanh")
+    return matmul(h, p.down)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,15 +1,19 @@
-"""The decoder LM; counterpart of ``repro/models/transformer.py`` for the
-block kinds ``attn``, ``local_attn`` (qwen3-4b, qwen2.5-3b, glm4-9b,
-phi4-mini: dense GQA with optional QKV bias and q/k norm), ``rglru``
-(recurrentgemma-9b's RG-LRU blocks beside its local attention) and
-``mlstm``, ``slstm`` (xlstm-350m's alternating xLSTM blocks, which have
-no FFN; their recurrences are the scan kernels ``kernels/mlstm_scan.py``
-and ``kernels/slstm_scan.py``).
+"""The LM; counterpart of ``repro/models/transformer.py`` for the block
+kinds ``attn``, ``local_attn`` (qwen3-4b, qwen2.5-3b, glm4-9b,
+phi4-mini: dense GQA with optional QKV bias and q/k norm; hubert-xlarge's
+bidirectional encoder), ``cross_attn`` (llama-3.2-vision's gated image
+layers), ``rglru`` (recurrentgemma-9b's RG-LRU blocks beside its local
+attention) and ``mlstm``, ``slstm`` (xlstm-350m's alternating xLSTM
+blocks, which have no FFN; their recurrences are the scan kernels
+``kernels/mlstm_scan.py`` and ``kernels/slstm_scan.py``), with the
+vision and audio frontends, which take precomputed embeddings.
 
-Parameters are an ``LM`` module: ``embed``, ``final_ln``, ``unembed``
-and ``blocks``, an ``nn.ModuleList`` with one ``Block`` per layer in
-layer order. The reference stacks each pattern position's blocks over
-depth (``period/pos{i}``) for its ``lax.scan``; here depth is a Python
+Parameters are an ``LM`` module: ``embed``, ``final_ln``, ``unembed``,
+``frontend`` (frontend_dim, d) for the audio frontend and ``vis_proj``
+(d_vision, d_vision) for the vision one, and ``blocks``, an
+``nn.ModuleList`` with one ``Block`` per layer in layer order. The
+reference stacks each pattern position's blocks over depth
+(``period/pos{i}``) for its ``lax.scan``; here depth is a Python
 loop, so the layers are a plain list and ``convert.
 from_reference_lm_params`` unstacks them. The model serves and trains:
 parameters take gradients after ``LM.train()`` (``init_params`` returns
@@ -27,7 +31,9 @@ int64, -1 = empty. An ``rglru`` layer's: ``h`` (B, w) float32 and
 ``conv`` (B, conv1d_size - 1, w) in the model's type. An ``mlstm``
 layer's: ``C`` (B, H, hd, hd), ``n`` (B, H, hd), ``m`` (B, H) float32
 with hd = 2 d / H; an ``slstm`` layer's: ``c``, ``n``, ``m``, ``h``
-(B, d) float32 (m starts at -1e30 in both). Prefill and decode
+(B, d) float32 (m starts at -1e30 in both). A ``cross_attn`` layer's:
+``k``, ``v`` (B, n_img_tokens, KV, hd) in the model's type, the image
+keys and values that prefill computes and decode reads. Prefill and decode
 write it in place (the reference returns a new pytree; in place saves a
 copy of the whole cache per step) and return the same list. The slot
 rules are the reference's: position p lives in slot ``p % cap`` for
@@ -39,6 +45,14 @@ Three modes share one block implementation:
             scans from the zero state)
   prefill — full sequence, fills the cache
   decode  — one token, reads and updates the cache
+
+Types follow the reference's promotion: every product goes through
+``layers.matmul``, so float32 inputs against bfloat16 weights (the data
+pipeline's float32 ``frames`` and ``image_embeds``) give float32
+products, as ``jnp.matmul`` does. A bfloat16 hubert fed float32 frames
+thus runs its whole trunk in float32 (attention on the flash kernels'
+float32 route); ``image_embeds @ vis_proj`` is cast to the model's type,
+as the reference casts it.
 """
 from __future__ import annotations
 
@@ -51,39 +65,30 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..kernels.decode_attention import inv_sqrt_hd
 from ..kernels.mlstm_scan import M_INIT
 from . import recurrent as rec
-from .attention import blockwise_attention, decode_attention
+from .attention import (blockwise_attention, cross_attention,
+                        decode_attention)
 from .config import ArchConfig
-from .layers import (MLP, apply_rope, cross_entropy, dense_init, mlp,
-                     rms_norm, zeros_param)
+from .layers import (MLP, apply_rope, cross_entropy, dense_init, matmul,
+                     mlp, rms_norm, zeros_param)
 
 MOE_AUX_WEIGHT = 0.01
-PORTED_KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
+PORTED_KINDS = ("attn", "local_attn", "cross_attn", "rglru", "mlstm",
+                "slstm")
 # block kinds without the pre-norm dense FFN (xLSTM's blocks)
 _NO_FFN = ("mlstm", "slstm")
-# block kinds and features still to port, with their ROADMAP items
-_UNPORTED = {
-    "cross_attn": "ROADMAP Queue 1 item 13d (cross_attn, llama-3.2-vision)",
-}
 
 Cache = List[Dict[str, torch.Tensor]]
 
 
 def _check_ported(cfg: ArchConfig, kind: str) -> None:
-    if kind in _UNPORTED:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
-                                  f"{_UNPORTED[kind]}")
     if kind not in PORTED_KINDS:
         raise ValueError(kind)
     if cfg.n_experts > 1:
         raise NotImplementedError("MoE FFNs are not ported yet: ROADMAP "
                                   "Queue 1 item 13f")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend is not ported yet: ROADMAP Queue "
-            "1 item " + ("13e (the encoder, hubert)" if cfg.frontend ==
-                         "audio" else "13d (llama-3.2-vision)"))
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +98,11 @@ def _check_ported(cfg: ArchConfig, kind: str) -> None:
 class Block(nn.Module):
     """One block. ``attn``/``local_attn``: pre-norm attention (``ln``,
     ``wq``, ``wk``, ``wv``, ``wo``; ``bq``/``bk``/``bv`` with QKV bias;
-    ``q_norm``/``k_norm`` with q/k norm). ``rglru``: pre-norm RG-LRU
+    ``q_norm``/``k_norm`` with q/k norm). ``cross_attn``: the same
+    attention over the image tokens (``wk``, ``wv`` take d_vision
+    inputs), gated by ``gate_attn`` and its FFN by ``gate_mlp``, 0-dim
+    float32 parameters that start at 0 (so a fresh model's image layers
+    add nothing). ``rglru``: pre-norm RG-LRU
     mixer (``ln``, ``w_in`` (d, 2w) for the branch and its gate, ``conv``
     (conv1d_size, w) float32 taps, ``lru`` the five float32 (w,) leaves
     ``a_param`` 0.5, ``alpha_i`` 1, ``beta_i`` 0, ``alpha_r`` 1,
@@ -104,7 +113,7 @@ class Block(nn.Module):
     forget gates, ``w_down`` (w, d)); ``slstm``: pre-norm sLSTM mixer of
     width d (``ln``, ``w_gates`` (d, 4d), ``r`` (d, 4) float32 recurrent
     weights drawn as 0.1 x normal, ``w_out`` (d, d)); the xLSTM blocks
-    have no FFN. Norm gains and biases start at zero, as in the
+    have no FFN. Norm gains, biases and gates start at zero, as in the
     reference."""
 
     def __init__(self, gen: torch.Generator, cfg: ArchConfig, kind: str):
@@ -119,7 +128,7 @@ class Block(nn.Module):
         elif kind == "slstm":
             self._init_slstm(gen, cfg)
         else:
-            self._init_attn(gen, cfg)
+            self._init_attn(gen, cfg, kind)
         if kind not in _NO_FFN:
             self.ln2 = zeros_param((d,), dt, dev)
             self.ffn = MLP(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
@@ -157,13 +166,15 @@ class Block(nn.Module):
                                 ("beta_i", 0.0), ("alpha_r", 1.0),
                                 ("beta_r", 0.0))})
 
-    def _init_attn(self, gen: torch.Generator, cfg: ArchConfig) -> None:
+    def _init_attn(self, gen: torch.Generator, cfg: ArchConfig,
+                   kind: str) -> None:
         d, dt, dev = cfg.d_model, cfg.torch_dtype, gen.device
         dht = cfg.n_heads * cfg.head_dim
         dkv = cfg.n_kv_heads * cfg.head_dim
+        kv_src = cfg.d_vision if kind == "cross_attn" else d
         self.wq = dense_init(gen, d, dht, dt)
-        self.wk = dense_init(gen, d, dkv, dt)
-        self.wv = dense_init(gen, d, dkv, dt)
+        self.wk = dense_init(gen, kv_src, dkv, dt)
+        self.wv = dense_init(gen, kv_src, dkv, dt)
         self.wo = dense_init(gen, dht, d, dt)
         if cfg.qkv_bias:
             self.bq = zeros_param((dht,), dt, dev)
@@ -172,6 +183,9 @@ class Block(nn.Module):
         if cfg.qk_norm:
             self.q_norm = zeros_param((cfg.head_dim,), dt, dev)
             self.k_norm = zeros_param((cfg.head_dim,), dt, dev)
+        if kind == "cross_attn":
+            self.gate_attn = zeros_param((), torch.float32, dev)
+            self.gate_mlp = zeros_param((), torch.float32, dev)
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Block:
@@ -181,12 +195,16 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Block:
 def init_cache_block(cfg: ArchConfig, kind: str, B: int, cache_len: int,
                      device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
     """Empty cache of one block (windowed layers keep only the window; the
-    int8 cache and its scales under ``cfg.kv_quant``; an ``rglru``
-    block's state and conv window; an ``mlstm`` or ``slstm`` block's zero
-    state, m at -1e30), on the card unless ``device`` says otherwise;
-    raises without one."""
+    int8 cache and its scales under ``cfg.kv_quant``; a ``cross_attn``
+    block's image keys and values; an ``rglru`` block's state and conv
+    window; an ``mlstm`` or ``slstm`` block's zero state, m at -1e30), on
+    the card unless ``device`` says otherwise; raises without one."""
     _check_ported(cfg, kind)
     device = resolve_device(device)
+    if kind == "cross_attn":
+        shape = (B, cfg.n_img_tokens, cfg.n_kv_heads, cfg.head_dim)
+        return {n: torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+                for n in ("k", "v")}
     if kind == "mlstm":
         H = cfg.n_heads
         return rec.mlstm_init_state(B, H, _mlstm_width(cfg) // H,
@@ -252,16 +270,18 @@ def _write_kv(cfg: ArchConfig, cache: Dict[str, torch.Tensor], bidx,
         v, v_scale = _kv_quantize(v)
         cache["k_scale"][bidx, slots] = k_scale
         cache["v_scale"][bidx, slots] = v_scale
-    cache["k"][bidx, slots] = k
-    cache["v"][bidx, slots] = v
+    # a float32 trunk (float32 frames in a bfloat16 model) writes into the
+    # cache's type, as the reference's ``.at[].set`` casts
+    cache["k"][bidx, slots] = k.to(cache["k"].dtype)
+    cache["v"][bidx, slots] = v.to(cache["v"].dtype)
     cache["pos"][bidx, slots] = pos
 
 
 def _attn_qkv(p: Block, cfg: ArchConfig, x: torch.Tensor,
               kv_input: torch.Tensor):
-    q = x @ p.wq
-    k = kv_input @ p.wk
-    v = kv_input @ p.wv
+    q = matmul(x, p.wq)
+    k = matmul(kv_input, p.wk)
+    v = matmul(kv_input, p.wv)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = _split_heads(q, cfg.n_heads, cfg.head_dim)
@@ -279,14 +299,22 @@ def _ffn_apply(p: MLP, cfg: ArchConfig, x: torch.Tensor):
 
 def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
                 mode: str, cache: Optional[Dict[str, torch.Tensor]] = None,
+                vis_embeds: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None):
     """x: (B, S, d). Returns (x, cache, aux_loss); ``cache`` is updated in
-    place in the prefill and decode modes."""
+    place in the prefill and decode modes. ``vis_embeds`` (B,
+    n_img_tokens, d_vision) feeds a ``cross_attn`` block's keys and
+    values in the train and prefill modes."""
     _check_ported(cfg, kind)
     h = rms_norm(x, p.ln, cfg.norm_eps)
     if kind in _NO_FFN:
         mix = _mlstm_mix if kind == "mlstm" else _slstm_mix
         return x + mix(cfg, p, h, mode, cache), cache, 0.0
+    if kind == "cross_attn":
+        gate = torch.tanh(p.gate_attn).to(x.dtype)
+        x = x + gate * _cross_mix(cfg, p, h, mode, cache, vis_embeds)
+        y, aux = _ffn_apply(p.ffn, cfg, rms_norm(x, p.ln2, cfg.norm_eps))
+        return x + torch.tanh(p.gate_mlp).to(x.dtype) * y, cache, aux
     if kind == "rglru":
         x = x + _rglru_mix(cfg, p, h, mode, cache)
     else:
@@ -329,7 +357,27 @@ def _attn_mix(cfg: ArchConfig, kind: str, p: Block, h: torch.Tensor,
             _write_kv(cfg, cache, torch.arange(B, device=h.device)[:, None],
                       slots, k[:, S - take:], v[:, S - take:],
                       positions[:, S - take:])
-    return o.reshape(B, S, -1) @ p.wo
+    return matmul(o.reshape(B, S, -1), p.wo)
+
+
+def _cross_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
+               cache, vis: Optional[torch.Tensor]) -> torch.Tensor:
+    """The cross-attention branch's output projection, (B, S, d), before
+    its gate. Train and prefill project the image tokens ``vis`` to k and
+    v (prefill stores them in the cache); decode reads them from the
+    cache, and its q is ``h @ wq`` alone, without the bias or q norm
+    that ``_attn_qkv`` applies in the other modes, as the reference."""
+    B, S, _ = h.shape
+    if mode == "decode":
+        q = _split_heads(matmul(h, p.wq), cfg.n_heads, cfg.head_dim)
+        o = cross_attention(q, cache["k"], cache["v"], decode=True)
+    else:
+        q, k, v = _attn_qkv(p, cfg, h, vis)
+        if mode == "prefill":
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+        o = cross_attention(q, k, v)
+    return matmul(o.reshape(B, S, -1), p.wo)
 
 
 def _rglru_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
@@ -367,11 +415,6 @@ def _mlstm_width(cfg: ArchConfig) -> int:
     return 2 * cfg.d_model
 
 
-def _inv_sqrt(hd: int) -> float:
-    """float32(1 / sqrt(float32(hd))), as a float."""
-    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
-
-
 def _fresh_state(cache: Dict[str, torch.Tensor]) -> None:
     """Put a cache's xLSTM state back to the zero state (m at -1e30) in
     place: prefill starts from it whatever the cache held, as the
@@ -401,7 +444,7 @@ def _mlstm_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
     up = h @ p.w_up
     xb, gate = up[..., :w], up[..., w:]
     q = _split_heads(xb @ p.wq, H, hd).float()
-    k = _split_heads(xb @ p.wk, H, hd).float() * _inv_sqrt(hd)
+    k = _split_heads(xb @ p.wk, H, hd).float() * inv_sqrt_hd(hd)
     v = _split_heads(xb @ p.wv, H, hd).float()
     ifg = (xb @ p.w_if).float()
     i_pre, f_pre = ifg[..., :H], ifg[..., H:]
@@ -454,6 +497,10 @@ class LM(nn.Module):
             (torch.randn((v, d), generator=gen, device=gen.device,
                          dtype=torch.float32) / d ** 0.5).to(dt),
             requires_grad=False)
+        if cfg.frontend == "audio":
+            self.frontend = dense_init(gen, cfg.frontend_dim, d, dt)
+        if cfg.frontend == "vision":
+            self.vis_proj = dense_init(gen, cfg.d_vision, cfg.d_vision, dt)
         self.final_ln = zeros_param((d,), dt, gen.device)
         self.unembed = dense_init(gen, d, v, dt)
         self.blocks = nn.ModuleList(init_block(gen, cfg, kind)
@@ -486,13 +533,26 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
 
 
 def _embed_inputs(params: LM, cfg: ArchConfig, batch) -> torch.Tensor:
-    """The token rows of ``embed`` (the reference's ``embed[tokens]``).
+    """The audio frontend's ``frames @ frontend`` (in the promoted type:
+    float32 frames give a float32 trunk), else the token rows of
+    ``embed`` (the reference's ``embed[tokens]``) in the model's type.
     ``F.embedding``'s gradient adds each row's occurrences in a fixed
     order on the CPU and on the card; the index-put behind
     ``embed[tokens]``'s gradient adds them by atomics on a CPU with
     several threads, so repeated steps would differ in their last
     bits."""
+    if cfg.frontend == "audio":
+        return matmul(batch["frames"], params.frontend)
     return F.embedding(batch["tokens"], params.embed).to(cfg.torch_dtype)
+
+
+def _vis_kv_source(params: LM, cfg: ArchConfig, batch
+                   ) -> Optional[torch.Tensor]:
+    """``image_embeds @ vis_proj`` in the model's type, or None (no
+    vision frontend, or a decode step: it reuses the cross cache)."""
+    if cfg.frontend != "vision" or "image_embeds" not in batch:
+        return None
+    return matmul(batch["image_embeds"], params.vis_proj).to(cfg.torch_dtype)
 
 
 def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
@@ -502,6 +562,12 @@ def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    vis = _vis_kv_source(params, cfg, batch)
+    if vis is None and mode != "decode" and "cross_attn" in cfg.layout():
+        # the reference fails here too (None @ wk)
+        raise ValueError(f"{cfg.name}: the {mode} mode needs "
+                         "batch['image_embeds'] (B, n_img_tokens, d_vision) "
+                         "for its cross-attention layers")
     use_cache = mode in ("prefill", "decode")
     aux = 0.0  # the dense FFN has no auxiliary loss (MoE is not ported)
     for i, (kind, blk) in enumerate(zip(cfg.layout(), params.blocks)):
@@ -511,20 +577,21 @@ def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
             # keep only the block's input; its activations are recomputed
             # in the backward pass (the reference's jax.checkpoint). A
             # dense block's auxiliary loss is 0, so none is carried
-            x = checkpoint(_block_train, cfg, kind, blk, x, positions,
+            x = checkpoint(_block_train, cfg, kind, blk, x, positions, vis,
                            use_reentrant=False)
             continue
         x, _, a = apply_block(cfg, kind, blk, x, mode=mode,
                               cache=cache[i] if use_cache else None,
-                              positions=positions)
+                              vis_embeds=vis, positions=positions)
         aux = aux + a
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
     return x, (cache if use_cache else None), aux
 
 
 def _block_train(cfg: ArchConfig, kind: str, blk: Block, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    return apply_block(cfg, kind, blk, x, mode="train",
+                 positions: torch.Tensor,
+                 vis: Optional[torch.Tensor]) -> torch.Tensor:
+    return apply_block(cfg, kind, blk, x, mode="train", vis_embeds=vis,
                        positions=positions)[0]
 
 
@@ -532,12 +599,15 @@ def forward(params: LM, cfg: ArchConfig, batch, *, mode: str = "train",
             cache: Optional[Cache] = None,
             positions: Optional[torch.Tensor] = None, remat: bool = True
             ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
-    """Returns (logits, cache, aux_loss); ``batch["tokens"]`` is (B, S).
-    In the train mode with gradients enabled, ``remat`` checkpoints each
-    block (one ``torch.utils.checkpoint`` a block)."""
+    """Returns (logits, cache, aux_loss); ``batch["tokens"]`` is (B, S)
+    (``batch["frames"]`` (B, S, frontend_dim) with the audio frontend;
+    ``batch["image_embeds"]`` (B, n_img_tokens, d_vision) beside the
+    tokens with the vision one, except in the decode mode). In the train
+    mode with gradients enabled, ``remat`` checkpoints each block (one
+    ``torch.utils.checkpoint`` a block)."""
     x, cache, aux = _trunk(params, cfg, batch, mode, cache, positions,
                            remat)
-    return x @ params.unembed, cache, aux
+    return matmul(x, params.unembed), cache, aux
 
 
 def loss_fn(params: LM, cfg: ArchConfig, batch, remat: bool = True):
@@ -552,13 +622,14 @@ def loss_fn(params: LM, cfg: ArchConfig, batch, remat: bool = True):
 
 
 def prefill(params: LM, cfg: ArchConfig, batch, cache_len: int):
-    """Full-sequence prefill: returns (last_logits (B, V), cache). Only
-    the last position is unembedded (the reference unembeds every
+    """Full-sequence prefill: returns (last_logits (B, V), cache). The
+    batch size comes from ``tokens``, else from ``frames`` (the encoder).
+    Only the last position is unembedded (the reference unembeds every
     position and keeps the last; each row is its own product)."""
-    tokens = batch["tokens"]
-    cache = init_cache(cfg, tokens.shape[0], cache_len, tokens.device)
+    first = batch["tokens"] if "tokens" in batch else batch["frames"]
+    cache = init_cache(cfg, first.shape[0], cache_len, first.device)
     x, cache, _ = _trunk(params, cfg, batch, "prefill", cache, None)
-    return x[:, -1] @ params.unembed, cache
+    return matmul(x[:, -1], params.unembed), cache
 
 
 def decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor,
@@ -567,4 +638,4 @@ def decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor,
     Returns (logits (B, V), cache)."""
     x, cache, _ = _trunk(params, cfg, {"tokens": token}, "decode", cache,
                          position[:, None])
-    return x[:, 0] @ params.unembed, cache
+    return matmul(x[:, 0], params.unembed), cache

@@ -77,7 +77,11 @@ def make_train_step(cfg: ArchConfig, peak_lr: float = 3e-4,
 
     def value_and_grad(params: LM, names, leaves, batch):
         loss, _ = loss_fn(params, cfg, batch, remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not read (the encoder's ``embed``: its
+        # frames go through ``frontend``) gets a zero gradient, as
+        # ``jax.grad`` gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), dict(zip(names, grads))
 
     def train_step(state: TrainState, batch: Dict[str, Any]):

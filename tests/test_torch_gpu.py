@@ -363,6 +363,13 @@ FLASH_SHAPES = [  # (B, S, T, H, hd, causal, window, q_offset, dtype)
     (2, 129, 129, 3, 128, True, 0, 0, torch.bfloat16),   # B = 2, H = 3
     (1, 300, 300, 2, 256, True, 0, 0, torch.bfloat16),   # widest head
     (1, 33, 33, 2, 8, True, 0, 0, torch.bfloat16),       # narrow head
+    # not causal, S != T: llama-3.2-vision's cross prefill (prompt queries
+    # against 1600 image keys); hubert's bidirectional hd 80, padded into
+    # the 128-wide bf16 instantiation, and on the float32 route that a
+    # bf16 hubert fed float32 frames takes
+    (1, 2048, 1600, 32, 128, False, 0, 0, torch.bfloat16),
+    (1, 1024, 1024, 16, 80, False, 0, 0, torch.bfloat16),
+    (2, 300, 300, 4, 80, False, 0, 0, torch.float32),
 ]
 
 
@@ -755,6 +762,45 @@ def test_decode_kernel_matches_plain(cuda, B, T, KV, G, hd, cache, window):
     else:
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=2.0 ** -6, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,KV,G,hd,dt", [
+    (4, 1600, 8, 4, 128, "bfloat16"),   # llama-3.2-vision's cross cache
+    (3, 37, 2, 3, 16, "float32"), (2, 1, 1, 5, 80, "bfloat16")])
+def test_cross_decode_route_matches_plain(cuda, B, T, KV, G, hd, dt):
+    """The decode kernel's cross route (every slot visible, the scores
+    times float32(1 / sqrt(hd)), p kept in float32) against
+    ``cross_decode_attention_plain`` on the same card tensors: float32
+    within 1e-5 x max|out|; bfloat16 every element between the bf16
+    roundings of the plain float32 value minus and plus that; one launch
+    a call, counted by the cross wrapper alone; a second launch bitwise
+    equal; the other routes' counts unchanged."""
+    from repro_torch.kernels import decode_attention as dk
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(T + hd)
+    tdt = getattr(torch, dt)
+    q = torch.randn((B, 1, KV * G, hd), generator=gen, device=cuda).to(tdt)
+    k, v = (torch.randn((B, T, KV, hd), generator=gen, device=cuda).to(tdt)
+            for _ in range(2))
+    kern = dk.cross_decode_attention_kernel
+    before = kern.launches
+    others = (dk.decode_attention_kernel.launches,
+              dict(dk.decode_attention_kernel.routes))
+    got = kern(q, k, v)
+    again = kern(q, k, v)
+    want = dk.cross_decode_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert (dk.decode_attention_kernel.launches,
+            dk.decode_attention_kernel.routes) == others
+    assert got.shape == q.shape and got.dtype == tdt
+    assert torch.equal(got, again)
+    tol = 1e-5 * float(want.abs().max())
+    if dt == "float32":
+        assert float((got - want).abs().max()) <= tol
+    else:
+        lo, hi = (want - tol).to(tdt), (want + tol).to(tdt)
+        assert not ((got < lo) | (got > hi)).any()
 
 
 def test_decode_wrapper_rejects_bad_inputs_on_card(cuda):
@@ -1164,3 +1210,77 @@ def test_xlstm_on_card_matches_cpu(cuda):
     assert [mlstm_scan.launches - counts[0],
             slstm_scan.launches - counts[1]] == [per_kind, per_kind]
     assert outs[0] == outs[1]
+
+
+def test_vision_on_card_matches_cpu(cuda):
+    """Reduced llama-3.2-vision (float32, the gates drawn non-zero) on the
+    card and on the CPU, the same weights, tokens and image embeddings: a
+    prefill and 3 greedy decode steps, logits within 1e-4 of their
+    largest entry; the flash kernel once a layer a prefill, the decode
+    kernel once a self-attention layer and its cross route once a
+    cross-attention layer a step."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.models import decode_step, prefill
+    cfg = get_config("llama32_vision_11b", reduced=True)
+    gen = torch.Generator().manual_seed(0)
+    model = init_params(gen, cfg)
+    with torch.no_grad():
+        for blk in model.blocks:
+            if hasattr(blk, "gate_attn"):
+                blk.gate_attn.fill_(0.7)
+                blk.gate_mlp.fill_(-0.4)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 9)))
+    img = torch.as_tensor(rng.standard_normal(
+        (2, cfg.n_img_tokens, cfg.d_vision)).astype(np.float32))
+    counters = (flash_attention, dk.decode_attention_kernel,
+                dk.cross_decode_attention_kernel)
+    outs = []
+    for dev in ("cpu", cuda):
+        m = model.to(dev)
+        before = [c.launches for c in counters]
+        last, cache = prefill(m, cfg, {"tokens": toks.to(dev),
+                                       "image_embeds": img.to(dev)}, 12)
+        logits = [last.cpu()]
+        for i in range(3):
+            last, cache = decode_step(m, cfg, last.argmax(-1)[:, None],
+                                      cache, torch.full((2,), 9 + i,
+                                                        device=dev))
+            logits.append(last.cpu())
+        outs.append(torch.stack(logits))
+    n_cross = cfg.layout().count("cross_attn")
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        cfg.n_layers, 3 * (cfg.n_layers - n_cross), 3 * n_cross]
+    assert float((outs[1] - outs[0]).abs().max()) <= \
+        1e-4 * float(outs[0].abs().max())
+
+
+def test_hubert_on_card_matches_cpu(cuda):
+    """Reduced hubert-xlarge (float32) on the card and on the CPU, the
+    same weights and frames: the frame CE loss (rtol 1e-5) and every
+    parameter's gradient (within 1e-4 of its largest entry; the unread
+    ``embed`` zero on both); one gradient launch a layer."""
+    from repro_torch.models import loss_fn
+    cfg = get_config("hubert_xlarge", reduced=True)
+    model = init_params(torch.Generator().manual_seed(0), cfg).train()
+    rng = np.random.default_rng(1)
+    frames = torch.as_tensor(rng.standard_normal(
+        (2, 40, cfg.frontend_dim)).astype(np.float32))
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 40)))
+    res = []
+    for dev in ("cpu", cuda):
+        m = model.to(dev)
+        before = flash_attention_bwd.launches
+        loss, _ = loss_fn(m, cfg, {"frames": frames.to(dev),
+                                   "labels": labels.to(dev)})
+        names, leaves = zip(*m.named_parameters())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        res.append((float(loss.detach()),
+                    {n: g.cpu() for n, g in zip(names, grads)}))
+    assert flash_attention_bwd.launches - before == cfg.n_layers
+    assert res[1][0] == pytest.approx(res[0][0], rel=1e-5)
+    for n, want in res[0][1].items():
+        got = res[1][1][n]
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max()), n

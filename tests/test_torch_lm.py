@@ -360,7 +360,6 @@ def test_encoder_arch_rejected():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("llama32_vision_11b", "13d"), ("hubert_xlarge", "13e"),
     ("mixtral_8x22b", "13f"), ("phi3_5_moe", "13f")])
 def test_unported_archs_name_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError,

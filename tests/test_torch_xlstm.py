@@ -37,6 +37,7 @@ from repro_torch.convert import (from_reference_arch_config,
                                  from_reference_lm_params,
                                  to_reference_lm_tree)
 from repro_torch.kernels import mlstm_scan as ms
+from repro_torch.kernels.decode_attention import inv_sqrt_hd
 from repro_torch.kernels import slstm_scan as ss
 from repro_torch.kernels.rglru_scan import softplus
 from repro_torch.launch import serve as launch_serve
@@ -429,10 +430,10 @@ def test_k_scale_is_the_jitted_reference_product():
     for hd in (16, 24, 512):
         want = jax.jit(lambda a: a.astype(jnp.float32) / jnp.sqrt(
             jnp.float32(hd)))(jnp.asarray(x))
-        got = _t(x) * tf._inv_sqrt(hd)
+        got = _t(x) * inv_sqrt_hd(hd)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert not np.array_equal(x / np.sqrt(np.float32(512)),
-                              x * np.float32(tf._inv_sqrt(512)))
+                              x * np.float32(inv_sqrt_hd(512)))
 
 
 # ---------------------------------------------------------------------------
