@@ -26,7 +26,9 @@ recurrent layers) and on xlstm-350m (the ``mlstm_scan`` and
 served at full width (the flash kernel not causal in its cross-attention
 layers, the decode kernel's cross route in their decode steps) and
 hubert-xlarge's encoder run and trained at full width (the flash
-kernels, bidirectional, at head dim 80). Phases:
+kernels, bidirectional, at head dim 80); recurrentgemma-9b trained on
+the scan's backward kernel and phi3.5-moe and mixtral-8x22b served
+(phi3.5-moe also trained) at full width with their depth cut. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together), with
@@ -299,7 +301,45 @@ kernels, bidirectional, at head dim 80). Phases:
      frame CE loss (rtol 1e-4) and every gradient leaf (1e-3 of its
      largest entry); then one train step of a bf16 2-layer cut on the
      token pipeline's float32 frames (the promoted float32 trunk: the
-     flash kernels' float32 routes), its loss against the CPU's.
+     flash kernels' float32 routes), its loss against the CPU's;
+ 33. the RG-LRU scan's backward kernel (``csrc/rglru_scan_bwd.cu``, on
+     the forward launch's carry buffer) vs ``rglru_scan_backward_plain``
+     at (1, 4096, 4096) bf16 and float32, (2, 37, 4096), (3, 300, 1000),
+     (1, 1, 7) and (2, 257, 4100): float32 dx within 1e-5 x max|dx|, bf16
+     dx within two bf16 steps plus that, each parameter gradient within
+     1e-4 of its max; two launches bitwise, a CUDA graph's replays
+     bitwise, 1 device kernel a call, its workspace zero after; device
+     time from a CUDA graph beside the bound and the plain version; then
+     the autograd route (``rglru_scan`` with gradients: 1 forward and 1
+     backward launch) at (2, 300, 40) float32 against the plain backward
+     and its directional derivative against a float64 central
+     difference;
+ 34. recurrentgemma-9b at full width cut to 6 layers ((R, R, A) x 2,
+     3.3 B parameters; bf16, seeded random weights) trains through
+     ``launch.train``'s code path, 3 steps at batch 8 x 128 and 3 at 1 x
+     4096 (16 time tiles a scan call): finite losses, 2 flash and 1
+     gradient launch an attention layer a step (hd 256: the CUDA-core
+     gradient route), 2 scan and 1 scan-gradient launches an RG-LRU
+     layer a step; median step, tokens/s, peak memory, a profiled step;
+     then a 3-layer float32 cut's loss and gradients, card against CPU;
+ 35. phi3.5-moe at full width cut to 24 of 32 layers (bf16, seeded random
+     weights) served as in phase 12 (each prompt prefilled alone at batch
+     1, so no padding takes capacity): a flash launch a layer a prefill,
+     a decode launch a layer a step; wall, prefill and decode tokens/s,
+     peak memory, a profiled prefill and decode; then a 1-layer float32
+     cut, card against CPU: every MoE call's chosen experts (a choice may
+     differ only within 1e-5 of a tie of the k-th and (k+1)-th
+     probabilities), rows and dropped tokens, and the logits on every
+     path where no choice differed;
+ 36. mixtral-8x22b at full width cut to 12 of 56 layers served the same
+     way (its 4096-token prompt's decode wraps the 4096-slot window
+     ring); then the decode kernel at that ring (4 slots, 8 KV heads of
+     6, hd 128) and the flash kernel at its 48 heads, each against its
+     plain version;
+ 37. phi3.5-moe at full width cut to 2 layers trains 3 steps at 8 x 128
+     through ``launch.train``'s code path: the loss with its aux term
+     (positive each step), 2 flash and 1 gradient launch a layer a step;
+     median step, tokens/s, peak memory, a profiled step.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -2243,13 +2283,15 @@ LONG_SEQS = (4096, 2048)
 LONG_STEPS = 3
 
 
-def train_run(torch, launch_train, dev, argv, n_steps, ckpt_dir=None):
-    """``launch.train``'s code path: its arguments and set-up, then
-    ``train_loop`` to step ``n_steps`` (resuming from ``ckpt_dir``).
-    Returns (state, step_fn, pipe, per-step metrics)."""
+def train_run(torch, launch_train, dev, argv, n_steps, ckpt_dir=None,
+              cfg=None):
+    """``launch.train``'s code path: its arguments and set-up (``cfg``,
+    a depth cut, in place of the arch's config), then ``train_loop`` to
+    step ``n_steps`` (resuming from ``ckpt_dir``). Returns (state,
+    step_fn, pipe, per-step metrics)."""
     from repro_torch.train.loop import train_loop
     args = launch_train.parse_args(argv)
-    _, state, step_fn, pipe = launch_train.setup(args, dev)
+    _, state, step_fn, pipe = launch_train.setup(args, dev, cfg)
     hist = []
     state = train_loop(state, step_fn, pipe, n_steps, ckpt_dir=ckpt_dir,
                        ckpt_every=2, log_every=1,
@@ -2495,7 +2537,8 @@ def decode_bound_ms(q, k, ks, pos, q_pos, window) -> dict:
 
 def graph_replay_equal(torch, fn, want) -> bool:
     """One ``fn()`` call captured in a CUDA graph and replayed twice: both
-    replays' outputs bitwise ``want`` (an eager launch's), so whatever
+    replays' outputs (a tensor or a tuple of them) bitwise ``want`` (an
+    eager launch's), so whatever
     the call leaves in its workspace (counters, flags) lets it run
     again."""
     side = torch.cuda.Stream()
@@ -2506,11 +2549,13 @@ def graph_replay_equal(torch, fn, want) -> bool:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = fn()
+    if isinstance(out, torch.Tensor):
+        out, want = (out,), (want,)
     same = []
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
-        same.append(torch.equal(out, want))
+        same.append(all(torch.equal(o, w) for o, w in zip(out, want)))
     del graph
     return all(same)
 
@@ -3856,6 +3901,647 @@ def phase_hubert(torch, fa, dev) -> dict:
     return {"launches": bwd, "fwd_launches": fwd + fwd_launches}
 
 
+# phase 33: the RG-LRU scan's backward kernel (B, S, W, type): a 4096-token
+# recurrentgemma-9b sequence (rnn width 4096) in bf16 and float32, B > 1
+# with a short tile, W off the 32-channel tile with S off the 256-step
+# tile, S = 1, and a bf16 shape with both ragged edges
+SCAN_BWD_TESTS = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32"),
+                  (2, 37, 4096, "bfloat16"), (3, 300, 1000, "float32"),
+                  (1, 1, 7, "float32"), (2, 257, 4100, "bfloat16")]
+# float32: dx within SCAN_BWD_DX_REL of max|dx| (the g carries go through
+# the sub-chunks' products of a, the kernel's float32 h is the forward
+# kernel's, and expf and the divisions against torch's); each parameter
+# gradient within SCAN_BWD_P_REL of its max (its sums over B and S run a
+# sub-chunk, a tile, then the tiles in order, torch.sum in its own order).
+# bf16 dx: within two bf16 steps of |dx| plus SCAN_BWD_DX_REL x max|dx|
+SCAN_BWD_DX_REL = 1e-5
+SCAN_BWD_P_REL = 1e-4
+# float32 operations an element of the function: the coefficients (19),
+# the recurrences of h and g (4), the chain rule through the coefficients
+# (25) and the five parameter sums (8)
+SCAN_BWD_OPS = 56
+
+
+def scan_bwd_check(torch, rs, name, x, p, dh, work_numel) -> dict:
+    """The backward kernel (on the forward launch's carry) vs
+    ``rglru_scan_backward_plain`` on the same inputs, two launches
+    bitwise, a CUDA graph's two replays bitwise, one device kernel a call,
+    the workspace zero after the launches. Returns the call, the errors
+    and each gradient's scale."""
+    from repro_torch.kernels import build
+    _, carry = rs._forward_kernel(x, p)
+
+    def call():
+        return rs.rglru_scan_backward(x, *p, dh, carry)
+    before = rs.rglru_scan_backward.launches
+    got, again = call(), call()
+    launched = rs.rglru_scan_backward.launches - before
+    want = rs.rglru_scan_backward_plain(x, *p, dh)
+    torch.cuda.synchronize()
+    work = build.workspace("rglru_scan_bwd", x.device, work_numel)
+    dirty = int(work.abs().sum())
+    errs, scales, over = [], [], 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        errs.append(err)
+        scales.append(scale)
+        if i == 0 and x.dtype == torch.bfloat16:
+            wf = w.float()
+            over += int(((g.float() - wf).abs() > 2.0 ** -7 * wf.abs()
+                         + SCAN_BWD_DX_REL * scale).sum())
+        else:
+            rel = SCAN_BWD_DX_REL if i == 0 else SCAN_BWD_P_REL
+            over += int(not err <= rel * scale)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    replay = graph_replay_equal(torch, call, got)
+    n_kernels, n_nodes = kernels_a_call(torch, call)
+    if not (got[0].shape == x.shape and got[0].dtype == x.dtype and
+            all(math.isfinite(e) for e in errs) and over == 0 and bitwise
+            and launched == 2 and replay and dirty == 0 and
+            n_kernels == n_nodes == 1):
+        raise RuntimeError(f"rglru_scan_backward {name}: max abs errs {errs}"
+                           f" (scales {scales}), {over} over the limits, "
+                           f"bitwise {bitwise}, graph replays equal "
+                           f"{replay}, workspace sum {dirty}, {n_kernels} "
+                           f"kernels of {n_nodes} graph nodes a call")
+    return {"call": call, "errs": errs, "scales": scales}
+
+
+def scan_bwd_gradcheck(torch, rs, dev) -> str:
+    """The autograd route on the card (``rglru_scan`` with gradients: the
+    forward kernel, then the backward kernel) at a small float32 shape
+    against ``rglru_scan_backward_plain``, and its directional derivative
+    along a random direction of (x, parameters) against a central
+    difference (step 1e-5) of the forward in float64 on the CPU, within
+    1e-5."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(331)
+    x, p = scan_inputs(torch, gen, 2, 300, 40, torch.float32, dev)
+    dh = torch.randn(x.shape, generator=gen, device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (x, *p)]
+    f0, b0 = rs.rglru_scan.launches, rs.rglru_scan_backward.launches
+    h = rs.rglru_scan(*leaves)
+    got = torch.autograd.grad(h, leaves, dh)
+    launched = (rs.rglru_scan.launches - f0,
+                rs.rglru_scan_backward.launches - b0)
+    want = rs.rglru_scan_backward_plain(x, *p, dh)
+    errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+    cpu = [t.detach().double().cpu() for t in (x, *p)]
+    cgen = torch.Generator().manual_seed(332)
+    dirs = [torch.randn(t.shape, generator=cgen, dtype=torch.float64)
+            for t in cpu]
+    dhc = dh.double().cpu()
+
+    def scan_f64(xx, a, ai, bi, ar, br):
+        # the plain forward's formulas in float64 (rglru_coeffs computes
+        # in float32)
+        i_t = torch.sigmoid(xx * ai + bi)
+        log_a = -8.0 * torch.logaddexp(a, torch.zeros_like(a)) * \
+            torch.sigmoid(xx * ar + br)
+        b_t = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                     min=1e-8)) * (i_t * xx)
+        a_t, h, out = torch.exp(log_a), torch.zeros_like(xx[:, 0]), []
+        for t in range(xx.shape[1]):
+            h = a_t[:, t] * h + b_t[:, t]
+            out.append(h)
+        return torch.stack(out, dim=1)
+
+    def loss(s):
+        return float((scan_f64(*(t + s * d for t, d in zip(cpu, dirs)))
+                      * dhc).sum())
+    eps = 1e-5
+    fd = (loss(eps) - loss(-eps)) / (2 * eps)
+    an = sum(float((g.double().cpu() * d).sum())
+             for g, d in zip(got, dirs))
+    fd_rel = abs(an - fd) / max(abs(fd), 1e-30)
+    if launched != (1, 1) or errs[0] > SCAN_BWD_DX_REL or \
+            max(errs[1:]) > SCAN_BWD_P_REL or not fd_rel <= 1e-5:
+        raise RuntimeError(f"rglru_scan autograd route: launches (forward, "
+                           f"backward) {launched}, errors / max {errs}, "
+                           f"directional derivative {an} vs central "
+                           f"difference {fd} (rel {fd_rel})")
+    return (f"autograd route (2, 300, 40) float32: launches (forward, "
+            f"backward) {launched}, errors / max vs the plain backward "
+            f"{[f'{e:.3g}' for e in errs]}, directional derivative "
+            f"{an:.8g} vs float64 central difference {fd:.8g} (rel "
+            f"{fd_rel:.3g}, limit 1e-5)")
+
+
+def phase_scan_bwd(torch, dev) -> dict:
+    """Phase 33: the RG-LRU scan's backward kernel vs
+    ``rglru_scan_backward_plain`` at SCAN_BWD_TESTS (limits above), two
+    launches bitwise, graph replays bitwise, one device kernel a call,
+    the workspace zero; timed from a CUDA graph beside its bound and the
+    plain version; then the autograd route's gradcheck."""
+    from repro_torch.kernels import rglru_scan as rs
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    timed, worst = {}, 0.0
+    t0 = time.perf_counter()
+    for B, S, W, dt in SCAN_BWD_TESTS:
+        x, p = scan_inputs(torch, gen, B, S, W, getattr(torch, dt), dev)
+        dh = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+        tiles = B * -(-W // rs.SCAN_CHANNELS) * -(-S // rs.SCAN_STEPS)
+        name = f"({B}, {S}, {W}) {dt}"
+        res = scan_bwd_check(torch, rs, name, x, p, dh,
+                             2 + tiles + -(-W // rs.SCAN_CHANNELS))
+        worst = max(worst, res["errs"][0])
+        ms = graph_ms(torch, res["call"], launches=5)
+        plain_ms = time_ms(torch, lambda: rs.rglru_scan_backward_plain(
+            x, *p, dh), reps=1, windows=3)
+        nbytes = 3 * x.numel() * x.element_size() + 10 * W * 4
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = SCAN_BWD_OPS * x.numel() / RATE_FP32 * 1e3
+        bound = {"bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        timed[(B, S, W, dt)] = {"ms": ms, "plain_ms": plain_ms, **bound}
+        rel = [e / max(s, 1e-30) for e, s in zip(res["errs"],
+                                                 res["scales"])]
+        log(f"rglru_scan_backward {name}: dx max_abs_err "
+            f"{res['errs'][0]:.3g} (max|dx| {res['scales'][0]:.3g}), "
+            f"parameter gradients errors / max "
+            f"{[f'{r:.3g}' for r in rel[1:]]} (limit {SCAN_BWD_P_REL:g}); "
+            f"two launches bitwise, graph replays bitwise, workspace zero, "
+            f"1 device kernel a call; kernel {ms:.4f} ms a launch on the "
+            f"device (CUDA graph), plain {plain_ms:.4f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+            f"{nbytes / 1e6:.2f} MB, "
+            f"{SCAN_BWD_OPS * x.numel() / 1e9:.3f} G float32 ops)")
+    log(f"rglru_scan_backward: {scan_bwd_gradcheck(torch, rs, dev)}")
+    log(f"phase 33: {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": worst, "timed": timed}
+
+
+# phase 34: recurrentgemma-9b trained at full width cut to two periods
+# (R, R, A) x 2, RG_TRAIN_STEPS steps at each (batch, seq) of
+# RG_TRAIN_RUNS (1 x 4096 chains 16 time tiles in every scan call); then a
+# 3-layer float32 cut's gradients on the card against the CPU's, RG_CHECK_S
+# tokens (two time tiles of the scans)
+RG_TRAIN_LAYERS = 6
+RG_TRAIN_RUNS = [(8, 128), (1, 4096)]
+RG_TRAIN_STEPS = 3
+RG_CHECK_S = 264
+# training's device time by kernel kind with the two scan kernels
+RG_TRAIN_GROUPS = [("rglru scan gradient", ("rglru_scan_bwd_kernel",)),
+                   ("rglru scan", ("rglru_scan_kernel",))] + \
+    TRAIN_KERNEL_GROUPS
+
+
+def card_vs_cpu_grads(torch, card, cfg, batch, dev, counters, label):
+    """One loss and gradient (``grads_of``) of ``card`` on the card and of
+    its deep copy on the CPU: the loss within rtol 1e-4 and every leaf
+    within 1e-3 of its largest entry (phase 32's limits). Returns the
+    launches of ``counters`` on the card and a log line."""
+    import copy
+    cpu = copy.deepcopy(card).to("cpu")
+    res, launched = [], None
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        b = {k: v.to(d) for k, v in batch.items()}
+        before = [c.launches for c in counters]
+        loss, g = grads_of(torch, m, cfg, b)
+        launched = [c.launches - x for c, x in zip(counters, before)]
+        res.append((float(loss), {k: x.float().cpu() for k, x in g.items()}))
+        del g
+    (c_loss, c_g), (g_loss, g_g) = res
+    rel = {k: float((g_g[k] - c_g[k]).abs().max())
+           / max(float(c_g[k].abs().max()), 1e-30) for k in c_g}
+    bad = [k for k, r in rel.items() if not r <= 1e-3]
+    if abs(g_loss - c_loss) > 1e-4 * abs(c_loss) or bad or \
+            not math.isfinite(g_loss):
+        raise RuntimeError(f"{label}: loss {g_loss} vs CPU {c_loss}, "
+                           f"gradient leaves over 1e-3 x max|g|: {bad}")
+    worst = max(rel, key=rel.get)
+    return launched, (f"{label}: card vs CPU loss {g_loss:.6f} vs "
+                      f"{c_loss:.6f}, gradients: {len(c_g)} leaves, worst "
+                      f"max abs err / max|g| {rel[worst]:.3g} ({worst}; "
+                      f"limit 1e-3)")
+
+
+def phase_rg_train(torch, fa, dev) -> dict:
+    """Phase 34: recurrentgemma-9b at full width cut to RG_TRAIN_LAYERS
+    layers trains on the card through ``launch.train``'s code path (bf16,
+    seeded random weights): at each of RG_TRAIN_RUNS, 2 flash forward and
+    1 gradient launch an attention layer a step (remat; hd 256 takes the
+    CUDA-core gradient route), 2 scan and 1 scan-gradient launches an
+    RG-LRU layer a step, finite losses and grad norms; the median step,
+    tokens/s, peak memory and a profiled step; then a 3-layer [R, R, A]
+    float32 cut: one loss and gradient on the card against the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    full = get_config("recurrentgemma_9b")
+    cut = dataclasses.replace(full, n_layers=RG_TRAIN_LAYERS)
+    n_attn = cut.layout().count("local_attn")
+    n_rec = cut.layout().count("rglru")
+    n = RG_TRAIN_STEPS
+    counters = (fa.flash_attention, fa.flash_attention_bwd, rs.rglru_scan,
+                rs.rglru_scan_backward)
+    want = [2 * n * n_attn, n * n_attn, 2 * n * n_rec, n * n_rec]
+    out = {"launches": [0, 0, 0, 0]}
+    for B, S in RG_TRAIN_RUNS:
+        label = (f"train recurrentgemma_9b {RG_TRAIN_LAYERS} layers, batch "
+                 f"{B} x {S}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.launches = 0
+        fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+        argv = ["--arch", "recurrentgemma_9b", "--steps", str(n), "--batch",
+                str(B), "--seq", str(S), "--device", "cuda"]
+        t0 = time.perf_counter()
+        state, step_fn, pipe, hist = train_run(torch, launch_train, dev,
+                                               argv, n, cfg=cut)
+        wall = time.perf_counter() - t0
+        got = [c.launches for c in counters]
+        routes = dict(fa.flash_attention_bwd.routes)
+        losses = [m["loss"] for m in hist]
+        gnorms = [m["grad_norm"] for m in hist]
+        times = [m["step_time_s"] for m in hist]
+        if len(hist) != n or not all(math.isfinite(x)
+                                     for x in losses + gnorms) \
+                or got != want or routes["cuda_cores"] != n * n_attn:
+            raise RuntimeError(f"{label}: losses {losses}, grad norms "
+                               f"{gnorms}, launches (flash, flash gradient, "
+                               f"scan, scan gradient) {got} (want {want}), "
+                               f"gradient routes {routes}")
+        med = statistics.median(times[1:])
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_params = sum(p.numel() for p in state.params.parameters())
+        log(f"{label}: {n_params / 1e9:.3f} B parameters ({n_rec} rglru + "
+            f"{n_attn} local_attn), bf16; losses "
+            f"{[f'{x:.4f}' for x in losses]}, grad norms "
+            f"{[f'{x:.4f}' for x in gnorms]}, step times "
+            f"{[f'{x:.3f}' for x in times]} s ({wall:.2f} s wall, init "
+            f"included); median step (steps 2-{n}) {med:.4f} s, "
+            f"{B * S / med:.1f} tokens/s; launches (flash, flash gradient, "
+            f"scan, scan gradient) {got}; peak memory {peak / 2**30:.2f} GiB")
+        batch = pipe.next_batch()
+        prof = profile_by_kind(
+            torch, lambda: float(step_fn(state, batch)[1]["loss"]),
+            RG_TRAIN_GROUPS, f"{label} profiled step")
+        out[(B, S)] = {"median_step_s": med, "peak": peak, "prof": prof,
+                       "tokens_s": B * S / med}
+        out["launches"] = [a + b for a, b in zip(out["launches"], got)]
+        del state, step_fn, pipe, batch
+    torch.cuda.empty_cache()
+    cut3 = dataclasses.replace(full, n_layers=3, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(34)
+    card = init_params(gen, cut3).train()
+    toks = torch.randint(0, cut3.vocab_size, (1, RG_CHECK_S), generator=gen,
+                         device=dev)
+    launched, line = card_vs_cpu_grads(
+        torch, card, cut3, {"tokens": toks, "labels": toks}, dev,
+        counters, f"recurrentgemma_9b widths, 3 layers [R, R, A], float32, "
+        f"1 x {RG_CHECK_S} tokens")
+    if launched != [2, 1, 4, 2]:
+        raise RuntimeError(f"recurrentgemma_9b 3-layer cut: card launches "
+                           f"(flash, flash gradient, scan, scan gradient) "
+                           f"{launched}, want [2, 1, 4, 2]")
+    log(f"{line}; card launches (flash, flash gradient, scan, scan "
+        f"gradient) {launched}")
+    del card
+    torch.cuda.empty_cache()
+    log(f"phase 34: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phases 35-36: the MoE archs served at full width with their depth cut so
+# the bf16 weights fit one 80 GB card (phi3.5-moe 2.6 GB a layer,
+# mixtral-8x22b 5.0 GB a layer)
+MOE_SERVE_LAYERS = {"phi3_5_moe": 24, "mixtral_8x22b": 12}
+# a top-k choice on the card may differ from the CPU's only where the k-th
+# and (k + 1)-th router probabilities are within this (the router's float32
+# product sums 4096 terms in another order)
+MOE_TIE_MARGIN = 1e-5
+MOE_DISPATCH = ("dispatch and combine", ("index", "scatter", "gather",
+                                         "cumsum", "sort", "topk"))
+MOE_KERNEL_GROUPS = SERVE_KERNEL_GROUPS[:3] + [MOE_DISPATCH] + \
+    SERVE_KERNEL_GROUPS[3:]
+MOE_TRAIN_GROUPS = TRAIN_KERNEL_GROUPS[:3] + [MOE_DISPATCH] + \
+    TRAIN_KERNEL_GROUPS[3:]
+# mixtral's sliding-window ring at its served shape: 4 slots of the 4096
+# window, 8 KV heads of 6 query heads, hd 128, bf16, two wrapped rows
+MIXTRAL_RING = ("mixtral-8x22b ring bf16", 4, 4096, 8, 6, 128, "bfloat16",
+                4096, ("ring", "ring", "fill", "late"))
+
+
+class RouteProbe:
+    """Records every ``models.moe.route`` call (the routing of each MoE
+    FFN call) while it is entered: the float32 probabilities, the expert
+    indices, each slot's row and keep mask, on the CPU."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.calls = moe, moe.route, []
+        stack = self.torch.stack
+
+        def route(p, xf, top_k, C):
+            res = self.orig(p, xf, top_k, C)
+            probs, _, idx, slots = res
+            self.calls.append({
+                "probs": probs.detach().float().cpu(), "idx": idx.cpu(),
+                "rows": stack([r for _, r, _ in slots]).cpu(),
+                "keep": stack([k for _, _, k in slots]).cpu()})
+            return res
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def route_diff(cpu, card, k) -> dict:
+    """Compares one MoE call's routing on the CPU and the card: tokens
+    whose chosen experts differ (each must have its k-th and (k+1)-th CPU
+    probabilities within MOE_TIE_MARGIN), and, where none differs, the
+    rows and dropped tokens, which must then be equal."""
+    import torch
+    differ = (cpu["idx"] != card["idx"]).any(-1)
+    top = torch.sort(cpu["probs"], dim=-1, descending=True).values
+    gap = top[:, k - 1] - top[:, k] if top.shape[1] > k else \
+        torch.full_like(top[:, 0], float("inf"))
+    bad = int((differ & ~(gap <= MOE_TIE_MARGIN)).sum())
+    n_diff = int(differ.sum())
+    same_rows = n_diff > 0 or (torch.equal(cpu["rows"], card["rows"]) and
+                               torch.equal(cpu["keep"], card["keep"]))
+    return {"differ": n_diff, "bad": bad, "same_rows": same_rows,
+            "dropped": int((~cpu["keep"]).sum())}
+
+
+def moe_card_vs_cpu(torch, cfg, dev, S, n_dec) -> str:
+    """A 1-layer float32 cut at full width: a ``S``-token prefill and
+    ``n_dec`` greedy decode steps on the card and on the CPU (the same
+    seeded weights, deep-copied), every MoE call's routing compared
+    (``route_diff``), the logits within 1e-3 x max|logits| on every path
+    where no choice differed."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.models import decode_step, init_params, prefill
+    cut = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(35)
+    card = init_params(gen, cut)
+    cpu = copy.deepcopy(card).to("cpu")
+    toks = torch.as_tensor(np.random.default_rng(35).integers(
+        0, cut.vocab_size, (1, S + n_dec)))
+    outs = []
+    with torch.inference_mode():
+        for m, d in ((cpu, "cpu"), (card, dev)):
+            t = toks.to(d)
+            with RouteProbe(torch) as probe:
+                last, cache = prefill(m, cut, {"tokens": t[:, :S]},
+                                      cache_len=S + n_dec)
+                logits = [last.float().cpu()]
+                for i in range(n_dec):
+                    lg, cache = decode_step(m, cut, t[:, S + i:S + i + 1],
+                                            cache,
+                                            torch.full((1,), S + i,
+                                                       device=d))
+                    logits.append(lg.float().cpu())
+            outs.append((logits, probe.calls))
+            del cache
+    (c_lg, c_calls), (g_lg, g_calls) = outs
+    if len(c_calls) != len(g_calls) or len(c_calls) != 1 + n_dec:
+        raise RuntimeError(f"{cfg.name} 1-layer cut: {len(c_calls)} MoE "
+                           f"calls on the CPU, {len(g_calls)} on the card")
+    diffs = [route_diff(c, g, cut.top_k) for c, g in zip(c_calls, g_calls)]
+    if any(x["bad"] or not x["same_rows"] for x in diffs):
+        raise RuntimeError(f"{cfg.name} 1-layer cut: routing card vs CPU "
+                           f"{diffs}")
+    errs, scale, clean = [], 0.0, True
+    for x, c, g in zip(diffs, c_lg, g_lg):
+        clean = clean and x["differ"] == 0
+        scale = max(scale, float(c.abs().max()))
+        if clean:
+            errs.append(float((g - c).abs().max()))
+    if not all(math.isfinite(e) for e in errs) or \
+            (errs and max(errs) > 1e-3 * scale):
+        raise RuntimeError(f"{cfg.name} 1-layer cut: logits errors {errs} vs"
+                           f" max|logits| {scale}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return (f"{cfg.name} widths, 1 layer, float32, {S}-token prefill + "
+            f"{n_dec} decode steps: {len(diffs)} MoE calls, tokens whose "
+            f"top-{cut.top_k} choice differed {[x['differ'] for x in diffs]}"
+            f" (margin {MOE_TIE_MARGIN:g}), dropped tokens "
+            f"{[x['dropped'] for x in diffs]} (the same on both where no "
+            f"choice differed), logits max abs err "
+            f"{[f'{e:.3g}' for e in errs]} on {len(errs)} of "
+            f"{len(diffs)} paths, max|logits| {scale:.4g} (limit 1e-3 x "
+            f"max)")
+
+
+def moe_profiled(torch, model, cfg, dev, label) -> dict:
+    """A 1 x 1024 prefill, then 4 greedy decode steps at batch 4, each
+    under the profiler: device time by MOE_KERNEL_GROUPS kind."""
+    from repro_torch.models import decode_step, prefill
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(351)
+    toks = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                         device=dev)
+    box = {}
+
+    def pre():
+        box["last"], _ = prefill(model, cfg, {"tokens": toks}, 1028)
+
+    dtoks = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                          device=dev)
+    with torch.inference_mode():
+        _, box["cache"] = prefill(model, cfg, {"tokens": dtoks}, 260)
+
+        def dec():
+            last = dtoks[:, -1:]
+            for i in range(4):
+                lg, box["cache"] = decode_step(
+                    model, cfg, last, box["cache"],
+                    torch.full((4,), 256 + i, device=dev))
+                last = lg.argmax(-1)[:, None]
+        res = {"prefill": profile_by_kind(torch, pre, MOE_KERNEL_GROUPS,
+                                          f"{label} profiled 1 x 1024 "
+                                          "prefill"),
+               "decode": profile_by_kind(torch, dec, MOE_KERNEL_GROUPS,
+                                         f"{label} profiled 4 decode steps "
+                                         "at batch 4")}
+    del box
+    return res
+
+
+def phase_moe_serve(torch, fa, dev, arch) -> dict:
+    """Phases 35 (phi3.5-moe) and 36 (mixtral-8x22b): the arch at its
+    published width cut to MOE_SERVE_LAYERS layers (bf16, seeded random
+    weights) through ServeEngine, phase 12's requests (8 prompts of
+    256..4096 tokens, each prefilled alone at batch 1, 16 new each, 4
+    slots of 4352): a flash launch a layer a prefill and a decode launch
+    a layer a step, on its bf16 route; wall, prefill and decode tokens/s,
+    peak memory, a profiled prefill and decode; then phi3.5-moe's 1-layer
+    float32 card-vs-CPU routing and logits (``moe_card_vs_cpu``), and
+    mixtral's sliding-window ring (4096 slots, wrapped by its 4096-token
+    prompt's decode) and the flash kernel at its 48 heads held to their
+    plain versions."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=MOE_SERVE_LAYERS[arch])
+    n = cfg.n_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{arch} init on the card: {n_params / 1e9:.3f} B parameters, "
+        f"{cfg.dtype}, {n} of {get_config(arch).n_layers} layers at full "
+        f"width ({cfg.n_experts} experts, top-{cfg.top_k}, d "
+        f"{cfg.d_model}, ff {cfg.d_ff}, {cfg.n_heads} heads, window "
+        f"{cfg.window}), {time.perf_counter() - t0:.2f} s")
+    lens, prompts = serve_requests(cfg)
+    eng = ServeEngine(model, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      device=dev)
+    counters = (fa.flash_attention, dk.decode_attention_kernel)
+    run = serve_run(torch, eng, prompts, counters, dev)
+    del eng
+    steps = run["stats"]["decode_steps"]
+    serve_checked(cfg, run, [n * SERVE_REQUESTS, n * steps], arch)
+    if run["routes"][1]["bfloat16"] != n * steps:
+        raise RuntimeError(f"serve {arch}: decode kernel routes "
+                           f"{run['routes'][1]}, want {n * steps} on "
+                           f"bfloat16")
+    log(f"serve {arch}: prompt lengths {[int(x) for x in lens]}")
+    log(serve_line(arch, run, f"; flash launches {run['launches'][0]}, "
+                   f"decode kernel launches {run['launches'][1]} ({n} a "
+                   f"step, route bfloat16)"))
+    log(f"serve {arch}: first tokens {[o[:4] for o in run['outs']]}")
+    prof = moe_profiled(torch, model, cfg, dev, arch)
+    del model
+    torch.cuda.empty_cache()
+    if arch == "phi3_5_moe":
+        log(moe_card_vs_cpu(torch, get_config(arch), dev, 512, 2))
+    else:
+        errs = [ring_check(torch, dev, *MIXTRAL_RING)]
+        kgen = torch.Generator(device=dev)
+        kgen.manual_seed(36)
+        from repro_torch.models.attention import _expand_kv
+        S, H, KV, hd = 2048, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = torch.randn((1, S, H, hd), generator=kgen, device=dev)
+        k, v = (_expand_kv(torch.randn((1, S, KV, hd), generator=kgen,
+                                       device=dev), H) for _ in range(2))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        err = flash_check(torch, fa, f"B=1 S=T={S} H={H} hd={hd} causal "
+                          f"window {cfg.window} bfloat16", q, k, v, True,
+                          cfg.window, "bfloat16")[0]
+        log(f"mixtral_8x22b: flash kernel vs plain at 48 heads (1, {S}, "
+            f"{H}, {hd}) bf16 causal: max_abs_err {err:.3g}, none over the "
+            f"bf16 limit")
+    log(f"phase {35 if arch == 'phi3_5_moe' else 36}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"flash": run["launches"][0], "decode": run["launches"][1],
+            "wall": run["wall"], "prof": prof}
+
+
+def ring_check(torch, dev, name, B, T, KV, G, hd, cache, win, rows) -> float:
+    """The decode kernel vs ``decode_attention_plain`` at one of phase
+    25's kinds of shape: every element within two bf16 steps plus 1e-4,
+    the route asserted, two launches bitwise; returns the max abs err."""
+    from repro_torch.kernels import decode_attention as dk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(T + G)
+    q, k, v, ks, vs, pos, q_pos = decode_inputs(
+        torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
+    kern = dk.decode_attention_kernel
+    before = dict(kern.routes)
+    got = kern(q, k, v, pos, q_pos, win, ks, vs)
+    again = kern(q, k, v, pos, q_pos, win, ks, vs)
+    want = dk.decode_attention_plain(q, k, v, pos, q_pos, win, ks, vs)
+    torch.cuda.synchronize()
+    routed = kern.routes[cache] - before[cache]
+    err = float((got.float() - want.float()).abs().max())
+    over = bf16_over(torch, got, want)
+    wrapped = int((q_pos >= T).sum())
+    if not (math.isfinite(err) and over == 0 and torch.equal(got, again)
+            and routed == 2 and wrapped == rows.count("ring")):
+        raise RuntimeError(f"decode_attention {name}: max abs err {err}, "
+                           f"{over} over the bf16 limit, {routed} launches "
+                           f"on {cache}, {wrapped} wrapped rows")
+    log(f"decode_attention {name} (B={B} T={T} KV={KV} G={G} hd={hd} "
+        f"window={win}, {wrapped} rows wrapped): route {cache}, max_abs_err "
+        f"{err:.3g}, none over 2 bf16 steps + 1e-4, two launches bitwise")
+    return err
+
+
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3
+
+
+def phase_moe_train(torch, fa, dev) -> dict:
+    """Phase 37: phi3.5-moe at full width cut to MOE_TRAIN_LAYERS layers
+    trains on the card through ``launch.train``'s code path (bf16, seeded
+    random weights, batch 8 x 128, MOE_TRAIN_STEPS steps): the loss with
+    its aux term, finite, the aux positive every step; 2 flash forward
+    and 1 gradient launch a layer a step (remat), the gradient on the
+    tensor-core route; the median step, tokens/s, peak memory and a
+    profiled step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    t_phase = time.perf_counter()
+    cut = dataclasses.replace(get_config("phi3_5_moe"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    n, L = MOE_TRAIN_STEPS, cut.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    argv = ["--arch", "phi3_5_moe", "--steps", str(n), "--batch", "8",
+            "--seq", "128", "--device", "cuda"]
+    state, step_fn, pipe, hist = train_run(torch, launch_train, dev, argv,
+                                           n, cfg=cut)
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    wgmma = fa.flash_attention_bwd.routes["wgmma"]
+    losses = [m["loss"] for m in hist]
+    auxes = [float(m["aux"]) for m in hist]
+    times = [m["step_time_s"] for m in hist]
+    label = f"train phi3_5_moe {L} layers, batch 8 x 128"
+    if len(hist) != n or not all(math.isfinite(x) for x in losses + auxes) \
+            or not all(a > 0 for a in auxes) or fwd != 2 * n * L or \
+            bwd != n * L or wgmma != bwd:
+        raise RuntimeError(f"{label}: losses {losses}, aux {auxes}, flash "
+                           f"launches {fwd} (want {2 * n * L}), gradient "
+                           f"{bwd} ({wgmma} wgmma; want {n * L})")
+    med = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    log(f"{label}: {n_params / 1e9:.3f} B parameters, bf16; losses "
+        f"{[f'{x:.4f}' for x in losses]} with aux "
+        f"{[f'{x:.4f}' for x in auxes]} (weight 0.01), step times "
+        f"{[f'{x:.3f}' for x in times]} s; median step (steps 2-{n}) "
+        f"{med:.4f} s, {8 * 128 / med:.1f} tokens/s; flash launches {fwd}, "
+        f"gradient {bwd} (wgmma); peak memory {peak / 2**30:.2f} GiB")
+    batch = pipe.next_batch()
+    prof = profile_by_kind(torch, lambda: float(step_fn(state, batch)[1][
+        "loss"]), MOE_TRAIN_GROUPS, f"{label} profiled step")
+    del state, step_fn, pipe, batch
+    torch.cuda.empty_cache()
+    log(f"phase 37: {time.perf_counter() - t_phase:.1f} s")
+    return {"fwd": fwd, "bwd": bwd, "median_step_s": med, "peak": peak,
+            "prof": prof}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -3947,6 +4633,11 @@ def main(argv=None) -> int:
     main_c = phase_cross_kernels(torch, fa, dev)                     # 30
     vis = phase_vision(torch, fa, dev)                               # 31
     hub = phase_hubert(torch, fa, dev)                               # 32
+    main_g = phase_scan_bwd(torch, dev)                              # 33
+    rgt = phase_rg_train(torch, fa, dev)                             # 34
+    phi = phase_moe_serve(torch, fa, dev, "phi3_5_moe")              # 35
+    mix = phase_moe_serve(torch, fa, dev, "mixtral_8x22b")           # 36
+    moet = phase_moe_train(torch, fa, dev)                           # 37
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -3986,7 +4677,8 @@ def main(argv=None) -> int:
                    "source": "src/repro_torch/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:25",
                    "launches": served["launches"] + vis["flash"]
-                   + hub["fwd_launches"],
+                   + hub["fwd_launches"] + rgt["launches"][0]
+                   + phi["flash"] + mix["flash"] + moet["fwd"],
                    "max_abs_err": max(main_f["max_abs_err"],
                                       served["max_abs_err"],
                                       main_c["flash_err"]),
@@ -4000,7 +4692,8 @@ def main(argv=None) -> int:
                  "replaces": "src/repro/kernels/flash_attention.py:25 "
                              "(its gradient: JAX autodiff of "
                              "src/repro/models/attention.py:29)",
-                 "launches": trained["launches"] + hub["launches"],
+                 "launches": trained["launches"] + hub["launches"]
+                 + rgt["launches"][1] + moet["bwd"],
                  "max_abs_err": max(main_b["max_abs_err"],
                                     main_c["bwd_err"]),
                  "ms": main_b["ms"],
@@ -4015,7 +4708,7 @@ def main(argv=None) -> int:
                                 "einsum decode; the JAX package has no "
                                 "Pallas kernel there)",
                     "launches": served["decode_launches"] + rg["decode"]
-                    + vis["decode"],
+                    + vis["decode"] + phi["decode"] + mix["decode"],
                     "max_abs_err": main_d["max_abs_err"], "ms": dec["ms"],
                     "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
                     "bound_by": dec["bound_by"],
@@ -4026,7 +4719,7 @@ def main(argv=None) -> int:
                   "replaces": "src/repro/models/recurrent.py:73 "
                               "(lax.associative_scan; the JAX package has "
                               "no Pallas kernel there)",
-                  "launches": rg["scan"],
+                  "launches": rg["scan"] + rgt["launches"][2],
                   "max_abs_err": main_s["max_abs_err"], "ms": scan["ms"],
                   "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
                   "bound_by": scan["bound_by"], "library_ms": None}
@@ -4065,9 +4758,23 @@ def main(argv=None) -> int:
                    "bound_ms": cross["bound_ms"],
                    "bound_by": cross["bound_by"],
                    "library_ms": cross["library_ms"]}
+    scan_g = main_g["timed"][SCAN_BWD_TESTS[0]]
+    scan_bwd_entry = {"name": "rglru_scan_bwd", "route": "cuda",
+                      "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
+                      "replaces": "src/repro/models/recurrent.py:64 (JAX "
+                                  "autodiff of rglru_sequence's "
+                                  "lax.associative_scan through "
+                                  "_rglru_coeffs; the JAX package has no "
+                                  "Pallas kernel there)",
+                      "launches": rgt["launches"][3],
+                      "max_abs_err": main_g["max_abs_err"],
+                      "ms": scan_g["ms"], "plain_ms": scan_g["plain_ms"],
+                      "bound_ms": scan_g["bound_ms"],
+                      "bound_by": scan_g["bound_by"], "library_ms": None}
     log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
                                 bwd_entry, decode_entry, cross_entry,
-                                scan_entry, mlstm_entry, slstm_entry]}))
+                                scan_entry, scan_bwd_entry, mlstm_entry,
+                                slstm_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,10 +6,11 @@ Every full config matches the assignment table exactly; ``reduced=True``
 returns a same-family miniature for CPU smoke tests. In the port the
 configs feed ``core.workloads.from_arch_config`` (the ``sram_lm_archs``
 scenario), the example's qwen3-4b projection and the LM stack
-(``models/``, ``serve/``), which serves the dense archs (qwen3-4b,
-qwen2.5-3b, glm4-9b, phi4-mini), the RG-LRU hybrid recurrentgemma-9b and
-xlstm-350m (alternating sLSTM and mLSTM blocks); the others raise
-NotImplementedError naming their ROADMAP item.
+(``models/``, ``serve/``, ``train/``), which runs all ten: the dense
+archs (qwen3-4b, qwen2.5-3b, glm4-9b, phi4-mini), the RG-LRU hybrid
+recurrentgemma-9b, xlstm-350m (alternating sLSTM and mLSTM blocks), the
+mixture-of-experts phi3.5-moe and mixtral-8x22b, llama-3.2-vision and
+hubert-xlarge's encoder.
 """
 from __future__ import annotations
 

@@ -122,8 +122,8 @@ def from_reference_lm_params(params, cfg: ArchConfig, device="cuda") -> LM:
     ``period/pos{i}``; the ``rem`` blocks follow. A nested
     leaf (an ``rglru`` block's ``lru`` dict) takes its dotted name
     (``lru.a_param``), and each leaf keeps the type of its port
-    parameter (``conv``, ``lru`` and an ``slstm`` block's ``r`` stay
-    float32 in a bfloat16 model, and a ``cross_attn`` block's stacked
+    parameter (``conv``, ``lru``, an ``slstm`` block's ``r`` and a MoE
+    FFN's ``ffn.router`` stay float32 in a bfloat16 model, and a ``cross_attn`` block's stacked
     ``gate_attn``/``gate_mlp`` unstack to 0-dim float32 parameters; the
     ``mlstm`` and ``slstm`` blocks have no ``ln2`` or ``ffn``, as the
     reference's).

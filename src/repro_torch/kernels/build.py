@@ -89,6 +89,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # S, W, is_bf16, stream
         "rglru_scan_launch": (*(_P,) * 9, _I, _I, _I, _I, _P),
     },
+    "rglru_scan_bwd": {
+        # x, a_param, alpha_i, beta_i, alpha_r, beta_r, dh, hcarry, dx,
+        # grads, work, gcarry, partial, B, S, W, is_bf16, stream
+        "rglru_scan_bwd_launch": (*(_P,) * 13, _I, _I, _I, _I, _P),
+    },
     "mlstm_scan": {
         # q, k, v, i_pre, f_pre, C, n, m, h, arrivals, B, S, H, hd, stream
         "mlstm_scan_launch": (*(_P,) * 10, _I, _I, _I, _I, _P),

@@ -44,17 +44,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def setup(args: argparse.Namespace, device: torch.device
+def setup(args: argparse.Namespace, device: torch.device,
+          cfg: Optional[ArchConfig] = None
           ) -> Tuple[ArchConfig, TrainState, Callable,
                      SyntheticTokenPipeline]:
     """The config, the seeded train state on ``device``, the train step
-    and the token pipeline of a parsed command line."""
+    and the token pipeline of a parsed command line; ``cfg`` replaces
+    the one ``--arch`` and ``--reduced`` name (a depth cut of it, say)."""
     if args.model_shards > 1:
         raise NotImplementedError(
             f"--model-shards {args.model_shards}: model sharding needs the "
             "mesh and sharding layer, not ported yet: ROADMAP Queue 1 item "
             "13h (parallel/, launch/mesh.py)")
-    cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg is None:
+        cfg = get_config(args.arch, reduced=args.reduced)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     state = init_train_state(init_params(gen, cfg))

@@ -3,7 +3,8 @@ kinds ``attn``, ``local_attn`` (qwen3-4b, qwen2.5-3b, glm4-9b,
 phi4-mini: dense GQA with optional QKV bias and q/k norm; hubert-xlarge's
 bidirectional encoder), ``cross_attn`` (llama-3.2-vision's gated image
 layers), ``rglru`` (recurrentgemma-9b's RG-LRU blocks beside its local
-attention) and ``mlstm``, ``slstm`` (xlstm-350m's alternating xLSTM
+attention), the top-k mixture-of-experts FFN (``moe.py``: phi3.5-moe,
+mixtral-8x22b) and ``mlstm``, ``slstm`` (xlstm-350m's alternating xLSTM
 blocks, which have no FFN; their recurrences are the scan kernels
 ``kernels/mlstm_scan.py`` and ``kernels/slstm_scan.py``), with the
 vision and audio frontends, which take precomputed embeddings.
@@ -18,10 +19,11 @@ loop, so the layers are a plain list and ``convert.
 from_reference_lm_params`` unstacks them. The model serves and trains:
 parameters take gradients after ``LM.train()`` (``init_params`` returns
 the serving mode, gradients off), and ``forward`` in the train
-mode recomputes each block in the backward pass (``torch.utils.
-checkpoint``, one per block, as the reference's ``jax.checkpoint``).
-Attention's gradient is the hand-written backward kernel
-(``kernels/ops.FlashAttention``).
+mode recomputes each period block in the backward pass (``torch.utils.
+checkpoint``, one per block, as the reference's ``jax.checkpoint``),
+carrying each block's auxiliary loss. Attention's gradient is the
+hand-written backward kernel (``kernels/ops.FlashAttention``), the
+RG-LRU scan's ``csrc/rglru_scan_bwd.cu`` (``kernels/rglru_scan.py``).
 
 The cache is a list with one dict per layer. An attention layer's:
 ``k``, ``v`` (B, cap, KV, hd) in the model's type, or int8 with
@@ -73,6 +75,7 @@ from .attention import (blockwise_attention, cross_attention,
 from .config import ArchConfig
 from .layers import (MLP, apply_rope, cross_entropy, dense_init, matmul,
                      mlp, rms_norm, zeros_param)
+from .moe import MoE, moe_ffn
 
 MOE_AUX_WEIGHT = 0.01
 PORTED_KINDS = ("attn", "local_attn", "cross_attn", "rglru", "mlstm",
@@ -86,9 +89,6 @@ Cache = List[Dict[str, torch.Tensor]]
 def _check_ported(cfg: ArchConfig, kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise ValueError(kind)
-    if cfg.n_experts > 1:
-        raise NotImplementedError("MoE FFNs are not ported yet: ROADMAP "
-                                  "Queue 1 item 13f")
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +114,8 @@ class Block(nn.Module):
     width d (``ln``, ``w_gates`` (d, 4d), ``r`` (d, 4) float32 recurrent
     weights drawn as 0.1 x normal, ``w_out`` (d, d)); the xLSTM blocks
     have no FFN. Norm gains, biases and gates start at zero, as in the
-    reference."""
+    reference. With ``cfg.n_experts > 1`` the FFN is a ``MoE``
+    (``router``, ``gate``, ``up``, ``down``)."""
 
     def __init__(self, gen: torch.Generator, cfg: ArchConfig, kind: str):
         super().__init__()
@@ -131,7 +132,10 @@ class Block(nn.Module):
             self._init_attn(gen, cfg, kind)
         if kind not in _NO_FFN:
             self.ln2 = zeros_param((d,), dt, dev)
-            self.ffn = MLP(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
+            if cfg.n_experts > 1:
+                self.ffn = MoE(gen, d, cfg.d_ff, cfg.n_experts, dt)
+            else:
+                self.ffn = MLP(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
 
     def _init_mlstm(self, gen: torch.Generator, cfg: ArchConfig) -> None:
         d, dt, H = cfg.d_model, cfg.torch_dtype, cfg.n_heads
@@ -293,7 +297,12 @@ def _attn_qkv(p: Block, cfg: ArchConfig, x: torch.Tensor,
     return q, k, v
 
 
-def _ffn_apply(p: MLP, cfg: ArchConfig, x: torch.Tensor):
+def _ffn_apply(p, cfg: ArchConfig, x: torch.Tensor, mode: str):
+    """The block's FFN: (y, aux). A ``MoE`` routes with drop-free
+    capacity in decode (T is the batch there), as the reference."""
+    if isinstance(p, MoE):
+        return moe_ffn(p, x, cfg.top_k, cfg.capacity_factor,
+                       drop_free=(mode == "decode"))
     return mlp(p, x), 0.0
 
 
@@ -313,14 +322,15 @@ def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
     if kind == "cross_attn":
         gate = torch.tanh(p.gate_attn).to(x.dtype)
         x = x + gate * _cross_mix(cfg, p, h, mode, cache, vis_embeds)
-        y, aux = _ffn_apply(p.ffn, cfg, rms_norm(x, p.ln2, cfg.norm_eps))
+        y, aux = _ffn_apply(p.ffn, cfg, rms_norm(x, p.ln2, cfg.norm_eps),
+                            mode)
         return x + torch.tanh(p.gate_mlp).to(x.dtype) * y, cache, aux
     if kind == "rglru":
         x = x + _rglru_mix(cfg, p, h, mode, cache)
     else:
         x = x + _attn_mix(cfg, kind, p, h, mode, cache, positions)
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    y, aux = _ffn_apply(p.ffn, cfg, h2)
+    y, aux = _ffn_apply(p.ffn, cfg, h2, mode)
     return x + y, cache, aux
 
 
@@ -569,30 +579,37 @@ def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
                          "batch['image_embeds'] (B, n_img_tokens, d_vision) "
                          "for its cross-attention layers")
     use_cache = mode in ("prefill", "decode")
-    aux = 0.0  # the dense FFN has no auxiliary loss (MoE is not ported)
+    pattern, n_full, _ = cfg.schedule()
+    n_period = n_full * len(pattern)
+    # the reference's aux0; each block's auxiliary loss (a MoE FFN's load
+    # balance term, 0 for a dense one) is added in layer order
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, blk) in enumerate(zip(cfg.layout(), params.blocks)):
-        if remat and mode == "train" and torch.is_grad_enabled() and (
-                x.requires_grad or any(p.requires_grad
-                                       for p in blk.parameters())):
+        if remat and mode == "train" and i < n_period and \
+                torch.is_grad_enabled() and (
+                    x.requires_grad or any(p.requires_grad
+                                           for p in blk.parameters())):
             # keep only the block's input; its activations are recomputed
-            # in the backward pass (the reference's jax.checkpoint). A
-            # dense block's auxiliary loss is 0, so none is carried
-            x = checkpoint(_block_train, cfg, kind, blk, x, positions, vis,
-                           use_reentrant=False)
-            continue
-        x, _, a = apply_block(cfg, kind, blk, x, mode=mode,
-                              cache=cache[i] if use_cache else None,
-                              vis_embeds=vis, positions=positions)
-        aux = aux + a
+            # in the backward pass (the reference's jax.checkpoint of its
+            # period blocks; the ``rem`` blocks run plain there too)
+            x, a = checkpoint(_block_train, cfg, kind, blk, x, positions,
+                              vis, use_reentrant=False)
+        else:
+            x, _, a = apply_block(cfg, kind, blk, x, mode=mode,
+                                  cache=cache[i] if use_cache else None,
+                                  vis_embeds=vis, positions=positions)
+        if isinstance(a, torch.Tensor):   # a dense FFN's 0 adds nothing
+            aux = aux + a
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
     return x, (cache if use_cache else None), aux
 
 
 def _block_train(cfg: ArchConfig, kind: str, blk: Block, x: torch.Tensor,
-                 positions: torch.Tensor,
-                 vis: Optional[torch.Tensor]) -> torch.Tensor:
-    return apply_block(cfg, kind, blk, x, mode="train", vis_embeds=vis,
-                       positions=positions)[0]
+                 positions: torch.Tensor, vis: Optional[torch.Tensor]):
+    """A train-mode block: (x, aux)."""
+    x, _, a = apply_block(cfg, kind, blk, x, mode="train", vis_embeds=vis,
+                          positions=positions)
+    return x, a
 
 
 def forward(params: LM, cfg: ArchConfig, batch, *, mode: str = "train",
@@ -603,8 +620,11 @@ def forward(params: LM, cfg: ArchConfig, batch, *, mode: str = "train",
     (``batch["frames"]`` (B, S, frontend_dim) with the audio frontend;
     ``batch["image_embeds"]`` (B, n_img_tokens, d_vision) beside the
     tokens with the vision one, except in the decode mode). In the train
-    mode with gradients enabled, ``remat`` checkpoints each block (one
-    ``torch.utils.checkpoint`` a block)."""
+    mode with gradients enabled, ``remat`` checkpoints each block of the
+    pattern's whole periods (one ``torch.utils.checkpoint`` a block; the
+    ``rem`` blocks after them run plain, as the reference's). ``aux`` is
+    the blocks' auxiliary losses summed in layer order from a float32
+    zero (a MoE FFN's load-balance term; 0 without experts)."""
     x, cache, aux = _trunk(params, cfg, batch, mode, cache, positions,
                            remat)
     return matmul(x, params.unembed), cache, aux

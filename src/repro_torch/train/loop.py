@@ -72,17 +72,19 @@ def make_train_step(cfg: ArchConfig, peak_lr: float = 3e-4,
     parameters' device. With ``accum > 1`` the batch's leading dim is
     split into ``accum`` microbatches, their gradients summed in float32
     in order and divided by ``accum``, as is the loss. ``metrics`` holds
-    0-dim tensors ``loss`` and ``grad_norm`` (not read here) and the
-    rate ``lr``. Parameters and AdamW state are updated in place."""
+    0-dim tensors ``loss``, ``aux`` (the blocks' auxiliary loss, inside
+    ``loss`` at weight ``MOE_AUX_WEIGHT``) and ``grad_norm`` (not read
+    here) and the rate ``lr``. Parameters and AdamW state are updated in
+    place."""
 
     def value_and_grad(params: LM, names, leaves, batch):
-        loss, _ = loss_fn(params, cfg, batch, remat=remat)
+        loss, parts = loss_fn(params, cfg, batch, remat=remat)
         # a leaf the loss does not read (the encoder's ``embed``: its
         # frames go through ``frontend``) gets a zero gradient, as
         # ``jax.grad`` gives it
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), dict(zip(names, grads))
+        return loss.detach(), parts["aux"].detach(), dict(zip(names, grads))
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         params = state.params
@@ -93,23 +95,24 @@ def make_train_step(cfg: ArchConfig, peak_lr: float = 3e-4,
         if accum > 1:
             gsum = {n: torch.zeros(p.shape, dtype=torch.float32,
                                    device=p.device) for n, p in named}
-            lsum = None
+            lsum = asum = None
             n_mb = next(iter(batch.values())).shape[0] // accum
             for a in range(accum):
                 mb = {k: x[a * n_mb:(a + 1) * n_mb] for k, x in batch.items()}
-                loss, g = value_and_grad(params, names, leaves, mb)
+                loss, aux, g = value_and_grad(params, names, leaves, mb)
                 for n in names:
                     gsum[n].add_(g.pop(n))
                 lsum = loss.float() if lsum is None else lsum + loss
+                asum = aux if asum is None else asum + aux
             grads = {n: g.div_(accum) for n, g in gsum.items()}
-            loss = lsum / accum
+            loss, aux = lsum / accum, asum / accum
         else:
-            loss, grads = value_and_grad(params, names, leaves, batch)
+            loss, aux, grads = value_and_grad(params, names, leaves, batch)
         grads, gnorm = clip_by_global_norm(grads, clip)
         # 1-based schedule step: lr > 0 from the very first update
         lr = warmup_cosine(state.step + 1, peak_lr, warmup, total_steps)
         _, opt = adamw_update(grads, state.opt, params, lr)
-        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        metrics = {"loss": loss, "aux": aux, "grad_norm": gnorm, "lr": lr}
         return TrainState(params, opt, state.step + 1), metrics
 
     return train_step

@@ -524,7 +524,6 @@ def test_random_genomes_equal():
 # "package" -> its missing submodules, "package.module" -> the functions
 # and classes that module defines and the port's lacks
 OWED = {
-    "models": {"moe": "13f"},
     "models.layers": {"spec_for": "13h"},
     "launch": {"dryrun": "13i", "mesh": "13h"},
 }

@@ -7,8 +7,8 @@ CPU, the Table 3 engine's draws and stochastic ranking, and the
 co-design service's lane batching on the card (a two-request bucket
 against the solo runs, its default device), the attention gradient
 kernel against its plain version, a train step repeated bit for bit,
-the decode attention and RG-LRU scan kernels against their plain
-versions, and the decode path (reduced recurrentgemma-9b, reduced
+the decode attention and RG-LRU scan kernels and the scan's gradient
+kernel against their plain versions, and the decode path (reduced recurrentgemma-9b, reduced
 qwen3-4b on the int8 cache) on the card against the CPU, the mLSTM and
 sLSTM scan kernels against their plain versions and reduced xlstm-350m
 on the card against the CPU. They
@@ -955,27 +955,62 @@ def test_kernels_replay_in_a_cuda_graph(cuda, kernel):
         assert _graph_kernel_nodes(fn) == (launches, launches)
 
 
-def test_rglru_scan_kernel_refuses_a_gradient(cuda):
-    """No backward kernel yet: a call that needs a gradient raises naming
-    ROADMAP item 13j before any launch; under no_grad it runs."""
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    x = torch.randn((1, 4, 8), device=cuda, requires_grad=True)
-    p = [torch.ones(8, device=cuda) for _ in range(5)]
-    before = rglru_scan.launches
-    with pytest.raises(NotImplementedError, match="item 13j"):
-        rglru_scan(x, *p)
-    assert rglru_scan.launches == before
-    with torch.no_grad():
-        rglru_scan(x, *p)
-    assert rglru_scan.launches == before + 1
+@pytest.mark.parametrize("B,S,W,dt", [(1, 600, 64, "float32"),
+                                      (3, 300, 1000, "float32"),
+                                      (2, 37, 40, "bfloat16"),
+                                      (1, 1, 7, "float32")])
+def test_rglru_scan_gradient_kernel_matches_plain(cuda, B, S, W, dt):
+    """A CUDA ``rglru_scan`` call that needs a gradient launches the
+    forward kernel once and, in the backward, ``csrc/rglru_scan_bwd.cu``
+    once; its gradients against ``rglru_scan_backward_plain`` on the same
+    inputs: float32 dx within 1e-5 of max|dx|, bf16 dx within two bf16
+    steps of |dx| plus that, each parameter gradient within 1e-4 of its
+    largest entry; a second backward launch bitwise equal, and the
+    kernel's workspace zero after it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rglru_scan as rs
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(B * S + W)
+    x = (torch.randn((B, S, W), generator=gen, device=cuda) * 2).to(
+        getattr(torch, dt))
+    u = [torch.rand((W,), generator=gen, device=cuda) for _ in range(5)]
+    p = [u[0] * 28.0 - 3.0, u[1] + 0.5, u[2] - 0.5, u[3] + 0.5, u[4] - 0.5]
+    dh = torch.randn((B, S, W), generator=gen, device=cuda).to(x.dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (x, *p)]
+    f0, b0 = rs.rglru_scan.launches, rs.rglru_scan_backward.launches
+    got = torch.autograd.grad(rs.rglru_scan(*leaves), leaves, dh)
+    assert (rs.rglru_scan.launches - f0,
+            rs.rglru_scan_backward.launches - b0) == (1, 1)
+    want = rs.rglru_scan_backward_plain(x, *p, dh)
+    scale = float(want[0].float().abs().max())
+    diff = (got[0].float() - want[0].float()).abs()
+    if dt == "float32":
+        assert float(diff.max()) <= 1e-5 * scale
+    else:
+        assert not bool((diff > 2.0 ** -7 * want[0].float().abs()
+                         + 1e-5 * scale).any())
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    _, carry = rs._forward_kernel(x, p)
+    again = rs.rglru_scan_backward(x, *p, dh, carry)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    tiles = B * -(-W // 32) * -(-S // 256)
+    work = build.workspace("rglru_scan_bwd", cuda, 2 + tiles + -(-W // 32))
+    assert int(work.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("arch,kv_quant", [("recurrentgemma_9b", False),
-                                           ("qwen3_4b", True)])
+                                           ("qwen3_4b", True),
+                                           ("phi3_5_moe", False),
+                                           ("mixtral_8x22b", False)])
 def test_decode_path_on_card_matches_cpu(cuda, arch, kv_quant):
     """Reduced recurrentgemma-9b (scan and decode kernels beside the
-    flash kernel) and reduced qwen3-4b on the int8 cache served on the
-    card and on the CPU, the same weights and requests (prompts longer
+    flash kernel), reduced qwen3-4b on the int8 cache and the reduced
+    MoE archs (capacity routing in prefill, drop-free in decode; mixtral's
+    16-slot window ring) served on the card and on the CPU, the same weights and requests (prompts longer
     than the local window among them): the same greedy tokens; the
     kernels launched once a layer of their kind per prefill and decode
     step."""

@@ -284,25 +284,27 @@ def test_build_paths_stay_in_checkout():
     csrc/flash_attention_bwd.cu, includes its own tensor-core route,
     csrc/flash_attention_bwd_wgmma.cuh, which includes the forward's
     header for its PTX helpers. The decode attention, RG-LRU scan and
-    mLSTM and sLSTM scan kernels include no header of their own."""
+    its gradient, and mLSTM and sLSTM scan kernels include no header of
+    their own."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
                                      "flash_attention", "flash_attention_bwd",
                                      "decode_attention", "rglru_scan",
-                                     "mlstm_scan", "slstm_scan"}
+                                     "rglru_scan_bwd", "mlstm_scan",
+                                     "slstm_scan"}
     for name in build.SIGNATURES:
         path = build._library_path(name)
         assert path.parent == build.BUILD_DIR
         src = (build.CSRC / f"{name}.cu").read_text()
         assert build._INCLUDE.findall(src) == {
-            "decode_attention": [], "rglru_scan": [], "mlstm_scan": [],
-            "slstm_scan": [],
+            "decode_attention": [], "rglru_scan": [], "rglru_scan_bwd": [],
+            "mlstm_scan": [], "slstm_scan": [],
             "flash_attention": ["flash_attention_wgmma.cuh"],
             "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh"],
             "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
             "imc_matmul": ["adc.cuh", "predicated_add.cuh"]}[name]
         assert build._headers(src) == {
-            "decode_attention": [], "rglru_scan": [], "mlstm_scan": [],
-            "slstm_scan": [],
+            "decode_attention": [], "rglru_scan": [], "rglru_scan_bwd": [],
+            "mlstm_scan": [], "slstm_scan": [],
             "flash_attention": ["flash_attention_wgmma.cuh"],
             "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh",
                                     "flash_attention_wgmma.cuh"],

@@ -362,9 +362,30 @@ def test_encoder_arch_rejected():
 @pytest.mark.parametrize("arch,item", [
     ("mixtral_8x22b", "13f"), ("phi3_5_moe", "13f")])
 def test_unported_archs_name_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}"):
-        init_params(torch.Generator(), get_config(arch, reduced=True))
+    """The MoE archs (the name and the item are the ones this test had
+    while the port refused them, naming ROADMAP item 13f) build: every
+    block's FFN is a ``MoE`` with the reference's leaves and shapes
+    (router (d, E) float32 also in a bf16 model, gate and up (E, d, ff),
+    down (E, ff, d) in the model's type), and a prefill runs
+    (tests/test_torch_moe.py holds them to the reference)."""
+    import dataclasses
+    from repro_torch.models.moe import MoE
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="bfloat16")
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    for blk in model.blocks:
+        assert isinstance(blk.ffn, MoE)
+        shapes = {n: (tuple(p.shape), p.dtype)
+                  for n, p in blk.ffn.named_parameters()}
+        assert shapes == {"router": ((d, E), torch.float32),
+                          "gate": ((E, d, ff), torch.bfloat16),
+                          "up": ((E, d, ff), torch.bfloat16),
+                          "down": ((E, ff, d), torch.bfloat16)}
+    toks = torch.arange(6)[None] % cfg.vocab_size
+    last, _ = prefill(model, cfg, {"tokens": toks}, cache_len=8)
+    assert last.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(last.float()).all())
 
 
 def test_init_cache_defaults_to_the_card():

@@ -479,22 +479,224 @@ def test_serve_lm_example_on_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet
+# the scan's gradient
 # ---------------------------------------------------------------------------
 
 def test_scan_gradient_off_the_cpu_names_roadmap_item():
-    """The scan kernel has no backward: a call off the CPU that would
-    need a gradient raises naming item 13j before any launch (meta
-    tensors stand in for CUDA ones here); without a gradient the same
-    call only refuses the device."""
+    """A call off the CPU that needs a gradient (the name is the one this
+    test had while such a call raised naming ROADMAP item 13j) takes the
+    kernel route (``RGLRUScan``) and so reaches the device check before
+    any launch (meta tensors stand in for CUDA ones here), as a call
+    without one does; so does the backward wrapper."""
     x = torch.empty((1, 4, 8), device="meta", requires_grad=True)
     p = [torch.empty(8, device="meta") for _ in LRU_NAMES]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 13j"):
+    before = (rs.rglru_scan.launches, rs.rglru_scan_backward.launches)
+    with pytest.raises(ValueError, match="unsupported device"):
         rs.rglru_scan(x, *p)
     with torch.no_grad():
         with pytest.raises(ValueError, match="unsupported device"):
             rs.rglru_scan(x, *p)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rs.rglru_scan_backward(x.detach(), *p, torch.empty_like(x))
+    assert (rs.rglru_scan.launches, rs.rglru_scan_backward.launches) == \
+        before
+
+
+def _scan_inputs(B, S, W, dt, seed):
+    rng = np.random.default_rng(seed)
+    x = _t((rng.standard_normal((B, S, W)) * 2).astype(np.float32)).to(
+        getattr(torch, dt))
+    dh = _t(rng.standard_normal((B, S, W)).astype(np.float32)).to(x.dtype)
+    p = _lru(seed, W)
+    return x, [_t(p[k]) for k in LRU_NAMES], dh
+
+
+@pytest.mark.parametrize("B,S,W,dt", [(2, 37, 20, "float32"),
+                                      (1, 300, 8, "float32"),
+                                      (3, 1, 5, "float32"),
+                                      (2, 37, 20, "bfloat16")])
+def test_scan_backward_plain_matches_autograd(B, S, W, dt):
+    """``rglru_scan_backward_plain`` against autograd of
+    ``rglru_scan_plain`` on the same inputs: dx and the five parameter
+    gradients within 1e-6 of each one's largest entry (the same
+    operations; autograd adds the two paths into log a and the parameter
+    sums in its own order). dx comes back in x's type, the parameter
+    gradients in float32. The clamp of 1 - a^2 never ties at float32
+    1e-8: 1 - a^2 is 0 or at least 2^-24."""
+    x, p, dh = _scan_inputs(B, S, W, dt, seed=B * S + W)
+    leaves = [x.clone().requires_grad_(True)] + [
+        t.clone().requires_grad_(True) for t in p]
+    want = torch.autograd.grad(rs.rglru_scan_plain(*leaves), leaves, dh)
+    got = rs.rglru_scan_backward_plain(x, *p, dh)
+    assert got[0].dtype == x.dtype
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _within_max(g, _np(w), 1e-6)
+    a_t, _ = rs.rglru_coeffs(x, *p)
+    u = 1.0 - a_t * a_t
+    assert not (u == np.float32(1e-8)).any()
+    u = 1.0 - torch.exp(2.0 * torch.log(a_t))
+    assert bool(((u == 0) | (u >= 2.0 ** -24)).all())
+
+
+def _emulate_chunked_scan_bwd(x, a_param, alpha_i, beta_i, alpha_r, beta_r,
+                              dh, sub=rs.SCAN_SUB, tile=rs.SCAN_STEPS):
+    """The backward kernel's arithmetic (csrc/rglru_scan_bwd.cu) in plain
+    torch, rounded as the kernel rounds: h_{t-1} as the forward kernel
+    carries it (``_emulate_chunked_scan``'s sub-chunk aggregates); each
+    sub-chunk's backward aggregate (A' = its a_t multiplied from the last
+    step down, L' = a_first g_first from a zero carry); the g carries
+    c_in' = A' c_in + L' over the sub-chunks from the last down; g re-run
+    in each sub-chunk from its carry; the chain rule element by element
+    as ``rglru_scan_backward_plain`` rounds it; the parameter sums a
+    thread's steps (every eighth of a tile) in order, then a channel's
+    eight threads in order, then the tiles in (time tile, batch row)
+    order. A ragged
+    edge is padded with identity steps (a = 1, b = 0, dh = 0, no
+    terms)."""
+    xf = x.float()
+    i_t = torch.sigmoid(xf * alpha_i + beta_i)
+    r_t = torch.sigmoid(xf * alpha_r + beta_r)
+    nc = -rs.RGLRU_C * rs.softplus(a_param)
+    log_a = nc * r_t
+    a_t = torch.exp(log_a)
+    e2 = torch.exp(2.0 * log_a)
+    u = 1.0 - e2
+    s = torch.sqrt(torch.clamp(u, min=1e-8))
+    ix = i_t * xf
+    b_t = s * ix
+    B, S, W = x.shape
+    n_tt = -(-S // tile)
+    n = n_tt * (tile // sub)
+    pad = n * sub - S
+
+    def padded(t, value):
+        return torch.cat([t, t.new_full((B, pad, W), value)], dim=1) \
+            if pad else t
+    a4 = padded(a_t, 1.0).reshape(B, n, sub, W)
+    b4 = padded(b_t, 0.0).reshape(B, n, sub, W)
+    d4 = padded(dh.float(), 0.0).reshape(B, n, sub, W)
+    A = torch.ones_like(a4[:, :, 0])
+    L = torch.zeros_like(A)
+    for j in range(sub):
+        L = a4[:, :, j] * L + b4[:, :, j]
+        A = a4[:, :, j] * A
+    h_in = torch.empty_like(A)
+    hc = torch.zeros_like(A[:, 0])
+    for k in range(n):
+        h_in[:, k] = hc
+        hc = A[:, k] * hc + L[:, k]
+    h, hs = h_in, []
+    for j in range(sub):
+        hs.append(h)
+        h = a4[:, :, j] * h + b4[:, :, j]
+    h_prev = torch.stack(hs, dim=2)
+    Ab = torch.ones_like(A)
+    Lb = torch.zeros_like(A)
+    for j in range(sub - 1, -1, -1):
+        Lb = a4[:, :, j] * (d4[:, :, j] + Lb)
+        Ab = a4[:, :, j] * Ab
+    c_in = torch.empty_like(A)
+    cc = torch.zeros_like(A[:, 0])
+    for k in range(n - 1, -1, -1):
+        c_in[:, k] = cc
+        cc = Ab[:, k] * cc + Lb[:, k]
+    gs, cc = [None] * sub, c_in
+    for j in range(sub - 1, -1, -1):
+        gs[j] = d4[:, :, j] + cc
+        cc = a4[:, :, j] * gs[j]
+    g = torch.stack(gs, dim=2).reshape(B, n * sub, W)[:, :S]
+    h_prev = h_prev.reshape(B, n * sub, W)[:, :S]
+    da = g * h_prev
+    dix = g * s
+    du = torch.where(u >= 1e-8, (g * ix) / (2.0 * s), torch.zeros_like(u))
+    dlog_a = da * a_t - 2.0 * (du * e2)
+    dzi = (dix * xf) * (i_t * (1.0 - i_t))
+    dzr = (dlog_a * nc) * (r_t * (1.0 - r_t))
+    dx = (dix * i_t + dzi * alpha_i + dzr * alpha_r).to(x.dtype)
+
+    def kernel_sum(term):
+        # thread j of a channel takes steps j, j + 8, ... of a tile
+        subs = tile // sub
+        t5 = padded(term, 0.0).reshape(B, n_tt, sub, subs, W)
+        acc = torch.zeros_like(t5[:, :, 0])
+        for k in range(sub):
+            acc = acc + t5[:, :, k]
+        part = acc[:, :, 0]
+        for j in range(1, subs):
+            part = part + acc[:, :, j]
+        total = torch.zeros_like(part[0, 0])
+        for tt in range(n_tt):
+            for b in range(B):
+                total = total + part[b, tt]
+        return total
+    d_nc = kernel_sum(dlog_a * r_t)
+    d_a = (d_nc * -rs.RGLRU_C) * torch.sigmoid(a_param)
+    return (dx, d_a, kernel_sum(dzi * xf), kernel_sum(dzi),
+            kernel_sum(dzr * xf), kernel_sum(dzr))
+
+
+@pytest.mark.parametrize("B,S,W,dt", [(1, 4096, 512, "float32"),
+                                      (1, 4096, 512, "bfloat16"),
+                                      (3, 300, 100, "float32"),
+                                      (2, 37, 40, "bfloat16"),
+                                      (1, 1, 7, "float32")])
+def test_chunked_scan_backward_emulation_within_the_card_limit(B, S, W, dt):
+    """The backward kernel's carries and sums (``_emulate_chunked_scan_
+    bwd``) against ``rglru_scan_backward_plain`` within the limits the
+    card holds the kernel to (chip_smoke.py phase 33): float32 dx within
+    1e-5 of max|dx|, bf16 dx within two bf16 steps of |dx| plus that, and
+    each parameter gradient within 1e-4 of its largest entry; at a
+    4096-token sequence (16 time tiles) and at ragged shapes (S off the
+    sub-chunk and the tile, B > 1, S = 1)."""
+    x, p, dh = _scan_inputs(B, S, W, dt, seed=S + W)
+    got = _emulate_chunked_scan_bwd(x, *p, dh)
+    want = rs.rglru_scan_backward_plain(x, *p, dh)
+    assert got[0].dtype == x.dtype and got[0].shape == x.shape
+    g0, w0 = _np(got[0]), _np(want[0])
+    scale = float(np.abs(w0).max())
+    if dt == "float32":
+        assert float(np.abs(g0 - w0).max()) <= 1e-5 * scale
+    else:
+        over = np.abs(g0 - w0) > 2.0 ** -7 * np.abs(w0) + 1e-5 * scale
+        assert not over.any(), int(over.sum())
+    for g, w in zip(got[1:], want[1:]):
+        _within_max(g, _np(w), 1e-4)
+    if S > 2 * rs.SCAN_SUB and dt == "float32":
+        # the carries really took another way than the plain loop
+        assert not torch.equal(got[0], want[0])
+
+
+def test_recurrentgemma_gradients_match_jax():
+    """The reduced recurrentgemma-9b (8 layers: 2 x [R, R, A] + [R, R])
+    trains through the plain scan on the CPU: its loss and all 64 leaves'
+    gradients against ``jax.value_and_grad`` of the reference's
+    ``loss_fn`` on the same weights and tokens, each leaf within 2e-5 of
+    its largest |g| (float32; the associative scan and the loop add in
+    other orders), the loss rtol 1e-5."""
+    jcfg = jget_config("recurrentgemma_9b", reduced=True)
+    jp, model, cfg = _pair(jcfg)
+    model.train()
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda q, b: jloss_fn(q, jcfg, b), has_aux=True))(
+        jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)})
+    tl, _ = loss_fn(model, cfg, {"tokens": _t(toks).long(),
+                                 "labels": _t(toks).long()})
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(tl, [q for _, q in named])
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    got = to_reference_lm_tree({n: g for (n, _), g in zip(named, grads)},
+                               cfg)
+    flat_j = jax.tree_util.tree_flatten_with_path(jg)[0]
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    assert len(flat_j) == len(flat_t) == 64
+    for path, want in flat_j:
+        want = np.asarray(want, np.float32)
+        err = float(np.abs(flat_t[path] - want).max())
+        assert err <= 2e-5 * float(np.abs(want).max()), \
+            (jax.tree_util.keystr(path), err)
 
 
 def test_plain_scan_trains_on_the_cpu():
