@@ -305,12 +305,12 @@ the scan's backward kernel and phi3.5-moe and mixtral-8x22b served
  33. the RG-LRU scan's backward kernel (``csrc/rglru_scan_bwd.cu``, on
      the forward launch's carry buffer) vs ``rglru_scan_backward_plain``
      at (1, 4096, 4096) bf16 and float32, (2, 37, 4096), (3, 300, 1000),
-     (1, 1, 7) and (2, 257, 4100): float32 dx within 1e-5 x max|dx|, bf16
-     dx within two bf16 steps plus that, each parameter gradient within
-     1e-4 of its max; two launches bitwise, a CUDA graph's replays
-     bitwise, 1 device kernel a call, its workspace zero after; device
-     time from a CUDA graph beside the bound and the plain version; then
-     the autograd route (``rglru_scan`` with gradients: 1 forward and 1
+     (1, 1, 7), (2, 257, 4100) and (2, 263, 1036): float32 dx within
+     1e-5 x max|dx|, bf16 dx within two bf16 steps plus that, each
+     parameter gradient within 1e-4 of its max; two launches bitwise, a
+     CUDA graph's replays bitwise, 1 device kernel a call, its workspace
+     zero after; device time from a CUDA graph beside the bound and the
+     plain version; then the autograd route (``rglru_scan`` with gradients: 1 forward and 1
      backward launch) at (2, 300, 40) float32 against the plain backward
      and its directional derivative against a float64 central
      difference;
@@ -3903,16 +3903,19 @@ def phase_hubert(torch, fa, dev) -> dict:
 
 # phase 33: the RG-LRU scan's backward kernel (B, S, W, type): a 4096-token
 # recurrentgemma-9b sequence (rnn width 4096) in bf16 and float32, B > 1
-# with a short tile, W off the 32-channel tile with S off the 256-step
-# tile, S = 1, and a bf16 shape with both ragged edges
+# with a short tile, W off the forward's 32-channel tile with S off the
+# 256-step tile, S = 1, a bf16 shape with both ragged edges, and the
+# backward's own edges: W off its 8-channel tile with a last time tile of
+# 7 steps, inside one 8-step sub-chunk
 SCAN_BWD_TESTS = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32"),
                   (2, 37, 4096, "bfloat16"), (3, 300, 1000, "float32"),
-                  (1, 1, 7, "float32"), (2, 257, 4100, "bfloat16")]
-# float32: dx within SCAN_BWD_DX_REL of max|dx| (the g carries go through
-# the sub-chunks' products of a, the kernel's float32 h is the forward
-# kernel's, and expf and the divisions against torch's); each parameter
-# gradient within SCAN_BWD_P_REL of its max (its sums over B and S run a
-# sub-chunk, a tile, then the tiles in order, torch.sum in its own order).
+                  (1, 1, 7, "float32"), (2, 257, 4100, "bfloat16"),
+                  (2, 263, 1036, "float32")]
+# float32: dx within SCAN_BWD_DX_REL of max|dx| (the h and g carries go
+# through the sub-chunks' products of a, and expf and the divisions
+# against torch's); each parameter gradient within SCAN_BWD_P_REL of its
+# max (its sums over B and S run a thread's steps, a tile's sub-chunks,
+# then the tiles in order, torch.sum in its own order).
 # bf16 dx: within two bf16 steps of |dx| plus SCAN_BWD_DX_REL x max|dx|
 SCAN_BWD_DX_REL = 1e-5
 SCAN_BWD_P_REL = 1e-4
@@ -4043,10 +4046,9 @@ def phase_scan_bwd(torch, dev) -> dict:
     for B, S, W, dt in SCAN_BWD_TESTS:
         x, p = scan_inputs(torch, gen, B, S, W, getattr(torch, dt), dev)
         dh = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
-        tiles = B * -(-W // rs.SCAN_CHANNELS) * -(-S // rs.SCAN_STEPS)
         name = f"({B}, {S}, {W}) {dt}"
         res = scan_bwd_check(torch, rs, name, x, p, dh,
-                             2 + tiles + -(-W // rs.SCAN_CHANNELS))
+                             rs.backward_tiles(B, S, W)[1])
         worst = max(worst, res["errs"][0])
         ms = graph_ms(torch, res["call"], launches=5)
         plain_ms = time_ms(torch, lambda: rs.rglru_scan_backward_plain(

@@ -45,8 +45,11 @@
 // coefficient is computed once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include "rglru_coeffs.cuh"
 
 namespace {
+
+using namespace rglru;
 
 constexpr int CW = 32;               // channels a tile: a warp's lanes
 constexpr int TS = 256;              // steps a tile
@@ -56,32 +59,6 @@ constexpr int THREADS = CW * SUBS;   // a thread a (channel, sub-chunk)
 constexpr int AHEAD = 8;             // x loads in flight a thread
 static_assert(TS % (THREADS / CW) == 0 && (TS / SUBS) % AHEAD == 0,
               "tile shape");
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
 
 // Workspace (int32, zero before the first launch and after every one):
 // work[0] the next tile, work[1] tiles done, then a flag a tile.
@@ -116,17 +93,8 @@ rglru_scan_kernel(const T* __restrict__ x, const float* __restrict__ a_param,
   // 1. the coefficients, each once: thread (c, sub) takes steps sub,
   // sub + SUBS, ...
   {
-    float ai = 0.f, bi = 0.f, ar = 0.f, br = 0.f, neg_c_sp = 0.f;
-    if (on) {
-      ai = alpha_i[ch];
-      bi = beta_i[ch];
-      ar = alpha_r[ch];
-      br = beta_r[ch];
-      const float a = a_param[ch];
-      // softplus as logaddexp(a, 0): max(a, 0) + log1p(exp(-|a|))
-      const float sp = __fadd_rn(fmaxf(a, 0.f), log1pf(expf(-fabsf(a))));
-      neg_c_sp = __fmul_rn(-8.0f, sp);
-    }
+    Coef p = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (on) p = coef_of(a_param, alpha_i, beta_i, alpha_r, beta_r, ch);
     const T* xc = x + ((size_t)b * S + t0) * W + ch;
     for (int k0 = 0; k0 < TS / SUBS; k0 += AHEAD) {
       float xv[AHEAD];
@@ -142,9 +110,9 @@ rglru_scan_kernel(const T* __restrict__ x, const float* __restrict__ a_param,
         float a_t = 1.f, b_t = 0.f;
         if (on) {
           const float xf = xv[u];
-          const float i_t = sigmoid(__fadd_rn(__fmul_rn(xf, ai), bi));
-          const float r_t = sigmoid(__fadd_rn(__fmul_rn(xf, ar), br));
-          const float log_a = __fmul_rn(neg_c_sp, r_t);
+          const float i_t = sigmoid(__fadd_rn(__fmul_rn(xf, p.ai), p.bi));
+          const float r_t = sigmoid(__fadd_rn(__fmul_rn(xf, p.ar), p.br));
+          const float log_a = __fmul_rn(p.nc, r_t);
           a_t = expf(log_a);
           b_t = __fmul_rn(
               sqrtf(fmaxf(__fsub_rn(1.f, expf(__fmul_rn(2.f, log_a))),

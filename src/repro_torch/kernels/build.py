@@ -8,9 +8,9 @@ hash of the source, of the ``csrc/*.cuh`` headers it includes, directly
 or through another header (the shared ADC, ``adc.cuh``; the predicated
 bit-plane adds, ``predicated_add.cuh``; the threefry draw,
 ``threefry.cuh``; the flash kernels' tensor-core routes, the gradient's
-header including the forward's) and of the flags, so an edited source or
-header rebuilds. The
-library is written to a temporary name and renamed into place, so
+header including the forward's; the RG-LRU scans' coefficients,
+``rglru_coeffs.cuh``) and of the flags, so an edited source or header
+rebuilds. The library is written to a temporary name and renamed into place, so
 concurrent processes never load a half-written file. ``set_build_dir``
 points the builds elsewhere (the campaign's ``--compile-cache``): a
 second process given the same directory finds every library built and
@@ -91,8 +91,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "rglru_scan_bwd": {
         # x, a_param, alpha_i, beta_i, alpha_r, beta_r, dh, hcarry, dx,
-        # grads, work, gcarry, partial, B, S, W, is_bf16, stream
-        "rglru_scan_bwd_launch": (*(_P,) * 13, _I, _I, _I, _I, _P),
+        # grads, work, B, S, W, is_bf16, stream
+        "rglru_scan_bwd_launch": (*(_P,) * 11, _I, _I, _I, _I, _P),
     },
     "mlstm_scan": {
         # q, k, v, i_pre, f_pre, C, n, m, h, arrivals, B, S, H, hd, stream

@@ -31,9 +31,15 @@ in plain PyTorch). All of them round as the plain tensor operations do
 (no fused multiply-adds); the kernel and the plain loop differ by the
 carries' products and the last bits of the transcendental functions,
 within 1e-5 of max|h| in float32. The backward kernel runs the same
-tiles in reverse: its g carries, g_t = dh_t + a_{t+1} g_{t+1}, go
-through the sub-chunks' products of a the same way, and its parameter
-gradients are summed a tile at a time, then over the tiles in order.
+time tiles in reverse, narrower (``SCAN_BWD_CHANNELS`` channels) and
+cut into sub-chunks of ``SCAN_BWD_SUB`` steps, a thread each: h into
+each sub-chunk from the forward's carry at the tile start, and the g
+carries, g_t = dh_t + a_{t+1} g_{t+1}, into each from the successor
+tile's carry, both through the sub-chunks' aggregates combined in a
+Kogge-Stone tree across a tile's 32 sub-chunks (the tile's carry out
+of the whole tree's); its parameter gradients summed a thread's steps
+in order, then a tile's sub-chunks pairwise a group of four (a warp)
+and the eight groups in order, then over the tiles in order.
 """
 from __future__ import annotations
 
@@ -48,6 +54,9 @@ RGLRU_C = 8.0
 SCAN_CHANNELS = 32
 SCAN_STEPS = 256
 SCAN_SUB = 32
+# the backward kernel's tile (csrc/rglru_scan_bwd.cu CW, TS, SUB)
+SCAN_BWD_CHANNELS = 8
+SCAN_BWD_SUB = 8
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -166,6 +175,14 @@ def _tiles(name: str, B: int, S: int, W: int) -> int:
     return tiles
 
 
+def backward_tiles(B: int, S: int, W: int):
+    """(tiles, int32 workspace entries) of the backward kernel's launch at
+    x (B, S, W): two counters, then a 64-bit carry word a (tile, channel)
+    and a 64-bit partial-sum word a (tile, parameter, channel)."""
+    tiles = B * -(-W // SCAN_BWD_CHANNELS) * -(-S // SCAN_STEPS)
+    return tiles, 2 + 2 * (1 + 5) * SCAN_BWD_CHANNELS * tiles
+
+
 def _forward_kernel(x: torch.Tensor, params):
     """One launch of ``csrc/rglru_scan.cu``: (h, the carry buffer, each
     tile's outgoing float32 h at tile x 32 + channel)."""
@@ -252,14 +269,17 @@ def rglru_scan_backward(x: torch.Tensor, a_param: torch.Tensor,
         raise ValueError(f"rglru_scan_backward: unsupported device "
                          f"{x.device}")
     B, S, W = x.shape
-    tiles = _tiles("rglru_scan_backward", B, S, W)
-    groups = -(-W // SCAN_CHANNELS)
+    f_tiles = _tiles("rglru_scan_backward", B, S, W)
     if carry is None or carry.dtype != torch.float32 or \
             carry.device != x.device or \
-            carry.numel() < max(1, tiles) * SCAN_CHANNELS:
+            carry.numel() < max(1, f_tiles) * SCAN_CHANNELS:
         raise ValueError("rglru_scan_backward: needs the forward launch's "
-                         f"float32 carry buffer of {max(1, tiles)} x "
+                         f"float32 carry buffer of {max(1, f_tiles)} x "
                          f"{SCAN_CHANNELS} entries on {x.device}")
+    tiles, work_n = backward_tiles(B, S, W)
+    if work_n >= 2 ** 31:
+        raise ValueError(f"rglru_scan_backward: {tiles} tiles need a "
+                         f"workspace of {work_n} entries, over 2^31 - 1")
     x = x.contiguous()
     dh = dh.to(x.dtype).contiguous()
     params = tuple(t.contiguous() for t in params)
@@ -267,18 +287,13 @@ def rglru_scan_backward(x: torch.Tensor, a_param: torch.Tensor,
     if tiles == 0:
         return (dx, *(torch.zeros_like(t) for t in params))
     grads = torch.empty((5, W), dtype=torch.float32, device=x.device)
-    work = build.workspace("rglru_scan_bwd", x.device, 2 + tiles + groups)
-    gcarry = torch.empty((tiles * SCAN_CHANNELS,), dtype=torch.float32,
-                         device=x.device)
-    partial = torch.empty((tiles * 5 * SCAN_CHANNELS,), dtype=torch.float32,
-                          device=x.device)
+    work = build.workspace("rglru_scan_bwd", x.device, work_n)
     lib = build.load("rglru_scan_bwd")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.rglru_scan_bwd_launch(
         x.data_ptr(), *(t.data_ptr() for t in params), dh.data_ptr(),
         carry.data_ptr(), dx.data_ptr(), grads.data_ptr(), work.data_ptr(),
-        gcarry.data_ptr(), partial.data_ptr(), B, S, W,
-        int(x.dtype == torch.bfloat16), stream)
+        B, S, W, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")

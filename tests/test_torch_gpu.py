@@ -958,7 +958,8 @@ def test_kernels_replay_in_a_cuda_graph(cuda, kernel):
 @pytest.mark.parametrize("B,S,W,dt", [(1, 600, 64, "float32"),
                                       (3, 300, 1000, "float32"),
                                       (2, 37, 40, "bfloat16"),
-                                      (1, 1, 7, "float32")])
+                                      (1, 1, 7, "float32"),
+                                      (2, 263, 1036, "float32")])
 def test_rglru_scan_gradient_kernel_matches_plain(cuda, B, S, W, dt):
     """A CUDA ``rglru_scan`` call that needs a gradient launches the
     forward kernel once and, in the backward, ``csrc/rglru_scan_bwd.cu``
@@ -997,8 +998,8 @@ def test_rglru_scan_gradient_kernel_matches_plain(cuda, B, S, W, dt):
     torch.cuda.synchronize()
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-    tiles = B * -(-W // 32) * -(-S // 256)
-    work = build.workspace("rglru_scan_bwd", cuda, 2 + tiles + -(-W // 32))
+    work = build.workspace("rglru_scan_bwd", cuda,
+                           rs.backward_tiles(B, S, W)[1])
     assert int(work.abs().sum()) == 0
 
 

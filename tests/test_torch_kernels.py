@@ -283,9 +283,10 @@ def test_build_paths_stay_in_checkout():
     csrc/flash_attention_wgmma.cuh; its gradient,
     csrc/flash_attention_bwd.cu, includes its own tensor-core route,
     csrc/flash_attention_bwd_wgmma.cuh, which includes the forward's
-    header for its PTX helpers. The decode attention, RG-LRU scan and
-    its gradient, and mLSTM and sLSTM scan kernels include no header of
-    their own."""
+    header for its PTX helpers. The RG-LRU scan and its gradient share
+    csrc/rglru_coeffs.cuh (loads and stores, the parameters, a step's
+    coefficients, the carry flags). The decode attention and the mLSTM
+    and sLSTM scan kernels include no header of their own."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
                                      "flash_attention", "flash_attention_bwd",
                                      "decode_attention", "rglru_scan",
@@ -296,14 +297,16 @@ def test_build_paths_stay_in_checkout():
         assert path.parent == build.BUILD_DIR
         src = (build.CSRC / f"{name}.cu").read_text()
         assert build._INCLUDE.findall(src) == {
-            "decode_attention": [], "rglru_scan": [], "rglru_scan_bwd": [],
+            "decode_attention": [], "rglru_scan": ["rglru_coeffs.cuh"],
+            "rglru_scan_bwd": ["rglru_coeffs.cuh"],
             "mlstm_scan": [], "slstm_scan": [],
             "flash_attention": ["flash_attention_wgmma.cuh"],
             "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh"],
             "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
             "imc_matmul": ["adc.cuh", "predicated_add.cuh"]}[name]
         assert build._headers(src) == {
-            "decode_attention": [], "rglru_scan": [], "rglru_scan_bwd": [],
+            "decode_attention": [], "rglru_scan": ["rglru_coeffs.cuh"],
+            "rglru_scan_bwd": ["rglru_coeffs.cuh"],
             "mlstm_scan": [], "slstm_scan": [],
             "flash_attention": ["flash_attention_wgmma.cuh"],
             "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh",
@@ -365,6 +368,20 @@ def test_library_name_tracks_included_headers(tmp_path, monkeypatch):
     assert build._library_path("flash_attention") == flash
     assert build._library_path("flash_attention_bwd") != bwd
     assert {n: build._library_path(n) for n in names} == again
+
+
+def test_rglru_header_renames_both_scan_libraries(tmp_path, monkeypatch):
+    """An edit to csrc/rglru_coeffs.cuh renames (so rebuilds) the RG-LRU
+    scan's library and its gradient's, and no other kernel's."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build._library_path(n) for n in build.SIGNATURES}
+    with open(csrc / "rglru_coeffs.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: build._library_path(n) for n in build.SIGNATURES}
+    assert {n for n in before if after[n] != before[n]} == {
+        "rglru_scan", "rglru_scan_bwd"}
 
 
 # ---------------------------------------------------------------------------

@@ -539,21 +539,47 @@ def test_scan_backward_plain_matches_autograd(B, S, W, dt):
     assert bool(((u == 0) | (u >= 2.0 ** -24)).all())
 
 
+def _kogge_stone(A, L, reverse=False):
+    """The inclusive scan of affine maps (A, L): h -> A h + L along dim 2
+    of (B, tiles, 32, W) as a warp's Kogge-Stone shuffles take it, rounded
+    as the kernel rounds: at distance d = 1, 2, 4, 8, 16 each lane applies
+    its map after the one d lanes before it (after it, ``reverse``), a
+    lane with none there keeping its own."""
+    K = A.shape[2]
+    d = 1
+    while d < K:
+        if reverse:
+            L = torch.cat([A[:, :, :-d] * L[:, :, d:] + L[:, :, :-d],
+                           L[:, :, -d:]], dim=2)
+            A = torch.cat([A[:, :, :-d] * A[:, :, d:], A[:, :, -d:]], dim=2)
+        else:
+            L = torch.cat([L[:, :, :d],
+                           A[:, :, d:] * L[:, :, :-d] + L[:, :, d:]], dim=2)
+            A = torch.cat([A[:, :, :d], A[:, :, d:] * A[:, :, :-d]], dim=2)
+        d *= 2
+    return A, L
+
+
 def _emulate_chunked_scan_bwd(x, a_param, alpha_i, beta_i, alpha_r, beta_r,
-                              dh, sub=rs.SCAN_SUB, tile=rs.SCAN_STEPS):
+                              dh, sub=rs.SCAN_BWD_SUB, tile=rs.SCAN_STEPS,
+                              fsub=rs.SCAN_SUB):
     """The backward kernel's arithmetic (csrc/rglru_scan_bwd.cu) in plain
-    torch, rounded as the kernel rounds: h_{t-1} as the forward kernel
-    carries it (``_emulate_chunked_scan``'s sub-chunk aggregates); each
-    sub-chunk's backward aggregate (A' = its a_t multiplied from the last
-    step down, L' = a_first g_first from a zero carry); the g carries
-    c_in' = A' c_in + L' over the sub-chunks from the last down; g re-run
-    in each sub-chunk from its carry; the chain rule element by element
-    as ``rglru_scan_backward_plain`` rounds it; the parameter sums a
-    thread's steps (every eighth of a tile) in order, then a channel's
-    eight threads in order, then the tiles in (time tile, batch row)
-    order. A ragged
-    edge is padded with identity steps (a = 1, b = 0, dh = 0, no
-    terms)."""
+    torch, rounded as the kernel rounds: h entering each time tile of
+    ``tile`` steps as the forward kernel carries it (its ``fsub``-step
+    sub-chunk aggregates in order, ``_emulate_chunked_scan``'s chain);
+    each ``sub``-step sub-chunk's forward aggregate (A = its a_t
+    multiplied in step order, L = its h from 0) and backward aggregate
+    (A' = its a_t multiplied from the last step down, L' = a_first
+    g_first from a zero carry); inside a tile, h into each sub-chunk from
+    the tile's h and the g carry into each from the carry entering the
+    tile through a Kogge-Stone scan of those aggregates (``_kogge_stone``,
+    exclusive), the carry out of a tile the whole backward scan's; h and
+    g re-run in each sub-chunk from them; the chain rule element by
+    element as ``rglru_scan_backward_plain`` rounds it; the parameter
+    sums over a thread's ``sub`` contiguous steps in order, then a tile's
+    sub-chunks pairwise a group of four, (s0 + s1) + (s2 + s3), and the
+    groups in order, then the tiles in (time tile, batch row) order. A ragged edge
+    is padded with identity steps (a = 1, b = 0, dh = 0, no terms)."""
     xf = x.float()
     i_t = torch.sigmoid(xf * alpha_i + beta_i)
     r_t = torch.sigmoid(xf * alpha_r + beta_r)
@@ -567,40 +593,63 @@ def _emulate_chunked_scan_bwd(x, a_param, alpha_i, beta_i, alpha_r, beta_r,
     b_t = s * ix
     B, S, W = x.shape
     n_tt = -(-S // tile)
-    n = n_tt * (tile // sub)
+    subs = tile // sub
+    n = n_tt * subs
     pad = n * sub - S
 
     def padded(t, value):
         return torch.cat([t, t.new_full((B, pad, W), value)], dim=1) \
             if pad else t
-    a4 = padded(a_t, 1.0).reshape(B, n, sub, W)
-    b4 = padded(b_t, 0.0).reshape(B, n, sub, W)
+
+    def aggregates(a, b):
+        # each sub-chunk's (A, L) from zero, a and b (B, chunks, len, W)
+        A = torch.ones_like(a[:, :, 0])
+        L = torch.zeros_like(A)
+        for j in range(a.shape[2]):
+            L = a[:, :, j] * L + b[:, :, j]
+            A = a[:, :, j] * A
+        return A, L
+    ap, bp = padded(a_t, 1.0), padded(b_t, 0.0)
+    # the forward kernel's carry into each time tile
+    fA, fL = aggregates(ap.reshape(B, n * sub // fsub, fsub, W),
+                        bp.reshape(B, n * sub // fsub, fsub, W))
+    h_tile = torch.zeros_like(fA[:, :n_tt])
+    hc = torch.zeros_like(fA[:, 0])
+    per = tile // fsub
+    for k in range(n * sub // fsub):
+        if k % per == 0:
+            h_tile[:, k // per] = hc
+        hc = fA[:, k] * hc + fL[:, k]
+    a4 = ap.reshape(B, n, sub, W)
+    b4 = bp.reshape(B, n, sub, W)
     d4 = padded(dh.float(), 0.0).reshape(B, n, sub, W)
-    A = torch.ones_like(a4[:, :, 0])
-    L = torch.zeros_like(A)
-    for j in range(sub):
-        L = a4[:, :, j] * L + b4[:, :, j]
-        A = a4[:, :, j] * A
-    h_in = torch.empty_like(A)
-    hc = torch.zeros_like(A[:, 0])
-    for k in range(n):
-        h_in[:, k] = hc
-        hc = A[:, k] * hc + L[:, k]
-    h, hs = h_in, []
-    for j in range(sub):
-        hs.append(h)
-        h = a4[:, :, j] * h + b4[:, :, j]
-    h_prev = torch.stack(hs, dim=2)
+    A, L = aggregates(a4, b4)
     Ab = torch.ones_like(A)
     Lb = torch.zeros_like(A)
     for j in range(sub - 1, -1, -1):
         Lb = a4[:, :, j] * (d4[:, :, j] + Lb)
         Ab = a4[:, :, j] * Ab
-    c_in = torch.empty_like(A)
-    cc = torch.zeros_like(A[:, 0])
-    for k in range(n - 1, -1, -1):
-        c_in[:, k] = cc
-        cc = Ab[:, k] * cc + Lb[:, k]
+    shape = (B, n_tt, subs, W)
+    fA, fL = _kogge_stone(A.reshape(shape), L.reshape(shape))
+    bA, bL = _kogge_stone(Ab.reshape(shape), Lb.reshape(shape),
+                          reverse=True)
+    one, zero = A.new_ones((B, n_tt, 1, W)), A.new_zeros((B, n_tt, 1, W))
+    eA = torch.cat([one, fA[:, :, :-1]], dim=2)
+    eL = torch.cat([zero, fL[:, :, :-1]], dim=2)
+    h_in = eA * h_tile[:, :, None] + eL
+    gA = torch.cat([bA[:, :, 1:], one], dim=2)
+    gL = torch.cat([bL[:, :, 1:], zero], dim=2)
+    c_tile = torch.zeros_like(h_tile)
+    cc = torch.zeros_like(h_tile[:, 0])
+    for tt in range(n_tt - 1, -1, -1):
+        c_tile[:, tt] = cc
+        cc = bA[:, tt, 0] * cc + bL[:, tt, 0]
+    c_in = (gA * c_tile[:, :, None] + gL).reshape(B, n, W)
+    h, hs = h_in.reshape(B, n, W), []
+    for j in range(sub):
+        hs.append(h)
+        h = a4[:, :, j] * h + b4[:, :, j]
+    h_prev = torch.stack(hs, dim=2)
     gs, cc = [None] * sub, c_in
     for j in range(sub - 1, -1, -1):
         gs[j] = d4[:, :, j] + cc
@@ -616,15 +665,17 @@ def _emulate_chunked_scan_bwd(x, a_param, alpha_i, beta_i, alpha_r, beta_r,
     dx = (dix * i_t + dzi * alpha_i + dzr * alpha_r).to(x.dtype)
 
     def kernel_sum(term):
-        # thread j of a channel takes steps j, j + 8, ... of a tile
-        subs = tile // sub
-        t5 = padded(term, 0.0).reshape(B, n_tt, sub, subs, W)
-        acc = torch.zeros_like(t5[:, :, 0])
-        for k in range(sub):
-            acc = acc + t5[:, :, k]
-        part = acc[:, :, 0]
-        for j in range(1, subs):
-            part = part + acc[:, :, j]
+        # thread k of a channel takes steps k sub .. (k + 1) sub - 1; a
+        # warp holds four of a channel's sub-chunks
+        t5 = padded(term, 0.0).reshape(B, n_tt, subs // 4, 4, sub, W)
+        acc = torch.zeros_like(t5[..., 0, :])
+        for j in range(sub):
+            acc = acc + t5[..., j, :]
+        while acc.shape[3] > 1:
+            acc = acc[:, :, :, 0::2] + acc[:, :, :, 1::2]
+        part = acc[:, :, 0, 0]
+        for k in range(1, subs // 4):
+            part = part + acc[:, :, k, 0]
         total = torch.zeros_like(part[0, 0])
         for tt in range(n_tt):
             for b in range(B):
@@ -640,7 +691,8 @@ def _emulate_chunked_scan_bwd(x, a_param, alpha_i, beta_i, alpha_r, beta_r,
                                       (1, 4096, 512, "bfloat16"),
                                       (3, 300, 100, "float32"),
                                       (2, 37, 40, "bfloat16"),
-                                      (1, 1, 7, "float32")])
+                                      (1, 1, 7, "float32"),
+                                      (2, 263, 1036, "float32")])
 def test_chunked_scan_backward_emulation_within_the_card_limit(B, S, W, dt):
     """The backward kernel's carries and sums (``_emulate_chunked_scan_
     bwd``) against ``rglru_scan_backward_plain`` within the limits the
@@ -648,7 +700,8 @@ def test_chunked_scan_backward_emulation_within_the_card_limit(B, S, W, dt):
     1e-5 of max|dx|, bf16 dx within two bf16 steps of |dx| plus that, and
     each parameter gradient within 1e-4 of its largest entry; at a
     4096-token sequence (16 time tiles) and at ragged shapes (S off the
-    sub-chunk and the tile, B > 1, S = 1)."""
+    sub-chunk and the tile, B > 1, S = 1, a last time tile of 7 steps
+    inside one sub-chunk with W off the 8-channel tile)."""
     x, p, dh = _scan_inputs(B, S, W, dt, seed=S + W)
     got = _emulate_chunked_scan_bwd(x, *p, dh)
     want = rs.rglru_scan_backward_plain(x, *p, dh)

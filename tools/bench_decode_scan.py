@@ -2,18 +2,21 @@
 the GPU.
 
     python3 tools/bench_decode_scan.py [--src DIR]
+    python3 tools/bench_decode_scan.py --bwd-only [--bwd-src FILE]
 
 Prints the card's name and power limit, then:
 
-- the two kernels as the main path calls them, through their wrappers,
+- the three kernels as the main path calls them, through their wrappers,
   at chip_smoke.py phase 25's qwen3-4b (bf16, int8) and recurrentgemma
-  ring shapes and phase 26's (1, 4096, 4096) bf16 and float32 and
-  (2, 37, 4096) bf16 shapes, device time a launch from a CUDA graph;
-  with ``--src DIR`` from another checkout's package (``DIR`` its
-  ``src``, e.g. the parent commit unpacked by ``git archive`` into the
-  gitignored ``build/parent``, its kernels built by its own
-  ``kernels/build.py``), and then nothing else, so that parent and
-  change can be timed in turns in one call;
+  ring shapes, phase 26's (1, 4096, 4096) bf16 and float32 and
+  (2, 37, 4096) bf16 shapes and phase 33's same three shapes for the
+  scan's gradient (``rglru_scan_backward`` on the forward launch's carry
+  buffer), device time a launch from a CUDA graph; with ``--src DIR``
+  from another checkout's package (``DIR`` its ``src``, e.g. the parent
+  commit unpacked by ``git archive`` into the gitignored
+  ``build/parent``, its kernels built by its own ``kernels/build.py``),
+  and then nothing else, so that parent and change can be timed in turns
+  in one call;
 
 - the scan kernel (``csrc/rglru_scan.cu``) at (1, 4096, 4096) bf16 and
   float32 and (1, 1024, 4096) bf16 beside three diagnostic builds of the
@@ -24,68 +27,200 @@ Prints the card's name and power limit, then:
   functions by a product and a sum (it times the arithmetic), and
   ``no_wait_cheap`` does both (what is left: loads, stores, the tile's
   barriers and fences);
+- the scan's gradient kernel (``csrc/rglru_scan_bwd.cu``, or ``--bwd-src
+  FILE``, e.g. the parent's) at (1, 4096, 4096) bf16 and float32 beside
+  the same three diagnostic builds (``no_wait`` skips the wait for the
+  successor tile's g carry; ``cheap_coeffs`` also replaces the MUFU
+  approximations of ``csrc/rglru_coeffs.cuh``'s fast paths) and, where
+  the source has them, ``no_loads`` (x and dh copied in for the first
+  two tiles only), ``no_stores`` (dx not copied out), ``no_coef``,
+  ``no_scan`` and ``no_chain`` (the coefficients', the scans' rounds' or
+  the chain rule's arithmetic left out) and ``skeleton`` (neither the
+  coefficients' nor the chain rule's arithmetic), alone and without each
+  of the scan rounds, the loads and the stores, each build's registers
+  and spills from ``-Xptxas -v``; ``--bwd-only`` runs only this;
 - the decode kernel (``csrc/decode_attention.cu``) at chip_smoke.py
   phase 25's qwen3-4b (bf16, int8) and recurrentgemma ring shapes with
   the split length chosen for 132, 264 (``SPLIT_BLOCKS``), 396, 528 and
   792 blocks, device time a launch from a CUDA graph, each output held
   to the shipped split's within phase 25's limit.
 
-The diagnostic builds are edited copies of the source under the
-gitignored ``build/bench_decode_scan/``. Needs a CUDA device and nvcc.
+The diagnostic builds are edited copies of the sources under the
+gitignored ``build/bench_decode_scan/``, compiled with the package's
+``csrc`` on the include path. Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
-# name -> [(text in csrc/rglru_scan.cu, its replacement)]
-SCAN_VARIANTS = {
-    "no_wait": [
-        ("while (load_acquire(flags + pred) == 0) __nanosleep(32);", ""),
-        ("if (has_succ) store_release(flags + tile, 1);", ""),
-        ("if (tt > 0) flags[pred] = 0;", "")],
-    "cheap_coeffs": [(None, None)],
-}
-SCAN_VARIANTS["no_wait_cheap"] = SCAN_VARIANTS["no_wait"] + [(None, None)]
-SCAN_SHAPES = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32"),
-               (1, 1024, 4096, "bfloat16")]
-DECODE_BLOCKS = (132, 264, 396, 528, 792)
+# the special functions as a product and a sum each, defined after the
+# CUDA headers and before the sources' own (csrc/rglru_coeffs.cuh)
+CHEAP_MACROS = """
+#define expf(v) __fadd_rn(__fmul_rn((v), 0.01f), 1.0f)
+#define log1pf(v) __fadd_rn(__fmul_rn((v), 0.5f), 0.5f)
+#define sqrtf(v) __fadd_rn(__fmul_rn((v), 0.5f), 0.5f)
+#define __fdiv_rn(a, b) __fadd_rn(__fmul_rn((a), (b)), 0.5f)
+#define __frcp_rn(b) __fadd_rn(__fmul_rn((b), 0.5f), 0.5f)
+"""
+
+
+def _replace(*alternatives, new=""):
+    """An edit: the first of ``alternatives`` found in the source becomes
+    ``new``."""
+    def edit(src):
+        for old in alternatives:
+            if old in src:
+                return src.replace(old, new)
+        raise KeyError(alternatives[0])
+    return edit
+
+
+# the MUFU approximations of csrc/rglru_coeffs.cuh's fast paths, each as a
+# product and a sum
+CHEAP_ASM = [('asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));',
+              "r = __fadd_rn(__fmul_rn(y, 0.5f), 0.5f);"),
+             ('asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));',
+              "r = __fadd_rn(__fmul_rn(v, 0.5f), 0.5f);")]
+
+
+def _cut(start, end, new=""):
+    """An edit: the text from ``start`` up to ``end`` becomes ``new``."""
+    def edit(src):
+        a = src.index(start) if start in src else -1
+        b = src.index(end, a) if a >= 0 and end in src[a:] else -1
+        if a < 0 or b < 0:
+            raise KeyError(start)
+        return src[:a] + new + src[b:]
+    return edit
 
 
 def _cheap(src: str) -> str:
-    """The coefficients' special functions replaced by a product and a
-    sum of the same inputs."""
-    a0 = src.index("const float i_t = sigmoid(")
-    a1 = src.index("__fmul_rn(i_t, xf));") + len("__fmul_rn(i_t, xf));")
-    return src[:a0] + "a_t = __fmul_rn(xf, ai) * 0.01f + 0.5f; b_t = xf;" \
-        + src[a1:]
+    """The special functions replaced by a product and a sum of the same
+    inputs: CHEAP_MACROS after ``#include <cuda_runtime.h>``, and the
+    shared header put in place of its include with CHEAP_ASM."""
+    anchor = "#include <cuda_runtime.h>\n"
+    if anchor not in src:
+        raise KeyError(anchor)
+    src = src.replace(anchor, anchor + CHEAP_MACROS, 1)
+    include = '#include "rglru_coeffs.cuh"\n'
+    if include in src:
+        header = open(os.path.join(ROOT, "src", "repro_torch", "csrc",
+                                   "rglru_coeffs.cuh")).read()
+        for old, new in CHEAP_ASM:
+            if old not in header:
+                raise KeyError(old)
+            header = header.replace(old, new)
+        src = src.replace(include, header)
+    return src
 
 
-def build_scan_variants(build) -> dict:
-    """Each variant's library, built in parallel (one nvcc each)."""
-    src = (build.CSRC / "rglru_scan.cu").read_text()
+# name -> the edits of csrc/rglru_scan.cu
+SCAN_VARIANTS = {
+    "no_wait": [
+        _replace("while (load_acquire(flags + pred) == 0) __nanosleep(32);"),
+        _replace("if (has_succ) store_release(flags + tile, 1);"),
+        _replace("if (tt > 0) flags[pred] = 0;")],
+    "cheap_coeffs": [_cheap],
+}
+SCAN_VARIANTS["no_wait_cheap"] = SCAN_VARIANTS["no_wait"] + [_cheap]
+SCAN_SHAPES = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32"),
+               (1, 1024, 4096, "bfloat16")]
+# the same for csrc/rglru_scan_bwd.cu (the wait is for the successor's
+# carry; the text of this source, or of PR 28's, whose carry had a flag
+# of its own)
+BWD_VARIANTS = {
+    "shipped": [],
+    "no_wait": [
+        _replace("while (!(word >> 32)) word = load_word(succ_word);",
+                 "while (load_acquire(flags + succ) == 0) __nanosleep(32);"),
+        _replace("if (has_succ) store_word(succ_word, 0ull);",
+                 "if (has_succ) flags[succ] = 0;")],
+    "cheap_coeffs": [_cheap],
+    # x and dh copied in for the first two tiles only (later tiles reuse
+    # their buffers), dx not copied out (the 16-byte rows)
+    "no_loads": [_replace("if (nt.taken < n_tiles) stage(nt, (it + 1) & 1);",
+                          new="if (it == 1 && nt.taken < n_tiles) "
+                              "stage(nt, 0);")],
+    "no_stores": [_replace(
+        "          if (r < steps)\n            *reinterpret_cast<uint4",
+        new="          if (n_tiles < 0)\n            *reinterpret_cast<uint4")],
+    # a phase's arithmetic left out: the coefficients (fixed values), the
+    # Kogge-Stone rounds of the scans, the chain rule (dx = g, no sums)
+    "no_coef": [_cut("    if (nvalid == 0) {  // past the end or past W",
+                     "    // 2. the sub-chunk's aggregates",
+                     "#pragma unroll\n    for (int j = 0; j < SUB; ++j) {\n"
+                     "      iv[j] = 0.5f; rv[j] = 0.25f; av[j] = 0.9f;\n"
+                     "      ev[j] = 0.81f; sv[j] = 0.4f;\n    }\n")],
+    "no_scan": [_cut("#pragma unroll\n      for (int d = 1; d < 32; d *= 2) {",
+                     "      float ea = ")],
+    "no_chain": [_cut("    float du[SUB];",
+                      "    // 5. a warp's four sub-chunks",
+                      "    float acc[NP] = "
+                      "{gv[0], gv[1], gv[2], gv[3], gv[4]};\n"
+                      "#pragma unroll\n    for (int j = 0; j < SUB; ++j)\n"
+                      "      store(os + row_of(s0 + j) * CW + c, gv[j]);\n")],
+}
+BWD_VARIANTS["no_wait_cheap"] = BWD_VARIANTS["no_wait"] + [_cheap]
+# neither the coefficients' nor the chain rule's arithmetic: what the
+# copies, barriers, scans and per-tile steps cost alone
+BWD_VARIANTS["skeleton"] = BWD_VARIANTS["no_coef"] + BWD_VARIANTS["no_chain"]
+for _part in ("no_scan", "no_loads", "no_stores"):
+    BWD_VARIANTS[f"skeleton_{_part}"] = BWD_VARIANTS["skeleton"] + \
+        BWD_VARIANTS[_part]
+BWD_SHAPES = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32")]
+DECODE_BLOCKS = (132, 264, 396, 528, 792)
+
+
+def _ptxas(log: str) -> str:
+    """Each kernel's registers and spills from nvcc's -Xptxas -v log."""
+    out, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            kind = "bf16" if "bfloat" in fn else "float32"
+            out.append(f"{kind} {m.group(1)} registers")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out.append(f"spills {m.group(1)}/{m.group(2)} B")
+    return ", ".join(out)
+
+
+def build_variants(build, src_path, variants, entry, out_name,
+                   extra=()) -> dict:
+    """Each variant of ``src_path`` built in parallel (one nvcc each, the
+    package's csrc on the include path); {name: (library, ptxas line)}.
+    ``extra``: (position, ctypes type) arguments the source's entry takes
+    beyond this package's signature."""
+    src = open(src_path).read()
     out = os.path.join(ROOT, "build", "bench_decode_scan")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name, edits in SCAN_VARIANTS.items():
+    for name, edits in variants.items():
         text = src
-        for old, new in edits:
-            if old is None:
-                text = _cheap(text)
-            else:
-                if old not in text:
-                    raise RuntimeError(f"{name}: {old!r} not in the source")
-                text = text.replace(old, new)
-        path = os.path.join(out, f"{name}.cu")
+        try:
+            for edit in edits:
+                text = edit(text)
+        except KeyError as e:
+            print(f"  {name}: not built ({e} not in the source)",
+                  flush=True)
+            continue
+        path = os.path.join(out, f"{out_name}_{name}.cu")
         with open(path, "w") as f:
             f.write(text)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", path[:-3] + ".so",
-               path]
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+               "-o", path[:-3] + ".so", path]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -93,11 +228,14 @@ def build_scan_variants(build) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(out, f"{name}.so"))
-        fn = lib.rglru_scan_launch
-        fn.argtypes = list(build.SIGNATURES["rglru_scan"]["rglru_scan_launch"])
+        lib = ctypes.CDLL(os.path.join(out, f"{out_name}_{name}.so"))
+        fn = getattr(lib, entry)
+        argtypes = list(build.SIGNATURES[out_name][entry])
+        for pos, kind in extra:
+            argtypes.insert(pos, kind)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        libs[name] = lib
+        libs[name] = (lib, _ptxas(log))
     return libs
 
 
@@ -116,6 +254,15 @@ def events_ms(torch, fn, reps: int = 20, windows: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return sorted(times)[len(times) // 2]
+
+
+def in_turns(torch, libs, run, reset) -> dict:
+    """Each library timed twice, in the order given and then reversed."""
+    times = {n: [] for n in libs}
+    for name in list(libs) + list(reversed(list(libs))):
+        times[name].append(events_ms(torch, lambda: run(libs[name])))
+        reset()   # the no-wait builds leave flags set
+    return times
 
 
 def wrapper_times(torch, cs, dk, rs, dev) -> None:
@@ -137,34 +284,23 @@ def wrapper_times(torch, cs, dk, rs, dev) -> None:
                              launches=5)
             print(f"rglru_scan ({B}, {S}, {W}) {dt}: {ms:.4f} ms a launch "
                   f"(CUDA graph)", flush=True)
+        for B, S, W, dt in cs.SCAN_BWD_TESTS[:3]:
+            x, p = cs.scan_inputs(torch, gen, B, S, W, getattr(torch, dt),
+                                  dev)
+            dh = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+            _, carry = rs._forward_kernel(x, p)
+            ms = cs.graph_ms(torch, lambda: rs.rglru_scan_backward(
+                x, *p, dh, carry), launches=5)
+            print(f"rglru_scan_backward ({B}, {S}, {W}) {dt}: {ms:.4f} ms "
+                  f"a launch (CUDA graph)", flush=True)
 
 
-def main(argv=None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=None,
-                    help="time another checkout's package (its src)")
-    args = ap.parse_args(argv)
-    import torch
-    if not torch.cuda.is_available():
-        print("bench_decode_scan: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.abspath(args.src or os.path.join(ROOT, "src")))
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
-    from repro_torch.kernels import build
-    from repro_torch.kernels import decode_attention as dk
-    from repro_torch.kernels import rglru_scan as rs
-    dev = torch.device("cuda:0")
-    print(cs.card_line(), flush=True)
-    print(f"package: {os.path.dirname(os.path.dirname(dk.__file__))}",
-          flush=True)
-    wrapper_times(torch, cs, dk, rs, dev)
-    if args.src:
-        return 0
-    libs = {"shipped": build.load("rglru_scan"), **build_scan_variants(build)}
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(26)
+def scan_split(torch, cs, build, rs, dev, gen) -> None:
+    """The forward scan beside its diagnostic builds, in turns."""
+    libs = {"shipped": build.load("rglru_scan")}
+    libs.update({n: lib for n, (lib, _) in build_variants(
+        build, build.CSRC / "rglru_scan.cu", SCAN_VARIANTS,
+        "rglru_scan_launch", "rglru_scan").items()})
     with torch.no_grad():
         for B, S, W, dt in SCAN_SHAPES:
             x, p = cs.scan_inputs(torch, gen, B, S, W, getattr(torch, dt),
@@ -183,14 +319,59 @@ def main(argv=None) -> int:
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed: CUDA error {err}")
-            times = {n: [] for n in libs}
-            order = list(libs) + list(reversed(list(libs)))
-            for name in order:
-                times[name].append(events_ms(torch, lambda: run(libs[name])))
-                work.zero_()   # the no-wait builds leave flags set
+            times = in_turns(torch, libs, run, work.zero_)
             print(f"scan ({B}, {S}, {W}) {dt}: " + ", ".join(
                 f"{n} {min(t):.4f}-{max(t):.4f} ms" for n, t in
                 times.items()), flush=True)
+
+
+def scan_bwd_split(torch, cs, build, rs, dev, gen, src_path) -> None:
+    """The scan's gradient kernel (``src_path``) beside its diagnostic
+    builds, in turns. Scratch is sized for this source's layout and for
+    PR 28's (tiles of 32 channels; its g carries and partial sums in float
+    buffers of their own, two arguments after ``work``), so either runs
+    on it."""
+    old_iface = "void* gcarry" in open(src_path).read()
+    extra = [(11, ctypes.c_void_p), (12, ctypes.c_void_p)] if old_iface \
+        else ()
+    libs = build_variants(build, src_path, BWD_VARIANTS,
+                          "rglru_scan_bwd_launch", "rglru_scan_bwd",
+                          extra=extra)
+    print(f"rglru_scan_bwd diagnostic builds of {src_path}:", flush=True)
+    for name, (_, regs) in libs.items():
+        print(f"  {name}: {regs}", flush=True)
+    libs = {n: lib for n, (lib, _) in libs.items()}
+    for B, S, W, dt in BWD_SHAPES:
+        x, p = cs.scan_inputs(torch, gen, B, S, W, getattr(torch, dt), dev)
+        dh = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+        _, hcarry = rs._forward_kernel(x, p)
+        old_tiles = B * -(-W // 32) * -(-S // 256)
+        work = torch.zeros((max(rs.backward_tiles(B, S, W)[1],
+                                2 + old_tiles + -(-W // 32)),),
+                           dtype=torch.int32, device=dev)
+        scratch = [torch.empty((old_tiles * 32 * k,), dtype=torch.float32,
+                               device=dev) for k in (1, 5)]
+        args = tuple(t.data_ptr() for t in scratch) if old_iface else ()
+        dx = torch.empty_like(x)
+        grads = torch.empty((5, W), dtype=torch.float32, device=dev)
+
+        def run(lib):
+            err = lib.rglru_scan_bwd_launch(
+                x.data_ptr(), *(t.data_ptr() for t in p), dh.data_ptr(),
+                hcarry.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+                work.data_ptr(), *args, B, S, W,
+                int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+        times = in_turns(torch, libs, run, work.zero_)
+        print(f"scan_bwd ({B}, {S}, {W}) {dt}: " + ", ".join(
+            f"{n} {min(t):.4f}-{max(t):.4f} ms" for n, t in times.items()),
+            flush=True)
+
+
+def decode_split(torch, cs, dk, dev, gen) -> None:
+    """The decode kernel at other split lengths."""
     kern = dk.decode_attention_kernel
     shipped = dk.split_len
     for name, B, T, KV, G, hd, cache, win, rows in cs.DECODE_TESTS[:3]:
@@ -217,6 +398,46 @@ def main(argv=None) -> int:
             cells.append(f"{blocks} blocks (L={split_for(B, KV, G, T)}) "
                          f"{ms:.4f} ms{'' if ok else ' OUT OF LIMIT'}")
         print(f"decode {name}: " + "; ".join(cells), flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=None,
+                    help="time another checkout's package (its src)")
+    ap.add_argument("--bwd-src", default=None,
+                    help="the gradient kernel's source for its diagnostic "
+                         "builds (default: this checkout's)")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="only the gradient kernel's diagnostic builds")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_decode_scan: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.src or os.path.join(ROOT, "src")))
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import rglru_scan as rs
+    dev = torch.device("cuda:0")
+    print(cs.card_line(), flush=True)
+    print(f"package: {os.path.dirname(os.path.dirname(dk.__file__))}",
+          flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    bwd_src = os.path.abspath(args.bwd_src) if args.bwd_src else \
+        str(build.CSRC / "rglru_scan_bwd.cu")
+    if args.bwd_only:
+        scan_bwd_split(torch, cs, build, rs, dev, gen, bwd_src)
+        return 0
+    wrapper_times(torch, cs, dk, rs, dev)
+    if args.src:
+        return 0
+    scan_split(torch, cs, build, rs, dev, gen)
+    scan_bwd_split(torch, cs, build, rs, dev, gen, bwd_src)
+    decode_split(torch, cs, dk, dev, gen)
     return 0
 
 
