@@ -28,7 +28,9 @@ layers, the decode kernel's cross route in their decode steps) and
 hubert-xlarge's encoder run and trained at full width (the flash
 kernels, bidirectional, at head dim 80); recurrentgemma-9b trained on
 the scan's backward kernel and phi3.5-moe and mixtral-8x22b served
-(phi3.5-moe also trained) at full width with their depth cut. Phases:
+(phi3.5-moe also trained) at full width with their depth cut;
+xlstm-350m trained at full width on the xLSTM scans' backward kernels
+and llama-3.2-vision trained at full width cut in depth. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together), with
@@ -339,7 +341,33 @@ the scan's backward kernel and phi3.5-moe and mixtral-8x22b served
  37. phi3.5-moe at full width cut to 2 layers trains 3 steps at 8 x 128
      through ``launch.train``'s code path: the loss with its aux term
      (positive each step), 2 flash and 1 gradient launch a layer a step;
-     median step, tokens/s, peak memory, a profiled step.
+     median step, tokens/s, peak memory, a profiled step;
+ 38. the xLSTM scans' backward kernels (``csrc/mlstm_scan_bwd.cu``, five
+     kernels a call; ``csrc/slstm_scan_bwd.cu``, one) vs
+     ``mlstm_scan_backward_plain`` and ``slstm_scan_backward_plain`` at
+     xlstm-350m's training shapes (1 x 4096 and 8 x 128; the sLSTM also in
+     float32) and ragged ones, the mLSTM also at its stabiliser's planted
+     ties: dq, dk, dv and float32 dgates within 1e-5 of their largest
+     entry, bf16 dgates within two bf16 steps plus that, the gates'
+     gradients and dr within 1e-4; two launches bitwise, a CUDA graph's
+     replays bitwise, the kernels a call, the sLSTM's workspace zero;
+     device time from a CUDA graph beside the bound and the plain
+     version, the sLSTM's one-warp chain floor; each autograd route's
+     directional derivative against a float64 central difference;
+ 39. xlstm-350m at full width and depth (24 layers, bf16) trains 3 steps
+     at 8 x 128 and 3 at 1 x 4096 through ``launch.train``'s code path:
+     finite losses and grad norms, 2 scan launches (remat) and 1 backward
+     call an mLSTM and an sLSTM layer a step; median step, tokens/s, peak
+     memory, a profiled step; then a 2-layer float32 cut's loss and
+     gradients, card against CPU;
+ 40. llama-3.2-vision at full width cut to 10 layers (two pattern periods:
+     8 attn + 2 cross_attn; bf16, gates drawn non-zero) trains 3 steps at
+     2 x 1024 with 1600 image embeddings through ``launch.train``'s code
+     path: finite losses, 2 flash and 1 gradient launch a layer a step on
+     the tensor-core route, the self layers causal and the cross layers
+     not causal at S != T (every call recorded); median step, peak memory,
+     a profiled step; then one pattern period in float32, card against
+     CPU.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -4544,6 +4572,549 @@ def phase_moe_train(torch, fa, dev) -> dict:
             "prof": prof}
 
 
+# phase 38: the xLSTM scans' backward kernels. The mLSTM's (B, S, H, hd):
+# xlstm-350m's two training shapes (1 x 4096 and 8 x 128, heads of 512),
+# a ragged reduced one, S = 1 (its gate gradients exactly 0 from the zero
+# state) and a width off the model's; then the stabiliser's planted ties
+# from a random state (MLSTM_TIES). The sLSTM's (B, S, w, type): the two
+# training shapes in bf16, 1 x 4096 in float32, widths off the warp's 32
+# channels with S off the 8-step chunk, S = 1
+MLSTM_BWD_TESTS = [(1, 4096, 4, 512), (8, 128, 4, 512), (2, 37, 4, 16),
+                   (1, 1, 4, 512), (2, 45, 2, 128)]
+SLSTM_BWD_TESTS = [(1, 4096, 1024, "bfloat16"), (8, 128, 1024, "bfloat16"),
+                   (1, 4096, 1024, "float32"), (2, 37, 32, "float32"),
+                   (3, 70, 7, "float32"), (1, 1, 7, "float32"),
+                   (1, 300, 1000, "bfloat16")]
+# limits against the plain backward: the input gradients (dq, dk, dv, the
+# float32 dgates) within XBWD_X_REL of their largest entry, bf16 dgates
+# within two bf16 steps of each entry plus that (the float32 gradient
+# rounded once); the gate pre-activations' gradients and dr within
+# XBWD_GATE_REL of theirs (the mLSTM's Q recurrence carries each step's
+# rounding down the sequence; dr sums B x S terms)
+XBWD_X_REL = 1e-5
+XBWD_GATE_REL = 1e-4
+# float32 instructions the mLSTM's gradient needs an element of C a step:
+# C again (2), G's update (2), the sums of dq, dk, dv and <G, C> (one FMA
+# each); and a row a step (dN's update 2, dq's and dk's n terms 3, dv's
+# gate 1, dN . k and dN . n 2). The sLSTM's a step and channel: the cell
+# again (SLSTM_OPS) and its chain rule, 50: dH, c / n and its quotients
+# with n (8), the floor's mask and dn (3), DF and DI (7), dz and the two
+# carries (3), the gates' chain through the stabiliser with its tie weight
+# and sigmoid(-pre_f) (12), the tanh and sigmoid derivatives (6), dr's four
+# products and sums (8) and the feedback's (dH of the step before, 7)
+MLSTM_BWD_OPS_C, MLSTM_BWD_OPS_ROW = 8, 8
+SLSTM_BWD_OPS = SLSTM_OPS + 50
+
+
+def xbwd_over(torch, got, want, kinds):
+    """Each gradient's max abs error and scale, and the count of limits
+    broken: kind 'x' within XBWD_X_REL of its largest entry (bf16: two
+    bf16 steps of each entry plus that), 'gate' within XBWD_GATE_REL."""
+    errs, scales, over = [], [], 0
+    for g, w, kind in zip(got, want, kinds):
+        gf, wf = g.float(), w.float()
+        scale = float(wf.abs().max())
+        diff = (gf - wf).abs()
+        errs.append(float(diff.max()))
+        scales.append(scale)
+        if kind == "x":
+            lim = XBWD_X_REL * scale + (2.0 ** -7 * wf.abs()
+                                        if g.dtype == torch.bfloat16 else 0.0)
+            over += int((diff > lim).sum())
+        else:
+            over += int(not errs[-1] <= XBWD_GATE_REL * scale)
+    return errs, scales, over
+
+
+def xbwd_check(torch, name, call, plain, kinds, counter, n_kernels,
+               work=None) -> dict:
+    """A backward kernel's ``call()`` against its ``plain()`` (limits of
+    ``xbwd_over``; the plain call timed once by the host clock around a
+    synchronize), two launches bitwise, counted twice, a CUDA graph's two
+    replays bitwise, ``n_kernels`` device kernels a call, ``work`` (the
+    kernel's int32 workspace) zero after the launches."""
+    before = counter.launches
+    got, again = call(), call()
+    launched = counter.launches - before
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs, scales, over = xbwd_over(torch, got, want, kinds)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    replay = graph_replay_equal(torch, call, got)
+    k_call, nodes = kernels_a_call(torch, call)
+    dirty = int(work().abs().sum()) if work is not None else 0
+    if not (all(math.isfinite(e) for e in errs) and over == 0 and bitwise
+            and launched == 2 and replay and dirty == 0
+            and k_call == n_kernels and nodes >= n_kernels):
+        raise RuntimeError(f"{name}: max abs errs {errs} (scales {scales}), "
+                           f"{over} over the limits, bitwise {bitwise}, "
+                           f"{launched} launches counted (want 2), graph "
+                           f"replays equal {replay}, {k_call} kernels a call"
+                           f" (want {n_kernels}), workspace sum {dirty}")
+    return {"call": call, "errs": errs, "scales": scales,
+            "plain_ms": plain_ms}
+
+
+def xbwd_gradcheck(torch, name, route, leaves, f64_loss, counters) -> str:
+    """The autograd route on the card (``route(*leaves)``: the forward
+    kernel, then the backward kernel) at a tiny float32 case: its
+    directional derivative along a random direction of the leaves against
+    a central difference (step 1e-5) of ``f64_loss`` (the plain forward
+    in float64 on the CPU), within 1e-5; one forward and one backward
+    launch."""
+    leaves = [t.clone().requires_grad_(True) for t in leaves]
+    before = [c.launches for c in counters]
+    out = route(*leaves)
+    gen = torch.Generator(device=out.device)
+    gen.manual_seed(381)
+    dout = torch.randn(out.shape, generator=gen, device=out.device)
+    got = torch.autograd.grad(out, leaves, dout)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    cpu = [t.detach().double().cpu() for t in leaves]
+    cgen = torch.Generator().manual_seed(382)
+    dirs = [torch.randn(t.shape, generator=cgen, dtype=torch.float64)
+            for t in cpu]
+    dc = dout.double().cpu()
+
+    def loss(s):
+        return float((f64_loss(*(t + s * d for t, d in zip(cpu, dirs)))
+                      * dc).sum())
+    eps = 1e-5
+    fd = (loss(eps) - loss(-eps)) / (2 * eps)
+    an = sum(float((g.double().cpu() * d).sum()) for g, d in zip(got, dirs))
+    rel = abs(an - fd) / max(abs(fd), 1e-30)
+    if launched != [1, 1] or not rel <= 1e-5:
+        raise RuntimeError(f"{name} autograd route: launches (forward, "
+                           f"backward) {launched}, directional derivative "
+                           f"{an} vs float64 central difference {fd} (rel "
+                           f"{rel})")
+    return (f"{name} autograd route {tuple(leaves[0].shape)}: launches "
+            f"(forward, backward) {launched}, directional derivative "
+            f"{an:.8g} vs float64 central difference {fd:.8g} (rel "
+            f"{rel:.3g}, limit 1e-5)")
+
+
+def phase_xlstm_bwd(torch, dev) -> dict:
+    """Phase 38: the mLSTM and sLSTM scans' backward kernels
+    (``csrc/mlstm_scan_bwd.cu``, five kernels a call;
+    ``csrc/slstm_scan_bwd.cu``, one) vs ``mlstm_scan_backward_plain`` and
+    ``slstm_scan_backward_plain`` at MLSTM_BWD_TESTS (+ the planted ties)
+    and SLSTM_BWD_TESTS (``xbwd_check``: limits, two launches bitwise,
+    graph replays bitwise, kernels a call, the sLSTM's arrival counters
+    zero); device time a launch from a CUDA graph beside the bound and the
+    plain version (timed once, in the check); the sLSTM's chain floor, one
+    warp's chains alone at the same S; then each autograd route's float64
+    central difference."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.kernels import slstm_scan as ss
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(38)
+    out = {"mlstm": {}, "slstm": {}, "max_abs_err": {}}
+    worst = 0.0
+    for B, S, H, hd, ties in [*((*s, False) for s in MLSTM_BWD_TESTS),
+                              (*MLSTM_TIES, True)]:
+        q, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+                   for _ in range(3))
+        k = k * (1.0 / math.sqrt(hd))
+        i_pre, f_pre = (torch.randn((B, S, H), generator=gen, device=dev)
+                        * 2 for _ in range(2))
+        if ties:
+            st = xlstm_state(torch, gen, {"C": (B, H, hd, hd),
+                                          "n": (B, H, hd), "m": (B, H)},
+                             dev)
+            state = (st["C"] * 0.3, st["n"], st["m"].abs() + 1)
+            i_pre, f_pre = mlstm_tie_gates(torch, gen, S, state[2])
+        else:
+            state = ms.init_state(B, H, hd, dev)
+        dh = torch.randn((B, S, H, hd), generator=gen, device=dev)
+        args = (q, k, v, i_pre, f_pre, *state, dh)
+        label = f"mlstm_scan_backward ({B}, {S}, {H}, {hd})" + (
+            " ties" if ties else "")
+        res = xbwd_check(torch, label,
+                         lambda a=args: ms.mlstm_scan_backward(*a),
+                         lambda a=args: ms.mlstm_scan_backward_plain(*a),
+                         ("x",) * 3 + ("gate",) * 2, ms.mlstm_scan_backward,
+                         ms.BACKWARD_KERNELS)
+        worst = max(worst, max(res["errs"][:3]))
+        long = S * B >= 1024
+        ms_ = graph_ms(torch, res["call"], launches=3 if long else 10,
+                       reps=3 if long else 10)
+        flops = B * S * H * (MLSTM_BWD_OPS_C * hd * hd
+                             + MLSTM_BWD_OPS_ROW * hd)
+        nbytes = 4 * (7 * B * S * H * hd + 4 * B * S * H
+                      + B * H * (hd * hd + hd + 1))
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = flops / RATE_FP32 * 1e3
+        bound = {"bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out["mlstm"][(B, S, H, hd) + (("ties",) if ties else ())] = {
+            "ms": ms_, "plain_ms": res["plain_ms"], **bound}
+        rel = [e / max(s, 1e-30) for e, s in zip(res["errs"], res["scales"])]
+        log(f"{label}: errors / max (dq, dk, dv, d i_pre, d f_pre) "
+            f"{[f'{r:.3g}' for r in rel]} (limits {XBWD_X_REL:g}, "
+            f"{XBWD_GATE_REL:g}); two launches bitwise, graph replays "
+            f"bitwise, {ms.BACKWARD_KERNELS} device kernels a call; kernel "
+            f"{ms_:.4f} ms a call on the device (CUDA graph), plain "
+            f"{res['plain_ms']:.2f} ms, bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}: {flops / 1e9:.3f} G float32 "
+            f"instructions at the lane rate, {nbytes / 1e6:.2f} MB)")
+        del res, args
+    out["max_abs_err"]["mlstm"] = worst
+    worst = 0.0
+    for B, S, w, dt in SLSTM_BWD_TESTS:
+        gates = (torch.randn((B, S, w, 4), generator=gen, device=dev)
+                 * 2).to(getattr(torch, dt))
+        r = torch.randn((w, 4), generator=gen, device=dev) * 0.5
+        state = ss.init_state(B, w, dev)
+        dhs = torch.randn((B, S, w), generator=gen, device=dev)
+        with torch.no_grad():
+            hs = ss.slstm_scan(gates, r, *[t.clone() for t in state])
+        label = f"slstm_scan_backward ({B}, {S}, {w}) {dt}"
+        res = xbwd_check(
+            torch, label,
+            lambda g=gates, r=r, d=dhs, h=hs: ss.slstm_scan_backward(
+                g, r, *state, d, h),
+            lambda g=gates, r=r, d=dhs: ss.slstm_scan_backward_plain(
+                g, r, *state, d),
+            ("x", "gate"), ss.slstm_scan_backward, 1,
+            work=lambda w=w: build.workspace(
+                "slstm_scan_bwd", dev, -(-w // ss.SCAN_BWD_CHANNELS)))
+        worst = max(worst, res["errs"][0])
+        long = S * B >= 1024
+        ms_ = graph_ms(torch, res["call"], launches=3 if long else 10,
+                       reps=3 if long else 10)
+        nbytes = (2 * gates.numel() * gates.element_size()
+                  + 2 * 4 * B * S * w + 2 * 16 * w + 4 * 4 * B * w)
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = SLSTM_BWD_OPS * B * S * w / RATE_FP32 * 1e3
+        entry = {"ms": ms_, "plain_ms": res["plain_ms"],
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        chain = ""
+        if B == 1 and S == 4096 and dt == "bfloat16":
+            # the reverse chain's floor: one warp of chains alone, same S
+            g1 = gates[:, :, :32].contiguous()
+            st1 = [t[:, :32].contiguous() for t in state]
+            d1 = dhs[:, :, :32].contiguous()
+            h1 = hs[:, :, :32].contiguous()
+            entry["chain_ms"] = graph_ms(
+                torch, lambda: ss.slstm_scan_backward(
+                    g1, r[:32].contiguous(), *st1, d1, h1),
+                launches=3, reps=3)
+            chain = (f"; one warp's chains alone (1, {S}, 32): "
+                     f"{entry['chain_ms']:.4f} ms, "
+                     f"{entry['chain_ms'] * 1e6 / S:.1f} ns a step")
+        out["slstm"][(B, S, w, dt)] = entry
+        rel = [e / max(s, 1e-30) for e, s in zip(res["errs"], res["scales"])]
+        log(f"{label}: errors / max (dgates, dr) {[f'{x:.3g}' for x in rel]}"
+            f" (limits {XBWD_X_REL:g} + two bf16 steps in bf16, "
+            f"{XBWD_GATE_REL:g}); two launches bitwise, graph replays "
+            f"bitwise, workspace zero, 1 device kernel a call; kernel "
+            f"{ms_:.4f} ms a launch on the device (CUDA graph), plain "
+            f"{res['plain_ms']:.2f} ms, bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}: {nbytes / 1e6:.2f} MB, "
+            f"{SLSTM_BWD_OPS * B * S * w / 1e9:.3f} G float32 ops){chain}")
+        del res
+    out["max_abs_err"]["slstm"] = worst
+    # each autograd route against a float64 central difference
+    q, k, v = (torch.randn((2, 30, 2, 16), generator=gen, device=dev)
+               for _ in range(3))
+    i_pre, f_pre = (torch.randn((2, 30, 2), generator=gen, device=dev) * 2
+                    for _ in range(2))
+
+    def m_route(*a):
+        return ms.mlstm_scan(*a, *ms.init_state(2, 2, 16, dev))
+
+    def m_f64(*a):
+        st = [t.double() for t in ms.init_state(2, 2, 16, "cpu")]
+        return ms.mlstm_scan_plain(*a, *st)
+    log(xbwd_gradcheck(torch, "mlstm_scan", m_route,
+                       (q, k * 0.25, v, i_pre, f_pre), m_f64,
+                       (ms.mlstm_scan, ms.mlstm_scan_backward)))
+    gates = torch.randn((2, 30, 8, 4), generator=gen, device=dev) * 2
+    r = torch.randn((8, 4), generator=gen, device=dev) * 0.5
+
+    def s_route(g, rr):
+        return ss.slstm_scan(g, rr, *ss.init_state(2, 8, dev))
+
+    def s_f64(g, rr):
+        # the cell in float64 (slstm_scan_plain rounds the gates to
+        # float32 first)
+        c, n, h = (torch.zeros(g.shape[::2][:2], dtype=torch.float64)
+                   for _ in range(3))
+        m, out = torch.full_like(c, ss.M_INIT), []
+        for t in range(g.shape[1]):
+            pre = g[:, t] + h[..., None] * rr
+            lfm = -torch.logaddexp(-pre[..., 2], torch.zeros_like(c)) + m
+            m = torch.maximum(lfm, pre[..., 1])
+            i_g, f_g = torch.exp(pre[..., 1] - m), torch.exp(lfm - m)
+            c = f_g * c + i_g * torch.tanh(pre[..., 0])
+            n = torch.clamp(f_g * n + i_g, min=ss.N_FLOOR)
+            h = torch.sigmoid(pre[..., 3]) * (c / n)
+            out.append(h)
+        return torch.stack(out, dim=1)
+    log(xbwd_gradcheck(torch, "slstm_scan", s_route, (gates, r), s_f64,
+                       (ss.slstm_scan, ss.slstm_scan_backward)))
+    torch.cuda.empty_cache()
+    log(f"phase 38: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phase 39: xlstm-350m at full width and depth trains XL_TRAIN_STEPS steps
+# at each (batch, seq) of XL_TRAIN_RUNS; then a 2-layer float32 cut's
+# gradients card against CPU at XL_CHECK_S tokens
+XL_TRAIN_RUNS = [(8, 128), (1, 4096)]
+XL_TRAIN_STEPS = 3
+XL_CHECK_S = 128
+XL_TRAIN_GROUPS = [("mlstm gradient", ("mlstm_bwd_",)),
+                   ("slstm gradient", ("slstm_scan_bwd_kernel",)),
+                   ("mlstm scan", ("mlstm_scan_kernel",)),
+                   ("slstm scan", ("slstm_scan_kernel",))] + \
+    TRAIN_KERNEL_GROUPS
+
+
+def phase_xlstm_train(torch, dev) -> dict:
+    """Phase 39: xlstm-350m at its published width and depth (24 layers
+    [slstm, mlstm] x 12, bf16, seeded random weights) trains on the card
+    through ``launch.train``'s code path: at each of XL_TRAIN_RUNS, 2
+    forward launches (remat) and 1 backward call an mLSTM and an sLSTM
+    layer a step, on the forward's hd-512 and bf16 routes; finite losses
+    and grad norms; the median step, tokens/s, peak memory and a profiled
+    step by kernel kind; then a 2-layer [slstm, mlstm] float32 cut: one
+    loss and gradient on the card against the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    cfg = get_config("xlstm_350m")
+    n_m, n_s = cfg.layout().count("mlstm"), cfg.layout().count("slstm")
+    n = XL_TRAIN_STEPS
+    counters = (ms.mlstm_scan, ms.mlstm_scan_backward, ss.slstm_scan,
+                ss.slstm_scan_backward)
+    want = [2 * n * n_m, n * n_m, 2 * n * n_s, n * n_s]
+    out = {"launches": [0, 0, 0, 0]}
+    for B, S in XL_TRAIN_RUNS:
+        label = f"train xlstm_350m {cfg.n_layers} layers, batch {B} x {S}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.launches = 0
+        ms.mlstm_scan.routes = {k: 0 for k in ms.mlstm_scan.routes}
+        ss.slstm_scan.routes = {k: 0 for k in ss.slstm_scan.routes}
+        argv = ["--arch", "xlstm_350m", "--steps", str(n), "--batch",
+                str(B), "--seq", str(S), "--device", "cuda"]
+        t0 = time.perf_counter()
+        state, step_fn, pipe, hist = train_run(torch, launch_train, dev,
+                                               argv, n)
+        wall = time.perf_counter() - t0
+        got = [c.launches for c in counters]
+        routes = (ms.mlstm_scan.routes["hd512"],
+                  ss.slstm_scan.routes["bfloat16"])
+        losses = [m["loss"] for m in hist]
+        gnorms = [m["grad_norm"] for m in hist]
+        times = [m["step_time_s"] for m in hist]
+        if len(hist) != n or not all(math.isfinite(x)
+                                     for x in losses + gnorms) \
+                or got != want or routes != (want[0], want[2]):
+            raise RuntimeError(f"{label}: losses {losses}, grad norms "
+                               f"{gnorms}, launches (mlstm, its backward, "
+                               f"slstm, its backward) {got} (want {want}), "
+                               f"forward routes (hd512, bf16) {routes}")
+        med = statistics.median(times[1:])
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_params = sum(p.numel() for p in state.params.parameters())
+        log(f"{label}: {n_params / 1e9:.3f} B parameters ({n_s} slstm + "
+            f"{n_m} mlstm), bf16; losses {[f'{x:.4f}' for x in losses]}, "
+            f"grad norms {[f'{x:.4f}' for x in gnorms]}, step times "
+            f"{[f'{x:.3f}' for x in times]} s ({wall:.2f} s wall, init "
+            f"included); median step (steps 2-{n}) {med:.4f} s, "
+            f"{B * S / med:.1f} tokens/s; launches (mlstm, its backward, "
+            f"slstm, its backward) {got}; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        batch = pipe.next_batch()
+        prof = profile_by_kind(
+            torch, lambda: float(step_fn(state, batch)[1]["loss"]),
+            XL_TRAIN_GROUPS, f"{label} profiled step")
+        out[(B, S)] = {"median_step_s": med, "peak": peak, "prof": prof,
+                       "tokens_s": B * S / med}
+        out["launches"] = [a + b for a, b in zip(out["launches"], got)]
+        del state, step_fn, pipe, batch
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(39)
+    card = init_params(gen, cut).train()
+    toks = torch.randint(0, cut.vocab_size, (1, XL_CHECK_S), generator=gen,
+                         device=dev)
+    launched, line = card_vs_cpu_grads(
+        torch, card, cut, {"tokens": toks, "labels": toks}, dev, counters,
+        f"xlstm_350m widths, 2 layers [slstm, mlstm], float32, 1 x "
+        f"{XL_CHECK_S} tokens")
+    if launched != [2, 1, 2, 1]:
+        raise RuntimeError(f"xlstm_350m 2-layer cut: card launches (mlstm, "
+                           f"its backward, slstm, its backward) {launched},"
+                           f" want [2, 1, 2, 1]")
+    log(f"{line}; card launches (mlstm, its backward, slstm, its backward) "
+        f"{launched}")
+    del card
+    torch.cuda.empty_cache()
+    log(f"phase 39: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+class FlashProbe:
+    """Records (causal, S, T) of every flash forward and gradient call the
+    model makes through ``kernels.ops`` (``calls['fwd']``,
+    ``calls['bwd']``)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.calls = ops, {"fwd": [], "bwd": []}
+
+    def __enter__(self):
+        self.saved = (self.ops.flash_attention, self.ops.flash_attention_bwd)
+        fwd, bwd = self.saved
+
+        def f_rec(q, k, v, *a, causal=True, **kw):
+            self.calls["fwd"].append((bool(causal), q.shape[2], k.shape[2]))
+            return fwd(q, k, v, *a, causal=causal, **kw)
+
+        def b_rec(q, k, v, *a, causal=True, **kw):
+            self.calls["bwd"].append((bool(causal), q.shape[2], k.shape[2]))
+            return bwd(q, k, v, *a, causal=causal, **kw)
+        self.ops.flash_attention, self.ops.flash_attention_bwd = f_rec, b_rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.ops.flash_attention_bwd = self.saved
+
+
+# phase 40: llama-3.2-vision trained at full width cut to two pattern
+# periods (VISION_TRAIN_LAYERS: 8 attn + 2 cross_attn), VISION_TRAIN_STEPS
+# steps at VISION_TRAIN_B x VISION_TRAIN_S with the config's 1600 image
+# embeddings; then one period's float32 cut card against CPU at
+# VISION_CHECK_S tokens
+VISION_TRAIN_LAYERS = 10
+VISION_TRAIN_B, VISION_TRAIN_S = 2, 1024
+VISION_TRAIN_STEPS = 3
+VISION_CHECK_S = 32
+
+
+def phase_vision_train(torch, fa, dev) -> dict:
+    """Phase 40: llama-3.2-vision at full width cut to VISION_TRAIN_LAYERS
+    layers trains on the card through ``launch.train``'s code path (bf16,
+    seeded random weights, the gates drawn non-zero after set-up): 2 flash
+    forward and 1 gradient launch a layer a step, every gradient on the
+    tensor-core route, the self layers causal at S = T and the cross
+    layers not causal against the image tokens; finite losses and grad
+    norms, the median step, peak memory and a profiled step; then one
+    pattern period in float32 (gates drawn): one loss and gradient on the
+    card against the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    from repro_torch.train.loop import train_loop
+    t_phase = time.perf_counter()
+    full = get_config("llama32_vision_11b")
+    cut = dataclasses.replace(full, n_layers=VISION_TRAIN_LAYERS)
+    kinds = cut.layout()
+    n_cross = kinds.count("cross_attn")
+    n_self = len(kinds) - n_cross
+    n, L = VISION_TRAIN_STEPS, cut.n_layers
+    B, S = VISION_TRAIN_B, VISION_TRAIN_S
+    label = (f"train llama32_vision_11b {L} layers ({n_self} attn + "
+             f"{n_cross} cross_attn), batch {B} x {S} + "
+             f"{cut.n_img_tokens} image tokens")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    argv = ["--arch", "llama32_vision_11b", "--steps", str(n), "--batch",
+            str(B), "--seq", str(S), "--device", "cuda"]
+    args = launch_train.parse_args(argv)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(40)
+    t0 = time.perf_counter()
+    _, state, step_fn, pipe = launch_train.setup(args, dev, cut)
+    gated = set_gates(torch, state.params, gen)
+    hist = []
+    with FlashProbe() as probe:
+        state = train_loop(state, step_fn, pipe, n, log_every=1,
+                           on_metrics=lambda s, m: hist.append(m))
+    wall = time.perf_counter() - t0
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    wgmma = fa.flash_attention_bwd.routes["wgmma"]
+    losses = [m["loss"] for m in hist]
+    gnorms = [m["grad_norm"] for m in hist]
+    times = [m["step_time_s"] for m in hist]
+    T = cut.n_img_tokens
+    kinds_b = sorted(set(probe.calls["bwd"]))
+    want_kinds = sorted({(True, S, S), (False, S, T)})
+    n_nc = sum(not c for c, _, _ in probe.calls["bwd"])
+    if len(hist) != n or not all(math.isfinite(x) for x in losses + gnorms) \
+            or fwd != 2 * n * L or bwd != n * L or wgmma != bwd \
+            or kinds_b != want_kinds or n_nc != n * n_cross \
+            or sorted(set(probe.calls["fwd"])) != want_kinds:
+        raise RuntimeError(f"{label}: losses {losses}, grad norms {gnorms}, "
+                           f"flash launches {fwd} (want {2 * n * L}), "
+                           f"gradient {bwd} ({wgmma} wgmma; want {n * L}), "
+                           f"gradient calls (causal, S, T) {kinds_b} with "
+                           f"{n_nc} not causal (want {want_kinds}, "
+                           f"{n * n_cross})")
+    med = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    log(f"{label}: {n_params / 1e9:.3f} B parameters, bf16, {gated} blocks' "
+        f"gates drawn in [0.25, 1); losses {[f'{x:.4f}' for x in losses]}, "
+        f"grad norms {[f'{x:.4f}' for x in gnorms]}, step times "
+        f"{[f'{x:.3f}' for x in times]} s ({wall:.2f} s wall, init "
+        f"included); median step (steps 2-{n}) {med:.4f} s, "
+        f"{B * S / med:.1f} tokens/s; flash launches {fwd}, gradient {bwd} "
+        f"(wgmma), calls (causal, S, T) {want_kinds}, {n_nc} gradients not "
+        f"causal; peak memory {peak / 2**30:.2f} GiB")
+    batch = pipe.next_batch()
+    prof = profile_by_kind(torch, lambda: float(step_fn(state, batch)[1][
+        "loss"]), TRAIN_KERNEL_GROUPS, f"{label} profiled step")
+    del state, step_fn, pipe, batch
+    torch.cuda.empty_cache()
+    one = dataclasses.replace(full, n_layers=len(full.pattern),
+                              dtype="float32")
+    gen.manual_seed(41)
+    card = init_params(gen, one).train()
+    set_gates(torch, card, gen)
+    toks = torch.randint(0, one.vocab_size, (1, VISION_CHECK_S),
+                         generator=gen, device=dev)
+    img = torch.randn((1, one.n_img_tokens, one.d_vision), generator=gen,
+                      device=dev)
+    counters = (fa.flash_attention, fa.flash_attention_bwd)
+    launched, line = card_vs_cpu_grads(
+        torch, card, one, {"tokens": toks, "labels": toks,
+                           "image_embeds": img}, dev, counters,
+        f"llama32_vision_11b widths, {one.n_layers} layers "
+        f"{list(one.pattern)}, float32, gates drawn, 1 x {VISION_CHECK_S} "
+        f"tokens + {one.n_img_tokens} image tokens")
+    if launched != [2 * one.n_layers, one.n_layers]:
+        raise RuntimeError(f"llama32_vision_11b {one.n_layers}-layer cut: "
+                           f"card launches (flash, gradient) {launched}, "
+                           f"want {[2 * one.n_layers, one.n_layers]}")
+    log(f"{line}; card launches (flash, gradient) {launched}")
+    del card
+    torch.cuda.empty_cache()
+    log(f"phase 40: {time.perf_counter() - t_phase:.1f} s")
+    return {"fwd": fwd, "bwd": bwd, "median_step_s": med, "peak": peak,
+            "prof": prof}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -4640,6 +5211,9 @@ def main(argv=None) -> int:
     phi = phase_moe_serve(torch, fa, dev, "phi3_5_moe")              # 35
     mix = phase_moe_serve(torch, fa, dev, "mixtral_8x22b")           # 36
     moet = phase_moe_train(torch, fa, dev)                           # 37
+    main_xb = phase_xlstm_bwd(torch, dev)                            # 38
+    xlt = phase_xlstm_train(torch, dev)                              # 39
+    vist = phase_vision_train(torch, fa, dev)                        # 40
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -4680,7 +5254,8 @@ def main(argv=None) -> int:
                    "replaces": "src/repro/kernels/flash_attention.py:25",
                    "launches": served["launches"] + vis["flash"]
                    + hub["fwd_launches"] + rgt["launches"][0]
-                   + phi["flash"] + mix["flash"] + moet["fwd"],
+                   + phi["flash"] + mix["flash"] + moet["fwd"]
+                   + vist["fwd"],
                    "max_abs_err": max(main_f["max_abs_err"],
                                       served["max_abs_err"],
                                       main_c["flash_err"]),
@@ -4695,7 +5270,7 @@ def main(argv=None) -> int:
                              "(its gradient: JAX autodiff of "
                              "src/repro/models/attention.py:29)",
                  "launches": trained["launches"] + hub["launches"]
-                 + rgt["launches"][1] + moet["bwd"],
+                 + rgt["launches"][1] + moet["bwd"] + vist["bwd"],
                  "max_abs_err": max(main_b["max_abs_err"],
                                     main_c["bwd_err"]),
                  "ms": main_b["ms"],
@@ -4731,7 +5306,7 @@ def main(argv=None) -> int:
                    "replaces": "src/repro/models/recurrent.py:124 "
                                "(lax.scan of _mlstm_cell; the JAX package "
                                "has no Pallas kernel there)",
-                   "launches": xl["mlstm"],
+                   "launches": xl["mlstm"] + xlt["launches"][0],
                    "max_abs_err": main_x["max_abs_err"]["mlstm"],
                    "ms": mlstm["ms"], "plain_ms": mlstm["plain_ms"],
                    "bound_ms": mlstm["bound_ms"],
@@ -4742,7 +5317,7 @@ def main(argv=None) -> int:
                    "replaces": "src/repro/models/recurrent.py:169 "
                                "(lax.scan of _slstm_cell; the JAX package "
                                "has no Pallas kernel there)",
-                   "launches": xl["slstm"],
+                   "launches": xl["slstm"] + xlt["launches"][2],
                    "max_abs_err": main_x["max_abs_err"]["slstm"],
                    "ms": slstm["ms"], "plain_ms": slstm["plain_ms"],
                    "bound_ms": slstm["bound_ms"],
@@ -4773,10 +5348,35 @@ def main(argv=None) -> int:
                       "ms": scan_g["ms"], "plain_ms": scan_g["plain_ms"],
                       "bound_ms": scan_g["bound_ms"],
                       "bound_by": scan_g["bound_by"], "library_ms": None}
+    mlstm_g = main_xb["mlstm"][MLSTM_BWD_TESTS[0]]
+    mlstm_bwd_entry = {"name": "mlstm_scan_bwd", "route": "cuda",
+                       "source": "src/repro_torch/csrc/mlstm_scan_bwd.cu",
+                       "replaces": "src/repro/models/recurrent.py:101 (JAX "
+                                   "autodiff of mlstm_sequence's lax.scan "
+                                   "of _mlstm_cell; the JAX package has no "
+                                   "Pallas kernel there)",
+                       "launches": xlt["launches"][1],
+                       "max_abs_err": main_xb["max_abs_err"]["mlstm"],
+                       "ms": mlstm_g["ms"], "plain_ms": mlstm_g["plain_ms"],
+                       "bound_ms": mlstm_g["bound_ms"],
+                       "bound_by": mlstm_g["bound_by"], "library_ms": None}
+    slstm_g = main_xb["slstm"][SLSTM_BWD_TESTS[0]]
+    slstm_bwd_entry = {"name": "slstm_scan_bwd", "route": "cuda",
+                       "source": "src/repro_torch/csrc/slstm_scan_bwd.cu",
+                       "replaces": "src/repro/models/recurrent.py:148 (JAX "
+                                   "autodiff of slstm_sequence's lax.scan "
+                                   "of _slstm_cell; the JAX package has no "
+                                   "Pallas kernel there)",
+                       "launches": xlt["launches"][3],
+                       "max_abs_err": main_xb["max_abs_err"]["slstm"],
+                       "ms": slstm_g["ms"], "plain_ms": slstm_g["plain_ms"],
+                       "bound_ms": slstm_g["bound_ms"],
+                       "bound_by": slstm_g["bound_by"], "library_ms": None}
     log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
                                 bwd_entry, decode_entry, cross_entry,
                                 scan_entry, scan_bwd_entry, mlstm_entry,
-                                slstm_entry]}))
+                                mlstm_bwd_entry, slstm_entry,
+                                slstm_bwd_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

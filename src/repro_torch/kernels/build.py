@@ -102,6 +102,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # gates, r, c, n, m, h, hs, B, S, w, is_bf16, stream
         "slstm_scan_launch": (*(_P,) * 7, _I, _I, _I, _I, _P),
     },
+    "mlstm_scan_bwd": {
+        # q, k, v, i_pre, f_pre, C0, n0, m0, dh, dq, dk, dv, di, df, gate,
+        # sc, nall, sa, sb, hhs, vgks, B, S, H, hd, stream
+        "mlstm_scan_bwd_launch": (*(_P,) * 21, _I, _I, _I, _I, _P),
+    },
+    "slstm_scan_bwd": {
+        # gates, r, c0, n0, m0, h0, hs, dhs, dgates, cs, ns, ms, part, dr,
+        # arrivals, B, S, w, is_bf16, stream
+        "slstm_scan_bwd_launch": (*(_P,) * 15, _I, _I, _I, _I, _P),
+    },
 }
 
 # a source's own headers: `#include "<name>.cuh"` lines, resolved in csrc/

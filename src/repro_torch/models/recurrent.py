@@ -13,7 +13,9 @@ code. The mLSTM and sLSTM run on the scan kernels
 hand-written ``csrc/mlstm_scan.cu`` and ``csrc/slstm_scan.cu``), where
 the reference runs ``lax.scan`` over its cells; their sequence and step
 forms are the same scan (a step is S = 1), and both update the state's
-tensors in place (the reference returns a new state).
+tensors in place (the reference returns a new state). In training their
+gradients are the backward kernels ``csrc/mlstm_scan_bwd.cu`` and
+``csrc/slstm_scan_bwd.cu`` (the RG-LRU's ``csrc/rglru_scan_bwd.cu``).
 
 All functions take pre-projected inputs; the projections live in
 ``transformer.py``'s blocks. ``p`` is the block's ``lru`` leaf, any

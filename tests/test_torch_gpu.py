@@ -10,8 +10,9 @@ kernel against its plain version, a train step repeated bit for bit,
 the decode attention and RG-LRU scan kernels and the scan's gradient
 kernel against their plain versions, and the decode path (reduced recurrentgemma-9b, reduced
 qwen3-4b on the int8 cache) on the card against the CPU, the mLSTM and
-sLSTM scan kernels against their plain versions and reduced xlstm-350m
-on the card against the CPU. They
+sLSTM scan kernels and their backward kernels against their plain
+versions and reduced xlstm-350m served and trained on the card against
+the CPU. They
 carry the ``gpu`` marker and skip without a CUDA device. This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is not installed:
@@ -1201,25 +1202,144 @@ def test_xlstm_scans_split_and_replay_bitwise(cuda, kind):
 
 
 def test_xlstm_scan_kernels_refuse_a_gradient(cuda):
-    """No backward kernels yet: a call that needs a gradient raises naming
-    ROADMAP item 13k before any launch; under no_grad it runs."""
-    from repro_torch.kernels.mlstm_scan import mlstm_scan
-    from repro_torch.kernels.slstm_scan import slstm_scan
+    """A CUDA scan call that needs a gradient launches the forward kernel
+    once and, in the backward, its backward kernel once (``MLSTMScan``,
+    ``SLSTMScan``), with nothing given way to the plain loop: the
+    gradients equal the backward wrappers' on the same inputs bitwise;
+    under no_grad the same call launches the forward alone; a state that
+    requires a gradient is refused."""
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.kernels import slstm_scan as ss
     args, state = _mlstm_case(1, 1, 4, 2, 16, cuda)
     sargs, sstate = _slstm_case(1, 1, 4, 8, "float32", cuda)
-    q = args[0].requires_grad_()
-    gates = sargs[0].requires_grad_()
-    before = (mlstm_scan.launches, slstm_scan.launches)
-    with pytest.raises(NotImplementedError, match="item 13k"):
-        mlstm_scan(q, *args[1:], *state)
-    with pytest.raises(NotImplementedError, match="item 13k"):
-        slstm_scan(gates, sargs[1], *sstate)
-    assert (mlstm_scan.launches, slstm_scan.launches) == before
+    mleaves = [a.clone().requires_grad_() for a in args]
+    sleaves = [a.clone().requires_grad_() for a in sargs]
+    counters = (ms.mlstm_scan, ms.mlstm_scan_backward, ss.slstm_scan,
+                ss.slstm_scan_backward)
+    before = [c.launches for c in counters]
+    h = ms.mlstm_scan(*mleaves, *[t.clone() for t in state])
+    hs = ss.slstm_scan(*sleaves, *[t.clone() for t in sstate])
+    dh, dhs = torch.ones_like(h), torch.ones_like(hs)
+    mg = torch.autograd.grad(h, mleaves, dh)
+    sg = torch.autograd.grad(hs, sleaves, dhs)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    want_m = ms.mlstm_scan_backward(*args, *state, dh)
+    hs_again = ss.slstm_scan(*sargs, *[t.clone() for t in sstate])
+    want_s = ss.slstm_scan_backward(*sargs, *sstate, dhs, hs_again)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(mg, want_m))
+    assert all(torch.equal(a, b) for a, b in zip(sg, want_s))
+    before = [c.launches for c in counters]
     with torch.no_grad():
-        mlstm_scan(q, *args[1:], *state)
-        slstm_scan(gates, sargs[1], *sstate)
-    assert (mlstm_scan.launches, slstm_scan.launches) == (
-        before[0] + 1, before[1] + 1)
+        ms.mlstm_scan(*mleaves, *state)
+        ss.slstm_scan(*sleaves, *sstate)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 1, 0]
+    # the state is not differentiated: a state asking for a gradient is
+    # refused before any launch, not given none
+    with pytest.raises(ValueError, match="state is not differentiated"):
+        ms.mlstm_scan(*mleaves, state[0].clone().requires_grad_(),
+                      *state[1:])
+    with pytest.raises(ValueError, match="state is not differentiated"):
+        ss.slstm_scan(*sleaves, sstate[0].clone().requires_grad_(),
+                      *sstate[1:])
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 1, 0]
+
+
+@pytest.mark.parametrize("B,S,H,hd,ties", [
+    (2, 37, 4, 16, False), (1, 1, 2, 16, False), (1, 300, 4, 512, False),
+    (4, 1, 4, 512, False), (2, 45, 2, 128, False), (3, 20, 4, 64, False),
+    (2, 9, 4, 256, False), (1, 67, 4, 512, True)])
+def test_mlstm_scan_backward_kernel_matches_plain(cuda, B, S, H, hd, ties):
+    """``csrc/mlstm_scan_bwd.cu`` against ``mlstm_scan_backward_plain`` on
+    the same inputs: dq, dk, dv within 1e-5 of their largest entry, the
+    gate pre-activations' gradients within 1e-4 (from the zero state, or
+    from a random one with the stabiliser's planted ties); five kernels a
+    call counted once; a second call bitwise equal."""
+    from repro_torch.kernels import mlstm_scan as ms
+    args, state = _mlstm_case(S + hd, B, S, H, hd, cuda)
+    if ties:
+        m = state[2].abs() + 1
+        state = (state[0], state[1], m)
+        args = args[:3] + _tie_gates(S, B, S, H, m, cuda)
+    else:
+        state = ms.init_state(B, H, hd, cuda)
+    dh = torch.randn((B, S, H, hd), device=cuda)
+    before = ms.mlstm_scan_backward.launches
+    got = ms.mlstm_scan_backward(*args, *state, dh)
+    again = ms.mlstm_scan_backward(*args, *state, dh)
+    assert ms.mlstm_scan_backward.launches == before + 2
+    want = ms.mlstm_scan_backward_plain(*args, *state, dh)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.equal(g, again[i])
+        assert _within(g, w, 1e-5 if i < 3 else 1e-4)
+
+
+@pytest.mark.parametrize("B,S,w,dt", [(2, 37, 32, "float32"),
+                                      (1, 1, 7, "float32"),
+                                      (3, 70, 7, "float32"),
+                                      (1, 300, 1000, "bfloat16"),
+                                      (4, 128, 1024, "bfloat16")])
+def test_slstm_scan_backward_kernel_matches_plain(cuda, B, S, w, dt):
+    """``csrc/slstm_scan_bwd.cu`` against ``slstm_scan_backward_plain``
+    from a random state: float32 dgates within 1e-5 of its largest entry
+    (bf16: two bf16 steps of each entry plus that), dr within 1e-4; a
+    second launch bitwise equal and the arrival counters zero after it;
+    widths off the warp's 32 channels, S off the 8-step chunk, S = 1."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import slstm_scan as ss
+    args, state = _slstm_case(S + w, B, S, w, dt, cuda)
+    dhs = torch.randn((B, S, w), device=cuda)
+    with torch.no_grad():
+        hs = ss.slstm_scan(*args, *[t.clone() for t in state])
+    got = ss.slstm_scan_backward(*args, *state, dhs, hs)
+    again = ss.slstm_scan_backward(*args, *state, dhs, hs)
+    want = ss.slstm_scan_backward_plain(*args, *state, dhs)
+    torch.cuda.synchronize()
+    assert got[0].dtype == args[0].dtype and got[1].dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    wf = want[0].float()
+    over = (got[0].float() - wf).abs() > 1e-5 * float(wf.abs().max()) + (
+        2.0 ** -7 * wf.abs() if dt == "bfloat16" else 0.0)
+    assert not bool(over.any())
+    assert _within(got[1], want[1], 1e-4)
+    work = build.workspace("slstm_scan_bwd", cuda, -(-w // 32))
+    assert int(work.abs().sum()) == 0
+
+
+def test_xlstm_train_on_card_matches_cpu(cuda):
+    """Reduced xlstm-350m (float32) trains on the card through the scan
+    kernels and their backward kernels: the loss (rtol 1e-5) and every
+    parameter's gradient (within 1e-4 of its largest entry) against the
+    CPU's plain loops on the same weights and tokens; each kernel's
+    forward twice a layer of its kind (remat) and its backward once."""
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.models import loss_fn
+    cfg = get_config("xlstm_350m", reduced=True)
+    model = init_params(torch.Generator().manual_seed(0), cfg).train()
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 24)))
+    counters = (ms.mlstm_scan, ms.mlstm_scan_backward, ss.slstm_scan,
+                ss.slstm_scan_backward)
+    res = []
+    for dev in ("cpu", cuda):
+        m = model.to(dev)
+        before = [c.launches for c in counters]
+        loss, _ = loss_fn(m, cfg, {"tokens": toks.to(dev),
+                                   "labels": toks.to(dev)})
+        names = [n for n, _ in m.named_parameters()]
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        res.append((float(loss.detach()), {n: g.float().cpu()
+                                  for n, g in zip(names, grads)}))
+    per_kind = cfg.n_layers // 2
+    assert launched == [2 * per_kind, per_kind, 2 * per_kind, per_kind]
+    (c_loss, c_g), (g_loss, g_g) = res
+    assert abs(g_loss - c_loss) <= 1e-5 * abs(c_loss)
+    for n in c_g:
+        assert _within(g_g[n], c_g[n], 1e-4), n
 
 
 def test_xlstm_on_card_matches_cpu(cuda):

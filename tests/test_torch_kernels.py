@@ -286,12 +286,14 @@ def test_build_paths_stay_in_checkout():
     header for its PTX helpers. The RG-LRU scan and its gradient share
     csrc/rglru_coeffs.cuh (loads and stores, the parameters, a step's
     coefficients, the carry flags). The decode attention and the mLSTM
-    and sLSTM scan kernels include no header of their own."""
+    and sLSTM scan kernels and their backward kernels include no header
+    of their own."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
                                      "flash_attention", "flash_attention_bwd",
                                      "decode_attention", "rglru_scan",
                                      "rglru_scan_bwd", "mlstm_scan",
-                                     "slstm_scan"}
+                                     "slstm_scan", "mlstm_scan_bwd",
+                                     "slstm_scan_bwd"}
     for name in build.SIGNATURES:
         path = build._library_path(name)
         assert path.parent == build.BUILD_DIR
@@ -299,7 +301,8 @@ def test_build_paths_stay_in_checkout():
         assert build._INCLUDE.findall(src) == {
             "decode_attention": [], "rglru_scan": ["rglru_coeffs.cuh"],
             "rglru_scan_bwd": ["rglru_coeffs.cuh"],
-            "mlstm_scan": [], "slstm_scan": [],
+            "mlstm_scan": [], "slstm_scan": [], "mlstm_scan_bwd": [],
+            "slstm_scan_bwd": [],
             "flash_attention": ["flash_attention_wgmma.cuh"],
             "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh"],
             "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
@@ -307,7 +310,8 @@ def test_build_paths_stay_in_checkout():
         assert build._headers(src) == {
             "decode_attention": [], "rglru_scan": ["rglru_coeffs.cuh"],
             "rglru_scan_bwd": ["rglru_coeffs.cuh"],
-            "mlstm_scan": [], "slstm_scan": [],
+            "mlstm_scan": [], "slstm_scan": [], "mlstm_scan_bwd": [],
+            "slstm_scan_bwd": [],
             "flash_attention": ["flash_attention_wgmma.cuh"],
             "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh",
                                     "flash_attention_wgmma.cuh"],

@@ -643,14 +643,168 @@ def test_plain_scans_train_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the scans' gradients: the plain backwards (the kernels' steps) against
+# autograd of the plain forwards and jax.vjp of the reference's sequences
+# ---------------------------------------------------------------------------
+
+# each gradient within this share of its largest entry of the reference's
+# (float32): the input gradients sum in other orders; the gates' gradients
+# also carry the Q recurrence's rounding (mlstm_scan_backward_plain)
+GRAD_REL = {"x": 1e-5, "gate": 1e-4}
+
+
+def _mlstm_tie_inputs(seed, B, S, H, hd):
+    """``_mlstm_inputs`` with gates planted for the stabiliser from the
+    zero state: i_pre wins the max at t % 3 == 0 (m' = i_pre), log_f + m at
+    t % 3 == 1 and ties it exactly at t % 3 == 2 (f_pre = 30: log_f ~
+    -9.4e-14 leaves log_f + m = m bit for bit); and at step 0 of batch row
+    0, head 0, k = q = e_0, so |n . q| == 1 exactly there (n = i_g k with
+    i_g = 1): max(|s|, 1)'s tie."""
+    q, k, v, i_pre, f_pre = _mlstm_inputs(seed, B, S, H, hd)
+    u = np.random.default_rng(seed + 1).uniform(size=(B, S, H)).astype(
+        np.float32)
+    m = None
+    for t in range(S):
+        if t % 3 == 0:
+            i_pre[:, t] = (1 + u[:, t]) if m is None else m + 1 + u[:, t]
+            m = i_pre[:, t].copy()
+        else:
+            f_pre[:, t] = 30.0
+            i_pre[:, t] = m - 1 - u[:, t] if t % 3 == 1 else m
+    q[0, 0, 0] = k[0, 0, 0] = np.eye(hd, dtype=np.float32)[0]
+    return q, k, v, i_pre, f_pre
+
+
+def _check_grads(got, want, kinds):
+    for g, w, kind in zip(got, want, kinds):
+        _within_max(g, w, GRAD_REL[kind])
+
+
+@pytest.mark.parametrize("B,S,H,hd,ties", [(2, 37, 4, 16, False),
+                                           (2, 1, 4, 16, False),
+                                           (1, 30, 2, 32, True),
+                                           (2, 37, 4, 16, True)])
+def test_mlstm_backward_plain_matches_autograd_and_jax(B, S, H, hd, ties,
+                                                     monkeypatch):
+    """``mlstm_scan_backward_plain`` (the kernel's steps: C^T dnum in a
+    forward pass, G and dN in reverse, the telescoped Q) against autograd
+    of ``mlstm_scan_plain`` and ``jax.vjp`` of the reference's
+    ``mlstm_sequence`` on the same inputs from the zero state: dq, dk, dv
+    within 1e-5 of their largest entry, d i_pre and d f_pre within 1e-4;
+    B > 1, S = 1 (whose gate gradients are exactly 0), and the planted
+    ties of the stabiliser's max and of max(|n . q|, 1), whose gradients
+    are halved as ``jnp.maximum`` halves them."""
+    arrs = (_mlstm_tie_inputs if ties else _mlstm_inputs)(S + hd, B, S, H, hd)
+    dh = np.random.default_rng(S).standard_normal((B, S, H, hd)).astype(
+        np.float32)
+    got = ms.mlstm_scan_backward_plain(*map(_t, arrs),
+                                       *ms.init_state(B, H, hd, "cpu"),
+                                       _t(dh))
+    _, vjp = jax.vjp(jrec.mlstm_sequence, *map(jnp.asarray, arrs))
+    want = vjp(jnp.asarray(dh))
+    kinds = ("x", "x", "x", "gate", "gate")
+    _check_grads(got, want, kinds)
+    leaves = [_t(a).requires_grad_() for a in arrs]
+    h = ms.mlstm_scan_plain(*leaves, *ms.init_state(B, H, hd, "cpu"))
+    _check_grads(got, torch.autograd.grad(h, leaves, _t(dh)), kinds)
+    if S == 1:
+        assert not got[3].any() and not got[4].any()
+    if ties:
+        # the planted ties are exact, and the split matters: the stabiliser's
+        # tie given wholly to log_f + m misses the reference's gate gradients
+        q, k, _, i_pre, f_pre = map(_t, arrs)
+        m = torch.full((B, H), ms.M_INIT)
+        for t in range(S):
+            lfm = -softplus(-f_pre[:, t]) + m
+            assert bool(((lfm - i_pre[:, t]) == 0).all()) == (t % 3 == 2)
+            m = torch.maximum(lfm, i_pre[:, t])
+        assert float(q[0, 0, 0] @ k[0, 0, 0]) == 1.0
+        monkeypatch.setattr(ms, "tie_weight", lambda d: (d >= 0).float())
+        off = ms.mlstm_scan_backward_plain(*map(_t, arrs),
+                                           *ms.init_state(B, H, hd, "cpu"),
+                                           _t(dh))
+        err = max(float(np.abs(off[i].numpy() - np.asarray(want[i])).max())
+                  / float(np.abs(np.asarray(want[i])).max()) for i in (3, 4))
+        assert err > 1e-3
+
+
+@pytest.mark.parametrize("B,S,w,dt", [(2, 37, 16, "float32"),
+                                      (3, 1, 16, "float32"),
+                                      (2, 29, 16, "bfloat16")])
+def test_slstm_backward_plain_matches_autograd_and_jax(B, S, w, dt):
+    """``slstm_scan_backward_plain`` against autograd of
+    ``slstm_scan_plain`` and ``jax.vjp`` of the reference's
+    ``slstm_sequence`` from the zero state: dgates (in the gates' type)
+    within 1e-5 of its largest entry (bf16: two bf16 steps of each entry
+    plus that, the rounding of the float32 gradient), dr within 1e-4."""
+    rng = np.random.default_rng(S + w)
+    gates = (rng.standard_normal((B, S, w, 4)) * 2).astype(np.float32)
+    r = (rng.standard_normal((w, 4)) * 0.5).astype(np.float32)
+    dhs = rng.standard_normal((B, S, w)).astype(np.float32)
+    tg = _t(gates).to(getattr(torch, dt))
+    got = ss.slstm_scan_backward_plain(tg, _t(r), *ss.init_state(B, w, "cpu"),
+                                       _t(dhs))
+    assert got[0].dtype == tg.dtype and got[1].dtype == torch.float32
+    jg = jnp.asarray(tg.float().numpy()).astype(jnp.bfloat16) \
+        if dt == "bfloat16" else jnp.asarray(gates)
+    _, vjp = jax.vjp(jrec.slstm_sequence, jg, jnp.asarray(r))
+    jwant = vjp(jnp.asarray(dhs))
+    leaves = [tg.clone().requires_grad_(), _t(r).requires_grad_()]
+    hs = ss.slstm_scan_plain(*leaves, *ss.init_state(B, w, "cpu"))
+    for want in (jwant, torch.autograd.grad(hs, leaves, _t(dhs))):
+        wg = np.asarray(_np(want[0]) if isinstance(want[0], torch.Tensor)
+                        else np.asarray(want[0], np.float32))
+        scale = float(np.abs(wg).max())
+        diff = np.abs(_np(got[0]) - wg)
+        if dt == "float32":
+            assert float(diff.max()) <= 1e-5 * scale
+        else:
+            assert not (diff > 2.0 ** -7 * np.abs(wg) + 1e-5 * scale).any()
+        _within_max(got[1], want[1] if not isinstance(want[1], torch.Tensor)
+                    else _np(want[1]), GRAD_REL["gate"])
+
+
+def test_xlstm_gradients_match_jax():
+    """Reduced xlstm-350m (4 layers [slstm, mlstm] x 2, d 32) trains
+    through the plain scans on the CPU: its loss and all 14 leaves'
+    gradients against ``jax.value_and_grad`` of the reference's
+    ``loss_fn`` on the same weights and tokens, each leaf within 2e-5 of
+    its largest |g|, the loss rtol 1e-5."""
+    jcfg = _jcfg()
+    jp, model, cfg = _pair(jcfg)
+    model.train()
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda q, b: jloss_fn(q, jcfg, b), has_aux=True))(
+        jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)})
+    tl, _ = loss_fn(model, cfg, {"tokens": _t(toks).long(),
+                                 "labels": _t(toks).long()})
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(tl, [q for _, q in named])
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    got = to_reference_lm_tree({n: g for (n, _), g in zip(named, grads)},
+                               cfg)
+    flat_j = jax.tree_util.tree_flatten_with_path(jg)[0]
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    assert len(flat_j) == len(flat_t) == 14
+    for path, want in flat_j:
+        want = np.asarray(want, np.float32)
+        err = float(np.abs(flat_t[path] - want).max())
+        assert err <= 2e-5 * float(np.abs(want).max()), \
+            (jax.tree_util.keystr(path), err)
+
+
+# ---------------------------------------------------------------------------
 # the wrappers' guards, the launcher
 # ---------------------------------------------------------------------------
 
 def test_scan_gradient_off_the_cpu_names_roadmap_item():
-    """The scan kernels have no backward: a call off the CPU that would
-    need a gradient raises naming item 13k before any launch (meta
-    tensors stand in for CUDA ones here); without a gradient the same
-    call only refuses the device."""
+    """Off the CPU the scans run only on CUDA tensors: a call that needs a
+    gradient (which would go through ``MLSTMScan`` / ``SLSTMScan`` and
+    their backward kernels) is refused on any other device before any
+    launch (meta tensors stand in for them here), as is the same call
+    without a gradient and each backward wrapper."""
     meta = dict(device="meta")
     q = torch.empty((1, 3, 2, 16), requires_grad=True, **meta)
     g = torch.empty((1, 3, 2, 16), **meta)
@@ -660,17 +814,26 @@ def test_scan_gradient_off_the_cpu_names_roadmap_item():
     gates = torch.empty((1, 3, 8, 4), requires_grad=True, **meta)
     r = torch.empty((8, 4), **meta)
     sstate = [torch.empty((1, 8), **meta) for _ in range(4)]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 13k"):
+    before = (ms.mlstm_scan.launches, ss.slstm_scan.launches,
+              ms.mlstm_scan_backward.launches,
+              ss.slstm_scan_backward.launches)
+    with pytest.raises(ValueError, match="unsupported device"):
         ms.mlstm_scan(q, g, g, gp, gp, *state)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 13k"):
+    with pytest.raises(ValueError, match="unsupported device"):
         ss.slstm_scan(gates, r, *sstate)
     with torch.no_grad():
         with pytest.raises(ValueError, match="unsupported device"):
             ms.mlstm_scan(q, g, g, gp, gp, *state)
         with pytest.raises(ValueError, match="unsupported device"):
             ss.slstm_scan(gates, r, *sstate)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ms.mlstm_scan_backward(q, g, g, gp, gp, *state, g)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ss.slstm_scan_backward(gates, r, *sstate,
+                               torch.empty((1, 3, 8), **meta))
+    assert (ms.mlstm_scan.launches, ss.slstm_scan.launches,
+            ms.mlstm_scan_backward.launches,
+            ss.slstm_scan_backward.launches) == before
 
 
 def test_scan_wrappers_reject_bad_inputs():

@@ -1,8 +1,22 @@
-"""Where the mLSTM and sLSTM scan kernels spend their time, on the GPU.
+"""Where the mLSTM and sLSTM scan kernels and their backward kernels spend
+their time, on the GPU.
 
-    python3 tools/bench_xlstm_scan.py [--src DIR]
+    python3 tools/bench_xlstm_scan.py [--src DIR] [--bwd-only]
 
 Prints the card's name and power limit, then:
+
+- the backward kernels (``csrc/mlstm_scan_bwd.cu``,
+  ``csrc/slstm_scan_bwd.cu``) through their wrappers at xlstm-350m's
+  training shapes (chip_smoke.py phase 38's): the mLSTM's at
+  (1, 4096, 4, 512) and (8, 128, 4, 512) from the zero state, the
+  sLSTM's at (1, 4096, 1024) and (8, 128, 1024) with bfloat16 gates and
+  its reverse chain alone, one warp of channels (1, 4096, 32); device
+  time a call from a CUDA graph (with ``--src``, another checkout's, when
+  it has them); without ``--src`` also the mLSTM backward's five kernels'
+  device times by the profiler at the first shape, and each backward
+  source's registers and spills as ``nvcc -Xptxas -v`` prints them (a
+  fresh build under ``build/bench_xlstm_scan/``); ``--bwd-only`` stops
+  there;
 
 - both scans as the main path calls them, through their wrappers, at
   chip_smoke.py phase 28's xlstm-350m shapes: the mLSTM at
@@ -41,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -192,6 +207,75 @@ def wrapper_times(torch, cs, ms, ss, dev) -> None:
                   f"launch (CUDA graph)", flush=True)
 
 
+MLSTM_BWD_SHAPES = [(1, 4096, 4, 512), (8, 128, 4, 512)]
+SLSTM_BWD_SHAPES = [(1, 4096, 1024), (8, 128, 1024), (1, 4096, 32)]
+
+
+def bwd_times(torch, cs, ms, ss, dev, detail: bool) -> None:
+    """The backward kernels through their wrappers at the training shapes
+    (device time a call from a CUDA graph); with ``detail`` the mLSTM
+    backward's kernels by the profiler and each source's ptxas report."""
+    if not hasattr(ms, "mlstm_scan_backward"):
+        print("this package has no xLSTM backward kernels", flush=True)
+        return
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(38)
+    calls = []
+    for B, S, H, hd in MLSTM_BWD_SHAPES:
+        (q, k, v, i_pre, f_pre), _ = mlstm_inputs(torch, gen, B, S, H, hd,
+                                                  dev)
+        state = ms.init_state(B, H, hd, dev)
+        dh = torch.randn((B, S, H, hd), generator=gen, device=dev)
+        args = (q, k, v, i_pre, f_pre, *state, dh)
+        t = cs.graph_ms(torch, lambda a=args: ms.mlstm_scan_backward(*a),
+                        launches=3, reps=3)
+        calls.append(args)
+        print(f"mlstm_scan_backward ({B}, {S}, {H}, {hd}): {t:.4f} ms a call"
+              f" (CUDA graph, {ms.BACKWARD_KERNELS} kernels)", flush=True)
+    for B, S, w in SLSTM_BWD_SHAPES:
+        (gates, r), _ = slstm_inputs(torch, gen, B, S, w, dev)
+        state = ss.init_state(B, w, dev)
+        dhs = torch.randn((B, S, w), generator=gen, device=dev)
+        with torch.no_grad():
+            hs = ss.slstm_scan(gates, r, *[t.clone() for t in state])
+        t = cs.graph_ms(torch, lambda: ss.slstm_scan_backward(
+            gates, r, *state, dhs, hs), launches=3, reps=3)
+        print(f"slstm_scan_backward ({B}, {S}, {w}) bfloat16: {t:.4f} ms a "
+              f"launch (CUDA graph)", flush=True)
+    if not detail:
+        return
+    from torch.profiler import ProfilerActivity, profile
+    args = calls[0]
+    ms.mlstm_scan_backward(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(3):
+            ms.mlstm_scan_backward(*args)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        found = re.search(r"mlstm_bwd_\w+<[^>]*>", e.name)
+        if e.device_type.name == "CUDA" and found:
+            by_name[found.group(0)] = by_name.get(found.group(0), 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / 3
+    print(f"mlstm_scan_backward {MLSTM_BWD_SHAPES[0]} by kernel (profiler, "
+          f"ms a call): " + ", ".join(f"{n} {t:.4f}" for n, t in
+                                      sorted(by_name.items())), flush=True)
+    from repro_torch.kernels import build
+    out = os.path.join(ROOT, "build", "bench_xlstm_scan")
+    os.makedirs(out, exist_ok=True)
+    for kernel in ("mlstm_scan_bwd", "slstm_scan_bwd"):
+        path = os.path.join(out, f"{kernel}_shipped.so")
+        log = subprocess.run(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", path,
+             str(build.CSRC / f"{kernel}.cu")], capture_output=True,
+            text=True)
+        for ln in (log.stdout + log.stderr).splitlines():
+            if any(w in ln for w in ("Compiling entry", "registers",
+                                     "spill")):
+                print(f"  {kernel}: {ln.strip()}", flush=True)
+
+
 def in_turns(torch, libs, run, state) -> dict:
     """Each library timed twice, in the order given and back, from the
     same ``state`` (the tensors the launches update)."""
@@ -211,6 +295,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=None,
                     help="time another checkout's package (its src)")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="time the backward kernels only")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -226,6 +312,9 @@ def main(argv=None) -> int:
     print(cs.card_line(), flush=True)
     print(f"package: {os.path.dirname(os.path.dirname(ms.__file__))}",
           flush=True)
+    bwd_times(torch, cs, ms, ss, dev, detail=not args.src)
+    if args.bwd_only:
+        return 0
     wrapper_times(torch, cs, ms, ss, dev)
     if args.src:
         return 0
