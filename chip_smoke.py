@@ -342,7 +342,7 @@ and llama-3.2-vision trained at full width cut in depth. Phases:
      through ``launch.train``'s code path: the loss with its aux term
      (positive each step), 2 flash and 1 gradient launch a layer a step;
      median step, tokens/s, peak memory, a profiled step;
- 38. the xLSTM scans' backward kernels (``csrc/mlstm_scan_bwd.cu``, five
+ 38. the xLSTM scans' backward kernels (``csrc/mlstm_scan_bwd.cu``, seven
      kernels a call; ``csrc/slstm_scan_bwd.cu``, one) vs
      ``mlstm_scan_backward_plain`` and ``slstm_scan_backward_plain`` at
      xlstm-350m's training shapes (1 x 4096 and 8 x 128; the sLSTM also in
@@ -352,7 +352,8 @@ and llama-3.2-vision trained at full width cut in depth. Phases:
      gradients and dr within 1e-4; two launches bitwise, a CUDA graph's
      replays bitwise, the kernels a call, the sLSTM's workspace zero;
      device time from a CUDA graph beside the bound and the plain
-     version, the sLSTM's one-warp chain floor; each autograd route's
+     version, the mLSTM's by kernel at the two training shapes (the
+     profiler), the sLSTM's one-warp chain floor; each autograd route's
      directional derivative against a float64 central difference;
  39. xlstm-350m at full width and depth (24 layers, bf16) trains 3 steps
      at 8 x 128 and 3 at 1 x 4096 through ``launch.train``'s code path:
@@ -4594,15 +4595,16 @@ SLSTM_BWD_TESTS = [(1, 4096, 1024, "bfloat16"), (8, 128, 1024, "bfloat16"),
 XBWD_X_REL = 1e-5
 XBWD_GATE_REL = 1e-4
 # float32 instructions the mLSTM's gradient needs an element of C a step:
-# C again (2), G's update (2), the sums of dq, dk, dv and <G, C> (one FMA
-# each); and a row a step (dN's update 2, dq's and dk's n terms 3, dv's
+# C again (2), G's update (2), the sums of dq, dk and dv (C^T dnum, G^T v,
+# G k: one FMA each; <G, C> comes from a scalar recurrence, not from C);
+# and a row a step (dN's update 2, dq's and dk's n terms 3, dv's
 # gate 1, dN . k and dN . n 2). The sLSTM's a step and channel: the cell
 # again (SLSTM_OPS) and its chain rule, 50: dH, c / n and its quotients
 # with n (8), the floor's mask and dn (3), DF and DI (7), dz and the two
 # carries (3), the gates' chain through the stabiliser with its tie weight
 # and sigmoid(-pre_f) (12), the tanh and sigmoid derivatives (6), dr's four
 # products and sums (8) and the feedback's (dH of the step before, 7)
-MLSTM_BWD_OPS_C, MLSTM_BWD_OPS_ROW = 8, 8
+MLSTM_BWD_OPS_C, MLSTM_BWD_OPS_ROW = 7, 8
 SLSTM_BWD_OPS = SLSTM_OPS + 50
 
 
@@ -4658,6 +4660,37 @@ def xbwd_check(torch, name, call, plain, kinds, counter, n_kernels,
             "plain_ms": plain_ms}
 
 
+def mlstm_bwd_split(torch, call, calls: int) -> dict:
+    """The mLSTM gradient's device time a call by kernel: ``calls`` calls
+    of ``call()`` (one gradient call) under the profiler after a warm-up
+    (``profiled_kernels``), kernel name (``mlstm_bwd_...`` with its
+    template arguments; each launches once a call) -> (ms a call, events
+    recorded). The time is the mean over the events recorded, which the
+    profiler can leave short of ``calls``; the count says so."""
+    import re
+    call()
+    torch.cuda.synchronize()
+    kernels, _, _ = profiled_kernels(
+        torch, lambda: [call() for _ in range(calls)])
+    total, events = {}, {}
+    for e in kernels:
+        found = re.search(r"mlstm_bwd_\w+(<[^>]*>)?", e.name)
+        if found:
+            name = found.group(0)
+            total[name] = total.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+            events[name] = events.get(name, 0) + 1
+    return {n: (total[n] / events[n], events[n]) for n in total}
+
+
+def split_text(split: dict, calls: int) -> str:
+    """``mlstm_bwd_split``'s result as text: the kernels' sum and each
+    kernel's ms a call, with its event count where it is not ``calls``."""
+    return f"{sum(t for t, _ in split.values()):.4f} in all: " + ", ".join(
+        f"{n} {t:.4f}" + ("" if k == calls else f" ({k} of {calls} events)")
+        for n, (t, k) in sorted(split.items()))
+
+
 def xbwd_gradcheck(torch, name, route, leaves, f64_loss, counters) -> str:
     """The autograd route on the card (``route(*leaves)``: the forward
     kernel, then the backward kernel) at a tiny float32 case: its
@@ -4699,15 +4732,16 @@ def xbwd_gradcheck(torch, name, route, leaves, f64_loss, counters) -> str:
 
 def phase_xlstm_bwd(torch, dev) -> dict:
     """Phase 38: the mLSTM and sLSTM scans' backward kernels
-    (``csrc/mlstm_scan_bwd.cu``, five kernels a call;
+    (``csrc/mlstm_scan_bwd.cu``, seven kernels a call;
     ``csrc/slstm_scan_bwd.cu``, one) vs ``mlstm_scan_backward_plain`` and
     ``slstm_scan_backward_plain`` at MLSTM_BWD_TESTS (+ the planted ties)
     and SLSTM_BWD_TESTS (``xbwd_check``: limits, two launches bitwise,
     graph replays bitwise, kernels a call, the sLSTM's arrival counters
     zero); device time a launch from a CUDA graph beside the bound and the
-    plain version (timed once, in the check); the sLSTM's chain floor, one
-    warp's chains alone at the same S; then each autograd route's float64
-    central difference."""
+    plain version (timed once, in the check), the mLSTM's by kernel at
+    its two training shapes (``mlstm_bwd_split``); the sLSTM's chain
+    floor, one warp's chains alone at the same S; then each autograd
+    route's float64 central difference."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mlstm_scan as ms
     from repro_torch.kernels import slstm_scan as ss
@@ -4763,6 +4797,12 @@ def phase_xlstm_bwd(torch, dev) -> dict:
             f"{res['plain_ms']:.2f} ms, bound {bound['bound_ms']:.4f} ms "
             f"({bound['bound_by']}: {flops / 1e9:.3f} G float32 "
             f"instructions at the lane rate, {nbytes / 1e6:.2f} MB)")
+        if (B, S, H, hd) in MLSTM_BWD_TESTS[:2] and not ties:
+            calls = max(3, math.ceil(50 / ms_))  # a 50 ms window
+            split = mlstm_bwd_split(torch, res["call"], calls)
+            out["mlstm"][(B, S, H, hd)]["split"] = split
+            log(f"{label} by kernel (profiler, ms a call over {calls} "
+                f"calls): {split_text(split, calls)}")
         del res, args
     out["max_abs_err"]["mlstm"] = worst
     worst = 0.0

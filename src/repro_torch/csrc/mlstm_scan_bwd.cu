@@ -23,39 +23,58 @@
 // splits its gradient half and half, as jnp.maximum's; so does
 // max(|s|, 1) at |s| == 1).
 //
-// Design: five launches, no atomics (two launches are bitwise equal).
-// 1. prep, a block a (b, head): warp 0 walks the stabiliser's chain 32
-//    steps at a time (as the forward's producer) and writes each step's
-//    (i_g, f_g, tie weight, sigmoid(-f)); then a thread a column walks
-//    n_t (stored, B x S x H x HD) and the block sums s_t = n_t . q_t (its
-//    16 warps' partial sums in order), writing (1 / den_t, d den/ds).
-// 2-4. one rank-1 scan, three ways. A block owns ROWS = 16 rows of an
-//    HD x HD matrix X of one (b, head), 4 rows a warp, lane l its columns
-//    l, l + 32, ... in registers (the forward's split); each step
-//    X = a X + b u w^T and each lane's share of out = X y, summed after a
-//    chunk of CHUNK steps (a tree a lane: row r at step u on lane
-//    RW u + r, as the forward's), optionally with the block's sum of
-//    z . out a step. The step inputs come through a two-stage
-//    shared-memory ring of CHUNK steps by cp.async.
-//      mode 0, forward: X = C^T from the state (C's bits: the forward's
-//        rounding), u = k, w = v, y = dnum: out = C^T dnum, z = q (hh);
-//      mode 1, reverse: X = G, a = f_{t+1}, u = dnum, w = q, y = k:
-//        out = G k, z = v (v^T G k);
-//      mode 2, reverse: X = G^T, u = q, w = dnum, y = v: out = G^T v.
-// 5. combine, a block a (b, head): the per-block sums added in block
-//    order; dN in reverse a thread a column, dq, dk, dv in place of the
-//    scans' outputs and the block's sums of dN . k and dN . n_{t-1}; then
-//    warp 0 walks Q and the gates' chain in reverse, 32 steps at a time.
+// Design: seven launches, no atomics (two launches are bitwise equal).
+// The serial per-(b, head) chains run in launches of their own, a warp a
+// (b, head); everything over the HD columns runs in the scans, which fill
+// the card; every sum across rows is written as partial sums of RW = 4
+// rows (a row group) and added in row-group order by the launch after.
+// 1. gates, a warp a (b, head): the stabiliser's chain 32 steps at a time
+//    (as the forward's producer), each step's (i_g, f_g, tie weight,
+//    sigmoid(-f)), the next 32 steps' pre-activations loaded meanwhile.
+// 2, 4, 5. one rank-1 scan, three ways: X = a X + (b u) w^T and out = X y
+//    a step, X of one (b, head) in registers over B x H x HD / ROWS
+//    blocks. A block is a producer warp and NW = 8 consumer warps (two a
+//    scheduler; 4 at HD 16); a row group is RW rows of X and all HD
+//    columns, on one warp (HD <= 256) or on a pair of warps that split
+//    the columns (HD 512), 32 entries of X a lane at HD 256-512. The
+//    producer copies each step's w and y (HD each) and the block's rows
+//    of u by TMA bulk copies into a two-stage ring of CHUNK = 8 steps on
+//    mbarriers (as csrc/mlstm_scan.cu's), and writes each step's scalars
+//    beside them, loaded a chunk ahead. A consumer step: one FMUL and two
+//    FMAs an entry (the update fused: C need not be the forward's bits),
+//    its 4 rows' partial sums into shared memory. After a chunk lane
+//    RW u + r adds the 32 partials of row r at step u in a tree (at HD
+//    512 the pair's second warp hands its sums to the first through
+//    shared memory at a named barrier) and writes that row's outputs; a
+//    row's walk along the chunk's steps (n or dN, the plain loop's
+//    rounding) runs across the 8 lanes that hold it, one shuffle a step;
+//    the other inputs of the outputs are loaded before the chunk.
+//      mode 0, forward: X = C^T from the state, u = i_g k, w = v, y = dh:
+//        out = C^T dh (unscaled: 1 / den is not known yet) into dq, n_t
+//        into nall, a row group's n_t . q_t and q_t . out partials;
+//      scalars (3): s, 1 / den, ds and hh from the partials;
+//      mode 1, reverse: X = G, a = f_{t+1}, u = dh / den, w = q, y = k:
+//        dv = i_g G k and a row group's v . G k partial;
+//      mode 2, reverse: X = G^T, u = q / den, w = dh, y = v: dk = i_g
+//        (G^T v + dN), dq = C^T dh / den + ds n_t, and a row group's
+//        dN . k and dN . n_{t-1} partials.
+// 6. sums: each step's v^T G k, dN . k and dN . n_{t-1} from the partials.
+// 7. chain, a warp a (b, head): Q and the gates' chain in reverse, 32
+//    steps at a time, the next 32 loaded meanwhile.
 //
 // Bound on an H100 SXM (data-sheet peaks, 700 W): operations. At
-// (B, S, H, HD) = (1, 4096, 4, 512) the function needs ~8 FP32
-// instructions an element of C a step (C again 2, G's update 2, dq, dk, dv
-// and <G, C> one FMA each): 8.6 G, 0.26 ms a G at one instruction a lane
-// and clock (33.4 T/s), ~1.0 ms; q, k, v, dh in and dq, dk, dv out are
-// 235 MB, 0.07 ms at 3.35 TB/s. This design issues ~11 (C again in the
-// forward's unfused rounding 4, G twice 2 each, three row-sum FMAs) plus
-// the ring, the shuffles and launches 1 and 5, which walk S steps with
-// B x H blocks.
+// (B, S, H, HD) = (1, 4096, 4, 512) the function needs ~7 FP32
+// instructions an element of C a step (C again 2, G's update 2, C^T dnum,
+// G^T v and G k one FMA each; <G, C> is the scalar recurrence Q, not a
+// sum over C), and 8 a row: 30.1 G in all, ~0.90 ms at one instruction a
+// lane and clock (33.4 T/s); q, k, v, dh in and dq, dk, dv out are 235 MB,
+// 0.07 ms at 3.35 TB/s. This design issues 9 an element a step
+// (G twice, 3 each pass), and a step's w and y come from shared memory,
+// 2 KB for every 4 rows (a lane reads 16 floats for its 32 entries): a
+// pass issues ~115 instructions a warp a step and moves ~28 KB of shared
+// memory an SM a step, and takes about the sum of the two (~0.23 us a
+// step on an H100 80GB HBM3 at 700 W; tools/bench_xlstm_scan.py's
+// diagnostic builds).
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -64,16 +83,44 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 4;          // warps a scan block
-constexpr int RW = 4;             // rows of X a warp
-constexpr int ROWS = WARPS * RW;  // rows of X a block
-constexpr int CHUNK = 8;          // steps a stage of the scan's ring
-constexpr int STAGES = 2;
-constexpr int VT = 512;           // threads of prep and combine: a column
-constexpr int VW = VT / 32;       // their warps
-constexpr int U = 8;              // steps prep loads at once
-constexpr int UC = 4;             // steps combine loads at once
+constexpr int RW = 4;       // rows of X a row group (a partial sum's rows)
+constexpr int CHUNK = 8;    // steps a stage of the scans' ring
+constexpr int STAGES = 2;   // stages of the ring
+constexpr int ET = 256;     // threads a block of the elementwise launches
 constexpr int MAX_DEVICES = 64;
+static_assert(CHUNK * RW == 32, "a chunk's row sums are one a lane");
+
+// the scans' split of an HD x HD matrix
+template <int HD>
+struct Cfg {
+  static constexpr int WPR = HD >= 512 ? 2 : 1;  // warps a row group
+  static constexpr int NW = HD >= 32 ? 8 : 4;    // consumer warps a block
+  static constexpr int GROUPS = NW / WPR;        // row groups a block
+  static constexpr int ROWS = GROUPS * RW;       // rows a block
+  static constexpr int SPAN = HD / WPR;          // columns a warp
+  static constexpr int CPL = SPAN >= 32 ? SPAN / 32 : 1;  // columns a lane
+  static constexpr int VEC = CPL < 4 ? CPL : 4;  // adjacent columns a load
+  static constexpr int NV = CPL / VEC;           // loads a vector a step
+  static constexpr int TILES = HD / ROWS;        // blocks a (b, head)
+  static_assert(HD % ROWS == 0 && (SPAN < 32 || SPAN % (32 * VEC) == 0),
+                "head width");
+};
+
+// shared memory of a scan block, in floats: the barriers (full[s],
+// empty[s]), each consumer warp's partial sums of a chunk, the pair
+// exchange (two chunks), the ring (a step: w, y, the block's rows of u,
+// the scalars)
+template <int HD>
+struct Layout {
+  using C = Cfg<HD>;
+  static constexpr int STEP = 2 * HD + C::ROWS + 4;
+  static constexpr int STAGE = CHUNK * STEP;
+  static constexpr int PART = 16;
+  static constexpr int XCH = PART + C::NW * CHUNK * RW * 32;
+  static constexpr int RING = XCH + 2 * C::GROUPS * 32;
+  static constexpr size_t BYTES = sizeof(float) * (RING + STAGES * STAGE);
+  static_assert(STEP % 4 == 0 && RING % 4 == 0, "16-byte copies");
+};
 
 __device__ __forceinline__ float softplus(float x) {
   // logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)), as torch's logaddexp
@@ -86,131 +133,51 @@ __device__ __forceinline__ float tie_weight(float d) {
   return d > 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f);
 }
 
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "n"(BYTES)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
-
-// ---------------------------------------------------------------------------
-// 1. prep: the gates, n_t, 1 / den_t and d den / ds
-// ---------------------------------------------------------------------------
-
-template <int HD>
-__global__ void __launch_bounds__(VT)
-mlstm_bwd_prep_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ ip,
-                      const float* __restrict__ fp,
-                      const float* __restrict__ n0,
-                      const float* __restrict__ m0,
-                      float4* __restrict__ gate, float2* __restrict__ sc,
-                      float* __restrict__ nall, int S, int H) {
-  const int bh = blockIdx.x, b = bh / H, head = bh % H;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (warp == 0) {
-    // lane s of a batch takes step t0 + s; only the m chain runs in order
-    float m_reg = m0[bh];
-    for (int t0 = 0; t0 < S; t0 += 32) {
-      const int t = t0 + lane;
-      const size_t g = ((size_t)b * S + t) * H + head;
-      const float xi = t < S ? ip[g] : 0.f, xf = t < S ? fp[g] : 0.f;
-      const float log_f = -softplus(-xf);
-      const int valid = S - t0 < 32 ? S - t0 : 32;
-      float my_lfm = 0.f;
-      for (int s = 0; s < valid; ++s) {
-        const float lfm = __fadd_rn(__shfl_sync(FULL, log_f, s), m_reg);
-        m_reg = fmaxf(lfm, __shfl_sync(FULL, xi, s));
-        if (lane == s) my_lfm = lfm;
-      }
-      if (t < S) {
-        const float d = __fsub_rn(my_lfm, xi);
-        const float e = expf(-fabsf(d));
-        gate[g] = make_float4(d > 0.f ? e : 1.f, d > 0.f ? 1.f : e,
-                              tie_weight(d),
-                              __fdiv_rn(1.f, __fadd_rn(1.f, expf(xf))));
-      }
-    }
-  }
-  __syncthreads();  // the gates are visible to the block
-  __shared__ float red[2][U][VW];
-  const int j = threadIdx.x;
-  const bool on = j < HD;
-  const int jc = on ? j : 0;  // a valid column for the loads of idle threads
-  float n = on ? n0[(size_t)bh * HD + j] : 0.f;
-  // every load of a batch is unconditional (steps past S read step S - 1)
-  // and issued before its arithmetic; k and q a batch ahead
-  float kc[U], qc[U], kn[U], qn[U];
-  auto load = [&](int t0, float (&kk)[U], float (&qq)[U]) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u < S ? t0 + u : S - 1;
-      const size_t at = (((size_t)b * S + t) * H + head) * HD + jc;
-      kk[u] = k[at];
-      qq[u] = q[at];
-    }
-  };
-  load(0, kc, qc);
-  int par = 0;
-  for (int t0 = 0; t0 < S; t0 += U) {
-    const int steps = S - t0 < U ? S - t0 : U;
-    float gi[U], gf[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u < S ? t0 + u : S - 1;
-      const float4 gt = gate[((size_t)b * S + t) * H + head];
-      gi[u] = gt.x;
-      gf[u] = gt.y;
-    }
-    load(t0 + U < S ? t0 + U : t0, kn, qn);
-    float ps[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      ps[u] = 0.f;
-      if (u < steps) {
-        n = __fadd_rn(__fmul_rn(gf[u], n), __fmul_rn(gi[u], kc[u]));
-        if (on) nall[(((size_t)b * S + t0 + u) * H + head) * HD + j] = n;
-        ps[u] = on ? n * qc[u] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int w = 16; w > 0; w /= 2)
-#pragma unroll
-      for (int u = 0; u < U; ++u) ps[u] += __shfl_xor_sync(FULL, ps[u], w);
-    if (lane == 0)
-#pragma unroll
-      for (int u = 0; u < U; ++u) red[par][u][warp] = ps[u];
-    __syncthreads();
-    if (threadIdx.x < steps) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < VW; ++w) s += red[par][threadIdx.x][w];
-      const float as = fabsf(s);
-      const float sg = s > 0.f ? 1.f : (s < 0.f ? -1.f : 0.f);
-      const float sel = as > 1.f ? sg : (as == 1.f ? 0.5f * sg : 0.f);
-      sc[((size_t)b * S + t0 + threadIdx.x) * H + head] =
-          make_float2(__fdiv_rn(1.f, fmaxf(as, 1.f)), sel);
-    }
-    par ^= 1;  // red[par] is written again after the next barrier
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      kc[u] = kn[u];
-      qc[u] = qn[u];
-    }
-  }
+// waits until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
-
-// ---------------------------------------------------------------------------
-// 2-4. the rank-1 scan: X = a X + b u w^T, out = X y, zsum = z . out
-// ---------------------------------------------------------------------------
+// `bytes` contiguous bytes into shared memory (16-byte aligned, a multiple
+// of 16); completes that much of the barrier's transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// named barrier `id` of `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 
 // entry `l` of row `row` (32 entries) of a partial-sum buffer, its 16-byte
 // groups rotated by the row (as csrc/mlstm_scan.cu's) so that lanes
@@ -224,341 +191,472 @@ __device__ __forceinline__ int swz(int row, int l) {
 template <int W, int N>
 __device__ __forceinline__ void tree(float (&a)[N]) {
 #pragma unroll
-  for (int i = 0; i < W; ++i) a[i] += a[i + W];
+  for (int i = 0; i < W; ++i) a[i] = __fadd_rn(a[i], a[i + W]);
   if constexpr (W > 1) tree<W / 2>(a);
 }
 
-// floats of one step in a stage: w and y (HD each), u and z (ROWS each),
-// the gate (4) and (1 / den, sel) padded to 4
-template <int HD>
-struct Ring {
-  static constexpr int STEP = 2 * HD + 2 * ROWS + 8;
-  static constexpr int STAGE = CHUNK * STEP;
-  static constexpr size_t BYTES = sizeof(float) * STAGES * STAGE;
+// ---------------------------------------------------------------------------
+// 1. gates: (i_g, f_g, tie weight, sigmoid(-f)) a step
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+mlstm_bwd_gates_kernel(const float* __restrict__ ip,
+                       const float* __restrict__ fp,
+                       const float* __restrict__ m0,
+                       float4* __restrict__ gate, int S, int H) {
+  const int bh = blockIdx.x, b = bh / H, head = bh % H;
+  const int lane = threadIdx.x;
+  // lane s of a batch takes step t0 + s; only the m chain runs in order
+  auto at = [&](int t) { return ((size_t)b * S + t) * H + head; };
+  // steps past S take log_f = 0 and i = -inf, which leave m as it is
+  float m_reg = m0[bh];
+  const float ninf = -__int_as_float(0x7f800000);
+  float xi = lane < S ? ip[at(lane)] : ninf;
+  float xf = lane < S ? fp[at(lane)] : 0.f;
+  for (int t0 = 0; t0 < S; t0 += 32) {
+    const int t = t0 + lane;
+    const float ci = xi, cf = xf;
+    // the next batch, while this one's chain runs
+    xi = t + 32 < S ? ip[at(t + 32)] : ninf;
+    xf = t + 32 < S ? fp[at(t + 32)] : 0.f;
+    const float log_f = t < S ? -softplus(-cf) : 0.f;
+    float my_lfm = 0.f;
+#pragma unroll
+    for (int s = 0; s < 32; ++s) {
+      const float lfm = __fadd_rn(__shfl_sync(FULL, log_f, s), m_reg);
+      m_reg = fmaxf(lfm, __shfl_sync(FULL, ci, s));
+      if (lane == s) my_lfm = lfm;
+    }
+    if (t < S) {
+      const float d = __fsub_rn(my_lfm, ci);
+      const float e = expf(-fabsf(d));
+      gate[at(t)] = make_float4(d > 0.f ? e : 1.f, d > 0.f ? 1.f : e,
+                                tie_weight(d),
+                                __fdiv_rn(1.f, __fadd_rn(1.f, expf(cf))));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2, 4, 5. the rank-1 scan: X = a X + (b u) w^T, out = X y
+// ---------------------------------------------------------------------------
+
+struct ScanArgs {
+  const float* w;       // the update's column vector, (B, S, H, HD)
+  const float* y;       // the product's vector
+  const float* u;       // the update's row vector
+  const float* z[4];    // the rows' inputs of the chunk's outputs: mode 0
+                        // q; 1 v; 2 k, nall (n_{t-1}), C^T dh, nall (n_t)
+  const float4* gate;   // (i_g, f_g, tie weight, sigmoid(-f)) (B, S, H)
+  const float4* sc;     // (1 / den, ds, hh, 0) (B, S, H)
+  const float* C0;      // mode 0: the state C (B, H, HD, HD)
+  const float* n0;      // modes 0, 2: the state n (B, H, HD)
+  float* out;           // mode 0: C^T dh; 1: dv; 2: dk
+  float* out2;          // mode 0: nall; 2: dq
+  float* part0;         // partials (HD / RW, B, S, H): 0 n . q, 1 v . G k,
+                        // 2 dN . k
+  float* part1;         // 0 q . C^T dh, 2 dN . n_{t-1}
 };
 
-// MODE 0: forward, X = C^T from C0, (a, b) = (f_t, i_g t), y scaled by
-// 1 / den; MODE 1: reverse, X = G, (a, b) = (f_{t+1}, 1), u scaled; MODE 2:
-// reverse, X = G^T, (a, b) = (f_{t+1}, 1), w scaled
-template <int HD, int MODE>
-__global__ void __launch_bounds__(WARPS * 32)
-mlstm_bwd_scan_kernel(const float* __restrict__ wv,
-                      const float* __restrict__ yv,
-                      const float* __restrict__ uv,
-                      const float* __restrict__ zv,
-                      const float4* __restrict__ gate,
-                      const float2* __restrict__ sc,
-                      const float* __restrict__ C0, float* __restrict__ out,
-                      float* __restrict__ zsum, int B, int S, int H) {
-  constexpr int CPL = HD >= 32 ? HD / 32 : 1;  // columns a lane
-  constexpr int TILES = HD / ROWS;             // blocks a (b, head)
-  constexpr bool REV = MODE != 0;
-  static_assert(HD % ROWS == 0 && (HD < 32 || HD % 32 == 0), "head width");
-  static_assert(CHUNK * RW == 32, "a chunk's row sums are one a lane");
-  using L = Ring<HD>;
-  extern __shared__ __align__(16) float ring[];
-  __shared__ float zred[2][CHUNK][WARPS];
-  // each warp's partial row sums of a chunk: CHUNK x RW rows of 32 lanes
-  __shared__ __align__(16) float parts[WARPS][CHUNK * RW * 32];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float* part = parts[warp];
-  const int bh = blockIdx.x / TILES, b = bh / H, head = bh % H;
-  const int tile = blockIdx.x % TILES;
-  const int row0 = tile * ROWS;           // the block's first row of X
-  const int wrow = row0 + warp * RW;      // the warp's
-  const bool on = HD >= 32 || lane < HD;
-  const int chunks = (S + CHUNK - 1) / CHUNK;
+// a row group's sum of z_r o_r over its 4 rows, on the lanes RW u .. RW u
+// + 3 that hold them: the rounded products added pairwise
+__device__ __forceinline__ float group_dot(float z, float o) {
+  float s = __fmul_rn(z, o);
+  s = __fadd_rn(s, __shfl_xor_sync(FULL, s, 1));
+  return __fadd_rn(s, __shfl_xor_sync(FULL, s, 2));
+}
 
+template <int HD, int MODE>
+__global__ void __launch_bounds__((Cfg<HD>::NW + 1) * 32, 2)
+mlstm_bwd_scan_kernel(const ScanArgs args, int B, int S, int H) {
+  using C = Cfg<HD>;
+  using L = Layout<HD>;
+  constexpr int ROWS = C::ROWS, CPL = C::CPL, VEC = C::VEC;
+  constexpr bool REV = MODE != 0;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int bh = blockIdx.x / C::TILES, b = bh / H, head = bh % H;
+  const int blk_row0 = (blockIdx.x % C::TILES) * ROWS;
+  const int chunks = (S + CHUNK - 1) / CHUNK;
+  // full[s] at bars + 8 s: the producer's arrival and the copies' bytes;
+  // empty[s] at bars + 8 (STAGES + s): one arrival a consumer warp
+  const uint32_t bars = smem_addr(smem);
+  float* ring = smem + L::RING;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), C::NW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == C::NW) {
+    // the producer: lane s < CHUNK copies step s of each chunk (steps past
+    // S copy step S - 1: finite values that the scalars make no-ops) and
+    // writes its scalars, loaded a chunk ahead: mode 0 (f_g, i_g); modes
+    // 1, 2 (f_{t+1}, i_g, 1 / den, ds), zero past S - 1
+    auto scalars = [&](int kk) {
+      float4 v = make_float4(MODE == 0 ? 1.f : 0.f, 0.f, 0.f, 0.f);
+      const int cc = REV ? chunks - 1 - kk : kk;
+      const int t = cc * CHUNK + lane;
+      if (kk < chunks && lane < CHUNK && t < S) {
+        const size_t g = ((size_t)b * S + t) * H + head;
+        const float4 gt = args.gate[g];
+        if (MODE == 0) {
+          v = make_float4(gt.y, gt.x, 0.f, 0.f);
+        } else {
+          const float4 s4 = args.sc[g];
+          v = make_float4(t + 1 < S ? args.gate[g + H].y : 0.f, gt.x, s4.x,
+                          s4.y);
+        }
+      }
+      return v;
+    };
+    float4 next = scalars(0);
+    for (int kk = 0; kk < chunks; ++kk) {
+      const int stage = kk % STAGES;
+      const int cc = REV ? chunks - 1 - kk : kk;
+      const uint32_t full = bars + 8 * stage;
+      if (kk >= STAGES)
+        mbar_wait(bars + 8 * (STAGES + stage),
+                  (uint32_t)((kk / STAGES - 1) & 1));
+      if (lane == 0)
+        mbar_expect_tx(full, (uint32_t)(CHUNK * (2 * HD + ROWS) * 4));
+      __syncwarp();
+      if (lane < CHUNK) {
+        const int tu = cc * CHUNK + lane;
+        const int t = tu < S ? tu : S - 1;
+        const size_t g = ((size_t)b * S + t) * H + head;
+        float* dst = ring + stage * L::STAGE + lane * L::STEP;
+        const uint32_t d = smem_addr(dst);
+        bulk_load(d, args.w + g * HD, HD * 4, full);
+        bulk_load(d + HD * 4, args.y + g * HD, HD * 4, full);
+        bulk_load(d + 2 * HD * 4, args.u + g * HD + blk_row0, ROWS * 4,
+                  full);
+        *reinterpret_cast<float4*>(dst + 2 * HD + ROWS) = next;
+      }
+      next = scalars(kk + 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full);  // releases the scalars' stores
+    }
+    return;
+  }
+
+  // a consumer warp: RW rows of X (its row group's), its share of the
+  // columns: lane l holds columns half * SPAN + 32 VEC g + VEC l + e; the
+  // first halves of the pairs are warps 0 .. GROUPS - 1 (one a scheduler)
+  const int grp = warp % C::GROUPS, half = warp / C::GROUPS;
+  const int grow = grp * RW;             // the group's first row in the block
+  const int row0 = blk_row0 + grow;      // ... in the head
+  const bool lead = half == 0;
+  const bool on = C::SPAN >= 32 || lane < C::SPAN;
+  float* part = smem + L::PART + warp * (CHUNK * RW * 32);
+  float* xch = smem + L::XCH;
+  auto col = [&](int g, int e) {
+    return half * C::SPAN + 32 * VEC * g + VEC * (on ? lane : 0) + e;
+  };
   float x[RW][CPL];
 #pragma unroll
-  for (int r = 0; r < RW; ++r)
+  for (int g = 0; g < C::NV; ++g)
 #pragma unroll
-    for (int c = 0; c < CPL; ++c)
-      x[r][c] = MODE == 0 && on
-                    ? C0[((size_t)bh * HD + lane + 32 * c) * HD + wrow + r]
-                    : 0.f;
-
-  // chunk `kk` (in processing order) into stage kk % STAGES; an empty group
-  // past the end keeps the wait below uniform
-  auto issue = [&](int kk) {
-    if (kk < chunks) {
-      const int cc = REV ? chunks - 1 - kk : kk;
-      const int t0 = cc * CHUNK;
-      const int steps = S - t0 < CHUNK ? S - t0 : CHUNK;
-      float* st = ring + (kk % STAGES) * L::STAGE;
-      constexpr int V4 = HD / 4, R4 = ROWS / 4;
-      constexpr int ITEMS = 2 * V4 + 2 * R4 + 2;
-      for (int it = threadIdx.x; it < steps * ITEMS; it += WARPS * 32) {
-        const int u = it / ITEMS, e = it % ITEMS;
-        const int t = t0 + u;
-        const size_t g = ((size_t)b * S + t) * H + head;
-        float* dst = st + u * L::STEP;
-        if (e < V4) {
-          cp_async<16>(dst + 4 * e, wv + g * HD + 4 * e);
-        } else if (e < 2 * V4) {
-          cp_async<16>(dst + HD + 4 * (e - V4), yv + g * HD + 4 * (e - V4));
-        } else if (e < 2 * V4 + R4) {
-          const int o = 4 * (e - 2 * V4);
-          cp_async<16>(dst + 2 * HD + o, uv + g * HD + row0 + o);
-        } else if (e < 2 * V4 + 2 * R4) {
-          const int o = 4 * (e - 2 * V4 - R4);
-          if (zv != nullptr)
-            cp_async<16>(dst + 2 * HD + ROWS + o, zv + g * HD + row0 + o);
-        } else if (e == 2 * V4 + 2 * R4) {
-          const int tg = REV ? (t + 1 < S ? t + 1 : t) : t;
-          cp_async<16>(dst + 2 * HD + 2 * ROWS,
-                       gate + ((size_t)b * S + tg) * H + head);
-        } else {
-          cp_async<8>(dst + 2 * HD + 2 * ROWS + 4, sc + g);
-        }
-      }
+    for (int e = 0; e < VEC; ++e) {
+      float4 c4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (MODE == 0 && on)  // X = C^T: row j, column i is C[i][j]
+        c4 = *reinterpret_cast<const float4*>(
+            args.C0 + ((size_t)bh * HD + col(g, e)) * HD + row0);
+      x[0][g * VEC + e] = c4.x;
+      x[1][g * VEC + e] = c4.y;
+      x[2][g * VEC + e] = c4.z;
+      x[3][g * VEC + e] = c4.w;
     }
-    cp_async_commit();
-  };
-  issue(0);
-  issue(1);
+  // after a chunk lane RW u + r holds row r at step u of the chunk; the
+  // rows' walk (mode 0 n, mode 2 dN) runs across those lanes, its carry
+  // into the next chunk on every lane of its row
+  const int me_u = lane / RW, me_r = lane % RW;
+  float carry = MODE == 0 ? args.n0[(size_t)bh * HD + row0 + me_r] : 0.f;
+  const size_t plane = (size_t)B * S * H;  // one row group's partials
+  const size_t pgrp = (size_t)(row0 / RW) * plane;
+
   for (int kk = 0; kk < chunks; ++kk) {
+    const int stage = kk % STAGES;
     const int cc = REV ? chunks - 1 - kk : kk;
     const int t0 = cc * CHUNK;
-    const int steps = S - t0 < CHUNK ? S - t0 : CHUNK;
-    const float* st = ring + (kk % STAGES) * L::STAGE;
-    const int par = kk & 1;
-    cp_async_wait_all_but_one();
-    __syncthreads();
-#pragma unroll 1
-    for (int i = 0; i < steps; ++i) {
-      const int u = REV ? steps - 1 - i : i;
-      const int t = t0 + u;
-      const float* p = st + u * L::STEP;
-      const float4 g = *reinterpret_cast<const float4*>(p + 2 * HD + 2 * ROWS);
-      const float rden = p[2 * HD + 2 * ROWS + 4];
-      const float a = REV ? (t + 1 < S ? g.y : 0.f) : g.y;
-      const float bb = REV ? 1.f : g.x;
-      float uu[RW], acc[RW];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        uu[r] = p[2 * HD + warp * RW + r];
-        if (MODE == 1) uu[r] = uu[r] * rden;
-        acc[r] = 0.f;
+    // this lane's inputs of the chunk's outputs, loaded now for after it
+    const int t = t0 + me_u;
+    const bool live = t < S;
+    const size_t g = ((size_t)b * S + (live ? t : S - 1)) * H + head;
+    const size_t at = g * HD + row0 + me_r;
+    float z[MODE == 2 ? 4 : 1];
+    if (lead) {
+      z[0] = args.z[0][at];
+      if (MODE == 2) {
+        const int tp = live ? t : S - 1;
+        z[1] = tp > 0 ? args.z[1][at - (size_t)H * HD]
+                      : args.n0[(size_t)bh * HD + row0 + me_r];
+        z[2] = args.z[2][at];
+        z[3] = args.z[3][at];
       }
+    }
+    mbar_wait(bars + 8 * stage, (uint32_t)((kk / STAGES) & 1));
+    const float* st = ring + stage * L::STAGE;
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int col = lane + 32 * c;
-        float w = on ? p[col] : 0.f;
-        float y = on ? p[HD + col] : 0.f;
-        if (MODE == 2) w = w * rden;
-        if (MODE == 0) y = y * rden;
+    for (int i = 0; i < CHUNK; ++i) {
+      const int u = REV ? CHUNK - 1 - i : i;
+      const float* p = st + u * L::STEP;
+      const float4 s4 =
+          *reinterpret_cast<const float4*>(p + 2 * HD + ROWS);
+      const float4 r4 = *reinterpret_cast<const float4*>(p + 2 * HD + grow);
+      const float a = s4.x;
+      const float scale = MODE == 0 ? s4.y : s4.z;  // i_g, or 1 / den
+      const float ur[RW] = {__fmul_rn(r4.x, scale), __fmul_rn(r4.y, scale),
+                            __fmul_rn(r4.z, scale), __fmul_rn(r4.w, scale)};
+      float wv[CPL], yv[CPL];
 #pragma unroll
-        for (int r = 0; r < RW; ++r) {
-          if (MODE == 0)
-            x[r][c] = __fadd_rn(__fmul_rn(a, x[r][c]),
-                                __fmul_rn(bb, __fmul_rn(w, uu[r])));
-          else
-            x[r][c] = fmaf(a, x[r][c], uu[r] * w);
-          acc[r] = fmaf(x[r][c], y, acc[r]);
+      for (int g2 = 0; g2 < C::NV; ++g2) {
+        const float* pw = p + col(g2, 0);
+        if constexpr (VEC == 4) {
+          const float4 w4 = *reinterpret_cast<const float4*>(pw);
+          const float4 y4 = *reinterpret_cast<const float4*>(pw + HD);
+          wv[4 * g2] = w4.x, wv[4 * g2 + 1] = w4.y;
+          wv[4 * g2 + 2] = w4.z, wv[4 * g2 + 3] = w4.w;
+          yv[4 * g2] = y4.x, yv[4 * g2 + 1] = y4.y;
+          yv[4 * g2 + 2] = y4.z, yv[4 * g2 + 3] = y4.w;
+        } else if constexpr (VEC == 2) {
+          const float2 w2 = *reinterpret_cast<const float2*>(pw);
+          const float2 y2 = *reinterpret_cast<const float2*>(pw + HD);
+          wv[2 * g2] = w2.x, wv[2 * g2 + 1] = w2.y;
+          yv[2 * g2] = y2.x, yv[2 * g2 + 1] = y2.y;
+        } else {
+          wv[g2] = on ? pw[0] : 0.f;
+          yv[g2] = on ? pw[HD] : 0.f;
         }
       }
+      // X = a X + u w^T and the rows' partial sums of X y over the lane's
+      // columns, in column order
+      float acc[RW] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          x[r][c] = fmaf(a, x[r][c], __fmul_rn(ur[r], wv[c]));
+          acc[r] = fmaf(x[r][c], yv[c], acc[r]);
+        }
 #pragma unroll
       for (int r = 0; r < RW; ++r) part[swz(u * RW + r, lane)] = acc[r];
     }
-    // the chunk's row sums: lane RW u + r adds the 32 partials of row r
-    // at step u in a tree, writes out and its share of z . out
     __syncwarp();
-    {
-      const int u = lane / RW, r = lane % RW;
-      float a[32];
-      const float* pr = part + lane * 32;
+    // the chunk's row sums: lane RW u + r adds the 32 partials of row r at
+    // step u in a tree; at HD 512 the pair's second warp hands its sums to
+    // the first, which adds them after its own (both wait at the pair's
+    // barrier, so neither is a chunk ahead: the exchange's two buffers
+    // alternate by chunk)
+    float s[32];
+    const float* pr = part + lane * 32;
 #pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const float4 x4 =
-            *reinterpret_cast<const float4*>(pr + (((g ^ lane) & 7) << 2));
-        a[4 * g] = x4.x;
-        a[4 * g + 1] = x4.y;
-        a[4 * g + 2] = x4.z;
-        a[4 * g + 3] = x4.w;
-      }
-      tree<16>(a);
-      const int t = t0 + u;
-      if (u < steps)
-        out[(((size_t)b * S + t) * H + head) * HD + wrow + r] = a[0];
-      if (MODE != 2) {
-        float zs = u < steps
-                       ? st[u * L::STEP + 2 * HD + ROWS + warp * RW + r] * a[0]
-                       : 0.f;
+    for (int q4 = 0; q4 < 8; ++q4) {
+      const float4 x4 =
+          *reinterpret_cast<const float4*>(pr + (((q4 ^ lane) & 7) << 2));
+      s[4 * q4] = x4.x;
+      s[4 * q4 + 1] = x4.y;
+      s[4 * q4 + 2] = x4.z;
+      s[4 * q4 + 3] = x4.w;
+    }
+    tree<16>(s);
+    float o = s[0];
+    if constexpr (C::WPR == 2) {
+      float* xb = xch + ((kk & 1) * C::GROUPS + grp) * 32;
+      if (!lead) xb[lane] = o;
+      bar_sync(1 + grp, 64);
+      if (lead) o = __fadd_rn(o, xb[lane]);
+    }
+    if (lead) {
+      const float* p = st + me_u * L::STEP;
+      const float4 s4 =
+          *reinterpret_cast<const float4*>(p + 2 * HD + ROWS);
+      const float ur = p[2 * HD + grow + me_r];  // k, dh or q of the row
+      if (MODE == 0) {
+        // n_t = f_g n_{t-1} + i_g k (the plain loop's rounding) along the
+        // chunk's steps, then n_t . q and q . C^T dh
+        const float ik = __fmul_rn(ur, s4.y);
+        float n = 0.f;
 #pragma unroll
-        for (int w = RW / 2; w > 0; w /= 2)
-          zs += __shfl_xor_sync(FULL, zs, w);
-        if (r == 0 && u < steps) zred[par][u][warp] = zs;
+        for (int u = 0; u < CHUNK; ++u) {
+          const float prev = __shfl_up_sync(FULL, n, RW);
+          if (me_u == u)
+            n = __fadd_rn(__fmul_rn(s4.x, u == 0 ? carry : prev), ik);
+        }
+        carry = __shfl_sync(FULL, n, (CHUNK - 1) * RW + me_r);
+        const float sp = group_dot(z[0], n);
+        const float hp = group_dot(z[0], o);
+        if (live) {
+          args.out[at] = o;
+          args.out2[at] = n;
+          if (me_r == 0) {
+            args.part0[pgrp + g] = sp;
+            args.part1[pgrp + g] = hp;
+          }
+        }
+      } else if (MODE == 1) {
+        const float vp = group_dot(z[0], o);
+        if (live) {
+          args.out[at] = __fmul_rn(s4.y, o);
+          if (me_r == 0) args.part0[pgrp + g] = vp;
+        }
+      } else {
+        // dN_t = ds_t q_t + f_{t+1} dN_{t+1} (the plain loop's rounding)
+        // along the chunk's steps in reverse, then dk, dq, dN . k and
+        // dN . n_{t-1}
+        const float dsq = __fmul_rn(s4.w, ur);
+        float dn = 0.f;
+#pragma unroll
+        for (int u = CHUNK - 1; u >= 0; --u) {
+          const float next = __shfl_down_sync(FULL, dn, RW);
+          if (me_u == u)
+            dn = __fadd_rn(dsq, __fmul_rn(s4.x, u == CHUNK - 1 ? carry
+                                                               : next));
+        }
+        carry = __shfl_sync(FULL, dn, me_r);
+        const float kp = group_dot(z[0], dn);
+        const float np = group_dot(z[1], dn);
+        if (live) {
+          args.out[at] = __fmul_rn(s4.y, __fadd_rn(o, dn));
+          args.out2[at] = fmaf(s4.w, z[3], __fmul_rn(z[2], s4.z));
+          if (me_r == 0) {
+            args.part0[pgrp + g] = kp;
+            args.part1[pgrp + g] = np;
+          }
+        }
       }
     }
-    __syncthreads();  // the stage is read; zred[par] is complete
-    if (MODE != 2 && threadIdx.x < steps) {
-      float zs = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) zs += zred[par][threadIdx.x][w];
-      zsum[(size_t)tile * B * S * H +
-           ((size_t)b * S + t0 + threadIdx.x) * H + head] = zs;
-    }
-    issue(kk + STAGES);
+    __syncwarp();  // the stage and the partials are read
+    if (lane == 0) mbar_arrive(bars + 8 * (STAGES + stage));
   }
 }
 
 // ---------------------------------------------------------------------------
-// 5. combine: dq, dk, dv in place, then the gates' gradients
+// 3. scalars: s, 1 / den, ds and hh a step from mode 0's partials
 // ---------------------------------------------------------------------------
 
-template <int HD>
-__global__ void __launch_bounds__(VT)
-mlstm_bwd_combine_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ nall,
-                         const float* __restrict__ n0,
-                         const float4* __restrict__ gate,
-                         const float2* __restrict__ sc,
-                         const float* __restrict__ hhs,
-                         const float* __restrict__ vgks,
-                         float* __restrict__ dq, float* __restrict__ dk,
-                         float* __restrict__ dv, float4* __restrict__ sa,
-                         float2* __restrict__ sb, float* __restrict__ di,
-                         float* __restrict__ df, int B, int S, int H) {
-  constexpr int TILES = HD / ROWS;
+// entry i of N planes of partials (`groups` row groups of n each), each
+// plane's added in row-group order: the one order every sum across rows
+// is taken in
+template <int N>
+__device__ __forceinline__ void row_group_sums(
+    const float* const (&planes)[N], int n, int i, int groups,
+    float (&sum)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) sum[j] = 0.f;
+#pragma unroll 16
+  for (int p = 0; p < groups; ++p) {  // the row groups in order
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      sum[j] = __fadd_rn(sum[j], planes[j][(size_t)p * n + i]);
+  }
+}
+
+__global__ void __launch_bounds__(ET)
+mlstm_bwd_scalars_kernel(const float* __restrict__ sp,
+                         const float* __restrict__ hp,
+                         float4* __restrict__ sc, int n, int groups) {
+  const int i = blockIdx.x * ET + threadIdx.x;
+  if (i >= n) return;
+  const float* const planes[2] = {sp, hp};
+  float sum[2];
+  row_group_sums(planes, n, i, groups, sum);
+  const float s = sum[0], h = sum[1];
+  const float as = fabsf(s);
+  const float sg = s > 0.f ? 1.f : (s < 0.f ? -1.f : 0.f);
+  const float sel = as > 1.f ? sg : (as == 1.f ? 0.5f * sg : 0.f);
+  const float rden = __fdiv_rn(1.f, fmaxf(as, 1.f));
+  const float hh = __fmul_rn(h, rden);  // q . C^T dnum
+  sc[i] = make_float4(rden, -__fmul_rn(__fmul_rn(hh, rden), sel), hh, 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// 6. sums: v^T G k, dN . k, dN . n_{t-1} a step, as the chain takes them
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(ET)
+mlstm_bwd_sums_kernel(const float* __restrict__ vp,
+                      const float* __restrict__ kp,
+                      const float* __restrict__ np,
+                      const float4* __restrict__ gate,
+                      const float4* __restrict__ sc, float4* __restrict__ ch,
+                      int n, int groups) {
+  const int i = blockIdx.x * ET + threadIdx.x;
+  if (i >= n) return;
+  const float* const planes[3] = {vp, kp, np};
+  float sum[3];
+  row_group_sums(planes, n, i, groups, sum);
+  const float vgk = sum[0], dnk = sum[1], dnn = sum[2];
+  const float4 gt = gate[i];
+  // (hh, i_g v^T G k, DI, f_g dN . n_{t-1})
+  ch[i] = make_float4(sc[i].z, __fmul_rn(gt.x, vgk),
+                      __fmul_rn(gt.x, __fadd_rn(vgk, dnk)),
+                      __fmul_rn(gt.y, dnn));
+}
+
+// ---------------------------------------------------------------------------
+// 7. chain: Q and the gates' chain in reverse, a warp a (b, head)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+mlstm_bwd_chain_kernel(const float4* __restrict__ gate,
+                       const float4* __restrict__ ch, float* __restrict__ di,
+                       float* __restrict__ df, int S, int H) {
   const int bh = blockIdx.x, b = bh / H, head = bh % H;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const size_t plane = (size_t)B * S * H;  // one tile's sums
-  // (a) each step's hh and v^T G k (the scans' block sums in block order)
-  // and ds
-  for (int t = threadIdx.x; t < S; t += VT) {
-    const size_t g = ((size_t)b * S + t) * H + head;
-    float hh = 0.f, vgk = 0.f;
-    for (int p = 0; p < TILES; ++p) {
-      hh += hhs[p * plane + g];
-      vgk += vgks[p * plane + g];
-    }
-    const float2 s = sc[g];
-    sa[g] = make_float4(-(hh * s.x) * s.y, hh, vgk, 0.f);
-  }
-  __syncthreads();
-  // (b) dN in reverse, a thread a column; dq, dk, dv; dN . k, dN . n_{t-1}
-  __shared__ float red[2][UC][VW][2];
-  const int j = threadIdx.x;
-  const bool on = j < HD;
-  const int jc = on ? j : 0;
-  // a step's inputs, loaded unconditionally (steps past the sequence read
-  // a valid step) a batch of UC steps ahead of their arithmetic
-  struct In {
-    float q, k, nt, np, dqc, gk, gtv, ig, ds, fgn;
-  };
-  auto load = [&](int t0, In (&in)[UC]) {
-#pragma unroll
-    for (int u = 0; u < UC; ++u) {
-      const int t = t0 + u < S ? (t0 + u >= 0 ? t0 + u : 0) : S - 1;
-      const size_t g = ((size_t)b * S + t) * H + head;
-      const size_t at = g * HD + jc;
-      in[u].q = q[at];
-      in[u].k = k[at];
-      in[u].nt = nall[at];
-      in[u].np = t > 0 ? nall[at - (size_t)H * HD] : n0[(size_t)bh * HD + jc];
-      in[u].dqc = dq[at];
-      in[u].gk = dv[at];
-      in[u].gtv = dk[at];
-      in[u].ig = gate[g].x;
-      in[u].ds = sa[g].x;
-      in[u].fgn = t + 1 < S ? gate[g + H].y : 0.f;
-    }
-  };
-  In cur[UC], nxt[UC];
-  float dN = 0.f;
-  int par = 0;
-  const int last = ((S - 1) / UC) * UC;
-  load(last, cur);
-  for (int t0 = last; t0 >= 0; t0 -= UC) {
-    const int steps = S - t0 < UC ? S - t0 : UC;
-    load(t0 - UC, nxt);
-    float p2[UC], p3[UC];
-#pragma unroll
-    for (int u = UC - 1; u >= 0; --u) {
-      p2[u] = 0.f;
-      p3[u] = 0.f;
-      if (u < steps && on) {
-        const In& x = cur[u];
-        dN = __fadd_rn(__fmul_rn(x.ds, x.q), __fmul_rn(x.fgn, dN));
-        const size_t at = (((size_t)b * S + t0 + u) * H + head) * HD + j;
-        dq[at] = x.dqc + x.ds * x.nt;
-        dk[at] = x.ig * (x.gtv + dN);
-        dv[at] = x.ig * x.gk;
-        p2[u] = dN * x.k;
-        p3[u] = dN * x.np;
-      }
-    }
-#pragma unroll
-    for (int w = 16; w > 0; w /= 2)
-#pragma unroll
-      for (int u = 0; u < UC; ++u) {
-        p2[u] += __shfl_xor_sync(FULL, p2[u], w);
-        p3[u] += __shfl_xor_sync(FULL, p3[u], w);
-      }
-    if (lane == 0)
-#pragma unroll
-      for (int u = 0; u < UC; ++u) {
-        red[par][u][warp][0] = p2[u];
-        red[par][u][warp][1] = p3[u];
-      }
-    __syncthreads();
-    if (threadIdx.x < steps) {
-      float s2 = 0.f, s3 = 0.f;
-#pragma unroll
-      for (int w = 0; w < VW; ++w) {
-        s2 += red[par][threadIdx.x][w][0];
-        s3 += red[par][threadIdx.x][w][1];
-      }
-      sb[((size_t)b * S + t0 + threadIdx.x) * H + head] = make_float2(s2, s3);
-    }
-    par ^= 1;
-#pragma unroll
-    for (int u = 0; u < UC; ++u) cur[u] = nxt[u];
-  }
-  __syncthreads();
-  // (c) Q and the gates' chain in reverse, warp 0, 32 steps at a time
-  if (warp != 0) return;
+  const int lane = threadIdx.x;
+  auto at = [&](int t) { return ((size_t)b * S + t) * H + head; };
+  // steps past S read zeros (and f_g = 1), which leave Q and the carry at
+  // their start, 0: the last batch is the first walked
+  const float4 none = make_float4(0.f, 1.f, 0.f, 0.f);
+  int t0 = ((S - 1) / 32) * 32;
+  float4 gt = t0 + lane < S ? gate[at(t0 + lane)] : none;
+  float4 c4 = t0 + lane < S ? ch[at(t0 + lane)]
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
   float Q = 0.f, carry = 0.f;
-  for (int t0 = ((S - 1) / 32) * 32; t0 >= 0; t0 -= 32) {
-    const int valid = S - t0 < 32 ? S - t0 : 32;
-    const int t = t0 + lane;
-    const size_t g = ((size_t)b * S + (t < S ? t : t0)) * H + head;
-    const float4 gt = gate[g];
-    const float4 a4 = sa[g];
-    const float2 b2 = sb[g];
-    const float hh = a4.y;
-    const float igv = gt.x * a4.z;
-    const float DI = gt.x * (a4.z + b2.x);
-    const float FP = gt.y * b2.y;
+  for (; t0 >= 0; t0 -= 32) {
+    const float4 g = gt, c = c4;
+    if (t0 >= 32) {  // the batch before, while this one's chain runs
+      gt = gate[at(t0 - 32 + lane)];
+      c4 = ch[at(t0 - 32 + lane)];
+    }
     float my_di = 0.f, my_df = 0.f;
-    for (int s = valid - 1; s >= 0; --s) {
-      Q = (__shfl_sync(FULL, hh, s) + Q) - __shfl_sync(FULL, igv, s);
-      if (__shfl_sync(FULL, gt.y, s) == 0.f) Q = 0.f;  // f_g C_{t-1} = 0
-      const float DF = Q + __shfl_sync(FULL, FP, s);
-      const float DIs = __shfl_sync(FULL, DI, s);
-      const float w = __shfl_sync(FULL, gt.z, s);
-      const float a = carry - (DIs + DF);
-      const float dlfm = DF + w * a;
-      const float d_i = DIs + (1.f - w) * a;
+#pragma unroll
+    for (int s = 31; s >= 0; --s) {
+      const float hh = __shfl_sync(FULL, c.x, s);
+      const float igv = __shfl_sync(FULL, c.y, s);
+      const float DI = __shfl_sync(FULL, c.z, s);
+      const float FP = __shfl_sync(FULL, c.w, s);
+      const float fg = __shfl_sync(FULL, g.y, s);
+      const float w = __shfl_sync(FULL, g.z, s);
+      Q = __fsub_rn(__fadd_rn(hh, Q), igv);
+      if (fg == 0.f) Q = 0.f;  // f_g C_{t-1} = 0
+      const float DF = __fadd_rn(Q, FP);
+      const float a = __fsub_rn(carry, __fadd_rn(DI, DF));
+      const float dlfm = __fadd_rn(DF, __fmul_rn(w, a));
+      const float d_i = __fadd_rn(DI, __fmul_rn(__fsub_rn(1.f, w), a));
       carry = dlfm;
       if (lane == s) {
         my_di = d_i;
-        my_df = dlfm * gt.w;
+        my_df = __fmul_rn(dlfm, g.w);
       }
     }
-    if (lane < valid) {
-      di[g] = my_di;
-      df[g] = my_df;
+    if (t0 + lane < S) {
+      di[at(t0 + lane)] = my_di;
+      df[at(t0 + lane)] = my_df;
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// the launches
+// ---------------------------------------------------------------------------
+
 template <int HD, int MODE>
-int scan(const float* wv, const float* yv, const float* uv, const float* zv,
-         const float4* gate, const float2* sc, const float* C0, float* out,
-         float* zsum, int B, int S, int H, cudaStream_t stream) {
+int scan(const ScanArgs& a, int B, int S, int H, cudaStream_t stream) {
+  using L = Layout<HD>;
   // the ring's shared memory is allowed once a device
   static std::atomic<bool> allowed[MAX_DEVICES];
   int dev = 0;
@@ -567,77 +665,89 @@ int scan(const float* wv, const float* yv, const float* uv, const float* zv,
   if (dev >= MAX_DEVICES || !allowed[dev].load()) {
     err = cudaFuncSetAttribute(mlstm_bwd_scan_kernel<HD, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Ring<HD>::BYTES);
+                               (int)L::BYTES);
     if (err != cudaSuccess) return (int)err;
     if (dev < MAX_DEVICES) allowed[dev].store(true);
   }
-  const long long blocks = (long long)B * H * (HD / ROWS);
+  const long long blocks = (long long)B * H * Cfg<HD>::TILES;
   mlstm_bwd_scan_kernel<HD, MODE>
-      <<<(unsigned)blocks, WARPS * 32, Ring<HD>::BYTES, stream>>>(
-          wv, yv, uv, zv, gate, sc, C0, out, zsum, B, S, H);
+      <<<(unsigned)blocks, (Cfg<HD>::NW + 1) * 32, L::BYTES, stream>>>(
+          a, B, S, H);
   return (int)cudaGetLastError();
 }
 
 struct Args {
   const float *q, *k, *v, *ip, *fp, *C0, *n0, *m0, *dh;
   float *dq, *dk, *dv, *di, *df;
-  float4* gate;
-  float2* sc;
-  float *nall, *hhs, *vgks;
-  float4* sa;
-  float2* sb;
+  float4 *gate, *sc, *ch;
+  float *nall, *p0, *p1, *p2;
 };
 
 template <int HD>
 int launch(const Args& a, int B, int S, int H, cudaStream_t stream) {
-  if ((long long)B * H * (HD / ROWS) > 0x7fffffffLL)
+  const long long n = (long long)B * S * H;
+  if ((long long)B * H * Cfg<HD>::TILES > 0x7fffffffLL || n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const unsigned heads = (unsigned)(B * H);
-  mlstm_bwd_prep_kernel<HD><<<heads, VT, 0, stream>>>(
-      a.q, a.k, a.ip, a.fp, a.n0, a.m0, a.gate, a.sc, a.nall, S, H);
+  const unsigned eblocks = (unsigned)((n + ET - 1) / ET);
+  const int groups = HD / RW;
+  mlstm_bwd_gates_kernel<<<heads, 32, 0, stream>>>(a.ip, a.fp, a.m0, a.gate,
+                                                   S, H);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  // C^T dnum (into dq), G k (into dv), G^T v (into dk)
-  err = scan<HD, 0>(a.v, a.dh, a.k, a.q, a.gate, a.sc, a.C0, a.dq, a.hhs, B,
-                    S, H, stream);
+  // mode 0: C^T dh into dq, n_t into nall, the n . q and q . C^T dh
+  // partials into p0, p1
+  ScanArgs s0{a.v,  a.dh,   a.k,  {a.q}, a.gate, a.sc, a.C0, a.n0,
+              a.dq, a.nall, a.p0, a.p1};
+  err = scan<HD, 0>(s0, B, S, H, stream);
   if (err) return err;
-  err = scan<HD, 1>(a.q, a.k, a.dh, a.v, a.gate, a.sc, nullptr, a.dv,
-                    a.vgks, B, S, H, stream);
+  mlstm_bwd_scalars_kernel<<<eblocks, ET, 0, stream>>>(a.p0, a.p1, a.sc,
+                                                       (int)n, groups);
+  err = (int)cudaGetLastError();
   if (err) return err;
-  err = scan<HD, 2>(a.dh, a.v, a.q, nullptr, a.gate, a.sc, nullptr, a.dk,
-                    nullptr, B, S, H, stream);
+  // mode 1: dv, the v . G k partials into p2
+  ScanArgs s1{a.q,  a.k,     a.dh, {a.v},   a.gate, a.sc, nullptr, nullptr,
+              a.dv, nullptr, a.p2, nullptr};
+  err = scan<HD, 1>(s1, B, S, H, stream);
   if (err) return err;
-  mlstm_bwd_combine_kernel<HD><<<heads, VT, 0, stream>>>(
-      a.q, a.k, a.nall, a.n0, a.gate, a.sc, a.hhs, a.vgks, a.dq, a.dk, a.dv,
-      a.sa, a.sb, a.di, a.df, B, S, H);
+  // mode 2: dk, dq in place, the dN . k and dN . n_{t-1} partials into p0,
+  // p1 (mode 0's are spent)
+  ScanArgs s2{a.dh, a.v,  a.q,  {a.k, a.nall, a.dq, a.nall}, a.gate, a.sc,
+              nullptr, a.n0, a.dk, a.dq, a.p0, a.p1};
+  err = scan<HD, 2>(s2, B, S, H, stream);
+  if (err) return err;
+  mlstm_bwd_sums_kernel<<<eblocks, ET, 0, stream>>>(
+      a.p2, a.p0, a.p1, a.gate, a.sc, a.ch, (int)n, groups);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  mlstm_bwd_chain_kernel<<<heads, 32, 0, stream>>>(a.gate, a.ch, a.di, a.df,
+                                                   S, H);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the five kernels on `stream` (PyTorch's current stream) and
+// Launches the seven kernels on `stream` (PyTorch's current stream) and
 // returns the first cudaGetLastError() (or cudaFuncSetAttribute's error)
 // that is not zero. q, k, v, dh, dq, dk, dv, nall (B, S, H, hd); i_pre,
 // f_pre, di, df (B, S, H); the state before the scan C0 (B, H, hd, hd), n0
 // (B, H, hd), m0 (B, H): contiguous float32, q, k, v and dh 16-byte aligned
-// (copied by cp.async). Scratch: gate (B, S, H) float4, sc (B, S, H) float2,
-// sa (B, S, H) float4, sb (B, S, H) float2, hhs and vgks (hd / 16, B, S, H)
-// float32. hd one of 16, 32, 64, 128, 256, 512; S >= 1.
+// (copied by TMA). Scratch: gate, sc, ch (B, S, H) float4; p0, p1, p2
+// (hd / 4, B, S, H) float32. hd one of 16, 32, 64, 128, 256, 512; S >= 1.
 extern "C" int mlstm_scan_bwd_launch(
     const void* q, const void* k, const void* v, const void* i_pre,
     const void* f_pre, const void* C0, const void* n0, const void* m0,
     const void* dh, void* dq, void* dk, void* dv, void* di, void* df,
-    void* gate, void* sc, void* nall, void* sa, void* sb, void* hhs,
-    void* vgks, int B, int S, int H, int hd, void* stream) {
+    void* gate, void* sc, void* ch, void* nall, void* p0, void* p1, void* p2,
+    int B, int S, int H, int hd, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   const auto c = [](const void* p) { return static_cast<const float*>(p); };
   const auto o = [](void* p) { return static_cast<float*>(p); };
-  const Args a{c(q),  c(k),  c(v),  c(i_pre), c(f_pre),
-               c(C0), c(n0), c(m0), c(dh),    o(dq),
-               o(dk), o(dv), o(di), o(df),    static_cast<float4*>(gate),
-               static_cast<float2*>(sc),      o(nall),
-               o(hhs), o(vgks), static_cast<float4*>(sa),
-               static_cast<float2*>(sb)};
+  const auto o4 = [](void* p) { return static_cast<float4*>(p); };
+  const Args a{c(q),     c(k),     c(v),     c(i_pre), c(f_pre), c(C0),
+               c(n0),    c(m0),    c(dh),    o(dq),    o(dk),    o(dv),
+               o(di),    o(df),    o4(gate), o4(sc),   o4(ch),   o(nall),
+               o(p0),    o(p1),    o(p2)};
   const auto st = (cudaStream_t)stream;
   switch (hd) {
     case 16: return launch<16>(a, B, S, H, st);

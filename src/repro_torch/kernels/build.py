@@ -104,7 +104,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "mlstm_scan_bwd": {
         # q, k, v, i_pre, f_pre, C0, n0, m0, dh, dq, dk, dv, di, df, gate,
-        # sc, nall, sa, sb, hhs, vgks, B, S, H, hd, stream
+        # sc, ch, nall, p0, p1, p2, B, S, H, hd, stream
         "mlstm_scan_bwd_launch": (*(_P,) * 21, _I, _I, _I, _I, _P),
     },
     "slstm_scan_bwd": {

@@ -27,7 +27,7 @@ over t of the cell. Its ``launches`` attribute counts kernel launches
 and ``routes`` counts them by the head width the kernel was
 instantiated for. A CUDA call that needs a gradient goes through
 ``MLSTMScan``, whose backward launches ``csrc/mlstm_scan_bwd.cu``
-(``mlstm_scan_backward``, five kernels a call; its plain version
+(``mlstm_scan_backward``, seven kernels a call; its plain version
 ``mlstm_scan_backward_plain``, counted in ``mlstm_scan_backward.launches``)
 from the inputs and a copy of the starting state; on the CPU the plain
 loop is differentiable by autograd.
@@ -44,9 +44,10 @@ added pairwise at distances 16, 8, 4, 2, 1; ``kernel_order_dot`` is
 that sum in plain PyTorch). The kernel and the plain loop differ by
 those sums and the last bits of the transcendental functions, within
 1e-5 of max|h|. The gradient's kernels follow the plain backward's steps
-and differ from it by their sums' order: the matrix gradients within
-1e-5 of their largest entry, the gates' within 1e-4 (their Q recurrence
-adds each step's rounding over the sequence).
+and differ from it by their sums' order and their rounding (fused
+updates; C^T dh scaled by 1 / den after the product): the matrix
+gradients within 1e-5 of their largest entry, the gates' within 1e-4
+(their Q recurrence adds each step's rounding over the sequence).
 """
 from __future__ import annotations
 
@@ -57,11 +58,12 @@ from .rglru_scan import softplus
 
 # the head widths the kernel is instantiated for (csrc/mlstm_scan.cu)
 HEAD_DIMS = (16, 32, 64, 128, 256, 512)
-# rows of the matrix a block of the backward's scans owns
-# (csrc/mlstm_scan_bwd.cu ROWS)
-SCAN_ROWS = 16
+# rows of the matrix a partial sum of the backward's scans covers (a row
+# group, csrc/mlstm_scan_bwd.cu RW): a sum across rows is written as
+# hd / SCAN_ROWS partials a step, added in row-group order
+SCAN_ROWS = 4
 # kernels a backward call launches
-BACKWARD_KERNELS = 5
+BACKWARD_KERNELS = 7
 M_INIT = -1e30
 
 
@@ -142,8 +144,10 @@ def mlstm_scan_backward_plain(q: torch.Tensor, k: torch.Tensor,
     """Plain PyTorch version of the scan's gradient: (dq, dk, dv
     (B, S, H, hd), d i_pre, d f_pre (B, S, H)), float32, for the output
     gradient ``dh`` of the scan from the state C, n, m (read, not
-    changed; not differentiated). It takes the steps of
-    ``csrc/mlstm_scan_bwd.cu``:
+    changed; not differentiated). ``csrc/mlstm_scan_bwd.cu`` takes these
+    steps with sums split by row group and some products in other places
+    (C^T dh scaled by 1 / den_t after the product, G^T's update by q_t /
+    den_t, the updates fused), which round otherwise:
 
     - forward: the gates, n_t, s_t = n_t . q_t, den_t = max(|s_t|, 1);
       C_t again and dq_C = C_t^T dnum_t with dnum_t = dh_t (1 / den_t);
@@ -361,7 +365,7 @@ def mlstm_scan_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The scan's gradient for the output gradient ``dh`` (B, S, H, hd)
     from the state C, n, m (read, not changed): (dq, dk, dv, d i_pre,
     d f_pre) float32. CUDA tensors launch ``csrc/mlstm_scan_bwd.cu``
-    (five kernels); CPU tensors take ``mlstm_scan_backward_plain``."""
+    (seven kernels); CPU tensors take ``mlstm_scan_backward_plain``."""
     _check(q, k, v, i_pre, f_pre, C, n, m)
     if dh.shape != q.shape or dh.device != q.device:
         raise ValueError(f"mlstm_scan_backward: dh is {tuple(dh.shape)} on "
@@ -379,23 +383,19 @@ def mlstm_scan_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S == 0:
         return (*(torch.zeros_like(q) for _ in range(3)),
                 torch.zeros_like(i_pre), torch.zeros_like(f_pre))
-    q, k, v, dh = _aligned(q, k, v, dh.float())
-    i_pre, f_pre = i_pre.contiguous(), f_pre.contiguous()
-    C, n, m = (t.contiguous() for t in (C, n, m))
+    q, k, v, dh, C, n = _aligned(q, k, v, dh.float(), C, n)
+    i_pre, f_pre, m = i_pre.contiguous(), f_pre.contiguous(), m.contiguous()
     dq, dk, dv, nall = (torch.empty_like(q) for _ in range(4))
     di, df = torch.empty_like(i_pre), torch.empty_like(i_pre)
     f32 = dict(dtype=torch.float32, device=q.device)
-    gate = torch.empty((B, S, H, 4), **f32)
-    sc = torch.empty((B, S, H, 2), **f32)
-    sa = torch.empty((B, S, H, 4), **f32)
-    sb = torch.empty((B, S, H, 2), **f32)
-    sums = torch.empty((2, hd // SCAN_ROWS, B, S, H), **f32)
+    gate, sc, ch = (torch.empty((B, S, H, 4), **f32) for _ in range(3))
+    parts = torch.empty((3, hd // SCAN_ROWS, B, S, H), **f32)
     lib = build.load("mlstm_scan_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.mlstm_scan_bwd_launch(
         *(t.data_ptr() for t in (q, k, v, i_pre, f_pre, C, n, m, dh, dq, dk,
-                                 dv, di, df, gate, sc, nall, sa, sb,
-                                 sums[0], sums[1])), B, S, H, hd, stream)
+                                 dv, di, df, gate, sc, ch, nall, *parts)),
+        B, S, H, hd, stream)
     if err != 0:
         raise RuntimeError(f"mlstm_scan_bwd kernel launch failed: CUDA error"
                            f" {err}")

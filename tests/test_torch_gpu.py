@@ -1253,7 +1253,7 @@ def test_mlstm_scan_backward_kernel_matches_plain(cuda, B, S, H, hd, ties):
     """``csrc/mlstm_scan_bwd.cu`` against ``mlstm_scan_backward_plain`` on
     the same inputs: dq, dk, dv within 1e-5 of their largest entry, the
     gate pre-activations' gradients within 1e-4 (from the zero state, or
-    from a random one with the stabiliser's planted ties); five kernels a
+    from a random one with the stabiliser's planted ties); seven kernels a
     call counted once; a second call bitwise equal."""
     from repro_torch.kernels import mlstm_scan as ms
     args, state = _mlstm_case(S + hd, B, S, H, hd, cuda)

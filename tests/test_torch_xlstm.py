@@ -728,6 +728,220 @@ def test_mlstm_backward_plain_matches_autograd_and_jax(B, S, H, hd, ties,
         assert err > 1e-3
 
 
+# ---------------------------------------------------------------------------
+# the mLSTM gradient kernel's arithmetic (csrc/mlstm_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) in float32: the product exact in float64, the sum
+    rounded to float64 and then to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _bwd_columns(hd):
+    """The gradient kernel's split of the hd columns of a row: (halves,
+    32 lanes, columns a lane) column indices, -1 where a lane holds none.
+    A row group's columns are on one warp (hd <= 256) or a pair that
+    halves them (hd 512); lane l holds columns half * span + 32 vec g +
+    vec l + e, vec = min(columns a lane, 4)."""
+    halves = 2 if hd >= 512 else 1
+    span = hd // halves
+    cpl = max(span // 32, 1)
+    vec = min(cpl, 4)
+    idx = torch.full((halves, 32, cpl), -1, dtype=torch.long)
+    for h in range(halves):
+        for lane in range(min(span, 32)):
+            for g in range(cpl // vec):
+                for e in range(vec):
+                    idx[h, lane, g * vec + e] = (h * span + 32 * vec * g
+                                                 + vec * lane + e)
+    return idx
+
+
+def _bwd_row_sums(X, y, idx):
+    """out_r = sum_c X[..., r, c] y[..., c] in the kernel's order: a lane's
+    columns one FMA at a time from 0, the 32 lanes pairwise at distances
+    16, 8, 4, 2, 1, then a pair's second half added to its first."""
+    zero = X.new_zeros(X.shape[:-1] + (1,))
+    Xp = torch.cat([X, zero], -1)           # index -1: the zero column
+    yp = torch.cat([y, zero[..., 0, :]], -1)
+    acc = X.new_zeros(X.shape[:-1] + idx.shape[:2])
+    for c in range(idx.shape[2]):
+        acc = _fma(Xp[..., idx[..., c]], yp[..., idx[..., c]][..., None, :, :],
+                   acc)
+    width = 32
+    while width > 1:
+        width //= 2
+        acc = acc[..., :width] + acc[..., width:2 * width]
+    out = acc[..., 0]
+    total = out[..., 0]
+    for h in range(1, out.shape[-1]):
+        total = total + out[..., h]
+    return total
+
+
+def _bwd_update(a, X, u, w):
+    """The scans' update of X (..., rows, cols) by a (...,) and u (...,
+    rows) w (..., cols)^T: fmaf(a, X, u w) with u w rounded."""
+    return _fma(a[..., None, None], X, u[..., :, None] * w[..., None, :])
+
+
+def _group_dot_pairs(a, b):
+    """A row group's sum_r a_r b_r (4 rows): the rounded products added
+    pairwise, (p0 + p1) + (p2 + p3) (the lanes' two shuffles)."""
+    p = (a * b).unflatten(-1, (-1, 4))
+    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+
+
+def _in_groups(parts, order):
+    """A step's partials (..., groups) added from 0 in ``order``."""
+    total = torch.zeros_like(parts[..., 0])
+    for g in order:
+        total = total + parts[..., g]
+    return total
+
+
+def _emulate_mlstm_backward_kernel(q, k, v, i_pre, f_pre, C, n, m, dh,
+                                   order=None):
+    """The mLSTM gradient kernel's arithmetic (csrc/mlstm_scan_bwd.cu) in
+    plain torch: the gates in the exact-one form with the tie weight
+    (``ms.tie_weight``) and sigmoid(-f) as 1 / (1 + exp(f)); the forward
+    pass X = C^T with the fused update (``_bwd_update``: u = i_g k, w = v),
+    C^T dh in the kernel's order (``_bwd_row_sums``) scaled by 1 / den
+    afterwards, n walked as the plain loop rounds it, n . q and q . C^T dh
+    as row groups' partials (``_group_dot_pairs``); the reverse passes G
+    (u = dh / den, w = q, y = k) and G^T (u = q / den, w = dh, y = v), each
+    its own update, dN walked as the plain loop, dN . k and dN . n_{t-1}
+    as partials; each step's
+    partials added in ``order`` (the row groups 0, 1, ... by default);
+    then Q and the gates' chain as the plain backward's. Returns (dq, dk,
+    dv, d i_pre, d f_pre)."""
+    B, S, H, hd = q.shape
+    idx = _bwd_columns(hd)
+    order = range(hd // ms.SCAN_ROWS) if order is None else order
+    ig, fg, wt, sgf, mt = [], [], [], [], m.clone()
+    for t in range(S):
+        lfm = -softplus(-f_pre[:, t]) + mt
+        d = lfm - i_pre[:, t]
+        e = torch.exp(-torch.abs(d))
+        ig.append(torch.where(d > 0, e, torch.ones_like(e)))
+        fg.append(torch.where(d > 0, torch.ones_like(e), e))
+        wt.append(ms.tie_weight(d))
+        sgf.append(1.0 / (1.0 + torch.exp(f_pre[:, t])))
+        mt = torch.maximum(lfm, i_pre[:, t])
+    X, nt = C.transpose(-1, -2).clone(), n.clone()
+    dqc, ns, rden, ds, hh = [], [n.clone()], [], [], []
+    for t in range(S):
+        ur = ig[t][..., None] * k[:, t]
+        X = _bwd_update(fg[t], X, ur, v[:, t])
+        dqc.append(_bwd_row_sums(X, dh[:, t], idx))
+        nt = fg[t][..., None] * nt + ur
+        ns.append(nt)
+        s = _in_groups(_group_dot_pairs(nt, q[:, t]), order)
+        h = _in_groups(_group_dot_pairs(q[:, t], dqc[t]), order)
+        rd = 1.0 / torch.clamp(torch.abs(s), min=1.0)
+        sel = torch.where(torch.abs(s) > 1, torch.sign(s), torch.where(
+            torch.abs(s) == 1, 0.5 * torch.sign(s), torch.zeros_like(s)))
+        rden.append(rd)
+        hh.append(h * rd)
+        ds.append(-(hh[t] * rd) * sel)
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    di, df = torch.zeros_like(i_pre), torch.zeros_like(i_pre)
+    G = torch.zeros_like(C)
+    GT, dN = torch.zeros_like(C), torch.zeros_like(n)
+    Q, carry = torch.zeros_like(m), torch.zeros_like(m)
+    for t in range(S - 1, -1, -1):
+        a = fg[t + 1] if t + 1 < S else torch.zeros_like(m)
+        G = _bwd_update(a, G, dh[:, t] * rden[t][..., None], q[:, t])
+        gk = _bwd_row_sums(G, k[:, t], idx)
+        dv[:, t] = ig[t][..., None] * gk
+        GT = _bwd_update(a, GT, q[:, t] * rden[t][..., None], dh[:, t])
+        gtv = _bwd_row_sums(GT, v[:, t], idx)
+        dN = ds[t][..., None] * q[:, t] + a[..., None] * dN
+        dk[:, t] = ig[t][..., None] * (gtv + dN)
+        dq[:, t] = _fma(ds[t][..., None], ns[t + 1],
+                        dqc[t] * rden[t][..., None])
+        vgk = _in_groups(_group_dot_pairs(v[:, t], gk), order)
+        dnk = _in_groups(_group_dot_pairs(dN, k[:, t]), order)
+        dnn = _in_groups(_group_dot_pairs(dN, ns[t]), order)
+        DI = ig[t] * (vgk + dnk)
+        Q = torch.where(fg[t] == 0, 0.0, (hh[t] + Q) - ig[t] * vgk)
+        DF = Q + fg[t] * dnn
+        di[:, t], df[:, t], carry = ms.gate_chain(DI, DF, wt[t], sgf[t],
+                                                  carry)
+    return dq, dk, dv, di, df
+
+
+def _random_state_tie_case(seed, B, S, H, hd):
+    """Inputs from a random state (C * 0.3, n, m >= 1) with the
+    stabiliser's planted ties (``_tie_gates``), as phase 38's ties case."""
+    q, k, v, _, _ = map(_t, _mlstm_inputs(seed, B, S, H, hd))
+    rng = np.random.default_rng(seed + 2)
+    C = _t((rng.standard_normal((B, H, hd, hd)) * 0.3).astype(np.float32))
+    n = _t(rng.standard_normal((B, H, hd)).astype(np.float32))
+    m = _t(np.abs(rng.standard_normal((B, H))).astype(np.float32) + 1)
+    i_pre, f_pre = _tie_gates(seed, B, S, H, m)
+    return (q, k, v, i_pre, f_pre), (C, n, m)
+
+
+@pytest.mark.parametrize("B,S,H,hd,ties", [(2, 37, 4, 16, False),
+                                           (3, 20, 4, 64, False),
+                                           (1, 30, 2, 32, True),
+                                           (2, 37, 4, 16, True),
+                                           (1, 19, 2, 512, True)])
+def test_mlstm_backward_kernel_arithmetic_matches_jax(B, S, H, hd, ties,
+                                                      monkeypatch):
+    """The gradient kernel's arithmetic (``_emulate_mlstm_backward_kernel``:
+    its column split and tree, the row groups' partials added in order, its
+    fused updates, C^T dh scaled afterwards, the Q recurrence) against
+    ``mlstm_scan_backward_plain`` and ``jax.vjp`` of the reference's
+    ``mlstm_sequence`` from the zero state, within phase 38's limits (dq,
+    dk, dv 1e-5 of their largest entry, the gates' 1e-4); at ragged S, at
+    xlstm-350m's head width (a pair of warps a row group) and at the
+    planted ties of the stabiliser and of max(|n . q|, 1). The row groups
+    added in reverse change the bits and stay within the limits; one row
+    group left out, or the stabiliser's tie given wholly to log_f + m,
+    misses the reference."""
+    arrs = (_mlstm_tie_inputs if ties else _mlstm_inputs)(S + hd, B, S, H, hd)
+    dh = np.random.default_rng(S).standard_normal((B, S, H, hd)).astype(
+        np.float32)
+    args = (*map(_t, arrs), *ms.init_state(B, H, hd, "cpu"), _t(dh))
+    got = _emulate_mlstm_backward_kernel(*args)
+    kinds = ("x", "x", "x", "gate", "gate")
+    _check_grads(got, ms.mlstm_scan_backward_plain(*args), kinds)
+    _, vjp = jax.vjp(jrec.mlstm_sequence, *map(jnp.asarray, arrs))
+    want = [np.asarray(w, np.float32) for w in vjp(jnp.asarray(dh))]
+    _check_grads(got, want, kinds)
+    groups = hd // ms.SCAN_ROWS
+    back = _emulate_mlstm_backward_kernel(*args, order=range(groups)[::-1])
+    _check_grads(back, want, kinds)
+    assert any(not torch.equal(a, b) for a, b in zip(back, got))
+
+    def worst(res):
+        return max(float(np.abs(_np(r) - w).max()) / float(np.abs(w).max())
+                   for r, w in zip(res, want))
+    assert worst(_emulate_mlstm_backward_kernel(
+        *args, order=range(groups - 1))) > 1e-3
+    if ties:
+        monkeypatch.setattr(ms, "tie_weight", lambda d: (d >= 0).float())
+        assert worst(_emulate_mlstm_backward_kernel(*args)) > 1e-3
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 21, 2, 64), (1, 13, 2, 512)])
+def test_mlstm_backward_kernel_arithmetic_from_a_random_state(B, S, H, hd):
+    """The gradient kernel's arithmetic from a random state (C, n, m, the
+    stabiliser's ties planted), as phase 38's ties case, against
+    ``mlstm_scan_backward_plain`` within phase 38's limits."""
+    (q, k, v, i_pre, f_pre), state = _random_state_tie_case(hd + S, B, S, H,
+                                                            hd)
+    dh = _t(np.random.default_rng(hd).standard_normal(
+        (B, S, H, hd)).astype(np.float32))
+    args = (q, k, v, i_pre, f_pre, *state, dh)
+    _check_grads(_emulate_mlstm_backward_kernel(*args),
+                 ms.mlstm_scan_backward_plain(*args),
+                 ("x", "x", "x", "gate", "gate"))
+
+
 @pytest.mark.parametrize("B,S,w,dt", [(2, 37, 16, "float32"),
                                       (3, 1, 16, "float32"),
                                       (2, 29, 16, "bfloat16")])

@@ -12,11 +12,17 @@ Prints the card's name and power limit, then:
   sLSTM's at (1, 4096, 1024) and (8, 128, 1024) with bfloat16 gates and
   its reverse chain alone, one warp of channels (1, 4096, 32); device
   time a call from a CUDA graph (with ``--src``, another checkout's, when
-  it has them); without ``--src`` also the mLSTM backward's five kernels'
-  device times by the profiler at the first shape, and each backward
-  source's registers and spills as ``nvcc -Xptxas -v`` prints them (a
-  fresh build under ``build/bench_xlstm_scan/``); ``--bwd-only`` stops
-  there;
+  it has them); without ``--src`` also the mLSTM backward's device time
+  by kernel (``chip_smoke.mlstm_bwd_split``, the profiler) at the first
+  shape, then the same for its diagnostic builds, each an edited copy of
+  ``csrc/mlstm_scan_bwd.cu`` called through the wrapper in its place (its
+  results are wrong: it times what is left): ``no_tree`` (a chunk's row
+  sums not added: each lane keeps its own partial), ``no_loads`` (the
+  ring filled once, never again), ``one_op_update`` (every update one
+  FMA, X = X + u w^T, as where the decay is exactly 1) and ``one_block``
+  (registers for one block an SM, not two); and each backward source's
+  registers and spills as ``nvcc -Xptxas -v`` prints them (a fresh build
+  under ``build/bench_xlstm_scan/``); ``--bwd-only`` stops there;
 
 - both scans as the main path calls them, through their wrappers, at
   chip_smoke.py phase 28's xlstm-350m shapes: the mLSTM at
@@ -55,7 +61,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import re
 import subprocess
 import sys
 
@@ -83,7 +88,22 @@ _S_ZO = [("const float z = tanhf(pz);", "const float z = 0.5f;"),
 _S_STORE = [("out[(size_t)(t0 + u) * W] = hh;",
              "if (t0 + u == S - 1) out[(size_t)(t0 + u) * W] = hh;")]
 
+_B_LOADS = [("if (lane < CHUNK) {\n        const int tu",
+             "if (lane < CHUNK && kk < STAGES) {\n        const int tu"),
+            ("mbar_expect_tx(full, (uint32_t)(CHUNK * (2 * HD + ROWS) * 4));",
+             "mbar_expect_tx(full, kk < STAGES ? (uint32_t)(CHUNK * (2 * HD "
+             "+ ROWS) * 4) : 0u);")]
+
 VARIANTS = {
+    "mlstm_scan_bwd": {
+        "no_tree": [("tree<16>(s);\n    float o = s[0];", "float o = s[0];")],
+        "no_loads": _B_LOADS,
+        "one_op_update": [("x[r][c] = fmaf(a, x[r][c], __fmul_rn(ur[r], "
+                           "wv[c]));", "x[r][c] = fmaf(ur[r], wv[c], "
+                           "x[r][c]);")],
+        "one_block": [("__launch_bounds__((Cfg<HD>::NW + 1) * 32, 2)",
+                       "__launch_bounds__((Cfg<HD>::NW + 1) * 32, 1)")],
+    },
     "mlstm_scan": {
         "no_gates": _M_GATES,
         "no_sums": _M_SUMS,
@@ -108,13 +128,14 @@ MLSTM_SHAPE = (1, 4096, 4, 512)
 SLSTM_SHAPES = [(1, 4096, 1024), (1, 4096, 32)]
 
 
-def build_variants(build) -> dict:
+def build_variants(build, which=None) -> dict:
     """(kernel, variant) -> library, each an edited copy of the shipped
-    source, built in parallel (one nvcc each)."""
+    source (of ``which``, a part of VARIANTS, or all of them), built in
+    parallel (one nvcc each)."""
     out = os.path.join(ROOT, "build", "bench_xlstm_scan")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for kernel, variants in VARIANTS.items():
+    for kernel, variants in (which or VARIANTS).items():
         src = (build.CSRC / f"{kernel}.cu").read_text()
         for name, edits in variants.items():
             text = src
@@ -244,24 +265,27 @@ def bwd_times(torch, cs, ms, ss, dev, detail: bool) -> None:
               f"launch (CUDA graph)", flush=True)
     if not detail:
         return
-    from torch.profiler import ProfilerActivity, profile
-    args = calls[0]
-    ms.mlstm_scan_backward(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(3):
-            ms.mlstm_scan_backward(*args)
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        found = re.search(r"mlstm_bwd_\w+<[^>]*>", e.name)
-        if e.device_type.name == "CUDA" and found:
-            by_name[found.group(0)] = by_name.get(found.group(0), 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / 3
-    print(f"mlstm_scan_backward {MLSTM_BWD_SHAPES[0]} by kernel (profiler, "
-          f"ms a call): " + ", ".join(f"{n} {t:.4f}" for n, t in
-                                      sorted(by_name.items())), flush=True)
     from repro_torch.kernels import build
+
+    def split_line(label):
+        split = cs.mlstm_bwd_split(torch, lambda: ms.mlstm_scan_backward(
+            *calls[0]), 16)
+        other = cs.mlstm_bwd_split(torch, lambda: ms.mlstm_scan_backward(
+            *calls[1]), 64)
+        print(f"mlstm_scan_backward {MLSTM_BWD_SHAPES[0]} {label} by kernel "
+              f"(profiler, ms a call): {cs.split_text(split, 16)}; "
+              f"{MLSTM_BWD_SHAPES[1]} {cs.split_text(other, 64)}", flush=True)
+    split_line("shipped")
+    # the diagnostic builds, each through the wrapper in place of the
+    # shipped library
+    shipped = build.load("mlstm_scan_bwd")
+    try:
+        for (kernel, name), lib in build_variants(
+                build, {"mlstm_scan_bwd": VARIANTS["mlstm_scan_bwd"]}).items():
+            build._LOADED[kernel] = lib
+            split_line(name)
+    finally:
+        build._LOADED["mlstm_scan_bwd"] = shipped
     out = os.path.join(ROOT, "build", "bench_xlstm_scan")
     os.makedirs(out, exist_ok=True)
     for kernel in ("mlstm_scan_bwd", "slstm_scan_bwd"):
@@ -318,7 +342,8 @@ def main(argv=None) -> int:
     wrapper_times(torch, cs, ms, ss, dev)
     if args.src:
         return 0
-    built = build_variants(build)
+    built = build_variants(build, {k: VARIANTS[k] for k in
+                                   ("mlstm_scan", "slstm_scan")})
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device=dev)
     gen.manual_seed(29)
