@@ -343,7 +343,9 @@ and llama-3.2-vision trained at full width cut in depth. Phases:
      (positive each step), 2 flash and 1 gradient launch a layer a step;
      median step, tokens/s, peak memory, a profiled step;
  38. the xLSTM scans' backward kernels (``csrc/mlstm_scan_bwd.cu``, seven
-     kernels a call; ``csrc/slstm_scan_bwd.cu``, one) vs
+     kernels a call; ``csrc/slstm_scan_bwd.cu``, one, given the forward's
+     saving launch's hs and states, which are held bitwise to the launch
+     without saving) vs
      ``mlstm_scan_backward_plain`` and ``slstm_scan_backward_plain`` at
      xlstm-350m's training shapes (1 x 4096 and 8 x 128; the sLSTM also in
      float32) and ragged ones, the mLSTM also at its stabiliser's planted
@@ -353,7 +355,8 @@ and llama-3.2-vision trained at full width cut in depth. Phases:
      replays bitwise, the kernels a call, the sLSTM's workspace zero;
      device time from a CUDA graph beside the bound and the plain
      version, the mLSTM's by kernel at the two training shapes (the
-     profiler), the sLSTM's one-warp chain floor; each autograd route's
+     profiler), the sLSTM's one-warp chain floor and its forward with and
+     without saving at 1 x 4096; each autograd route's
      directional derivative against a float64 central difference;
  39. xlstm-350m at full width and depth (24 layers, bf16) trains 3 steps
      at 8 x 128 and 3 at 1 x 4096 through ``launch.train``'s code path:
@@ -4578,8 +4581,8 @@ def phase_moe_train(torch, fa, dev) -> dict:
 # a ragged reduced one, S = 1 (its gate gradients exactly 0 from the zero
 # state) and a width off the model's; then the stabiliser's planted ties
 # from a random state (MLSTM_TIES). The sLSTM's (B, S, w, type): the two
-# training shapes in bf16, 1 x 4096 in float32, widths off the warp's 32
-# channels with S off the 8-step chunk, S = 1
+# training shapes in bf16, 1 x 4096 in float32, widths off a block's 16
+# channels with S off the 32-step chunk, S = 1
 MLSTM_BWD_TESTS = [(1, 4096, 4, 512), (8, 128, 4, 512), (2, 37, 4, 16),
                    (1, 1, 4, 512), (2, 45, 2, 128)]
 SLSTM_BWD_TESTS = [(1, 4096, 1024, "bfloat16"), (8, 128, 1024, "bfloat16"),
@@ -4730,18 +4733,47 @@ def xbwd_gradcheck(torch, name, route, leaves, f64_loss, counters) -> str:
             f"{rel:.3g}, limit 1e-5)")
 
 
+def slstm_saving_check(torch, ss, gates, r, state, label) -> tuple:
+    """The sLSTM forward's saving launch (``SLSTMScan``'s forward) from
+    ``state``: its hs and final state bitwise those of the launch without
+    saving, its saved state at step 0 bitwise ``state`` and at step
+    S // 2 bitwise the final state of a launch over the steps before.
+    Returns (hs, (cs, ns, ms))."""
+    one, two = ([t.clone() for t in state] for _ in range(2))
+    with torch.no_grad():
+        hs, saved = ss._forward_kernel(gates, r, *one, save=True)
+        want = ss.slstm_scan(gates, r, *two)
+        t = gates.shape[1] // 2
+        part = [x.clone() for x in state]
+        if t:
+            ss.slstm_scan(gates[:, :t], r, *part)
+    ok = torch.equal(hs, want) and all(
+        torch.equal(a, b) for a, b in zip(one, two)) and all(
+        torch.equal(x[:, 0], s0) and torch.equal(x[:, t], st)
+        for x, s0, st in zip(saved, state, part))
+    if not ok:
+        raise RuntimeError(f"{label}: the saving forward's hs, final state "
+                           f"or saved states differ from the forward "
+                           f"launch without saving")
+    return hs, saved
+
+
 def phase_xlstm_bwd(torch, dev) -> dict:
     """Phase 38: the mLSTM and sLSTM scans' backward kernels
     (``csrc/mlstm_scan_bwd.cu``, seven kernels a call;
-    ``csrc/slstm_scan_bwd.cu``, one) vs ``mlstm_scan_backward_plain`` and
-    ``slstm_scan_backward_plain`` at MLSTM_BWD_TESTS (+ the planted ties)
-    and SLSTM_BWD_TESTS (``xbwd_check``: limits, two launches bitwise,
-    graph replays bitwise, kernels a call, the sLSTM's arrival counters
-    zero); device time a launch from a CUDA graph beside the bound and the
-    plain version (timed once, in the check), the mLSTM's by kernel at
-    its two training shapes (``mlstm_bwd_split``); the sLSTM's chain
-    floor, one warp's chains alone at the same S; then each autograd
-    route's float64 central difference."""
+    ``csrc/slstm_scan_bwd.cu``, ``slstm_scan.BACKWARD_KERNELS``) vs
+    ``mlstm_scan_backward_plain`` and ``slstm_scan_backward_plain`` at
+    MLSTM_BWD_TESTS (+ the planted ties) and SLSTM_BWD_TESTS
+    (``xbwd_check``: limits, two launches bitwise, graph replays bitwise,
+    kernels a call, the sLSTM's arrival counters zero), the sLSTM's
+    backward given the forward's saving launch's hs and states as
+    ``SLSTMScan.backward`` gives them (``slstm_saving_check`` holds that
+    launch to the one without saving); device time a launch from a CUDA
+    graph beside the bound and the plain version (timed once, in the
+    check), the mLSTM's by kernel at its two training shapes
+    (``mlstm_bwd_split``); the sLSTM's chain floor, one warp's chains
+    alone at the same S, and its forward with and without saving; then
+    each autograd route's float64 central difference."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mlstm_scan as ms
     from repro_torch.kernels import slstm_scan as ss
@@ -4812,24 +4844,25 @@ def phase_xlstm_bwd(torch, dev) -> dict:
         r = torch.randn((w, 4), generator=gen, device=dev) * 0.5
         state = ss.init_state(B, w, dev)
         dhs = torch.randn((B, S, w), generator=gen, device=dev)
-        with torch.no_grad():
-            hs = ss.slstm_scan(gates, r, *[t.clone() for t in state])
         label = f"slstm_scan_backward ({B}, {S}, {w}) {dt}"
+        hs, saved = slstm_saving_check(torch, ss, gates, r, state, label)
         res = xbwd_check(
             torch, label,
-            lambda g=gates, r=r, d=dhs, h=hs: ss.slstm_scan_backward(
-                g, r, *state, d, h),
+            lambda g=gates, r=r, d=dhs, h=hs, sv=saved:
+                ss.slstm_scan_backward(g, r, *state, d, h, sv),
             lambda g=gates, r=r, d=dhs: ss.slstm_scan_backward_plain(
                 g, r, *state, d),
-            ("x", "gate"), ss.slstm_scan_backward, 1,
+            ("x", "gate"), ss.slstm_scan_backward, ss.BACKWARD_KERNELS,
             work=lambda w=w: build.workspace(
                 "slstm_scan_bwd", dev, -(-w // ss.SCAN_BWD_CHANNELS)))
         worst = max(worst, res["errs"][0])
         long = S * B >= 1024
         ms_ = graph_ms(torch, res["call"], launches=3 if long else 10,
                        reps=3 if long else 10)
+        # the function's bytes; the design also reads the saved states
         nbytes = (2 * gates.numel() * gates.element_size()
                   + 2 * 4 * B * S * w + 2 * 16 * w + 4 * 4 * B * w)
+        design_bytes = nbytes + 3 * 4 * B * S * w
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
         t_ops = SLSTM_BWD_OPS * B * S * w / RATE_FP32 * 1e3
         entry = {"ms": ms_, "plain_ms": res["plain_ms"],
@@ -4842,23 +4875,40 @@ def phase_xlstm_bwd(torch, dev) -> dict:
             st1 = [t[:, :32].contiguous() for t in state]
             d1 = dhs[:, :, :32].contiguous()
             h1 = hs[:, :, :32].contiguous()
+            sv1 = tuple(t[:, :, :32].contiguous() for t in saved)
             entry["chain_ms"] = graph_ms(
                 torch, lambda: ss.slstm_scan_backward(
-                    g1, r[:32].contiguous(), *st1, d1, h1),
+                    g1, r[:32].contiguous(), *st1, d1, h1, sv1),
                 launches=3, reps=3)
+            # the forward with and without saving, from copies of the state
+            fst = [t.clone() for t in state]
+            with torch.no_grad():
+                entry["fwd_ms"] = graph_ms(
+                    torch, lambda: ss.slstm_scan(gates, r, *fst),
+                    launches=3, reps=3)
+                entry["fwd_save_ms"] = graph_ms(
+                    torch, lambda: ss._forward_kernel(gates, r, *fst,
+                                                      save=True),
+                    launches=3, reps=3)
             chain = (f"; one warp's chains alone (1, {S}, 32): "
                      f"{entry['chain_ms']:.4f} ms, "
-                     f"{entry['chain_ms'] * 1e6 / S:.1f} ns a step")
+                     f"{entry['chain_ms'] * 1e6 / S:.1f} ns a step; the "
+                     f"forward {entry['fwd_ms']:.4f} ms, its saving launch "
+                     f"{entry['fwd_save_ms']:.4f} ms "
+                     f"({entry['fwd_save_ms'] / entry['fwd_ms']:.3f}x)")
         out["slstm"][(B, S, w, dt)] = entry
         rel = [e / max(s, 1e-30) for e, s in zip(res["errs"], res["scales"])]
         log(f"{label}: errors / max (dgates, dr) {[f'{x:.3g}' for x in rel]}"
             f" (limits {XBWD_X_REL:g} + two bf16 steps in bf16, "
-            f"{XBWD_GATE_REL:g}); two launches bitwise, graph replays "
-            f"bitwise, workspace zero, 1 device kernel a call; kernel "
-            f"{ms_:.4f} ms a launch on the device (CUDA graph), plain "
+            f"{XBWD_GATE_REL:g}); the saving forward bitwise the forward; "
+            f"two launches bitwise, graph replays bitwise, workspace zero, "
+            f"{ss.BACKWARD_KERNELS} device kernel a call; kernel "
+            f"{ms_:.4f} ms a call on the device (CUDA graph), plain "
             f"{res['plain_ms']:.2f} ms, bound {entry['bound_ms']:.4f} ms "
             f"({entry['bound_by']}: {nbytes / 1e6:.2f} MB, "
-            f"{SLSTM_BWD_OPS * B * S * w / 1e9:.3f} G float32 ops){chain}")
+            f"{SLSTM_BWD_OPS * B * S * w / 1e9:.3f} G float32 ops; the "
+            f"design moves {design_bytes / 1e6:.2f} MB with the saved "
+            f"states){chain}")
         del res
     out["max_abs_err"]["slstm"] = worst
     # each autograd route against a float64 central difference

@@ -13,10 +13,15 @@
 //   i_g = exp(pre_i - m'),  f_g = exp((log_f + m) - m'),
 //   c' = f_g c + i_g z,  n' = max(f_g n + i_g, 1e-6),  h' = o (c' / n'),
 // writes every step's h' to hs (B, S, w) float32 and leaves the final state
-// in c, n, m, h (in place). Every product and sum is rounded on its own
-// (__fmul_rn, __fadd_rn: no contraction into FMAs), as the plain version's
-// tensor operations round them; the transcendentals are CUDA's tanhf, expf
-// and log1pf, and the divisions IEEE (no fast math).
+// in c, n, m, h (in place). Its saving launch (for the gradient, given cs,
+// ns, ms) also stores the state c, n, m before every step, (B, S, w)
+// float32 each, from the registers that hold it: three 128-byte stores a
+// warp a step, off the h -> h chain; the launch without them compiles
+// without the stores (a template flag), as it did before they existed.
+// Every product and sum is rounded on its own (__fmul_rn, __fadd_rn: no
+// contraction into FMAs), as the plain version's tensor operations round
+// them; the transcendentals are CUDA's tanhf, expf and log1pf, and the
+// divisions IEEE (no fast math).
 //
 // The exact-one gate: m' is one of log_f + m and pre_i, so with
 // d = (log_f + m) - pre_i one gate is exactly 1 and the other exp(-|d|)
@@ -99,12 +104,14 @@ __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
 }
 
-template <typename T>
+template <typename T, bool SAVE>
 __global__ void __launch_bounds__(THREADS)
 slstm_scan_kernel(const T* __restrict__ gates, const float* __restrict__ r,
                   float* __restrict__ c, float* __restrict__ n,
                   float* __restrict__ m, float* __restrict__ h,
-                  float* __restrict__ hs, int B, int S, int W) {
+                  float* __restrict__ hs, float* __restrict__ cs,
+                  float* __restrict__ ns, float* __restrict__ ms, int B,
+                  int S, int W) {
   using R = typename Raw<T>::type;
   __shared__ R ring[STAGES][CHUNK][THREADS];
   const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -115,7 +122,8 @@ slstm_scan_kernel(const T* __restrict__ gates, const float* __restrict__ r,
               ro = r[4 * ch + 3];
   float cc = c[idx], nn = n[idx], mm = m[idx], hh = h[idx];
   const T* g = gates + ((size_t)b * S * W + ch) * 4;
-  float* out = hs + (size_t)b * S * W + ch;
+  const size_t row = (size_t)b * S * W + ch;  // step 0 of hs, cs, ns, ms
+  float* out = hs + row;
   const size_t step = (size_t)W * 4;
 
   // this thread's gates of chunk `k` into stage k % STAGES (an empty group
@@ -141,6 +149,12 @@ slstm_scan_kernel(const T* __restrict__ gates, const float* __restrict__ r,
     for (int u = 0; u < steps; ++u) {
       const Gates x = Raw<T>::get(nx);
       if (u + 1 < steps) nx = slots[(u + 1) * THREADS];
+      if constexpr (SAVE) {
+        const size_t at = row + (size_t)(t0 + u) * W;
+        cs[at] = cc;
+        ns[at] = nn;
+        ms[at] = mm;
+      }
       const float pz = __fadd_rn(x.z, __fmul_rn(hh, rz));
       const float pi = __fadd_rn(x.i, __fmul_rn(hh, ri));
       const float pf = __fadd_rn(x.f, __fmul_rn(hh, rf));
@@ -169,11 +183,17 @@ slstm_scan_kernel(const T* __restrict__ gates, const float* __restrict__ r,
 
 template <typename T>
 int launch(const void* gates, const float* r, float* c, float* n, float* m,
-           float* h, float* hs, int B, int S, int W, cudaStream_t stream) {
+           float* h, float* hs, float* cs, float* ns, float* ms, int B,
+           int S, int W, cudaStream_t stream) {
   const long long blocks = ((long long)B * W + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  slstm_scan_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(gates), r, c, n, m, h, hs, B, S, W);
+  const auto* g = static_cast<const T*>(gates);
+  if (cs)
+    slstm_scan_kernel<T, true><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        g, r, c, n, m, h, hs, cs, ns, ms, B, S, W);
+  else
+    slstm_scan_kernel<T, false><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        g, r, c, n, m, h, hs, cs, ns, ms, B, S, W);
   return (int)cudaGetLastError();
 }
 
@@ -183,10 +203,12 @@ int launch(const void* gates, const float* r, float* c, float* n, float* m,
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 // gates (B, S, w, 4) contiguous, float32 (is_bf16 = 0) or bfloat16, its
 // base aligned to a channel's 4 gates; r (w, 4), c, n, m, h (B, w) and
-// hs (B, S, w) contiguous float32.
+// hs (B, S, w) contiguous float32; cs, ns, ms null (serving) or, for the
+// saving launch, all three (B, S, w) contiguous float32.
 extern "C" int slstm_scan_launch(const void* gates, const void* r, void* c,
-                                 void* n, void* m, void* h, void* hs, int B,
-                                 int S, int W, int is_bf16, void* stream) {
+                                 void* n, void* m, void* h, void* hs,
+                                 void* cs, void* ns, void* ms, int B, int S,
+                                 int W, int is_bf16, void* stream) {
   if (B == 0 || S == 0 || W == 0) return 0;
   const auto st = (cudaStream_t)stream;
   const auto* rf = static_cast<const float*>(r);
@@ -195,8 +217,12 @@ extern "C" int slstm_scan_launch(const void* gates, const void* r, void* c,
   auto* mf = static_cast<float*>(m);
   auto* hf = static_cast<float*>(h);
   auto* out = static_cast<float*>(hs);
+  auto* sc = static_cast<float*>(cs);
+  auto* sn = static_cast<float*>(ns);
+  auto* sm = static_cast<float*>(ms);
   if (is_bf16)
-    return launch<__nv_bfloat16>(gates, rf, cf, nf, mf, hf, out, B, S, W,
-                                 st);
-  return launch<float>(gates, rf, cf, nf, mf, hf, out, B, S, W, st);
+    return launch<__nv_bfloat16>(gates, rf, cf, nf, mf, hf, out, sc, sn, sm,
+                                 B, S, W, st);
+  return launch<float>(gates, rf, cf, nf, mf, hf, out, sc, sn, sm, B, S, W,
+                       st);
 }

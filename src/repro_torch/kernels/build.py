@@ -99,8 +99,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mlstm_scan_launch": (*(_P,) * 10, _I, _I, _I, _I, _P),
     },
     "slstm_scan": {
-        # gates, r, c, n, m, h, hs, B, S, w, is_bf16, stream
-        "slstm_scan_launch": (*(_P,) * 7, _I, _I, _I, _I, _P),
+        # gates, r, c, n, m, h, hs, cs, ns, ms (null unless saving), B, S,
+        # w, is_bf16, stream
+        "slstm_scan_launch": (*(_P,) * 10, _I, _I, _I, _I, _P),
     },
     "mlstm_scan_bwd": {
         # q, k, v, i_pre, f_pre, C0, n0, m0, dh, dq, dk, dv, di, df, gate,
@@ -108,9 +109,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mlstm_scan_bwd_launch": (*(_P,) * 21, _I, _I, _I, _I, _P),
     },
     "slstm_scan_bwd": {
-        # gates, r, c0, n0, m0, h0, hs, dhs, dgates, cs, ns, ms, part, dr,
-        # arrivals, B, S, w, is_bf16, stream
-        "slstm_scan_bwd_launch": (*(_P,) * 15, _I, _I, _I, _I, _P),
+        # gates, r, h0, hs, cs, ns, ms, dhs, dgates, part, dr, arrivals, B,
+        # S, w, is_bf16, stream
+        "slstm_scan_bwd_launch": (*(_P,) * 12, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1224,8 +1224,9 @@ def test_xlstm_scan_kernels_refuse_a_gradient(cuda):
     sg = torch.autograd.grad(hs, sleaves, dhs)
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
     want_m = ms.mlstm_scan_backward(*args, *state, dh)
-    hs_again = ss.slstm_scan(*sargs, *[t.clone() for t in sstate])
-    want_s = ss.slstm_scan_backward(*sargs, *sstate, dhs, hs_again)
+    hs_again, saved = ss._forward_kernel(*sargs, *[t.clone() for t in sstate],
+                                         save=True)
+    want_s = ss.slstm_scan_backward(*sargs, *sstate, dhs, hs_again, saved)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(mg, want_m))
     assert all(torch.equal(a, b) for a, b in zip(sg, want_s))
@@ -1283,18 +1284,20 @@ def test_mlstm_scan_backward_kernel_matches_plain(cuda, B, S, H, hd, ties):
                                       (4, 128, 1024, "bfloat16")])
 def test_slstm_scan_backward_kernel_matches_plain(cuda, B, S, w, dt):
     """``csrc/slstm_scan_bwd.cu`` against ``slstm_scan_backward_plain``
-    from a random state: float32 dgates within 1e-5 of its largest entry
-    (bf16: two bf16 steps of each entry plus that), dr within 1e-4; a
-    second launch bitwise equal and the arrival counters zero after it;
-    widths off the warp's 32 channels, S off the 8-step chunk, S = 1."""
+    from a random state, given the forward's saving launch's hs and
+    states as ``SLSTMScan.backward`` gives them: float32 dgates within
+    1e-5 of its largest entry (bf16: two bf16 steps of each entry plus
+    that), dr within 1e-4; a second launch bitwise equal and the arrival
+    counters zero after it; widths off a block's channels, S off the
+    32-step chunk, S = 1."""
     from repro_torch.kernels import build
     from repro_torch.kernels import slstm_scan as ss
     args, state = _slstm_case(S + w, B, S, w, dt, cuda)
     dhs = torch.randn((B, S, w), device=cuda)
-    with torch.no_grad():
-        hs = ss.slstm_scan(*args, *[t.clone() for t in state])
-    got = ss.slstm_scan_backward(*args, *state, dhs, hs)
-    again = ss.slstm_scan_backward(*args, *state, dhs, hs)
+    hs, saved = ss._forward_kernel(*args, *[t.clone() for t in state],
+                                   save=True)
+    got = ss.slstm_scan_backward(*args, *state, dhs, hs, saved)
+    again = ss.slstm_scan_backward(*args, *state, dhs, hs, saved)
     want = ss.slstm_scan_backward_plain(*args, *state, dhs)
     torch.cuda.synchronize()
     assert got[0].dtype == args[0].dtype and got[1].dtype == torch.float32
@@ -1304,8 +1307,43 @@ def test_slstm_scan_backward_kernel_matches_plain(cuda, B, S, w, dt):
         2.0 ** -7 * wf.abs() if dt == "bfloat16" else 0.0)
     assert not bool(over.any())
     assert _within(got[1], want[1], 1e-4)
-    work = build.workspace("slstm_scan_bwd", cuda, -(-w // 32))
+    work = build.workspace("slstm_scan_bwd", cuda,
+                           -(-w // ss.SCAN_BWD_CHANNELS))
     assert int(work.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("B,S,w,dt", [(2, 37, 32, "float32"),
+                                      (1, 1, 7, "float32"),
+                                      (1, 300, 1000, "bfloat16")])
+def test_slstm_saving_forward_is_the_forward_bitwise(cuda, B, S, w, dt):
+    """The forward kernel's saving launch (``SLSTMScan``'s forward) from a
+    random state: hs and the final state bitwise those of the launch
+    without saving, the saved state at step 0 bitwise the starting state
+    and at step t bitwise the final state of a launch over the first t
+    steps; the saved states within 1e-5 of the plain loop's."""
+    from repro_torch.kernels import slstm_scan as ss
+    args, state = _slstm_case(S * w + 1, B, S, w, dt, cuda)
+    one, two = ([t.clone() for t in state] for _ in range(2))
+    before = ss.slstm_scan.launches
+    hs, saved = ss._forward_kernel(*args, *one, save=True)
+    with torch.no_grad():
+        want = ss.slstm_scan(*args, *two)
+    assert ss.slstm_scan.launches == before + 2
+    assert torch.equal(hs, want)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    for got, start in zip(saved, state):
+        assert torch.equal(got[:, 0], start)
+    t = S // 2
+    if t:
+        part = [x.clone() for x in state]
+        with torch.no_grad():
+            ss.slstm_scan(args[0][:, :t], args[1], *part)
+        for got, end in zip(saved, part):
+            assert torch.equal(got[:, t], end)
+    _, plain = ss.slstm_scan_plain(*args, *[x.clone() for x in state],
+                                   save=True)
+    for got, ref in zip(saved, plain):
+        assert _within(got, ref)
 
 
 def test_xlstm_train_on_card_matches_cpu(cuda):

@@ -148,6 +148,53 @@ def test_slstm_scan_plain_matches_reference(B, S, w, dt):
         _within_max(mine, ref)
 
 
+@pytest.mark.parametrize("B,S,w,dt,start", [(2, 37, 16, "float32", "zero"),
+                                            (1, 45, 7, "float32", "random"),
+                                            (3, 1, 5, "float32", "zero"),
+                                            (2, 29, 13, "bfloat16", "random"),
+                                            (1, 70, 33, "bfloat16", "zero")])
+def test_slstm_saved_states_match_reference_cell(B, S, w, dt, start):
+    """The saving launch's plain counterpart, ``slstm_scan_plain(...,
+    save=True)``: the state c, n, m before every step against the
+    reference's ``_slstm_cell`` stepped under JAX from the same state
+    (the zero state, or a random one), each within 1e-5 of its largest
+    entry over the steps (m at the zero state's -1e30 exactly); step 0
+    holds the starting state bitwise, and hs and the final state are
+    bitwise those of the call without saving."""
+    rng = np.random.default_rng(S * w + B)
+    gates = (rng.standard_normal((B, S, w, 4)) * 2).astype(np.float32)
+    r = (rng.standard_normal((w, 4)) * 0.5).astype(np.float32)
+    tg = _t(gates).to(getattr(torch, dt))
+    jg = jnp.asarray(tg.float().numpy()).astype(getattr(jnp, dt))
+    if start == "zero":
+        state = [t.numpy() for t in ss.init_state(B, w, "cpu")]
+    else:
+        c, m, h = (rng.standard_normal((B, w)).astype(np.float32)
+                   for _ in range(3))
+        n = (np.abs(rng.standard_normal((B, w))) + 0.5).astype(np.float32)
+        state = [c, n, m, h]
+    jst = jrec.SLSTMState(*(jnp.asarray(a) for a in state))
+    want = [[], [], []]
+    for t in range(S):
+        for dst, src in zip(want, jst[:3]):
+            dst.append(np.asarray(src))
+        jst, _ = jrec._slstm_cell(jst, jg[:, t], jnp.asarray(r))
+    mine = [_t(a) for a in state]
+    hs, saved = ss.slstm_scan_plain(tg, _t(r), *mine, save=True)
+    plain = [_t(a) for a in state]
+    assert torch.equal(hs, ss.slstm_scan_plain(tg, _t(r), *plain))
+    assert all(torch.equal(a, b) for a, b in zip(mine, plain))
+    for i, (got, ref) in enumerate(zip(saved, want)):
+        ref = np.stack(ref, axis=1)
+        assert got.shape == (B, S, w) and got.dtype == torch.float32
+        assert torch.equal(got[:, 0], _t(state[i]))
+        if i == 2 and start == "zero":
+            np.testing.assert_array_equal(_np(got[:, 0]), ref[:, 0])
+            got, ref = got[:, 1:], ref[:, 1:]
+        if got.numel():
+            _within_max(got, ref)
+
+
 def test_recurrent_functions_match_reference():
     """``mlstm_step``/``slstm_step`` from a state the sequence forms left
     (the reference's names and shapes; the port's update the state in
@@ -976,6 +1023,142 @@ def test_slstm_backward_plain_matches_autograd_and_jax(B, S, w, dt):
             assert not (diff > 2.0 ** -7 * np.abs(wg) + 1e-5 * scale).any()
         _within_max(got[1], want[1] if not isinstance(want[1], torch.Tensor)
                     else _np(want[1]), GRAD_REL["gate"])
+
+
+def _emulate_slstm_backward_kernel(gates, r, c, n, m, h, dhs):
+    """``csrc/slstm_scan_bwd.cu``'s arithmetic in plain torch (float32):
+    the state before every step as the forward's saving launch stores it
+    (``slstm_scan_plain(..., save=True)``), every step's coefficients as
+    the producers compute them (the exact-one gates), then the chain
+    warp's reverse step as ``chain_step`` writes it: each product added
+    to a sum fused with it (``_fma``), a / n_t as q = a r, then
+    q + (a - n_t q) r, with r the reciprocal of n_t (the kernel refines
+    the hardware's approximation of it; IEEE 1 / n_t here), dr's sums
+    over t in reverse and over the batch rows in order."""
+    B, S, w, _ = gates.shape
+    dhs = dhs.float()
+    hs, (cs_, ns_, ms_) = ss.slstm_scan_plain(
+        gates, r, *(t.clone() for t in (c, n, m, h)), save=True)
+    h_prev = torch.cat([h[:, None], hs[:, :-1]], dim=1)
+    pre = gates.float() + h_prev[..., None] * r
+    z, o = torch.tanh(pre[..., 0]), torch.sigmoid(pre[..., 3])
+    i_g, f_g, _ = _one_exp_gates(pre[..., 1], pre[..., 2], ms_)
+    d = (-softplus(-pre[..., 2]) + ms_) - pre[..., 1]
+    c_t = f_g * cs_ + i_g * z
+    inner = f_g * ns_ + i_g
+    n_t = torch.clamp(inner, min=ss.N_FLOOR)
+    cn, rn = c_t / n_t, 1.0 / n_t
+    mask, wt = ms.tie_weight(inner - ss.N_FLOOR), ms.tie_weight(d)
+    zz, sgf, oo = 1.0 - z * z, torch.sigmoid(-pre[..., 2]), o * (1.0 - o)
+
+    def div(a, t):
+        q = a * rn[:, t]
+        return _fma(rn[:, t], _fma(-n_t[:, t], q, a), q)
+    fb, dc, dn, carry = (torch.zeros((B, w)) for _ in range(4))
+    dpre = torch.empty((B, S, w, 4))
+    dr_b = torch.zeros((B, w, 4))
+    for t in range(S - 1, -1, -1):
+        dH = dhs[:, t] + fb
+        d_o, dcn = dH * cn[:, t], dH * o[:, t]
+        dc = dc + div(dcn, t)
+        dn = (dn - div(dcn * cn[:, t], t)) * mask[:, t]
+        DF = f_g[:, t] * _fma(dn, ns_[:, t], dc * cs_[:, t])
+        DI = i_g[:, t] * _fma(dc, z[:, t], dn)
+        am = carry - (DI + DF)
+        dlfm = _fma(wt[:, t], am, DF)
+        dp = torch.stack([(dc * i_g[:, t]) * zz[:, t],
+                          _fma(1.0 - wt[:, t], am, DI), dlfm * sgf[:, t],
+                          d_o * oo[:, t]], dim=-1)
+        dc, dn, carry = dc * f_g[:, t], dn * f_g[:, t], dlfm
+        fb = _fma(dp[..., 3], r[:, 3], _fma(dp[..., 2], r[:, 2], _fma(
+            dp[..., 1], r[:, 1], dp[..., 0] * r[:, 0])))
+        dpre[:, t] = dp
+        dr_b = dr_b + dp * h_prev[:, t, :, None]
+    dr = dr_b[0]
+    for b in range(1, B):
+        dr = dr + dr_b[b]
+    return dpre.to(gates.dtype), dr, (d == 0, inner == ss.N_FLOOR)
+
+
+def _slstm_tie_case(seed, B, S, w, case):
+    """Gates, r and the state for the emulation test: ``plain`` random
+    gates from the zero state; ``ties`` every third channel planted so
+    that log_f + m == i_pre at every step after the first (r_i = r_f =
+    0, i_pre = 2, f_pre = 30: softplus(-30) vanishes beside m = 2), from
+    the zero state; ``floor`` a random state whose even channels hold n
+    at its 1e-6 floor (i_g exactly 0: i_pre = -300, f_pre = 30, m = 0, so
+    f n + i == 1e-6, a tie of the floor's max) or below it."""
+    rng = np.random.default_rng(seed)
+    gates = (rng.standard_normal((B, S, w, 4)) * 2).astype(np.float32)
+    r = (rng.standard_normal((w, 4)) * 0.5).astype(np.float32)
+    state = [a.numpy() for a in ss.init_state(B, w, "cpu")]
+    if case == "ties":
+        r[::3, 1:3] = 0.0
+        gates[:, :, ::3, 1], gates[:, :, ::3, 2] = 2.0, 30.0
+    elif case == "floor":
+        c, m, h = (rng.standard_normal((B, w)).astype(np.float32)
+                   for _ in range(3))
+        n = (np.abs(rng.standard_normal((B, w))) + 0.5).astype(np.float32)
+        n[:, ::2] = np.float32(1e-6)
+        n[:, 2::4] = np.float32(1e-7)
+        m[:, ::2] = 0.0
+        r[::2, 1:3] = 0.0
+        gates[:, :, ::2, 1], gates[:, :, ::2, 2] = -300.0, 30.0
+        state = [c, n, m, h]
+    return gates, r, state
+
+
+@pytest.mark.parametrize("B,S,w,dt,case", [(2, 37, 16, "float32", "plain"),
+                                           (3, 70, 33, "float32", "ties"),
+                                           (2, 29, 13, "bfloat16", "ties"),
+                                           (1, 45, 7, "float32", "floor"),
+                                           (2, 40, 16, "bfloat16",
+                                            "floor")])
+def test_slstm_backward_kernel_arithmetic_matches_jax(B, S, w, dt, case):
+    """The sLSTM gradient kernel's arithmetic emulated in plain torch
+    (``_emulate_slstm_backward_kernel``: the FMAs and the division by
+    n_t through its reciprocal) against ``slstm_scan_backward_plain`` and
+    ``jax.vjp`` of the reference (``slstm_sequence`` from the zero state,
+    its ``_slstm_cell`` scanned from a random one) within phase 38's
+    limits: float32 dgates within 1e-5 of its largest entry (bf16: two
+    bf16 steps of each entry plus that), dr within 1e-4; ragged S and w,
+    planted ties of log_f + m with i_pre and n at its 1e-6 floor (the
+    planted ties are checked to be there; a max's share at them moves
+    the gradients little, since the stabiliser's total derivative
+    cancels and n at its floor scales what it feeds, while an error of
+    1e-4 in dc's update misses the limits)."""
+    gates, r, state = _slstm_tie_case(S * w + B, B, S, w, case)
+    dhs = np.random.default_rng(S).standard_normal((B, S, w)).astype(
+        np.float32)
+    tg = _t(gates).to(getattr(torch, dt))
+    tst = [_t(a) for a in state]
+    got_g, got_r, (ties, floor) = _emulate_slstm_backward_kernel(
+        tg, _t(r), *tst, _t(dhs))
+    if case == "ties":
+        assert int(ties.sum()) >= (S - 1) * B * len(range(0, w, 3))
+    if case == "floor":
+        assert int(floor.sum()) >= S * B * len(range(0, w, 4))
+    jg = jnp.asarray(tg.float().numpy()).astype(getattr(jnp, dt))
+    if case == "floor":
+        def seq(g, rr):
+            _, out = jax.lax.scan(
+                lambda s, x: jrec._slstm_cell(s, x, rr),
+                jrec.SLSTMState(*(jnp.asarray(a) for a in state)),
+                g.transpose(1, 0, 2, 3))
+            return out.transpose(1, 0, 2)
+    else:
+        seq = jrec.slstm_sequence
+    _, vjp = jax.vjp(seq, jg, jnp.asarray(r))
+    jwant = [np.asarray(x, np.float32) for x in vjp(jnp.asarray(dhs))]
+    plain = ss.slstm_scan_backward_plain(tg, _t(r), *tst, _t(dhs))
+    assert got_g.dtype == tg.dtype and got_r.dtype == torch.float32
+    for want_g, want_r in ((_np(plain[0]), _np(plain[1])), jwant):
+        scale = float(np.abs(want_g).max())
+        diff = np.abs(_np(got_g) - want_g)
+        lim = 1e-5 * scale + (2.0 ** -7 * np.abs(want_g)
+                              if dt == "bfloat16" else 0.0)
+        assert not (diff > lim).any(), float(diff.max())
+        _within_max(got_r, want_r, GRAD_REL["gate"])
 
 
 def test_xlstm_gradients_match_jax():

@@ -9,20 +9,35 @@ Prints the card's name and power limit, then:
   ``csrc/slstm_scan_bwd.cu``) through their wrappers at xlstm-350m's
   training shapes (chip_smoke.py phase 38's): the mLSTM's at
   (1, 4096, 4, 512) and (8, 128, 4, 512) from the zero state, the
-  sLSTM's at (1, 4096, 1024) and (8, 128, 1024) with bfloat16 gates and
-  its reverse chain alone, one warp of channels (1, 4096, 32); device
-  time a call from a CUDA graph (with ``--src``, another checkout's, when
-  it has them); without ``--src`` also the mLSTM backward's device time
-  by kernel (``chip_smoke.mlstm_bwd_split``, the profiler) at the first
-  shape, then the same for its diagnostic builds, each an edited copy of
-  ``csrc/mlstm_scan_bwd.cu`` called through the wrapper in its place (its
-  results are wrong: it times what is left): ``no_tree`` (a chunk's row
-  sums not added: each lane keeps its own partial), ``no_loads`` (the
-  ring filled once, never again), ``one_op_update`` (every update one
-  FMA, X = X + u w^T, as where the decay is exactly 1) and ``one_block``
-  (registers for one block an SM, not two); and each backward source's
-  registers and spills as ``nvcc -Xptxas -v`` prints them (a fresh build
-  under ``build/bench_xlstm_scan/``); ``--bwd-only`` stops there;
+  sLSTM's at (1, 4096, 1024) and (8, 128, 1024) with bfloat16 gates, at
+  (1, 4096, 1024) with float32 gates and its reverse chain alone, one
+  warp of channels (1, 4096, 32); device time a call from a CUDA graph
+  (with ``--src``, another checkout's, when it has them: the sLSTM's
+  backward as that package's wrapper takes it, from the forward's hs
+  alone or with the states its saving launch stores); then the sLSTM
+  forward at (1, 4096, 1024) bf16, and its saving launch beside it where
+  the package has one; without ``--src`` also the mLSTM backward's
+  device time by kernel (``chip_smoke.mlstm_bwd_split``, the profiler)
+  at the first shape, then the same for its diagnostic builds, each an
+  edited copy of ``csrc/mlstm_scan_bwd.cu`` called through the wrapper
+  in its place (its results are wrong: it times what is left):
+  ``no_tree`` (a chunk's row sums not added: each lane keeps its own
+  partial), ``no_loads`` (the ring filled once, never again),
+  ``one_op_update`` (every update one FMA, X = X + u w^T, as where the
+  decay is exactly 1) and ``one_block`` (registers for one block an SM,
+  not two); the sLSTM backward's diagnostic builds the same way, timed
+  at its two bf16 training shapes, each build's outputs at every shape
+  compared with the shipped build's bitwise: ``no_producers`` (the
+  coefficients' ring filled twice, never again), ``no_epilogue`` (no
+  dgates stores, no dr products), ``chain_only`` (both: the chain warp's
+  update alone), ``no_chain`` (the producers and the epilogue alone),
+  ``ieee_div`` (the chain's divisions by n as IEEE divisions, with
+  their branch: the same bits on this data), ``k32`` and ``k8`` (32 and
+  8 channels a block, not 16, with 8 producer warps) and ``pairs4`` (4
+  producer warps of 4 (step, channel) pairs a thread, not 8 of 2); and
+  each backward source's and the sLSTM forward's registers and spills
+  as ``nvcc -Xptxas -v`` prints them (a fresh build under
+  ``build/bench_xlstm_scan/``); ``--bwd-only`` stops there;
 
 - both scans as the main path calls them, through their wrappers, at
   chip_smoke.py phase 28's xlstm-350m shapes: the mLSTM at
@@ -94,7 +109,29 @@ _B_LOADS = [("if (lane < CHUNK) {\n        const int tu",
              "mbar_expect_tx(full, kk < STAGES ? (uint32_t)(CHUNK * (2 * HD "
              "+ ROWS) * 4) : 0u);")]
 
+_SB_PRODUCERS = [("      if (pc < chunks) {",
+                  "      if (pc < chunks && j < 2) {")]
+_SB_EPILOGUE = [("      if (ec >= 0 && lane < CHANNELS) {",
+                 "      if (false) {")]
+
 VARIANTS = {
+    "slstm_scan_bwd": {
+        "no_producers": _SB_PRODUCERS,
+        "no_epilogue": _SB_EPILOGUE,
+        "chain_only": _SB_PRODUCERS + _SB_EPILOGUE,
+        "no_chain": [("      if (cc >= 0 && cc < chunks && lane < CHANNELS) {",
+                      "      if (false) {")],
+        "ieee_div": [("__fadd_rn(k.dc, div_by(dcn, x.nt, x.rn))",
+                      "__fadd_rn(k.dc, dcn / x.nt)"),
+                     ("div_by(__fmul_rn(dcn, x.cn), x.nt, x.rn)",
+                      "__fmul_rn(dcn, x.cn) / x.nt")],
+        "k32": [("constexpr int CHANNELS = 16;",
+                 "constexpr int CHANNELS = 32;"),
+                ("constexpr int PAIRS = 2;", "constexpr int PAIRS = 4;")],
+        "k8": [("constexpr int CHANNELS = 16;", "constexpr int CHANNELS = 8;"),
+               ("constexpr int PAIRS = 2;", "constexpr int PAIRS = 1;")],
+        "pairs4": [("constexpr int PAIRS = 2;", "constexpr int PAIRS = 4;")],
+    },
     "mlstm_scan_bwd": {
         "no_tree": [("tree<16>(s);\n    float o = s[0];", "float o = s[0];")],
         "no_loads": _B_LOADS,
@@ -199,9 +236,9 @@ def mlstm_inputs(torch, gen, B, S, H, hd, dev):
     return (q, k, v, i_pre, f_pre), (C, n, m)
 
 
-def slstm_inputs(torch, gen, B, S, w, dev):
+def slstm_inputs(torch, gen, B, S, w, dev, dt="bfloat16"):
     gates = (torch.randn((B, S, w, 4), generator=gen, device=dev)
-             * 2).to(torch.bfloat16)
+             * 2).to(getattr(torch, dt))
     r = torch.randn((w, 4), generator=gen, device=dev) * 0.5
     c, m, h = (torch.randn((B, w), generator=gen, device=dev)
                for _ in range(3))
@@ -229,13 +266,32 @@ def wrapper_times(torch, cs, ms, ss, dev) -> None:
 
 
 MLSTM_BWD_SHAPES = [(1, 4096, 4, 512), (8, 128, 4, 512)]
-SLSTM_BWD_SHAPES = [(1, 4096, 1024), (8, 128, 1024), (1, 4096, 32)]
+SLSTM_BWD_SHAPES = [(1, 4096, 1024, "bfloat16"), (8, 128, 1024, "bfloat16"),
+                    (1, 4096, 1024, "float32"), (1, 4096, 32, "bfloat16")]
+
+
+def slstm_bwd_call(torch, ss, gates, r, state, dhs):
+    """The sLSTM backward as this package's ``SLSTMScan.backward`` calls
+    it: on the forward's hs, and on the states its saving launch stores
+    where the package has one (the wrapper's ``saved`` argument)."""
+    import inspect
+    start = [t.clone() for t in state]
+    with torch.no_grad():
+        if "saved" in inspect.signature(ss.slstm_scan_backward).parameters:
+            hs, saved = ss._forward_kernel(gates, r, *start, save=True)
+            return lambda: ss.slstm_scan_backward(gates, r, *state, dhs, hs,
+                                                  saved)
+        hs = ss.slstm_scan(gates, r, *start)
+    return lambda: ss.slstm_scan_backward(gates, r, *state, dhs, hs)
 
 
 def bwd_times(torch, cs, ms, ss, dev, detail: bool) -> None:
     """The backward kernels through their wrappers at the training shapes
-    (device time a call from a CUDA graph); with ``detail`` the mLSTM
-    backward's kernels by the profiler and each source's ptxas report."""
+    (device time a call from a CUDA graph), the sLSTM forward with and
+    without saving; with ``detail`` the mLSTM backward's kernels by the
+    profiler, the sLSTM backward's diagnostic builds and each source's
+    ptxas report."""
+    import inspect
     if not hasattr(ms, "mlstm_scan_backward"):
         print("this package has no xLSTM backward kernels", flush=True)
         return
@@ -253,16 +309,28 @@ def bwd_times(torch, cs, ms, ss, dev, detail: bool) -> None:
         calls.append(args)
         print(f"mlstm_scan_backward ({B}, {S}, {H}, {hd}): {t:.4f} ms a call"
               f" (CUDA graph, {ms.BACKWARD_KERNELS} kernels)", flush=True)
-    for B, S, w in SLSTM_BWD_SHAPES:
-        (gates, r), _ = slstm_inputs(torch, gen, B, S, w, dev)
+    s_calls = {}
+    for B, S, w, dt in SLSTM_BWD_SHAPES:
+        (gates, r), _ = slstm_inputs(torch, gen, B, S, w, dev, dt)
         state = ss.init_state(B, w, dev)
         dhs = torch.randn((B, S, w), generator=gen, device=dev)
-        with torch.no_grad():
-            hs = ss.slstm_scan(gates, r, *[t.clone() for t in state])
-        t = cs.graph_ms(torch, lambda: ss.slstm_scan_backward(
-            gates, r, *state, dhs, hs), launches=3, reps=3)
-        print(f"slstm_scan_backward ({B}, {S}, {w}) bfloat16: {t:.4f} ms a "
-              f"launch (CUDA graph)", flush=True)
+        call = slstm_bwd_call(torch, ss, gates, r, state, dhs)
+        s_calls[B, S, w, dt] = call
+        t = cs.graph_ms(torch, call, launches=3, reps=3)
+        print(f"slstm_scan_backward ({B}, {S}, {w}) {dt}: {t:.4f} ms a "
+              f"call (CUDA graph)", flush=True)
+    # the forward, and its saving launch where the package has one
+    (gates, r), state = slstm_inputs(torch, gen, 1, 4096, 1024, dev)
+    with torch.no_grad():
+        t = cs.graph_ms(torch, lambda: ss.slstm_scan(gates, r, *state),
+                        launches=5)
+        line = f"slstm_scan (1, 4096, 1024) bfloat16: {t:.4f} ms a launch"
+        if "save" in inspect.signature(ss._forward_kernel).parameters:
+            t_save = cs.graph_ms(torch, lambda: ss._forward_kernel(
+                gates, r, *state, save=True), launches=5)
+            line += (f", its saving launch {t_save:.4f} ms "
+                     f"({t_save / t:.3f}x)")
+    print(line + " (CUDA graph)", flush=True)
     if not detail:
         return
     from repro_torch.kernels import build
@@ -275,20 +343,39 @@ def bwd_times(torch, cs, ms, ss, dev, detail: bool) -> None:
         print(f"mlstm_scan_backward {MLSTM_BWD_SHAPES[0]} {label} by kernel "
               f"(profiler, ms a call): {cs.split_text(split, 16)}; "
               f"{MLSTM_BWD_SHAPES[1]} {cs.split_text(other, 64)}", flush=True)
+    s_want = {}
+
+    def s_line(label):
+        # the outputs at every shape, against the shipped build's
+        same = []
+        for shape, call in s_calls.items():
+            got = call()
+            want = s_want.setdefault(shape, got)
+            same.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+        print(f"slstm_scan_backward {label}: " + ", ".join(
+            f"{shape} {cs.graph_ms(torch, s_calls[shape], 3, 3):.4f} ms"
+            for shape in SLSTM_BWD_SHAPES[:2]) + " a call (CUDA graph); "
+            f"bitwise the shipped build's at {sum(same)} of {len(same)} "
+            f"shapes", flush=True)
     split_line("shipped")
+    s_line("shipped")
     # the diagnostic builds, each through the wrapper in place of the
     # shipped library
-    shipped = build.load("mlstm_scan_bwd")
-    try:
-        for (kernel, name), lib in build_variants(
-                build, {"mlstm_scan_bwd": VARIANTS["mlstm_scan_bwd"]}).items():
-            build._LOADED[kernel] = lib
-            split_line(name)
-    finally:
-        build._LOADED["mlstm_scan_bwd"] = shipped
+    built = build_variants(build, {k: VARIANTS[k] for k in
+                                   ("mlstm_scan_bwd", "slstm_scan_bwd")})
+    for kernel, line_of in (("mlstm_scan_bwd", split_line),
+                            ("slstm_scan_bwd", s_line)):
+        shipped = build.load(kernel)
+        try:
+            for (kern, name), lib in built.items():
+                if kern == kernel:
+                    build._LOADED[kernel] = lib
+                    line_of(name)
+        finally:
+            build._LOADED[kernel] = shipped
     out = os.path.join(ROOT, "build", "bench_xlstm_scan")
     os.makedirs(out, exist_ok=True)
-    for kernel in ("mlstm_scan_bwd", "slstm_scan_bwd"):
+    for kernel in ("mlstm_scan_bwd", "slstm_scan_bwd", "slstm_scan"):
         path = os.path.join(out, f"{kernel}_shipped.so")
         log = subprocess.run(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", path,
@@ -380,7 +467,7 @@ def main(argv=None) -> int:
                 err = lib.slstm_scan_launch(
                     gates.data_ptr(), r.data_ptr(), c.data_ptr(),
                     n_.data_ptr(), m_.data_ptr(), h_.data_ptr(),
-                    hs.data_ptr(), B, S, w, 1, stream)
+                    hs.data_ptr(), None, None, None, B, S, w, 1, stream)
                 if err:
                     raise RuntimeError(f"launch failed: CUDA error {err}")
             times = in_turns(torch, libs, run_s, (c, n_, m_, h_))
