@@ -30,7 +30,10 @@ kernels, bidirectional, at head dim 80); recurrentgemma-9b trained on
 the scan's backward kernel and phi3.5-moe and mixtral-8x22b served
 (phi3.5-moe also trained) at full width with their depth cut;
 xlstm-350m trained at full width on the xLSTM scans' backward kernels
-and llama-3.2-vision trained at full width cut in depth. Phases:
+and llama-3.2-vision trained at full width cut in depth; qwen2.5-3b,
+glm4-9b and phi4-mini-3.8b served at full width and qwen2.5-3b and
+glm4-9b (cut in depth) trained, with the gradient compression of
+``repro_torch.parallel`` on the card. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (one nvcc per source, started together), with
@@ -371,7 +374,26 @@ and llama-3.2-vision trained at full width cut in depth. Phases:
      the tensor-core route, the self layers causal and the cross layers
      not causal at S != T (every call recorded); median step, peak memory,
      a profiled step; then one pattern period in float32, card against
-     CPU.
+     CPU;
+ 41. qwen2.5-3b, glm4-9b and phi4-mini-3.8b at full width (bf16, seeded
+     random weights) served as phase 12 serves qwen3-4b, on the bf16 and
+     the int8 cache: every request done, the flash kernel a layer a
+     prefill and the decode kernel a layer a decode step on the cache's
+     route, the flash kernel against its plain version at each prompt
+     length with the arch's heads; then the decode kernel at their GQA
+     groups (KV, G) = (2, 8), (2, 16), (8, 3) (one partly filled head
+     group of 4) at the serving shape, bf16 and int8, checked and timed
+     as in phase 25;
+ 42. the three archs cut to 2 layers in float32 (qwen2.5-3b's QKV biases
+     drawn non-zero): a 512-token prefill's last-token logits card
+     against CPU, as phase 13; qwen2.5-3b's loss and gradients, the three
+     bias leaves among them, card against CPU;
+ 43. qwen2.5-3b at full width trains 4 steps at 8 x 128 through
+     ``launch.train``'s code path, checked as phase 24, with a profiled
+     step; glm4-9b cut to GLM_TRAIN_LAYERS of 40 layers trains 3; then
+     ``parallel.error_feedback_compress`` on every gradient leaf of one
+     qwen2.5-3b step, on the card against the same leaves on the CPU,
+     bitwise.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -1780,14 +1802,15 @@ def flash_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-def serving_qkv(torch, gen, S, dev):
-    """q (1, S, 32, 128) and k, v expanded from 8 KV heads, bf16."""
+def serving_qkv(torch, gen, S, dev, H=QWEN_H, KV=QWEN_KV, hd=QWEN_HD):
+    """q (1, S, H, hd) and k, v expanded from KV heads, bf16 (qwen3-4b's
+    32 heads of 128 over 8 by default)."""
     from repro_torch.models.attention import _expand_kv
-    q = torch.randn((1, S, QWEN_H, QWEN_HD), generator=gen, device=dev)
-    k, v = (torch.randn((1, S, QWEN_KV, QWEN_HD), generator=gen, device=dev)
+    q = torch.randn((1, S, H, hd), generator=gen, device=dev)
+    k, v = (torch.randn((1, S, KV, hd), generator=gen, device=dev)
             for _ in range(2))
     return [x.to(torch.bfloat16) for x in
-            (q, _expand_kv(k, QWEN_H), _expand_kv(v, QWEN_H))]
+            (q, _expand_kv(k, H), _expand_kv(v, H))]
 
 
 def flash_plain(fa, q, k, v, causal, window, q_offset=0):
@@ -2003,25 +2026,28 @@ def serve_line(label, run, extra="") -> str:
             f"memory {run['peak'] / 2**30:.2f} GiB{extra}")
 
 
-def phase_serve(torch, fa, dev) -> dict:
-    """Phase 12: qwen3-4b at full width through ServeEngine, the bf16
-    cache, then the int8 cache (``kv_quant``) on the same weights and
-    requests; the decode kernel on its route 36 times a decode step."""
+def phase_serve(torch, fa, dev, arch="qwen3_4b") -> dict:
+    """Phase 12 (qwen3-4b; phase 41 the other dense archs): ``arch`` at
+    full width through ServeEngine, the bf16 cache, then the int8 cache
+    (``kv_quant``) on the same weights and requests; the decode kernel on
+    its route once a layer a decode step."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels.ops import flash_mha
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
-    cfg = get_config("qwen3_4b")
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
     model = init_params(gen, cfg)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"qwen3_4b init on the card: {n_params / 1e9:.3f} B parameters, "
-        f"{cfg.dtype}, {time.perf_counter() - t0:.2f} s")
+    log(f"{arch} init on the card: {n_params / 1e9:.3f} B parameters, "
+        f"{cfg.n_layers} layers, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads, {cfg.dtype}, "
+        f"{time.perf_counter() - t0:.2f} s")
     lens, prompts = serve_requests(cfg)
     counters = (fa.flash_attention, dk.decode_attention_kernel)
     runs = {}
@@ -2034,25 +2060,26 @@ def phase_serve(torch, fa, dev) -> dict:
         steps = run["stats"]["decode_steps"]
         route = "int8" if c.kv_quant else "bfloat16"
         serve_checked(cfg, run, [cfg.n_layers * SERVE_REQUESTS,
-                                 cfg.n_layers * steps], f"qwen3_4b {label}")
+                                 cfg.n_layers * steps], f"{arch} {label}")
         if run["routes"][1][route] != cfg.n_layers * steps:
-            raise RuntimeError(f"serve qwen3_4b {label}: decode kernel "
+            raise RuntimeError(f"serve {arch} {label}: decode kernel "
                                f"routes {run['routes'][1]}, want "
                                f"{cfg.n_layers * steps} on {route}")
         runs[label] = run
         if label == "bf16 cache":
-            log(f"serve qwen3_4b: prompt lengths {[int(n) for n in lens]}")
-        log(serve_line(f"qwen3_4b {label}", run,
+            log(f"serve {arch}: prompt lengths {[int(n) for n in lens]}")
+        before = ("" if arch != "qwen3_4b" else
+                  f"; decode tok/s before the decode kernel (a float32 "
+                  f"copy of the cache every step): {DECODE_BEFORE}")
+        log(serve_line(f"{arch} {label}", run,
                        f"; flash launches {run['launches'][0]}, decode "
                        f"kernel launches {run['launches'][1]} "
-                       f"({cfg.n_layers} a step, route {route}); decode "
-                       f"tok/s before the decode kernel (a float32 copy "
-                       f"of the cache every step): {DECODE_BEFORE}"))
-        log(f"serve qwen3_4b {label}: first tokens "
+                       f"({cfg.n_layers} a step, route {route}){before}"))
+        log(f"serve {arch} {label}: first tokens "
             f"{[o[:4] for o in run['outs']]}")
     same = sum(a == b for a, b in zip(runs["bf16 cache"]["outs"],
                                       runs["int8 cache"]["outs"]))
-    log(f"serve qwen3_4b: {same} of {SERVE_REQUESTS} requests give the same "
+    log(f"serve {arch}: {same} of {SERVE_REQUESTS} requests give the same "
         f"16 tokens on the int8 cache as on the bf16 cache (random "
         f"weights; not a check)")
     # the kernel at each prompt length the prefills gave it: checked
@@ -2061,17 +2088,20 @@ def phase_serve(torch, fa, dev) -> dict:
     kgen.manual_seed(3)
     kernel_s, errs = 0.0, []
     for n in lens:
-        q, k, v = serving_qkv(torch, kgen, int(n), dev)
+        q, k, v = serving_qkv(torch, kgen, int(n), dev, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.head_dim)
         errs.append(flash_check(
-            torch, fa, f"B=1 S=T={n} H={QWEN_H} hd={QWEN_HD} causal bfloat16",
-            q, k, v, True, 0, "bfloat16")[0])
+            torch, fa, f"B=1 S=T={n} H={cfg.n_heads} (KV {cfg.n_kv_heads}) "
+            f"hd={cfg.head_dim} causal bfloat16", q, k, v, True, 0,
+            "bfloat16")[0])
         kernel_s += cfg.n_layers * time_ms(
             torch, lambda: flash_mha(q, k, v), reps=2, windows=3) / 1e3
+    del q, k, v
     st = runs["bf16 cache"]["stats"]
-    log(f"serve qwen3_4b: flash kernel vs plain at these prompt lengths: "
+    log(f"serve {arch}: flash kernel vs plain at these prompt lengths: "
         f"max_abs_err {[f'{e:.3g}' for e in errs]}, none over the bf16 "
         f"limit")
-    log(f"serve qwen3_4b: flash kernel time at these prompts {kernel_s:.3f} s"
+    log(f"serve {arch}: flash kernel time at these prompts {kernel_s:.3f} s"
         f" = {100 * kernel_s / st['prefill_s']:.1f}% of the prefill time, "
         f"{100 * kernel_s / runs['bf16 cache']['wall']:.1f}% of the wall")
     return {"launches": runs["bf16 cache"]["launches"][0],
@@ -2079,35 +2109,61 @@ def phase_serve(torch, fa, dev) -> dict:
             "wall": runs["bf16 cache"]["wall"], "max_abs_err": max(errs)}
 
 
-def phase_logits(torch, fa, dev) -> None:
-    """Phase 13: kernel route (card) vs plain route (CPU), 2 layers at
-    qwen3-4b widths, float32."""
+def draw_qkv_biases(torch, model, gen) -> None:
+    """Every attention block's ``bq``, ``bk``, ``bv`` drawn in place from
+    ``gen`` as standard normals, the scale of the projections' outputs at
+    unit-RMS inputs (the init's zeros would add nothing)."""
+    with torch.no_grad():
+        for blk in model.blocks:
+            for name in ("bq", "bk", "bv"):
+                b = getattr(blk, name)
+                b.copy_(torch.randn(b.shape, generator=gen,
+                                    device=b.device).to(b.dtype))
+
+
+def phase_logits(torch, fa, dev, arch="qwen3_4b"):
+    """Phase 13 (qwen3-4b; phase 42 the other dense archs): ``arch``'s
+    widths cut to 2 layers, float32, weights drawn on the card from a
+    seed (QKV biases drawn non-zero where the arch has them) and copied
+    to the CPU: one 512-token prefill's last-token logits through the
+    kernel (card) and the plain version (CPU) within 1e-3 x max|logits|.
+    Returns the card's model and its config."""
+    import copy
     import dataclasses
 
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, prefill
-    cfg = dataclasses.replace(get_config("qwen3_4b"), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               dtype="float32")
-    model = init_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    card = init_params(gen, cfg)
+    if cfg.qkv_bias:
+        draw_qkv_biases(torch, card, gen)
+    cpu_model = copy.deepcopy(card).to("cpu")
     tokens = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, 512)))
     with torch.inference_mode():
-        cpu, _ = prefill(model, cfg, {"tokens": tokens}, cache_len=512)
+        cpu, _ = prefill(cpu_model, cfg, {"tokens": tokens}, cache_len=512)
         before = fa.flash_attention.launches
-        card, _ = prefill(model.to(dev), cfg, {"tokens": tokens.to(dev)},
-                          cache_len=512)
+        got, _ = prefill(card, cfg, {"tokens": tokens.to(dev)},
+                         cache_len=512)
         launches = fa.flash_attention.launches - before
-    err = float((card.cpu() - cpu).abs().max())
+    del cpu_model
+    err = float((got.cpu() - cpu).abs().max())
     scale = float(cpu.abs().max())
-    if launches != cfg.n_layers or not math.isfinite(err) or \
-            err > 1e-3 * scale:
-        raise RuntimeError(f"logits: card vs CPU max abs err {err} vs "
-                           f"max|logits| {scale}, flash launches {launches}")
-    log(f"qwen3_4b widths, 2 layers, float32, 512-token prefill: card "
+    if got.shape != (1, cfg.vocab_size) or launches != cfg.n_layers or \
+            not math.isfinite(err) or err > 1e-3 * scale:
+        raise RuntimeError(f"logits {arch}: card vs CPU max abs err {err} "
+                           f"vs max|logits| {scale}, flash launches "
+                           f"{launches}, shape {tuple(got.shape)}")
+    bias = ", QKV biases drawn non-zero" if cfg.qkv_bias else ""
+    log(f"{arch} widths, 2 layers, float32{bias}, 512-token prefill: card "
         f"(flash kernel, {launches} launches) vs CPU (plain) last-token "
-        f"logits max abs err {err:.3g}, max|logits| {scale:.4g} "
-        f"(rel {err / scale:.3g}, limit 1e-3)")
+        f"logits ({cfg.vocab_size}) max abs err {err:.3g}, max|logits| "
+        f"{scale:.4g} (rel {err / scale:.3g}, limit 1e-3)")
+    return card, cfg
 
 
 # phase 23: the attention gradient kernel; FLASH_TESTS plus float32 cases of
@@ -2372,12 +2428,13 @@ def profile_by_kind(torch, fn, kinds, label) -> dict:
             "launches": len(kernels)}
 
 
-def train_checked(torch, fa, launch_train, dev, argv, n_steps, label):
-    """``train_run`` with the counters reset first, then the checks every
-    full-width run must pass: finite losses and grad norms, 1 gradient
-    launch a layer a step, all on the tensor-core route, 2 forward
-    launches a layer a step (remat). Returns (state, step_fn, pipe,
-    summary)."""
+def train_checked(torch, fa, launch_train, dev, argv, n_steps, label,
+                  cfg=None):
+    """``train_run`` (``cfg``: a depth cut in place of the arch's config)
+    with the counters reset first, then the checks every full-width run
+    must pass: finite losses and grad norms, 1 gradient launch a layer a
+    step, all on the tensor-core route, 2 forward launches a layer a step
+    (remat). Returns (state, step_fn, pipe, summary)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     fa.flash_attention.launches = 0
@@ -2385,7 +2442,7 @@ def train_checked(torch, fa, launch_train, dev, argv, n_steps, label):
     fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
     t0 = time.perf_counter()
     state, step_fn, pipe, hist = train_run(torch, launch_train, dev, argv,
-                                           n_steps)
+                                           n_steps, cfg=cfg)
     wall = time.perf_counter() - t0
     bwd, fwd = fa.flash_attention_bwd.launches, fa.flash_attention.launches
     wgmma = fa.flash_attention_bwd.routes["wgmma"]
@@ -2637,9 +2694,9 @@ def kernels_a_call(torch, fn) -> tuple:
     return sum(k == 0 for k in kinds), len(kinds)
 
 
-def phase_decode(torch, dev) -> dict:
-    """Phase 25: the decode kernel vs ``decode_attention_plain`` at each
-    DECODE_TESTS shape, the route asserted, two launches bitwise equal, a
+def phase_decode(torch, dev, tests=DECODE_TESTS) -> dict:
+    """Phase 25 (phase 41: GQA_DECODE_TESTS): the decode kernel vs
+    ``decode_attention_plain`` at each shape of ``tests``, the route asserted, two launches bitwise equal, a
     CUDA graph's replays bitwise the eager launch, two device kernels a
     call (scores_kernel, values_kernel); device time from a CUDA graph
     beside the bound, the plain version and, for bf16, SDPA with
@@ -2651,7 +2708,7 @@ def phase_decode(torch, dev) -> dict:
     gen.manual_seed(25)
     kern = dk.decode_attention_kernel
     timed, worst = {}, 0.0
-    for name, B, T, KV, G, hd, cache, win, rows in DECODE_TESTS:
+    for name, B, T, KV, G, hd, cache, win, rows in tests:
         q, k, v, ks, vs, pos, q_pos = decode_inputs(
             torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
         L = dk.split_len(B, KV, G, T)
@@ -4123,11 +4180,14 @@ RG_TRAIN_GROUPS = [("rglru scan gradient", ("rglru_scan_bwd_kernel",)),
     TRAIN_KERNEL_GROUPS
 
 
-def card_vs_cpu_grads(torch, card, cfg, batch, dev, counters, label):
+def card_vs_cpu_grads(torch, card, cfg, batch, dev, counters, label,
+                      show=()):
     """One loss and gradient (``grads_of``) of ``card`` on the card and of
     its deep copy on the CPU: the loss within rtol 1e-4 and every leaf
-    within 1e-3 of its largest entry (phase 32's limits). Returns the
-    launches of ``counters`` on the card and a log line."""
+    within 1e-3 of its largest entry (phase 32's limits); the leaves whose
+    names end in one of ``show`` must carry a gradient (max|g| > 0), and
+    the line gives their worst error. Returns the launches of
+    ``counters`` on the card and a log line."""
     import copy
     cpu = copy.deepcopy(card).to("cpu")
     res, launched = [], None
@@ -4142,15 +4202,23 @@ def card_vs_cpu_grads(torch, card, cfg, batch, dev, counters, label):
     rel = {k: float((g_g[k] - c_g[k]).abs().max())
            / max(float(c_g[k].abs().max()), 1e-30) for k in c_g}
     bad = [k for k, r in rel.items() if not r <= 1e-3]
+    shown = {end: [k for k in c_g if k.endswith("." + end)] for end in show}
+    bad += [k for ks in shown.values() for k in ks
+            if not float(c_g[k].abs().max()) > 0]
     if abs(g_loss - c_loss) > 1e-4 * abs(c_loss) or bad or \
-            not math.isfinite(g_loss):
+            not math.isfinite(g_loss) or not all(shown.values()):
         raise RuntimeError(f"{label}: loss {g_loss} vs CPU {c_loss}, "
-                           f"gradient leaves over 1e-3 x max|g|: {bad}")
+                           f"gradient leaves over 1e-3 x max|g| or zero: "
+                           f"{bad}, leaves shown {shown}")
     worst = max(rel, key=rel.get)
+    extra = "".join(
+        f"; {end} ({len(ks)} leaves) worst {max(rel[k] for k in ks):.3g}, "
+        f"max|g| {max(float(c_g[k].abs().max()) for k in ks):.3g}"
+        for end, ks in shown.items())
     return launched, (f"{label}: card vs CPU loss {g_loss:.6f} vs "
                       f"{c_loss:.6f}, gradients: {len(c_g)} leaves, worst "
                       f"max abs err / max|g| {rel[worst]:.3g} ({worst}; "
-                      f"limit 1e-3)")
+                      f"limit 1e-3){extra}")
 
 
 def phase_rg_train(torch, fa, dev) -> dict:
@@ -5205,6 +5273,170 @@ def phase_vision_train(torch, fa, dev) -> dict:
             "prof": prof}
 
 
+# phases 41-43: the dense archs not run on the card before, at full width
+DENSE_NEW = ("qwen2_5_3b", "glm4_9b", "phi4_mini_3_8b")
+# phase 41: the decode kernel at their GQA groups (query heads a KV head:
+# qwen2.5-3b 16 over 2, glm4-9b 32 over 2, phi4-mini 24 over 8, a partly
+# filled last head group of the kernel's 4) at phase 25's serving shape
+GQA_DECODE_TESTS = [
+    (f"{arch} {cache}", 4, 4352, KV, G, 128, cache, 0,
+     ("fill", "fill", "fill", "late"))
+    for arch, KV, G in (("qwen2.5-3b", 2, 8), ("glm4-9b", 2, 16),
+                        ("phi4-mini", 8, 3))
+    for cache in ("bfloat16", "int8")]
+# phase 42: qwen2.5-3b's float32 cut's loss and gradients at 1 x this
+QWEN25_CHECK_S = 256
+# phase 43: glm4-9b trains cut to the first of these depths that fits
+GLM_TRAIN_LAYERS = (20, 16)
+GLM_TRAIN_STEPS = 3
+
+
+def phase_dense_serve(torch, fa, dev) -> dict:
+    """Phase 41: DENSE_NEW served at full width as phase 12 serves
+    qwen3-4b; then the decode kernel at their groups (GQA_DECODE_TESTS)
+    as phase 25 checks and times it."""
+    t0 = time.perf_counter()
+    out = {"flash": 0, "decode": 0, "max_abs_err": 0.0}
+    for arch in DENSE_NEW:
+        torch.cuda.empty_cache()
+        served = phase_serve(torch, fa, dev, arch)
+        out["flash"] += served["launches"]
+        out["decode"] += served["decode_launches"]
+        out["max_abs_err"] = max(out["max_abs_err"], served["max_abs_err"])
+    torch.cuda.empty_cache()
+    out["kernel"] = phase_decode(torch, dev, GQA_DECODE_TESTS)
+    log(f"phase 41: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_dense_logits(torch, fa, dev) -> dict:
+    """Phase 42: DENSE_NEW's float32 2-layer cuts card against CPU
+    (phase 13's check; qwen2.5-3b's QKV biases non-zero), then the
+    qwen2.5-3b cut's loss and gradients, the bias leaves among them,
+    card against CPU."""
+    t0 = time.perf_counter()
+    counters = (fa.flash_attention, fa.flash_attention_bwd)
+    out = {"flash": 0, "bwd": 0}
+    for arch in DENSE_NEW:
+        card, cfg = phase_logits(torch, fa, dev, arch)
+        out["flash"] += cfg.n_layers
+        if cfg.qkv_bias:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(42)
+            toks = torch.randint(0, cfg.vocab_size, (1, QWEN25_CHECK_S),
+                                 generator=gen, device=dev)
+            launched, line = card_vs_cpu_grads(
+                torch, card.train(), cfg, {"tokens": toks, "labels": toks},
+                dev, counters, f"{arch} widths, 2 layers, float32, QKV "
+                f"biases non-zero, 1 x {QWEN25_CHECK_S} tokens",
+                show=("bq", "bk", "bv"))
+            want = [2 * cfg.n_layers, cfg.n_layers]
+            if launched != want:
+                raise RuntimeError(f"{arch} 2-layer cut: card launches "
+                                   f"(flash, flash gradient) {launched}, "
+                                   f"want {want}")
+            log(f"{line}; card launches (flash, flash gradient) "
+                f"{launched}")
+            out["flash"] += launched[0]
+            out["bwd"] += launched[1]
+        del card
+        torch.cuda.empty_cache()
+    log(f"phase 42: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def compress_check(torch, grads, label) -> None:
+    """``error_feedback_compress`` from a zero residual (``init_residuals``)
+    on every leaf of ``grads`` on the card, and on the same leaves copied
+    to the CPU: q, scale and the new residual bitwise equal."""
+    from repro_torch.parallel.compression import (error_feedback_compress,
+                                                  init_residuals)
+    bad, n_el, t_card, t_cpu = [], 0, 0.0, 0.0
+    for name, g in grads.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = error_feedback_compress(g, init_residuals(g))
+        torch.cuda.synchronize()
+        t_card += time.perf_counter() - t0
+        g_cpu = g.cpu()
+        t0 = time.perf_counter()
+        cpu = error_feedback_compress(g_cpu, init_residuals(g_cpu))
+        t_cpu += time.perf_counter() - t0
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+            bad.append(name)
+        n_el += g.numel()
+    if bad:
+        raise RuntimeError(f"{label}: error_feedback_compress differs card "
+                           f"vs CPU on {len(bad)} leaves: {bad[:8]}")
+    log(f"{label}: error_feedback_compress on all {len(grads)} gradient "
+        f"leaves ({n_el / 1e9:.3f} G elements, {t_card:.3f} s on the card "
+        f"with a sync a leaf, {t_cpu:.3f} s on the CPU): q, scale and "
+        f"residual bitwise the CPU's")
+
+
+def phase_dense_train(torch, fa, dev) -> dict:
+    """Phase 43: qwen2.5-3b at full width trains as phase 24's first run,
+    with a profiled step; one more step's gradients through
+    ``compress_check``; then glm4-9b cut to GLM_TRAIN_LAYERS."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    t0 = time.perf_counter()
+    out = {"bwd": 0, "fwd": 0}
+    arch = "qwen2_5_3b"
+    argv = ["--arch", arch] + TRAIN_ARGS[2:]
+    state, step_fn, pipe, run = train_checked(
+        torch, fa, launch_train, dev, argv, 4, f"train {arch}")
+    med, tokens = run["median_step_s"], 8 * 128
+    log(f"train {arch} full width: {run['n_params'] / 1e9:.3f} B "
+        f"parameters, {run['n_layers']} layers, bf16, batch 8 x seq 128; "
+        f"median step (steps 2-4) {med:.4f} s, {tokens / med:.1f} "
+        f"tokens/s; flash_attention_bwd launches {run['launches']} "
+        f"({run['launches'] // 4} a step, all on the wgmma route), forward "
+        f"launches {run['fwd']} (remat: 2 a layer); peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB ({run['peak'] / 1e9:.2f} GB)")
+    prof = profile_step(torch, step_fn, state, pipe, f"train {arch}")
+    out.update(bwd=run["launches"], fwd=run["fwd"], qwen=run, prof=prof)
+    batch = {k: torch.as_tensor(v).long().to(dev)
+             for k, v in pipe.next_batch().items()}
+    _, grads = grads_of(torch, state.params, get_config(arch), batch)
+    del state, step_fn, pipe
+    compress_check(torch, grads, f"{arch} full width, one step's gradients")
+    del grads
+    full = get_config("glm4_9b")
+    for n_layers in GLM_TRAIN_LAYERS:
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(full, n_layers=n_layers)
+        label = f"train glm4_9b {n_layers} of {full.n_layers} layers"
+        argv = ["--arch", "glm4_9b", "--steps", str(GLM_TRAIN_STEPS)] + \
+            TRAIN_ARGS[4:]
+        try:
+            state, step_fn, pipe, glm = train_checked(
+                torch, fa, launch_train, dev, argv, GLM_TRAIN_STEPS, label,
+                cfg=cut)
+        except torch.cuda.OutOfMemoryError:
+            log(f"{label}: out of memory on this card; the next depth")
+            state = step_fn = pipe = None
+            continue
+        gmed = glm["median_step_s"]
+        log(f"{label}: {glm['n_params'] / 1e9:.3f} B parameters, bf16, "
+            f"batch 8 x seq 128; median step (steps 2-{GLM_TRAIN_STEPS}) "
+            f"{gmed:.4f} s, {tokens / gmed:.1f} tokens/s; "
+            f"flash_attention_bwd launches {glm['launches']} (all on the "
+            f"wgmma route); peak memory {glm['peak'] / 2**30:.2f} GiB")
+        out["bwd"] += glm["launches"]
+        out["fwd"] += glm["fwd"]
+        out["glm"] = dict(glm, layers=n_layers)
+        del state, step_fn, pipe
+        break
+    if "glm" not in out:
+        raise RuntimeError(f"train glm4_9b: no depth of {GLM_TRAIN_LAYERS} "
+                           "fits")
+    torch.cuda.empty_cache()
+    log(f"phase 43: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -5304,6 +5536,9 @@ def main(argv=None) -> int:
     main_xb = phase_xlstm_bwd(torch, dev)                            # 38
     xlt = phase_xlstm_train(torch, dev)                              # 39
     vist = phase_vision_train(torch, fa, dev)                        # 40
+    dense = phase_dense_serve(torch, fa, dev)                        # 41
+    dense_l = phase_dense_logits(torch, fa, dev)                     # 42
+    dense_t = phase_dense_train(torch, fa, dev)                      # 43
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -5345,10 +5580,12 @@ def main(argv=None) -> int:
                    "launches": served["launches"] + vis["flash"]
                    + hub["fwd_launches"] + rgt["launches"][0]
                    + phi["flash"] + mix["flash"] + moet["fwd"]
-                   + vist["fwd"],
+                   + vist["fwd"] + dense["flash"] + dense_l["flash"]
+                   + dense_t["fwd"],
                    "max_abs_err": max(main_f["max_abs_err"],
                                       served["max_abs_err"],
-                                      main_c["flash_err"]),
+                                      main_c["flash_err"],
+                                      dense["max_abs_err"]),
                    "ms": flash["ms"],
                    "plain_ms": flash["plain_ms"],
                    "bound_ms": flash["bound_ms"],
@@ -5360,7 +5597,8 @@ def main(argv=None) -> int:
                              "(its gradient: JAX autodiff of "
                              "src/repro/models/attention.py:29)",
                  "launches": trained["launches"] + hub["launches"]
-                 + rgt["launches"][1] + moet["bwd"] + vist["bwd"],
+                 + rgt["launches"][1] + moet["bwd"] + vist["bwd"]
+                 + dense_l["bwd"] + dense_t["bwd"],
                  "max_abs_err": max(main_b["max_abs_err"],
                                     main_c["bwd_err"]),
                  "ms": main_b["ms"],
@@ -5375,8 +5613,11 @@ def main(argv=None) -> int:
                                 "einsum decode; the JAX package has no "
                                 "Pallas kernel there)",
                     "launches": served["decode_launches"] + rg["decode"]
-                    + vis["decode"] + phi["decode"] + mix["decode"],
-                    "max_abs_err": main_d["max_abs_err"], "ms": dec["ms"],
+                    + vis["decode"] + phi["decode"] + mix["decode"]
+                    + dense["decode"],
+                    "max_abs_err": max(main_d["max_abs_err"],
+                                       dense["kernel"]["max_abs_err"]),
+                    "ms": dec["ms"],
                     "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
                     "bound_by": dec["bound_by"],
                     "library_ms": dec["library_ms"]}

@@ -1,3 +1,3 @@
-"""Command-line launchers; counterpart of ``repro/launch/`` (``search``,
-``codesign_serve``, ``serve``, ``train``; ``dryrun`` and ``mesh`` are
-ROADMAP Queue 1 items 13h and 13i)."""
+"""Command-line launchers and the mesh; counterpart of ``repro/launch/``
+(``search``, ``codesign_serve``, ``serve``, ``train``, ``mesh``;
+``dryrun`` is ROADMAP Queue 1 item 13i)."""

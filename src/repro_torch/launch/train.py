@@ -8,8 +8,8 @@ It runs on the GPU unless ``--device cpu`` is given, and exits 2 without
 one. Parameters come from the port's own seeded init on the device.
 Fault tolerance: checkpoint/restore and bit-exact resume through
 ``train/loop.py`` (kill and rerun the same command to resume). One
-process on one device: ``--model-shards`` above 1 needs the mesh and
-sharding layer, ROADMAP Queue 1 item 13h.
+process on one device: ``--model-shards`` above 1 (training over the
+mesh's model axis) is ROADMAP Queue 1 item 13h, part 3.
 """
 from __future__ import annotations
 
@@ -53,9 +53,10 @@ def setup(args: argparse.Namespace, device: torch.device,
     the one ``--arch`` and ``--reduced`` name (a depth cut of it, say)."""
     if args.model_shards > 1:
         raise NotImplementedError(
-            f"--model-shards {args.model_shards}: model sharding needs the "
-            "mesh and sharding layer, not ported yet: ROADMAP Queue 1 item "
-            "13h (parallel/, launch/mesh.py)")
+            f"--model-shards {args.model_shards}: training over a model "
+            "axis (the parameters placed by parallel.sharding on "
+            "launch.mesh's mesh) is not ported yet: ROADMAP Queue 1 item "
+            "13h, part 3")
     if cfg is None:
         cfg = get_config(args.arch, reduced=args.reduced)
     gen = torch.Generator(device=device)

@@ -9,6 +9,6 @@ xlstm-350m, llama-3.2-vision, phi3.5-moe and mixtral-8x22b, and runs
 hubert-xlarge's encoder."""
 from .config import ArchConfig
 from .transformer import (apply_block, decode_step, forward, init_cache,
-                          init_params, loss_fn, prefill)
+                          init_params, loss_fn, param_specs, prefill)
 from .attention import blockwise_attention, decode_attention
 from . import layers, moe, recurrent

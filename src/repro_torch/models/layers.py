@@ -7,17 +7,39 @@ a reference array carries across unchanged (``convert.py``); products
 go through ``matmul``, which gives operands of mixed types the
 reference's result type. They are made with ``requires_grad=False``
 (serving); ``LM.train()`` switches a model to training. The reference's
-sharding specs (``spec_for``, ``PartitionSpec``) are not ported: they
-belong to ``parallel/`` (ROADMAP Queue 1 item 13h).
+inits return a ``PartitionSpec`` beside each weight; here each module
+states the model-axis dim of its weights beside its init (``MLP.
+SHARD_DIMS``, ``moe.MoE.SHARD_DIMS``, ``transformer.Block.shard_dims``),
+``spec_for`` turns one into a spec, and ``transformer.param_specs``
+gives the whole model's.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.sharding import PartitionSpec as P
+
+MODEL_AXIS = "model"
+
+
+def _shardable(dim: int, n_shards: int) -> bool:
+    return n_shards > 0 and dim % n_shards == 0
+
+
+def spec_for(shape: Tuple[int, ...], shard_dim: Optional[int],
+             n_shards: int) -> P:
+    """PartitionSpec sharding ``shard_dim`` over the model axis when
+    divisible, else fully replicated."""
+    if shard_dim is None or not _shardable(shape[shard_dim], n_shards):
+        return P(*([None] * len(shape)))
+    parts = [None] * len(shape)
+    parts[shard_dim] = MODEL_AXIS
+    return P(*parts)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -101,6 +123,9 @@ class MLP(nn.Module):
     (SwiGLU). The reference draws ``up``, ``gate``, ``down`` from three
     split keys; here they come one after another from ``gen``."""
 
+    # the model-axis dim of each weight (the reference's init_mlp specs)
+    SHARD_DIMS = {"up": 1, "gate": 1, "down": 0}
+
     def __init__(self, gen: torch.Generator, d: int, ff: int, gated: bool,
                  dtype: torch.dtype):
         super().__init__()
@@ -111,7 +136,7 @@ class MLP(nn.Module):
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, gated: bool,
              dtype: torch.dtype) -> MLP:
-    """The reference's ``init_mlp`` (its sharding specs aside): an
+    """The reference's ``init_mlp`` (its specs: ``MLP.SHARD_DIMS``): an
     ``MLP``."""
     return MLP(gen, d, ff, gated, dtype)
 

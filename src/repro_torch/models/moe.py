@@ -13,8 +13,10 @@ slot, the combine accumulated in float32 slot by slot and cast once.
 
 The expert products are plain batched matrix products (the reference
 leaves its einsums to XLA; no Pallas kernel), so they go through
-``layers.matmul``. The reference's sharding specs of the expert weights
-belong to ``parallel/`` (ROADMAP Queue 1 item 13h).
+``layers.matmul``. The expert weights shard on their ff dim over the
+model axis and the router is replicated (``MoE.SHARD_DIMS``, the
+reference's specs), so the experts' products are tensor-parallel while
+the routing stays whole.
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ class MoE(nn.Module):
     1/sqrt(ff) for ``down``, in float32, then cast) from ``gen`` one
     after another; without gradients until ``LM.train()``."""
 
+    # the model-axis dim of each weight (the reference's init_moe specs)
+    SHARD_DIMS = {"router": None, "gate": 2, "up": 2, "down": 1}
+
     def __init__(self, gen: torch.Generator, d: int, ff: int,
                  n_experts: int, dtype: torch.dtype):
         super().__init__()
@@ -52,7 +57,7 @@ class MoE(nn.Module):
 
 def init_moe(gen: torch.Generator, d: int, ff: int, n_experts: int,
              dtype: torch.dtype) -> MoE:
-    """The reference's ``init_moe`` (its sharding specs aside): a
+    """The reference's ``init_moe`` (its specs: ``MoE.SHARD_DIMS``): a
     ``MoE``."""
     return MoE(gen, d, ff, n_experts, dtype)
 

@@ -74,14 +74,18 @@ from .attention import (blockwise_attention, cross_attention,
                         decode_attention)
 from .config import ArchConfig
 from .layers import (MLP, apply_rope, cross_entropy, dense_init, matmul,
-                     mlp, rms_norm, zeros_param)
+                     mlp, rms_norm, spec_for, zeros_param)
 from .moe import MoE, moe_ffn
+from ..parallel.sharding import PartitionSpec
 
 MOE_AUX_WEIGHT = 0.01
 PORTED_KINDS = ("attn", "local_attn", "cross_attn", "rglru", "mlstm",
                 "slstm")
 # block kinds without the pre-norm dense FFN (xLSTM's blocks)
 _NO_FFN = ("mlstm", "slstm")
+# an rglru block's float32 (w,) gate and decay leaves and their init values
+_LRU_INIT = (("a_param", 0.5), ("alpha_i", 1.0), ("beta_i", 0.0),
+             ("alpha_r", 1.0), ("beta_r", 0.0))
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -166,9 +170,7 @@ class Block(nn.Module):
         self.lru = nn.ParameterDict({
             name: nn.Parameter(torch.full((w,), value, **f32),
                                requires_grad=False)
-            for name, value in (("a_param", 0.5), ("alpha_i", 1.0),
-                                ("beta_i", 0.0), ("alpha_r", 1.0),
-                                ("beta_r", 0.0))})
+            for name, value in _LRU_INIT})
 
     def _init_attn(self, gen: torch.Generator, cfg: ArchConfig,
                    kind: str) -> None:
@@ -190,6 +192,31 @@ class Block(nn.Module):
         if kind == "cross_attn":
             self.gate_attn = zeros_param((), torch.float32, dev)
             self.gate_mlp = zeros_param((), torch.float32, dev)
+
+    @staticmethod
+    def shard_dims(cfg: ArchConfig, kind: str,
+                   n_shards: int) -> Dict[str, int]:
+        """The model-axis dim of each sharded leaf of a ``kind`` block
+        (dotted names under the block; a leaf not named is replicated:
+        norm gains, biases, gates, ``w_if``, ``r``), the reference's
+        ``init_block`` specs. Attention shards its heads (wq's columns,
+        wo's rows) when they divide by ``n_shards``, else d_model."""
+        _check_ported(cfg, kind)
+        if kind == "rglru":
+            dims = {"w_in": 1, "w_out": 0, "conv": 1,
+                    **{f"lru.{name}": 0 for name, _ in _LRU_INIT}}
+        elif kind == "mlstm":
+            dims = {"w_up": 1, "wq": 1, "wk": 1, "wv": 1, "w_down": 0}
+        elif kind == "slstm":
+            dims = {"w_gates": 1, "w_out": 0}
+        else:
+            heads = n_shards > 0 and cfg.n_heads % n_shards == 0
+            dims = {"wq": 1 if heads else 0, "wk": 0, "wv": 0,
+                    "wo": 0 if heads else 1}
+        if kind not in _NO_FFN:
+            ffn = MoE if cfg.n_experts > 1 else MLP
+            dims.update({f"ffn.{n}": d for n, d in ffn.SHARD_DIMS.items()})
+        return dims
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Block:
@@ -497,6 +524,10 @@ def _slstm_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
 class LM(nn.Module):
     """The whole model's parameters (see the module docstring)."""
 
+    # the model-axis dim of the leaves outside the blocks (the reference's
+    # init_params specs; vis_proj is replicated)
+    SHARD_DIMS = {"embed": 1, "frontend": 1, "unembed": 1}
+
     def __init__(self, gen: torch.Generator, cfg: ArchConfig):
         super().__init__()
         kinds = cfg.layout()
@@ -531,6 +562,27 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> LM:
     packages' inits differ; ``convert.from_reference_lm_params`` carries
     the reference's across."""
     return LM(gen, cfg).eval()
+
+
+def param_specs(cfg: ArchConfig, n_shards: int = 0
+                ) -> Dict[str, PartitionSpec]:
+    """The spec of every parameter of ``init_params(gen, cfg)`` over
+    ``n_shards`` model shards, keyed by its name (``embed``,
+    ``blocks.{layer}.{leaf}``: ``named_parameters``' names, which
+    ``convert.from_reference_lm_params`` writes): the reference's
+    ``init_params`` specs, whose depth-stacked ``period`` leaves carry a
+    leading None the port's unstacked layers do not. The shapes come from
+    the port's own init run under ``FakeTensorMode``, which allocates
+    nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        model = LM(torch.Generator().manual_seed(0), cfg)
+    dims = dict(LM.SHARD_DIMS)
+    for i, kind in enumerate(cfg.layout()):
+        dims.update({f"blocks.{i}.{leaf}": d for leaf, d in
+                     Block.shard_dims(cfg, kind, n_shards).items()})
+    return {name: spec_for(tuple(p.shape), dims.get(name), n_shards)
+            for name, p in model.named_parameters()}
 
 
 def init_cache(cfg: ArchConfig, B: int, cache_len: int,

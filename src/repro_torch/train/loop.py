@@ -11,8 +11,8 @@
   resumed run is bit for bit the straight one;
 - the straggler flag: per-step wall times, an outlier is reported so an
   external scheduler can evict a slow host;
-- ``elastic_remesh`` (re-placing a state on another mesh) belongs to the
-  mesh and sharding layer, not ported yet.
+- ``elastic_remesh`` (re-placing a state on another mesh) is not ported
+  yet (ROADMAP Queue 1 item 13h, part 3).
 
 The step is deterministic, on the card and on a CPU with many
 threads, with no global switch: the attention gradient kernel sums
@@ -166,9 +166,8 @@ def train_loop(state: TrainState, train_step: Callable, data_iter,
 
 
 def elastic_remesh(state: TrainState, new_shardings: Any) -> TrainState:
-    """Re-placing a train state on another mesh needs the mesh and
-    sharding layer (``launch/mesh.py``, ``parallel/``), which the port
-    has not yet."""
+    """Re-placing a train state on another mesh (``launch/mesh.py``,
+    ``parallel/``): not ported yet."""
     raise NotImplementedError(
-        "elastic_remesh needs the mesh and sharding layer, not ported yet: "
-        "ROADMAP Queue 1 item 13h (parallel/, launch/mesh.py)")
+        "elastic_remesh (a train state re-placed on another mesh) is not "
+        "ported yet: ROADMAP Queue 1 item 13h, part 3")

@@ -524,14 +524,13 @@ def test_random_genomes_equal():
 # "package" -> its missing submodules, "package.module" -> the functions
 # and classes that module defines and the port's lacks
 OWED = {
-    "models.layers": {"spec_for": "13h"},
-    "launch": {"dryrun": "13i", "mesh": "13h"},
+    "launch": {"dryrun": "13i"},
 }
 
 
 @pytest.mark.parametrize("pkg", ["core", "experiments", "kernels", "models",
                                  "serve", "train", "data", "checkpoint",
-                                 "launch"])
+                                 "launch", "parallel"])
 def test_port_has_every_public_name_of_the_reference(pkg):
     """Every public name of ``repro.<pkg>`` (its re-exports and
     submodules) exists in the port's package, and module by module every

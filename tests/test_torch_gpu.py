@@ -694,10 +694,22 @@ def test_launch_audit_on_card(cuda):
 
 # the decode kernel: (B, T, KV, G, hd, cache, window): qwen3-4b's serving
 # shape on both caches, recurrentgemma-9b's ring, the reduced configs'
-# float32 head dims 8 and 16, and int8 under a float32 q
+# float32 head dims 8 and 16, and int8 under a float32 q; the GQA groups
+# of qwen2.5-3b (2 KV heads of 8: two head groups of the kernel's 4),
+# glm4-9b (2 of 16: four) and phi4-mini (8 of 3: one partly filled) at the
+# serving shape on both caches, and groups of 3 and 7 (a full head group
+# and a partly filled one) at small shapes
 DECODE_GPU_SHAPES = [
     (4, 4352, 8, 4, 128, "bfloat16", 0),
     (4, 4352, 8, 4, 128, "int8", 0),
+    (4, 4352, 2, 8, 128, "bfloat16", 0),
+    (4, 4352, 2, 8, 128, "int8", 0),
+    (4, 4352, 2, 16, 128, "bfloat16", 0),
+    (4, 4352, 2, 16, 128, "int8", 0),
+    (4, 4352, 8, 3, 128, "bfloat16", 0),
+    (4, 4352, 8, 3, 128, "int8", 0),
+    (3, 40, 2, 3, 16, "float32", 6),
+    (2, 300, 2, 7, 32, "bfloat16", 0),
     (4, 2048, 1, 16, 256, "bfloat16", 2048),
     (3, 40, 2, 2, 16, "float32", 6),
     (2, 33, 2, 1, 8, "float32", 0),
@@ -1478,3 +1490,21 @@ def test_hubert_on_card_matches_cpu(cuda):
         got = res[1][1][n]
         assert float((got - want).abs().max()) <= \
             1e-4 * float(want.abs().max()), n
+
+
+@pytest.mark.parametrize("n,dt", [(1, "float32"), (1000, "float32"),
+                                  (3 * 2048 + 5, "bfloat16"),
+                                  (1 << 20, "bfloat16")])
+def test_error_feedback_compress_card_matches_cpu(cuda, n, dt):
+    """``parallel.error_feedback_compress`` on the card and on the CPU, the
+    same gradient and residual: q, scale and the new residual bitwise
+    (the residual's products exact on both, one rounding)."""
+    from repro_torch.parallel.compression import error_feedback_compress
+    gen = torch.Generator().manual_seed(n)
+    g = (torch.randn(n, generator=gen) * 3e-3).to(getattr(torch, dt))
+    r = torch.randn(n, generator=gen) * 1e-5
+    want = error_feedback_compress(g, r)
+    got = error_feedback_compress(g.to(cuda), r.to(cuda))
+    assert [t.device.type for t in got] == ["cuda"] * 3
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)

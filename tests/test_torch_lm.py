@@ -247,6 +247,74 @@ def test_model_matches_reference(name):
                                   np.asarray(jcache["period"]["pos0"]["pos"][0]))
 
 
+def test_qkv_bias_matches_reference_in_logits_and_gradients():
+    """Reduced qwen2.5-3b with its ``bq``, ``bk``, ``bv`` drawn non-zero by
+    numpy from a seed (standard normals, the scale of the projections'
+    outputs; the init's zeros would add nothing), the other leaves the
+    reference's init, carried into both packages: forward, prefill and
+    three decode steps' logits within atol 1e-4; the loss within rtol
+    1e-5 and every gradient leaf, the bias leaves among them (three,
+    stacked over the two layers), within 2e-5 of its largest |g| of
+    ``jax.value_and_grad``'s."""
+    from repro_torch.convert import to_reference_lm_tree
+    jcfg = jget_config("qwen2_5_3b", reduced=True)
+    params, _ = jinit_params(jax.random.PRNGKey(0), jcfg)
+    np_params = jax.tree.map(np.array, params)
+    rng = np.random.default_rng(33)
+    biases = []
+    for blk in np_params["period"].values():
+        for name in ("bq", "bk", "bv"):
+            blk[name] = rng.standard_normal(blk[name].shape).astype(
+                blk[name].dtype)
+            biases.append(blk[name])
+    assert len(biases) == 3 and all(np.all(b != 0) for b in biases)
+    cfg = from_reference_arch_config(jcfg)
+    model = from_reference_lm_params(np_params, cfg, device="cpu")
+    jp = jax.tree.map(jnp.asarray, np_params)
+    toks = rng.integers(0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    batch = {"tokens": _t(toks).long(), "labels": _t(toks).long()}
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+
+    want, _, _ = _jforward(jp, jcfg, jbatch, remat=False)
+    _close(forward(model, cfg, batch)[0], want, atol=1e-4)
+    jlast, jcache = _jprefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, 16)
+    last, cache = prefill(model, cfg, {"tokens": batch["tokens"]}, 16)
+    _close(last, jlast, atol=1e-4)
+    pos = np.array([11, 11], np.int32)
+    tok = np.argmax(np.asarray(jlast), -1).astype(np.int32)[:, None]
+    for _ in range(3):
+        jlog, jcache = _jdecode(jp, jcfg, jnp.asarray(tok), jcache,
+                                jnp.asarray(pos))
+        log, cache = decode_step(model, cfg, _t(tok).long(), cache,
+                                 _t(pos).long())
+        _close(log, jlog, atol=1e-4)
+        tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)[:, None]
+        pos = pos + 1
+
+    model.train()
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda q, b: jloss_fn(q, jcfg, b), has_aux=True))(jp, jbatch)
+    tl, _ = loss_fn(model, cfg, batch)
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(tl, [q for _, q in named])
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    got = to_reference_lm_tree({n: g for (n, _), g in zip(named, grads)},
+                               cfg)
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    flat_j = jax.tree_util.tree_flatten_with_path(jg)[0]
+    assert len(flat_j) == len(flat_t)
+    seen = set()
+    for path, want in flat_j:
+        want = np.asarray(want, np.float32)
+        name = jax.tree_util.keystr(path)
+        err = float(np.abs(flat_t[path] - want).max())
+        assert err <= 2e-5 * float(np.abs(want).max()), (name, err)
+        if name.split("'")[-2] in ("bq", "bk", "bv"):
+            assert np.abs(want).max() > 0, name
+            seen.add(name)
+    assert len(seen) == 3
+
+
 @pytest.mark.parametrize("name", MODEL_CASES)
 def test_engine_matches_reference(name):
     """The port's ServeEngine and the JAX ServeEngine, on the same
