@@ -393,7 +393,22 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      step; glm4-9b cut to GLM_TRAIN_LAYERS of 40 layers trains 3; then
      ``parallel.error_feedback_compress`` on every gradient leaf of one
      qwen2.5-3b step, on the card against the same leaves on the CPU,
-     bitwise.
+     bitwise;
+ 44. the mesh path on the card: qwen3-4b at full width trains 3 steps at
+     8 x 128 through ``launch.train.setup`` with ``--model-shards 1``
+     (the state placed on the 1 x 1 host mesh, ``train.loop``'s step
+     over it; 36 gradient and 72 forward flash launches a step); its m
+     and v copied to the host; ``elastic_remesh`` onto the 1 x 1 mesh
+     keeps every leaf; the parameters saved, zeroed and restored through
+     ``checkpoint``; then the plain step from the same seed (the mesh
+     run's m and v freed first, its restored parameters kept): losses
+     and every parameter, m and v leaf bitwise. The dry run (``launch/dryrun.py``) of that cell on
+     the 1 x 1 mesh, in a subprocess: its parameter, m and v argument
+     bytes against the card's build of the state (the allocator's
+     requested bytes within 512 B a leaf); ``xlstm_350m x decode_32k``
+     dry-run on the 256-rank fake pod in a subprocess, its record
+     printed. Since this slice every ``launch.train`` run (phases 24, 34,
+     37, 39, 40, 43) goes through the mesh step on the 1 x 1 mesh.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -5437,6 +5452,259 @@ def phase_dense_train(torch, fa, dev) -> dict:
     return out
 
 
+# phase 44: the mesh path on the card (qwen3-4b at phase 24's width and
+# batch, 3 steps), the dry run of that state's cell on the 1 x 1 mesh
+# (a train shape of 8 x 128, given to the cell function) and one
+# production cell in a subprocess
+MESH_STEPS = 3
+MESH_CELL = ("train_8x128", 128, 8)
+DRYRUN_CELL = r"""
+import json, sys
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+name, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+trace, aux = dryrun.lower_cell(get_config("qwen3_4b"),
+                               ShapeSpec(name, seq, batch, "train"),
+                               make_host_mesh())
+rec = trace()
+rec.pop("events")
+print(json.dumps({**rec, **aux}))
+"""
+
+
+def same_bits(torch, a, b) -> bool:
+    """``a`` and ``b`` (on one device) hold the same bits."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+# an odd 64-bit constant (the golden ratio's bits) that spreads the
+# weights of bits_digest
+GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def bits_digest(torch, x, chunk: int = 1 << 26):
+    """A float32 leaf's bits on the card as two int64 sums: of its
+    32-bit words, and of each word times an odd weight of its position
+    (mod 2^64, as int64 arithmetic wraps). One element that differs
+    always changes the second sum (an odd weight times a nonzero word
+    difference under 2^32 is not 0 mod 2^64), so two leaves' digests
+    differ wherever one element's bits do; leaves that differ in many
+    elements have the same digests only if both sums cancel at once."""
+    words = x.detach().reshape(-1).view(torch.int32)
+    plain = torch.zeros((), dtype=torch.int64, device=x.device)
+    weighted = torch.zeros((), dtype=torch.int64, device=x.device)
+    for lo in range(0, words.numel(), chunk):
+        w = words[lo:lo + chunk].long()
+        pos = torch.arange(lo, lo + w.numel(), dtype=torch.int64,
+                           device=x.device)
+        plain += w.sum()
+        weighted += (w * (pos.mul_(GOLDEN) | 1)).sum()
+    return torch.stack([plain, weighted])
+
+
+def mesh_steps(torch, step_fn, state, pipe, n) -> tuple:
+    losses = []
+    for _ in range(n):
+        state, m = step_fn(state, pipe.next_batch())
+        losses.append(m["loss"])
+    return state, [float(x) for x in torch.stack(losses).cpu()]
+
+
+def phase_mesh_train(torch, fa, dev) -> dict:
+    """Phase 44: qwen3-4b at full width trains MESH_STEPS steps at 8 x 128
+    through ``launch.train.setup`` with ``--model-shards 1`` (the state
+    placed on the 1 x 1 host mesh, ``train.loop``'s step over it); the
+    digests of its m and v taken on the card (``bits_digest``);
+    ``elastic_remesh`` onto the 1 x 1 mesh (every leaf kept, nothing
+    moved); the parameters saved under the temp directory, zeroed and
+    restored through ``checkpoint``; then, with the mesh run's m and v
+    freed (its restored parameters kept on the card, 8.8 GB), the step
+    called without a mesh from the same seed: losses and every
+    parameter (against the restored ones: the step's and the
+    checkpoint's bits at once) bit for bit, m and v by their digests.
+    The state's build on the card (the allocator's requested bytes, and
+    its allocated bytes) against the dry run's state bytes of the same
+    cell on the 1 x 1 mesh, and ``xlstm_350m x decode_32k`` dry-run on
+    the 256-rank pod, both in subprocesses beside the card's work."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import is_placed
+    from repro_torch.train.loop import (elastic_remesh, init_train_state,
+                                        make_train_step,
+                                        train_state_shardings)
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CELL, *map(str, MESH_CELL)],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+            subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "xlstm_350m", "--shape", "decode_32k", "--out", out_dir],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)]
+        try:
+            argv = ["--arch", "qwen3_4b", "--steps", str(MESH_STEPS),
+                    "--batch", str(MESH_CELL[2]), "--seq", str(MESH_CELL[1]),
+                    "--device", "cuda", "--model-shards", "1"]
+            args = launch_train.parse_args(argv)
+            torch.cuda.empty_cache()
+            key = "requested_bytes.all.current"
+            req0 = torch.cuda.memory_stats(dev).get(key)
+            alloc0 = torch.cuda.memory_allocated(dev)
+            cfg, state, step_fn, pipe = launch_train.setup(args, dev)
+            req = torch.cuda.memory_stats(dev).get(key)
+            built = {"allocated": torch.cuda.memory_allocated(dev) - alloc0,
+                     "requested": None if req is None else req - req0}
+            placed = [x for x in list(state.params.parameters())
+                      + list(state.opt.m.values())
+                      + list(state.opt.v.values()) if is_placed(x)]
+            if placed:
+                raise RuntimeError(f"mesh train: {len(placed)} placed leaves "
+                                   "on the 1 x 1 mesh")
+            split = {"setup": time.perf_counter() - t0}
+            fa.flash_attention.launches = 0
+            fa.flash_attention_bwd.launches = 0
+            t1 = time.perf_counter()
+            state, losses = mesh_steps(torch, step_fn, state, pipe,
+                                       MESH_STEPS)
+            mesh_s = split["mesh steps"] = time.perf_counter() - t1
+            fwd = fa.flash_attention.launches
+            bwd = fa.flash_attention_bwd.launches
+            n_layers = cfg.n_layers
+            if bwd != MESH_STEPS * n_layers or fwd != 2 * bwd:
+                raise RuntimeError(f"mesh train: {fwd} forward and {bwd} "
+                                   f"gradient flash launches in {MESH_STEPS} "
+                                   f"steps of {n_layers} layers")
+            t1 = time.perf_counter()
+            digests = {t: {n: bits_digest(torch, x)
+                           for n, x in getattr(state.opt, t).items()}
+                       for t in ("m", "v")}
+            torch.cuda.synchronize(dev)
+            split["m and v digests"] = time.perf_counter() - t1
+            before = {n: p for n, p in state.params.named_parameters()}
+            mv = (dict(state.opt.m), dict(state.opt.v))
+            state = elastic_remesh(state, train_state_shardings(
+                cfg, make_host_mesh(), state.params))
+            moved = [n for n, p in state.params.named_parameters()
+                     if p is not before[n]]
+            moved += [n for n in mv[0] if state.opt.m[n] is not mv[0][n]
+                      or state.opt.v[n] is not mv[1][n]]
+            if moved:
+                raise RuntimeError(f"elastic_remesh onto 1 x 1 moved "
+                                   f"{moved[:4]}")
+            t1 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as ck:
+                save(ck, MESH_STEPS, state.params)
+                with torch.no_grad():
+                    for p in state.params.parameters():
+                        p.zero_()
+                restore(ck, MESH_STEPS, state.params)
+                ck_bytes = sum(os.path.getsize(os.path.join(ck, f))
+                               for f in os.listdir(ck))
+            ck_s = split["checkpoint"] = time.perf_counter() - t1
+            kept = state.params
+            n_leaves = 3 * len(before)
+            del state, step_fn, before, mv
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(args.seed)
+            plain = init_train_state(init_params(gen, cfg))
+            plain_step = make_train_step(cfg, peak_lr=args.lr,
+                                         total_steps=args.steps,
+                                         warmup=max(args.steps // 20, 5),
+                                         accum=args.accum)
+            pipe = SyntheticTokenPipeline(cfg, args.batch, args.seq,
+                                          seed=args.seed)
+            plain, plain_losses = mesh_steps(torch, plain_step, plain, pipe,
+                                             MESH_STEPS)
+            split["plain run"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            ours = dict(kept.named_parameters())
+            bad = [f"p.{n}" for n, p in plain.params.named_parameters()
+                   if not same_bits(torch, ours[n], p)]
+            bad += [f"{t}.{n}" for t in ("m", "v")
+                    for n, x in getattr(plain.opt, t).items()
+                    if not torch.equal(bits_digest(torch, x),
+                                       digests[t][n])]
+            split["compare"] = time.perf_counter() - t1
+            if bad or plain_losses != losses:
+                raise RuntimeError(f"mesh step (its parameters through the "
+                                   f"checkpoint) vs the step without a "
+                                   f"mesh: losses {losses} vs "
+                                   f"{plain_losses}, leaves that differ "
+                                   f"{bad[:6]} of {n_leaves}")
+            del plain, plain_step, kept, ours, digests
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            outs = [p.communicate(timeout=300) for p in procs]
+            split["dry runs' wait"] = time.perf_counter() - t1
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for p, (o, e) in zip(procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"dry run subprocess: exit {p.returncode}"
+                                   f"\n{o[-3000:]}\n{e[-3000:]}")
+        rec_path = os.path.join(out_dir,
+                                "xlstm_350m__decode_32k__pod256.json")
+        with open(rec_path) as f:
+            pod = json.load(f)
+    cell = json.loads(outs[0][0].strip().splitlines()[-1])
+    batch_bytes = 2 * MESH_CELL[2] * MESH_CELL[1] * 4
+    args_state = cell["memory"]["argument_size_in_bytes"] - batch_bytes
+    if args_state != cell["state_bytes"] or cell["state_leaves"] != n_leaves:
+        raise RuntimeError(f"dry run: argument bytes less the batch "
+                           f"{args_state} vs state bytes "
+                           f"{cell['state_bytes']}, {cell['state_leaves']} "
+                           f"leaves vs the card's {n_leaves}")
+    slack = 512 * n_leaves
+    exact = built["requested"]
+    ok_req = exact is None or 0 <= exact - args_state <= slack
+    ok_alloc = 0 <= built["allocated"] - args_state
+    if not (ok_req and ok_alloc):
+        raise RuntimeError(f"dry run state bytes {args_state} vs the card's "
+                           f"build: requested {exact}, allocated "
+                           f"{built['allocated']} (within 512 B a leaf)")
+    if pod["n_devices"] != 256 or not pod["cost"]["flops"] > 0:
+        raise RuntimeError(f"xlstm_350m x decode_32k on pod256: {pod}")
+    log(f"mesh train qwen3_4b full width, --model-shards 1 (1 x 1 mesh), "
+        f"batch {MESH_CELL[2]} x {MESH_CELL[1]}: losses {losses} bitwise the "
+        f"step's without a mesh, all {n_leaves // 3} parameters bitwise and "
+        f"all {2 * n_leaves // 3} m and v leaves by their bits' digests; "
+        f"{MESH_STEPS} steps {mesh_s:.3f} s; flash launches {fwd} forward, "
+        f"{bwd} gradient; elastic_remesh onto 1 x 1 kept every leaf; "
+        f"checkpoint of the parameters ({ck_bytes / 1e9:.2f} GB) saved, "
+        f"zeroed and restored in {ck_s:.2f} s (under the temp directory), "
+        f"bitwise the plain step's parameters")
+    log("phase 44 split: " + ", ".join(f"{k} {v:.1f} s"
+                                        for k, v in split.items()))
+    log(f"dry run of that cell on the 1 x 1 mesh: parameters + m + v "
+        f"{args_state} B in {cell['state_leaves']} leaves; the card's build "
+        f"requested {exact} B ({None if exact is None else exact - args_state}"
+        f" more), allocated {built['allocated']} B "
+        f"({built['allocated'] - args_state} more: the caching allocator "
+        f"keeps a large block's unsplit remainder); flops "
+        f"{cell['cost']['flops']:.4e}, temp {cell['memory']['temp_size_in_bytes']}"
+        f" B; {card_line()}")
+    log(f"dry run xlstm_350m x decode_32k on pod256: {json.dumps(pod)}")
+    log(f"phase 44: {time.perf_counter() - t0:.1f} s")
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -5539,6 +5807,7 @@ def main(argv=None) -> int:
     dense = phase_dense_serve(torch, fa, dev)                        # 41
     dense_l = phase_dense_logits(torch, fa, dev)                     # 42
     dense_t = phase_dense_train(torch, fa, dev)                      # 43
+    mesh_t = phase_mesh_train(torch, fa, dev)                        # 44
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -5581,7 +5850,7 @@ def main(argv=None) -> int:
                    + hub["fwd_launches"] + rgt["launches"][0]
                    + phi["flash"] + mix["flash"] + moet["fwd"]
                    + vist["fwd"] + dense["flash"] + dense_l["flash"]
-                   + dense_t["fwd"],
+                   + dense_t["fwd"] + mesh_t["fwd"],
                    "max_abs_err": max(main_f["max_abs_err"],
                                       served["max_abs_err"],
                                       main_c["flash_err"],
@@ -5598,7 +5867,7 @@ def main(argv=None) -> int:
                              "src/repro/models/attention.py:29)",
                  "launches": trained["launches"] + hub["launches"]
                  + rgt["launches"][1] + moet["bwd"] + vist["bwd"]
-                 + dense_l["bwd"] + dense_t["bwd"],
+                 + dense_l["bwd"] + dense_t["bwd"] + mesh_t["bwd"],
                  "max_abs_err": max(main_b["max_abs_err"],
                                     main_c["bwd_err"]),
                  "ms": main_b["ms"],

@@ -12,10 +12,13 @@ process group when it spans more than one rank:
   1 x 1 mesh there is no ``DeviceMesh``, and placing a tensor
   (``parallel.sharding.NamedSharding.place``) leaves it as it is, so
   one process on one card needs no process group. Over more ranks a
-  tensor is placed with ``distribute_tensor``.
-- ``make_production_mesh`` gives the 16 x 16 and 2 x 16 x 16 shapes as
-  data, for the rule helpers and the dry run (ROADMAP Queue 1 item
-  13i); no fleet stands behind it, so placing onto it raises.
+  tensor is placed as a DTensor, each rank keeping its part.
+- ``make_production_mesh`` gives the 16 x 16 and 2 x 16 x 16 shapes.
+  When the default process group spans as many ranks as the mesh has
+  devices, the mesh binds a ``DeviceMesh`` over them: in the dry run
+  (``launch/dryrun.py``) that group is the fake backend of 256 or 512
+  ranks in one process, and the ``DeviceMesh`` is on the CPU. Otherwise
+  the mesh is data, for the rule helpers, and placing onto it raises.
 - ``mesh_context(mesh)`` makes ``mesh`` the current one
   (``current_mesh()``) inside a ``with`` block, as ``jax.set_mesh``.
 
@@ -54,15 +57,31 @@ class Mesh:
             n *= s
         return n
 
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 without a ``DeviceMesh``)."""
+        if self.device_mesh is None:
+            return 0
+        return self.device_mesh.get_coordinate()[
+            self.axis_names.index(axis)]
+
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={s}" for a, s in self.shape.items())
         return f"Mesh({axes})"
 
 
+def _device_mesh(shape, axes):
+    from torch.distributed.device_mesh import init_device_mesh
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(shape, axes)
+    mesh = Mesh(shape, axes)
+    if dist.is_initialized() and dist.get_world_size() == mesh.size:
+        mesh.device_mesh = _device_mesh(shape, axes)
+    return mesh
 
 
 def make_host_mesh(model: int = 1) -> Mesh:
@@ -72,12 +91,7 @@ def make_host_mesh(model: int = 1) -> Mesh:
     n = dist.get_world_size() if dist.is_initialized() else 1
     assert n % model == 0
     shape, axes = (n // model, model), ("data", "model")
-    device_mesh = None
-    if n > 1:
-        from torch.distributed.device_mesh import init_device_mesh
-        kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        device_mesh = init_device_mesh(kind, shape, mesh_dim_names=axes)
-    return Mesh(shape, axes, device_mesh)
+    return Mesh(shape, axes, _device_mesh(shape, axes) if n > 1 else None)
 
 
 _CURRENT: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(

@@ -664,9 +664,30 @@ def _block_train(cfg: ArchConfig, kind: str, blk: Block, x: torch.Tensor,
     return x, a
 
 
+def check_seq_spec(seq_spec) -> None:
+    """``seq_spec`` (a ``PartitionSpec`` of the residual stream (B, S, d),
+    the reference's sequence parallelism) against the current mesh
+    (``launch.mesh.current_mesh``): an axis the mesh lacks, or no
+    current mesh, raises ValueError. The port runs the compute whole on
+    each rank, so the spec moves no value."""
+    if seq_spec is None:
+        return
+    from ..launch.mesh import current_mesh
+    from ..parallel.sharding import NamedSharding
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(f"seq_spec {seq_spec} needs a current mesh "
+                         "(launch.mesh.mesh_context)")
+    if len(seq_spec) > 3:
+        raise ValueError(f"seq_spec {seq_spec}: the residual stream has 3 "
+                         "dims")
+    NamedSharding(mesh, seq_spec).placements
+
+
 def forward(params: LM, cfg: ArchConfig, batch, *, mode: str = "train",
             cache: Optional[Cache] = None,
-            positions: Optional[torch.Tensor] = None, remat: bool = True
+            positions: Optional[torch.Tensor] = None, remat: bool = True,
+            seq_spec=None
             ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Returns (logits, cache, aux_loss); ``batch["tokens"]`` is (B, S)
     (``batch["frames"]`` (B, S, frontend_dim) with the audio frontend;
@@ -676,16 +697,22 @@ def forward(params: LM, cfg: ArchConfig, batch, *, mode: str = "train",
     pattern's whole periods (one ``torch.utils.checkpoint`` a block; the
     ``rem`` blocks after them run plain, as the reference's). ``aux`` is
     the blocks' auxiliary losses summed in layer order from a float32
-    zero (a MoE FFN's load-balance term; 0 without experts)."""
+    zero (a MoE FFN's load-balance term; 0 without experts).
+    ``seq_spec``: the reference's sharding of the residual stream
+    between blocks, checked by ``check_seq_spec``; it changes no
+    value."""
+    check_seq_spec(seq_spec)
     x, cache, aux = _trunk(params, cfg, batch, mode, cache, positions,
                            remat)
     return matmul(x, params.unembed), cache, aux
 
 
-def loss_fn(params: LM, cfg: ArchConfig, batch, remat: bool = True):
+def loss_fn(params: LM, cfg: ArchConfig, batch, remat: bool = True,
+            seq_spec=None):
     """Mean next-token CE (``frame_ce``: per-frame CE) plus the MoE
     auxiliary term; differentiable. Returns (loss, {"ce", "aux"})."""
-    logits, _, aux = forward(params, cfg, batch, mode="train", remat=remat)
+    logits, _, aux = forward(params, cfg, batch, mode="train", remat=remat,
+                             seq_spec=seq_spec)
     if cfg.loss == "frame_ce":
         loss = cross_entropy(logits, batch["labels"])
     else:

@@ -15,6 +15,12 @@ The port cannot import ``jax.sharding``, so it has its own
 ``NamedSharding`` (a spec on a ``launch.mesh.Mesh``, turned into DTensor
 placements, one a mesh dim). Trees are nested dicts, lists and tuples
 (``torch.utils._pytree``); a ``PartitionSpec`` is a leaf.
+
+``whole`` is the inverse of ``NamedSharding.place``: a leaf's whole
+value, gathered from a DTensor, or the tensor itself (the leaves of a
+1 x 1 mesh are plain tensors). ``local_part`` is this rank's part of a
+whole value at given placements, cut without communication. The train
+step, ``train.loop.elastic_remesh`` and the checkpoint share both.
 """
 from __future__ import annotations
 
@@ -82,15 +88,84 @@ class NamedSharding:
 
     def place(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as it is on a mesh of one device; else a DTensor over the
-        mesh's ``DeviceMesh`` (each rank passes the whole tensor and keeps
-        its shard)."""
+        mesh's ``DeviceMesh``: each rank passes the whole tensor and keeps
+        its part (``local_part``; no communication)."""
         if self.mesh.size == 1:
             return x
         if self.mesh.device_mesh is None:
             raise RuntimeError(f"{self.mesh!r} has no devices to place on "
                                "(a mesh given as data)")
-        from torch.distributed.tensor import distribute_tensor
-        return distribute_tensor(x, self.mesh.device_mesh, self.placements)
+        from torch.distributed.tensor import DTensor
+        dm, pl = self.mesh.device_mesh, self.placements
+        stride = torch.empty(x.shape, device="meta").stride()
+        return DTensor.from_local(local_part(x, dm, pl).contiguous(), dm,
+                                  pl, run_check=False, shape=x.shape,
+                                  stride=stride)
+
+
+def is_placed(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (a leaf placed on a mesh of more than
+    one device)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+@torch.no_grad()
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's whole value: a DTensor gathered (every rank gets all of
+    it, a plain tensor without gradients; a DTensor replicated on every
+    mesh dim gives its local tensor, no copy), a plain tensor as it
+    is."""
+    return x.full_tensor() if is_placed(x) else x
+
+
+def part_slices(shape, dims, mesh_shape, coord) -> tuple:
+    """Where a rank's part lies in a whole leaf of ``shape``: mesh dim by
+    mesh dim, the rank's ``torch.chunk`` (as ``distribute_tensor`` cuts)
+    of the tensor dim ``dims[i]`` that mesh dim i splits (None: none),
+    at the rank's ``coord`` on a mesh of ``mesh_shape``."""
+    start, length = [0] * len(shape), list(shape)
+    for i, d in enumerate(dims):
+        if d is None:
+            continue
+        chunk = -(-length[d] // mesh_shape[i])
+        lo = min(coord[i] * chunk, length[d])
+        start[d] += lo
+        length[d] = min(chunk, length[d] - lo)
+    return tuple(slice(a, a + n) for a, n in zip(start, length))
+
+
+def shard_dims(placements) -> list:
+    """The tensor dim each mesh dim splits (a ``Shard``'s), else None."""
+    from torch.distributed.tensor import Shard
+    return [pl.dim if isinstance(pl, Shard) else None for pl in placements]
+
+
+def local_part(x: torch.Tensor, device_mesh, placements) -> torch.Tensor:
+    """This rank's part of the whole value ``x`` at ``placements`` on
+    ``device_mesh`` (a view; no communication)."""
+    return x[part_slices(x.shape, shard_dims(placements), device_mesh.shape,
+                         device_mesh.get_coordinate())]
+
+
+def local_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The part of the whole value ``x`` that ``like`` (a DTensor, or a
+    plain tensor: then ``x`` itself) holds on this rank."""
+    if not is_placed(like):
+        return x
+    return local_part(x, like.device_mesh, like.placements)
+
+
+def from_local_like(local: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A DTensor with ``like``'s mesh, placements and global shape over
+    this rank's ``local`` part; ``local`` itself when ``like`` is
+    plain."""
+    if not is_placed(like):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
 
 
 def _mesh_axis_size(mesh, name: str) -> int:

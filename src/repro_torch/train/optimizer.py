@@ -28,6 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.sharding import is_placed, local_like
+
 Tree = Dict[str, torch.Tensor]
 
 
@@ -81,15 +83,23 @@ def adamw_update(grads: Tree, state: AdamWState,
     """One AdamW step, leaf by leaf and in place (parameters, ``m`` and
     ``v``). ``grads`` is consumed: each gradient leaves it once its leaf
     is updated, so its memory goes back before the next leaf's
-    temporaries are made. Returns (params, the state with count + 1)."""
+    temporaries are made. Where ``m`` and ``v`` are DTensors (the train
+    step's ZeRO-1 placement), ``params`` and ``grads`` hold whole values
+    and only this rank's part of each (``parallel.sharding.local_like``,
+    a view) is updated: the step is elementwise, so a part takes the
+    bits the whole leaf would. Returns (params, the state with count +
+    1)."""
     tree = params_of(params)
     count = state.count + 1
     t, one = np.float32(count), np.float32(1.0)
     bc1 = float(one - np.float32(b1) ** t)
     bc2 = float(one - np.float32(b2) ** t)
     for name in list(grads):
-        p, m, v = tree[name], state.m[name], state.v[name]
-        gf = grads.pop(name).float()
+        m, v = state.m[name], state.v[name]
+        p = local_like(tree[name], m)
+        gf = local_like(grads.pop(name), m).float()
+        if is_placed(m):
+            m, v = m.to_local(), v.to_local()
         m.mul_(b1).add_(gf * (1 - b1))
         v.mul_(b2).add_((gf * (1 - b2)).mul_(gf))
         del gf

@@ -519,6 +519,43 @@ def test_train_step_repeats_bitwise_on_card(cuda):
         assert torch.equal(a.opt.v[n], b.opt.v[n]), n
 
 
+def test_mesh_step_on_one_card_is_the_plain_step(cuda):
+    """Reduced qwen3-4b, three steps through ``launch.train.setup`` with
+    ``--model-shards 1`` (the state placed on the 1 x 1 host mesh, the
+    step over it) and three of the plain step from the same seed: the
+    same losses, parameters and AdamW moments bit for bit; every leaf a
+    plain tensor on the card."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.parallel.sharding import is_placed
+    from repro_torch.train.loop import init_train_state, make_train_step
+    argv = ["--arch", "qwen3_4b", "--reduced", "--steps", "3", "--batch",
+            "4", "--seq", "32", "--model-shards", "1"]
+    args = launch_train.parse_args(argv)
+    cfg, state, step, pipe = launch_train.setup(args, cuda)
+    runs = []
+    for _ in range(2):
+        losses = []
+        for _ in range(3):
+            state, m = step(state, pipe.next_batch())
+            losses.append(m["loss"])
+        runs.append((state, torch.stack(losses)))
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(args.seed)
+        state = init_train_state(init_params(gen, cfg))
+        step = make_train_step(cfg, peak_lr=args.lr, total_steps=3,
+                               warmup=5)
+        pipe.seek(0)
+    (a, la), (b, lb) = runs
+    assert torch.equal(la, lb) and torch.isfinite(la).all()
+    assert not any(is_placed(x) for x in a.params.parameters())
+    for (n, x), (_, y) in zip(a.params.named_parameters(),
+                              b.params.named_parameters()):
+        assert x.device.type == cuda.type and torch.equal(x, y), n
+    for n in a.opt.m:
+        assert torch.equal(a.opt.m[n], b.opt.m[n]), n
+        assert torch.equal(a.opt.v[n], b.opt.v[n]), n
+
+
 def test_flash_wrapper_rejects_bad_inputs(cuda):
     q = torch.randn((1, 2, 16, 8), device=cuda)
     with pytest.raises(TypeError):

@@ -505,11 +505,23 @@ def test_launch_train_and_example_run_on_cpu(tmp_path, capsys):
 
 
 def test_launchers_default_to_the_card_and_name_item_13h():
+    """The launchers default to the card and exit 2 without one;
+    ``--model-shards 2`` without a process group fails as the
+    reference's does (one rank is not divisible by 2: ``make_host_mesh``'s
+    assertion); ``elastic_remesh`` onto the 1 x 1 host mesh leaves every
+    leaf as it is."""
     if not torch.cuda.is_available():
         assert launch_train.main(["--reduced", "--steps", "1"]) == 2
         assert train_lm.main(["--steps", "1"]) == 2
-    with pytest.raises(NotImplementedError, match="item 13h"):
+    with pytest.raises(AssertionError):
         launch_train.main(["--reduced", "--device", "cpu",
                            "--model-shards", "2"])
-    with pytest.raises(NotImplementedError, match="item 13h"):
-        loop.elastic_remesh(None, None)
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg, state = _small_state()
+    before = dict(state.params.named_parameters())
+    m, v = dict(state.opt.m), dict(state.opt.v)
+    back = loop.elastic_remesh(state, loop.train_state_shardings(
+        cfg, make_host_mesh(), state.params))
+    assert back.params is state.params and back.step == state.step
+    assert all(p is before[n] for n, p in back.params.named_parameters())
+    assert all(back.opt.m[n] is m[n] and back.opt.v[n] is v[n] for n in m)
