@@ -184,18 +184,23 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      through ``flash_mha``'s autograd function vs
      ``flash_attention_bwd_plain`` in float32 on the same inputs, at
      phase 11's shapes plus float32 window, query-offset and hd 256
-     cases and qwen3-4b's training shape (8 x 128 tokens, 32 heads of
-     128, bf16, causal): every launch's route asserted by shape (bf16
-     with hd <= 128 on the tensor cores, ``flash_attention_bwd_wgmma.
-     cuh``, from the forward's saved log-sum-exp; float32 and hd 256 on
-     the CUDA cores); float32 within 1e-4 of each gradient's largest
-     entry, bf16 every element within two bf16 steps plus 1e-4; a second
-     launch on the same inputs bitwise equal; at every bf16 shape the
-     forward's output with the lse store bitwise the one without it and
-     the lse within 5e-5 of the plain version's; then at S = T = 4096,
-     32 heads, bf16, causal the kernel (with the saved lse, as training
-     passes it), the plain version and SDPA's backward timed beside the
-     bound and the design's floor (10 products at the bf16 peak);
+     cases, qwen3-4b's training shapes (8 x 128 and 1 x 4096 tokens, 32
+     heads of 128, bf16, causal) and recurrentgemma-9b's local attention
+     (1 x 4096, 16 heads of 256, bf16, causal, window 2048): every
+     launch's route asserted by type (bf16 at every head dim on the
+     tensor cores, ``flash_attention_bwd_wgmma.cuh``, from the forward's
+     saved log-sum-exp; float32 on the CUDA cores); float32 within 1e-4
+     of each gradient's largest entry, bf16 every element within two
+     bf16 steps plus 1e-4; a second launch on the same inputs bitwise
+     equal; at every bf16 shape the forward's output with the lse store
+     bitwise the one without it and the lse within 5e-5 of the plain
+     version's; then at S = T = 4096, 32 heads, bf16, causal the kernel
+     (with the saved lse, as training passes it), the plain version and
+     SDPA's backward timed beside the bound and the design's floor (10
+     products at the bf16 peak), and the same at recurrentgemma's shape
+     beside SDPA's backward with the window band as its mask and with
+     ``is_causal`` (more work), the forward with and without its lse
+     store and SDPA's band-masked forward;
  24. qwen3-4b at full width trains on the card through
      ``repro_torch.launch.train``'s code path (36 layers, bf16, seeded
      random weights, batch 8 x seq 128, 4 steps, no checkpoints): every
@@ -323,8 +328,8 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      3.3 B parameters; bf16, seeded random weights) trains through
      ``launch.train``'s code path, 3 steps at batch 8 x 128 and 3 at 1 x
      4096 (16 time tiles a scan call): finite losses, 2 flash and 1
-     gradient launch an attention layer a step (hd 256: the CUDA-core
-     gradient route), 2 scan and 1 scan-gradient launches an RG-LRU
+     gradient launch an attention layer a step (all on the gradient's
+     tensor-core route), 2 scan and 1 scan-gradient launches an RG-LRU
      layer a step; median step, tokens/s, peak memory, a profiled step;
      then a 3-layer float32 cut's loss and gradients, card against CPU;
  35. phi3.5-moe at full width cut to 24 of 32 layers (bf16, seeded random
@@ -2182,16 +2187,20 @@ def phase_logits(torch, fa, dev, arch="qwen3_4b"):
 
 
 # phase 23: the attention gradient kernel; FLASH_TESTS plus float32 cases of
-# a window, a query offset and the widest head, and the two training shapes
+# a window, a query offset and the widest head, the two training shapes
 # of qwen3-4b (32 heads of 128, bf16, causal): batch 8 x 128 tokens and
 # phase 24's long sequence, batch 1 x 4096 (64 query tiles a key block,
-# sums over 4096 rows)
+# sums over 4096 rows), and recurrentgemma-9b's local attention at phase
+# 34's long sequence (its one KV head expanded to 16 heads of 256, window
+# 2048: 33 query tiles a 64-key block, 68 key tiles a dq block)
+FLASH_BWD_RG = (1, 4096, 4096, 16, 256, True, 2048, 0, "bfloat16")
 FLASH_BWD_TESTS = FLASH_TESTS + [
     (1, 257, 257, 2, 128, True, 100, 0, "float32"),
     (2, 37, 120, 3, 64, True, 0, 83, "float32"),
     (1, 70, 70, 2, 256, True, 0, 0, "float32"),
     (8, 128, 128, 32, 128, True, 0, 0, "bfloat16"),
-    (1, 4096, 4096, 32, 128, True, 0, 0, "bfloat16")]
+    (1, 4096, 4096, 32, 128, True, 0, 0, "bfloat16"),
+    FLASH_BWD_RG]
 FLASH_BWD_TIMED = 4096   # S = T of the timed shape (B=1, H=32, hd=128)
 # float32 gradients within this share of each gradient's largest entry
 FLASH_BWD_REL = 1e-4
@@ -2208,7 +2217,7 @@ def flash_bwd_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
     recomputed, P^T dO, dS^T q, dS k) at the bf16 dense tensor-core peak
     (float32's CUDA-core peak for float32 inputs), against q, k, v, o and
     dO read once and dq, dk, dv written once. ``design_ms`` is the floor
-    of the route the kernel takes: in bfloat16 (hd <= 128) the 10
+    of the route the kernel takes: in bfloat16 (every head dim) the 10
     products the tensor-core design issues (S^T, dP^T, P^T dO and dS^T q
     each split in two for dk and dv; S, dP, dS k split in two for dq) at
     the bf16 peak, in float32 the 8 float32 products of the CUDA-core
@@ -2236,8 +2245,9 @@ def flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev):
 
 def bwd_route_of(dt, hd) -> str:
     """The gradient kernel's route a shape must take: the tensor cores
-    for bfloat16 with hd <= 128, the CUDA cores otherwise."""
-    return "wgmma" if dt == "bfloat16" and hd <= 128 else "cuda_cores"
+    for bfloat16 at every head dim up to 256, the CUDA cores for
+    float32."""
+    return "wgmma" if dt == "bfloat16" and hd <= 256 else "cuda_cores"
 
 
 def lse_check(torch, fa, name, q, k, v, causal, win, q_off) -> float:
@@ -2318,6 +2328,8 @@ def phase_flash_bwd(torch, fa, dev) -> dict:
         err = flash_bwd_check(torch, fa, name, q, k, v, do, causal, win, dt,
                               q_off)
         worst = max(worst, err)
+        if (B, S, T, H, hd, causal, win, q_off, dt) == FLASH_BWD_RG:
+            rg_err = err
         extra = ""
         if dt == "bfloat16":
             e = lse_check(torch, fa, name, q, k, v, causal, win, q_off)
@@ -2362,8 +2374,87 @@ def phase_flash_bwd(torch, fa, dev) -> dict:
     log(f"flash_attention B=1 S=T={S} H={QWEN_H} hd={QWEN_HD} causal "
         f"bfloat16: {fwd_ms:.4f} ms without the lse store, {fwd_lse_ms:.4f}"
         f" ms with it")
+    rg = flash_bwd_rg_times(torch, fa, gen, dev)
     return {"max_abs_err": worst, "lse_max_abs_err": lse_worst, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, **bound}
+            "plain_ms": plain_ms, "library_ms": lib_ms, **bound,
+            "rg": {**rg, "max_abs_err": rg_err}}
+
+
+def band_mask(torch, S, window, dev):
+    """(S, S) boolean mask of the causal window band, True where query i
+    sees key j (0 <= i - j < window): SDPA's ``attn_mask`` for the
+    function the kernels compute at FLASH_BWD_RG."""
+    i = torch.arange(S, device=dev)[:, None]
+    j = torch.arange(S, device=dev)[None, :]
+    return (i >= j) & (i - j < window)
+
+
+def flash_bwd_rg_times(torch, fa, gen, dev) -> dict:
+    """Phase 23 at recurrentgemma-9b's local attention (FLASH_BWD_RG,
+    checked against the plain version above): the gradient with the
+    saved lse (one launch a call on the wgmma route, no forward), its
+    plain version, SDPA's backward with the window band as its mask (the
+    same function) and with ``is_causal`` (more work: every causal pair,
+    not the band's), the forward with and without its lse store and
+    SDPA's band-masked forward, beside the bounds and the design's
+    floor."""
+    import torch.nn.functional as F
+    B, S, T, H, hd, causal, win, _, dt = FLASH_BWD_RG
+    q, k, v, do = flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw = dict(causal=causal, window=win)
+    out, lse = fa.flash_attention(qt, kt, vt, return_lse=True, **kw)
+    bwd = fa.flash_attention_bwd
+    routed, fwd = bwd.routes["wgmma"], fa.flash_attention.launches
+    ms = time_ms(torch, lambda: bwd(qt, kt, vt, out, dot, lse=lse, **kw),
+                 reps=10, windows=5)
+    if bwd.routes["wgmma"] != routed + 2 + 5 * 10 or \
+            fa.flash_attention.launches != fwd:
+        raise RuntimeError(f"flash_attention_bwd at {FLASH_BWD_RG}: a launch"
+                           " off the wgmma route, or a forward launch for "
+                           "the lse")
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+        qt, kt, vt, out, dot, **kw), reps=1, windows=3)
+    fwd_ms = time_ms(torch, lambda: fa.flash_attention(qt, kt, vt, **kw),
+                     reps=20)
+    fwd_lse_ms = time_ms(torch, lambda: fa.flash_attention(
+        qt, kt, vt, return_lse=True, **kw), reps=20)
+    mask = band_mask(torch, S, win, dev)
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), reps=10)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    band = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    band_ms = time_ms(torch, lambda: torch.autograd.grad(
+        band, (ql, kl, vl), dot, retain_graph=True), reps=5)
+    del band
+    full = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    causal_ms = time_ms(torch, lambda: torch.autograd.grad(
+        full, (ql, kl, vl), dot, retain_graph=True), reps=5)
+    del full, mask
+    bound = flash_bwd_bound_ms(S, T, H, hd, causal, win, 2)
+    fbound = flash_bound_ms(S, T, H, hd, causal, win, 2)
+    band_pairs = visible_pairs(S, T, causal, win)
+    causal_pairs = visible_pairs(S, T, True, 0)
+    log(f"flash_attention_bwd B={B} S=T={S} H={H} hd={hd} causal window "
+        f"{win} bfloat16, wgmma route, saved lse: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, sdpa backward with the band mask "
+        f"{band_ms:.4f} ms, sdpa is_causal backward {causal_ms:.4f} ms (more"
+        f" work: {causal_pairs / 1e6:.2f} M pairs a head against the "
+        f"band's {band_pairs / 1e6:.2f} M), bound {bound['bound_ms']:.4f} "
+        f"ms ({bound['bound_by']}: {bound['flops'] / 1e9:.1f} GFLOP, "
+        f"{bound['bytes'] / 1e6:.1f} MB; this design's 10 products need >= "
+        f"{bound['design_ms']:.3f} ms); kernel at "
+        f"{bound['flops'] / ms / 1e9:.2f} TFLOP/s of the least work, "
+        f"{bound['design_flops'] / ms / 1e9:.2f} TFLOP/s issued")
+    log(f"flash_attention B={B} S=T={S} H={H} hd={hd} causal window {win} "
+        f"bfloat16: {fwd_ms:.4f} ms without the lse store, {fwd_lse_ms:.4f}"
+        f" ms with it, sdpa with the band mask {sdpa_fwd_ms:.4f} ms, bound "
+        f"{fbound['bound_ms']:.4f} ms ({fbound['bound_by']})")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": band_ms,
+            "causal_library_ms": causal_ms, "fwd_ms": fwd_ms,
+            "fwd_lse_ms": fwd_lse_ms, "fwd_library_ms": sdpa_fwd_ms,
+            "fwd_bound_ms": fbound["bound_ms"], **bound}
 
 
 # phase 24's device time split by kernel name (as the profiler demangles
@@ -4240,11 +4331,12 @@ def phase_rg_train(torch, fa, dev) -> dict:
     """Phase 34: recurrentgemma-9b at full width cut to RG_TRAIN_LAYERS
     layers trains on the card through ``launch.train``'s code path (bf16,
     seeded random weights): at each of RG_TRAIN_RUNS, 2 flash forward and
-    1 gradient launch an attention layer a step (remat; hd 256 takes the
-    CUDA-core gradient route), 2 scan and 1 scan-gradient launches an
-    RG-LRU layer a step, finite losses and grad norms; the median step,
+    1 gradient launch an attention layer a step (remat; every gradient
+    launch on the tensor-core route), 2 scan and 1 scan-gradient launches
+    an RG-LRU layer a step, finite losses and grad norms; the median step,
     tokens/s, peak memory and a profiled step; then a 3-layer [R, R, A]
-    float32 cut: one loss and gradient on the card against the CPU."""
+    float32 cut: one loss and gradient on the card against the CPU, its
+    gradient launch on the CUDA-core route."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import rglru_scan as rs
@@ -4281,7 +4373,8 @@ def phase_rg_train(torch, fa, dev) -> dict:
         times = [m["step_time_s"] for m in hist]
         if len(hist) != n or not all(math.isfinite(x)
                                      for x in losses + gnorms) \
-                or got != want or routes["cuda_cores"] != n * n_attn:
+                or got != want or routes != {"wgmma": n * n_attn,
+                                             "cuda_cores": 0}:
             raise RuntimeError(f"{label}: losses {losses}, grad norms "
                                f"{gnorms}, launches (flash, flash gradient, "
                                f"scan, scan gradient) {got} (want {want}), "
@@ -4312,14 +4405,17 @@ def phase_rg_train(torch, fa, dev) -> dict:
     card = init_params(gen, cut3).train()
     toks = torch.randint(0, cut3.vocab_size, (1, RG_CHECK_S), generator=gen,
                          device=dev)
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
     launched, line = card_vs_cpu_grads(
         torch, card, cut3, {"tokens": toks, "labels": toks}, dev,
         counters, f"recurrentgemma_9b widths, 3 layers [R, R, A], float32, "
         f"1 x {RG_CHECK_S} tokens")
-    if launched != [2, 1, 4, 2]:
+    routes = dict(fa.flash_attention_bwd.routes)
+    if launched != [2, 1, 4, 2] or routes != {"wgmma": 0, "cuda_cores": 1}:
         raise RuntimeError(f"recurrentgemma_9b 3-layer cut: card launches "
                            f"(flash, flash gradient, scan, scan gradient) "
-                           f"{launched}, want [2, 1, 4, 2]")
+                           f"{launched}, want [2, 1, 4, 2]; gradient routes "
+                           f"{routes}, want the CUDA cores'")
     log(f"{line}; card launches (flash, flash gradient, scan, scan "
         f"gradient) {launched}")
     del card
@@ -5866,8 +5962,8 @@ def main(argv=None) -> int:
                              "(its gradient: JAX autodiff of "
                              "src/repro/models/attention.py:29)",
                  "launches": trained["launches"] + hub["launches"]
-                 + rgt["launches"][1] + moet["bwd"] + vist["bwd"]
-                 + dense_l["bwd"] + dense_t["bwd"] + mesh_t["bwd"],
+                 + moet["bwd"] + vist["bwd"] + dense_l["bwd"]
+                 + dense_t["bwd"] + mesh_t["bwd"],
                  "max_abs_err": max(main_b["max_abs_err"],
                                     main_c["bwd_err"]),
                  "ms": main_b["ms"],
@@ -5875,6 +5971,17 @@ def main(argv=None) -> int:
                  "bound_ms": main_b["bound_ms"],
                  "bound_by": main_b["bound_by"],
                  "library_ms": main_b["library_ms"]}
+    rgb = main_b["rg"]
+    bwd256_entry = {"name": "flash_attention_bwd_hd256", "route": "cuda",
+                    "source": "src/repro_torch/csrc/"
+                              "flash_attention_bwd_wgmma.cuh",
+                    "replaces": bwd_entry["replaces"],
+                    "launches": rgt["launches"][1],
+                    "max_abs_err": rgb["max_abs_err"], "ms": rgb["ms"],
+                    "plain_ms": rgb["plain_ms"],
+                    "bound_ms": rgb["bound_ms"],
+                    "bound_by": rgb["bound_by"],
+                    "library_ms": rgb["library_ms"]}
     dec = main_d["timed"]["qwen3-4b bf16"]
     decode_entry = {"name": "decode_attention", "route": "cuda",
                     "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -5973,9 +6080,9 @@ def main(argv=None) -> int:
                        "bound_ms": slstm_g["bound_ms"],
                        "bound_by": slstm_g["bound_by"], "library_ms": None}
     log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
-                                bwd_entry, decode_entry, cross_entry,
-                                scan_entry, scan_bwd_entry, mlstm_entry,
-                                mlstm_bwd_entry, slstm_entry,
+                                bwd_entry, bwd256_entry, decode_entry,
+                                cross_entry, scan_entry, scan_bwd_entry,
+                                mlstm_entry, mlstm_bwd_entry, slstm_entry,
                                 slstm_bwd_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,12 +16,11 @@
 //   dk_j = sum_i dS_ij (q_i * scale)
 //   dq_i = scale * sum_j dS_ij k_j
 //
-// Two routes, each with its own C entry, chosen by type and head dim in the
-// Python wrapper. bfloat16 with a head dim of at most 128 (the training
-// paths) runs on the tensor cores: flash_attention_bwd_wgmma.cuh (TMA,
-// wgmma, the forward's saved log-sum-exp). Float32, and bfloat16 head dims
-// 129..256, run the CUDA-core kernels of this file, three on the caller's
-// stream, one after another:
+// Two routes, each with its own C entry, chosen by type in the Python
+// wrapper. bfloat16 (the training paths, head dims up to 256) runs on the
+// tensor cores: flash_attention_bwd_wgmma.cuh (TMA, wgmma, the forward's
+// saved log-sum-exp). Float32 runs the CUDA-core kernels of this file, three
+// on the caller's stream, one after another:
 //   1. stats_kernel: per (b, h, 32 query rows), lse_i by an online max and
 //      sum over the visible key tiles, and D_i.
 //   2. dkdv_kernel: per (b, h, 32 keys), K and V stay in shared memory
@@ -32,11 +31,10 @@
 //      while the block walks the visible key tiles, recomputing P and dS.
 // Every output element is summed by one thread in a fixed order (query
 // tiles, then rows, in order), so the result is deterministic: no float
-// atomics. Accumulation is float32 on the CUDA cores; bfloat16 inputs are
-// read as float32 and the gradients are written in the inputs' type with
-// round-to-nearest-even. Inputs may be strided views (the transposes of
-// (B, S, H, hd) tensors that ops.flash_mha passes); the head dim is
-// contiguous. The head dim is padded to HD in {32, 64, 128, 256} with zeros.
+// atomics. Accumulation is float32 on the CUDA cores. Inputs may be strided
+// views (the transposes of (B, S, H, hd) tensors that ops.flash_mha passes);
+// the head dim is contiguous. The head dim is padded to HD in {32, 64, 128,
+// 256} with zeros.
 //
 // Bound on an H100 SXM (data-sheet peaks, 700 W). The gradient's least work
 // is 5 products of S x T x hd a head (dO.v, the recomputed q.k, P^T dO,
@@ -59,15 +57,6 @@ constexpr int BK = 32;  // keys per tile
 constexpr int GROUP = THREADS / BQ;  // threads sharing a row (8)
 constexpr int PP = BK + 1;           // padded row of the P and dS tiles
 constexpr float NEG_INF = -1.0e30f;
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // element strides of a (batch, head, seq, dim) view; dim is contiguous
 struct Strides {
@@ -103,15 +92,15 @@ __device__ __forceinline__ float group_sum(float x) {
 
 // rows row0 .. row0 + 31 of a (L, hd) slice into a [32][HD + 1] tile, times
 // mul, zero past L and past hd
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* src,
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* src,
                                       long long stride, int row0, int L,
                                       int hd, float mul) {
   constexpr int HP = HD + 1;
   for (int idx = threadIdx.x; idx < 32 * HD; idx += THREADS) {
     const int r = idx / HD, d = idx % HD, row = row0 + r;
     dst[r * HP + d] =
-        (row < L && d < hd) ? load_f(src + row * stride + d) * mul : 0.0f;
+        (row < L && d < hd) ? src[row * stride + d] * mul : 0.0f;
   }
 }
 
@@ -166,10 +155,10 @@ __device__ __forceinline__ void key_range(int i0, int S, int Tk, int causal,
   *k_begin = kb - kb % BK;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ o, const T* __restrict__ dout,
+stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ o, const float* __restrict__ dout,
              float* __restrict__ lse, float* __restrict__ dd, int H, int S,
              int Tk, int hd, Views vw, int causal, int window, int q_offset,
              float scale) {
@@ -180,9 +169,9 @@ stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int i0 = blockIdx.x * BQ;
   const int i = threadIdx.x / GROUP, jc = threadIdx.x % GROUP;
-  const T* qp = q + b * vw.q.b + h * vw.q.h;
-  const T* kp = k + b * vw.k.b + h * vw.k.h;
-  stage<T, HD>(sh_q, qp, vw.q.s, i0, S, hd, scale);
+  const float* qp = q + b * vw.q.b + h * vw.q.h;
+  const float* kp = k + b * vw.k.b + h * vw.k.h;
+  stage<HD>(sh_q, qp, vw.q.s, i0, S, hd, scale);
 
   int k_begin, k_end;
   key_range(i0, S, Tk, causal, window, q_offset, &k_begin, &k_end);
@@ -190,7 +179,7 @@ stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = NEG_INF, l = 0.0f;
   for (int j0 = k_begin; j0 < k_end; j0 += BK) {
     __syncthreads();  // the previous tile's reads are done
-    stage<T, HD>(sh_k, kp, vw.k.s, j0, Tk, hd, 1.0f);
+    stage<HD>(sh_k, kp, vw.k.s, j0, Tk, hd, 1.0f);
     __syncthreads();
     float s[4];
     scores<HD>(sh_q, sh_k, s);
@@ -210,11 +199,12 @@ stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   // every lane stays for the shuffles; a row past S reads nothing
   const bool row_ok = i0 + i < S;
-  const T* op = o + b * vw.o.b + h * vw.o.h + (i0 + i) * vw.o.s;
-  const T* dp = dout + b * vw.dout.b + h * vw.dout.h + (i0 + i) * vw.dout.s;
+  const float* op = o + b * vw.o.b + h * vw.o.h + (i0 + i) * vw.o.s;
+  const float* dp =
+      dout + b * vw.dout.b + h * vw.dout.h + (i0 + i) * vw.dout.s;
   float acc = 0.0f;
   for (int d = jc; row_ok && d < hd; d += GROUP)
-    acc = fmaf(load_f(dp + d), load_f(op + d), acc);
+    acc = fmaf(dp[d], op[d], acc);
   acc = group_sum(acc);
   if (row_ok && jc == 0) {
     const long long r = (long long)blockIdx.y * S + i0 + i;
@@ -234,13 +224,13 @@ __device__ __forceinline__ void stage_rows(float* sh_lse, float* sh_dd,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dd,
-            T* __restrict__ dk, T* __restrict__ dv, int H, int S, int Tk,
-            int hd, Views vw, int causal, int window, int q_offset,
+            float* __restrict__ dk, float* __restrict__ dv, int H, int S,
+            int Tk, int hd, Views vw, int causal, int window, int q_offset,
             float scale) {
   constexpr int HP = HD + 1;
   constexpr int E = HD / GROUP;  // dims a thread accumulates
@@ -255,10 +245,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sh_dd = sh_lse + BQ;       // [BQ]
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int j0 = blockIdx.x * BK;
-  const T* qp = q + b * vw.q.b + h * vw.q.h;
-  const T* dop = dout + b * vw.dout.b + h * vw.dout.h;
-  stage<T, HD>(sh_k, k + b * vw.k.b + h * vw.k.h, vw.k.s, j0, Tk, hd, 1.0f);
-  stage<T, HD>(sh_v, v + b * vw.v.b + h * vw.v.h, vw.v.s, j0, Tk, hd, 1.0f);
+  const float* qp = q + b * vw.q.b + h * vw.q.h;
+  const float* dop = dout + b * vw.dout.b + h * vw.dout.h;
+  stage<HD>(sh_k, k + b * vw.k.b + h * vw.k.h, vw.k.s, j0, Tk, hd, 1.0f);
+  stage<HD>(sh_v, v + b * vw.v.b + h * vw.v.h, vw.v.s, j0, Tk, hd, 1.0f);
 
   // the query rows that can see any key of this tile
   const int j_last = min(j0 + BK, Tk) - 1;
@@ -271,8 +261,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = 0; e < E; ++e) ak[e] = av[e] = 0.0f;
   for (int i0 = i_begin; i0 < i_end; i0 += BQ) {
     __syncthreads();  // the previous tile's reads are done (K, V staged)
-    stage<T, HD>(sh_q, qp, vw.q.s, i0, S, hd, scale);
-    stage<T, HD>(sh_do, dop, vw.dout.s, i0, S, hd, 1.0f);
+    stage<HD>(sh_q, qp, vw.q.s, i0, S, hd, scale);
+    stage<HD>(sh_do, dop, vw.dout.s, i0, S, hd, 1.0f);
     stage_rows(sh_lse, sh_dd, lse, dd, (long long)blockIdx.y * S, i0, S);
     __syncthreads();
     p_and_ds<HD>(sh_q, sh_do, sh_k, sh_v, sh_lse, sh_dd, sh_p, sh_ds, i0,
@@ -290,24 +280,24 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int j = j0 + jt;
   if (j >= Tk) return;
-  T* dkp = dk + b * vw.dk.b + h * vw.dk.h + j * vw.dk.s;
-  T* dvp = dv + b * vw.dv.b + h * vw.dv.h + j * vw.dv.s;
+  float* dkp = dk + b * vw.dk.b + h * vw.dk.h + j * vw.dk.s;
+  float* dvp = dv + b * vw.dv.b + h * vw.dv.h + j * vw.dv.s;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int d = dc + GROUP * e;
     if (d < hd) {
-      store_f(dkp + d, ak[e]);
-      store_f(dvp + d, av[e]);
+      dkp[d] = ak[e];
+      dvp[d] = av[e];
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dd,
-          T* __restrict__ dq, int H, int S, int Tk, int hd, Views vw,
+          float* __restrict__ dq, int H, int S, int Tk, int hd, Views vw,
           int causal, int window, int q_offset, float scale) {
   constexpr int HP = HD + 1;
   constexpr int E = HD / GROUP;
@@ -322,11 +312,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sh_dd = sh_lse + BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int i0 = blockIdx.x * BQ;
-  const T* kp = k + b * vw.k.b + h * vw.k.h;
-  const T* vp = v + b * vw.v.b + h * vw.v.h;
-  stage<T, HD>(sh_q, q + b * vw.q.b + h * vw.q.h, vw.q.s, i0, S, hd, scale);
-  stage<T, HD>(sh_do, dout + b * vw.dout.b + h * vw.dout.h, vw.dout.s, i0,
-               S, hd, 1.0f);
+  const float* kp = k + b * vw.k.b + h * vw.k.h;
+  const float* vp = v + b * vw.v.b + h * vw.v.h;
+  stage<HD>(sh_q, q + b * vw.q.b + h * vw.q.h, vw.q.s, i0, S, hd, scale);
+  stage<HD>(sh_do, dout + b * vw.dout.b + h * vw.dout.h, vw.dout.s, i0, S,
+            hd, 1.0f);
   stage_rows(sh_lse, sh_dd, lse, dd, (long long)blockIdx.y * S, i0, S);
 
   int k_begin, k_end;
@@ -337,8 +327,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = 0; e < E; ++e) aq[e] = 0.0f;
   for (int j0 = k_begin; j0 < k_end; j0 += BK) {
     __syncthreads();  // the previous tile's reads are done (q, dO staged)
-    stage<T, HD>(sh_k, kp, vw.k.s, j0, Tk, hd, 1.0f);
-    stage<T, HD>(sh_v, vp, vw.v.s, j0, Tk, hd, 1.0f);
+    stage<HD>(sh_k, kp, vw.k.s, j0, Tk, hd, 1.0f);
+    stage<HD>(sh_v, vp, vw.v.s, j0, Tk, hd, 1.0f);
     __syncthreads();
     p_and_ds<HD>(sh_q, sh_do, sh_k, sh_v, sh_lse, sh_dd, sh_p, sh_ds, i0,
                  j0, S, Tk, causal, window, q_offset);
@@ -352,11 +342,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int i = i0 + it;
   if (i >= S) return;
-  T* dqp = dq + b * vw.dq.b + h * vw.dq.h + i * vw.dq.s;
+  float* dqp = dq + b * vw.dq.b + h * vw.dq.h + i * vw.dq.s;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int d = dc + GROUP * e;
-    if (d < hd) store_f(dqp + d, aq[e] * scale);
+    if (d < hd) dqp[d] = aq[e] * scale;
   }
 }
 
@@ -366,7 +356,7 @@ int allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, float* lse,
            float* dd, int B, int H, int S, int Tk, int hd, const Views& vw,
@@ -377,39 +367,39 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const size_t smem_tiles =
       sizeof(float) * (2 * BK * HP + 2 * BQ * HP + 2 * BQ * PP + 2 * BQ);
   int err;
-  if ((err = allow_smem(stats_kernel<T, HD>, smem_stats))) return err;
-  if ((err = allow_smem(dkdv_kernel<T, HD>, smem_tiles))) return err;
-  if ((err = allow_smem(dq_kernel<T, HD>, smem_tiles))) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+  if ((err = allow_smem(stats_kernel<HD>, smem_stats))) return err;
+  if ((err = allow_smem(dkdv_kernel<HD>, smem_tiles))) return err;
+  if ((err = allow_smem(dq_kernel<HD>, smem_tiles))) return err;
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
   const dim3 q_grid((S + BQ - 1) / BQ, B * H), k_grid((Tk + BK - 1) / BK,
                                                       B * H);
-  stats_kernel<T, HD><<<q_grid, THREADS, smem_stats, stream>>>(
-      qt, kt, static_cast<const T*>(o), dot, lse, dd, H, S, Tk, hd, vw,
+  stats_kernel<HD><<<q_grid, THREADS, smem_stats, stream>>>(
+      qt, kt, static_cast<const float*>(o), dot, lse, dd, H, S, Tk, hd, vw,
       causal, window, q_offset, scale);
   if ((err = (int)cudaGetLastError())) return err;
-  dkdv_kernel<T, HD><<<k_grid, THREADS, smem_tiles, stream>>>(
-      qt, kt, vt, dot, lse, dd, static_cast<T*>(dk), static_cast<T*>(dv), H,
-      S, Tk, hd, vw, causal, window, q_offset, scale);
+  dkdv_kernel<HD><<<k_grid, THREADS, smem_tiles, stream>>>(
+      qt, kt, vt, dot, lse, dd, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, S, Tk, hd, vw, causal, window, q_offset,
+      scale);
   if ((err = (int)cudaGetLastError())) return err;
-  dq_kernel<T, HD><<<q_grid, THREADS, smem_tiles, stream>>>(
-      qt, kt, vt, dot, lse, dd, static_cast<T*>(dq), H, S, Tk, hd, vw,
+  dq_kernel<HD><<<q_grid, THREADS, smem_tiles, stream>>>(
+      qt, kt, vt, dot, lse, dd, static_cast<float*>(dq), H, S, Tk, hd, vw,
       causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-// float32: every head dim <= 256, zero-padded to 32, 64, 128 or 256
-template <typename T>
+// every head dim <= 256, zero-padded to 32, 64, 128 or 256
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, void* dq, void* dk, void* dv, float* lse,
              float* dd, int B, int H, int S, int Tk, int hd,
              const Views& vw, int causal, int window, int q_offset,
              float scale, cudaStream_t st) {
-#define FA_BWD_LAUNCH(HD)                                                   \
-  return launch<T, HD>(q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, S, Tk, \
-                       hd, vw, causal, window, q_offset, scale, st)
+#define FA_BWD_LAUNCH(HD)                                                 \
+  return launch<HD>(q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, S, Tk, hd, \
+                    vw, causal, window, q_offset, scale, st)
   if (hd <= 32) FA_BWD_LAUNCH(32);
   if (hd <= 64) FA_BWD_LAUNCH(64);
   if (hd <= 128) FA_BWD_LAUNCH(128);
@@ -421,7 +411,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // Two C entries, one a route; the Python wrapper picks the route by type
-// and head dim (kernels/flash_attention.py:bwd_route) and calls its entry,
+// (kernels/flash_attention.py:bwd_route) and calls its entry,
 // so the route it records is the one launched. Each launches its kernels on
 // `stream` (PyTorch's current stream) and returns the first
 // cudaGetLastError() that is not 0, so the wrapper can raise on a refused
@@ -432,36 +422,27 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 // strides and allocates the outputs and the scratch. When T = 0 the wrapper
 // zero-fills dq itself.
 //
-// flash_attention_bwd_launch: the CUDA-core kernels above, float32
-// (is_bf16 = 0) or bfloat16, hd <= 256; lse and dd are float32 scratch of
-// B * H * S that the stats kernel fills.
+// flash_attention_bwd_launch: the CUDA-core kernels above, float32, hd <=
+// 256; lse and dd are float32 scratch of B * H * S that the stats kernel
+// fills.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* dd,
     int B, int H, int S, int Tk, int hd, const long long* strides,
-    int causal, int window, int q_offset, float scale, int is_bf16,
-    void* stream) {
+    int causal, int window, int q_offset, float scale, void* stream) {
   if (B == 0 || H == 0 || S == 0 || Tk == 0) return 0;
   const long long* s = strides;
   const Views vw{{s[0], s[1], s[2]},    {s[3], s[4], s[5]},
                  {s[6], s[7], s[8]},    {s[9], s[10], s[11]},
                  {s[12], s[13], s[14]}, {s[15], s[16], s[17]},
                  {s[18], s[19], s[20]}, {s[21], s[22], s[23]}};
-  const cudaStream_t st = (cudaStream_t)stream;
-  float* l = static_cast<float*>(lse);
-  float* d = static_cast<float*>(dd);
-  if (is_bf16) {
-    if (hd > 256) return (int)cudaErrorInvalidValue;
-    return launch<__nv_bfloat16, 256>(q, k, v, o, dout, dq, dk, dv, l, d, B,
-                                      H, S, Tk, hd, vw, causal, window,
-                                      q_offset, scale, st);
-  }
-  return dispatch<float>(q, k, v, o, dout, dq, dk, dv, l, d, B, H, S, Tk, hd,
-                         vw, causal, window, q_offset, scale, st);
+  return dispatch(q, k, v, o, dout, dq, dk, dv, static_cast<float*>(lse),
+                  static_cast<float*>(dd), B, H, S, Tk, hd, vw, causal,
+                  window, q_offset, scale, (cudaStream_t)stream);
 }
 
 // flash_attention_bwd_wgmma_launch: the tensor-core kernels of
-// flash_attention_bwd_wgmma.cuh, bfloat16, hd <= 128. lse is the forward's
+// flash_attention_bwd_wgmma.cuh, bfloat16, hd <= 256. lse is the forward's
 // log-sum-exp (base 2, B * H * wgmma_fa::lse_rows(S) floats, an input) and
 // dd float32 scratch of the same size; q, k, v and dout meet TMA's 16-byte
 // rule.

@@ -70,10 +70,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention_bwd": {
         # q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, S, T, hd, the
         # (batch, head, seq) strides of the eight views (24 long longs),
-        # causal, window, q_offset, scale, is_bf16, stream (the CUDA cores)
+        # causal, window, q_offset, scale, stream: the CUDA cores' entry
+        # (float32) and the tensor cores' (bfloat16)
         "flash_attention_bwd_launch": (*(_P,) * 10, _I, _I, _I, _I, _I, _P,
-                                       _I, _I, _I, _F, _I, _P),
-        # the tensor-core route's entry: the same without is_bf16
+                                       _I, _I, _I, _F, _P),
         "flash_attention_bwd_wgmma_launch": (*(_P,) * 10, _I, _I, _I, _I, _I,
                                              _P, _I, _I, _I, _F, _P),
     },

@@ -27,11 +27,11 @@ hand-written ``csrc/flash_attention_bwd.cu`` (the JAX package has no
 Pallas backward; it differentiates the jnp attention), on CPU tensors
 ``flash_attention_bwd_plain``. It counts its launches the same way, and
 in ``routes`` which route each launch took (``bwd_route`` picks it, and
-the wrapper calls that route's own C entry): bfloat16
-with a head dim of at most 128 on the tensor cores
-(``csrc/flash_attention_bwd_wgmma.cuh``, ``"wgmma"``), which reads the
-log-sum-exp that the bfloat16 forward stores when asked
-(``return_lse``), everything else on the CUDA cores (``"cuda_cores"``).
+the wrapper calls that route's own C entry): bfloat16, every head dim
+up to 256, on the tensor cores (``csrc/flash_attention_bwd_wgmma.cuh``,
+``"wgmma"``), which reads the log-sum-exp that the bfloat16 forward
+stores when asked (``return_lse``), float32 on the CUDA cores
+(``"cuda_cores"``).
 ``ops.FlashAttention`` ties the two together for autograd.
 
 The plain version and the float32 kernel scale q by ``1/sqrt(hd)``
@@ -57,7 +57,7 @@ LOG2E = 1.4426950408889634
 # up to this (csrc/flash_attention_wgmma.cuh's lse_rows, its block's rows)
 LSE_BLOCK = 128
 # the gradient's tensor-core route takes bfloat16 head dims up to this
-WGMMA_BWD_MAX_HEAD_DIM = 128
+WGMMA_BWD_MAX_HEAD_DIM = 256
 # csrc/flash_attention_wgmma.cuh's ENCODE_ERROR: the launch returns it plus
 # the CUresult when a TMA tensor map is refused, minus 1 when libcuda's
 # cuTensorMapEncodeTiled entry point is missing
@@ -337,13 +337,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     module docstring; ``o`` its output, ``do`` the output's gradient,
     both (B, H, S, hd)). CUDA tensors launch ``csrc/flash_attention_bwd.
     cu`` by the route ``bwd_route`` names, recorded in ``routes``:
-    bfloat16 with hd <= 128 on the tensor cores (D = rowsum(dO o), dk and
-    dv per 128 keys, dq per 128 query rows, from the forward's ``lse``,
-    as ``flash_attention(..., return_lse=True)`` returns it; without it
-    this route runs the forward kernel once more to get it, a launch
-    counted in ``flash_attention.launches``), the rest on the CUDA cores
-    (the row statistics, dk and dv per key tile, dq per query tile; it
-    needs no ``lse``). Float32 accumulation and no atomics on both, so a
+    bfloat16 (hd <= 256) on the tensor cores (D = rowsum(dO o), dk and
+    dv per 128 keys (64 at a padded head dim of 256), dq per 128 query
+    rows, from the forward's ``lse``, as ``flash_attention(...,
+    return_lse=True)`` returns it; without it this route runs the
+    forward kernel once more to get it, a launch counted in
+    ``flash_attention.launches``), float32 on the CUDA cores (the row
+    statistics, dk and dv per key tile, dq per query tile; it needs no
+    ``lse``). Float32 accumulation and no atomics on both, so a
     launch repeats bit for bit. CPU tensors take
     ``flash_attention_bwd_plain`` (``lse`` unused). The gradients have
     the inputs' type and layout (a transposed view's strides too)."""
@@ -397,8 +398,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "wgmma":
         err = lib.flash_attention_bwd_wgmma_launch(*args, stream)
     else:
-        err = lib.flash_attention_bwd_launch(
-            *args, int(q.dtype == torch.bfloat16), stream)
+        err = lib.flash_attention_bwd_launch(*args, stream)
     if err >= _ENCODE_ERROR - 1:
         raise RuntimeError("flash_attention_bwd: cuTensorMapEncodeTiled "
                            + ("not found" if err == _ENCODE_ERROR - 1 else

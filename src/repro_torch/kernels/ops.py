@@ -35,7 +35,7 @@ class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its gradient. The forward is the forward
     kernel (or its plain version on CPU tensors), saving q, k, v, the
     output and, where the gradient's tensor-core route will read it
-    (CUDA bfloat16, hd <= 128, an input needing a gradient), the
+    (CUDA bfloat16, an input needing a gradient), the
     forward's log-sum-exp; the backward is ``flash_attention_bwd``: the
     hand-written gradient kernel on CUDA tensors, its plain version on
     CPU tensors, never a fallback. Inputs are (B, H, L, hd) views."""

@@ -371,6 +371,12 @@ FLASH_SHAPES = [  # (B, S, T, H, hd, causal, window, q_offset, dtype)
     (1, 2048, 1600, 32, 128, False, 0, 0, torch.bfloat16),
     (1, 1024, 1024, 16, 80, False, 0, 0, torch.bfloat16),
     (2, 300, 300, 4, 80, False, 0, 0, torch.float32),
+    # the gradient's hd-256 layout on the tensor cores (64 keys a dk/dv
+    # block, 32-key dq tiles): a window with S and T off the tiles, a head
+    # dim of 200 zero-padded to 256, a query offset with S != T
+    (1, 300, 300, 2, 256, True, 100, 0, torch.bfloat16),
+    (1, 200, 200, 2, 200, True, 0, 0, torch.bfloat16),
+    (2, 37, 120, 3, 256, True, 0, 83, torch.bfloat16),
 ]
 
 
@@ -448,8 +454,8 @@ def test_flash_forward_lse_is_bitwise_and_matches_plain(
 def test_flash_backward_kernel_matches_plain(cuda, B, S, T, H, hd, causal,
                                              window, q_offset, dt):
     """The gradient through ``flash_mha`` on the card (the backward
-    kernel, one launch, on the route its type and head dim pick: the
-    tensor cores for bfloat16 with hd <= 128, the CUDA cores otherwise)
+    kernel, one launch, on the route its type picks: the tensor cores
+    for bfloat16 at every head dim up to 256, the CUDA cores for float32)
     vs ``flash_attention_bwd_plain`` in float32 on the same inputs:
     float32 within 1e-4 of each gradient's largest entry; bfloat16 every
     element within two bf16 steps of the plain value plus 1e-4. A second
@@ -463,7 +469,7 @@ def test_flash_backward_kernel_matches_plain(cuda, B, S, T, H, hd, causal,
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = flash_mha(q, k, v, causal=causal, window=window,
                     q_offset=q_offset)
-    route = "wgmma" if dt == torch.bfloat16 and hd <= 128 else "cuda_cores"
+    route = "wgmma" if dt == torch.bfloat16 and hd <= 256 else "cuda_cores"
     assert bwd_route(dt, hd) == route
     before = flash_attention_bwd.launches
     routed = dict(flash_attention_bwd.routes)

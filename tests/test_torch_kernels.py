@@ -737,10 +737,14 @@ def test_bf16_kernel_needs_p_split_in_two():
 
 # the gradient's tensor-core route (csrc/flash_attention_bwd_wgmma.cuh):
 # (B, S, T, H, hd, causal, window, q_offset) of a training-like shape, a
-# window across several 64-row tiles, a query offset with S != T
+# window across several 64-row tiles, a query offset with S != T; then the
+# hd-256 layout (recurrentgemma's head width): a window with S off the
+# tiles, and a head dim of 200 zero-padded to 256
 BWD_EMULATED = [(2, 128, 128, 4, 128, True, 0, 0),
                 (1, 300, 300, 2, 128, True, 100, 0),
-                (2, 37, 120, 3, 64, True, 0, 83)]
+                (2, 37, 120, 3, 64, True, 0, 83),
+                (1, 300, 300, 2, 256, True, 100, 0),
+                (1, 200, 200, 2, 200, True, 0, 0)]
 # the products whose A operand (P or dS) the kernel splits into hi + lo
 BWD_SPLIT = ("p_do", "ds_q", "ds_k")
 
@@ -750,15 +754,18 @@ def _emulate_bf16_kernel_bwd(q, k, v, o, do, causal, window, q_offset,
     """The tensor-core gradient's arithmetic on (BH, L, hd) bf16 inputs,
     in plain torch: scores from exact bf16 products in float32, times
     scale * log2 e; the forward's log-sum-exp in base 2 by its online
-    max and sum over 128-key tiles; P = exp2(x - lse) under the mask
-    and dS = P (dP - D) in float32 with D = rowsum(dO o); dV and dK
-    summed over 64-row query tiles, dQ over 64-key tiles, each product's
-    A operand (P^T for dV, dS^T for dK, dS for dQ) rounded once to bf16,
-    or, for the products named in ``split``, as bf16(x) + bf16(x -
-    bf16(x)); gradients rounded to bf16. Up to float32 summation order
-    this is what the kernel computes."""
+    max and sum over its key tiles (128 keys, 64 at a head dim padded to
+    256); P = exp2(x - lse) under the mask and dS = P (dP - D) in float32
+    with D = rowsum(dO o) (at hd 256 P^T and dP^T cross from one
+    warpgroup to the other as float32, so the same); dV and dK summed
+    over 64-row query tiles, dQ over the dq kernel's key tiles (64 keys,
+    32 at 256), each product's A operand (P^T for dV, dS^T for dK, dS
+    for dQ) rounded once to bf16, or, for the products named in
+    ``split``, as bf16(x) + bf16(x - bf16(x)); gradients rounded to bf16.
+    Up to float32 summation order this is what the kernel computes."""
     BH, S, hd = q.shape
     T = k.shape[1]
+    fwd_keys, dq_keys = (64, 32) if hd > 128 else (128, 64)
     scale = 1.0 / hd ** 0.5
     c = float(np.float32(scale * flash_mod.LOG2E))
     vis = flash_mod._visible(torch.arange(S) + q_offset, torch.arange(T),
@@ -767,10 +774,11 @@ def _emulate_bf16_kernel_bwd(q, k, v, o, do, causal, window, q_offset,
                     flash_mod.NEG_INF)
     m = torch.full((BH, S), flash_mod.NEG_INF)
     l = torch.zeros((BH, S))
-    for j0 in range(0, T, 128):
-        m_new = torch.maximum(m, x[:, :, j0:j0 + 128].amax(-1))
+    for j0 in range(0, T, fwd_keys):
+        xt = x[:, :, j0:j0 + fwd_keys]
+        m_new = torch.maximum(m, xt.amax(-1))
         l = l * torch.exp2(m - m_new) + torch.exp2(
-            x[:, :, j0:j0 + 128] - m_new[..., None]).sum(-1)
+            xt - m_new[..., None]).sum(-1)
         m = m_new
     lse = m + torch.log2(torch.clamp(l, min=1e-30))
     dd = (do.float() * o.float()).sum(-1)
@@ -791,8 +799,8 @@ def _emulate_bf16_kernel_bwd(q, k, v, o, do, causal, window, q_offset,
                       "p_do")
         dk += product(ds[:, rows].transpose(1, 2), q[:, rows].float(),
                       "ds_q")
-    for j0 in range(0, T, 64):
-        keys = slice(j0, j0 + 64)
+    for j0 in range(0, T, dq_keys):
+        keys = slice(j0, j0 + dq_keys)
         dq += product(ds[:, :, keys], k[:, keys].float(), "ds_k")
     return tuple(g.to(torch.bfloat16) for g in (dq * scale, dk * scale, dv))
 
@@ -842,7 +850,7 @@ def test_bf16_gradient_needs_each_product_split(
     """Why the kernel splits all three: with one product's A operand
     rounded once to bf16 (the others split), the gradient it feeds (dv
     for P^T dO, dk for dS^T Q, dq for dS K) has hundreds to thousands of
-    elements outside the bf16 limit (1.1-3.3% of them at these shapes),
+    elements outside the bf16 limit (1.1-3.4% of them at these shapes),
     while the other two gradients stay inside: no product may drop its
     split. With all three split the largest error is ~0.24 of the limit
     (the bf16 rounding of the gradients)."""
@@ -922,13 +930,16 @@ def test_every_signature_is_a_c_entry_of_its_source():
 
 
 def test_bwd_route_by_type_and_head_dim():
-    """The gradient's route is chosen by type and head dim alone."""
+    """The gradient's route is chosen by type and head dim alone: every
+    bfloat16 head dim up to 256 on the tensor cores, float32 on the CUDA
+    cores."""
     route = flash_mod.bwd_route
     assert route(torch.bfloat16, 128) == "wgmma"
     assert route(torch.bfloat16, 8) == "wgmma"
-    assert route(torch.bfloat16, 129) == "cuda_cores"
-    assert route(torch.bfloat16, 256) == "cuda_cores"
+    assert route(torch.bfloat16, 129) == "wgmma"
+    assert route(torch.bfloat16, 256) == "wgmma"
     assert route(torch.float32, 64) == "cuda_cores"
+    assert route(torch.float32, 256) == "cuda_cores"
     assert [flash_mod.lse_rows(S) for S in (1, 128, 129, 4096)] == [
         128, 128, 256, 4096]
 

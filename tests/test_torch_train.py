@@ -96,6 +96,7 @@ FLASH_CASES = [  # B, S, T, H, hd, causal, window, q_offset
     (1, 20, 60, 2, 16, True, 0, 40),      # prefill continuation
     (1, 33, 50, 2, 8, False, 0, 0),       # non-causal, ragged T
     (1, 600, 900, 1, 8, True, 200, 300),  # window and offset over chunks
+    (1, 70, 70, 2, 256, True, 32, 0),     # recurrentgemma's head width
 ]
 
 

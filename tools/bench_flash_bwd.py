@@ -3,6 +3,7 @@ against another checkout's on one GPU.
 
     python3 tools/bench_flash_bwd.py [--parent DIR] [--train-seq N]
                                      [--train-batch 1] [--steps 3]
+                                     [--arch qwen3_4b [--layers L]] ...
 
 Each measurement runs in a child process that imports one checkout's
 ``repro_torch`` (this one, or the one at DIR, for example a parent
@@ -10,8 +11,10 @@ commit unpacked by ``git archive`` into the gitignored ``build/parent/``,
 whose kernels its own ``kernels/build.py`` builds) and prints one JSON
 line:
 - the gradient (``flash_attention_bwd``, one call: every kernel it
-  launches) at S = T = 4096, 32 heads of 128, bf16, causal, and at
-  qwen3-4b's training shape (batch 8 x 128), timed by CUDA events
+  launches) at each of SHAPES: S = T = 4096, 32 heads of 128, bf16,
+  causal, qwen3-4b's training shape (batch 8 x 128), and
+  recurrentgemma-9b's local attention (S = T = 4096, 16 heads of 256,
+  causal, window 2048), timed by CUDA events
   (``chip_smoke.time_ms``), with the log-sum-exp of the forward passed
   where the checkout's wrapper takes one (as training passes it); each
   kernel's device time in one call under the profiler; a hash of the
@@ -19,12 +22,14 @@ line:
   forward kernel's output is bit for bit unchanged; and the forward's
   time a call, without the log-sum-exp store and, where the checkout
   has it, with it;
-- with ``--train-seq N``: qwen3-4b at full width through
-  ``launch.train``'s code path at batch ``--train-batch`` x N for
-  ``--steps`` steps: the
-  median step time over steps 2.., tokens/s, peak memory, and the
-  gradient kernel's device time in one more step under the profiler
-  (``chip_smoke.profile_step``'s "attention gradient" group).
+- with ``--train-seq N``: each ``--arch`` (qwen3-4b by default; the
+  flag repeats) at full width, its depth cut to the ``--layers`` given
+  beside it (0: the config's), through ``launch.train``'s code path at
+  batch ``--train-batch`` x N for ``--steps`` steps: the median step
+  time over steps 2.., tokens/s, peak memory, and the device time by
+  kernel kind in one more step under the profiler
+  (``chip_smoke.profile_step``'s groups, "attention gradient" among
+  them), with its idle share.
 The children run in turns, parent, this, this, parent: first the
 kernel ones, then the train ones. Prints the card's name and power
 limit first. Needs a CUDA device.
@@ -41,7 +46,9 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = [(1, 4096), (8, 128)]  # (batch, S = T); 32 heads of 128, causal
+# (batch, S = T, heads, head dim, window), bf16, causal
+SHAPES = [(1, 4096, 32, 128, 0), (8, 128, 32, 128, 0),
+          (1, 4096, 16, 256, 2048)]
 
 
 def kernel_times(torch, cs, fa, dev) -> list:
@@ -51,19 +58,23 @@ def kernel_times(torch, cs, fa, dev) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(22)
     out = []
-    for B, S in SHAPES:
-        q, k, v, do = cs.flash_bwd_inputs(torch, gen, B, S, S, cs.QWEN_H,
-                                          cs.QWEN_HD, "bfloat16", dev)
+    for B, S, H, hd, win in SHAPES:
+        q, k, v, do = cs.flash_bwd_inputs(torch, gen, B, S, S, H, hd,
+                                          "bfloat16", dev)
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        mask = {"window": win}
         if takes_lse:
-            o, lse = fa.flash_attention(qt, kt, vt, return_lse=True)
-            kw = {"lse": lse}
+            o, lse = fa.flash_attention(qt, kt, vt, return_lse=True, **mask)
+            kw = {"lse": lse, **mask}
         else:
-            o, kw = fa.flash_attention(qt, kt, vt), {}
+            o, kw = fa.flash_attention(qt, kt, vt, **mask), mask
 
         def call():
             return fa.flash_attention_bwd(qt, kt, vt, o, dot, **kw)
-        slow = S >= 4096 and not takes_lse
+        # the CUDA-core route (a checkout before the saved lse, or before
+        # the tensor cores took this head dim) takes tens of ms a call
+        slow = S >= 4096 and (not takes_lse or fa.bwd_route(
+            torch.bfloat16, hd) != "wgmma")
         ms = cs.time_ms(torch, call, reps=2 if slow else 20,
                         windows=3 if slow else 5)
         kernels, _, _ = cs.profiled_kernels(torch, call)
@@ -74,38 +85,44 @@ def kernel_times(torch, cs, fa, dev) -> list:
         digest = hashlib.sha256(o.contiguous().view(torch.int16).cpu()
                                 .numpy().tobytes()).hexdigest()[:16]
         fwd = {"fwd_ms": cs.time_ms(torch, lambda: fa.flash_attention(
-            qt, kt, vt), reps=20, windows=5)}
+            qt, kt, vt, **mask), reps=20, windows=5)}
         if takes_lse:
             fwd["fwd_lse_ms"] = cs.time_ms(torch, lambda: fa.flash_attention(
-                qt, kt, vt, return_lse=True), reps=20, windows=5)
-        out.append({"batch": B, "S": S, "ms": ms, "forward_sha256": digest,
-                    **fwd,
+                qt, kt, vt, return_lse=True, **mask), reps=20, windows=5)
+        out.append({"batch": B, "S": S, "heads": H, "hd": hd, "window": win,
+                    "ms": ms, "forward_sha256": digest, **fwd,
                     "kernels_ms": {n[:90]: t for n, t in by_name.items()}})
     return out
 
 
-def train_long(torch, cs, fa, dev, batch: int, seq: int,
-               steps: int) -> dict:
-    """qwen3-4b at full width, ``batch`` x ``seq``, through launch.train's
-    code path; then one profiled step."""
+def train_long(torch, cs, fa, dev, arch: str, layers: int, batch: int,
+               seq: int, steps: int) -> dict:
+    """``arch`` at full width (``layers`` deep when not 0), ``batch`` x
+    ``seq``, through launch.train's code path; then one profiled step."""
+    import dataclasses
+    from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
     torch.cuda.reset_peak_memory_stats(dev)
     fa.flash_attention_bwd.launches = 0
-    argv = ["--arch", "qwen3_4b", "--steps", str(steps), "--batch",
+    cfg = (dataclasses.replace(get_config(arch), n_layers=layers)
+           if layers else None)
+    argv = ["--arch", arch, "--steps", str(steps), "--batch",
             str(batch), "--seq", str(seq), "--device", "cuda"]
     state, step_fn, pipe, hist = cs.train_run(torch, launch_train, dev, argv,
-                                              steps)
+                                              steps, cfg=cfg)
     times = [m["step_time_s"] for m in hist]
     med = statistics.median(times[1:])
     launches = fa.flash_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     prof = cs.profile_step(torch, step_fn, state, pipe,
-                           f"batch {batch} x {seq}")
-    return {"batch": batch, "seq": seq, "step_times_s": times,
+                           f"{arch} batch {batch} x {seq}")
+    return {"arch": arch, "layers": layers, "batch": batch, "seq": seq,
+            "step_times_s": times,
             "median_step_s": med, "tokens_per_s": batch * seq / med,
             "losses": [m["loss"] for m in hist], "peak_gib": peak,
             "bwd_launches": launches, "idle_share": prof["idle"],
-            "grad_kernel_ms": prof["groups"].get("attention gradient", 0.0)}
+            "grad_kernel_ms": prof["groups"].get("attention gradient", 0.0),
+            "device_ms_by_kind": prof["groups"]}
 
 
 def child(args) -> int:
@@ -119,7 +136,8 @@ def child(args) -> int:
     torch.cuda.init()
     res = {"checkout": args.checkout}
     if args.train_seq:
-        res["train"] = train_long(torch, cs, fa, dev, args.train_batch,
+        res["train"] = train_long(torch, cs, fa, dev, args.arch[0],
+                                  args.layers[0], args.train_batch,
                                   args.train_seq, args.steps)
     else:
         res["kernel"] = kernel_times(torch, cs, fa, dev)
@@ -145,9 +163,18 @@ def main(argv=None) -> int:
     ap.add_argument("--train-seq", type=int, default=0)
     ap.add_argument("--train-batch", type=int, default=1)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--arch", action="append",
+                    help="an arch to train (repeatable; qwen3_4b if none)")
+    ap.add_argument("--layers", type=int, action="append",
+                    help="the depth of the --arch at the same place (0: "
+                         "the config's)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--checkout", default=ROOT, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    args.arch = args.arch or ["qwen3_4b"]
+    args.layers = args.layers or [0] * len(args.arch)
+    if len(args.layers) != len(args.arch):
+        ap.error("give --layers once for every --arch, or not at all")
     if args.child:
         return child(args)
     sys.path.insert(0, ROOT)
@@ -171,10 +198,13 @@ def main(argv=None) -> int:
     print(json.dumps({"forward_outputs_bitwise_equal": len(shas) == 1,
                       "forward_sha256": shas}), flush=True)
     if args.train_seq:
-        for checkout in order:
-            run_child(os.path.abspath(checkout),
-                      ["--train-seq", str(args.train_seq), "--train-batch",
-                       str(args.train_batch), "--steps", str(args.steps)])
+        for arch, layers in zip(args.arch, args.layers):
+            for checkout in order:
+                run_child(os.path.abspath(checkout),
+                          ["--train-seq", str(args.train_seq),
+                           "--train-batch", str(args.train_batch),
+                           "--steps", str(args.steps), "--arch", arch,
+                           "--layers", str(layers)])
     return 0
 
 
