@@ -220,7 +220,8 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      float32 shape and an int8 one (hd 64) with a row that sees no slot,
      with ragged, empty and late slots: bf16 every element within two
      bf16 steps plus 1e-4, float32 within 1e-5 x max|out|, the route
-     asserted, two launches bitwise, a CUDA graph of one call replayed
+     asserted (the ring's G 16 on the grouped route, by its count), two
+     launches bitwise, a CUDA graph of one call replayed
      twice bitwise equal to the eager launch (its arrival counters
      return to zero), 2 device kernels a call; device time from a CUDA
      graph beside the bound (the visible slots' K and V), the plain
@@ -278,7 +279,7 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      hd 128, bf16) and a reduced float32 shape: float32 within 1e-5 x
      max|out|, bf16 every element between the bf16 roundings of the plain
      float32 value minus and plus that; two launches bitwise, a CUDA
-     graph's replays bitwise, 2 device kernels a call; device time from a
+     graph's replays bitwise, 1 device kernel a call; device time from a
      CUDA graph beside the bound (every slot's K and V), the plain version
      and SDPA (``enable_gqa``, no mask) in a CUDA graph; then the flash
      kernel not causal at the cross prefill's shape (1, 2048 queries, 1600
@@ -343,9 +344,10 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      path where no choice differed;
  36. mixtral-8x22b at full width cut to 12 of 56 layers served the same
      way (its 4096-token prompt's decode wraps the 4096-slot window
-     ring); then the decode kernel at that ring (4 slots, 8 KV heads of
-     6, hd 128) and the flash kernel at its 48 heads, each against its
-     plain version;
+     ring; the decode kernel on its grouped route, G 6); then the decode
+     kernel at that ring (4 slots, 8 KV heads of 6, hd 128) checked and
+     timed as in phase 25, and the flash kernel at its 48 heads against
+     its plain version;
  37. phi3.5-moe at full width cut to 2 layers trains 3 steps at 8 x 128
      through ``launch.train``'s code path: the loss with its aux term
      (positive each step), 2 flash and 1 gradient launch a layer a step;
@@ -386,9 +388,10 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      prefill and the decode kernel a layer a decode step on the cache's
      route, the flash kernel against its plain version at each prompt
      length with the arch's heads; then the decode kernel at their GQA
-     groups (KV, G) = (2, 8), (2, 16), (8, 3) (one partly filled head
-     group of 4) at the serving shape, bf16 and int8, checked and timed
-     as in phase 25;
+     groups (KV, G) = (2, 8), (2, 16) (the grouped route, asserted by
+     its count), (8, 3) (the split route, one partly filled head group
+     of 4) at the serving shape, bf16 and int8, checked and timed as in
+     phase 25;
  42. the three archs cut to 2 layers in float32 (qwen2.5-3b's QKV biases
      drawn non-zero): a 512-token prefill's last-token logits card
      against CPU, as phase 13; qwen2.5-3b's loss and gradients, the three
@@ -2009,6 +2012,8 @@ def serve_run(torch, eng, prompts, counters, dev) -> dict:
         c.launches = 0
         if hasattr(c, "routes"):
             c.routes = dict.fromkeys(c.routes, 0)
+        if hasattr(c, "grouped"):
+            c.grouped = 0
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
@@ -2017,7 +2022,26 @@ def serve_run(torch, eng, prompts, counters, dev) -> dict:
             "rids": sorted(done), "wall": wall, "stats": dict(eng.stats),
             "peak": torch.cuda.max_memory_allocated(dev),
             "launches": [c.launches for c in counters],
-            "routes": [dict(getattr(c, "routes", {})) for c in counters]}
+            "routes": [dict(getattr(c, "routes", {})) for c in counters],
+            "grouped": [getattr(c, "grouped", 0) for c in counters]}
+
+
+def decode_route_checked(cfg, run, i, cache, want, label) -> None:
+    """The decode kernel (``run``'s counter ``i``) ran ``want`` times on
+    the cache type ``cache``, all of them on the grouped route where the
+    arch's GQA group takes it (``launch_plan``: G > 4, a bf16 q), none
+    there otherwise."""
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    G = cfg.n_heads // cfg.n_kv_heads
+    route = dk.launch_plan(1, 1, 1, G, cfg.head_dim,
+                           getattr(torch, cfg.dtype), getattr(torch, cache))[0]
+    grouped = want if route == "grouped" else 0
+    if run["routes"][i][cache] != want or run["grouped"][i] != grouped:
+        raise RuntimeError(f"serve {label}: decode kernel routes "
+                           f"{run['routes'][i]}, grouped {run['grouped'][i]};"
+                           f" want {want} on {cache}, {grouped} grouped "
+                           f"(G {G})")
 
 
 def serve_checked(cfg, run, want_launches, label) -> None:
@@ -2081,10 +2105,8 @@ def phase_serve(torch, fa, dev, arch="qwen3_4b") -> dict:
         route = "int8" if c.kv_quant else "bfloat16"
         serve_checked(cfg, run, [cfg.n_layers * SERVE_REQUESTS,
                                  cfg.n_layers * steps], f"{arch} {label}")
-        if run["routes"][1][route] != cfg.n_layers * steps:
-            raise RuntimeError(f"serve {arch} {label}: decode kernel "
-                               f"routes {run['routes'][1]}, want "
-                               f"{cfg.n_layers * steps} on {route}")
+        decode_route_checked(cfg, run, 1, route, cfg.n_layers * steps,
+                             f"{arch} {label}")
         runs[label] = run
         if label == "bf16 cache":
             log(f"serve {arch}: prompt lengths {[int(n) for n in lens]}")
@@ -2094,7 +2116,9 @@ def phase_serve(torch, fa, dev, arch="qwen3_4b") -> dict:
         log(serve_line(f"{arch} {label}", run,
                        f"; flash launches {run['launches'][0]}, decode "
                        f"kernel launches {run['launches'][1]} "
-                       f"({cfg.n_layers} a step, route {route}){before}"))
+                       f"({cfg.n_layers} a step, route {route}, "
+                       f"{run['grouped'][1]} on the grouped route)"
+                       f"{before}"))
         log(f"serve {arch} {label}: first tokens "
             f"{[o[:4] for o in run['outs']]}")
     same = sum(a == b for a, b in zip(runs["bf16 cache"]["outs"],
@@ -2126,6 +2150,7 @@ def phase_serve(torch, fa, dev, arch="qwen3_4b") -> dict:
         f"{100 * kernel_s / runs['bf16 cache']['wall']:.1f}% of the wall")
     return {"launches": runs["bf16 cache"]["launches"][0],
             "decode_launches": sum(r["launches"][1] for r in runs.values()),
+            "grouped": sum(r["grouped"][1] for r in runs.values()),
             "wall": runs["bf16 cache"]["wall"], "max_abs_err": max(errs)}
 
 
@@ -2713,10 +2738,15 @@ def decode_bound_ms(q, k, ks, pos, q_pos, window) -> dict:
     output written once, every slot's position read, and K and V (with
     their scales) of the visible slots only (the kernel loads no other:
     this input's need), against 4 FLOP per visible slot, query head and
-    head dim at the float32 rate."""
-    from repro_torch.kernels.decode_attention import visible_slots
+    head dim at the rate of the units the route gives them: the bf16
+    tensor cores' on the grouped route (``launch_plan``), else the
+    float32 rate."""
+    from repro_torch.kernels.decode_attention import launch_plan, \
+        visible_slots
     B, _, H, hd = q.shape
-    KV = k.shape[2]
+    T, KV = k.shape[1], k.shape[2]
+    route = launch_plan(B, T, KV, H // KV, hd, q.dtype, k.dtype)[0]
+    peak = PEAK_BF16_FLOPS if route == "grouped" else PEAK_FP32_FLOPS
     vis = int(visible_slots(pos, q_pos, window).sum())
     nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 8
               + q_pos.numel() * 8
@@ -2724,7 +2754,7 @@ def decode_bound_ms(q, k, ks, pos, q_pos, window) -> dict:
                             + (8 if ks is not None else 0)))
     flops = 4 * vis * H * hd
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "visible": vis}
@@ -2800,33 +2830,41 @@ def kernels_a_call(torch, fn) -> tuple:
     return sum(k == 0 for k in kinds), len(kinds)
 
 
-def phase_decode(torch, dev, tests=DECODE_TESTS) -> dict:
-    """Phase 25 (phase 41: GQA_DECODE_TESTS): the decode kernel vs
-    ``decode_attention_plain`` at each shape of ``tests``, the route asserted, two launches bitwise equal, a
-    CUDA graph's replays bitwise the eager launch, two device kernels a
-    call (scores_kernel, values_kernel); device time from a CUDA graph
-    beside the bound, the plain version and, for bf16, SDPA with
-    ``enable_gqa`` (a yardstick only), timed both in a CUDA graph as the
-    kernel is and by events around calls."""
+def phase_decode(torch, dev, tests=DECODE_TESTS, seed=25) -> dict:
+    """Phase 25 (phase 41: GQA_DECODE_TESTS; phase 36: MIXTRAL_RING): the
+    decode kernel vs ``decode_attention_plain`` at each shape of
+    ``tests``, the inputs drawn in order from a generator seeded
+    ``seed``, the cache type's route and the grouped route (where
+    ``launch_plan`` gives it: G > 4, a bf16 q) asserted by their counts,
+    the ring rows wrapped, two launches bitwise equal, a CUDA graph's
+    replays bitwise the eager launch, two device kernels a call (scores
+    and values passes); device time from a CUDA graph beside the bound,
+    the plain version and, for bf16, SDPA with ``enable_gqa`` (a
+    yardstick only), timed both in a CUDA graph as the kernel is and by
+    events around calls."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
     gen = torch.Generator(device=dev)
-    gen.manual_seed(25)
+    gen.manual_seed(seed)
     kern = dk.decode_attention_kernel
     timed, worst = {}, 0.0
     for name, B, T, KV, G, hd, cache, win, rows in tests:
         q, k, v, ks, vs, pos, q_pos = decode_inputs(
             torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
-        L = dk.split_len(B, KV, G, T)
+        route, _, L, splits = dk.launch_plan(B, T, KV, G, hd, q.dtype,
+                                             k.dtype)
 
         def call():
             return kern(q, k, v, pos, q_pos, win, ks, vs)
-        before = dict(kern.routes)
+        before, before_g = dict(kern.routes), kern.grouped
         got = call()
         again = call()
         want = dk.decode_attention_plain(q, k, v, pos, q_pos, win, ks, vs)
         torch.cuda.synchronize()
         routed = kern.routes[cache] - before[cache]
+        grouped = kern.grouped - before_g
+        want_g = 2 if route == "grouped" else 0
+        wrapped = int((q_pos >= T).sum())
         err = float((got.float() - want.float()).abs().max())
         scale = float(want.float().abs().max())
         over = (bf16_over(torch, got, want) if q.dtype == torch.bfloat16
@@ -2836,11 +2874,15 @@ def phase_decode(torch, dev, tests=DECODE_TESTS) -> dict:
         n_kernels, n_nodes = kernels_a_call(torch, call)
         if not (got.shape == q.shape and got.dtype == q.dtype and
                 math.isfinite(err) and over == 0 and bitwise and
-                routed == 2 and replay and n_kernels == n_nodes == 2):
+                routed == 2 and grouped == want_g and
+                wrapped == rows.count("ring") and replay and
+                n_kernels == n_nodes == 2):
             raise RuntimeError(f"decode_attention {name}: max abs err {err}"
                                f" (max|out| {scale}), {over} over the limit,"
                                f" bitwise {bitwise}, {routed} launches on "
-                               f"route {cache} (want 2), graph replays "
+                               f"route {cache} (want 2), {grouped} on the "
+                               f"grouped route (want {want_g}), {wrapped} "
+                               f"rows wrapped, graph replays "
                                f"equal {replay}, {n_kernels} kernels of "
                                f"{n_nodes} graph nodes a call (want 2 of "
                                f"2)")
@@ -2867,7 +2909,8 @@ def phase_decode(torch, dev, tests=DECODE_TESTS) -> dict:
                     f"run in a CUDA graph ({type(exc).__name__}: {exc}); "
                     f"its event time stands")
         bound = decode_bound_ms(q, k, ks, pos, q_pos, win)
-        timed[name] = {"ms": ms, "plain_ms": plain_ms,
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "route": route,
+                       "err": err,
                        "library_ms": (lib_graph_ms if lib_graph_ms
                                       is not None else lib_ms),
                        "library_call_ms": lib_ms,
@@ -2881,8 +2924,8 @@ def phase_decode(torch, dev, tests=DECODE_TESTS) -> dict:
                f"{lib_graph_ms:.4f} ms a launch (CUDA graph)"))
         log(f"decode_attention {name} (B={B} T={T} KV={KV} G={G} hd={hd} "
             f"window={win}, {bound['visible']} of {B * T} slots visible, "
-            f"{dk.n_splits(T, L)} splits of {L}): route {cache}, max_abs_err"
-            f" {err:.3g} (max|out| "
+            f"{wrapped} rows wrapped, {splits} splits of {L}): route "
+            f"{cache} ({route}), max_abs_err {err:.3g} (max|out| "
             f"{scale:.3g}, limit {limit}), two launches bitwise, graph "
             f"replays bitwise, {n_kernels} device kernels a call; kernel "
             f"{ms:.4f} ms a launch on the device (CUDA graph), {call_ms:.4f}"
@@ -3019,16 +3062,14 @@ def phase_recurrentgemma(torch, fa, dev) -> dict:
     steps = run["stats"]["decode_steps"]
     serve_checked(cfg, run, [n_attn * SERVE_REQUESTS, n_rec * SERVE_REQUESTS,
                              n_attn * steps], "recurrentgemma_9b")
-    if run["routes"][2]["bfloat16"] != n_attn * steps:
-        raise RuntimeError(f"serve recurrentgemma_9b: decode kernel routes "
-                           f"{run['routes'][2]}, want {n_attn * steps} on "
-                           f"bfloat16")
+    decode_route_checked(cfg, run, 2, "bfloat16", n_attn * steps,
+                         "recurrentgemma_9b")
     log(f"serve recurrentgemma_9b: prompt lengths {[int(n) for n in lens]}")
     log(serve_line("recurrentgemma_9b", run,
                    f"; flash launches {run['launches'][0]}, scan launches "
                    f"{run['launches'][1]}, decode kernel launches "
                    f"{run['launches'][2]} ({n_attn} a step, route "
-                   f"bfloat16)"))
+                   f"bfloat16, {run['grouped'][2]} on the grouped route)"))
     log(f"serve recurrentgemma_9b: first tokens "
         f"{[o[:4] for o in run['outs']]}")
     torch.cuda.empty_cache()
@@ -3072,7 +3113,8 @@ def phase_recurrentgemma(torch, fa, dev) -> dict:
     del card, cpu
     torch.cuda.empty_cache()
     return {"flash": run["launches"][0], "scan": run["launches"][1],
-            "decode": run["launches"][2], "wall": run["wall"]}
+            "decode": run["launches"][2], "grouped": run["grouped"][2],
+            "wall": run["wall"]}
 
 
 # phase 28: the xLSTM scans' shapes. mLSTM (B, S, H, hd): a 4096-token
@@ -3571,7 +3613,8 @@ def cross_decode_check(torch, dk, name, q, k, v) -> dict:
     version on the same inputs, within CROSS_REL of max|out| (bfloat16:
     each element between the bf16 roundings of the plain float32 value
     minus and plus that), one launch a call, two launches bitwise, a CUDA
-    graph's replays bitwise the eager launch, 2 device kernels a call."""
+    graph's replays bitwise the eager launch, 1 device kernel a call
+    (``cross_kernel``)."""
     kern = dk.cross_decode_attention_kernel
 
     def call():
@@ -3595,13 +3638,13 @@ def cross_decode_check(torch, dk, name, q, k, v) -> dict:
     n_kernels, n_nodes = kernels_a_call(torch, call)
     if not (got.shape == q.shape and got.dtype == q.dtype and
             math.isfinite(err) and over == 0 and bitwise and replay and
-            launched == 2 and n_kernels == n_nodes == 2):
+            launched == 2 and n_kernels == n_nodes == 1):
         raise RuntimeError(f"cross decode {name}: max abs err {err} (max|out|"
                            f" {scale}), {over} over the limit, bitwise "
                            f"{bitwise}, graph replays equal {replay}, "
                            f"{launched} launches for 2 calls, {n_kernels} "
-                           f"kernels of {n_nodes} graph nodes a call (want 2"
-                           f" of 2)")
+                           f"kernels of {n_nodes} graph nodes a call (want 1"
+                           f" of 1)")
     return {"err": err, "scale": scale, "call": call}
 
 
@@ -3643,7 +3686,7 @@ def phase_cross_kernels(torch, fa, dev) -> dict:
                             ).to(tdt) for _ in range(2))
         chk = cross_decode_check(torch, dk, name, q, k, v)
         out["max_abs_err"] = max(out["max_abs_err"], chk["err"])
-        L = dk.split_len(B, KV, G, T)
+        _, _, L, splits = dk.launch_plan(B, T, KV, G, hd, tdt, tdt, True)
         ms = graph_ms(torch, chk["call"])
         call_ms = time_ms(torch, chk["call"], reps=20)
         plain_ms = time_ms(torch, lambda: dk.cross_decode_attention_plain(
@@ -3667,12 +3710,12 @@ def phase_cross_kernels(torch, fa, dev) -> dict:
                                "plain_ms": plain_ms, "library_ms": lib_ms,
                                **bound}
         log(f"cross decode {name} (B={B} T={T} KV={KV} G={G} hd={hd}, "
-            f"{dk.n_splits(T, L)} splits of {L}): max_abs_err "
+            f"{splits} splits of {L}): max_abs_err "
             f"{chk['err']:.3g} (max|out| {chk['scale']:.3g}, limit "
             f"{CROSS_REL:g} x max|out|"
             + (", bf16 rounding of a value within it" if dt == "bfloat16"
                else "") + "), two launches bitwise, graph replays bitwise, "
-            f"2 device kernels a call; kernel {ms:.4f} ms a launch on the "
+            f"1 device kernel a call; kernel {ms:.4f} ms a launch on the "
             f"device (CUDA graph), {call_ms:.4f} ms a call; plain "
             f"{plain_ms:.4f} ms; sdpa(enable_gqa) {lib_call_ms:.4f} ms a "
             f"call, {lib_ms:.4f} ms a launch (CUDA graph); bound "
@@ -3795,7 +3838,8 @@ VISION_NEW = 16
 # serving's device time by kernel kind: phase 24's kinds with the decode
 # kernel (its two passes) beside the flash forward
 SERVE_KERNEL_GROUPS = [("decode attention", ("scores_kernel",
-                                             "values_kernel"))] + \
+                                             "values_kernel",
+                                             "cross_kernel"))] + \
     TRAIN_KERNEL_GROUPS[1:]
 
 
@@ -4630,22 +4674,23 @@ def phase_moe_serve(torch, fa, dev, arch) -> dict:
     del eng
     steps = run["stats"]["decode_steps"]
     serve_checked(cfg, run, [n * SERVE_REQUESTS, n * steps], arch)
-    if run["routes"][1]["bfloat16"] != n * steps:
-        raise RuntimeError(f"serve {arch}: decode kernel routes "
-                           f"{run['routes'][1]}, want {n * steps} on "
-                           f"bfloat16")
+    decode_route_checked(cfg, run, 1, "bfloat16", n * steps, arch)
     log(f"serve {arch}: prompt lengths {[int(x) for x in lens]}")
     log(serve_line(arch, run, f"; flash launches {run['launches'][0]}, "
                    f"decode kernel launches {run['launches'][1]} ({n} a "
-                   f"step, route bfloat16)"))
+                   f"step, route bfloat16, {run['grouped'][1]} on the "
+                   f"grouped route)"))
     log(f"serve {arch}: first tokens {[o[:4] for o in run['outs']]}")
     prof = moe_profiled(torch, model, cfg, dev, arch)
     del model
     torch.cuda.empty_cache()
+    ring = None
     if arch == "phi3_5_moe":
         log(moe_card_vs_cpu(torch, get_config(arch), dev, 512, 2))
     else:
-        errs = [ring_check(torch, dev, *MIXTRAL_RING)]
+        # the ring's inputs drawn from a generator seeded T + G
+        ring = phase_decode(torch, dev, [MIXTRAL_RING],
+                            seed=MIXTRAL_RING[2] + MIXTRAL_RING[4])
         kgen = torch.Generator(device=dev)
         kgen.manual_seed(36)
         from repro_torch.models.attention import _expand_kv
@@ -4663,37 +4708,8 @@ def phase_moe_serve(torch, fa, dev, arch) -> dict:
     log(f"phase {35 if arch == 'phi3_5_moe' else 36}: "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"flash": run["launches"][0], "decode": run["launches"][1],
-            "wall": run["wall"], "prof": prof}
-
-
-def ring_check(torch, dev, name, B, T, KV, G, hd, cache, win, rows) -> float:
-    """The decode kernel vs ``decode_attention_plain`` at one of phase
-    25's kinds of shape: every element within two bf16 steps plus 1e-4,
-    the route asserted, two launches bitwise; returns the max abs err."""
-    from repro_torch.kernels import decode_attention as dk
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(T + G)
-    q, k, v, ks, vs, pos, q_pos = decode_inputs(
-        torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
-    kern = dk.decode_attention_kernel
-    before = dict(kern.routes)
-    got = kern(q, k, v, pos, q_pos, win, ks, vs)
-    again = kern(q, k, v, pos, q_pos, win, ks, vs)
-    want = dk.decode_attention_plain(q, k, v, pos, q_pos, win, ks, vs)
-    torch.cuda.synchronize()
-    routed = kern.routes[cache] - before[cache]
-    err = float((got.float() - want.float()).abs().max())
-    over = bf16_over(torch, got, want)
-    wrapped = int((q_pos >= T).sum())
-    if not (math.isfinite(err) and over == 0 and torch.equal(got, again)
-            and routed == 2 and wrapped == rows.count("ring")):
-        raise RuntimeError(f"decode_attention {name}: max abs err {err}, "
-                           f"{over} over the bf16 limit, {routed} launches "
-                           f"on {cache}, {wrapped} wrapped rows")
-    log(f"decode_attention {name} (B={B} T={T} KV={KV} G={G} hd={hd} "
-        f"window={win}, {wrapped} rows wrapped): route {cache}, max_abs_err "
-        f"{err:.3g}, none over 2 bf16 steps + 1e-4, two launches bitwise")
-    return err
+            "grouped": run["grouped"][1], "wall": run["wall"], "prof": prof,
+            "ring": ring}
 
 
 MOE_TRAIN_LAYERS = 2
@@ -5387,8 +5403,9 @@ def phase_vision_train(torch, fa, dev) -> dict:
 # phases 41-43: the dense archs not run on the card before, at full width
 DENSE_NEW = ("qwen2_5_3b", "glm4_9b", "phi4_mini_3_8b")
 # phase 41: the decode kernel at their GQA groups (query heads a KV head:
-# qwen2.5-3b 16 over 2, glm4-9b 32 over 2, phi4-mini 24 over 8, a partly
-# filled last head group of the kernel's 4) at phase 25's serving shape
+# qwen2.5-3b 16 over 2 and glm4-9b 32 over 2 on the grouped route,
+# phi4-mini 24 over 8 on the split route, a partly filled last head group
+# of its 4) at phase 25's serving shape
 GQA_DECODE_TESTS = [
     (f"{arch} {cache}", 4, 4352, KV, G, 128, cache, 0,
      ("fill", "fill", "fill", "late"))
@@ -5407,12 +5424,13 @@ def phase_dense_serve(torch, fa, dev) -> dict:
     qwen3-4b; then the decode kernel at their groups (GQA_DECODE_TESTS)
     as phase 25 checks and times it."""
     t0 = time.perf_counter()
-    out = {"flash": 0, "decode": 0, "max_abs_err": 0.0}
+    out = {"flash": 0, "decode": 0, "grouped": 0, "max_abs_err": 0.0}
     for arch in DENSE_NEW:
         torch.cuda.empty_cache()
         served = phase_serve(torch, fa, dev, arch)
         out["flash"] += served["launches"]
         out["decode"] += served["decode_launches"]
+        out["grouped"] += served["grouped"]
         out["max_abs_err"] = max(out["max_abs_err"], served["max_abs_err"])
     torch.cuda.empty_cache()
     out["kernel"] = phase_decode(torch, dev, GQA_DECODE_TESTS)
@@ -5982,7 +6000,13 @@ def main(argv=None) -> int:
                     "bound_ms": rgb["bound_ms"],
                     "bound_by": rgb["bound_by"],
                     "library_ms": rgb["library_ms"]}
+    # the decode kernel's split route (qwen3-4b's groups of 4) and its
+    # grouped route (G > 4: glm4-9b's 16 timed), launches partitioned
     dec = main_d["timed"]["qwen3-4b bf16"]
+    timed_d = [*main_d["timed"].values(), *dense["kernel"]["timed"].values(),
+               *mix["ring"]["timed"].values()]
+    n_grouped = served["grouped"] + rg["grouped"] + phi["grouped"] \
+        + mix["grouped"] + dense["grouped"]
     decode_entry = {"name": "decode_attention", "route": "cuda",
                     "source": "src/repro_torch/csrc/decode_attention.cu",
                     "replaces": "src/repro/models/attention.py:96 (plain "
@@ -5990,13 +6014,22 @@ def main(argv=None) -> int:
                                 "Pallas kernel there)",
                     "launches": served["decode_launches"] + rg["decode"]
                     + vis["decode"] + phi["decode"] + mix["decode"]
-                    + dense["decode"],
-                    "max_abs_err": max(main_d["max_abs_err"],
-                                       dense["kernel"]["max_abs_err"]),
+                    + dense["decode"] - n_grouped,
+                    "max_abs_err": max(t["err"] for t in timed_d
+                                       if t["route"] == "split"),
                     "ms": dec["ms"],
                     "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
                     "bound_by": dec["bound_by"],
                     "library_ms": dec["library_ms"]}
+    grp = dense["kernel"]["timed"]["glm4-9b bfloat16"]
+    grouped_entry = {**decode_entry, "name": "decode_attention_grouped",
+                     "launches": n_grouped,
+                     "max_abs_err": max(t["err"] for t in timed_d
+                                        if t["route"] == "grouped"),
+                     "ms": grp["ms"], "plain_ms": grp["plain_ms"],
+                     "bound_ms": grp["bound_ms"],
+                     "bound_by": grp["bound_by"],
+                     "library_ms": grp["library_ms"]}
     scan = main_s["timed"][SCAN_TESTS[0]]
     scan_entry = {"name": "rglru_scan", "route": "cuda",
                   "source": "src/repro_torch/csrc/rglru_scan.cu",
@@ -6081,7 +6114,8 @@ def main(argv=None) -> int:
                        "bound_by": slstm_g["bound_by"], "library_ms": None}
     log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
                                 bwd_entry, bwd256_entry, decode_entry,
-                                cross_entry, scan_entry, scan_bwd_entry,
+                                grouped_entry, cross_entry, scan_entry,
+                                scan_bwd_entry,
                                 mlstm_entry, mlstm_bwd_entry, slstm_entry,
                                 slstm_bwd_entry]}))
     log(json.dumps({"ok": True, "device": {

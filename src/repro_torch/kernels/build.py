@@ -80,7 +80,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "decode_attention": {
         # q, k, v, k_scale, v_scale, pos, qpos, out, scores, stats, part,
         # vidx, arrivals, B, T, KV, G, hd, window, splits, L, scale,
-        # is_bf16, cache_type, cross, stream
+        # is_bf16, cache_type, route (0 split, 1 grouped, 2 cross), stream
         "decode_attention_launch": (*(_P,) * 13, *(_I,) * 8, _F, _I, _I,
                                     _I, _P),
     },

@@ -25,7 +25,8 @@ The reference's rounding points, in order:
 the hand-written Hopper kernel ``csrc/decode_attention.cu`` (or raises),
 on CPU tensors it runs the plain PyTorch version
 ``decode_attention_plain``. Its ``launches`` attribute counts kernel
-calls, ``routes`` counts them by cache type.
+calls, ``routes`` counts them by cache type, and ``grouped`` counts the
+calls that took the grouped route (below).
 
 ``cross_decode_attention_kernel`` is the same kernel's cross route, the
 reference's ``cross_attention`` (``repro/models/attention.py:140``) at
@@ -38,16 +39,33 @@ a float32 p). Its plain version is ``cross_decode_attention_plain``, and
 it counts its own ``launches``.
 
 The kernel cuts T into 32-slot chunks dealt round robin to splits
-(``split_len``) and serves 4 query heads of a KV head a block. Because p
-is rounded after it is normalised (step 5), a one-pass online softmax
-would round un-normalised weights, so the kernel runs two launches: pass
-1 compacts each split's visible slots and stores their scores and the
-split's row max and sum; pass 2 combines the splits' statistics in split
-order into the row's max and sum, forms and rounds p, and writes each
-split's partial p . v, and the last block of a row to finish adds the
-partials in split order (an arrival counter picks the block, never the
-order). No atomics in any sum: two launches are bitwise equal, and the
-counters are zero after every launch, so a CUDA graph can replay it.
+(``split_len``); a block serves one split of a KV head's query heads,
+on one of three routes (``launch_plan``):
+
+- the split route (float32 caches, G <= 4, and an int8 cache under a
+  float32 q): 4 query heads a block on the CUDA cores. Because p is
+  rounded after it is normalised (step 5), a one-pass online softmax
+  would round un-normalised weights, so it runs two launches: pass 1
+  compacts each split's visible slots and stores their scores and the
+  split's row max and sum; pass 2 combines the splits' statistics in
+  split order into the row's max and sum, forms and rounds p, and writes
+  each split's partial p . v, and the last block of a row to finish adds
+  the partials in split order (an arrival counter picks the block, never
+  the order);
+- the grouped route (G > 4 with a bfloat16 q on the bfloat16 or int8
+  cache): the same two passes with up to 16 query heads of a KV head a
+  block, both products on the tensor cores (``mma.sync`` bf16, float32
+  sums), so each visible slot's K and V are read once a pass; at most
+  ``GROUPED_MAX_SPLITS`` splits while T <= ``GROUPED_MAX_SPLITS`` x
+  ``GROUPED_MAX_SPLIT_LEN`` (a longer cache takes splits of
+  ``GROUPED_MAX_SPLIT_LEN`` slots), and pass 2 in blocks of
+  ``GROUPED_DIMS`` head dims, each folding its own dims;
+- the cross route: one launch; every split's (max, sum, unnormalised
+  p . v) folded in split order by the last block, divided by the row's
+  sum once after the fold (p stays float32 and is never rounded).
+
+No atomics in any sum: two launches are bitwise equal, and the counters
+are zero after every launch, so a CUDA graph can replay it.
 """
 from __future__ import annotations
 
@@ -70,23 +88,70 @@ CHUNK = 32
 MAX_SPLIT_LEN = 2048
 # query heads a block serves (csrc/decode_attention.cu GH)
 HEADS_PER_BLOCK = 4
-# the cache's type -> (the route's code in csrc/decode_attention.cu, its
-# name in ``decode_attention_kernel.routes``)
+# the grouped route's heads a block (csrc/decode_attention.cu GG), its
+# most slots a split (the scores of 16 heads beside the K ring), the
+# splits it stops at (each block of pass 2 folds one partial a split;
+# more where T needs them at its most slots a split) and the head dims a
+# pass-2 block owns (DS)
+GROUPED_HEADS = 16
+GROUPED_MAX_SPLIT_LEN = 1024
+GROUPED_MAX_SPLITS = 16
+GROUPED_DIMS = 64
+# shared memory the cross route stages a split's V rows in
+CROSS_V_BYTES = 96 * 1024
+# csrc/decode_attention.cu's route codes
+ROUTE_CODES = {"split": 0, "grouped": 1, "cross": 2}
+# the cache's type -> (its code in csrc/decode_attention.cu, its name in
+# ``decode_attention_kernel.routes``)
 _ROUTES = {torch.float32: (0, "float32"), torch.bfloat16: (1, "bfloat16"),
            torch.int8: (2, "int8")}
 
 
-def split_len(B: int, KV: int, G: int, T: int) -> int:
+def split_len(B: int, KV: int, G: int, T: int, heads: int, max_len: int,
+              max_splits: int) -> int:
     """Candidate slots a block of the kernel takes: T cut into ``CHUNK``-
     slot chunks, dealt round robin to enough splits that the B x KV x
-    ceil(G / 4) x splits blocks come near ``SPLIT_BLOCKS`` without passing
-    it (one wave), each split taking a whole number of chunks, at most
-    ``MAX_SPLIT_LEN`` slots."""
-    units = B * KV * -(-G // HEADS_PER_BLOCK)
+    ceil(G / heads) x splits blocks come near ``SPLIT_BLOCKS`` without
+    passing it (one wave), and no more than ``max_splits``; each split
+    takes a whole number of chunks, at most ``max_len`` slots, so a T
+    longer than ``max_splits`` x ``max_len`` takes more splits. ``heads``,
+    ``max_len``, ``max_splits``: the route's (``launch_plan``)."""
+    units = B * KV * -(-G // heads)
     chunks = -(-max(1, T) // CHUNK)
-    want = max(1, min(chunks, SPLIT_BLOCKS // max(1, units)))
-    per = min(-(-chunks // want), MAX_SPLIT_LEN // CHUNK)
+    want = max(1, min(chunks, SPLIT_BLOCKS // max(1, units), max_splits))
+    per = min(-(-chunks // want), max(1, max_len // CHUNK))
     return per * CHUNK
+
+
+def kernel_width(hd: int) -> int:
+    """The head-dim width the kernel is compiled for that holds ``hd``
+    (csrc/decode_attention.cu's instantiations)."""
+    return next(w for w in (32, 64, 128, MAX_HEAD_DIM) if hd <= w)
+
+
+def launch_plan(B: int, T: int, KV: int, G: int, hd: int,
+                q_dtype: torch.dtype, cache_dtype: torch.dtype,
+                cross: bool = False) -> tuple:
+    """(route, query heads a block, split length L, splits) of a call:
+    the cross route for cross attention; the grouped route where G > 4
+    and a bfloat16 q meets the bfloat16 or int8 cache (at most
+    ``GROUPED_MAX_SPLITS`` splits while they hold T); else the split
+    route. The cross route's L keeps a split's V rows within
+    ``CROSS_V_BYTES``; the split and cross routes' splits are bounded by
+    the wave (``SPLIT_BLOCKS``) alone."""
+    max_splits = SPLIT_BLOCKS
+    if cross:
+        route, heads = "cross", HEADS_PER_BLOCK
+        max_len = CROSS_V_BYTES // (kernel_width(hd) * cache_dtype.itemsize)
+    elif G > HEADS_PER_BLOCK and q_dtype == torch.bfloat16 and \
+            cache_dtype in (torch.bfloat16, torch.int8):
+        route, heads, max_len = "grouped", GROUPED_HEADS, \
+            GROUPED_MAX_SPLIT_LEN
+        max_splits = GROUPED_MAX_SPLITS
+    else:
+        route, heads, max_len = "split", HEADS_PER_BLOCK, MAX_SPLIT_LEN
+    L = split_len(B, KV, G, T, heads, max_len, max_splits)
+    return route, heads, L, n_splits(T, L)
 
 
 def n_splits(T: int, L: int) -> int:
@@ -221,8 +286,9 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                             v_scale: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Decode attention (shapes as in the module docstring). CUDA tensors
-    launch ``csrc/decode_attention.cu`` on the cache type's route
-    (counted in ``routes``); CPU tensors take the plain version. The
+    launch ``csrc/decode_attention.cu`` (counted in ``routes`` by cache
+    type, and in ``grouped`` where the grouped route ran: ``launch_plan``);
+    CPU tensors take the plain version. The
     caches, positions and scales are read in place (contiguous, int64
     positions); nothing of the cache is copied or cast."""
     _check(q, k_cache, v_cache, kv_positions, q_position, k_scale, v_scale)
@@ -247,39 +313,47 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     if launched:
         decode_attention_kernel.launches += 1
         decode_attention_kernel.routes[_ROUTES[k_cache.dtype][1]] += 1
+        decode_attention_kernel.grouped += int(launched == "grouped")
     return out
 
 
 decode_attention_kernel.launches = 0
 decode_attention_kernel.routes = {"float32": 0, "bfloat16": 0, "int8": 0}
+decode_attention_kernel.grouped = 0
 
 
 def _launch(q, k_cache, v_cache, k_scale, v_scale, pos, q_pos, window: int,
-            scale: float, cache_type: int, cross: bool) -> torch.Tensor:
-    """Both launches of ``csrc/decode_attention.cu`` on checked CUDA
-    tensors, with the scratch they need; returns (the output, whether
-    the kernel ran: an empty batch or cache gives zeros without it)."""
+            scale: float, cache_type: int, cross: bool) -> tuple:
+    """The route's launches of ``csrc/decode_attention.cu`` on checked
+    CUDA tensors, with the scratch they need; returns (the output, the
+    route that ran, or None: an empty batch or cache gives zeros without
+    the kernel)."""
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
-    units = B * KV * -(-G // HEADS_PER_BLOCK)
-    if units > 65535:
-        raise ValueError(f"decode_attention: {units} batch x KV head x "
+    route, heads, L, splits = launch_plan(B, T, KV, G, hd, q.dtype,
+                                          k_cache.dtype, cross)
+    units = B * KV * -(-G // heads)
+    # the grouped route's pass 2 folds each unit's head dims in slices
+    width = max(kernel_width(hd), GROUPED_DIMS) if route == "grouped" \
+        else hd
+    slices = units * (width // GROUPED_DIMS if route == "grouped" else 1)
+    if slices > 65535:
+        raise ValueError(f"decode_attention: {slices} batch x KV head x "
                          "head group blocks exceed the grid's 65535")
     q = q.contiguous()
     out = torch.empty_like(q)
     if B == 0 or T == 0:
-        return out.zero_(), False
-    L = split_len(B, KV, G, T)
-    splits = n_splits(T, L)
+        return out.zero_(), None
     f32 = dict(dtype=torch.float32, device=q.device)
-    gh = HEADS_PER_BLOCK
-    scores = torch.empty((units * splits * gh * L,), **f32)
-    stats = torch.empty((2 * units * gh * splits,), **f32)
-    part = torch.empty((units * splits * gh * hd,), **f32)
-    vidx = torch.empty((B * splits * (L + 1),), dtype=torch.int32,
-                       device=q.device)
-    arrivals = build.workspace("decode_attention", q.device, units)
+    stats = torch.empty((2 * units * heads * splits,), **f32)
+    part = torch.empty((units * splits * heads * width,), **f32)
+    scores = vidx = None
+    if route != "cross":
+        scores = torch.empty((units * splits * heads * L,), **f32)
+        vidx = torch.empty((B * splits * (L + 1),), dtype=torch.int32,
+                           device=q.device)
+    arrivals = build.workspace("decode_attention", q.device, slices)
     lib = build.load("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_launch(
@@ -288,22 +362,23 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, pos, q_pos, window: int,
         None if v_scale is None else v_scale.data_ptr(),
         None if pos is None else pos.data_ptr(),
         None if q_pos is None else q_pos.data_ptr(), out.data_ptr(),
-        scores.data_ptr(), stats.data_ptr(), part.data_ptr(),
-        vidx.data_ptr(), arrivals.data_ptr(), B, T, KV, G, hd, int(window),
-        splits, L, scale, int(q.dtype == torch.bfloat16), cache_type,
-        int(cross), stream)
+        None if scores is None else scores.data_ptr(), stats.data_ptr(),
+        part.data_ptr(), None if vidx is None else vidx.data_ptr(),
+        arrivals.data_ptr(), B, T, KV, G, hd, int(window), splits, L, scale,
+        int(q.dtype == torch.bfloat16), cache_type, ROUTE_CODES[route],
+        stream)
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    return out, True
+        raise RuntimeError(f"decode_attention kernel launch failed on the "
+                           f"{route} route: CUDA error {err}")
+    return out, route
 
 
 def cross_decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor) -> torch.Tensor:
     """The cross route (module docstring): q (B, 1, H, hd) against the
     cross cache's k, v (B, T, KV, hd), all float32 or all bfloat16.
-    CUDA tensors launch ``csrc/decode_attention.cu`` with no positions and
-    ``cross`` set (counted in this function's ``launches``); CPU tensors
+    CUDA tensors launch ``csrc/decode_attention.cu``'s cross route, one
+    device kernel (counted in this function's ``launches``); CPU tensors
     take ``cross_decode_attention_plain``. The cache is read in place."""
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or \
             v.shape != k.shape or k.shape[0] != q.shape[0] or \
@@ -336,7 +411,7 @@ def cross_decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                          "contiguous")
     out, launched = _launch(q, k, v, None, None, None, None, 0,
                             inv_sqrt_hd(hd), _ROUTES[k.dtype][0], True)
-    cross_decode_attention_kernel.launches += int(launched)
+    cross_decode_attention_kernel.launches += int(launched is not None)
     return out
 
 

@@ -171,6 +171,11 @@ DECODE_CASES = [
     ("int8", "float32", 2, 4, 8, 7),
     ("int8", "bfloat16", 2, 4, 128, 7),
     ("int8", "bfloat16", 1, 16, 256, 0),
+    # GQA groups of 6 and 8 (the kernel's grouped route on the card)
+    ("bfloat16", "bfloat16", 2, 6, 128, 0),
+    ("bfloat16", "bfloat16", 1, 8, 64, 5),
+    ("int8", "bfloat16", 2, 6, 128, 7),
+    ("int8", "bfloat16", 1, 8, 256, 0),
 ]
 
 
@@ -209,8 +214,11 @@ def _split_slots(T, L, split):
 
 
 def _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks=None, vs=None):
-    """The decode kernel's arithmetic in plain torch: T cut into 32-slot
-    chunks dealt round robin to ``n_splits`` splits (``_split_slots``);
+    """The decode kernel's arithmetic in plain torch (the split and the
+    grouped routes alike: the grouped route's products run on the tensor
+    cores, exact for bf16 operands, with sums in another order): T cut
+    into 32-slot chunks dealt round robin to ``n_splits`` splits of the
+    route's length (``launch_plan``, ``_split_slots``);
     pass 1 a split's scores, max m_s and sum l_s (over its visible
     slots; a split that sees none has m_s = NEG_INF and l_s its slot
     count, every exp(NEG_INF - NEG_INF) being 1); pass 2 the row's m =
@@ -223,7 +231,7 @@ def _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks=None, vs=None):
     B, _, H, hd = q.shape
     T, KV = kc.shape[1], kc.shape[2]
     G = H // KV
-    L = dk.split_len(B, KV, G, T)
+    L = dk.launch_plan(B, T, KV, G, hd, q.dtype, kc.dtype)[2]
     quant = ks is not None
     s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, KV, G, hd).float(),
                      kc.float())
@@ -261,16 +269,28 @@ def _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks=None, vs=None):
      2048, 1.0),
     ("reduced float32", 2, 40, 2, 2, 16, "float32", 0, 0.7),
     ("int8, rows that see no slot", 3, 70, 2, 4, 64, "int8", 0, 0.0),
+    ("qwen2.5-3b serving (G 8), bf16", 4, 4352, 2, 8, 128, "bfloat16", 0,
+     0.5),
+    ("qwen2.5-3b serving (G 8), int8", 4, 4352, 2, 8, 128, "int8", 0, 0.5),
+    ("glm4-9b serving (G 16), bf16", 4, 4352, 2, 16, 128, "bfloat16", 0,
+     0.5),
+    ("glm4-9b serving (G 16), int8", 4, 4352, 2, 16, 128, "int8", 0, 0.5),
+    ("mixtral-8x22b ring (G 6), bf16", 4, 4096, 8, 6, 128, "bfloat16",
+     4096, 1.0),
+    ("G 20 (two grouped blocks), rows that see no slot", 3, 70, 1, 20, 64,
+     "int8", 0, 0.0),
 ])
 def test_split_kernel_emulation_within_the_card_limit(name, B, T, KV, G, hd,
                                                       cache, window, filled):
     """The split passes round p after normalising it as the plain version
     does; their sums differ only in order. At the shapes the card runs
     (a half-filled qwen3-4b cache; recurrentgemma's wrapped 2048-slot
-    ring; ``filled`` 0: every slot past its row's query, the softmax over
-    all NEG_INF), the emulation is within the limit phase 25 holds the
-    kernel to: every bf16 element within two bf16 steps of the plain
-    version (plus 1e-4), float32 within 1e-5 x max|out|."""
+    ring and mixtral's 4096-slot one; qwen2.5-3b's and glm4-9b's GQA
+    groups of 8 and 16, on the grouped route's splits; ``filled`` 0:
+    every slot past its row's query, the softmax over all NEG_INF), the
+    emulation is within the limit phases 25, 36 and 41 hold the kernel
+    to: every bf16 element within two bf16 steps of the plain version
+    (plus 1e-4), float32 within 1e-5 x max|out|."""
     q_dtype = torch.float32 if cache == "float32" else torch.bfloat16
     q, (kc, vc, ks, vs) = _decode_inputs(T + G, B, T, KV, G, hd, cache,
                                          q_dtype)
@@ -292,7 +312,7 @@ def test_split_kernel_emulation_within_the_card_limit(name, B, T, KV, G, hd,
     pos, q_pos = _t(pos), _t(q_pos)
     want = dk.decode_attention_plain(q, kc, vc, pos, q_pos, window, ks, vs)
     got = _emulate_split_kernel(q, kc, vc, pos, q_pos, window, ks, vs)
-    assert dk.n_splits(T, dk.split_len(B, KV, G, T)) > 1   # really split
+    assert dk.launch_plan(B, T, KV, G, hd, q.dtype, kc.dtype)[3] > 1
     if q_dtype == torch.float32:
         err = float((got - want).abs().max())
         assert err <= F32_REL * float(want.abs().max()), (name, err)
@@ -302,23 +322,80 @@ def test_split_kernel_emulation_within_the_card_limit(name, B, T, KV, G, hd,
 
 def test_split_len_fills_the_card():
     """Splits of whole 32-slot chunks, as many as bring the B x KV x
-    ceil(G / 4) x splits blocks near one wave of two blocks an SM (264)
-    without passing it, at most 2048 slots; the chunks dealt round robin
-    cover every slot once."""
-    assert dk.split_len(4, 8, 4, 4352) == 544    # 8 splits: 256 blocks
+    ceil(G / heads) x splits blocks near one wave of two blocks an SM
+    (264) without passing it, at most 2048 slots (4 heads a block, the
+    split route), 1024 (16, the grouped route); the chunks dealt round
+    robin cover every slot once; the grouped route also takes at most 16
+    splits while 16 of 1024 slots hold T."""
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def split_l(B, T, KV, G, hd, dt):
+        return dk.launch_plan(B, T, KV, G, hd, dt, dt)[2]
+    assert split_l(4, 4352, 8, 4, 128, bf) == 544    # 8 splits: 256 blocks
     assert dk.n_splits(4352, 544) == 8
-    assert dk.split_len(4, 1, 16, 2048) == 128   # 16 splits x 4 groups x 4
+    # 16 splits x 4 groups x 4 (float32: the split route at G 16)
+    assert split_l(4, 2048, 1, 16, 256, f32) == 128
     assert dk.n_splits(2048, 128) == 16
-    assert dk.split_len(1, 1, 64, 100000) == 2048    # the cap
+    assert split_l(1, 100000, 1, 64, 64, f32) == 2048    # the cap
     assert dk.n_splits(100000, 2048) == 49
-    assert dk.split_len(2, 2, 1, 12) == 32
+    assert split_l(2, 12, 2, 1, 64, bf) == 32
     assert dk.n_splits(12, 32) == 1
+    # the grouped route: a block a KV head (B x KV x ceil(G / 16) units)
+    g_rule = (dk.GROUPED_HEADS, dk.GROUPED_MAX_SPLIT_LEN)
+    assert dk.split_len(4, 1, 16, 2048, *g_rule,
+                        dk.SPLIT_BLOCKS) == 32   # uncapped: 64 x 4 blocks
+    assert split_l(4, 2048, 1, 16, 256, bf) == 128   # 16 x 4
+    assert split_l(1, 100000, 1, 64, 128, bf) == 1024   # its cap
+    assert dk.n_splits(100000, 1024) == 98   # past 16: T needs them
     for T, L in ((4352, 544), (2048, 128), (1000, 96), (12, 32)):
         slots = np.concatenate([_split_slots(T, L, i)
                                 for i in range(dk.n_splits(T, L))])
         assert np.array_equal(np.sort(slots), np.arange(T))
     assert _split_slots(4352, 544, 1)[:33].tolist() == \
         list(range(32, 64)) + [8 * 32 + 32]
+
+
+@pytest.mark.parametrize("B,T,KV,G,hd,q_dtype,cache,want", [
+    # phase 25: qwen3-4b's groups of 4 stay on the split route
+    (4, 4352, 8, 4, 128, "bfloat16", "bfloat16", ("split", 4, 544, 8)),
+    (4, 4352, 8, 4, 128, "bfloat16", "int8", ("split", 4, 544, 8)),
+    # phase 41: qwen2.5-3b (G 8) and glm4-9b (G 16), 8 units x 16 splits
+    # (the grouped route's cap; 33 would fill the wave)
+    (4, 4352, 2, 8, 128, "bfloat16", "bfloat16", ("grouped", 16, 288, 16)),
+    (4, 4352, 2, 8, 128, "bfloat16", "int8", ("grouped", 16, 288, 16)),
+    (4, 4352, 2, 16, 128, "bfloat16", "bfloat16", ("grouped", 16, 288, 16)),
+    (4, 4352, 2, 16, 128, "bfloat16", "int8", ("grouped", 16, 288, 16)),
+    # phi4-mini's G 3 stays; recurrentgemma's ring (phase 25) and
+    # mixtral's (phase 36, G 6) go grouped
+    (4, 4352, 8, 3, 128, "bfloat16", "bfloat16", ("split", 4, 544, 8)),
+    (4, 2048, 1, 16, 256, "bfloat16", "bfloat16", ("grouped", 16, 128, 16)),
+    (4, 4096, 8, 6, 128, "bfloat16", "bfloat16", ("grouped", 16, 512, 8)),
+    # G 20: two blocks a KV head
+    (3, 70, 1, 20, 64, "bfloat16", "int8", ("grouped", 16, 32, 3)),
+    # a cache longer than 16 splits of 1024 slots: splits of 1024
+    (1, 100000, 1, 64, 128, "bfloat16", "bfloat16",
+     ("grouped", 16, 1024, 98)),
+    # float32 caches and an int8 cache under a float32 q: the split route
+    (2, 300, 1, 16, 256, "float32", "float32", ("split", 4, 32, 10)),
+    (4, 4352, 2, 8, 128, "float32", "int8", ("split", 4, 288, 16)),
+])
+def test_launch_plan_routes(B, T, KV, G, hd, q_dtype, cache, want):
+    """The route each call takes, its heads a block, split length and
+    splits: the grouped route exactly where G > 4 and a bf16 q meets the
+    bf16 or int8 cache, its splits counted over B x KV x ceil(G / 16)
+    units and at most ``GROUPED_MAX_SPLITS`` unless T needs more of
+    ``GROUPED_MAX_SPLIT_LEN`` slots."""
+    got = dk.launch_plan(B, T, KV, G, hd, getattr(torch, q_dtype),
+                         getattr(torch, cache))
+    assert got == want
+    route, heads, L, splits = got
+    assert L % dk.CHUNK == 0 and splits * L >= T
+    assert B * KV * -(-G // heads) * splits <= dk.SPLIT_BLOCKS or \
+        L == (dk.GROUPED_MAX_SPLIT_LEN if route == "grouped"
+              else dk.MAX_SPLIT_LEN)
+    if route == "grouped":
+        assert splits <= dk.GROUPED_MAX_SPLITS or \
+            L == dk.GROUPED_MAX_SPLIT_LEN
 
 
 def test_decode_wrapper_rejects_bad_inputs():

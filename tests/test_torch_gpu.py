@@ -738,10 +738,13 @@ def test_launch_audit_on_card(cuda):
 # the decode kernel: (B, T, KV, G, hd, cache, window): qwen3-4b's serving
 # shape on both caches, recurrentgemma-9b's ring, the reduced configs'
 # float32 head dims 8 and 16, and int8 under a float32 q; the GQA groups
-# of qwen2.5-3b (2 KV heads of 8: two head groups of the kernel's 4),
-# glm4-9b (2 of 16: four) and phi4-mini (8 of 3: one partly filled) at the
-# serving shape on both caches, and groups of 3 and 7 (a full head group
-# and a partly filled one) at small shapes
+# of qwen2.5-3b (2 KV heads of 8) and glm4-9b (2 of 16) on the grouped
+# route and phi4-mini (8 of 3: one partly filled group of the split
+# route's 4) at the serving shape on both caches, and groups of 3 and 7
+# at small shapes; mixtral's G 6 ring (4096 slots), the ring on the int8
+# cache, G 6 at head dims 80 and 72 (rows the grouped route copies 16
+# bytes at a time, and value by value) and G 20 (two grouped blocks a KV
+# head)
 DECODE_GPU_SHAPES = [
     (4, 4352, 8, 4, 128, "bfloat16", 0),
     (4, 4352, 8, 4, 128, "int8", 0),
@@ -758,6 +761,11 @@ DECODE_GPU_SHAPES = [
     (2, 33, 2, 1, 8, "float32", 0),
     (3, 70, 2, 4, 64, "int8", 0),
     (2, 300, 1, 16, 256, "float32", 0),
+    (4, 4096, 8, 6, 128, "bfloat16", 4096),
+    (4, 2048, 1, 16, 256, "int8", 2048),
+    (2, 300, 2, 6, 80, "bfloat16", 0),
+    (2, 300, 2, 6, 72, "int8", 0),
+    (3, 70, 1, 20, 128, "int8", 0),
 ]
 
 
@@ -797,16 +805,22 @@ def test_decode_kernel_matches_plain(cuda, B, T, KV, G, hd, cache, window):
     """The decode kernel against ``decode_attention_plain`` on the same
     card tensors: float32 within 1e-5 x max|out|, bf16 every element
     within two bf16 steps plus 1e-4; one launch on the cache type's
-    route; a second launch bitwise equal."""
+    route, on the grouped route exactly where G > 4 meets a bf16 q on
+    the bf16 or int8 cache; two device kernels a call; a second launch
+    bitwise equal."""
     from repro_torch.kernels.decode_attention import (decode_attention_kernel,
                                                       decode_attention_plain)
     args = _decode_case(B + T + hd, B, T, KV, G, hd, cache, window, cuda)
     q, k, v, ks, vs, pos, q_pos = args
     kern = decode_attention_kernel
-    before, routes = kern.launches, dict(kern.routes)
+    before, routes, grouped = kern.launches, dict(kern.routes), kern.grouped
     got = kern(q, k, v, pos, q_pos, window, ks, vs)
     assert kern.launches == before + 1
     assert kern.routes[cache] == routes[cache] + 1
+    assert kern.grouped == grouped + int(
+        G > 4 and q.dtype == torch.bfloat16 and cache != "float32")
+    assert _graph_kernel_nodes(
+        lambda: kern(q, k, v, pos, q_pos, window, ks, vs)) == (2, 2)
     again = kern(q, k, v, pos, q_pos, window, ks, vs)
     want = decode_attention_plain(q, k, v, pos, q_pos, window, ks, vs)
     torch.cuda.synchronize()
@@ -822,15 +836,16 @@ def test_decode_kernel_matches_plain(cuda, B, T, KV, G, hd, cache, window):
 
 @pytest.mark.parametrize("B,T,KV,G,hd,dt", [
     (4, 1600, 8, 4, 128, "bfloat16"),   # llama-3.2-vision's cross cache
-    (3, 37, 2, 3, 16, "float32"), (2, 1, 1, 5, 80, "bfloat16")])
+    (3, 37, 2, 3, 16, "float32"), (2, 1, 1, 5, 80, "bfloat16"),
+    (1, 1600, 8, 4, 128, "bfloat16"), (2, 700, 2, 6, 256, "float32")])
 def test_cross_decode_route_matches_plain(cuda, B, T, KV, G, hd, dt):
     """The decode kernel's cross route (every slot visible, the scores
     times float32(1 / sqrt(hd)), p kept in float32) against
     ``cross_decode_attention_plain`` on the same card tensors: float32
     within 1e-5 x max|out|; bfloat16 every element between the bf16
     roundings of the plain float32 value minus and plus that; one launch
-    a call, counted by the cross wrapper alone; a second launch bitwise
-    equal; the other routes' counts unchanged."""
+    a call, counted by the cross wrapper alone, one device kernel a call;
+    a second launch bitwise equal; the other routes' counts unchanged."""
     from repro_torch.kernels import decode_attention as dk
     gen = torch.Generator(device=cuda)
     gen.manual_seed(T + hd)
@@ -849,6 +864,7 @@ def test_cross_decode_route_matches_plain(cuda, B, T, KV, G, hd, dt):
     assert kern.launches == before + 2
     assert (dk.decode_attention_kernel.launches,
             dk.decode_attention_kernel.routes) == others
+    assert _graph_kernel_nodes(lambda: kern(q, k, v)) == (1, 1)
     assert got.shape == q.shape and got.dtype == tdt
     assert torch.equal(got, again)
     tol = 1e-5 * float(want.abs().max())
@@ -913,21 +929,30 @@ def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, dt):
                                    rtol=2.0 ** -6, atol=1e-4)
 
 
-def test_decode_kernel_row_that_sees_no_slot(cuda):
+@pytest.mark.parametrize("G,hd", [(4, 64), (20, 128)])
+def test_decode_kernel_row_that_sees_no_slot(cuda, G, hd):
     """A row whose every slot lies past its query: the softmax over all
     NEG_INF gives p = 1 / T on every slot, as the plain version; the
-    other row as usual."""
+    other row as usual. On the split route (G 4 under a float32 q: within
+    1e-5 x max|out|) and the grouped one (G 20, a bf16 q: two bf16 steps
+    plus 1e-4)."""
     from repro_torch.kernels.decode_attention import (decode_attention_kernel,
                                                       decode_attention_plain)
-    q, k, v, ks, vs, pos, q_pos = _decode_case(5, 2, 70, 2, 4, 64, "int8",
+    q, k, v, ks, vs, pos, q_pos = _decode_case(5, 2, 70, 2, G, hd, "int8",
                                                0, cuda)
     pos[0] = torch.arange(70, device=cuda) + 1
     q_pos[0] = 0
+    grouped = decode_attention_kernel.grouped
     got = decode_attention_kernel(q, k, v, pos, q_pos, 0, ks, vs)
     want = decode_attention_plain(q, k, v, pos, q_pos, 0, ks, vs)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    assert err <= 1e-5 * float(want.abs().max())
+    assert decode_attention_kernel.grouped == grouped + int(G > 4)
+    if q.dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -6, atol=1e-4)
 
 
 def _graph_replays(fn):
@@ -978,21 +1003,35 @@ def _graph_kernel_nodes(fn):
     return sum(k == 0 for k in kinds), len(kinds)   # 0: a kernel node
 
 
-@pytest.mark.parametrize("kernel", ["decode", "scan"])
+@pytest.mark.parametrize("kernel", ["decode", "grouped", "cross", "scan"])
 def test_kernels_replay_in_a_cuda_graph(cuda, kernel):
-    """The decode kernel's arrival counters and the scan's tile counter
-    and flags are zero after every launch: a CUDA graph of one call
-    replays bitwise the eager launch, twice; a call launches 2 device
-    kernels (decode) or 1 (scan)."""
-    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    """The decode kernel's arrival counters (its split, grouped and cross
+    routes) and the scan's tile counter and flags are zero after every
+    launch: a CUDA graph of one call replays bitwise the eager launch,
+    twice; a call launches 2 device kernels (the split and grouped
+    routes), 1 (the cross route, the scan)."""
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels.rglru_scan import rglru_scan
-    if kernel == "decode":
-        args = _decode_case(3, 4, 4352, 8, 4, 128, "bfloat16", 0, cuda)
+    if kernel in ("decode", "grouped"):
+        args = _decode_case(3, 4, 4352, 2 if kernel == "grouped" else 8,
+                            16 if kernel == "grouped" else 4, 128,
+                            "bfloat16", 0, cuda)
         q, k, v, ks, vs, pos, q_pos = args
 
         def fn():
-            return decode_attention_kernel(q, k, v, pos, q_pos, 0, ks, vs)
-        launches = 2     # scores_kernel, values_kernel
+            return dk.decode_attention_kernel(q, k, v, pos, q_pos, 0, ks, vs)
+        launches = 2     # the scores and values passes
+    elif kernel == "cross":
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(5)
+        q = torch.randn((4, 1, 32, 128), generator=gen,
+                        device=cuda).bfloat16()
+        k, v = (torch.randn((4, 1600, 8, 128), generator=gen,
+                            device=cuda).bfloat16() for _ in range(2))
+
+        def fn():
+            return dk.cross_decode_attention_kernel(q, k, v)
+        launches = 1     # cross_kernel
     else:
         gen = torch.Generator(device=cuda)
         gen.manual_seed(4)

@@ -202,45 +202,48 @@ def test_cross_decode_plain_matches_reference(B, T, KV, G, hd, dt):
 
 
 def _emulate_cross_kernel(q, k, v):
-    """The decode kernel's arithmetic on its cross route in plain torch:
-    T cut into 32-slot chunks dealt round robin to ``n_splits`` splits;
-    pass 1 a split's scores (times float32(1 / sqrt(hd))), max m_s and
-    sum l_s; pass 2 the row's m = max m_s and l = sum l_s exp(m_s - m)
-    in split order, p = exp(s - m) / l kept in float32, each split's
-    partial p . v, the partials added in split order. Every slot is
-    visible; the output is float32 (the kernel rounds it to q's type
-    last)."""
+    """The decode kernel's arithmetic on its cross route (one launch) in
+    plain torch: T cut into 32-slot chunks dealt round robin to the
+    route's splits (``launch_plan``); a split's scores (times float32(1 /
+    sqrt(hd))), its max m_s, p = exp(s - m_s), l_s = sum p and the
+    unnormalised o_s = sum p v; then, in split order, m = max m_s, w_s =
+    exp(m_s - m), l = sum l_s w_s and o = sum w_s o_s, divided by l once
+    after the fold. Every slot is visible; p is never rounded; the
+    output is float32 (the kernel rounds it to q's type last)."""
     B, _, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
-    L = dk.split_len(B, KV, G, T)
-    splits = dk.n_splits(T, L)
+    route, _, L, splits = dk.launch_plan(B, T, KV, G, hd, q.dtype, k.dtype,
+                                         cross=True)
+    assert route == "cross"
     s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, KV, G, hd).float(),
                      k.float()) * dk.inv_sqrt_hd(hd)
     i = np.arange(L)
-    parts = []
+    ms, ls, os_ = [], [], []
     for split in range(splits):
         t = (split + (i // dk.CHUNK) * splits) * dk.CHUNK + i % dk.CHUNK
-        parts.append(torch.from_numpy(t[t < T]))
-    ms = [s[..., i].amax(-1) for i in parts]
-    ls = [torch.exp(s[..., i] - m[..., None]).sum(-1)
-          for i, m in zip(parts, ms)]
+        part = torch.from_numpy(t[t < T])
+        m_s = s[..., part].amax(-1)
+        p = torch.exp(s[..., part] - m_s[..., None])
+        ms.append(m_s)
+        ls.append(p.sum(-1))
+        os_.append(torch.einsum("bkgt,btkd->bkgd", p, v[:, part].float()))
     m = ms[0]
     for m_s in ms[1:]:
         m = torch.maximum(m, m_s)
     l = torch.zeros_like(m)
-    for m_s, l_s in zip(ms, ls):
-        l = l + l_s * torch.exp(m_s - m)
-    p = torch.exp(s - m[..., None]) / l[..., None]
     out = torch.zeros((B, KV, G, hd))
-    for i in parts:
-        out = out + torch.einsum("bkgt,btkd->bkgd", p[..., i],
-                                 v[:, i].float())
-    return out.reshape(B, 1, H, hd)
+    for m_s, l_s, o_s in zip(ms, ls, os_):
+        w = torch.exp(m_s - m)
+        l = l + l_s * w
+        out = out + w[..., None] * o_s
+    return (out / l[..., None]).reshape(B, 1, H, hd)
 
 
 @pytest.mark.parametrize("B,T,KV,G,hd,dt", [
     (4, 1600, 8, 4, 128, "bfloat16"),     # llama-3.2-vision's cross cache
+    (1, 1600, 8, 4, 128, "bfloat16"),     # phase 31's batch of 1: 25 splits
+    (2, 700, 2, 6, 256, "float32"),       # hd 256: the V rows' cap of 96
     (3, 37, 2, 3, 16, "float32")])
 def test_cross_kernel_emulation_within_the_card_limit(B, T, KV, G, hd, dt):
     """The cross route's split arithmetic, emulated, is within the limit
@@ -260,7 +263,7 @@ def test_cross_kernel_emulation_within_the_card_limit(B, T, KV, G, hd, dt):
     lo, hi = (want - tol).to(tdt), (want + tol).to(tdt)
     assert int(((got < lo) | (got > hi)).sum()) == 0
     if dt == "bfloat16":
-        assert dk.n_splits(T, dk.split_len(B, KV, G, T)) > 1  # split
+        assert dk.launch_plan(B, T, KV, G, hd, tdt, tdt, True)[3] > 1
         # the limit's power: p rounded to bf16 (the bfloat16 route's
         # rounding) moves the float32 result past it
         s = torch.einsum("bkgd,btkd->bkgt",

@@ -1,22 +1,31 @@
 """Where the decode-attention and RG-LRU scan kernels spend their time, on
 the GPU.
 
-    python3 tools/bench_decode_scan.py [--src DIR]
+    python3 tools/bench_decode_scan.py [--src DIR] [--save FILE]
+                                       [--compare FILE]
     python3 tools/bench_decode_scan.py --bwd-only [--bwd-src FILE]
 
 Prints the card's name and power limit, then:
 
 - the three kernels as the main path calls them, through their wrappers,
   at chip_smoke.py phase 25's qwen3-4b (bf16, int8) and recurrentgemma
-  ring shapes, phase 26's (1, 4096, 4096) bf16 and float32 and
-  (2, 37, 4096) bf16 shapes and phase 33's same three shapes for the
-  scan's gradient (``rglru_scan_backward`` on the forward launch's carry
-  buffer), device time a launch from a CUDA graph; with ``--src DIR``
-  from another checkout's package (``DIR`` its ``src``, e.g. the parent
-  commit unpacked by ``git archive`` into the gitignored
-  ``build/parent``, its kernels built by its own ``kernels/build.py``),
-  and then nothing else, so that parent and change can be timed in turns
-  in one call;
+  ring shapes, phase 41's GQA groups (qwen2.5-3b's 8, glm4-9b's 16,
+  phi4-mini's 3, bf16 and int8), phase 36's mixtral ring (G 6), phase
+  30's cross shape (the decode kernel's cross route), phase 26's
+  (1, 4096, 4096) bf16 and float32 and (2, 37, 4096) bf16 shapes and
+  phase 33's same three shapes for the scan's gradient
+  (``rglru_scan_backward`` on the forward launch's carry buffer), device
+  time a launch from a CUDA graph, and SDPA (``enable_gqa``) in a graph
+  beside each bf16 decode shape; with ``--src DIR`` from another
+  checkout's package (``DIR`` its ``src``, e.g. the parent commit
+  unpacked by ``git archive`` into the gitignored ``build/parent``, its
+  kernels built by its own ``kernels/build.py``), and then nothing else,
+  so that parent and change can be timed in turns in one call. Each
+  decode shape's inputs come from a generator seeded by the shape alone,
+  so two runs see the same inputs: ``--save FILE`` keeps the outputs,
+  ``--compare FILE`` holds them to a saved run's (bitwise where G <= 4
+  and the call is not the cross route: the split route, which both
+  checkouts share; else the max abs difference);
 
 - the scan kernel (``csrc/rglru_scan.cu``) at (1, 4096, 4096) bf16 and
   float32 and (1, 1024, 4096) bf16 beside three diagnostic builds of the
@@ -43,7 +52,18 @@ Prints the card's name and power limit, then:
   phase 25's qwen3-4b (bf16, int8) and recurrentgemma ring shapes with
   the split length chosen for 132, 264 (``SPLIT_BLOCKS``), 396, 528 and
   792 blocks, device time a launch from a CUDA graph, each output held
-  to the shipped split's within phase 25's limit.
+  to the shipped split's within phase 25's limit;
+- with ``--decode-diag`` only: the decode kernel's grouped and cross
+  routes beside diagnostic builds (``DECODE_VARIANTS``: a pass without
+  its K or V loads, without the last block's fold, without the scores'
+  copy, without the int8 cache's scale loads), each timed from a CUDA
+  graph in turns with the shipped build at the recurrentgemma ring,
+  phase 41's G 8 and G 16 shapes (bf16 and int8), mixtral's ring and
+  phase 30's cross shape (their outputs are wrong by design); then the
+  grouped route and the split route (``launch_plan`` asked for a
+  float32 call's route, which has the split route's split) against ``decode_attention_plain`` at many seeded inputs of
+  the ring, glm4-9b's G 16 (bf16, int8) and mixtral's ring: elements
+  and inputs over phase 25's limit, and the max abs error.
 
 The diagnostic builds are edited copies of the sources under the
 gitignored ``build/bench_decode_scan/``, compiled with the package's
@@ -175,6 +195,53 @@ for _part in ("no_scan", "no_loads", "no_stores"):
     BWD_VARIANTS[f"skeleton_{_part}"] = BWD_VARIANTS["skeleton"] + \
         BWD_VARIANTS[_part]
 BWD_SHAPES = [(1, 4096, 4096, "bfloat16"), (1, 4096, 4096, "float32")]
+# the edits of csrc/decode_attention.cu for --decode-diag: the grouped
+# route's pass 1 without its K copies and products (p1_no_k), without the
+# products but with the copies (p1_no_mma), without the scores' stores to
+# device memory (p1_no_store), its pass 2
+# without V (p2_no_v), without the scores' copy (p2_no_scores) or without
+# the fold (p2_no_fold; the last block returns after resetting its
+# counter); the cross route without its K loop, its V copy or its fold
+DECODE_VARIANTS = {
+    "shipped": [],
+    "p1_no_k": [_replace("  const int nst = (nv + KSL - 1) / KSL;",
+                         new="  const int nst = 0;")],
+    "p1_no_mma": [_replace("    const int j0 = s * KSL + warp * 8;\n"
+                           "    if (j0 >= nv) continue;",
+                           new="    const int j0 = s * KSL + warp * 8;\n"
+                               "    if (j0 >= 0) continue;")],
+    "p1_no_store": [_replace("      ss[gi * sh.L + jc] = sv;\n"
+                             "      sc[gi * sh.L + jc] = sv;",
+                             new="      ss[gi * sh.L + jc] = sv;")],
+    "p1_no_kscale": [_replace(
+        "      kss[j] = k_scale[((size_t)b * sh.T + idx[j]) * sh.KV + kv];",
+        new="      kss[j] = 1.f;")],
+    "p2_no_v": [_replace("  prologue(nv);\n  scales(nv);\n  // 3. the row's m",
+                         new="  scales(nv);\n  // 3. the row's m"),
+                _replace("  const int n0 = warp * 8;\n"
+                         "  const int nst = (nv + VSL - 1) / VSL;",
+                         new="  const int n0 = warp * 8;\n"
+                             "  const int nst = 0;")],
+    "p2_no_vscale": [_replace(
+        "        vss[j] = v_scale[((size_t)b * sh.T + idx[j]) * sh.KV + kv];",
+        new="        vss[j] = 1.f;")],
+    "p2_no_scores": [_replace(
+        "    cp_async16(ssc + 4 * c, sc + 4 * c, true);", new="    ;")],
+    "p2_no_fold": [_replace(
+        "  if (!last) return;\n  __threadfence();\n  // heads past G",
+        new="  return;\n  __threadfence();\n  // heads past G")],
+    "cross_no_k": [_replace(
+        "  for (int base = 0; base < n_in; base += NSTR * U) {",
+        new="  for (int base = 0; base < 0; base += NSTR * U) {")],
+    "cross_no_v": [
+        _replace("in flight while the scores are formed\n  if (full_v) {",
+                 new="in flight while the scores are formed\n  if (false) {"),
+        _replace("    for (int e = threadIdx.x; e < n_in * HD; e += THREADS) {",
+                 new="    for (int e = threadIdx.x; e < 0; e += THREADS) {")],
+    "cross_no_fold": [_replace(
+        "  if (!last) return;\n  __threadfence();\n  // the heads' (m_s",
+        new="  return;\n  __threadfence();\n  // the heads' (m_s")],
+}
 DECODE_BLOCKS = (132, 264, 396, 528, 792)
 
 
@@ -265,17 +332,77 @@ def in_turns(torch, libs, run, reset) -> dict:
     return times
 
 
-def wrapper_times(torch, cs, dk, rs, dev) -> None:
+def decode_shapes(cs) -> list:
+    """The decode kernel's timed shapes: (name, G, window, make inputs),
+    the window None on the cross route."""
+    shapes = []
+    for name, B, T, KV, G, hd, cache, win, rows in (
+            cs.DECODE_TESTS[:3] + cs.GQA_DECODE_TESTS + [cs.MIXTRAL_RING]):
+        def make(torch, gen, dev, a=(B, T, KV, G, hd, cache, win, rows)):
+            return cs.decode_inputs(torch, gen, *a, dev)
+        shapes.append((name, G, win, make))
+    name, B, T, KV, G, hd, dt = cs.CROSS_DECODE_TESTS[0]
+
+    def make_cross(torch, gen, dev):
+        tdt = getattr(torch, dt)
+        q = torch.randn((B, 1, KV * G, hd), generator=gen, device=dev)
+        k, v = (torch.randn((B, T, KV, hd), generator=gen, device=dev)
+                for _ in range(2))
+        return q.to(tdt), k.to(tdt), v.to(tdt)
+    shapes.append((name, G, None, make_cross))
+    return shapes
+
+
+def decode_times(torch, cs, dk, dev, save=None, compare=None) -> None:
+    """The decode kernel through its wrappers at ``decode_shapes``, SDPA
+    beside the bf16 ones; outputs saved to ``save`` or held to those in
+    ``compare``."""
+    import torch.nn.functional as F
+    outs, theirs = {}, torch.load(compare) if compare else None
+    for i, (name, G, win, make) in enumerate(decode_shapes(cs)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2500 + i)
+        cross = win is None
+        if cross:
+            q, k, v = make(torch, gen, dev)
+
+            def call():
+                return dk.cross_decode_attention_kernel(q, k, v)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = None
+        else:
+            q, k, v, ks, vs, pos, q_pos = make(torch, gen, dev)
+
+            def call():
+                return dk.decode_attention_kernel(q, k, v, pos, q_pos, win,
+                                                  ks, vs)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = dk.visible_slots(pos, q_pos, win)[:, None, None, :]
+        outs[name] = call().cpu()
+        ms = cs.graph_ms(torch, call)
+        line = f"decode_attention {name}: {ms:.4f} ms a launch (CUDA graph)"
+        if k.dtype == torch.bfloat16:
+            sdpa = cs.graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            line += f", sdpa(enable_gqa) {sdpa:.4f} ms (CUDA graph)"
+        if theirs is not None and name in theirs:
+            if G <= 4 and not cross:
+                line += (f"; output bitwise the saved run's: "
+                         f"{torch.equal(outs[name], theirs[name])}")
+            else:
+                diff = (outs[name].float() - theirs[name].float()).abs()
+                line += (f"; max abs difference from the saved run's "
+                         f"{float(diff.max()):.3g}")
+        print(line, flush=True)
+    if save:
+        torch.save(outs, save)
+
+
+def wrapper_times(torch, cs, dk, rs, dev, save=None, compare=None) -> None:
     """Each kernel through its wrapper at the main path's shapes."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(25)
-    for name, B, T, KV, G, hd, cache, win, rows in cs.DECODE_TESTS[:3]:
-        q, k, v, ks, vs, pos, q_pos = cs.decode_inputs(
-            torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
-        ms = cs.graph_ms(torch, lambda: dk.decode_attention_kernel(
-            q, k, v, pos, q_pos, win, ks, vs))
-        print(f"decode_attention {name}: {ms:.4f} ms a launch (CUDA graph)",
-              flush=True)
+    decode_times(torch, cs, dk, dev, save, compare)
     with torch.no_grad():
         for B, S, W, dt in cs.SCAN_TESTS[:3]:
             x, p = cs.scan_inputs(torch, gen, B, S, W, getattr(torch, dt),
@@ -371,33 +498,107 @@ def scan_bwd_split(torch, cs, build, rs, dev, gen, src_path) -> None:
 
 
 def decode_split(torch, cs, dk, dev, gen) -> None:
-    """The decode kernel at other split lengths."""
+    """The decode kernel at other split lengths: ``SPLIT_BLOCKS``, the
+    wave ``launch_plan`` fills, set to each of ``DECODE_BLOCKS``."""
     kern = dk.decode_attention_kernel
-    shipped = dk.split_len
+    shipped = dk.SPLIT_BLOCKS
     for name, B, T, KV, G, hd, cache, win, rows in cs.DECODE_TESTS[:3]:
         q, k, v, ks, vs, pos, q_pos = cs.decode_inputs(
             torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
         want = kern(q, k, v, pos, q_pos, win, ks, vs)
         cells = []
         for blocks in DECODE_BLOCKS:
-            def split_for(B_, KV_, G_, T_, nb=blocks):
-                units = B_ * KV_ * -(-G_ // dk.HEADS_PER_BLOCK)
-                chunks = -(-T_ // dk.CHUNK)
-                want_ = max(1, min(chunks, nb // max(1, units)))
-                per = min(-(-chunks // want_), dk.MAX_SPLIT_LEN // dk.CHUNK)
-                return per * dk.CHUNK
-            dk.split_len = split_for
+            dk.SPLIT_BLOCKS = blocks
             try:
+                L = dk.launch_plan(B, T, KV, G, hd, q.dtype, k.dtype)[2]
                 got = kern(q, k, v, pos, q_pos, win, ks, vs)
                 torch.cuda.synchronize()
                 ok = cs.bf16_over(torch, got, want) == 0
                 ms = cs.graph_ms(torch, lambda: kern(q, k, v, pos, q_pos,
                                                      win, ks, vs))
             finally:
-                dk.split_len = shipped
-            cells.append(f"{blocks} blocks (L={split_for(B, KV, G, T)}) "
+                dk.SPLIT_BLOCKS = shipped
+            cells.append(f"{blocks} blocks (L={L}) "
                          f"{ms:.4f} ms{'' if ok else ' OUT OF LIMIT'}")
         print(f"decode {name}: " + "; ".join(cells), flush=True)
+
+
+def decode_diag(torch, cs, build, dk, dev) -> None:
+    """The grouped and cross routes beside DECODE_VARIANTS, in turns."""
+    libs = {n: lib for n, (lib, _) in build_variants(
+        build, build.CSRC / "decode_attention.cu", DECODE_VARIANTS,
+        "decode_attention_launch", "decode_attention").items()}
+    shipped = build.load("decode_attention")
+    shapes = [cs.DECODE_TESTS[2], *cs.GQA_DECODE_TESTS[:4], cs.MIXTRAL_RING,
+              None]
+    for shape in shapes:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(36)
+        if shape is None:
+            name, B, T, KV, G, hd, dt = cs.CROSS_DECODE_TESTS[0]
+            q = torch.randn((B, 1, KV * G, hd), generator=gen, device=dev)
+            k, v = (torch.randn((B, T, KV, hd), generator=gen, device=dev)
+                    for _ in range(2))
+            q, k, v = (x.to(getattr(torch, dt)) for x in (q, k, v))
+
+            def call():
+                return dk.cross_decode_attention_kernel(q, k, v)
+            names = [n for n in libs if n == "shipped" or "cross" in n]
+        else:
+            name, B, T, KV, G, hd, cache, win, rows = shape
+            q, k, v, ks, vs, pos, q_pos = cs.decode_inputs(
+                torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
+
+            def call():
+                return dk.decode_attention_kernel(q, k, v, pos, q_pos, win,
+                                                  ks, vs)
+            names = [n for n in libs if "cross" not in n]
+        times = {n: [] for n in names}
+        try:
+            for n in names + names[::-1]:
+                build._LOADED["decode_attention"] = libs[n]
+                times[n].append(cs.graph_ms(torch, call))
+        finally:
+            build._LOADED["decode_attention"] = shipped
+        print(f"decode diagnostic builds, {name}: " + ", ".join(
+            f"{n} {min(t):.4f}-{max(t):.4f} ms" for n, t in times.items()),
+            flush=True)
+
+
+def decode_accuracy(torch, cs, dk, dev) -> None:
+    """Over-limit counts of the grouped and split routes at many inputs."""
+    kern = dk.decode_attention_kernel
+    shipped = dk.launch_plan
+
+    def split_plan(B, T, KV, G, hd, q_dtype, cache_dtype, cross=False):
+        if cross:
+            return shipped(B, T, KV, G, hd, q_dtype, cache_dtype, cross)
+        return shipped(B, T, KV, G, hd, torch.float32, torch.float32)
+    for shape, n in ((cs.DECODE_TESTS[2], 40), (cs.GQA_DECODE_TESTS[2], 12),
+                     (cs.GQA_DECODE_TESTS[3], 12), (cs.MIXTRAL_RING, 12)):
+        name, B, T, KV, G, hd, cache, win, rows = shape
+        tally = {"grouped": [0, 0, 0.0], "split": [0, 0, 0.0]}
+        for seed in range(n):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(1000 + seed)
+            q, k, v, ks, vs, pos, q_pos = cs.decode_inputs(
+                torch, gen, B, T, KV, G, hd, cache, win, rows, dev)
+            want = dk.decode_attention_plain(q, k, v, pos, q_pos, win, ks, vs)
+            for label in tally:
+                dk.launch_plan = shipped if label == "grouped" else split_plan
+                try:
+                    got = kern(q, k, v, pos, q_pos, win, ks, vs)
+                finally:
+                    dk.launch_plan = shipped
+                over = cs.bf16_over(torch, got, want)
+                err = float((got.float() - want.float()).abs().max())
+                t = tally[label]
+                t[0], t[1], t[2] = t[0] + over, t[1] + int(over > 0), \
+                    max(t[2], err)
+        print(f"decode accuracy, {name}, {n} inputs: " + "; ".join(
+            f"{label} route {t[0]} elements over the limit in {t[1]} "
+            f"inputs, max abs err {t[2]:.3g}" for label, t in tally.items()),
+            flush=True)
 
 
 def main(argv=None) -> int:
@@ -410,6 +611,12 @@ def main(argv=None) -> int:
                          "builds (default: this checkout's)")
     ap.add_argument("--bwd-only", action="store_true",
                     help="only the gradient kernel's diagnostic builds")
+    ap.add_argument("--decode-diag", action="store_true",
+                    help="only the decode kernel's diagnostic builds")
+    ap.add_argument("--save", default=None,
+                    help="keep the decode shapes' outputs in this file")
+    ap.add_argument("--compare", default=None,
+                    help="hold the decode shapes' outputs to this file's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -432,7 +639,11 @@ def main(argv=None) -> int:
     if args.bwd_only:
         scan_bwd_split(torch, cs, build, rs, dev, gen, bwd_src)
         return 0
-    wrapper_times(torch, cs, dk, rs, dev)
+    if args.decode_diag:
+        decode_diag(torch, cs, build, dk, dev)
+        decode_accuracy(torch, cs, dk, dev)
+        return 0
+    wrapper_times(torch, cs, dk, rs, dev, args.save, args.compare)
     if args.src:
         return 0
     scan_split(torch, cs, build, rs, dev, gen)
