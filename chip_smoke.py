@@ -88,10 +88,12 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      (head dims 8-256, S and T off the tiles, a window, a query offset,
      B and H above 1) (atol 2e-5 float32, 2e-2 bfloat16; in bfloat16
      also every element within two bf16 steps of the plain value plus
-     1e-4); the float32 CUDA-core route timed once at S = T = 2048; and
-     at the serving shapes (B=1, 32 heads expanded from 8 KV heads,
-     hd 128, bf16, causal, S = T in {512, 2048, 4096}, and S=4096 with a
-     1024 window), with CUDA-event timings beside the plain version,
+     1e-4); the float32 (split-TF32) route at its two timed shapes
+     (FLASH_F32_TIMED: 2048 tokens, 32 heads of 128, causal, and
+     hubert-xlarge's 4 x 1024, 16 heads of 80); and at the serving
+     shapes (B=1, 32 heads expanded from 8 KV heads, hd 128, bf16,
+     causal, S = T in {512, 2048, 4096}, and S=4096 with a 1024
+     window), with CUDA-event timings beside the plain version,
      PyTorch's ``scaled_dot_product_attention`` and the bound; then the
      bf16 limit's power: one 32-key tile dropped from the late rows at
      S=4096 (a dense masked softmax) must fail it;
@@ -188,19 +190,24 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      heads of 128, bf16, causal) and recurrentgemma-9b's local attention
      (1 x 4096, 16 heads of 256, bf16, causal, window 2048): every
      launch's route asserted by type (bf16 at every head dim on the
-     tensor cores, ``flash_attention_bwd_wgmma.cuh``, from the forward's
-     saved log-sum-exp; float32 on the CUDA cores); float32 within 1e-4
-     of each gradient's largest entry, bf16 every element within two
-     bf16 steps plus 1e-4; a second launch on the same inputs bitwise
-     equal; at every bf16 shape the forward's output with the lse store
-     bitwise the one without it and the lse within 5e-5 of the plain
-     version's; then at S = T = 4096, 32 heads, bf16, causal the kernel
-     (with the saved lse, as training passes it), the plain version and
-     SDPA's backward timed beside the bound and the design's floor (10
-     products at the bf16 peak), and the same at recurrentgemma's shape
-     beside SDPA's backward with the window band as its mask and with
+     tensor cores, ``flash_attention_bwd_wgmma.cuh``; float32 as split
+     TF32, ``tf32x3``; both from the forward's saved log-sum-exp);
+     float32 within 1e-4 of each gradient's largest entry, bf16 every
+     element within two bf16 steps plus 1e-4; a second launch on the
+     same inputs bitwise equal; at every shape the forward's output with
+     the lse store bitwise the one without it and the lse within 5e-5 of
+     the plain version's; then at S = T = 4096, 32 heads, bf16, causal
+     the kernel (with the saved lse, as training passes it), the plain
+     version and SDPA's backward timed beside the bound and the design's
+     floor (10 products at the bf16 peak), and the same at
+     recurrentgemma's shape beside SDPA's backward with the window band
+     as its mask and with
      ``is_causal`` (more work), the forward with and without its lse
-     store and SDPA's band-masked forward;
+     store and SDPA's band-masked forward; then the float32 routes at
+     FLASH_F32_TIMED: forward and gradient (saved lse) checked again and
+     timed beside the plain versions, SDPA in float32 on its
+     memory-efficient and math backends, the split-TF32 floor and the
+     float32 pipe's, and the gradient's two kernels by the profiler;
  24. qwen3-4b at full width trains on the card through
      ``repro_torch.launch.train``'s code path (36 layers, bf16, seeded
      random weights, batch 8 x seq 128, 4 steps, no checkpoints): every
@@ -416,7 +423,13 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      requested bytes within 512 B a leaf); ``xlstm_350m x decode_32k``
      dry-run on the 256-rank fake pod in a subprocess, its record
      printed. Since this slice every ``launch.train`` run (phases 24, 34,
-     37, 39, 40, 43) goes through the mesh step on the 1 x 1 mesh.
+     37, 39, 40, 43, 45) goes through the mesh step on the 1 x 1 mesh;
+ 45. hubert-xlarge at its published width (48 layers, bf16 weights from a
+     seed) trains 3 steps at 4 x 1024 through ``launch.train``'s code
+     path on its own data pipeline, whose float32 frames promote the
+     trunk to float32: 48 gradient and 96 forward flash launches a step,
+     every one on the split-TF32 float32 routes; finite losses, the
+     median step, frames/s, peak memory and a profiled step by kind.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -441,6 +454,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # instruction rates of the H100 SXM's pipes at its 1.98 GHz boost clock,
@@ -1795,8 +1809,11 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-4
 # the planted fault of phase 11: keys DROP dropped from the last ROWS_LATE
 # query rows at S = T = 4096
 DROP, ROWS_LATE = (2048, 2080), 512
-# the float32 route (CUDA cores), timed once for the record: S = T
-FLASH_F32 = 2048
+# the float32 route's timed shapes (B, S = T, H, hd, causal): qwen3-4b's
+# heads at 2048 tokens, causal (the shape its CUDA-core design was timed
+# at), and hubert-xlarge's training shape (phase 45's), whose times are
+# the float32 entries of the kernels line
+FLASH_F32_TIMED = [(1, 2048, 32, 128, True), (4, 1024, 16, 80, False)]
 
 
 def visible_pairs(S, T, causal, window, q_offset=0) -> int:
@@ -1812,17 +1829,22 @@ def visible_pairs(S, T, causal, window, q_offset=0) -> int:
 def flash_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
     """Least time for the attention on an H100 SXM: 4 FLOP per visible
     (query, key) pair and head dim (two products) at the bf16 dense
-    tensor-core peak (the float32 CUDA-core peak for float32 inputs),
-    against q, k, v read once and o written once (k and v at all H heads,
-    as the kernel takes them)."""
+    tensor-core peak, or for float32 inputs three TF32 products for each
+    (split TF32, the least float32-accurate tensor-core work) at the TF32
+    peak, against q, k, v read once and o written once (k and v at all H
+    heads, as the kernel takes them; pass B x H as H for B > 1). Float32
+    also gets ``design_ms``: the same FLOP on the float32 pipe."""
     flops = 4 * visible_pairs(S, T, causal, window) * H * hd
     nbytes = itemsize * H * hd * (2 * S + 2 * T)
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
-    t_ops = flops / peak * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS if itemsize == 2
+             else 3 * flops / PEAK_TF32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+    out = {"bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    if itemsize == 4:
+        out["design_ms"] = flops / PEAK_FP32_FLOPS * 1e3
+    return out
 
 
 def serving_qkv(torch, gen, S, dev, H=QWEN_H, KV=QWEN_KV, hd=QWEN_HD):
@@ -1913,7 +1935,7 @@ def phase_flash(torch, fa, dev) -> dict:
     import torch.nn.functional as F
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    worst, timed_at = 0.0, {}
+    worst, f32_worst, timed_at = 0.0, 0.0, {}
     for B, S, T, H, hd, causal, win, q_off, dt in FLASH_TESTS:
         tdt = getattr(torch, dt)
         q, k, v = (torch.randn((B, L, H, hd), generator=gen, device=dev
@@ -1923,19 +1945,18 @@ def phase_flash(torch, fa, dev) -> dict:
         err = flash_check(torch, fa, name, q, k, v, causal, win, dt,
                           q_off)[0]
         worst = max(worst, err)
+        if dt == "float32":
+            f32_worst = max(f32_worst, err)
         log(f"flash_attention {name}: max_abs_err {err:.3g}")
-    # the float32 route at one serving-like shape, for the record
-    q, k, v = (torch.randn((1, FLASH_F32, QWEN_H, QWEN_HD), generator=gen,
-                           device=dev) for _ in range(3))
-    name = f"B=1 S=T={FLASH_F32} H={QWEN_H} hd={QWEN_HD} causal float32"
-    err = flash_check(torch, fa, name, q, k, v, True, 0, "float32")[0]
-    worst = max(worst, err)
-    ms = time_ms(torch, lambda: flash_mha(q, k, v), reps=5)
-    bound = flash_bound_ms(FLASH_F32, FLASH_F32, QWEN_H, QWEN_HD, True, 0, 4)
-    log(f"flash_attention {name} (CUDA-core route): max_abs_err {err:.3g}, "
-        f"kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-        f"({bound['bound_by']}, float32 peak); kernel at "
-        f"{bound['flops'] / ms / 1e9:.2f} TFLOP/s")
+    # the float32 route at the shape it is timed at (phase 23) and at
+    # hubert-xlarge's (the pipeline-fed training of phase 45)
+    for B, S, H, hd, causal in FLASH_F32_TIMED:
+        q, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+                   for _ in range(3))
+        name = (f"B={B} S=T={S} H={H} hd={hd} causal={causal} float32")
+        err = flash_check(torch, fa, name, q, k, v, causal, 0, "float32")[0]
+        worst, f32_worst = max(worst, err), max(f32_worst, err)
+        log(f"flash_attention {name} (tf32x3 route): max_abs_err {err:.3g}")
     for S, win in FLASH_SERVE:
         q, k, v = serving_qkv(torch, gen, S, dev)
         name = (f"B=1 S=T={S} H={QWEN_H} (KV {QWEN_KV}) hd={QWEN_HD} causal "
@@ -1974,7 +1995,7 @@ def phase_flash(torch, fa, dev) -> dict:
                 f"{DROP[0]}..{DROP[1] - 1} dropped: max_abs_err "
                 f"{pf['fault_err']:.3g}, {pf['fault_over']} over (atol "
                 f"{FLASH_ATOL['bfloat16']:g} alone would {flat} it)")
-    return {"max_abs_err": worst, "timed": timed_at}
+    return {"max_abs_err": worst, "f32_err": f32_worst, "timed": timed_at}
 
 
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 4352
@@ -2240,25 +2261,30 @@ def flash_bwd_bound_ms(S, T, H, hd, causal, window, itemsize) -> dict:
     """Least time for the attention gradient on an H100 SXM: 5 products
     of 2 FLOP per visible (query, key) pair and head dim (dO.v, q.k
     recomputed, P^T dO, dS^T q, dS k) at the bf16 dense tensor-core peak
-    (float32's CUDA-core peak for float32 inputs), against q, k, v, o and
-    dO read once and dq, dk, dv written once. ``design_ms`` is the floor
-    of the route the kernel takes: in bfloat16 (every head dim) the 10
+    (for float32 inputs three TF32 products for each, at the TF32 peak),
+    against q, k, v, o and dO read once and dq, dk, dv written once (pass
+    B x H as H for B > 1). ``design_ms``: in bfloat16 the floor of the 10
     products the tensor-core design issues (S^T, dP^T, P^T dO and dS^T q
     each split in two for dk and dv; S, dP, dS k split in two for dq) at
-    the bf16 peak, in float32 the 8 float32 products of the CUDA-core
-    design at the float32 peak."""
+    the bf16 peak; in float32 the 5 products on the float32 pipe, and
+    ``issued_ms`` the 7 products the split-TF32 design issues (q.k and
+    dO.v again for dq) at the TF32 peak."""
     pairs = visible_pairs(S, T, causal, window)
     flops = 10 * pairs * H * hd
     nbytes = itemsize * H * hd * (4 * S + 4 * T)
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
-    t_ops = flops / peak * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS if itemsize == 2
+             else 3 * flops / PEAK_TF32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    design = (20 * pairs * H * hd / PEAK_BF16_FLOPS if itemsize == 2
-              else 16 * pairs * H * hd / PEAK_FP32_FLOPS)
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes, "design_ms": design * 1e3,
-            "design_flops": (20 if itemsize == 2 else 16) * pairs * H * hd}
+    out = {"bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    if itemsize == 2:
+        out["design_flops"] = 20 * pairs * H * hd
+        out["design_ms"] = out["design_flops"] / PEAK_BF16_FLOPS * 1e3
+    else:
+        out["design_ms"] = flops / PEAK_FP32_FLOPS * 1e3
+        out["issued_ms"] = 3 * 14 * pairs * H * hd / PEAK_TF32_FLOPS * 1e3
+    return out
 
 
 def flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev):
@@ -2269,16 +2295,17 @@ def flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev):
 
 
 def bwd_route_of(dt, hd) -> str:
-    """The gradient kernel's route a shape must take: the tensor cores
-    for bfloat16 at every head dim up to 256, the CUDA cores for
-    float32."""
-    return "wgmma" if dt == "bfloat16" and hd <= 256 else "cuda_cores"
+    """The gradient kernel's route a shape must take, at every head dim
+    up to 256: bf16 tensor-core products for bfloat16, split TF32
+    (``tf32x3``) for float32."""
+    del hd
+    return "wgmma" if dt == "bfloat16" else "tf32x3"
 
 
 def lse_check(torch, fa, name, q, k, v, causal, win, q_off) -> float:
-    """The bf16 forward with its log-sum-exp store: the output bit for bit
-    the one without it, the lse within LSE_ATOL of the plain version's
-    (base 2). Returns the lse's max abs error."""
+    """The forward with its log-sum-exp store (either route): the output
+    bit for bit the one without it, the lse within LSE_ATOL of the plain
+    version's (base 2). Returns the lse's max abs error."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kw = dict(causal=causal, window=win, q_offset=q_off)
     plain = fa.flash_attention(qt, kt, vt, **kw)
@@ -2345,7 +2372,7 @@ def phase_flash_bwd(torch, fa, dev) -> dict:
     from repro_torch.kernels.ops import flash_mha
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
-    worst, lse_worst = 0.0, 0.0
+    worst, f32_worst, lse_worst = 0.0, 0.0, 0.0
     for B, S, T, H, hd, causal, win, q_off, dt in FLASH_BWD_TESTS:
         q, k, v, do = flash_bwd_inputs(torch, gen, B, S, T, H, hd, dt, dev)
         name = (f"B={B} S={S} T={T} H={H} hd={hd} causal={causal} win={win}"
@@ -2353,13 +2380,13 @@ def phase_flash_bwd(torch, fa, dev) -> dict:
         err = flash_bwd_check(torch, fa, name, q, k, v, do, causal, win, dt,
                               q_off)
         worst = max(worst, err)
+        if dt == "float32":
+            f32_worst = max(f32_worst, err)
         if (B, S, T, H, hd, causal, win, q_off, dt) == FLASH_BWD_RG:
             rg_err = err
-        extra = ""
-        if dt == "bfloat16":
-            e = lse_check(torch, fa, name, q, k, v, causal, win, q_off)
-            lse_worst = max(lse_worst, e)
-            extra = f"; forward with lse bitwise, lse max abs err {e:.3g}"
+        e = lse_check(torch, fa, name, q, k, v, causal, win, q_off)
+        lse_worst = max(lse_worst, e)
+        extra = f"; forward with lse bitwise, lse max abs err {e:.3g}"
         log(f"flash_attention_bwd {name}: route {bwd_route_of(dt, hd)}, "
             f"max_abs_err {err:.3g}, two launches bitwise equal{extra}")
     S = FLASH_BWD_TIMED
@@ -2400,9 +2427,96 @@ def phase_flash_bwd(torch, fa, dev) -> dict:
         f"bfloat16: {fwd_ms:.4f} ms without the lse store, {fwd_lse_ms:.4f}"
         f" ms with it")
     rg = flash_bwd_rg_times(torch, fa, gen, dev)
+    f32 = flash_f32_times(torch, fa, gen, dev)
     return {"max_abs_err": worst, "lse_max_abs_err": lse_worst, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, **bound,
-            "rg": {**rg, "max_abs_err": rg_err}}
+            "rg": {**rg, "max_abs_err": rg_err}, "f32": f32,
+            "f32_err": f32_worst}
+
+
+def sdpa_f32_ms(torch, qt, kt, vt, dot, causal, backend) -> tuple:
+    """SDPA's forward and its backward through autograd on float32
+    (B, H, L, hd) views, on one backend (``torch.nn.attention.
+    SDPBackend``), timed by events: (forward ms, backward ms)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+    with sdpa_kernel(backend):
+        fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps=10)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        bwd = time_ms(torch, lambda: torch.autograd.grad(
+            out, (ql, kl, vl), dot, retain_graph=True), reps=5)
+    return fwd, bwd
+
+
+def flash_f32_times(torch, fa, gen, dev) -> dict:
+    """Phase 23's float32 part: the forward and the gradient kernels
+    (split TF32, the gradient with the forward's saved lse, as training
+    passes it) at each of FLASH_F32_TIMED, each checked once more
+    against its plain version (the gradient within FLASH_BWD_REL of each
+    gradient's largest entry, two launches bitwise), timed beside the
+    plain versions, SDPA in float32 on its memory-efficient backend
+    (CUTLASS's split-TF32 kernels; the math backend beside it) and the
+    bounds (the split-TF32 floor; the float32 pipe's and the issued
+    products' floors beside it), and the gradient's two kernels' device
+    times under the profiler. Returns each shape's numbers by (B, S, H,
+    hd, causal)."""
+    from torch.nn.attention import SDPBackend
+    out = {}
+    for B, S, H, hd, causal in FLASH_F32_TIMED:
+        q, k, v, do = flash_bwd_inputs(torch, gen, B, S, S, H, hd,
+                                       "float32", dev)
+        name = f"B={B} S=T={S} H={H} hd={hd} causal={causal} float32"
+        berr = flash_bwd_check(torch, fa, name, q, k, v, do, causal, 0,
+                               "float32", 0)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        o, lse = fa.flash_attention(qt, kt, vt, causal=causal,
+                                    return_lse=True)
+        routed = fa.flash_attention_bwd.routes["tf32x3"]
+        ms = time_ms(torch, lambda: fa.flash_attention(qt, kt, vt,
+                                                       causal=causal),
+                     reps=20)
+        bms = time_ms(torch, lambda: fa.flash_attention_bwd(
+            qt, kt, vt, o, dot, causal=causal, lse=lse), reps=10)
+        if fa.flash_attention_bwd.routes["tf32x3"] == routed:
+            raise RuntimeError(f"flash_attention_bwd {name}: not on the "
+                               "tf32x3 route")
+        calls = max(3, math.ceil(50 / bms))  # a 50 ms window
+        split = kernel_split(torch, lambda: fa.flash_attention_bwd(
+            qt, kt, vt, o, dot, causal=causal, lse=lse), calls,
+            TF32_BWD_KERNELS)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+            qt, kt, vt, causal=causal), reps=1, windows=3)
+        bplain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            qt, kt, vt, o, dot, causal=causal), reps=1, windows=3)
+        eff = sdpa_f32_ms(torch, qt, kt, vt, dot, causal,
+                          SDPBackend.EFFICIENT_ATTENTION)
+        math_ = sdpa_f32_ms(torch, qt, kt, vt, dot, causal,
+                            SDPBackend.MATH)
+        fb = flash_bound_ms(S, S, B * H, hd, causal, 0, 4)
+        bb = flash_bwd_bound_ms(S, S, B * H, hd, causal, 0, 4)
+        log(f"flash_attention {name}, tf32x3 route: forward {ms:.4f} ms "
+            f"(plain {plain_ms:.3f} ms, sdpa memory-efficient {eff[0]:.4f} "
+            f"ms, sdpa math {math_[0]:.4f} ms), bound {fb['bound_ms']:.4f} "
+            f"ms ({fb['bound_by']}: {fb['flops'] / 1e9:.2f} GFLOP as split "
+            f"TF32; {fb['design_ms']:.4f} ms on the float32 pipe), "
+            f"{ms / fb['bound_ms']:.2f}x the bound; gradient (saved lse) "
+            f"{bms:.4f} ms (plain {bplain_ms:.3f} ms, sdpa memory-efficient "
+            f"backward {eff[1]:.4f} ms, math {math_[1]:.4f} ms), bound "
+            f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}: 5 products, "
+            f"{bb['flops'] / 1e9:.2f} GFLOP; {bb['design_ms']:.4f} ms on "
+            f"the float32 pipe; the 7 issued products need >= "
+            f"{bb['issued_ms']:.4f} ms), {bms / bb['bound_ms']:.2f}x the "
+            f"bound; gradient by kernel (profiler, ms a call over {calls} "
+            f"calls): {split_text(split, calls)}; gradient max_abs_err "
+            f"{berr:.3g}")
+        out[(B, S, H, hd, causal)] = {
+            "fwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": eff[0],
+                    **fb},
+            "bwd": {"ms": bms, "plain_ms": bplain_ms, "library_ms": eff[1],
+                    "err": berr, **bb}}
+    return out
 
 
 def band_mask(torch, S, window, dev):
@@ -2483,15 +2597,18 @@ def flash_bwd_rg_times(torch, fa, gen, dev) -> dict:
 
 
 # phase 24's device time split by kernel name (as the profiler demangles
-# it): the attention gradient kernel (csrc/flash_attention_bwd.cu's three
-# CUDA-core kernels, or the tensor-core route's rows, dkdv and dq kernels
-# in namespace wgmma_fa_bwd), the forward attention kernel (both routes), cuBLAS products
-# (nvjet and the older gemm families), and PyTorch's elementwise, copy and
-# reduction kernels (AdamW, the clip, norms, RoPE, casts)
+# it): the attention gradient kernel (csrc/flash_attention_bwd.cu: the
+# tensor-core route's rows, dkdv and dq kernels in namespace wgmma_fa_bwd,
+# the split-TF32 route's dq and dkdv kernels), the forward attention
+# kernel (wgmma_fa's, tf32_fa's fwd_kernel), cuBLAS products (nvjet and
+# the older gemm families), and PyTorch's elementwise, copy and reduction
+# kernels (AdamW, the clip, norms, RoPE, casts). The float32 routes'
+# earlier CUDA-core kernels (stats_kernel, flash_kernel) are named too,
+# so tools/bench_flash_bwd.py sorts an older checkout's alike.
 TRAIN_KERNEL_GROUPS = [
-    ("attention gradient", ("stats_kernel", "dkdv_kernel", "dq_kernel",
-                            "wgmma_fa_bwd")),
-    ("attention forward", ("flash_kernel", "wgmma_fa")),
+    ("attention gradient", ("wgmma_fa_bwd", "dkdv_kernel", "dq_kernel",
+                            "stats_kernel")),
+    ("attention forward", ("wgmma_fa", "fwd_kernel", "flash_kernel")),
     ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
     ("elementwise and reductions", ("elementwise", "reduce", "copy"))]
 TRAIN_ARGS = ["--arch", "qwen3_4b", "--steps", "4", "--batch", "8", "--seq",
@@ -2560,36 +2677,39 @@ def profile_by_kind(torch, fn, kinds, label) -> dict:
 
 
 def train_checked(torch, fa, launch_train, dev, argv, n_steps, label,
-                  cfg=None):
+                  cfg=None, route="wgmma"):
     """``train_run`` (``cfg``: a depth cut in place of the arch's config)
     with the counters reset first, then the checks every full-width run
     must pass: finite losses and grad norms, 1 gradient launch a layer a
-    step, all on the tensor-core route, 2 forward launches a layer a step
-    (remat). Returns (state, step_fn, pipe, summary)."""
+    step and 2 forward launches a layer a step (remat), all on ``route``
+    (the bf16 tensor-core route, or ``tf32x3`` for a float32 trunk).
+    Returns (state, step_fn, pipe, summary)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     fa.flash_attention.launches = 0
+    fa.flash_attention.routes = {"wgmma": 0, "tf32x3": 0}
     fa.flash_attention_bwd.launches = 0
-    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "tf32x3": 0}
     t0 = time.perf_counter()
     state, step_fn, pipe, hist = train_run(torch, launch_train, dev, argv,
                                            n_steps, cfg=cfg)
     wall = time.perf_counter() - t0
     bwd, fwd = fa.flash_attention_bwd.launches, fa.flash_attention.launches
-    wgmma = fa.flash_attention_bwd.routes["wgmma"]
+    routed = (fa.flash_attention_bwd.routes[route],
+              fa.flash_attention.routes[route])
     n_layers = len(state.params.blocks)
     losses = [m["loss"] for m in hist]
     gnorms = [m["grad_norm"] for m in hist]
     times = [m["step_time_s"] for m in hist]
     if len(hist) != n_steps or not all(
             math.isfinite(x) for x in losses + gnorms) \
-            or bwd != n_steps * n_layers or wgmma != bwd \
-            or fwd != 2 * n_steps * n_layers:
+            or bwd != n_steps * n_layers or fwd != 2 * n_steps * n_layers \
+            or routed != (bwd, fwd):
         raise RuntimeError(f"{label}: {len(hist)} steps, losses {losses}, "
-                           f"grad norms {gnorms}, backward launches {bwd} "
-                           f"({wgmma} on the wgmma route), forward "
-                           f"launches {fwd} (want {n_steps * n_layers}, all "
-                           f"wgmma, and {2 * n_steps * n_layers})")
+                           f"grad norms {gnorms}, backward launches {bwd}, "
+                           f"forward launches {fwd}, on the {route} route "
+                           f"{routed} (want {n_steps * n_layers} and "
+                           f"{2 * n_steps * n_layers}, all {route})")
     med = statistics.median(times[1:])
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"{label}: losses {[f'{x:.4f}' for x in losses]}, grad norms "
@@ -4043,7 +4163,7 @@ def phase_hubert(torch, fa, dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches = 0
-    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "tf32x3": 0}
     times, losses = [], []
     for _ in range(HUBERT_STEPS):
         t0 = time.perf_counter()
@@ -4118,12 +4238,12 @@ def phase_hubert(torch, fa, dev) -> dict:
     step_fn = make_train_step(cut16, total_steps=1, warmup=1)
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches = 0
-    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "tf32x3": 0}
     state, m = step_fn(state, pb)
     g_loss = float(m["loss"])
     routes = dict(fa.flash_attention_bwd.routes)
     if pb["frames"].dtype.name != "float32" or \
-            routes != {"wgmma": 0, "cuda_cores": 2} or \
+            routes != {"wgmma": 0, "tf32x3": 2} or \
             fa.flash_attention.launches != 4 or \
             abs(g_loss - c_loss) > 1e-4 * abs(c_loss):
         raise RuntimeError(f"hubert_xlarge bf16 cut on float32 frames: loss "
@@ -4138,6 +4258,44 @@ def phase_hubert(torch, fa, dev) -> dict:
     del card, cpu, state, step_fn
     torch.cuda.empty_cache()
     return {"launches": bwd, "fwd_launches": fwd + fwd_launches}
+
+
+def phase_hubert_pipeline(torch, fa, dev) -> dict:
+    """Phase 45: hubert-xlarge at its published width (48 layers, bf16
+    weights from a seed) trained HUBERT_STEPS steps at HUBERT_B x HUBERT_S
+    through ``launch.train``'s code path, fed by its own data pipeline
+    (``SyntheticTokenPipeline``), whose float32 frames promote the whole
+    trunk to float32: every flash call on the split-TF32 routes, 48
+    gradient launches a step and 96 forward (remat), none on another
+    route; finite losses and grad norms; the median step, frames/s, peak
+    memory and one more step under the profiler, device ms by kind."""
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", "hubert_xlarge", "--steps", str(HUBERT_STEPS),
+            "--batch", str(HUBERT_B), "--seq", str(HUBERT_S), "--device",
+            "cuda"]
+    t0 = time.perf_counter()
+    label = (f"train hubert_xlarge full width, pipeline float32 frames, "
+             f"batch {HUBERT_B} x {HUBERT_S}")
+    state, step_fn, pipe, run = train_checked(
+        torch, fa, launch_train, dev, argv, HUBERT_STEPS, label,
+        route="tf32x3")
+    frames = pipe.next_batch()["frames"]
+    if frames.dtype.name != "float32":
+        raise RuntimeError(f"{label}: the pipeline's frames are "
+                           f"{frames.dtype}, not float32")
+    med = run["median_step_s"]
+    prof = profile_step(torch, step_fn, state, pipe, label)
+    n, bwd, fwd = run["n_layers"], run["launches"], run["fwd"]
+    log(f"{label}: {run['n_params'] / 1e9:.3f} B parameters, median step "
+        f"(steps 2-{HUBERT_STEPS}) {med:.4f} s, "
+        f"{HUBERT_B * HUBERT_S / med:.1f} frames/s; flash_attention_bwd "
+        f"launches {bwd} ({bwd // HUBERT_STEPS} a step, all tf32x3), "
+        f"forward {fwd} ({fwd // HUBERT_STEPS} a step, all tf32x3: remat, "
+        f"2 a layer of {n}); peak memory {run['peak'] / 2**30:.2f} GiB; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    del state, step_fn, pipe
+    torch.cuda.empty_cache()
+    return {**run, "groups": prof["groups"], "idle": prof["idle"]}
 
 
 # phase 33: the RG-LRU scan's backward kernel (B, S, W, type): a 4096-token
@@ -4403,7 +4561,7 @@ def phase_rg_train(torch, fa, dev) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         for c in counters:
             c.launches = 0
-        fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+        fa.flash_attention_bwd.routes = {"wgmma": 0, "tf32x3": 0}
         argv = ["--arch", "recurrentgemma_9b", "--steps", str(n), "--batch",
                 str(B), "--seq", str(S), "--device", "cuda"]
         t0 = time.perf_counter()
@@ -4418,7 +4576,7 @@ def phase_rg_train(torch, fa, dev) -> dict:
         if len(hist) != n or not all(math.isfinite(x)
                                      for x in losses + gnorms) \
                 or got != want or routes != {"wgmma": n * n_attn,
-                                             "cuda_cores": 0}:
+                                             "tf32x3": 0}:
             raise RuntimeError(f"{label}: losses {losses}, grad norms "
                                f"{gnorms}, launches (flash, flash gradient, "
                                f"scan, scan gradient) {got} (want {want}), "
@@ -4449,13 +4607,13 @@ def phase_rg_train(torch, fa, dev) -> dict:
     card = init_params(gen, cut3).train()
     toks = torch.randint(0, cut3.vocab_size, (1, RG_CHECK_S), generator=gen,
                          device=dev)
-    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "tf32x3": 0}
     launched, line = card_vs_cpu_grads(
         torch, card, cut3, {"tokens": toks, "labels": toks}, dev,
         counters, f"recurrentgemma_9b widths, 3 layers [R, R, A], float32, "
         f"1 x {RG_CHECK_S} tokens")
     routes = dict(fa.flash_attention_bwd.routes)
-    if launched != [2, 1, 4, 2] or routes != {"wgmma": 0, "cuda_cores": 1}:
+    if launched != [2, 1, 4, 2] or routes != {"wgmma": 0, "tf32x3": 1}:
         raise RuntimeError(f"recurrentgemma_9b 3-layer cut: card launches "
                            f"(flash, flash gradient, scan, scan gradient) "
                            f"{launched}, want [2, 1, 4, 2]; gradient routes "
@@ -4735,7 +4893,7 @@ def phase_moe_train(torch, fa, dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches = 0
-    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "tf32x3": 0}
     argv = ["--arch", "phi3_5_moe", "--steps", str(n), "--batch", "8",
             "--seq", "128", "--device", "cuda"]
     state, step_fn, pipe, hist = train_run(torch, launch_train, dev, argv,
@@ -4858,13 +5016,19 @@ def xbwd_check(torch, name, call, plain, kinds, counter, n_kernels,
             "plain_ms": plain_ms}
 
 
-def mlstm_bwd_split(torch, call, calls: int) -> dict:
-    """The mLSTM gradient's device time a call by kernel: ``calls`` calls
-    of ``call()`` (one gradient call) under the profiler after a warm-up
-    (``profiled_kernels``), kernel name (``mlstm_bwd_...`` with its
-    template arguments; each launches once a call) -> (ms a call, events
-    recorded). The time is the mean over the events recorded, which the
-    profiler can leave short of ``calls``; the count says so."""
+# the kernels ``kernel_split`` reports: the mLSTM gradient's, the float32
+# attention gradient's (with their template arguments)
+MLSTM_BWD_KERNELS = r"mlstm_bwd_\w+(<[^>]*>)?"
+TF32_BWD_KERNELS = r"tf32_fa_bwd::\w+(<[^>]*>)?"
+
+
+def kernel_split(torch, call, calls: int, pattern: str) -> dict:
+    """A gradient's device time a call by kernel: ``calls`` calls of
+    ``call()`` (one gradient call) under the profiler after a warm-up
+    (``profiled_kernels``), the kernel names ``pattern`` finds (each
+    launches once a call) -> (ms a call, events recorded). The time is
+    the mean over the events recorded, which the profiler can leave short
+    of ``calls``; the count says so."""
     import re
     call()
     torch.cuda.synchronize()
@@ -4872,7 +5036,7 @@ def mlstm_bwd_split(torch, call, calls: int) -> dict:
         torch, lambda: [call() for _ in range(calls)])
     total, events = {}, {}
     for e in kernels:
-        found = re.search(r"mlstm_bwd_\w+(<[^>]*>)?", e.name)
+        found = re.search(pattern, e.name)
         if found:
             name = found.group(0)
             total[name] = total.get(name, 0.0) + (
@@ -4882,7 +5046,7 @@ def mlstm_bwd_split(torch, call, calls: int) -> dict:
 
 
 def split_text(split: dict, calls: int) -> str:
-    """``mlstm_bwd_split``'s result as text: the kernels' sum and each
+    """``kernel_split``'s result as text: the kernels' sum and each
     kernel's ms a call, with its event count where it is not ``calls``."""
     return f"{sum(t for t, _ in split.values()):.4f} in all: " + ", ".join(
         f"{n} {t:.4f}" + ("" if k == calls else f" ({k} of {calls} events)")
@@ -4966,7 +5130,7 @@ def phase_xlstm_bwd(torch, dev) -> dict:
     launch to the one without saving); device time a launch from a CUDA
     graph beside the bound and the plain version (timed once, in the
     check), the mLSTM's by kernel at its two training shapes
-    (``mlstm_bwd_split``); the sLSTM's chain floor, one warp's chains
+    (``kernel_split``); the sLSTM's chain floor, one warp's chains
     alone at the same S, and its forward with and without saving; then
     each autograd route's float64 central difference."""
     from repro_torch.kernels import build
@@ -5026,7 +5190,8 @@ def phase_xlstm_bwd(torch, dev) -> dict:
             f"instructions at the lane rate, {nbytes / 1e6:.2f} MB)")
         if (B, S, H, hd) in MLSTM_BWD_TESTS[:2] and not ties:
             calls = max(3, math.ceil(50 / ms_))  # a 50 ms window
-            split = mlstm_bwd_split(torch, res["call"], calls)
+            split = kernel_split(torch, res["call"], calls,
+                                 MLSTM_BWD_KERNELS)
             out["mlstm"][(B, S, H, hd)]["split"] = split
             log(f"{label} by kernel (profiler, ms a call over {calls} "
                 f"calls): {split_text(split, calls)}")
@@ -5323,7 +5488,7 @@ def phase_vision_train(torch, fa, dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches = 0
-    fa.flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+    fa.flash_attention_bwd.routes = {"wgmma": 0, "tf32x3": 0}
     argv = ["--arch", "llama32_vision_11b", "--steps", str(n), "--batch",
             str(B), "--seq", str(S), "--device", "cuda"]
     args = launch_train.parse_args(argv)
@@ -5922,6 +6087,7 @@ def main(argv=None) -> int:
     dense_l = phase_dense_logits(torch, fa, dev)                     # 42
     dense_t = phase_dense_train(torch, fa, dev)                      # 43
     mesh_t = phase_mesh_train(torch, fa, dev)                        # 44
+    hub_p = phase_hubert_pipeline(torch, fa, dev)                    # 45
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -5989,6 +6155,22 @@ def main(argv=None) -> int:
                  "bound_ms": main_b["bound_ms"],
                  "bound_by": main_b["bound_by"],
                  "library_ms": main_b["library_ms"]}
+    # the float32 routes (split TF32) at hubert-xlarge's training shape,
+    # launched on phase 45's pipeline-fed training
+    f32 = main_b["f32"][FLASH_F32_TIMED[-1]]
+    flash_f32_entry = {**flash_entry, "name": "flash_attention_f32",
+                       "launches": hub_p["fwd"],
+                       "max_abs_err": main_f["f32_err"],
+                       **{key: f32["fwd"][key] for key in (
+                           "ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")}}
+    bwd_f32_entry = {**bwd_entry, "name": "flash_attention_bwd_f32",
+                     "launches": hub_p["launches"],
+                     "max_abs_err": max([main_b["f32_err"]] + [
+                         t["bwd"]["err"] for t in main_b["f32"].values()]),
+                     **{key: f32["bwd"][key] for key in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")}}
     rgb = main_b["rg"]
     bwd256_entry = {"name": "flash_attention_bwd_hd256", "route": "cuda",
                     "source": "src/repro_torch/csrc/"
@@ -6113,7 +6295,8 @@ def main(argv=None) -> int:
                        "bound_ms": slstm_g["bound_ms"],
                        "bound_by": slstm_g["bound_by"], "library_ms": None}
     log(json.dumps({"kernels": [fused_entry, matmul_entry, flash_entry,
-                                bwd_entry, bwd256_entry, decode_entry,
+                                flash_f32_entry, bwd_entry, bwd_f32_entry,
+                                bwd256_entry, decode_entry,
                                 grouped_entry, cross_entry, scan_entry,
                                 scan_bwd_entry,
                                 mlstm_entry, mlstm_bwd_entry, slstm_entry,

@@ -13,9 +13,9 @@
 // Two routes, chosen by the input type in `flash_attention_launch`:
 //   * bfloat16 goes to the tensor-core kernel of flash_attention_wgmma.cuh
 //     (TMA, mbarrier ring, warp-specialized warpgroups, wgmma);
-//   * float32 stays on the CUDA-core kernel below, which is held to atol
-//     2e-5 against the plain version, a bound no bf16 tensor-core product
-//     can meet.
+//   * float32 goes to the split-TF32 tensor-core kernel below (tf32x3.cuh:
+//     each product as three TF32 mma.sync), held to atol 2e-5 against the
+//     plain version.
 //
 // Masked scores are the finite NEG_INF = -1e30 of the Pallas kernel, not
 // -inf: a row whose first tiles are wholly masked (a window) accumulates
@@ -24,218 +24,296 @@
 //
 // The float32 kernel. The TPU grid (BH, S/bq, T/bk) walked its key axis in
 // order and carried m, l, acc in VMEM scratch across grid steps; here that
-// axis is a loop inside the block. One block per (batch x head, 64 query
-// rows), 8 warps, 8 query rows per warp. Per key tile of 32 keys the block
-// stages K transposed (padded, so lanes read distinct banks) and V in shared
-// memory; q (scaled before the dot product, as the Pallas kernel does,
-// zero-padded to the template head dim) stays in shared memory for the
-// whole loop. For the scores each lane owns one key and dots it with the
-// warp's 8 rows (q read as float4 broadcasts); the row max and sum are warp
-// shuffles; for P.V each lane owns HD/32 output dims of each row and takes
-// p_j by shuffle. m, l and acc live in registers. Tiles wholly above the
-// block's causal diagonal, and wholly below its window, are not visited
-// (the Pallas kernel skips the former). Blocks are issued longest rows
-// first. Float32 CUDA-core FMAs, no tensor cores, no atomics.
+// axis is a loop inside the block. The head dim is zero-padded to the
+// first of 16, 32, 64, 80, 96, 128, 256 that holds it (hubert's 80 runs 80
+// wide), one instantiation each, so every loop over it is unrolled. One
+// block per (batch x head, BQ query rows): 8 warps (4 at 256), each owning
+// MT m16 tiles of rows, MT = 2 where the shared memory holds it (padded
+// head dims up to 80), else 1. q, scaled before the dot product as the
+// Pallas kernel scales it, is split once into TF32 hi and lo planes in
+// shared memory. K and V tiles of BK keys (32; 16 at 256) come by cp.async
+// into a two-stage ring, so the next tile loads during this one's
+// products. Per tile each warp computes S = q K^T (A fragments from the q
+// planes, B fragments from the K tile, split in registers; both read as
+// 8-byte pairs of dims), masks it where the tile crosses T, the causal
+// diagonal or the window's edge, runs the online softmax in registers
+// (expf; the row max and sum are quad shuffles), and adds P V (P's
+// accumulator fragments are the A fragments, V's B fragments split in
+// registers). Tiles wholly above the block's causal diagonal, and wholly
+// below its window, are not visited (the Pallas kernel skips the former);
+// blocks are issued longest rows first. No atomics.
+//
+// The log-sum-exp. Given a non-null `lse` the kernel also stores each row's
+// (m + log(max(l, 1e-30))) * log2 e, the base-2 log-sum-exp of the scaled
+// scores that flash_attention_plain returns and the bf16 route stores, in
+// rows of wgmma_fa::lse_rows(S) floats per (batch, head), 0 from S on; the
+// float32 gradient (flash_attention_bwd.cu) reads it. Only the store is
+// added: o is the same with and without it.
 //
 // Bound on an H100 SXM (data-sheet peaks, 700 W). At S = T = 2048, H = 32,
-// hd = 128, causal, float32: 4 * S * (S + 1) / 2 * H * hd = 34 GFLOP
-// (0.51 ms on the 67 TFLOP/s float32 pipe; a float32 input has no faster
-// tensor-core route at this accuracy) against 134 MB of q, k, v, o
-// (0.040 ms at 3.35 TB/s): the operations bound it.
+// hd = 128, causal, float32: 4 * S * (S + 1) / 2 * H * hd = 34.4 GFLOP.
+// Split TF32 issues three TF32 products for each: 103 GFLOP at 495 TFLOP/s
+// = 0.208 ms (0.513 ms at the float32 pipe's 67 TFLOP/s), against 134 MB
+// of q, k, v, o (0.040 ms at 3.35 TB/s): the operations bound it. At
+// hubert-xlarge's (4, 1024, 1024, 16 x 80), not causal: 21.5 GFLOP, 0.130
+// ms as split TF32. mma.sync reaches only part of the tensor cores' rate
+// (wgmma alone reaches all of it), and every warp splits each B fragment
+// it loads (three operations a value), so the issue slots, not the tensor
+// pipe alone, bound this design. Staging K and V split through registers
+// instead (each value split once a block) was 9% faster at hubert's shape
+// and no faster at hd 128; the gradient's kernels spilled that way.
 #include <cuda_runtime.h>
 
 #include "flash_attention_wgmma.cuh"
+#include "tf32x3.cuh"
 
-namespace {
+namespace tf32_fa {
 
-constexpr int WARPS = 8;
-constexpr int ROWS = 8;             // query rows per warp
-constexpr int BQ = WARPS * ROWS;    // query rows per block
-constexpr int BK = 32;              // keys per tile: one per lane
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1.0e30f;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace tf32x3;
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+constexpr int STAGES = 2;  // the K/V ring
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
+// bytes of shared memory of a block of `warps` warps with `mt` m16 tiles
+// each at padded head dim hdp, key tiles of bk: the split q planes (rows of
+// hdp + 8) and the K/V ring (K rows of hdp + 8, V rows of hdp + 4)
+constexpr size_t fwd_smem(int hdp, int warps, int bk, int mt) {
+  return 4ull * (2 * (hdp + 8) * warps * 16 * mt +
+                 STAGES * bk * (2 * hdp + 12));
 }
 
-// element strides of a (batch, head, seq, dim) view; dim is contiguous
-struct Strides {
-  long long b, h, s;
+// the block at padded head dim HDP (16, 32, 64, 80, 96, 128 or 256)
+template <int HDP>
+struct Layout {
+  static constexpr int WARPS = HDP > 128 ? 4 : 8;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int BK = HDP > 128 ? 16 : 32;  // keys a tile
+  static constexpr int NT = BK / 8;               // n8 tiles of keys
+  static constexpr int DT = HDP / 8;  // k8 steps and n8 tiles of dims
+  // shared rows: the q planes and K read by paired loads (LDQ % 32 in
+  // {8, 24}), V by rows 2t and 2t + 1 (LDV % 8 == 4)
+  static constexpr int LDQ = HDP + 8, LDV = HDP + 4;
+  // m16 tiles a warp: two where the shared memory holds them
+  static constexpr int MT = fwd_smem(HDP, WARPS, BK, 2) <= MAX_SMEM ? 2 : 1;
+  static constexpr int BQ = WARPS * 16 * MT;  // query rows a block
+  static constexpr size_t SMEM = fwd_smem(HDP, WARPS, BK, MT);
 };
 
-// HD: the head dim padded to a multiple of 32 (32, 64, 128 or 256)
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int S,
-             int Tk, int hd, Strides qs, Strides ks, Strides vs, Strides os,
-             int causal, int window, int q_offset, float scale) {
-  constexpr int DPL = HD / 32;       // output dims per lane
-  constexpr int KT = BK + 1;         // padded row of transposed K
+template <int HDP>
+__global__ void __launch_bounds__(Layout<HDP>::THREADS)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o,
+           float* __restrict__ lse, int H, int S, int Tk, int hd,
+           Strides qs, Strides ks, Strides vs, Strides os, int causal,
+           int window, int q_offset, float scale, int vec) {
+  using L = Layout<HDP>;
+  constexpr int MT = L::MT, BQ = L::BQ, BK = L::BK, NT = L::NT, DT = L::DT;
+  constexpr int LDQ = L::LDQ, LDV = L::LDV, NTH = L::THREADS;
+  constexpr int STAGE = BK * (LDQ + LDV);  // floats of a ring stage
   extern __shared__ __align__(16) float smem[];
-  float* sh_q = smem;                // [BQ][HD]
-  float* sh_kt = sh_q + BQ * HD;     // [HD][KT]
-  float* sh_v = sh_kt + HD * KT;     // [BK][HD]
+  uint32_t* q_hi = reinterpret_cast<uint32_t*>(smem);  // [BQ][LDQ]
+  uint32_t* q_lo = q_hi + BQ * LDQ;                     // [BQ][LDQ]
+  float* ring = smem + 2 * BQ * LDQ;  // STAGES x (K [BK][LDQ], V [BK][LDV])
 
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + h * ks.h;
-  const T* vp = v + b * vs.b + h * vs.h;
-  T* op = o + b * os.b + h * os.h;
+  const int warp = threadIdx.x / 32, g = lane_g(), t = lane_t();
+  const float* kp = k + b * ks.b + h * ks.h;
+  const float* vp = v + b * vs.b + h * vs.h;
 
-  for (int idx = threadIdx.x; idx < BQ * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx % HD, i = i0 + r;
-    sh_q[idx] = (i < S && d < hd) ? load_f(qp + i * qs.s + d) * scale : 0.0f;
-  }
-
-  // keys any real row of this block can see
+  // the keys any real row of this block can see
   const int pos_lo = i0 + q_offset;
   const int pos_hi = min(i0 + BQ, S) - 1 + q_offset;
-  int k_end = causal ? min(Tk, pos_hi + 1) : Tk;
+  const int k_end = causal ? min(Tk, pos_hi + 1) : Tk;
   int k_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
   k_begin -= k_begin % BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  float m[ROWS], l[ROWS], acc[ROWS][DPL];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.0f;
-  }
-  const float* qw = sh_q + warp * ROWS * HD;
-  const int pos0 = i0 + warp * ROWS + q_offset;  // position of the warp's row 0
+  auto load_tile = [&](int it) {
+    float* dst = ring + (it % STAGES) * STAGE;
+    const int j0 = k_begin + it * BK;
+    load_rows<BK, NTH>(dst, LDQ, kp, ks.s, j0, Tk, hd, HDP, vec);
+    load_rows<BK, NTH>(dst + BK * LDQ, LDV, vp, vs.s, j0, Tk, hd, HDP, vec);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(0);
+  stage_split<NTH>(q_hi, q_lo, LDQ, q + b * qs.b + h * qs.h, qs.s, i0, BQ,
+                   S, hd, HDP, scale);
 
-  for (int j0 = k_begin; j0 < k_end; j0 += BK) {
-    __syncthreads();  // the previous tile's reads are done (and q is staged)
-    for (int idx = threadIdx.x; idx < BK * HD; idx += THREADS) {
-      const int jj = idx / HD, d = idx % HD, j = j0 + jj;
-      const bool ok = j < Tk && d < hd;
-      sh_kt[d * KT + jj] = ok ? load_f(kp + j * ks.s + d) : 0.0f;
-      sh_v[jj * HD + d] = ok ? load_f(vp + j * vs.s + d) : 0.0f;
+  const int row0 = warp * 16 * MT;  // the warp's first row in the block
+  float m[MT][2], l[MT][2], acc[MT][DT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[mt][hf] = NEG_INF;
+      l[mt][hf] = 0.0f;
     }
-    __syncthreads();
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][dt][e] = 0.0f;
+  }
 
-    // scores of the warp's rows against key j0 + lane
-    float s[ROWS];
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = k_begin + it * BK;
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile (and, at it = 0, the q planes) is staged
+    const float* sk = ring + (it % STAGES) * STAGE;
+    const float* sv = sk + BK * LDQ;
+
+    // S = q K^T over the DT k-steps of 8 dims (paired loads)
+    float s[MT][NT][4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float k0 = sh_kt[(d + 0) * KT + lane];
-      const float k1 = sh_kt[(d + 1) * KT + lane];
-      const float k2 = sh_kt[(d + 2) * KT + lane];
-      const float k3 = sh_kt[(d + 3) * KT + lane];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + r * HD + d);
-        s[r] = fmaf(qv.x, k0, s[r]);
-        s[r] = fmaf(qv.y, k1, s[r]);
-        s[r] = fmaf(qv.z, k2, s[r]);
-        s[r] = fmaf(qv.w, k3, s[r]);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < DT; ++kd) {
+      FragA a[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int off = (row0 + mt * 16) * LDQ + kd * 8;
+        a[mt] = load_a_split2(q_hi + off, q_lo + off, LDQ);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const FragB bb = load_b_nk2(sk + nt * 8 * LDQ + kd * 8, LDQ);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma3(s[mt][nt], a[mt], bb);
       }
     }
 
-    // mask, then the online softmax update; s becomes p
-    const int j = j0 + lane;
+    // mask (edge tiles only), then the online softmax; s becomes p
+    const bool edge = j0 + BK > Tk || (causal && j0 + BK - 1 > pos_lo) ||
+                      (window > 0 && pos_hi - j0 >= window);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int pos = pos0 + r;
-      bool vis = j < Tk;
-      if (causal) vis = vis && pos >= j;
-      if (window > 0) vis = vis && (pos - j) < window;
-      const float sc = vis ? s[r] : NEG_INF;
-      const float m_new = fmaxf(m[r], warp_max(sc));
-      const float p = expf(sc - m_new);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[r][e] *= corr;
-      s[r] = p;
-    }
-
-    // acc += P . V, lane owning dims lane, lane + 32, ...
-#pragma unroll 4
-    for (int jj = 0; jj < BK; ++jj) {
-      float vv[DPL];
+      for (int hf = 0; hf < 2; ++hf) {
+        const int pos = i0 + row0 + mt * 16 + g + 8 * hf + q_offset;
+        float mx = NEG_INF;
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) vv[e] = sh_v[jj * HD + e * 32 + lane];
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float pj = __shfl_sync(FULL, s[r], jj);
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][nt][2 * hf + e];
+            if (edge && !visible(pos, j0 + nt * 8 + 2 * t + e, Tk, causal,
+                                 window))
+              x = NEG_INF;
+            mx = fmaxf(mx, x);
+          }
+        const float m_new = fmaxf(m[mt][hf], quad_max(mx));
+        const float corr = expf(m[mt][hf] - m_new);
+        float sum = 0.0f;
 #pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[r][e] = fmaf(pj, vv[e], acc[r][e]);
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][nt][2 * hf + e];
+            x = expf(x - m_new);
+            sum += x;
+          }
+        l[mt][hf] = l[mt][hf] * corr + quad_sum(sum);
+        m[mt][hf] = m_new;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          acc[mt][dt][2 * hf] *= corr;
+          acc[mt][dt][2 * hf + 1] *= corr;
+        }
       }
     }
+
+    // acc += P V, one k-step a key n8 tile
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      FragA pa[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) pa[mt] = a_of_acc(s[mt][kk]);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const FragB bb = load_b_kn(sv + kk * 8 * LDV + dt * 8, LDV, 1.0f);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][dt], pa[mt], bb);
+      }
+    }
+    __syncthreads();  // the stage is read before a later load refills it
   }
 
+  float* op = o + b * os.b + h * os.h;
+  float* lrow = lse == nullptr
+                    ? nullptr
+                    : lse + (long long)blockIdx.y * wgmma_fa::lse_rows(S);
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int i = i0 + warp * ROWS + r;
-    if (i >= S) continue;
-    const float den = fmaxf(l[r], 1e-30f);
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = e * 32 + lane;
-      if (d < hd) store_f(op + i * os.s + d, acc[r][e] / den);
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = i0 + row0 + mt * 16 + g + 8 * hf;
+      if (i >= S) continue;
+      const float den = fmaxf(l[mt][hf], 1e-30f);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const int d = dt * 8 + 2 * t;
+        if (d < hd) op[i * os.s + d] = acc[mt][dt][2 * hf] / den;
+        if (d + 1 < hd) op[i * os.s + d + 1] = acc[mt][dt][2 * hf + 1] / den;
+      }
+      if (lrow != nullptr && t == 0)
+        lrow[i] = (m[mt][hf] + logf(den)) * LOG2E;
     }
   }
+  // the block holding row S - 1 zeroes the padding rows S .. lse_rows(S)
+  if (lrow != nullptr && i0 + BQ >= S)
+    for (int r = S + threadIdx.x; r < wgmma_fa::lse_rows(S); r += NTH)
+      lrow[r] = 0.0f;
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int S, int Tk, int hd, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, int q_offset, float scale,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * HD + HD * (BK + 1) + BK * HD);
+template <int HDP>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int H, int S, int Tk, int hd, Strides qs,
+           Strides ks, Strides vs, Strides os, int causal, int window,
+           int q_offset, float scale, cudaStream_t stream) {
+  using L = Layout<HDP>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fwd_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, S, Tk, hd, qs, ks, vs,
-      os, causal, window, q_offset, scale);
+  const int vec = rows_vec(q, qs, hd) && rows_vec(k, ks, hd) &&
+                  rows_vec(v, vs, hd);
+  const dim3 grid((S + L::BQ - 1) / L::BQ, B * H);
+  fwd_kernel<HDP><<<grid, L::THREADS, L::SMEM, stream>>>(
+      q, k, v, o, lse, H, S, Tk, hd, qs, ks, vs, os, causal, window,
+      q_offset, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int S, int Tk, int hd, Strides qs, Strides ks,
-             Strides vs, Strides os, int causal, int window, int q_offset,
-             float scale, cudaStream_t stream) {
-  if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, B, H, S, Tk, hd, qs, ks, vs, os, causal,
-                         window, q_offset, scale, stream);
-  if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, S, Tk, hd, qs, ks, vs, os, causal,
-                         window, q_offset, scale, stream);
-  if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, B, H, S, Tk, hd, qs, ks, vs, os,
-                          causal, window, q_offset, scale, stream);
-  if (hd <= 256)
-    return launch<T, 256>(q, k, v, o, B, H, S, Tk, hd, qs, ks, vs, os,
-                          causal, window, q_offset, scale, stream);
+// every float32 head dim <= 256, zero-padded to the first of the widths
+// below that holds it
+int dispatch(const float* q, const float* k, const float* v, float* o,
+             float* lse, int B, int H, int S, int Tk, int hd, Strides qs,
+             Strides ks, Strides vs, Strides os, int causal, int window,
+             int q_offset, float scale, cudaStream_t stream) {
+#define TF32_FA_LAUNCH(HDP)                                               \
+  if (hd <= HDP)                                                          \
+  return launch<HDP>(q, k, v, o, lse, B, H, S, Tk, hd, qs, ks, vs, os,    \
+                     causal, window, q_offset, scale, stream)
+  TF32_FA_LAUNCH(16);
+  TF32_FA_LAUNCH(32);
+  TF32_FA_LAUNCH(64);
+  TF32_FA_LAUNCH(80);
+  TF32_FA_LAUNCH(96);
+  TF32_FA_LAUNCH(128);
+  TF32_FA_LAUNCH(256);
+#undef TF32_FA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
+}  // namespace tf32_fa
 
 // Launches on `stream` (PyTorch's current stream); returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch,
@@ -244,8 +322,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 // given by its element strides (dim contiguous), float32 (is_bf16 = 0) or
 // bfloat16. The wrapper checks devices, types, shapes and strides (for
 // bfloat16, the 16-byte alignment TMA needs) and allocates o. `lse` is
-// null, or (bfloat16 only) float32 of B * H * wgmma_fa::lse_rows(S), which
-// receives each row's log-sum-exp in base 2 for the gradient kernel.
+// null, or float32 of B * H * wgmma_fa::lse_rows(S), which receives each
+// row's log-sum-exp in base 2 for the gradient kernel (both routes).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int S, int Tk, int hd, long long qsb, long long qsh, long long qss,
@@ -262,9 +340,11 @@ extern "C" int flash_attention_launch(
                               causal, window, q_offset, scale,
                               static_cast<float*>(lse), st);
   }
-  if (lse != nullptr) return (int)cudaErrorInvalidValue;
-  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
-      os{osb, osh, oss};
-  return dispatch<float>(q, k, v, o, B, H, S, Tk, hd, qs, ks, vs, os, causal,
-                         window, q_offset, scale, st);
+  const tf32x3::Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss},
+      vs{vsb, vsh, vss}, os{osb, osh, oss};
+  return tf32_fa::dispatch(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), B, H, S, Tk, hd, qs, ks, vs, os, causal,
+      window, q_offset, scale, st);
 }

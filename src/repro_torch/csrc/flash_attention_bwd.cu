@@ -6,347 +6,424 @@
 // flash_attention.cu (replacing `_flash_kernel`,
 // src/repro/kernels/flash_attention.py:25, pallas_call at :93), so its
 // gradient is this kernel. Given q (B, H, S, hd), k and v (B, H, T, hd), the
-// forward's output o and its gradient dO, it computes dq, dk and dv under
-// the forward's masks: key j is visible to query row i when j < T (the true
-// length), i + q_offset >= j when causal and (i + q_offset) - j < window
-// when window > 0. With s_ij = (q_i * scale) . k_j, P_ij = exp(s_ij - lse_i)
-// over the visible keys and D_i = dO_i . o_i:
+// forward's output o, its log-sum-exp and the output's gradient dO, it
+// computes dq, dk and dv under the forward's masks: key j is visible to
+// query row i when j < T (the true length), i + q_offset >= j when causal
+// and (i + q_offset) - j < window when window > 0. With s_ij = (q_i *
+// scale) . k_j, P_ij = exp(s_ij - lse_i) over the visible keys and D_i =
+// dO_i . o_i:
 //   dv_j = sum_i P_ij dO_i
 //   dS_ij = P_ij (dO_i . v_j - D_i)
 //   dk_j = sum_i dS_ij (q_i * scale)
 //   dq_i = scale * sum_j dS_ij k_j
 //
 // Two routes, each with its own C entry, chosen by type in the Python
-// wrapper. bfloat16 (the training paths, head dims up to 256) runs on the
-// tensor cores: flash_attention_bwd_wgmma.cuh (TMA, wgmma, the forward's
-// saved log-sum-exp). Float32 runs the CUDA-core kernels of this file, three
-// on the caller's stream, one after another:
-//   1. stats_kernel: per (b, h, 32 query rows), lse_i by an online max and
-//      sum over the visible key tiles, and D_i.
-//   2. dkdv_kernel: per (b, h, 32 keys), K and V stay in shared memory
-//      while the block walks the query tiles that can see them; each tile
-//      stages q (scaled), dO, lse and D, recomputes P and dS (32 x 32) into
-//      shared memory, then accumulates dk and dv.
-//   3. dq_kernel: per (b, h, 32 query rows), q and dO stay in shared memory
-//      while the block walks the visible key tiles, recomputing P and dS.
-// Every output element is summed by one thread in a fixed order (query
-// tiles, then rows, in order), so the result is deterministic: no float
-// atomics. Accumulation is float32 on the CUDA cores. Inputs may be strided
-// views (the transposes of (B, S, H, hd) tensors that ops.flash_mha passes);
-// the head dim is contiguous. The head dim is padded to HD in {32, 64, 128,
-// 256} with zeros.
+// wrapper; both read the log-sum-exp that the forward stores (base 2, rows
+// of wgmma_fa::lse_rows(S) floats a (batch, head)). bfloat16 runs
+// flash_attention_bwd_wgmma.cuh (TMA, wgmma). Float32 runs the split-TF32
+// kernels of this file (tf32x3.cuh: each product as three TF32 mma.sync),
+// two on the caller's stream, one after the other. The head dim is
+// zero-padded to the first of 16, 32, 64, 80, 96, 128, 256 that holds it,
+// one instantiation each; blocks have 8 warps where the shared memory
+// holds them (padded head dims up to 80), else 4 (at 256, 2 in dq_kernel):
+//   1. dq_kernel: one block per (batch x head, 16 query rows a warp). It
+//      computes D_i = dO_i . o_i for its rows (a warp a row, lanes over the
+//      dims, then a butterfly) and stores it for the second kernel; q
+//      (scaled) and dO stay in shared memory split into TF32 hi and lo
+//      planes; K and V tiles (32 keys, 16 at 256) stream through a
+//      two-stage cp.async ring. Per tile a warp recomputes S = q K^T and
+//      dP = dO V^T, forms P = exp2(S log2 e - lse) under the mask (edge
+//      tiles only) and dS = P (dP - D) in registers and adds dQ += dS K
+//      (dS's accumulator fragments are the A fragments; B fragments split
+//      in registers).
+//   2. dkdv_kernel: one block per (batch x head, 16 keys a warp); K and V
+//      stay in shared memory split into hi and lo planes while 32-row
+//      tiles of q and dO (16 at 256) with their lse and D stream through a
+//      two-stage ring. A warp owns 16 keys: S^T = K q^T, dP^T = V dO^T,
+//      P^T and dS^T in registers, then dV += P^T dO and dK += dS^T q. At a
+//      head dim of 256 one warp cannot hold dK and dV of 16 keys (256
+//      floats a thread), so two warps own the same 16 keys, each the dK
+//      and dV columns of one half of the dims; both compute S^T and dP^T.
+// Every output element is summed by one thread in a fixed order (key
+// tiles for dq, query tiles for dk and dv, in order): no float atomics, so
+// two launches on the same inputs agree bit for bit. Inputs may be
+// strided views (the transposes of (B, S, H, hd) tensors that
+// ops.flash_mha passes); the head dim is contiguous.
 //
 // Bound on an H100 SXM (data-sheet peaks, 700 W). The gradient's least work
 // is 5 products of S x T x hd a head (dO.v, the recomputed q.k, P^T dO,
-// dS^T q, dS k): at S = T = 4096, H = 32, hd = 128, causal, 2.5 x the
-// forward's 137.5 GFLOP = 344 GFLOP, 0.35 ms at 989 TFLOP/s bf16 (the bytes,
-// ~0.3 GB, take 0.1 ms). The CUDA-core route computes 8 such products (q.k
-// three times, dO.v twice) in float32, ~550 GFLOP, so it cannot beat 8.2 ms
-// at 67 TFLOP/s; its shared-memory reads (two a fused multiply-add) bound it
-// well below that. The tensor-core route's bound is in its header.
+// dS^T q, dS k). At hubert-xlarge's (4, 1024, 1024, 16 x 80), not causal:
+// 53.7 GFLOP; as split TF32 (three TF32 products each) 0.325 ms at 495
+// TFLOP/s (0.801 ms at the float32 pipe's 67 TFLOP/s), against 134 MB
+// (0.040 ms at 3.35 TB/s): the operations bound it. This design issues 7
+// such products (q.k and dO.v once more in the dq kernel), 75.2 GFLOP,
+// 0.456 ms as split TF32; mma.sync and the splits of B fragments in
+// registers keep it above that. The tensor-core route's bound is in its
+// header.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "flash_attention_bwd_wgmma.cuh"
+#include "tf32x3.cuh"
 
-namespace {
+namespace tf32_fa_bwd {
 
-constexpr int THREADS = 256;
-constexpr int BQ = 32;  // query rows per tile
-constexpr int BK = 32;  // keys per tile
-constexpr int GROUP = THREADS / BQ;  // threads sharing a row (8)
-constexpr int PP = BK + 1;           // padded row of the P and dS tiles
-constexpr float NEG_INF = -1.0e30f;
+using namespace tf32x3;
+using wgmma_fa::lse_rows;
 
-// element strides of a (batch, head, seq, dim) view; dim is contiguous
-struct Strides {
-  long long b, h, s;
-};
+constexpr int STAGES = 2;  // the rings' depth
 
 struct Views {
   Strides q, k, v, o, dout, dq, dk, dv;
 };
 
-__device__ __forceinline__ bool visible(int pos, int j, int Tk, int causal,
-                                        int window) {
-  bool vis = j < Tk;
-  if (causal) vis = vis && pos >= j;
-  if (window > 0) vis = vis && (pos - j) < window;
-  return vis;
+// bytes of shared memory at padded head dim hdp (rows of hdp + 4 floats):
+// dq_kernel with `warps` warps of 16 query rows and key tiles of bk (the
+// split q and dO planes, the K/V ring, lse and D), dkdv_kernel with kg
+// warps of 16 keys and query tiles of bq (the split K and V planes, the q
+// and dO ring, its lse and D)
+constexpr size_t dq_smem(int hdp, int warps, int bk) {
+  return 4ull * ((hdp + 4) * (4 * 16 * warps + STAGES * 2 * bk) +
+                 2 * 16 * warps);
+}
+constexpr size_t kv_smem(int hdp, int kg, int bq) {
+  return 4ull * ((hdp + 4) * (4 * 16 * kg + STAGES * 2 * bq) +
+                 STAGES * 2 * bq);
 }
 
-// max and sum over the GROUP consecutive lanes that share a row; the xor
-// butterfly leaves the same bits on every lane of the group
-__device__ __forceinline__ float group_max(float x) {
+// the two kernels' blocks at padded head dim HDP (16, 32, 64, 80, 96, 128
+// or 256): 8 warps where the shared memory holds them, else 4 (2 at 256)
+template <int HDP>
+struct Layout {
+  static constexpr int DT = HDP / 8;  // k8 steps and n8 tiles of dims
+  static constexpr int LD = HDP + 4;  // a shared row, LD % 8 == 4
+  // dq_kernel: warps of 16 query rows, key tiles of DQ_BK
+  static constexpr int DQ_BK = HDP > 128 ? 16 : 32;
+  static constexpr int DQ_WARPS =
+      HDP > 128 ? 2 : dq_smem(HDP, 8, DQ_BK) <= MAX_SMEM ? 8 : 4;
+  static constexpr int DQ_THREADS = DQ_WARPS * 32;
+  static constexpr int DQ_BQ = DQ_WARPS * 16;
+  // dkdv_kernel: KG warps of 16 keys times DSPLIT warps of dims, query
+  // tiles of KV_BQ
+  static constexpr int KV_BQ = HDP > 128 ? 16 : 32;
+  static constexpr int KG =
+      HDP > 128 ? 2 : kv_smem(HDP, 8, KV_BQ) <= MAX_SMEM ? 8 : 4;
+  static constexpr int DSPLIT = HDP > 128 ? 2 : 1;
+  static constexpr int KV_THREADS = KG * DSPLIT * 32;
+  static constexpr int KV_BK = KG * 16;
+  static constexpr int KV_DT = DT / DSPLIT;  // n8 tiles of dims a warp owns
+  static constexpr size_t DQ_SMEM = dq_smem(HDP, DQ_WARPS, DQ_BK);
+  static constexpr size_t KV_SMEM = kv_smem(HDP, KG, KV_BQ);
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int o = GROUP / 2; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
   return x;
 }
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = GROUP / 2; o > 0; o >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
-// rows row0 .. row0 + 31 of a (L, hd) slice into a [32][HD + 1] tile, times
-// mul, zero past L and past hd
-template <int HD>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      long long stride, int row0, int L,
-                                      int hd, float mul) {
-  constexpr int HP = HD + 1;
-  for (int idx = threadIdx.x; idx < 32 * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx % HD, row = row0 + r;
-    dst[r * HP + d] =
-        (row < L && d < hd) ? src[row * stride + d] * mul : 0.0f;
-  }
-}
+template <int HDP>
+__global__ void __launch_bounds__(Layout<HDP>::DQ_THREADS)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ o,
+          const float* __restrict__ dout, const float* __restrict__ lse,
+          float* __restrict__ dd, float* __restrict__ dq, int H, int S,
+          int Tk, int hd, Views vw, int causal, int window, int q_offset,
+          float scale, int vec) {
+  using L = Layout<HDP>;
+  constexpr int BQ = L::DQ_BQ, BK = L::DQ_BK, NT = BK / 8, DT = L::DT;
+  constexpr int NTH = L::DQ_THREADS, ld = L::LD, hdp = HDP;
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* q_hi = reinterpret_cast<uint32_t*>(smem);  // [BQ][ld] each
+  uint32_t* q_lo = q_hi + BQ * ld;
+  uint32_t* do_hi = q_lo + BQ * ld;
+  uint32_t* do_lo = do_hi + BQ * ld;
+  float* ring = smem + 4 * BQ * ld;  // STAGES x (K [BK][ld], V [BK][ld])
+  float* sh_lse = ring + STAGES * 2 * BK * ld;  // [BQ]
+  float* sh_dd = sh_lse + BQ;                   // [BQ]
 
-// the four scores s_ij = q_i . k_j of thread (i = t / 8, j = t % 8 + 8c)
-template <int HD>
-__device__ __forceinline__ void scores(const float* sh_q, const float* sh_k,
-                                       float s[4]) {
-  constexpr int HP = HD + 1;
-  const int i = threadIdx.x / GROUP, jc = threadIdx.x % GROUP;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) s[c] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    const float qd = sh_q[i * HP + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      s[c] = fmaf(qd, sh_k[(jc + GROUP * c) * HP + d], s[c]);
-  }
-}
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane_g(), t = lane_t();
+  const float* kp = k + b * vw.k.b + h * vw.k.h;
+  const float* vp = v + b * vw.v.b + h * vw.v.h;
+  const float* dop = dout + b * vw.dout.b + h * vw.dout.h;
+  const float* op = o + b * vw.o.b + h * vw.o.h;
+  const long long rows = lse_rows(S);
+  const float* lrow = lse + blockIdx.y * rows;
+  float* drow = dd + blockIdx.y * rows;
 
-// P and dS of a (query tile i0, key tile j0) pair into [BQ][PP] tiles
-template <int HD>
-__device__ __forceinline__ void p_and_ds(
-    const float* sh_q, const float* sh_do, const float* sh_k,
-    const float* sh_v, const float* sh_lse, const float* sh_dd, float* sh_p,
-    float* sh_ds, int i0, int j0, int S, int Tk, int causal, int window,
-    int q_offset) {
-  const int i = threadIdx.x / GROUP, jc = threadIdx.x % GROUP;
-  float s[4], dp[4];
-  scores<HD>(sh_q, sh_k, s);
-  scores<HD>(sh_do, sh_v, dp);
-  const bool row_ok = i0 + i < S;
-  const int pos = i0 + i + q_offset;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int j = jc + GROUP * c;
-    const bool vis = row_ok && visible(pos, j0 + j, Tk, causal, window);
-    const float p = vis ? expf(s[c] - sh_lse[i]) : 0.0f;
-    sh_p[i * PP + j] = p;
-    sh_ds[i * PP + j] = p * (dp[c] - sh_dd[i]);
-  }
-}
-
-// the key tiles [k_begin, k_end) that any row of query tile i0 can see
-__device__ __forceinline__ void key_range(int i0, int S, int Tk, int causal,
-                                          int window, int q_offset,
-                                          int* k_begin, int* k_end) {
   const int pos_lo = i0 + q_offset;
   const int pos_hi = min(i0 + BQ, S) - 1 + q_offset;
-  *k_end = causal ? min(Tk, pos_hi + 1) : Tk;
-  int kb = window > 0 ? max(0, pos_lo - window + 1) : 0;
-  *k_begin = kb - kb % BK;
-}
+  const int k_end = causal ? min(Tk, pos_hi + 1) : Tk;
+  int k_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
+  k_begin -= k_begin % BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ o, const float* __restrict__ dout,
-             float* __restrict__ lse, float* __restrict__ dd, int H, int S,
-             int Tk, int hd, Views vw, int causal, int window, int q_offset,
-             float scale) {
-  constexpr int HP = HD + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* sh_q = smem;            // [BQ][HP]
-  float* sh_k = sh_q + BQ * HP;  // [BK][HP]
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int i0 = blockIdx.x * BQ;
-  const int i = threadIdx.x / GROUP, jc = threadIdx.x % GROUP;
-  const float* qp = q + b * vw.q.b + h * vw.q.h;
-  const float* kp = k + b * vw.k.b + h * vw.k.h;
-  stage<HD>(sh_q, qp, vw.q.s, i0, S, hd, scale);
-
-  int k_begin, k_end;
-  key_range(i0, S, Tk, causal, window, q_offset, &k_begin, &k_end);
-  const int pos = i0 + i + q_offset;
-  float m = NEG_INF, l = 0.0f;
-  for (int j0 = k_begin; j0 < k_end; j0 += BK) {
-    __syncthreads();  // the previous tile's reads are done
-    stage<HD>(sh_k, kp, vw.k.s, j0, Tk, hd, 1.0f);
-    __syncthreads();
-    float s[4];
-    scores<HD>(sh_q, sh_k, s);
-    float mx = NEG_INF;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (!visible(pos, j0 + jc + GROUP * c, Tk, causal, window))
-        s[c] = NEG_INF;
-      mx = fmaxf(mx, s[c]);
+  auto load_tile = [&](int it) {
+    float* dst = ring + (it % STAGES) * 2 * BK * ld;
+    const int j0 = k_begin + it * BK;
+    load_rows<BK, NTH>(dst, ld, kp, vw.k.s, j0, Tk, hd, hdp, vec);
+    load_rows<BK, NTH>(dst + BK * ld, ld, vp, vw.v.s, j0, Tk, hd, hdp, vec);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(0);
+  stage_split<NTH>(q_hi, q_lo, ld, q + b * vw.q.b + h * vw.q.h, vw.q.s, i0,
+                   BQ, S, hd, hdp, scale);
+  stage_split<NTH>(do_hi, do_lo, ld, dop, vw.dout.s, i0, BQ, S, hd, hdp,
+                   1.0f);
+  for (int r = threadIdx.x; r < BQ; r += NTH)
+    sh_lse[r] = i0 + r < S ? lrow[i0 + r] : 0.0f;
+  // D of the warp's 16 rows, stored for dkdv_kernel
+  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    const int i = i0 + r;
+    float x = 0.0f;
+    for (int d = lane; i < S && d < hd; d += 32)
+      x = fmaf(dop[i * vw.dout.s + d], op[i * vw.o.s + d], x);
+    x = warp_sum(x);
+    if (lane == 0) {
+      sh_dd[r] = x;
+      if (i < S) drow[i] = x;
     }
-    const float m_new = fmaxf(m, group_max(mx));
-    float sum = 0.0f;
+  }
+  __syncthreads();  // lse, D and the split planes are staged
+
+  const int row0 = warp * 16;
+  float acc[DT][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sum += expf(s[c] - m_new);
-    l = l * expf(m - m_new) + group_sum(sum);
-    m = m_new;
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = k_begin + it * BK;
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sk = ring + (it % STAGES) * 2 * BK * ld;
+    const float* sv = sk + BK * ld;
+
+    // S = q K^T and dP = dO V^T
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < DT; ++kd) {
+      const int off = row0 * ld + kd * 8;
+      const FragA aq = load_a_split(q_hi + off, q_lo + off, ld);
+      const FragA ado = load_a_split(do_hi + off, do_lo + off, ld);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const FragB bk = load_b_nk(sk + nt * 8 * ld + kd * 8, ld, 1.0f);
+        mma3(s[nt], aq, bk);
+        const FragB bv = load_b_nk(sv + nt * 8 * ld + kd * 8, ld, 1.0f);
+        mma3(dp[nt], ado, bv);
+      }
+    }
+
+    // P and dS (into s) under the mask
+    const bool edge = i0 + BQ > S || j0 + BK > Tk ||
+                      (causal && pos_lo < j0 + BK - 1) ||
+                      (window > 0 && pos_hi - j0 >= window);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row0 + g + 8 * hf, i = i0 + r;
+      const float lr = sh_lse[r], dr = sh_dd[r];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + nt * 8 + 2 * t + e;
+          const bool vis = !edge || (i < S && visible(i + q_offset, j, Tk,
+                                                      causal, window));
+          const float p =
+              vis ? exp2f(fmaf(s[nt][2 * hf + e], LOG2E, -lr)) : 0.0f;
+          s[nt][2 * hf + e] = p * (dp[nt][2 * hf + e] - dr);
+        }
+    }
+
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const FragA a = a_of_acc(s[kk]);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const FragB bb = load_b_kn(sk + kk * 8 * ld + dt * 8, ld, 1.0f);
+        mma3(acc[dt], a, bb);
+      }
+    }
+    __syncthreads();  // the stage is read before a later load refills it
   }
-  // every lane stays for the shuffles; a row past S reads nothing
-  const bool row_ok = i0 + i < S;
-  const float* op = o + b * vw.o.b + h * vw.o.h + (i0 + i) * vw.o.s;
-  const float* dp =
-      dout + b * vw.dout.b + h * vw.dout.h + (i0 + i) * vw.dout.s;
-  float acc = 0.0f;
-  for (int d = jc; row_ok && d < hd; d += GROUP)
-    acc = fmaf(dp[d], op[d], acc);
-  acc = group_sum(acc);
-  if (row_ok && jc == 0) {
-    const long long r = (long long)blockIdx.y * S + i0 + i;
-    lse[r] = m + logf(l);
-    dd[r] = acc;
+
+  float* dqp = dq + b * vw.dq.b + h * vw.dq.h;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + row0 + g + 8 * hf;
+    if (i >= S) continue;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = dt * 8 + 2 * t + e;
+        if (d < hd) dqp[i * vw.dq.s + d] = acc[dt][2 * hf + e] * scale;
+      }
   }
 }
 
-// lse and D of rows row0 .. row0 + 31 into shared memory (0 past S)
-__device__ __forceinline__ void stage_rows(float* sh_lse, float* sh_dd,
-                                          const float* lse, const float* dd,
-                                          long long base, int row0, int S) {
-  if (threadIdx.x < BQ) {
-    const int row = row0 + threadIdx.x;
-    sh_lse[threadIdx.x] = row < S ? lse[base + row] : 0.0f;
-    sh_dd[threadIdx.x] = row < S ? dd[base + row] : 0.0f;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
+template <int HDP>
+__global__ void __launch_bounds__(Layout<HDP>::KV_THREADS)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dd,
             float* __restrict__ dk, float* __restrict__ dv, int H, int S,
             int Tk, int hd, Views vw, int causal, int window, int q_offset,
-            float scale) {
-  constexpr int HP = HD + 1;
-  constexpr int E = HD / GROUP;  // dims a thread accumulates
+            float scale, int vec) {
+  using L = Layout<HDP>;
+  constexpr int BK = L::KV_BK, BQ = L::KV_BQ, NT = BQ / 8;
+  constexpr int KDT = L::KV_DT, NTH = L::KV_THREADS, ld = L::LD, hdp = HDP;
   extern __shared__ __align__(16) float smem[];
-  float* sh_k = smem;               // [BK][HP]
-  float* sh_v = sh_k + BK * HP;     // [BK][HP]
-  float* sh_q = sh_v + BK * HP;     // [BQ][HP]
-  float* sh_do = sh_q + BQ * HP;    // [BQ][HP]
-  float* sh_p = sh_do + BQ * HP;    // [BQ][PP]
-  float* sh_ds = sh_p + BQ * PP;    // [BQ][PP]
-  float* sh_lse = sh_ds + BQ * PP;  // [BQ]
-  float* sh_dd = sh_lse + BQ;       // [BQ]
+  uint32_t* k_hi = reinterpret_cast<uint32_t*>(smem);  // [BK][ld] each
+  uint32_t* k_lo = k_hi + BK * ld;
+  uint32_t* v_hi = k_lo + BK * ld;
+  uint32_t* v_lo = v_hi + BK * ld;
+  float* ring = smem + 4 * BK * ld;  // STAGES x (q [BQ][ld], dO [BQ][ld])
+  float* ring_r = ring + STAGES * 2 * BQ * ld;  // STAGES x (lse, D [BQ])
+
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int j0 = blockIdx.x * BK;
+  const int warp = threadIdx.x / 32, g = lane_g(), t = lane_t();
+  const int kg = warp % L::KG, dh = warp / L::KG;
   const float* qp = q + b * vw.q.b + h * vw.q.h;
   const float* dop = dout + b * vw.dout.b + h * vw.dout.h;
-  stage<HD>(sh_k, k + b * vw.k.b + h * vw.k.h, vw.k.s, j0, Tk, hd, 1.0f);
-  stage<HD>(sh_v, v + b * vw.v.b + h * vw.v.h, vw.v.s, j0, Tk, hd, 1.0f);
+  const long long rows = lse_rows(S);
+  const float* lrow = lse + blockIdx.y * rows;
+  const float* drow = dd + blockIdx.y * rows;
 
-  // the query rows that can see any key of this tile
+  // the query rows that can see any key of this block
   const int j_last = min(j0 + BK, Tk) - 1;
   const int i_begin = causal ? max(0, j0 - q_offset) : 0;
   const int i_end = window > 0 ? min(S, j_last + window - q_offset) : S;
+  const int n_tiles = i_end > i_begin ? (i_end - i_begin + BQ - 1) / BQ : 0;
 
-  const int jt = threadIdx.x / GROUP, dc = threadIdx.x % GROUP;
-  float ak[E], av[E];
+  auto load_tile = [&](int it) {
+    const int st = it % STAGES, i0 = i_begin + it * BQ;
+    float* dst = ring + st * 2 * BQ * ld;
+    load_rows<BQ, NTH>(dst, ld, qp, vw.q.s, i0, S, hd, hdp, vec);
+    load_rows<BQ, NTH>(dst + BQ * ld, ld, dop, vw.dout.s, i0, S, hd, hdp,
+                       vec);
+    load_vec<BQ, NTH>(ring_r + st * 2 * BQ, lrow, i0, S);
+    load_vec<BQ, NTH>(ring_r + st * 2 * BQ + BQ, drow, i0, S);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(0);
+  stage_split<NTH>(k_hi, k_lo, ld, k + b * vw.k.b + h * vw.k.h, vw.k.s, j0,
+                   BK, Tk, hd, hdp, 1.0f);
+  stage_split<NTH>(v_hi, v_lo, ld, v + b * vw.v.b + h * vw.v.h, vw.v.s, j0,
+                   BK, Tk, hd, hdp, 1.0f);
+
+  const int key0 = kg * 16;  // the warp's first key in the block
+  float adk[KDT][4], adv[KDT][4];
 #pragma unroll
-  for (int e = 0; e < E; ++e) ak[e] = av[e] = 0.0f;
-  for (int i0 = i_begin; i0 < i_end; i0 += BQ) {
-    __syncthreads();  // the previous tile's reads are done (K, V staged)
-    stage<HD>(sh_q, qp, vw.q.s, i0, S, hd, scale);
-    stage<HD>(sh_do, dop, vw.dout.s, i0, S, hd, 1.0f);
-    stage_rows(sh_lse, sh_dd, lse, dd, (long long)blockIdx.y * S, i0, S);
-    __syncthreads();
-    p_and_ds<HD>(sh_q, sh_do, sh_k, sh_v, sh_lse, sh_dd, sh_p, sh_ds, i0,
-                 j0, S, Tk, causal, window, q_offset);
-    __syncthreads();
-    for (int r = 0; r < BQ; ++r) {
-      const float p = sh_p[r * PP + jt], ds = sh_ds[r * PP + jt];
+  for (int dt = 0; dt < KDT; ++dt)
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int d = dc + GROUP * e;
-        av[e] = fmaf(p, sh_do[r * HP + d], av[e]);
-        ak[e] = fmaf(ds, sh_q[r * HP + d], ak[e]);
+    for (int e = 0; e < 4; ++e) adk[dt][e] = adv[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int i0 = i_begin + it * BQ;
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile (and, at it = 0, the K/V planes) is staged
+    const float* sq = ring + (it % STAGES) * 2 * BQ * ld;
+    const float* sdo = sq + BQ * ld;
+    const float* s_lse = ring_r + (it % STAGES) * 2 * BQ;
+    const float* s_dd = s_lse + BQ;
+
+    // S^T = K q^T (q scaled) and dP^T = V dO^T
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < L::DT; ++kd) {
+      const int off = key0 * ld + kd * 8;
+      const FragA ak = load_a_split(k_hi + off, k_lo + off, ld);
+      const FragA av = load_a_split(v_hi + off, v_lo + off, ld);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const FragB bq = load_b_nk(sq + nt * 8 * ld + kd * 8, ld, scale);
+        mma3(st[nt], ak, bq);
+        const FragB bo = load_b_nk(sdo + nt * 8 * ld + kd * 8, ld, 1.0f);
+        mma3(dpt[nt], av, bo);
       }
     }
-  }
-  const int j = j0 + jt;
-  if (j >= Tk) return;
-  float* dkp = dk + b * vw.dk.b + h * vw.dk.h + j * vw.dk.s;
-  float* dvp = dv + b * vw.dv.b + h * vw.dv.h + j * vw.dv.s;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int d = dc + GROUP * e;
-    if (d < hd) {
-      dkp[d] = ak[e];
-      dvp[d] = av[e];
-    }
-  }
-}
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ dd,
-          float* __restrict__ dq, int H, int S, int Tk, int hd, Views vw,
-          int causal, int window, int q_offset, float scale) {
-  constexpr int HP = HD + 1;
-  constexpr int E = HD / GROUP;
-  extern __shared__ __align__(16) float smem[];
-  float* sh_k = smem;
-  float* sh_v = sh_k + BK * HP;
-  float* sh_q = sh_v + BK * HP;
-  float* sh_do = sh_q + BQ * HP;
-  float* sh_p = sh_do + BQ * HP;
-  float* sh_ds = sh_p + BQ * PP;
-  float* sh_lse = sh_ds + BQ * PP;
-  float* sh_dd = sh_lse + BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int i0 = blockIdx.x * BQ;
-  const float* kp = k + b * vw.k.b + h * vw.k.h;
-  const float* vp = v + b * vw.v.b + h * vw.v.h;
-  stage<HD>(sh_q, q + b * vw.q.b + h * vw.q.h, vw.q.s, i0, S, hd, scale);
-  stage<HD>(sh_do, dout + b * vw.dout.b + h * vw.dout.h, vw.dout.s, i0, S,
-            hd, 1.0f);
-  stage_rows(sh_lse, sh_dd, lse, dd, (long long)blockIdx.y * S, i0, S);
-
-  int k_begin, k_end;
-  key_range(i0, S, Tk, causal, window, q_offset, &k_begin, &k_end);
-  const int it = threadIdx.x / GROUP, dc = threadIdx.x % GROUP;
-  float aq[E];
+    // P^T (into st) and dS^T (into dpt) under the mask
+    const bool edge = i0 + BQ > S || j0 + BK > Tk ||
+                      (causal && i0 + q_offset < j0 + BK - 1) ||
+                      (window > 0 && i0 + BQ - 1 + q_offset - j0 >= window);
 #pragma unroll
-  for (int e = 0; e < E; ++e) aq[e] = 0.0f;
-  for (int j0 = k_begin; j0 < k_end; j0 += BK) {
-    __syncthreads();  // the previous tile's reads are done (q, dO staged)
-    stage<HD>(sh_k, kp, vw.k.s, j0, Tk, hd, 1.0f);
-    stage<HD>(sh_v, vp, vw.v.s, j0, Tk, hd, 1.0f);
-    __syncthreads();
-    p_and_ds<HD>(sh_q, sh_do, sh_k, sh_v, sh_lse, sh_dd, sh_p, sh_ds, i0,
-                 j0, S, Tk, causal, window, q_offset);
-    __syncthreads();
-    for (int c = 0; c < BK; ++c) {
-      const float ds = sh_ds[it * PP + c];
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = j0 + key0 + g + 8 * hf;
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        aq[e] = fmaf(ds, sh_k[c * HP + dc + GROUP * e], aq[e]);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = nt * 8 + 2 * t + e, i = i0 + r;
+          const bool vis = !edge || (i < S && visible(i + q_offset, j, Tk,
+                                                      causal, window));
+          const float p =
+              vis ? exp2f(fmaf(st[nt][2 * hf + e], LOG2E, -s_lse[r]))
+                  : 0.0f;
+          st[nt][2 * hf + e] = p;
+          dpt[nt][2 * hf + e] = p * (dpt[nt][2 * hf + e] - s_dd[r]);
+        }
     }
-  }
-  const int i = i0 + it;
-  if (i >= S) return;
-  float* dqp = dq + b * vw.dq.b + h * vw.dq.h + i * vw.dq.s;
+
+    // dV += P^T dO and dK += dS^T q (q scaled), over the warp's dims
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int d = dc + GROUP * e;
-    if (d < hd) dqp[d] = aq[e] * scale;
+    for (int kk = 0; kk < NT; ++kk) {
+      const FragA ap = a_of_acc(st[kk]);
+      const FragA ads = a_of_acc(dpt[kk]);
+#pragma unroll
+      for (int dt = 0; dt < KDT; ++dt) {
+        const int dg = dh * KDT + dt;
+        const FragB bo = load_b_kn(sdo + kk * 8 * ld + dg * 8, ld, 1.0f);
+        mma3(adv[dt], ap, bo);
+        const FragB bq = load_b_kn(sq + kk * 8 * ld + dg * 8, ld, scale);
+        mma3(adk[dt], ads, bq);
+      }
+    }
+    __syncthreads();  // the stage is read before a later load refills it
+  }
+
+  float* dkp = dk + b * vw.dk.b + h * vw.dk.h;
+  float* dvp = dv + b * vw.dv.b + h * vw.dv.h;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int j = j0 + key0 + g + 8 * hf;
+    if (j >= Tk) continue;
+#pragma unroll
+    for (int dt = 0; dt < KDT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = (dh * KDT + dt) * 8 + 2 * t + e;
+        if (d < hd) {
+          dkp[j * vw.dk.s + d] = adk[dt][2 * hf + e];
+          dvp[j * vw.dv.s + d] = adv[dt][2 * hf + e];
+        }
+      }
   }
 }
 
@@ -356,59 +433,53 @@ int allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* lse,
-           float* dd, int B, int H, int S, int Tk, int hd, const Views& vw,
-           int causal, int window, int q_offset, float scale,
-           cudaStream_t stream) {
-  constexpr int HP = HD + 1;
-  const size_t smem_stats = sizeof(float) * (BQ + BK) * HP;
-  const size_t smem_tiles =
-      sizeof(float) * (2 * BK * HP + 2 * BQ * HP + 2 * BQ * PP + 2 * BQ);
+template <int HDP>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, float* dq, float* dk, float* dv,
+           const float* lse, float* dd, int B, int H, int S, int Tk, int hd,
+           const Views& vw, int causal, int window, int q_offset,
+           float scale, cudaStream_t stream) {
+  using L = Layout<HDP>;
   int err;
-  if ((err = allow_smem(stats_kernel<HD>, smem_stats))) return err;
-  if ((err = allow_smem(dkdv_kernel<HD>, smem_tiles))) return err;
-  if ((err = allow_smem(dq_kernel<HD>, smem_tiles))) return err;
-  const float* qt = static_cast<const float*>(q);
-  const float* kt = static_cast<const float*>(k);
-  const float* vt = static_cast<const float*>(v);
-  const float* dot = static_cast<const float*>(dout);
-  const dim3 q_grid((S + BQ - 1) / BQ, B * H), k_grid((Tk + BK - 1) / BK,
-                                                      B * H);
-  stats_kernel<HD><<<q_grid, THREADS, smem_stats, stream>>>(
-      qt, kt, static_cast<const float*>(o), dot, lse, dd, H, S, Tk, hd, vw,
-      causal, window, q_offset, scale);
+  if ((err = allow_smem(dq_kernel<HDP>, L::DQ_SMEM))) return err;
+  if ((err = allow_smem(dkdv_kernel<HDP>, L::KV_SMEM))) return err;
+  const int vec = rows_vec(q, vw.q, hd) && rows_vec(k, vw.k, hd) &&
+                  rows_vec(v, vw.v, hd) && rows_vec(dout, vw.dout, hd);
+  const dim3 q_grid((S + L::DQ_BQ - 1) / L::DQ_BQ, B * H);
+  const dim3 k_grid((Tk + L::KV_BK - 1) / L::KV_BK, B * H);
+  dq_kernel<HDP><<<q_grid, L::DQ_THREADS, L::DQ_SMEM, stream>>>(
+      q, k, v, o, dout, lse, dd, dq, H, S, Tk, hd, vw, causal, window,
+      q_offset, scale, vec);
   if ((err = (int)cudaGetLastError())) return err;
-  dkdv_kernel<HD><<<k_grid, THREADS, smem_tiles, stream>>>(
-      qt, kt, vt, dot, lse, dd, static_cast<float*>(dk),
-      static_cast<float*>(dv), H, S, Tk, hd, vw, causal, window, q_offset,
-      scale);
-  if ((err = (int)cudaGetLastError())) return err;
-  dq_kernel<HD><<<q_grid, THREADS, smem_tiles, stream>>>(
-      qt, kt, vt, dot, lse, dd, static_cast<float*>(dq), H, S, Tk, hd, vw,
-      causal, window, q_offset, scale);
+  dkdv_kernel<HDP><<<k_grid, L::KV_THREADS, L::KV_SMEM, stream>>>(
+      q, k, v, dout, lse, dd, dk, dv, H, S, Tk, hd, vw, causal, window,
+      q_offset, scale, vec);
   return (int)cudaGetLastError();
 }
 
-// every head dim <= 256, zero-padded to 32, 64, 128 or 256
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, void* dq, void* dk, void* dv, float* lse,
-             float* dd, int B, int H, int S, int Tk, int hd,
-             const Views& vw, int causal, int window, int q_offset,
+// every float32 head dim <= 256, zero-padded to the first of the widths
+// below that holds it (the forward's)
+int dispatch(const float* q, const float* k, const float* v, const float* o,
+             const float* dout, float* dq, float* dk, float* dv,
+             const float* lse, float* dd, int B, int H, int S, int Tk,
+             int hd, const Views& vw, int causal, int window, int q_offset,
              float scale, cudaStream_t st) {
-#define FA_BWD_LAUNCH(HD)                                                 \
-  return launch<HD>(q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, S, Tk, hd, \
-                    vw, causal, window, q_offset, scale, st)
-  if (hd <= 32) FA_BWD_LAUNCH(32);
-  if (hd <= 64) FA_BWD_LAUNCH(64);
-  if (hd <= 128) FA_BWD_LAUNCH(128);
-  if (hd <= 256) FA_BWD_LAUNCH(256);
-#undef FA_BWD_LAUNCH
+#define TF32_BWD_LAUNCH(HDP)                                             \
+  if (hd <= HDP)                                                         \
+  return launch<HDP>(q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, S, Tk, \
+                     hd, vw, causal, window, q_offset, scale, st)
+  TF32_BWD_LAUNCH(16);
+  TF32_BWD_LAUNCH(32);
+  TF32_BWD_LAUNCH(64);
+  TF32_BWD_LAUNCH(80);
+  TF32_BWD_LAUNCH(96);
+  TF32_BWD_LAUNCH(128);
+  TF32_BWD_LAUNCH(256);
+#undef TF32_BWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
+}  // namespace tf32_fa_bwd
 
 // Two C entries, one a route; the Python wrapper picks the route by type
 // (kernels/flash_attention.py:bwd_route) and calls its entry,
@@ -418,13 +489,14 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 // launch (or wgmma_fa::ENCODE_ERROR + the CUresult when a TMA tensor map is
 // refused). q, o, dout and dq are (B, H, S, hd), k, v, dk and dv (B, H, T,
 // hd), each given by its element strides in `strides` (8 views x (batch,
-// head, seq); dim contiguous). The wrapper checks devices, types, shapes and
-// strides and allocates the outputs and the scratch. When T = 0 the wrapper
-// zero-fills dq itself.
+// head, seq); dim contiguous). lse is the forward's log-sum-exp (base 2,
+// B * H * wgmma_fa::lse_rows(S) floats, an input) and dd float32 scratch of
+// the same size. The wrapper checks devices, types, shapes and strides and
+// allocates the outputs and the scratch. When T = 0 the wrapper zero-fills
+// dq itself.
 //
-// flash_attention_bwd_launch: the CUDA-core kernels above, float32, hd <=
-// 256; lse and dd are float32 scratch of B * H * S that the stats kernel
-// fills.
+// flash_attention_bwd_launch: the split-TF32 kernels above, float32, hd <=
+// 256.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* dd,
@@ -432,20 +504,22 @@ extern "C" int flash_attention_bwd_launch(
     int causal, int window, int q_offset, float scale, void* stream) {
   if (B == 0 || H == 0 || S == 0 || Tk == 0) return 0;
   const long long* s = strides;
-  const Views vw{{s[0], s[1], s[2]},    {s[3], s[4], s[5]},
-                 {s[6], s[7], s[8]},    {s[9], s[10], s[11]},
-                 {s[12], s[13], s[14]}, {s[15], s[16], s[17]},
-                 {s[18], s[19], s[20]}, {s[21], s[22], s[23]}};
-  return dispatch(q, k, v, o, dout, dq, dk, dv, static_cast<float*>(lse),
-                  static_cast<float*>(dd), B, H, S, Tk, hd, vw, causal,
-                  window, q_offset, scale, (cudaStream_t)stream);
+  const tf32_fa_bwd::Views vw{{s[0], s[1], s[2]},    {s[3], s[4], s[5]},
+                              {s[6], s[7], s[8]},    {s[9], s[10], s[11]},
+                              {s[12], s[13], s[14]}, {s[15], s[16], s[17]},
+                              {s[18], s[19], s[20]}, {s[21], s[22], s[23]}};
+  return tf32_fa_bwd::dispatch(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<const float*>(lse), static_cast<float*>(dd), B, H, S, Tk,
+      hd, vw, causal, window, q_offset, scale, (cudaStream_t)stream);
 }
 
 // flash_attention_bwd_wgmma_launch: the tensor-core kernels of
-// flash_attention_bwd_wgmma.cuh, bfloat16, hd <= 256. lse is the forward's
-// log-sum-exp (base 2, B * H * wgmma_fa::lse_rows(S) floats, an input) and
-// dd float32 scratch of the same size; q, k, v and dout meet TMA's 16-byte
-// rule.
+// flash_attention_bwd_wgmma.cuh, bfloat16, hd <= 256; q, k, v and dout
+// meet TMA's 16-byte rule.
 extern "C" int flash_attention_bwd_wgmma_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* dd,

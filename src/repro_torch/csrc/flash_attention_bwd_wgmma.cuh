@@ -3,7 +3,7 @@
 //
 // Included by flash_attention_bwd.cu, whose C entry
 // flash_attention_bwd_wgmma_launch runs every bfloat16 call here (head dims
-// up to 256; float32 calls take the CUDA-core kernels there, through
+// up to 256; float32 calls take the split-TF32 kernels there, through
 // flash_attention_bwd_launch). It reuses the PTX helpers of the forward's
 // header (mbarriers, TMA, the 128-byte-swizzle wgmma descriptors and
 // wrappers, fence_regs, ex2) by including it.

@@ -2,7 +2,7 @@
 // loads, mbarrier pipeline, warp-specialized warpgroups, wgmma.
 //
 // Included by flash_attention.cu, whose C entry routes every bfloat16 call
-// here (float32 calls keep the CUDA-core kernel there). It computes what
+// here (float32 calls take the split-TF32 kernel there). It computes what
 // the Pallas `_flash_kernel` (src/repro/kernels/flash_attention.py:25)
 // computes, with masks at the true key length T, `causal`, `window` and
 // `q_offset`, the finite NEG_INF = -1e30 and acc / max(l, 1e-30) cast to

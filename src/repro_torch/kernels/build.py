@@ -8,7 +8,8 @@ hash of the source, of the ``csrc/*.cuh`` headers it includes, directly
 or through another header (the shared ADC, ``adc.cuh``; the predicated
 bit-plane adds, ``predicated_add.cuh``; the threefry draw,
 ``threefry.cuh``; the flash kernels' tensor-core routes, the gradient's
-header including the forward's; the RG-LRU scans' coefficients,
+header including the forward's, and their float32 routes' split-TF32
+helpers, ``tf32x3.cuh``; the RG-LRU scans' coefficients,
 ``rglru_coeffs.cuh``) and of the flags, so an edited source or header
 rebuilds. The library is written to a temporary name and renamed into place, so
 concurrent processes never load a half-written file. ``set_build_dir``
@@ -70,8 +71,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention_bwd": {
         # q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, S, T, hd, the
         # (batch, head, seq) strides of the eight views (24 long longs),
-        # causal, window, q_offset, scale, stream: the CUDA cores' entry
-        # (float32) and the tensor cores' (bfloat16)
+        # causal, window, q_offset, scale, stream: the split-TF32 entry
+        # (float32) and the bf16 tensor cores' (bfloat16)
         "flash_attention_bwd_launch": (*(_P,) * 10, _I, _I, _I, _I, _I, _P,
                                        _I, _I, _I, _F, _P),
         "flash_attention_bwd_wgmma_launch": (*(_P,) * 10, _I, _I, _I, _I, _I,

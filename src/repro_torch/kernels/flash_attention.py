@@ -16,25 +16,27 @@ undefined (no caller makes one).
 ``flash_attention`` is the wrapper: on CUDA tensors it launches the
 hand-written Hopper kernel ``csrc/flash_attention.cu`` (or raises), on
 CPU tensors it runs the plain PyTorch version ``flash_attention_plain``.
-Its ``launches`` attribute counts kernel launches. The kernel has two
-routes, by type: bfloat16 runs on the tensor cores
-(``csrc/flash_attention_wgmma.cuh``: TMA loads, wgmma, P split into two
-bf16 terms for P.V), float32 on the CUDA cores. TMA needs 16-byte
-aligned bases and strides, so a bfloat16 view without them raises.
+Its ``launches`` attribute counts kernel launches, and ``routes`` which
+route each took (``route`` names it). The kernel has two routes, by
+type: bfloat16 runs on the tensor cores (``csrc/flash_attention_wgmma.
+cuh``: TMA loads, wgmma, P split into two bf16 terms for P.V,
+``"wgmma"``), float32 on the tensor cores too, each product split into
+three TF32 products (``csrc/tf32x3.cuh``: mma.sync, ``"tf32x3"``). TMA
+needs 16-byte aligned bases and strides, so a bfloat16 view without
+them raises.
 
 ``flash_attention_bwd`` is the gradient: on CUDA tensors the
 hand-written ``csrc/flash_attention_bwd.cu`` (the JAX package has no
 Pallas backward; it differentiates the jnp attention), on CPU tensors
 ``flash_attention_bwd_plain``. It counts its launches the same way, and
-in ``routes`` which route each launch took (``bwd_route`` picks it, and
+in ``routes`` which route each launch took (``route`` picks it, and
 the wrapper calls that route's own C entry): bfloat16, every head dim
 up to 256, on the tensor cores (``csrc/flash_attention_bwd_wgmma.cuh``,
-``"wgmma"``), which reads the log-sum-exp that the bfloat16 forward
-stores when asked (``return_lse``), float32 on the CUDA cores
-(``"cuda_cores"``).
+``"wgmma"``), float32 as split TF32 (``"tf32x3"``). Both read the
+log-sum-exp that the forward stores when asked (``return_lse``).
 ``ops.FlashAttention`` ties the two together for autograd.
 
-The plain version and the float32 kernel scale q by ``1/sqrt(hd)``
+The plain version and the float32 kernels scale q by ``1/sqrt(hd)``
 before the dot product, as the Pallas kernel does. The bfloat16 kernel
 scales the float32 score after the product instead (q * scale rounded
 to bf16 would lose bits), as ``models/attention.py:blockwise_attention``
@@ -56,8 +58,6 @@ LOG2E = 1.4426950408889634
 # the bfloat16 kernels' log-sum-exp rows of one (batch, head) are S rounded
 # up to this (csrc/flash_attention_wgmma.cuh's lse_rows, its block's rows)
 LSE_BLOCK = 128
-# the gradient's tensor-core route takes bfloat16 head dims up to this
-WGMMA_BWD_MAX_HEAD_DIM = 256
 # csrc/flash_attention_wgmma.cuh's ENCODE_ERROR: the launch returns it plus
 # the CUresult when a TMA tensor map is refused, minus 1 when libcuda's
 # cuTensorMapEncodeTiled entry point is missing
@@ -83,11 +83,20 @@ def lse_rows(S: int) -> int:
     return -(-S // LSE_BLOCK) * LSE_BLOCK
 
 
+def route(dtype: torch.dtype) -> str:
+    """The route of ``flash_attention`` and ``flash_attention_bwd`` on
+    CUDA tensors, by type: ``"wgmma"`` (bfloat16, bf16 tensor-core
+    products) or ``"tf32x3"`` (float32, each product as three TF32
+    tensor-core products)."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The route of ``flash_attention_bwd`` on CUDA tensors, by type and
-    head dim: ``"wgmma"`` (tensor cores) or ``"cuda_cores"``."""
-    return ("wgmma" if dtype == torch.bfloat16
-            and hd <= WGMMA_BWD_MAX_HEAD_DIM else "cuda_cores")
+    """The route of ``flash_attention_bwd`` on CUDA tensors at a head dim
+    ``hd``: ``route(dtype)``, since both routes take every head dim up
+    to ``MAX_HEAD_DIM``."""
+    del hd
+    return route(dtype)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -246,12 +255,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0, return_lse: bool = False):
     """Blockwise attention (shapes as in the module docstring). CUDA
     tensors launch ``csrc/flash_attention.cu`` (bfloat16 on the tensor
-    cores, float32 on the CUDA cores); CPU tensors take the plain
-    version. ``return_lse`` also returns each row's log-sum-exp in base
-    2 (float32, (B, H, S)): on the card only the bfloat16 route stores
-    it, as a view of a (B, H, ``lse_rows(S)``) buffer whose rows past S
-    hold 0, which the gradient's tensor-core route reads; the output is
-    bit for bit the one without it."""
+    cores in bf16, float32 on the tensor cores as split TF32); CPU
+    tensors take the plain version. ``return_lse`` also returns each
+    row's log-sum-exp in base 2 (float32, (B, H, S)), as the plain
+    version computes it: on the card both routes store it, as a view of
+    a (B, H, ``lse_rows(S)``) buffer whose rows past S hold 0, which the
+    gradient reads; the output is bit for bit the one without it."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -271,9 +280,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(f"flash_attention: {name}'s {bad} is not a "
                                  "multiple of 16 bytes, which the bfloat16 "
                                  "kernel's TMA loads need")
-    elif return_lse:
-        raise ValueError("flash_attention: return_lse needs bfloat16 on the "
-                         "card (the float32 kernel stores no log-sum-exp)")
     out = torch.empty_like(q)  # keeps q's layout (a transposed view too)
     lse = (torch.empty((B, H, lse_rows(S)), dtype=torch.float32,
                        device=q.device) if return_lse else None)
@@ -294,10 +300,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    flash_attention.routes[route(q.dtype)] += 1
     return out if lse is None else (out, lse[..., :S])
 
 
 flash_attention.launches = 0
+flash_attention.routes = {"wgmma": 0, "tf32x3": 0}
 
 
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
@@ -315,8 +323,8 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
 def _check_lse(lse: torch.Tensor, B: int, H: int, S: int) -> None:
     """Raises unless ``lse`` is what ``flash_attention(...,
     return_lse=True)`` returns for (B, H, S): a float32 (B, H, S) view at
-    the base of a (B, H, ``lse_rows(S)``) buffer, whose whole rows the
-    tensor-core route reads."""
+    the base of a (B, H, ``lse_rows(S)``) buffer, whose rows the gradient
+    reads (the bfloat16 route whole rows at a time)."""
     rows = lse_rows(S)
     if (lse.shape != (B, H, S) or lse.dtype != torch.float32
             or lse.stride() != (H * rows, rows, 1)
@@ -337,15 +345,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     module docstring; ``o`` its output, ``do`` the output's gradient,
     both (B, H, S, hd)). CUDA tensors launch ``csrc/flash_attention_bwd.
     cu`` by the route ``bwd_route`` names, recorded in ``routes``:
-    bfloat16 (hd <= 256) on the tensor cores (D = rowsum(dO o), dk and
-    dv per 128 keys (64 at a padded head dim of 256), dq per 128 query
-    rows, from the forward's ``lse``, as ``flash_attention(...,
-    return_lse=True)`` returns it; without it this route runs the
+    bfloat16 on the tensor cores in bf16 (D = rowsum(dO o), dk and dv
+    per 128 keys (64 at a padded head dim of 256), dq per 128 query
+    rows), float32 on the tensor cores as split TF32 (dq and D with 16
+    query rows a warp, then dk and dv with 16 keys a warp). Both read
+    the forward's ``lse``, as ``flash_attention(..., return_lse=True)``
+    returns it; without it the wrapper runs the
     forward kernel once more to get it, a launch counted in
-    ``flash_attention.launches``), float32 on the CUDA cores (the row
-    statistics, dk and dv per key tile, dq per query tile; it needs no
-    ``lse``). Float32 accumulation and no atomics on both, so a
-    launch repeats bit for bit. CPU tensors take
+    ``flash_attention.launches``. Float32 accumulation and no atomics on
+    both, so a launch repeats bit for bit. CPU tensors take
     ``flash_attention_bwd_plain`` (``lse`` unused). The gradients have
     the inputs' type and layout (a transposed view's strides too)."""
     _check(q, k, v)
@@ -372,19 +380,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if T == 0:
         return dq.zero_(), dk, dv
-    route = bwd_route(q.dtype, hd)
-    if route == "wgmma":
+    path = bwd_route(q.dtype, hd)
+    if path == "wgmma":
         q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
-        if lse is None:
-            _, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, return_lse=True)
-        _check_lse(lse, B, H, S)
-        dd = torch.empty((B * H * lse_rows(S),), dtype=torch.float32,
-                         device=q.device)
-    else:
-        lse = torch.empty((B * H * S,), dtype=torch.float32,
-                          device=q.device)
-        dd = torch.empty_like(lse)
+    if lse is None:
+        _, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, return_lse=True)
+    _check_lse(lse, B, H, S)
+    dd = torch.empty((B * H * lse_rows(S),), dtype=torch.float32,
+                     device=q.device)
     views = (q, k, v, o, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(x for t in views
                                          for x in t.stride()[:3]))
@@ -395,7 +399,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(bool(causal)), int(window), int(q_offset),
             1.0 / float(hd) ** 0.5)
     # one C entry a route: the route counted below is the one launched
-    if route == "wgmma":
+    if path == "wgmma":
         err = lib.flash_attention_bwd_wgmma_launch(*args, stream)
     else:
         err = lib.flash_attention_bwd_launch(*args, stream)
@@ -407,9 +411,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.routes[route] += 1
+    flash_attention_bwd.routes[path] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.routes = {"wgmma": 0, "cuda_cores": 0}
+flash_attention_bwd.routes = {"wgmma": 0, "tf32x3": 0}

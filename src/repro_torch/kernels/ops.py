@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import (bwd_route, flash_attention,
-                              flash_attention_bwd)
+from .flash_attention import flash_attention, flash_attention_bwd
 from .imc_matmul import imc_matmul
 
 
@@ -34,17 +33,16 @@ def imc_gemm(x_q: torch.Tensor, w: torch.Tensor, xbar_rows: int = 256,
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its gradient. The forward is the forward
     kernel (or its plain version on CPU tensors), saving q, k, v, the
-    output and, where the gradient's tensor-core route will read it
-    (CUDA bfloat16, an input needing a gradient), the
-    forward's log-sum-exp; the backward is ``flash_attention_bwd``: the
+    output and, where the gradient kernel will read it (CUDA tensors,
+    either route, an input needing a gradient), the forward's
+    log-sum-exp; the backward is ``flash_attention_bwd``: the
     hand-written gradient kernel on CUDA tensors, its plain version on
     CPU tensors, never a fallback. Inputs are (B, H, L, hd) views."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
         lse = None
-        if (q.is_cuda and bwd_route(q.dtype, q.shape[-1]) == "wgmma"
-                and any(ctx.needs_input_grad[:3])):
+        if q.is_cuda and any(ctx.needs_input_grad[:3]):
             out, lse = flash_attention(q, k, v, causal=causal,
                                        window=window, q_offset=q_offset,
                                        return_lse=True)

@@ -41,7 +41,7 @@ from repro_torch.kernels.flash_attention import (bwd_route, flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain,
-                                                 lse_rows)
+                                                 lse_rows, route)
 from repro_torch.kernels.imc_matmul import imc_matmul, imc_matmul_plain
 from repro_torch.kernels.ops import flash_mha, imc_gemm
 from repro_torch.models import init_params
@@ -377,6 +377,16 @@ FLASH_SHAPES = [  # (B, S, T, H, hd, causal, window, q_offset, dtype)
     (1, 300, 300, 2, 256, True, 100, 0, torch.bfloat16),
     (1, 200, 200, 2, 200, True, 0, 0, torch.bfloat16),
     (2, 37, 120, 3, 256, True, 0, 83, torch.bfloat16),
+    # the float32 route (split TF32): hubert-xlarge's whole attention at
+    # one batch row (16 heads of 80, not causal, 8 query blocks), the
+    # widest head with a window and with a query offset at S != T, a head
+    # dim of 200 run 256 wide, and an odd head dim (zero-padded to 16;
+    # rows of 28 bytes, copied 4 bytes at a time)
+    (1, 1024, 1024, 16, 80, False, 0, 0, torch.float32),
+    (1, 300, 300, 2, 256, True, 100, 0, torch.float32),
+    (2, 37, 120, 3, 256, True, 0, 83, torch.float32),
+    (1, 200, 200, 2, 200, True, 0, 0, torch.float32),
+    (1, 65, 65, 2, 7, True, 0, 0, torch.float32),
 ]
 
 
@@ -393,9 +403,12 @@ def test_flash_kernel_matches_plain(cuda, B, S, T, H, hd, causal, window,
     q, k, v = (torch.randn((B, L, H, hd), generator=gen, device=cuda
                            ).to(dt) for L in (S, T, T))
     before = flash_attention.launches
+    routed = dict(flash_attention.routes)
     got = flash_mha(q, k, v, causal=causal, window=window,
                     q_offset=q_offset)
     assert flash_attention.launches == before + 1
+    assert flash_attention.routes == {
+        r: n + (r == route(dt)) for r, n in routed.items()}
     want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=causal,
                                  window=window, q_offset=q_offset
@@ -418,15 +431,15 @@ def test_flash_kernel_matches_plain(cuda, B, S, T, H, hd, causal, window,
 
 
 @pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset,dt",
-                         [x for x in FLASH_SHAPES if x[-1] == torch.bfloat16])
+                         FLASH_SHAPES)
 def test_flash_forward_lse_is_bitwise_and_matches_plain(
         cuda, B, S, T, H, hd, causal, window, q_offset, dt):
-    """The bfloat16 forward asked for its log-sum-exp: the output is
-    bit for bit the one without the store, and the lse (base 2, rows of
-    ``lse_rows(S)``, 0 past S) is within 5e-5 of the plain version's
+    """The forward asked for its log-sum-exp, on either route: the output
+    is bit for bit the one without the store, and the lse (base 2, rows
+    of ``lse_rows(S)``, 0 past S) is within 5e-5 of the plain version's
     ``(m + log l) * log2 e`` in float32 (the scores summed in another
-    order, ex2/log2 on the card against exp/log: float32 rounding of
-    values of a few units)."""
+    order, ex2/log2 or split TF32 on the card against exp/log: float32
+    rounding of values of a few units)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(S + T + hd + 3)
     q, k, v = (torch.randn((B, H, L, hd), generator=gen, device=cuda
@@ -454,14 +467,13 @@ def test_flash_forward_lse_is_bitwise_and_matches_plain(
 def test_flash_backward_kernel_matches_plain(cuda, B, S, T, H, hd, causal,
                                              window, q_offset, dt):
     """The gradient through ``flash_mha`` on the card (the backward
-    kernel, one launch, on the route its type picks: the tensor cores
-    for bfloat16 at every head dim up to 256, the CUDA cores for float32)
-    vs ``flash_attention_bwd_plain`` in float32 on the same inputs:
-    float32 within 1e-4 of each gradient's largest entry; bfloat16 every
-    element within two bf16 steps of the plain value plus 1e-4. A second
-    launch on the same inputs (the tensor-core route getting its
-    log-sum-exp from one more forward launch) is bitwise equal (no
-    atomics)."""
+    kernel, one launch, on the route its type picks at every head dim up
+    to 256: bf16 products for bfloat16, split TF32 for float32) vs
+    ``flash_attention_bwd_plain`` in float32 on the same inputs: float32
+    within 1e-4 of each gradient's largest entry; bfloat16 every element
+    within two bf16 steps of the plain value plus 1e-4. A second launch
+    on the same inputs (getting its log-sum-exp from one more forward
+    launch) is bitwise equal (no atomics)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(S + T + hd + 1)
     q, k, v, do = (torch.randn((B, L, H, hd), generator=gen, device=cuda
@@ -469,14 +481,14 @@ def test_flash_backward_kernel_matches_plain(cuda, B, S, T, H, hd, causal,
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = flash_mha(q, k, v, causal=causal, window=window,
                     q_offset=q_offset)
-    route = "wgmma" if dt == torch.bfloat16 and hd <= 256 else "cuda_cores"
-    assert bwd_route(dt, hd) == route
+    path = "wgmma" if dt == torch.bfloat16 else "tf32x3"
+    assert bwd_route(dt, hd) == path
     before = flash_attention_bwd.launches
     routed = dict(flash_attention_bwd.routes)
     got = torch.autograd.grad(out, (q, k, v), do)
     assert flash_attention_bwd.launches == before + 1
     assert flash_attention_bwd.routes == {
-        r: n + (r == route) for r, n in routed.items()}
+        r: n + (r == path) for r, n in routed.items()}
     views = [x.detach().transpose(1, 2) for x in (q, k, v, out)]
     want = flash_attention_bwd_plain(
         *(x.float() for x in views), do.transpose(1, 2).float(),
@@ -584,7 +596,8 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
 def test_flash_bf16_rejects_views_tma_cannot_take(cuda):
     """The bfloat16 route loads through TMA, which needs 16-byte-aligned
     bases and strides: a view without them raises (no fallback) before
-    any launch; float32 takes the same view on the CUDA cores."""
+    any launch; float32 takes the same view (cp.async copies 4 bytes at a
+    time where 16 would cross a row)."""
     q = torch.randn((1, 2, 16, 4), device=cuda)  # 8-byte rows in bf16
     before = flash_attention.launches
     with pytest.raises(ValueError, match="sequence stride"):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.kernels.adc import adc_quantize as jax_adc_quantize
+from repro.kernels.flash_attention import flash_attention as jax_pallas_flash
 from repro.kernels.imc_fused import imc_fused_gemm as jax_imc_fused_gemm
 from repro.kernels.imc_fused import ir_drop_factor as jax_ir_drop_factor
 from repro.kernels.imc_fused import sigma_of_g as jax_sigma_of_g
@@ -23,6 +24,7 @@ from repro.kernels.imc_matmul import imc_matmul as jax_imc_matmul
 from repro.kernels.ops import flash_mha as jax_flash_mha
 from repro.kernels.ops import imc_gemm as jax_imc_gemm
 from repro.kernels.ref import attention_ref, imc_fused_ref, imc_matmul_ref
+from repro.models.attention import blockwise_attention
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import imc_matmul as matmul_mod
@@ -280,14 +282,15 @@ def test_build_paths_stay_in_checkout():
     the predicated bit-plane adds of csrc/predicated_add.cuh, and the
     fused one draws its noise with csrc/threefry.cuh; the flash
     attention kernel includes its bfloat16 tensor-core route,
-    csrc/flash_attention_wgmma.cuh; its gradient,
+    csrc/flash_attention_wgmma.cuh, and the split-TF32 helpers of its
+    float32 route, csrc/tf32x3.cuh; its gradient,
     csrc/flash_attention_bwd.cu, includes its own tensor-core route,
     csrc/flash_attention_bwd_wgmma.cuh, which includes the forward's
-    header for its PTX helpers. The RG-LRU scan and its gradient share
-    csrc/rglru_coeffs.cuh (loads and stores, the parameters, a step's
-    coefficients, the carry flags). The decode attention and the mLSTM
-    and sLSTM scan kernels and their backward kernels include no header
-    of their own."""
+    header for its PTX helpers, and csrc/tf32x3.cuh. The RG-LRU scan and
+    its gradient share csrc/rglru_coeffs.cuh (loads and stores, the
+    parameters, a step's coefficients, the carry flags). The decode
+    attention and the mLSTM and sLSTM scan kernels and their backward
+    kernels include no header of their own."""
     assert set(build.SIGNATURES) == {"imc_fused", "imc_matmul",
                                      "flash_attention", "flash_attention_bwd",
                                      "decode_attention", "rglru_scan",
@@ -303,8 +306,9 @@ def test_build_paths_stay_in_checkout():
             "rglru_scan_bwd": ["rglru_coeffs.cuh"],
             "mlstm_scan": [], "slstm_scan": [], "mlstm_scan_bwd": [],
             "slstm_scan_bwd": [],
-            "flash_attention": ["flash_attention_wgmma.cuh"],
-            "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh"],
+            "flash_attention": ["flash_attention_wgmma.cuh", "tf32x3.cuh"],
+            "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh",
+                                    "tf32x3.cuh"],
             "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
             "imc_matmul": ["adc.cuh", "predicated_add.cuh"]}[name]
         assert build._headers(src) == {
@@ -312,9 +316,10 @@ def test_build_paths_stay_in_checkout():
             "rglru_scan_bwd": ["rglru_coeffs.cuh"],
             "mlstm_scan": [], "slstm_scan": [], "mlstm_scan_bwd": [],
             "slstm_scan_bwd": [],
-            "flash_attention": ["flash_attention_wgmma.cuh"],
+            "flash_attention": ["flash_attention_wgmma.cuh", "tf32x3.cuh"],
             "flash_attention_bwd": ["flash_attention_bwd_wgmma.cuh",
-                                    "flash_attention_wgmma.cuh"],
+                                    "flash_attention_wgmma.cuh",
+                                    "tf32x3.cuh"],
             "imc_fused": ["adc.cuh", "predicated_add.cuh", "threefry.cuh"],
             "imc_matmul": ["adc.cuh", "predicated_add.cuh"]}[name]
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
@@ -863,6 +868,194 @@ def test_bf16_gradient_needs_each_product_split(
     assert [o for i, o in enumerate(over) if i != grad] == [0, 0]
 
 
+# the float32 route (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu,
+# csrc/tf32x3.cuh): (B, S, T, H, hd, causal, window, q_offset) of hubert's
+# bidirectional head of 80, the widest head (16-key tiles), a window, a
+# query offset with S != T, S != T not causal, and a head dim the kernels
+# zero-pad (to 32)
+TF32_CASES = [(1, 128, 128, 2, 80, False, 0, 0),
+              (1, 96, 96, 2, 256, True, 0, 0),
+              (1, 160, 160, 2, 80, True, 48, 0),
+              (2, 37, 120, 3, 64, True, 0, 83),
+              (1, 64, 96, 2, 80, False, 0, 0),
+              (1, 40, 40, 2, 20, True, 0, 0)]
+# the head dims the float32 kernels are instantiated at (a head dim runs at
+# the first that holds it)
+TF32_WIDTHS = (16, 32, 64, 80, 96, 128, 256)
+
+
+def _tf32(x, rounded=True):
+    """``x`` (float32) as TF32, by bit operations: rounded as the kernels
+    round hi (add half a TF32 ulp, then clear the 13 low mantissa bits:
+    nearest, ties away from zero), or with the low bits cleared alone, as
+    the tensor core reads lo."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (0x1000 if rounded else 0)) & -0x2000).view(
+        torch.float32)
+
+
+def _mm_tf32x3(a, b, terms=3):
+    """``a @ b`` ((..., M, K) x (..., K, N), float32) as the kernels'
+    mma.sync m16n8k8 products: each operand split into hi = tf32(x)
+    and lo = x - hi, which the tensor core reads truncated to TF32; per
+    k-step of 8, lo_a hi_b, hi_a lo_b and hi_a hi_b (each exact in the
+    tensor core: float64 here), added to the float32 accumulator in that
+    order. ``terms=1`` keeps hi_a hi_b alone (plain TF32)."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    pairs = [(ahi, bhi)]
+    if terms == 3:
+        pairs = [(_tf32(a - ahi, False), bhi), (ahi, _tf32(b - bhi, False)),
+                 (ahi, bhi)]
+    out = torch.zeros((*a.shape[:-1], b.shape[-1]))
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in pairs:
+            out = out + (x[..., k0:k0 + 8].double()
+                         @ y[..., k0:k0 + 8, :].double()).float()
+    return out
+
+
+def _emulate_tf32x3(q, k, v, do, causal, window, q_offset, terms=3):
+    """The float32 kernels' arithmetic on (BH, L, hd) float32 inputs, in
+    plain torch. Forward: the head dim zero-padded to the kernels' width
+    (``TF32_WIDTHS``), q scaled before the product, an online softmax
+    over key tiles of 32 (16 at 256) with S = q K^T and P V as split
+    TF32 (``_mm_tf32x3``), o = acc / max(l, 1e-30) and the base-2
+    log-sum-exp (m + log(max(l, 1e-30))) * log2 e. Gradient (given
+    ``do``): D = rowsum(dO o), S and dP as split TF32, P = exp2(S log2 e
+    - lse) under the mask, dS = P (dP - D), then dq = scale dS K, dk =
+    dS^T (q scale), dv = P^T dO as split TF32, their k-steps over 8 keys
+    or 8 query rows in order. Up to float32 summation order inside an
+    mma this is what the kernels compute. Returns (o, lse) or, with
+    ``do``, (o, lse, (dq, dk, dv))."""
+    BH, S, hd = q.shape
+    T = k.shape[1]
+    hdp = next(w for w in TF32_WIDTHS if hd <= w)
+    pad = (lambda x: torch.nn.functional.pad(x, (0, hdp - hd)))
+    scale = 1.0 / hd ** 0.5
+    qs, kp, vp = pad(q) * scale, pad(k), pad(v)
+    bk = 32 if hdp <= 128 else 16
+    vis = flash_mod._visible(torch.arange(S) + q_offset, torch.arange(T),
+                             T, causal, window)[None]
+    m = torch.full((BH, S), flash_mod.NEG_INF)
+    l = torch.zeros((BH, S))
+    acc = torch.zeros((BH, S, hdp))
+    for j0 in range(0, T, bk):
+        keys = slice(j0, j0 + bk)
+        s = torch.where(vis[..., keys], _mm_tf32x3(
+            qs, kp[:, keys].transpose(1, 2), terms), flash_mod.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _mm_tf32x3(p, vp[:, keys], terms)
+        m = m_new
+    den = torch.clamp(l, min=1e-30)
+    o = (acc / den[..., None])[..., :hd]
+    lse = (m + torch.log(den)) * flash_mod.LOG2E
+    if do is None:
+        return o, lse
+    dd = (do * o).sum(-1)
+    s = _mm_tf32x3(qs, kp.transpose(1, 2), terms)
+    dp = _mm_tf32x3(pad(do), vp.transpose(1, 2), terms)
+    x = (s.double() * flash_mod.LOG2E - lse[..., None].double()).float()
+    p = torch.where(vis, torch.exp2(x), 0.0)
+    ds = p * (dp - dd[..., None])
+    dq = _mm_tf32x3(ds, kp, terms) * scale
+    dk = _mm_tf32x3(ds.transpose(1, 2), qs, terms)
+    dv = _mm_tf32x3(p.transpose(1, 2), pad(do), terms)
+    return o, lse, tuple(g[..., :hd] for g in (dq, dk, dv))
+
+
+def _tf32_case(B, S, T, H, hd, seed):
+    """Seeded (B, L, H, hd) float32 q, k, v and dO as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, L, H, hd)).astype(np.float32)
+            for L in (S, T, T, S)]
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset", TF32_CASES)
+def test_tf32x3_forward_matches_jax(B, S, T, H, hd, causal, window,
+                                   q_offset):
+    """The float32 forward kernel's arithmetic (split TF32) against the
+    JAX package on the same seeded inputs at the float32 bound, atol
+    2e-5: against ``blockwise_attention`` always, and against the Pallas
+    kernel (interpret mode, 32-row blocks, through the reference's
+    ``flash_mha`` padding) where that pads correctly (no query offset;
+    causal, or T a whole number of blocks). With one TF32 product (no
+    split) the error is well above the bound: the split is needed."""
+    q, k, v, _ = _tf32_case(B, S, T, H, hd, S + T + hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ins = [torch.from_numpy(_fold(a)) for a in (q, k, v)]
+    got, _ = _emulate_tf32x3(*ins, None, **kw)
+    want = _fold(np.asarray(blockwise_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), **kw)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    if q_offset == 0 and (causal or T % 32 == 0):
+        pallas = jax_flash_mha(*(jnp.asarray(a) for a in (q, k, v)),
+                               causal=causal, window=window, block_q=32,
+                               block_k=32)
+        np.testing.assert_allclose(got.numpy(), _fold(np.asarray(pallas)),
+                                   rtol=0, atol=2e-5)
+    once, _ = _emulate_tf32x3(*ins, None, **kw, terms=1)
+    assert np.abs(once.numpy() - want).max() > 1e-4
+
+
+def test_tf32x3_forward_matches_pallas_kernel_unpadded():
+    """The Pallas ``flash_attention`` itself (interpret mode, no wrapper)
+    on a (BH, S, hd) fold whose S and T are whole 32-row blocks, at
+    hubert's head of 80, not causal: the emulated float32 kernel within
+    2e-5."""
+    q, k, v, _ = _tf32_case(1, 128, 128, 2, 80, 3)
+    folded = [_fold(a) for a in (q, k, v)]
+    want = np.asarray(jax_pallas_flash(*(jnp.asarray(a) for a in folded),
+                                       causal=False, block_q=32,
+                                       block_k=32, interpret=True))
+    got, _ = _emulate_tf32x3(*(torch.from_numpy(a) for a in folded), None,
+                             causal=False, window=0, q_offset=0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset", TF32_CASES)
+def test_tf32x3_gradient_matches_jax(B, S, T, H, hd, causal, window,
+                                    q_offset):
+    """The float32 gradient kernels' arithmetic (split TF32, reading the
+    emulated forward's output and log-sum-exp) against ``jax.vjp`` of
+    the JAX package's ``blockwise_attention`` on the same seeded inputs:
+    each gradient within 1e-4 of its largest entry (chip_smoke.py's
+    FLASH_BWD_REL)."""
+    q, k, v, do = _tf32_case(B, S, T, H, hd, S + T + hd + 1)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _, vjp = jax.vjp(lambda a, b, c: blockwise_attention(a, b, c, **kw),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = [_fold(np.asarray(g)) for g in vjp(jnp.asarray(do))]
+    _, _, got = _emulate_tf32x3(*(torch.from_numpy(_fold(a))
+                                  for a in (q, k, v, do)), **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,causal,window,q_offset",
+                         TF32_CASES[:4])
+def test_float32_lse_on_cpu_is_the_kernels_convention(
+        B, S, T, H, hd, causal, window, q_offset):
+    """``flash_attention(..., return_lse=True)`` on float32 CPU tensors
+    (the plain version) returns what the float32 kernel stores and its
+    gradient reads: (B, H, S) float32, base 2, (m + log(max(l, 1e-30)))
+    * log2 e of the scaled scores; the emulated kernel's lse agrees
+    within 2e-5."""
+    q, k, v, _ = (torch.from_numpy(a).transpose(1, 2) for a in
+                  _tf32_case(B, S, T, H, hd, S + hd))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _, lse = flash_mod.flash_attention(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    _, emulated = _emulate_tf32x3(*(x.reshape(B * H, -1, hd)
+                                    for x in (q, k, v)), None, **kw)
+    np.testing.assert_allclose(lse.reshape(B * H, S).numpy(),
+                               emulated.numpy(), rtol=0, atol=2e-5)
+
+
 def test_flash_plain_lse_matches_logsumexp():
     """``flash_attention_plain``'s log-sum-exp in base 2 (what the bf16
     kernel stores for the gradient) against ``jax.nn.logsumexp`` of the
@@ -916,8 +1109,8 @@ def test_every_signature_is_a_c_entry_of_its_source():
     """Each launch function ``build.SIGNATURES`` declares is an ``extern
     "C"`` entry of its library's source with as many parameters as
     argtypes: the gradient has one entry a route
-    (``flash_attention_bwd_launch`` for the CUDA cores,
-    ``flash_attention_bwd_wgmma_launch`` for the tensor cores), so the
+    (``flash_attention_bwd_launch`` for float32 as split TF32,
+    ``flash_attention_bwd_wgmma_launch`` for bf16), so the
     route the wrapper records is the entry it called."""
     assert set(build.SIGNATURES["flash_attention_bwd"]) == {
         "flash_attention_bwd_launch", "flash_attention_bwd_wgmma_launch"}
@@ -930,16 +1123,19 @@ def test_every_signature_is_a_c_entry_of_its_source():
 
 
 def test_bwd_route_by_type_and_head_dim():
-    """The gradient's route is chosen by type and head dim alone: every
-    bfloat16 head dim up to 256 on the tensor cores, float32 on the CUDA
-    cores."""
+    """The gradient's route is chosen by type alone, at every head dim up
+    to 256: bfloat16 on the tensor cores in bf16, float32 on the tensor
+    cores as split TF32; the forward's route is the same."""
     route = flash_mod.bwd_route
     assert route(torch.bfloat16, 128) == "wgmma"
     assert route(torch.bfloat16, 8) == "wgmma"
     assert route(torch.bfloat16, 129) == "wgmma"
     assert route(torch.bfloat16, 256) == "wgmma"
-    assert route(torch.float32, 64) == "cuda_cores"
-    assert route(torch.float32, 256) == "cuda_cores"
+    assert route(torch.float32, 64) == "tf32x3"
+    assert route(torch.float32, 256) == "tf32x3"
+    assert flash_mod.route(torch.float32) == "tf32x3"
+    assert set(flash_mod.flash_attention.routes) == set(
+        flash_mod.flash_attention_bwd.routes) == {"wgmma", "tf32x3"}
     assert [flash_mod.lse_rows(S) for S in (1, 128, 129, 4096)] == [
         128, 128, 256, 4096]
 

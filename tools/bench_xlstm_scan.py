@@ -17,7 +17,7 @@ Prints the card's name and power limit, then:
   alone or with the states its saving launch stores); then the sLSTM
   forward at (1, 4096, 1024) bf16, and its saving launch beside it where
   the package has one; without ``--src`` also the mLSTM backward's
-  device time by kernel (``chip_smoke.mlstm_bwd_split``, the profiler)
+  device time by kernel (``chip_smoke.kernel_split``, the profiler)
   at the first shape, then the same for its diagnostic builds, each an
   edited copy of ``csrc/mlstm_scan_bwd.cu`` called through the wrapper
   in its place (its results are wrong: it times what is left):
@@ -336,10 +336,10 @@ def bwd_times(torch, cs, ms, ss, dev, detail: bool) -> None:
     from repro_torch.kernels import build
 
     def split_line(label):
-        split = cs.mlstm_bwd_split(torch, lambda: ms.mlstm_scan_backward(
-            *calls[0]), 16)
-        other = cs.mlstm_bwd_split(torch, lambda: ms.mlstm_scan_backward(
-            *calls[1]), 64)
+        split = cs.kernel_split(torch, lambda: ms.mlstm_scan_backward(
+            *calls[0]), 16, cs.MLSTM_BWD_KERNELS)
+        other = cs.kernel_split(torch, lambda: ms.mlstm_scan_backward(
+            *calls[1]), 64, cs.MLSTM_BWD_KERNELS)
         print(f"mlstm_scan_backward {MLSTM_BWD_SHAPES[0]} {label} by kernel "
               f"(profiler, ms a call): {cs.split_text(split, 16)}; "
               f"{MLSTM_BWD_SHAPES[1]} {cs.split_text(other, 64)}", flush=True)
