@@ -429,7 +429,20 @@ glm4-9b (cut in depth) trained, with the gradient compression of
      path on its own data pipeline, whose float32 frames promote the
      trunk to float32: 48 gradient and 96 forward flash launches a step,
      every one on the split-TF32 float32 routes; finite losses, the
-     median step, frames/s, peak memory and a profiled step by kind.
+     median step, frames/s, peak memory and a profiled step by kind;
+ 46. the step split over "model" on the card: rank 0 of a fake (1, 4)
+     process group (``launch.dryrun.fake_world``, whose collectives move
+     nothing, so the values are not checked) trains the whole
+     llama-3.2-vision (40 layers, bf16) at 8 x 128 for 2 steps on its
+     shards: 8 of 32 query heads at every flash call (80 forward and 40
+     gradient launches a step); the allocator's peak under the card's
+     memory and within 10% of the dry run's argument + temp bytes of
+     that cell on (1, 4) (in a subprocess); each step's device span by
+     CUDA events. Then two processes on the one card over gloo (its
+     collectives through the host) train reduced qwen3-4b a step on a
+     (1, 2) mesh, held to the one-process step within the CPU tests'
+     bound; both ranks must run to the end with the same loss and grad
+     norm.
 
 Every phase raises on failure and the script then exits non-zero. The
 line before the last is a JSON object with one entry per kernel; the
@@ -5428,6 +5441,7 @@ class FlashProbe:
     def __init__(self):
         from repro_torch.kernels import ops
         self.ops, self.calls = ops, {"fwd": [], "bwd": []}
+        self.heads = {"fwd": [], "bwd": []}
 
     def __enter__(self):
         self.saved = (self.ops.flash_attention, self.ops.flash_attention_bwd)
@@ -5435,10 +5449,12 @@ class FlashProbe:
 
         def f_rec(q, k, v, *a, causal=True, **kw):
             self.calls["fwd"].append((bool(causal), q.shape[2], k.shape[2]))
+            self.heads["fwd"].append(q.shape[1])
             return fwd(q, k, v, *a, causal=causal, **kw)
 
         def b_rec(q, k, v, *a, causal=True, **kw):
             self.calls["bwd"].append((bool(causal), q.shape[2], k.shape[2]))
+            self.heads["bwd"].append(q.shape[1])
             return bwd(q, k, v, *a, causal=causal, **kw)
         self.ops.flash_attention, self.ops.flash_attention_bwd = f_rec, b_rec
         return self
@@ -5984,6 +6000,287 @@ def phase_mesh_train(torch, fa, dev) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+# phase 46: the step split over "model": rank 0 of a fake (1, SPLIT_M)
+# group trains the whole llama-3.2-vision SPLIT_STEPS steps at SPLIT_CELL
+SPLIT_M = 4
+SPLIT_CELL = ("train_8x128", 128, 8)
+SPLIT_STEPS = 2
+SPLIT_DRYRUN = r"""
+import json, sys
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+name, seq, batch, m = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    int(sys.argv[4])
+with dryrun.fake_world(m):
+    trace, aux = dryrun.lower_cell(get_config("llama32_vision_11b"),
+                                   ShapeSpec(name, seq, batch, "train"),
+                                   make_host_mesh(model=m))
+    rec = trace()
+rec.pop("events")
+print(json.dumps({**rec, **aux}))
+"""
+# one rank of a (1, 2) gloo mesh on the card: a reduced qwen3-4b step
+# split over "model", and (rank 0) the one-process step from the same
+# weights, held to the CPU tests' bound (tests/test_torch_mesh_train.py
+# ``_check_step``, float32)
+SPLIT_GLOO = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.data import SyntheticTokenPipeline
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import init_params
+from repro_torch.parallel.tensor_parallel import all_gather, model_dim
+from repro_torch.train import loop
+rank, store = int(sys.argv[1]), sys.argv[2]
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=2)
+cfg = get_config("qwen3_4b", reduced=True)
+kw = dict(peak_lr=1e-2, warmup=2, total_steps=10)
+lr = kw["peak_lr"]
+
+
+def fresh():
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    p = init_params(gen, cfg)
+    with torch.no_grad():
+        for x in p.parameters():
+            if not x.any():
+                x.copy_(torch.randn(x.shape, generator=gen, device=dev) * 0.2)
+    return p
+
+
+batch = SyntheticTokenPipeline(cfg, 2, 16, seed=3, process_index=0,
+                               process_count=1).next_batch()
+mesh = make_host_mesh(model=2, device_type="cuda")
+group = mesh.device_mesh.get_group("model")
+params = fresh()
+state = loop.init_train_state(params, loop.train_state_shardings(
+    cfg, mesh, params))
+state, m = loop.make_train_step(cfg, mesh=mesh, **kw)(state, batch)
+
+
+def gathered(x):
+    d = model_dim(x)
+    loc = x.to_local().detach()
+    return loc if d is None else all_gather(loc, d, group, 2)
+
+
+got = {n: gathered(p) for n, p in state.params.named_parameters()}
+out = {"rank": rank, "loss": float(m["loss"]),
+       "grad_norm": float(m["grad_norm"])}
+if rank == 0:
+    one = loop.init_train_state(fresh())
+    one, m1 = loop.make_train_step(cfg, **kw)(one, batch)
+    out["one"] = [float(m1["loss"]), float(m1["grad_norm"])]
+    worst, bad = 0.0, []
+    for n, p in one.params.named_parameters():
+        m_hat = one.opt.m[n].abs() / 0.1
+        ill = (m_hat > 0) & (m_hat < 1e-6)
+        diff = (got[n].float() - p.detach().float()).abs()
+        bound = torch.where(ill, 2 * lr, 2e-3 * lr)
+        worst = max(worst, float((diff / bound).max()))
+        if bool((diff > bound).any()):
+            bad.append(n)
+    out["worst"], out["bad"] = worst, bad
+print(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+
+def split_flash_times(torch, fa, dev, B, S, H, hd) -> dict:
+    """The flash kernels at a rank's local heads of phase 46's self
+    attention ((B, S, H, hd) bf16, causal): each checked against its
+    plain version (``flash_check``, ``flash_bwd_check``), then timed by
+    CUDA events beside the plain versions, SDPA's forward and backward
+    and their bounds."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(46)
+    q, k, v, do = flash_bwd_inputs(torch, gen, B, S, S, H, hd, "bfloat16",
+                                   dev)
+    name = f"B={B} S=T={S} H={H} hd={hd} causal bfloat16"
+    err = flash_check(torch, fa, name, q, k, v, True, 0, "bfloat16")[0]
+    bwd_err = flash_bwd_check(torch, fa, name, q, k, v, do, True, 0,
+                              "bfloat16", 0)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = fa.flash_attention(qt, kt, vt, return_lse=True)
+    fwd = {"ms": time_ms(torch, lambda: fa.flash_attention(
+        qt, kt, vt, return_lse=True), reps=50),
+        "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+            qt, kt, vt), reps=1, windows=3),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=50),
+        "max_abs_err": err, **flash_bound_ms(S, S, B * H, hd, True, 0, 2)}
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    sdpa = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    bwd = {"ms": time_ms(torch, lambda: fa.flash_attention_bwd(
+        qt, kt, vt, out, dot, lse=lse), reps=50),
+        "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            qt, kt, vt, out, dot), reps=1, windows=3),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (ql, kl, vl), dot, retain_graph=True), reps=20),
+        "max_abs_err": bwd_err,
+        **flash_bwd_bound_ms(S, S, B * H, hd, True, 0, 2)}
+    for label, t in (("flash_attention", fwd),
+                     ("flash_attention_bwd (saved lse)", bwd)):
+        log(f"{label} at a rank's local heads, {name}: max_abs_err "
+            f"{t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{t['flops'] / 1e9:.3f} GFLOP, {t['bytes'] / 1e6:.2f} MB); "
+            f"{card_line()}")
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def phase_split_gloo(torch) -> dict:
+    """Phase 46's second part: SPLIT_GLOO in two processes on the one
+    card. Returns the ranks' results; raises when either did not run to
+    the end."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", SPLIT_GLOO, str(r), store], cwd=HERE,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=240) for p in procs]
+        except subprocess.TimeoutExpired:
+            outs = None
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+    if outs is None or any(p.returncode for p in procs):
+        tail = "timed out" if outs is None else "\n".join(
+            f"rank {r}: exit {p.returncode}\n{e[-1500:]}"
+            for r, (p, (_, e)) in enumerate(zip(procs, outs)))
+        raise RuntimeError("split step over gloo, 2 processes on the one "
+                           f"card: not run to the end: {tail}")
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    if [r["rank"] for r in ranks] != [0, 1]:
+        raise RuntimeError(f"split step over gloo: ranks {ranks}")
+    return ranks
+
+
+def phase_split_train(torch, fa, dev) -> dict:
+    """Phase 46 (the module docstring's item)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import loop
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    dry = subprocess.Popen(
+        [sys.executable, "-c", SPLIT_DRYRUN, *map(str, SPLIT_CELL),
+         str(SPLIT_M)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        cfg = get_config("llama32_vision_11b")
+        _, S, B = SPLIT_CELL
+        heads = cfg.n_heads // SPLIT_M
+        torch.cuda.empty_cache()
+        with fake_world(SPLIT_M):
+            mesh = make_host_mesh(model=SPLIT_M, device_type="cuda")
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(46)
+            params = init_params(gen, cfg)
+            set_gates(torch, params, gen)
+            state = loop.init_train_state(params, loop.train_state_shardings(
+                cfg, mesh, params))
+            del params
+            step_fn = loop.make_train_step(cfg, mesh=mesh)
+            pipe = SyntheticTokenPipeline(cfg, B, S, seed=46,
+                                          process_index=0, process_count=1)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            built = time.perf_counter() - t0
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            fa.flash_attention.launches = 0
+            fa.flash_attention_bwd.launches = 0
+            walls, spans = [], []
+            with FlashProbe() as probe:
+                for _ in range(SPLIT_STEPS):
+                    batch = pipe.next_batch()
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    t1 = time.perf_counter()
+                    ev[0].record()
+                    state, _ = step_fn(state, batch)
+                    ev[1].record()
+                    torch.cuda.synchronize(dev)
+                    walls.append(time.perf_counter() - t1)
+                    spans.append(ev[0].elapsed_time(ev[1]))
+            peak = torch.cuda.max_memory_allocated(dev)
+            fwd = fa.flash_attention.launches
+            bwd = fa.flash_attention_bwd.launches
+            del state, step_fn
+        torch.cuda.empty_cache()
+        o, e = dry.communicate(timeout=600)
+    finally:
+        dry.kill()
+        dry.wait()
+    if dry.returncode != 0:
+        raise RuntimeError(f"split dry run: exit {dry.returncode}\n"
+                           f"{o[-3000:]}\n{e[-3000:]}")
+    cell = json.loads(o.strip().splitlines()[-1])
+    want = cell["memory"]["argument_size_in_bytes"] + \
+        cell["memory"]["temp_size_in_bytes"]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    n = cfg.n_layers * SPLIT_STEPS
+    seen = set(probe.heads["fwd"]) | set(probe.heads["bwd"])
+    if fwd != 2 * n or bwd != n or seen != {heads}:
+        raise RuntimeError(f"split train: {fwd} forward and {bwd} gradient "
+                           f"flash launches in {SPLIT_STEPS} steps of "
+                           f"{cfg.n_layers} layers, query heads {seen}")
+    if not (peak < total and abs(peak - want) <= 0.1 * want):
+        raise RuntimeError(f"split train: peak {peak} B against the dry "
+                           f"run's argument + temp {want} B (within 10%) "
+                           f"and the card's {total} B")
+    local = split_flash_times(torch, fa, dev, B, S, heads, cfg.head_dim)
+    log(f"split train llama32_vision_11b, all {cfg.n_layers} layers, "
+        f"rank 0 of a fake (1, {SPLIT_M}) group, batch {B} x {S} + "
+        f"{cfg.n_img_tokens} image tokens: state {held} B on the card "
+        f"(dry run's state bytes {cell['state_bytes']:.0f}); peak "
+        f"{peak} B ({peak / 2**30:.2f} GiB) against the dry run's "
+        f"argument + temp {want:.0f} B ({peak / want - 1:+.4f}), the "
+        f"card's {total} B; steps {[round(t, 4) for t in walls]} s, "
+        f"device spans {[round(t, 3) for t in spans]} ms; flash launches "
+        f"{fwd} forward, {bwd} gradient, all at {heads} of {cfg.n_heads} "
+        f"query heads; dry run flops {cell['cost']['flops']:.4e}, "
+        f"{card_line()}")
+    r0, r1 = phase_split_gloo(torch)
+    if r0["bad"] or (r0["loss"], r0["grad_norm"]) != (
+            r1["loss"], r1["grad_norm"]) or not np_close(
+            [r0["loss"], r0["grad_norm"]], r0["one"], 1e-5):
+        raise RuntimeError(f"split step over gloo on the card vs the "
+                           f"one-process step: {r0}, {r1}")
+    log(f"split step over gloo, 2 processes on the one card, reduced "
+        f"qwen3_4b (1, 2): loss {r0['loss']!r}, grad norm "
+        f"{r0['grad_norm']!r} against the one-process step's "
+        f"{r0['one']}, both ranks alike; parameters within the bound, "
+        f"the worst at {r0['worst']:.4f} of it")
+    log(f"phase 46: {time.perf_counter() - t0:.1f} s (set-up {built:.1f} s)")
+    return {"fwd": fwd, "bwd": bwd, "peak": peak, "spans": spans,
+            "local": local}
+
+
+def np_close(a, b, rtol: float) -> bool:
+    return all(abs(x - y) <= rtol * abs(y) for x, y in zip(a, b))
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -6088,6 +6385,7 @@ def main(argv=None) -> int:
     dense_t = phase_dense_train(torch, fa, dev)                      # 43
     mesh_t = phase_mesh_train(torch, fa, dev)                        # 44
     hub_p = phase_hubert_pipeline(torch, fa, dev)                    # 45
+    split_t = phase_split_train(torch, fa, dev)                      # 46
     log(f"imc_fused keyed kernel a launch on the device: {main_k['ms']:.4f}"
         f" ms at phase 3's P=120 flat indices below 2^31, "
         f"{keyed_joint['ms']:.4f} ms at P=120 joint-space indices above "
@@ -6130,7 +6428,7 @@ def main(argv=None) -> int:
                    + hub["fwd_launches"] + rgt["launches"][0]
                    + phi["flash"] + mix["flash"] + moet["fwd"]
                    + vist["fwd"] + dense["flash"] + dense_l["flash"]
-                   + dense_t["fwd"] + mesh_t["fwd"],
+                   + dense_t["fwd"] + mesh_t["fwd"] + split_t["fwd"],
                    "max_abs_err": max(main_f["max_abs_err"],
                                       served["max_abs_err"],
                                       main_c["flash_err"],
@@ -6147,7 +6445,7 @@ def main(argv=None) -> int:
                              "src/repro/models/attention.py:29)",
                  "launches": trained["launches"] + hub["launches"]
                  + moet["bwd"] + vist["bwd"] + dense_l["bwd"]
-                 + dense_t["bwd"] + mesh_t["bwd"],
+                 + dense_t["bwd"] + mesh_t["bwd"] + split_t["bwd"],
                  "max_abs_err": max(main_b["max_abs_err"],
                                     main_c["bwd_err"]),
                  "ms": main_b["ms"],

@@ -19,21 +19,28 @@ cell's step runs once:
 - prefill: ``models.prefill``, or the encoder's forward;
 - decode: ``models.decode_step`` (``--kv-quant``).
 
-The compute runs whole on every rank (the parameters gathered, the
-batch and the cache this data rank's part), as the port's train step
-does. The record has the reference's keys; what they hold here:
+Every cell runs on this rank's shards with its compute split over
+"model" (``models/split.py``, as the port's train step and the
+reference's GSPMD split it), the batch and the cache this data rank's
+part; the cache is placed batch-only (replicated over "model"), so
+prefill and decode write it whole on every rank. The record has the
+reference's keys; what they hold here:
 
 - ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode`` over this
-  rank's work (per device, as XLA's cost analysis is): products, and the
-  plain flash's whole S x T scores;
+  rank's work (per device, as XLA's cost analysis is): the products on
+  this rank's shards, and the plain flash's whole S x T scores of its
+  heads;
 - ``memory``: ``argument_size_in_bytes`` and ``output_size_in_bytes``
   are the local shards' bytes of the step's inputs and outputs;
   ``temp_size_in_bytes`` is the peak of the bytes allocated during the
   step and alive at once (outputs made in the step included), by a
   dispatch mode that follows every fake tensor's storage;
 - ``collective_bytes``: the five reference names, each the result bytes
-  of this rank's functional collectives of that kind (the reference's
-  ``_line_result_bytes`` convention);
+  of this rank's collectives of that kind (the reference's
+  ``_line_result_bytes`` convention): ``parallel.tensor_parallel``'s
+  under their own names (a rank-ordered reduce-scatter's part, an
+  all-reduce's whole, made of ``all_to_all_single`` and all-gathers),
+  other functional collectives as they are;
 - ``lower_s``: building the placed state; ``compile_s``: the traced
   step (nothing compiles);
 - ``model_flops``: the reference's formulas (``model_flops``).
@@ -71,9 +78,11 @@ from ..models.transformer import (LM, decode_step, forward, init_cache,
                                   prefill)
 from ..parallel.sharding import (P, batch_axes, batch_partition_spec,
                                  cache_specs, is_placed)
+from ..parallel.tensor_parallel import (inside_collective, local_params,
+                                        record_collectives, split_of,
+                                        use_split)
 from ..train.loop import (TrainState, elastic_remesh, init_train_state,
-                          make_train_step, train_state_shardings,
-                          whole_params)
+                          make_train_step, train_state_shardings)
 from ..train.optimizer import AdamWState
 from .mesh import Mesh, make_production_mesh, mesh_context
 
@@ -122,7 +131,10 @@ class StepTrace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        kind = _collective_of(func)
+        # a collective of ``parallel.tensor_parallel`` is recorded under
+        # its own name (``record_collectives``), not as the raw ones it
+        # is made of
+        kind = "" if inside_collective() else _collective_of(func)
         for t in pytree.tree_leaves(out):
             if isinstance(t, torch.Tensor) and not is_placed(t):
                 if kind:
@@ -233,8 +245,11 @@ def _cut_seq(cache, mesh: Mesh, kv_seq_axis) -> list:
 
 
 @contextlib.contextmanager
-def _whole_model(model: LM):
-    with torch.no_grad(), whole_params(model):
+def _split_model(model: LM, mesh: Mesh):
+    """The model on this rank's shards, its compute split over "model"
+    (``parallel.tensor_parallel``), without gradients."""
+    split = split_of(mesh)
+    with torch.no_grad(), local_params(model, split), use_split(split):
         yield model
 
 
@@ -259,12 +274,13 @@ def lower_cell(cfg: ArchConfig, shape_name: Union[str, ShapeSpec],
     fake = FakeTensorMode()
     with fake:
         model = LM(torch.Generator().manual_seed(0), cfg)
+        shardings = train_state_shardings(cfg, mesh, model)
         if shape.kind == "train":
-            state = init_train_state(model)
+            state = init_train_state(model, shardings)
         else:   # parameters alone: no optimizer state to place
-            state = TrainState(model.eval(), AdamWState({}, {}, 0), 0)
-        state = elastic_remesh(state, train_state_shardings(cfg, mesh,
-                                                            model))
+            state = elastic_remesh(TrainState(model.eval(),
+                                              AdamWState({}, {}, 0), 0),
+                                   shardings)
         batch, n_local = _local_batch(cfg, mesh, B, S)
     state_tree = [model] + ([state.opt.m, state.opt.v]
                             if shape.kind == "train" else [])
@@ -284,12 +300,12 @@ def lower_cell(cfg: ArchConfig, shape_name: Union[str, ShapeSpec],
     elif shape.kind == "prefill":
         if cfg.is_decoder:
             def run():
-                with _whole_model(model):
+                with _split_model(model, mesh):
                     logits, cache = prefill(model, cfg, batch, cache_len=S)
                 return logits, _cut_seq(cache, mesh, kv_seq_axis)
         else:
             def run():   # the encoder's forward (it has no decode)
-                with _whole_model(model):
+                with _split_model(model, mesh):
                     return forward(model, cfg, batch, mode="train",
                                    remat=False)[0]
         args = [model, batch]
@@ -303,7 +319,7 @@ def lower_cell(cfg: ArchConfig, shape_name: Union[str, ShapeSpec],
             pos = torch.zeros((n_local,), dtype=torch.long)
 
         def run():
-            with _whole_model(model):
+            with _split_model(model, mesh):
                 local = [{k: _batch_only(t) for k, t in blk.items()}
                          for blk in cache]
                 logits, new = decode_step(model, cfg, token, local, pos)
@@ -315,13 +331,14 @@ def lower_cell(cfg: ArchConfig, shape_name: Union[str, ShapeSpec],
         known = _locals(args)
         with fake, mesh_context(mesh):
             flops = FlopCounterMode(display=False)
-            with flops, StepTrace(known) as rec:
+            with flops, StepTrace(known) as rec, \
+                    record_collectives() as split_events:
                 out = run()
             memory = {"argument_size_in_bytes": _nbytes(args),
                       "output_size_in_bytes": _nbytes(out),
                       "temp_size_in_bytes": float(rec.peak)}
         return {"cost": {"flops": float(flops.get_total_flops())},
-                "memory": memory, "events": rec.events}
+                "memory": memory, "events": rec.events + split_events}
     return trace, aux
 
 

@@ -69,9 +69,9 @@ class Mesh:
         return f"Mesh({axes})"
 
 
-def _device_mesh(shape, axes):
+def _device_mesh(shape, axes, device_type=None):
     from torch.distributed.device_mesh import init_device_mesh
-    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    kind = device_type or ("cuda" if dist.get_backend() == "nccl" else "cpu")
     return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 
@@ -84,14 +84,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return mesh
 
 
-def make_host_mesh(model: int = 1) -> Mesh:
+def make_host_mesh(model: int = 1, device_type: Optional[str] = None
+                   ) -> Mesh:
     """(n // model, model) over the ranks of the default process group
     (tests, CPU processes); 1 x 1 without one. The ``DeviceMesh`` is on
-    the card under the nccl backend and on the CPU otherwise."""
+    ``device_type``, by default on the card under the nccl backend and
+    on the CPU otherwise (a fake group's ranks on the card: "cuda")."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     assert n % model == 0
     shape, axes = (n // model, model), ("data", "model")
-    return Mesh(shape, axes, _device_mesh(shape, axes) if n > 1 else None)
+    return Mesh(shape, axes, _device_mesh(shape, axes, device_type)
+                if n > 1 else None)
 
 
 _CURRENT: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(

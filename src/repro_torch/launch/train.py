@@ -11,7 +11,10 @@ Fault tolerance: checkpoint/restore and bit-exact resume through
 
 The state is placed on ``make_host_mesh(model=--model-shards)`` and
 trained by ``train.loop``'s step over that mesh: on one process the
-mesh is 1 x 1 and every leaf stays a plain tensor. Under torchrun
+mesh is 1 x 1 and every leaf stays a plain tensor. Over more ranks each
+rank holds its shards and the moments' parts only (nothing whole is
+made beside the seeded init), and the step's compute is split over
+"model" (``models/split.py``). Under torchrun
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` in the
 environment) the launcher starts the process group itself, gloo with
 ``--device cpu`` and nccl on the card (``LOCAL_RANK``'s device), and
@@ -38,8 +41,8 @@ from ..configs import get_config
 from ..data import SyntheticTokenPipeline
 from ..device import resolve_device
 from ..models import ArchConfig, init_params
-from ..train.loop import (TrainState, elastic_remesh, init_train_state,
-                          make_train_step, train_loop, train_state_shardings)
+from ..train.loop import (TrainState, init_train_state, make_train_step,
+                          train_loop, train_state_shardings)
 from .mesh import Mesh, make_host_mesh, mesh_context
 
 
@@ -88,9 +91,9 @@ def setup(args: argparse.Namespace, device: torch.device,
         cfg = get_config(args.arch, reduced=args.reduced)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    state = init_train_state(init_params(gen, cfg))
-    state = elastic_remesh(state, train_state_shardings(cfg, mesh,
-                                                        state.params))
+    params = init_params(gen, cfg)
+    state = init_train_state(params, train_state_shardings(cfg, mesh,
+                                                           params))
     step_fn = make_train_step(cfg, peak_lr=args.lr, total_steps=args.steps,
                               warmup=max(args.steps // 20, 5),
                               accum=args.accum, mesh=mesh)

@@ -21,13 +21,13 @@ the routing stays whole.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import matmul
+from .layers import mlp
 
 
 class MoE(nn.Module):
@@ -108,14 +108,18 @@ def route(p: MoE, xf: torch.Tensor, top_k: int, C: int):
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, top_k: int,
-            capacity_factor: float = 1.25, drop_free: bool = False
+            capacity_factor: float = 1.25, drop_free: bool = False,
+            ffn: Callable[[MoE, torch.Tensor], torch.Tensor] = mlp
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d) in x's type, aux: the float32
     Switch-style load-balance loss E sum(mean(probs) mean(onehot(top1)))).
 
     ``drop_free`` sizes the capacity at the worst case, T k, so no token
     is dropped (decode, where T is the batch). T is the call's B S: a
-    padded token would take capacity, so callers pass none."""
+    padded token would take capacity, so callers pass none. ``ffn(p,
+    buf)`` runs every expert's SwiGLU FFN on its rows of the dispatch
+    buffer (E, C + 1, d), one batched product each (``models/split.py``
+    passes its split over ff)."""
     B, S, d = x.shape
     E = p.router.shape[1]
     T = B * S
@@ -130,8 +134,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, top_k: int,
         buf = buf.index_put((e_id, pos),
                             torch.where(keep[:, None], xf,
                                         torch.zeros_like(xf)))
-    h = F.silu(matmul(buf, p.gate)) * matmul(buf, p.up)
-    out = matmul(h, p.down)                                 # (E, C + 1, d)
+    out = ffn(p, buf)                                       # (E, C + 1, d)
     y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
     for slot, (e_id, pos, keep) in enumerate(slots):
         y = y + out[e_id, pos].float() * (gate_vals[:, slot] * keep)[:, None]

@@ -77,6 +77,7 @@ from .layers import (MLP, apply_rope, cross_entropy, dense_init, matmul,
                      mlp, rms_norm, spec_for, zeros_param)
 from .moe import MoE, moe_ffn
 from ..parallel.sharding import PartitionSpec
+from ..parallel.tensor_parallel import current_split
 
 MOE_AUX_WEIGHT = 0.01
 PORTED_KINDS = ("attn", "local_attn", "cross_attn", "rglru", "mlstm",
@@ -336,12 +337,20 @@ def _ffn_apply(p, cfg: ArchConfig, x: torch.Tensor, mode: str):
 def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
                 mode: str, cache: Optional[Dict[str, torch.Tensor]] = None,
                 vis_embeds: Optional[torch.Tensor] = None,
-                positions: Optional[torch.Tensor] = None):
+                positions: Optional[torch.Tensor] = None, split=None):
     """x: (B, S, d). Returns (x, cache, aux_loss); ``cache`` is updated in
     place in the prefill and decode modes. ``vis_embeds`` (B,
     n_img_tokens, d_vision) feeds a ``cross_attn`` block's keys and
-    values in the train and prefill modes."""
+    values in the train and prefill modes. With ``split`` (a
+    ``parallel.tensor_parallel.ModelSplit``) ``p`` holds this rank's
+    shards and the block runs split over the model axis
+    (``models/split.py``)."""
     _check_ported(cfg, kind)
+    if split is not None:
+        from . import split as _split
+        return _split.apply_block(cfg, kind, p, x, mode=mode, cache=cache,
+                                  vis_embeds=vis_embeds,
+                                  positions=positions, split=split)
     h = rms_norm(x, p.ln, cfg.norm_eps)
     if kind in _NO_FFN:
         mix = _mlstm_mix if kind == "mlstm" else _slstm_mix
@@ -361,12 +370,18 @@ def apply_block(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, *,
     return x + y, cache, aux
 
 
-def _attn_mix(cfg: ArchConfig, kind: str, p: Block, h: torch.Tensor,
-              mode: str, cache, positions) -> torch.Tensor:
-    """The attention branch's output projection, (B, S, d)."""
-    B, S, _ = h.shape
-    window = cfg.local_window if kind == "local_attn" else cfg.window
-    q, k, v = _attn_qkv(p, cfg, h, h)
+def _attn_window(cfg: ArchConfig, kind: str) -> int:
+    return cfg.local_window if kind == "local_attn" else cfg.window
+
+
+def _rope_and_cache(cfg: ArchConfig, window: int, q: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, mode: str, cache,
+                    positions: torch.Tensor):
+    """RoPE on q and k (B, S, heads, hd), and in the prefill and decode
+    modes k and v written into the cache: decode's one position into its
+    slot, prefill's last positions that fit into theirs. Returns (q,
+    k)."""
+    B, S = q.shape[0], q.shape[1]
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -377,23 +392,35 @@ def _attn_mix(cfg: ArchConfig, kind: str, p: Block, h: torch.Tensor,
             slot = pos % cap
         else:                   # full cache sized to max position
             slot = torch.clamp(pos, max=cap - 1)
-        _write_kv(cfg, cache, torch.arange(B, device=h.device), slot,
+        _write_kv(cfg, cache, torch.arange(B, device=q.device), slot,
                   k[:, 0], v[:, 0], pos)
-        o = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
-                             window=window, k_scale=cache.get("k_scale"),
+    elif mode == "prefill":
+        cap = cache["k"].shape[1]
+        take = min(cap, S)
+        # ring-buffer invariant: position p lives in slot p % cap, so
+        # decode's writes land consistently
+        slots = positions[:, S - take:] % cap            # (B, take)
+        _write_kv(cfg, cache, torch.arange(B, device=q.device)[:, None],
+                  slots, k[:, S - take:], v[:, S - take:],
+                  positions[:, S - take:])
+    return q, k
+
+
+def _attn_mix(cfg: ArchConfig, kind: str, p: Block, h: torch.Tensor,
+              mode: str, cache, positions) -> torch.Tensor:
+    """The attention branch's output projection, (B, S, d)."""
+    B, S, _ = h.shape
+    window = _attn_window(cfg, kind)
+    q, k, v = _attn_qkv(p, cfg, h, h)
+    q, k = _rope_and_cache(cfg, window, q, k, v, mode, cache, positions)
+    if mode == "decode":
+        o = decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                             positions[:, 0], window=window,
+                             k_scale=cache.get("k_scale"),
                              v_scale=cache.get("v_scale"))
     else:
         # prefill attends over the unquantised k and v, as the reference
         o = blockwise_attention(q, k, v, causal=cfg.causal, window=window)
-        if mode == "prefill":
-            cap = cache["k"].shape[1]
-            take = min(cap, S)
-            # ring-buffer invariant: position p lives in slot p % cap, so
-            # decode's writes land consistently
-            slots = positions[:, S - take:] % cap            # (B, take)
-            _write_kv(cfg, cache, torch.arange(B, device=h.device)[:, None],
-                      slots, k[:, S - take:], v[:, S - take:],
-                      positions[:, S - take:])
     return matmul(o.reshape(B, S, -1), p.wo)
 
 
@@ -446,6 +473,11 @@ def _rglru_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
     return o @ p.w_out
 
 
+# the cache leaves of the xLSTM scans' states, in their fields' order
+MLSTM_STATE = ("C", "n", "m")
+SLSTM_STATE = ("c", "n", "m", "h")
+
+
 def _mlstm_width(cfg: ArchConfig) -> int:
     """The mLSTM block's width w = 2 d; its heads are w / H wide (512 at
     xlstm-350m's full width, not ``cfg.head_dim``)."""
@@ -461,6 +493,22 @@ def _fresh_state(cache: Dict[str, torch.Tensor]) -> None:
             t.fill_(M_INIT)
         else:
             t.zero_()
+
+
+def _scan_state(cache, mode: str, state_cls, names, part=None):
+    """The state an xLSTM scan starts from: None in the train mode (the
+    zero state), else the cache's leaves ``names`` (put back to the zero
+    state first in prefill), the scan updating them in place; with
+    ``part`` (lo, hi), a contiguous copy of their slice [lo, hi) of dim
+    1 instead (a rank's heads or channels)."""
+    if mode == "train":
+        return None
+    if mode == "prefill":
+        _fresh_state(cache)
+    if part is None:
+        return state_cls(*(cache[n] for n in names))
+    lo, hi = part
+    return state_cls(*(cache[n][:, lo:hi].contiguous() for n in names))
 
 
 def _mlstm_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
@@ -485,12 +533,7 @@ def _mlstm_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
     v = _split_heads(xb @ p.wv, H, hd).float()
     ifg = (xb @ p.w_if).float()
     i_pre, f_pre = ifg[..., :H], ifg[..., H:]
-    if mode == "train":
-        state = None
-    else:
-        state = rec.MLSTMState(cache["C"], cache["n"], cache["m"])
-        if mode == "prefill":
-            _fresh_state(cache)
+    state = _scan_state(cache, mode, rec.MLSTMState, MLSTM_STATE)
     o = rec.mlstm_sequence(q, k, v, i_pre, f_pre, state)
     o = o.reshape(B, S, w) * (gate * torch.sigmoid(gate)).float()
     return o.to(cfg.torch_dtype) @ p.w_down
@@ -506,13 +549,7 @@ def _slstm_mix(cfg: ArchConfig, p: Block, h: torch.Tensor, mode: str,
     ``w_out``."""
     B, S, d = h.shape
     gates = (h @ p.w_gates).reshape(B, S, d, 4)
-    if mode == "train":
-        state = None
-    else:
-        state = rec.SLSTMState(cache["c"], cache["n"], cache["m"],
-                               cache["h"])
-        if mode == "prefill":
-            _fresh_state(cache)
+    state = _scan_state(cache, mode, rec.SLSTMState, SLSTM_STATE)
     o = rec.slstm_sequence(gates, p.r, state)
     return o.to(cfg.torch_dtype) @ p.w_out
 
@@ -620,7 +657,17 @@ def _vis_kv_source(params: LM, cfg: ArchConfig, batch
 def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
            cache: Optional[Cache], positions: Optional[torch.Tensor],
            remat: bool = False):
-    x = _embed_inputs(params, cfg, batch)
+    """The blocks from the embedding to the final norm: (x, cache, aux).
+    Under a current ``ModelSplit`` (``parallel.tensor_parallel.
+    use_split``) the model holds this rank's shards and every block runs
+    split (``models/split.py``); the split is passed to each block, so a
+    block recomputed in the backward pass runs split too."""
+    sp = current_split()
+    if sp is None:
+        x = _embed_inputs(params, cfg, batch)
+    else:
+        from . import split as _split
+        x = _split.embed_inputs(params, cfg, batch, sp)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -645,11 +692,12 @@ def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
             # in the backward pass (the reference's jax.checkpoint of its
             # period blocks; the ``rem`` blocks run plain there too)
             x, a = checkpoint(_block_train, cfg, kind, blk, x, positions,
-                              vis, use_reentrant=False)
+                              vis, sp, use_reentrant=False)
         else:
             x, _, a = apply_block(cfg, kind, blk, x, mode=mode,
                                   cache=cache[i] if use_cache else None,
-                                  vis_embeds=vis, positions=positions)
+                                  vis_embeds=vis, positions=positions,
+                                  split=sp)
         if isinstance(a, torch.Tensor):   # a dense FFN's 0 adds nothing
             aux = aux + a
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
@@ -657,19 +705,37 @@ def _trunk(params: LM, cfg: ArchConfig, batch, mode: str,
 
 
 def _block_train(cfg: ArchConfig, kind: str, blk: Block, x: torch.Tensor,
-                 positions: torch.Tensor, vis: Optional[torch.Tensor]):
+                 positions: torch.Tensor, vis: Optional[torch.Tensor],
+                 split=None):
     """A train-mode block: (x, aux)."""
     x, _, a = apply_block(cfg, kind, blk, x, mode="train", vis_embeds=vis,
-                          positions=positions)
+                          positions=positions, split=split)
     return x, a
+
+
+def _vocab_split(params: LM):
+    """The current ``ModelSplit`` when it splits ``unembed`` over the
+    vocabulary, else None."""
+    sp = current_split()
+    return sp if sp is not None and sp.dim_of(params.unembed) == 1 else None
+
+
+def _unembed(params: LM, x: torch.Tensor) -> torch.Tensor:
+    """``x @ unembed``, whole (from the vocabulary's shards, gathered,
+    where the current ``ModelSplit`` splits it)."""
+    sp = _vocab_split(params)
+    if sp is None:
+        return matmul(x, params.unembed)
+    return sp.gather(sp.col(x, params.unembed), -1)
 
 
 def check_seq_spec(seq_spec) -> None:
     """``seq_spec`` (a ``PartitionSpec`` of the residual stream (B, S, d),
     the reference's sequence parallelism) against the current mesh
     (``launch.mesh.current_mesh``): an axis the mesh lacks, or no
-    current mesh, raises ValueError. The port runs the compute whole on
-    each rank, so the spec moves no value."""
+    current mesh, raises ValueError. The residual stream stays whole on
+    every rank between blocks (``models/split.py``), so the spec moves no
+    value."""
     if seq_spec is None:
         return
     from ..launch.mesh import current_mesh
@@ -704,19 +770,28 @@ def forward(params: LM, cfg: ArchConfig, batch, *, mode: str = "train",
     check_seq_spec(seq_spec)
     x, cache, aux = _trunk(params, cfg, batch, mode, cache, positions,
                            remat)
-    return matmul(x, params.unembed), cache, aux
+    return _unembed(params, x), cache, aux
 
 
 def loss_fn(params: LM, cfg: ArchConfig, batch, remat: bool = True,
             seq_spec=None):
     """Mean next-token CE (``frame_ce``: per-frame CE) plus the MoE
-    auxiliary term; differentiable. Returns (loss, {"ce", "aux"})."""
-    logits, _, aux = forward(params, cfg, batch, mode="train", remat=remat,
-                             seq_spec=seq_spec)
-    if cfg.loss == "frame_ce":
-        loss = cross_entropy(logits, batch["labels"])
+    auxiliary term; differentiable. Returns (loss, {"ce", "aux"}). Where
+    the current ``ModelSplit`` splits ``unembed`` over the vocabulary the
+    CE is vocabulary-parallel (``models/split.vocab_parallel_ce``)."""
+    check_seq_spec(seq_spec)
+    x, _, aux = _trunk(params, cfg, batch, "train", None, None, remat)
+    labels = batch["labels"]
+    sp = _vocab_split(params)
+    logits = matmul(x, params.unembed) if sp is None else \
+        sp.col(x, params.unembed)
+    if cfg.loss != "frame_ce":
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    if sp is None:
+        loss = cross_entropy(logits, labels)
     else:
-        loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        from . import split as _split
+        loss = _split.vocab_parallel_ce(logits, labels, sp)
     return loss + MOE_AUX_WEIGHT * aux, {"ce": loss, "aux": aux}
 
 
@@ -728,7 +803,7 @@ def prefill(params: LM, cfg: ArchConfig, batch, cache_len: int):
     first = batch["tokens"] if "tokens" in batch else batch["frames"]
     cache = init_cache(cfg, first.shape[0], cache_len, first.device)
     x, cache, _ = _trunk(params, cfg, batch, "prefill", cache, None)
-    return matmul(x[:, -1], params.unembed), cache
+    return _unembed(params, x[:, -1]), cache
 
 
 def decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor,
@@ -737,4 +812,4 @@ def decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor,
     Returns (logits (B, V), cache)."""
     x, cache, _ = _trunk(params, cfg, {"tokens": token}, "decode", cache,
                          position[:, None])
-    return matmul(x[:, 0], params.unembed), cache
+    return _unembed(params, x[:, 0]), cache

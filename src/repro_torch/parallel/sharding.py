@@ -89,7 +89,8 @@ class NamedSharding:
     def place(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as it is on a mesh of one device; else a DTensor over the
         mesh's ``DeviceMesh``: each rank passes the whole tensor and keeps
-        its part (``local_part``; no communication)."""
+        a copy of its part (``local_part``; no communication; a copy, so
+        the whole's storage is not kept alive by a view of it)."""
         if self.mesh.size == 1:
             return x
         if self.mesh.device_mesh is None:
@@ -98,9 +99,25 @@ class NamedSharding:
         from torch.distributed.tensor import DTensor
         dm, pl = self.mesh.device_mesh, self.placements
         stride = torch.empty(x.shape, device="meta").stride()
-        return DTensor.from_local(local_part(x, dm, pl).contiguous(), dm,
-                                  pl, run_check=False, shape=x.shape,
-                                  stride=stride)
+        part = local_part(x, dm, pl).clone(
+            memory_format=torch.contiguous_format)
+        return DTensor.from_local(part, dm, pl, run_check=False,
+                                  shape=x.shape, stride=stride)
+
+    def zeros(self, shape, dtype: torch.dtype, device) -> torch.Tensor:
+        """Zeros of ``shape`` placed as ``place`` would place them, made
+        as this rank's part alone (nothing whole is made)."""
+        if self.mesh.size == 1:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        from torch.distributed.tensor import DTensor
+        dm, pl = self.mesh.device_mesh, self.placements
+        part = part_slices(shape, shard_dims(pl), dm.shape,
+                           dm.get_coordinate())
+        local = torch.zeros([s.stop - s.start for s in part], dtype=dtype,
+                            device=device)
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(local, dm, pl, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
 
 
 def is_placed(x: Any) -> bool:

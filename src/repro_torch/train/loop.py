@@ -17,33 +17,43 @@
   spec rules on the new mesh. With checkpoint/restart it is the
   reference's large-fleet recovery path.
 
-The placed state (``train_state_shardings``, placed by
-``elastic_remesh``) is what the reference's ``in_shardings`` say: each
+The placed state (``train_state_shardings``; ``init_train_state(params,
+shardings)`` makes one without a whole moment, ``elastic_remesh``
+re-places one) is what the reference's ``in_shardings`` say: each
 parameter a DTensor placed by ``models.param_specs(cfg, model size)``,
 AdamW's ``m`` and ``v`` DTensors placed by ``zero1_specs`` (ZeRO-1 over
 "data"), the counters Python ints, the same on every rank; so a rank
-holds only its shard of every sharded leaf between steps. On a 1 x 1
-mesh, and without a mesh, every leaf is a plain tensor. There is one
-step, and on plain leaves each of its gathers and placements is the
-leaf itself (nothing is copied). The step:
+holds only its shard of every sharded leaf. On a 1 x 1 mesh, and
+without a mesh, every leaf is a plain tensor, and the step is the
+plain one (nothing is gathered, placed or copied). The step:
 
-1. gathers the parameters whole into the model, the rank's working copy;
-2. runs the one-process step's loss and gradients on this data rank's
-   batch (``SyntheticTokenPipeline(process_index=data rank,
-   process_count=data size)``);
-3. over more than one data rank, gathers their float32 gradient sums,
-   adds them in rank order and divides by ``accum`` times the data
-   size, as ``accum`` does with its microbatches;
-4. clips on the global norm of that whole gradient;
-5. runs AdamW leaf by leaf on this rank's part of each leaf at ``m`` and
-   ``v``'s placement (``optimizer.adamw_update``);
-6. gathers the new parameters back to their own placement.
+1. swaps each placed parameter for its local tensor
+   (``parallel.tensor_parallel.local_params``; no parameter is ever
+   gathered whole);
+2. runs the loss and its gradients on this data rank's batch
+   (``SyntheticTokenPipeline(process_index=data rank,
+   process_count=data size)``), the compute split over "model" as the
+   reference's GSPMD splits it (``models/split.py``): each sharded
+   product on its shard, partial sums added by rank-ordered
+   collectives, small leaves gathered one at a time; each rank's
+   gradient is that of its own shards;
+3. over more than one data rank, adds their float32 gradient sums in
+   rank order by a rank-ordered reduce-scatter that leaves each rank
+   its part at ``m``'s placement, and divides by ``accum`` times the
+   data size, as ``accum`` does with its microbatches;
+4. clips on the global norm, whose leaves' float64 square sums are
+   taken part by part and gathered, each part counted once
+   (``optimizer.sq_sum``);
+5. runs AdamW leaf by leaf on this rank's parts (``optimizer.
+   adamw_update``);
+6. gathers the data ranks' new parts back into each local shard.
 
-So a (1, M) mesh is bit for bit the one-process step, and a (2, M)
-mesh bit for bit the one-process step with ``accum=2`` over the two
-data ranks' batches, rank 0's first. The compute runs whole on every
-rank: splitting the products over "model", as the reference's GSPMD
-does, is ROADMAP Queue 2 work.
+So a (D, 1) mesh is bit for bit the one-process step with ``accum=D``
+over the data ranks' batches, rank 0's first (unless a norm's float64
+sum lies at a float32 rounding boundary). Over "model" the partial sums
+round differently from the whole products, so a (D, M > 1) step is the
+one-process step within the bound tests/test_torch_mesh_train.py states,
+and every rank of a model group holds the same bits, run to run.
 
 The step is deterministic, on the card and on a CPU with many
 threads, with no global switch: the attention gradient kernel sums
@@ -58,21 +68,25 @@ and the grad norm once a step, for its log (the reference's
 """
 from __future__ import annotations
 
-import contextlib
 import time
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models import ArchConfig
 from ..models.transformer import LM, loss_fn, param_specs
-from ..parallel.sharding import (NamedSharding, P, batch_axes,
-                                 from_local_like, is_placed, local_like,
-                                 shardings_from_specs, whole, zero1_specs)
+from ..parallel.sharding import (NamedSharding, P, batch_axes, is_placed,
+                                 shard_dims, shardings_from_specs, whole,
+                                 zero1_specs)
+from ..parallel.tensor_parallel import (all_gather, all_reduce,
+                                        local_params, reduce_scatter,
+                                        split_of, use_split)
 from .optimizer import (AdamWState, adamw_init, adamw_update,
-                        clip_by_global_norm, warmup_cosine)
+                        clip_by_global_norm, global_norm, sq_sum,
+                        warmup_cosine)
 
 
 class TrainState(NamedTuple):
@@ -81,11 +95,25 @@ class TrainState(NamedTuple):
     step: int
 
 
-def init_train_state(params: LM) -> TrainState:
+def init_train_state(params: LM, shardings: Optional[TrainState] = None
+                     ) -> TrainState:
     """The model switched to training (gradients on) with zero AdamW
-    state beside it, at step 0."""
+    state beside it, at step 0. With ``shardings`` (``train_state_
+    shardings``) each parameter is placed by its sharding, one leaf at a
+    time, and ``m`` and ``v`` are made as this rank's zero parts, so no
+    whole moment is ever made."""
     params.train()
-    return TrainState(params=params, opt=adamw_init(params), step=0)
+    if shardings is None:
+        return TrainState(params=params, opt=adamw_init(params), step=0)
+    for name, p in list(params.named_parameters()):
+        _set_param(params, name, shardings.params[name].place(whole(p)))
+
+    def zeros(tree):
+        return {n: tree[n].zeros(p.shape, torch.float32, _local(p).device)
+                for n, p in params.named_parameters()}
+    opt = AdamWState(m=zeros(shardings.opt.m), v=zeros(shardings.opt.v),
+                     count=0)
+    return TrainState(params=params, opt=opt, step=0)
 
 
 def train_state_shardings(cfg: ArchConfig, mesh, params: LM) -> TrainState:
@@ -112,39 +140,6 @@ def _set_param(model: nn.Module, name: str, value: torch.Tensor) -> None:
                                              requires_grad=old.requires_grad)
 
 
-@contextlib.contextmanager
-def whole_params(model: nn.Module) -> Iterator[Dict[str, torch.Tensor]]:
-    """Inside the block each placed parameter of ``model`` is its whole
-    value (the gathered tensor, a parameter of its own); yields them all
-    by name (a plain leaf is itself). The placed leaves come back after
-    the block."""
-    placed = dict(model.named_parameters())
-    values = {n: whole(p) for n, p in placed.items()}
-    try:
-        for n, p in placed.items():
-            _set_param(model, n, values[n])
-        yield dict(model.named_parameters())
-    finally:
-        for n, p in placed.items():
-            path, _, leaf = n.rpartition(".")
-            model.get_submodule(path)._parameters[leaf] = p
-
-
-def _over_data(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` of every data rank (the batch axes, ("pod", "data"), in rank
-    order), stacked on a new leading dim."""
-    import torch.distributed._functional_collectives as funcol
-    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
-    out = x[None]
-    for axis in reversed(batch_axes(mesh)):
-        if mesh.shape[axis] > 1:
-            out = gather(out.contiguous(), 0,
-                         mesh.device_mesh.get_group(axis))
-    if isinstance(out, funcol.AsyncCollectiveTensor):
-        out = out.wait()
-    return out
-
-
 def _to_device(batch: Dict[str, Any], device: torch.device
                ) -> Dict[str, torch.Tensor]:
     out = {}
@@ -156,20 +151,62 @@ def _to_device(batch: Dict[str, Any], device: torch.device
     return out
 
 
-@torch.no_grad()
-def _place_back(placed: Dict[str, torch.Tensor],
-                values: Dict[str, torch.Tensor], m: Dict[str, torch.Tensor]
-                ) -> None:
-    """Each placed parameter's new value, this rank's part of its updated
-    whole value at ``m``'s placement, redistributed to the parameter's
-    own placement; a plain parameter was updated in place."""
-    for name, p in placed.items():
-        value = values.pop(name)
-        if is_placed(p):
-            part = local_like(value, m[name]).contiguous()
-            new = from_local_like(part, m[name]).redistribute(
-                p.device_mesh, p.placements)
-            p.to_local().copy_(new.to_local())
+def _batch_groups(mesh):
+    """(group, size) of each batch axis ("pod", "data") of more than one
+    rank, "data" first: the data ranks' sums are added over "data", then
+    over "pod"."""
+    if mesh is None or mesh.device_mesh is None:
+        return []
+    return [(mesh.device_mesh.get_group(a), mesh.shape[a])
+            for a in reversed(batch_axes(mesh)) if mesh.shape[a] > 1]
+
+
+def _data_dim(m: torch.Tensor) -> Optional[int]:
+    """The tensor dim the "data" axis splits in ``m`` (ZeRO-1), or
+    None."""
+    if not is_placed(m):
+        return None
+    return shard_dims(m.placements)[
+        list(m.device_mesh.mesh_dim_names).index("data")]
+
+
+def _data_part(x: torch.Tensor, m: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's part of ``x`` (a leaf's model shard, or a tensor of
+    its shape) at ``m``'s data placement: a view."""
+    d = _data_dim(m)
+    if d is None:
+        return x
+    n = mesh.shape["data"]
+    return x.chunk(n, d)[mesh.coordinate("data")]
+
+
+def _sum_over_data(x: torch.Tensor, m: torch.Tensor, groups
+                   ) -> torch.Tensor:
+    """``x`` of every data rank added in rank order, this rank's part at
+    ``m``'s placement kept: a rank-ordered reduce-scatter over "data"
+    (an all-reduce where ``m`` is not split there), then an all-reduce
+    over "pod"."""
+    d = _data_dim(m)
+    for i, (group, n) in enumerate(groups):
+        if i == 0 and d is not None:
+            x = reduce_scatter(x, d, group, n)
+        else:
+            x = all_reduce(x, group, n)
+    return x
+
+
+def _norm_owners(coords: np.ndarray, m: Dict[str, torch.Tensor]
+                 ) -> np.ndarray:
+    """(ranks, leaves) bool: whether a rank's part of a leaf counts in
+    the global norm, i.e. the rank is the first along every mesh axis
+    that replicates the leaf's ``m`` (a part held by several ranks counts
+    once); ``coords`` (ranks, mesh dims) holds each rank's coordinate."""
+    own = np.zeros((len(coords), len(m)), dtype=bool)
+    for j, x in enumerate(m.values()):
+        rep = [i for i, d in enumerate(shard_dims(x.placements))
+               if d is None]
+        own[:, j] = (coords[:, rep] == 0).all(axis=1)
+    return own
 
 
 def make_train_step(cfg: ArchConfig, peak_lr: float = 3e-4,
@@ -187,13 +224,19 @@ def make_train_step(cfg: ArchConfig, peak_lr: float = 3e-4,
     here) and the rate ``lr``. Parameters and AdamW state are updated in
     place. ``seq_spec`` is the reference's (``models.forward``). The
     state is plain tensors (``mesh`` None, or 1 x 1) or placed on
-    ``mesh`` (``launch.mesh``; ``elastic_remesh(state,
-    train_state_shardings(cfg, mesh, state.params))``), and then
-    ``batch`` is this data rank's part, as the module docstring says."""
+    ``mesh`` (``launch.mesh``; ``init_train_state(params,
+    train_state_shardings(cfg, mesh, params))``), and then ``batch`` is
+    this data rank's part, as the module docstring says."""
+    groups = _batch_groups(mesh)
     data = 1
-    if mesh is not None:
-        for a in batch_axes(mesh):
-            data *= mesh.shape[a]
+    for _, n in groups:
+        data *= n
+    split = split_of(mesh)
+    if mesh is not None and mesh.device_mesh is not None:
+        grid = np.array(mesh.device_mesh.mesh.tolist())
+        coords = np.zeros((grid.size, grid.ndim), dtype=np.int64)
+        for c, r in np.ndenumerate(grid):
+            coords[r] = c
 
     def value_and_grad(params: LM, names, leaves, batch):
         loss, parts = loss_fn(params, cfg, batch, remat=remat,
@@ -205,7 +248,7 @@ def make_train_step(cfg: ArchConfig, peak_lr: float = 3e-4,
                                     materialize_grads=True)
         return loss.detach(), parts["aux"].detach(), dict(zip(names, grads))
 
-    def loss_and_grads(params: LM, batch):
+    def loss_and_grads(params: LM, m, batch):
         named = list(params.named_parameters())
         names = [n for n, _ in named]
         leaves = [p for _, p in named]
@@ -225,35 +268,61 @@ def make_train_step(cfg: ArchConfig, peak_lr: float = 3e-4,
             asum = aux if asum is None else asum + aux
         if data > 1:
             # the data ranks' sums added in rank order, as the
-            # microbatches' are
+            # microbatches' are; each rank keeps its part at m's
+            # placement
             with torch.no_grad():
-                ranks = _over_data(torch.stack([lsum, asum]), mesh)
-                lsum, asum = ranks[0, 0], ranks[0, 1]
-                for r in range(1, data):
-                    lsum, asum = lsum + ranks[r, 0], asum + ranks[r, 1]
+                lsum, asum = _sum_over_data(torch.stack([lsum, asum]),
+                                            lsum, groups)
                 for n in names:
-                    ranks = _over_data(gsum[n], mesh)
-                    gsum[n].zero_()
-                    for r in range(data):
-                        gsum[n].add_(ranks[r])
-                    del ranks
+                    gsum[n] = _sum_over_data(gsum[n], m[n], groups)
         k = accum * data
         return lsum / k, asum / k, {n: g.div_(k) for n, g in gsum.items()}
 
+    def mesh_norm(grads, m) -> Optional[torch.Tensor]:
+        """The global norm from every rank's parts of the gradient (each
+        part counted once), gathered over the default group (which the
+        mesh spans), the same bits on every rank; None on one
+        process."""
+        if mesh is None or mesh.device_mesh is None:
+            return None
+        sq = torch.stack([sq_sum(g) for g in grads.values()])
+        ranks = all_gather(sq[None], 0, dist.group.WORLD, len(coords))
+        own = torch.tensor(_norm_owners(coords, m).tolist(),
+                           device=sq.device)
+        return global_norm(torch.where(own, ranks, 0).sum(0))
+
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        params = state.params
-        placed = dict(params.named_parameters())
-        with whole_params(params) as values:
-            loss, aux, grads = loss_and_grads(params, batch)
-        grads, gnorm = clip_by_global_norm(grads, clip)
-        # 1-based schedule step: lr > 0 from the very first update
-        lr = warmup_cosine(state.step + 1, peak_lr, warmup, total_steps)
-        _, opt = adamw_update(grads, state.opt, values, lr)
-        _place_back(placed, values, opt.m)
+        params, opt = state.params, state.opt
+        with local_params(params, split) as local:
+            with use_split(split):
+                loss, aux, grads = loss_and_grads(params, opt.m, batch)
+            grads, gnorm = clip_by_global_norm(grads, clip,
+                                               mesh_norm(grads, opt.m))
+            # 1-based schedule step: lr > 0 from the very first update
+            lr = warmup_cosine(state.step + 1, peak_lr, warmup, total_steps)
+            with torch.no_grad():
+                parts = {n: _data_part(x, opt.m[n], mesh)
+                         for n, x in local.items()}
+            mine = AdamWState(m={n: _local(x) for n, x in opt.m.items()},
+                              v={n: _local(x) for n, x in opt.v.items()},
+                              count=opt.count)
+            _, mine = adamw_update(grads, mine, parts, lr)
+            with torch.no_grad():
+                # the data ranks' new parts joined on each rank
+                for n, x in local.items():
+                    d = _data_dim(opt.m[n])
+                    if d is not None:
+                        x.copy_(all_gather(parts[n], d, groups[0][0],
+                                           groups[0][1]))
         metrics = {"loss": loss, "aux": aux, "grad_norm": gnorm, "lr": lr}
+        opt = AdamWState(opt.m, opt.v, mine.count)
         return TrainState(params, opt, state.step + 1), metrics
 
     return train_step
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if is_placed(x) else x
 
 
 def train_loop(state: TrainState, train_step: Callable, data_iter,

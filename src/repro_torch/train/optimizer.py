@@ -17,18 +17,18 @@ and ``m``/``v`` in place, one leaf at a time, so at full width the
 float32 temporaries of one leaf are all that is alive beside the state.
 The step counter and the schedule are host numbers (float32 values, as
 the reference's traced scalars are), so an update reads nothing back
-from the device.
+from the device. The clip's norm adds the float32 squares in float64
+(``sq_sum``), so a gradient cut in parts over ranks gives the norm the
+whole gives (the reference adds them in float32).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
-
-from ..parallel.sharding import is_placed, local_like
 
 Tree = Dict[str, torch.Tensor]
 
@@ -58,17 +58,34 @@ def adamw_init(params: Union[nn.Module, Tree]) -> AdamWState:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Tree, max_norm: float
+def sq_sum(g: torch.Tensor) -> torch.Tensor:
+    """The sum of a gradient's float32 squares, added in float64 (0-dim):
+    a leaf cut in parts gives, part sum by part sum, the float64 sum of
+    the whole to a few units of float64's last place, so the float32 norm
+    rounded from it does not depend on the cut (but at a float32
+    rounding boundary)."""
+    return torch.sum(torch.square(g.float()), dtype=torch.float64)
+
+
+@torch.no_grad()
+def global_norm(sq: torch.Tensor) -> torch.Tensor:
+    """The float32 global norm from the leaves' float64 square sums
+    (``sq_sum``; a 1-d tensor in leaf order)."""
+    return torch.sqrt(torch.sum(sq)).float()
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Scales every gradient by min(1, max_norm / max(norm, 1e-12)), the
-    norm taken over all leaves in float32; in place (each leaf through a
-    float32 copy, cast back to its type). Returns (grads, norm), the norm
-    a 0-dim float32 tensor on the gradients' device (not read here)."""
-    sq = None
-    for g in grads.values():
-        t = torch.sum(g.float() ** 2)
-        sq = t if sq is None else sq + t
-    norm = torch.sqrt(sq)
+    norm taken over all leaves (``global_norm`` of their ``sq_sum``s,
+    unless ``norm`` is given: the train step's over a mesh, from every
+    rank's parts); in place (each leaf through a float32 copy, cast back
+    to its type). Returns (grads, norm), the norm a 0-dim float32 tensor
+    on the gradients' device (not read here)."""
+    if norm is None:
+        norm = global_norm(torch.stack([sq_sum(g) for g in grads.values()]))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in grads.values():
         g.copy_(g.float() * scale)
@@ -83,23 +100,19 @@ def adamw_update(grads: Tree, state: AdamWState,
     """One AdamW step, leaf by leaf and in place (parameters, ``m`` and
     ``v``). ``grads`` is consumed: each gradient leaves it once its leaf
     is updated, so its memory goes back before the next leaf's
-    temporaries are made. Where ``m`` and ``v`` are DTensors (the train
-    step's ZeRO-1 placement), ``params`` and ``grads`` hold whole values
-    and only this rank's part of each (``parallel.sharding.local_like``,
-    a view) is updated: the step is elementwise, so a part takes the
-    bits the whole leaf would. Returns (params, the state with count +
-    1)."""
+    temporaries are made. The leaves are plain tensors of one shape a
+    name; the train step over a mesh passes this rank's parts (views of
+    its parameters at ``m`` and ``v``'s placement): the step is
+    elementwise, so a part takes the bits the whole leaf would. Returns
+    (params, the state with count + 1)."""
     tree = params_of(params)
     count = state.count + 1
     t, one = np.float32(count), np.float32(1.0)
     bc1 = float(one - np.float32(b1) ** t)
     bc2 = float(one - np.float32(b2) ** t)
     for name in list(grads):
-        m, v = state.m[name], state.v[name]
-        p = local_like(tree[name], m)
-        gf = local_like(grads.pop(name), m).float()
-        if is_placed(m):
-            m, v = m.to_local(), v.to_local()
+        m, v, p = state.m[name], state.v[name], tree[name]
+        gf = grads.pop(name).float()
         m.mul_(b1).add_(gf * (1 - b1))
         v.mul_(b2).add_((gf * (1 - b2)).mul_(gf))
         del gf

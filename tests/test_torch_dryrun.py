@@ -145,8 +145,11 @@ def test_train_cell_argument_bytes_are_the_shards(tiny):
     """A tiny train cell on a (2, 2) fake mesh: argument bytes the hand
     sum of every parameter's shard, ``m`` and ``v``'s float32 ZeRO-1
     shards and this data rank's rows of the batch; output bytes the new
-    state and the three 0-dim metrics; temp above the gathered
-    parameters; flops and all-gathers counted."""
+    state and the three 0-dim metrics; temp above the whole parameters'
+    bytes (the activations of 4 rows); flops counted; the data ranks'
+    float32 gradient sums reduce-scattered (at least the ZeRO-1 parts of
+    the leaves ``m`` splits over "data"), and fewer bytes all-gathered
+    than the whole parameters hold (no rank gathers them all)."""
     cfg = tiny
     with dryrun.fake_world(4):
         mesh = make_host_mesh(model=2)
@@ -173,8 +176,58 @@ def test_train_cell_argument_bytes_are_the_shards(tiny):
     whole = sum(4 * torch.Size(s).numel() for s in shapes.values())
     assert mem["temp_size_in_bytes"] > whole
     assert rec["cost"]["flops"] > 0
-    assert rec["collective_bytes"]["all-gather"] > whole
+    parts = sum(4 * numel(s, mv[n]) for n, s in shapes.items()
+                if "data" in mv[n])
+    assert rec["collective_bytes"]["reduce-scatter"] >= parts > 0
+    assert 0 < rec["collective_bytes"]["all-gather"] < whole
     assert rec["n_devices"] == 4
+
+
+def _wide():
+    """2 layers of d 64, 4 heads, ff 256, vocab 128: every product
+    splits over 4 ranks."""
+    return ArchConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=4, head_dim=16, d_ff=256,
+                      vocab_size=128, dtype="float32")
+
+
+def test_train_cell_flops_split_over_model(monkeypatch):
+    """A tiny train cell (``_wide``) on a fake (1, 4) group counts at most
+    1/3 of the flops a rank that it counts on the 1 x 1 mesh: the
+    products run on each rank's shards."""
+    from repro_torch.launch.mesh import Mesh
+    monkeypatch.setattr(dryrun, "get_config", lambda a: _wide())
+    shape = ShapeSpec("t", 16, 8, "train")
+    one = dryrun.run_cell("tiny", shape, Mesh((1, 1), ("data", "model")),
+                          "one", "")
+    with dryrun.fake_world(4):
+        split = dryrun.run_cell("tiny", shape, make_host_mesh(model=4),
+                                "fake4", "")
+    assert 0 < split["cost"]["flops"] <= one["cost"]["flops"] / 3
+    assert split["collective_bytes"]["all-reduce"] > 0
+
+
+def test_rank_ordered_reduce_scatter_bytes():
+    """``parallel.tensor_parallel``'s rank-ordered reduce-scatter on a
+    4-rank fake group is recorded once, as a reduce-scatter with its
+    part's bytes (the ``all_to_all_single`` it is made of is not
+    counted); its all-reduce as an all-reduce with the whole's bytes; a
+    plain DTensor gather still under its own name."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    import torch.distributed as dist
+    from repro_torch.parallel import tensor_parallel as tp
+    with dryrun.fake_world(4):
+        g = dist.group.WORLD
+        with FakeTensorMode(), dryrun.StepTrace() as rec, \
+                tp.record_collectives() as events:
+            x = torch.zeros(64, 8)
+            assert tp.reduce_scatter(x, 0, g, 4).shape == (16, 8)
+            assert tp.all_reduce(torch.zeros(5, 3), g, 4).shape == (5, 3)
+            assert tp.all_gather(torch.zeros(2, 3), 1, g, 4).shape == (2, 12)
+    got = dryrun.collective_bytes(rec.events + events)
+    assert got == {"all-gather": 2 * 12 * 4.0, "all-reduce": 5 * 3 * 4.0,
+                   "reduce-scatter": 16 * 8 * 4.0, "all-to-all": 0.0,
+                   "collective-permute": 0.0}
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
